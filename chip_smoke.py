@@ -1,0 +1,691 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's quantized DLRM serving path on one GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA device and fails (non-zero exit, no result line)
+without one, or when the ``torchrec_tpu_torch`` package is not beside it.
+
+Phases, one JSON line each on stdout; any failure raises:
+
+1. device — the card, its power limit, and the nvcc build of the
+   kernels (``torchrec_tpu_torch/csrc/tbe_quant.cu``) from source;
+2. kernel — each CUDA kernel against its plain PyTorch version on the
+   card (``torch.equal``) at D=128, S=4096 segments with the MLPerf
+   DLRM-v2 multi-hot lengths, a 1M-row table, uniform and Zipf ids; with
+   its time, its plain version's, ``F.embedding_bag`` over the
+   pre-dequantized float32 table as a yardstick, and the memory bound;
+3. serving — the main path: DLRM at the widths of ``bench.py`` (26 sparse
+   features, D=128, 13 dense, dense arch 512-256-128, over arch
+   1024-1024-512-256-1, float32) over int8 tables at the MLPerf DLRM-v2
+   row counts (204,184,588 rows); first each kernel against its plain
+   version (``torch.equal``) on every feature of one formed batch (B=256)
+   over those tables, uniform and Zipf ids, int8 and the int4/int2 views
+   of the same codes, with row offsets past 2^31 bytes; then behind
+   ``InferenceServer`` with eight
+   client threads, once with the int8 TBE kernel and once with the dedup
+   kernel on Zipf ids; then ``serving_fn`` alone at B=4096, and a
+   ``torch.profiler`` breakdown of one served batch (B=256): wall time,
+   device busy time and idle share, the kernels that take the time;
+4. roundtrip — ``package_model`` at 10k rows per table, loaded on the
+   card and on the CPU, scores compared.
+
+Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
+and the result line ``{"ok": true, "device": {...}}`` last.
+
+Cut for the smoke run: the serving tables' codes, scales and biases are
+drawn on the device from a seeded generator instead of quantizing
+trained weights through ``package_model`` (26 GB of float tables would
+not fit the run); the dense weights are random from a seed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM data-sheet peaks (dense): HBM bandwidth and float32 rate
+# outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+KERNEL_SOURCE = "torchrec_tpu_torch/csrc/tbe_quant.cu"
+REPLACES = {
+    "quant_pooled_lookup_int8":
+        "torchrec_tpu/ops/pallas_tbe.py:383",
+    "dedup_quant_pooled_lookup":
+        "torchrec_tpu/ops/pallas_tbe.py:888",
+}
+
+KERNEL_ROWS = 1_000_000
+KERNEL_SEGMENTS = 4096
+DIM = 128
+NUM_DENSE = 13
+DENSE_ARCH = (512, 256, DIM)
+OVER_ARCH = (1024, 1024, 512, 256, 1)
+NUM_REQUESTS = 512
+NUM_CLIENTS = 8
+SERVING_BATCH = 256
+BENCH_BATCH = 4096
+ROUNDTRIP_ROWS = 10_000
+ZIPF_A = 1.1
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, flush, runs: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` over ``runs`` calls after ``warmup``,
+    by CUDA events; ``flush`` (a 128 MB buffer) is rewritten before each
+    timed call, outside the events, so no call finds the previous call's
+    rows in the 50 MB L2."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def zipf_ids(rng: np.random.RandomState, size: int, rows: int) -> np.ndarray:
+    """Zipf-distributed ids as ``bench.py`` draws them."""
+    return np.minimum(rng.zipf(ZIPF_A, size=size) - 1, rows - 1)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def kernel_phase(dev, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from torchrec_tpu_torch.datasets.criteo import MLPERF_DLRM_V2_MULTI_HOT
+    from torchrec_tpu_torch.ops import tbe
+
+    R, D, S = KERNEL_ROWS, DIM, KERNEL_SEGMENTS
+    lengths = torch.tensor(
+        [MLPERF_DLRM_V2_MULTI_HOT[s % len(MLPERF_DLRM_V2_MULTI_HOT)]
+         for s in range(S)], dtype=torch.int64,
+    )
+    V = int(lengths.sum())
+    segs = torch.repeat_interleave(torch.arange(S), lengths).to(dev)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(lengths, 0)[:-1]]).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    w = torch.rand(V, generator=gen, device=dev)
+    scale = (torch.rand(R, generator=gen, device=dev) + 0.5) * (0.1 / 255)
+    bias = torch.rand(R, generator=gen, device=dev) * 0.01 - 0.05
+    rng = np.random.RandomState(0)
+    id_sets = {
+        "uniform": torch.randint(0, R, (V,), generator=gen, device=dev),
+        "zipf": torch.from_numpy(zipf_ids(rng, V, R)).to(dev),
+    }
+    rows = []
+    for bits in (8, 4, 2):
+        Dp = D * bits // 8
+        packed = torch.randint(0, 256, (R, Dp), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        deq = (tbe.unpack_rows(packed, bits).to(torch.float32)
+               * scale[:, None] + bias[:, None])
+        kernels = [("dedup_quant_pooled_lookup", tbe.dedup_quant_pooled_lookup,
+                    tbe.dedup_quant_pooled_lookup_plain, {"bits": bits})]
+        if bits == 8:
+            kernels.insert(0, ("quant_pooled_lookup_int8",
+                               tbe.quant_pooled_lookup_int8,
+                               tbe.quant_pooled_lookup_int8_plain, {}))
+        for dist, ids in id_sets.items():
+            args = (packed, scale, bias, ids, segs, S, w)
+            U = int(torch.unique(ids).numel())
+            # the least this lookup must move: each distinct row (codes +
+            # scale + bias) once, each id, segment and weight once, the
+            # float32 output once; 4 flops per id and column
+            nbytes = (U * (Dp + 8)
+                      + V * (ids.element_size() + segs.element_size()
+                             + w.element_size())
+                      + S * D * 4)
+            flops = 4 * V * D
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            flops_ms = flops / PEAK_F32_FLOPS * 1e3
+            lib_ms = cuda_ms(
+                lambda: F.embedding_bag(ids, deq, offsets, mode="sum",
+                                        per_sample_weights=w), flush)
+            lib_out = F.embedding_bag(ids, deq, offsets, mode="sum",
+                                      per_sample_weights=w)
+            for name, wrapper, plain, kw in kernels:
+                got = wrapper(*args, **kw)
+                torch.cuda.synchronize()
+                ref = plain(*args, **kw)
+                torch.cuda.synchronize()
+                equal = bool(torch.equal(got, ref))
+                err = float((got - ref).abs().max())
+                if not equal:
+                    raise AssertionError(
+                        f"{name} bits={bits} {dist}: kernel != plain "
+                        f"(max abs err {err})"
+                    )
+                if name == "quant_pooled_lookup_int8":
+                    prep = tbe.sort_by_segment(ids, segs, w, S, R)
+                    launch = lambda: tbe.launch_q8_pooled(  # noqa: E731
+                        packed, scale, bias, *prep)
+                else:
+                    prep = tbe.dedup_prepare(ids, segs, w, S, R)
+                    launch = lambda: tbe.launch_dedup_q(  # noqa: E731
+                        packed, scale, bias, *prep, bits)
+                rec = {
+                    "phase": "kernel", "kernel": name, "bits": bits,
+                    "ids": dist, "rows": R, "D": D, "S": S, "V": V,
+                    "distinct": U, "equal": equal, "max_abs_err": err,
+                    "ms": cuda_ms(lambda: wrapper(*args, **kw), flush),
+                    "kernel_ms": cuda_ms(launch, flush),
+                    "plain_ms": cuda_ms(lambda: plain(*args, **kw), flush),
+                    "library_ms": lib_ms,
+                    "library_max_abs_diff": float(
+                        (lib_out - got).abs().max()),
+                    "bytes": nbytes, "flops": flops,
+                    "bound_ms": max(bytes_ms, flops_ms),
+                    "bound_by": "bytes" if bytes_ms >= flops_ms
+                    else "operations",
+                }
+                emit(rec)
+                rows.append(rec)
+        del packed, deq
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serving at full width
+# ---------------------------------------------------------------------------
+
+
+def _random_int8_tables(dev, tables, seed):
+    """Codes, scales and biases drawn on the device from a seeded
+    generator (dequantized values in about [-0.05, 0.06])."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = {}
+    for cfg in tables:
+        R = cfg.num_embeddings
+        params[cfg.name] = {
+            "q": torch.randint(0, 256, (R, cfg.embedding_dim), generator=gen,
+                               device=dev, dtype=torch.uint8),
+            "scale": (torch.rand(R, generator=gen, device=dev) + 0.5)
+            * (0.1 / 255),
+            "bias": torch.rand(R, generator=gen, device=dev) * 0.01 - 0.05,
+        }
+    return params
+
+
+def _requests(batch, num_features):
+    """Split one dataset batch into single-example requests."""
+    kjt = batch.sparse_features
+    B = kjt.stride()
+    lengths = kjt.lengths().numpy().reshape(num_features, B)
+    values = kjt.values().numpy()
+    offs = kjt.cap_offsets()
+    per_feat = []
+    for f in range(num_features):
+        starts = np.concatenate([[0], np.cumsum(lengths[f])])
+        per_feat.append([values[offs[f] + starts[b]: offs[f] + starts[b + 1]]
+                         for b in range(B)])
+    dense = batch.dense_features.numpy()
+    return [(dense[b], [per_feat[f][b] for f in range(num_features)])
+            for b in range(B)]
+
+
+def _serve(server, requests):
+    """Send ``requests`` from NUM_CLIENTS threads; returns (scores,
+    per-request latencies in ms, wall seconds)."""
+    scores = np.full((len(requests),), np.nan, np.float64)
+    lat = np.zeros((len(requests),), np.float64)
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(k, len(requests), NUM_CLIENTS):
+                t0 = time.perf_counter()
+                scores[i] = server.predict(*requests[i])
+                lat[i] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:  # reported below, after every join
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(NUM_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or errors:
+        raise RuntimeError(f"serving clients failed: {errors[:3]}")
+    return scores, lat, wall
+
+
+def _direct_batch(requests, features, caps, dev):
+    """The requests as one formed batch (KJT, dense) on ``dev``."""
+    import torch
+
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    B, F = len(requests), len(features)
+    lengths = np.asarray([[len(x) for x in ids] for _, ids in requests],
+                         np.int32)
+    values = np.concatenate([np.asarray(requests[b][1][f], np.int64)
+                             for f in range(F) for b in range(B)])
+    kjt = KeyedJaggedTensor.from_lengths_packed(
+        features, values, lengths.T.reshape(-1), caps=[c * B for c in caps])
+    dense = torch.from_numpy(np.stack([d for d, _ in requests]))
+    return kjt.to(dev), dense.to(dev)
+
+
+def profile_serving(kernel, fn, batch, iters: int = 10):
+    """Where one formed batch's time goes: ``torch.profiler`` over
+    ``iters`` calls of the serving module, each ending in a synchronise.
+    Device busy time is the sum of the device events (one stream, so
+    they do not overlap); the rest of the profiled wall time the card is
+    idle.  The same calls are timed once without the profiler, which
+    gives the profiler's own cost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        fn(batch.dense_features, batch.sparse_features)
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    bare_ms = (time.perf_counter() - t0) * 1e3 / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a profiler that traced no device event measured nothing: report
+    # the device numbers as not measured (null), never as an idle card
+    busy_ms = (sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters
+               if device else None)
+    by_name: dict = {}
+    for e in device:
+        # the C++ signature without its argument list, cut to 72 chars
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0][:72]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "profile", "kernel": kernel,
+          "batch": batch.dense_features.shape[0], "iters": iters,
+          "unprofiled_wall_ms_per_batch": bare_ms,
+          "wall_ms_per_batch": wall_ms, "device_busy_ms_per_batch": busy_ms,
+          "device_idle_share": (None if busy_ms is None
+                                else 1.0 - busy_ms / wall_ms),
+          "device_events_per_batch": len(device) / iters,
+          "top_device_ms_per_batch": {k: v / 1e3 / iters for k, v in top}})
+
+
+def path_kernel_phase(dev, tables, params, kjt, zipf_seed):
+    """Each kernel against its plain version on the card, at the shapes
+    the serving path gives it: every feature of one formed batch over the
+    full-size tables, as ``QuantEmbeddingBagCollection`` calls them, with
+    the batch's uniform ids and with Zipf ids.  int4 and int2 run over
+    the same codes viewed as packed rows (``[R, 128]`` uint8 is ``[2R,
+    64]`` int4 and ``[4R, 32]`` int2, scale and bias repeated per row),
+    with ids ``k * id + k - 1``, so the largest row offsets pass 2^31
+    bytes at every width.  Returns the records it emits."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.sharding.common import per_slot_segments
+
+    B = kjt.stride()
+    rng = np.random.RandomState(zipf_seed)
+    # per id set and (kernel, bits): [slots, slots past 2^31 bytes,
+    # largest row, max abs err]
+    stats: dict = {}
+    for cfg in tables:
+        p = params[cfg.name]
+        R, D = p["q"].shape
+        for f in cfg.feature_names:
+            jt = kjt[f]
+            seg = per_slot_segments(jt.lengths(), jt.capacity)
+            valid = (seg >= 0) & (seg < B)
+            uni = jt.values().to(torch.int64)
+            zipf = torch.from_numpy(
+                zipf_ids(rng, uni.numel(), R).astype(np.int64)).to(dev)
+            for bits in (8, 4, 2):
+                per = 8 // bits
+                packed = p["q"].view(R * per, D // per)
+                scale = p["scale"].repeat_interleave(per)
+                bias = p["bias"].repeat_interleave(per)
+                runs = [("dedup_quant_pooled_lookup",
+                         tbe.dedup_quant_pooled_lookup,
+                         tbe.dedup_quant_pooled_lookup_plain, {"bits": bits})]
+                if bits == 8:
+                    runs.insert(0, ("quant_pooled_lookup_int8",
+                                    tbe.quant_pooled_lookup_int8,
+                                    tbe.quant_pooled_lookup_int8_plain, {}))
+                for dist, base in (("uniform", uni), ("zipf", zipf)):
+                    ids = base * per + (per - 1)
+                    vids = ids[valid]
+                    far = int((vids * packed.shape[1] >= 2**31).sum())
+                    top = int(vids.max()) if vids.numel() else -1
+                    for name, wrapper, plain, kw in runs:
+                        got = wrapper(packed, scale, bias, ids, seg, B, **kw)
+                        torch.cuda.synchronize()
+                        ref = plain(packed, scale, bias, ids, seg, B, **kw)
+                        torch.cuda.synchronize()
+                        err = float((got - ref).abs().max())
+                        if not torch.equal(got, ref):
+                            raise AssertionError(
+                                f"{name} bits={bits} {dist} feature {f}: "
+                                f"kernel != plain on the serving tables "
+                                f"(max abs err {err})")
+                        s = stats.setdefault((dist, name, bits),
+                                             [0, 0, -1, 0.0])
+                        s[0] += int(vids.numel())
+                        s[1] += far
+                        s[2] = max(s[2], top)
+                        s[3] = max(s[3], err)
+                del packed, scale, bias
+    recs = []
+    for (dist, name, bits), (n, far, top, err) in stats.items():
+        rec = {"phase": "path_kernel", "kernel": name, "bits": bits,
+               "ids": dist, "batch": B, "features": len(kjt.keys()),
+               "slots": n, "slots_past_2^31_bytes": far, "largest_row": top,
+               "equal": True, "max_abs_err": err}
+        emit(rec)
+        recs.append(rec)
+    near = [(r["kernel"], r["bits"]) for r in recs
+            if r["ids"] == "uniform" and r["slots_past_2^31_bytes"] == 0]
+    if near:
+        raise AssertionError(f"{near}: no row offset of the served batch "
+                             "passed 2^31 bytes")
+    return recs
+
+
+def serving_phase(dev):
+    import torch
+
+    from torchrec_tpu_torch.datasets.criteo import (
+        DEFAULT_CAT_NAMES,
+        MLPERF_DLRM_V2_MULTI_HOT,
+        MLPERF_DLRM_V2_ROWS,
+        mlperf_dlrm_v2_tables,
+    )
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+    from torchrec_tpu_torch.inference import InferenceServer, build_serving_fn
+    from torchrec_tpu_torch.models.dlrm import DLRM
+    from torchrec_tpu_torch.modules.embedding_configs import DataType
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.quant import QuantEmbeddingBagCollection
+
+    import dataclasses
+
+    features = list(DEFAULT_CAT_NAMES)
+    caps = list(MLPERF_DLRM_V2_MULTI_HOT)
+    tables = tuple(dataclasses.replace(c, data_type=DataType.INT8)
+                   for c in mlperf_dlrm_v2_tables(DIM))
+    t0 = time.perf_counter()
+    params = _random_int8_tables(dev, tables, seed=0)
+    torch.cuda.synchronize()
+    table_bytes = sum(p["q"].numel() + 8 * p["scale"].numel()
+                      for p in params.values())
+    emit({"phase": "serving_tables", "rows": sum(MLPERF_DLRM_V2_ROWS),
+          "bytes": table_bytes, "seconds": time.perf_counter() - t0,
+          "memory_allocated": torch.cuda.memory_allocated()})
+    torch.manual_seed(0)
+    model = DLRM(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH)
+    fns = {
+        kernel: build_serving_fn(
+            model, QuantEmbeddingBagCollection(tables, params, kernel),
+            device=dev)
+        for kernel in ("tbe", "dedup")
+    }
+    ds = RandomRecDataset(features, NUM_REQUESTS, MLPERF_DLRM_V2_ROWS, caps,
+                          num_dense=NUM_DENSE, manual_seed=0, num_batches=1)
+    uniform = _requests(next(iter(ds)), len(features))
+    zrng = np.random.RandomState(1)
+    zipf = [(d, [zipf_ids(zrng, len(x), r).astype(np.int64)
+                 for x, r in zip(ids, MLPERF_DLRM_V2_ROWS)])
+            for d, ids in uniform]
+    # one batch of the server's padded size: warms both serving modules
+    # (cuBLAS handles, the kernels' first launch) before any timed
+    # request, then is profiled after the server runs
+    served = next(iter(RandomRecDataset(
+        features, SERVING_BATCH, MLPERF_DLRM_V2_ROWS, caps,
+        num_dense=NUM_DENSE, manual_seed=2, num_batches=1))).to(dev)
+    for fn in fns.values():
+        fn(served.dense_features, served.sparse_features)
+    torch.cuda.synchronize()
+    path = path_kernel_phase(dev, tables, params, served.sparse_features,
+                             zipf_seed=3)
+    main_launches = dict.fromkeys(tbe.LAUNCHES, 0)
+    runs = {}
+    for kernel, requests, counter in (
+        ("tbe", uniform, "quant_pooled_lookup_int8"),
+        ("dedup", zipf, "dedup_quant_pooled_lookup"),
+    ):
+        server = InferenceServer(
+            fns[kernel], features, caps, NUM_DENSE,
+            max_batch_size=SERVING_BATCH, max_latency_us=2000,
+            queue="python",
+        )
+        server.start()
+        try:
+            tbe.reset_launch_counts()
+            scores, lat, wall = _serve(server, requests)
+            counts = tbe.launch_counts()
+        finally:
+            server.stop()
+        batches = server.metrics.snapshot()["serving/batch_size"].count
+        errors = server.metrics.snapshot().get(
+            "serving/executor_error_count", 0)
+        for k, v in counts.items():
+            main_launches[k] += v
+        other = next(k for k in counts if k != counter)
+        # the same requests as one formed batch, straight through the
+        # serving module: the reference for what the server answered
+        kjt, dense = _direct_batch(requests, features, caps, dev)
+        direct = fns[kernel](dense, kjt).double().cpu().numpy()
+        rec = {
+            "phase": "serving", "kernel": kernel, "requests": len(requests),
+            "clients": NUM_CLIENTS, "batches": batches,
+            "executor_errors": errors, "launches": counts,
+            "all_finite": bool(np.isfinite(scores).all()),
+            "max_abs_diff_vs_direct": float(np.abs(scores - direct).max()),
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "requests_per_s": len(requests) / wall,
+        }
+        emit(rec)
+        if not rec["all_finite"] or errors:
+            raise AssertionError(f"serving with {kernel}: non-finite scores "
+                                 f"or {errors} executor errors")
+        if counts[counter] < len(features) * batches or counts[other]:
+            raise AssertionError(
+                f"serving with {kernel}: {counts} launches for {batches} "
+                f"batches of {len(features)} features"
+            )
+        if not np.allclose(scores, direct, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"serving with {kernel}: served scores "
+                                 "differ from the direct batch")
+        runs[kernel] = rec
+
+    # serving_fn alone on formed batches of the bench's size
+    ds = RandomRecDataset(features, BENCH_BATCH, MLPERF_DLRM_V2_ROWS, caps,
+                          num_dense=NUM_DENSE, manual_seed=1, num_batches=1)
+    batch = next(iter(ds)).to(dev)
+    outs = {}
+    for kernel, fn in fns.items():
+        def step():
+            return fn(batch.dense_features, batch.sparse_features)
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        outs[kernel] = out
+        emit({"phase": "serving_fn", "kernel": kernel, "batch": BENCH_BATCH,
+              "ms_per_batch": ms, "samples_per_s": BENCH_BATCH / ms * 1e3,
+              "all_finite": bool(torch.isfinite(out).all())})
+    if not torch.equal(outs["tbe"], outs["dedup"]):
+        raise AssertionError("tbe and dedup serving differ on one batch")
+    for kernel, fn in fns.items():
+        profile_serving(kernel, fn, served)
+    del fns, params
+    torch.cuda.empty_cache()
+    return main_launches, runs, path
+
+
+# ---------------------------------------------------------------------------
+# phase 4: artifact round trip, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def roundtrip_phase(dev):
+    import torch
+
+    from torchrec_tpu_torch.datasets.criteo import (
+        DEFAULT_CAT_NAMES,
+        MLPERF_DLRM_V2_MULTI_HOT,
+        mlperf_dlrm_v2_tables,
+    )
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+    from torchrec_tpu_torch.inference import load_packaged_model, package_model
+    from torchrec_tpu_torch.models.dlrm import DLRM
+
+    import dataclasses
+
+    tables = tuple(dataclasses.replace(c, num_embeddings=ROUNDTRIP_ROWS)
+                   for c in mlperf_dlrm_v2_tables(DIM))
+    rng = np.random.RandomState(0)
+    weights = {c.name: (rng.randn(ROUNDTRIP_ROWS, DIM) * 0.05)
+               .astype(np.float32) for c in tables}
+    torch.manual_seed(1)
+    model = DLRM(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH)
+    features = list(DEFAULT_CAT_NAMES)
+    caps = list(MLPERF_DLRM_V2_MULTI_HOT)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "artifact")
+        package_model(
+            path, tables, weights, dict(zip(features, caps)), NUM_DENSE,
+            quant_dtype="int8", dense_state_dict=model.state_dict(),
+            model_config={"arch": "dlrm",
+                          "dense_arch_layer_sizes": list(DENSE_ARCH),
+                          "over_arch_layer_sizes": list(OVER_ARCH)},
+        )
+        fn_gpu, _ = load_packaged_model(path, device=dev)
+        fn_cpu, _ = load_packaged_model(path, device="cpu")
+    ds = RandomRecDataset(features, 256, [ROUNDTRIP_ROWS] * len(features),
+                          caps, num_dense=NUM_DENSE, manual_seed=2,
+                          num_batches=1)
+    batch = next(iter(ds))
+    gpu = fn_gpu(batch.dense_features.to(dev),
+                 batch.sparse_features.to(dev)).cpu().numpy()
+    cpu = fn_cpu(batch.dense_features, batch.sparse_features).numpy()
+    ok = bool(np.allclose(gpu, cpu, rtol=1e-4, atol=1e-5))
+    rec = {"phase": "roundtrip", "examples": 256, "rows_per_table":
+           ROUNDTRIP_ROWS, "max_abs_diff": float(np.abs(gpu - cpu).max()),
+           "all_finite": bool(np.isfinite(gpu).all()), "within_tol": ok}
+    emit(rec)
+    if not ok or not rec["all_finite"]:
+        raise AssertionError("card and CPU scores of one artifact differ")
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device")
+    sys.path.insert(0, ROOT)
+    from torchrec_tpu_torch.ops import _native, tbe
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    _native.load_library("tbe_quant.cu")
+    info = _native.BUILD_INFO["tbe_quant.cu"]
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_seconds": info["seconds"],
+          "load_seconds": time.perf_counter() - t0,
+          "ptxas": [l.strip() for l in str(info["log"]).splitlines()
+                    if "registers" in l or "spill" in l]})
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    kernel_rows = kernel_phase(dev, flush)
+    del flush
+    main_launches, _, path_rows = serving_phase(dev)
+    roundtrip_phase(dev)
+
+    summary = []
+    for name in tbe.LAUNCHES:
+        # timed: B3 at the serving run's uniform ids; B5 at int8 with the
+        # Zipf ids of its serving run
+        rows = [r for r in kernel_rows if r["kernel"] == name]
+        rep = next(r for r in rows if r["bits"] == 8 and r["ids"] == (
+            "uniform" if name == "quant_pooled_lookup_int8" else "zipf"))
+        if main_launches[name] == 0:
+            raise AssertionError(f"{name} never launched on the main path")
+        summary.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name], "launches": main_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows
+                               if r["kernel"] == name),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"],
+        })
+    emit({"kernels": summary})
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,71 @@
+"""The port stands alone: ``torchrec_tpu_torch`` and ``chip_smoke.py``
+import neither JAX nor anything of the JAX package ``torchrec_tpu``."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import torchrec_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "torchrec_tpu_torch")
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|torchrec_tpu)(?:[.\s,]|$)",
+    re.MULTILINE,
+)
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            torchrec_tpu_torch.__path__, prefix="torchrec_tpu_torch."
+        )
+    )
+
+
+def test_every_module_imports_without_jax():
+    modules = _port_modules()
+    assert "torchrec_tpu_torch.ops.tbe" in modules
+    assert "torchrec_tpu_torch.inference.serving" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'torchrec_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=ROOT, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_source_scan_finds_no_jax_import():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            src = f.read()
+        hit = _FORBIDDEN.search(src)
+        assert hit is None, f"{path}: {hit.group(0).strip()}"
+
+
+def test_forbidden_pattern_catches_jax_imports():
+    for line in ("import jax", "from jax import numpy", "import jax.numpy",
+                 "from torchrec_tpu.ops import quant_ops",
+                 "import torchrec_tpu", "    from flax import linen"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import torchrec_tpu_torch", "from torchrec_tpu_torch.ops "
+                 "import tbe", "# jax is the reference", "import jaxtyping"):
+        assert not _FORBIDDEN.search(line), line

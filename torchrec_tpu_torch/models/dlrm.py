@@ -1,0 +1,108 @@
+"""DLRM dense side for serving (``torchrec_tpu/models/dlrm.py``):
+DenseArch, InteractionArch, OverArch and ``DLRM.forward_from_embeddings``.
+
+All layers are float32; the package turns TF32 off at import, so the
+card's matmuls round like the CPU's.  The sparse side is the caller's
+(``QuantEmbeddingBagCollection`` in serving), handed in as a KeyedTensor.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+from torchrec_tpu_torch.modules.mlp import MLP
+from torchrec_tpu_torch.sparse import KeyedTensor
+
+
+class DenseArch(nn.Module):
+    """Bottom MLP over dense features: [B, in] -> [B, D]."""
+
+    def __init__(self, in_features: int, layer_sizes: Sequence[int]):
+        super().__init__()
+        self.mlp = MLP(in_features, layer_sizes)
+
+    def forward(self, dense_features: torch.Tensor) -> torch.Tensor:
+        return self.mlp(dense_features)
+
+
+class InteractionArch(nn.Module):
+    """Pairwise dot interactions: output ``[B, D + F*(F-1)/2]`` with
+    ``F = num_sparse_features + 1``, the pairs in ``jnp.tril_indices(F,
+    k=-1)`` order (row-major over the strict lower triangle)."""
+
+    def __init__(self, num_sparse_features: int):
+        super().__init__()
+        F = num_sparse_features + 1
+        li, lj = torch.tril_indices(F, F, offset=-1)
+        self.register_buffer("li", li, persistent=False)
+        self.register_buffer("lj", lj, persistent=False)
+
+    def forward(
+        self, dense_features: torch.Tensor, sparse_features: torch.Tensor
+    ) -> torch.Tensor:
+        combined = torch.cat(
+            [dense_features[:, None, :], sparse_features], dim=1
+        )  # [B, F, D]
+        inter = torch.bmm(combined, combined.transpose(1, 2))
+        flat = inter[:, self.li, self.lj]
+        return torch.cat([dense_features, flat], dim=1)
+
+
+class OverArch(nn.Module):
+    """Top MLP -> logit: hidden layers ReLU, final layer linear."""
+
+    def __init__(self, in_features: int, layer_sizes: Sequence[int]):
+        super().__init__()
+        hidden = list(layer_sizes[:-1])
+        self.mlp = MLP(in_features, hidden) if hidden else None
+        self.final = nn.Linear(
+            hidden[-1] if hidden else in_features, layer_sizes[-1]
+        )
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        x = features if self.mlp is None else self.mlp(features)
+        return self.final(x)
+
+
+class DLRM(nn.Module):
+    """Classic DLRM dense side over the tables' pooled embeddings.
+
+    ``tables`` fixes the sparse feature count and the embedding dim,
+    which the dense arch's last layer must equal."""
+
+    def __init__(
+        self,
+        tables: Sequence[EmbeddingBagConfig],
+        dense_in_features: int,
+        dense_arch_layer_sizes: Sequence[int],
+        over_arch_layer_sizes: Sequence[int],
+    ):
+        super().__init__()
+        num_features = sum(len(c.feature_names) for c in tables)
+        d = tables[0].embedding_dim
+        if dense_arch_layer_sizes[-1] != d:
+            raise ValueError(
+                f"dense arch output {dense_arch_layer_sizes[-1]} must match "
+                f"the embedding dim {d}"
+            )
+        F = num_features + 1
+        self.dense_arch = DenseArch(dense_in_features, dense_arch_layer_sizes)
+        self.inter_arch = InteractionArch(num_features)
+        self.over_arch = OverArch(d + F * (F - 1) // 2, over_arch_layer_sizes)
+
+    def forward_from_embeddings(
+        self, dense_features: torch.Tensor, sparse_kt: KeyedTensor
+    ) -> torch.Tensor:
+        """(dense [B, I], pooled embeddings KeyedTensor) -> logits [B, 1]."""
+        B = dense_features.shape[0]
+        d = sparse_kt.length_per_key()[0]
+        embedded_sparse = sparse_kt.values().reshape(B, -1, d)
+        embedded_dense = self.dense_arch(dense_features)
+        concat = self.inter_arch(embedded_dense, embedded_sparse)
+        return self.over_arch(concat)
+
+    forward = forward_from_embeddings
