@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's quantized DLRM serving path on one GPU.
+"""Drive the PyTorch/CUDA port on one GPU: the DLRM training step of
+``bench.py main()`` and quantized DLRM serving.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and fails (non-zero exit, no result line)
@@ -7,14 +8,34 @@ without one, or when the ``torchrec_tpu_torch`` package is not beside it.
 
 Phases, one JSON line each on stdout; any failure raises:
 
-1. device — the card, its power limit, and the nvcc build of the
-   kernels (``torchrec_tpu_torch/csrc/tbe_quant.cu``) from source;
-2. kernel — each CUDA kernel against its plain PyTorch version on the
-   card (``torch.equal``) at D=128, S=4096 segments with the MLPerf
+1. device — the card, its power limit, and the nvcc builds of the
+   kernels (``torchrec_tpu_torch/csrc/{tbe_float,tbe_backward,tbe_quant}.cu``,
+   one nvcc per source, started together) from source;
+2. kernel — each quantized lookup kernel against its plain PyTorch version
+   on the card (``torch.equal``) at D=128, S=4096 segments with the MLPerf
    DLRM-v2 multi-hot lengths, a 1M-row table, uniform and Zipf ids; with
    its time, its plain version's, ``F.embedding_bag`` over the
    pre-dequantized float32 table as a yardstick, and the memory bound;
-3. serving — the main path: DLRM at the widths of ``bench.py`` (26 sparse
+3. train — the training main path: ``DistributedModelParallel`` at the
+   configuration of ``bench.py main()`` (26 tables of 100,000 x 128, SUM,
+   float32, one table-wise group; B=4096 from ``RandomRecDataset`` with
+   one id per feature at most; DLRM 13 -> 512-256-128, over arch
+   1024-1024-512-256-1 in bfloat16 with a float32 logit layer; BCE;
+   rowwise Adagrad lr 0.05 and optax-style dense Adagrad 0.05).  First
+   ``train_kernel``: the float pooled lookup (B1) and the fused backward +
+   rowwise Adagrad (B2) against their plain versions at the path's shapes
+   (the ``[2,600,000, 128]`` stack, V = S = 106,496 slots of a bench
+   batch), float32 and bfloat16 stacks, the batch's uniform ids and
+   Zipf(1.1) ids, with the same times and bounds as above (B2 on fresh
+   copies of the stack and momentum per call, bfloat16 with stochastic
+   rounding); then a path check on the first batch (B1's output, and B2's
+   updated stack and momentum from the step's real gradient,
+   ``torch.equal`` to the plain versions); then 1 warm-up and 20 timed
+   steps over 4 batches (samples/s, every loss finite, one B1 and one B2
+   launch per step), three steps under ``torch.profiler``, and 3 steps of
+   the bfloat16-table arm with stochastic rounding (its path check also
+   holds the rounded stack apart from round-to-nearest);
+4. serving — quantized serving: DLRM at the widths of ``bench.py`` (26 sparse
    features, D=128, 13 dense, dense arch 512-256-128, over arch
    1024-1024-512-256-1, float32) over int8 tables at the MLPerf DLRM-v2
    row counts (204,184,588 rows); first each kernel against its plain
@@ -26,16 +47,17 @@ Phases, one JSON line each on stdout; any failure raises:
    kernel on Zipf ids; then ``serving_fn`` alone at B=4096, and a
    ``torch.profiler`` breakdown of one served batch (B=256): wall time,
    device busy time and idle share, the kernels that take the time;
-4. roundtrip — ``package_model`` at 10k rows per table, loaded on the
+5. roundtrip — ``package_model`` at 10k rows per table, loaded on the
    card and on the CPU, scores compared.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
 
-Cut for the smoke run: the serving tables' codes, scales and biases are
-drawn on the device from a seeded generator instead of quantizing
-trained weights through ``package_model`` (26 GB of float tables would
-not fit the run); the dense weights are random from a seed.
+Cut for the smoke run: the training weights are random from a seed and
+the step count is the bench's; the serving tables' codes, scales and
+biases are drawn on the device from a seeded generator instead of
+quantizing trained weights through ``package_model`` (26 GB of float
+tables would not fit the run); the dense weights are random from a seed.
 """
 
 from __future__ import annotations
@@ -58,8 +80,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-KERNEL_SOURCE = "torchrec_tpu_torch/csrc/tbe_quant.cu"
+KERNEL_SOURCES = {
+    "pooled_lookup": "torchrec_tpu_torch/csrc/tbe_float.cu",
+    "fused_sparse_update": "torchrec_tpu_torch/csrc/tbe_backward.cu",
+    "quant_pooled_lookup_int8": "torchrec_tpu_torch/csrc/tbe_quant.cu",
+    "dedup_quant_pooled_lookup": "torchrec_tpu_torch/csrc/tbe_quant.cu",
+}
 REPLACES = {
+    "pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:287",
+    "fused_sparse_update": "torchrec_tpu/ops/pallas_tbe_backward.py:920",
     "quant_pooled_lookup_int8":
         "torchrec_tpu/ops/pallas_tbe.py:383",
     "dedup_quant_pooled_lookup":
@@ -78,6 +107,15 @@ SERVING_BATCH = 256
 BENCH_BATCH = 4096
 ROUNDTRIP_ROWS = 10_000
 ZIPF_A = 1.1
+# the training step of bench.py main()
+TRAIN_FEATURES = 26
+TRAIN_ROWS = 100_000
+TRAIN_BATCH = 4096
+TRAIN_LR = 0.05
+TRAIN_BATCHES = 4
+TRAIN_STEPS = 20
+BF16_STEPS = 3
+SR_SEED = 12345
 
 
 def emit(record: dict) -> None:
@@ -93,18 +131,23 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, flush, runs: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, flush, runs: int = 20, warmup: int = 3, setup=None) -> float:
     """Median device time of ``fn`` over ``runs`` calls after ``warmup``,
     by CUDA events; ``flush`` (a 128 MB buffer) is rewritten before each
     timed call, outside the events, so no call finds the previous call's
-    rows in the 50 MB L2."""
+    rows in the 50 MB L2.  ``setup`` (if given) runs before each call,
+    outside the events too: it restores what an in-place ``fn`` wrote."""
     import torch
 
     for _ in range(warmup):
+        if setup is not None:
+            setup()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
+        if setup is not None:
+            setup()
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -226,7 +269,388 @@ def kernel_phase(dev, flush):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serving at full width
+# phase 3: the training step at full width
+# ---------------------------------------------------------------------------
+
+
+def build_trainer(dev, table_dtype):
+    """``DistributedModelParallel`` at the configuration of ``bench.py
+    main()``, its state from a seeded generator on the card, and the
+    first ``TRAIN_BATCHES`` batches of its dataset on the card."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+    from torchrec_tpu_torch.models.dlrm import DLRM
+    from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+    from torchrec_tpu_torch.ops.fused_update import FusedOptimConfig
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+
+    keys = [f"cat_{i}" for i in range(TRAIN_FEATURES)]
+    tables = tuple(
+        EmbeddingBagConfig(num_embeddings=TRAIN_ROWS, embedding_dim=DIM,
+                           name=f"t_{k}", feature_names=[k])
+        for k in keys)
+    ds = RandomRecDataset(keys, TRAIN_BATCH, [TRAIN_ROWS] * len(keys),
+                          [1] * len(keys), num_dense=NUM_DENSE,
+                          manual_seed=0)
+    model = DLRM(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                 dense_dtype=torch.bfloat16)
+    dmp = DistributedModelParallel(
+        model, tables, table_wise_plan(tables), TRAIN_BATCH,
+        dict(zip(keys, ds.caps)),
+        fused_config=FusedOptimConfig(learning_rate=TRAIN_LR),
+        dense_optimizer=adagrad(TRAIN_LR), table_dtype=table_dtype,
+        device=dev,
+    )
+    state = dmp.init(torch.Generator(device=dev).manual_seed(0))
+    it = iter(ds)
+    batches = [next(it).to(dev) for _ in range(TRAIN_BATCHES)]
+    return dmp, state, batches
+
+
+def _b1_bound(R, D, esize, ids, segs, w, S):
+    """Bytes and flops the pooled lookup must move / do on these inputs:
+    each distinct valid row once, each slot's id, segment and weight
+    once, the output once; a multiply and an add per valid slot and
+    column."""
+    import torch
+
+    valid = segs < S
+    U = int(torch.unique(ids.clamp(0, R - 1)[valid]).numel())
+    nbytes = (U * D * esize
+              + ids.numel() * (ids.element_size() + segs.element_size()
+                               + w.element_size())
+              + S * D * esize)
+    return U, nbytes, 2 * int(valid.sum()) * D
+
+
+def _b2_bound(D, esize, sg):
+    """Bytes and flops the fused update must move / do on these inputs:
+    each referenced gradient row once, each slot's id, flag, segment and
+    weight once, each touched table row and momentum read and written
+    once; per kept slot a multiply and an add per column, per touched row
+    about four operations per column (square, sum, scale, add)."""
+    import torch
+
+    ok = sg.ok() & (sg.ids >= 0)
+    U = int(torch.unique(sg.ids[ok]).numel())
+    n_seg = int(torch.unique(sg.segments[ok]).numel())
+    V = sg.ids.numel()
+    nbytes = (n_seg * D * 4
+              + V * (sg.ids.element_size() + 1 + sg.segments.element_size()
+                     + sg.weights.element_size())
+              + U * (2 * D * esize + 8))
+    return U, nbytes, 2 * int(ok.sum()) * D + 4 * U * D
+
+
+def _bound(nbytes, flops):
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_F32_FLOPS * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def train_kernel_phase(dev, flush, dmp, state, batch):
+    """B1 and B2 against their plain versions on the card, at the shapes
+    the training step gives them: the group's ``[2,600,000, 128]`` stack
+    (the trainer's float32 one, and its bfloat16 cast), the slots of one
+    bench batch (V = S = 106,496, about half valid), the batch's uniform
+    ids and Zipf(1.1) ids drawn per feature, weight decay 0, a random
+    ``[S, 128]`` upstream gradient; B2 on fresh copies of the stack and
+    momentum for every call, bfloat16 with stochastic rounding.  Returns
+    the records it emits."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
+    from torchrec_tpu_torch.parallel.sharding.tw import tw_lookup_inputs
+
+    (name, lay), = dmp.sharded_ebc.tw_layouts.items()
+    stack32 = state["tables"][name]
+    mom0 = state["fused"][name]["momentum"]
+    R, D = stack32.shape
+    ids_u, w, segs, S = tw_lookup_inputs(lay, batch.sparse_features)
+    rng = np.random.RandomState(5)
+    zipf = (zipf_ids(rng, lay.f_max * lay.cap, TRAIN_ROWS)
+            .reshape(lay.f_max, lay.cap) + lay.row_offset[0][:, None])
+    ids_z = torch.from_numpy(zipf.reshape(-1).astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grad = torch.randn((S, D), generator=gen, device=dev) * 1e-2
+    cfg = dmp.fused_config
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        stack = stack32 if dtype == torch.float32 else stack32.to(dtype)
+        seed = SR_SEED if dtype == torch.bfloat16 else None
+        work_t, work_m = torch.empty_like(stack), torch.empty_like(mom0)
+
+        def restore():
+            work_t.copy_(stack)
+            work_m.copy_(mom0)
+
+        for dist, ids in (("uniform", ids_u), ("zipf", ids_z)):
+            common = {"dtype": str(dtype).replace("torch.", ""),
+                      "ids": dist, "rows": R, "D": D, "S": S,
+                      "V": ids.numel()}
+            # B1: the pooled lookup
+            args = (stack, ids, segs, S, w)
+            got = tbe.pooled_lookup(*args)
+            torch.cuda.synchronize()
+            ref = tbe.pooled_lookup_plain(*args)
+            err = float((got.float() - ref.float()).abs().max())
+            if not torch.equal(got, ref):
+                raise AssertionError(f"pooled_lookup {common}: kernel != "
+                                     f"plain (max abs err {err})")
+            prep = tbe.sort_by_segment(ids, segs, w, S, R)
+            sids, sw, offs = prep
+            # the yardstick gets the valid slots only: embedding_bag's last
+            # bag runs to the end of its indices
+            n = int(offs[-1])
+            lib_ids, lib_offs = sids[:n].to(torch.int64), offs.to(torch.int64)
+            lib_w = sw[:n].to(dtype)
+
+            def library():
+                return F.embedding_bag(
+                    lib_ids, stack, lib_offs, mode="sum",
+                    per_sample_weights=lib_w, include_last_offset=True)
+
+            lib_diff = float((library().float() - got.float()).abs().max())
+            U, nbytes, flops = _b1_bound(R, D, stack.element_size(), ids,
+                                         segs, w, S)
+            bound_ms, bound_by = _bound(nbytes, flops)
+            rec = {
+                "phase": "train_kernel", "kernel": "pooled_lookup", **common,
+                "valid": int((segs < S).sum()), "distinct": U,
+                "equal": True, "max_abs_err": err,
+                "ms": cuda_ms(lambda: tbe.pooled_lookup(*args), flush),
+                "kernel_ms": cuda_ms(lambda: tbe.launch_pooled(stack, *prep),
+                                     flush),
+                "plain_ms": cuda_ms(lambda: tbe.pooled_lookup_plain(*args),
+                                    flush),
+                "library_ms": cuda_ms(library, flush),
+                "library_max_abs_diff": lib_diff,
+                "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            emit(rec)
+            rows.append(rec)
+            del got, ref
+
+            # B2: the fused backward + rowwise Adagrad
+            sg = SparseSegGrad(ids, (segs < S) & (w != 0), segs, w, grad)
+            upd = (sg.ids, sg.valid, sg.segments, sg.weights, sg.grad_seg,
+                   cfg.learning_rate)
+            kw = {"eps": cfg.eps, "weight_decay": cfg.weight_decay,
+                  "sr_seed": seed}
+            tk, mk = stack.clone(), mom0.clone()
+            tbe_backward.fused_sparse_update(tk, mk, *upd, **kw)
+            torch.cuda.synchronize()
+            tp, mp = stack.clone(), mom0.clone()
+            tbe_backward.fused_sparse_update_plain(tp, mp, *upd, **kw)
+            err = max(float((tk.float() - tp.float()).abs().max()),
+                      float((mk - mp).abs().max()))
+            touched = int((tk != stack).any(dim=1).sum())
+            if not (torch.equal(tk, tp) and torch.equal(mk, mp)):
+                raise AssertionError(f"fused_sparse_update {common}: kernel "
+                                     f"!= plain (max abs err {err})")
+            del tk, mk, tp, mp
+            prep2 = tbe_backward.sort_by_row(sg.ids, sg.valid, sg.segments,
+                                             sg.weights, R, S)
+            U, nbytes, flops = _b2_bound(D, stack.element_size(), sg)
+            bound_ms, bound_by = _bound(nbytes, flops)
+            rec = {
+                "phase": "train_kernel", "kernel": "fused_sparse_update",
+                **common, "kept": int(sg.ok().sum()), "distinct": U,
+                "touched_rows": touched, "weight_decay": cfg.weight_decay,
+                "sr_seed": seed, "equal": True, "max_abs_err": err,
+                "ms": cuda_ms(lambda: tbe_backward.fused_sparse_update(
+                    work_t, work_m, *upd, **kw), flush, setup=restore),
+                "kernel_ms": cuda_ms(
+                    lambda: tbe_backward.launch_fused_sparse_update(
+                        work_t, work_m, *prep2, grad, cfg.learning_rate,
+                        cfg.eps, cfg.weight_decay, seed),
+                    flush, setup=restore),
+                "plain_ms": cuda_ms(
+                    lambda: tbe_backward.fused_sparse_update_plain(
+                        work_t, work_m, *upd, **kw),
+                    flush, setup=restore),
+                "library_ms": None,
+                "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            emit(rec)
+            rows.append(rec)
+        del stack, work_t, work_m
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_path_check(dmp, state, batch, sr_seed):
+    """On one batch at full width, the step's own calls: B1's pooled
+    output (the KT values) ``torch.equal`` to the plain version's, and
+    B2's updated stack and momentum, from the step's real gradient, equal
+    to the plain version's (on copies; the state is left as it was).  With
+    a bfloat16 stack and a seed, the stochastically rounded stack must
+    also differ from round-to-nearest.  Returns the emitted record."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import (
+        apply_sparse_update_segments,
+    )
+    from torchrec_tpu_torch.parallel.sharding.tw import (
+        tw_backward_local,
+        tw_output_features,
+    )
+
+    ebc = dmp.sharded_ebc
+    (name, lay), = ebc.tw_layouts.items()
+    stack = state["tables"][name]
+    mom = state["fused"][name]["momentum"]
+    kt, ctxs = dmp.sparse_forward(state, batch)
+    ids, w, segs = ctxs[name]
+    S = lay.f_max * lay.world_size * lay.batch_size
+    plain = tbe.pooled_lookup_plain(stack, ids, segs, S, w)
+    kt_plain = ebc.output_kt(tw_output_features(lay, plain)).values()
+    b1_err = float((kt.float() - kt_plain.float()).abs().max())
+    loss, _, _, grad_by_feature = dmp.dense_forward_backward(state, batch,
+                                                             kt)
+    sg = tw_backward_local(lay, ctxs[name], grad_by_feature)
+    cfg = dmp.fused_config
+    tk, mk = stack.clone(), mom.clone()
+    apply_sparse_update_segments(tk, {"momentum": mk}, sg, cfg,
+                                 sr_seed=sr_seed)
+    torch.cuda.synchronize()
+    tp, mp = stack.clone(), mom.clone()
+    upd = (sg.ids, sg.valid, sg.segments, sg.weights, sg.grad_seg,
+           cfg.learning_rate, cfg.eps, cfg.weight_decay)
+    tbe_backward.fused_sparse_update_plain(tp, mp, *upd, sr_seed)
+    rec = {
+        "phase": "train_path_check", "table_dtype": str(stack.dtype),
+        "batch": lay.batch_size, "stack": list(stack.shape),
+        "valid_slots": int(sg.ok().sum()),
+        "touched_rows": int((tk != stack).any(dim=1).sum()),
+        "loss": float(loss),
+        "b1_equal": bool(torch.equal(kt, kt_plain)), "b1_max_abs_err": b1_err,
+        "b2_table_equal": bool(torch.equal(tk, tp)),
+        "b2_momentum_equal": bool(torch.equal(mk, mp)),
+        "b2_max_abs_err": max(float((tk.float() - tp.float()).abs().max()),
+                              float((mk - mp).abs().max())),
+        "sr_seed": sr_seed,
+    }
+    if sr_seed is not None:
+        rn, mr = stack.clone(), mom.clone()
+        tbe_backward.fused_sparse_update_plain(rn, mr, *upd, None)
+        rec["sr_differs_from_nearest"] = int((rn != tk).sum())
+    emit(rec)
+    if not (rec["b1_equal"] and rec["b2_table_equal"]
+            and rec["b2_momentum_equal"]):
+        raise AssertionError(f"train path check failed: {rec}")
+    if sr_seed is not None and not rec["sr_differs_from_nearest"]:
+        raise AssertionError("bfloat16 update did not round stochastically")
+    return rec
+
+
+def _train_steps(dmp, state, batches, n):
+    """``n`` train steps cycling ``batches``, ending in a synchronise;
+    returns (state, losses as floats, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(n):
+        state, m = dmp.train_step(state, batches[i % len(batches)])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return state, [float(x) for x in losses], dt
+
+
+def train_phase(dev, flush):
+    """The training main path, float32 tables then the bfloat16 arm.
+    Returns (training launches per kernel, the train_kernel records, the
+    path checks)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    card = nvidia_smi_line()  # beside every training number
+    t0 = time.perf_counter()
+    dmp, state, batches = build_trainer(dev, torch.float32)
+    torch.cuda.synchronize()
+    emit({"phase": "train_setup", "table_dtype": "float32",
+          "seconds": time.perf_counter() - t0,
+          "stacks": {k: list(v.shape) for k, v in state["tables"].items()},
+          "memory_allocated": torch.cuda.memory_allocated()})
+    kernel_rows = train_kernel_phase(dev, flush, dmp, state, batches[0])
+    checks = [train_path_check(dmp, state, batches[0], None)]
+
+    # the main path: 1 warm-up step, then TRAIN_STEPS timed steps cycling
+    # the batches (bench.py's timed_run)
+    launches = dict.fromkeys(tbe.LAUNCHES, 0)
+    torch.cuda.reset_peak_memory_stats()
+    tbe.reset_launch_counts()
+    state, warm, _ = _train_steps(dmp, state, batches[:1], 1)
+    state, losses, dt = _train_steps(dmp, state, batches, TRAIN_STEPS)
+    counts = tbe.launch_counts()
+    rec = {"phase": "train", "card": card, "table_dtype": "float32",
+           "batch": TRAIN_BATCH,
+           "steps": 1 + TRAIN_STEPS, "timed_steps": TRAIN_STEPS,
+           "samples_per_s": TRAIN_STEPS * TRAIN_BATCH / dt,
+           "ms_per_step": dt * 1e3 / TRAIN_STEPS, "losses": warm + losses,
+           "all_finite": bool(np.isfinite(warm + losses).all()),
+           "launches": counts,
+           "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(rec)
+    _check_train(rec, counts, 1 + TRAIN_STEPS)
+    for k, v in counts.items():
+        launches[k] += v
+    profile_calls({"phase": "train_profile", "card": card,
+                   "table_dtype": "float32", "batch": TRAIN_BATCH},
+                  lambda: dmp.train_step(state, batches[1]), 3, "step")
+    del dmp, state
+    torch.cuda.empty_cache()
+
+    # the bfloat16-table arm: B1 over bfloat16 rows, B2 with stochastic
+    # rounding from a per-step seed
+    dmp, state, batches = build_trainer(dev, torch.bfloat16)
+    checks.append(train_path_check(dmp, state, batches[0],
+                                   dmp.sr_seeds(0)[0]))
+    tbe.reset_launch_counts()
+    state, losses, dt = _train_steps(dmp, state, batches, BF16_STEPS)
+    counts = tbe.launch_counts()
+    rec = {"phase": "train", "card": card, "table_dtype": "bfloat16",
+           "batch": TRAIN_BATCH,
+           "steps": BF16_STEPS, "samples_per_s": BF16_STEPS * TRAIN_BATCH / dt,
+           "losses": losses, "all_finite": bool(np.isfinite(losses).all()),
+           "sr_seeds": [dmp.sr_seeds(s)[0] for s in range(BF16_STEPS)],
+           "launches": counts}
+    emit(rec)
+    _check_train(rec, counts, BF16_STEPS)
+    for k, v in counts.items():
+        launches[k] += v
+    del dmp, state, batches
+    torch.cuda.empty_cache()
+    return launches, kernel_rows, checks
+
+
+def _check_train(rec, counts, steps):
+    if not rec["all_finite"]:
+        raise AssertionError(f"non-finite training loss: {rec['losses']}")
+    want = {"pooled_lookup": steps, "fused_sparse_update": steps}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{steps} train steps launched {got}, want "
+                             f"{want}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serving at full width
 # ---------------------------------------------------------------------------
 
 
@@ -314,8 +738,20 @@ def _direct_batch(requests, features, caps, dev):
 
 
 def profile_serving(kernel, fn, batch, iters: int = 10):
-    """Where one formed batch's time goes: ``torch.profiler`` over
-    ``iters`` calls of the serving module, each ending in a synchronise.
+    """Where one formed batch's time goes (:func:`profile_calls` over
+    ``iters`` calls of the serving module)."""
+
+    def step():
+        fn(batch.dense_features, batch.sparse_features)
+
+    profile_calls({"phase": "profile", "kernel": kernel,
+                   "batch": batch.dense_features.shape[0]}, step, iters,
+                  "batch")
+
+
+def profile_calls(record, call, iters: int, unit: str):
+    """``torch.profiler`` over ``iters`` calls of ``call``, each ending in
+    a synchronise, emitted as ``record`` plus the numbers per ``unit``.
     Device busy time is the sum of the device events (one stream, so
     they do not overlap); the rest of the profiled wall time the card is
     idle.  The same calls are timed once without the profiler, which
@@ -324,7 +760,7 @@ def profile_serving(kernel, fn, batch, iters: int = 10):
     from torch.profiler import ProfilerActivity, profile
 
     def step():
-        fn(batch.dense_features, batch.sparse_features)
+        call()
         torch.cuda.synchronize()
 
     step()
@@ -351,14 +787,17 @@ def profile_serving(kernel, fn, batch, iters: int = 10):
         name = name.split("(")[0][:72]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "kernel": kernel,
-          "batch": batch.dense_features.shape[0], "iters": iters,
-          "unprofiled_wall_ms_per_batch": bare_ms,
-          "wall_ms_per_batch": wall_ms, "device_busy_ms_per_batch": busy_ms,
-          "device_idle_share": (None if busy_ms is None
-                                else 1.0 - busy_ms / wall_ms),
-          "device_events_per_batch": len(device) / iters,
-          "top_device_ms_per_batch": {k: v / 1e3 / iters for k, v in top}})
+    rec = {**record, "iters": iters,
+           f"unprofiled_wall_ms_per_{unit}": bare_ms,
+           f"wall_ms_per_{unit}": wall_ms,
+           f"device_busy_ms_per_{unit}": busy_ms,
+           "device_idle_share": (None if busy_ms is None
+                                 else 1.0 - busy_ms / wall_ms),
+           f"device_events_per_{unit}": len(device) / iters,
+           f"top_device_ms_per_{unit}": {k: v / 1e3 / iters
+                                         for k, v in top}}
+    emit(rec)
+    return rec
 
 
 def path_kernel_phase(dev, tables, params, kjt, zipf_seed):
@@ -520,7 +959,7 @@ def serving_phase(dev):
             "serving/executor_error_count", 0)
         for k, v in counts.items():
             main_launches[k] += v
-        other = next(k for k in counts if k != counter)
+        others = sum(v for k, v in counts.items() if k != counter)
         # the same requests as one formed batch, straight through the
         # serving module: the reference for what the server answered
         kjt, dense = _direct_batch(requests, features, caps, dev)
@@ -539,7 +978,7 @@ def serving_phase(dev):
         if not rec["all_finite"] or errors:
             raise AssertionError(f"serving with {kernel}: non-finite scores "
                                  f"or {errors} executor errors")
-        if counts[counter] < len(features) * batches or counts[other]:
+        if counts[counter] < len(features) * batches or others:
             raise AssertionError(
                 f"serving with {kernel}: {counts} launches for {batches} "
                 f"batches of {len(features)} features"
@@ -582,7 +1021,7 @@ def serving_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: artifact round trip, card against CPU
+# phase 5: artifact round trip, card against CPU
 # ---------------------------------------------------------------------------
 
 
@@ -647,38 +1086,51 @@ def main() -> None:
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    _native.load_library("tbe_quant.cu")
-    info = _native.BUILD_INFO["tbe_quant.cu"]
+    _native.load_libraries()  # one nvcc per source, all started together
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_seconds": info["seconds"],
           "load_seconds": time.perf_counter() - t0,
-          "ptxas": [l.strip() for l in str(info["log"]).splitlines()
-                    if "registers" in l or "spill" in l]})
+          "build_seconds": {s: i["seconds"]
+                            for s, i in _native.BUILD_INFO.items()},
+          "ptxas": {s: [l.strip() for l in str(i["log"]).splitlines()
+                        if "registers" in l or "spill" in l]
+                    for s, i in _native.BUILD_INFO.items()}})
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     kernel_rows = kernel_phase(dev, flush)
+    train_launches, train_rows, checks = train_phase(dev, flush)
     del flush
-    main_launches, _, path_rows = serving_phase(dev)
+    serve_launches, _, path_rows = serving_phase(dev)
     roundtrip_phase(dev)
 
+    # each kernel's launches on its own path: B1/B2 training, B3/B5
+    # serving
+    launches = {k: train_launches[k] + serve_launches[k]
+                for k in tbe.LAUNCHES}
+    errs = [(r["kernel"], r["max_abs_err"])
+            for r in kernel_rows + train_rows + path_rows]
+    errs += [(k, c[f"{b}_max_abs_err"]) for c in checks
+             for k, b in (("pooled_lookup", "b1"),
+                          ("fused_sparse_update", "b2"))]
     summary = []
     for name in tbe.LAUNCHES:
-        # timed: B3 at the serving run's uniform ids; B5 at int8 with the
-        # Zipf ids of its serving run
-        rows = [r for r in kernel_rows if r["kernel"] == name]
-        rep = next(r for r in rows if r["bits"] == 8 and r["ids"] == (
-            "uniform" if name == "quant_pooled_lookup_int8" else "zipf"))
-        if main_launches[name] == 0:
-            raise AssertionError(f"{name} never launched on the main path")
+        # timed: B1/B2 on the float32 stack at the batch's uniform ids
+        # (the main path's); B3 at the serving run's uniform ids; B5 at
+        # int8 with the Zipf ids of its serving run
+        rep = next(r for r in kernel_rows + train_rows
+                   if r["kernel"] == name and r.get("bits", 8) == 8
+                   and r.get("dtype", "float32") == "float32"
+                   and r["ids"] == ("zipf" if name == "dedup_quant_pooled_lookup"
+                                    else "uniform"))
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on its path")
         summary.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": main_launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows
-                               if r["kernel"] == name),
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"],
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(e for k, e in errs if k == name),
+            "ms": rep["ms"], "kernel_ms": rep["kernel_ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
         })
     emit({"kernels": summary})
     print(smi, flush=True)

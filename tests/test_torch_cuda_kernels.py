@@ -1,8 +1,9 @@
-"""The port's CUDA lookup kernels on the card against their plain PyTorch
+"""The port's CUDA kernels on the card against their plain PyTorch
 versions, bit for bit (``torch.equal``), at shapes ``chip_smoke.py``
-does not reach: a width that is not a multiple of 4 (the kernels'
-one-column-per-lane path), empty batches, empty segments, clipped ids and
-dropped segments.
+does not reach: widths that are not a multiple of the vector width (the
+kernels' one-column-per-lane paths) and past one 128-column block, empty
+batches, empty segments, clipped ids, dropped segments and slots, weight
+decay and bfloat16 stochastic rounding.
 
 Needs a CUDA device and ``nvcc``; marked ``cuda`` and skipped elsewhere.
 It imports nothing of JAX, so on a machine with a card and no JAX it runs
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from torchrec_tpu_torch.ops import tbe
+from torchrec_tpu_torch.ops import tbe_backward
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +79,88 @@ def test_kernel_equals_plain_on_card(dev, kernel, bits, D, case):
     assert got.shape == (S, D) and got.device.type == "cuda"
     assert torch.equal(got, ref), float((got - ref).abs().max())
     assert not got[:5].any()
+
+
+# (dtype, D) for the float lookup (B1): vector path at 16 / 128 / 8, the
+# one-column path at 6 and 130 (130 % 8 != 0 for bf16, % 4 != 0 for f32)
+FLOAT_CONFIGS = [
+    (torch.float32, 16), (torch.float32, 6), (torch.float32, 130),
+    (torch.bfloat16, 8), (torch.bfloat16, 128), (torch.bfloat16, 6),
+    (torch.bfloat16, 130),
+]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype,D", FLOAT_CONFIGS)
+def test_pooled_lookup_equals_plain_on_card(dev, dtype, D, case):
+    rng = np.random.RandomState(D)
+    n = 0 if case == "empty_batch" else V
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    ids = torch.from_numpy(rng.randint(-3, R + 3, size=(n,))).to(dev)
+    segs = rng.randint(5, S + 4, size=(n,))
+    segs[: n // 10] = -1
+    segs = torch.from_numpy(segs).to(dev)
+    w = (None if case == "no_weights"
+         else torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev))
+    before = tbe.launch_counts()["pooled_lookup"]
+    got = tbe.pooled_lookup(table, ids, segs, S, w)
+    torch.cuda.synchronize()
+    assert tbe.launch_counts()["pooled_lookup"] == before + 1
+    ref = tbe.pooled_lookup_plain(table, ids, segs, S, w)
+    assert got.dtype == dtype and got.shape == (S, D)
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
+    assert not got[:5].any()
+
+
+def test_no_segments_launch_nothing_on_card(dev):
+    """A lookup with no output segments launches no kernel and counts
+    none: an empty [0, D] output."""
+    ids = torch.arange(8, device=dev)
+    w = torch.ones(8, device=dev)
+    q = torch.zeros((R, 16), dtype=torch.uint8, device=dev)
+    scale = torch.ones(R, device=dev)
+    before = tbe.launch_counts()
+    outs = [
+        tbe.pooled_lookup(torch.ones((R, 16), device=dev), ids, ids, 0, w),
+        tbe.quant_pooled_lookup_int8(q, scale, scale, ids, ids, 0, w),
+        tbe.dedup_quant_pooled_lookup(q, scale, scale, ids, ids, 0, w),
+    ]
+    assert all(o.shape == (0, 16) and o.device.type == "cuda" for o in outs)
+    assert tbe.launch_counts() == before
+
+
+# (dtype, D, weight decay, stochastic-rounding seed) for the fused update
+UPDATE_CONFIGS = [
+    (torch.float32, 16, 0.0, None), (torch.float32, 6, 0.01, None),
+    (torch.float32, 132, 0.01, None), (torch.float32, 512, 0.0, None),
+    (torch.bfloat16, 16, 0.0, 12345), (torch.bfloat16, 132, 0.01, -7),
+    (torch.bfloat16, 128, 0.0, None),
+]
+
+
+@pytest.mark.parametrize("case", ("zipf", "empty_batch"))
+@pytest.mark.parametrize("dtype,D,wd,seed", UPDATE_CONFIGS)
+def test_fused_update_equals_plain_on_card(dev, dtype, D, wd, seed, case):
+    rng = np.random.RandomState(D + 1)
+    n = 0 if case == "empty_batch" else V
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    mom = torch.from_numpy(rng.rand(R).astype(np.float32)).to(dev)
+    ids = np.minimum(rng.zipf(1.2, n) - 1, R + 3)
+    args = [torch.from_numpy(x).to(dev) for x in (
+        ids, rng.rand(n) > 0.1, rng.randint(-2, S + 2, n),
+        rng.rand(n).astype(np.float32))]
+    grad = torch.from_numpy(rng.randn(S, D).astype(np.float32)).to(dev)
+    tk, mk = table.clone(), mom.clone()
+    tp, mp = table.clone(), mom.clone()
+    before = tbe.launch_counts()["fused_sparse_update"]
+    tbe_backward.fused_sparse_update(tk, mk, *args, grad, 0.05,
+                                     weight_decay=wd, sr_seed=seed)
+    torch.cuda.synchronize()
+    assert tbe.launch_counts()["fused_sparse_update"] == before + (n > 0)
+    tbe_backward.fused_sparse_update_plain(tp, mp, *args, grad, 0.05,
+                                           weight_decay=wd, sr_seed=seed)
+    assert torch.equal(tk, tp), float((tk.float() - tp.float()).abs().max())
+    assert torch.equal(mk, mp)
+    assert (n == 0) == torch.equal(tk, table)

@@ -28,8 +28,11 @@ def _port_modules():
 
 def test_every_module_imports_without_jax():
     modules = _port_modules()
-    assert "torchrec_tpu_torch.ops.tbe" in modules
-    assert "torchrec_tpu_torch.inference.serving" in modules
+    for m in ("ops.tbe", "ops.tbe_backward", "ops.fused_update",
+              "inference.serving", "optim.adagrad", "parallel.types",
+              "parallel.grouped", "parallel.embeddingbag",
+              "parallel.model_parallel", "parallel.sharding.tw"):
+        assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

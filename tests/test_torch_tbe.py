@@ -249,6 +249,7 @@ def test_cpu_tensors_launch_nothing():
             tq.quantized_pooled_lookup(*args, kernel="dedup")
         tbe.dedup_quant_pooled_lookup(*args, bits=bits)
     assert tbe.launch_counts() == {
+        "pooled_lookup": 0, "fused_sparse_update": 0,
         "quant_pooled_lookup_int8": 0, "dedup_quant_pooled_lookup": 0,
     }
 

@@ -13,13 +13,18 @@ before ``Perceptron_2``, and ``over_arch/Dense_0`` before
 ``over_arch/MLP_0``), ``bias`` before ``kernel``.  The port's ``DLRM``
 names the same weights ``dense_arch.mlp.layers.i.linear``,
 ``over_arch.mlp.layers.i.linear`` and ``over_arch.final``, with
-``nn.Linear.weight`` the transposed flax ``kernel``.  Everything here is
-numpy and torch; nothing imports JAX.
+``nn.Linear.weight`` the transposed flax ``kernel``.
+
+A whole train state of the JAX package's ``DistributedModelParallel``
+crosses in both directions (:func:`train_state_from_jax`,
+:func:`train_state_to_jax`): dense params, the ``sum_of_squares`` of its
+``optax.adagrad`` state, each group's table stack, the fused momentum and
+the step.  Everything here is numpy and torch; nothing imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -134,4 +139,93 @@ def quant_params_from_numpy(
             for k, v in p.items()
         }
         for name, p in params.items()
+    }
+
+
+def flax_params_from_dlrm_state_dict(
+    state_dict: Mapping[str, torch.Tensor],
+) -> Dict[str, Any]:
+    """The port's ``DLRM`` parameters -> the flax params tree
+    ``{"params": {...}}`` of float32 numpy arrays (inverse of
+    :func:`dlrm_state_dict_from_flax`)."""
+    n_dense, n_over = _layer_counts(state_dict)
+    tree: Dict[str, Any] = {}
+    for path, key in _leaf_paths(n_dense, n_over):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        arr = state_dict[key].detach().to(torch.float32).cpu().numpy()
+        node[path[-1]] = np.ascontiguousarray(
+            arr.T if key.endswith(".weight") else arr)
+    return tree
+
+
+def _sum_of_squares(dense_opt: Any) -> Any:
+    """The ``sum_of_squares`` tree of an ``optax.adagrad`` state: the
+    chain's tuple ``(ScaleByRssState(sum_of_squares=...), EmptyState())``
+    or a mapping with that key."""
+    if isinstance(dense_opt, Mapping):
+        return dense_opt["sum_of_squares"]
+    for part in dense_opt:
+        if hasattr(part, "sum_of_squares"):
+            return part.sum_of_squares
+    raise ValueError("no sum_of_squares in the dense optimizer state")
+
+
+def _to_tensor(arr: Any, dtype: torch.dtype, device) -> torch.Tensor:
+    # bfloat16 numpy arrays (ml_dtypes) widen to float32 exactly first
+    t = torch.from_numpy(np.array(np.asarray(arr, np.float32), order="C"))
+    return t.to(device=device, dtype=dtype)
+
+
+def train_state_from_jax(
+    state: Mapping[str, Any],
+    device=None,
+    table_dtype: Optional[torch.dtype] = None,
+) -> Dict[str, Any]:
+    """A JAX ``DistributedModelParallel`` train state with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) -> the port's train state on
+    ``device``.  Table stacks keep their dtype (float32, or bfloat16 where
+    the JAX stack is bfloat16) unless ``table_dtype`` is given."""
+
+    def table(arr):
+        dt = table_dtype
+        if dt is None:
+            bf16 = np.asarray(arr).dtype.name == "bfloat16"
+            dt = torch.bfloat16 if bf16 else torch.float32
+        return _to_tensor(arr, dt, device)
+
+    return {
+        "dense": {k: v.to(device) for k, v in
+                  dlrm_state_dict_from_flax(state["dense"]).items()},
+        "dense_opt": {k: v.to(device) for k, v in dlrm_state_dict_from_flax(
+            _sum_of_squares(state["dense_opt"])).items()},
+        "tables": {g: table(t) for g, t in state["tables"].items()},
+        "fused": {
+            g: {k: _to_tensor(v, torch.float32, device) for k, v in st.items()}
+            for g, st in state["fused"].items()
+        },
+        "step": int(np.asarray(state["step"])),
+    }
+
+
+def train_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's train state -> numpy leaves in the JAX layout: ``dense``
+    is the flax params tree, ``dense_opt`` is ``{"sum_of_squares": tree}``
+    (wrap it as ``(optax.ScaleByRssState(**dense_opt),
+    optax.EmptyState())`` for ``optax.adagrad``), table stacks and
+    momentum are float32 (bfloat16 stacks widen exactly; cast back on the
+    JAX side), ``step`` is an int32 scalar."""
+    return {
+        "dense": flax_params_from_dlrm_state_dict(state["dense"]),
+        "dense_opt": {"sum_of_squares": flax_params_from_dlrm_state_dict(
+            state["dense_opt"])},
+        "tables": {g: t.detach().to(torch.float32).cpu().numpy()
+                   for g, t in state["tables"].items()},
+        "fused": {
+            g: {k: v.detach().to(torch.float32).cpu().numpy()
+                for k, v in st.items()}
+            for g, st in state["fused"].items()
+        },
+        "step": np.int32(state["step"]),
     }

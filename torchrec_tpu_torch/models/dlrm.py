@@ -1,14 +1,23 @@
-"""DLRM dense side for serving (``torchrec_tpu/models/dlrm.py``):
-DenseArch, InteractionArch, OverArch and ``DLRM.forward_from_embeddings``.
+"""DLRM dense side (``torchrec_tpu/models/dlrm.py``): DenseArch,
+InteractionArch, OverArch, ``DLRM.forward_from_embeddings`` and
+``bce_with_logits_loss``.
 
-All layers are float32; the package turns TF32 off at import, so the
-card's matmuls round like the CPU's.  The sparse side is the caller's
-(``QuantEmbeddingBagCollection`` in serving), handed in as a KeyedTensor.
+``dense_dtype`` is the compute dtype of the hidden layers (parameters stay
+float32): with ``torch.bfloat16`` the dense arch and the over arch's
+hidden layers run in bfloat16 while the final logit layer runs in float32,
+and the interaction concatenates the bfloat16 dense output with the pooled
+embeddings in the wider of their dtypes (float32 embeddings give a float32
+interaction), as ``jnp.concatenate`` promotes.  The package turns TF32 off
+at import, so the card's float32 matmuls round like the CPU's.  The sparse
+side is the caller's (``QuantEmbeddingBagCollection`` in serving, the
+sharded collection in training), handed in as a KeyedTensor.  Left out:
+``SparseArch``/``DLRM.__call__`` with an in-model collection, DLRM_DCN,
+DLRM_Projection and DLRMTrain.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -21,9 +30,10 @@ from torchrec_tpu_torch.sparse import KeyedTensor
 class DenseArch(nn.Module):
     """Bottom MLP over dense features: [B, in] -> [B, D]."""
 
-    def __init__(self, in_features: int, layer_sizes: Sequence[int]):
+    def __init__(self, in_features: int, layer_sizes: Sequence[int],
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.mlp = MLP(in_features, layer_sizes)
+        self.mlp = MLP(in_features, layer_sizes, dtype=dtype)
 
     def forward(self, dense_features: torch.Tensor) -> torch.Tensor:
         return self.mlp(dense_features)
@@ -44,8 +54,10 @@ class InteractionArch(nn.Module):
     def forward(
         self, dense_features: torch.Tensor, sparse_features: torch.Tensor
     ) -> torch.Tensor:
+        dt = torch.promote_types(dense_features.dtype, sparse_features.dtype)
+        dense_features = dense_features.to(dt)
         combined = torch.cat(
-            [dense_features[:, None, :], sparse_features], dim=1
+            [dense_features[:, None, :], sparse_features.to(dt)], dim=1
         )  # [B, F, D]
         inter = torch.bmm(combined, combined.transpose(1, 2))
         flat = inter[:, self.li, self.lj]
@@ -53,19 +65,21 @@ class InteractionArch(nn.Module):
 
 
 class OverArch(nn.Module):
-    """Top MLP -> logit: hidden layers ReLU, final layer linear."""
+    """Top MLP -> logit: hidden layers ReLU in ``dtype``, final layer
+    linear in float32."""
 
-    def __init__(self, in_features: int, layer_sizes: Sequence[int]):
+    def __init__(self, in_features: int, layer_sizes: Sequence[int],
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         hidden = list(layer_sizes[:-1])
-        self.mlp = MLP(in_features, hidden) if hidden else None
+        self.mlp = MLP(in_features, hidden, dtype=dtype) if hidden else None
         self.final = nn.Linear(
             hidden[-1] if hidden else in_features, layer_sizes[-1]
         )
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         x = features if self.mlp is None else self.mlp(features)
-        return self.final(x)
+        return self.final(x.to(self.final.weight.dtype))
 
 
 class DLRM(nn.Module):
@@ -80,6 +94,7 @@ class DLRM(nn.Module):
         dense_in_features: int,
         dense_arch_layer_sizes: Sequence[int],
         over_arch_layer_sizes: Sequence[int],
+        dense_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         num_features = sum(len(c.feature_names) for c in tables)
@@ -90,9 +105,11 @@ class DLRM(nn.Module):
                 f"the embedding dim {d}"
             )
         F = num_features + 1
-        self.dense_arch = DenseArch(dense_in_features, dense_arch_layer_sizes)
+        self.dense_arch = DenseArch(dense_in_features, dense_arch_layer_sizes,
+                                    dtype=dense_dtype)
         self.inter_arch = InteractionArch(num_features)
-        self.over_arch = OverArch(d + F * (F - 1) // 2, over_arch_layer_sizes)
+        self.over_arch = OverArch(d + F * (F - 1) // 2, over_arch_layer_sizes,
+                                  dtype=dense_dtype)
 
     def forward_from_embeddings(
         self, dense_features: torch.Tensor, sparse_kt: KeyedTensor
@@ -106,3 +123,22 @@ class DLRM(nn.Module):
         return self.over_arch(concat)
 
     forward = forward_from_embeddings
+
+
+def bce_with_logits_loss(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Numerically stable (weighted-)mean BCE with logits, in the JAX
+    package's formula: ``max(x, 0) - x * y + log1p(exp(-|x|))``."""
+    logits = logits.reshape(-1)
+    labels = labels.reshape(-1).to(logits.dtype)
+    per = (
+        torch.clamp_min(logits, 0) - logits * labels
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+    )
+    if weights is None:
+        return per.mean()
+    w = weights.reshape(-1).to(logits.dtype)
+    return (per * w).sum() / torch.clamp_min(w.sum(), 1e-12)

@@ -6,6 +6,8 @@ shared library with a plain C interface, at first use, into
 ``ctypes``.  The library name carries a hash of the source, so an edited
 source never loads a stale build.  Nothing here runs at import time: the
 CPU tests import every module on a machine with no ``nvcc``.
+
+Every kernel wrapper counts its launches here, in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
@@ -30,15 +34,25 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points per source: name -> argtypes (every pointer and the
-# stream are c_void_p, every size a c_int; each returns cudaGetLastError())
+# stream are c_void_p, every size or flag a c_int, every scalar
+# hyperparameter a c_float; each returns cudaGetLastError())
 _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "tbe_quant.cu": {
         "tbe_q8_pooled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
         "dedup_q_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "dedup_pool": (_P, _P, _P, _P, _P, _I, _I, _P),
     },
+    "tbe_float.cu": {
+        "tbe_pooled": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "tbe_backward.cu": {
+        "fused_rowwise_adagrad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                  _F, _F, _I, _I, _I, _P),
+    },
 }
+SOURCES = tuple(_SIGNATURES)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -60,45 +74,60 @@ def _nvcc() -> str:
     return path
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` if needed and return the loaded library
-    with every entry point's ``argtypes``/``restype`` declared."""
+def _library_path(source: str) -> str:
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+
+
+def load_libraries(sources: Sequence[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
+    """Compile the ``csrc/`` sources that have no current build, one
+    ``nvcc`` per source, all started together, then load each library with
+    every entry point's ``argtypes``/``restype`` declared.  Returns
+    source -> library; raises after every build has ended if one
+    failed."""
     with _LOCK:
-        lib = _LIBS.get(source)
-        if lib is not None:
-            return lib
-        src = os.path.join(CSRC_DIR, source)
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        stem = os.path.splitext(source)[0]
-        so = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
-        info: Dict[str, object] = {"seconds": 0.0, "log": ""}
-        if not os.path.exists(so):
+        todo = [s for s in sources if s not in _LIBS]
+        paths = {s: _library_path(s) for s in todo}
+        missing = [s for s in todo if not os.path.exists(paths[s])]
+        for s in todo:
+            if s not in missing:
+                BUILD_INFO[s] = {"seconds": 0.0, "log": ""}
+        if missing:
+            nvcc = _nvcc()
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                capture_output=True, text=True, check=False,
-            )
-            info = {
-                "seconds": time.perf_counter() - t0,
-                "log": proc.stdout + proc.stderr,
-            }
+        builds = {}
+        for s in missing:
+            tmp = f"{paths[s]}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, s)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            builds[s] = (proc, tmp, time.perf_counter())
+        failed = []
+        for s, (proc, tmp, t0) in builds.items():
+            log, _ = proc.communicate()
+            BUILD_INFO[s] = {"seconds": time.perf_counter() - t0, "log": log}
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {source} (exit {proc.returncode}):\n"
-                    f"{info['log']}"
-                )
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        for name, argtypes in _SIGNATURES[source].items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        BUILD_INFO[source] = info
-        _LIBS[source] = lib
-        return lib
+                failed.append(f"nvcc failed on {s} (exit {proc.returncode}):"
+                              f"\n{log}")
+            else:
+                os.replace(tmp, paths[s])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for s in todo:
+            lib = ctypes.CDLL(paths[s])
+            for name, argtypes in _SIGNATURES[s].items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _LIBS[s] = lib
+        return {s: _LIBS[s] for s in sources}
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """:func:`load_libraries` for one source."""
+    return load_libraries((source,))[source]
 
 
 def check_launch(name: str, err: int) -> None:
@@ -106,3 +135,39 @@ def check_launch(name: str, err: int) -> None:
     ``cudaGetLastError()`` after the launch)."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+
+
+# ---------------------------------------------------------------------------
+# launch counts, shared by every kernel wrapper
+# ---------------------------------------------------------------------------
+
+# table dtype -> the ``dtype`` code of the float kernels' C entry points
+FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES: Dict[str, int] = {
+    "pooled_lookup": 0,
+    "fused_sparse_update": 0,
+    "quant_pooled_lookup_int8": 0,
+    "dedup_quant_pooled_lookup": 0,
+}
+_LAUNCH_LOCK = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """A copy of the launch counts."""
+    with _LAUNCH_LOCK:
+        return dict(LAUNCHES)
+
+
+def count_launch(name: str) -> None:
+    """Add one to a kernel's launch count (its wrapper calls this right
+    after each launch, and nowhere else)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1

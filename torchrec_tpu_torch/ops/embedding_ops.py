@@ -1,5 +1,15 @@
-"""Pooling weights and the sort-based dedup scaffold (the serving subset
-of ``torchrec_tpu/ops/embedding_ops.py``)."""
+"""Embedding ops (a subset of ``torchrec_tpu/ops/embedding_ops.py``): the
+pooled lookup behind the kernel of ``ops/tbe.py``, pooling weights and the
+sort-based dedup scaffold.
+
+Left out: the process-wide kernel switches (``set_pooled_lookup_kernel``,
+``trace_kernels``; the port picks its kernel by the tensors' device), the
+``xla_dedup``/``pallas_dedup`` lookups and their custom VJPs, with
+``embedding_row_grads`` and ``aggregate_duplicate_rows`` (ROADMAP A7),
+``sanitize_ids`` (the traced sanitizer is not ported) and
+``sequence_embedding_lookup``.  The train step needs none of them: the
+fused update of ``ops/tbe_backward.py`` takes the segment gradient.
+"""
 
 from __future__ import annotations
 
@@ -63,3 +73,23 @@ def dedup_inverse(order: torch.Tensor, unique_slot: torch.Tensor) -> torch.Tenso
     inv = torch.zeros(order.shape, dtype=torch.int64, device=order.device)
     inv[order] = unique_slot
     return inv
+
+
+def pooled_embedding_lookup(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    segments: torch.Tensor,
+    num_segments: int,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Weighted-sum pooled lookup: ``[num_segments, D]`` in the table's
+    dtype (float32 or bfloat16), accumulated in float32 in slot order.
+    Ids clip to the table; slots whose segment lies outside
+    ``[0, num_segments)`` are dropped.  On CUDA tensors this is the
+    hand-written kernel of ``ops/tbe.py::pooled_lookup`` (the port of the
+    JAX package's Pallas TBE forward); on CPU tensors its plain version."""
+    from torchrec_tpu_torch.ops.tbe import pooled_lookup
+
+    if weights is not None:
+        weights = weights.to(torch.float32)
+    return pooled_lookup(table, ids, segments, num_segments, weights)

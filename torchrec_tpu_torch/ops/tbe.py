@@ -1,24 +1,31 @@
-"""Quantized pooled-lookup kernels for Hopper, their wrappers and their
-plain PyTorch versions.
+"""Pooled-lookup kernels for Hopper, their wrappers and their plain
+PyTorch versions.
 
 Replaces, from the JAX package's ``torchrec_tpu/ops/pallas_tbe.py``:
 
+* ``tbe_pooled_forward_sorted`` (kernel body ``_tbe_body``, input
+  preparation ``_sort_pad_inputs``, wrapper
+  ``pallas_pooled_embedding_lookup``) by :func:`pooled_lookup`, over
+  float32 and bfloat16 tables (``csrc/tbe_float.cu``);
 * ``pallas_quantized_pooled_lookup`` (kernel body ``_tbe_kernel_q8``, input
   preparation ``_sort_pad_inputs``) by :func:`quant_pooled_lookup_int8`;
 * ``pallas_ragged_dedup_quantized_lookup`` (kernel body
   ``_dedup_kernel_q``, ``_unpack_lanes``, input preparation
   ``_dedup_prepare_inputs``) by :func:`dedup_quant_pooled_lookup`.
 
-The kernels are CUDA C++ in ``torchrec_tpu_torch/csrc/tbe_quant.cu`` (its
-header says what bounds them and how they are laid out), built and loaded
-by ``ops/_native.py``.  Each wrapper:
+``pallas_ragged_dedup_lookup`` (the float dedup lookup) is not ported yet.
+The kernels are CUDA C++ in ``torchrec_tpu_torch/csrc/tbe_float.cu`` and
+``tbe_quant.cu`` (their headers say what bounds them and how they are laid
+out), built and loaded by ``ops/_native.py``, which also keeps the launch
+counts that this module re-exports.  Each wrapper:
 
 * checks devices, dtypes, shapes and contiguity;
 * on CPU tensors runs its plain version (``*_plain``) and launches
   nothing; on CUDA tensors launches the kernel or raises — there is no
   fallback;
 * adds one to its count in :data:`LAUNCHES` for every call that launches
-  (the dedup wrapper's two launches, gather and pool, count as one).
+  (the dedup wrapper's two launches, gather and pool, count as one); a
+  call with no segments launches nothing and returns an empty output.
 
 The plain versions sum each segment in slot order with separately rounded
 multiplies and adds, exactly as the kernels do, so on the card a kernel
@@ -27,40 +34,23 @@ and its plain version are bitwise equal (``torch.equal``).
 
 from __future__ import annotations
 
-import threading
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from torchrec_tpu_torch.ops import _native
+from torchrec_tpu_torch.ops._native import (  # noqa: F401 (re-exported)
+    FLOAT_DTYPES,
+    LAUNCHES,
+    count_launch,
+    launch_counts,
+    reset_launch_counts,
+)
 from torchrec_tpu_torch.ops.embedding_ops import dedup_ids, dedup_inverse
 
 _SOURCE = "tbe_quant.cu"
+_FLOAT_SOURCE = "tbe_float.cu"
 _INT32_MAX = 2**31 - 1
-
-LAUNCHES: Dict[str, int] = {
-    "quant_pooled_lookup_int8": 0,
-    "dedup_quant_pooled_lookup": 0,
-}
-_LAUNCH_LOCK = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    with _LAUNCH_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    """A copy of the launch counts."""
-    with _LAUNCH_LOCK:
-        return dict(LAUNCHES)
-
-
-def _count_launch(name: str) -> None:
-    with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -76,16 +66,8 @@ def _check_inputs(
     segments: torch.Tensor,
     weights: Optional[torch.Tensor],
 ) -> torch.device:
-    """Validate a lookup's arguments; returns their common device."""
-    tensors = [table, scale, bias, ids, segments]
-    if weights is not None:
-        tensors.append(weights)
-    dev = table.device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(
-                f"lookup inputs span devices {dev} and {t.device}"
-            )
+    """Validate a quantized lookup's arguments; returns their common
+    device."""
     if table.dtype != torch.uint8 or table.dim() != 2:
         raise TypeError(f"table must be 2-D uint8, got {table.dtype} "
                         f"{tuple(table.shape)}")
@@ -94,6 +76,41 @@ def _check_inputs(
         if t.dtype != torch.float32 or tuple(t.shape) != (R,):
             raise TypeError(f"{name} must be float32 [{R}], got {t.dtype} "
                             f"{tuple(t.shape)}")
+    return _check_slots(table, ids, segments, weights, scale, bias)
+
+
+def _check_float_inputs(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    segments: torch.Tensor,
+    weights: Optional[torch.Tensor],
+) -> torch.device:
+    """Validate a float lookup's arguments; returns their common device."""
+    if table.dtype not in FLOAT_DTYPES or table.dim() != 2:
+        raise TypeError(f"table must be 2-D float32 or bfloat16, got "
+                        f"{table.dtype} {tuple(table.shape)}")
+    return _check_slots(table, ids, segments, weights)
+
+
+def _check_slots(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    segments: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    *extra: torch.Tensor,
+) -> torch.device:
+    """The checks every lookup shares: one device, equal 1-D integer ids
+    and segments, float32 weights of their shape, int32-sized rows and
+    slots, contiguous buffers."""
+    tensors = [table, ids, segments, *extra]
+    if weights is not None:
+        tensors.append(weights)
+    dev = table.device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(
+                f"lookup inputs span devices {dev} and {t.device}"
+            )
     if ids.dim() != 1 or segments.shape != ids.shape:
         raise ValueError(f"ids {tuple(ids.shape)} and segments "
                          f"{tuple(segments.shape)} must be equal 1-D shapes")
@@ -103,7 +120,7 @@ def _check_inputs(
         weights.dtype != torch.float32 or weights.shape != ids.shape
     ):
         raise TypeError(f"weights must be float32 {tuple(ids.shape)}")
-    if R > _INT32_MAX or ids.shape[0] > _INT32_MAX:
+    if table.shape[0] > _INT32_MAX or ids.shape[0] > _INT32_MAX:
         raise ValueError("rows and ids must each fit in int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lookup inputs must be contiguous")
@@ -235,6 +252,22 @@ def pool_slot_order(
     return acc
 
 
+def pooled_lookup_plain(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    segments: torch.Tensor,
+    num_segments: int,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`pooled_lookup`: gather, widen to float32,
+    weight, pool in slot order, round once to the table's dtype."""
+    sids, sw, offsets = sort_by_segment(
+        ids, segments, weights, num_segments, table.shape[0]
+    )
+    vals = table[sids].to(torch.float32) * sw[:, None]
+    return pool_slot_order(vals, offsets).to(table.dtype)
+
+
 def quant_pooled_lookup_int8_plain(
     q: torch.Tensor,
     scale: torch.Tensor,
@@ -297,9 +330,58 @@ def _stream_ptr(dev: torch.device) -> int:
 def _require_cuda(dev: torch.device) -> None:
     if dev.type != "cuda":
         raise ValueError(
-            f"the quantized lookup kernels run on CUDA tensors (CPU tensors "
-            f"take the plain versions); got {dev}"
+            f"the lookup kernels run on CUDA tensors (CPU tensors take the "
+            f"plain versions); got {dev}"
         )
+
+
+def launch_pooled(
+    table: torch.Tensor,
+    sids: torch.Tensor,
+    sw: torch.Tensor,
+    offsets: torch.Tensor,
+) -> torch.Tensor:
+    """Launch the float pooled kernel on prepared inputs (the output of
+    :func:`sort_by_segment`); returns [S, D] in the table's dtype."""
+    S, D = offsets.shape[0] - 1, table.shape[1]
+    if S == 0:
+        return table.new_empty((0, D))
+    lib = _native.load_library(_FLOAT_SOURCE)
+    ids32 = sids.to(torch.int32).contiguous()
+    off32 = offsets.to(torch.int32).contiguous()
+    sw = sw.contiguous()
+    out = torch.empty((S, D), dtype=table.dtype, device=table.device)
+    with torch.cuda.device(table.device):
+        err = lib.tbe_pooled(
+            table.data_ptr(), ids32.data_ptr(), sw.data_ptr(),
+            off32.data_ptr(), out.data_ptr(), S, D,
+            FLOAT_DTYPES[table.dtype], _stream_ptr(table.device),
+        )
+    _native.check_launch("tbe_pooled", err)
+    count_launch("pooled_lookup")
+    return out
+
+
+def pooled_lookup(
+    table: torch.Tensor,  # [R, D] float32 or bfloat16
+    ids: torch.Tensor,  # [V] integer
+    segments: torch.Tensor,  # [V] integer; invalid outside [0, S)
+    num_segments: int,
+    weights: Optional[torch.Tensor] = None,  # [V] float32
+) -> torch.Tensor:
+    """Pooled lookup ``out[s] = sum_i w_i * table[id_i]`` over the valid
+    slots of segment ``s`` in slot order, accumulated in float32; ids clip
+    to the table, slots whose segment lies outside ``[0, num_segments)``
+    add nothing.  Returns [num_segments, D] in the table's dtype."""
+    dev = _check_float_inputs(table, ids, segments, weights)
+    if dev.type == "cpu":
+        return pooled_lookup_plain(table, ids, segments, num_segments,
+                                   weights)
+    _require_cuda(dev)
+    sids, sw, offsets = sort_by_segment(
+        ids, segments, weights, num_segments, table.shape[0]
+    )
+    return launch_pooled(table, sids, sw, offsets)
 
 
 def launch_q8_pooled(
@@ -312,8 +394,10 @@ def launch_q8_pooled(
 ) -> torch.Tensor:
     """Launch the int8 pooled kernel on prepared inputs (the output of
     :func:`sort_by_segment`); returns the [S, D] float32 output."""
-    lib = _native.load_library(_SOURCE)
     S, D = offsets.shape[0] - 1, q.shape[1]
+    if S == 0:
+        return torch.empty((0, D), dtype=torch.float32, device=q.device)
+    lib = _native.load_library(_SOURCE)
     if D % 4 == 0 and q.data_ptr() % 4:
         raise ValueError("int8 table rows must be 4-byte aligned")
     ids32 = sids.to(torch.int32).contiguous()
@@ -328,7 +412,7 @@ def launch_q8_pooled(
             out.data_ptr(), S, D, _stream_ptr(q.device),
         )
     _native.check_launch("tbe_q8_pooled", err)
-    _count_launch("quant_pooled_lookup_int8")
+    count_launch("quant_pooled_lookup_int8")
     return out
 
 
@@ -369,9 +453,11 @@ def launch_dedup_q(
 ) -> torch.Tensor:
     """Launch the dedup gather and pool kernels on prepared inputs (the
     output of :func:`dedup_prepare`); returns [S, D] float32."""
-    lib = _native.load_library(_SOURCE)
     S, Dp = offsets.shape[0] - 1, packed.shape[1]
     D = Dp * (8 // bits)
+    if S == 0:
+        return torch.empty((0, D), dtype=torch.float32, device=packed.device)
+    lib = _native.load_library(_SOURCE)
     U = uids.shape[0]
     dev = packed.device
     uids32 = uids.to(torch.int32).contiguous()
@@ -392,7 +478,7 @@ def launch_dedup_q(
             off32.data_ptr(), out.data_ptr(), S, D, stream,
         )
         _native.check_launch("dedup_pool", err)
-    _count_launch("dedup_quant_pooled_lookup")
+    count_launch("dedup_quant_pooled_lookup")
     return out
 
 

@@ -1,0 +1,228 @@
+"""DistributedModelParallel: the hybrid sparse-model-parallel /
+dense-data-parallel train step (a subset of
+``torchrec_tpu/parallel/model_parallel.py``) on one device.
+
+The train state is a dict with the JAX package's keys::
+
+    {"dense": {param name: tensor},          # the DLRM's parameters
+     "dense_opt": {param name: tensor},      # Adagrad sum_of_squares
+     "tables": {group: [rows, D] stack},     # float32 or bfloat16
+     "fused": {group: {"momentum": [rows]}}, # rowwise Adagrad state
+     "step": int}
+
+and :meth:`train_step` mirrors ``_local_step`` /
+``_dense_and_update_local``: the sharded collection's forward (the pooled
+kernel of ``ops/tbe.py``), the dense forward and backward with respect to
+both the dense parameters and the pooled values (the KT values are
+detached and given ``requires_grad``, as ``jax.value_and_grad(argnums=(0,
+1))`` takes both), the KT gradient split per feature, the fused backward +
+rowwise-Adagrad update (the kernel of ``ops/tbe_backward.py``), then the
+dense Adagrad.  The state is updated in place, which stands in for the JAX
+step's buffer donation: the returned state is the one passed in.
+
+One device only (multi-GPU sharding is ROADMAP A6), so the gradient
+division by the world size and the pmeans of the JAX step are the
+identity here, and the loss is the DLRM's ``bce_with_logits_loss``.  The
+stochastic-rounding seed of bfloat16 tables comes from a
+``torch.Generator`` seeded per step (the JAX package folds the step
+into a ``jax.random`` key; the numbers differ).  Left out: ``env`` and
+meshes, ``DMPCollection``, qcomms, guardrails, dense rematerialisation,
+sparse lr schedules, the split (semi-sync) steps, ``make_forward``, row
+IO helpers and the overflow / guardrail metrics.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from torchrec_tpu_torch.datasets.utils import Batch
+from torchrec_tpu_torch.models.dlrm import bce_with_logits_loss
+from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+from torchrec_tpu_torch.ops.fused_update import FusedOptimConfig
+from torchrec_tpu_torch.optim.adagrad import Adagrad, adagrad
+from torchrec_tpu_torch.parallel.embeddingbag import (
+    ShardedEmbeddingBagCollection,
+)
+from torchrec_tpu_torch.parallel.types import EmbeddingModuleShardingPlan
+from torchrec_tpu_torch.sparse import KeyedTensor
+from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
+
+State = Dict[str, Any]
+SR_SEED_BASE = 0x5EED
+_INT32_MAX = 2**31 - 1
+# flax's lecun_normal: a normal truncated to +-2 standard deviations,
+# rescaled by this constant so that its variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+class DistributedModelParallel:
+    """Compile a (model, plan) pair into init and train-step functions on
+    one device.
+
+    ``model`` is the port's ``DLRM`` (anything whose ``forward`` is
+    ``forward_from_embeddings(dense, kt)``); ``plan`` is a one-device
+    plan (``types.table_wise_plan``); ``dense_optimizer`` is an
+    :class:`~torchrec_tpu_torch.optim.adagrad.Adagrad` (default
+    ``adagrad(fused_config.learning_rate)``); ``table_dtype`` is the
+    stacks' dtype, float32 or bfloat16 (the momentum stays float32 and
+    bfloat16 write-backs round stochastically).  The step runs on
+    ``device``: CUDA unless the caller names another, and it raises
+    without a card."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        tables: Sequence[EmbeddingBagConfig],
+        plan: EmbeddingModuleShardingPlan,
+        batch_size_per_device: int,
+        feature_caps: Dict[str, int],
+        fused_config: Optional[FusedOptimConfig] = None,
+        dense_optimizer: Optional[Adagrad] = None,
+        table_dtype: torch.dtype = torch.float32,
+        device: DeviceLike = None,
+    ):
+        if table_dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"table_dtype must be float32 or bfloat16, got "
+                            f"{table_dtype}")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.tables = tuple(tables)
+        self.plan = plan
+        self.batch_size = batch_size_per_device
+        self.feature_caps = dict(feature_caps)
+        self.fused_config = fused_config or FusedOptimConfig()
+        self.dense_tx = dense_optimizer or adagrad(
+            self.fused_config.learning_rate)
+        self.table_dtype = table_dtype
+        self.sharded_ebc = ShardedEmbeddingBagCollection.build(
+            tables, plan, 1, batch_size_per_device, feature_caps)
+
+    # -- state -------------------------------------------------------------
+
+    def _init_dense(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """flax ``Dense`` defaults from ``generator``: every weight
+        lecun-normal (variance 1 / fan_in, truncated at two standard
+        deviations), every bias zero."""
+        out = {}
+        for name, p in self.model.named_parameters():
+            t = torch.zeros(p.shape, dtype=torch.float32, device=self.device)
+            if name.endswith("weight"):
+                std = math.sqrt(1.0 / p.shape[1]) / _TRUNC_STD
+                nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            out[name] = t
+        return out
+
+    def init(self, generator: torch.Generator) -> State:
+        """A fresh train state on the device, every random number drawn
+        from ``generator`` (a generator on ``self.device``): the table
+        stacks (each table uniform in +-sqrt(1/rows), in table order), then
+        the dense parameters."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, train step "
+                             f"on {self.device}")
+        ebc = self.sharded_ebc
+        tables = ebc.init_params(generator, dtype=self.table_dtype)
+        fused = ebc.init_fused_state(self.fused_config, self.device)
+        dense = self._init_dense(generator)
+        return {
+            "dense": dense,
+            "dense_opt": self.dense_tx.init(dense),
+            "tables": tables,
+            "fused": fused,
+            "step": 0,
+        }
+
+    def table_weights(self, state: State) -> Dict[str, np.ndarray]:
+        """Full per-table weights from a train state, as float32 numpy
+        (bfloat16 stacks widen exactly)."""
+        return {
+            name: w.to(torch.float32).cpu().numpy()
+            for name, w in self.sharded_ebc.tables_to_weights(
+                state["tables"]).items()
+        }
+
+    def load_table_weights(
+        self, state: State, weights: Mapping[str, Any]
+    ) -> State:
+        """Inverse of :meth:`table_weights`: copy full per-table weights
+        (numpy or tensors) into the state's stacks, in place."""
+        packed = self.sharded_ebc.params_from_tables(
+            weights, self.table_dtype, self.device)
+        for name, t in packed.items():
+            state["tables"][name].copy_(t)
+        return state
+
+    # -- train step --------------------------------------------------------
+
+    def sr_seeds(self, step: int) -> Optional[Tuple[int, ...]]:
+        """One int32 stochastic-rounding seed per group for ``step``, from
+        a generator seeded with the step; None for float32 tables."""
+        if self.table_dtype != torch.bfloat16:
+            return None
+        gen = torch.Generator().manual_seed((SR_SEED_BASE << 32) + step)
+        n = len(self.sharded_ebc.tw_layouts)
+        return tuple(int(s) for s in torch.randint(
+            0, _INT32_MAX, (n,), generator=gen))
+
+    def sparse_forward(
+        self, state: State, batch: Batch
+    ) -> Tuple[torch.Tensor, Dict[str, Tuple]]:
+        """The sharded collection's forward: (pooled KT values [B, sum of
+        dims], ctx per group)."""
+        ebc = self.sharded_ebc
+        outs, ctxs = ebc.forward_local(state["tables"], batch.sparse_features)
+        return ebc.output_kt(outs).values(), ctxs
+
+    def dense_forward_backward(
+        self, state: State, batch: Batch, kt_values: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor],
+               Dict[str, torch.Tensor]]:
+        """Dense forward and backward on the pooled values: (loss, logits
+        [B], dense gradients by name, KT gradient split per feature)."""
+        ebc = self.sharded_ebc
+        kv = kt_values.detach().requires_grad_()
+        dense = {k: v.detach().requires_grad_()
+                 for k, v in state["dense"].items()}
+        with torch.enable_grad():
+            kt = KeyedTensor(ebc.feature_order, ebc.feature_dims, kv)
+            logits = torch.func.functional_call(
+                self.model, dense, (batch.dense_features, kt))
+            loss = bce_with_logits_loss(logits, batch.labels, batch.weights)
+            grads = torch.autograd.grad(loss, [*dense.values(), kv])
+        g_dense = dict(zip(dense, grads[:-1]))
+        # the JAX step divides the KT gradient by the world size (1 here)
+        g_kv = grads[-1]
+        offs = kt.offset_per_key()
+        grad_by_feature = {
+            f: g_kv[:, offs[i]: offs[i + 1]]
+            for i, f in enumerate(ebc.feature_order)
+        }
+        return loss.detach(), logits.detach().reshape(-1), g_dense, \
+            grad_by_feature
+
+    def train_step(self, state: State, batch: Batch) -> Tuple[State, Dict]:
+        """One step on a batch already on the device; updates ``state`` in
+        place and returns it with the metrics (loss, logits, labels, as
+        device tensors)."""
+        kt_values, ctxs = self.sparse_forward(state, batch)
+        loss, logits, g_dense, grad_by_feature = self.dense_forward_backward(
+            state, batch, kt_values)
+        self.sharded_ebc.backward_and_update_local(
+            state["tables"], state["fused"], ctxs, grad_by_feature,
+            self.fused_config, sr_seeds=self.sr_seeds(state["step"]),
+        )
+        self.dense_tx.update(state["dense"], g_dense, state["dense_opt"])
+        state["step"] += 1
+        return state, {"loss": loss, "logits": logits,
+                       "labels": batch.labels.reshape(-1)}
+
+    def make_train_step(self) -> Callable[[State, Batch], Tuple[State, Dict]]:
+        """The train step (JAX's ``make_train_step`` compiles one; the port
+        runs eagerly and returns :meth:`train_step`)."""
+        return self.train_step

@@ -1,5 +1,6 @@
-"""Ragged sparse data structures (the serving subset of
-``torchrec_tpu/sparse/jagged_tensor.py``).
+"""Ragged sparse data structures (a subset of
+``torchrec_tpu/sparse/jagged_tensor.py``: what serving and the train step
+use).
 
 The layout is the JAX package's static per-key-capacity layout, kept
 exactly so that a batch converts element for element between the two
@@ -10,7 +11,7 @@ with zeros; ``lengths`` is key-major ``[F * B]`` int32.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -239,6 +240,10 @@ class KeyedJaggedTensor:
         """``[F]`` total real ids per key."""
         return self._lengths.reshape(len(self._keys), self._stride).sum(dim=1)
 
+    def to_dict(self) -> Dict[str, JaggedTensor]:
+        """key -> that key's :class:`JaggedTensor`."""
+        return {k: self[k] for k in self._keys}
+
     def __getitem__(self, key: str) -> JaggedTensor:
         f = self._keys.index(key)
         offs = self.cap_offsets()
@@ -284,6 +289,13 @@ class KeyedTensor:
 
     def length_per_key(self) -> Tuple[int, ...]:
         return self._length_per_key
+
+    def offset_per_key(self) -> Tuple[int, ...]:
+        """Column offsets of the keys: ``(0, d0, d0 + d1, ...)``."""
+        out = [0]
+        for d in self._length_per_key:
+            out.append(out[-1] + d)
+        return tuple(out)
 
     def __repr__(self) -> str:
         return f"KeyedTensor(keys={list(self._keys)}, dims={self._length_per_key})"
