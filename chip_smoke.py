@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: the DLRM training step of
-``bench.py main()`` and quantized DLRM serving.
+``bench.py main()``, the bucketed training pipeline on the dedup kernels,
+and quantized DLRM serving.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and fails (non-zero exit, no result line)
@@ -9,8 +10,9 @@ without one, or when the ``torchrec_tpu_torch`` package is not beside it.
 Phases, one JSON line each on stdout; any failure raises:
 
 1. device — the card, its power limit, and the nvcc builds of the
-   kernels (``torchrec_tpu_torch/csrc/{tbe_float,tbe_backward,tbe_quant}.cu``,
-   one nvcc per source, started together) from source;
+   kernels (``torchrec_tpu_torch/csrc/{tbe_float,tbe_backward,tbe_quant,
+   tbe_dedup,tbe_dedup_backward}.cu``, one nvcc per source, started
+   together) from source;
 2. kernel — each quantized lookup kernel against its plain PyTorch version
    on the card (``torch.equal``) at D=128, S=4096 segments with the MLPerf
    DLRM-v2 multi-hot lengths, a 1M-row table, uniform and Zipf ids; with
@@ -35,7 +37,25 @@ Phases, one JSON line each on stdout; any failure raises:
    launch per step), three steps under ``torch.profiler``, and 3 steps of
    the bfloat16-table arm with stochastic rounding (its path check also
    holds the rounded stack apart from round-to-nearest);
-4. serving — quantized serving: DLRM at the widths of ``bench.py`` (26 sparse
+4. train_dedup — the bucketed training pipeline on the dedup kernels:
+   the DLRM of phase 3 through ``BucketedTrainPipeline`` (ladder floor 8,
+   growth 2, at most 8 signatures; ``kernels`` dedup for the lookup and
+   the update) over a stream of up to 64 ids per feature per example
+   with Zipf(1.2) lengths from 1 and Zipf(1.0) ids (full caps 262,144
+   ids per feature).  First ``dedup_kernel``: the ragged dedup lookup
+   (B4) over the float32 stack and its bfloat16 cast, and the dedup fused
+   update (B6) for each of its eight optimizers on float32 and rowwise
+   Adagrad on bfloat16 with stochastic rounding, each against its plain
+   version (``torch.equal``) on the first bucketed batch's slots, with
+   times and bounds; then the path check on that batch (B4's output
+   equal to B1's, B6's update from the step's real gradient equal to its
+   plain version's, and the state after one bucketed step equal to the
+   state after the same step at full caps); then 1 warm-up and 20 timed
+   rowwise-Adagrad steps (samples/s, every loss finite, one B4 and one
+   B6 launch per step and nothing else, the signatures dispatched and
+   the padding ratios), three profiled steps, and 3 steps of each other
+   optimizer and of the bfloat16-table arm;
+5. serving — quantized serving: DLRM at the widths of ``bench.py`` (26 sparse
    features, D=128, 13 dense, dense arch 512-256-128, over arch
    1024-1024-512-256-1, float32) over int8 tables at the MLPerf DLRM-v2
    row counts (204,184,588 rows); first each kernel against its plain
@@ -47,7 +67,7 @@ Phases, one JSON line each on stdout; any failure raises:
    kernel on Zipf ids; then ``serving_fn`` alone at B=4096, and a
    ``torch.profiler`` breakdown of one served batch (B=256): wall time,
    device busy time and idle share, the kernels that take the time;
-5. roundtrip — ``package_model`` at 10k rows per table, loaded on the
+6. roundtrip — ``package_model`` at 10k rows per table, loaded on the
    card and on the CPU, scores compared.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
@@ -85,6 +105,9 @@ KERNEL_SOURCES = {
     "fused_sparse_update": "torchrec_tpu_torch/csrc/tbe_backward.cu",
     "quant_pooled_lookup_int8": "torchrec_tpu_torch/csrc/tbe_quant.cu",
     "dedup_quant_pooled_lookup": "torchrec_tpu_torch/csrc/tbe_quant.cu",
+    "dedup_pooled_lookup": "torchrec_tpu_torch/csrc/tbe_dedup.cu",
+    "dedup_fused_sparse_update":
+        "torchrec_tpu_torch/csrc/tbe_dedup_backward.cu",
 }
 REPLACES = {
     "pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:287",
@@ -93,6 +116,9 @@ REPLACES = {
         "torchrec_tpu/ops/pallas_tbe.py:383",
     "dedup_quant_pooled_lookup":
         "torchrec_tpu/ops/pallas_tbe.py:888",
+    "dedup_pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:811",
+    "dedup_fused_sparse_update":
+        "torchrec_tpu/ops/pallas_tbe_backward.py:1127",
 }
 
 KERNEL_ROWS = 1_000_000
@@ -116,6 +142,22 @@ TRAIN_BATCHES = 4
 TRAIN_STEPS = 20
 BF16_STEPS = 3
 SR_SEED = 12345
+# the bucketed training pipeline on the dedup kernels: the same DLRM, a
+# stream with Zipf(1.2) lengths of 1..64 ids per feature (bench.py's
+# bucketing bench) and Zipf(1.0) ids (its dedup bench's headline exponent)
+DEDUP_MAX_IDS = 64
+DEDUP_ZIPF_LENGTHS = 1.2
+DEDUP_ZIPF_IDS = 1.0
+BUCKETING = {"floor": 8, "growth": 2.0, "max_programs": 8}
+ARM_STEPS = 3
+PLAIN_RUNS = 3  # the plain dedup versions walk a Zipf-hot row slot by slot
+# multiplies, adds, divisions and roots per column of one row's update
+# (after the gradient sum), for the operations bound of the dedup update
+UPDATE_OPS_PER_COLUMN = {
+    "sgd": 2, "lars_sgd": 6, "adagrad": 6, "rowwise_adagrad": 5,
+    "adam": 13, "partial_rowwise_adam": 9, "lamb": 17,
+    "partial_rowwise_lamb": 13,
+}
 
 
 def emit(record: dict) -> None:
@@ -650,7 +692,457 @@ def _check_train(rec, counts, steps):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serving at full width
+# phase 4: the bucketed training pipeline on the dedup kernels
+# ---------------------------------------------------------------------------
+
+
+def dedup_batches():
+    """The first ``TRAIN_BATCHES`` batches of the dedup stream, on the
+    host (the pipeline repacks and copies them per step)."""
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+
+    keys = [f"cat_{i}" for i in range(TRAIN_FEATURES)]
+    F = len(keys)
+    ds = RandomRecDataset(
+        keys, TRAIN_BATCH, [TRAIN_ROWS] * F, [DEDUP_MAX_IDS] * F,
+        num_dense=NUM_DENSE, manual_seed=0, min_ids_per_features=[1] * F,
+        zipf_lengths=DEDUP_ZIPF_LENGTHS, zipf_ids=DEDUP_ZIPF_IDS)
+    it = iter(ds)
+    return keys, ds.caps, [next(it) for _ in range(TRAIN_BATCHES)]
+
+
+def build_dedup_trainer(dev, keys, caps, optim, table_dtype):
+    """``DistributedModelParallel`` of ``build_trainer`` at the dedup
+    stream's caps, on the dedup kernels, with fused optimizer ``optim``
+    (lr 0.05, the JAX defaults otherwise), and its state."""
+    import torch
+
+    from torchrec_tpu_torch.models.dlrm import DLRM
+    from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        FusedOptimConfig,
+    )
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+
+    tables = tuple(
+        EmbeddingBagConfig(num_embeddings=TRAIN_ROWS, embedding_dim=DIM,
+                           name=f"t_{k}", feature_names=[k])
+        for k in keys)
+    model = DLRM(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                 dense_dtype=torch.bfloat16)
+    dmp = DistributedModelParallel(
+        model, tables, table_wise_plan(tables), TRAIN_BATCH,
+        dict(zip(keys, caps)),
+        fused_config=FusedOptimConfig(optim=EmbOptimType(optim),
+                                      learning_rate=TRAIN_LR),
+        dense_optimizer=adagrad(TRAIN_LR), table_dtype=table_dtype,
+        device=dev, lookup_kernel="dedup", update_kernel="dedup",
+    )
+    return dmp, dmp.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def _bucketing_config():
+    from torchrec_tpu_torch.parallel.train_pipeline import BucketingConfig
+
+    return BucketingConfig(**BUCKETING,
+                           kernels={"pooled": "dedup", "update": "dedup"})
+
+
+def bucketed_batch(dmp, batch, dev):
+    """The batch repacked to its bucketed signature, on the card, and the
+    clone of ``dmp`` for that signature (what the pipeline runs)."""
+    import dataclasses
+
+    kjt = batch.sparse_features
+    sig = kjt.bucketed_caps(BUCKETING["floor"], BUCKETING["growth"])
+    clone = dmp.with_feature_caps(dict(zip(kjt.keys(), sig)))
+    return (dataclasses.replace(batch, sparse_features=kjt.repad(sig))
+            .to(dev), clone, sig)
+
+
+def _clone_state(state):
+    """A deep copy of a train state (tensors cloned on their device)."""
+    import torch
+
+    if isinstance(state, dict):
+        return {k: _clone_state(v) for k, v in state.items()}
+    return state.clone() if isinstance(state, torch.Tensor) else state
+
+
+def _state_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_state_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return a == b
+
+
+def _b6_bound(D, esize, sg, optim):
+    """Bytes and operations the dedup update must move / do on these
+    inputs: each referenced gradient row once, each slot's id, flag,
+    segment and weight once, each touched table row and its optimizer
+    state read and written once; per kept slot a multiply and an add per
+    column, per touched row ``UPDATE_OPS_PER_COLUMN`` per column."""
+    import torch
+
+    from torchrec_tpu_torch.ops.tbe_backward import STATE_LAYOUTS
+
+    ok = sg.ok() & (sg.ids >= 0)
+    U = int(torch.unique(sg.ids[ok]).numel())
+    n_seg = int(torch.unique(sg.segments[ok]).numel())
+    V = sg.ids.numel()
+    state_bytes = sum(4 if kind == "row" else 4 * D
+                      for kind in STATE_LAYOUTS[optim])
+    nbytes = (n_seg * D * 4
+              + V * (sg.ids.element_size() + 1 + sg.segments.element_size()
+                     + sg.weights.element_size())
+              + U * 2 * (D * esize + state_bytes))
+    flops = 2 * int(ok.sum()) * D + UPDATE_OPS_PER_COLUMN[optim] * U * D
+    return U, nbytes, flops
+
+
+def dedup_kernel_phase(dev, flush, dmp, state, batch):
+    """B4 and B6 against their plain versions on the card at the bucketed
+    path's shapes: the ``[2,600,000, 128]`` stack and the first bucketed
+    batch of the dedup stream (its real ids, segments and weights).  B4
+    over the float32 stack and its bfloat16 cast; B6 for each of its eight
+    optimizers on float32 and rowwise Adagrad on bfloat16 with stochastic
+    rounding, each on fresh copies of the stack and of random states, with
+    a random ``[S, 128]`` upstream gradient.  Times by ``cuda_ms``; the
+    plain versions over ``PLAIN_RUNS`` runs.  Returns the records."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import (
+        FusedOptimConfig,
+        SparseSegGrad,
+        bias_corrections,
+    )
+    from torchrec_tpu_torch.parallel.sharding.tw import tw_lookup_inputs
+
+    bb, clone, sig = bucketed_batch(dmp, batch, dev)
+    (name, lay), = clone.sharded_ebc.tw_layouts.items()
+    stack32 = state["tables"][name]
+    R, D = stack32.shape
+    ids, w, segs, S = tw_lookup_inputs(lay, bb.sparse_features)
+    valid = (segs < S) & (w != 0)
+    common = {"rows": R, "D": D, "S": S, "V": ids.numel(),
+              "valid": int(valid.sum()), "signature_slots": sum(sig)}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    grad = torch.randn((S, D), generator=gen, device=dev) * 1e-2
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        stack = stack32 if dtype == torch.float32 else stack32.to(dtype)
+        args = (stack, ids, segs, S, w)
+        got = tbe.dedup_pooled_lookup(*args)
+        torch.cuda.synchronize()
+        ref = tbe.dedup_pooled_lookup_plain(*args)
+        err = float((got.float() - ref.float()).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"dedup_pooled_lookup {dtype}: kernel != "
+                                 f"plain (max abs err {err})")
+        prep = tbe.dedup_prepare(ids, segs, w, S, R)
+        sids, sw, offs = tbe.sort_by_segment(ids, segs, w, S, R)
+        n = int(offs[-1])
+        lib_ids, lib_offs = sids[:n].to(torch.int64), offs.to(torch.int64)
+        lib_w = sw[:n].to(dtype)
+
+        def library():
+            return F.embedding_bag(
+                lib_ids, stack, lib_offs, mode="sum",
+                per_sample_weights=lib_w, include_last_offset=True)
+
+        U, nbytes, flops = _b1_bound(R, D, stack.element_size(), ids, segs,
+                                     w, S)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rec = {
+            "phase": "dedup_kernel", "kernel": "dedup_pooled_lookup",
+            "dtype": str(dtype).replace("torch.", ""), **common,
+            "distinct": U, "scratch_bytes": U * D * 4, "equal": True,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: tbe.dedup_pooled_lookup(*args), flush),
+            "kernel_ms": cuda_ms(
+                lambda: tbe.launch_dedup_pooled(stack, *prep), flush),
+            "plain_ms": cuda_ms(lambda: tbe.dedup_pooled_lookup_plain(*args),
+                                flush, runs=PLAIN_RUNS, warmup=1),
+            "library_ms": cuda_ms(library, flush),
+            "library_max_abs_diff": float(
+                (library().float() - got.float()).abs().max()),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        emit(rec)
+        rows.append(rec)
+        del got, ref, prep, stack
+
+    sg = SparseSegGrad(ids, valid, segs, w, grad)
+    srt = tbe_backward.sort_by_row(ids, valid, segs, w, R, S)
+    arms = [(o, torch.float32, None) for o in tbe_backward.OPTIMIZERS]
+    arms.append(("rowwise_adagrad", torch.bfloat16, SR_SEED))
+    for optim, dtype, seed in arms:
+        stack = stack32 if dtype == torch.float32 else stack32.to(dtype)
+        states = [
+            torch.rand((R,) if kind == "row" else (R, D), generator=gen,
+                       device=dev) * 1e-2
+            for kind in tbe_backward.STATE_LAYOUTS[optim]]
+        # the Adam family's first step (the others ignore the corrections)
+        kw = {"eps": 1e-8, "weight_decay": 0.0,
+              "bias_corrections": bias_corrections(FusedOptimConfig(), 1),
+              "sr_seed": seed}
+        upd = (ids, valid, segs, w, grad, optim, TRAIN_LR)
+        tk, sk = stack.clone(), [s.clone() for s in states]
+        tbe_backward.dedup_fused_sparse_update(tk, sk, *upd, **kw)
+        torch.cuda.synchronize()
+        tp, sp = stack.clone(), [s.clone() for s in states]
+        tbe_backward.dedup_fused_sparse_update_plain(tp, sp, *upd, **kw)
+        err = max([float((tk.float() - tp.float()).abs().max())]
+                  + [float((a - b).abs().max()) for a, b in zip(sk, sp)])
+        equal = bool(torch.equal(tk, tp)) and all(
+            torch.equal(a, b) for a, b in zip(sk, sp))
+        touched = int((tk != stack).any(dim=1).sum())
+        sr_rows = None
+        if seed is not None:
+            rn = stack.clone()
+            tbe_backward.dedup_fused_sparse_update_plain(
+                rn, [s.clone() for s in states], *upd,
+                **{**kw, "sr_seed": None})
+            sr_rows = int((rn != tk).sum())
+            del rn
+        del tp, sp
+        if not equal:
+            raise AssertionError(f"dedup_fused_sparse_update {optim} "
+                                 f"{dtype}: kernel != plain (max abs err "
+                                 f"{err})")
+        if seed is not None and not sr_rows:
+            raise AssertionError("bfloat16 update did not round "
+                                 "stochastically")
+
+        def restore():  # the timed calls update tk and sk in place
+            tk.copy_(stack)
+            for a, b in zip(sk, states):
+                a.copy_(b)
+
+        U, nbytes, flops = _b6_bound(D, stack.element_size(), sg, optim)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rec = {
+            "phase": "dedup_kernel", "kernel": "dedup_fused_sparse_update",
+            "optim": optim, "dtype": str(dtype).replace("torch.", ""),
+            **common, "kept": int(sg.ok().sum()), "distinct": U,
+            "touched_rows": touched, "sr_seed": seed,
+            "sr_differs_from_nearest": sr_rows, "equal": True,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: tbe_backward.dedup_fused_sparse_update(
+                tk, sk, *upd, **kw), flush, setup=restore),
+            "kernel_ms": cuda_ms(
+                lambda: tbe_backward.launch_dedup_fused_sparse_update(
+                    tk, sk, *srt, grad, optim, TRAIN_LR, kw["eps"], 0.0,
+                    (0.9, 0.999), kw["bias_corrections"], seed),
+                flush, setup=restore),
+            "plain_ms": cuda_ms(
+                lambda: tbe_backward.dedup_fused_sparse_update_plain(
+                    tk, sk, *upd, **kw),
+                flush, runs=PLAIN_RUNS, warmup=1, setup=restore),
+            "library_ms": None,
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        emit(rec)
+        rows.append(rec)
+        del tk, sk, states, stack
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dedup_path_check(dmp, state, batch, dev):
+    """On the first batch at full width, the three checks of the dedup
+    path: (1) B4's pooled output (the KT values of the bucketed step)
+    ``torch.equal`` to B1's on the same slots; (2) B6's updated stack and
+    momentum from the step's real gradient equal to its plain version's;
+    (3) the state after one step at the bucketed signature equal to the
+    state after the same step at the full-caps signature.  The state is
+    left as it was.  Returns the emitted record."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import (
+        apply_sparse_update_segments,
+    )
+    from torchrec_tpu_torch.parallel.sharding.tw import (
+        tw_backward_local,
+        tw_output_features,
+    )
+
+    bb, clone, sig = bucketed_batch(dmp, batch, dev)
+    ebc = clone.sharded_ebc
+    (name, lay), = ebc.tw_layouts.items()
+    stack = state["tables"][name]
+    mom = state["fused"][name]["momentum"]
+    kt, ctxs = clone.sparse_forward(state, bb)
+    ids, w, segs = ctxs[name]
+    S = lay.f_max * lay.world_size * lay.batch_size
+    b1 = tbe.pooled_lookup(stack, ids, segs, S, w)
+    kt_b1 = ebc.output_kt(tw_output_features(lay, b1)).values()
+    loss, _, _, grad_by_feature = clone.dense_forward_backward(state, bb, kt)
+    sg = tw_backward_local(lay, ctxs[name], grad_by_feature)
+    cfg = clone.fused_config
+    tk, mk = stack.clone(), mom.clone()
+    apply_sparse_update_segments(tk, {"momentum": mk}, sg, cfg,
+                                 update_kernel="dedup")
+    torch.cuda.synchronize()
+    tp, mp = stack.clone(), mom.clone()
+    tbe_backward.dedup_fused_sparse_update_plain(
+        tp, (mp,), sg.ids, sg.valid, sg.segments, sg.weights, sg.grad_seg,
+        cfg.optim.value, cfg.learning_rate, cfg.eps, cfg.weight_decay)
+    rec = {
+        "phase": "dedup_path_check", "batch": lay.batch_size,
+        "stack": list(stack.shape), "signature_slots": sum(sig),
+        "full_slots": sum(dmp.feature_caps.values()),
+        "valid_slots": int(sg.ok().sum()),
+        "touched_rows": int((tk != stack).any(dim=1).sum()),
+        "loss": float(loss),
+        "b4_equals_b1": bool(torch.equal(kt, kt_b1)),
+        "b4_max_abs_err": float((kt - kt_b1).abs().max()),
+        "b6_table_equal": bool(torch.equal(tk, tp)),
+        "b6_momentum_equal": bool(torch.equal(mk, mp)),
+        "b6_max_abs_err": max(float((tk - tp).abs().max()),
+                              float((mk - mp).abs().max())),
+    }
+    del tk, mk, tp, mp, kt, kt_b1, b1, sg, grad_by_feature
+    bucketed = _clone_state(state)
+    _, mb = clone.train_step(bucketed, bb)
+    full = _clone_state(state)
+    _, mf = dmp.train_step(full, batch.to(dev))
+    rec["bucketed_equals_full_caps"] = bool(
+        _state_equal(bucketed, full) and torch.equal(mb["loss"], mf["loss"]))
+    del bucketed, full
+    torch.cuda.empty_cache()
+    emit(rec)
+    if not (rec["b4_equals_b1"] and rec["b6_table_equal"]
+            and rec["b6_momentum_equal"]
+            and rec["bucketed_equals_full_caps"]):
+        raise AssertionError(f"dedup path check failed: {rec}")
+    return rec
+
+
+def _pipeline_steps(pipe, it, n):
+    """``n`` pipeline steps ending in a synchronise; returns (losses as
+    floats, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [pipe.progress(it)["loss"] for _ in range(n)]
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], time.perf_counter() - t0
+
+
+def _check_dedup(rec, counts, steps):
+    if not rec["all_finite"]:
+        raise AssertionError(f"non-finite training loss: {rec['losses']}")
+    want = {"dedup_pooled_lookup": steps, "dedup_fused_sparse_update": steps}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{steps} dedup steps launched {got}, want "
+                             f"{want}")
+
+
+def train_dedup_phase(dev, flush):
+    """The bucketed training pipeline on the dedup kernels: the kernels
+    at the path's shapes, the path checks, 1 warm-up and 20 timed
+    rowwise-Adagrad steps over 4 cycled batches, three profiled steps,
+    then 3 steps of each other optimizer and 3 steps of the bfloat16-table
+    arm.  Returns (the main run's launches, the dedup_kernel records, the
+    path check)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.parallel.train_pipeline import (
+        BucketedTrainPipeline,
+    )
+
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    keys, caps, batches = dedup_batches()
+    occ = [b.sparse_features.occupancy_per_key() for b in batches]
+    dmp, state = build_dedup_trainer(dev, keys, caps, "rowwise_adagrad",
+                                     torch.float32)
+    torch.cuda.synchronize()
+    emit({"phase": "train_dedup_setup", "seconds": time.perf_counter() - t0,
+          "full_caps_slots": sum(caps), "ids_per_batch": [sum(o) for o in occ],
+          "max_ids_per_feature": max(max(o) for o in occ),
+          "stacks": {k: list(v.shape) for k, v in state["tables"].items()},
+          "memory_allocated": torch.cuda.memory_allocated()})
+    kernel_rows = dedup_kernel_phase(dev, flush, dmp, state, batches[0])
+    check = dedup_path_check(dmp, state, batches[0], dev)
+
+    # the main path: 1 warm-up and TRAIN_STEPS timed steps, then the
+    # profiled steps (1 + 3 + 3 calls), from one finite stream
+    n_main = 1 + TRAIN_STEPS
+    stream = iter([batches[i % len(batches)] for i in range(n_main + 7)])
+    pipe = BucketedTrainPipeline(dmp, state, _bucketing_config())
+    torch.cuda.reset_peak_memory_stats()
+    tbe.reset_launch_counts()
+    warm, _ = _pipeline_steps(pipe, stream, 1)
+    losses, dt = _pipeline_steps(pipe, stream, TRAIN_STEPS)
+    counts = tbe.launch_counts()
+    stats = pipe.stats
+    rec = {"phase": "train_dedup", "card": card, "optim": "rowwise_adagrad",
+           "table_dtype": "float32", "batch": TRAIN_BATCH, "steps": n_main,
+           "timed_steps": TRAIN_STEPS,
+           "samples_per_s": TRAIN_STEPS * TRAIN_BATCH / dt,
+           "ms_per_step": dt * 1e3 / TRAIN_STEPS, "losses": warm + losses,
+           "all_finite": bool(np.isfinite(warm + losses).all()),
+           "launches": counts,
+           "signatures": {str(sum(s)): n
+                          for s, n in stats.dispatch_counts.items()},
+           "padding": stats.scalar_metrics(),
+           "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(rec)
+    _check_dedup(rec, counts, n_main)
+    main_counts = counts
+    profile_calls({"phase": "train_dedup_profile", "card": card,
+                   "batch": TRAIN_BATCH}, lambda: pipe.progress(stream), 3,
+                  "step")
+    del pipe, dmp, state
+    torch.cuda.empty_cache()
+
+    # 3 steps for each other optimizer, then the bfloat16-table arm
+    arms = [(o, torch.float32) for o in tbe_backward.OPTIMIZERS
+            if o != "rowwise_adagrad"]
+    arms.append(("rowwise_adagrad", torch.bfloat16))
+    for optim, dtype in arms:
+        dmp, state = build_dedup_trainer(dev, keys, caps, optim, dtype)
+        pipe = BucketedTrainPipeline(dmp, state, _bucketing_config())
+        tbe.reset_launch_counts()
+        losses, dt = _pipeline_steps(pipe, iter(batches[:ARM_STEPS]),
+                                     ARM_STEPS)
+        counts = tbe.launch_counts()
+        rec = {"phase": "train_dedup_arm", "optim": optim,
+               "table_dtype": str(dtype).replace("torch.", ""),
+               "steps": ARM_STEPS,
+               "samples_per_s": ARM_STEPS * TRAIN_BATCH / dt,
+               "losses": losses, "all_finite": bool(np.isfinite(losses).all()),
+               "launches": counts,
+               "fused_step": next(iter(pipe.state["fused"].values()))
+               .get("step")}
+        emit(rec)
+        _check_dedup(rec, counts, ARM_STEPS)
+        del pipe, dmp, state
+        torch.cuda.empty_cache()
+    return main_counts, kernel_rows, check
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving at full width
 # ---------------------------------------------------------------------------
 
 
@@ -753,9 +1245,10 @@ def profile_calls(record, call, iters: int, unit: str):
     """``torch.profiler`` over ``iters`` calls of ``call``, each ending in
     a synchronise, emitted as ``record`` plus the numbers per ``unit``.
     Device busy time is the sum of the device events (one stream, so
-    they do not overlap); the rest of the profiled wall time the card is
-    idle.  The same calls are timed once without the profiler, which
-    gives the profiler's own cost."""
+    they do not overlap; spans are left out); the rest of the profiled
+    wall time the card is idle.  The same calls are timed once without the
+    profiler, which gives the profiler's own cost and the idle share of
+    the unprofiled wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -774,8 +1267,11 @@ def profile_calls(record, call, iters: int, unit: str):
         for _ in range(iters):
             step()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    # a span (record_function) also shows as a device-side range over the
+    # kernels it launched: it is not device work of its own
     device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     # a profiler that traced no device event measured nothing: report
     # the device numbers as not measured (null), never as an idle card
     busy_ms = (sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters
@@ -793,6 +1289,8 @@ def profile_calls(record, call, iters: int, unit: str):
            f"device_busy_ms_per_{unit}": busy_ms,
            "device_idle_share": (None if busy_ms is None
                                  else 1.0 - busy_ms / wall_ms),
+           "device_idle_share_of_unprofiled_wall": (
+               None if busy_ms is None else 1.0 - busy_ms / bare_ms),
            f"device_events_per_{unit}": len(device) / iters,
            f"top_device_ms_per_{unit}": {k: v / 1e3 / iters
                                          for k, v in top}}
@@ -1021,7 +1519,7 @@ def serving_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: artifact round trip, card against CPU
+# phase 6: artifact round trip, card against CPU
 # ---------------------------------------------------------------------------
 
 
@@ -1099,29 +1597,38 @@ def main() -> None:
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     kernel_rows = kernel_phase(dev, flush)
     train_launches, train_rows, checks = train_phase(dev, flush)
+    dedup_launches, dedup_rows, dedup_check = train_dedup_phase(dev, flush)
     del flush
     serve_launches, _, path_rows = serving_phase(dev)
     roundtrip_phase(dev)
 
-    # each kernel's launches on its own path: B1/B2 training, B3/B5
-    # serving
-    launches = {k: train_launches[k] + serve_launches[k]
+    # each kernel's launches on its own main path: B1/B2 the training
+    # step, B4/B6 the bucketed pipeline's 21 steps, B3/B5 serving
+    launches = {k: train_launches[k] + dedup_launches[k] + serve_launches[k]
                 for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
-            for r in kernel_rows + train_rows + path_rows]
+            for r in kernel_rows + train_rows + dedup_rows + path_rows]
     errs += [(k, c[f"{b}_max_abs_err"]) for c in checks
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"))]
+    errs += [("dedup_pooled_lookup", dedup_check["b4_max_abs_err"]),
+             ("dedup_fused_sparse_update", dedup_check["b6_max_abs_err"])]
+
+    def representative(name):
+        """The timed row of each kernel: float32 (int8 for B3/B5), rowwise
+        Adagrad for B6; B1/B2 at the training batch's uniform ids, B3 at
+        uniform and B5 at Zipf ids; B4/B6 at the bucketed batch."""
+        want_ids = "zipf" if name == "dedup_quant_pooled_lookup" else "uniform"
+        return next(
+            r for r in kernel_rows + train_rows + dedup_rows
+            if r["kernel"] == name and r.get("bits", 8) == 8
+            and r.get("dtype", "float32") == "float32"
+            and r.get("optim", "rowwise_adagrad") == "rowwise_adagrad"
+            and r.get("ids", want_ids) == want_ids)
+
     summary = []
     for name in tbe.LAUNCHES:
-        # timed: B1/B2 on the float32 stack at the batch's uniform ids
-        # (the main path's); B3 at the serving run's uniform ids; B5 at
-        # int8 with the Zipf ids of its serving run
-        rep = next(r for r in kernel_rows + train_rows
-                   if r["kernel"] == name and r.get("bits", 8) == 8
-                   and r.get("dtype", "float32") == "float32"
-                   and r["ids"] == ("zipf" if name == "dedup_quant_pooled_lookup"
-                                    else "uniform"))
+        rep = representative(name)
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on its path")
         summary.append({

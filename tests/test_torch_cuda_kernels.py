@@ -164,3 +164,88 @@ def test_fused_update_equals_plain_on_card(dev, dtype, D, wd, seed, case):
     assert torch.equal(tk, tp), float((tk.float() - tp.float()).abs().max())
     assert torch.equal(mk, mp)
     assert (n == 0) == torch.equal(tk, table)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype,D", FLOAT_CONFIGS)
+def test_dedup_pooled_lookup_equals_plain_on_card(dev, dtype, D, case):
+    """B4 against its plain version, and against B1 (the same function;
+    bitwise for float32 and bfloat16 tables alike)."""
+    rng = np.random.RandomState(D + 7)
+    n = 0 if case == "empty_batch" else V
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    # a few hot rows: duplicates within and across segments
+    ids = np.where(rng.rand(n) < 0.5, rng.randint(0, 8, size=(n,)),
+                   rng.randint(-3, R + 3, size=(n,)))
+    ids = torch.from_numpy(ids).to(dev)
+    segs = rng.randint(5, S + 4, size=(n,))
+    segs[: n // 10] = -1
+    segs = torch.from_numpy(segs).to(dev)
+    w = (None if case == "no_weights"
+         else torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev))
+    before = tbe.launch_counts()["dedup_pooled_lookup"]
+    got = tbe.dedup_pooled_lookup(table, ids, segs, S, w)
+    torch.cuda.synchronize()
+    assert tbe.launch_counts()["dedup_pooled_lookup"] == before + 1
+    ref = tbe.dedup_pooled_lookup_plain(table, ids, segs, S, w)
+    assert got.dtype == dtype and got.shape == (S, D)
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
+    assert torch.equal(got, tbe.pooled_lookup(table, ids, segs, S, w))
+    assert not got[:5].any()
+
+
+def test_dedup_lookup_no_segments_launch_nothing_on_card(dev):
+    ids = torch.arange(8, device=dev)
+    before = tbe.launch_counts()
+    out = tbe.dedup_pooled_lookup(torch.ones((R, 16), device=dev), ids, ids,
+                                  0, torch.ones(8, device=dev))
+    assert out.shape == (0, 16) and out.device.type == "cuda"
+    assert tbe.launch_counts() == before
+
+
+# (dtype, D, weight decay, stochastic-rounding seed) for the dedup fused
+# update (B6): every optimizer on float32 at the vector layout, the
+# one-column layout and past one 128-column block; bfloat16 with
+# stochastic rounding for rowwise Adagrad and Adam
+DEDUP_UPDATE_CONFIGS = [
+    (optim, torch.float32, D, wd, None)
+    for optim in tbe_backward.OPTIMIZERS
+    for D, wd in ((16, 0.01), (6, 0.0), (132, 0.01))
+] + [
+    ("rowwise_adagrad", torch.bfloat16, 128, 0.0, 12345),
+    ("adam", torch.bfloat16, 16, 0.01, -7),
+]
+
+
+@pytest.mark.parametrize("case", ("zipf", "empty_batch"))
+@pytest.mark.parametrize("optim,dtype,D,wd,seed", DEDUP_UPDATE_CONFIGS)
+def test_dedup_fused_update_equals_plain_on_card(dev, optim, dtype, D, wd,
+                                                 seed, case):
+    rng = np.random.RandomState(D + 3)
+    n = 0 if case == "empty_batch" else V
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    states = [torch.from_numpy(
+        rng.rand(*((R,) if kind == "row" else (R, D))).astype(np.float32)
+    ).to(dev) for kind in tbe_backward.STATE_LAYOUTS[optim]]
+    ids = np.minimum(rng.zipf(1.2, n) - 1, R + 3)
+    args = [torch.from_numpy(x).to(dev) for x in (
+        ids, rng.rand(n) > 0.1, rng.randint(-2, S + 2, n),
+        rng.rand(n).astype(np.float32))]
+    grad = torch.from_numpy(rng.randn(S, D).astype(np.float32)).to(dev)
+    kw = dict(weight_decay=wd, sr_seed=seed, bias_corrections=(0.271, 0.004))
+    tk, sk = table.clone(), [s.clone() for s in states]
+    tp, sp = table.clone(), [s.clone() for s in states]
+    before = tbe.launch_counts()["dedup_fused_sparse_update"]
+    tbe_backward.dedup_fused_sparse_update(tk, sk, *args, grad, optim, 0.05,
+                                           **kw)
+    torch.cuda.synchronize()
+    assert tbe.launch_counts()["dedup_fused_sparse_update"] == before + (
+        n > 0)
+    tbe_backward.dedup_fused_sparse_update_plain(tp, sp, *args, grad, optim,
+                                                 0.05, **kw)
+    assert torch.equal(tk, tp), float((tk.float() - tp.float()).abs().max())
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert (n == 0) == torch.equal(tk, table)

@@ -178,12 +178,12 @@ def _jax_dmp(ds):
     )
 
 
-def _port_dmp(caps, **kw):
+def _port_dmp(caps, fused_config=None, **kw):
     tables = _tables(EmbeddingBagConfig)
     return DistributedModelParallel(
         DLRM(tables, DENSE_IN, DENSE_ARCH, OVER_ARCH), tables,
         table_wise_plan(tables), B, caps,
-        fused_config=FusedOptimConfig(learning_rate=LR),
+        fused_config=fused_config or FusedOptimConfig(learning_rate=LR),
         dense_optimizer=adagrad(LR), **kw,
     )
 
@@ -264,6 +264,39 @@ def test_train_state_round_trip_bitwise(jax_start):
     dmp.load_table_weights(state, want)
     assert np.array_equal(train_state_to_jax(state)["tables"]["tw_d16"],
                           jnp_state["tables"]["tw_d16"])
+
+
+@pytest.mark.parametrize("optim", [o.value for o in JOptim])
+def test_fused_states_round_trip_bitwise(jax_start, optim):
+    """Every fused optimizer's state crosses both ways bit for bit: the
+    JAX layout of ``init_optimizer_state`` filled with random values (and
+    the Adam family's ``step``), to the port and back."""
+    from torchrec_tpu.ops.fused_update import init_optimizer_state as jinit
+
+    _, _, jnp_state, _ = jax_start
+    rng = np.random.RandomState(3)
+    fused = {k: (np.int32(5) if k == "step"
+                 else rng.randn(*v.shape).astype(np.float32))
+             for k, v in jinit(JFused(optim=JOptim(optim)), ROWS * 4,
+                               D).items()}
+    state = train_state_from_jax({**jnp_state, "fused": {"tw_d16": fused}},
+                                 device="cpu")
+    got = state["fused"]["tw_d16"]
+    want = _port_dmp(dict(zip(KEYS, [B] * 4)), device="cpu",
+                     fused_config=FusedOptimConfig(optim=EmbOptimType(optim)),
+                     update_kernel="dedup", lookup_kernel="dedup").init(
+        torch.Generator().manual_seed(0))["fused"]["tw_d16"]
+    assert sorted(got) == sorted(want) == sorted(fused)
+    for k, v in got.items():
+        if k == "step":
+            assert v == 5 and want[k] == 0
+        else:
+            assert v.dtype == want[k].dtype == torch.float32
+            assert v.shape == want[k].shape
+    back = train_state_to_jax(state)["fused"]["tw_d16"]
+    for k, v in fused.items():
+        assert back[k].dtype == v.dtype
+        np.testing.assert_array_equal(back[k], v)
 
 
 def test_bf16_tables_train_with_stochastic_rounding():

@@ -251,6 +251,7 @@ def test_cpu_tensors_launch_nothing():
     assert tbe.launch_counts() == {
         "pooled_lookup": 0, "fused_sparse_update": 0,
         "quant_pooled_lookup_int8": 0, "dedup_quant_pooled_lookup": 0,
+        "dedup_pooled_lookup": 0, "dedup_fused_sparse_update": 0,
     }
 
 

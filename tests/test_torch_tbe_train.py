@@ -337,14 +337,23 @@ def test_apply_sparse_update_segments_dispatch(dtype):
     want = np.asarray(JSeg(_j(ids), _j(valid), _j(segs), _j(w),
                            _j(grad)).ok())
     np.testing.assert_array_equal(sg.ok().numpy(), want)
+    from torchrec_tpu.ops.fused_update import EmbOptimType as JOptim
+    from torchrec_tpu.ops.fused_update import FusedOptimConfig as JCfg
+    from torchrec_tpu.ops.fused_update import init_optimizer_state as jinit
+
     for optim in tfu.EmbOptimType:
+        # every optimizer's state has the JAX layout (the dedup kernel
+        # takes all eight); the per-id kernel raises for all but one
+        got = tfu.init_optimizer_state(tfu.FusedOptimConfig(optim=optim), R,
+                                       D)
+        want = jinit(JCfg(optim=JOptim(optim.value)), R, D)
+        assert {k: np.shape(v) for k, v in got.items()} == {
+            k: v.shape for k, v in want.items()}
         if optim == tfu.EmbOptimType.ROWWISE_ADAGRAD:
             continue
         with pytest.raises(NotImplementedError):
             tfu.apply_sparse_update_segments(
                 t, st, sg, tfu.FusedOptimConfig(optim=optim))
-        with pytest.raises(NotImplementedError):
-            tfu.init_optimizer_state(tfu.FusedOptimConfig(optim=optim), R, D)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

@@ -18,8 +18,10 @@ names the same weights ``dense_arch.mlp.layers.i.linear``,
 A whole train state of the JAX package's ``DistributedModelParallel``
 crosses in both directions (:func:`train_state_from_jax`,
 :func:`train_state_to_jax`): dense params, the ``sum_of_squares`` of its
-``optax.adagrad`` state, each group's table stack, the fused momentum and
-the step.  Everything here is numpy and torch; nothing imports JAX.
+``optax.adagrad`` state, each group's table stack, its fused-optimizer
+state (any of the eight layouts: ``momentum`` ``[R]`` or ``[R, D]``,
+``m``, ``v`` and the Adam family's ``step``) and the step.  Everything
+here is numpy and torch; nothing imports JAX.
 """
 
 from __future__ import annotations
@@ -178,6 +180,23 @@ def _to_tensor(arr: Any, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _fused_from_jax(st: Mapping[str, Any], device) -> Dict[str, Any]:
+    """One group's fused-optimizer state: every array (``momentum``
+    ``[R]`` or ``[R, D]``, ``m``, ``v``) as float32, the Adam family's
+    ``step`` as an int."""
+    return {k: int(np.asarray(v)) if k == "step"
+            else _to_tensor(v, torch.float32, device)
+            for k, v in st.items()}
+
+
+def _fused_to_jax(st: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`_fused_from_jax`: float32 numpy arrays, ``step``
+    an int32 scalar."""
+    return {k: np.int32(v) if k == "step"
+            else v.detach().to(torch.float32).cpu().numpy()
+            for k, v in st.items()}
+
+
 def train_state_from_jax(
     state: Mapping[str, Any],
     device=None,
@@ -201,10 +220,8 @@ def train_state_from_jax(
         "dense_opt": {k: v.to(device) for k, v in dlrm_state_dict_from_flax(
             _sum_of_squares(state["dense_opt"])).items()},
         "tables": {g: table(t) for g, t in state["tables"].items()},
-        "fused": {
-            g: {k: _to_tensor(v, torch.float32, device) for k, v in st.items()}
-            for g, st in state["fused"].items()
-        },
+        "fused": {g: _fused_from_jax(st, device)
+                  for g, st in state["fused"].items()},
         "step": int(np.asarray(state["step"])),
     }
 
@@ -213,19 +230,15 @@ def train_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     """The port's train state -> numpy leaves in the JAX layout: ``dense``
     is the flax params tree, ``dense_opt`` is ``{"sum_of_squares": tree}``
     (wrap it as ``(optax.ScaleByRssState(**dense_opt),
-    optax.EmptyState())`` for ``optax.adagrad``), table stacks and
-    momentum are float32 (bfloat16 stacks widen exactly; cast back on the
-    JAX side), ``step`` is an int32 scalar."""
+    optax.EmptyState())`` for ``optax.adagrad``), table stacks and every
+    fused-optimizer array are float32 (bfloat16 stacks widen exactly;
+    cast back on the JAX side), the steps are int32 scalars."""
     return {
         "dense": flax_params_from_dlrm_state_dict(state["dense"]),
         "dense_opt": {"sum_of_squares": flax_params_from_dlrm_state_dict(
             state["dense_opt"])},
         "tables": {g: t.detach().to(torch.float32).cpu().numpy()
                    for g, t in state["tables"].items()},
-        "fused": {
-            g: {k: v.detach().to(torch.float32).cpu().numpy()
-                for k, v in st.items()}
-            for g, st in state["fused"].items()
-        },
+        "fused": {g: _fused_to_jax(st) for g, st in state["fused"].items()},
         "step": np.int32(state["step"]),
     }

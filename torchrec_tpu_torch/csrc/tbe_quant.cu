@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dedup_pool.cuh"  // B5 launch B: dedup::dedup_pool_kernel
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
@@ -62,9 +64,7 @@ __device__ __forceinline__ float dequant(float code, float s, float b) {
   return __fadd_rn(__fmul_rn(code, s), b);
 }
 
-__device__ __forceinline__ float accum(float acc, float v, float w) {
-  return __fadd_rn(acc, __fmul_rn(v, w));
-}
+using dedup::accum;
 
 // B3: one warp per segment, rows gathered per id.
 __global__ void tbe_q8_pooled_kernel(
@@ -124,43 +124,6 @@ __global__ void dedup_q_gather_kernel(
   for (int c = lane; c < D; c += 32) {
     const int code = (src[c / kPer] >> ((c % kPer) * BITS)) & kMask;
     dst[c] = dequant((float)code, s, b);
-  }
-}
-
-// B5 launch B: the pooling walk of B3, reading the f32 distinct rows through
-// the inverse index instead of gathering from the table.
-__global__ void dedup_pool_kernel(
-    const float* __restrict__ rows, const int32_t* __restrict__ ridx,
-    const float* __restrict__ w, const int32_t* __restrict__ offsets,
-    float* __restrict__ out, int num_segments, int D) {
-  const int seg = (int)((blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (seg >= num_segments) return;
-  const int begin = offsets[seg];
-  const int end = offsets[seg + 1];
-  float* orow = out + (int64_t)seg * D;
-  if ((D & 3) == 0) {
-    for (int c = lane * 4; c < D; c += 128) {
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int i = begin; i < end; ++i) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(rows + (int64_t)ridx[i] * D + c);
-        const float wi = w[i];
-        a0 = accum(a0, v.x, wi);
-        a1 = accum(a1, v.y, wi);
-        a2 = accum(a2, v.z, wi);
-        a3 = accum(a3, v.w, wi);
-      }
-      *reinterpret_cast<float4*>(orow + c) = make_float4(a0, a1, a2, a3);
-    }
-  } else {
-    for (int c = lane; c < D; c += 32) {
-      float a = 0.f;
-      for (int i = begin; i < end; ++i) {
-        a = accum(a, rows[(int64_t)ridx[i] * D + c], w[i]);
-      }
-      orow[c] = a;
-    }
   }
 }
 
@@ -224,7 +187,7 @@ int dedup_pool(const void* rows, const void* ridx, const void* w,
                const void* offsets, void* out, int num_segments, int D,
                void* stream) {
   if (num_segments > 0) {
-    dedup_pool_kernel<<<blocks_for(num_segments), kThreads, 0,
+    dedup::dedup_pool_kernel<<<blocks_for(num_segments), kThreads, 0,
                         (cudaStream_t)stream>>>(
         (const float*)rows, (const int32_t*)ridx, (const float*)w,
         (const int32_t*)offsets, (float*)out, num_segments, D);

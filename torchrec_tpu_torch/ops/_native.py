@@ -3,8 +3,9 @@
 Each ``.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, at first use, into
 ``torchrec_tpu_torch/csrc/build/`` (git-ignored), and loaded with
-``ctypes``.  The library name carries a hash of the source, so an edited
-source never loads a stale build.  Nothing here runs at import time: the
+``ctypes``.  The library name carries a hash of the source and of the
+``.cuh`` headers beside it, so an edited source never loads a stale
+build.  Nothing here runs at import time: the
 CPU tests import every module on a machine with no ``nvcc``.
 
 Every kernel wrapper counts its launches here, in :data:`LAUNCHES`.
@@ -51,6 +52,14 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "fused_rowwise_adagrad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                   _F, _F, _I, _I, _I, _P),
     },
+    "tbe_dedup.cu": {
+        "dedup_pooled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "tbe_dedup_backward.cu": {
+        "dedup_fused_update": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I,
+                               _I, _P),
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 
@@ -75,8 +84,12 @@ def _nvcc() -> str:
 
 
 def _library_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
@@ -149,6 +162,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_sparse_update": 0,
     "quant_pooled_lookup_int8": 0,
     "dedup_quant_pooled_lookup": 0,
+    "dedup_pooled_lookup": 0,
+    "dedup_fused_sparse_update": 0,
 }
 _LAUNCH_LOCK = threading.Lock()
 

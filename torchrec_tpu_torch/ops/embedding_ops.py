@@ -1,14 +1,16 @@
 """Embedding ops (a subset of ``torchrec_tpu/ops/embedding_ops.py``): the
-pooled lookup behind the kernel of ``ops/tbe.py``, pooling weights and the
-sort-based dedup scaffold.
+pooled lookup behind the kernels of ``ops/tbe.py``, pooling weights, the
+sort-based dedup scaffold, and the row gradients and duplicate
+aggregation that the dedup fused update's plain version is built from.
 
-Left out: the process-wide kernel switches (``set_pooled_lookup_kernel``,
-``trace_kernels``; the port picks its kernel by the tensors' device), the
-``xla_dedup``/``pallas_dedup`` lookups and their custom VJPs, with
-``embedding_row_grads`` and ``aggregate_duplicate_rows`` (ROADMAP A7),
+The lookup's kernel is an argument, ``"tbe"`` (the per-id lookup) or
+``"dedup"`` (the ragged dedup lookup), where the JAX package reads a
+process-wide switch at trace time (``set_pooled_lookup_kernel``,
+``trace_kernels``): the port runs eagerly and takes its kernel per call.
+Left out: the ``xla``/``xla_dedup`` lookups and the custom VJPs (the train
+step hands the segment gradient to the fused update instead),
 ``sanitize_ids`` (the traced sanitizer is not ported) and
-``sequence_embedding_lookup``.  The train step needs none of them: the
-fused update of ``ops/tbe_backward.py`` takes the segment gradient.
+``sequence_embedding_lookup``.
 """
 
 from __future__ import annotations
@@ -75,21 +77,98 @@ def dedup_inverse(order: torch.Tensor, unique_slot: torch.Tensor) -> torch.Tenso
     return inv
 
 
+def embedding_row_grads(
+    grad_pooled: torch.Tensor,
+    segments: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Backward of the pooled lookup with respect to the gathered rows:
+    each slot receives its segment's output gradient times its weight
+    (zero for slots whose segment is ``>= num_segments``).
+    ``grad_pooled`` ``[num_segments, D]``; returns ``[V, D]``."""
+    num_segments = grad_pooled.shape[0]
+    g = grad_pooled[segments.clamp(0, num_segments - 1)]
+    g = torch.where((segments < num_segments)[:, None], g, 0.0)
+    if weights is not None:
+        g = g * weights[:, None].to(g.dtype)
+    return g
+
+
+def run_sums(vals: torch.Tensor, starts: torch.Tensor,
+             lengths: torch.Tensor) -> torch.Tensor:
+    """``[len(starts), D]`` sums of the runs ``vals[starts[u] :
+    starts[u] + lengths[u]]``, each in position order from zero
+    (``acc = acc + v``, one rounding per add, the kernels' order).  The
+    walk goes by position: pass ``j`` adds the ``j``-th element of every
+    run longer than ``j``, on ``[runs open, D]`` (one host sync reads the
+    run lengths)."""
+    part = vals.new_zeros((starts.shape[0],) + tuple(vals.shape[1:]))
+    if starts.shape[0] == 0:
+        return part
+    # longest runs first, so the runs open at pass j are a prefix
+    order = torch.argsort(lengths, descending=True, stable=True)
+    starts_o = starts[order]
+    open_runs = torch.bincount(lengths.cpu()).flip(0).cumsum(0).flip(0)
+    for j in range(1, open_runs.shape[0]):
+        k = int(open_runs[j])  # runs with at least j elements
+        part[:k] = part[:k] + vals[starts_o[:k] + (j - 1)]
+    out = torch.empty_like(part)
+    out[order] = part
+    return out
+
+
+def aggregate_duplicate_rows(
+    ids: torch.Tensor,
+    valid: torch.Tensor,
+    row_grads: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum per-slot row gradients over duplicate ids, each group in the
+    order of a stable sort by id (slot order within a row).
+
+    Returns (rows ``[V]``, grads ``[V, D]``): entry ``u`` is the summed
+    gradient of row ``rows[u]``; unused entries carry the dtype's max as
+    their row (dropped by the caller) and zero gradients.  The group of
+    the invalid slots (row = the dtype's max) is not summed and keeps a
+    zero gradient: every caller drops that row, and its run can hold most
+    of the slots (one host sync counts the valid ones)."""
+    order, unique_slot, slot_rows = dedup_ids(ids, valid)
+    agg = row_grads.new_zeros(row_grads.shape)
+    n = int(valid.sum())  # the valid slots sort first
+    if n == 0:
+        return slot_rows, agg
+    first = torch.ones((n,), dtype=torch.bool, device=ids.device)
+    first[1:] = unique_slot[1:n] != unique_slot[: n - 1]
+    starts = torch.nonzero(first).flatten()
+    lengths = torch.diff(starts, append=starts.new_tensor([n]))
+    agg[: starts.shape[0]] = run_sums(row_grads[order[:n]], starts, lengths)
+    return slot_rows, agg
+
+
+POOLED_KERNELS = ("tbe", "dedup")
+
+
 def pooled_embedding_lookup(
     table: torch.Tensor,
     ids: torch.Tensor,
     segments: torch.Tensor,
     num_segments: int,
     weights: Optional[torch.Tensor] = None,
+    kernel: str = "tbe",
 ) -> torch.Tensor:
     """Weighted-sum pooled lookup: ``[num_segments, D]`` in the table's
     dtype (float32 or bfloat16), accumulated in float32 in slot order.
     Ids clip to the table; slots whose segment lies outside
-    ``[0, num_segments)`` are dropped.  On CUDA tensors this is the
-    hand-written kernel of ``ops/tbe.py::pooled_lookup`` (the port of the
-    JAX package's Pallas TBE forward); on CPU tensors its plain version."""
-    from torchrec_tpu_torch.ops.tbe import pooled_lookup
+    ``[0, num_segments)`` are dropped.  ``kernel``: ``"tbe"`` runs
+    ``ops/tbe.py::pooled_lookup`` (the port of the JAX package's Pallas
+    TBE forward), ``"dedup"`` runs ``ops/tbe.py::dedup_pooled_lookup``
+    (the port of its ragged dedup lookup, ``"pallas_dedup"``); both give
+    the same float32 result.  CUDA tensors launch the kernel, CPU tensors
+    take its plain version."""
+    from torchrec_tpu_torch.ops.tbe import dedup_pooled_lookup, pooled_lookup
 
+    if kernel not in POOLED_KERNELS:
+        raise ValueError(f"unknown pooled-lookup kernel {kernel!r}")
     if weights is not None:
         weights = weights.to(torch.float32)
-    return pooled_lookup(table, ids, segments, num_segments, weights)
+    fn = pooled_lookup if kernel == "tbe" else dedup_pooled_lookup
+    return fn(table, ids, segments, num_segments, weights)

@@ -3,37 +3,54 @@
 
 The train step hands each sharded group's segment-level gradient
 (:class:`SparseSegGrad`) to :func:`apply_sparse_update_segments`, which
-runs the fused backward + rowwise-Adagrad kernel of
-``ops/tbe_backward.py`` (the port of the JAX package's Pallas
-``pallas_fused_sparse_update``): duplicate ids are aggregated and each
-touched row's weight and momentum are read and written once, in place.
+runs one of the fused backward + optimizer kernels of
+``ops/tbe_backward.py``: duplicate ids are aggregated and each touched
+row's weight and optimizer state are read and written once, in place.
+The kernel is an argument, where the JAX package reads a process-wide
+switch at trace time (``set_sparse_update_kernel``): ``"tbe"`` is the
+per-id kernel (the port of ``pallas_fused_sparse_update``), ported for
+rowwise Adagrad only, so the other seven optimizers raise
+``NotImplementedError`` there; ``"dedup"`` is the dedup kernel (the port
+of ``pallas_dedup_fused_sparse_update``), for all eight.
 
-Ported: ``EmbOptimType``, ``FusedOptimConfig``, ``SparseSegGrad`` and, for
-rowwise Adagrad only, ``init_optimizer_state`` and
-``apply_sparse_update_segments``.  The other seven optimizers raise
-``NotImplementedError`` on every device: their kernel is not ported yet,
-and there is no XLA-style path to fall back on.  ``FusedOptimConfig`` keeps
-only the settings rowwise Adagrad reads: the Adam/LAMB betas, the
-momentum dtype (float32 is the kernel's only one) and the
-stochastic-rounding switch (bfloat16 tables always round stochastically
-when the step hands a seed) come back with the kernels that read them.
-Left out: ``SparseSegGrad.row_grads``, ``apply_sparse_update`` (the XLA
-scatter path), ``_apply_row_delta`` and ``stochastic_round_to_bf16`` (its
-``jax.random`` noise has no torch counterpart; the port rounds with the
-kernel's hash noise), the per-call learning-rate override (sparse lr
-schedules are not ported) and the process-wide kernel switch
-``set_sparse_update_kernel``.
+State layouts, as in the JAX package:
+
+* sgd, lars_sgd: ``{}``;
+* rowwise_adagrad: ``momentum`` ``[R]``; adagrad: ``momentum`` ``[R, D]``;
+* adam, lamb: ``m`` and ``v`` ``[R, D]`` and ``step``;
+* partial_rowwise_adam, partial_rowwise_lamb: ``m`` ``[R, D]``, ``v``
+  ``[R]`` and ``step``.
+
+The states are float32 tensors (the kernels' only momentum dtype) and
+``step``, the Adam family's count of applied updates, is a Python int (the
+JAX package keeps an int32 array).  :func:`apply_sparse_update` is the
+JAX package's XLA path, ``aggregate_duplicate_rows`` + the optimizer
+math, and is the dedup kernel's plain version.  Left out:
+``SparseSegGrad.row_grads``/``from_row_grads``, ``momentum_dtype``, the
+``stochastic_rounding`` switch (a bfloat16 table rounds stochastically
+whenever the step hands a seed; the noise is the kernels' hash, since
+``jax.random`` has no torch counterpart), the per-call learning-rate
+override (sparse lr schedules are not ported) and the ``dedup=False``
+option of ``apply_sparse_update``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from torchrec_tpu_torch.ops.tbe_backward import fused_sparse_update
+from torchrec_tpu_torch.ops.embedding_ops import aggregate_duplicate_rows
+from torchrec_tpu_torch.ops.tbe_backward import (
+    STATE_LAYOUTS,
+    dedup_fused_sparse_update,
+    fused_sparse_update,
+    update_rows,
+)
+
+State = Dict[str, Union[torch.Tensor, int]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,22 +84,36 @@ class EmbOptimType(enum.Enum):
     PARTIAL_ROWWISE_LAMB = "partial_rowwise_lamb"
 
 
+ADAM_FAMILY = (EmbOptimType.ADAM, EmbOptimType.PARTIAL_ROWWISE_ADAM,
+               EmbOptimType.LAMB, EmbOptimType.PARTIAL_ROWWISE_LAMB)
+UPDATE_KERNELS = ("tbe", "dedup")
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedOptimConfig:
-    """Hyperparameters of the fused sparse optimizer that rowwise Adagrad
-    reads: family, lr, eps and weight decay (the JAX defaults)."""
+    """Hyperparameters of the fused sparse optimizer: family, lr, eps,
+    the Adam/LAMB betas and weight decay (the JAX defaults)."""
 
     optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD
     learning_rate: float = 0.01
     eps: float = 1.0e-8
+    beta1: float = 0.9
+    beta2: float = 0.999
     weight_decay: float = 0.0
 
 
-def _require_ported(config: FusedOptimConfig) -> None:
-    if config.optim != EmbOptimType.ROWWISE_ADAGRAD:
+def require_kernel(config: FusedOptimConfig, update_kernel: str) -> None:
+    """Raise unless ``update_kernel`` has a kernel for the optimizer: the
+    dedup kernel has all eight, the per-id kernel rowwise Adagrad only."""
+    if update_kernel not in UPDATE_KERNELS:
+        raise ValueError(f"unknown sparse-update kernel {update_kernel!r}")
+    if update_kernel == "tbe" and (
+        config.optim != EmbOptimType.ROWWISE_ADAGRAD
+    ):
         raise NotImplementedError(
-            f"fused optimizer {config.optim.value}: only rowwise_adagrad "
-            "has a kernel in the port (ROADMAP B2)"
+            f"fused optimizer {config.optim.value}: the per-id kernel "
+            "(update_kernel='tbe') is ported for rowwise_adagrad only "
+            "(ROADMAP B2); the dedup kernel has all eight"
         )
 
 
@@ -91,31 +122,111 @@ def init_optimizer_state(
     num_rows: int,
     dim: int,
     device=None,
-) -> Dict[str, torch.Tensor]:
-    """Per-table optimizer state: rowwise Adagrad's ``momentum`` ``[R]``
-    float32 zeros.  (``dim`` is kept for the JAX signature.)"""
-    _require_ported(config)
-    return {"momentum": torch.zeros((num_rows,), dtype=torch.float32,
-                                    device=device)}
+) -> State:
+    """Per-table optimizer state in the layout of the module docstring,
+    float32 zeros (and ``step`` 0 for the Adam family)."""
+    layout = STATE_LAYOUTS[config.optim.value]
+    arrays = [
+        torch.zeros((num_rows,) if kind == "row" else (num_rows, dim),
+                    dtype=torch.float32, device=device)
+        for kind in layout
+    ]
+    if config.optim in ADAM_FAMILY:
+        return {"m": arrays[0], "v": arrays[1], "step": 0}
+    return {"momentum": arrays[0]} if arrays else {}
+
+
+def _states(config: FusedOptimConfig, state: State) -> Tuple[torch.Tensor,
+                                                             ...]:
+    if config.optim in ADAM_FAMILY:
+        return state["m"], state["v"]
+    return (state["momentum"],) if "momentum" in state else ()
+
+
+def bias_corrections(config: FusedOptimConfig, step: int) -> Tuple[float,
+                                                                    float]:
+    """``(1 - beta1**t, 1 - beta2**t)`` for step ``t``, computed on the
+    host in float32 (torch's CPU ``pow``), as the JAX package computes
+    them from an f32 step (``fused_update.py:476-483``)."""
+    t = torch.tensor(float(step), dtype=torch.float32)
+    return tuple(
+        float(1.0 - torch.tensor(b, dtype=torch.float32) ** t)
+        for b in (config.beta1, config.beta2)
+    )
+
+
+def _adam_hypers(config: FusedOptimConfig, state: State) -> Tuple[int, Dict]:
+    """The Adam family's incremented step and its kernel hyperparameters
+    (other optimizers: the step unchanged and neutral corrections)."""
+    if config.optim not in ADAM_FAMILY:
+        return 0, {}
+    step = int(state["step"]) + 1
+    return step, {"betas": (config.beta1, config.beta2),
+                  "bias_corrections": bias_corrections(config, step)}
+
+
+def apply_sparse_update(
+    table: torch.Tensor,
+    state: State,
+    ids: torch.Tensor,
+    valid: torch.Tensor,
+    row_grads: torch.Tensor,
+    config: FusedOptimConfig,
+    sr_seed: Optional[int] = None,
+) -> Tuple[torch.Tensor, State]:
+    """The JAX package's XLA path: sum the per-slot ``row_grads`` [V, D]
+    over duplicate ids (``aggregate_duplicate_rows``, slot order), then
+    apply the optimizer once to each touched row, in place
+    (``ops/tbe_backward.py::update_rows``, the op order of the JAX
+    function).  Negative and out-of-range ids are dropped.  Returns
+    ``(table, state)``, the inputs themselves (``step`` advanced for the
+    Adam family)."""
+    R = table.shape[0]
+    rows, grads = aggregate_duplicate_rows(ids, valid & (ids >= 0),
+                                           row_grads.to(torch.float32))
+    keep = rows < R
+    step, hyp = _adam_hypers(config, state)
+    update_rows(config.optim.value, table, _states(config, state),
+                rows[keep].to(torch.int64), grads[keep],
+                config.learning_rate, config.eps, config.weight_decay,
+                hyp.get("betas", (config.beta1, config.beta2)),
+                hyp.get("bias_corrections", (1.0, 1.0)),
+                sr_seed if table.dtype == torch.bfloat16 else None)
+    if hyp:
+        state["step"] = step
+    return table, state
 
 
 def apply_sparse_update_segments(
     table: torch.Tensor,
-    state: Dict[str, torch.Tensor],
+    state: State,
     sg: SparseSegGrad,
     config: FusedOptimConfig,
     sr_seed: Optional[int] = None,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    update_kernel: str = "tbe",
+) -> Tuple[torch.Tensor, State]:
     """Apply the fused optimizer to the rows ``sg`` touches, in place,
-    through the fused kernel (its plain version on CPU tensors).
-    ``sr_seed`` (an int32) rounds a bfloat16 table stochastically; without
-    one it rounds to nearest.  Returns ``(table, state)``, the inputs
+    through the fused kernel ``update_kernel`` (its plain version on CPU
+    tensors); the Adam family's ``step`` advances by one.  ``sr_seed``
+    (an int32) rounds a bfloat16 table stochastically; without one it
+    rounds to nearest.  Returns ``(table, state)``, the inputs
     themselves."""
-    _require_ported(config)
-    fused_sparse_update(
-        table, state["momentum"], sg.ids, sg.valid, sg.segments,
-        sg.weights, sg.grad_seg, config.learning_rate, eps=config.eps,
-        weight_decay=config.weight_decay,
-        sr_seed=sr_seed if table.dtype == torch.bfloat16 else None,
+    require_kernel(config, update_kernel)
+    seed = sr_seed if table.dtype == torch.bfloat16 else None
+    if update_kernel == "tbe":
+        fused_sparse_update(
+            table, state["momentum"], sg.ids, sg.valid, sg.segments,
+            sg.weights, sg.grad_seg, config.learning_rate, eps=config.eps,
+            weight_decay=config.weight_decay, sr_seed=seed,
+        )
+        return table, state
+    step, hyp = _adam_hypers(config, state)
+    dedup_fused_sparse_update(
+        table, _states(config, state), sg.ids, sg.valid, sg.segments,
+        sg.weights, sg.grad_seg, config.optim.value, config.learning_rate,
+        eps=config.eps, weight_decay=config.weight_decay, sr_seed=seed,
+        **hyp,
     )
+    if hyp:
+        state["step"] = step
     return table, state

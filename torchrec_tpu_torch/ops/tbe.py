@@ -11,20 +11,24 @@ Replaces, from the JAX package's ``torchrec_tpu/ops/pallas_tbe.py``:
   preparation ``_sort_pad_inputs``) by :func:`quant_pooled_lookup_int8`;
 * ``pallas_ragged_dedup_quantized_lookup`` (kernel body
   ``_dedup_kernel_q``, ``_unpack_lanes``, input preparation
-  ``_dedup_prepare_inputs``) by :func:`dedup_quant_pooled_lookup`.
+  ``_dedup_prepare_inputs``) by :func:`dedup_quant_pooled_lookup`;
+* ``pallas_ragged_dedup_lookup`` (kernel body ``_dedup_body``, input
+  preparation ``_dedup_prepare_inputs``) by :func:`dedup_pooled_lookup`,
+  over float32 and bfloat16 tables.  Its ``id_cap``/``u_cap`` knobs size
+  the TPU kernel's grid and VMEM buffer and have no counterpart: the
+  port's scratch is sized by the batch (``csrc/tbe_dedup.cu``).
 
-``pallas_ragged_dedup_lookup`` (the float dedup lookup) is not ported yet.
-The kernels are CUDA C++ in ``torchrec_tpu_torch/csrc/tbe_float.cu`` and
-``tbe_quant.cu`` (their headers say what bounds them and how they are laid
-out), built and loaded by ``ops/_native.py``, which also keeps the launch
-counts that this module re-exports.  Each wrapper:
+The kernels are CUDA C++ in ``torchrec_tpu_torch/csrc/tbe_float.cu``,
+``tbe_quant.cu`` and ``tbe_dedup.cu`` (their headers say what bounds them
+and how they are laid out), built and loaded by ``ops/_native.py``, which
+also keeps the launch counts that this module re-exports.  Each wrapper:
 
 * checks devices, dtypes, shapes and contiguity;
 * on CPU tensors runs its plain version (``*_plain``) and launches
   nothing; on CUDA tensors launches the kernel or raises — there is no
   fallback;
 * adds one to its count in :data:`LAUNCHES` for every call that launches
-  (the dedup wrapper's two launches, gather and pool, count as one); a
+  (the dedup wrappers' two launches, gather and pool, count as one); a
   call with no segments launches nothing and returns an empty output.
 
 The plain versions sum each segment in slot order with separately rounded
@@ -50,6 +54,7 @@ from torchrec_tpu_torch.ops.embedding_ops import dedup_ids, dedup_inverse
 
 _SOURCE = "tbe_quant.cu"
 _FLOAT_SOURCE = "tbe_float.cu"
+_DEDUP_SOURCE = "tbe_dedup.cu"
 _INT32_MAX = 2**31 - 1
 
 
@@ -265,6 +270,25 @@ def pooled_lookup_plain(
         ids, segments, weights, num_segments, table.shape[0]
     )
     vals = table[sids].to(torch.float32) * sw[:, None]
+    return pool_slot_order(vals, offsets).to(table.dtype)
+
+
+def dedup_pooled_lookup_plain(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    segments: torch.Tensor,
+    num_segments: int,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`dedup_pooled_lookup`: each distinct valid
+    row is gathered and widened to float32 once, re-expanded per slot
+    through the inverse index, weighted and pooled in slot order, and the
+    sum rounded once to the table's dtype."""
+    uids, suidx, sw, offsets = dedup_prepare(
+        ids, segments, weights, num_segments, table.shape[0]
+    )
+    rows = table[uids].to(torch.float32)
+    vals = rows[suidx] * sw[:, None]
     return pool_slot_order(vals, offsets).to(table.dtype)
 
 
@@ -509,3 +533,62 @@ def dedup_quant_pooled_lookup(
         ids, segments, weights, num_segments, packed.shape[0]
     )
     return launch_dedup_q(packed, scale, bias, uids, suidx, sw, offsets, bits)
+
+
+def launch_dedup_pooled(
+    table: torch.Tensor,
+    uids: torch.Tensor,
+    suidx: torch.Tensor,
+    sw: torch.Tensor,
+    offsets: torch.Tensor,
+) -> torch.Tensor:
+    """Launch the float dedup gather and pool kernels on prepared inputs
+    (the output of :func:`dedup_prepare`); returns [S, D] in the table's
+    dtype (the float32 pool rounded once)."""
+    S, D = offsets.shape[0] - 1, table.shape[1]
+    if S == 0:
+        return table.new_empty((0, D))
+    lib = _native.load_library(_DEDUP_SOURCE)
+    dev = table.device
+    uids32 = uids.to(torch.int32).contiguous()
+    idx32 = suidx.to(torch.int32).contiguous()
+    off32 = offsets.to(torch.int32).contiguous()
+    sw = sw.contiguous()
+    # the distinct rows widened to float32: device memory, no budget (the
+    # TPU kernel's 8 MiB VMEM budget has no counterpart; csrc/tbe_dedup.cu)
+    rows = torch.empty((uids32.shape[0], D), dtype=torch.float32, device=dev)
+    out = torch.empty((S, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.dedup_pooled(
+            table.data_ptr(), uids32.data_ptr(), idx32.data_ptr(),
+            sw.data_ptr(), off32.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            uids32.shape[0], S, D, FLOAT_DTYPES[table.dtype],
+            _stream_ptr(dev),
+        )
+    _native.check_launch("dedup_pooled", err)
+    count_launch("dedup_pooled_lookup")
+    return out.to(table.dtype)
+
+
+def dedup_pooled_lookup(
+    table: torch.Tensor,  # [R, D] float32 or bfloat16
+    ids: torch.Tensor,  # [V] integer
+    segments: torch.Tensor,  # [V] integer; invalid outside [0, S)
+    num_segments: int,
+    weights: Optional[torch.Tensor] = None,  # [V] float32
+) -> torch.Tensor:
+    """Ragged dedup pooled lookup: the same function as
+    :func:`pooled_lookup` (bitwise, for float32 tables), computed by
+    reading each distinct valid row once into a float32 scratch and
+    pooling every segment through the inverse index.  Returns
+    [num_segments, D] in the table's dtype.  The sort-unique synchronises
+    with the host on CUDA."""
+    dev = _check_float_inputs(table, ids, segments, weights)
+    if dev.type == "cpu":
+        return dedup_pooled_lookup_plain(table, ids, segments, num_segments,
+                                         weights)
+    _require_cuda(dev)
+    uids, suidx, sw, offsets = dedup_prepare(
+        ids, segments, weights, num_segments, table.shape[0]
+    )
+    return launch_dedup_pooled(table, uids, suidx, sw, offsets)

@@ -1,47 +1,75 @@
-"""The fused embedding backward + rowwise-Adagrad kernel for Hopper, its
-wrapper and its plain PyTorch version.
+"""The fused embedding backward + optimizer kernels for Hopper, their
+wrappers and their plain PyTorch versions.
 
-Replaces, from the JAX package's ``torchrec_tpu/ops/pallas_tbe_backward.py``,
-``pallas_fused_sparse_update`` with ``optim="rowwise_adagrad"`` (kernel
-body ``_bwd_body``, input preparation ``_sort_by_row``, noise
-``_hash_bits``) by :func:`fused_sparse_update`.  The other seven
-optimizers of that kernel (adagrad, sgd, lars_sgd, adam, lamb,
-partial_rowwise_adam, partial_rowwise_lamb) and its dedup body
-(``pallas_dedup_fused_sparse_update``) are not ported yet.
+Replace, from the JAX package's ``torchrec_tpu/ops/pallas_tbe_backward.py``:
 
-The kernel is CUDA C++ in ``torchrec_tpu_torch/csrc/tbe_backward.cu`` (its
-header says what bounds it and how it is laid out), built and loaded by
-``ops/_native.py``.  The wrapper checks devices, dtypes, shapes and
-contiguity; on CPU tensors it runs the plain version and launches nothing;
-on CUDA tensors it launches the kernel or raises (no fallback), and adds
-one to ``_native.LAUNCHES["fused_sparse_update"]`` per launch.  An empty batch
-is the identity and launches nothing.  Table and momentum are updated in
-place (the JAX kernel aliases them to its outputs, which the caller
-donates).
+* ``pallas_fused_sparse_update`` with ``optim="rowwise_adagrad"`` (kernel
+  body ``_bwd_body``, input preparation ``_sort_by_row``, noise
+  ``_hash_bits``) by :func:`fused_sparse_update` (B2,
+  ``csrc/tbe_backward.cu``).  Its other seven optimizers (adagrad, sgd,
+  lars_sgd, adam, lamb, partial_rowwise_adam, partial_rowwise_lamb) are
+  not ported yet.
+* ``pallas_dedup_fused_sparse_update`` (``pallas_fused_sparse_update(
+  dedup=True)``, kernel body ``_dedup_bwd_body``) by
+  :func:`dedup_fused_sparse_update` (B6, ``csrc/tbe_dedup_backward.cu``),
+  for all eight optimizers.  Its ``id_cap`` sizes the TPU kernel's grid
+  and has no counterpart: the port's grid covers the slots it is given.
 
-The plain version sums each row's gradient in slot order, reduces
-``mean(g * g)`` in the kernel's fixed lane/butterfly order and rounds every
-operation separately, so on the card the kernel and the plain version are
-bitwise equal.  Against the JAX kernel it agrees to a tolerance: its mean
-reduces in an order XLA does not pin down.
+The kernels' headers say what bounds them and how they are laid out;
+``ops/_native.py`` builds and loads them.  Each wrapper checks devices,
+dtypes, shapes and contiguity; on CPU tensors it runs its plain version
+and launches nothing; on CUDA tensors it launches the kernel or raises (no
+fallback), and adds one to its count in ``_native.LAUNCHES`` per launch.
+An empty batch is the identity and launches nothing.  Table and optimizer
+states are updated in place (the JAX kernels alias them to their outputs,
+which the caller donates).
+
+The plain versions sum each row's gradient in slot order, reduce every
+mean and norm over D in the kernels' fixed lane/butterfly order and round
+every operation separately, so on the card each kernel and its plain
+version are bitwise equal.  B2's plain version agrees with the JAX kernel
+to a tolerance (its mean reduces in an order XLA does not pin down, and
+its op order is its own); B6's is ``embedding_row_grads`` +
+``aggregate_duplicate_rows`` + the optimizer math of the JAX package's
+``apply_sparse_update``, in that function's op order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from torchrec_tpu_torch.ops import _native
 from torchrec_tpu_torch.ops._native import FLOAT_DTYPES, count_launch
+from torchrec_tpu_torch.ops.embedding_ops import (
+    aggregate_duplicate_rows,
+    embedding_row_grads,
+    run_sums,
+)
 
 _SOURCE = "tbe_backward.cu"
+_DEDUP_SOURCE = "tbe_dedup_backward.cu"
 _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
 _U32 = 0xFFFFFFFF
 _F32_MAX = float(torch.finfo(torch.float32).max)
 MAX_DIM = 512  # the kernel keeps at most 16 columns per lane in registers
 
 Scalar = Union[float, torch.Tensor]
+
+# the fused optimizers, in the order of the B6 kernel's codes, and the
+# layout of each one's state arrays: "row" is [R], "col" is [R, D]
+OPTIMIZERS = (
+    "sgd", "lars_sgd", "adagrad", "rowwise_adagrad", "adam",
+    "partial_rowwise_adam", "lamb", "partial_rowwise_lamb",
+)
+STATE_LAYOUTS = {
+    "sgd": (), "lars_sgd": (), "adagrad": ("col",),
+    "rowwise_adagrad": ("row",),
+    "adam": ("col", "col"), "lamb": ("col", "col"),
+    "partial_rowwise_adam": ("col", "row"),
+    "partial_rowwise_lamb": ("col", "row"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -142,23 +170,35 @@ def lane_columns(dim: int, device=None) -> torch.Tensor:
     return torch.where(col < dim, col, dim)
 
 
-def mean_of_squares(g: torch.Tensor) -> torch.Tensor:
-    """``mean(g * g, axis=1)`` of float32 ``[U, D]`` in the kernel's order:
-    each lane sums the squares of its columns in ascending order, the 32
-    lane sums meet in an xor butterfly (16, 8, 4, 2, 1), and the total is
-    divided by D."""
-    U, D = g.shape
-    sq = torch.cat([g * g, g.new_zeros((U, 1))], dim=1)
-    parts = sq[:, lane_columns(D, g.device)]  # [U, 32, K]
-    s = g.new_zeros((U, 32))
+def sum_of_squares(x: torch.Tensor) -> torch.Tensor:
+    """``sum(x * x, axis=1)`` of float32 ``[U, D]`` in the kernels' order:
+    each lane sums the squares of its columns in ascending order, then
+    the 32 lane sums meet in an xor butterfly (16, 8, 4, 2, 1)."""
+    U, D = x.shape
+    sq = torch.cat([x * x, x.new_zeros((U, 1))], dim=1)
+    parts = sq[:, lane_columns(D, x.device)]  # [U, 32, K]
+    s = x.new_zeros((U, 32))
     for k in range(parts.shape[2]):
         s = s + parts[:, :, k]
-    lane = torch.arange(32, device=g.device)
+    lane = torch.arange(32, device=x.device)
     for off in (16, 8, 4, 2, 1):
         s = s + s[:, lane ^ off]
-    # a tensor divisor: a scalar one would make the card multiply by its
-    # reciprocal, which rounds differently from the kernel's division
-    return s[:, 0] / torch.full_like(s[:, 0], D)
+    return s[:, 0]
+
+
+def _div(a: torch.Tensor, b: Scalar) -> torch.Tensor:
+    """``a / b`` as a division of tensors of ``a``'s shape: with a scalar
+    divisor the card multiplies by its reciprocal, which rounds
+    differently from the kernels' division."""
+    if isinstance(b, torch.Tensor):
+        return a / b.expand_as(a)
+    return a / torch.full_like(a, b)
+
+
+def mean_of_squares(g: torch.Tensor) -> torch.Tensor:
+    """``mean(g * g, axis=1)`` of float32 ``[U, D]`` in the kernels' order:
+    :func:`sum_of_squares` divided by D."""
+    return _div(sum_of_squares(g), g.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -183,11 +223,10 @@ def fused_sparse_update_plain(
     weight_decay: float = 0.0,
     sr_seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`fused_sparse_update`.  It walks the row
-    runs by position, longest runs first, so each pass adds one slot to
-    every run still open and works on ``[runs open, D]`` (never a
-    ``[U, Lmax, D]`` pad); one host sync reads the run lengths."""
-    R, D = table.shape
+    """Plain version of :func:`fused_sparse_update`: the kept slots sorted
+    by row, each row's weighted gradient rows summed in slot order
+    (``embedding_ops.run_sums``, one host sync), then the update."""
+    R = table.shape[0]
     dev = table.device
     srows, ssegs, sw = sort_by_row(ids, valid, segments, weights, R,
                                    grad_seg.shape[0])
@@ -199,15 +238,9 @@ def fused_sparse_update_plain(
     first[1:] = rows[1:] != rows[:-1]
     starts = torch.nonzero(first).flatten()
     lengths = torch.diff(starts, append=starts.new_tensor([n]))
-    order = torch.argsort(lengths, descending=True, stable=True)
-    starts, lengths = starts[order], lengths[order]
     urows = rows[starts].to(torch.int64)
-    open_runs = torch.bincount(lengths.cpu()).flip(0).cumsum(0).flip(0)
-    g = torch.zeros((urows.shape[0], D), dtype=torch.float32, device=dev)
-    for j in range(1, open_runs.shape[0]):
-        k = int(open_runs[j])  # runs with more than j - 1 slots
-        pos = starts[:k] + (j - 1)
-        g[:k] = g[:k] + grad_seg[ssegs[pos].to(torch.int64)] * sw[pos][:, None]
+    g = run_sums(grad_seg[ssegs[:n].to(torch.int64)] * sw[:n, None], starts,
+                 lengths)
 
     w = table[urows].to(torch.float32)
     if weight_decay:
@@ -230,7 +263,8 @@ def fused_sparse_update_plain(
 
 def _check_inputs(
     table: torch.Tensor,
-    momentum: torch.Tensor,
+    states: Sequence[torch.Tensor],
+    layout: Sequence[str],
     ids: torch.Tensor,
     valid: torch.Tensor,
     segments: torch.Tensor,
@@ -238,8 +272,9 @@ def _check_inputs(
     grad_seg: torch.Tensor,
     sr_seed: Optional[int],
 ) -> torch.device:
-    """Validate an update's arguments; returns their common device."""
-    tensors = [table, momentum, ids, valid, segments, grad_seg]
+    """Validate an update's arguments (``states`` float32 in ``layout``:
+    "row" ``[R]``, "col" ``[R, D]``); returns their common device."""
+    tensors = [table, *states, ids, valid, segments, grad_seg]
     if weights is not None:
         tensors.append(weights)
     dev = table.device
@@ -251,9 +286,14 @@ def _check_inputs(
         raise TypeError(f"table must be 2-D float32 or bfloat16, got "
                         f"{table.dtype} {tuple(table.shape)}")
     R, D = table.shape
-    if momentum.dtype != torch.float32 or tuple(momentum.shape) != (R,):
-        raise TypeError(f"momentum must be float32 [{R}], got "
-                        f"{momentum.dtype} {tuple(momentum.shape)}")
+    if len(states) != len(layout):
+        raise ValueError(f"{len(states)} optimizer states, want "
+                         f"{len(layout)}")
+    for st, kind in zip(states, layout):
+        shape = (R,) if kind == "row" else (R, D)
+        if st.dtype != torch.float32 or tuple(st.shape) != shape:
+            raise TypeError(f"optimizer state must be float32 {shape}, got "
+                            f"{st.dtype} {tuple(st.shape)}")
     if grad_seg.dtype != torch.float32 or grad_seg.dim() != 2 or (
         grad_seg.shape[1] != D
     ):
@@ -277,10 +317,23 @@ def _check_inputs(
         raise ValueError("rows, slots and segments must each fit in int32")
     if sr_seed is not None and not _INT32_MIN <= sr_seed <= _INT32_MAX:
         raise ValueError(f"sr_seed {sr_seed} is not an int32")
-    if not table.is_contiguous() or not momentum.is_contiguous():
-        raise ValueError("table and momentum are updated in place and "
-                         "must be contiguous")
+    if not all(t.is_contiguous() for t in (table, *states)):
+        raise ValueError("table and optimizer states are updated in place "
+                         "and must be contiguous")
     return dev
+
+
+def _require_cuda(dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"the fused update kernels run on CUDA tensors (CPU "
+                         f"tensors take the plain versions); got {dev}")
+
+
+def _aligned_grad(grad_seg: torch.Tensor) -> torch.Tensor:
+    grad = grad_seg.contiguous()
+    if grad.data_ptr() % 16:
+        grad = grad.clone()  # the kernels' float4 loads need 16 bytes
+    return grad
 
 
 def launch_fused_sparse_update(
@@ -303,9 +356,7 @@ def launch_fused_sparse_update(
         raise ValueError(f"the fused update kernel takes D <= {MAX_DIM}, "
                          f"got {D}")
     lib = _native.load_library(_SOURCE)
-    grad = grad_seg.contiguous()
-    if grad.data_ptr() % 16:
-        grad = grad.clone()  # the kernel's float4 loads need 16 bytes
+    grad = _aligned_grad(grad_seg)
     srows = srows.contiguous()
     ssegs = ssegs.contiguous()
     sw = sw.contiguous()
@@ -343,16 +394,14 @@ def fused_sparse_update(
     eps)) * g``.  A bfloat16 table is written back with stochastic rounding
     when ``sr_seed`` is given.  Returns ``(table, momentum)``, the inputs
     themselves, updated in place."""
-    dev = _check_inputs(table, momentum, ids, valid, segments, weights,
-                        grad_seg, sr_seed)
+    dev = _check_inputs(table, (momentum,), ("row",), ids, valid, segments,
+                        weights, grad_seg, sr_seed)
     if dev.type == "cpu":
         return fused_sparse_update_plain(
             table, momentum, ids, valid, segments, weights, grad_seg,
             learning_rate, eps, weight_decay, sr_seed,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"the fused update kernel runs on CUDA tensors "
-                         f"(CPU tensors take the plain version); got {dev}")
+    _require_cuda(dev)
     if ids.shape[0] == 0:
         return table, momentum
     srows, ssegs, sw = sort_by_row(ids, valid, segments, weights,
@@ -360,3 +409,211 @@ def fused_sparse_update(
     launch_fused_sparse_update(table, momentum, srows, ssegs, sw, grad_seg,
                                learning_rate, eps, weight_decay, sr_seed)
     return table, momentum
+
+
+# ---------------------------------------------------------------------------
+# B6: the dedup fused backward + optimizer, all eight optimizers
+# ---------------------------------------------------------------------------
+
+
+def _trust_ratio(a_norm: torch.Tensor, b_norm: torch.Tensor) -> torch.Tensor:
+    """``a / max(b, 1e-12)`` per row where both norms are positive, else
+    1 (lars_sgd's ``||w|| / ||g||``, lamb's ``||w|| / ||dir||``)."""
+    floor = torch.full_like(b_norm, 1e-12)
+    return torch.where((a_norm > 0) & (b_norm > 0),
+                       a_norm / torch.maximum(b_norm, floor),
+                       torch.ones_like(a_norm))
+
+
+def update_rows(
+    optim: str,
+    table: torch.Tensor,
+    states: Sequence[torch.Tensor],
+    rows: torch.Tensor,
+    g: torch.Tensor,
+    learning_rate: Scalar,
+    eps: float,
+    weight_decay: float,
+    betas: Tuple[float, float],
+    bias_corrections: Tuple[float, float],
+    sr_seed: Optional[int],
+) -> None:
+    """The optimizer step of the JAX package's ``apply_sparse_update`` on
+    the distinct ``rows`` [U] with their aggregated float32 gradients
+    ``g`` [U, D], in place, in that function's op order with every
+    operation rounded on its own: weight decay ``g + wd * w``, then the
+    optimizer's math (``csrc/tbe_dedup_backward.cu`` lists it), then
+    ``w + delta`` written back (a bfloat16 table stochastically rounded
+    when ``sr_seed`` is given).  Means and norms over D reduce in the
+    kernels' order (:func:`sum_of_squares`); ``(1 - beta)`` is rounded
+    from a double; ``bias_corrections`` are the host's ``(1 - b1**t,
+    1 - b2**t)`` for the adam family."""
+    dev, D = table.device, table.shape[1]
+    w = table[rows].to(torch.float32)
+    if weight_decay:
+        g = g + _f32(weight_decay, dev) * w
+    neg_lr = -_f32(learning_rate, dev)
+    if optim == "sgd":
+        delta = neg_lr * g
+    elif optim == "lars_sgd":
+        t = _trust_ratio(torch.sqrt(sum_of_squares(w)),
+                         torch.sqrt(sum_of_squares(g)))
+        delta = (neg_lr * t)[:, None] * g
+    elif optim == "adagrad":
+        m = states[0][rows] + g * g
+        delta = (neg_lr * g) / (torch.sqrt(m) + _f32(eps, dev))
+        states[0][rows] = m
+    elif optim == "rowwise_adagrad":
+        m = states[0][rows] + mean_of_squares(g)
+        scale = _div(torch.ones_like(m), torch.sqrt(m) + _f32(eps, dev))
+        delta = (neg_lr * g) * scale[:, None]
+        states[0][rows] = m
+    else:  # the adam family
+        (b1, b2), (bc1, bc2) = betas, bias_corrections
+        m = (_f32(b1, dev) * states[0][rows]
+             + _f32(1.0 - b1, dev) * g)
+        sqbc2 = torch.sqrt(_f32(bc2, dev))
+        if optim.startswith("partial_rowwise"):
+            v = (_f32(b2, dev) * states[1][rows]
+                 + _f32(1.0 - b2, dev) * mean_of_squares(g))
+            vpe = _div(torch.sqrt(v), sqbc2) + _f32(eps, dev)
+            direction = _div(m, bc1) / vpe[:, None].expand_as(m)
+        else:
+            v = (_f32(b2, dev) * states[1][rows]
+                 + (_f32(1.0 - b2, dev) * g) * g)
+            vpe = _div(torch.sqrt(v), sqbc2) + _f32(eps, dev)
+            direction = _div(m, bc1) / vpe
+        if optim.endswith("lamb"):
+            t = _trust_ratio(torch.sqrt(sum_of_squares(w)),
+                             torch.sqrt(sum_of_squares(direction)))
+            direction = direction * t[:, None]
+        delta = neg_lr * direction
+        states[0][rows] = m
+        states[1][rows] = v
+    new = w + delta
+    if table.dtype == torch.bfloat16:
+        table[rows] = round_to_bf16(new, rows, sr_seed)
+    else:
+        table[rows] = new
+
+
+def dedup_fused_sparse_update_plain(
+    table: torch.Tensor,
+    states: Sequence[torch.Tensor],
+    ids: torch.Tensor,
+    valid: torch.Tensor,
+    segments: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    grad_seg: torch.Tensor,
+    optim: str,
+    learning_rate: Scalar,
+    eps: float = 1.0e-8,
+    weight_decay: float = 0.0,
+    betas: Tuple[float, float] = (0.9, 0.999),
+    bias_corrections: Tuple[float, float] = (1.0, 1.0),
+    sr_seed: Optional[int] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Plain version of :func:`dedup_fused_sparse_update`: the row
+    gradients of the kept slots (:func:`embedding_row_grads`), summed per
+    row in slot order (:func:`aggregate_duplicate_rows`), then
+    :func:`update_rows`.  One host sync reads which rows were touched."""
+    R, S = table.shape[0], grad_seg.shape[0]
+    ok = (valid & (segments >= 0) & (segments < S) & (ids >= 0)
+          & (ids < R))
+    row_grads = embedding_row_grads(grad_seg, torch.where(ok, segments, S),
+                                    weights)
+    rows, g = aggregate_duplicate_rows(ids, ok, row_grads)
+    keep = rows < R
+    update_rows(optim, table, states, rows[keep].to(torch.int64), g[keep],
+                learning_rate, eps, weight_decay, betas, bias_corrections,
+                sr_seed)
+    return table, tuple(states)
+
+
+def launch_dedup_fused_sparse_update(
+    table: torch.Tensor,
+    states: Sequence[torch.Tensor],
+    srows: torch.Tensor,
+    ssegs: torch.Tensor,
+    sw: torch.Tensor,
+    grad_seg: torch.Tensor,
+    optim: str,
+    learning_rate: Scalar,
+    eps: float,
+    weight_decay: float,
+    betas: Tuple[float, float],
+    bias_corrections: Tuple[float, float],
+    sr_seed: Optional[int],
+) -> None:
+    """Launch the B6 kernel on prepared inputs (the output of
+    :func:`sort_by_row`, at least one slot); updates the table and the
+    states in place."""
+    R, D = table.shape
+    if D > MAX_DIM:
+        raise ValueError(f"the fused update kernels take D <= {MAX_DIM}, "
+                         f"got {D}")
+    lib = _native.load_library(_DEDUP_SOURCE)
+    grad = _aligned_grad(grad_seg)
+    srows, ssegs, sw = srows.contiguous(), ssegs.contiguous(), sw.contiguous()
+    ptrs = [st.data_ptr() for st in states] + [0] * (2 - len(states))
+    use_sr = table.dtype == torch.bfloat16 and sr_seed is not None
+    (b1, b2), (bc1, bc2) = betas, bias_corrections
+    with torch.cuda.device(table.device):
+        err = lib.dedup_fused_update(
+            srows.data_ptr(), ssegs.data_ptr(), sw.data_ptr(),
+            grad.data_ptr(), table.data_ptr(), ptrs[0], ptrs[1],
+            srows.shape[0], R, D, OPTIMIZERS.index(optim),
+            float(learning_rate), float(eps), float(weight_decay),
+            float(b1), float(b2), float(1.0 - b1), float(1.0 - b2),
+            float(bc1), float(bc2), FLOAT_DTYPES[table.dtype], int(use_sr),
+            int(sr_seed) if use_sr else 0,
+            torch.cuda.current_stream(table.device).cuda_stream,
+        )
+    _native.check_launch("dedup_fused_update", err)
+    count_launch("dedup_fused_sparse_update")
+
+
+def dedup_fused_sparse_update(
+    table: torch.Tensor,  # [R, D] float32 or bfloat16, updated in place
+    states: Sequence[torch.Tensor],  # float32, STATE_LAYOUTS[optim]
+    ids: torch.Tensor,  # [V] table-local row ids
+    valid: torch.Tensor,  # [V] bool
+    segments: torch.Tensor,  # [V] the grad_seg row each slot pooled into
+    weights: Optional[torch.Tensor],  # [V] float32 or None
+    grad_seg: torch.Tensor,  # [S, D] float32 upstream pooled gradient
+    optim: str,
+    learning_rate: Scalar,
+    eps: float = 1.0e-8,
+    weight_decay: float = 0.0,
+    betas: Tuple[float, float] = (0.9, 0.999),
+    bias_corrections: Tuple[float, float] = (1.0, 1.0),
+    sr_seed: Optional[int] = None,  # int32; bfloat16 tables only
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One-pass dedup fused backward + optimizer: for each distinct row
+    among the kept slots (``valid``, segment in ``[0, S)``, row in
+    ``[0, R)``), ``g = sum_i grad_seg[seg_i] * w_i`` in slot order (plus
+    ``weight_decay * w``), then one step of ``optim`` (one of
+    :data:`OPTIMIZERS`) on the row and its states: ``()`` for sgd and
+    lars_sgd, ``(momentum,)`` for the adagrads, ``(m, v)`` for the adam
+    family, whose ``bias_corrections`` are ``(1 - b1**t, 1 - b2**t)`` for
+    the caller's incremented step ``t``.  A bfloat16 table is written back
+    with stochastic rounding when ``sr_seed`` is given.  Returns
+    ``(table, states)``, the inputs themselves, updated in place."""
+    if optim not in OPTIMIZERS:
+        raise ValueError(f"unknown fused optimizer {optim!r}")
+    states = tuple(states)
+    dev = _check_inputs(table, states, STATE_LAYOUTS[optim], ids, valid,
+                        segments, weights, grad_seg, sr_seed)
+    args = (optim, learning_rate, eps, weight_decay, betas,
+            bias_corrections, sr_seed)
+    if dev.type == "cpu":
+        return dedup_fused_sparse_update_plain(
+            table, states, ids, valid, segments, weights, grad_seg, *args)
+    _require_cuda(dev)
+    if ids.shape[0] == 0:
+        return table, states
+    srows, ssegs, sw = sort_by_row(ids, valid, segments, weights,
+                                   table.shape[0], grad_seg.shape[0])
+    launch_dedup_fused_sparse_update(table, states, srows, ssegs, sw,
+                                     grad_seg, *args)
+    return table, states

@@ -2,10 +2,11 @@
 runtime (a subset of ``torchrec_tpu/parallel/embeddingbag.py``).
 
 The plan compiles on the host into group layouts; the forward runs each
-group's lookup (the pooled kernel of ``ops/tbe.py``) and the backward
-feeds each group's segment-level gradient to the fused update (the kernel
+group's lookup (a pooled kernel of ``ops/tbe.py``) and the backward
+feeds each group's segment-level gradient to the fused update (a kernel
 of ``ops/tbe_backward.py``), which writes the stacks and their optimizer
-state in place.
+state in place.  The caller names both kernels (``lookup_kernel``,
+``update_kernel``: ``"tbe"`` or ``"dedup"``).
 
 Ported for TABLE_WISE groups on one device.  Left out: row-wise,
 table-row-wise and data-parallel groups, the dedup and hierarchical
@@ -72,13 +73,14 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         self,
         params: Mapping[str, torch.Tensor],
         kjt: KeyedJaggedTensor,
+        lookup_kernel: str = "tbe",
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple]]:
         """Input dist + lookup + output dist for every group.  Returns
         ({feature: [B, dim]}, ctx per group)."""
         outs: Dict[str, torch.Tensor] = {}
         ctxs: Dict[str, Tuple] = {}
         for name, lay in self.tw_layouts.items():
-            o, ctx = tw_forward_local(lay, params[name], kjt)
+            o, ctx = tw_forward_local(lay, params[name], kjt, lookup_kernel)
             outs.update(o)
             ctxs[name] = ctx
         return outs, ctxs
@@ -91,6 +93,7 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         grad_by_feature: Mapping[str, torch.Tensor],
         config: FusedOptimConfig,
         sr_seeds: Optional[Sequence[int]] = None,
+        update_kernel: str = "tbe",
     ) -> None:
         """Reverse dists and apply the fused optimizer to the touched rows
         of every group, in place.  ``sr_seeds``: one int32 seed per group
@@ -101,6 +104,7 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
             apply_sparse_update_segments(
                 params[name], fused_state[name], sg, config,
                 sr_seed=None if sr_seeds is None else sr_seeds[gi],
+                update_kernel=update_kernel,
             )
 
     def output_kt(self, outs: Mapping[str, torch.Tensor]) -> KeyedTensor:

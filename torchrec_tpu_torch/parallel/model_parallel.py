@@ -4,21 +4,30 @@ dense-data-parallel train step (a subset of
 
 The train state is a dict with the JAX package's keys::
 
-    {"dense": {param name: tensor},          # the DLRM's parameters
-     "dense_opt": {param name: tensor},      # Adagrad sum_of_squares
-     "tables": {group: [rows, D] stack},     # float32 or bfloat16
-     "fused": {group: {"momentum": [rows]}}, # rowwise Adagrad state
+    {"dense": {param name: tensor},      # the DLRM's parameters
+     "dense_opt": {param name: tensor},  # Adagrad sum_of_squares
+     "tables": {group: [rows, D] stack}, # float32 or bfloat16
+     "fused": {group: optimizer state},  # ops/fused_update.py's layouts,
+                                         # e.g. {"momentum": [rows]}
      "step": int}
 
 and :meth:`train_step` mirrors ``_local_step`` /
-``_dense_and_update_local``: the sharded collection's forward (the pooled
+``_dense_and_update_local``: the sharded collection's forward (a pooled
 kernel of ``ops/tbe.py``), the dense forward and backward with respect to
 both the dense parameters and the pooled values (the KT values are
 detached and given ``requires_grad``, as ``jax.value_and_grad(argnums=(0,
 1))`` takes both), the KT gradient split per feature, the fused backward +
-rowwise-Adagrad update (the kernel of ``ops/tbe_backward.py``), then the
-dense Adagrad.  The state is updated in place, which stands in for the JAX
+optimizer update (a kernel of ``ops/tbe_backward.py``), then the dense
+Adagrad.  The state is updated in place, which stands in for the JAX
 step's buffer donation: the returned state is the one passed in.
+
+The kernels are arguments, ``lookup_kernel`` and ``update_kernel``, each
+``"tbe"`` (the per-id kernels, the default) or ``"dedup"`` (the ragged
+dedup kernels): the port runs eagerly and reads them at call time, where
+the JAX package reads process-wide switches while it traces
+(``set_pooled_lookup_kernel``, ``set_sparse_update_kernel``,
+``trace_kernels``).  :meth:`with_feature_caps` is the capacity-bucketing
+entry point (``parallel/train_pipeline.py``).
 
 One device only (multi-GPU sharding is ROADMAP A6), so the gradient
 division by the world size and the pmeans of the JAX step are the
@@ -34,6 +43,7 @@ IO helpers and the overflow / guardrail metrics.
 from __future__ import annotations
 
 import math
+import copy
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,7 +53,11 @@ from torch import nn
 from torchrec_tpu_torch.datasets.utils import Batch
 from torchrec_tpu_torch.models.dlrm import bce_with_logits_loss
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
-from torchrec_tpu_torch.ops.fused_update import FusedOptimConfig
+from torchrec_tpu_torch.ops.embedding_ops import POOLED_KERNELS
+from torchrec_tpu_torch.ops.fused_update import (
+    FusedOptimConfig,
+    require_kernel,
+)
 from torchrec_tpu_torch.optim.adagrad import Adagrad, adagrad
 from torchrec_tpu_torch.parallel.embeddingbag import (
     ShardedEmbeddingBagCollection,
@@ -60,6 +74,18 @@ _INT32_MAX = 2**31 - 1
 _TRUNC_STD = 0.87962566103423978
 
 
+def stack_batches(batches: Sequence[Batch]) -> Batch:
+    """Group the per-device batches of one step into the global batch.
+    At one device this is the identity on the one batch (the JAX package
+    stacks N batches along a leading device axis)."""
+    if len(batches) != 1:
+        raise NotImplementedError(
+            f"{len(batches)} per-device batches: the port runs one device "
+            "(multi-GPU sharding is ROADMAP A6)"
+        )
+    return batches[0]
+
+
 class DistributedModelParallel:
     """Compile a (model, plan) pair into init and train-step functions on
     one device.
@@ -70,7 +96,10 @@ class DistributedModelParallel:
     :class:`~torchrec_tpu_torch.optim.adagrad.Adagrad` (default
     ``adagrad(fused_config.learning_rate)``); ``table_dtype`` is the
     stacks' dtype, float32 or bfloat16 (the momentum stays float32 and
-    bfloat16 write-backs round stochastically).  The step runs on
+    bfloat16 write-backs round stochastically); ``lookup_kernel`` and
+    ``update_kernel`` name the kernels (module docstring; the per-id
+    update kernel takes rowwise Adagrad only and raises
+    ``NotImplementedError`` for the other optimizers).  The step runs on
     ``device``: CUDA unless the caller names another, and it raises
     without a card."""
 
@@ -85,22 +114,57 @@ class DistributedModelParallel:
         dense_optimizer: Optional[Adagrad] = None,
         table_dtype: torch.dtype = torch.float32,
         device: DeviceLike = None,
+        lookup_kernel: str = "tbe",
+        update_kernel: str = "tbe",
     ):
         if table_dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"table_dtype must be float32 or bfloat16, got "
                             f"{table_dtype}")
+        self.fused_config = fused_config or FusedOptimConfig()
+        self._set_kernels(lookup_kernel, update_kernel)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.tables = tuple(tables)
         self.plan = plan
         self.batch_size = batch_size_per_device
         self.feature_caps = dict(feature_caps)
-        self.fused_config = fused_config or FusedOptimConfig()
         self.dense_tx = dense_optimizer or adagrad(
             self.fused_config.learning_rate)
         self.table_dtype = table_dtype
         self.sharded_ebc = ShardedEmbeddingBagCollection.build(
             tables, plan, 1, batch_size_per_device, feature_caps)
+
+    def _set_kernels(self, lookup_kernel: str, update_kernel: str) -> None:
+        if lookup_kernel not in POOLED_KERNELS:
+            raise ValueError(
+                f"unknown pooled-lookup kernel {lookup_kernel!r}")
+        require_kernel(self.fused_config, update_kernel)
+        self.lookup_kernel = lookup_kernel
+        self.update_kernel = update_kernel
+
+    def with_feature_caps(
+        self,
+        feature_caps: Mapping[str, int],
+        lookup_kernel: Optional[str] = None,
+        update_kernel: Optional[str] = None,
+    ) -> "DistributedModelParallel":
+        """Shallow clone with the group layouts rebuilt for other
+        per-feature id capacities (and, when given, other kernels).
+        Capacities shape only the slot geometry; parameters and optimizer
+        state are shaped by table rows, so the clone's train step runs on
+        the same train state as the original."""
+        missing = set(self.feature_caps) - set(feature_caps)
+        if missing:
+            raise ValueError(f"with_feature_caps: missing features "
+                             f"{sorted(missing)}")
+        clone = copy.copy(self)
+        clone._set_kernels(lookup_kernel or self.lookup_kernel,
+                           update_kernel or self.update_kernel)
+        clone.feature_caps = {k: int(feature_caps[k])
+                              for k in self.feature_caps}
+        clone.sharded_ebc = ShardedEmbeddingBagCollection.build(
+            self.tables, self.plan, 1, self.batch_size, clone.feature_caps)
+        return clone
 
     # -- state -------------------------------------------------------------
 
@@ -176,7 +240,8 @@ class DistributedModelParallel:
         """The sharded collection's forward: (pooled KT values [B, sum of
         dims], ctx per group)."""
         ebc = self.sharded_ebc
-        outs, ctxs = ebc.forward_local(state["tables"], batch.sparse_features)
+        outs, ctxs = ebc.forward_local(state["tables"], batch.sparse_features,
+                                       self.lookup_kernel)
         return ebc.output_kt(outs).values(), ctxs
 
     def dense_forward_backward(
@@ -216,6 +281,7 @@ class DistributedModelParallel:
         self.sharded_ebc.backward_and_update_local(
             state["tables"], state["fused"], ctxs, grad_by_feature,
             self.fused_config, sr_seeds=self.sr_seeds(state["step"]),
+            update_kernel=self.update_kernel,
         )
         self.dense_tx.update(state["dense"], g_dense, state["dense_opt"])
         state["step"] += 1

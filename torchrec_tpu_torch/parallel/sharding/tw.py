@@ -5,9 +5,10 @@ A TW group stacks every table of one embedding dim row-wise into one
 array and keeps the JAX package's uniform ``[N, F, C]`` slot geometry: N
 devices, F slots per device, C ids per slot.  The lookup pools slot
 ``(src, slot, b)`` into segment ``slot * (N * B) + src * B + b`` of one
-pooled lookup over the local stack (the kernel of ``ops/tbe.py``), and
-the backward hands the same slot layout to the fused update as a
-:class:`SparseSegGrad`.
+pooled lookup over the local stack (a kernel of ``ops/tbe.py``: the
+per-id ``"tbe"`` lookup or the ragged ``"dedup"`` one, by the caller's
+``lookup_kernel``), and the backward hands the same slot layout to the
+fused update as a :class:`SparseSegGrad`.
 
 This port runs one device.  Its dists are the identity there; at
 ``world_size > 1`` the forward and backward raise ``NotImplementedError``
@@ -210,13 +211,16 @@ def tw_forward_local(
     layout: TwGroupLayout,
     stack_local: torch.Tensor,  # [r_stack, dim]
     kjt: KeyedJaggedTensor,
+    lookup_kernel: str = "tbe",
 ) -> Tuple[Dict[str, torch.Tensor], Tuple]:
     """Input dist -> lookup -> output dist for one group.  Returns
     ({feature: [B, dim]} pooled embeddings in the table's dtype, ctx for
-    the backward)."""
+    the backward).  ``lookup_kernel``: ``"tbe"`` or ``"dedup"``
+    (``ops/embedding_ops.py::pooled_embedding_lookup``)."""
     ids_flat, w_flat, segs, num_segments = tw_lookup_inputs(layout, kjt)
     pooled = pooled_embedding_lookup(stack_local, ids_flat, segs,
-                                     num_segments, w_flat)
+                                     num_segments, w_flat,
+                                     kernel=lookup_kernel)
     return tw_output_features(layout, pooled), (ids_flat, w_flat, segs)
 
 

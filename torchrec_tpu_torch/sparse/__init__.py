@@ -2,6 +2,8 @@ from torchrec_tpu_torch.sparse.jagged_tensor import (
     JaggedTensor,
     KeyedJaggedTensor,
     KeyedTensor,
+    bucket_ladder,
+    bucketed_cap,
     regroup_request_major,
 )
 
@@ -9,5 +11,7 @@ __all__ = [
     "JaggedTensor",
     "KeyedJaggedTensor",
     "KeyedTensor",
+    "bucket_ladder",
+    "bucketed_cap",
     "regroup_request_major",
 ]

@@ -1,6 +1,6 @@
 """Ragged sparse data structures (a subset of
-``torchrec_tpu/sparse/jagged_tensor.py``: what serving and the train step
-use).
+``torchrec_tpu/sparse/jagged_tensor.py``: what serving, the train step and
+the bucketed train pipeline use).
 
 The layout is the JAX package's static per-key-capacity layout, kept
 exactly so that a batch converts element for element between the two
@@ -17,6 +17,46 @@ import numpy as np
 import torch
 
 Caps = Union[int, Sequence[int]]
+
+
+# ---------------------------------------------------------------------------
+# capacity bucketing: each key's observed id count rounds up to a rung of a
+# small geometric ladder, so padding is bounded by the growth factor while
+# the number of distinct capacity signatures stays small
+# (``parallel/train_pipeline.py::BucketedStepCache`` keeps one train step
+# per signature)
+# ---------------------------------------------------------------------------
+
+
+def bucket_ladder(
+    cap: int, floor: int = 8, growth: float = 2.0
+) -> Tuple[int, ...]:
+    """Capacity rungs for one key: ``floor``, then geometric steps by
+    ``growth``, each clipped to the static worst-case ``cap`` (always the
+    last rung)."""
+    cap = int(cap)
+    if cap <= 0:
+        return (0,)
+    growth = float(growth)
+    if growth <= 1.0:
+        raise ValueError(f"ladder growth must exceed 1.0, got {growth}")
+    rungs = [max(1, min(int(floor), cap))]
+    while rungs[-1] < cap:
+        rungs.append(min(cap, max(rungs[-1] + 1,
+                                  int(np.ceil(rungs[-1] * growth)))))
+    return tuple(rungs)
+
+
+def bucketed_cap(
+    occupancy: int, cap: int, floor: int = 8, growth: float = 2.0
+) -> int:
+    """Round one key's observed id count up to the nearest ladder rung
+    (never above the static ``cap``)."""
+    occupancy = int(occupancy)
+    for r in bucket_ladder(cap, floor, growth):
+        if r >= occupancy:
+            return r
+    return int(cap)
 
 
 def regroup_request_major(ids: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -239,6 +279,47 @@ class KeyedJaggedTensor:
     def length_per_key(self) -> torch.Tensor:
         """``[F]`` total real ids per key."""
         return self._lengths.reshape(len(self._keys), self._stride).sum(dim=1)
+
+    def occupancy_per_key(self) -> Tuple[int, ...]:
+        """Real (non-padding) ids per key, as host ints (reads the lengths
+        on the host)."""
+        return tuple(int(n) for n in self.length_per_key().tolist())
+
+    def bucketed_caps(
+        self, floor: int = 8, growth: float = 2.0
+    ) -> Tuple[int, ...]:
+        """Per-key capacities with each key's occupancy rounded up the
+        ladder (:func:`bucketed_cap`) instead of the static worst case."""
+        return tuple(
+            bucketed_cap(occ, cap, floor, growth)
+            for occ, cap in zip(self.occupancy_per_key(), self._caps)
+        )
+
+    def repad(self, caps: Caps) -> "KeyedJaggedTensor":
+        """The same ids and lengths under other per-key capacities.
+        Growing a capacity pads with zeros; shrinking one truncates the
+        key's region, and raises if that would drop a real id."""
+        new_caps = _normalize_caps(caps, len(self._keys))
+        for k, occ, nc in zip(self._keys, self.occupancy_per_key(),
+                              new_caps):
+            if occ > nc:
+                raise ValueError(f"repad would drop data for key {k}: "
+                                 f"occupancy {occ} > new cap {nc}")
+
+        def relayout(buf: torch.Tensor) -> torch.Tensor:
+            out = buf.new_zeros((sum(new_caps),) + tuple(buf.shape[1:]))
+            src, dst = self.cap_offsets(), 0
+            for f, nc in enumerate(new_caps):
+                n = min(nc, self._caps[f])
+                out[dst: dst + n] = buf[src[f]: src[f] + n]
+                dst += nc
+            return out
+
+        return KeyedJaggedTensor(
+            self._keys, relayout(self._values), self._lengths,
+            None if self._weights is None else relayout(self._weights),
+            stride=self._stride, caps=new_caps,
+        )
 
     def to_dict(self) -> Dict[str, JaggedTensor]:
         """key -> that key's :class:`JaggedTensor`."""
