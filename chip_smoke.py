@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: the DLRM training step of
 ``bench.py main()``, the bucketed training pipeline on the dedup kernels,
-and quantized DLRM serving.
+MLPerf DLRM-v2 (``DLRM_DCN``) training on the per-id kernels, and
+quantized DLRM serving.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and fails (non-zero exit, no result line)
@@ -28,11 +29,12 @@ Phases, one JSON line each on stdout; any failure raises:
    rowwise Adagrad (B2) against their plain versions at the path's shapes
    (the ``[2,600,000, 128]`` stack, V = S = 106,496 slots of a bench
    batch), float32 and bfloat16 stacks, the batch's uniform ids and
-   Zipf(1.1) ids, with the same times and bounds as above (B2 on fresh
-   copies of the stack and momentum per call, bfloat16 with stochastic
+   Zipf(1.1) ids, with the same times and bounds as above (B2 in place,
+   its touched rows restored after every call, bfloat16 with stochastic
    rounding); then a path check on the first batch (B1's output, and B2's
    updated stack and momentum from the step's real gradient,
-   ``torch.equal`` to the plain versions); then 1 warm-up and 20 timed
+   ``torch.equal`` to the plain versions on the touched rows, nothing
+   written elsewhere); then 1 warm-up and 20 timed
    steps over 4 batches (samples/s, every loss finite, one B1 and one B2
    launch per step), three steps under ``torch.profiler``, and 3 steps of
    the bfloat16-table arm with stochastic rounding (its path check also
@@ -55,7 +57,38 @@ Phases, one JSON line each on stdout; any failure raises:
    B6 launch per step and nothing else, the signatures dispatched and
    the padding ratios), three profiled steps, and 3 steps of each other
    optimizer and of the bfloat16-table arm;
-5. serving — quantized serving: DLRM at the widths of ``bench.py`` (26 sparse
+5. train_dcn — MLPerf DLRM-v2 training (mlcommons/training
+   ``recommendation_v2/torchrec_dlrm``) on the per-id kernels:
+   ``DistributedModelParallel(DLRM_DCN, table_wise_plan,
+   lookup_kernel="tbe", update_kernel="tbe")`` over 26 tables of D=128,
+   SUM, float32, at ``min(MLPerf DLRM-v2 rows, 5,000,000)`` rows (one
+   table-wise group ``[29,184,588, 128]``: a 14.9 GB stack and a 14.9 GB
+   per-element Adagrad state); ``RandomRecDataset`` with the fixed
+   multi-hot lengths (214 ids per example; min = max), uniform ids, seed
+   0; B=8192 per card (the recipe's 65,536 over 8 GPUs), so the slot
+   stream holds 1,753,088 ids in 21,299,200 slots (the table-wise
+   layout's uniform per-slot capacity) over S = 212,992 segments; dense
+   arch 13 -> 512-256-128 and over arch 1024-1024-512-256-1 in bfloat16
+   with a float32 logit layer, ``LowRankCrossNet`` 3 layers at rank 512
+   over the 3,456-wide concat in float32 (TF32 off); BCE; per-element
+   Adagrad (``EmbOptimType.ADAGRAD``, lr 0.004, eps 1e-8) on the tables
+   and optax-style dense Adagrad 0.004.  First ``dcn_kernel``: B1 and B2
+   (Adagrad) against their plain versions at the path's shapes (the
+   stack, the first batch's slots, its uniform ids and Zipf(1.1) ids per
+   table), then B2 for the other seven optimizers on float32 and all
+   eight on bfloat16 with stochastic rounding at the same batch shapes
+   over a stack of ``min(MLPerf rows, 1,000,000)`` rows (7,116,632 rows);
+   each with kernel, wrapper and plain times, bound and registers, the
+   stack and states restored on the touched rows only between calls;
+   then the path check on the first batch (B1's output and B2's updated
+   stack and momentum from the step's real gradient ``torch.equal`` to
+   the plain versions, touched rows past 2^31 bytes); then 1 warm-up and
+   20 timed steps over 4 cycled batches (samples/s, every loss finite,
+   one B1 and one B2 launch per step and nothing else), the cross net's
+   forward and backward alone, three profiled steps with the cross net's
+   GEMMs named, and 3 steps of each other optimizer and of a
+   bfloat16-table arm at the 1,000,000-row cap;
+6. serving — quantized serving: DLRM at the widths of ``bench.py`` (26 sparse
    features, D=128, 13 dense, dense arch 512-256-128, over arch
    1024-1024-512-256-1, float32) over int8 tables at the MLPerf DLRM-v2
    row counts (204,184,588 rows); first each kernel against its plain
@@ -67,14 +100,18 @@ Phases, one JSON line each on stdout; any failure raises:
    kernel on Zipf ids; then ``serving_fn`` alone at B=4096, and a
    ``torch.profiler`` breakdown of one served batch (B=256): wall time,
    device busy time and idle share, the kernels that take the time;
-6. roundtrip — ``package_model`` at 10k rows per table, loaded on the
+7. roundtrip — ``package_model`` at 10k rows per table, loaded on the
    card and on the CPU, scores compared.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
 
 Cut for the smoke run: the training weights are random from a seed and
-the step count is the bench's; the serving tables' codes, scales and
+the step count is the bench's; for ``train_dcn``, the five 40M-row
+tables are capped at 5,000,000 rows each (no other table exceeds 5M;
+104 GB of float32 tables and Adagrad state cannot fit one card), the
+weights are random from a seed and 4 batches are cycled; the serving
+tables' codes, scales and
 biases are drawn on the device from a seeded generator instead of
 quantizing trained weights through ``package_model`` (26 GB of float
 tables would not fit the run); the dense weights are random from a seed.
@@ -150,9 +187,22 @@ DEDUP_ZIPF_LENGTHS = 1.2
 DEDUP_ZIPF_IDS = 1.0
 BUCKETING = {"floor": 8, "growth": 2.0, "max_programs": 8}
 ARM_STEPS = 3
-PLAIN_RUNS = 3  # the plain dedup versions walk a Zipf-hot row slot by slot
+# the plain versions of the fused updates walk a Zipf-hot row slot by slot
+PLAIN_RUNS = 3
+# MLPerf DLRM-v2 training (DLRM_DCN, train_dcn): the row cap of the main
+# path and of the kernel rows and arms of the other optimizers, the
+# recipe's per-card batch, cross net and learning rate
+DCN_ROW_CAP = 5_000_000
+DCN_ARM_ROW_CAP = 1_000_000
+DCN_BATCH = 8192
+DCN_LAYERS = 3
+DCN_RANK = 512
+DCN_LR = 0.004
+EPS = 1e-8  # the fused optimizers' eps (the JAX default)
+# row offsets past this many bytes need the kernels' 64-bit addressing
+FAR_BYTES = 2**31
 # multiplies, adds, divisions and roots per column of one row's update
-# (after the gradient sum), for the operations bound of the dedup update
+# (after the gradient sum), for the operations bound of the fused updates
 UPDATE_OPS_PER_COLUMN = {
     "sgd": 2, "lars_sgd": 6, "adagrad": 6, "rowwise_adagrad": 5,
     "adam": 13, "partial_rowwise_adam": 9, "lamb": 17,
@@ -370,25 +420,6 @@ def _b1_bound(R, D, esize, ids, segs, w, S):
     return U, nbytes, 2 * int(valid.sum()) * D
 
 
-def _b2_bound(D, esize, sg):
-    """Bytes and flops the fused update must move / do on these inputs:
-    each referenced gradient row once, each slot's id, flag, segment and
-    weight once, each touched table row and momentum read and written
-    once; per kept slot a multiply and an add per column, per touched row
-    about four operations per column (square, sum, scale, add)."""
-    import torch
-
-    ok = sg.ok() & (sg.ids >= 0)
-    U = int(torch.unique(sg.ids[ok]).numel())
-    n_seg = int(torch.unique(sg.segments[ok]).numel())
-    V = sg.ids.numel()
-    nbytes = (n_seg * D * 4
-              + V * (sg.ids.element_size() + 1 + sg.segments.element_size()
-                     + sg.weights.element_size())
-              + U * (2 * D * esize + 8))
-    return U, nbytes, 2 * int(ok.sum()) * D + 4 * U * D
-
-
 def _bound(nbytes, flops):
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     flops_ms = flops / PEAK_F32_FLOPS * 1e3
@@ -396,148 +427,261 @@ def _bound(nbytes, flops):
             "bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def train_kernel_phase(dev, flush, dmp, state, batch):
-    """B1 and B2 against their plain versions on the card, at the shapes
-    the training step gives them: the group's ``[2,600,000, 128]`` stack
-    (the trainer's float32 one, and its bfloat16 cast), the slots of one
-    bench batch (V = S = 106,496, about half valid), the batch's uniform
-    ids and Zipf(1.1) ids drawn per feature, weight decay 0, a random
-    ``[S, 128]`` upstream gradient; B2 on fresh copies of the stack and
-    momentum for every call, bfloat16 with stochastic rounding.  Returns
-    the records it emits."""
+def _update_bound(D, esize, sg, optim):
+    """Bytes and operations a fused update must move / do on these
+    inputs: each referenced gradient row once, each slot's id, flag,
+    segment and weight once, each touched table row and its optimizer
+    state read and written once; per kept slot a multiply and an add per
+    column, per touched row ``UPDATE_OPS_PER_COLUMN`` per column."""
+    import torch
+
+    from torchrec_tpu_torch.ops.tbe_backward import STATE_LAYOUTS
+
+    ok = sg.ok() & (sg.ids >= 0)
+    U = int(torch.unique(sg.ids[ok]).numel())
+    n_seg = int(torch.unique(sg.segments[ok]).numel())
+    V = sg.ids.numel()
+    state_bytes = sum(4 if kind == "row" else 4 * D
+                      for kind in STATE_LAYOUTS[optim])
+    nbytes = (n_seg * D * 4
+              + V * (sg.ids.element_size() + 1 + sg.segments.element_size()
+                     + sg.weights.element_size())
+              + U * 2 * (D * esize + state_bytes))
+    flops = 2 * int(ok.sum()) * D + UPDATE_OPS_PER_COLUMN[optim] * U * D
+    return U, nbytes, flops
+
+
+def _checksum(t) -> int:
+    """The sum of a tensor's bit patterns as integers: changes when any
+    element does (barring a cancellation), at the cost of one read.
+    Summed in blocks of rows: an int64 sum casts its input whole."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    bits = t.view(ints[t.dtype])
+    return sum(int(b.sum(dtype=torch.int64)) for b in bits.split(1 << 20))
+
+
+class RowSnapshot:
+    """The ``rows`` of each array (a stack and its optimizer states),
+    saved once, so an in-place update can be undone on those rows alone
+    (the 15 GB arrays are never copied whole)."""
+
+    def __init__(self, arrays, rows):
+        self.arrays, self.rows = list(arrays), rows
+        self.saved = [a[rows].clone() for a in self.arrays]
+        self.sums = [_checksum(a) for a in self.arrays]
+
+    def take(self):
+        """The rows as they are now, and undo the update on them."""
+        now = [a[self.rows].clone() for a in self.arrays]
+        self.restore()
+        return now
+
+    def restore(self):
+        for a, saved in zip(self.arrays, self.saved):
+            a.index_copy_(0, self.rows, saved)
+
+    def intact(self) -> bool:
+        """Every array equal to what it was when saved, by checksum: an
+        update that wrote outside the saved rows shows here."""
+        return [_checksum(a) for a in self.arrays] == self.sums
+
+
+def _update_call(fn, stack, states, optim, sg, lr, seed, bc):
+    """``fn`` (B2's wrapper or plain version) on a stack and the
+    optimizer's states, with the JAX package's argument layout."""
+    adam = len(states) == 2
+    return fn(stack, None if adam or not states else states[0], sg.ids,
+              sg.valid, sg.segments, sg.weights, sg.grad_seg, lr,
+              eps=EPS, weight_decay=0.0, sr_seed=seed, optim=optim,
+              states=states if adam else None, bias_corrections=bc)
+
+
+def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
+    """B2 with ``optim`` against its plain version on the card, in place
+    on ``stack`` and ``states`` and undone on the touched rows after
+    every call: ``torch.equal`` on the touched rows of the stack and every
+    state, nothing written elsewhere (checksums), times, bound and
+    registers.  Returns the emitted record."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import (
+        FusedOptimConfig,
+        bias_corrections,
+    )
+
+    R, D = stack.shape
+    ok = sg.ok() & (sg.ids >= 0) & (sg.ids < R)
+    rows = torch.unique(sg.ids[ok]).to(torch.int64)
+    snap = RowSnapshot([stack, *states], rows)
+    bc = bias_corrections(FusedOptimConfig(), 1)  # the Adam family's step 1
+    args = (stack, states, optim, sg, lr, seed, bc)
+    _update_call(tbe_backward.fused_sparse_update, *args)
+    torch.cuda.synchronize()
+    got = snap.take()
+    kernel_intact = snap.intact()
+    _update_call(tbe_backward.fused_sparse_update_plain, *args)
+    ref = snap.take()
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, ref))
+    equal = kernel_intact and all(torch.equal(a, b)
+                                  for a, b in zip(got, ref))
+    touched = int((got[0] != snap.saved[0]).any(dim=1).sum())
+    sr_rows = None
+    if seed is not None:
+        _update_call(tbe_backward.fused_sparse_update_plain, stack, states,
+                     optim, sg, lr, None, bc)
+        sr_rows = int((snap.take()[0] != ref[0]).sum())
+    if not equal:
+        raise AssertionError(f"fused_sparse_update {optim} {common}: kernel "
+                             f"!= plain (max abs err {err}, nothing "
+                             f"written elsewhere: {kernel_intact})")
+    if seed is not None and not sr_rows:
+        raise AssertionError("bfloat16 update did not round stochastically")
+    prep = tbe_backward.sort_by_row(sg.ids, sg.valid, sg.segments,
+                                    sg.weights, R, sg.grad_seg.shape[0])
+    U, nbytes, flops = _update_bound(D, stack.element_size(), sg, optim)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    rec = {
+        "phase": phase, "kernel": "fused_sparse_update",
+        "optim": optim, **common, "kept": int(ok.sum()), "distinct": U,
+        "touched_rows": touched,
+        "rows_past_2^31_bytes": int((rows * D * 4 >= FAR_BYTES).sum()),
+        "sr_seed": seed, "sr_differs_from_nearest": sr_rows,
+        "equal": True, "max_abs_err": err,
+        "registers": tbe_backward.fused_update_registers(optim, stack.dtype,
+                                                         D),
+        "ms": cuda_ms(lambda: _update_call(
+            tbe_backward.fused_sparse_update, *args), flush,
+            setup=snap.restore),
+        "kernel_ms": cuda_ms(
+            lambda: tbe_backward.launch_fused_sparse_update(
+                stack, states, *prep, sg.grad_seg, optim, lr, EPS, 0.0,
+                (0.9, 0.999), bc, seed),
+            flush, setup=snap.restore),
+        "plain_ms": cuda_ms(lambda: _update_call(
+            tbe_backward.fused_sparse_update_plain, *args), flush,
+            runs=PLAIN_RUNS, warmup=1, setup=snap.restore),
+        "library_ms": None,
+        "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    snap.restore()
+    emit(rec)
+    return rec
+
+
+def b1_row(flush, phase, stack, ids, segs, w, S, common):
+    """B1 against its plain version on the card at these inputs, with
+    times, ``F.embedding_bag`` over the sorted valid slots and the bound.
+    Returns the emitted record."""
     import torch
     import torch.nn.functional as F
 
-    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops import tbe
+
+    R, D = stack.shape
+    args = (stack, ids, segs, S, w)
+    got = tbe.pooled_lookup(*args)
+    torch.cuda.synchronize()
+    ref = tbe.pooled_lookup_plain(*args)
+    err = float((got.float() - ref.float()).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"pooled_lookup {common}: kernel != plain "
+                             f"(max abs err {err})")
+    prep = tbe.sort_by_segment(ids, segs, w, S, R)
+    sids, sw, offs = prep
+    n = int(offs[-1])
+    lib_ids, lib_offs = sids[:n].to(torch.int64), offs.to(torch.int64)
+    lib_w = sw[:n].to(stack.dtype)
+
+    def library():
+        return F.embedding_bag(lib_ids, stack, lib_offs, mode="sum",
+                               per_sample_weights=lib_w,
+                               include_last_offset=True)
+
+    U, nbytes, flops = _b1_bound(R, D, stack.element_size(), ids, segs, w, S)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    rec = {
+        "phase": phase, "kernel": "pooled_lookup", **common,
+        "valid": n, "distinct": U, "equal": True, "max_abs_err": err,
+        "ms": cuda_ms(lambda: tbe.pooled_lookup(*args), flush),
+        "kernel_ms": cuda_ms(lambda: tbe.launch_pooled(stack, *prep), flush),
+        "plain_ms": cuda_ms(lambda: tbe.pooled_lookup_plain(*args), flush,
+                            runs=PLAIN_RUNS, warmup=1),
+        "library_ms": cuda_ms(library, flush),
+        "library_max_abs_diff": float(
+            (library().float() - got.float()).abs().max()),
+        "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    emit(rec)
+    return rec
+
+
+def _zipf_slots(lay, rows, seed):
+    """Zipf(1.1) ids in the layout's ``[F * C]`` slot stream, each slot's
+    ids drawn over its own table's rows and offset into the stack."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    ids = np.stack([zipf_ids(rng, lay.cap, r) for r in rows])
+    ids = ids + lay.row_offset[0][: len(rows), None]
+    return torch.from_numpy(ids.reshape(-1).astype(np.int32))
+
+
+def train_kernel_phase(dev, flush, dmp, state, batch):
+    """B1 and B2 (rowwise Adagrad) against their plain versions on the
+    card, at the shapes the training step gives them: the group's
+    ``[2,600,000, 128]`` stack (the trainer's float32 one, and its
+    bfloat16 cast), the slots of one bench batch (V = S = 106,496, about
+    half valid), the batch's uniform ids and Zipf(1.1) ids drawn per
+    feature, weight decay 0, a random ``[S, 128]`` upstream gradient;
+    bfloat16 with stochastic rounding.  Returns the records it emits."""
+    import torch
+
     from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
     from torchrec_tpu_torch.parallel.sharding.tw import tw_lookup_inputs
 
     (name, lay), = dmp.sharded_ebc.tw_layouts.items()
     stack32 = state["tables"][name]
-    mom0 = state["fused"][name]["momentum"]
-    R, D = stack32.shape
+    mom = state["fused"][name]["momentum"]
     ids_u, w, segs, S = tw_lookup_inputs(lay, batch.sparse_features)
-    rng = np.random.RandomState(5)
-    zipf = (zipf_ids(rng, lay.f_max * lay.cap, TRAIN_ROWS)
-            .reshape(lay.f_max, lay.cap) + lay.row_offset[0][:, None])
-    ids_z = torch.from_numpy(zipf.reshape(-1).astype(np.int32)).to(dev)
+    ids_z = _zipf_slots(lay, [TRAIN_ROWS] * TRAIN_FEATURES, seed=5).to(dev)
     gen = torch.Generator(device=dev).manual_seed(7)
-    grad = torch.randn((S, D), generator=gen, device=dev) * 1e-2
-    cfg = dmp.fused_config
+    grad = torch.randn((S, DIM), generator=gen, device=dev) * 1e-2
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         stack = stack32 if dtype == torch.float32 else stack32.to(dtype)
         seed = SR_SEED if dtype == torch.bfloat16 else None
-        work_t, work_m = torch.empty_like(stack), torch.empty_like(mom0)
-
-        def restore():
-            work_t.copy_(stack)
-            work_m.copy_(mom0)
-
         for dist, ids in (("uniform", ids_u), ("zipf", ids_z)):
             common = {"dtype": str(dtype).replace("torch.", ""),
-                      "ids": dist, "rows": R, "D": D, "S": S,
-                      "V": ids.numel()}
-            # B1: the pooled lookup
-            args = (stack, ids, segs, S, w)
-            got = tbe.pooled_lookup(*args)
-            torch.cuda.synchronize()
-            ref = tbe.pooled_lookup_plain(*args)
-            err = float((got.float() - ref.float()).abs().max())
-            if not torch.equal(got, ref):
-                raise AssertionError(f"pooled_lookup {common}: kernel != "
-                                     f"plain (max abs err {err})")
-            prep = tbe.sort_by_segment(ids, segs, w, S, R)
-            sids, sw, offs = prep
-            # the yardstick gets the valid slots only: embedding_bag's last
-            # bag runs to the end of its indices
-            n = int(offs[-1])
-            lib_ids, lib_offs = sids[:n].to(torch.int64), offs.to(torch.int64)
-            lib_w = sw[:n].to(dtype)
-
-            def library():
-                return F.embedding_bag(
-                    lib_ids, stack, lib_offs, mode="sum",
-                    per_sample_weights=lib_w, include_last_offset=True)
-
-            lib_diff = float((library().float() - got.float()).abs().max())
-            U, nbytes, flops = _b1_bound(R, D, stack.element_size(), ids,
-                                         segs, w, S)
-            bound_ms, bound_by = _bound(nbytes, flops)
-            rec = {
-                "phase": "train_kernel", "kernel": "pooled_lookup", **common,
-                "valid": int((segs < S).sum()), "distinct": U,
-                "equal": True, "max_abs_err": err,
-                "ms": cuda_ms(lambda: tbe.pooled_lookup(*args), flush),
-                "kernel_ms": cuda_ms(lambda: tbe.launch_pooled(stack, *prep),
-                                     flush),
-                "plain_ms": cuda_ms(lambda: tbe.pooled_lookup_plain(*args),
-                                    flush),
-                "library_ms": cuda_ms(library, flush),
-                "library_max_abs_diff": lib_diff,
-                "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
-                "bound_by": bound_by,
-            }
-            emit(rec)
-            rows.append(rec)
-            del got, ref
-
-            # B2: the fused backward + rowwise Adagrad
+                      "ids": dist, "rows": stack.shape[0], "D": DIM,
+                      "S": S, "V": ids.numel()}
+            rows.append(b1_row(flush, "train_kernel", stack, ids, segs, w,
+                               S, common))
             sg = SparseSegGrad(ids, (segs < S) & (w != 0), segs, w, grad)
-            upd = (sg.ids, sg.valid, sg.segments, sg.weights, sg.grad_seg,
-                   cfg.learning_rate)
-            kw = {"eps": cfg.eps, "weight_decay": cfg.weight_decay,
-                  "sr_seed": seed}
-            tk, mk = stack.clone(), mom0.clone()
-            tbe_backward.fused_sparse_update(tk, mk, *upd, **kw)
-            torch.cuda.synchronize()
-            tp, mp = stack.clone(), mom0.clone()
-            tbe_backward.fused_sparse_update_plain(tp, mp, *upd, **kw)
-            err = max(float((tk.float() - tp.float()).abs().max()),
-                      float((mk - mp).abs().max()))
-            touched = int((tk != stack).any(dim=1).sum())
-            if not (torch.equal(tk, tp) and torch.equal(mk, mp)):
-                raise AssertionError(f"fused_sparse_update {common}: kernel "
-                                     f"!= plain (max abs err {err})")
-            del tk, mk, tp, mp
-            prep2 = tbe_backward.sort_by_row(sg.ids, sg.valid, sg.segments,
-                                             sg.weights, R, S)
-            U, nbytes, flops = _b2_bound(D, stack.element_size(), sg)
-            bound_ms, bound_by = _bound(nbytes, flops)
-            rec = {
-                "phase": "train_kernel", "kernel": "fused_sparse_update",
-                **common, "kept": int(sg.ok().sum()), "distinct": U,
-                "touched_rows": touched, "weight_decay": cfg.weight_decay,
-                "sr_seed": seed, "equal": True, "max_abs_err": err,
-                "ms": cuda_ms(lambda: tbe_backward.fused_sparse_update(
-                    work_t, work_m, *upd, **kw), flush, setup=restore),
-                "kernel_ms": cuda_ms(
-                    lambda: tbe_backward.launch_fused_sparse_update(
-                        work_t, work_m, *prep2, grad, cfg.learning_rate,
-                        cfg.eps, cfg.weight_decay, seed),
-                    flush, setup=restore),
-                "plain_ms": cuda_ms(
-                    lambda: tbe_backward.fused_sparse_update_plain(
-                        work_t, work_m, *upd, **kw),
-                    flush, setup=restore),
-                "library_ms": None,
-                "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
-                "bound_by": bound_by,
-            }
-            emit(rec)
-            rows.append(rec)
-        del stack, work_t, work_m
+            rows.append(b2_row(flush, "train_kernel", stack, [mom],
+                               "rowwise_adagrad", sg, TRAIN_LR, seed,
+                               common))
+        del stack
     torch.cuda.empty_cache()
     return rows
 
 
-def train_path_check(dmp, state, batch, sr_seed):
+def train_path_check(dmp, state, batch, sr_seed, phase="train_path_check"):
     """On one batch at full width, the step's own calls: B1's pooled
     output (the KT values) ``torch.equal`` to the plain version's, and
-    B2's updated stack and momentum, from the step's real gradient, equal
-    to the plain version's (on copies; the state is left as it was).  With
-    a bfloat16 stack and a seed, the stochastically rounded stack must
-    also differ from round-to-nearest.  Returns the emitted record."""
+    B2's updated stack and optimizer state, from the step's real
+    gradient, equal to the plain version's on the touched rows, with
+    nothing written elsewhere (checksums; the touched rows are undone
+    after each, so no stack is copied whole).  A stack larger than
+    ``FAR_BYTES`` must be touched past them; with a bfloat16 stack and a
+    seed, the stochastically rounded stack must differ from
+    round-to-nearest.  The state is left as it was.  Returns the emitted
+    record."""
     import torch
 
     from torchrec_tpu_torch.ops import tbe, tbe_backward
@@ -552,7 +696,8 @@ def train_path_check(dmp, state, batch, sr_seed):
     ebc = dmp.sharded_ebc
     (name, lay), = ebc.tw_layouts.items()
     stack = state["tables"][name]
-    mom = state["fused"][name]["momentum"]
+    fused = state["fused"][name]
+    states = [fused[k] for k in ("momentum", "m", "v") if k in fused]
     kt, ctxs = dmp.sparse_forward(state, batch)
     ids, w, segs = ctxs[name]
     S = lay.f_max * lay.world_size * lay.batch_size
@@ -563,35 +708,50 @@ def train_path_check(dmp, state, batch, sr_seed):
                                                              kt)
     sg = tw_backward_local(lay, ctxs[name], grad_by_feature)
     cfg = dmp.fused_config
-    tk, mk = stack.clone(), mom.clone()
-    apply_sparse_update_segments(tk, {"momentum": mk}, sg, cfg,
-                                 sr_seed=sr_seed)
+    R, D = stack.shape
+    rows = torch.unique(sg.ids[sg.ok()]).to(torch.int64)
+    snap = RowSnapshot([stack, *states], rows)
+    apply_sparse_update_segments(stack, fused, sg, cfg, sr_seed=sr_seed)
     torch.cuda.synchronize()
-    tp, mp = stack.clone(), mom.clone()
-    upd = (sg.ids, sg.valid, sg.segments, sg.weights, sg.grad_seg,
-           cfg.learning_rate, cfg.eps, cfg.weight_decay)
-    tbe_backward.fused_sparse_update_plain(tp, mp, *upd, sr_seed)
+    got = snap.take()
+    intact = snap.intact()
+
+    def plain_update(seed):
+        _update_call(tbe_backward.fused_sparse_update_plain, stack, states,
+                     cfg.optim.value, sg, cfg.learning_rate, seed,
+                     (1.0, 1.0))
+        return snap.take()
+
+    ref = plain_update(sr_seed)
+    far = rows * D * 4 >= FAR_BYTES  # the f32 offsets of stack and state
     rec = {
-        "phase": "train_path_check", "table_dtype": str(stack.dtype),
+        "phase": phase, "table_dtype": str(stack.dtype),
         "batch": lay.batch_size, "stack": list(stack.shape),
-        "valid_slots": int(sg.ok().sum()),
-        "touched_rows": int((tk != stack).any(dim=1).sum()),
-        "loss": float(loss),
+        "states": [list(st.shape) for st in states],
+        "slots": int(ids.numel()), "valid_slots": int(sg.ok().sum()),
+        "segments": S, "distinct_rows": int(rows.numel()),
+        "touched_rows": int((got[0] != snap.saved[0]).any(dim=1).sum()),
+        "rows_past_2^31_bytes": int(far.sum()),
+        "largest_row": int(rows.max()), "loss": float(loss),
         "b1_equal": bool(torch.equal(kt, kt_plain)), "b1_max_abs_err": b1_err,
-        "b2_table_equal": bool(torch.equal(tk, tp)),
-        "b2_momentum_equal": bool(torch.equal(mk, mp)),
-        "b2_max_abs_err": max(float((tk.float() - tp.float()).abs().max()),
-                              float((mk - mp).abs().max())),
+        "b2_nothing_written_elsewhere": intact,
+        "b2_table_equal": bool(torch.equal(got[0], ref[0])),
+        "b2_momentum_equal": all(torch.equal(a, b)
+                                 for a, b in zip(got[1:], ref[1:])),
+        "b2_max_abs_err": max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, ref)),
         "sr_seed": sr_seed,
     }
     if sr_seed is not None:
-        rn, mr = stack.clone(), mom.clone()
-        tbe_backward.fused_sparse_update_plain(rn, mr, *upd, None)
-        rec["sr_differs_from_nearest"] = int((rn != tk).sum())
+        rec["sr_differs_from_nearest"] = int((plain_update(None)[0]
+                                              != got[0]).sum())
+    del got, ref, snap, kt, kt_plain, plain, sg, grad_by_feature
     emit(rec)
     if not (rec["b1_equal"] and rec["b2_table_equal"]
-            and rec["b2_momentum_equal"]):
-        raise AssertionError(f"train path check failed: {rec}")
+            and rec["b2_momentum_equal"] and intact):
+        raise AssertionError(f"{phase} failed: {rec}")
+    if R * D * 4 > FAR_BYTES and not rec["rows_past_2^31_bytes"]:
+        raise AssertionError(f"{phase}: no touched row lies past 2^31 bytes")
     if sr_seed is not None and not rec["sr_differs_from_nearest"]:
         raise AssertionError("bfloat16 update did not round stochastically")
     return rec
@@ -785,30 +945,6 @@ def _state_equal(a, b) -> bool:
     return a == b
 
 
-def _b6_bound(D, esize, sg, optim):
-    """Bytes and operations the dedup update must move / do on these
-    inputs: each referenced gradient row once, each slot's id, flag,
-    segment and weight once, each touched table row and its optimizer
-    state read and written once; per kept slot a multiply and an add per
-    column, per touched row ``UPDATE_OPS_PER_COLUMN`` per column."""
-    import torch
-
-    from torchrec_tpu_torch.ops.tbe_backward import STATE_LAYOUTS
-
-    ok = sg.ok() & (sg.ids >= 0)
-    U = int(torch.unique(sg.ids[ok]).numel())
-    n_seg = int(torch.unique(sg.segments[ok]).numel())
-    V = sg.ids.numel()
-    state_bytes = sum(4 if kind == "row" else 4 * D
-                      for kind in STATE_LAYOUTS[optim])
-    nbytes = (n_seg * D * 4
-              + V * (sg.ids.element_size() + 1 + sg.segments.element_size()
-                     + sg.weights.element_size())
-              + U * 2 * (D * esize + state_bytes))
-    flops = 2 * int(ok.sum()) * D + UPDATE_OPS_PER_COLUMN[optim] * U * D
-    return U, nbytes, flops
-
-
 def dedup_kernel_phase(dev, flush, dmp, state, batch):
     """B4 and B6 against their plain versions on the card at the bucketed
     path's shapes: the ``[2,600,000, 128]`` stack and the first bucketed
@@ -931,7 +1067,7 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
             for a, b in zip(sk, states):
                 a.copy_(b)
 
-        U, nbytes, flops = _b6_bound(D, stack.element_size(), sg, optim)
+        U, nbytes, flops = _update_bound(D, stack.element_size(), sg, optim)
         bound_ms, bound_by = _bound(nbytes, flops)
         rec = {
             "phase": "dedup_kernel", "kernel": "dedup_fused_sparse_update",
@@ -1142,7 +1278,229 @@ def train_dedup_phase(dev, flush):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serving at full width
+# phase 5: MLPerf DLRM-v2 (DLRM_DCN) training on the per-id kernels
+# ---------------------------------------------------------------------------
+
+
+def dcn_batches(row_cap):
+    """The MLPerf DLRM-v2 tables' row counts capped at ``row_cap``, their
+    feature caps, and the first ``TRAIN_BATCHES`` batches of the fixed
+    multi-hot stream over them, on the host."""
+    from torchrec_tpu_torch.datasets.criteo import (
+        DEFAULT_CAT_NAMES,
+        MLPERF_DLRM_V2_MULTI_HOT,
+        MLPERF_DLRM_V2_ROWS,
+    )
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+
+    keys = list(DEFAULT_CAT_NAMES)
+    rows = [min(r, row_cap) for r in MLPERF_DLRM_V2_ROWS]
+    hot = list(MLPERF_DLRM_V2_MULTI_HOT)
+    ds = RandomRecDataset(keys, DCN_BATCH, rows, hot, num_dense=NUM_DENSE,
+                          manual_seed=0, min_ids_per_features=hot)
+    it = iter(ds)
+    return keys, rows, ds.caps, [next(it) for _ in range(TRAIN_BATCHES)]
+
+
+def build_dcn_trainer(dev, keys, rows, caps, optim, table_dtype):
+    """``DistributedModelParallel`` of ``DLRM_DCN`` at the recipe's widths
+    over tables of ``rows``, on the per-id kernels, with fused optimizer
+    ``optim`` (lr 0.004, eps 1e-8, the JAX defaults otherwise), and its
+    state from a seeded generator on the card."""
+    import torch
+
+    from torchrec_tpu_torch.models.dlrm import DLRM_DCN
+    from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        FusedOptimConfig,
+    )
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+
+    tables = tuple(
+        EmbeddingBagConfig(num_embeddings=r, embedding_dim=DIM,
+                           name=f"t_{k}", feature_names=[k])
+        for k, r in zip(keys, rows))
+    torch.manual_seed(0)  # the module's own init; dmp.init draws the state
+    model = DLRM_DCN(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH, DCN_LAYERS,
+                     DCN_RANK, dense_dtype=torch.bfloat16)
+    dmp = DistributedModelParallel(
+        model, tables, table_wise_plan(tables), DCN_BATCH,
+        dict(zip(keys, caps)),
+        fused_config=FusedOptimConfig(optim=EmbOptimType(optim),
+                                      learning_rate=DCN_LR, eps=EPS),
+        dense_optimizer=adagrad(DCN_LR), table_dtype=table_dtype,
+        device=dev, lookup_kernel="tbe", update_kernel="tbe",
+    )
+    return dmp, dmp.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def dcn_crossnet(flush, dmp, card):
+    """The cross net's forward and backward alone at the path's shape
+    (``[8192, 3456]`` float32, rank 512, 3 layers): time by CUDA events
+    against the float32 operations bound, and the names of the GEMM
+    kernels it launches (which mark it in the step's profile)."""
+    import torch
+
+    net = dmp.model.inter_arch.crossnet
+    width = net.w_0.shape[0]
+    gen = torch.Generator(device=dmp.device).manual_seed(3)
+    x = torch.randn((DCN_BATCH, width), generator=gen, device=dmp.device)
+    x.requires_grad_()
+
+    def fwd_bwd():
+        net(x).sum().backward()
+
+    # per layer: forward 2 products of 2*B*d*r flops, backward 4
+    flops = DCN_LAYERS * 12 * DCN_BATCH * width * DCN_RANK
+    ms = cuda_ms(fwd_bwd, flush, runs=10)
+    prof = profile_calls({"phase": "dcn_crossnet_profile", "card": card,
+                          "batch": DCN_BATCH}, fwd_bwd, 3, "call")
+    gemms = {n for n in prof["device_names"] if "gemm" in n.lower()}
+    rec = {"phase": "dcn_crossnet", "card": card, "batch": DCN_BATCH,
+           "width": width, "rank": DCN_RANK, "layers": DCN_LAYERS,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "ms_fwd_bwd": ms, "flops": flops,
+           "bound_ms": flops / PEAK_F32_FLOPS * 1e3,
+           "tflops_per_s": flops / ms / 1e9, "gemm_kernels": sorted(gemms)}
+    emit(rec)
+    net.zero_grad(set_to_none=True)
+    return rec
+
+
+def train_dcn_phase(dev, flush):
+    """MLPerf DLRM-v2 training on the per-id kernels: the kernels at the
+    path's shapes, the path check, 1 warm-up and 20 timed per-element
+    Adagrad steps over 4 cycled batches, the cross net alone, three
+    profiled steps; then at the 1,000,000-row cap B2's other optimizers
+    and bfloat16 rows, and 3 steps of each other optimizer and of the
+    bfloat16-table arm.  Returns (the main run's launches, the dcn_kernel
+    records, the path check)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
+    from torchrec_tpu_torch.parallel.sharding.tw import tw_lookup_inputs
+
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    keys, rows, caps, host = dcn_batches(DCN_ROW_CAP)
+    dmp, state = build_dcn_trainer(dev, keys, rows, caps, "adagrad",
+                                   torch.float32)
+    batches = [b.to(dev) for b in host]
+    del host
+    torch.cuda.synchronize()
+    (name, lay), = dmp.sharded_ebc.tw_layouts.items()
+    stack = state["tables"][name]
+    mom = state["fused"][name]["momentum"]
+    emit({"phase": "train_dcn_setup", "seconds": time.perf_counter() - t0,
+          "stacks": {k: list(v.shape) for k, v in state["tables"].items()},
+          "momentum": list(mom.shape), "slot_cap": lay.cap,
+          "ids_per_batch": int(batches[0].sparse_features.lengths().sum()),
+          "memory_allocated": torch.cuda.memory_allocated()})
+
+    # B1 and B2 (Adagrad) at the path's shapes: the batch's ids, Zipf ids
+    ids_u, w, segs, S = tw_lookup_inputs(lay, batches[0].sparse_features)
+    ids_z = _zipf_slots(lay, rows, seed=5).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grad = torch.randn((S, DIM), generator=gen, device=dev) * 1e-2
+    kernel_rows = []
+    for dist, ids in (("uniform", ids_u), ("zipf", ids_z)):
+        common = {"dtype": "float32", "ids": dist, "rows": stack.shape[0],
+                  "D": DIM, "S": S, "V": ids.numel()}
+        kernel_rows.append(b1_row(flush, "dcn_kernel", stack, ids, segs, w,
+                                  S, common))
+        sg = SparseSegGrad(ids, (segs < S) & (w != 0), segs, w, grad)
+        kernel_rows.append(b2_row(flush, "dcn_kernel", stack, [mom],
+                                  "adagrad", sg, DCN_LR, None, common))
+    del ids_z, grad, sg
+    check = train_path_check(dmp, state, batches[0], None, "dcn_path_check")
+
+    # the main path: 1 warm-up step, then TRAIN_STEPS timed steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tbe.reset_launch_counts()
+    state, warm, _ = _train_steps(dmp, state, batches[:1], 1)
+    state, losses, dt = _train_steps(dmp, state, batches, TRAIN_STEPS)
+    counts = tbe.launch_counts()
+    rec = {"phase": "train_dcn", "card": card, "optim": "adagrad",
+           "table_dtype": "float32", "batch": DCN_BATCH,
+           "steps": 1 + TRAIN_STEPS, "timed_steps": TRAIN_STEPS,
+           "samples_per_s": TRAIN_STEPS * DCN_BATCH / dt,
+           "ms_per_step": dt * 1e3 / TRAIN_STEPS, "losses": warm + losses,
+           "all_finite": bool(np.isfinite(warm + losses).all()),
+           "launches": counts,
+           "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(rec)
+    _check_train(rec, counts, 1 + TRAIN_STEPS)
+    main_counts = counts
+    cross = dcn_crossnet(flush, dmp, card)
+    profile_calls({"phase": "train_dcn_profile", "card": card,
+                   "batch": DCN_BATCH, "marked": "cross-net GEMMs"},
+                  lambda: dmp.train_step(state, batches[1]), 3, "step",
+                  marked=set(cross["gemm_kernels"]))
+    del dmp, state, stack, mom, batches, ids_u, w, segs
+    torch.cuda.empty_cache()
+
+    # at the 1,000,000-row cap: B2's other optimizers on float32 and all
+    # eight on bfloat16 with stochastic rounding, on the first batch's
+    # slots, random states and a random gradient
+    keys, rows, caps, host = dcn_batches(DCN_ARM_ROW_CAP)
+    batches = [b.to(dev) for b in host]
+    dmp, state = build_dcn_trainer(dev, keys, rows, caps, "sgd",
+                                   torch.float32)
+    (name, lay), = dmp.sharded_ebc.tw_layouts.items()
+    stack32 = state["tables"][name]
+    ids, w, segs, S = tw_lookup_inputs(lay, batches[0].sparse_features)
+    grad = torch.randn((S, DIM), generator=gen, device=dev) * 1e-2
+    sg = SparseSegGrad(ids, (segs < S) & (w != 0), segs, w, grad)
+    arms = [(o, torch.float32, None) for o in tbe_backward.OPTIMIZERS
+            if o != "adagrad"]
+    arms += [(o, torch.bfloat16, SR_SEED) for o in tbe_backward.OPTIMIZERS]
+    R = stack32.shape[0]
+    for optim, dtype, seed in arms:
+        st = stack32 if dtype == torch.float32 else stack32.to(dtype)
+        states = [
+            torch.rand((R,) if kind == "row" else (R, DIM), generator=gen,
+                       device=dev) * 1e-2
+            for kind in tbe_backward.STATE_LAYOUTS[optim]]
+        common = {"dtype": str(dtype).replace("torch.", ""), "ids": "uniform",
+                  "rows": R, "D": DIM, "S": S, "V": ids.numel()}
+        kernel_rows.append(b2_row(flush, "dcn_kernel", st, states, optim, sg,
+                                  DCN_LR, seed, common))
+        del st, states
+    del dmp, state, stack32, sg, grad, ids, w, segs
+    torch.cuda.empty_cache()
+
+    # 3 steps of each other optimizer, then the bfloat16-table arm
+    arms = [(o, torch.float32) for o in tbe_backward.OPTIMIZERS
+            if o != "adagrad"]
+    arms.append(("adagrad", torch.bfloat16))
+    for optim, dtype in arms:
+        dmp, state = build_dcn_trainer(dev, keys, rows, caps, optim, dtype)
+        tbe.reset_launch_counts()
+        state, losses, dt = _train_steps(dmp, state, batches, ARM_STEPS)
+        counts = tbe.launch_counts()
+        rec = {"phase": "train_dcn_arm", "optim": optim,
+               "table_dtype": str(dtype).replace("torch.", ""),
+               "rows": sum(rows), "steps": ARM_STEPS,
+               "samples_per_s": ARM_STEPS * DCN_BATCH / dt,
+               "losses": losses, "all_finite": bool(np.isfinite(losses).all()),
+               "launches": counts,
+               "fused_step": next(iter(state["fused"].values())).get("step")}
+        emit(rec)
+        _check_train(rec, counts, ARM_STEPS)
+        del dmp, state
+        torch.cuda.empty_cache()
+    return main_counts, kernel_rows, check
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1241,14 +1599,15 @@ def profile_serving(kernel, fn, batch, iters: int = 10):
                   "batch")
 
 
-def profile_calls(record, call, iters: int, unit: str):
+def profile_calls(record, call, iters: int, unit: str, marked=None):
     """``torch.profiler`` over ``iters`` calls of ``call``, each ending in
     a synchronise, emitted as ``record`` plus the numbers per ``unit``.
     Device busy time is the sum of the device events (one stream, so
     they do not overlap; spans are left out); the rest of the profiled
     wall time the card is idle.  The same calls are timed once without the
     profiler, which gives the profiler's own cost and the idle share of
-    the unprofiled wall."""
+    the unprofiled wall.  ``marked`` (a set of names as the record gives
+    them) adds the device time of those items."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1294,7 +1653,11 @@ def profile_calls(record, call, iters: int, unit: str):
            f"device_events_per_{unit}": len(device) / iters,
            f"top_device_ms_per_{unit}": {k: v / 1e3 / iters
                                          for k, v in top}}
+    if marked is not None:
+        rec[f"marked_device_ms_per_{unit}"] = sum(
+            v for k, v in by_name.items() if k in marked) / 1e3 / iters
     emit(rec)
+    rec["device_names"] = sorted(by_name)  # for the caller, not printed
     return rec
 
 
@@ -1519,7 +1882,7 @@ def serving_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: artifact round trip, card against CPU
+# phase 7: artifact round trip, card against CPU
 # ---------------------------------------------------------------------------
 
 
@@ -1598,17 +1961,20 @@ def main() -> None:
     kernel_rows = kernel_phase(dev, flush)
     train_launches, train_rows, checks = train_phase(dev, flush)
     dedup_launches, dedup_rows, dedup_check = train_dedup_phase(dev, flush)
+    dcn_launches, dcn_rows, dcn_check = train_dcn_phase(dev, flush)
     del flush
     serve_launches, _, path_rows = serving_phase(dev)
     roundtrip_phase(dev)
 
-    # each kernel's launches on its own main path: B1/B2 the training
-    # step, B4/B6 the bucketed pipeline's 21 steps, B3/B5 serving
-    launches = {k: train_launches[k] + dedup_launches[k] + serve_launches[k]
-                for k in tbe.LAUNCHES}
+    # each kernel's launches on its own main paths: B1/B2 the training
+    # step (21 + 3 steps) and the DCN step (21), B4/B6 the bucketed
+    # pipeline's 21 steps, B3/B5 serving
+    launches = {k: train_launches[k] + dedup_launches[k] + dcn_launches[k]
+                + serve_launches[k] for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
-            for r in kernel_rows + train_rows + dedup_rows + path_rows]
-    errs += [(k, c[f"{b}_max_abs_err"]) for c in checks
+            for r in kernel_rows + train_rows + dedup_rows + dcn_rows
+            + path_rows]
+    errs += [(k, c[f"{b}_max_abs_err"]) for c in checks + [dcn_check]
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"))]
     errs += [("dedup_pooled_lookup", dedup_check["b4_max_abs_err"]),
@@ -1639,6 +2005,16 @@ def main() -> None:
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
         })
+    # B2 covers all eight optimizers: each one's float32 row of the DCN
+    # phase (Adagrad at the path's uniform ids, the others at the
+    # 1,000,000-row cap)
+    b2 = next(k for k in summary if k["name"] == "fused_sparse_update")
+    b2["optimizers"] = {
+        r["optim"]: {k: r[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                       "bound_ms", "registers")}
+        for r in dcn_rows
+        if r["kernel"] == "fused_sparse_update" and r["dtype"] == "float32"
+        and r["ids"] == "uniform"}
     emit({"kernels": summary})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -288,9 +288,12 @@ def test_step_cache_bounded_admission_and_shared_state():
         cache.resolve(["x"] * 4, full)
     with pytest.raises(ValueError):
         BucketedStepCache(dmp, BucketingConfig(kernels={"quant": "dedup"}))
-    with pytest.raises(NotImplementedError):
-        # the per-id update kernel has rowwise Adagrad only
-        _port_dmp(EmbOptimType.ADAM, caps, kernel="tbe")
+    # the per-id update kernel takes every optimizer; an unknown kernel
+    # raises
+    assert _port_dmp(EmbOptimType.ADAM, caps,
+                     kernel="tbe").update_kernel == "tbe"
+    with pytest.raises(ValueError):
+        _port_dmp(EmbOptimType.ADAM, caps, kernel="xla")
     batch = next(iter(ds))
     assert stack_batches([batch]) is batch
     with pytest.raises(NotImplementedError):

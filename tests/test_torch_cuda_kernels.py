@@ -249,3 +249,55 @@ def test_dedup_fused_update_equals_plain_on_card(dev, optim, dtype, D, wd,
     for a, b in zip(sk, sp):
         assert torch.equal(a, b), float((a - b).abs().max())
     assert (n == 0) == torch.equal(tk, table)
+
+
+# (optim, dtype, D, weight decay, stochastic-rounding seed) for the per-id
+# fused update (B2) beyond rowwise Adagrad: each of the seven other
+# optimizers on float32 at the vector layout, the one-column layout and
+# past one 128-column block, and on bfloat16 with stochastic rounding
+PER_ID_UPDATE_CONFIGS = [
+    (optim, torch.float32, D, wd, None)
+    for optim in tbe_backward.OPTIMIZERS if optim != "rowwise_adagrad"
+    for D, wd in ((16, 0.01), (6, 0.0), (132, 0.01))
+] + [
+    (optim, torch.bfloat16, 128, 0.01, 12345)
+    for optim in tbe_backward.OPTIMIZERS if optim != "rowwise_adagrad"
+]
+_ADAM = ("adam", "lamb", "partial_rowwise_adam", "partial_rowwise_lamb")
+
+
+@pytest.mark.parametrize("case", ("zipf", "empty_batch"))
+@pytest.mark.parametrize("optim,dtype,D,wd,seed", PER_ID_UPDATE_CONFIGS)
+def test_fused_update_optimizers_equal_plain_on_card(dev, optim, dtype, D,
+                                                     wd, seed, case):
+    rng = np.random.RandomState(D + 5)
+    n = 0 if case == "empty_batch" else V
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    states = [torch.from_numpy(
+        rng.rand(*((R,) if kind == "row" else (R, D))).astype(np.float32)
+    ).to(dev) for kind in tbe_backward.STATE_LAYOUTS[optim]]
+    ids = np.minimum(rng.zipf(1.2, n) - 1, R + 3)
+    args = [torch.from_numpy(x).to(dev) for x in (
+        ids, rng.rand(n) > 0.1, rng.randint(-2, S + 2, n),
+        rng.rand(n).astype(np.float32))]
+    grad = torch.from_numpy(rng.randn(S, D).astype(np.float32)).to(dev)
+    adam = optim in _ADAM
+
+    def run(fn, t, sts):
+        fn(t, None if adam or not sts else sts[0], *args, grad, 0.05,
+           weight_decay=wd, sr_seed=seed, optim=optim,
+           states=sts if adam else None, bias_corrections=(0.271, 0.004))
+
+    tk, sk = table.clone(), [s.clone() for s in states]
+    tp, sp = table.clone(), [s.clone() for s in states]
+    before = tbe.launch_counts()["fused_sparse_update"]
+    run(tbe_backward.fused_sparse_update, tk, sk)
+    torch.cuda.synchronize()
+    assert tbe.launch_counts()["fused_sparse_update"] == before + (n > 0)
+    run(tbe_backward.fused_sparse_update_plain, tp, sp)
+    assert torch.equal(tk, tp), float((tk.float() - tp.float()).abs().max())
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert (n == 0) == torch.equal(tk, table)
+    assert tbe_backward.fused_update_registers(optim, dtype, D) > 0

@@ -424,7 +424,8 @@ def test_bias_corrections_match_jax():
 def test_apply_sparse_update_segments_dedup_dispatch(optim):
     """The fused optimizer's entry point on the dedup kernel equals the
     XLA-path port (``apply_sparse_update``) and advances the Adam
-    family's step; the per-id kernel still takes rowwise Adagrad only."""
+    family's step; the per-id kernel takes the same optimizer in B2's op
+    order (``fused_sparse_update_plain``)."""
     case = _update_case(optim, seed=10)
     table, states, ids, valid, segs, w, grad = case
     cfg = tfu.FusedOptimConfig(optim=tfu.EmbOptimType(optim),
@@ -444,9 +445,21 @@ def test_apply_sparse_update_segments_dedup_dispatch(optim):
             assert st[k] == st2[k] == STEP + 1
         else:
             assert torch.equal(st[k], st2[k])
-    if optim != "rowwise_adagrad":
-        with pytest.raises(NotImplementedError):
-            tfu.apply_sparse_update_segments(t, st, sg, cfg)
+    t3, st3 = _t(table), _state_dict(optim, states, _t)
+    tfu.apply_sparse_update_segments(t3, st3, sg, cfg)
+    t4, st4 = _t(table), _state_dict(optim, states, _t)
+    adam = "m" in st4
+    tbw.fused_sparse_update_plain(
+        t4, st4.get("momentum"), sg.ids, sg.valid, sg.segments, sg.weights,
+        sg.grad_seg, LR, EPS, WD, optim=optim,
+        states=(st4["m"], st4["v"]) if adam else None,
+        bias_corrections=_bc(STEP + 1))
+    assert torch.equal(t3, t4)
+    for k in st3:
+        if k == "step":
+            assert st3[k] == STEP + 1
+        else:
+            assert torch.equal(st3[k], st4[k])
 
 
 def test_row_grads_and_aggregation_match_jax():

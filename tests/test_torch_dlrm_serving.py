@@ -147,12 +147,12 @@ def test_dense_leaves_in_flatten_order():
     assert len(back) == len(leaves)
     for a, b in zip(leaves, back):
         np.testing.assert_array_equal(a, b)
-    sd2 = dense_leaves_from_flax_order(leaves, dense_arch, OVER_ARCH)
+    sd2 = dense_leaves_from_flax_order(leaves, sd.keys())
     assert sd2.keys() == sd.keys()
     for k in sd:
         assert torch.equal(sd[k], sd2[k])
     with pytest.raises(ValueError):
-        dense_leaves_from_flax_order(leaves[:-1], dense_arch, OVER_ARCH)
+        dense_leaves_from_flax_order(leaves[:-1], sd.keys())
 
 
 @pytest.mark.parametrize("quant_dtype", ["int8", "int4"])

@@ -50,7 +50,12 @@ from torchrec_tpu_torch.convert import (
 from torchrec_tpu_torch.datasets.random import RandomRecDataset
 from torchrec_tpu_torch.models.dlrm import DLRM, bce_with_logits_loss
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
-from torchrec_tpu_torch.ops.fused_update import EmbOptimType, FusedOptimConfig
+from torchrec_tpu_torch.ops.fused_update import (
+    EmbOptimType,
+    FusedOptimConfig,
+    SparseSegGrad,
+    apply_sparse_update_segments,
+)
 from torchrec_tpu_torch.optim import adagrad
 from torchrec_tpu_torch.parallel.embeddingbag import (
     ShardedEmbeddingBagCollection,
@@ -336,13 +341,19 @@ def test_unported_paths_raise():
                                        num_dense=DENSE_IN)))
     with pytest.raises(NotImplementedError):
         ebc.forward_local(params, batch.sparse_features)
-    with pytest.raises(NotImplementedError):
-        DistributedModelParallel(
-            DLRM(tables, DENSE_IN, DENSE_ARCH, OVER_ARCH), tables,
-            table_wise_plan(tables), B, caps,
-            fused_config=FusedOptimConfig(optim=EmbOptimType.ADAM),
-            device="cpu",
-        ).init(torch.Generator())
+    # the fused kernels keep float32 optimizer states only (the JAX
+    # package's momentum_dtype is not ported): a float64 Adam state raises
+    sg = SparseSegGrad(torch.zeros(4, dtype=torch.int64),
+                       torch.ones(4, dtype=torch.bool),
+                       torch.zeros(4, dtype=torch.int64), None,
+                       torch.zeros((1, D)))
+    with pytest.raises(TypeError):
+        apply_sparse_update_segments(
+            torch.zeros((ROWS, D)),
+            {"m": torch.zeros((ROWS, D), dtype=torch.float64),
+             "v": torch.zeros((ROWS, D)), "step": 0},
+            sg, FusedOptimConfig(optim=EmbOptimType.ADAM),
+            update_kernel="tbe")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             _port_dmp(caps)  # CUDA by default, and there is no card

@@ -1,8 +1,8 @@
 """Port parity for the training kernels' plain versions: the float pooled
 lookup (``ops/tbe.py::pooled_lookup``, B1) and the fused backward +
-rowwise Adagrad (``ops/tbe_backward.py::fused_sparse_update``, B2),
-against the JAX package's Pallas kernels in interpret mode and its XLA
-lookup, on the same numpy inputs.
+optimizer (``ops/tbe_backward.py::fused_sparse_update``, B2, all eight
+optimizers), against the JAX package's Pallas kernels in interpret mode
+and its XLA lookup, on the same numpy inputs.
 
 Tolerances, with their reasons:
 
@@ -16,6 +16,13 @@ Tolerances, with their reasons:
 * B2, table ``rtol = atol = 1e-6`` and momentum ``rtol = 1e-5``: the JAX
   kernel takes ``jnp.mean(g * g)`` in an order XLA does not pin down,
   where the port (and its CUDA kernel) sums lanes then an xor butterfly.
+* B2's other seven optimizers, the same bounds: table ``rtol = atol =
+  1e-6``, states ``rtol = 1e-5``.  Their norms (lars_sgd, lamb) and means
+  (the partial-rowwise pair) reduce in an order XLA does not pin down,
+  and XLA on the CPU may contract the JAX side's ``b * m + (1 - b) * g``
+  into an FMA.  The Adam family needs no wider bound here: its states are
+  drawn away from zero, so ``sqrt(v)`` never meets ``eps`` (where it
+  does, Adam magnifies last-bit differences; ROADMAP C).
 * B2 bfloat16 with a shared seed: equal or one bfloat16 ulp apart (the
   float32 value before the rounding may differ in its last bits).
 
@@ -188,7 +195,7 @@ def _port_b2(table, mom, ids, valid, segs, w, grad, wd=0.0, sr_seed=None,
     out = tbw.fused_sparse_update(t, m, _t(ids), _t(valid), _t(segs), _t(w),
                                   _t(grad), LR, eps=EPS, weight_decay=wd,
                                   sr_seed=sr_seed)
-    assert out[0] is t and out[1] is m  # in place
+    assert out[0] is t and out[1][0] is m  # in place
     return t.to(torch.float32).numpy(), m.numpy()
 
 
@@ -323,6 +330,7 @@ def test_apply_sparse_update_segments_dispatch(dtype):
     sg = tfu.SparseSegGrad(_t(ids), _t(valid), _t(segs), _t(w), _t(grad))
     cfg = tfu.FusedOptimConfig(learning_rate=LR)
     t, st = _port_table(table, dtype), tfu.init_optimizer_state(cfg, R, D)
+    t0 = t.clone()
     st["momentum"].copy_(_t(mom))
     out = tfu.apply_sparse_update_segments(t, st, sg, cfg, sr_seed=777)
     assert out[0] is t and out[1] is st
@@ -342,18 +350,33 @@ def test_apply_sparse_update_segments_dispatch(dtype):
     from torchrec_tpu.ops.fused_update import init_optimizer_state as jinit
 
     for optim in tfu.EmbOptimType:
-        # every optimizer's state has the JAX layout (the dedup kernel
-        # takes all eight); the per-id kernel raises for all but one
-        got = tfu.init_optimizer_state(tfu.FusedOptimConfig(optim=optim), R,
-                                       D)
+        # every optimizer's state has the JAX layout, and the per-id
+        # kernel takes all eight: the entry point equals B2's plain version
+        # on the optimizer's states, with the incremented step's
+        # corrections for the Adam family
+        ocfg = tfu.FusedOptimConfig(optim=optim, learning_rate=LR)
+        got = tfu.init_optimizer_state(ocfg, R, D)
         want = jinit(JCfg(optim=JOptim(optim.value)), R, D)
         assert {k: np.shape(v) for k, v in got.items()} == {
             k: v.shape for k, v in want.items()}
-        if optim == tfu.EmbOptimType.ROWWISE_ADAGRAD:
-            continue
-        with pytest.raises(NotImplementedError):
-            tfu.apply_sparse_update_segments(
-                t, st, sg, tfu.FusedOptimConfig(optim=optim))
+        ta = _port_table(table, dtype)
+        tfu.apply_sparse_update_segments(ta, got, sg, ocfg, sr_seed=777)
+        tb = _port_table(table, dtype)
+        ref = tfu.init_optimizer_state(ocfg, R, D)
+        adam = optim in tfu.ADAM_FAMILY
+        tbw.fused_sparse_update_plain(
+            tb, ref.get("momentum"), *(_t(x) for x in (ids, valid, segs, w,
+                                                        grad)),
+            LR, sr_seed=seed, optim=optim.value,
+            states=(ref["m"], ref["v"]) if adam else None,
+            bias_corrections=tfu.bias_corrections(ocfg, 1) if adam
+            else (1.0, 1.0))
+        assert torch.equal(ta, tb) and not torch.equal(ta, t0)
+        for k, v in got.items():
+            if k == "step":
+                assert v == 1
+            else:
+                assert torch.equal(v, ref[k])
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -367,3 +390,215 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _native.load_libraries()
     assert not (tmp_path / "build").exists()
+
+
+# ---------------------------------------------------------------------------
+# B2's other seven optimizers (and rowwise Adagrad through the same code)
+# ---------------------------------------------------------------------------
+
+ADAM_FAMILY = ("adam", "lamb", "partial_rowwise_adam", "partial_rowwise_lamb")
+OTHER_OPTIMIZERS = tuple(o for o in tbw.OPTIMIZERS if o != "rowwise_adagrad")
+STEP = 3  # the Adam family's steps so far: the update is step 4
+
+
+def _optim_case(optim, seed):
+    """The B2 case of :func:`_b2_case` with random float32 states in the
+    optimizer's layout (from 0.05 up, away from eps)."""
+    table, _, ids, valid, segs, w, grad = _b2_case(seed)
+    rng = np.random.RandomState(seed + 100)
+    states = [(rng.rand(*((R,) if kind == "row" else (R, D))) + 0.05)
+              .astype(np.float32) for kind in tbw.STATE_LAYOUTS[optim]]
+    return table, states, ids, valid, segs, w, grad
+
+
+def _port_bc():
+    return tfu.bias_corrections(tfu.FusedOptimConfig(), STEP + 1)
+
+
+def _port_b2_optim(optim, case, wd=0.0, sr_seed=None, dtype="f32"):
+    table, states, ids, valid, segs, w, grad = case
+    t = _port_table(table, dtype)
+    sts = [_t(x) for x in states]
+    adam = optim in ADAM_FAMILY
+    out = tbw.fused_sparse_update(
+        t, None if adam or not sts else sts[0], _t(ids), _t(valid), _t(segs),
+        _t(w), _t(grad), LR, eps=EPS, weight_decay=wd, sr_seed=sr_seed,
+        optim=optim, states=sts if adam else None,
+        bias_corrections=_port_bc() if adam else (1.0, 1.0))
+    assert out[0] is t and all(a is b for a, b in zip(out[1], sts))
+    return t.to(torch.float32).numpy(), [x.numpy() for x in sts]
+
+
+def _jax_b2_optim(optim, case, wd=0.0, sr_seed=None, dtype="f32"):
+    table, states, ids, valid, segs, w, grad = case
+    adam = optim in ADAM_FAMILY
+    kw = {}
+    if adam:
+        t = jnp.float32(STEP + 1)
+        kw = dict(states=tuple(jnp.asarray(x) for x in states),
+                  bias_corrections=(1.0 - 0.9 ** t, 1.0 - 0.999 ** t))
+    mom = jnp.asarray(states[0]) if states and not adam else None
+    jt, jst = jbwd.pallas_fused_sparse_update(
+        _jax_table(table, dtype), mom, _j(ids), _j(valid), _j(segs), _j(w),
+        _j(grad), jnp.float32(LR), eps=EPS, optim=optim, chunk=64, group=8,
+        interpret=True, weight_decay=wd,
+        sr_seed=None if sr_seed is None else jnp.int32(sr_seed), **kw)
+    return (np.asarray(jt.astype(jnp.float32)),
+            [np.asarray(x).reshape(np.shape(a)) for x, a in zip(jst, states)])
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("optim", OTHER_OPTIMIZERS)
+def test_fused_update_optimizers_plain_match_pallas(optim, wd):
+    case = _optim_case(optim, seed=11)
+    table, states, ids, valid, segs = case[:5]
+    pt, ps = _port_b2_optim(optim, case, wd)
+    jt, js = _jax_b2_optim(optim, case, wd)
+    np.testing.assert_allclose(pt, jt, rtol=1e-6, atol=1e-6)
+    for a, b in zip(ps, js):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)
+    # untouched rows and states stay bitwise as they were
+    touched = np.isin(np.arange(R), ids[_kept(ids, valid, segs)])
+    assert touched.sum() > 5 and (~touched).sum() > 5
+    np.testing.assert_array_equal(pt[~touched], table[~touched])
+    for a, b in zip(ps, states):
+        np.testing.assert_array_equal(a[~touched], b[~touched])
+    assert (pt[touched] != table[touched]).any(axis=1).all()
+
+
+@pytest.mark.parametrize("optim", ["adagrad", "lamb"])
+def test_fused_update_optimizers_bf16_within_one_ulp(optim):
+    """bfloat16 tables with one shared seed: every element equal to the
+    JAX kernel's or one bfloat16 ulp apart, and rounded stochastically."""
+    case = _optim_case(optim, seed=12)
+    pt, _ = _port_b2_optim(optim, case, sr_seed=777, dtype="bf16")
+    jt, _ = _jax_b2_optim(optim, case, sr_seed=777, dtype="bf16")
+    ulp = np.abs(pt.view(np.int32).astype(np.int64)
+                 - jt.view(np.int32).astype(np.int64)) >> 16
+    assert ulp.max() <= 1 and (ulp == 0).mean() > 0.99
+    rn, _ = _port_b2_optim(optim, case, sr_seed=None, dtype="bf16")
+    assert (rn != pt).any()
+
+
+def _emulate_b2_optim(optim, case, wd, bc):
+    """numpy float32 emulation of csrc/tbe_backward.cu for any optimizer:
+    sort_by_row, one owner per run, slot-order accumulation, the lane
+    columns with the xor butterfly for every mean and norm, one rounding
+    per operation, ``_bwd_body``'s op order (``1 - beta`` in float32,
+    rowwise Adagrad's ``((-lr) / (sqrt(m) + eps)) * g``)."""
+    table, states, ids, valid, segs, w, grad = case
+    table = table.copy()
+    states = [x.copy() for x in states]
+    srows, ssegs, sw = (x.numpy() for x in tbw.sort_by_row(
+        _t(ids), _t(valid), _t(segs), _t(w), R, S))
+    cols = tbw.lane_columns(D).numpy()
+    f = np.float32
+
+    def sum_sq(x):
+        xp = np.concatenate([x * x, np.zeros((1,), f)])
+        s = np.zeros((32,), f)
+        for k in range(cols.shape[1]):
+            s = s + xp[cols[:, k]]
+        for off in (16, 8, 4, 2, 1):
+            s = s + s[np.arange(32) ^ off]
+        return s[0]
+
+    def trust(a, b):
+        return a / max(b, f(1e-12)) if a > 0 and b > 0 else f(1.0)
+
+    b1, b2 = f(0.9), f(0.999)
+    omb1, omb2 = f(1.0) - b1, f(1.0) - b2
+    bc1, bc2 = f(bc[0]), f(bc[1])
+    neg_lr = f(-LR)
+    i = 0
+    while i < V and srows[i] < R:
+        r, j = srows[i], i
+        g = np.zeros((D,), f)
+        while j < V and srows[j] == r:
+            g = g + grad[ssegs[j]] * sw[j]
+            j += 1
+        wr = table[r].copy()
+        if wd:
+            g = g + f(wd) * wr
+        if optim == "sgd":
+            delta = neg_lr * g
+        elif optim == "lars_sgd":
+            delta = (neg_lr * trust(np.sqrt(sum_sq(wr)),
+                                    np.sqrt(sum_sq(g)))) * g
+        elif optim == "adagrad":
+            states[0][r] = states[0][r] + g * g
+            delta = (neg_lr * g) / (np.sqrt(states[0][r]) + f(EPS))
+        elif optim == "rowwise_adagrad":
+            states[0][r] = states[0][r] + sum_sq(g) / f(D)
+            delta = (neg_lr / (np.sqrt(states[0][r]) + f(EPS))) * g
+        else:
+            states[0][r] = b1 * states[0][r] + omb1 * g
+            if optim.startswith("partial"):
+                states[1][r] = b2 * states[1][r] + omb2 * (sum_sq(g) / f(D))
+            else:
+                states[1][r] = b2 * states[1][r] + (omb2 * g) * g
+            vpe = np.sqrt(states[1][r]) / np.sqrt(bc2) + f(EPS)
+            direction = (states[0][r] / bc1) / vpe
+            if optim.endswith("lamb"):
+                direction = direction * trust(np.sqrt(sum_sq(wr)),
+                                              np.sqrt(sum_sq(direction)))
+            delta = neg_lr * direction
+        table[r] = wr + delta
+        i = j
+    return table, states
+
+
+@pytest.mark.parametrize("optim", tbw.OPTIMIZERS)
+def test_fused_update_optimizers_kernel_emulation_bit_equal(optim):
+    case = _optim_case(optim, seed=13)
+    et, es = _emulate_b2_optim(optim, case, 0.01, _port_bc())
+    pt, ps = _port_b2_optim(optim, case, 0.01)
+    np.testing.assert_array_equal(pt, et)
+    for a, b in zip(ps, es):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fused_update_optimizers_order_differs_from_dedup():
+    """B2's ``1 - beta`` is rounded in float32 and B6's from a double, so
+    the same Adam step on the same inputs differs in the last bits."""
+    assert np.float32(1.0) - np.float32(0.9) != np.float32(1.0 - 0.9)
+    case = _optim_case("adam", seed=14)
+    pt, _ = _port_b2_optim("adam", case)
+    table, states, ids, valid, segs, w, grad = case
+    t = _t(table)
+    tbw.dedup_fused_sparse_update(
+        t, [_t(x) for x in states], _t(ids), _t(valid), _t(segs), _t(w),
+        _t(grad), "adam", LR, eps=EPS, bias_corrections=_port_bc())
+    assert not np.array_equal(pt, t.numpy())
+    np.testing.assert_allclose(pt, t.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_fused_update_optimizers_empty_batch_and_checks():
+    for optim in OTHER_OPTIMIZERS:
+        case = _optim_case(optim, seed=15)
+        table, states, ids, valid, segs, w, grad = case
+        e = torch.zeros(0, dtype=torch.int32)
+        empty = (table, states, e.numpy(), e.bool().numpy(), e.numpy(),
+                 None, grad)
+        pt, ps = _port_b2_optim(optim, empty)
+        nothing = (table, states, ids, np.zeros(V, bool), segs, w, grad)
+        qt, qs = _port_b2_optim(optim, nothing)
+        for t_, s_ in ((pt, ps), (qt, qs)):
+            np.testing.assert_array_equal(t_, table)
+            for a, b in zip(s_, states):
+                np.testing.assert_array_equal(a, b)
+    assert tbe.launch_counts()["fused_sparse_update"] == 0
+    t = _t(table)
+    with pytest.raises(ValueError):  # adam needs (m, v)
+        tbw.fused_sparse_update(t, _t(states[0]), e, e.bool(), e, None,
+                                _t(grad), LR, optim="adam")
+    with pytest.raises(ValueError):  # adagrad needs its momentum
+        tbw.fused_sparse_update(t, None, e, e.bool(), e, None, _t(grad), LR,
+                                optim="adagrad")
+    with pytest.raises(TypeError):  # adagrad's momentum is [R, D]
+        tbw.fused_sparse_update(t, torch.zeros(R), e, e.bool(), e, None,
+                                _t(grad), LR, optim="adagrad")
+    with pytest.raises(ValueError):
+        tbw.fused_sparse_update(t, None, e, e.bool(), e, None, _t(grad), LR,
+                                optim="adamw")
+

@@ -2,10 +2,12 @@
 
 The sub-packages keep the JAX package's layout and module names, so each
 module's counterpart is found at the same path under ``torchrec_tpu/``.
-This slice ports quantized DLRM serving: the int8/int4/int2 embedding
-collection with its hand-written CUDA lookup kernels (``ops/tbe.py``,
-``csrc/tbe_quant.cu``), the DLRM dense side, artifact packaging and the
-dynamic-batching ``InferenceServer``.
+It holds quantized DLRM serving (``quant/``, ``inference/``), the
+one-device training step of ``DLRM`` and ``DLRM_DCN``
+(``parallel/model_parallel.py``) and the bucketed training pipeline
+(``parallel/train_pipeline.py``), with a hand-written CUDA kernel for
+every Pallas kernel of the JAX package (``csrc/``, wrapped by
+``ops/tbe.py`` and ``ops/tbe_backward.py``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device they raise instead of carrying on

@@ -1,80 +1,93 @@
 """Carry weights between the JAX package and the port.
 
-The JAX package's DLRM dense params are a flax tree::
+The JAX package's dense params are a flax tree, for ``DLRM``::
 
     {"params": {"dense_arch": {"MLP_0": {"Perceptron_i": {"Dense_0":
         {"bias": [out], "kernel": [in, out]}}}},
      "over_arch": {"MLP_0": {...hidden layers...},
                    "Dense_0": {...the final logit layer...}}}}
 
-and an artifact's ``dense.npz`` stores its leaves in ``jax.tree.flatten``
-order: keys sorted as strings at every level (so ``Perceptron_10`` sorts
-before ``Perceptron_2``, and ``over_arch/Dense_0`` before
-``over_arch/MLP_0``), ``bias`` before ``kernel``.  The port's ``DLRM``
-names the same weights ``dense_arch.mlp.layers.i.linear``,
-``over_arch.mlp.layers.i.linear`` and ``over_arch.final``, with
-``nn.Linear.weight`` the transposed flax ``kernel``.
+and for ``DLRM_DCN`` the same plus the cross net's
+``inter_arch/crossnet/{w_l [d, r], v_l [r, d], b_l [d]}``.  The bridge is
+driven by the tree's own paths, one name at a time (:func:`port_key`,
+:func:`flax_path`): ``MLP_0`` is the port's ``mlp``, ``Perceptron_i``
+``layers.i``, a ``Dense_0`` inside a perceptron ``linear`` and any other
+``Dense_0`` ``final``, and a ``kernel`` is the transposed
+``nn.Linear.weight``; every other name (``dense_arch``, ``crossnet``,
+``w_0``, ``bias``, ...) is the same in both, with its leaf as it is.  An
+artifact's ``dense.npz`` stores the leaves in ``jax.tree.flatten`` order:
+keys sorted as strings at every level (so ``Perceptron_10`` sorts before
+``Perceptron_2``, and ``over_arch/Dense_0`` before ``over_arch/MLP_0``).
 
 A whole train state of the JAX package's ``DistributedModelParallel``
 crosses in both directions (:func:`train_state_from_jax`,
 :func:`train_state_to_jax`): dense params, the ``sum_of_squares`` of its
-``optax.adagrad`` state, each group's table stack, its fused-optimizer
-state (any of the eight layouts: ``momentum`` ``[R]`` or ``[R, D]``,
-``m``, ``v`` and the Adam family's ``step``) and the step.  Everything
-here is numpy and torch; nothing imports JAX.
+``optax.adagrad`` state (the same tree), each group's table stack, its
+fused-optimizer state (any of the eight layouts: ``momentum`` ``[R]`` or
+``[R, D]``, ``m``, ``v`` and the Adam family's ``step``) and the step.
+Everything here is numpy and torch; nothing imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+import re
+from typing import (Any, Dict, Iterable, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 Path = Tuple[str, ...]
+_PERCEPTRON = re.compile(r"Perceptron_(\d+)$")
+# the port's module and parameter names with another flax name
+_FLAX_NAMES = {"mlp": "MLP_0", "linear": "Dense_0", "final": "Dense_0",
+               "weight": "kernel"}
 
 
-def _flax_layer_paths(
-    num_dense_layers: int, num_over_layers: int
-) -> Dict[Path, str]:
-    """flax layer path (under ``params``) -> the port's module name."""
-    out: Dict[Path, str] = {}
-    for i in range(num_dense_layers):
-        out[("dense_arch", "MLP_0", f"Perceptron_{i}", "Dense_0")] = (
-            f"dense_arch.mlp.layers.{i}.linear"
-        )
-    for i in range(num_over_layers - 1):
-        out[("over_arch", "MLP_0", f"Perceptron_{i}", "Dense_0")] = (
-            f"over_arch.mlp.layers.{i}.linear"
-        )
-    out[("over_arch", "Dense_0")] = "over_arch.final"
+def port_key(path: Path) -> str:
+    """flax leaf path (under ``params``) -> the port's state-dict key."""
+    out: List[str] = []
+    for i, name in enumerate(path):
+        m = _PERCEPTRON.match(name)
+        if name == "MLP_0":
+            out.append("mlp")
+        elif m:
+            out += ["layers", m.group(1)]
+        elif name == "Dense_0":
+            inner = i > 0 and _PERCEPTRON.match(path[i - 1])
+            out.append("linear" if inner else "final")
+        elif name == "kernel":
+            out.append("weight")
+        else:
+            out.append(name)
+    return ".".join(out)
+
+
+def flax_path(key: str) -> Path:
+    """The port's state-dict key -> flax leaf path (inverse of
+    :func:`port_key`)."""
+    names = key.split(".")
+    out: List[str] = []
+    i = 0
+    while i < len(names):
+        name = names[i]
+        if name == "layers":
+            out.append(f"Perceptron_{names[i + 1]}")
+            i += 1
+        else:
+            out.append(_FLAX_NAMES.get(name, name))
+        i += 1
+    return tuple(out)
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
+    out: Dict[Path, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_leaves(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
     return out
-
-
-def _leaf_paths(
-    num_dense_layers: int, num_over_layers: int
-) -> List[Tuple[Path, str]]:
-    """(flax leaf path, port state-dict key) in ``jax.tree.flatten``
-    order of ``{"params": ...}``."""
-    pairs = []
-    for layer, name in _flax_layer_paths(
-        num_dense_layers, num_over_layers
-    ).items():
-        pairs.append((("params", *layer, "bias"), f"{name}.bias"))
-        pairs.append((("params", *layer, "kernel"), f"{name}.weight"))
-    return sorted(pairs)
-
-
-def _layer_counts(state_dict: Mapping[str, Any]) -> Tuple[int, int]:
-    n_dense = sum(
-        1 for k in state_dict
-        if k.startswith("dense_arch.mlp.layers.") and k.endswith(".weight")
-    )
-    n_over_hidden = sum(
-        1 for k in state_dict
-        if k.startswith("over_arch.mlp.layers.") and k.endswith(".weight")
-    )
-    return n_dense, n_over_hidden + 1
 
 
 def _to_port(key: str, leaf: np.ndarray) -> torch.Tensor:
@@ -84,49 +97,62 @@ def _to_port(key: str, leaf: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C"))  # a contiguous copy
 
 
-def dlrm_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX DLRM dense params (a nested dict of numpy arrays, with or
-    without the top ``"params"`` level) -> the port's ``DLRM``
-    ``state_dict``."""
+def _to_flax(key: str, t: torch.Tensor) -> np.ndarray:
+    arr = t.detach().to(torch.float32).cpu().numpy()
+    return np.ascontiguousarray(arr.T if key.endswith(".weight") else arr)
+
+
+def dlrm_state_dict_from_flax(
+    params: Mapping[str, Any],
+) -> Dict[str, torch.Tensor]:
+    """JAX dense params of a DLRM or DLRM_DCN (a nested dict of numpy
+    arrays, with or without the top ``"params"`` level) -> the port
+    model's ``state_dict``."""
     inner = params["params"] if "params" in params else params
-    n_dense = len(inner["dense_arch"]["MLP_0"])
-    n_over = len(inner["over_arch"].get("MLP_0", {})) + 1
-    out: Dict[str, torch.Tensor] = {}
-    for path, key in _leaf_paths(n_dense, n_over):
-        node: Any = inner
-        for p in path[1:]:
-            node = node[p]
-        out[key] = _to_port(key, node)
-    return out
+    return {port_key(p): _to_port(port_key(p), leaf)
+            for p, leaf in _leaves(inner).items()}
+
+
+def flax_params_from_dlrm_state_dict(
+    state_dict: Mapping[str, torch.Tensor],
+) -> Dict[str, Any]:
+    """The port model's parameters -> the flax params tree ``{"params":
+    {...}}`` of float32 numpy arrays (inverse of
+    :func:`dlrm_state_dict_from_flax`)."""
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        *parents, leaf = ("params",) + flax_path(key)
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = _to_flax(key, t)
+    return tree
+
+
+def _flatten_order(keys: Iterable[str]) -> List[str]:
+    """Port keys in the ``jax.tree.flatten`` order of their flax paths."""
+    return sorted(keys, key=flax_path)
 
 
 def dense_leaves_to_flax_order(
     state_dict: Mapping[str, torch.Tensor],
 ) -> List[np.ndarray]:
-    """The port's ``DLRM`` state dict -> float32 numpy leaves in the
+    """The port model's state dict -> float32 numpy leaves in the
     ``jax.tree.flatten`` order of the flax params (``dense.npz``)."""
-    n_dense, n_over = _layer_counts(state_dict)
-    leaves = []
-    for _, key in _leaf_paths(n_dense, n_over):
-        arr = state_dict[key].detach().cpu().numpy().astype(np.float32)
-        leaves.append(np.ascontiguousarray(arr.T if key.endswith(".weight")
-                                           else arr))
-    return leaves
+    return [_to_flax(k, state_dict[k]) for k in _flatten_order(state_dict)]
 
 
 def dense_leaves_from_flax_order(
     leaves: Sequence[np.ndarray],
-    dense_arch_layer_sizes: Sequence[int],
-    over_arch_layer_sizes: Sequence[int],
+    keys: Iterable[str],
 ) -> Dict[str, torch.Tensor]:
-    """``dense.npz`` leaves (flatten order) -> the port's ``DLRM``
-    ``state_dict``."""
-    pairs = _leaf_paths(len(dense_arch_layer_sizes), len(over_arch_layer_sizes))
-    if len(leaves) != len(pairs):
-        raise ValueError(
-            f"{len(leaves)} dense leaves for a DLRM with {len(pairs)}"
-        )
-    return {key: _to_port(key, leaf) for (_, key), leaf in zip(pairs, leaves)}
+    """``dense.npz`` leaves (flatten order) -> the ``state_dict`` of a
+    port model whose state-dict keys are ``keys``."""
+    order = _flatten_order(keys)
+    if len(leaves) != len(order):
+        raise ValueError(f"{len(leaves)} dense leaves for a model with "
+                         f"{len(order)}")
+    return {k: _to_port(k, leaf) for k, leaf in zip(order, leaves)}
 
 
 def quant_params_from_numpy(
@@ -142,24 +168,6 @@ def quant_params_from_numpy(
         }
         for name, p in params.items()
     }
-
-
-def flax_params_from_dlrm_state_dict(
-    state_dict: Mapping[str, torch.Tensor],
-) -> Dict[str, Any]:
-    """The port's ``DLRM`` parameters -> the flax params tree
-    ``{"params": {...}}`` of float32 numpy arrays (inverse of
-    :func:`dlrm_state_dict_from_flax`)."""
-    n_dense, n_over = _layer_counts(state_dict)
-    tree: Dict[str, Any] = {}
-    for path, key in _leaf_paths(n_dense, n_over):
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        arr = state_dict[key].detach().to(torch.float32).cpu().numpy()
-        node[path[-1]] = np.ascontiguousarray(
-            arr.T if key.endswith(".weight") else arr)
-    return tree
 
 
 def _sum_of_squares(dense_opt: Any) -> Any:

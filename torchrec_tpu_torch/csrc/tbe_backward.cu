@@ -1,32 +1,37 @@
-// Fused embedding backward + rowwise-Adagrad update for Hopper (sm_90a),
-// bound to Python with ctypes through a plain C interface
+// Fused embedding backward + optimizer for Hopper (sm_90a), all eight fused
+// optimizers, bound to Python with ctypes through a plain C interface
 // (torchrec_tpu_torch/ops/_native.py builds this file with nvcc at first use).
 //
-//   fused_rowwise_adagrad   replaces torchrec_tpu/ops/pallas_tbe_backward.py
-//                           ::pallas_fused_sparse_update with
-//                           optim="rowwise_adagrad" (kernel body _bwd_body,
-//                           input preparation _sort_by_row, noise _hash_bits)
+//   fused_update   replaces torchrec_tpu/ops/pallas_tbe_backward.py
+//                  ::pallas_fused_sparse_update (kernel body _bwd_body,
+//                  input preparation _sort_by_row, noise _hash_bits)
 //
 // Input: slots sorted by table row (stable), invalid slots last with the
-// sentinel row R.  For each distinct row r it computes
+// sentinel row R.  For each distinct row r, in place:
 //
-//   g      = sum_i w_i * grad_seg[seg_i, :]      (slot order, f32)
-//   g      = g + wd * table[r, :]                (only when wd != 0)
-//   m_new  = momentum[r] + mean(g * g)
-//   table[r, :] = table[r, :] + (-lr / (sqrt(m_new) + eps)) * g
-//   momentum[r] = m_new
+//   g = sum_i w_i * grad_seg[seg_i, :]      (slot order, f32; mul, then add)
+//   g = g + wd * table[r, :]                (only when wd != 0)
 //
-// in place, with the write-back to a bfloat16 table stochastically rounded
-// when a seed is given (the murmur-style hash of (seed, row, column) of
-// _hash_bits, pallas_tbe_backward.py:103-118, bit for bit; non-finite values
-// pass through and round to nearest).  Other optimizers are not ported.
+// then one step of the optimizer on the row and its states, in _bwd_body's
+// own op order (pallas_tbe_backward.py:229-291), which is not the XLA
+// path's that B6 keeps: backward_common.cuh::update_row with PER_ID = true
+// lists every optimizer's math.  Where the two orders differ: rowwise
+// Adagrad scales g by (-lr) / (sqrt(m) + eps), and the Adam family's
+// (1 - b) is 1.f - b rounded in f32 inside the kernel (B6 takes a host
+// double).  The Adam family's bias corrections bc1 = 1 - b1^t and
+// bc2 = 1 - b2^t for the caller's incremented step t come from the host.
+// A bfloat16 table is written back with stochastic rounding when a seed is
+// given (the murmur-style hash of (seed, row, column) of _hash_bits,
+// pallas_tbe_backward.py:103-118, bit for bit; non-finite values pass
+// through and round to nearest), for every optimizer.
 //
 // What bounds it on an H100: bytes.  Per valid slot it reads one f32
 // gradient row (D * 4 bytes) plus 12 bytes of row, segment and weight; per
-// distinct row it reads and writes the table row and the momentum.  About
-// 4 flops per byte at most, far below the card's f32 ridge.  The design
-// touches each gradient row once and each table row once, with coalesced
-// 16-byte loads where D allows.
+// distinct row it reads and writes the table row and the optimizer state
+// (0, 4, D * 4, D * 4 + 4 or 2 * D * 4 bytes).  A handful of flops per
+// byte, far below the card's f32 ridge.  The design touches each gradient
+// row once and each table and state row once, with coalesced 16-byte
+// gradient loads where D allows.
 //
 // Design.  The TPU kernel walks the row-sorted slots on a SEQUENTIAL grid
 // and keeps the open run's accumulator in VMEM across grid steps, flushing
@@ -35,18 +40,21 @@
 // warp per sorted position, and the warp whose position starts a run (the
 // first position, or one whose row differs from its predecessor's) walks the
 // run to its end; every other warp exits at once.  No atomics, no unique
-// pass, no host sync.  The accumulator stays in registers: each lane owns
-// the columns {b*128 + 4*lane + e} (D % 4 == 0, float4 loads) or
-// {lane + 32*k}, at most 16 per lane (D <= 512).
+// pass, no host sync.  The accumulator, the row and its states stay in
+// registers: each lane owns the columns {b*128 + 4*lane + e} (D % 4 == 0,
+// float4 loads) or {lane + 32*k}, at most 16 per lane (D <= 512).  The
+// optimizer is a template argument: 8 optimizers x {f32, bf16} x the two
+// column layouts are 32 instantiations.
 //
 // Rounding: every product and sum is a separately rounded __fmul_rn /
-// __fadd_rn, in slot order.  mean(g * g) has one fixed order: each lane sums
-// the squares of its own columns in ascending column order, then the warp
-// adds the 32 partial sums in an xor butterfly (offsets 16, 8, 4, 2, 1),
-// then divides by D (__fdiv_rn).  The plain PyTorch version
-// (torchrec_tpu_torch/ops/tbe_backward.py::fused_sparse_update_plain)
-// repeats this arithmetic in the same order, so on the card kernel and plain
-// version are bitwise equal.  Row addresses are 64-bit.
+// __fadd_rn, every sqrt and division __fsqrt_rn / __fdiv_rn.  Every mean and
+// norm over D has one fixed order: each lane sums the squares of its own
+// columns in ascending column order, then the warp adds the 32 partial sums
+// in an xor butterfly (offsets 16, 8, 4, 2, 1); a mean divides that by D.
+// The plain PyTorch version (torchrec_tpu_torch/ops/tbe_backward.py
+// ::fused_sparse_update_plain) repeats this arithmetic in the same order, so
+// on the card kernel and plain version are bitwise equal.  Built without
+// fast math.  Row and state addresses are 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,12 +67,12 @@ namespace {
 
 using namespace bwd;
 
-template <typename T, bool VEC>
-__global__ void fused_rowwise_adagrad_kernel(
+template <typename T, bool VEC, int OPT>
+__global__ void fused_update_kernel(
     const int32_t* __restrict__ srows, const int32_t* __restrict__ ssegs,
     const float* __restrict__ sw, const float* __restrict__ grad,
-    T* __restrict__ table, float* __restrict__ momentum, int V, int R, int D,
-    float lr, float eps, float wd, int use_sr, uint32_t seed) {
+    T* __restrict__ table, float* __restrict__ s0, float* __restrict__ s1,
+    int V, int R, int D, Hyper h, int use_sr, uint32_t seed) {
   const int64_t i = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (i >= V) return;
@@ -73,100 +81,47 @@ __global__ void fused_rowwise_adagrad_kernel(
   // the warp at its first position (the whole warp leaves together)
   if (row >= R || (i > 0 && srows[i - 1] == row)) return;
   const int n = VEC ? ((D + 127) / 128) * 4 : (D + 31) / 32;
-  // read before any lane can write it back (lane 0 does, at the end)
-  const float m_old = momentum[row];
 
   float g[kMaxCols];
 #pragma unroll
   for (int k = 0; k < kMaxCols; ++k) g[k] = 0.f;
   for (int64_t j = i; j < V && srows[j] == row; ++j) {
-    const float* gr = grad + (int64_t)ssegs[j] * D;
-    const float wj = sw[j];
-    if constexpr (VEC) {
-#pragma unroll
-      for (int b = 0; b < kMaxCols / 4; ++b) {
-        const int c = b * 128 + lane * 4;
-        if (b * 4 < n && c < D) {
-          const float4 v = *reinterpret_cast<const float4*>(gr + c);
-          g[4 * b + 0] = __fadd_rn(g[4 * b + 0], __fmul_rn(v.x, wj));
-          g[4 * b + 1] = __fadd_rn(g[4 * b + 1], __fmul_rn(v.y, wj));
-          g[4 * b + 2] = __fadd_rn(g[4 * b + 2], __fmul_rn(v.z, wj));
-          g[4 * b + 3] = __fadd_rn(g[4 * b + 3], __fmul_rn(v.w, wj));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kMaxCols; ++k) {
-        const int c = column<false>(lane, k, D);
-        if (k < n && c >= 0) g[k] = __fadd_rn(g[k], __fmul_rn(gr[c], wj));
-      }
-    }
+    add_slot<VEC>(g, grad + (int64_t)ssegs[j] * D, sw[j], lane, n, D);
   }
-
-  T* wrow = table + (int64_t)row * D;
-  float w[kMaxCols];
-#pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    const int c = column<VEC>(lane, k, D);
-    w[k] = (k < n && c >= 0) ? widen(wrow[c]) : 0.f;
-  }
-  if (wd != 0.f) {
-#pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) {
-      const int c = column<VEC>(lane, k, D);
-      if (k < n && c >= 0) g[k] = __fadd_rn(g[k], __fmul_rn(wd, w[k]));
-    }
-  }
-
-  // mean(g * g): lane partials in ascending column order, xor butterfly
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    const int c = column<VEC>(lane, k, D);
-    if (k < n && c >= 0) s = __fadd_rn(s, __fmul_rn(g[k], g[k]));
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, off));
-  }
-  const float m_new = __fadd_rn(m_old, __fdiv_rn(s, (float)D));
-  const float scale = __fdiv_rn(-lr, __fadd_rn(__fsqrt_rn(m_new), eps));
-
-#pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    const int c = column<VEC>(lane, k, D);
-    if (k < n && c >= 0) {
-      store(wrow + c, __fadd_rn(w[k], __fmul_rn(scale, g[k])), use_sr != 0,
-            seed, (uint32_t)row, (uint32_t)c);
-    }
-  }
-  if (lane == 0) momentum[row] = m_new;
+  update_row<T, VEC, OPT, true>(g, row, lane, n, D, table, s0, s1, h,
+                                use_sr != 0, seed);
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// the instantiation for an optimizer code, or null for an unknown code
+template <typename T, bool VEC>
+const void* kernel_for(int optim) {
+  switch (optim) {
+    case kSgd: return (const void*)fused_update_kernel<T, VEC, kSgd>;
+    case kLarsSgd: return (const void*)fused_update_kernel<T, VEC, kLarsSgd>;
+    case kAdagrad: return (const void*)fused_update_kernel<T, VEC, kAdagrad>;
+    case kRowwiseAdagrad:
+      return (const void*)fused_update_kernel<T, VEC, kRowwiseAdagrad>;
+    case kAdam: return (const void*)fused_update_kernel<T, VEC, kAdam>;
+    case kPartialRowwiseAdam:
+      return (const void*)fused_update_kernel<T, VEC, kPartialRowwiseAdam>;
+    case kLamb: return (const void*)fused_update_kernel<T, VEC, kLamb>;
+    case kPartialRowwiseLamb:
+      return (const void*)fused_update_kernel<T, VEC, kPartialRowwiseLamb>;
+    default: return nullptr;
+  }
 }
 
-template <typename T>
-void launch(const void* srows, const void* ssegs, const void* sw,
-            const void* grad, void* table, void* momentum, int V, int R,
-            int D, float lr, float eps, float wd, int use_sr, int seed,
-            cudaStream_t stream) {
-  const dim3 grid((unsigned)((V + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  const int32_t* r = (const int32_t*)srows;
-  const int32_t* s = (const int32_t*)ssegs;
-  const float* w = (const float*)sw;
-  const float* g = (const float*)grad;
-  T* t = (T*)table;
-  float* m = (float*)momentum;
-  const uint32_t sd = (uint32_t)seed;
-  if (D % 4 == 0 && aligned16(grad)) {
-    fused_rowwise_adagrad_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        r, s, w, g, t, m, V, R, D, lr, eps, wd, use_sr, sd);
-  } else {
-    fused_rowwise_adagrad_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        r, s, w, g, t, m, V, R, D, lr, eps, wd, use_sr, sd);
+// dtype 0 = float32, 1 = bfloat16 table; vec: the float4 column layout
+const void* kernel_for(int optim, int dtype, bool vec) {
+  if (dtype == 0) {
+    return vec ? kernel_for<float, true>(optim)
+               : kernel_for<float, false>(optim);
   }
+  if (dtype == 1) {
+    return vec ? kernel_for<__nv_bfloat16, true>(optim)
+               : kernel_for<__nv_bfloat16, false>(optim);
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -174,33 +129,43 @@ void launch(const void* srows, const void* ssegs, const void* sw,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 =
-// launched).  `dtype` is 0 for a float32 and 1 for a bfloat16 table; the
-// momentum is float32 [R].  `use_sr` turns on stochastic rounding of a
-// bfloat16 write-back with `seed`.  Pointers are device pointers; the Python
-// wrapper has checked devices, dtypes, shapes, contiguity, V > 0 and
-// D <= 512.
-int fused_rowwise_adagrad(const void* srows, const void* ssegs,
-                          const void* sw, const void* grad, void* table,
-                          void* momentum, int V, int R, int D, float lr,
-                          float eps, float wd, int dtype, int use_sr,
-                          int seed, void* stream) {
+// launched).  `optim` is the code of the Optim enum; `state0` / `state1` are
+// the optimizer's f32 state arrays (momentum, or m and v; unused ones may be
+// null): [R] for a rowwise state, [R, D] otherwise.  `dtype` is 0 for a
+// float32 and 1 for a bfloat16 table; `use_sr` turns on stochastic rounding
+// of a bfloat16 write-back with `seed`.  Pointers are device pointers; the
+// Python wrapper has checked devices, dtypes, shapes, contiguity, V > 0,
+// D <= 512 and the gradient's 16-byte alignment.
+int fused_update(const void* srows, const void* ssegs, const void* sw,
+                 const void* grad, void* table, void* state0, void* state1,
+                 int V, int R, int D, int optim, float lr, float eps,
+                 float wd, float b1, float b2, float bc1, float bc2,
+                 int dtype, int use_sr, int seed, void* stream) {
   if (D > 32 * kMaxCols) return (int)cudaErrorInvalidValue;
+  const void* fn = kernel_for(optim, dtype, D % 4 == 0);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (V > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (dtype) {
-      case 0:
-        launch<float>(srows, ssegs, sw, grad, table, momentum, V, R, D, lr,
-                      eps, wd, 0, seed, st);
-        break;
-      case 1:
-        launch<__nv_bfloat16>(srows, ssegs, sw, grad, table, momentum, V, R,
-                              D, lr, eps, wd, use_sr, seed, st);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    Hyper h{lr, eps, wd, b1, b2, 0.f, 0.f, bc1, bc2};
+    int sr = dtype == 1 ? use_sr : 0;
+    uint32_t sd = (uint32_t)seed;
+    void* args[] = {(void*)&srows, (void*)&ssegs, (void*)&sw, (void*)&grad,
+                    &table, &state0, &state1, &V, &R, &D, &h, &sr, &sd};
+    const dim3 grid((unsigned)((V + kWarpsPerBlock - 1) / kWarpsPerBlock));
+    const cudaError_t err = cudaLaunchKernel(fn, grid, dim3(kThreads), args,
+                                             0, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+// The registers a thread of the instantiation for (optim, dtype, column
+// layout) uses, or minus the CUDA error code.
+int fused_update_num_regs(int optim, int dtype, int vec) {
+  const void* fn = kernel_for(optim, dtype, vec != 0);
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  return err == cudaSuccess ? attr.numRegs : -(int)err;
 }
 
 }  // extern "C"

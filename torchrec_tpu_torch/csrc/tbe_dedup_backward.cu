@@ -16,20 +16,10 @@
 //
 // then the optimizer, in the op order of the JAX package's XLA path
 // (ops/fused_update.py::apply_sparse_update), which _dedup_bwd_body replays
-// (pallas_tbe_backward.py:589-757); lr is negated first, every product and
+// (pallas_tbe_backward.py:589-757): backward_common.cuh::update_row with
+// PER_ID = false, which lists every optimizer's math.  Every product and
 // sum is a separately rounded __fmul_rn / __fadd_rn, and every sqrt and
-// division __fsqrt_rn / __fdiv_rn:
-//
-//   sgd              w + (-lr) g
-//   lars_sgd         trust = ||w|| / max(||g||, 1e-12) (1 if a norm is 0);
-//                    w + ((-lr) trust) g
-//   adagrad          m = m + g g;  w + ((-lr) g) / (sqrt(m) + eps)
-//   rowwise_adagrad  m = m + mean(g g);  s = 1 / (sqrt(m) + eps);
-//                    w + ((-lr) g) s
-//   adam, lamb       m = b1 m + (1-b1) g;  v = b2 v + ((1-b2) g) g
-//   partial_rowwise  m as adam;  v = b2 v + (1-b2) mean(g g)  (per row)
-//     _adam, _lamb   dir = (m / bc1) / (sqrt(v) / sqrt(bc2) + eps);
-//                    lamb: dir = dir * trust(||w||, ||dir||);  w + (-lr) dir
+// division __fsqrt_rn / __fdiv_rn.
 //
 // (1 - b) is rounded on the host from a double, and bc1 = 1 - b1^t,
 // bc2 = 1 - b2^t for the caller's step t are computed once on the host
@@ -74,62 +64,12 @@ namespace {
 
 using namespace bwd;
 
-// the optimizer codes of ops/tbe_backward.py::OPTIMIZERS
-enum Optim : int {
-  kSgd = 0,
-  kLarsSgd = 1,
-  kAdagrad = 2,
-  kRowwiseAdagrad = 3,
-  kAdam = 4,
-  kPartialRowwiseAdam = 5,
-  kLamb = 6,
-  kPartialRowwiseLamb = 7,
-};
-
-struct Hyper {
-  float lr, eps, wd, b1, b2, omb1, omb2, bc1, bc2;
-};
-
-// sum over the row of x * x in the fixed lane-then-butterfly order; every
-// lane returns the same value
-template <bool VEC>
-__device__ __forceinline__ float sum_sq(const float (&x)[kMaxCols], int lane,
-                                        int n, int D) {
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    if (k < n && column<VEC>(lane, k, D) >= 0) {
-      s = __fadd_rn(s, __fmul_rn(x[k], x[k]));
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, off));
-  }
-  return s;
-}
-
-// the trust ratio of lars_sgd and lamb from two row norms
-__device__ __forceinline__ float trust_ratio(float a_norm, float b_norm) {
-  return (a_norm > 0.f && b_norm > 0.f)
-             ? __fdiv_rn(a_norm, fmaxf(b_norm, 1e-12f))
-             : 1.f;
-}
-
 template <typename T, bool VEC, int OPT>
 __global__ void dedup_fused_update_kernel(
     const int32_t* __restrict__ srows, const int32_t* __restrict__ ssegs,
     const float* __restrict__ sw, const float* __restrict__ grad,
     T* __restrict__ table, float* __restrict__ s0, float* __restrict__ s1,
     int V, int R, int D, Hyper h, int use_sr, uint32_t seed) {
-  constexpr bool kElemM = OPT == kAdagrad || OPT == kAdam || OPT == kLamb ||
-                          OPT == kPartialRowwiseAdam ||
-                          OPT == kPartialRowwiseLamb;
-  constexpr bool kElemV = OPT == kAdam || OPT == kLamb;
-  constexpr bool kRowV = OPT == kPartialRowwiseAdam ||
-                         OPT == kPartialRowwiseLamb;
-  constexpr bool kLambTrust = OPT == kLamb || OPT == kPartialRowwiseLamb;
-
   const int64_t i = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (i >= V) return;
@@ -156,122 +96,10 @@ __global__ void dedup_fused_update_kernel(
   for (int k = 0; k < kMaxCols; ++k) g[k] = 0.f;
 #pragma unroll 2
   for (int64_t j = i; j < end; ++j) {
-    const float* gr = grad + (int64_t)ssegs[j] * D;
-    const float wj = sw[j];
-    if constexpr (VEC) {
-#pragma unroll
-      for (int b = 0; b < kMaxCols / 4; ++b) {
-        const int c = b * 128 + lane * 4;
-        if (b * 4 < n && c < D) {
-          const float4 v = *reinterpret_cast<const float4*>(gr + c);
-          g[4 * b + 0] = __fadd_rn(g[4 * b + 0], __fmul_rn(v.x, wj));
-          g[4 * b + 1] = __fadd_rn(g[4 * b + 1], __fmul_rn(v.y, wj));
-          g[4 * b + 2] = __fadd_rn(g[4 * b + 2], __fmul_rn(v.z, wj));
-          g[4 * b + 3] = __fadd_rn(g[4 * b + 3], __fmul_rn(v.w, wj));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kMaxCols; ++k) {
-        const int c = column<false>(lane, k, D);
-        if (k < n && c >= 0) g[k] = __fadd_rn(g[k], __fmul_rn(gr[c], wj));
-      }
-    }
+    add_slot<VEC>(g, grad + (int64_t)ssegs[j] * D, sw[j], lane, n, D);
   }
-
-  T* wrow = table + (int64_t)row * D;
-  // the element-wise states' rows (absent states are null pointers)
-  float* mrow = kElemM ? s0 + (int64_t)row * D : nullptr;
-  float* vrow = kElemV ? s1 + (int64_t)row * D : nullptr;
-  float w[kMaxCols], m[kMaxCols], v[kMaxCols];
-#pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    const int c = column<VEC>(lane, k, D);
-    const bool own = k < n && c >= 0;
-    w[k] = own ? widen(wrow[c]) : 0.f;
-    if constexpr (kElemM) m[k] = own ? mrow[c] : 0.f;
-    if constexpr (kElemV) v[k] = own ? vrow[c] : 0.f;
-  }
-  if (h.wd != 0.f) {
-#pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) {
-      g[k] = __fadd_rn(g[k], __fmul_rn(h.wd, w[k]));
-    }
-  }
-
-  const float neg_lr = -h.lr;
-  // per column: the value added to w (`delta`), computed below
-  float delta[kMaxCols];
-  float row_state = 0.f;  // rowwise_adagrad's m or the partial v
-  if constexpr (OPT == kSgd) {
-#pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) delta[k] = __fmul_rn(neg_lr, g[k]);
-  } else if constexpr (OPT == kLarsSgd) {
-    const float t = trust_ratio(__fsqrt_rn(sum_sq<VEC>(w, lane, n, D)),
-                                __fsqrt_rn(sum_sq<VEC>(g, lane, n, D)));
-    const float a = __fmul_rn(neg_lr, t);
-#pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) delta[k] = __fmul_rn(a, g[k]);
-  } else if constexpr (OPT == kAdagrad) {
-#pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) {
-      m[k] = __fadd_rn(m[k], __fmul_rn(g[k], g[k]));
-      delta[k] = __fdiv_rn(__fmul_rn(neg_lr, g[k]),
-                           __fadd_rn(__fsqrt_rn(m[k]), h.eps));
-    }
-  } else if constexpr (OPT == kRowwiseAdagrad) {
-    const float ss = sum_sq<VEC>(g, lane, n, D);
-    row_state = __fadd_rn(s0[row], __fdiv_rn(ss, (float)D));
-    const float scale =
-        __fdiv_rn(1.f, __fadd_rn(__fsqrt_rn(row_state), h.eps));
-#pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) {
-      delta[k] = __fmul_rn(__fmul_rn(neg_lr, g[k]), scale);
-    }
-  } else {  // the adam family
-    const float sqbc2 = __fsqrt_rn(h.bc2);
-    float vpe_row = 0.f;
-    if constexpr (kRowV) {
-      const float ss = sum_sq<VEC>(g, lane, n, D);
-      row_state = __fadd_rn(__fmul_rn(h.b2, s1[row]),
-                            __fmul_rn(h.omb2, __fdiv_rn(ss, (float)D)));
-      vpe_row = __fadd_rn(__fdiv_rn(__fsqrt_rn(row_state), sqbc2), h.eps);
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) {
-      m[k] = __fadd_rn(__fmul_rn(h.b1, m[k]), __fmul_rn(h.omb1, g[k]));
-      float vpe = vpe_row;
-      if constexpr (kElemV) {
-        v[k] = __fadd_rn(__fmul_rn(h.b2, v[k]),
-                         __fmul_rn(__fmul_rn(h.omb2, g[k]), g[k]));
-        vpe = __fadd_rn(__fdiv_rn(__fsqrt_rn(v[k]), sqbc2), h.eps);
-      }
-      delta[k] = __fdiv_rn(__fdiv_rn(m[k], h.bc1), vpe);  // dir
-    }
-    if constexpr (kLambTrust) {
-      const float t = trust_ratio(__fsqrt_rn(sum_sq<VEC>(w, lane, n, D)),
-                                  __fsqrt_rn(sum_sq<VEC>(delta, lane, n, D)));
-#pragma unroll
-      for (int k = 0; k < kMaxCols; ++k) delta[k] = __fmul_rn(delta[k], t);
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) delta[k] = __fmul_rn(neg_lr, delta[k]);
-  }
-
-#pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    const int c = column<VEC>(lane, k, D);
-    if (k < n && c >= 0) {
-      store(wrow + c, __fadd_rn(w[k], delta[k]), use_sr != 0, seed,
-            (uint32_t)row, (uint32_t)c);
-      if constexpr (kElemM) mrow[c] = m[k];
-      if constexpr (kElemV) vrow[c] = v[k];
-    }
-  }
-  if (lane == 0) {
-    if constexpr (OPT == kRowwiseAdagrad) s0[row] = row_state;
-    if constexpr (kRowV) s1[row] = row_state;
-  }
+  update_row<T, VEC, OPT, false>(g, row, lane, n, D, table, s0, s1, h,
+                                 use_sr != 0, seed);
 }
 
 template <typename T, bool VEC>

@@ -174,6 +174,5 @@ def load_packaged_model(
         with np.load(dense_path) as blob:
             leaves = [blob[f"leaf_{i}"] for i in range(n_leaves)]
         model.load_state_dict(dense_leaves_from_flax_order(
-            leaves, mc["dense_arch_layer_sizes"], mc["over_arch_layer_sizes"]
-        ))
+            leaves, model.state_dict()))
     return build_serving_fn(model, qebc, apply_sigmoid=False, device=dev), meta

@@ -1,5 +1,6 @@
 """DLRM dense side (``torchrec_tpu/models/dlrm.py``): DenseArch,
-InteractionArch, OverArch, ``DLRM.forward_from_embeddings`` and
+InteractionArch, InteractionDCNArch, OverArch,
+``DLRM.forward_from_embeddings``, ``DLRM_DCN.forward_from_embeddings`` and
 ``bce_with_logits_loss``.
 
 ``dense_dtype`` is the compute dtype of the hidden layers (parameters stay
@@ -10,9 +11,10 @@ embeddings in the wider of their dtypes (float32 embeddings give a float32
 interaction), as ``jnp.concatenate`` promotes.  The package turns TF32 off
 at import, so the card's float32 matmuls round like the CPU's.  The sparse
 side is the caller's (``QuantEmbeddingBagCollection`` in serving, the
-sharded collection in training), handed in as a KeyedTensor.  Left out:
-``SparseArch``/``DLRM.__call__`` with an in-model collection, DLRM_DCN,
-DLRM_Projection and DLRMTrain.
+sharded collection in training), handed in as a KeyedTensor.
+``DLRM_DCN``'s cross net computes in float32 whatever ``dense_dtype`` is
+(``modules/crossnet.py``).  Left out: ``SparseArch``/``__call__`` with an
+in-model collection, DLRM_Projection and DLRMTrain.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from torchrec_tpu_torch.modules.crossnet import LowRankCrossNet
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
 from torchrec_tpu_torch.modules.mlp import MLP
 from torchrec_tpu_torch.sparse import KeyedTensor
@@ -62,6 +65,27 @@ class InteractionArch(nn.Module):
         inter = torch.bmm(combined, combined.transpose(1, 2))
         flat = inter[:, self.li, self.lj]
         return torch.cat([dense_features, flat], dim=1)
+
+
+class InteractionDCNArch(nn.Module):
+    """DCN-v2 interaction: the dense output and the pooled embeddings
+    concatenated to ``[B, (F + 1) * D]`` (in the wider of their dtypes),
+    then the cross net."""
+
+    def __init__(self, num_sparse_features: int, crossnet: nn.Module):
+        super().__init__()
+        self.num_sparse_features = num_sparse_features
+        self.crossnet = crossnet
+
+    def forward(
+        self, dense_features: torch.Tensor, sparse_features: torch.Tensor
+    ) -> torch.Tensor:
+        B = dense_features.shape[0]
+        dt = torch.promote_types(dense_features.dtype, sparse_features.dtype)
+        combined = torch.cat(
+            [dense_features[:, None, :].to(dt), sparse_features.to(dt)], dim=1
+        ).reshape(B, -1)
+        return self.crossnet(combined)
 
 
 class OverArch(nn.Module):
@@ -122,6 +146,44 @@ class DLRM(nn.Module):
         concat = self.inter_arch(embedded_dense, embedded_sparse)
         return self.over_arch(concat)
 
+    forward = forward_from_embeddings
+
+
+class DLRM_DCN(nn.Module):
+    """DLRM with the DCN-v2 low-rank cross interaction: the dense arch,
+    ``LowRankCrossNet(dcn_num_layers, dcn_low_rank_dim)`` over the
+    ``(F + 1) * D``-wide concat (float32), the over arch.  ``tables`` fix
+    the sparse feature count and the embedding dim, which the dense arch's
+    last layer must equal."""
+
+    def __init__(
+        self,
+        tables: Sequence[EmbeddingBagConfig],
+        dense_in_features: int,
+        dense_arch_layer_sizes: Sequence[int],
+        over_arch_layer_sizes: Sequence[int],
+        dcn_num_layers: int,
+        dcn_low_rank_dim: int,
+        dense_dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        num_features = sum(len(c.feature_names) for c in tables)
+        d = tables[0].embedding_dim
+        if dense_arch_layer_sizes[-1] != d:
+            raise ValueError(
+                f"dense arch output {dense_arch_layer_sizes[-1]} must match "
+                f"the embedding dim {d}"
+            )
+        width = (num_features + 1) * d
+        self.dense_arch = DenseArch(dense_in_features, dense_arch_layer_sizes,
+                                    dtype=dense_dtype)
+        self.inter_arch = InteractionDCNArch(
+            num_features,
+            LowRankCrossNet(width, dcn_num_layers, dcn_low_rank_dim))
+        self.over_arch = OverArch(width, over_arch_layer_sizes,
+                                  dtype=dense_dtype)
+
+    forward_from_embeddings = DLRM.forward_from_embeddings
     forward = forward_from_embeddings
 
 

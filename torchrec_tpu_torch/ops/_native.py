@@ -38,7 +38,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points per source: name -> argtypes (every pointer and the
 # stream are c_void_p, every size or flag a c_int, every scalar
-# hyperparameter a c_float; each returns cudaGetLastError())
+# hyperparameter a c_float; each launch returns cudaGetLastError(), and
+# fused_update_num_regs a register count)
 _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "tbe_quant.cu": {
         "tbe_q8_pooled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
@@ -49,8 +50,9 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "tbe_pooled": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "tbe_backward.cu": {
-        "fused_rowwise_adagrad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                  _F, _F, _I, _I, _I, _P),
+        "fused_update": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                         _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
+        "fused_update_num_regs": (_I, _I, _I),
     },
     "tbe_dedup.cu": {
         "dedup_pooled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

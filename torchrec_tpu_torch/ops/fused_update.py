@@ -8,10 +8,12 @@ runs one of the fused backward + optimizer kernels of
 row's weight and optimizer state are read and written once, in place.
 The kernel is an argument, where the JAX package reads a process-wide
 switch at trace time (``set_sparse_update_kernel``): ``"tbe"`` is the
-per-id kernel (the port of ``pallas_fused_sparse_update``), ported for
-rowwise Adagrad only, so the other seven optimizers raise
-``NotImplementedError`` there; ``"dedup"`` is the dedup kernel (the port
-of ``pallas_dedup_fused_sparse_update``), for all eight.
+per-id kernel (the port of ``pallas_fused_sparse_update``, B2) and
+``"dedup"`` the dedup kernel (the port of
+``pallas_dedup_fused_sparse_update``, B6), each for all eight optimizers.
+The Adam family's bias corrections are those of the incremented step, as
+the JAX package computes them for either kernel
+(``ops/fused_update.py:475-483``).
 
 State layouts, as in the JAX package:
 
@@ -102,19 +104,11 @@ class FusedOptimConfig:
     weight_decay: float = 0.0
 
 
-def require_kernel(config: FusedOptimConfig, update_kernel: str) -> None:
-    """Raise unless ``update_kernel`` has a kernel for the optimizer: the
-    dedup kernel has all eight, the per-id kernel rowwise Adagrad only."""
+def require_kernel(update_kernel: str) -> None:
+    """Raise unless ``update_kernel`` names a fused update kernel (both
+    take every optimizer)."""
     if update_kernel not in UPDATE_KERNELS:
         raise ValueError(f"unknown sparse-update kernel {update_kernel!r}")
-    if update_kernel == "tbe" and (
-        config.optim != EmbOptimType.ROWWISE_ADAGRAD
-    ):
-        raise NotImplementedError(
-            f"fused optimizer {config.optim.value}: the per-id kernel "
-            "(update_kernel='tbe') is ported for rowwise_adagrad only "
-            "(ROADMAP B2); the dedup kernel has all eight"
-        )
 
 
 def init_optimizer_state(
@@ -211,22 +205,23 @@ def apply_sparse_update_segments(
     (an int32) rounds a bfloat16 table stochastically; without one it
     rounds to nearest.  Returns ``(table, state)``, the inputs
     themselves."""
-    require_kernel(config, update_kernel)
+    require_kernel(update_kernel)
     seed = sr_seed if table.dtype == torch.bfloat16 else None
-    if update_kernel == "tbe":
-        fused_sparse_update(
-            table, state["momentum"], sg.ids, sg.valid, sg.segments,
-            sg.weights, sg.grad_seg, config.learning_rate, eps=config.eps,
-            weight_decay=config.weight_decay, sr_seed=seed,
-        )
-        return table, state
     step, hyp = _adam_hypers(config, state)
-    dedup_fused_sparse_update(
-        table, _states(config, state), sg.ids, sg.valid, sg.segments,
-        sg.weights, sg.grad_seg, config.optim.value, config.learning_rate,
-        eps=config.eps, weight_decay=config.weight_decay, sr_seed=seed,
-        **hyp,
-    )
+    states = _states(config, state)
+    kw = {"eps": config.eps, "weight_decay": config.weight_decay,
+          "sr_seed": seed, **hyp}
+    if update_kernel == "tbe":
+        adam = config.optim in ADAM_FAMILY
+        fused_sparse_update(
+            table, None if adam else state.get("momentum"), sg.ids,
+            sg.valid, sg.segments, sg.weights, sg.grad_seg,
+            config.learning_rate, optim=config.optim.value,
+            states=states if adam else None, **kw)
+    else:
+        dedup_fused_sparse_update(
+            table, states, sg.ids, sg.valid, sg.segments, sg.weights,
+            sg.grad_seg, config.optim.value, config.learning_rate, **kw)
     if hyp:
         state["step"] = step
     return table, state

@@ -50,7 +50,11 @@ from torchrec_tpu_torch.ops._native import (  # noqa: F401 (re-exported)
     launch_counts,
     reset_launch_counts,
 )
-from torchrec_tpu_torch.ops.embedding_ops import dedup_ids, dedup_inverse
+from torchrec_tpu_torch.ops.embedding_ops import (
+    dedup_ids,
+    dedup_inverse,
+    run_sums,
+)
 
 _SOURCE = "tbe_quant.cu"
 _FLOAT_SOURCE = "tbe_float.cu"
@@ -233,28 +237,11 @@ def pool_slot_order(
     vals: torch.Tensor, offsets: torch.Tensor
 ) -> torch.Tensor:
     """Sum the segment-sorted rows ``vals[offsets[s]:offsets[s+1]]`` of
-    each segment in slot order: pad to [S, Lmax, D] and add column by
-    column, so every add is the kernels' ``acc = acc + v`` in their
-    order.  Empty segments give zeros."""
-    S = offsets.shape[0] - 1
-    counts = offsets[1:] - offsets[:-1]
-    n = int(offsets[-1])
-    D = vals.shape[1]
-    acc = torch.zeros((S, D), dtype=torch.float32, device=vals.device)
-    if n == 0:
-        return acc
-    seg = torch.repeat_interleave(
-        torch.arange(S, device=vals.device), counts, output_size=n
-    )
-    pos = torch.arange(n, device=vals.device) - offsets[seg]
-    lmax = int(counts.max())
-    padded = torch.zeros(
-        (S, lmax, D), dtype=torch.float32, device=vals.device
-    )
-    padded[seg, pos] = vals[:n]
-    for j in range(lmax):
-        acc = acc + padded[:, j]
-    return acc
+    each segment in slot order (``embedding_ops.run_sums``: every add is
+    the kernels' ``acc = acc + v`` in their order, on ``[segments still
+    open, D]``, so a few long segments cost no padding).  Empty segments
+    give zeros."""
+    return run_sums(vals, offsets[:-1], offsets[1:] - offsets[:-1])
 
 
 def pooled_lookup_plain(
@@ -269,7 +256,8 @@ def pooled_lookup_plain(
     sids, sw, offsets = sort_by_segment(
         ids, segments, weights, num_segments, table.shape[0]
     )
-    vals = table[sids].to(torch.float32) * sw[:, None]
+    n = int(offsets[-1])  # the valid slots sort first
+    vals = table[sids[:n]].to(torch.float32) * sw[:n, None]
     return pool_slot_order(vals, offsets).to(table.dtype)
 
 

@@ -3,17 +3,16 @@ wrappers and their plain PyTorch versions.
 
 Replace, from the JAX package's ``torchrec_tpu/ops/pallas_tbe_backward.py``:
 
-* ``pallas_fused_sparse_update`` with ``optim="rowwise_adagrad"`` (kernel
-  body ``_bwd_body``, input preparation ``_sort_by_row``, noise
-  ``_hash_bits``) by :func:`fused_sparse_update` (B2,
-  ``csrc/tbe_backward.cu``).  Its other seven optimizers (adagrad, sgd,
-  lars_sgd, adam, lamb, partial_rowwise_adam, partial_rowwise_lamb) are
-  not ported yet.
+* ``pallas_fused_sparse_update`` (kernel body ``_bwd_body``, input
+  preparation ``_sort_by_row``, noise ``_hash_bits``) by
+  :func:`fused_sparse_update` (B2, ``csrc/tbe_backward.cu``), for all eight
+  optimizers in ``_bwd_body``'s own op order.
 * ``pallas_dedup_fused_sparse_update`` (``pallas_fused_sparse_update(
   dedup=True)``, kernel body ``_dedup_bwd_body``) by
   :func:`dedup_fused_sparse_update` (B6, ``csrc/tbe_dedup_backward.cu``),
-  for all eight optimizers.  Its ``id_cap`` sizes the TPU kernel's grid
-  and has no counterpart: the port's grid covers the slots it is given.
+  for all eight optimizers in the XLA path's op order.  Its ``id_cap``
+  sizes the TPU kernel's grid and has no counterpart: the port's grid
+  covers the slots it is given.
 
 The kernels' headers say what bounds them and how they are laid out;
 ``ops/_native.py`` builds and loads them.  Each wrapper checks devices,
@@ -27,11 +26,15 @@ which the caller donates).
 The plain versions sum each row's gradient in slot order, reduce every
 mean and norm over D in the kernels' fixed lane/butterfly order and round
 every operation separately, so on the card each kernel and its plain
-version are bitwise equal.  B2's plain version agrees with the JAX kernel
-to a tolerance (its mean reduces in an order XLA does not pin down, and
-its op order is its own); B6's is ``embedding_row_grads`` +
-``aggregate_duplicate_rows`` + the optimizer math of the JAX package's
-``apply_sparse_update``, in that function's op order.
+version are bitwise equal.  Both run the optimizer step of
+:func:`update_rows`, in the op order of their JAX kernel, which differs in
+two places: B2 scales rowwise Adagrad's gradient by ``(-lr) / (sqrt(m) +
+eps)`` and rounds the Adam family's ``1 - beta`` in float32 from the
+float32 beta, as ``_bwd_body`` does; B6 follows ``apply_sparse_update``.
+B2's plain version agrees with the JAX kernel to a tolerance (its means
+and norms reduce in an order XLA does not pin down); B6's is
+``embedding_row_grads`` + ``aggregate_duplicate_rows`` + the optimizer
+math of the JAX package's ``apply_sparse_update``.
 """
 
 from __future__ import annotations
@@ -202,62 +205,7 @@ def mean_of_squares(g: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# plain version
-# ---------------------------------------------------------------------------
-
-
-def _f32(x: Scalar, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32).to(device)
-
-
-def fused_sparse_update_plain(
-    table: torch.Tensor,
-    momentum: torch.Tensor,
-    ids: torch.Tensor,
-    valid: torch.Tensor,
-    segments: torch.Tensor,
-    weights: Optional[torch.Tensor],
-    grad_seg: torch.Tensor,
-    learning_rate: Scalar,
-    eps: float = 1.0e-8,
-    weight_decay: float = 0.0,
-    sr_seed: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`fused_sparse_update`: the kept slots sorted
-    by row, each row's weighted gradient rows summed in slot order
-    (``embedding_ops.run_sums``, one host sync), then the update."""
-    R = table.shape[0]
-    dev = table.device
-    srows, ssegs, sw = sort_by_row(ids, valid, segments, weights, R,
-                                   grad_seg.shape[0])
-    rows = srows[srows < R]
-    n = rows.shape[0]
-    if n == 0:
-        return table, momentum
-    first = torch.ones((n,), dtype=torch.bool, device=dev)
-    first[1:] = rows[1:] != rows[:-1]
-    starts = torch.nonzero(first).flatten()
-    lengths = torch.diff(starts, append=starts.new_tensor([n]))
-    urows = rows[starts].to(torch.int64)
-    g = run_sums(grad_seg[ssegs[:n].to(torch.int64)] * sw[:n, None], starts,
-                 lengths)
-
-    w = table[urows].to(torch.float32)
-    if weight_decay:
-        g = g + _f32(weight_decay, dev) * w
-    m_new = momentum[urows] + mean_of_squares(g)
-    scale = -_f32(learning_rate, dev) / (torch.sqrt(m_new) + _f32(eps, dev))
-    new = w + scale[:, None] * g
-    if table.dtype == torch.bfloat16:
-        table[urows] = round_to_bf16(new, urows, sr_seed)
-    else:
-        table[urows] = new
-    momentum[urows] = m_new
-    return table, momentum
-
-
-# ---------------------------------------------------------------------------
-# kernel wrapper
+# argument checks (both wrappers)
 # ---------------------------------------------------------------------------
 
 
@@ -336,84 +284,13 @@ def _aligned_grad(grad_seg: torch.Tensor) -> torch.Tensor:
     return grad
 
 
-def launch_fused_sparse_update(
-    table: torch.Tensor,
-    momentum: torch.Tensor,
-    srows: torch.Tensor,
-    ssegs: torch.Tensor,
-    sw: torch.Tensor,
-    grad_seg: torch.Tensor,
-    learning_rate: Scalar,
-    eps: float,
-    weight_decay: float,
-    sr_seed: Optional[int],
-) -> None:
-    """Launch the kernel on prepared inputs (the output of
-    :func:`sort_by_row`, at least one slot); updates table and momentum in
-    place."""
-    R, D = table.shape
-    if D > MAX_DIM:
-        raise ValueError(f"the fused update kernel takes D <= {MAX_DIM}, "
-                         f"got {D}")
-    lib = _native.load_library(_SOURCE)
-    grad = _aligned_grad(grad_seg)
-    srows = srows.contiguous()
-    ssegs = ssegs.contiguous()
-    sw = sw.contiguous()
-    use_sr = table.dtype == torch.bfloat16 and sr_seed is not None
-    with torch.cuda.device(table.device):
-        err = lib.fused_rowwise_adagrad(
-            srows.data_ptr(), ssegs.data_ptr(), sw.data_ptr(),
-            grad.data_ptr(), table.data_ptr(), momentum.data_ptr(),
-            srows.shape[0], R, D, float(learning_rate), float(eps),
-            float(weight_decay), FLOAT_DTYPES[table.dtype], int(use_sr),
-            int(sr_seed) if use_sr else 0,
-            torch.cuda.current_stream(table.device).cuda_stream,
-        )
-    _native.check_launch("fused_rowwise_adagrad", err)
-    count_launch("fused_sparse_update")
-
-
-def fused_sparse_update(
-    table: torch.Tensor,  # [R, D] float32 or bfloat16, updated in place
-    momentum: torch.Tensor,  # [R] float32, updated in place
-    ids: torch.Tensor,  # [V] table-local row ids
-    valid: torch.Tensor,  # [V] bool
-    segments: torch.Tensor,  # [V] the grad_seg row each slot pooled into
-    weights: Optional[torch.Tensor],  # [V] float32 or None
-    grad_seg: torch.Tensor,  # [S, D] float32 upstream pooled gradient
-    learning_rate: Scalar,
-    eps: float = 1.0e-8,
-    weight_decay: float = 0.0,
-    sr_seed: Optional[int] = None,  # int32; bfloat16 tables only
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-pass fused backward + rowwise Adagrad: for each distinct row
-    among the kept slots (``valid``, segment in ``[0, S)``, row in
-    ``[0, R)``), ``g = sum_i w_i * grad_seg[seg_i]`` in slot order (plus
-    ``weight_decay * w``), ``m += mean(g * g)``, ``w += (-lr / (sqrt(m) +
-    eps)) * g``.  A bfloat16 table is written back with stochastic rounding
-    when ``sr_seed`` is given.  Returns ``(table, momentum)``, the inputs
-    themselves, updated in place."""
-    dev = _check_inputs(table, (momentum,), ("row",), ids, valid, segments,
-                        weights, grad_seg, sr_seed)
-    if dev.type == "cpu":
-        return fused_sparse_update_plain(
-            table, momentum, ids, valid, segments, weights, grad_seg,
-            learning_rate, eps, weight_decay, sr_seed,
-        )
-    _require_cuda(dev)
-    if ids.shape[0] == 0:
-        return table, momentum
-    srows, ssegs, sw = sort_by_row(ids, valid, segments, weights,
-                                   table.shape[0], grad_seg.shape[0])
-    launch_fused_sparse_update(table, momentum, srows, ssegs, sw, grad_seg,
-                               learning_rate, eps, weight_decay, sr_seed)
-    return table, momentum
-
-
 # ---------------------------------------------------------------------------
-# B6: the dedup fused backward + optimizer, all eight optimizers
+# the optimizer step of both plain versions
 # ---------------------------------------------------------------------------
+
+
+def _f32(x: Scalar, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32).to(device)
 
 
 def _trust_ratio(a_norm: torch.Tensor, b_norm: torch.Tensor) -> torch.Tensor:
@@ -437,17 +314,20 @@ def update_rows(
     betas: Tuple[float, float],
     bias_corrections: Tuple[float, float],
     sr_seed: Optional[int],
+    per_id: bool = False,
 ) -> None:
-    """The optimizer step of the JAX package's ``apply_sparse_update`` on
-    the distinct ``rows`` [U] with their aggregated float32 gradients
-    ``g`` [U, D], in place, in that function's op order with every
-    operation rounded on its own: weight decay ``g + wd * w``, then the
-    optimizer's math (``csrc/tbe_dedup_backward.cu`` lists it), then
-    ``w + delta`` written back (a bfloat16 table stochastically rounded
-    when ``sr_seed`` is given).  Means and norms over D reduce in the
-    kernels' order (:func:`sum_of_squares`); ``(1 - beta)`` is rounded
-    from a double; ``bias_corrections`` are the host's ``(1 - b1**t,
-    1 - b2**t)`` for the adam family."""
+    """One optimizer step on the distinct ``rows`` [U] with their summed
+    float32 gradients ``g`` [U, D], in place, with every operation
+    rounded on its own: weight decay ``g + wd * w``, then the optimizer's
+    math (``csrc/backward_common.cuh::update_row`` lists it), then ``w +
+    delta`` written back (a bfloat16 table stochastically rounded when
+    ``sr_seed`` is given).  Means and norms over D reduce in the kernels'
+    order (:func:`sum_of_squares`); ``bias_corrections`` are the host's
+    ``(1 - b1**t, 1 - b2**t)`` for the adam family.  The op order is the
+    JAX package's ``apply_sparse_update`` (B6's), or with ``per_id`` that
+    of ``_bwd_body`` (B2's): rowwise Adagrad's ``((-lr) / (sqrt(m) +
+    eps)) * g`` and ``1 - beta`` rounded in float32 (``apply_sparse_update``
+    rounds it from a double)."""
     dev, D = table.device, table.shape[1]
     w = table[rows].to(torch.float32)
     if weight_decay:
@@ -465,22 +345,29 @@ def update_rows(
         states[0][rows] = m
     elif optim == "rowwise_adagrad":
         m = states[0][rows] + mean_of_squares(g)
-        scale = _div(torch.ones_like(m), torch.sqrt(m) + _f32(eps, dev))
-        delta = (neg_lr * g) * scale[:, None]
+        den = torch.sqrt(m) + _f32(eps, dev)
+        if per_id:
+            delta = (neg_lr / den)[:, None] * g
+        else:
+            delta = (neg_lr * g) * _div(torch.ones_like(m), den)[:, None]
         states[0][rows] = m
     else:  # the adam family
         (b1, b2), (bc1, bc2) = betas, bias_corrections
-        m = (_f32(b1, dev) * states[0][rows]
-             + _f32(1.0 - b1, dev) * g)
+        if per_id:
+            omb1 = _f32(1.0, dev) - _f32(b1, dev)
+            omb2 = _f32(1.0, dev) - _f32(b2, dev)
+        else:
+            omb1, omb2 = _f32(1.0 - b1, dev), _f32(1.0 - b2, dev)
+        m = _f32(b1, dev) * states[0][rows] + omb1 * g
         sqbc2 = torch.sqrt(_f32(bc2, dev))
         if optim.startswith("partial_rowwise"):
             v = (_f32(b2, dev) * states[1][rows]
-                 + _f32(1.0 - b2, dev) * mean_of_squares(g))
+                 + omb2 * mean_of_squares(g))
             vpe = _div(torch.sqrt(v), sqbc2) + _f32(eps, dev)
             direction = _div(m, bc1) / vpe[:, None].expand_as(m)
         else:
             v = (_f32(b2, dev) * states[1][rows]
-                 + (_f32(1.0 - b2, dev) * g) * g)
+                 + (omb2 * g) * g)
             vpe = _div(torch.sqrt(v), sqbc2) + _f32(eps, dev)
             direction = _div(m, bc1) / vpe
         if optim.endswith("lamb"):
@@ -495,6 +382,183 @@ def update_rows(
         table[rows] = round_to_bf16(new, rows, sr_seed)
     else:
         table[rows] = new
+
+
+# ---------------------------------------------------------------------------
+# B2: the per-id fused backward + optimizer, all eight optimizers
+# ---------------------------------------------------------------------------
+
+
+def _states_of(
+    optim: str,
+    momentum: Optional[torch.Tensor],
+    states: Optional[Sequence[torch.Tensor]],
+) -> Tuple[torch.Tensor, ...]:
+    """The optimizer's state arrays in :data:`STATE_LAYOUTS` order, from
+    the JAX package's arguments: ``momentum`` for the adagrads, ``states =
+    (m, v)`` for the Adam family, none for sgd and lars_sgd."""
+    if optim not in OPTIMIZERS:
+        raise ValueError(f"unknown fused optimizer {optim!r}")
+    n = len(STATE_LAYOUTS[optim])
+    if n == 1:
+        if momentum is None:
+            raise ValueError(f"{optim} needs momentum")
+        return (momentum,)
+    if n == 2:
+        if states is None or len(states) != 2:
+            raise ValueError(f"{optim} needs states=(m, v)")
+        return tuple(states)
+    return ()
+
+
+def fused_sparse_update_plain(
+    table: torch.Tensor,
+    momentum: Optional[torch.Tensor],
+    ids: torch.Tensor,
+    valid: torch.Tensor,
+    segments: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    grad_seg: torch.Tensor,
+    learning_rate: Scalar,
+    eps: float = 1.0e-8,
+    weight_decay: float = 0.0,
+    sr_seed: Optional[int] = None,
+    optim: str = "rowwise_adagrad",
+    states: Optional[Sequence[torch.Tensor]] = None,
+    betas: Tuple[float, float] = (0.9, 0.999),
+    bias_corrections: Tuple[float, float] = (1.0, 1.0),
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Plain version of :func:`fused_sparse_update`: the kept slots sorted
+    by row, each row's weighted gradient rows summed in slot order
+    (``embedding_ops.run_sums``, one host sync), then :func:`update_rows`
+    in B2's op order."""
+    st = _states_of(optim, momentum, states)
+    R = table.shape[0]
+    dev = table.device
+    srows, ssegs, sw = sort_by_row(ids, valid, segments, weights, R,
+                                   grad_seg.shape[0])
+    rows = srows[srows < R]
+    n = rows.shape[0]
+    if n == 0:
+        return table, st
+    first = torch.ones((n,), dtype=torch.bool, device=dev)
+    first[1:] = rows[1:] != rows[:-1]
+    starts = torch.nonzero(first).flatten()
+    lengths = torch.diff(starts, append=starts.new_tensor([n]))
+    urows = rows[starts].to(torch.int64)
+    g = run_sums(grad_seg[ssegs[:n].to(torch.int64)] * sw[:n, None], starts,
+                 lengths)
+    update_rows(optim, table, st, urows, g, learning_rate, eps,
+                weight_decay, betas, bias_corrections, sr_seed, per_id=True)
+    return table, st
+
+
+def launch_fused_sparse_update(
+    table: torch.Tensor,
+    states: Sequence[torch.Tensor],
+    srows: torch.Tensor,
+    ssegs: torch.Tensor,
+    sw: torch.Tensor,
+    grad_seg: torch.Tensor,
+    optim: str,
+    learning_rate: Scalar,
+    eps: float,
+    weight_decay: float,
+    betas: Tuple[float, float],
+    bias_corrections: Tuple[float, float],
+    sr_seed: Optional[int],
+) -> None:
+    """Launch the B2 kernel on prepared inputs (the output of
+    :func:`sort_by_row`, at least one slot); updates the table and the
+    states in place."""
+    R, D = table.shape
+    if D > MAX_DIM:
+        raise ValueError(f"the fused update kernels take D <= {MAX_DIM}, "
+                         f"got {D}")
+    lib = _native.load_library(_SOURCE)
+    grad = _aligned_grad(grad_seg)
+    srows, ssegs, sw = srows.contiguous(), ssegs.contiguous(), sw.contiguous()
+    ptrs = [st.data_ptr() for st in states] + [0] * (2 - len(states))
+    use_sr = table.dtype == torch.bfloat16 and sr_seed is not None
+    (b1, b2), (bc1, bc2) = betas, bias_corrections
+    with torch.cuda.device(table.device):
+        err = lib.fused_update(
+            srows.data_ptr(), ssegs.data_ptr(), sw.data_ptr(),
+            grad.data_ptr(), table.data_ptr(), ptrs[0], ptrs[1],
+            srows.shape[0], R, D, OPTIMIZERS.index(optim),
+            float(learning_rate), float(eps), float(weight_decay),
+            float(b1), float(b2), float(bc1), float(bc2),
+            FLOAT_DTYPES[table.dtype], int(use_sr),
+            int(sr_seed) if use_sr else 0,
+            torch.cuda.current_stream(table.device).cuda_stream,
+        )
+    _native.check_launch("fused_update", err)
+    count_launch("fused_sparse_update")
+
+
+def fused_update_registers(optim: str, dtype: torch.dtype, dim: int) -> int:
+    """The registers per thread of the B2 instantiation that a table of
+    ``dtype`` and width ``dim`` takes with ``optim`` (builds the kernel)."""
+    lib = _native.load_library(_SOURCE)
+    regs = lib.fused_update_num_regs(OPTIMIZERS.index(optim),
+                                     FLOAT_DTYPES[dtype], int(dim % 4 == 0))
+    if regs < 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: error {-regs}")
+    return regs
+
+
+def fused_sparse_update(
+    table: torch.Tensor,  # [R, D] float32 or bfloat16, updated in place
+    momentum: Optional[torch.Tensor],  # the adagrads' [R] / [R, D] float32
+    ids: torch.Tensor,  # [V] table-local row ids
+    valid: torch.Tensor,  # [V] bool
+    segments: torch.Tensor,  # [V] the grad_seg row each slot pooled into
+    weights: Optional[torch.Tensor],  # [V] float32 or None
+    grad_seg: torch.Tensor,  # [S, D] float32 upstream pooled gradient
+    learning_rate: Scalar,
+    eps: float = 1.0e-8,
+    weight_decay: float = 0.0,
+    sr_seed: Optional[int] = None,  # int32; bfloat16 tables only
+    optim: str = "rowwise_adagrad",
+    states: Optional[Sequence[torch.Tensor]] = None,  # the Adam family's
+    betas: Tuple[float, float] = (0.9, 0.999),
+    bias_corrections: Tuple[float, float] = (1.0, 1.0),
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One-pass fused backward + optimizer (the JAX package's
+    ``pallas_fused_sparse_update``): for each distinct row among the kept
+    slots (``valid``, segment in ``[0, S)``, row in ``[0, R)``), ``g =
+    sum_i w_i * grad_seg[seg_i]`` in slot order (plus ``weight_decay *
+    w``), then one step of ``optim`` (one of :data:`OPTIMIZERS`) in
+    ``_bwd_body``'s op order on the row and its float32 states:
+    ``momentum`` (``[R]`` for rowwise Adagrad, ``[R, D]`` for Adagrad),
+    ``states = (m, v)`` for the Adam family (``v`` ``[R]`` for the
+    partial-rowwise pair), none for sgd and lars_sgd.  The Adam family's
+    ``bias_corrections`` are ``(1 - b1**t, 1 - b2**t)`` for the caller's
+    incremented step ``t``.  A bfloat16 table is written back with
+    stochastic rounding when ``sr_seed`` is given.  Returns ``(table,
+    state arrays)``, the inputs themselves, updated in place."""
+    st = _states_of(optim, momentum, states)
+    dev = _check_inputs(table, st, STATE_LAYOUTS[optim], ids, valid,
+                        segments, weights, grad_seg, sr_seed)
+    args = (optim, learning_rate, eps, weight_decay, betas,
+            bias_corrections, sr_seed)
+    if dev.type == "cpu":
+        return fused_sparse_update_plain(
+            table, momentum, ids, valid, segments, weights, grad_seg,
+            learning_rate, eps, weight_decay, sr_seed, optim, states, betas,
+            bias_corrections)
+    _require_cuda(dev)
+    if ids.shape[0] == 0:
+        return table, st
+    srows, ssegs, sw = sort_by_row(ids, valid, segments, weights,
+                                   table.shape[0], grad_seg.shape[0])
+    launch_fused_sparse_update(table, st, srows, ssegs, sw, grad_seg, *args)
+    return table, st
+
+
+# ---------------------------------------------------------------------------
+# B6: the dedup fused backward + optimizer, all eight optimizers
+# ---------------------------------------------------------------------------
 
 
 def dedup_fused_sparse_update_plain(

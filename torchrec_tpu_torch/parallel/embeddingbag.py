@@ -6,7 +6,8 @@ group's lookup (a pooled kernel of ``ops/tbe.py``) and the backward
 feeds each group's segment-level gradient to the fused update (a kernel
 of ``ops/tbe_backward.py``), which writes the stacks and their optimizer
 state in place.  The caller names both kernels (``lookup_kernel``,
-``update_kernel``: ``"tbe"`` or ``"dedup"``).
+``update_kernel``: ``"tbe"`` or ``"dedup"``); both update kernels take
+all eight fused optimizers.
 
 Ported for TABLE_WISE groups on one device.  Left out: row-wise,
 table-row-wise and data-parallel groups, the dedup and hierarchical

@@ -133,7 +133,10 @@ class GroupedShardingBase:
     def init_fused_state(
         self, config: FusedOptimConfig, device=None
     ) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Fused-optimizer state per group, in the stack's row layout."""
+        """Fused-optimizer state per group, in the stack's row layout and
+        the optimizer's layout of ``ops/fused_update.py`` (rowwise
+        Adagrad's ``[R]`` momentum, Adagrad's ``[R, D]``, the Adam
+        family's ``m``, ``v`` and ``step``)."""
         return {
             name: init_optimizer_state(config, lay.world_size * lay.r_stack,
                                        lay.dim, device)

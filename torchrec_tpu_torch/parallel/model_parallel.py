@@ -4,7 +4,7 @@ dense-data-parallel train step (a subset of
 
 The train state is a dict with the JAX package's keys::
 
-    {"dense": {param name: tensor},      # the DLRM's parameters
+    {"dense": {param name: tensor},      # the model's parameters
      "dense_opt": {param name: tensor},  # Adagrad sum_of_squares
      "tables": {group: [rows, D] stack}, # float32 or bfloat16
      "fused": {group: optimizer state},  # ops/fused_update.py's layouts,
@@ -42,7 +42,6 @@ IO helpers and the overflow / guardrail metrics.
 
 from __future__ import annotations
 
-import math
 import copy
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -52,6 +51,7 @@ from torch import nn
 
 from torchrec_tpu_torch.datasets.utils import Batch
 from torchrec_tpu_torch.models.dlrm import bce_with_logits_loss
+from torchrec_tpu_torch.modules.crossnet import lecun_normal_
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
 from torchrec_tpu_torch.ops.embedding_ops import POOLED_KERNELS
 from torchrec_tpu_torch.ops.fused_update import (
@@ -69,9 +69,6 @@ from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 State = Dict[str, Any]
 SR_SEED_BASE = 0x5EED
 _INT32_MAX = 2**31 - 1
-# flax's lecun_normal: a normal truncated to +-2 standard deviations,
-# rescaled by this constant so that its variance is 1 / fan_in
-_TRUNC_STD = 0.87962566103423978
 
 
 def stack_batches(batches: Sequence[Batch]) -> Batch:
@@ -90,16 +87,18 @@ class DistributedModelParallel:
     """Compile a (model, plan) pair into init and train-step functions on
     one device.
 
-    ``model`` is the port's ``DLRM`` (anything whose ``forward`` is
-    ``forward_from_embeddings(dense, kt)``); ``plan`` is a one-device
+    ``model`` is the port's ``DLRM`` or ``DLRM_DCN`` (anything whose
+    ``forward`` is ``forward_from_embeddings(dense, kt)``, with its
+    parameters in the layout of ``convert.py``); ``plan`` is a one-device
     plan (``types.table_wise_plan``); ``dense_optimizer`` is an
     :class:`~torchrec_tpu_torch.optim.adagrad.Adagrad` (default
     ``adagrad(fused_config.learning_rate)``); ``table_dtype`` is the
     stacks' dtype, float32 or bfloat16 (the momentum stays float32 and
     bfloat16 write-backs round stochastically); ``lookup_kernel`` and
-    ``update_kernel`` name the kernels (module docstring; the per-id
-    update kernel takes rowwise Adagrad only and raises
-    ``NotImplementedError`` for the other optimizers).  The step runs on
+    ``update_kernel`` name the kernels (module docstring; both update
+    kernels take all eight fused optimizers, whose states
+    ``init`` allocates: an ``[R, D]`` momentum for Adagrad, ``m`` and
+    ``v`` for the Adam family).  The step runs on
     ``device``: CUDA unless the caller names another, and it raises
     without a card."""
 
@@ -138,7 +137,7 @@ class DistributedModelParallel:
         if lookup_kernel not in POOLED_KERNELS:
             raise ValueError(
                 f"unknown pooled-lookup kernel {lookup_kernel!r}")
-        require_kernel(self.fused_config, update_kernel)
+        require_kernel(update_kernel)
         self.lookup_kernel = lookup_kernel
         self.update_kernel = update_kernel
 
@@ -169,16 +168,19 @@ class DistributedModelParallel:
     # -- state -------------------------------------------------------------
 
     def _init_dense(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """flax ``Dense`` defaults from ``generator``: every weight
-        lecun-normal (variance 1 / fan_in, truncated at two standard
-        deviations), every bias zero."""
+        """flax's defaults from ``generator``, in parameter order: every
+        matrix lecun-normal (variance 1 / fan_in, truncated at two standard
+        deviations), every bias zero.  fan_in is flax's ``shape[-2]`` of
+        the flax layout: an ``nn.Linear.weight`` is a transposed flax
+        ``kernel``, so its ``shape[1]``; any other matrix (the cross net's
+        ``w_l`` and ``v_l``) is stored as flax has it, so its
+        ``shape[0]``."""
         out = {}
         for name, p in self.model.named_parameters():
             t = torch.zeros(p.shape, dtype=torch.float32, device=self.device)
-            if name.endswith("weight"):
-                std = math.sqrt(1.0 / p.shape[1]) / _TRUNC_STD
-                nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
+            if p.dim() == 2:
+                fan_in = p.shape[1] if name.endswith("weight") else p.shape[0]
+                lecun_normal_(t, fan_in, generator)
             out[name] = t
         return out
 

@@ -46,8 +46,9 @@ _QUANTIZERS = {
 def _check_data_type(data_type: DataType) -> None:
     if data_type in (DataType.FP16, DataType.BF16):
         raise NotImplementedError(
-            f"{data_type.name} serving tables need the float pooled-lookup "
-            "kernel, which the port does not have yet"
+            f"{data_type.name} serving tables are not ported: the "
+            "collection's float path and the artifact's float format are "
+            "still to come (the float pooled lookup, B1, exists)"
         )
     if data_type not in _QUANTIZERS:
         raise NotImplementedError(f"no quantized lookup for {data_type}")
