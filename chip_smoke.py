@@ -19,6 +19,9 @@ Phases, one JSON line each on stdout; any failure raises:
    DLRM-v2 multi-hot lengths, a 1M-row table, uniform and Zipf ids; with
    its time, its plain version's, ``F.embedding_bag`` over the
    pre-dequantized float32 table as a yardstick, and the memory bound;
+   the kernel's and the yardstick's times both with the host's launch
+   work in (``kernel_ms``, ``library_ms``) and of the card alone
+   (``kernel_device_ms``, ``library_device_ms``);
 3. train — the training main path: ``DistributedModelParallel`` at the
    configuration of ``bench.py main()`` (26 tables of 100,000 x 128, SUM,
    float32, one table-wise group; B=4096 from ``RandomRecDataset`` with
@@ -94,12 +97,17 @@ Phases, one JSON line each on stdout; any failure raises:
    row counts (204,184,588 rows); first each kernel against its plain
    version (``torch.equal``) on every feature of one formed batch (B=256)
    over those tables, uniform and Zipf ids, int8 and the int4/int2 views
-   of the same codes, with row offsets past 2^31 bytes; then behind
-   ``InferenceServer`` with eight
+   of the same codes, with row offsets past 2^31 bytes; the collection's
+   forward on one formed batch under ``torch.cuda.set_sync_debug_mode(
+   "error")`` (no host sync); then behind ``InferenceServer`` with eight
    client threads, once with the int8 TBE kernel and once with the dedup
-   kernel on Zipf ids; then ``serving_fn`` alone at B=4096, and a
-   ``torch.profiler`` breakdown of one served batch (B=256): wall time,
-   device busy time and idle share, the kernels that take the time;
+   kernel on Zipf ids (one grouped launch per batch and nothing else);
+   then ``serving_fn`` alone at B=4096, a ``torch.profiler`` breakdown of
+   one served batch (B=256): wall time, device busy time and idle share,
+   the kernels that take the time; and last the grouped launches (all 26
+   features of a batch in one launch) against their plain versions at
+   the served B=256 and the B=4096 batch, int8 and the int4/int2 views,
+   uniform and Zipf ids, with times and bounds;
 7. roundtrip — ``package_model`` at 10k rows per table, loaded on the
    card and on the CPU, scores compared.
 
@@ -159,6 +167,9 @@ REPLACES = {
 }
 
 KERNEL_ROWS = 1_000_000
+# cuda_ms(device_only=True): the spin that hides the host's launch time
+# (about 1.1 ms at the H100's 1.755 GHz boost clock)
+SPIN_CYCLES = 2_000_000
 KERNEL_SEGMENTS = 4096
 DIM = 128
 NUM_DENSE = 13
@@ -223,12 +234,17 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, flush, runs: int = 20, warmup: int = 3, setup=None) -> float:
-    """Median device time of ``fn`` over ``runs`` calls after ``warmup``,
-    by CUDA events; ``flush`` (a 128 MB buffer) is rewritten before each
-    timed call, outside the events, so no call finds the previous call's
-    rows in the 50 MB L2.  ``setup`` (if given) runs before each call,
-    outside the events too: it restores what an in-place ``fn`` wrote."""
+def cuda_ms(fn, flush, runs: int = 20, warmup: int = 3, setup=None,
+            device_only: bool = False) -> float:
+    """Median time of ``fn`` over ``runs`` calls after ``warmup``, by CUDA
+    events; ``flush`` (a 128 MB buffer) is rewritten before each timed
+    call, outside the events, so no call finds the previous call's rows in
+    the 50 MB L2.  ``setup`` (if given) runs before each call, outside the
+    events too: it restores what an in-place ``fn`` wrote.  By default the
+    events also take in the host's time to launch ``fn``'s work whenever
+    the card waits for it; ``device_only`` first queues a ~1 ms spin on
+    the card, so the host has queued ``fn``'s work before the start event
+    and the events time the card alone."""
     import torch
 
     for _ in range(warmup):
@@ -241,6 +257,8 @@ def cuda_ms(fn, flush, runs: int = 20, warmup: int = 3, setup=None) -> float:
         if setup is not None:
             setup()
         flush.zero_()
+        if device_only:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -249,6 +267,19 @@ def cuda_ms(fn, flush, runs: int = 20, warmup: int = 3, setup=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def peak_bytes(fn) -> int:
+    """The card memory that one call of ``fn`` allocates at its peak above
+    what was allocated before it (its output included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
 
 
 def zipf_ids(rng: np.random.RandomState, size: int, rows: int) -> np.ndarray:
@@ -313,9 +344,10 @@ def kernel_phase(dev, flush):
             flops = 4 * V * D
             bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             flops_ms = flops / PEAK_F32_FLOPS * 1e3
-            lib_ms = cuda_ms(
-                lambda: F.embedding_bag(ids, deq, offsets, mode="sum",
-                                        per_sample_weights=w), flush)
+            library = lambda: F.embedding_bag(  # noqa: E731
+                ids, deq, offsets, mode="sum", per_sample_weights=w)
+            lib_ms = cuda_ms(library, flush)
+            lib_device_ms = cuda_ms(library, flush, device_only=True)
             lib_out = F.embedding_bag(ids, deq, offsets, mode="sum",
                                       per_sample_weights=w)
             for name, wrapper, plain, kw in kernels:
@@ -335,7 +367,7 @@ def kernel_phase(dev, flush):
                     launch = lambda: tbe.launch_q8_pooled(  # noqa: E731
                         packed, scale, bias, *prep)
                 else:
-                    prep = tbe.dedup_prepare(ids, segs, w, S, R)
+                    prep = tbe.dedup_prepare_sized(ids, segs, w, S)
                     launch = lambda: tbe.launch_dedup_q(  # noqa: E731
                         packed, scale, bias, *prep, bits)
                 rec = {
@@ -344,8 +376,11 @@ def kernel_phase(dev, flush):
                     "distinct": U, "equal": equal, "max_abs_err": err,
                     "ms": cuda_ms(lambda: wrapper(*args, **kw), flush),
                     "kernel_ms": cuda_ms(launch, flush),
+                    "kernel_device_ms": cuda_ms(launch, flush,
+                                                device_only=True),
                     "plain_ms": cuda_ms(lambda: plain(*args, **kw), flush),
                     "library_ms": lib_ms,
+                    "library_device_ms": lib_device_ms,
                     "library_max_abs_diff": float(
                         (lib_out - got).abs().max()),
                     "bytes": nbytes, "flops": flops,
@@ -1705,7 +1740,7 @@ def path_kernel_phase(dev, tables, params, kjt, zipf_seed):
                 for dist, base in (("uniform", uni), ("zipf", zipf)):
                     ids = base * per + (per - 1)
                     vids = ids[valid]
-                    far = int((vids * packed.shape[1] >= 2**31).sum())
+                    far = int((vids * packed.shape[1] >= FAR_BYTES).sum())
                     top = int(vids.max()) if vids.numel() else -1
                     for name, wrapper, plain, kw in runs:
                         got = wrapper(packed, scale, bias, ids, seg, B, **kw)
@@ -1739,6 +1774,163 @@ def path_kernel_phase(dev, tables, params, kjt, zipf_seed):
         raise AssertionError(f"{near}: no row offset of the served batch "
                              "passed 2^31 bytes")
     return recs
+
+
+# (kernel, packed bits) of the grouped rows: the int8 lookup and the dedup
+# lookup at every packed width
+GROUPED_KERNELS = (("tbe", 8), ("dedup", 8), ("dedup", 4), ("dedup", 2))
+
+
+def grouped_phase(dev, tables, params, batches, zipf_seed):
+    """The grouped lookups (every feature of a formed batch in one launch,
+    as ``QuantEmbeddingBagCollection.forward`` calls them) against their
+    plain versions (``torch.equal``) over the full-size tables, at each
+    batch of ``batches``: the batch's uniform ids and Zipf ids, int8 and
+    the int4/int2 views of the same codes (ids ``k * id + k - 1`` as in
+    :func:`path_kernel_phase`, so row offsets pass 2^31 bytes), with the
+    wrapper's, the kernel's (on prepared inputs) and the plain version's
+    times and the bound.  No single library call computes 26 tables'
+    lookups, so ``library_ms`` is null.  Returns the records it emits."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    rng = np.random.RandomState(zipf_seed)
+    named = [(cfg, f) for cfg in tables for f in cfg.feature_names]
+    recs = []
+    for kjt in batches:
+        B, keys, offs = kjt.stride(), list(kjt.keys()), kjt.cap_offsets()
+        lengths = kjt.lengths()
+        zipf = kjt.values().clone()
+        for cfg, f in named:
+            k = keys.index(f)
+            zipf[offs[k]:offs[k + 1]] = torch.from_numpy(zipf_ids(
+                rng, offs[k + 1] - offs[k], cfg.num_embeddings)
+                .astype(np.int64)).to(dev)
+        for bits in (8, 4, 2):
+            per = 8 // bits
+            feats, width = [], 0
+            for cfg, f in named:
+                p = params[cfg.name]
+                R, D = p["q"].shape
+                scale, bias = p["scale"], p["bias"]
+                if per > 1:
+                    scale = scale.repeat_interleave(per)
+                    bias = bias.repeat_interleave(per)
+                feats.append(tbe.GroupFeature(
+                    p["q"].view(R * per, D // per), scale, bias,
+                    keys.index(f), width))
+                width += D
+            Dp = feats[0].q.shape[1]
+            for kernel, kbits in GROUPED_KERNELS:
+                if kbits != bits:
+                    continue
+                if kernel == "tbe":
+                    name = "quant_pooled_lookup_int8"
+                    wrapper = tbe.quant_pooled_lookup_int8_grouped
+                    plain = tbe.quant_pooled_lookup_int8_grouped_plain
+                    kw = {}
+                else:
+                    name = "dedup_quant_pooled_lookup"
+                    wrapper = tbe.dedup_quant_pooled_lookup_grouped
+                    plain = tbe.dedup_quant_pooled_lookup_grouped_plain
+                    kw = {"bits": bits}
+                for dist, base in (("uniform", kjt.values()), ("zipf", zipf)):
+                    values = base * per + (per - 1)
+                    args = (values, lengths, offs, feats)
+                    out = torch.empty((B, width), device=dev)
+                    got = wrapper(*args, out.clone(), **kw)
+                    torch.cuda.synchronize()
+                    ref = plain(*args, out.clone(), **kw)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    if not torch.equal(got, ref):
+                        raise AssertionError(
+                            f"grouped {name} bits={bits} {dist} B={B}: "
+                            f"kernel != plain (max abs err {err})")
+                    if kernel == "tbe":
+                        ends = tbe.group_ends(lengths, len(keys), B)
+                        launch = lambda: tbe.launch_q8_grouped(  # noqa: E731
+                            feats, offs, values, ends, out)
+                    else:
+                        prep = tbe.dedup_prepare_grouped(*args, B)
+                        launch = lambda: tbe.launch_dedup_q_grouped(  # noqa: E731
+                            feats, offs, *prep, out, bits)
+                    # the least the group must move: each distinct (feature,
+                    # row) once (codes, scale, bias), each valid id (int64)
+                    # once, the lengths, the float32 output once; 4 flops
+                    # per valid id and column
+                    gkeys = tbe.group_keys_plain(*args, B)
+                    valid = gkeys != tbe.SENTINEL
+                    U = int(tbe.num_unique(tbe.sized_unique(gkeys)[0]))
+                    n = int(valid.sum())
+                    nbytes = (U * (Dp + 8) + n * 8 + lengths.numel() * 4
+                              + B * width * 4)
+                    flops = 4 * n * Dp * per
+                    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+                    flops_ms = flops / PEAK_F32_FLOPS * 1e3
+                    rec = {
+                        "phase": "grouped", "kernel": name, "bits": bits,
+                        "ids": dist, "batch": B, "features": len(feats),
+                        "slots": n, "distinct": U,
+                        "slots_past_2^31_bytes": int(
+                            (values[valid] * Dp >= FAR_BYTES).sum()),
+                        "equal": True, "max_abs_err": err,
+                        "ms": cuda_ms(lambda: wrapper(*args, out, **kw),
+                                      flush),
+                        "kernel_ms": cuda_ms(launch, flush),
+                        "kernel_device_ms": cuda_ms(launch, flush,
+                                                    device_only=True),
+                        "plain_ms": cuda_ms(
+                            lambda: plain(*args, out, **kw), flush,
+                            runs=PLAIN_RUNS, warmup=1),
+                        "library_ms": None,
+                        "bytes": nbytes, "flops": flops,
+                        "bound_ms": max(bytes_ms, flops_ms),
+                        "bound_by": "bytes" if bytes_ms >= flops_ms
+                        else "operations",
+                    }
+                    rec["peak_bytes_above_inputs"] = peak_bytes(
+                        lambda: wrapper(*args, out, **kw))
+                    emit(rec)
+                    recs.append(rec)
+            del feats
+    near = [(r["kernel"], r["bits"], r["batch"]) for r in recs
+            if r["ids"] == "uniform" and r["slots_past_2^31_bytes"] == 0]
+    if near:
+        raise AssertionError(f"{near}: no row offset of a grouped batch "
+                             "passed 2^31 bytes")
+    del flush
+    torch.cuda.empty_cache()
+    return recs
+
+
+def sync_check(fns, batch):
+    """Each collection's forward on one formed batch under
+    ``torch.cuda.set_sync_debug_mode("error")`` (it must not synchronise
+    with the host: it raises if it does); the whole serving module is
+    tried the same way and only reported."""
+    import torch
+
+    for kernel, fn in fns.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.inference_mode():
+                fn.quant_ebc(batch.sparse_features)
+            try:
+                fn(batch.dense_features, batch.sparse_features)
+                serving_syncs = False
+            except RuntimeError:
+                serving_syncs = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        emit({"phase": "sync_check", "kernel": kernel,
+              "batch": batch.dense_features.shape[0],
+              "collection_forward_syncs": False,
+              "serving_module_syncs": serving_syncs})
 
 
 def serving_phase(dev):
@@ -1797,6 +1989,7 @@ def serving_phase(dev):
     torch.cuda.synchronize()
     path = path_kernel_phase(dev, tables, params, served.sparse_features,
                              zipf_seed=3)
+    sync_check(fns, served)
     main_launches = dict.fromkeys(tbe.LAUNCHES, 0)
     runs = {}
     for kernel, requests, counter in (
@@ -1839,10 +2032,12 @@ def serving_phase(dev):
         if not rec["all_finite"] or errors:
             raise AssertionError(f"serving with {kernel}: non-finite scores "
                                  f"or {errors} executor errors")
-        if counts[counter] < len(features) * batches or others:
+        # one grouped launch per batch and group, and no other kernel
+        groups = fns[kernel].quant_ebc.num_groups
+        if counts[counter] != groups * batches or others:
             raise AssertionError(
                 f"serving with {kernel}: {counts} launches for {batches} "
-                f"batches of {len(features)} features"
+                f"batches of {groups} group(s)"
             )
         if not np.allclose(scores, direct, rtol=1e-4, atol=1e-5):
             raise AssertionError(f"serving with {kernel}: served scores "
@@ -1876,9 +2071,13 @@ def serving_phase(dev):
         raise AssertionError("tbe and dedup serving differ on one batch")
     for kernel, fn in fns.items():
         profile_serving(kernel, fn, served)
+    del outs
+    grouped = grouped_phase(dev, tables, params,
+                            [served.sparse_features, batch.sparse_features],
+                            zipf_seed=4)
     del fns, params
     torch.cuda.empty_cache()
-    return main_launches, runs, path
+    return main_launches, runs, path + grouped
 
 
 # ---------------------------------------------------------------------------
@@ -2004,6 +2203,8 @@ def main() -> None:
             "ms": rep["ms"], "kernel_ms": rep["kernel_ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            **{k: rep[k] for k in ("kernel_device_ms", "library_device_ms")
+               if k in rep},
         })
     # B2 covers all eight optimizers: each one's float32 row of the DCN
     # phase (Adagrad at the path's uniform ids, the others at the
@@ -2015,6 +2216,17 @@ def main() -> None:
         for r in dcn_rows
         if r["kernel"] == "fused_sparse_update" and r["dtype"] == "float32"
         and r["ids"] == "uniform"}
+    # B3 and B5 as the collection launches them: one grouped launch for
+    # the 26 features of a formed batch (B=256 served, B=4096 serving_fn)
+    for k in summary:
+        grouped = {f"B={r['batch']} {r['ids']} int{r['bits']}": {
+            x: r[x] for x in ("ms", "kernel_ms", "kernel_device_ms",
+                              "plain_ms", "bound_ms",
+                              "peak_bytes_above_inputs")}
+            for r in path_rows
+            if r["phase"] == "grouped" and r["kernel"] == k["name"]}
+        if grouped:
+            k["grouped"] = grouped
     emit({"kernels": summary})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,10 @@ versions, bit for bit (``torch.equal``), at shapes ``chip_smoke.py``
 does not reach: widths that are not a multiple of the vector width (the
 kernels' one-column-per-lane paths) and past one 128-column block, empty
 batches, empty segments, clipped ids, dropped segments and slots, weight
-decay and bfloat16 stochastic rounding.
+decay and bfloat16 stochastic rounding; and the grouped quantized lookups
+of a served batch (every feature in one launch, tables whose rows start
+off a 4-byte boundary, MEAN features, a key no feature reads), with the
+collection's forward run under ``torch.cuda.set_sync_debug_mode("error")``.
 
 Needs a CUDA device and ``nvcc``; marked ``cuda`` and skipped elsewhere.
 It imports nothing of JAX, so on a machine with a card and no JAX it runs
@@ -18,6 +21,8 @@ import torch
 
 from torchrec_tpu_torch.ops import tbe
 from torchrec_tpu_torch.ops import tbe_backward
+from torchrec_tpu_torch.ops.embedding_ops import mean_pooling_weights
+from torchrec_tpu_torch.parallel.sharding.common import per_slot_segments
 
 pytestmark = pytest.mark.cuda
 
@@ -301,3 +306,161 @@ def test_fused_update_optimizers_equal_plain_on_card(dev, optim, dtype, D,
         assert torch.equal(a, b), float((a - b).abs().max())
     assert (n == 0) == torch.equal(tk, table)
     assert tbe_backward.fused_update_registers(optim, dtype, D) > 0
+
+
+# ---------------------------------------------------------------------------
+# the grouped lookups (one launch for every feature of a served batch)
+# ---------------------------------------------------------------------------
+
+GB = 24  # examples
+# per feature: (table, max ids per example, MEAN); f3 shares t0's table
+GROUP_FEATURES = [(0, 3, False), (1, 9, True), (2, 40, False), (0, 5, True)]
+GROUP_ROWS = [300, 50, 1000]
+# (kernel, bits, D): the vector paths, the one-column paths (D = 6, 130),
+# and tables whose rows start off a 4-byte boundary (the byte paths)
+GROUP_CONFIGS = [
+    ("tbe", 8, 16, False), ("tbe", 8, 130, False), ("tbe", 8, 6, False),
+    ("tbe", 8, 128, True), ("dedup", 8, 128, False), ("dedup", 8, 6, False),
+    ("dedup", 4, 16, False), ("dedup", 4, 6, False), ("dedup", 2, 128, False),
+    ("dedup", 2, 16, True),
+]
+
+
+def _group_inputs(dev, kernel, bits, D, misaligned, case, seed):
+    """A KJT-shaped batch (key 1 read by no feature, empty examples, ids
+    partly out of range, junk in the padding, one key with no padding) and
+    the group's GroupFeatures; "no_valid_ids": every length 0."""
+    rng = np.random.RandomState(seed)
+    K = len(GROUP_FEATURES) + 1
+    key_of = [0, 2, 3, 4]  # the feature -> key map; key 1 is unused
+    lengths = np.zeros((K, GB), np.int32)
+    if case != "no_valid_ids":
+        for f, (_, most, _) in enumerate(GROUP_FEATURES):
+            lengths[key_of[f]] = rng.randint(0, most + 1, size=GB)
+        lengths[1] = rng.randint(0, 3, size=GB)
+        lengths[:, 5] = 0
+    caps = [int(n) + (0 if k == 3 else 7)
+            for k, n in enumerate(lengths.sum(1))]
+    values = np.concatenate([
+        np.concatenate([rng.randint(-3, 1010, size=int(lengths[k].sum())),
+                        rng.randint(-10**9, 10**9, size=c - lengths[k].sum())])
+        for k, c in enumerate(caps)]).astype(np.int64)
+    Dp = D * bits // 8
+    tables = []
+    for r in GROUP_ROWS:
+        buf = torch.from_numpy(rng.randint(
+            0, 256, size=(r * Dp + 1,)).astype(np.uint8)).to(dev)
+        q = (buf[1:] if misaligned else buf[:-1]).view(r, Dp)
+        tables.append((q, torch.from_numpy(
+            (rng.rand(r) * 0.01 + 0.005).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.randn(r).astype(np.float32)).to(dev)))
+    feats = [tbe.GroupFeature(*tables[t], key_of[f], 3 + f * D, mean)
+             for f, (t, _, mean) in enumerate(GROUP_FEATURES)]
+    offs = tuple(int(x) for x in np.concatenate([[0], np.cumsum(caps)]))
+    return (torch.from_numpy(values).to(dev),
+            torch.from_numpy(lengths.reshape(-1)).to(dev), offs, feats)
+
+
+@pytest.mark.parametrize("case", ("mixed", "no_valid_ids"))
+@pytest.mark.parametrize("kernel,bits,D,misaligned", GROUP_CONFIGS)
+def test_grouped_lookup_equals_plain_on_card(dev, kernel, bits, D,
+                                             misaligned, case):
+    """One grouped launch against the grouped plain version (and that
+    against each feature's per-table kernel): every output column of
+    every example, the padding columns untouched."""
+    values, lengths, offs, feats = _group_inputs(
+        dev, kernel, bits, D, misaligned, case, seed=D + bits)
+    width = 3 + len(feats) * D + 2
+    if kernel == "tbe":
+        wrapper = tbe.quant_pooled_lookup_int8_grouped
+        plain = tbe.quant_pooled_lookup_int8_grouped_plain
+        name, kw = "quant_pooled_lookup_int8", {}
+    else:
+        wrapper = tbe.dedup_quant_pooled_lookup_grouped
+        plain = tbe.dedup_quant_pooled_lookup_grouped_plain
+        name, kw = "dedup_quant_pooled_lookup", {"bits": bits}
+    got = torch.full((GB, width), 7.0, device=dev)
+    before = tbe.launch_counts()[name]
+    wrapper(values, lengths, offs, feats, got, **kw)
+    torch.cuda.synchronize()
+    assert tbe.launch_counts()[name] == before + 1
+    ref = plain(values, lengths, offs, feats,
+                torch.full((GB, width), 7.0, device=dev), **kw)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    assert bool((got[:, :3] == 7).all() and (got[:, -2:] == 7).all())
+    assert not got[5, 3:-2].any()
+    # each feature alone through the per-table kernel
+    for f in feats:
+        lo, hi = offs[f.key], offs[f.key + 1]
+        f_len = lengths[f.key * GB:(f.key + 1) * GB]
+        seg = per_slot_segments(f_len, hi - lo)
+        w = mean_pooling_weights(seg, f_len) if f.mean else None
+        if kernel == "tbe":
+            one = tbe.quant_pooled_lookup_int8(f.q, f.scale, f.bias,
+                                               values[lo:hi], seg, GB, w)
+        else:
+            one = tbe.dedup_quant_pooled_lookup(f.q, f.scale, f.bias,
+                                                values[lo:hi], seg, GB, w,
+                                                bits)
+        assert torch.equal(got[:, f.col:f.col + D], one)
+
+
+def test_grouped_keys_kernel_equals_plain_on_card(dev):
+    """The dedup keys kernel (with the sized unique after it) against
+    ``group_keys_plain``."""
+    values, lengths, offs, feats = _group_inputs(dev, "dedup", 4, 16, False,
+                                                 "mixed", seed=3)
+    ends, ukeys, inv = tbe.dedup_prepare_grouped(values, lengths, offs,
+                                                 feats, GB)
+    keys = tbe.group_keys_plain(values, lengths, offs, feats, GB)
+    want_u, want_inv = tbe.sized_unique(keys)
+    assert torch.equal(ukeys, want_u) and torch.equal(inv, want_inv)
+    assert int(tbe.num_unique(ukeys)) > 0
+
+
+@pytest.mark.parametrize("kernel,bits", (("tbe", 8), ("dedup", 8),
+                                         ("dedup", 4), ("dedup", 2)))
+def test_collection_forward_makes_no_host_sync(dev, kernel, bits):
+    """``QuantEmbeddingBagCollection.forward`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: one grouped launch and
+    no synchronisation, equal to the CPU collection's forward."""
+    from torchrec_tpu_torch.modules.embedding_configs import (
+        DataType,
+        EmbeddingBagConfig,
+        PoolingType,
+    )
+    from torchrec_tpu_torch.quant import QuantEmbeddingBagCollection
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    values, lengths, offs, feats = _group_inputs(
+        torch.device("cpu"), kernel, bits, 16, False, "mixed", seed=11)
+    dt = {8: DataType.INT8, 4: DataType.INT4, 2: DataType.INT2}[bits]
+    tables, params = [], {}
+    for i, f in enumerate(feats):
+        tables.append(EmbeddingBagConfig(
+            num_embeddings=f.q.shape[0], embedding_dim=16, name=f"t{i}",
+            feature_names=[f"k{f.key}"], data_type=dt,
+            pooling=PoolingType.MEAN if f.mean else PoolingType.SUM))
+        params[f"t{i}"] = {"q": f.q, "scale": f.scale, "bias": f.bias}
+    cpu = QuantEmbeddingBagCollection(tables, params, lookup_kernel=kernel)
+    card = QuantEmbeddingBagCollection(tables, params,
+                                       lookup_kernel=kernel).to(dev)
+    keys = [f"k{k}" for k in range(len(offs) - 1)]
+    kjt = KeyedJaggedTensor(keys, values, lengths, stride=GB,
+                            caps=np.diff(offs).tolist())
+    want = cpu(kjt)
+    kjt = kjt.to(dev)
+    card(kjt)  # first call: builds and loads the library
+    torch.cuda.synchronize()
+    name = ("quant_pooled_lookup_int8" if kernel == "tbe"
+            else "dedup_quant_pooled_lookup")
+    before = tbe.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = card(kjt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = tbe.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == name) for k in after}
+    assert torch.equal(got.values().cpu(), want.values())

@@ -185,12 +185,16 @@ def test_int8_kernel_emulation_bit_equal(case):
 @pytest.mark.parametrize("case", ["duplicate_heavy", "ids_out_of_range",
                                   "bad_segments", "no_weights"])
 def test_dedup_kernel_emulation_bit_equal(case, bits):
-    """dedup_prepare + launch A (gather/unpack/dequant per distinct row)
-    + launch B (the walk through the inverse index)."""
+    """dedup_prepare_sized (the sized sort-unique) + the gather
+    (unpack/dequant per distinct row) + the pool (the walk through the
+    inverse index)."""
     packed, scale, bias, ids, segs, S, w = _case(case, bits)
-    uids, suidx, sw, offsets = (x.numpy() for x in tbe.dedup_prepare(
-        _t(ids), _t(segs), _t(w), S, packed.shape[0]
-    ))
+    ukeys, suidx, sw, offsets = tbe.dedup_prepare_sized(
+        _t(ids), _t(segs), _t(w), S
+    )
+    U = int(tbe.num_unique(ukeys))
+    uids = tbe.key_rows(ukeys[:U], packed.shape[0]).numpy()
+    suidx, sw, offsets = suidx.numpy(), sw.numpy(), offsets.numpy()
     valid = (segs >= 0) & (segs < S)
     assert len(uids) == len(np.unique(ids[valid]))
     codes = tbe.unpack_rows(_t(packed[uids]), bits).numpy()

@@ -1,7 +1,8 @@
-// The pooling walk of the dedup lookups (B4 in tbe_dedup.cu, B5 in
-// tbe_quant.cu): the distinct rows have already been gathered, widened (or
-// dequantized) once each into an f32 scratch [U, D]; this kernel pools them
-// per segment through the inverse index.
+// The pooling walk of the float dedup lookup (B4, tbe_dedup.cu): the
+// distinct rows have already been gathered and widened once each into an
+// f32 scratch [U, D]; this kernel pools them per segment through the
+// inverse index, one row at a time.  (The quantized dedup lookup, B5, has
+// its own walk with many row loads in flight, in tbe_quant.cu.)
 //
 // One warp per output segment walks that segment's slots (CSR offsets from
 // the wrapper's stable segment sort) and writes out[s, :] once: no atomics,

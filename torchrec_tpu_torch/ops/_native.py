@@ -36,15 +36,19 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_G = ctypes.POINTER(ctypes.c_longlong)
 # C entry points per source: name -> argtypes (every pointer and the
-# stream are c_void_p, every size or flag a c_int, every scalar
-# hyperparameter a c_float; each launch returns cudaGetLastError(), and
-# fused_update_num_regs a register count)
+# stream are c_void_p, every size or flag a c_int, a slot count or row
+# stride a c_longlong, every scalar hyperparameter a c_float, a grouped
+# lookup's features a host array of c_longlong; each launch returns
+# cudaGetLastError(), and fused_update_num_regs a register count)
 _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "tbe_quant.cu": {
-        "tbe_q8_pooled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-        "dedup_q_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "dedup_pool": (_P, _P, _P, _P, _P, _I, _I, _P),
+        "q8_pooled": (_G, _I, _I, _I, _L, _P, _P, _P, _P, _P),
+        "dedup_q_keys": (_G, _I, _I, _P, _P, _P, _L, _P),
+        "dedup_q_gather": (_G, _I, _I, _I, _I, _P, _P, _L, _P),
+        "dedup_q_pool": (_G, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P),
     },
     "tbe_float.cu": {
         "tbe_pooled": (_P, _P, _P, _P, _P, _I, _I, _I, _P),

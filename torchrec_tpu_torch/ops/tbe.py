@@ -8,10 +8,14 @@ Replaces, from the JAX package's ``torchrec_tpu/ops/pallas_tbe.py``:
   ``pallas_pooled_embedding_lookup``) by :func:`pooled_lookup`, over
   float32 and bfloat16 tables (``csrc/tbe_float.cu``);
 * ``pallas_quantized_pooled_lookup`` (kernel body ``_tbe_kernel_q8``, input
-  preparation ``_sort_pad_inputs``) by :func:`quant_pooled_lookup_int8`;
+  preparation ``_sort_pad_inputs``) by :func:`quant_pooled_lookup_int8`,
+  and for all the features of a served batch at once by
+  :func:`quant_pooled_lookup_int8_grouped`;
 * ``pallas_ragged_dedup_quantized_lookup`` (kernel body
   ``_dedup_kernel_q``, ``_unpack_lanes``, input preparation
-  ``_dedup_prepare_inputs``) by :func:`dedup_quant_pooled_lookup`;
+  ``_dedup_prepare_inputs``, whose sized sort-unique is
+  :func:`sized_unique`) by :func:`dedup_quant_pooled_lookup` and
+  :func:`dedup_quant_pooled_lookup_grouped`;
 * ``pallas_ragged_dedup_lookup`` (kernel body ``_dedup_body``, input
   preparation ``_dedup_prepare_inputs``) by :func:`dedup_pooled_lookup`,
   over float32 and bfloat16 tables.  Its ``id_cap``/``u_cap`` knobs size
@@ -28,8 +32,10 @@ also keeps the launch counts that this module re-exports.  Each wrapper:
   nothing; on CUDA tensors launches the kernel or raises — there is no
   fallback;
 * adds one to its count in :data:`LAUNCHES` for every call that launches
-  (the dedup wrappers' two launches, gather and pool, count as one); a
-  call with no segments launches nothing and returns an empty output.
+  (the dedup wrappers' launches, gather and pool, and for a group also
+  the keys, count as one; a grouped call counts one for all its
+  features); a call with no segments launches nothing and returns an
+  empty output.
 
 The plain versions sum each segment in slot order with separately rounded
 multiplies and adds, exactly as the kernels do, so on the card a kernel
@@ -38,7 +44,8 @@ and its plain version are bitwise equal (``torch.equal``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,6 +67,13 @@ _SOURCE = "tbe_quant.cu"
 _FLOAT_SOURCE = "tbe_float.cu"
 _DEDUP_SOURCE = "tbe_dedup.cu"
 _INT32_MAX = 2**31 - 1
+# the dedup keys: ``feature << 32 | id + 2**31`` for a valid slot (ids
+# clipped to int32 first), the int64 maximum for every other slot
+_ID_BIAS = 2**31
+SENTINEL = torch.iinfo(torch.int64).max
+# the most features one grouped launch takes (the kernels' Group parameter
+# must stay under the 4 KB kernel-parameter limit, csrc/tbe_quant.cu)
+MAX_GROUP_FEATURES = 48
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +202,8 @@ def dedup_prepare(
     Returns (unique row ids [U] clipped to ``[0, num_rows - 1]``, unique
     index per sorted slot [n], sorted weights [n], CSR offsets [S+1]).
     Boolean masking and ``torch.unique`` synchronise with the host on
-    CUDA; the dedup lookup accepts that for its smaller gather."""
+    CUDA; the float dedup lookup (B4) still accepts that, the quantized
+    one prepares with :func:`dedup_prepare_sized`."""
     valid = (segments >= 0) & (segments < num_segments)
     vseg = segments[valid]
     uids, inv = torch.unique(ids[valid], sorted=True, return_inverse=True)
@@ -204,6 +219,157 @@ def dedup_prepare(
         w[order],
         _csr_offsets(vseg[order], num_segments),
     )
+
+
+def unique_keys(
+    ids: torch.Tensor, valid: torch.Tensor, feature: int = 0
+) -> torch.Tensor:
+    """The dedup key of each slot: ``feature << 32 | id + 2**31`` where
+    ``valid`` (ids clipped to int32 first, so the keys of one feature sort
+    as its ids do), :data:`SENTINEL` elsewhere."""
+    key = ids.to(torch.int64).clamp(-_ID_BIAS, _ID_BIAS - 1) + (
+        _ID_BIAS + (feature << 32))
+    return torch.where(valid, key, SENTINEL)
+
+
+def key_rows(ukeys: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The table row of each dedup key (its id clipped to
+    ``[0, num_rows - 1]``)."""
+    return ((ukeys & 0xFFFFFFFF) - _ID_BIAS).clamp(0, num_rows - 1)
+
+
+def sized_unique(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sized sort-unique of ``_dedup_prepare_inputs``, with no host
+    sync: one sort of ``keys`` [N] int64, boundary flags and a cumsum.
+
+    Returns (ukeys [N]: the distinct keys in ascending order, then
+    :data:`SENTINEL`; inv [N] int64: each slot's index into ukeys).  The
+    number of distinct valid keys, :func:`num_unique`, stays on the device:
+    the kernels stop at the first sentinel instead."""
+    N = keys.shape[0]
+    skeys, order = torch.sort(keys, stable=True)
+    start = torch.ones((N,), dtype=torch.bool, device=keys.device)
+    start[1:] = skeys[1:] != skeys[:-1]
+    suid = torch.cumsum(start, dim=0) - 1
+    inv = torch.empty_like(suid).scatter_(0, order, suid)
+    # every position of a group writes the same key
+    ukeys = torch.full_like(skeys, SENTINEL).scatter_(0, suid, skeys)
+    return ukeys, inv
+
+
+def num_unique(ukeys: torch.Tensor) -> torch.Tensor:
+    """The distinct valid keys of a :func:`sized_unique`, as a 0-d device
+    tensor."""
+    return (ukeys != SENTINEL).sum()
+
+
+def dedup_prepare_sized(
+    ids: torch.Tensor,
+    segments: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    num_segments: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`dedup_prepare` with static shapes and no host sync: a
+    stable segment sort with invalid slots last, then
+    :func:`sized_unique` over the sorted slots' keys.
+
+    Returns (ukeys [V], unique index per sorted slot [V], sorted weights
+    [V], CSR offsets [S+1]); ``key_rows(ukeys[:U], R)`` are
+    :func:`dedup_prepare`'s unique rows, with ``U = num_unique(ukeys)``,
+    and the first ``offsets[-1]`` indices its per-slot indices."""
+    key = _valid_key(segments, num_segments)
+    order = torch.argsort(key, stable=True)
+    skey = key[order]
+    ukeys, inv = sized_unique(unique_keys(ids[order], skey < num_segments))
+    w = (
+        torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+        if weights is None
+        else weights
+    )
+    return ukeys, inv, w[order], _csr_offsets(skey, num_segments)
+
+
+class GroupFeature(NamedTuple):
+    """One feature of a grouped lookup: its table, the index of its key in
+    the KeyedJaggedTensor, its first column in the [B, sum D] output, and
+    whether it pools by MEAN."""
+
+    q: torch.Tensor  # [R, Dp] uint8
+    scale: torch.Tensor  # [R] float32
+    bias: torch.Tensor  # [R] float32
+    key: int
+    col: int
+    mean: bool = False
+
+
+def _check_group(
+    values: torch.Tensor,
+    lengths: torch.Tensor,
+    cap_offsets: Sequence[int],
+    features: Sequence[GroupFeature],
+    out: torch.Tensor,
+    bits: int,
+) -> Tuple[torch.device, int]:
+    """Validate a grouped lookup's arguments; returns their device and the
+    output width D of every feature."""
+    if not features or len(features) > MAX_GROUP_FEATURES:
+        raise ValueError(f"a group has 1 to {MAX_GROUP_FEATURES} features, "
+                         f"got {len(features)}")
+    if bits not in (8, 4, 2):
+        raise ValueError(f"unsupported packed width {bits}")
+    if out.dtype != torch.float32 or out.dim() != 2 or out.stride(1) != 1:
+        raise TypeError(f"out must be a row-major 2-D float32 buffer, got "
+                        f"{out.dtype} {tuple(out.shape)}")
+    B, K = out.shape[0], len(cap_offsets) - 1
+    if values.dim() != 1 or values.dtype.is_floating_point:
+        raise TypeError("values must be a 1-D integer tensor")
+    if values.shape[0] != cap_offsets[-1] or values.shape[0] > _INT32_MAX:
+        raise ValueError(f"values {tuple(values.shape)} vs regions ending at "
+                         f"{cap_offsets[-1]}")
+    if lengths.dim() != 1 or lengths.shape[0] != K * B or (
+            lengths.dtype.is_floating_point):
+        raise ValueError(f"lengths must be [{K} keys * {B}] integers, got "
+                         f"{tuple(lengths.shape)}")
+    Dp = features[0].q.shape[1]
+    D = Dp * (8 // bits)
+    dev = out.device
+    if values.device != dev or lengths.device != dev:
+        raise ValueError(f"lookup inputs span devices {dev}, {values.device} "
+                         f"and {lengths.device}")
+    if not (values.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("values and lengths must be contiguous")
+    # a served batch checks every table: keep each check to a few
+    # attribute reads
+    for f in features:
+        q, scale, bias = f.q, f.scale, f.bias
+        R = q.shape[0]
+        if q.dtype != torch.uint8 or q.dim() != 2:
+            raise TypeError(f"table must be 2-D uint8, got {q.dtype} "
+                            f"{tuple(q.shape)}")
+        if scale.dtype != torch.float32 or bias.dtype != torch.float32 or (
+                scale.shape != (R,) or bias.shape != (R,)):
+            raise TypeError(f"scale and bias must be float32 [{R}]")
+        if q.shape[1] != Dp:
+            raise ValueError("a group's tables share one row width")
+        if not 0 <= f.key < K or not 0 <= f.col <= out.shape[1] - D:
+            raise ValueError(f"feature key {f.key} or column {f.col} out of "
+                             f"range")
+        if q.device != dev or scale.device != dev or bias.device != dev:
+            raise ValueError(f"lookup inputs span devices {dev} and "
+                             f"{q.device}")
+        if R > _INT32_MAX:
+            raise ValueError("rows must fit in int32")
+        if not (q.is_contiguous() and scale.is_contiguous()
+                and bias.is_contiguous()):
+            raise ValueError("lookup inputs must be contiguous")
+    return dev, D
+
+
+def group_ends(lengths: torch.Tensor, num_keys: int, B: int) -> torch.Tensor:
+    """[num_keys, B] int32 running sums of each key's lengths: example
+    ``b`` of key ``k`` holds the slots ``[ends[k, b-1], ends[k, b])`` of
+    the key's region (one cumsum, no sort)."""
+    return torch.cumsum(lengths.view(num_keys, B), dim=1, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +496,126 @@ def dedup_quant_pooled_lookup_plain(
     return pool_slot_order(vals, _csr_offsets(key[sorder], num_segments))
 
 
+def _grouped_pool_plain(
+    values: torch.Tensor,
+    lengths: torch.Tensor,
+    cap_offsets: Sequence[int],
+    features: Sequence[GroupFeature],
+    out: torch.Tensor,
+    slot_rows,
+) -> torch.Tensor:
+    """The grouped lookups' plain pooling: segment (f, b) is
+    ``[ends[b-1], ends[b])`` of feature f's region clipped to its cap (no
+    sort), weighted by ``1/len`` for MEAN features, summed in slot order
+    over all ``F * B`` segments at once and written to ``out[:, col_f :
+    col_f + D]``.  ``slot_rows(i, f, pos)`` gives the dequantized rows of
+    feature ``i``'s valid slots at positions ``pos`` of ``values``."""
+    B, K = out.shape[0], len(cap_offsets) - 1
+    if B == 0:
+        return out
+    ends = group_ends(lengths, K, B).to(torch.int64)
+    vals, starts, lens, n = [], [], [], 0
+    for i, f in enumerate(features):
+        cap = cap_offsets[f.key + 1] - cap_offsets[f.key]
+        e = ends[f.key].clamp(max=cap)
+        b0 = torch.cat([e.new_zeros(1), e[:-1]])
+        total = int(e[-1])
+        pos = cap_offsets[f.key] + torch.arange(total, device=values.device)
+        v = slot_rows(i, f, pos)
+        if f.mean:
+            # 1/len of each example (the kernel's __fdiv_rn), over its
+            # clipped slots
+            f_len = lengths[f.key * B:(f.key + 1) * B]
+            inv = torch.where(
+                f_len > 0, 1.0 / f_len.clamp(min=1).to(torch.float32), 0.0)
+            w = torch.repeat_interleave(inv, e - b0, output_size=total)
+            v = v * w[:, None]
+        vals.append(v)
+        starts.append(n + b0)
+        lens.append(e - b0)
+        n += total
+    pooled = run_sums(torch.cat(vals), torch.cat(starts), torch.cat(lens))
+    D = pooled.shape[1]
+    for i, f in enumerate(features):
+        out[:, f.col:f.col + D] = pooled[i * B:(i + 1) * B]
+    return out
+
+
+def quant_pooled_lookup_int8_grouped_plain(
+    values: torch.Tensor,
+    lengths: torch.Tensor,
+    cap_offsets: Sequence[int],
+    features: Sequence[GroupFeature],
+    out: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of :func:`quant_pooled_lookup_int8_grouped`: each
+    valid slot dequantized, pooled per example in slot order."""
+
+    def slot_rows(i, f, pos):
+        r = values[pos].to(torch.int64).clamp(0, f.q.shape[0] - 1)
+        return _dequant(f.q[r], f.scale[r], f.bias[r])
+
+    return _grouped_pool_plain(values, lengths, cap_offsets, features, out,
+                               slot_rows)
+
+
+def group_keys_plain(
+    values: torch.Tensor,
+    lengths: torch.Tensor,
+    cap_offsets: Sequence[int],
+    features: Sequence[GroupFeature],
+    B: int,
+) -> torch.Tensor:
+    """Plain version of the ``dedup_q_keys`` kernel: each slot of
+    ``values`` keyed by (feature index in the group, id) where it is a
+    valid slot of a feature of the group, :data:`SENTINEL` elsewhere."""
+    keys = torch.full(values.shape, SENTINEL, dtype=torch.int64,
+                      device=values.device)
+    if B == 0:
+        return keys
+    ends = group_ends(lengths, len(cap_offsets) - 1, B)
+    for i, f in enumerate(features):
+        lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
+        total = min(int(ends[f.key, -1]), hi - lo)
+        region = values[lo:hi]
+        valid = torch.arange(hi - lo, device=values.device) < total
+        keys[lo:hi] = unique_keys(region, valid, feature=i)
+    return keys
+
+
+def dedup_quant_pooled_lookup_grouped_plain(
+    values: torch.Tensor,
+    lengths: torch.Tensor,
+    cap_offsets: Sequence[int],
+    features: Sequence[GroupFeature],
+    out: torch.Tensor,
+    bits: int = 8,
+) -> torch.Tensor:
+    """Plain version of :func:`dedup_quant_pooled_lookup_grouped`: the
+    sized sort-unique over (feature, id) keys, each distinct row unpacked
+    and dequantized once, re-expanded per slot through the inverse index
+    and pooled per example in slot order."""
+    keys = group_keys_plain(values, lengths, cap_offsets, features,
+                            out.shape[0])
+    ukeys, inv = sized_unique(keys)
+    ukeys = ukeys[:int(num_unique(ukeys))]
+    feat = ukeys >> 32
+    D = features[0].q.shape[1] * (8 // bits)
+    urows = torch.empty((ukeys.shape[0], D), dtype=torch.float32,
+                        device=values.device)
+    for i, f in enumerate(features):
+        mine = feat == i
+        r = key_rows(ukeys[mine], f.q.shape[0])
+        urows[mine] = _dequant(unpack_rows(f.q[r], bits), f.scale[r],
+                               f.bias[r])
+
+    def slot_rows(i, f, pos):
+        return urows[inv[pos]]
+
+    return _grouped_pool_plain(values, lengths, cap_offsets, features, out,
+                               slot_rows)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -396,6 +682,38 @@ def pooled_lookup(
     return launch_pooled(table, sids, sw, offsets)
 
 
+def _feature_array(features: Sequence, cap_offsets: Sequence[int]):
+    """The C entry points' host array of a group: per feature its table's
+    pointers and rows, its region (start, cap), its lengths row, its first
+    output column and its MEAN flag (9 int64 each)."""
+    vals = []
+    for f in features:
+        lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
+        vals += [f.q.data_ptr(), f.scale.data_ptr(), f.bias.data_ptr(),
+                 f.q.shape[0], lo, hi - lo, f.key, f.col, int(f.mean)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _slot_stream(q, scale, bias) -> Tuple[GroupFeature]:
+    """A per-table call as a group of one: its segment-sorted slot stream
+    is the one region, ``ends`` its CSR offsets past the first."""
+    return (GroupFeature(q, scale, bias, key=0, col=0),)
+
+
+def _launch_q8(features, cap_offsets, B, D, ids, w, ends, out) -> None:
+    lib = _native.load_library(_SOURCE)
+    dev = out.device
+    with torch.cuda.device(dev):
+        err = lib.q8_pooled(
+            _feature_array(features, cap_offsets), len(features), B, D,
+            out.stride(0), ids.data_ptr(),
+            None if w is None else w.data_ptr(), ends.data_ptr(),
+            out.data_ptr(), _stream_ptr(dev),
+        )
+    _native.check_launch("q8_pooled", err)
+    count_launch("quant_pooled_lookup_int8")
+
+
 def launch_q8_pooled(
     q: torch.Tensor,
     scale: torch.Tensor,
@@ -405,26 +723,16 @@ def launch_q8_pooled(
     offsets: torch.Tensor,
 ) -> torch.Tensor:
     """Launch the int8 pooled kernel on prepared inputs (the output of
-    :func:`sort_by_segment`); returns the [S, D] float32 output."""
+    :func:`sort_by_segment`), as a group of one; returns the [S, D]
+    float32 output."""
     S, D = offsets.shape[0] - 1, q.shape[1]
     if S == 0:
         return torch.empty((0, D), dtype=torch.float32, device=q.device)
-    lib = _native.load_library(_SOURCE)
-    if D % 4 == 0 and q.data_ptr() % 4:
-        raise ValueError("int8 table rows must be 4-byte aligned")
-    ids32 = sids.to(torch.int32).contiguous()
-    off32 = offsets.to(torch.int32).contiguous()
-    sw = sw.contiguous()
+    V = sids.shape[0]
     out = torch.empty((S, D), dtype=torch.float32, device=q.device)
-    # the launch goes to the current device: make it the tensors' own
-    with torch.cuda.device(q.device):
-        err = lib.tbe_q8_pooled(
-            q.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            ids32.data_ptr(), sw.data_ptr(), off32.data_ptr(),
-            out.data_ptr(), S, D, _stream_ptr(q.device),
-        )
-    _native.check_launch("tbe_q8_pooled", err)
-    count_launch("quant_pooled_lookup_int8")
+    _launch_q8(_slot_stream(q, scale, bias), (0, V), S, D,
+               sids.to(torch.int64).contiguous(), sw.contiguous(),
+               offsets[1:].to(torch.int32), out)
     return out
 
 
@@ -440,7 +748,8 @@ def quant_pooled_lookup_int8(
     """Pooled int8 lookup with dequantization fused into the walk:
     ``out[s] = sum_i w_i * (q[id_i] * scale[id_i] + bias[id_i])`` over the
     valid slots of segment ``s`` in slot order; ids clip to the table.
-    Returns [num_segments, D] float32."""
+    Returns [num_segments, D] float32.  Segments may come in any order,
+    so the card path sorts the slots first (no host sync)."""
     dev = _check_inputs(q, scale, bias, ids, segments, weights)
     if dev.type == "cpu":
         return quant_pooled_lookup_int8_plain(
@@ -453,44 +762,91 @@ def quant_pooled_lookup_int8(
     return launch_q8_pooled(q, scale, bias, sids, sw, offsets)
 
 
+def quant_pooled_lookup_int8_grouped(
+    values: torch.Tensor,  # [sum caps] KJT values, per-key regions
+    lengths: torch.Tensor,  # [K * B] key-major
+    cap_offsets: Sequence[int],  # [K + 1] region bounds
+    features: Sequence[GroupFeature],
+    out: torch.Tensor,  # [B, sum D] float32, written in place
+) -> torch.Tensor:
+    """The int8 pooled lookup of every feature of a group in one launch:
+    ``out[b, col_f : col_f + D]`` is example ``b`` of feature ``f`` (its
+    region of the KeyedJaggedTensor's values, front-packed in example
+    order; MEAN features weigh each id by ``1/len``).  Returns ``out``;
+    no host sync."""
+    dev, D = _check_group(values, lengths, cap_offsets, features, out, 8)
+    if dev.type == "cpu":
+        return quant_pooled_lookup_int8_grouped_plain(
+            values, lengths, cap_offsets, features, out)
+    _require_cuda(dev)
+    B = out.shape[0]
+    if B == 0:
+        return out
+    return launch_q8_grouped(features, cap_offsets, values.to(torch.int64),
+                             group_ends(lengths, len(cap_offsets) - 1, B),
+                             out)
+
+
+def launch_q8_grouped(
+    features: Sequence[GroupFeature],
+    cap_offsets: Sequence[int],
+    ids: torch.Tensor,
+    ends: torch.Tensor,
+    out: torch.Tensor,
+) -> torch.Tensor:
+    """Launch the int8 pooled kernel for a group on prepared inputs (int64
+    values and the :func:`group_ends` of the lengths); returns ``out``."""
+    _launch_q8(features, cap_offsets, out.shape[0],
+               features[0].q.shape[1], ids, None, ends, out)
+    return out
+
+
+def _launch_dedup_q(features, cap_offsets, B, D, bits, ukeys, inv, w, ends,
+                    out) -> None:
+    """Dedup launches 2 and 3: gather the distinct rows into a scratch,
+    pool through the inverse index."""
+    lib = _native.load_library(_SOURCE)
+    dev = out.device
+    N = ukeys.shape[0]
+    Dp = features[0].q.shape[1]
+    feats = _feature_array(features, cap_offsets)
+    rows = torch.empty((N, D), dtype=torch.float32, device=dev)
+    stream = _stream_ptr(dev)
+    with torch.cuda.device(dev):
+        err = lib.dedup_q_gather(feats, len(features), D, Dp, bits,
+                                 ukeys.data_ptr(), rows.data_ptr(), N, stream)
+        _native.check_launch("dedup_q_gather", err)
+        err = lib.dedup_q_pool(
+            feats, len(features), B, D, out.stride(0), inv.data_ptr(),
+            None if w is None else w.data_ptr(), ends.data_ptr(),
+            rows.data_ptr(), out.data_ptr(), stream,
+        )
+        _native.check_launch("dedup_q_pool", err)
+    count_launch("dedup_quant_pooled_lookup")
+
+
 def launch_dedup_q(
     packed: torch.Tensor,
     scale: torch.Tensor,
     bias: torch.Tensor,
-    uids: torch.Tensor,
-    suidx: torch.Tensor,
+    ukeys: torch.Tensor,
+    inv: torch.Tensor,
     sw: torch.Tensor,
     offsets: torch.Tensor,
     bits: int,
 ) -> torch.Tensor:
     """Launch the dedup gather and pool kernels on prepared inputs (the
-    output of :func:`dedup_prepare`); returns [S, D] float32."""
+    output of :func:`dedup_prepare_sized`), as a group of one; returns
+    [S, D] float32."""
     S, Dp = offsets.shape[0] - 1, packed.shape[1]
     D = Dp * (8 // bits)
     if S == 0:
         return torch.empty((0, D), dtype=torch.float32, device=packed.device)
-    lib = _native.load_library(_SOURCE)
-    U = uids.shape[0]
-    dev = packed.device
-    uids32 = uids.to(torch.int32).contiguous()
-    idx32 = suidx.to(torch.int32).contiguous()
-    off32 = offsets.to(torch.int32).contiguous()
-    sw = sw.contiguous()
-    rows = torch.empty((U, D), dtype=torch.float32, device=dev)
-    out = torch.empty((S, D), dtype=torch.float32, device=dev)
-    stream = _stream_ptr(dev)
-    with torch.cuda.device(dev):
-        err = lib.dedup_q_gather(
-            packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            uids32.data_ptr(), rows.data_ptr(), U, D, Dp, bits, stream,
-        )
-        _native.check_launch("dedup_q_gather", err)
-        err = lib.dedup_pool(
-            rows.data_ptr(), idx32.data_ptr(), sw.data_ptr(),
-            off32.data_ptr(), out.data_ptr(), S, D, stream,
-        )
-        _native.check_launch("dedup_pool", err)
-    count_launch("dedup_quant_pooled_lookup")
+    V = ukeys.shape[0]
+    out = torch.empty((S, D), dtype=torch.float32, device=packed.device)
+    _launch_dedup_q(_slot_stream(packed, scale, bias), (0, V), S, D, bits,
+                    ukeys, inv, sw.contiguous(), offsets[1:].to(torch.int32),
+                    out)
     return out
 
 
@@ -508,7 +864,7 @@ def dedup_quant_pooled_lookup(
     dequant-at-gather: each distinct row is unpacked and dequantized once,
     then pooled per segment through the inverse index (same function as
     :func:`quant_pooled_lookup_int8` for ``bits=8``).  Returns
-    [num_segments, D] float32."""
+    [num_segments, D] float32; no host sync."""
     if bits not in (8, 4, 2):
         raise ValueError(f"unsupported packed width {bits}")
     dev = _check_inputs(packed, scale, bias, ids, segments, weights)
@@ -517,10 +873,80 @@ def dedup_quant_pooled_lookup(
             packed, scale, bias, ids, segments, num_segments, weights, bits
         )
     _require_cuda(dev)
-    uids, suidx, sw, offsets = dedup_prepare(
-        ids, segments, weights, num_segments, packed.shape[0]
-    )
-    return launch_dedup_q(packed, scale, bias, uids, suidx, sw, offsets, bits)
+    ukeys, inv, sw, offsets = dedup_prepare_sized(
+        ids, segments, weights, num_segments)
+    return launch_dedup_q(packed, scale, bias, ukeys, inv, sw, offsets, bits)
+
+
+def dedup_prepare_grouped(
+    values: torch.Tensor,
+    lengths: torch.Tensor,
+    cap_offsets: Sequence[int],
+    features: Sequence[GroupFeature],
+    B: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The grouped dedup lookup's preparation on the card: the ``ends``
+    of :func:`group_ends`, the ``dedup_q_keys`` kernel's key per slot of
+    ``values``, and :func:`sized_unique` over them.  Returns (ends, ukeys,
+    inv); no host sync."""
+    lib = _native.load_library(_SOURCE)
+    dev = values.device
+    ends = group_ends(lengths, len(cap_offsets) - 1, B)
+    ids = values.to(torch.int64)
+    keys = torch.empty(values.shape, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.dedup_q_keys(
+            _feature_array(features, cap_offsets), len(features), B,
+            ids.data_ptr(), ends.data_ptr(), keys.data_ptr(), keys.shape[0],
+            _stream_ptr(dev),
+        )
+    _native.check_launch("dedup_q_keys", err)
+    return (ends, *sized_unique(keys))
+
+
+def launch_dedup_q_grouped(
+    features: Sequence[GroupFeature],
+    cap_offsets: Sequence[int],
+    ends: torch.Tensor,
+    ukeys: torch.Tensor,
+    inv: torch.Tensor,
+    out: torch.Tensor,
+    bits: int,
+) -> torch.Tensor:
+    """Launch the dedup gather and pool kernels of a group on prepared
+    inputs (the output of :func:`dedup_prepare_grouped`); returns
+    ``out``."""
+    D = features[0].q.shape[1] * (8 // bits)
+    _launch_dedup_q(features, cap_offsets, out.shape[0], D, bits, ukeys,
+                    inv, None, ends, out)
+    return out
+
+
+def dedup_quant_pooled_lookup_grouped(
+    values: torch.Tensor,  # [sum caps] KJT values, per-key regions
+    lengths: torch.Tensor,  # [K * B] key-major
+    cap_offsets: Sequence[int],  # [K + 1] region bounds
+    features: Sequence[GroupFeature],
+    out: torch.Tensor,  # [B, sum D] float32, written in place
+    bits: int = 8,
+) -> torch.Tensor:
+    """The dedup lookup of every feature of a group in one grouped call
+    (keys, gather and pool launches): the function of
+    :func:`quant_pooled_lookup_int8_grouped` over int8/int4/int2 packed
+    tables, each distinct (feature, id) row unpacked and dequantized once.
+    Returns ``out``; no host sync."""
+    dev, _ = _check_group(values, lengths, cap_offsets, features, out, bits)
+    if dev.type == "cpu":
+        return dedup_quant_pooled_lookup_grouped_plain(
+            values, lengths, cap_offsets, features, out, bits)
+    _require_cuda(dev)
+    B = out.shape[0]
+    if B == 0:
+        return out
+    ends, ukeys, inv = dedup_prepare_grouped(values, lengths, cap_offsets,
+                                             features, B)
+    return launch_dedup_q_grouped(features, cap_offsets, ends, ukeys, inv,
+                                  out, bits)
 
 
 def launch_dedup_pooled(

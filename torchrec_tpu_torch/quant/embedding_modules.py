@@ -3,9 +3,12 @@
 
 An ``nn.Module`` holding, per table, the buffers ``q`` (uint8 codes,
 int4/int2 packed), ``scale`` and ``bias`` (float32 per row).  ``forward``
-keeps the float collection's KJT -> KeyedTensor contract: one pooled
-lookup per feature, through the hand-written CUDA kernels of
-``ops/tbe.py`` on the card (their plain versions on the CPU).
+keeps the float collection's KJT -> KeyedTensor contract.  The features
+whose tables share a data type, a lookup kernel and a width form a group,
+and each group is one grouped lookup through the hand-written CUDA kernels
+of ``ops/tbe.py`` on the card (their plain versions on the CPU), written
+straight into the KeyedTensor's ``[B, sum D]`` buffer: at the MLPerf
+DLRM-v2 configuration one launch per batch, and no host sync.
 """
 
 from __future__ import annotations
@@ -22,17 +25,18 @@ from torchrec_tpu_torch.modules.embedding_configs import (
     EmbeddingBagConfig,
     PoolingType,
 )
-from torchrec_tpu_torch.ops.embedding_ops import mean_pooling_weights
 from torchrec_tpu_torch.ops.quant_ops import (
     LOOKUP_KERNELS,
     quantize_rowwise_int2,
     quantize_rowwise_int4,
     quantize_rowwise_int8,
-    quantized_pooled_lookup,
-    quantized_pooled_lookup_int2,
-    quantized_pooled_lookup_int4,
 )
-from torchrec_tpu_torch.parallel.sharding.common import per_slot_segments
+from torchrec_tpu_torch.ops.tbe import (
+    MAX_GROUP_FEATURES,
+    GroupFeature,
+    dedup_quant_pooled_lookup_grouped,
+    quant_pooled_lookup_int8_grouped,
+)
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor, KeyedTensor
 from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -41,6 +45,7 @@ _QUANTIZERS = {
     DataType.INT4: quantize_rowwise_int4,
     DataType.INT2: quantize_rowwise_int2,
 }
+_BITS = {DataType.INT8: 8, DataType.INT4: 4, DataType.INT2: 2}
 
 
 def _check_data_type(data_type: DataType) -> None:
@@ -102,6 +107,24 @@ class QuantEmbeddingBagCollection(nn.Module):
             self._kernels[cfg.name] = _resolve_kernel(
                 cfg.data_type, lookup_kernel
             )
+        # (table, feature, first output column, MEAN) per feature, in table
+        # order, grouped by (data type, kernel, width), at most
+        # MAX_GROUP_FEATURES a group
+        self._out_keys, self._out_dims, groups = [], [], {}
+        col = 0
+        for cfg in self.tables:
+            key = (cfg.data_type, self._kernels[cfg.name], cfg.embedding_dim)
+            for f in cfg.feature_names:
+                groups.setdefault(key, []).append(
+                    (cfg.name, f, col, cfg.pooling == PoolingType.MEAN))
+                self._out_keys.append(f)
+                self._out_dims.append(cfg.embedding_dim)
+                col += cfg.embedding_dim
+        self._groups = [
+            (data_type, kernel, members[i:i + MAX_GROUP_FEATURES])
+            for (data_type, kernel, _), members in groups.items()
+            for i in range(0, len(members), MAX_GROUP_FEATURES)
+        ]
         self.params = nn.ModuleDict({
             cfg.name: _QuantTable(
                 params[cfg.name]["q"],
@@ -137,37 +160,35 @@ class QuantEmbeddingBagCollection(nn.Module):
         return super().to(resolve_device(device))
 
     @property
+    def num_groups(self) -> int:
+        """Grouped lookups per batch: one launch of a lookup kernel each."""
+        return len(self._groups)
+
+    @property
     def device(self) -> torch.device:
         return next(iter(self.params.values())).q.device
 
     def forward(self, kjt: KeyedJaggedTensor) -> KeyedTensor:
-        """KJT -> KeyedTensor of dequantized pooled embeddings [B, sum D]."""
-        out_keys, out_dims, pieces = [], [], []
-        for cfg in self.tables:
-            p = self.params[cfg.name]
-            kernel = self._kernels[cfg.name]
-            for f in cfg.feature_names:
-                jt = kjt[f]
-                lengths = jt.lengths()
-                B = lengths.shape[0]
-                seg = per_slot_segments(lengths, jt.capacity)
-                w = None
-                if cfg.pooling == PoolingType.MEAN:
-                    w = mean_pooling_weights(seg, lengths)
-                ids = jt.values()
-                if cfg.data_type == DataType.INT8:
-                    pooled = quantized_pooled_lookup(
-                        p.q, p.scale, p.bias, ids, seg, B, w, kernel=kernel
-                    )
-                elif cfg.data_type == DataType.INT4:
-                    pooled = quantized_pooled_lookup_int4(
-                        p.q, p.scale, p.bias, ids, seg, B, w
-                    )
-                else:
-                    pooled = quantized_pooled_lookup_int2(
-                        p.q, p.scale, p.bias, ids, seg, B, w
-                    )
-                out_keys.append(f)
-                out_dims.append(cfg.embedding_dim)
-                pieces.append(pooled)
-        return KeyedTensor(out_keys, out_dims, torch.cat(pieces, dim=-1))
+        """KJT -> KeyedTensor of dequantized pooled embeddings [B, sum D]:
+        one grouped lookup per group of features."""
+        keys = {k: i for i, k in enumerate(kjt.keys())}
+        missing = [f for f in self._out_keys if f not in keys]
+        if missing:
+            raise KeyError(f"features {missing} are not in the batch")
+        offsets = kjt.cap_offsets()
+        out = torch.empty((kjt.stride(), sum(self._out_dims)),
+                          dtype=torch.float32, device=kjt.values().device)
+        for data_type, kernel, members in self._groups:
+            feats = [
+                GroupFeature(self.params[t].q, self.params[t].scale,
+                             self.params[t].bias, keys[f], col, mean)
+                for t, f, col, mean in members
+            ]
+            if kernel == "tbe":
+                quant_pooled_lookup_int8_grouped(
+                    kjt.values(), kjt.lengths(), offsets, feats, out)
+            else:
+                dedup_quant_pooled_lookup_grouped(
+                    kjt.values(), kjt.lengths(), offsets, feats, out,
+                    bits=_BITS[data_type])
+        return KeyedTensor(self._out_keys, self._out_dims, out)
