@@ -13,7 +13,8 @@ Phases, one JSON line each on stdout; any failure raises:
 1. device — the card, its power limit, and the nvcc builds of the
    kernels (``torchrec_tpu_torch/csrc/{tbe_float,tbe_backward,tbe_quant,
    tbe_dedup,tbe_dedup_backward}.cu``, one nvcc per source, started
-   together) from source;
+   together) from source, and the registers of every B2 and B6
+   instantiation (``registers``: at most 128 for D <= 128);
 2. kernel — each quantized lookup kernel against its plain PyTorch version
    on the card (``torch.equal``) at D=128, S=4096 segments with the MLPerf
    DLRM-v2 multi-hot lengths, a 1M-row table, uniform and Zipf ids; with
@@ -52,7 +53,9 @@ Phases, one JSON line each on stdout; any failure raises:
    update (B6) for each of its eight optimizers on float32 and rowwise
    Adagrad on bfloat16 with stochastic rounding, each against its plain
    version (``torch.equal``) on the first bucketed batch's slots, with
-   times and bounds; then the path check on that batch (B4's output
+   times (B6 also of the card alone), bounds, registers and grid, and
+   B6's runs arm (one run each of 1 to 10,000 slots, then the sentinel,
+   ``runs_slots``); then the path check on that batch (B4's output
    equal to B1's, B6's update from the step's real gradient equal to its
    plain version's, and the state after one bucketed step equal to the
    state after the same step at full caps); then 1 warm-up and 20 timed
@@ -78,11 +81,12 @@ Phases, one JSON line each on stdout; any failure raises:
    and optax-style dense Adagrad 0.004.  First ``dcn_kernel``: B1 and B2
    (Adagrad) against their plain versions at the path's shapes (the
    stack, the first batch's slots, its uniform ids and Zipf(1.1) ids per
-   table), then B2 for the other seven optimizers on float32 and all
-   eight on bfloat16 with stochastic rounding at the same batch shapes
-   over a stack of ``min(MLPerf rows, 1,000,000)`` rows (7,116,632 rows);
-   each with kernel, wrapper and plain times, bound and registers, the
-   stack and states restored on the touched rows only between calls;
+   table) and B2's runs arm (``runs_slots``), then B2 for the other seven
+   optimizers on float32 and all eight on bfloat16 with stochastic
+   rounding at the same batch shapes over a stack of ``min(MLPerf rows,
+   1,000,000)`` rows (7,116,632 rows); each with kernel (also of the card
+   alone), wrapper and plain times, bound, registers and grid, the stack
+   and states restored on the touched rows only between calls;
    then the path check on the first batch (B1's output and B2's updated
    stack and momentum from the step's real gradient ``torch.equal`` to
    the plain versions, touched rows past 2^31 bytes); then 1 warm-up and
@@ -212,6 +216,10 @@ DCN_LR = 0.004
 EPS = 1e-8  # the fused optimizers' eps (the JAX default)
 # row offsets past this many bytes need the kernels' 64-bit addressing
 FAR_BYTES = 2**31
+# the runs arm of B2 and B6: one run of each length on its own row (the
+# table's last among them), then RUN_PADDING invalid slots (the sentinel)
+RUN_LENGTHS = (1, 2, 31, 32, 33, 63, 64, 65, 100, 1000, 2731, 3000, 10000)
+RUN_PADDING = 4096
 # multiplies, adds, divisions and roots per column of one row's update
 # (after the gradient sum), for the operations bound of the fused updates
 UPDATE_OPS_PER_COLUMN = {
@@ -533,12 +541,62 @@ def _update_call(fn, stack, states, optim, sg, lr, seed, bc):
               states=states if adam else None, bias_corrections=bc)
 
 
+def runs_slots(R, S, seed):
+    """A slot stream built to hit the edges of the fused updates' grid and
+    walk: one run of each of ``RUN_LENGTHS`` slots on its own random row
+    (row ``R - 1`` among them), then ``RUN_PADDING`` invalid slots, all
+    shuffled, with random segments in ``[0, S)`` and weights.  Returns
+    host ``(ids, valid, segments, weights)``."""
+    rng = np.random.RandomState(seed)
+    rows = np.unique(rng.randint(0, R - 1, 4 * len(RUN_LENGTHS)))
+    rows = rng.permutation(rows)[: len(RUN_LENGTHS)]
+    rows[-1] = R - 1
+    n_valid = sum(RUN_LENGTHS)
+    n = n_valid + RUN_PADDING
+    ids = np.concatenate([np.repeat(rows, RUN_LENGTHS),
+                          rng.randint(0, R, RUN_PADDING)])
+    perm = rng.permutation(n)
+    return (ids[perm].astype(np.int32), (np.arange(n) < n_valid)[perm],
+            rng.randint(0, S, n).astype(np.int32),
+            rng.rand(n).astype(np.float32))
+
+
+def _runs_seg_grad(dev, R, grad, seed):
+    """``runs_slots`` on the card over the upstream gradient ``grad``."""
+    import torch
+
+    from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
+
+    arrays = runs_slots(R, grad.shape[0], seed)
+    return SparseSegGrad(*(torch.from_numpy(a).to(dev) for a in arrays),
+                         grad)
+
+
+def _launch_facts(kernel, optim, dtype, sg, R):
+    """The launch's instantiation and grid on these inputs: registers,
+    column layout, blocks (and resident per SM), warps, the 32-position
+    windows that hold work, and the claims on the work queue (one more
+    per warp, the claim that stops it)."""
+    from torchrec_tpu_torch.ops.tbe_backward import update_launch
+
+    D = sg.grad_seg.shape[1]
+    info = update_launch(kernel, optim, dtype, D, sg.ids.numel())
+    kept = int((sg.ok() & (sg.ids >= 0) & (sg.ids < R)).sum())
+    windows = -(-kept // 32)
+    warps = info["blocks"] * 8
+    return {"registers": info["registers"], "layout": info["layout"],
+            "grid": {"blocks": info["blocks"],
+                     "blocks_per_sm": info["blocks_per_sm"], "warps": warps,
+                     "windows": windows, "claims": windows + warps}}
+
+
 def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
     """B2 with ``optim`` against its plain version on the card, in place
     on ``stack`` and ``states`` and undone on the touched rows after
     every call: ``torch.equal`` on the touched rows of the stack and every
-    state, nothing written elsewhere (checksums), times, bound and
-    registers.  Returns the emitted record."""
+    state, nothing written elsewhere (checksums), times (the kernel also
+    of the card alone), bound, registers and grid.  Returns the emitted
+    record."""
     import torch
 
     from torchrec_tpu_torch.ops import tbe_backward
@@ -577,6 +635,12 @@ def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
         raise AssertionError("bfloat16 update did not round stochastically")
     prep = tbe_backward.sort_by_row(sg.ids, sg.valid, sg.segments,
                                     sg.weights, R, sg.grad_seg.shape[0])
+
+    def launch():
+        tbe_backward.launch_fused_sparse_update(
+            stack, states, *prep, sg.grad_seg, optim, lr, EPS, 0.0,
+            (0.9, 0.999), bc, seed)
+
     U, nbytes, flops = _update_bound(D, stack.element_size(), sg, optim)
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {
@@ -586,16 +650,13 @@ def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
         "rows_past_2^31_bytes": int((rows * D * 4 >= FAR_BYTES).sum()),
         "sr_seed": seed, "sr_differs_from_nearest": sr_rows,
         "equal": True, "max_abs_err": err,
-        "registers": tbe_backward.fused_update_registers(optim, stack.dtype,
-                                                         D),
+        **_launch_facts("fused_sparse_update", optim, stack.dtype, sg, R),
         "ms": cuda_ms(lambda: _update_call(
             tbe_backward.fused_sparse_update, *args), flush,
             setup=snap.restore),
-        "kernel_ms": cuda_ms(
-            lambda: tbe_backward.launch_fused_sparse_update(
-                stack, states, *prep, sg.grad_seg, optim, lr, EPS, 0.0,
-                (0.9, 0.999), bc, seed),
-            flush, setup=snap.restore),
+        "kernel_ms": cuda_ms(launch, flush, setup=snap.restore),
+        "kernel_device_ms": cuda_ms(launch, flush, setup=snap.restore,
+                                    device_only=True),
         "plain_ms": cuda_ms(lambda: _update_call(
             tbe_backward.fused_sparse_update_plain, *args), flush,
             runs=PLAIN_RUNS, warmup=1, setup=snap.restore),
@@ -987,17 +1048,14 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
     over the float32 stack and its bfloat16 cast; B6 for each of its eight
     optimizers on float32 and rowwise Adagrad on bfloat16 with stochastic
     rounding, each on fresh copies of the stack and of random states, with
-    a random ``[S, 128]`` upstream gradient.  Times by ``cuda_ms``; the
-    plain versions over ``PLAIN_RUNS`` runs.  Returns the records."""
+    a random ``[S, 128]`` upstream gradient; then B6's runs arm (rowwise
+    Adagrad over ``runs_slots``).  Times by ``cuda_ms``; the plain versions
+    over ``PLAIN_RUNS`` runs.  Returns the records."""
     import torch
     import torch.nn.functional as F
 
     from torchrec_tpu_torch.ops import tbe, tbe_backward
-    from torchrec_tpu_torch.ops.fused_update import (
-        FusedOptimConfig,
-        SparseSegGrad,
-        bias_corrections,
-    )
+    from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
     from torchrec_tpu_torch.parallel.sharding.tw import tw_lookup_inputs
 
     bb, clone, sig = bucketed_batch(dmp, batch, dev)
@@ -1056,81 +1114,109 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
         del got, ref, prep, stack
 
     sg = SparseSegGrad(ids, valid, segs, w, grad)
-    srt = tbe_backward.sort_by_row(ids, valid, segs, w, R, S)
     arms = [(o, torch.float32, None) for o in tbe_backward.OPTIMIZERS]
     arms.append(("rowwise_adagrad", torch.bfloat16, SR_SEED))
     for optim, dtype, seed in arms:
         stack = stack32 if dtype == torch.float32 else stack32.to(dtype)
-        states = [
-            torch.rand((R,) if kind == "row" else (R, D), generator=gen,
-                       device=dev) * 1e-2
-            for kind in tbe_backward.STATE_LAYOUTS[optim]]
-        # the Adam family's first step (the others ignore the corrections)
-        kw = {"eps": 1e-8, "weight_decay": 0.0,
-              "bias_corrections": bias_corrections(FusedOptimConfig(), 1),
-              "sr_seed": seed}
-        upd = (ids, valid, segs, w, grad, optim, TRAIN_LR)
-        tk, sk = stack.clone(), [s.clone() for s in states]
-        tbe_backward.dedup_fused_sparse_update(tk, sk, *upd, **kw)
-        torch.cuda.synchronize()
-        tp, sp = stack.clone(), [s.clone() for s in states]
-        tbe_backward.dedup_fused_sparse_update_plain(tp, sp, *upd, **kw)
-        err = max([float((tk.float() - tp.float()).abs().max())]
-                  + [float((a - b).abs().max()) for a, b in zip(sk, sp)])
-        equal = bool(torch.equal(tk, tp)) and all(
-            torch.equal(a, b) for a, b in zip(sk, sp))
-        touched = int((tk != stack).any(dim=1).sum())
-        sr_rows = None
-        if seed is not None:
-            rn = stack.clone()
-            tbe_backward.dedup_fused_sparse_update_plain(
-                rn, [s.clone() for s in states], *upd,
-                **{**kw, "sr_seed": None})
-            sr_rows = int((rn != tk).sum())
-            del rn
-        del tp, sp
-        if not equal:
-            raise AssertionError(f"dedup_fused_sparse_update {optim} "
-                                 f"{dtype}: kernel != plain (max abs err "
-                                 f"{err})")
-        if seed is not None and not sr_rows:
-            raise AssertionError("bfloat16 update did not round "
-                                 "stochastically")
-
-        def restore():  # the timed calls update tk and sk in place
-            tk.copy_(stack)
-            for a, b in zip(sk, states):
-                a.copy_(b)
-
-        U, nbytes, flops = _update_bound(D, stack.element_size(), sg, optim)
-        bound_ms, bound_by = _bound(nbytes, flops)
-        rec = {
-            "phase": "dedup_kernel", "kernel": "dedup_fused_sparse_update",
-            "optim": optim, "dtype": str(dtype).replace("torch.", ""),
-            **common, "kept": int(sg.ok().sum()), "distinct": U,
-            "touched_rows": touched, "sr_seed": seed,
-            "sr_differs_from_nearest": sr_rows, "equal": True,
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: tbe_backward.dedup_fused_sparse_update(
-                tk, sk, *upd, **kw), flush, setup=restore),
-            "kernel_ms": cuda_ms(
-                lambda: tbe_backward.launch_dedup_fused_sparse_update(
-                    tk, sk, *srt, grad, optim, TRAIN_LR, kw["eps"], 0.0,
-                    (0.9, 0.999), kw["bias_corrections"], seed),
-                flush, setup=restore),
-            "plain_ms": cuda_ms(
-                lambda: tbe_backward.dedup_fused_sparse_update_plain(
-                    tk, sk, *upd, **kw),
-                flush, runs=PLAIN_RUNS, warmup=1, setup=restore),
-            "library_ms": None,
-            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-        }
-        emit(rec)
-        rows.append(rec)
-        del tk, sk, states, stack
+        rows.append(b6_row(flush, stack, optim, sg, seed, gen, common))
+        del stack
+    # the runs arm: runs of 1 to 10,000 slots, then the sentinel
+    rsg = _runs_seg_grad(dev, R, grad, seed=13)
+    rows.append(b6_row(flush, stack32, "rowwise_adagrad", rsg, None, gen,
+                       {"rows": R, "D": D, "S": S, "V": rsg.ids.numel(),
+                        "valid": int(rsg.valid.sum()), "ids": "runs"}))
     torch.cuda.empty_cache()
     return rows
+
+
+def b6_row(flush, stack, optim, sg, seed, gen, common):
+    """B6 with ``optim`` against its plain version on the card, each on
+    its own copy of ``stack`` and of random states: ``torch.equal`` on the
+    whole stack and every state, times (the kernel also of the card
+    alone), bound, registers and grid.  Returns the emitted record."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import (
+        FusedOptimConfig,
+        bias_corrections,
+    )
+
+    R, D = stack.shape
+    states = [
+        torch.rand((R,) if kind == "row" else (R, D), generator=gen,
+                   device=stack.device) * 1e-2
+        for kind in tbe_backward.STATE_LAYOUTS[optim]]
+    # the Adam family's first step (the others ignore the corrections)
+    kw = {"eps": EPS, "weight_decay": 0.0,
+          "bias_corrections": bias_corrections(FusedOptimConfig(), 1),
+          "sr_seed": seed}
+    upd = (sg.ids, sg.valid, sg.segments, sg.weights, sg.grad_seg, optim,
+           TRAIN_LR)
+    tk, sk = stack.clone(), [s.clone() for s in states]
+    tbe_backward.dedup_fused_sparse_update(tk, sk, *upd, **kw)
+    torch.cuda.synchronize()
+    tp, sp = stack.clone(), [s.clone() for s in states]
+    tbe_backward.dedup_fused_sparse_update_plain(tp, sp, *upd, **kw)
+    err = max([float((tk.float() - tp.float()).abs().max())]
+              + [float((a - b).abs().max()) for a, b in zip(sk, sp)])
+    equal = bool(torch.equal(tk, tp)) and all(
+        torch.equal(a, b) for a, b in zip(sk, sp))
+    touched = int((tk != stack).any(dim=1).sum())
+    sr_rows = None
+    if seed is not None:
+        rn = stack.clone()
+        tbe_backward.dedup_fused_sparse_update_plain(
+            rn, [s.clone() for s in states], *upd, **{**kw, "sr_seed": None})
+        sr_rows = int((rn != tk).sum())
+        del rn
+    del tp, sp
+    if not equal:
+        raise AssertionError(f"dedup_fused_sparse_update {optim} "
+                             f"{stack.dtype} {common}: kernel != plain "
+                             f"(max abs err {err})")
+    if seed is not None and not sr_rows:
+        raise AssertionError("bfloat16 update did not round stochastically")
+
+    def restore():  # the timed calls update tk and sk in place
+        tk.copy_(stack)
+        for a, b in zip(sk, states):
+            a.copy_(b)
+
+    srt = tbe_backward.sort_by_row(sg.ids, sg.valid, sg.segments, sg.weights,
+                                   R, sg.grad_seg.shape[0])
+
+    def launch():
+        tbe_backward.launch_dedup_fused_sparse_update(
+            tk, sk, *srt, sg.grad_seg, optim, TRAIN_LR, EPS, 0.0,
+            (0.9, 0.999), kw["bias_corrections"], seed)
+
+    U, nbytes, flops = _update_bound(D, stack.element_size(), sg, optim)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    rec = {
+        "phase": "dedup_kernel", "kernel": "dedup_fused_sparse_update",
+        "optim": optim, "dtype": str(stack.dtype).replace("torch.", ""),
+        **common, "kept": int(sg.ok().sum()), "distinct": U,
+        "touched_rows": touched, "sr_seed": seed,
+        "sr_differs_from_nearest": sr_rows, "equal": True,
+        "max_abs_err": err,
+        **_launch_facts("dedup_fused_sparse_update", optim, stack.dtype, sg,
+                        R),
+        "ms": cuda_ms(lambda: tbe_backward.dedup_fused_sparse_update(
+            tk, sk, *upd, **kw), flush, setup=restore),
+        "kernel_ms": cuda_ms(launch, flush, setup=restore),
+        "kernel_device_ms": cuda_ms(launch, flush, setup=restore,
+                                    device_only=True),
+        "plain_ms": cuda_ms(
+            lambda: tbe_backward.dedup_fused_sparse_update_plain(
+                tk, sk, *upd, **kw),
+            flush, runs=PLAIN_RUNS, warmup=1, setup=restore),
+        "library_ms": None,
+        "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    emit(rec)
+    return rec
 
 
 def dedup_path_check(dmp, state, batch, dev):
@@ -1452,6 +1538,12 @@ def train_dcn_phase(dev, flush):
         sg = SparseSegGrad(ids, (segs < S) & (w != 0), segs, w, grad)
         kernel_rows.append(b2_row(flush, "dcn_kernel", stack, [mom],
                                   "adagrad", sg, DCN_LR, None, common))
+    # the runs arm: runs of 1 to 10,000 slots, then the sentinel
+    sg = _runs_seg_grad(dev, stack.shape[0], grad, seed=17)
+    kernel_rows.append(b2_row(
+        flush, "dcn_kernel", stack, [mom], "adagrad", sg, DCN_LR, None,
+        {"dtype": "float32", "ids": "runs", "rows": stack.shape[0], "D": DIM,
+         "S": S, "V": sg.ids.numel()}))
     del ids_z, grad, sg
     check = train_path_check(dmp, state, batches[0], None, "dcn_path_check")
 
@@ -2135,6 +2227,36 @@ def roundtrip_phase(dev):
         raise AssertionError("card and CPU scores of one artifact differ")
 
 
+def registers_record():
+    """The registers a thread of every B2 and B6 instantiation uses, by
+    optimizer and table dtype, at D = 128 (the narrow layout, bounded to
+    two 256-thread blocks an SM, so at most 128), D = 512 (wide) and
+    D = 130 (scalar); fails if a narrow one takes more than 128."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe_backward
+
+    rec = {"phase": "registers"}
+    for kernel in ("fused_sparse_update", "dedup_fused_sparse_update"):
+        rec[kernel] = {}
+        for dim in (128, 512, 130):
+            for dtype in (torch.float32, torch.bfloat16):
+                for optim in tbe_backward.OPTIMIZERS:
+                    info = tbe_backward.update_launch(kernel, optim, dtype,
+                                                      dim)
+                    if info["layout"] != tbe_backward.column_layout(dim)[0]:
+                        raise AssertionError(f"{kernel} D={dim}: layout "
+                                             f"{info['layout']}")
+                    if dim == 128 and info["registers"] > 128:
+                        raise AssertionError(f"{kernel} {optim} {dtype}: "
+                                             f"{info['registers']} registers")
+                    key = f"D={dim} {str(dtype).replace('torch.', '')}"
+                    rec[kernel].setdefault(key, {})[optim] = {
+                        "registers": info["registers"],
+                        "blocks_per_sm": info["blocks_per_sm"]}
+    return rec
+
+
 def main() -> None:
     import torch
 
@@ -2157,6 +2279,7 @@ def main() -> None:
                         if "registers" in l or "spill" in l]
                     for s, i in _native.BUILD_INFO.items()}})
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    emit(registers_record())
     kernel_rows = kernel_phase(dev, flush)
     train_launches, train_rows, checks = train_phase(dev, flush)
     dedup_launches, dedup_rows, dedup_check = train_dedup_phase(dev, flush)
@@ -2211,8 +2334,8 @@ def main() -> None:
     # 1,000,000-row cap)
     b2 = next(k for k in summary if k["name"] == "fused_sparse_update")
     b2["optimizers"] = {
-        r["optim"]: {k: r[k] for k in ("ms", "kernel_ms", "plain_ms",
-                                       "bound_ms", "registers")}
+        r["optim"]: {k: r[k] for k in ("ms", "kernel_ms", "kernel_device_ms",
+                                       "plain_ms", "bound_ms", "registers")}
         for r in dcn_rows
         if r["kernel"] == "fused_sparse_update" and r["dtype"] == "float32"
         and r["ids"] == "uniform"}

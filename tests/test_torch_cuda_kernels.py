@@ -3,10 +3,14 @@ versions, bit for bit (``torch.equal``), at shapes ``chip_smoke.py``
 does not reach: widths that are not a multiple of the vector width (the
 kernels' one-column-per-lane paths) and past one 128-column block, empty
 batches, empty segments, clipped ids, dropped segments and slots, weight
-decay and bfloat16 stochastic rounding; and the grouped quantized lookups
-of a served batch (every feature in one launch, tables whose rows start
-off a 4-byte boundary, MEAN features, a key no feature reads), with the
-collection's forward run under ``torch.cuda.set_sync_debug_mode("error")``.
+decay and bfloat16 stochastic rounding; the fused updates' grid and run
+walk on slot streams built to hit its edges (runs of 1 to 3,000 slots,
+one valid slot, only sentinels, valid slots ending on a window boundary,
+two launches in a row) at every column layout; and the grouped quantized
+lookups of a served batch (every feature in one launch, tables whose rows
+start off a 4-byte boundary, MEAN features, a key no feature reads), with
+the collection's forward run under
+``torch.cuda.set_sync_debug_mode("error")``.
 
 Needs a CUDA device and ``nvcc``; marked ``cuda`` and skipped elsewhere.
 It imports nothing of JAX, so on a machine with a card and no JAX it runs
@@ -306,6 +310,131 @@ def test_fused_update_optimizers_equal_plain_on_card(dev, optim, dtype, D,
         assert torch.equal(a, b), float((a - b).abs().max())
     assert (n == 0) == torch.equal(tk, table)
     assert tbe_backward.fused_update_registers(optim, dtype, D) > 0
+
+
+# ---------------------------------------------------------------------------
+# the fused updates' grid and walk (B2 and B6, backward_common.cuh): slot
+# streams built to hit the edges of the 32-position windows and of a run's
+# 32-slot chunks, at every column layout
+# ---------------------------------------------------------------------------
+
+# run lengths of the valid slots (each on its own row), then invalid slots
+# (the sentinel); the 3,000-slot run crosses some 94 windows
+RUN_STREAMS = {
+    "runs": ([1, 31, 32, 33, 64, 3000, 1], 100),
+    "one_valid": ([1], 63),
+    "all_sentinels": ([], 64),
+    "ends_on_window": ([1, 31, 32], 32),
+}
+RUN_DIMS = (4, 100, 128, 256, 512)  # narrow, narrow, narrow, wide, wide
+UPDATES = ("fused_sparse_update", "dedup_fused_sparse_update")
+
+
+def _run_stream(dev, case, D, seed):
+    """(ids, valid, segments, weights) on the card, shuffled, and a random
+    ``[S, D]`` upstream gradient."""
+    lengths, pad = RUN_STREAMS[case]
+    rng = np.random.RandomState(seed)
+    rows = rng.permutation(R)[: len(lengths)]
+    ids = np.concatenate([np.repeat(rows, lengths), rng.randint(0, R, pad)])
+    n = len(ids)
+    perm = rng.permutation(n)
+    arrays = (ids[perm], (np.arange(n) < sum(lengths))[perm],
+              rng.randint(0, S, n), rng.rand(n).astype(np.float32))
+    grad = rng.randn(S, D).astype(np.float32)
+    return ([torch.from_numpy(x).to(dev) for x in arrays],
+            torch.from_numpy(grad).to(dev))
+
+
+def _update(kernel, plain, optim, table, states, args, grad, seed):
+    """B2 or B6 (or its plain version) with ``optim``, in place."""
+    kw = dict(weight_decay=0.01, sr_seed=seed,
+              bias_corrections=(0.271, 0.004))
+    if kernel == "dedup_fused_sparse_update":
+        fn = (tbe_backward.dedup_fused_sparse_update_plain if plain
+              else tbe_backward.dedup_fused_sparse_update)
+        fn(table, states, *args, grad, optim, 0.05, **kw)
+        return
+    fn = (tbe_backward.fused_sparse_update_plain if plain
+          else tbe_backward.fused_sparse_update)
+    adam = len(states) == 2
+    fn(table, None if adam or not states else states[0], *args, grad, 0.05,
+       optim=optim, states=states if adam else None, **kw)
+
+
+def _check_stream(dev, kernel, optim, dtype, D, case, seed, calls=1):
+    """``calls`` kernel launches in a row on one stream against as many
+    plain-version calls: ``torch.equal`` on the table and every state."""
+    rng = np.random.RandomState(D + len(case))
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    states = [torch.from_numpy(
+        rng.rand(*((R,) if kind == "row" else (R, D))).astype(np.float32)
+    ).to(dev) for kind in tbe_backward.STATE_LAYOUTS[optim]]
+    args, grad = _run_stream(dev, case, D, seed=D + 1)
+    tk, sk = table.clone(), [s.clone() for s in states]
+    tp, sp = table.clone(), [s.clone() for s in states]
+    before = tbe.launch_counts()[kernel]
+    for _ in range(calls):
+        _update(kernel, False, optim, tk, sk, args, grad, seed)
+    torch.cuda.synchronize()
+    assert tbe.launch_counts()[kernel] == before + calls
+    for _ in range(calls):
+        _update(kernel, True, optim, tp, sp, args, grad, seed)
+    assert torch.equal(tk, tp), float((tk.float() - tp.float()).abs().max())
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert torch.equal(tk, table) == (case == "all_sentinels")
+
+
+@pytest.mark.parametrize("case", sorted(RUN_STREAMS))
+@pytest.mark.parametrize("D", RUN_DIMS)
+@pytest.mark.parametrize("optim", tbe_backward.OPTIMIZERS)
+@pytest.mark.parametrize("kernel", UPDATES)
+def test_update_run_streams_equal_plain_on_card(dev, kernel, optim, D, case):
+    _check_stream(dev, kernel, optim, torch.float32, D, case, None)
+
+
+@pytest.mark.parametrize("optim", tbe_backward.OPTIMIZERS)
+@pytest.mark.parametrize("kernel", UPDATES)
+def test_update_run_streams_bf16_stochastic_on_card(dev, kernel, optim):
+    _check_stream(dev, kernel, optim, torch.bfloat16, 128, "runs", 12345)
+
+
+@pytest.mark.parametrize("kernel,optim", [
+    ("fused_sparse_update", "adagrad"),
+    ("dedup_fused_sparse_update", "rowwise_adagrad"),
+])
+def test_update_two_launches_reset_the_queue_on_card(dev, kernel, optim):
+    """The second launch on a stream finds the work queue the first left
+    at 0: both updates equal the plain version's two calls, and the
+    queues read 0 afterwards."""
+    _check_stream(dev, kernel, optim, torch.float32, 128, "runs", None,
+                  calls=2)
+    for q in tbe_backward._QUEUES.values():
+        assert q.tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("D", RUN_DIMS + (6, 130))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("kernel", UPDATES)
+def test_update_instantiation_by_width_on_card(dev, kernel, dtype, D):
+    """The launch takes the layout ``column_layout`` names; a narrow
+    instantiation fits two 256-thread blocks an SM (<= 128 registers);
+    the grid is the resident blocks, no more warps than windows."""
+    layout, _ = tbe_backward.column_layout(D)
+    for optim in tbe_backward.OPTIMIZERS:
+        info = tbe_backward.update_launch(kernel, optim, dtype, D, 10**6)
+        assert info["layout"] == layout
+        if layout == "narrow":
+            assert info["registers"] <= 128 and info["blocks_per_sm"] >= 2
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert info["blocks"] == info["blocks_per_sm"] * sms
+        small = tbe_backward.update_launch(kernel, optim, dtype, D, 33 * 8)
+        assert small["blocks"] == 2  # 9 windows: 9 warps in 2 blocks
+    regs = (tbe_backward.fused_update_registers if kernel == UPDATES[0]
+            else tbe_backward.dedup_fused_update_registers)
+    assert regs(optim, dtype, D) == info["registers"]
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,11 @@ Tolerances, with their reasons:
 The CUDA kernels cannot run here; their walk is emulated in numpy float32
 (one rounding per operation, in the kernels' order) and must equal the
 plain versions bit for bit, the property ``chip_smoke.py`` checks on the
-card with ``torch.equal``.
+card with ``torch.equal``.  The fused updates' grid (32-position windows
+claimed in any order, run starts by ballot, each run walked to its end in
+32-slot chunks) is emulated too, and must walk every run exactly once;
+the launchers' choice of column layout by D and their width check are
+pinned without a card.
 """
 
 import functools
@@ -308,6 +312,112 @@ def test_lane_columns_cover_each_column_once():
         for lane in per_lane:
             own = lane[lane < dim]
             assert (np.diff(own) > 0).all()
+
+
+@pytest.mark.parametrize("dim,layout,cols", [
+    (4, "narrow", 4), (100, "narrow", 4), (128, "narrow", 4),
+    (132, "wide", 16), (256, "wide", 16), (512, "wide", 16),
+    (6, "scalar", 16), (130, "scalar", 16), (510, "scalar", 16),
+])
+def test_column_layout_by_width(dim, layout, cols):
+    """The launchers' D -> instantiation choice: the narrow layout (one
+    float4 a lane) for D <= 128 with D % 4 == 0, the 16-column layouts
+    otherwise; each holds every column ``lane_columns`` gives a lane."""
+    assert tbw.column_layout(dim) == (layout, cols)
+    assert tbw.lane_columns(dim).shape[1] <= cols
+
+
+@pytest.mark.parametrize("launch", [tbw.launch_fused_sparse_update,
+                                    tbw.launch_dedup_fused_sparse_update])
+def test_launchers_reject_wide_tables_before_building(launch, monkeypatch):
+    """Past 512 columns both launchers raise the ValueError they always
+    raised, before any kernel is built."""
+    from torchrec_tpu_torch.ops import _native
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_native, "load_library", no_build)
+    with pytest.raises(ValueError, match="D <= 512, got 513"):
+        tbw.column_layout(513)
+    e = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="D <= 512, got 513"):
+        launch(torch.zeros((4, 513)), [], e, e, e.float(),
+               torch.zeros((1, 513)), "sgd", LR, EPS, 0.0, (0.9, 0.999),
+               (1.0, 1.0), None)
+
+
+def _emulate_grid(srows, num_rows, order):
+    """numpy emulation of ``fused_update_kernel``'s schedule
+    (``csrc/backward_common.cuh``): the 32-position windows claimed in
+    ``order``, a claim past V or on the sentinel stops its warp, the
+    ballot over ``rows[p] != rows[p - 1]`` finds the runs that start in
+    a window, and the owner walks each: its slots in the window (from
+    its start lane to the first lane whose row differs), then, if it
+    reaches the window's end, 32-slot chunks (the run is the prefix of
+    equal rows of each).  Returns {start: (row, end)} of the runs walked;
+    raises if one is walked twice."""
+    V, lane = len(srows), np.arange(32)
+
+    def rows_at(q):
+        return np.where(q < V, srows[np.minimum(q, V - 1)], num_rows)
+
+    walked = {}
+    for w in order:
+        base = 32 * w
+        if base >= V:
+            continue
+        r = rows_at(base + lane)
+        if r[0] >= num_rows:
+            continue
+        prev = np.concatenate([[srows[base - 1] if base else -1], r[:-1]])
+        for k in np.flatnonzero((r < num_rows) & (r != prev)):
+            same = (r == r[k]) | (lane < k)
+            end = base + (32 if same.all() else int(np.argmin(same)))
+            b = base + 32
+            while end == b:  # the run reached the chunk's end
+                same = rows_at(b + lane) == r[k]
+                end = b + (32 if same.all() else int(np.argmin(same)))
+                b += 32
+            assert base + k not in walked
+            walked[base + k] = (r[k], end)
+    return walked
+
+
+# run lengths of the valid slots (each on its own row), then padding slots
+GRID_STREAMS = {
+    "runs": ([1, 31, 32, 33, 64, 3000, 1, 2], 40),
+    "crossing": ([20, 100, 7], 0),
+    "one_valid": ([1], 50),
+    "all_sentinels": ([], 70),
+    "ends_on_window": ([10, 22, 32], 32),
+    "no_sentinel": ([5, 59], 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRID_STREAMS))
+def test_grid_schedule_walks_each_run_once(case):
+    """Whatever order the work queue hands out the windows in (and the
+    static grid's order), every run of ``sort_by_row``'s stream is walked
+    exactly once, from its first slot to its last, and nothing else."""
+    lengths, pad = GRID_STREAMS[case]
+    rng = np.random.RandomState(len(lengths) + pad)
+    rows = rng.permutation(R)[: len(lengths)]
+    ids = np.concatenate([np.repeat(rows, lengths),
+                          rng.randint(0, R, pad)]).astype(np.int64)
+    valid = np.arange(len(ids)) < sum(lengths)
+    perm = rng.permutation(len(ids))
+    segs = rng.randint(0, S, len(ids))
+    srows, _, _ = tbw.sort_by_row(_t(ids[perm]), _t(valid[perm]),
+                                  _t(segs), None, R, S)
+    srows = srows.numpy()
+    n = sum(lengths)
+    first = np.flatnonzero(np.diff(srows[:n], prepend=-1) != 0) if n else []
+    want = {int(s): (srows[s], int(e))
+            for s, e in zip(first, list(first[1:]) + [n])}
+    windows = -(-len(ids) // 32) + 3  # and claims past V
+    for order in (range(windows), rng.permutation(windows)):
+        assert _emulate_grid(srows, R, order) == want
 
 
 def test_fused_update_empty_batch_and_no_valid_slot_are_identity():

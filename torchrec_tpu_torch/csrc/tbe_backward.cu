@@ -36,15 +36,22 @@
 // Design.  The TPU kernel walks the row-sorted slots on a SEQUENTIAL grid
 // and keeps the open run's accumulator in VMEM across grid steps, flushing
 // it when the row changes (pallas_tbe_backward.py:36-47).  Blocks on Hopper
-// run concurrently, so each row run has exactly one owner: the grid runs one
-// warp per sorted position, and the warp whose position starts a run (the
-// first position, or one whose row differs from its predecessor's) walks the
-// run to its end; every other warp exits at once.  No atomics, no unique
-// pass, no host sync.  The accumulator, the row and its states stay in
+// run concurrently, so each row run has exactly one owner warp, which sums
+// it and updates its row: no float atomics, no unique pass, no host sync.
+// The kernel is backward_common.cuh::fused_update_kernel with PER_ID = true;
+// that header documents the grid and the walk.  In short: a persistent grid
+// of the blocks resident on the card claims 32-position windows of the
+// sorted stream from an integer work queue and stops at the sentinel, so
+// the padding slots (92% of the table-wise layout's on the MLPerf DLRM-v2
+// path) cost no warp; the owner of a run fetches its slots' metadata 32 at
+// a time and keeps kDepth gradient rows in flight, adding them in slot
+// order, so a long run (a tiny table's, or a Zipf-hot row's) waits about
+// L / kDepth round trips.  The accumulator, the row and its states stay in
 // registers: each lane owns the columns {b*128 + 4*lane + e} (D % 4 == 0,
-// float4 loads) or {lane + 32*k}, at most 16 per lane (D <= 512).  The
-// optimizer is a template argument: 8 optimizers x {f32, bf16} x the two
-// column layouts are 32 instantiations.
+// float4 loads) or {lane + 32*k}; 4 columns a lane for D <= 128 (D % 4 ==
+// 0), at most 16 otherwise (D <= 512).  The optimizer is a template
+// argument: 8 optimizers x {f32, bf16} x the three column layouts are 48
+// instantiations.
 //
 // Rounding: every product and sum is a separately rounded __fmul_rn /
 // __fadd_rn, every sqrt and division __fsqrt_rn / __fdiv_rn.  Every mean and
@@ -63,109 +70,36 @@
 
 #include "backward_common.cuh"
 
-namespace {
-
 using namespace bwd;
-
-template <typename T, bool VEC, int OPT>
-__global__ void fused_update_kernel(
-    const int32_t* __restrict__ srows, const int32_t* __restrict__ ssegs,
-    const float* __restrict__ sw, const float* __restrict__ grad,
-    T* __restrict__ table, float* __restrict__ s0, float* __restrict__ s1,
-    int V, int R, int D, Hyper h, int use_sr, uint32_t seed) {
-  const int64_t i = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (i >= V) return;
-  const int row = srows[i];
-  // invalid slots carry the sentinel R and sort last; a run has one owner,
-  // the warp at its first position (the whole warp leaves together)
-  if (row >= R || (i > 0 && srows[i - 1] == row)) return;
-  const int n = VEC ? ((D + 127) / 128) * 4 : (D + 31) / 32;
-
-  float g[kMaxCols];
-#pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) g[k] = 0.f;
-  for (int64_t j = i; j < V && srows[j] == row; ++j) {
-    add_slot<VEC>(g, grad + (int64_t)ssegs[j] * D, sw[j], lane, n, D);
-  }
-  update_row<T, VEC, OPT, true>(g, row, lane, n, D, table, s0, s1, h,
-                                use_sr != 0, seed);
-}
-
-// the instantiation for an optimizer code, or null for an unknown code
-template <typename T, bool VEC>
-const void* kernel_for(int optim) {
-  switch (optim) {
-    case kSgd: return (const void*)fused_update_kernel<T, VEC, kSgd>;
-    case kLarsSgd: return (const void*)fused_update_kernel<T, VEC, kLarsSgd>;
-    case kAdagrad: return (const void*)fused_update_kernel<T, VEC, kAdagrad>;
-    case kRowwiseAdagrad:
-      return (const void*)fused_update_kernel<T, VEC, kRowwiseAdagrad>;
-    case kAdam: return (const void*)fused_update_kernel<T, VEC, kAdam>;
-    case kPartialRowwiseAdam:
-      return (const void*)fused_update_kernel<T, VEC, kPartialRowwiseAdam>;
-    case kLamb: return (const void*)fused_update_kernel<T, VEC, kLamb>;
-    case kPartialRowwiseLamb:
-      return (const void*)fused_update_kernel<T, VEC, kPartialRowwiseLamb>;
-    default: return nullptr;
-  }
-}
-
-// dtype 0 = float32, 1 = bfloat16 table; vec: the float4 column layout
-const void* kernel_for(int optim, int dtype, bool vec) {
-  if (dtype == 0) {
-    return vec ? kernel_for<float, true>(optim)
-               : kernel_for<float, false>(optim);
-  }
-  if (dtype == 1) {
-    return vec ? kernel_for<__nv_bfloat16, true>(optim)
-               : kernel_for<__nv_bfloat16, false>(optim);
-  }
-  return nullptr;
-}
-
-}  // namespace
 
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 =
 // launched).  `optim` is the code of the Optim enum; `state0` / `state1` are
 // the optimizer's f32 state arrays (momentum, or m and v; unused ones may be
-// null): [R] for a rowwise state, [R, D] otherwise.  `dtype` is 0 for a
-// float32 and 1 for a bfloat16 table; `use_sr` turns on stochastic rounding
-// of a bfloat16 write-back with `seed`.  Pointers are device pointers; the
-// Python wrapper has checked devices, dtypes, shapes, contiguity, V > 0,
-// D <= 512 and the gradient's 16-byte alignment.
+// null): [R] for a rowwise state, [R, D] otherwise.  `queue` is the work
+// queue, two uint32 that are 0 (the kernel leaves them at 0).  `dtype` is 0
+// for a float32 and 1 for a bfloat16 table; `use_sr` turns on stochastic
+// rounding of a bfloat16 write-back with `seed`.  Pointers are device
+// pointers; the Python wrapper has checked devices, dtypes, shapes,
+// contiguity, V > 0, D <= 512 and the gradient's 16-byte alignment.
 int fused_update(const void* srows, const void* ssegs, const void* sw,
                  const void* grad, void* table, void* state0, void* state1,
-                 int V, int R, int D, int optim, float lr, float eps,
-                 float wd, float b1, float b2, float bc1, float bc2,
-                 int dtype, int use_sr, int seed, void* stream) {
-  if (D > 32 * kMaxCols) return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for(optim, dtype, D % 4 == 0);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  if (V > 0) {
-    Hyper h{lr, eps, wd, b1, b2, 0.f, 0.f, bc1, bc2};
-    int sr = dtype == 1 ? use_sr : 0;
-    uint32_t sd = (uint32_t)seed;
-    void* args[] = {(void*)&srows, (void*)&ssegs, (void*)&sw, (void*)&grad,
-                    &table, &state0, &state1, &V, &R, &D, &h, &sr, &sd};
-    const dim3 grid((unsigned)((V + kWarpsPerBlock - 1) / kWarpsPerBlock));
-    const cudaError_t err = cudaLaunchKernel(fn, grid, dim3(kThreads), args,
-                                             0, (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+                 void* queue, int V, int R, int D, int optim, float lr,
+                 float eps, float wd, float b1, float b2, float bc1,
+                 float bc2, int dtype, int use_sr, int seed, void* stream) {
+  const Slots sl{(const int32_t*)srows, (const int32_t*)ssegs,
+                 (const float*)sw, (const float*)grad, V, R, D};
+  const Hyper h{lr, eps, wd, b1, b2, 0.f, 0.f, bc1, bc2};
+  return launch<true>(sl, table, state0, state1, (unsigned*)queue, optim,
+                      dtype, h, use_sr, seed, (cudaStream_t)stream);
 }
 
-// The registers a thread of the instantiation for (optim, dtype, column
-// layout) uses, or minus the CUDA error code.
-int fused_update_num_regs(int optim, int dtype, int vec) {
-  const void* fn = kernel_for(optim, dtype, vec != 0);
-  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  return err == cudaSuccess ? attr.numRegs : -(int)err;
+// What a launch for (optim, dtype, D) over V sorted positions takes, in
+// out[4]: registers a thread, blocks, resident blocks per SM, layout (0
+// narrow, 1 wide, 2 scalar).  Returns 0 or a CUDA error code.
+int fused_update_info(int optim, int dtype, int D, int V, int* out) {
+  return kernel_info<true>(optim, dtype, D, V, out);
 }
 
 }  // extern "C"

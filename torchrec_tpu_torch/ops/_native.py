@@ -38,11 +38,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _G = ctypes.POINTER(ctypes.c_longlong)
+_O = ctypes.POINTER(ctypes.c_int)
 # C entry points per source: name -> argtypes (every pointer and the
 # stream are c_void_p, every size or flag a c_int, a slot count or row
 # stride a c_longlong, every scalar hyperparameter a c_float, a grouped
-# lookup's features a host array of c_longlong; each launch returns
-# cudaGetLastError(), and fused_update_num_regs a register count)
+# lookup's features a host array of c_longlong, a fused update's launch
+# facts a host array of c_int; each returns cudaGetLastError() or 0)
 _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "tbe_quant.cu": {
         "q8_pooled": (_G, _I, _I, _I, _L, _P, _P, _P, _P, _P),
@@ -54,17 +55,18 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "tbe_pooled": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "tbe_backward.cu": {
-        "fused_update": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                         _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
-        "fused_update_num_regs": (_I, _I, _I),
+        "fused_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
+        "fused_update_info": (_I, _I, _I, _I, _O),
     },
     "tbe_dedup.cu": {
         "dedup_pooled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "tbe_dedup_backward.cu": {
-        "dedup_fused_update": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I,
-                               _I, _P),
+        "dedup_fused_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I,
+                               _I, _I, _P),
+        "dedup_fused_update_info": (_I, _I, _I, _I, _O),
     },
 }
 SOURCES = tuple(_SIGNATURES)

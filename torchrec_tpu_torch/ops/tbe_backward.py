@@ -39,7 +39,8 @@ math of the JAX package's ``apply_sparse_update``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -57,6 +58,8 @@ _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
 _U32 = 0xFFFFFFFF
 _F32_MAX = float(torch.finfo(torch.float32).max)
 MAX_DIM = 512  # the kernel keeps at most 16 columns per lane in registers
+# the kernels' column layouts (backward_common.cuh::Layout), by code
+LAYOUTS = ("narrow", "wide", "scalar")
 
 Scalar = Union[float, torch.Tensor]
 
@@ -173,6 +176,21 @@ def lane_columns(dim: int, device=None) -> torch.Tensor:
     return torch.where(col < dim, col, dim)
 
 
+def column_layout(dim: int) -> Tuple[str, int]:
+    """The kernels' instantiation for a table of width ``dim``: its column
+    layout and the columns a lane keeps in registers.  ``("narrow", 4)``
+    for ``dim <= 128`` with ``dim % 4 == 0`` (one float4 a lane),
+    ``("wide", 16)`` for any other ``dim % 4 == 0`` and ``("scalar", 16)``
+    else; the lanes own the columns of :func:`lane_columns` in each.
+    Raises for ``dim`` past :data:`MAX_DIM`."""
+    if dim > MAX_DIM:
+        raise ValueError(f"the fused update kernels take D <= {MAX_DIM}, "
+                         f"got {dim}")
+    if dim % 4:
+        return "scalar", 16
+    return ("narrow", 4) if dim <= 128 else ("wide", 16)
+
+
 def sum_of_squares(x: torch.Tensor) -> torch.Tensor:
     """``sum(x * x, axis=1)`` of float32 ``[U, D]`` in the kernels' order:
     each lane sums the squares of its columns in ascending order, then
@@ -282,6 +300,80 @@ def _aligned_grad(grad_seg: torch.Tensor) -> torch.Tensor:
     if grad.data_ptr() % 16:
         grad = grad.clone()  # the kernels' float4 loads need 16 bytes
     return grad
+
+
+# (device index, stream handle) -> the work queue of the kernels' grid: two
+# int32 counters, zeroed once; every launch leaves them at 0 again
+_QUEUES: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _work_queue(dev: torch.device) -> Tuple[int, int]:
+    """(queue pointer, stream handle) for a launch on the current stream
+    of ``dev``.  One queue per stream: launches on one stream never
+    overlap, so the counters one leaves at 0 are the next one's start."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
+    q = _QUEUES.get(key)
+    if q is None:
+        q = _QUEUES[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return q.data_ptr(), stream
+
+
+def _launch(
+    source: str,
+    entry: str,
+    table: torch.Tensor,
+    states: Sequence[torch.Tensor],
+    srows: torch.Tensor,
+    ssegs: torch.Tensor,
+    sw: torch.Tensor,
+    grad_seg: torch.Tensor,
+    optim: str,
+    hyper: Sequence[float],
+    sr_seed: Optional[int],
+) -> None:
+    """Launch B2 or B6 (``entry`` of ``source``) on prepared inputs with
+    the scalar ``hyper``-parameters of its C entry point."""
+    R, D = table.shape
+    column_layout(D)  # raises past MAX_DIM
+    lib = _native.load_library(source)
+    grad = _aligned_grad(grad_seg)
+    srows, ssegs, sw = srows.contiguous(), ssegs.contiguous(), sw.contiguous()
+    ptrs = [st.data_ptr() for st in states] + [0] * (2 - len(states))
+    use_sr = table.dtype == torch.bfloat16 and sr_seed is not None
+    with torch.cuda.device(table.device):
+        queue, stream = _work_queue(table.device)
+        err = getattr(lib, entry)(
+            srows.data_ptr(), ssegs.data_ptr(), sw.data_ptr(),
+            grad.data_ptr(), table.data_ptr(), ptrs[0], ptrs[1], queue,
+            srows.shape[0], R, D, OPTIMIZERS.index(optim),
+            *(float(x) for x in hyper), FLOAT_DTYPES[table.dtype],
+            int(use_sr), int(sr_seed) if use_sr else 0, stream,
+        )
+    _native.check_launch(entry, err)
+
+
+def update_launch(kernel: str, optim: str, dtype: torch.dtype, dim: int,
+                  slots: int = 0) -> Dict[str, object]:
+    """What the launch of B2 (``kernel="fused_sparse_update"``) or B6
+    (``"dedup_fused_sparse_update"``) with ``optim`` over a table of
+    ``dtype`` and width ``dim`` and ``slots`` sorted positions takes on
+    the current card (builds the kernel): the instantiation's
+    ``registers`` a thread and column ``layout`` (:func:`column_layout`),
+    the grid's ``blocks`` and the ``blocks_per_sm`` resident."""
+    source, entry = {
+        "fused_sparse_update": (_SOURCE, "fused_update_info"),
+        "dedup_fused_sparse_update": (_DEDUP_SOURCE,
+                                      "dedup_fused_update_info"),
+    }[kernel]
+    lib = _native.load_library(source)
+    out = (ctypes.c_int * 4)()
+    err = getattr(lib, entry)(OPTIMIZERS.index(optim), FLOAT_DTYPES[dtype],
+                              int(dim), int(slots), out)
+    if err:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    return {"registers": out[0], "blocks": out[1], "blocks_per_sm": out[2],
+            "layout": LAYOUTS[out[3]]}
 
 
 # ---------------------------------------------------------------------------
@@ -471,40 +563,18 @@ def launch_fused_sparse_update(
     """Launch the B2 kernel on prepared inputs (the output of
     :func:`sort_by_row`, at least one slot); updates the table and the
     states in place."""
-    R, D = table.shape
-    if D > MAX_DIM:
-        raise ValueError(f"the fused update kernels take D <= {MAX_DIM}, "
-                         f"got {D}")
-    lib = _native.load_library(_SOURCE)
-    grad = _aligned_grad(grad_seg)
-    srows, ssegs, sw = srows.contiguous(), ssegs.contiguous(), sw.contiguous()
-    ptrs = [st.data_ptr() for st in states] + [0] * (2 - len(states))
-    use_sr = table.dtype == torch.bfloat16 and sr_seed is not None
     (b1, b2), (bc1, bc2) = betas, bias_corrections
-    with torch.cuda.device(table.device):
-        err = lib.fused_update(
-            srows.data_ptr(), ssegs.data_ptr(), sw.data_ptr(),
-            grad.data_ptr(), table.data_ptr(), ptrs[0], ptrs[1],
-            srows.shape[0], R, D, OPTIMIZERS.index(optim),
-            float(learning_rate), float(eps), float(weight_decay),
-            float(b1), float(b2), float(bc1), float(bc2),
-            FLOAT_DTYPES[table.dtype], int(use_sr),
-            int(sr_seed) if use_sr else 0,
-            torch.cuda.current_stream(table.device).cuda_stream,
-        )
-    _native.check_launch("fused_update", err)
+    _launch(_SOURCE, "fused_update", table, states, srows, ssegs, sw,
+            grad_seg, optim,
+            (learning_rate, eps, weight_decay, b1, b2, bc1, bc2), sr_seed)
     count_launch("fused_sparse_update")
 
 
 def fused_update_registers(optim: str, dtype: torch.dtype, dim: int) -> int:
     """The registers per thread of the B2 instantiation that a table of
     ``dtype`` and width ``dim`` takes with ``optim`` (builds the kernel)."""
-    lib = _native.load_library(_SOURCE)
-    regs = lib.fused_update_num_regs(OPTIMIZERS.index(optim),
-                                     FLOAT_DTYPES[dtype], int(dim % 4 == 0))
-    if regs < 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: error {-regs}")
-    return regs
+    return update_launch("fused_sparse_update", optim, dtype, dim)[
+        "registers"]
 
 
 def fused_sparse_update(
@@ -612,29 +682,20 @@ def launch_dedup_fused_sparse_update(
     """Launch the B6 kernel on prepared inputs (the output of
     :func:`sort_by_row`, at least one slot); updates the table and the
     states in place."""
-    R, D = table.shape
-    if D > MAX_DIM:
-        raise ValueError(f"the fused update kernels take D <= {MAX_DIM}, "
-                         f"got {D}")
-    lib = _native.load_library(_DEDUP_SOURCE)
-    grad = _aligned_grad(grad_seg)
-    srows, ssegs, sw = srows.contiguous(), ssegs.contiguous(), sw.contiguous()
-    ptrs = [st.data_ptr() for st in states] + [0] * (2 - len(states))
-    use_sr = table.dtype == torch.bfloat16 and sr_seed is not None
     (b1, b2), (bc1, bc2) = betas, bias_corrections
-    with torch.cuda.device(table.device):
-        err = lib.dedup_fused_update(
-            srows.data_ptr(), ssegs.data_ptr(), sw.data_ptr(),
-            grad.data_ptr(), table.data_ptr(), ptrs[0], ptrs[1],
-            srows.shape[0], R, D, OPTIMIZERS.index(optim),
-            float(learning_rate), float(eps), float(weight_decay),
-            float(b1), float(b2), float(1.0 - b1), float(1.0 - b2),
-            float(bc1), float(bc2), FLOAT_DTYPES[table.dtype], int(use_sr),
-            int(sr_seed) if use_sr else 0,
-            torch.cuda.current_stream(table.device).cuda_stream,
-        )
-    _native.check_launch("dedup_fused_update", err)
+    _launch(_DEDUP_SOURCE, "dedup_fused_update", table, states, srows, ssegs,
+            sw, grad_seg, optim,
+            (learning_rate, eps, weight_decay, b1, b2, 1.0 - b1, 1.0 - b2,
+             bc1, bc2), sr_seed)
     count_launch("dedup_fused_sparse_update")
+
+
+def dedup_fused_update_registers(optim: str, dtype: torch.dtype,
+                                 dim: int) -> int:
+    """The registers per thread of the B6 instantiation that a table of
+    ``dtype`` and width ``dim`` takes with ``optim`` (builds the kernel)."""
+    return update_launch("dedup_fused_sparse_update", optim, dtype, dim)[
+        "registers"]
 
 
 def dedup_fused_sparse_update(
