@@ -49,11 +49,13 @@ Phases, one JSON line each on stdout; any failure raises:
    the update) over a stream of up to 64 ids per feature per example
    with Zipf(1.2) lengths from 1 and Zipf(1.0) ids (full caps 262,144
    ids per feature).  First ``dedup_kernel``: the ragged dedup lookup
-   (B4) over the float32 stack and its bfloat16 cast, and the dedup fused
+   (B4) over the float32 stack and its bfloat16 cast (with its card-alone
+   time, its wrapper's peak memory, a check that the wrapper makes no host
+   sync, and B1 on the same slots), and the dedup fused
    update (B6) for each of its eight optimizers on float32 and rowwise
    Adagrad on bfloat16 with stochastic rounding, each against its plain
    version (``torch.equal``) on the first bucketed batch's slots, with
-   times (B6 also of the card alone), bounds, registers and grid, and
+   times (B4 and B6 also of the card alone), bounds, registers and grid, and
    B6's runs arm (one run each of 1 to 10,000 slots, then the sentinel,
    ``runs_slots``); then the path check on that batch (B4's output
    equal to B1's, B6's update from the step's real gradient equal to its
@@ -277,17 +279,22 @@ def cuda_ms(fn, flush, runs: int = 20, warmup: int = 3, setup=None,
     return statistics.median(times)
 
 
-def peak_bytes(fn) -> int:
-    """The card memory that one call of ``fn`` allocates at its peak above
-    what was allocated before it (its output included)."""
+def memory_of(fn):
+    """(peak, held): the card memory one call of ``fn`` allocates at its
+    peak, and what it still holds when it returns (its output), both above
+    what was allocated before it.  The allocator's cache is emptied first,
+    so the same calls get the same blocks every time."""
     import torch
 
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fn()
+    kept = fn()
     torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() - before
+    held = torch.cuda.memory_allocated() - before
+    del kept
+    return torch.cuda.max_memory_allocated() - before, held
 
 
 def zipf_ids(rng: np.random.RandomState, size: int, rows: int) -> np.ndarray:
@@ -671,8 +678,8 @@ def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
 
 def b1_row(flush, phase, stack, ids, segs, w, S, common):
     """B1 against its plain version on the card at these inputs, with
-    times, ``F.embedding_bag`` over the sorted valid slots and the bound.
-    Returns the emitted record."""
+    times (the kernel and ``F.embedding_bag`` over the sorted valid slots
+    also of the card alone) and the bound.  Returns the emitted record."""
     import torch
     import torch.nn.functional as F
 
@@ -705,9 +712,12 @@ def b1_row(flush, phase, stack, ids, segs, w, S, common):
         "valid": n, "distinct": U, "equal": True, "max_abs_err": err,
         "ms": cuda_ms(lambda: tbe.pooled_lookup(*args), flush),
         "kernel_ms": cuda_ms(lambda: tbe.launch_pooled(stack, *prep), flush),
+        "kernel_device_ms": cuda_ms(lambda: tbe.launch_pooled(stack, *prep),
+                                    flush, device_only=True),
         "plain_ms": cuda_ms(lambda: tbe.pooled_lookup_plain(*args), flush,
                             runs=PLAIN_RUNS, warmup=1),
         "library_ms": cuda_ms(library, flush),
+        "library_device_ms": cuda_ms(library, flush, device_only=True),
         "library_max_abs_diff": float(
             (library().float() - got.float()).abs().max()),
         "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
@@ -1045,11 +1055,15 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
     """B4 and B6 against their plain versions on the card at the bucketed
     path's shapes: the ``[2,600,000, 128]`` stack and the first bucketed
     batch of the dedup stream (its real ids, segments and weights).  B4
-    over the float32 stack and its bfloat16 cast; B6 for each of its eight
-    optimizers on float32 and rowwise Adagrad on bfloat16 with stochastic
-    rounding, each on fresh copies of the stack and of random states, with
-    a random ``[S, 128]`` upstream gradient; then B6's runs arm (rowwise
-    Adagrad over ``runs_slots``).  Times by ``cuda_ms``; the plain versions
+    over the float32 stack and its bfloat16 cast, each with B1 on the same
+    slots (one function, two designs, timed on one batch), B4's wrapper
+    checked for host syncs (``set_sync_debug_mode("error")``) and its peak
+    memory held to its output plus what the sized prep alone allocates;
+    B6 for each of its eight optimizers on float32 and rowwise Adagrad on
+    bfloat16 with stochastic rounding, each on fresh copies of the stack
+    and of random states, with a random ``[S, 128]`` upstream gradient;
+    then B6's runs arm (rowwise Adagrad over ``runs_slots``).  Times by
+    ``cuda_ms`` (the kernels also of the card alone); the plain versions
     over ``PLAIN_RUNS`` runs.  Returns the records."""
     import torch
     import torch.nn.functional as F
@@ -1071,6 +1085,7 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         stack = stack32 if dtype == torch.float32 else stack32.to(dtype)
+        dname = str(dtype).replace("torch.", "")
         args = (stack, ids, segs, S, w)
         got = tbe.dedup_pooled_lookup(*args)
         torch.cuda.synchronize()
@@ -1079,7 +1094,22 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
         if not torch.equal(got, ref):
             raise AssertionError(f"dedup_pooled_lookup {dtype}: kernel != "
                                  f"plain (max abs err {err})")
-        prep = tbe.dedup_prepare(ids, segs, w, S, R)
+        # the wrapper, prep and launch, must not synchronise with the host
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tbe.dedup_pooled_lookup(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # one call allocates its output and, at most, what the sized prep
+        # alone allocates: no copy of the distinct rows
+        prep_peak, _ = memory_of(lambda: tbe.dedup_prepare_sized(ids, segs,
+                                                                 w, S))
+        peak, out_bytes = memory_of(lambda: tbe.dedup_pooled_lookup(*args))
+        if peak > out_bytes + prep_peak:
+            raise AssertionError(f"dedup_pooled_lookup {dtype}: peak {peak} "
+                                 f"bytes > output {out_bytes} + prep "
+                                 f"{prep_peak}")
+        prep = tbe.dedup_prepare_sized(ids, segs, w, S)
         sids, sw, offs = tbe.sort_by_segment(ids, segs, w, S, R)
         n = int(offs[-1])
         lib_ids, lib_offs = sids[:n].to(torch.int64), offs.to(torch.int64)
@@ -1090,20 +1120,24 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
                 lib_ids, stack, lib_offs, mode="sum",
                 per_sample_weights=lib_w, include_last_offset=True)
 
+        def kernel():
+            return tbe.launch_dedup_pooled(stack, *prep)
+
         U, nbytes, flops = _b1_bound(R, D, stack.element_size(), ids, segs,
                                      w, S)
         bound_ms, bound_by = _bound(nbytes, flops)
         rec = {
             "phase": "dedup_kernel", "kernel": "dedup_pooled_lookup",
-            "dtype": str(dtype).replace("torch.", ""), **common,
-            "distinct": U, "scratch_bytes": U * D * 4, "equal": True,
-            "max_abs_err": err,
+            "dtype": dname, **common, "distinct": U, "peak_bytes": peak,
+            "out_bytes": out_bytes, "prep_peak_bytes": prep_peak,
+            "wrapper_syncs": False, "equal": True, "max_abs_err": err,
             "ms": cuda_ms(lambda: tbe.dedup_pooled_lookup(*args), flush),
-            "kernel_ms": cuda_ms(
-                lambda: tbe.launch_dedup_pooled(stack, *prep), flush),
+            "kernel_ms": cuda_ms(kernel, flush),
+            "kernel_device_ms": cuda_ms(kernel, flush, device_only=True),
             "plain_ms": cuda_ms(lambda: tbe.dedup_pooled_lookup_plain(*args),
                                 flush, runs=PLAIN_RUNS, warmup=1),
             "library_ms": cuda_ms(library, flush),
+            "library_device_ms": cuda_ms(library, flush, device_only=True),
             "library_max_abs_diff": float(
                 (library().float() - got.float()).abs().max()),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
@@ -1111,7 +1145,10 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
         }
         emit(rec)
         rows.append(rec)
-        del got, ref, prep, stack
+        del got, ref, prep
+        rows.append(b1_row(flush, "dedup_kernel", stack, ids, segs, w, S,
+                           {"dtype": dname, "ids": "bucketed", **common}))
+        del stack
 
     sg = SparseSegGrad(ids, valid, segs, w, grad)
     arms = [(o, torch.float32, None) for o in tbe_backward.OPTIMIZERS]
@@ -1983,8 +2020,8 @@ def grouped_phase(dev, tables, params, batches, zipf_seed):
                         "bound_by": "bytes" if bytes_ms >= flops_ms
                         else "operations",
                     }
-                    rec["peak_bytes_above_inputs"] = peak_bytes(
-                        lambda: wrapper(*args, out, **kw))
+                    rec["peak_bytes_above_inputs"] = memory_of(
+                        lambda: wrapper(*args, out, **kw))[0]
                     emit(rec)
                     recs.append(rec)
             del feats

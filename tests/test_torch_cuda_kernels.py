@@ -6,7 +6,11 @@ batches, empty segments, clipped ids, dropped segments and slots, weight
 decay and bfloat16 stochastic rounding; the fused updates' grid and run
 walk on slot streams built to hit its edges (runs of 1 to 3,000 slots,
 one valid slot, only sentinels, valid slots ending on a window boundary,
-two launches in a row) at every column layout; and the grouped quantized
+two launches in a row) at every column layout; the ragged dedup lookup
+(B4) on segments of 1 to 1,000 slots around its walk's depth and fetch,
+its wrapper under ``torch.cuda.set_sync_debug_mode("error")``, one
+native launch a call and no allocation beyond the output and the prep;
+and the grouped quantized
 lookups of a served batch (every feature in one launch, tables whose rows
 start off a 4-byte boundary, MEAN features, a key no feature reads), with
 the collection's forward run under
@@ -202,6 +206,116 @@ def test_dedup_pooled_lookup_equals_plain_on_card(dev, dtype, D, case):
     assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
     assert torch.equal(got, tbe.pooled_lookup(table, ids, segs, S, w))
     assert not got[:5].any()
+
+
+# segment lengths around the B4 walk's depth (4 row loads in flight) and
+# its 32-slot metadata fetch
+SEGMENT_LENGTHS = (1, 3, 4, 5, 7, 8, 9, 31, 32, 33, 64, 65, 1000)
+
+
+def _segment_inputs(dev, dtype, D, length, seed):
+    """Segment 7 holds ``length`` slots (half on 4 hot rows, some ids out
+    of range), shuffled among 40 slots of other and invalid segments."""
+    rng = np.random.RandomState(seed)
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    others = [s for s in range(-2, S + 2) if s != 7]
+    segs = np.concatenate([np.full(length, 7), rng.choice(others, size=40)])
+    segs = segs[rng.permutation(segs.size)]
+    n = segs.size
+    ids = np.where(rng.rand(n) < 0.5, rng.randint(0, 4, size=(n,)),
+                   rng.randint(-3, R + 3, size=(n,)))
+    w = rng.rand(n).astype(np.float32)
+    return table, *(torch.from_numpy(x).to(dev) for x in (ids, segs, w))
+
+
+@pytest.mark.parametrize("length", SEGMENT_LENGTHS)
+@pytest.mark.parametrize("dtype,D", FLOAT_CONFIGS)
+def test_dedup_lookup_segment_lengths_on_card(dev, dtype, D, length):
+    """B4 on a segment of ``length`` slots: equal to its plain version
+    and to B1, and the segment's row equal to its slots' weighted sum."""
+    table, ids, segs, w = _segment_inputs(dev, dtype, D, length,
+                                          seed=length + D)
+    got = tbe.dedup_pooled_lookup(table, ids, segs, S, w)
+    torch.cuda.synchronize()
+    ref = tbe.dedup_pooled_lookup_plain(table, ids, segs, S, w)
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
+    assert torch.equal(got, tbe.pooled_lookup(table, ids, segs, S, w))
+    assert int((segs == 7).sum()) == length and got[7].any()
+
+
+def _wrapper_inputs(dev, dtype, D):
+    """20,000 rows and 4,000 slots, half on 8 hot rows, a few invalid:
+    enough distinct rows that a copy of them would outweigh the prep."""
+    rng = np.random.RandomState(D)
+    rows, n = 20_000, 4_000
+    table = torch.from_numpy(rng.randn(rows, D).astype(np.float32)).to(
+        dev, dtype)
+    ids = np.where(rng.rand(n) < 0.5, rng.randint(0, 8, size=(n,)),
+                   rng.randint(0, rows, size=(n,)))
+    segs = rng.randint(-1, S, size=(n,))
+    w = rng.rand(n).astype(np.float32)
+    return table, *(torch.from_numpy(x).to(dev) for x in (ids, segs, w))
+
+
+@pytest.mark.parametrize("dtype,D", ((torch.float32, 128),
+                                     (torch.bfloat16, 130)))
+def test_dedup_lookup_makes_no_host_sync_on_card(dev, dtype, D):
+    """B4's wrapper (the sized prep and the launch) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no synchronisation."""
+    table, ids, segs, w = _wrapper_inputs(dev, dtype, D)
+    args = (table, ids, segs, S)
+    want = tbe.dedup_pooled_lookup(*args, w)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tbe.dedup_pooled_lookup(*args, w)
+        unweighted = tbe.dedup_pooled_lookup(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    assert torch.equal(unweighted, tbe.dedup_pooled_lookup_plain(*args))
+
+
+def test_dedup_lookup_one_launch_no_scratch_on_card(dev):
+    """One B4 call is one native kernel launch (counted by the profiler
+    and by the launch count), and allocates nothing beyond its output and
+    what the sized prep alone allocates: no [U, D] copy of the rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    table, ids, segs, w = _wrapper_inputs(dev, torch.float32, 128)
+    args = (table, ids, segs, S, w)
+    tbe.dedup_pooled_lookup(*args)  # builds and loads the library
+    torch.cuda.synchronize()
+    before = tbe.launch_counts()["dedup_pooled_lookup"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            tbe.dedup_pooled_lookup(*args)
+        torch.cuda.synchronize()
+    ours = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "dedup_pooled_kernel" in e.name]
+    assert len(ours) == 3
+    assert tbe.launch_counts()["dedup_pooled_lookup"] == before + 3
+
+    def memory(fn):
+        """(peak, held) above the start, from an emptied cache."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kept = fn()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        del kept
+        return torch.cuda.max_memory_allocated() - base, held
+
+    prep, _ = memory(lambda: tbe.dedup_prepare_sized(ids, segs, w, S))
+    peak, out_bytes = memory(lambda: tbe.dedup_pooled_lookup(*args))
+    assert out_bytes >= S * 128 * 4
+    distinct = int(torch.unique(ids[segs >= 0]).numel())
+    assert distinct * 128 * 4 > prep  # a row copy would show
+    assert peak <= prep + out_bytes
 
 
 def test_dedup_lookup_no_segments_launch_nothing_on_card(dev):

@@ -135,26 +135,73 @@ def test_dedup_lookup_plain_matches_jax(case, dtype):
         np.testing.assert_allclose(got, xla, rtol=3e-2, atol=3e-2)
 
 
+# segment lengths around the kernel walk's depth (4 row loads in flight)
+# and its 32-slot metadata fetch
+SEGMENT_LENGTHS = (1, 3, 4, 5, 7, 8, 9, 31, 32, 33, 64, 65, 1000)
+WALK_DEPTH, WALK_FETCH = 4, 32
+
+
+def _segment_case(length, seed):
+    """Segment 2 holds ``length`` slots (half on 4 hot rows, some ids out
+    of range), shuffled among 12 slots of other and invalid segments."""
+    rng = np.random.RandomState(seed)
+    table = _bf16_exact(rng.randn(R, D).astype(np.float32))
+    others = [s for s in range(-2, S + 2) if s != 2]
+    segs = np.concatenate([np.full(length, 2), rng.choice(others, size=12)])
+    segs = segs[rng.permutation(segs.size)].astype(np.int32)
+    n = segs.size
+    ids = np.where(rng.rand(n) < 0.5, rng.randint(0, 4, size=(n,)),
+                   rng.randint(-3, R + 3, size=(n,))).astype(np.int32)
+    return table, ids, segs, rng.rand(n).astype(np.float32)
+
+
+def _emulate_dedup_kernel(tt, ids, segs, w):
+    """csrc/tbe_dedup.cu in numpy float32: the sized prep, then per
+    segment the owner warp's walk over its slots in slot order, 32 slots'
+    index, key and weight at a time, rows read straight from the table
+    (widening is exact) by the key's id clipped to the table, 4 row loads
+    before the adds, one multiply and one add per slot, each rounded, and
+    one rounding of the sum to the table's dtype."""
+    ukeys, inv, sw, offs = (x.numpy() for x in tbe.dedup_prepare_sized(
+        _t(ids), _t(segs), _t(w), S))
+    table = tt.to(torch.float32).numpy()
+    out = np.zeros((S, D), np.float32)
+    added = 0
+    for s in range(S):
+        begin, end = offs[s], offs[s + 1]
+        acc = np.zeros((D,), np.float32)
+        for base in range(begin, end, WALK_FETCH):
+            n = min(WALK_FETCH, end - base)
+            keys = ukeys[inv[base:base + n]]
+            assert (keys != tbe.SENTINEL).all()
+            rows = np.clip((keys & 0xFFFFFFFF) - 2**31, 0, R - 1)
+            wi = sw[base:base + n]
+            for j0 in range(0, n, WALK_DEPTH):
+                loaded = table[rows[j0:j0 + WALK_DEPTH]]
+                for k, v in enumerate(loaded):
+                    acc = acc + v * wi[j0 + k]
+                    added += 1
+        out[s] = acc
+    assert added == offs[-1]
+    return _t(out).to(tt.dtype)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ["duplicate_heavy", "ids_out_of_range",
-                                  "bad_segments", "no_weights"])
+                                  "bad_segments", "no_weights"] + [
+    f"segment_of_{n}" for n in SEGMENT_LENGTHS])
 def test_dedup_lookup_kernel_emulation_bit_equal(case, dtype):
-    """dedup_prepare + the two launches of csrc/tbe_dedup.cu: each distinct
-    row widened once, then the pool walk through the inverse index."""
-    table, ids, segs, w = _lookup_case(case, seed=5)
+    """dedup_prepare_sized + the one launch of csrc/tbe_dedup.cu, emulated,
+    equals the plain version bit for bit, on the lookup cases and on a
+    segment of each of SEGMENT_LENGTHS slots."""
+    if case.startswith("segment_of_"):
+        table, ids, segs, w = _segment_case(int(case.split("_")[-1]), seed=9)
+    else:
+        table, ids, segs, w = _lookup_case(case, seed=5)
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
     tt = _t(table).to(tdt)
-    uids, suidx, sw, offs = (x.numpy() for x in tbe.dedup_prepare(
-        _t(ids), _t(segs), _t(w), S, R))
-    rows = tt.to(torch.float32).numpy()[uids]
-    out = np.zeros((S, D), np.float32)
-    for s in range(S):
-        acc = np.zeros((D,), np.float32)
-        for i in range(offs[s], offs[s + 1]):
-            acc = acc + rows[suidx[i]] * sw[i]
-        out[s] = acc
     plain = tbe.dedup_pooled_lookup_plain(tt, _t(ids), _t(segs), S, _t(w))
-    assert torch.equal(_t(out).to(tdt), plain)
+    assert torch.equal(_emulate_dedup_kernel(tt, ids, segs, w), plain)
 
 
 def test_dedup_lookup_empty_batch_and_wrapper_checks():

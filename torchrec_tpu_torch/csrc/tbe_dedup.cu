@@ -6,134 +6,234 @@
 //                  ::pallas_ragged_dedup_lookup (kernel body _dedup_body,
 //                  input preparation _dedup_prepare_inputs)
 //
-// Input, from the wrapper's dedup_prepare: the distinct valid ids uids[U]
-// (sorted, clipped to the table), and the valid slots sorted by segment with
-// their index into uids, their weight and the CSR offsets of the segments.
-// It computes
+// Input, from the wrapper's dedup_prepare_sized (no host sync): the sorted
+// distinct dedup keys ukeys (id + 2^31 of each distinct valid id, then the
+// sentinel), and the slots sorted by segment, invalid ones last, with each
+// slot's index into ukeys (inv), its weight and the CSR offsets of the
+// segments.  One launch computes
 //
-//   rows[u, :]  = f32(table[uids[u], :])                  (launch A)
-//   out[s, :]   = sum_i rows[ridx[i], :] * w_i, slot order (launch B)
+//   out[s, :] = T( sum_i f32(table[key_row(ukeys[inv[i]]), :]) * w_i )
 //
-// out is f32 [S, D]; the wrapper casts it to the table's dtype.
+// over the slots i of segment s in slot order, with key_row the key's id
+// clipped to [0, R - 1].  The number of distinct keys stays on the device:
+// the kernel reaches the keys only through inv.
 //
-// What bounds it on an H100: bytes.  Each distinct row is read once (D * 4
-// bytes f32, D * 2 bf16), each valid slot's index and weight once, and the
-// f32 output written once; 2 flops per valid slot and column, far below the
-// card's f32 ridge.  Launch A reads rows with 16-byte vectors (4 f32 or 8
-// bf16 values a lane) and writes them widened; launch B is
-// dedup_pool.cuh's one-warp-per-segment walk.
+// What bounds it on an H100: latency, then bytes.  Each slot costs a chain
+// of dependent loads (its index, its key, then the row), and a segment of
+// the bucketed training path holds 1 to 64 Zipf slots, about 10 on
+// average.  The bytes (each distinct row once, each slot's index and
+// weight once, the output once) take about 0.08 ms at the bucketed batch;
+// 2 flops per slot and column are far below the card's f32 ridge.  So each
+// segment has one owner warp that walks its slots with pool_walk.cuh's walk
+// (B3 and B5 walk the same way): 32 slots' index, key and weight fetched a
+// lane each, the next 32 fetched ahead, and kWalkDepth row loads of 4
+// columns a lane (16 bytes of f32, 8 of bf16) issued before the first add.
+// With segments this short the waits are hidden by many resident warps
+// more than by a deep walk: depth 4 under a 6-blocks-an-SM register bound
+// (40 registers) was the fastest of depths 2, 4 and 8 with 1, 6 or 8
+// blocks, and 8 bf16 columns a lane (16-byte loads, half the lanes idle at
+// D = 128, 77 registers) was slower than 4 (PERF.md section 6).  For D not
+// a multiple of 4, or tables or outputs not aligned to 4 values, each lane
+// owns one column of a 32-column block.
 //
-// No on-chip buffer.  The TPU kernel gathers the distinct rows into VMEM
-// under an 8 MiB budget (DEDUP_VMEM_BUDGET, pallas_tbe.py:715) that its
-// _assert_dedup_budget enforces.  Hopper has no on-chip memory shared across
-// blocks, so the scratch rows[U, D] lives in device memory and has no
-// budget: the wrapper allocates it for whatever U the batch has.  At the
-// bucketed training path's U of about 340k rows x 512 bytes it is about
-// 174 MB, well past the 50 MB L2, so it makes one extra round trip through
-// device memory that the dedup design exists to avoid on the TPU.
+// No scratch.  The TPU kernel gathers the distinct rows into VMEM (under an
+// 8 MiB budget, DEDUP_VMEM_BUDGET, pallas_tbe.py:715) so that each is read
+// from HBM once however many slots use it.  Hopper has no on-chip memory
+// shared across blocks; its counterpart of that reuse is the 50 MB L2,
+// which serves the repeat reads of a hot row.  So the warp reads each
+// slot's row straight from the table and widens it in registers: f32 -> f32
+// and bf16 -> f32 are exact, so an f32 copy of the distinct rows would buy
+// nothing for the bits and cost a round trip of U x D x 4 bytes (174 MB at
+// the bucketed batch, 3.5x the L2).  The segment-sorted stream is
+// feature-major, so the resident warps work on one table's hot rows at a
+// time.
 //
-// Rounding: each row element is widened to f32 first, then multiplied by the
-// f32 weight (__fmul_rn) and added (__fadd_rn) in slot order, as _dedup_body
-// does (widen at gather, mul and add in separate lane loops).  The plain
-// PyTorch version (torchrec_tpu_torch/ops/tbe.py::dedup_pooled_lookup_plain)
-// does the same operations in the same order, so on the card kernel and plain
-// version are bitwise equal, and for f32 tables so is the per-id lookup
-// tbe_pooled (tbe_float.cu): the gathered copy is exact and the order is the
-// same.  Row addresses are 64-bit.
+// Owner warps.  The TPU kernel walks id chunks on a SEQUENTIAL grid and
+// flushes each segment run into HBM with a read-modify-write, race-free only
+// because TPU grid steps run in order (pallas_tbe.py:16-18).  Here each
+// output segment has exactly one owner warp, which writes its output once:
+// no atomics, and an empty segment writes zeros.
+//
+// Rounding: each row element is widened to f32, multiplied by the f32
+// weight (__fmul_rn) and added (__fadd_rn) in slot order, as _dedup_body
+// does (widen at gather, mul and add in separate lane loops); the sum is
+// rounded once to the table's dtype (round to nearest even), as the per-id
+// lookup tbe_pooled (tbe_float.cu) does.  The plain PyTorch version
+// (torchrec_tpu_torch/ops/tbe.py::dedup_pooled_lookup_plain) does the same
+// operations in the same order, so on the card kernel, plain version and
+// tbe_pooled on the same slots are bitwise equal.  Row addresses are 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dedup_pool.cuh"
+#include <type_traits>
+
+#include "pool_walk.cuh"
 
 namespace {
 
+using pool::accum;
+
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
+// the rows in flight in a warp's walk, and the blocks an SM the kernel's
+// registers are bounded for (see above)
+constexpr int kWalkDepth = 4;
+constexpr int kMinBlocks = 6;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// 16 bytes of a table row, widened to f32 into out[0 .. kVec).
 template <typename T>
-struct Vec;
+__device__ __forceinline__ T narrow(float x);
 template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
+__device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Four consecutive columns of a row, what a lane loads on the vector path:
+// 16 bytes of f32, or 8 bytes of bf16 (each 32-bit word two values, the
+// lower column in its low half).  widen is exact; store rounds each value
+// once to T.
+template <typename T>
+struct Cols4;
+template <>
+struct Cols4<float> {
+  using Raw = uint4;
+  __device__ static void widen(Raw r, float (&v)[4]) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ static void store(float* p, const float (&a)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
   }
 };
 template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+struct Cols4<__nv_bfloat16> {
+  using Raw = uint2;
+  __device__ static void widen(Raw r, float (&v)[4]) {
+    v[0] = __uint_as_float(r.x << 16);
+    v[1] = __uint_as_float(r.x & 0xffff0000u);
+    v[2] = __uint_as_float(r.y << 16);
+    v[3] = __uint_as_float(r.y & 0xffff0000u);
+  }
+  __device__ static unsigned int pack(float lo, float hi) {
+    return (unsigned int)__bfloat16_as_ushort(narrow<__nv_bfloat16>(lo)) |
+           ((unsigned int)__bfloat16_as_ushort(narrow<__nv_bfloat16>(hi))
+            << 16);
+  }
+  __device__ static void store(__nv_bfloat16* p, const float (&a)[4]) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack(a[0], a[1]),
+                                              pack(a[2], a[3]));
+  }
+};
+
+// B4's rows: the table's, through each slot's index into the distinct
+// keys.  VEC = 4 (Cols4, one load a lane) or 1 (a column a lane).
+template <typename T, int VEC>
+struct FloatRows {
+  static constexpr int kDepth = kWalkDepth;
+  static constexpr int kVec = VEC;
+  static constexpr bool kSide = false;
+  using Raw = typename std::conditional<VEC == 1, T,
+                                        typename Cols4<T>::Raw>::type;
+  const long long* inv;
+  const long long* ukeys;
+  const T* table;
+  long long last;  // rows - 1
+  int D;
+  __device__ long long key(long long i) const {
+    return __ldg(ukeys + __ldg(inv + i));
+  }
+  __device__ int row(long long k) const { return (int)pool::key_row(k, last); }
+  __device__ void side(int, float&, float&) const {}
+  __device__ Raw load(int r, int c) const {
+    const T* p = table + (long long)r * D + c;
+    if constexpr (VEC == 1) {
+      return *p;
+    } else {
+      return __ldg(reinterpret_cast<const Raw*>(p));
+    }
+  }
+  __device__ void add(float (&acc)[VEC], Raw raw, float, float,
+                      float w) const {
+    if constexpr (VEC == 1) {
+      acc[0] = accum(acc[0], widen(raw), w);
+    } else {
+      float v[4];
+      Cols4<T>::widen(raw, v);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      out[2 * j] = f.x;
-      out[2 * j + 1] = f.y;
+      for (int k = 0; k < 4; ++k) acc[k] = accum(acc[k], v[k], w);
     }
   }
 };
 
-// Launch A: one warp per distinct row.  VEC: each lane reads 16-byte
-// vectors of the row and writes them widened as float4s; otherwise one
-// column per lane.
-template <typename T, bool VEC>
-__global__ void dedup_gather_kernel(const T* __restrict__ table,
-                                    const int32_t* __restrict__ uids,
-                                    float* __restrict__ rows, int num_unique,
-                                    int D) {
-  const int u = (int)((blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5);
+// One warp per segment: every column block of its output, each walked
+// over the segment's slots, then rounded once to T and written.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    dedup_pooled_kernel(const T* __restrict__ table,
+                        const long long* __restrict__ ukeys,
+                        const long long* __restrict__ inv,
+                        const float* __restrict__ w,
+                        const long long* __restrict__ offsets,
+                        T* __restrict__ out, long long num_segments, int D,
+                        long long rows) {
+  const long long s = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (u >= num_unique) return;
-  const T* src = table + (int64_t)uids[u] * D;
-  float* dst = rows + (int64_t)u * D;
-  if constexpr (VEC) {
-    constexpr int kN = Vec<T>::kN;
-    for (int c = lane * kN; c < D; c += 32 * kN) {
-      float v[kN];
-      Vec<T>::load(src + c, v);
+  if (s >= num_segments) return;
+  const FloatRows<T, VEC> src{inv, ukeys, table, rows - 1, D};
+  const pool::Slots sg{offsets[s], offsets[s + 1], 0.f};
+  T* orow = out + s * D;
+  for (int c0 = 0; c0 < D; c0 += 32 * VEC) {
+    const int c = c0 + lane * VEC;
+    const bool active = c < D;
+    float acc[VEC];
 #pragma unroll
-      for (int j = 0; j < kN; j += 4) {
-        *reinterpret_cast<float4*>(dst + c + j) =
-            make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-      }
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+    pool::walk(src, sg, w, lane, c, active, acc);
+    if (!active) continue;
+    if constexpr (VEC == 1) {
+      orow[c] = narrow<T>(acc[0]);
+    } else {
+      Cols4<T>::store(orow + c, acc);
     }
-  } else {
-    for (int c = lane; c < D; c += 32) dst[c] = widen(src[c]);
   }
 }
 
-inline unsigned blocks_for(int warps) {
-  return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename T>
-void gather(const void* table, const int32_t* uids, float* rows, int U, int D,
+void launch(const void* table, const void* ukeys, const void* inv,
+            const void* w, const void* offsets, void* out,
+            long long num_segments, int D, long long rows,
             cudaStream_t stream) {
+  const unsigned grid =
+      (unsigned)((num_segments + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const T* t = (const T*)table;
-  if (D % Vec<T>::kN == 0 && aligned16(table) && aligned16(rows)) {
-    dedup_gather_kernel<T, true><<<blocks_for(U), kThreads, 0, stream>>>(
-        t, uids, rows, U, D);
+  const long long* k = (const long long*)ukeys;
+  const long long* i = (const long long*)inv;
+  const float* wt = (const float*)w;
+  const long long* o = (const long long*)offsets;
+  T* y = (T*)out;
+  if (D % 4 == 0 && aligned(table, 4 * sizeof(T)) &&
+      aligned(out, 4 * sizeof(T))) {
+    dedup_pooled_kernel<T, 4><<<grid, kThreads, 0, stream>>>(
+        t, k, i, wt, o, y, num_segments, D, rows);
   } else {
-    dedup_gather_kernel<T, false><<<blocks_for(U), kThreads, 0, stream>>>(
-        t, uids, rows, U, D);
+    dedup_pooled_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
+        t, k, i, wt, o, y, num_segments, D, rows);
   }
 }
 
@@ -141,34 +241,29 @@ void gather(const void* table, const int32_t* uids, float* rows, int U, int D,
 
 extern "C" {
 
-// Launches A then B on `stream` and returns cudaGetLastError() as an int (0
-// = launched).  `dtype` is 0 for a float32 and 1 for a bfloat16 table;
-// `rows` is the f32 [U, D] scratch and `out` the f32 [S, D] output.
-// Pointers are device pointers; the Python wrapper has checked devices,
-// dtypes, shapes and contiguity.
-int dedup_pooled(const void* table, const void* uids, const void* ridx,
-                 const void* w, const void* offsets, void* rows, void* out,
-                 int num_unique, int num_segments, int D, int dtype,
+// Launches on `stream` and returns cudaGetLastError() as an int (0 =
+// launched).  `dtype` is 0 for a float32 and 1 for a bfloat16 table (the
+// output [S, D] has the table's dtype); ukeys, inv and offsets are int64,
+// w float32.  Pointers are device pointers; the Python wrapper has checked
+// devices, dtypes, shapes and contiguity.
+int dedup_pooled(const void* table, const void* ukeys, const void* inv,
+                 const void* w, const void* offsets, void* out,
+                 long long num_segments, int D, long long rows, int dtype,
                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (num_unique > 0) {
+  if (num_segments > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
     switch (dtype) {
       case 0:
-        gather<float>(table, (const int32_t*)uids, (float*)rows, num_unique,
-                      D, st);
+        launch<float>(table, ukeys, inv, w, offsets, out, num_segments, D,
+                      rows, st);
         break;
       case 1:
-        gather<__nv_bfloat16>(table, (const int32_t*)uids, (float*)rows,
-                              num_unique, D, st);
+        launch<__nv_bfloat16>(table, ukeys, inv, w, offsets, out,
+                              num_segments, D, rows, st);
         break;
       default:
         return (int)cudaErrorInvalidValue;
     }
-  }
-  if (num_segments > 0) {
-    dedup::dedup_pool_kernel<<<blocks_for(num_segments), kThreads, 0, st>>>(
-        (const float*)rows, (const int32_t*)ridx, (const float*)w,
-        (const int32_t*)offsets, (float*)out, num_segments, D);
   }
   return (int)cudaGetLastError();
 }

@@ -47,15 +47,16 @@
 //   * a warp then issues the row loads of K slots (row indices broadcast
 //     with __shfl_sync) before it consumes the first: K four-byte loads a
 //     lane for int8 rows, K sixteen-byte loads for the f32 scratch.
-//     K = kDepth = 8, the fastest of 8, 16 and 32 when they were timed
+//     K = kWalkDepth = 8, the fastest of 8, 16 and 32 when they were timed
 //     (PERF.md section 6): a deeper walk holds more registers, and the
 //     card then keeps fewer warps resident;
 //   * only the loads overlap; the adds stay in slot order.
 //
-// So a 100-id segment waits about 4 x 5 round trips instead of 100.  A
-// 16-byte-load path for int8 rows (16 columns a lane) was not added: at
-// D = 128 a row is one 128-byte line whether 32 lanes load 4 bytes or 8
-// lanes load 16, and the walk's time is its round trips.
+// So a 100-id segment waits about 4 x 5 round trips instead of 100.  The
+// walk is pool_walk.cuh's, shared with the float dedup lookup (B4,
+// tbe_dedup.cu).  A 16-byte-load path for int8 rows (16 columns a lane)
+// was not added: at D = 128 a row is one 128-byte line whether 32 lanes
+// load 4 bytes or 8 lanes load 16, and the walk's time is its round trips.
 //
 // Owner warps.  The TPU kernel walks id chunks on a SEQUENTIAL grid and
 // flushes each segment run into HBM with a read-modify-write, race-free only
@@ -101,16 +102,20 @@
 
 #include <type_traits>
 
+#include "pool_walk.cuh"
+
 namespace {
+
+using pool::accum;
+using pool::clip;
+using pool::kIdBias;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxFeatures = 48;
 constexpr long long kSentinel = 0x7fffffffffffffffLL;
-constexpr long long kIdBias = 1LL << 31;
-// the rows in flight in a warp's walk
-constexpr int kDepth = 8;
+// the rows in flight in a warp's walk (above)
+constexpr int kWalkDepth = 8;
 // the grid-stride loops: this many blocks on each SM of the card
 constexpr int kBlocksPerSm = 8;
 
@@ -142,19 +147,9 @@ __device__ __forceinline__ float dequant(float code, float s, float b) {
   return __fadd_rn(__fmul_rn(code, s), b);
 }
 
-__device__ __forceinline__ float accum(float acc, float v, float w) {
-  return __fadd_rn(acc, __fmul_rn(v, w));
-}
-
-__device__ __forceinline__ long long clip(long long x, long long hi) {
-  return x < 0 ? 0 : (x > hi ? hi : x);
-}
-
 // Segment s of the group: its slot range, its weight when no per-slot
 // weights are given, its feature and its output row.
-struct Segment {
-  long long begin, end;
-  float w;
+struct Segment : pool::Slots {
   int f;
   long long out;  // offset of out[b, f.col]
 };
@@ -181,6 +176,7 @@ __device__ __forceinline__ Segment segment_of(const Group& g,
 // key = the slot's id, row = the id clipped to the table.
 template <int VEC>
 struct Q8Rows {
+  static constexpr int kDepth = kWalkDepth;
   static constexpr int kVec = VEC;
   static constexpr bool kSide = true;  // scale and bias per row
   using Raw = uint32_t;
@@ -217,6 +213,7 @@ struct Q8Rows {
 // B5's rows: the f32 scratch of distinct rows, through each slot's index.
 template <int VEC>
 struct ScratchRows {
+  static constexpr int kDepth = kWalkDepth;
   static constexpr int kVec = VEC;
   static constexpr bool kSide = false;
   using Raw = typename std::conditional<VEC == 4, float4, float>::type;
@@ -242,57 +239,6 @@ struct ScratchRows {
   }
 };
 
-// The owner warp's walk of one segment's slots for the columns
-// [c, c + VEC) of one lane (active: the lane has columns in this block).
-// Slot metadata comes 32 slots at a time, one slot a lane (the next 32
-// ids loaded before the current rows are consumed); the loads of K rows
-// are issued before the first is added; the adds run in slot order.
-template <class Src>
-__device__ __forceinline__ void walk(const Src& src, const Segment& sg,
-                                     const float* __restrict__ w, int lane,
-                                     int c, bool active,
-                                     float (&acc)[Src::kVec]) {
-  constexpr int K = kDepth;
-  static_assert(32 % K == 0, "K must divide the warp");
-  long long key_next = 0;
-  float w_next = 0.f;
-  if (sg.begin + lane < sg.end) {
-    key_next = src.key(sg.begin + lane);
-    w_next = w ? __ldg(w + sg.begin + lane) : sg.w;
-  }
-  for (long long base = sg.begin; base < sg.end; base += 32) {
-    const int n = (int)min(32LL, sg.end - base);
-    const int r_mine = src.row(key_next);
-    const float w_mine = w_next;
-    float s_mine = 0.f, b_mine = 0.f;
-    if (Src::kSide && lane < n) src.side(r_mine, s_mine, b_mine);
-    const long long nxt = base + 32 + lane;
-    if (nxt < sg.end) {
-      key_next = src.key(nxt);
-      w_next = w ? __ldg(w + nxt) : sg.w;
-    }
-    for (int j0 = 0; j0 < n; j0 += K) {
-      typename Src::Raw raw[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int r = __shfl_sync(kFull, r_mine, j0 + k);
-        raw[k] = (active && j0 + k < n) ? src.load(r, c)
-                                        : typename Src::Raw{};
-      }
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float wi = __shfl_sync(kFull, w_mine, j0 + k);
-        float s = 0.f, b = 0.f;
-        if (Src::kSide) {
-          s = __shfl_sync(kFull, s_mine, j0 + k);
-          b = __shfl_sync(kFull, b_mine, j0 + k);
-        }
-        if (active && j0 + k < n) src.add(acc, raw[k], s, b, wi);
-      }
-    }
-  }
-}
-
 // One warp per segment of the group: every column block of the segment's
 // output, each walked over the segment's slots.
 template <class Src>
@@ -312,7 +258,7 @@ __device__ __forceinline__ void pool_segment(const Group& g, Src src,
     float acc[VEC];
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
-    walk(src, sg, w, lane, c, active, acc);
+    pool::walk(src, sg, w, lane, c, active, acc);
     if (active) {
 #pragma unroll
       for (int v = 0; v < VEC; ++v) orow[c + v] = acc[v];
@@ -396,7 +342,7 @@ __global__ void __launch_bounds__(kThreads)
     const long long key = __ldg(ukeys + u);
     if (key == kSentinel) break;
     const Feature& ft = g.f[(int)(key >> 32)];
-    const long long r = clip((key & 0xffffffffLL) - kIdBias, ft.rows - 1);
+    const long long r = pool::key_row(key, ft.rows - 1);
     const float s = __ldg(ft.scale + r), b = __ldg(ft.bias + r);
     const uint8_t* src = ft.q + r * g.Dp + (long long)k * kUnit;
     uint32_t word;

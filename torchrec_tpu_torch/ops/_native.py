@@ -60,7 +60,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "fused_update_info": (_I, _I, _I, _I, _O),
     },
     "tbe_dedup.cu": {
-        "dedup_pooled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "dedup_pooled": (_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _P),
     },
     "tbe_dedup_backward.cu": {
         "dedup_fused_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

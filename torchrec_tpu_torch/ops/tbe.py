@@ -20,7 +20,8 @@ Replaces, from the JAX package's ``torchrec_tpu/ops/pallas_tbe.py``:
   preparation ``_dedup_prepare_inputs``) by :func:`dedup_pooled_lookup`,
   over float32 and bfloat16 tables.  Its ``id_cap``/``u_cap`` knobs size
   the TPU kernel's grid and VMEM buffer and have no counterpart: the
-  port's scratch is sized by the batch (``csrc/tbe_dedup.cu``).
+  port's kernel keeps no copy of the distinct rows and reads each slot's
+  row from the table (``csrc/tbe_dedup.cu``).
 
 The kernels are CUDA C++ in ``torchrec_tpu_torch/csrc/tbe_float.cu``,
 ``tbe_quant.cu`` and ``tbe_dedup.cu`` (their headers say what bounds them
@@ -32,9 +33,9 @@ also keeps the launch counts that this module re-exports.  Each wrapper:
   nothing; on CUDA tensors launches the kernel or raises — there is no
   fallback;
 * adds one to its count in :data:`LAUNCHES` for every call that launches
-  (the dedup wrappers' launches, gather and pool, and for a group also
-  the keys, count as one; a grouped call counts one for all its
-  features); a call with no segments launches nothing and returns an
+  (the quantized dedup wrappers' launches, gather and pool, and for a
+  group also the keys, count as one; a grouped call counts one for all
+  its features); a call with no segments launches nothing and returns an
   empty output.
 
 The plain versions sum each segment in slot order with separately rounded
@@ -202,8 +203,8 @@ def dedup_prepare(
     Returns (unique row ids [U] clipped to ``[0, num_rows - 1]``, unique
     index per sorted slot [n], sorted weights [n], CSR offsets [S+1]).
     Boolean masking and ``torch.unique`` synchronise with the host on
-    CUDA; the float dedup lookup (B4) still accepts that, the quantized
-    one prepares with :func:`dedup_prepare_sized`."""
+    CUDA: the plain version of the float dedup lookup (B4) prepares with
+    it, the kernels with :func:`dedup_prepare_sized`."""
     valid = (segments >= 0) & (segments < num_segments)
     vseg = segments[valid]
     uids, inv = torch.unique(ids[valid], sorted=True, return_inverse=True)
@@ -277,7 +278,10 @@ def dedup_prepare_sized(
     [V], CSR offsets [S+1]); ``key_rows(ukeys[:U], R)`` are
     :func:`dedup_prepare`'s unique rows, with ``U = num_unique(ukeys)``,
     and the first ``offsets[-1]`` indices its per-slot indices."""
-    key = _valid_key(segments, num_segments)
+    if num_segments >= _INT32_MAX:
+        raise ValueError("num_segments must fit in int32")
+    # int32 segment keys: the radix sort takes half the passes of int64
+    key = _valid_key(segments, num_segments).to(torch.int32)
     order = torch.argsort(key, stable=True)
     skey = key[order]
     ukeys, inv = sized_unique(unique_keys(ids[order], skey < num_segments))
@@ -951,37 +955,37 @@ def dedup_quant_pooled_lookup_grouped(
 
 def launch_dedup_pooled(
     table: torch.Tensor,
-    uids: torch.Tensor,
-    suidx: torch.Tensor,
+    ukeys: torch.Tensor,
+    inv: torch.Tensor,
     sw: torch.Tensor,
     offsets: torch.Tensor,
 ) -> torch.Tensor:
-    """Launch the float dedup gather and pool kernels on prepared inputs
-    (the output of :func:`dedup_prepare`); returns [S, D] in the table's
-    dtype (the float32 pool rounded once)."""
+    """Launch the float dedup lookup kernel on prepared inputs (the output
+    of :func:`dedup_prepare_sized`: int64 keys, indices and offsets,
+    float32 weights); returns [S, D] in the table's dtype, rounded once in
+    the kernel.  Allocates only the output; no host sync."""
     S, D = offsets.shape[0] - 1, table.shape[1]
     if S == 0:
         return table.new_empty((0, D))
+    for name, t, dtype in (("ukeys", ukeys, torch.int64),
+                           ("inv", inv, torch.int64),
+                           ("offsets", offsets, torch.int64),
+                           ("weights", sw, torch.float32)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous {dtype}, got "
+                            f"{t.dtype}")
     lib = _native.load_library(_DEDUP_SOURCE)
     dev = table.device
-    uids32 = uids.to(torch.int32).contiguous()
-    idx32 = suidx.to(torch.int32).contiguous()
-    off32 = offsets.to(torch.int32).contiguous()
-    sw = sw.contiguous()
-    # the distinct rows widened to float32: device memory, no budget (the
-    # TPU kernel's 8 MiB VMEM budget has no counterpart; csrc/tbe_dedup.cu)
-    rows = torch.empty((uids32.shape[0], D), dtype=torch.float32, device=dev)
-    out = torch.empty((S, D), dtype=torch.float32, device=dev)
+    out = torch.empty((S, D), dtype=table.dtype, device=dev)
     with torch.cuda.device(dev):
         err = lib.dedup_pooled(
-            table.data_ptr(), uids32.data_ptr(), idx32.data_ptr(),
-            sw.data_ptr(), off32.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            uids32.shape[0], S, D, FLOAT_DTYPES[table.dtype],
-            _stream_ptr(dev),
+            table.data_ptr(), ukeys.data_ptr(), inv.data_ptr(),
+            sw.data_ptr(), offsets.data_ptr(), out.data_ptr(), S, D,
+            table.shape[0], FLOAT_DTYPES[table.dtype], _stream_ptr(dev),
         )
     _native.check_launch("dedup_pooled", err)
     count_launch("dedup_pooled_lookup")
-    return out.to(table.dtype)
+    return out
 
 
 def dedup_pooled_lookup(
@@ -992,17 +996,16 @@ def dedup_pooled_lookup(
     weights: Optional[torch.Tensor] = None,  # [V] float32
 ) -> torch.Tensor:
     """Ragged dedup pooled lookup: the same function as
-    :func:`pooled_lookup` (bitwise, for float32 tables), computed by
-    reading each distinct valid row once into a float32 scratch and
-    pooling every segment through the inverse index.  Returns
-    [num_segments, D] in the table's dtype.  The sort-unique synchronises
-    with the host on CUDA."""
+    :func:`pooled_lookup` (bitwise, for float32 and bfloat16 tables),
+    computed over the sized sort-unique of the valid ids: every segment
+    pooled through each slot's index into the distinct keys.  Returns
+    [num_segments, D] in the table's dtype.  On the card: one launch, no
+    host sync."""
     dev = _check_float_inputs(table, ids, segments, weights)
     if dev.type == "cpu":
         return dedup_pooled_lookup_plain(table, ids, segments, num_segments,
                                          weights)
     _require_cuda(dev)
-    uids, suidx, sw, offsets = dedup_prepare(
-        ids, segments, weights, num_segments, table.shape[0]
-    )
-    return launch_dedup_pooled(table, uids, suidx, sw, offsets)
+    ukeys, inv, sw, offsets = dedup_prepare_sized(
+        ids, segments, weights, num_segments)
+    return launch_dedup_pooled(table, ukeys, inv, sw, offsets)
