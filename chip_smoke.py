@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: the DLRM training step of
-``bench.py main()``, the bucketed training pipeline on the dedup kernels,
-MLPerf DLRM-v2 (``DLRM_DCN``) training on the per-id kernels, and
-quantized DLRM serving.
+``bench.py main()``, the unsharded authoring path of the same model
+(``EmbeddingBagCollection`` -> ``DLRM`` -> ``DLRMTrain``), the bucketed
+training pipeline on the dedup kernels, MLPerf DLRM-v2 (``DLRM_DCN``)
+training on the per-id kernels, and quantized DLRM serving.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and fails (non-zero exit, no result line)
@@ -43,7 +44,27 @@ Phases, one JSON line each on stdout; any failure raises:
    launch per step), three steps under ``torch.profiler``, and 3 steps of
    the bfloat16-table arm with stochastic rounding (its path check also
    holds the rounded stack apart from round-to-nearest);
-4. train_dedup — the bucketed training pipeline on the dedup kernels:
+4. ebc — the unsharded authoring path at the same width: an
+   ``EmbeddingBagCollection`` of the 26 float32 tables on the card (drawn
+   from a seeded generator), ``DLRM(embedding_bag_collection=...)`` in
+   bfloat16 as in phase 3, ``DLRMTrain``, the same ``RandomRecDataset``
+   batches.  First ``ebc_kernel``: B1 and B4 against their plain versions
+   at the path's shapes (one table's lookup, V = S = 4,096); then
+   ``ebc_check``: one forward launches 26 B1s and no other pooled kernel
+   (the wrappers' counts and a profile), and with ``kernel="dedup"`` 26
+   B4s with the same KeyedTensor (``torch.equal``); the KeyedTensor
+   ``torch.equal`` to the one-device DMP's sharded one from a stack filled
+   with the EBC's weights; two backward calls on one weighted batch give
+   ``torch.equal`` table and weight gradients; ``EmbeddingCollection``
+   over the same rows equal to a row gather; ``DLRM_DCN`` (3 layers,
+   rank 512) and ``DLRM_Projection`` (both branches 512-256) through the
+   same collection give finite logits.  Then 1 warm-up and 20 timed
+   ``DLRMTrain`` steps with autograd and the port's dense Adagrad over
+   every parameter, tables included (samples/s, losses finite, 26 B1
+   launches a step and nothing else, the looked-up rows changed and the
+   rows no batch looked up unchanged, peak memory) and three profiled
+   steps;
+5. train_dedup — the bucketed training pipeline on the dedup kernels:
    the DLRM of phase 3 through ``BucketedTrainPipeline`` (ladder floor 8,
    growth 2, at most 8 signatures; ``kernels`` dedup for the lookup and
    the update) over a stream of up to 64 ids per feature per example
@@ -65,7 +86,7 @@ Phases, one JSON line each on stdout; any failure raises:
    B6 launch per step and nothing else, the signatures dispatched and
    the padding ratios), three profiled steps, and 3 steps of each other
    optimizer and of the bfloat16-table arm;
-5. train_dcn — MLPerf DLRM-v2 training (mlcommons/training
+6. train_dcn — MLPerf DLRM-v2 training (mlcommons/training
    ``recommendation_v2/torchrec_dlrm``) on the per-id kernels:
    ``DistributedModelParallel(DLRM_DCN, table_wise_plan,
    lookup_kernel="tbe", update_kernel="tbe")`` over 26 tables of D=128,
@@ -97,7 +118,7 @@ Phases, one JSON line each on stdout; any failure raises:
    forward and backward alone, three profiled steps with the cross net's
    GEMMs named, and 3 steps of each other optimizer and of a
    bfloat16-table arm at the 1,000,000-row cap;
-6. serving — quantized serving: DLRM at the widths of ``bench.py`` (26 sparse
+7. serving — quantized serving: DLRM at the widths of ``bench.py`` (26 sparse
    features, D=128, 13 dense, dense arch 512-256-128, over arch
    1024-1024-512-256-1, float32) over int8 tables at the MLPerf DLRM-v2
    row counts (204,184,588 rows); first each kernel against its plain
@@ -114,7 +135,7 @@ Phases, one JSON line each on stdout; any failure raises:
    features of a batch in one launch) against their plain versions at
    the served B=256 and the B=4096 batch, int8 and the int4/int2 views,
    uniform and Zipf ids, with times and bounds;
-7. roundtrip — ``package_model`` at 10k rows per table, loaded on the
+8. roundtrip — ``package_model`` at 10k rows per table, loaded on the
    card and on the CPU, scores compared.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
@@ -159,6 +180,15 @@ KERNEL_SOURCES = {
     "dedup_pooled_lookup": "torchrec_tpu_torch/csrc/tbe_dedup.cu",
     "dedup_fused_sparse_update":
         "torchrec_tpu_torch/csrc/tbe_dedup_backward.cu",
+}
+# the main paths that launch each kernel (chip_smoke's phases)
+KERNEL_PATHS = {
+    "pooled_lookup": ["train", "ebc", "train_dcn"],
+    "fused_sparse_update": ["train", "train_dcn"],
+    "quant_pooled_lookup_int8": ["serving"],
+    "dedup_quant_pooled_lookup": ["serving"],
+    "dedup_pooled_lookup": ["train_dedup", "ebc"],
+    "dedup_fused_sparse_update": ["train_dedup"],
 }
 REPLACES = {
     "pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:287",
@@ -295,6 +325,17 @@ def memory_of(fn):
     held = torch.cuda.memory_allocated() - before
     del kept
     return torch.cuda.max_memory_allocated() - before, held
+
+
+def meta_ebc(tables):
+    """The model's ``EmbeddingBagCollection`` on ``torch.device("meta")``:
+    a placeholder where the sharded collection or the quantized one holds
+    the tables (no table is allocated twice)."""
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingBagCollection,
+    )
+
+    return EmbeddingBagCollection(tables, device="meta")
 
 
 def zipf_ids(rng: np.random.RandomState, size: int, rows: int) -> np.ndarray:
@@ -439,7 +480,7 @@ def build_trainer(dev, table_dtype):
     ds = RandomRecDataset(keys, TRAIN_BATCH, [TRAIN_ROWS] * len(keys),
                           [1] * len(keys), num_dense=NUM_DENSE,
                           manual_seed=0)
-    model = DLRM(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+    model = DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
                  dense_dtype=torch.bfloat16)
     dmp = DistributedModelParallel(
         model, tables, table_wise_plan(tables), TRAIN_BATCH,
@@ -727,6 +768,80 @@ def b1_row(flush, phase, stack, ids, segs, w, S, common):
     return rec
 
 
+def b4_row(flush, phase, stack, ids, segs, w, S, common):
+    """B4 against its plain version on the card at these inputs
+    (``torch.equal``), its wrapper checked for host syncs
+    (``set_sync_debug_mode("error")``) and its peak memory held to its
+    output plus what the sized prep alone allocates, with times (the
+    kernel and ``F.embedding_bag`` over the sorted valid slots also of the
+    card alone) and the bound.  Returns the emitted record."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchrec_tpu_torch.ops import tbe
+
+    R, D = stack.shape
+    args = (stack, ids, segs, S, w)
+    got = tbe.dedup_pooled_lookup(*args)
+    torch.cuda.synchronize()
+    ref = tbe.dedup_pooled_lookup_plain(*args)
+    err = float((got.float() - ref.float()).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"dedup_pooled_lookup {common}: kernel != "
+                             f"plain (max abs err {err})")
+    # the wrapper, prep and launch, must not synchronise with the host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tbe.dedup_pooled_lookup(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # one call allocates its output and, at most, what the sized prep
+    # alone allocates: no copy of the distinct rows
+    prep_peak, _ = memory_of(lambda: tbe.dedup_prepare_sized(ids, segs,
+                                                             w, S))
+    peak, out_bytes = memory_of(lambda: tbe.dedup_pooled_lookup(*args))
+    if peak > out_bytes + prep_peak:
+        raise AssertionError(f"dedup_pooled_lookup {common}: peak {peak} "
+                             f"bytes > output {out_bytes} + prep "
+                             f"{prep_peak}")
+    prep = tbe.dedup_prepare_sized(ids, segs, w, S)
+    sids, sw, offs = tbe.sort_by_segment(ids, segs, w, S, R)
+    n = int(offs[-1])
+    lib_ids, lib_offs = sids[:n].to(torch.int64), offs.to(torch.int64)
+    lib_w = sw[:n].to(stack.dtype)
+
+    def library():
+        return F.embedding_bag(
+            lib_ids, stack, lib_offs, mode="sum",
+            per_sample_weights=lib_w, include_last_offset=True)
+
+    def kernel():
+        return tbe.launch_dedup_pooled(stack, *prep)
+
+    U, nbytes, flops = _b1_bound(R, D, stack.element_size(), ids, segs,
+                                 w, S)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    rec = {
+        "phase": phase, "kernel": "dedup_pooled_lookup",
+        **common, "distinct": U, "peak_bytes": peak,
+        "out_bytes": out_bytes, "prep_peak_bytes": prep_peak,
+        "wrapper_syncs": False, "equal": True, "max_abs_err": err,
+        "ms": cuda_ms(lambda: tbe.dedup_pooled_lookup(*args), flush),
+        "kernel_ms": cuda_ms(kernel, flush),
+        "kernel_device_ms": cuda_ms(kernel, flush, device_only=True),
+        "plain_ms": cuda_ms(lambda: tbe.dedup_pooled_lookup_plain(*args),
+                            flush, runs=PLAIN_RUNS, warmup=1),
+        "library_ms": cuda_ms(library, flush),
+        "library_device_ms": cuda_ms(library, flush, device_only=True),
+        "library_max_abs_diff": float(
+            (library().float() - got.float()).abs().max()),
+        "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    emit(rec)
+    return rec
+
+
 def _zipf_slots(lay, rows, seed):
     """Zipf(1.1) ids in the layout's ``[F * C]`` slot stream, each slot's
     ids drawn over its own table's rows and offset into the stack."""
@@ -958,7 +1073,289 @@ def _check_train(rec, counts, steps):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the bucketed training pipeline on the dedup kernels
+# phase 4: the unsharded authoring path (EmbeddingBagCollection -> DLRM ->
+# DLRMTrain) at the width of bench.py main()
+# ---------------------------------------------------------------------------
+
+# the device kernel names of the pooled lookups, by wrapper
+POOLED_KERNEL_NAMES = {
+    "tbe_pooled_kernel": "pooled_lookup",
+    "dedup_pooled_kernel": "dedup_pooled_lookup",
+    "q8_pooled_kernel": "quant_pooled_lookup_int8",
+    "dedup_q_pool_kernel": "dedup_quant_pooled_lookup",
+}
+# DLRM_Projection's two interaction branches at this width: the shape of
+# the JAX package's test (``(32, 2 * D)``) at D = 128
+PROJECTION_BRANCH = (512, 2 * DIM)
+
+
+def pooled_launches_profiled(call):
+    """The pooled-lookup kernels one ``call`` launches on the card, by
+    wrapper name, read from a ``torch.profiler`` trace (not from the
+    wrappers' counts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for kname, wrapper in POOLED_KERNEL_NAMES.items():
+            if kname in e.name:
+                out[wrapper] = out.get(wrapper, 0) + 1
+    return out
+
+
+def ebc_forward_check(ebc, kjt, kernel, n_tables):
+    """One forward of ``ebc``: its launches by the wrappers' counts and by
+    the profile, each exactly ``n_tables`` of ``kernel`` and no other
+    pooled kernel.  Returns (the KeyedTensor, the counts)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    with torch.no_grad():
+        kt = ebc(kjt)
+        tbe.reset_launch_counts()
+        profiled = pooled_launches_profiled(lambda: ebc(kjt))
+        counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    want = {kernel: n_tables}
+    if counts != want or profiled != want:
+        raise AssertionError(f"EBC forward ({kernel}) launched {counts}, "
+                             f"profiled {profiled}; want {want}")
+    return kt, counts
+
+
+def ebc_grads(ebc, kjt, weights, g):
+    """The table and per-id weight gradients of ``sum(ebc(kjt) * g)``,
+    the KJT carrying ``weights``."""
+    import torch
+
+    w = weights.detach().requires_grad_()
+    with torch.enable_grad():
+        kt = ebc(kjt.with_values(kjt.values(), w))
+        params = list(ebc.parameters())
+        grads = torch.autograd.grad((kt.values() * g).sum(), params + [w])
+    return grads
+
+
+def ebc_phase(dev, flush):
+    """The unsharded authoring path on the card.  Returns (the main run's
+    launches, its kernel records, its check record)."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+    from torchrec_tpu_torch.models.dlrm import (
+        DLRM,
+        DLRM_DCN,
+        DLRM_Projection,
+        DLRMTrain,
+    )
+    from torchrec_tpu_torch.modules.embedding_configs import (
+        EmbeddingBagConfig,
+        EmbeddingConfig,
+    )
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingBagCollection,
+        EmbeddingCollection,
+    )
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    keys = [f"cat_{i}" for i in range(TRAIN_FEATURES)]
+    F = len(keys)
+    tables = tuple(
+        EmbeddingBagConfig(num_embeddings=TRAIN_ROWS, embedding_dim=DIM,
+                           name=f"t_{k}", feature_names=[k])
+        for k in keys)
+    ds = RandomRecDataset(keys, TRAIN_BATCH, [TRAIN_ROWS] * F, [1] * F,
+                          num_dense=NUM_DENSE, manual_seed=0)
+    it = iter(ds)
+    batches = [next(it).to(dev) for _ in range(TRAIN_BATCHES)]
+    batch, kjt = batches[0], batches[0].sparse_features
+    ebc = EmbeddingBagCollection(
+        tables, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.manual_seed(0)
+    model = DLRM(ebc, NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                 dense_dtype=torch.bfloat16).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the kernels against their plain versions at the path's shapes: the
+    # first table's lookup (one feature, V = S = 4096)
+    sub = kjt.permute([0])
+    ids, segs = sub.values(), sub.segment_ids()
+    w = torch.ones(ids.shape, dtype=torch.float32, device=dev)
+    table0 = getattr(ebc, tables[0].name).detach()
+    common = {"dtype": "float32", "ids": "ebc", "rows": TRAIN_ROWS, "D": DIM,
+              "S": sub.total_stride, "V": ids.numel()}
+    rows = [b1_row(flush, "ebc_kernel", table0, ids, segs, w,
+                   sub.total_stride, common),
+            b4_row(flush, "ebc_kernel", table0, ids, segs, w,
+                   sub.total_stride, common)]
+
+    # each forward: 26 launches of its kernel, none of another
+    kt, tbe_counts = ebc_forward_check(ebc, kjt, "pooled_lookup", F)
+    ebc_dedup = EmbeddingBagCollection(tables, device="meta",
+                                       kernel="dedup")
+    ebc_dedup.load_state_dict(ebc.state_dict(), assign=True)
+    kt_dedup, dedup_counts = ebc_forward_check(ebc_dedup, kjt,
+                                               "dedup_pooled_lookup", F)
+    dedup_equal = bool(torch.equal(kt_dedup.values(), kt.values()))
+
+    # sharded = unsharded: the one-device DMP's stack filled from the
+    # EBC's own weights
+    dmp = DistributedModelParallel(
+        DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH), tables,
+        table_wise_plan(tables), TRAIN_BATCH, dict(zip(keys, ds.caps)),
+        device=dev)
+    state = dmp.init(torch.Generator(device=dev).manual_seed(1))
+    dmp.load_table_weights(state, {c.name: getattr(ebc, c.name).detach()
+                                   for c in tables})
+    with torch.no_grad():
+        sharded, _ = dmp.sparse_forward(state, batch)
+    sharded_equal = bool(torch.equal(sharded, kt.values())
+                         and dmp.sharded_ebc.feature_order == kt.keys())
+    sharded_err = float((sharded - kt.values()).abs().max())
+    del dmp, state, sharded
+
+    # the backward, twice on one batch: table and weight gradients equal
+    gen = torch.Generator(device=dev).manual_seed(5)
+    wts = torch.rand(kjt.values().shape, generator=gen, device=dev)
+    g = torch.randn(kt.values().shape, generator=gen, device=dev)
+    ebc_w = EmbeddingBagCollection(tables, is_weighted=True, device="meta")
+    ebc_w.load_state_dict(ebc.state_dict(), assign=True)
+    first = ebc_grads(ebc_w, kjt, wts, g)
+    second = ebc_grads(ebc_w, kjt, wts, g)
+    bwd_equal = all(torch.equal(a, b) for a, b in zip(first, second))
+    del first, second, ebc_w
+
+    # the sequence collection over the same rows: a row gather
+    ec = EmbeddingCollection(
+        [EmbeddingConfig(num_embeddings=TRAIN_ROWS, embedding_dim=DIM,
+                         name=c.name, feature_names=c.feature_names)
+         for c in tables], device="meta")
+    ec.load_state_dict(ebc.state_dict(), assign=True)
+    with torch.no_grad():
+        seq = ec(kjt)
+        ec_equal = True
+        for c in tables:
+            jt = kjt[c.feature_names[0]]
+            want = getattr(ebc, c.name)[jt.values()]
+            want[~jt.valid_mask()] = 0
+            ec_equal &= bool(torch.equal(seq[c.feature_names[0]].values(),
+                                         want))
+    del seq, ec
+
+    # DLRM_DCN and DLRM_Projection through the same collection
+    with torch.no_grad():
+        dcn = DLRM_DCN(ebc, NUM_DENSE, DENSE_ARCH, OVER_ARCH, DCN_LAYERS,
+                       DCN_RANK, dense_dtype=torch.bfloat16).to(dev)
+        proj = DLRM_Projection(ebc, NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                               PROJECTION_BRANCH, PROJECTION_BRANCH,
+                               dense_dtype=torch.bfloat16).to(dev)
+        other = {type(m).__name__: m(batch.dense_features, kjt)
+                 for m in (dcn, proj)}
+    others_finite = {k: bool(torch.isfinite(v).all()) and
+                     tuple(v.shape) == (TRAIN_BATCH, 1)
+                     for k, v in other.items()}
+    del dcn, proj, other
+
+    check = {
+        "phase": "ebc_check", "card": card, "batch": TRAIN_BATCH,
+        "tables": F, "rows": TRAIN_ROWS, "D": DIM,
+        "setup_seconds": setup_s,
+        "forward_launches": {"tbe": tbe_counts, "dedup": dedup_counts},
+        "sharded_equal": sharded_equal, "sharded_max_abs_err": sharded_err,
+        "dedup_equal": dedup_equal, "backward_deterministic": bwd_equal,
+        "ec_equal": ec_equal, "others_finite": others_finite,
+    }
+    emit(check)
+    if not (sharded_equal and dedup_equal and bwd_equal and ec_equal
+            and all(others_finite.values())):
+        raise AssertionError(f"ebc check failed: {check}")
+
+    # the main path: DLRMTrain with autograd and the port's dense Adagrad
+    # over every parameter, 1 warm-up and TRAIN_STEPS timed steps
+    train = DLRMTrain(model)
+    params = dict(model.named_parameters())
+    tx = adagrad(TRAIN_LR)
+    opt = tx.init(params)
+    seen = torch.unique(torch.cat([
+        b.sparse_features[keys[0]].values()[
+            b.sparse_features[keys[0]].valid_mask()] for b in batches]))
+    t0_rows = getattr(ebc, tables[0].name)
+    looked = batches[0].sparse_features[keys[0]]
+    looked = torch.unique(looked.values()[looked.valid_mask()])
+    unseen = torch.ones(TRAIN_ROWS, dtype=torch.bool, device=dev)
+    unseen[seen] = False
+    before_looked = t0_rows[looked].detach().clone()
+    before_unseen = _checksum(t0_rows.detach()[unseen])
+
+    def step(b):
+        loss, (loss_d, _, _) = train(b)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        tx.update(params, dict(zip(params, grads)), opt)
+        return loss_d
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tbe.reset_launch_counts()
+    warm = [step(batches[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(batches[i % len(batches)]) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = tbe.launch_counts()
+    losses = [float(x) for x in warm + losses]
+    changed = (t0_rows[looked].detach() != before_looked).any(dim=1)
+    rec = {"phase": "ebc", "card": card, "batch": TRAIN_BATCH,
+           "steps": 1 + TRAIN_STEPS, "timed_steps": TRAIN_STEPS,
+           "samples_per_s": TRAIN_STEPS * TRAIN_BATCH / dt,
+           "ms_per_step": dt * 1e3 / TRAIN_STEPS, "losses": losses,
+           "all_finite": bool(np.isfinite(losses).all()),
+           "launches": counts,
+           "looked_up_rows": int(looked.numel()),
+           "looked_up_rows_changed": int(changed.sum()),
+           "unseen_rows_unchanged": _checksum(t0_rows.detach()[unseen])
+           == before_unseen,
+           "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(rec)
+    want = {"pooled_lookup": F * (1 + TRAIN_STEPS)}
+    got = {k: v for k, v in counts.items() if v}
+    if not rec["all_finite"] or got != want:
+        raise AssertionError(f"ebc steps: losses {losses}, launches {got}, "
+                             f"want {want}")
+    if not (rec["looked_up_rows_changed"] == rec["looked_up_rows"]
+            and rec["unseen_rows_unchanged"]):
+        raise AssertionError(f"ebc steps: the table rows moved wrongly: "
+                             f"{rec}")
+    profile_calls({"phase": "ebc_profile", "card": card,
+                   "batch": TRAIN_BATCH},
+                  lambda: step(batches[1]), 3, "step")
+    launches = dict.fromkeys(tbe.LAUNCHES, 0)
+    launches.update(counts)
+    # the dedup arm's forward is a main path of B4 (one forward, F launches)
+    launches["dedup_pooled_lookup"] += dedup_counts["dedup_pooled_lookup"]
+    del train, model, ebc, ebc_dedup, params, opt, batches
+    torch.cuda.empty_cache()
+    return launches, rows, check
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the bucketed training pipeline on the dedup kernels
 # ---------------------------------------------------------------------------
 
 
@@ -999,7 +1396,7 @@ def build_dedup_trainer(dev, keys, caps, optim, table_dtype):
         EmbeddingBagConfig(num_embeddings=TRAIN_ROWS, embedding_dim=DIM,
                            name=f"t_{k}", feature_names=[k])
         for k in keys)
-    model = DLRM(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+    model = DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
                  dense_dtype=torch.bfloat16)
     dmp = DistributedModelParallel(
         model, tables, table_wise_plan(tables), TRAIN_BATCH,
@@ -1066,9 +1463,8 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
     ``cuda_ms`` (the kernels also of the card alone); the plain versions
     over ``PLAIN_RUNS`` runs.  Returns the records."""
     import torch
-    import torch.nn.functional as F
 
-    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops import tbe_backward
     from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
     from torchrec_tpu_torch.parallel.sharding.tw import tw_lookup_inputs
 
@@ -1086,66 +1482,8 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
     for dtype in (torch.float32, torch.bfloat16):
         stack = stack32 if dtype == torch.float32 else stack32.to(dtype)
         dname = str(dtype).replace("torch.", "")
-        args = (stack, ids, segs, S, w)
-        got = tbe.dedup_pooled_lookup(*args)
-        torch.cuda.synchronize()
-        ref = tbe.dedup_pooled_lookup_plain(*args)
-        err = float((got.float() - ref.float()).abs().max())
-        if not torch.equal(got, ref):
-            raise AssertionError(f"dedup_pooled_lookup {dtype}: kernel != "
-                                 f"plain (max abs err {err})")
-        # the wrapper, prep and launch, must not synchronise with the host
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            tbe.dedup_pooled_lookup(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        # one call allocates its output and, at most, what the sized prep
-        # alone allocates: no copy of the distinct rows
-        prep_peak, _ = memory_of(lambda: tbe.dedup_prepare_sized(ids, segs,
-                                                                 w, S))
-        peak, out_bytes = memory_of(lambda: tbe.dedup_pooled_lookup(*args))
-        if peak > out_bytes + prep_peak:
-            raise AssertionError(f"dedup_pooled_lookup {dtype}: peak {peak} "
-                                 f"bytes > output {out_bytes} + prep "
-                                 f"{prep_peak}")
-        prep = tbe.dedup_prepare_sized(ids, segs, w, S)
-        sids, sw, offs = tbe.sort_by_segment(ids, segs, w, S, R)
-        n = int(offs[-1])
-        lib_ids, lib_offs = sids[:n].to(torch.int64), offs.to(torch.int64)
-        lib_w = sw[:n].to(dtype)
-
-        def library():
-            return F.embedding_bag(
-                lib_ids, stack, lib_offs, mode="sum",
-                per_sample_weights=lib_w, include_last_offset=True)
-
-        def kernel():
-            return tbe.launch_dedup_pooled(stack, *prep)
-
-        U, nbytes, flops = _b1_bound(R, D, stack.element_size(), ids, segs,
-                                     w, S)
-        bound_ms, bound_by = _bound(nbytes, flops)
-        rec = {
-            "phase": "dedup_kernel", "kernel": "dedup_pooled_lookup",
-            "dtype": dname, **common, "distinct": U, "peak_bytes": peak,
-            "out_bytes": out_bytes, "prep_peak_bytes": prep_peak,
-            "wrapper_syncs": False, "equal": True, "max_abs_err": err,
-            "ms": cuda_ms(lambda: tbe.dedup_pooled_lookup(*args), flush),
-            "kernel_ms": cuda_ms(kernel, flush),
-            "kernel_device_ms": cuda_ms(kernel, flush, device_only=True),
-            "plain_ms": cuda_ms(lambda: tbe.dedup_pooled_lookup_plain(*args),
-                                flush, runs=PLAIN_RUNS, warmup=1),
-            "library_ms": cuda_ms(library, flush),
-            "library_device_ms": cuda_ms(library, flush, device_only=True),
-            "library_max_abs_diff": float(
-                (library().float() - got.float()).abs().max()),
-            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-        }
-        emit(rec)
-        rows.append(rec)
-        del got, ref, prep
+        rows.append(b4_row(flush, "dedup_kernel", stack, ids, segs, w, S,
+                           {"dtype": dname, **common}))
         rows.append(b1_row(flush, "dedup_kernel", stack, ids, segs, w, S,
                            {"dtype": dname, "ids": "bucketed", **common}))
         del stack
@@ -1436,7 +1774,7 @@ def train_dedup_phase(dev, flush):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: MLPerf DLRM-v2 (DLRM_DCN) training on the per-id kernels
+# phase 6: MLPerf DLRM-v2 (DLRM_DCN) training on the per-id kernels
 # ---------------------------------------------------------------------------
 
 
@@ -1484,8 +1822,8 @@ def build_dcn_trainer(dev, keys, rows, caps, optim, table_dtype):
                            name=f"t_{k}", feature_names=[k])
         for k, r in zip(keys, rows))
     torch.manual_seed(0)  # the module's own init; dmp.init draws the state
-    model = DLRM_DCN(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH, DCN_LAYERS,
-                     DCN_RANK, dense_dtype=torch.bfloat16)
+    model = DLRM_DCN(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                     DCN_LAYERS, DCN_RANK, dense_dtype=torch.bfloat16)
     dmp = DistributedModelParallel(
         model, tables, table_wise_plan(tables), DCN_BATCH,
         dict(zip(keys, caps)),
@@ -1664,7 +2002,7 @@ def train_dcn_phase(dev, flush):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: serving at full width
+# phase 7: serving at full width
 # ---------------------------------------------------------------------------
 
 
@@ -2093,7 +2431,8 @@ def serving_phase(dev):
           "bytes": table_bytes, "seconds": time.perf_counter() - t0,
           "memory_allocated": torch.cuda.memory_allocated()})
     torch.manual_seed(0)
-    model = DLRM(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH)
+    model = DLRM(meta_ebc(mlperf_dlrm_v2_tables(DIM)), NUM_DENSE, DENSE_ARCH,
+                 OVER_ARCH)
     fns = {
         kernel: build_serving_fn(
             model, QuantEmbeddingBagCollection(tables, params, kernel),
@@ -2210,7 +2549,7 @@ def serving_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: artifact round trip, card against CPU
+# phase 8: artifact round trip, card against CPU
 # ---------------------------------------------------------------------------
 
 
@@ -2234,7 +2573,7 @@ def roundtrip_phase(dev):
     weights = {c.name: (rng.randn(ROUNDTRIP_ROWS, DIM) * 0.05)
                .astype(np.float32) for c in tables}
     torch.manual_seed(1)
-    model = DLRM(tables, NUM_DENSE, DENSE_ARCH, OVER_ARCH)
+    model = DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH)
     features = list(DEFAULT_CAT_NAMES)
     caps = list(MLPERF_DLRM_V2_MULTI_HOT)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2319,6 +2658,7 @@ def main() -> None:
     emit(registers_record())
     kernel_rows = kernel_phase(dev, flush)
     train_launches, train_rows, checks = train_phase(dev, flush)
+    ebc_launches, ebc_rows, _ = ebc_phase(dev, flush)
     dedup_launches, dedup_rows, dedup_check = train_dedup_phase(dev, flush)
     dcn_launches, dcn_rows, dcn_check = train_dcn_phase(dev, flush)
     del flush
@@ -2326,13 +2666,14 @@ def main() -> None:
     roundtrip_phase(dev)
 
     # each kernel's launches on its own main paths: B1/B2 the training
-    # step (21 + 3 steps) and the DCN step (21), B4/B6 the bucketed
-    # pipeline's 21 steps, B3/B5 serving
-    launches = {k: train_launches[k] + dedup_launches[k] + dcn_launches[k]
-                + serve_launches[k] for k in tbe.LAUNCHES}
+    # step (21 + 3 steps) and the DCN step (21), B1 also the EBC's 21
+    # steps (26 a step), B4/B6 the bucketed pipeline's 21 steps, B4 also
+    # the dedup EBC's forward (26), B3/B5 serving
+    launches = {k: train_launches[k] + ebc_launches[k] + dedup_launches[k]
+                + dcn_launches[k] + serve_launches[k] for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
-            for r in kernel_rows + train_rows + dedup_rows + dcn_rows
-            + path_rows]
+            for r in kernel_rows + train_rows + ebc_rows + dedup_rows
+            + dcn_rows + path_rows]
     errs += [(k, c[f"{b}_max_abs_err"]) for c in checks + [dcn_check]
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"))]
@@ -2358,7 +2699,8 @@ def main() -> None:
             raise AssertionError(f"{name} never launched on its path")
         summary.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "paths": KERNEL_PATHS[name],
+            "launches": launches[name],
             "max_abs_err": max(e for k, e in errs if k == name),
             "ms": rep["ms"], "kernel_ms": rep["kernel_ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],

@@ -55,6 +55,9 @@ from torchrec_tpu_torch.convert import train_state_from_jax, train_state_to_jax
 from torchrec_tpu_torch.datasets.random import RandomRecDataset
 from torchrec_tpu_torch.models.dlrm import DLRM
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+from torchrec_tpu_torch.modules.embedding_modules import (
+    EmbeddingBagCollection as TEBC,
+)
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType, FusedOptimConfig
 from torchrec_tpu_torch.optim import adagrad
 from torchrec_tpu_torch.parallel.model_parallel import (
@@ -164,7 +167,8 @@ def _tables(cls, **kw):
 def _port_dmp(optim, caps, kernel="dedup"):
     tables = _tables(EmbeddingBagConfig)
     return DistributedModelParallel(
-        DLRM(tables, DENSE_IN, DENSE_ARCH, OVER_ARCH), tables,
+        DLRM(TEBC(tables, device="meta"), DENSE_IN, DENSE_ARCH, OVER_ARCH),
+        tables,
         table_wise_plan(tables), B, caps,
         fused_config=FusedOptimConfig(optim=optim, learning_rate=LR),
         dense_optimizer=adagrad(LR), device="cpu", lookup_kernel=kernel,

@@ -707,3 +707,81 @@ def test_collection_forward_makes_no_host_sync(dev, kernel, bits):
     assert {k: after[k] - before[k] for k in after} == {
         k: int(k == name) for k in after}
     assert torch.equal(got.values().cpu(), want.values())
+
+
+# ---------------------------------------------------------------------------
+# the pooled lookup with a gradient (ops/embedding_ops.py::
+# pooled_embedding_lookup, the autograd Function over B1 and B4)
+# ---------------------------------------------------------------------------
+
+GRAD_CONFIGS = [(torch.float32, 16), (torch.float32, 130),
+                (torch.bfloat16, 128)]
+
+
+def _grad_inputs(dev, dtype, D, case, seed):
+    """A table, slots with clipped ids and dropped segments (Zipf: most
+    slots on a few rows, so the scatter-add has long runs), weights and an
+    upstream gradient, on ``dev``."""
+    rng = np.random.RandomState(seed)
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    if case == "zipf":
+        ids = np.minimum(rng.zipf(1.2, size=V) - 1, R + 2)
+    else:
+        ids = rng.randint(-3, R + 3, size=(V,))
+    segs = rng.randint(0, S + 4, size=(V,))
+    segs[: V // 10] = -1
+    w = rng.rand(V).astype(np.float32)
+    g = rng.randn(S, D).astype(np.float32)
+    return (table, torch.from_numpy(ids).to(dev),
+            torch.from_numpy(segs).to(dev), torch.from_numpy(w).to(dev),
+            torch.from_numpy(g).to(dev))
+
+
+def _lookup_grads(kernel, table, ids, segs, w, g):
+    from torchrec_tpu_torch.ops.embedding_ops import pooled_embedding_lookup
+
+    t = table.detach().requires_grad_()
+    wt = w.detach().requires_grad_()
+    out = pooled_embedding_lookup(t, ids, segs, S, wt, kernel=kernel)
+    return out, torch.autograd.grad((out.float() * g).sum(), [t, wt])
+
+
+@pytest.mark.parametrize("dtype,D", GRAD_CONFIGS)
+@pytest.mark.parametrize("kernel", ("tbe", "dedup"))
+def test_pooled_lookup_grad_forward_is_the_kernel_on_card(dev, kernel, dtype,
+                                                          D):
+    """The Function's forward launches the kernel once and returns what a
+    direct call of its wrapper returns."""
+    table, ids, segs, w, g = _grad_inputs(dev, dtype, D, "mixed", seed=D)
+    name = "pooled_lookup" if kernel == "tbe" else "dedup_pooled_lookup"
+    wrapper = getattr(tbe, name)
+    want = wrapper(table, ids, segs, S, w)
+    before = tbe.launch_counts()
+    got, _ = _lookup_grads(kernel, table, ids, segs, w, g)
+    torch.cuda.synchronize()
+    after = tbe.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == name) for k in after}
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ("mixed", "zipf"))
+@pytest.mark.parametrize("dtype,D", GRAD_CONFIGS)
+@pytest.mark.parametrize("kernel", ("tbe", "dedup"))
+def test_pooled_lookup_backward_deterministic_on_card(dev, kernel, dtype, D,
+                                                      case):
+    """Two backward calls give the same table and weight gradients, bit
+    for bit (the scatter-add sorts by row: no float atomics), and they
+    agree with the CPU's within ``rtol = atol = 1e-5`` (the weights'
+    column sum may reduce in another order)."""
+    args = _grad_inputs(dev, dtype, D, case, seed=7 + D)
+    _, first = _lookup_grads(kernel, *args)
+    _, second = _lookup_grads(kernel, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert first[0].dtype == dtype and first[0].shape == args[0].shape
+    _, cpu = _lookup_grads(kernel, *(a.cpu() for a in args))
+    for a, b in zip(first, cpu):
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=1e-5,
+                                   atol=1e-5)

@@ -67,9 +67,16 @@ from torchrec_tpu_torch.convert import (
     train_state_to_jax,
 )
 from torchrec_tpu_torch.datasets.random import RandomRecDataset
-from torchrec_tpu_torch.models.dlrm import DLRM_DCN
+from torchrec_tpu_torch.models.dlrm import (
+    DLRM_DCN,
+    dense_state_dict,
+    load_dense_state_dict,
+)
 from torchrec_tpu_torch.modules.crossnet import LowRankCrossNet
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+from torchrec_tpu_torch.modules.embedding_modules import (
+    EmbeddingBagCollection as TEBC,
+)
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType, FusedOptimConfig
 from torchrec_tpu_torch.optim import adagrad
 from torchrec_tpu_torch.parallel.model_parallel import DistributedModelParallel
@@ -101,8 +108,9 @@ def _jax_model(dense_dtype=None):
 
 
 def _port_model(dense_dtype=None):
-    return DLRM_DCN(_tables(EmbeddingBagConfig), DENSE_IN, DENSE_ARCH,
-                    OVER_ARCH, LAYERS, RANK, dense_dtype=dense_dtype)
+    return DLRM_DCN(TEBC(_tables(EmbeddingBagConfig), device="meta"),
+                    DENSE_IN, DENSE_ARCH, OVER_ARCH, LAYERS, RANK,
+                    dense_dtype=dense_dtype)
 
 
 def _inputs(seed):
@@ -153,7 +161,7 @@ def test_dlrm_dcn_forward_from_embeddings_matches_flax(dtype):
     want = model.apply(params, jnp.asarray(dense), kt,
                        method=JDCN.forward_from_embeddings)
     tmodel = _port_model(tdt)
-    tmodel.load_state_dict(dlrm_state_dict_from_flax(
+    load_dense_state_dict(tmodel, dlrm_state_dict_from_flax(
         jax.tree.map(np.asarray, params)))
     tkt = KeyedTensor(KEYS, [D] * len(KEYS), torch.from_numpy(emb))
     got = tmodel.forward_from_embeddings(torch.from_numpy(dense), tkt)
@@ -177,11 +185,11 @@ def test_dlrm_dcn_params_round_trip_bitwise():
     np_params = jax.tree.map(np.asarray, params)
     sd = dlrm_state_dict_from_flax(np_params)
     tmodel = _port_model()
-    assert sorted(sd) == sorted(tmodel.state_dict())
+    assert sorted(sd) == sorted(dense_state_dict(tmodel))
     assert "inter_arch.crossnet.v_1" in sd
     assert "over_arch.mlp.layers.1.linear.weight" in sd
-    tmodel.load_state_dict(sd)
-    back = flax_params_from_dlrm_state_dict(tmodel.state_dict())
+    load_dense_state_dict(tmodel, sd)
+    back = flax_params_from_dlrm_state_dict(dense_state_dict(tmodel))
     assert jax.tree.structure(back) == jax.tree.structure(np_params)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(np_params)):
         assert a.dtype == b.dtype
@@ -191,7 +199,7 @@ def test_dlrm_dcn_params_round_trip_bitwise():
     assert len(got) == len(leaves)
     for a, b in zip(got, leaves):
         np.testing.assert_array_equal(a, b)
-    sd2 = dense_leaves_from_flax_order(leaves, tmodel.state_dict())
+    sd2 = dense_leaves_from_flax_order(leaves, dense_state_dict(tmodel))
     assert all(torch.equal(sd[k], sd2[k]) for k in sd)
 
 
@@ -277,7 +285,7 @@ def test_dcn_train_state_round_trip_bitwise():
     start["fused"]["tw_d16"]["momentum"] = rng.rand(
         *start["fused"]["tw_d16"]["momentum"].shape).astype(np.float32)
     state = train_state_from_jax(start, device="cpu")
-    _port_model().load_state_dict(state["dense"])
+    load_dense_state_dict(_port_model(), state["dense"])
     assert state["dense_opt"].keys() == state["dense"].keys()
     back = train_state_to_jax(state)
     want_opt = start["dense_opt"][0].sum_of_squares

@@ -35,10 +35,14 @@ from torchrec_tpu_torch.inference import (
     package_model,
 )
 from torchrec_tpu_torch.models.dlrm import DLRM as TDLRM
+from torchrec_tpu_torch.models.dlrm import load_dense_state_dict
 from torchrec_tpu_torch.modules.embedding_configs import (
     DataType,
     EmbeddingBagConfig,
     PoolingType,
+)
+from torchrec_tpu_torch.modules.embedding_modules import (
+    EmbeddingBagCollection as TEBC,
 )
 from torchrec_tpu_torch.quant import QuantEmbeddingBagCollection
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor as TKJT
@@ -60,6 +64,13 @@ def _tables(cls=EmbeddingBagConfig, pooling=PoolingType):
             pooling=pooling.MEAN if i == 1 else pooling.SUM)
         for i, (r, f) in enumerate(zip(ROWS, FEATURES))
     )
+
+
+def _port_dlrm():
+    """The port's DLRM over a collection on meta (serving's lookup is the
+    quantized collection's)."""
+    return TDLRM(TEBC(_tables(), device="meta"), NUM_DENSE, DENSE_ARCH,
+                 OVER_ARCH)
 
 
 def _jax_dlrm(dense_arch=DENSE_ARCH, over_arch=OVER_ARCH, seed=1):
@@ -115,8 +126,8 @@ def test_tril_indices_pair_order():
 def test_forward_from_embeddings_matches_flax():
     model, _, params = _jax_dlrm()
     np_params = jax.tree.map(np.asarray, params)
-    port = TDLRM(_tables(), NUM_DENSE, DENSE_ARCH, OVER_ARCH)
-    port.load_state_dict(dlrm_state_dict_from_flax(np_params))
+    port = _port_dlrm()
+    load_dense_state_dict(port, dlrm_state_dict_from_flax(np_params))
     rng = np.random.RandomState(4)
     B = 7
     dense = rng.randn(B, NUM_DENSE).astype(np.float32)
@@ -177,9 +188,9 @@ def test_jax_artifact_served_by_port(tmp_path, quant_dtype):
 @pytest.mark.parametrize("quant_dtype", ["int8", "int2"])
 def test_port_artifact_served_by_jax(tmp_path, quant_dtype):
     _, _, params = _jax_dlrm(seed=3)
-    port = TDLRM(_tables(), NUM_DENSE, DENSE_ARCH, OVER_ARCH)
-    port.load_state_dict(
-        dlrm_state_dict_from_flax(jax.tree.map(np.asarray, params))
+    port = _port_dlrm()
+    load_dense_state_dict(
+        port, dlrm_state_dict_from_flax(jax.tree.map(np.asarray, params))
     )
     path = str(tmp_path / "port_artifact")
     package_model(
@@ -194,6 +205,21 @@ def test_port_artifact_served_by_jax(tmp_path, quant_dtype):
     ref = np.asarray(jfn(jnp.asarray(dense), jkjt))
     got = tfn(torch.from_numpy(dense), tkjt).numpy()
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_artifact_dense_weights_hold_no_table(tmp_path):
+    """``package_model`` given a whole model's state dict writes its dense
+    leaves only, and the loaded DLRM's collection stays on meta."""
+    port = _port_dlrm()
+    path = str(tmp_path / "artifact")
+    package_model(path, _tables(), _weights(), dict(zip(FEATURES, CAPS)),
+                  NUM_DENSE, dense_state_dict=port.state_dict(),
+                  model_config=_model_config())
+    with np.load(f"{path}/dense.npz") as blob:
+        assert len(blob.files) == sum(
+            not k.startswith("sparse_arch.") for k in port.state_dict())
+    tfn, _ = load_packaged_model(path, device="cpu")
+    assert tfn.model.embedding_bag_collection.is_meta
 
 
 def test_embedding_only_artifact(tmp_path):
@@ -213,7 +239,7 @@ def test_inference_server_matches_direct_calls():
     """Four client threads through the python batching queue; every
     score equals the serving module's own on the same request."""
     qebc = QuantEmbeddingBagCollection.from_float(_tables(), _weights())
-    model = TDLRM(_tables(), NUM_DENSE, DENSE_ARCH, OVER_ARCH)
+    model = _port_dlrm()
     fn = build_serving_fn(model, qebc, device="cpu")
     srv = InferenceServer(fn, FEATURES, CAPS, NUM_DENSE, max_batch_size=4,
                           max_latency_us=500, queue="python")

@@ -48,8 +48,16 @@ from torchrec_tpu_torch.convert import (
     train_state_to_jax,
 )
 from torchrec_tpu_torch.datasets.random import RandomRecDataset
-from torchrec_tpu_torch.models.dlrm import DLRM, bce_with_logits_loss
+from torchrec_tpu_torch.models.dlrm import (
+    DLRM,
+    bce_with_logits_loss,
+    dense_state_dict,
+    load_dense_state_dict,
+)
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+from torchrec_tpu_torch.modules.embedding_modules import (
+    EmbeddingBagCollection as TEBC,
+)
 from torchrec_tpu_torch.ops.fused_update import (
     EmbOptimType,
     FusedOptimConfig,
@@ -148,12 +156,13 @@ def test_dlrm_dense_side_and_loss_match_flax(dtype):
                         method=JDLRM.forward_from_embeddings)
     jlogits = model.apply(params, jnp.asarray(dense), kt,
                           method=JDLRM.forward_from_embeddings)
-    tmodel = DLRM(_tables(EmbeddingBagConfig), DENSE_IN, DENSE_ARCH,
-                  OVER_ARCH, dense_dtype=tdt)
-    tmodel.load_state_dict(dlrm_state_dict_from_flax(
+    tmodel = DLRM(TEBC(_tables(EmbeddingBagConfig), device="meta"),
+                  DENSE_IN, DENSE_ARCH, OVER_ARCH, dense_dtype=tdt)
+    load_dense_state_dict(tmodel, dlrm_state_dict_from_flax(
         jax.tree.map(np.asarray, params)))
-    tlogits = tmodel(torch.from_numpy(dense),
-                     KeyedTensor(KEYS, [D] * len(KEYS), torch.from_numpy(emb)))
+    tlogits = tmodel.forward_from_embeddings(
+        torch.from_numpy(dense),
+        KeyedTensor(KEYS, [D] * len(KEYS), torch.from_numpy(emb)))
     # the logit layer runs in float32 either way
     assert tlogits.dtype == torch.float32 and jlogits.dtype == jnp.float32
     tol = dict(rtol=1e-5, atol=1e-6) if dtype == "f32" else dict(
@@ -186,7 +195,8 @@ def _jax_dmp(ds):
 def _port_dmp(caps, fused_config=None, **kw):
     tables = _tables(EmbeddingBagConfig)
     return DistributedModelParallel(
-        DLRM(tables, DENSE_IN, DENSE_ARCH, OVER_ARCH), tables,
+        DLRM(TEBC(tables, device="meta"), DENSE_IN, DENSE_ARCH, OVER_ARCH),
+        tables,
         table_wise_plan(tables), B, caps,
         fused_config=fused_config or FusedOptimConfig(learning_rate=LR),
         dense_optimizer=adagrad(LR), **kw,
@@ -328,6 +338,19 @@ def test_bf16_tables_train_with_stochastic_rounding():
     assert not torch.equal(state["tables"]["tw_d16"], t0)
     f32 = _port_dmp(dict(zip(KEYS, ds.caps)), device="cpu")
     assert f32.sr_seeds(0) is None
+
+
+def test_dmp_dense_state_holds_no_table():
+    """The DMP's model keeps its collection on meta (moved to the step's
+    device, it stays there), and the train state's dense parameters and
+    their Adagrad state are the model's without its tables."""
+    caps = {k: B * n for k, n in zip(KEYS, IDS)}
+    dmp = _port_dmp(caps, device="cpu")
+    assert dmp.model.embedding_bag_collection.is_meta
+    state = dmp.init(torch.Generator().manual_seed(0))
+    want = sorted(dense_state_dict(dmp.model))
+    assert sorted(state["dense"]) == sorted(state["dense_opt"]) == want
+    assert not any(k.startswith("sparse_arch.") for k in want)
 
 
 def test_unported_paths_raise():

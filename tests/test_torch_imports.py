@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax():
     for m in ("ops.tbe", "ops.tbe_backward", "ops.fused_update",
               "inference.serving", "optim.adagrad", "parallel.types",
               "parallel.grouped", "parallel.embeddingbag",
-              "parallel.model_parallel", "parallel.sharding.tw"):
+              "parallel.model_parallel", "parallel.sharding.tw",
+              "modules.embedding_modules", "sparse.validator",
+              "sparse.tensor_dict"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

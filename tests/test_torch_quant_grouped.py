@@ -100,7 +100,10 @@ def _batch(case, seed=0):
     """(values, lengths [K * B] int32, caps) for the keys KJT_KEYS: empty
     examples (example 3 of every key, example 0 of f0), ids partly outside
     [0, R) (clipped), junk ids in every padding slot (never read), and
-    FULL_CAP with no padding; "no_valid_ids": every length 0."""
+    FULL_CAP with no padding; "no_valid_ids": every length 0;
+    "over_cap": keys f0 and f2 with caps 2 under their lengths' sum (the
+    saturation a device-side relayout leaves: a key's first ``cap`` ids
+    are pooled, the rest dropped)."""
     rng = np.random.RandomState(seed)
     lengths = np.zeros((len(KJT_KEYS), B), np.int32)
     if case != "no_valid_ids":
@@ -110,12 +113,16 @@ def _batch(case, seed=0):
         lengths[KJT_KEYS.index("f0"), 0] = 0
     caps = [int(n) + (0 if KJT_KEYS[k] == FULL_CAP else 5)
             for k, n in enumerate(lengths.sum(axis=1))]
+    if case == "over_cap":
+        for name in ("f0", "f2"):
+            k = KJT_KEYS.index(name)
+            caps[k] = int(lengths[k].sum()) - 2
     regions = []
     for k, cap in enumerate(caps):
         n = int(lengths[k].sum())
         ids = rng.randint(-3, max(ROWS) + 4, size=n)
-        junk = rng.randint(-10**6, 10**6, size=cap - n)
-        regions.append(np.concatenate([ids, junk]))
+        junk = rng.randint(-10**6, 10**6, size=max(cap - n, 0))
+        regions.append(np.concatenate([ids, junk])[:cap])
     values = np.concatenate(regions).astype(np.int64)
     return values, lengths.reshape(-1), caps
 
@@ -162,7 +169,7 @@ def _per_feature_plain(kernel, bits, values, lengths, caps, f):
                                                B, w, bits)
 
 
-@pytest.mark.parametrize("case", ["mixed", "no_valid_ids"])
+@pytest.mark.parametrize("case", ["mixed", "no_valid_ids", "over_cap"])
 @pytest.mark.parametrize("pooling", ["sum", "mean"])
 @pytest.mark.parametrize("kernel,bits", KERNELS)
 def test_grouped_plain_equals_per_feature_plain(kernel, bits, pooling, case):
@@ -176,6 +183,16 @@ def test_grouped_plain_equals_per_feature_plain(kernel, bits, pooling, case):
         assert not out.any()
     else:
         assert not out[3].any() and out.abs().sum() > 0
+    # the overflow the batch carries, as both packages count it
+    t_over = KeyedJaggedTensor(KJT_KEYS, torch.from_numpy(values),
+                               torch.from_numpy(lengths), stride=B,
+                               caps=caps).overflow_counts()
+    j_over = JKJT(KJT_KEYS, jnp.asarray(values), jnp.asarray(lengths),
+                  stride=B, caps=caps).overflow_counts()
+    np.testing.assert_array_equal(t_over.numpy(), np.asarray(j_over))
+    want = [2 if case == "over_cap" and k in ("f0", "f2") else 0
+            for k in KJT_KEYS]
+    assert t_over.tolist() == want
 
 
 @pytest.mark.parametrize("pooling", ["sum", "mixed"])

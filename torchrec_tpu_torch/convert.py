@@ -7,8 +7,15 @@ The JAX package's dense params are a flax tree, for ``DLRM``::
      "over_arch": {"MLP_0": {...hidden layers...},
                    "Dense_0": {...the final logit layer...}}}}
 
-and for ``DLRM_DCN`` the same plus the cross net's
-``inter_arch/crossnet/{w_l [d, r], v_l [r, d], b_l [d]}``.  The bridge is
+for ``DLRM_DCN`` the same plus the cross net's
+``inter_arch/crossnet/{w_l [d, r], v_l [r, d], b_l [d]}``, and for
+``DLRM_Projection`` the two interaction MLPs
+``inter_arch/interaction_branch{1,2}/Perceptron_i/Dense_0`` (the port's
+``inter_arch.interaction_branch{1,2}.layers.i.linear``).  A whole model's
+tree (``model.init(key, dense, kjt)``) also holds its collection's tables
+as ``embedding_bag_collection/<table>`` ``[R, D]``, the port's
+``sparse_arch.embedding_bag_collection.<table>``, carried as they are (no
+transpose).  The bridge is
 driven by the tree's own paths, one name at a time (:func:`port_key`,
 :func:`flax_path`): ``MLP_0`` is the port's ``mlp``, ``Perceptron_i``
 ``layers.i``, a ``Dense_0`` inside a perceptron ``linear`` and any other
@@ -42,10 +49,15 @@ _PERCEPTRON = re.compile(r"Perceptron_(\d+)$")
 # the port's module and parameter names with another flax name
 _FLAX_NAMES = {"mlp": "MLP_0", "linear": "Dense_0", "final": "Dense_0",
                "weight": "kernel"}
+# a whole model's tables: the flax scope and the port's key prefix
+_TABLES = "embedding_bag_collection"
+_PORT_TABLES = "sparse_arch.embedding_bag_collection."
 
 
 def port_key(path: Path) -> str:
     """flax leaf path (under ``params``) -> the port's state-dict key."""
+    if path[0] == _TABLES:
+        return _PORT_TABLES + ".".join(path[1:])
     out: List[str] = []
     for i, name in enumerate(path):
         m = _PERCEPTRON.match(name)
@@ -66,6 +78,8 @@ def port_key(path: Path) -> str:
 def flax_path(key: str) -> Path:
     """The port's state-dict key -> flax leaf path (inverse of
     :func:`port_key`)."""
+    if _is_table_key(key):
+        return (_TABLES, key[len(_PORT_TABLES):])
     names = key.split(".")
     out: List[str] = []
     i = 0
@@ -90,24 +104,34 @@ def _leaves(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
     return out
 
 
+def _is_table_key(key: str) -> bool:
+    """Whether a port state-dict key names a collection's table."""
+    return key.startswith(_PORT_TABLES)
+
+
+def _transposed(key: str) -> bool:
+    return key.endswith(".weight") and not _is_table_key(key)
+
+
 def _to_port(key: str, leaf: np.ndarray) -> torch.Tensor:
     arr = np.asarray(leaf, np.float32)
-    if key.endswith(".weight"):
+    if _transposed(key):
         arr = arr.T  # flax kernel [in, out] -> nn.Linear.weight [out, in]
     return torch.from_numpy(np.array(arr, order="C"))  # a contiguous copy
 
 
 def _to_flax(key: str, t: torch.Tensor) -> np.ndarray:
     arr = t.detach().to(torch.float32).cpu().numpy()
-    return np.ascontiguousarray(arr.T if key.endswith(".weight") else arr)
+    return np.ascontiguousarray(arr.T if _transposed(key) else arr)
 
 
 def dlrm_state_dict_from_flax(
     params: Mapping[str, Any],
 ) -> Dict[str, torch.Tensor]:
-    """JAX dense params of a DLRM or DLRM_DCN (a nested dict of numpy
-    arrays, with or without the top ``"params"`` level) -> the port
-    model's ``state_dict``."""
+    """JAX params of a DLRM, DLRM_DCN or DLRM_Projection (a nested dict of
+    numpy arrays, with or without the top ``"params"`` level; the dense
+    side alone or the whole model with its tables) -> the port model's
+    ``state_dict`` (float32)."""
     inner = params["params"] if "params" in params else params
     return {port_key(p): _to_port(port_key(p), leaf)
             for p, leaf in _leaves(inner).items()}

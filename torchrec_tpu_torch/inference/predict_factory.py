@@ -10,11 +10,18 @@ the JAX package's v2, in both directions:
 * ``tables.npz`` — per table ``<name>__q`` / ``__scale`` / ``__bias``,
   quantized at package time;
 * ``dense.npz`` + ``dense_treedef.json`` — the DLRM dense weights as
-  ``leaf_<i>`` in the flax ``jax.tree.flatten`` order (``convert.py``).
+  ``leaf_<i>`` in the flax ``jax.tree.flatten`` order (``convert.py``),
+  no table among them.
+
+The loaded DLRM's ``EmbeddingBagCollection`` is built on
+``torch.device("meta")``: the quantized collection does the lookup and
+the model runs ``forward_from_embeddings``, so its float tables are
+never allocated.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
@@ -28,12 +35,20 @@ from torchrec_tpu_torch.convert import (
     quant_params_from_numpy,
 )
 from torchrec_tpu_torch.inference.modules import ServingModule, build_serving_fn
-from torchrec_tpu_torch.models.dlrm import DLRM
+from torchrec_tpu_torch.models.dlrm import (
+    DLRM,
+    SPARSE_PREFIX,
+    load_dense_state_dict,
+)
+from torchrec_tpu_torch.models.dlrm import dense_state_dict as dense_params
 from torchrec_tpu_torch.modules.embedding_configs import (
     DataType,
     EmbeddingBagConfig,
     PoolingType,
     pooling_type_to_str,
+)
+from torchrec_tpu_torch.modules.embedding_modules import (
+    EmbeddingBagCollection,
 )
 from torchrec_tpu_torch.quant.embedding_modules import (
     QuantEmbeddingBagCollection,
@@ -63,7 +78,8 @@ def package_model(
     model_config: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Write the serving artifact: metadata + quantized tables (+ the
-    DLRM dense weights from the port's ``DLRM.state_dict()``)."""
+    DLRM dense weights from the port's ``DLRM.state_dict()``; its tables,
+    the keys under ``sparse_arch.``, are left out)."""
     if quant_dtype not in _QUANT_DTYPES:
         raise ValueError(
             f"quant_dtype {quant_dtype!r} not loadable (have "
@@ -110,7 +126,9 @@ def package_model(
         arrays[f"{name}__bias"] = p.bias.cpu().numpy()
     np.savez_compressed(os.path.join(path, "tables.npz"), **arrays)
     if dense_state_dict is not None:
-        leaves = dense_leaves_to_flax_order(dense_state_dict)
+        leaves = dense_leaves_to_flax_order(
+            {k: v for k, v in dense_state_dict.items()
+             if not k.startswith(SPARSE_PREFIX)})
         np.savez_compressed(
             os.path.join(path, "dense.npz"),
             **{f"leaf_{i}": x for i, x in enumerate(leaves)},
@@ -163,8 +181,10 @@ def load_packaged_model(
     dense_path = os.path.join(path, "dense.npz")
     model = None
     if mc and mc.get("arch") == "dlrm" and os.path.exists(dense_path):
+        float_tables = [dataclasses.replace(c, data_type=DataType.FP32)
+                        for c in tables]
         model = DLRM(
-            tables,
+            EmbeddingBagCollection(float_tables, device="meta"),
             dense_in_features=meta["num_dense"],
             dense_arch_layer_sizes=tuple(mc["dense_arch_layer_sizes"]),
             over_arch_layer_sizes=tuple(mc["over_arch_layer_sizes"]),
@@ -173,6 +193,6 @@ def load_packaged_model(
             n_leaves = json.load(f)["n_leaves"]
         with np.load(dense_path) as blob:
             leaves = [blob[f"leaf_{i}"] for i in range(n_leaves)]
-        model.load_state_dict(dense_leaves_from_flax_order(
-            leaves, model.state_dict()))
+        load_dense_state_dict(model, dense_leaves_from_flax_order(
+            leaves, dense_params(model)))
     return build_serving_fn(model, qebc, apply_sigmoid=False, device=dev), meta

@@ -1,16 +1,19 @@
 """Embedding ops (a subset of ``torchrec_tpu/ops/embedding_ops.py``): the
-pooled lookup behind the kernels of ``ops/tbe.py``, pooling weights, the
-sort-based dedup scaffold, and the row gradients and duplicate
-aggregation that the dedup fused update's plain version is built from.
+pooled lookup behind the kernels of ``ops/tbe.py`` with its gradient,
+the sequence lookup, pooling weights, the sort-based dedup scaffold, and
+the row gradients and duplicate aggregation that the dedup fused update's
+plain version is built from.
 
 The lookup's kernel is an argument, ``"tbe"`` (the per-id lookup) or
 ``"dedup"`` (the ragged dedup lookup), where the JAX package reads a
 process-wide switch at trace time (``set_pooled_lookup_kernel``,
 ``trace_kernels``): the port runs eagerly and takes its kernel per call.
-Left out: the ``xla``/``xla_dedup`` lookups and the custom VJPs (the train
-step hands the segment gradient to the fused update instead),
-``sanitize_ids`` (the traced sanitizer is not ported) and
-``sequence_embedding_lookup``.
+The gradient is a ``torch.autograd.Function`` whose backward is the JAX
+package's own for its Pallas forwards (``_pallas_pooled_bwd``,
+``_pallas_dedup_pooled_bwd``): a scatter-add of the row gradients into
+a dense table gradient, and the weights' gradient only when they need
+one.  Left out: the ``xla``/``xla_dedup`` lookups and their custom VJPs,
+and ``sanitize_ids`` (the traced sanitizer is not ported).
 """
 
 from __future__ import annotations
@@ -145,6 +148,8 @@ def aggregate_duplicate_rows(
 
 
 POOLED_KERNELS = ("tbe", "dedup")
+# the most spare rows the lookup's backward scatters invalid slots to
+_SPARE_ROWS = 1024
 
 
 def pooled_embedding_lookup(
@@ -163,12 +168,87 @@ def pooled_embedding_lookup(
     TBE forward), ``"dedup"`` runs ``ops/tbe.py::dedup_pooled_lookup``
     (the port of its ragged dedup lookup, ``"pallas_dedup"``); both give
     the same float32 result.  CUDA tensors launch the kernel, CPU tensors
-    take its plain version."""
-    from torchrec_tpu_torch.ops.tbe import dedup_pooled_lookup, pooled_lookup
-
+    take its plain version.  Differentiable in ``table`` and ``weights``
+    (:class:`_PooledLookup`)."""
     if kernel not in POOLED_KERNELS:
         raise ValueError(f"unknown pooled-lookup kernel {kernel!r}")
     if weights is not None:
         weights = weights.to(torch.float32)
-    fn = pooled_lookup if kernel == "tbe" else dedup_pooled_lookup
-    return fn(table, ids, segments, num_segments, weights)
+    return _PooledLookup.apply(table, ids, segments, weights, num_segments,
+                               kernel)
+
+
+class _PooledLookup(torch.autograd.Function):
+    """:func:`pooled_embedding_lookup` with a gradient for the table and
+    the weights.  The forward is the kernel's wrapper.  The backward, for
+    either kernel, is the JAX package's ``_pallas_pooled_bwd``: ``d_table``
+    ``[R, D]`` (the table's dtype) is the scatter-add of the valid slots'
+    row gradients (:func:`embedding_row_grads`) at their clipped ids, and
+    ``d_weights`` the row times its segment's gradient, summed over the
+    columns, computed only when the weights need a gradient.  Its
+    ``_pallas_dedup_pooled_bwd`` first sums each distinct row's slot
+    gradients in the order of a stable sort by id, which is slot order:
+    the same sums, so one backward serves both.  (For an id outside the
+    table that VJP differs: it drops an id at or past the table and wraps
+    a negative one, where both forwards read the clipped row; here the
+    gradient goes to the row the forward read, as ``_pallas_pooled_bwd``
+    sends it.)  The scatter-add is
+    ``index_put_(accumulate=True)``, which sorts by row and adds each
+    row's slots in slot order on the card (no float atomics), so two
+    backward calls give the same bits."""
+
+    @staticmethod
+    def forward(ctx, table, ids, segments, weights, num_segments, kernel):
+        from torchrec_tpu_torch.ops.tbe import (
+            dedup_pooled_lookup,
+            pooled_lookup,
+        )
+
+        fn = pooled_lookup if kernel == "tbe" else dedup_pooled_lookup
+        ctx.num_segments = num_segments
+        ctx.save_for_backward(table, ids, segments, weights)
+        return fn(table, ids, segments, num_segments, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, ids, segments, weights = ctx.saved_tensors
+        S = ctx.num_segments
+        R, D = table.shape
+        valid = (segments >= 0) & (segments < S)
+        ids_c = ids.clamp(0, R - 1).to(torch.int64)
+        d_table = d_w = None
+        if ctx.needs_input_grad[0]:
+            row_g = embedding_row_grads(g.to(torch.float32),
+                                        torch.where(valid, segments, S),
+                                        weights)
+            # invalid slots land on spare rows past the table, spread over
+            # up to _SPARE_ROWS of them: the scatter adds a row's slots
+            # one after another, so one spare row would serialise them all
+            V = ids.shape[0]
+            spare = max(1, min(V, _SPARE_ROWS))
+            pos = torch.arange(V, device=ids.device)
+            acc = torch.zeros((R + spare, D), dtype=torch.float32,
+                              device=table.device)
+            acc.index_put_((torch.where(valid, ids_c, R + pos % spare),),
+                           row_g, accumulate=True)
+            d_table = acc[:R].to(table.dtype)
+        if weights is not None and ctx.needs_input_grad[3]:
+            rows = table[ids_c].to(torch.float32)
+            gs = g[segments.clamp(0, S - 1)].to(torch.float32)
+            d_w = torch.where(valid, (gs * rows).sum(dim=-1), 0.0)
+        return d_table, None, None, d_w, None, None
+
+
+def sequence_embedding_lookup(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-id (unpooled) lookup of ``EmbeddingCollection``: ``[V]`` ->
+    ``[V, D]`` rows at the ids clipped to the table, the rows of invalid
+    slots zero when ``valid`` is given.  A plain gather, outside any
+    kernel in the JAX package too."""
+    rows = table[ids.clamp(0, table.shape[0] - 1)]
+    if valid is not None:
+        rows = torch.where(valid[:, None], rows, rows.new_zeros(()))
+    return rows

@@ -50,7 +50,7 @@ import torch
 from torch import nn
 
 from torchrec_tpu_torch.datasets.utils import Batch
-from torchrec_tpu_torch.models.dlrm import bce_with_logits_loss
+from torchrec_tpu_torch.models.dlrm import SPARSE_PREFIX, bce_with_logits_loss
 from torchrec_tpu_torch.modules.crossnet import lecun_normal_
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
 from torchrec_tpu_torch.ops.embedding_ops import POOLED_KERNELS
@@ -83,13 +83,31 @@ def stack_batches(batches: Sequence[Batch]) -> Batch:
     return batches[0]
 
 
+class _FromEmbeddings(nn.Module):
+    """A model's ``forward_from_embeddings`` as a module's forward, for
+    ``torch.func.functional_call`` (its parameters under ``model.``)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, dense_features: torch.Tensor,
+                kt: KeyedTensor) -> torch.Tensor:
+        return self.model.forward_from_embeddings(dense_features, kt)
+
+
 class DistributedModelParallel:
     """Compile a (model, plan) pair into init and train-step functions on
     one device.
 
-    ``model`` is the port's ``DLRM`` or ``DLRM_DCN`` (anything whose
-    ``forward`` is ``forward_from_embeddings(dense, kt)``, with its
-    parameters in the layout of ``convert.py``); ``plan`` is a one-device
+    ``model`` is the port's ``DLRM``, ``DLRM_DCN`` or ``DLRM_Projection``
+    (anything with ``forward_from_embeddings(dense, kt)``, its parameters
+    in the layout of ``convert.py``), its ``EmbeddingBagCollection`` best
+    built on ``torch.device("meta")``: the step's tables are the group
+    stacks of ``tables``, so the model's own tables are never read, and
+    its dense parameters (the train state's ``"dense"``) leave them out,
+    as the JAX DMP's init through ``forward_from_embeddings`` never
+    creates them; ``plan`` is a one-device
     plan (``types.table_wise_plan``); ``dense_optimizer`` is an
     :class:`~torchrec_tpu_torch.optim.adagrad.Adagrad` (default
     ``adagrad(fused_config.learning_rate)``); ``table_dtype`` is the
@@ -122,7 +140,8 @@ class DistributedModelParallel:
         self.fused_config = fused_config or FusedOptimConfig()
         self._set_kernels(lookup_kernel, update_kernel)
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = model.to(self.device)  # a meta collection stays
+        self._dense_forward = _FromEmbeddings(self.model)
         self.tables = tuple(tables)
         self.plan = plan
         self.batch_size = batch_size_per_device
@@ -177,6 +196,8 @@ class DistributedModelParallel:
         ``shape[0]``."""
         out = {}
         for name, p in self.model.named_parameters():
+            if name.startswith(SPARSE_PREFIX):
+                continue
             t = torch.zeros(p.shape, dtype=torch.float32, device=self.device)
             if p.dim() == 2:
                 fan_in = p.shape[1] if name.endswith("weight") else p.shape[0]
@@ -259,7 +280,9 @@ class DistributedModelParallel:
         with torch.enable_grad():
             kt = KeyedTensor(ebc.feature_order, ebc.feature_dims, kv)
             logits = torch.func.functional_call(
-                self.model, dense, (batch.dense_features, kt))
+                self._dense_forward, {f"model.{k}": v for k, v in
+                                      dense.items()},
+                (batch.dense_features, kt))
             loss = bce_with_logits_loss(logits, batch.labels, batch.weights)
             grads = torch.autograd.grad(loss, [*dense.values(), kv])
         g_dense = dict(zip(dense, grads[:-1]))
