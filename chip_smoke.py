@@ -14,8 +14,8 @@ Phases, one JSON line each on stdout; any failure raises:
 1. device — the card, its power limit, and the nvcc builds of the
    kernels (``torchrec_tpu_torch/csrc/{tbe_float,tbe_backward,tbe_quant,
    tbe_dedup,tbe_dedup_backward}.cu``, one nvcc per source, started
-   together) from source, and the registers of every B2 and B6
-   instantiation (``registers``: at most 128 for D <= 128);
+   together) from source, and the registers of every B1, B2 and B6
+   instantiation (``registers``: at most 128 for D <= 128 for B2/B6);
 2. kernel — each quantized lookup kernel against its plain PyTorch version
    on the card (``torch.equal``) at D=128, S=4096 segments with the MLPerf
    DLRM-v2 multi-hot lengths, a 1M-row table, uniform and Zipf ids; with
@@ -32,6 +32,9 @@ Phases, one JSON line each on stdout; any failure raises:
    rowwise Adagrad lr 0.05 and optax-style dense Adagrad 0.05).  First
    ``train_kernel``: the float pooled lookup (B1) and the fused backward +
    rowwise Adagrad (B2) against their plain versions at the path's shapes
+   (every B1 row through both entries: the slot regions the main paths
+   pass, checked for host syncs and held to its output plus the lengths'
+   running ends in memory, and the sorted stream)
    (the ``[2,600,000, 128]`` stack, V = S = 106,496 slots of a bench
    batch), float32 and bfloat16 stacks, the batch's uniform ids and
    Zipf(1.1) ids, with the same times and bounds as above (B2 in place,
@@ -154,6 +157,7 @@ tables would not fit the run); the dense weights are random from a seed.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -717,10 +721,16 @@ def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
     return rec
 
 
-def b1_row(flush, phase, stack, ids, segs, w, S, common):
-    """B1 against its plain version on the card at these inputs, with
-    times (the kernel and ``F.embedding_bag`` over the sorted valid slots
-    also of the card alone) and the bound.  Returns the emitted record."""
+def b1_row(flush, phase, stack, ids, segs, w, S, common, regions):
+    """B1 on the card at these inputs, through both entries: the region
+    entry (the main paths' call: ``regions``, no sort) and the sorted one
+    (``segs``), each ``torch.equal`` to the plain version; the region
+    entry checked for host syncs (``set_sync_debug_mode("error")``) and
+    its peak memory held to its output plus the lengths' running ends.
+    Times: each entry's wrapper, the kernel on prepared inputs (the region
+    entry's ends, the sorted entry's sort; host time in, and of the card
+    alone), the plain version, ``F.embedding_bag`` over the sorted valid
+    slots; and the bound.  Returns the emitted record."""
     import torch
     import torch.nn.functional as F
 
@@ -728,18 +738,41 @@ def b1_row(flush, phase, stack, ids, segs, w, S, common):
 
     R, D = stack.shape
     args = (stack, ids, segs, S, w)
-    got = tbe.pooled_lookup(*args)
+    rargs = (stack, ids, regions, w)
+    got = tbe.pooled_lookup_regions(*rargs)
+    got_sorted = tbe.pooled_lookup(*args)
     torch.cuda.synchronize()
     ref = tbe.pooled_lookup_plain(*args)
-    err = float((got.float() - ref.float()).abs().max())
-    if not torch.equal(got, ref):
+    err = max(float((g.float() - ref.float()).abs().max())
+              for g in (got, got_sorted))
+    if not (torch.equal(got, ref) and torch.equal(got_sorted, ref)):
         raise AssertionError(f"pooled_lookup {common}: kernel != plain "
                              f"(max abs err {err})")
-    prep = tbe.sort_by_segment(ids, segs, w, S, R)
-    sids, sw, offs = prep
+    # the region entry, cumsum and launch, must not synchronise
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tbe.pooled_lookup_regions(*rargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    lens = regions.lengths
+    ends_bytes = -(-lens.numel() * lens.element_size() // 512) * 512
+    peak, out_bytes = memory_of(lambda: tbe.pooled_lookup_regions(*rargs))
+    if peak > out_bytes + ends_bytes:
+        raise AssertionError(f"pooled_lookup {common}: peak {peak} bytes > "
+                             f"output {out_bytes} + ends {ends_bytes}")
+    ends = tbe.region_ends(lens)
+    sids, sw, offs = tbe.sort_by_segment(ids, segs, w, S, R)
     n = int(offs[-1])
     lib_ids, lib_offs = sids[:n].to(torch.int64), offs.to(torch.int64)
     lib_w = sw[:n].to(stack.dtype)
+
+    def kernel():
+        return tbe.launch_pooled(stack, ids, w, ends, regions.starts,
+                                 regions.caps, regions.counts)
+
+    def sorted_kernel():
+        return tbe.launch_pooled(stack, sids, sw, offs[1:], (0,),
+                                 (ids.numel(),), (S,))
 
     def library():
         return F.embedding_bag(lib_ids, stack, lib_offs, mode="sum",
@@ -750,13 +783,19 @@ def b1_row(flush, phase, stack, ids, segs, w, S, common):
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {
         "phase": phase, "kernel": "pooled_lookup", **common,
-        "valid": n, "distinct": U, "equal": True, "max_abs_err": err,
-        "ms": cuda_ms(lambda: tbe.pooled_lookup(*args), flush),
-        "kernel_ms": cuda_ms(lambda: tbe.launch_pooled(stack, *prep), flush),
-        "kernel_device_ms": cuda_ms(lambda: tbe.launch_pooled(stack, *prep),
-                                    flush, device_only=True),
-        "plain_ms": cuda_ms(lambda: tbe.pooled_lookup_plain(*args), flush,
-                            runs=PLAIN_RUNS, warmup=1),
+        "valid": n, "distinct": U, "regions": len(regions.counts),
+        "equal": True, "max_abs_err": err, "wrapper_syncs": False,
+        "peak_bytes": peak, "out_bytes": out_bytes,
+        "ends_bytes": ends_bytes,
+        "ms": cuda_ms(lambda: tbe.pooled_lookup_regions(*rargs), flush),
+        "kernel_ms": cuda_ms(kernel, flush),
+        "kernel_device_ms": cuda_ms(kernel, flush, device_only=True),
+        "sorted_ms": cuda_ms(lambda: tbe.pooled_lookup(*args), flush),
+        "sorted_kernel_ms": cuda_ms(sorted_kernel, flush),
+        "sorted_kernel_device_ms": cuda_ms(sorted_kernel, flush,
+                                           device_only=True),
+        "plain_ms": cuda_ms(lambda: tbe.pooled_lookup_regions_plain(*rargs),
+                            flush, runs=PLAIN_RUNS, warmup=1),
         "library_ms": cuda_ms(library, flush),
         "library_device_ms": cuda_ms(library, flush, device_only=True),
         "library_max_abs_diff": float(
@@ -842,6 +881,19 @@ def b4_row(flush, phase, stack, ids, segs, w, S, common):
     return rec
 
 
+def tw_b1_inputs(lay, kjt):
+    """A table-wise group's lookup inputs both ways: (ids, weights,
+    segments, the segment count, the slots' regions)."""
+    from torchrec_tpu_torch.parallel.sharding.tw import (
+        tw_regions,
+        tw_segments,
+        tw_slot_stream,
+    )
+
+    ids, w, lengths = tw_slot_stream(lay, kjt)
+    return (ids, w, *tw_segments(lay, lengths), tw_regions(lay, lengths))
+
+
 def _zipf_slots(lay, rows, seed):
     """Zipf(1.1) ids in the layout's ``[F * C]`` slot stream, each slot's
     ids drawn over its own table's rows and offset into the stack."""
@@ -864,12 +916,11 @@ def train_kernel_phase(dev, flush, dmp, state, batch):
     import torch
 
     from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
-    from torchrec_tpu_torch.parallel.sharding.tw import tw_lookup_inputs
 
     (name, lay), = dmp.sharded_ebc.tw_layouts.items()
     stack32 = state["tables"][name]
     mom = state["fused"][name]["momentum"]
-    ids_u, w, segs, S = tw_lookup_inputs(lay, batch.sparse_features)
+    ids_u, w, segs, S, regions = tw_b1_inputs(lay, batch.sparse_features)
     ids_z = _zipf_slots(lay, [TRAIN_ROWS] * TRAIN_FEATURES, seed=5).to(dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     grad = torch.randn((S, DIM), generator=gen, device=dev) * 1e-2
@@ -882,7 +933,7 @@ def train_kernel_phase(dev, flush, dmp, state, batch):
                       "ids": dist, "rows": stack.shape[0], "D": DIM,
                       "S": S, "V": ids.numel()}
             rows.append(b1_row(flush, "train_kernel", stack, ids, segs, w,
-                               S, common))
+                               S, common, regions))
             sg = SparseSegGrad(ids, (segs < S) & (w != 0), segs, w, grad)
             rows.append(b2_row(flush, "train_kernel", stack, [mom],
                                "rowwise_adagrad", sg, TRAIN_LR, seed,
@@ -1162,6 +1213,7 @@ def ebc_phase(dev, flush):
     from torchrec_tpu_torch.modules.embedding_modules import (
         EmbeddingBagCollection,
         EmbeddingCollection,
+        key_regions,
     )
     from torchrec_tpu_torch.ops import tbe
     from torchrec_tpu_torch.optim import adagrad
@@ -1194,16 +1246,16 @@ def ebc_phase(dev, flush):
 
     # the kernels against their plain versions at the path's shapes: the
     # first table's lookup (one feature, V = S = 4096)
-    sub = kjt.permute([0])
-    ids, segs = sub.values(), sub.segment_ids()
+    ids, _, regions, _ = key_regions(kjt, [0])
+    segs = regions.segment_ids(ids.numel())
     w = torch.ones(ids.shape, dtype=torch.float32, device=dev)
     table0 = getattr(ebc, tables[0].name).detach()
+    S = regions.num_segments
     common = {"dtype": "float32", "ids": "ebc", "rows": TRAIN_ROWS, "D": DIM,
-              "S": sub.total_stride, "V": ids.numel()}
-    rows = [b1_row(flush, "ebc_kernel", table0, ids, segs, w,
-                   sub.total_stride, common),
-            b4_row(flush, "ebc_kernel", table0, ids, segs, w,
-                   sub.total_stride, common)]
+              "S": S, "V": ids.numel()}
+    rows = [b1_row(flush, "ebc_kernel", table0, ids, segs, w, S, common,
+                   regions),
+            b4_row(flush, "ebc_kernel", table0, ids, segs, w, S, common)]
 
     # each forward: 26 launches of its kernel, none of another
     kt, tbe_counts = ebc_forward_check(ebc, kjt, "pooled_lookup", F)
@@ -1466,13 +1518,12 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
 
     from torchrec_tpu_torch.ops import tbe_backward
     from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
-    from torchrec_tpu_torch.parallel.sharding.tw import tw_lookup_inputs
 
     bb, clone, sig = bucketed_batch(dmp, batch, dev)
     (name, lay), = clone.sharded_ebc.tw_layouts.items()
     stack32 = state["tables"][name]
     R, D = stack32.shape
-    ids, w, segs, S = tw_lookup_inputs(lay, bb.sparse_features)
+    ids, w, segs, S, regions = tw_b1_inputs(lay, bb.sparse_features)
     valid = (segs < S) & (w != 0)
     common = {"rows": R, "D": D, "S": S, "V": ids.numel(),
               "valid": int(valid.sum()), "signature_slots": sum(sig)}
@@ -1485,7 +1536,8 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
         rows.append(b4_row(flush, "dedup_kernel", stack, ids, segs, w, S,
                            {"dtype": dname, **common}))
         rows.append(b1_row(flush, "dedup_kernel", stack, ids, segs, w, S,
-                           {"dtype": dname, "ids": "bucketed", **common}))
+                           {"dtype": dname, "ids": "bucketed", **common},
+                           regions))
         del stack
 
     sg = SparseSegGrad(ids, valid, segs, w, grad)
@@ -1880,7 +1932,6 @@ def train_dcn_phase(dev, flush):
 
     from torchrec_tpu_torch.ops import tbe, tbe_backward
     from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
-    from torchrec_tpu_torch.parallel.sharding.tw import tw_lookup_inputs
 
     card = nvidia_smi_line()
     t0 = time.perf_counter()
@@ -1900,7 +1951,8 @@ def train_dcn_phase(dev, flush):
           "memory_allocated": torch.cuda.memory_allocated()})
 
     # B1 and B2 (Adagrad) at the path's shapes: the batch's ids, Zipf ids
-    ids_u, w, segs, S = tw_lookup_inputs(lay, batches[0].sparse_features)
+    ids_u, w, segs, S, regions = tw_b1_inputs(lay,
+                                              batches[0].sparse_features)
     ids_z = _zipf_slots(lay, rows, seed=5).to(dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     grad = torch.randn((S, DIM), generator=gen, device=dev) * 1e-2
@@ -1909,7 +1961,7 @@ def train_dcn_phase(dev, flush):
         common = {"dtype": "float32", "ids": dist, "rows": stack.shape[0],
                   "D": DIM, "S": S, "V": ids.numel()}
         kernel_rows.append(b1_row(flush, "dcn_kernel", stack, ids, segs, w,
-                                  S, common))
+                                  S, common, regions))
         sg = SparseSegGrad(ids, (segs < S) & (w != 0), segs, w, grad)
         kernel_rows.append(b2_row(flush, "dcn_kernel", stack, [mom],
                                   "adagrad", sg, DCN_LR, None, common))
@@ -1945,7 +1997,7 @@ def train_dcn_phase(dev, flush):
                    "batch": DCN_BATCH, "marked": "cross-net GEMMs"},
                   lambda: dmp.train_step(state, batches[1]), 3, "step",
                   marked=set(cross["gemm_kernels"]))
-    del dmp, state, stack, mom, batches, ids_u, w, segs
+    del dmp, state, stack, mom, batches, ids_u, w, segs, regions
     torch.cuda.empty_cache()
 
     # at the 1,000,000-row cap: B2's other optimizers on float32 and all
@@ -1957,7 +2009,7 @@ def train_dcn_phase(dev, flush):
                                    torch.float32)
     (name, lay), = dmp.sharded_ebc.tw_layouts.items()
     stack32 = state["tables"][name]
-    ids, w, segs, S = tw_lookup_inputs(lay, batches[0].sparse_features)
+    ids, w, segs, S, _ = tw_b1_inputs(lay, batches[0].sparse_features)
     grad = torch.randn((S, DIM), generator=gen, device=dev) * 1e-2
     sg = SparseSegGrad(ids, (segs < S) & (w != 0), segs, w, grad)
     arms = [(o, torch.float32, None) for o in tbe_backward.OPTIMIZERS
@@ -2158,6 +2210,12 @@ def profile_calls(record, call, iters: int, unit: str, marked=None):
     if marked is not None:
         rec[f"marked_device_ms_per_{unit}"] = sum(
             v for k, v in by_name.items() if k in marked) / 1e3 / iters
+    # the sort kernels (radix sorts of slot streams), by name
+    sorts = {k: v for k, v in by_name.items() if "sort" in k.lower()}
+    rec[f"sort_device_ms_per_{unit}"] = {k: v / 1e3 / iters
+                                         for k, v in sorts.items()}
+    rec[f"sort_events_per_{unit}"] = sum(
+        1 for e in device if "sort" in e.name.lower()) / iters
     emit(rec)
     rec["device_names"] = sorted(by_name)  # for the caller, not printed
     return rec
@@ -2607,12 +2665,22 @@ def registers_record():
     """The registers a thread of every B2 and B6 instantiation uses, by
     optimizer and table dtype, at D = 128 (the narrow layout, bounded to
     two 256-thread blocks an SM, so at most 128), D = 512 (wide) and
-    D = 130 (scalar); fails if a narrow one takes more than 128."""
+    D = 130 (scalar); fails if a narrow one takes more than 128.  And
+    every B1 instantiation's registers and resident blocks, by table
+    dtype, column path and index types."""
     import torch
 
-    from torchrec_tpu_torch.ops import tbe_backward
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
 
-    rec = {"phase": "registers"}
+    rec = {"phase": "registers", "pooled_lookup": {}}
+    for dtype, runs, vec, ids, ends in itertools.product(
+            (torch.float32, torch.bfloat16), (True, False), (True, False),
+            (torch.int32, torch.int64), (torch.int32, torch.int64)):
+        key = " ".join(str(t).replace("torch.", "") for t in (
+            dtype, "runs" if runs else "segments",
+            "4 columns" if vec else "1 column", ids, ends))
+        rec["pooled_lookup"][key] = tbe.pooled_kernel_info(dtype, runs, vec,
+                                                           ids, ends)
     for kernel in ("fused_sparse_update", "dedup_fused_sparse_update"):
         rec[kernel] = {}
         for dim in (128, 512, 130):

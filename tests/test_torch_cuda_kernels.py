@@ -10,6 +10,11 @@ two launches in a row) at every column layout; the ragged dedup lookup
 (B4) on segments of 1 to 1,000 slots around its walk's depth and fetch,
 its wrapper under ``torch.cuda.set_sync_debug_mode("error")``, one
 native launch a call and no allocation beyond the output and the prep;
+the float lookup (B1) over slot regions (int32 and int64 ids and
+lengths, no weights, caps the lengths overflow, segments of 0 to 1,000
+slots, more regions than one launch holds) against both plain versions,
+one launch a call, no host sync and nothing allocated but its output and
+the lengths' running ends;
 and the grouped quantized
 lookups of a served batch (every feature in one launch, tables whose rows
 start off a 4-byte boundary, MEAN features, a key no feature reads), with
@@ -141,6 +146,149 @@ def test_no_segments_launch_nothing_on_card(dev):
     ]
     assert all(o.shape == (0, 16) and o.device.type == "cuda" for o in outs)
     assert tbe.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# B1 over a stream in its producer's layout (ops/tbe.py::
+# pooled_lookup_regions): no sort, one launch
+# ---------------------------------------------------------------------------
+
+
+def _regions(dev, counts, caps, lengths, ids_dtype=torch.int64,
+             weighted=True, gap=3, seed=0, lengths_dtype=torch.int32):
+    """A slot stream of regions with ``gap`` unread slots before each,
+    regions of ``counts[k]`` examples of ``lengths`` and ``caps[k]`` slots
+    (lengths past a cap overflow it), ids partly outside the table;
+    returns (ids, weights or None, SlotRegions) on ``dev``."""
+    rng = np.random.RandomState(seed)
+    starts, pos = [], 0
+    for cap in caps:
+        starts.append(pos + gap)
+        pos += gap + cap
+    ids = rng.randint(-3, R + 3, size=(pos,)).astype(np.int64)
+    w = rng.rand(pos).astype(np.float32) if weighted else None
+    regions = tbe.SlotRegions(
+        torch.as_tensor(np.asarray(lengths), dtype=lengths_dtype,
+                        device=dev),
+        tuple(starts), tuple(caps), tuple(counts))
+    return (torch.from_numpy(ids).to(dev, ids_dtype),
+            None if w is None else torch.from_numpy(w).to(dev), regions)
+
+
+def _check_regions(table, ids, w, regions, launches=1):
+    """The region entry on the card: ``launches`` counted launches,
+    ``torch.equal`` to its plain version and to the sorted plain version
+    over the same slots."""
+    before = tbe.launch_counts()["pooled_lookup"]
+    got = tbe.pooled_lookup_regions(table, ids, regions, w)
+    torch.cuda.synchronize()
+    assert tbe.launch_counts()["pooled_lookup"] == before + launches
+    S = regions.num_segments
+    assert got.shape == (S, table.shape[1]) and got.dtype == table.dtype
+    plain = tbe.pooled_lookup_regions_plain(table, ids, regions, w)
+    assert torch.equal(got, plain), float(
+        (got.float() - plain.float()).abs().max())
+    segs = regions.segment_ids(ids.shape[0])
+    assert torch.equal(got, tbe.pooled_lookup_plain(table, ids, segs, S, w))
+    return got
+
+
+@pytest.mark.parametrize("weighted", (True, False))
+@pytest.mark.parametrize("ids_dtype", (torch.int32, torch.int64))
+@pytest.mark.parametrize("dtype,D", FLOAT_CONFIGS)
+def test_pooled_lookup_regions_equals_plain_on_card(dev, dtype, D,
+                                                    ids_dtype, weighted):
+    """Five regions: one-slot examples (a run of 32 a warp), multi-hot
+    ones, a region whose lengths overflow its cap, an empty region, a
+    region with no examples; ids int32 or int64, weights or none."""
+    rng = np.random.RandomState(D)
+    counts = (100, 37, 20, 9, 0)
+    lengths = np.concatenate([
+        rng.randint(0, 2, size=100), rng.randint(0, 12, size=37),
+        rng.randint(3, 9, size=20), np.zeros(9, np.int64)])
+    caps = (100, 37 * 12, 60, 4, 5)  # the third's lengths overflow it
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    ids, w, regions = _regions(dev, counts, caps, lengths, ids_dtype,
+                               weighted, seed=D)
+    got = _check_regions(table, ids, w, regions)
+    assert not got[-9:].any()
+
+
+@pytest.mark.parametrize("length", (0, 1, 31, 32, 33, 1000))
+@pytest.mark.parametrize("dtype,D", ((torch.float32, 128),
+                                     (torch.bfloat16, 130)))
+def test_pooled_lookup_regions_segment_lengths_on_card(dev, dtype, D,
+                                                      length):
+    """Example 40 of a region of 64 holds ``length`` slots among short
+    ones (each warp's run of segments, and a run of one segment when the
+    region's cap makes long segments)."""
+    rng = np.random.RandomState(length)
+    lengths = rng.randint(0, 3, size=64)
+    lengths[40] = length
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    for cap in (int(lengths.sum()), 64 * max(length, 1)):
+        ids, w, regions = _regions(dev, (64,), (cap,), lengths, seed=cap)
+        got = _check_regions(table, ids, w, regions)
+        assert bool(got[40].any()) == (length > 0)
+
+
+def test_pooled_lookup_regions_many_regions_and_int64_on_card(dev):
+    """300 regions (a launch takes 128: regions 0-127 and 256-299 are
+    two launches, regions 128-255 hold no example and launch nothing),
+    int64 lengths, and int64 ids at and past 2**31 clipped to the last
+    row."""
+    rng = np.random.RandomState(3)
+    counts = rng.randint(0, 9, size=300)
+    counts[128:256] = 0
+    counts[[0, 256]] = 5
+    counts = tuple(int(c) for c in counts)
+    lengths = rng.randint(0, 4, size=sum(counts))
+    caps = tuple(3 * c for c in counts)
+    table = torch.from_numpy(rng.randn(R, 16).astype(np.float32)).to(dev)
+    ids, w, regions = _regions(dev, counts, caps, lengths, seed=3,
+                               lengths_dtype=torch.int64)
+    ids[::7] = 2**31 + torch.arange(ids[::7].numel(), device=dev)
+    ids[1] = 2**40
+    _check_regions(table, ids, w, regions, launches=2)
+
+
+def test_pooled_lookup_regions_one_launch_no_sync_on_card(dev):
+    """One call is one counted launch, makes no host sync
+    (``set_sync_debug_mode("error")``), and allocates no more than its
+    output and the lengths' running ends."""
+    rng = np.random.RandomState(5)
+    counts, caps = (4096,) * 26, (4096,) * 26
+    lengths = rng.randint(0, 2, size=26 * 4096)
+    table = torch.from_numpy(rng.randn(20_000, 128).astype(np.float32)).to(
+        dev)
+    ids, w, regions = _regions(dev, counts, caps, lengths, torch.int32,
+                               gap=0, seed=5)
+    args = (table, ids, regions, w)
+    want = tbe.pooled_lookup_regions(*args)  # builds and loads the library
+    torch.cuda.synchronize()
+    before = tbe.launch_counts()["pooled_lookup"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tbe.pooled_lookup_regions(*args)
+        unweighted = tbe.pooled_lookup_regions(*args[:3])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tbe.launch_counts()["pooled_lookup"] == before + 2
+    assert torch.equal(got, want)
+    assert torch.equal(unweighted,
+                       tbe.pooled_lookup_regions_plain(*args[:3]))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = tbe.pooled_lookup_regions(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ends_bytes = regions.lengths.numel() * regions.lengths.element_size()
+    assert peak <= out.numel() * out.element_size() + ends_bytes + 1024
 
 
 # (dtype, D, weight decay, stochastic-rounding seed) for the fused update

@@ -79,7 +79,16 @@ from torchrec_tpu_torch.modules.embedding_modules import (
 )
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType, FusedOptimConfig
 from torchrec_tpu_torch.optim import adagrad
+from torchrec_tpu_torch.modules.embedding_configs import PoolingType
+from torchrec_tpu_torch.ops import tbe
 from torchrec_tpu_torch.parallel.model_parallel import DistributedModelParallel
+from torchrec_tpu_torch.parallel.sharding.common import FeatureSpec
+from torchrec_tpu_torch.parallel.sharding.tw import (
+    build_tw_layout,
+    tw_regions,
+    tw_segments,
+    tw_slot_stream,
+)
 from torchrec_tpu_torch.parallel.types import table_wise_plan
 from torchrec_tpu_torch.sparse import KeyedTensor
 
@@ -350,3 +359,29 @@ def test_random_dataset_fixed_multi_hot_matches_jax():
         np.testing.assert_array_equal(a.dense_features.numpy(),
                                       np.asarray(b.dense_features))
         np.testing.assert_array_equal(a.labels.numpy(), np.asarray(b.labels))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multi_hot_stream_regions_equal_sorted_plain(dtype):
+    """The MLPerf DLRM-v2 multi-hot stream in the table-wise layout (26
+    regions of the group's cap, 1 to 100 ids an example): the region
+    entry's plain version ``torch.equal`` to the sorted plain version over
+    the slots' segments, float32 and bfloat16 stacks."""
+    keys = [f"cat_{i}" for i in range(26)]
+    hot = list(MLPERF_DLRM_V2_MULTI_HOT)
+    rows = [50 + i for i in range(26)]
+    batch = next(iter(RandomRecDataset(keys, 8, rows, hot,
+                                       min_ids_per_features=hot,
+                                       manual_seed=0)))
+    feats = [FeatureSpec(k, f"t_{k}", r, D, PoolingType.SUM, h * 8)
+             for k, r, h in zip(keys, rows, hot)]
+    lay = build_tw_layout("tw", feats, {f.table_name: [0] for f in feats},
+                          1, 8)
+    ids, w, lengths = tw_slot_stream(lay, batch.sparse_features)
+    segs, S = tw_segments(lay, lengths)
+    stack = torch.from_numpy(np.random.RandomState(1).randn(
+        sum(rows), D).astype(np.float32)).to(dtype)
+    got = tbe.pooled_lookup_regions_plain(stack, ids,
+                                          tw_regions(lay, lengths), w)
+    assert lay.cap == 800 and got.shape == (S, D)
+    assert torch.equal(got, tbe.pooled_lookup_plain(stack, ids, segs, S, w))

@@ -47,8 +47,15 @@ from torchrec_tpu_torch.modules import embedding_configs as tcfg
 from torchrec_tpu_torch.modules.embedding_modules import (
     EmbeddingBagCollection,
     EmbeddingCollection,
+    key_regions,
 )
-from torchrec_tpu_torch.ops.embedding_ops import pooled_embedding_lookup
+from torchrec_tpu_torch.ops import tbe
+from torchrec_tpu_torch.ops.embedding_ops import (
+    mean_pooling_weights,
+    pooled_embedding_lookup,
+    pooled_embedding_lookup_regions,
+)
+from torchrec_tpu.ops import pallas_tbe as jtbe
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor as TKJT
 
 D, B, DENSE_IN = 16, 32, 7
@@ -225,6 +232,99 @@ def test_pooled_lookup_grads_of_clipped_ids_equal_across_kernels():
     for a, b in zip(_port_lookup_grads("tbe", *case),
                     _port_lookup_grads("dedup", *case)):
         assert torch.equal(a, b)
+
+
+# (keys of the lookup, batch options, pooling, table dtype): a table's two
+# adjacent keys, one key, keys out of order (a permute), a variable batch
+REGION_CASES = {
+    "adjacent_sum": ((0, 1), {}, "SUM", torch.float32),
+    "weighted": ((0, 1), {"weighted": True}, "SUM", torch.float32),
+    "mean": ((2, 3), {"weighted": True}, "MEAN", torch.float32),
+    "permuted": ((3, 1), {"weighted": True}, "SUM", torch.float32),
+    "vbe": ((1, 2, 3), {"vbe": True}, "SUM", torch.float32),
+    "bf16": ((0, 1), {"weighted": True}, "SUM", torch.bfloat16),
+    "overflow": ((1, 2), {"weighted": True}, "SUM", torch.float32),
+    "empty": ((0,), {}, "SUM", torch.float32),
+}
+
+
+def _region_case(name):
+    """A KJT's keys read in place as slot regions (``key_regions``), and
+    the same keys the sorted way (the permuted KJT's segment ids), each
+    with the weights the EBC forward gives them.  Returns (table, regions
+    inputs, sorted inputs)."""
+    keys, kw, pooling, dtype = REGION_CASES[name]
+    _, kjt = _batch(11, **kw)
+    if name == "overflow":  # key f1 claims more ids than its cap
+        lengths = kjt.lengths().clone()
+        lengths[B:2 * B] = MAX_IDS + 2
+        kjt = TKJT(KEYS, kjt.values(), lengths, kjt.weights_or_none(),
+                   caps=kjt.caps)
+    if name == "empty":
+        kjt = TKJT(KEYS, kjt.values(), torch.zeros_like(kjt.lengths()),
+                   caps=kjt.caps)
+    rng = np.random.RandomState(12)
+    table = torch.from_numpy(rng.randn(40, D).astype(np.float32)).to(dtype)
+    ids, w, regions, _ = key_regions(kjt, keys)
+    sub = kjt.permute(keys)
+    seg = sub.segment_ids()
+    w_sorted = sub.weights_or_none()
+    if pooling == "MEAN":
+        w = mean_pooling_weights(regions.segment_ids(ids.shape[0]),
+                                 regions.lengths, w)
+        w_sorted = mean_pooling_weights(seg, sub.lengths(), w_sorted)
+    return (table, (ids, regions, w),
+            (sub.values(), seg, sub.total_stride, w_sorted))
+
+
+@pytest.mark.parametrize("case", sorted(REGION_CASES))
+def test_key_regions_lookup_equals_sorted_plain(case):
+    """The region entry's plain version over a KJT's keys read in place
+    is ``torch.equal`` to the sorted plain version over the permuted KJT
+    (ids clipped: the batch draws ids up to each table's rows, past this
+    40-row table), and its regions give the permuted KJT's segment ids."""
+    table, (ids, regions, w), (sids, seg, S, sw) = _region_case(case)
+    got = tbe.pooled_lookup_regions_plain(table, ids, regions, w)
+    assert got.shape == (S, D) and regions.num_segments == S
+    assert torch.equal(got, tbe.pooled_lookup_plain(table, sids, seg, S, sw))
+    assert torch.equal(regions.segment_ids(ids.shape[0]), seg.to(torch.int64))
+    assert torch.equal(got, pooled_embedding_lookup_regions(table, ids,
+                                                            regions, w))
+    if case == "empty":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("case", ["weighted", "mean", "vbe", "bf16"])
+def test_key_regions_lookup_matches_pallas(case):
+    """Against the JAX package's Pallas lookup (interpret mode) on the
+    permuted KJT's ids and segments: ``rtol = atol = 1e-5`` (bf16 one
+    bfloat16 ulp, ``rtol = 2**-7``)."""
+    table, (ids, regions, w), (sids, seg, S, sw) = _region_case(case)
+    got = tbe.pooled_lookup_regions_plain(table, ids, regions, w)
+    jt = jnp.asarray(table.float().numpy()).astype(
+        jnp.bfloat16 if case == "bf16" else jnp.float32)
+    want = jtbe.pallas_pooled_embedding_lookup(
+        jt, jnp.asarray(sids.numpy()), jnp.asarray(seg.numpy()),
+        num_segments=S, weights=None if sw is None else jnp.asarray(
+            sw.numpy()), chunk=32, group=8, interpret=True)
+    tol = (dict(rtol=2.0**-7, atol=1e-6) if case == "bf16" else FWD)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
+
+
+def test_key_regions_read_adjacent_keys_in_place():
+    """A table's adjacent keys in order are views of the KJT's own values,
+    weights and lengths (no permute); keys out of order are not."""
+    _, kjt = _batch(13, weighted=True)
+    ids, w, regions, _ = key_regions(kjt, [1, 2])
+    co = kjt.cap_offsets()
+    assert ids.data_ptr() == kjt.values()[co[1]:].data_ptr()
+    assert w.data_ptr() == kjt.weights_or_none()[co[1]:].data_ptr()
+    assert regions.lengths.data_ptr() == kjt.lengths()[B:].data_ptr()
+    assert regions.starts == (0, co[2] - co[1])
+    ids, _, regions, _ = key_regions(kjt, [2, 1])
+    assert ids.data_ptr() != kjt.values()[co[2]:].data_ptr()
+    assert regions.starts == (0, kjt.caps[2])
 
 
 def test_ebc_kernels_agree_and_meta_allocates_nothing():

@@ -51,6 +51,15 @@ from torchrec_tpu_torch.ops import embedding_ops as teo
 from torchrec_tpu_torch.ops import fused_update as tfu
 from torchrec_tpu_torch.ops import tbe
 from torchrec_tpu_torch.ops import tbe_backward as tbw
+from torchrec_tpu_torch.modules.embedding_configs import PoolingType
+from torchrec_tpu_torch.parallel.sharding.common import FeatureSpec
+from torchrec_tpu_torch.parallel.sharding.tw import (
+    build_tw_layout,
+    tw_regions,
+    tw_segments,
+    tw_slot_stream,
+)
+from torchrec_tpu_torch.sparse import KeyedJaggedTensor as TKJT
 
 R, D, S, V = 64, 16, 8, 48
 LR, EPS = 0.05, 1e-8
@@ -156,6 +165,198 @@ def test_pooled_lookup_kernel_emulation_bit_equal(case, dtype):
                                     _t(segs), S, _t(w))
     emu = _t(out).to(DTYPES[dtype][1])
     assert torch.equal(emu, plain)
+
+
+# ---------------------------------------------------------------------------
+# B1 over a stream in its producer's layout (pooled_lookup_regions)
+# ---------------------------------------------------------------------------
+
+# table-wise streams: (ids per example of each of 3 features, weighted,
+# pooling, lengths) with B = 16 examples and a stack of 3 x 40 rows
+TW_B, TW_ROWS = 16, 40
+TW_CASES = {
+    "one_hot": ((1, 1, 1), False, "SUM", "random"),
+    "multi_hot_weighted": ((1, 3, 6), True, "SUM", "random"),
+    "mean": ((2, 1, 5), True, "MEAN", "random"),
+    "overflow": ((1, 3, 6), True, "SUM", "overflow"),
+    "empty_batch": ((1, 3, 6), False, "SUM", "zero"),
+}
+
+
+def _tw_case(name, seed=0):
+    """A one-device table-wise group of 3 features on their own tables and
+    a KJT batch for it: (layout, stack [120, D] float32, kjt).  With
+    ``overflow`` the second feature's lengths claim more ids than its cap
+    (a device relayout's saturated batch): its region reads the padding
+    slots up to the group's cap, weight 0, as its segments do."""
+    ids_per, weighted, pooling, lens = TW_CASES[name]
+    rng = np.random.RandomState(seed)
+    keys = ("a", "b", "c")
+    feats = [FeatureSpec(k, f"t_{k}", TW_ROWS, D, PoolingType[pooling],
+                         n * TW_B) for k, n in zip(keys, ids_per)]
+    lay = build_tw_layout("tw", feats, {f.table_name: [0] for f in feats},
+                          1, TW_B)
+    lengths = np.concatenate([rng.randint(0, n + 1, size=TW_B)
+                              for n in ids_per]).astype(np.int32)
+    if lens == "zero":
+        lengths[:] = 0
+    if lens == "overflow":
+        lengths[TW_B:2 * TW_B] = ids_per[1] + 2
+    caps = [n * TW_B for n in ids_per]
+    values = rng.randint(-2, TW_ROWS + 2, size=sum(caps)).astype(np.int64)
+    w = rng.rand(sum(caps)).astype(np.float32) if weighted else None
+    kjt = TKJT(keys, _t(values), _t(lengths), _t(w), caps=caps)
+    stack = _bf16_exact(rng.randn(3 * TW_ROWS, D).astype(np.float32))
+    return lay, stack, kjt
+
+
+def _emulate_b1_regions(table, ids, w, lengths, regions, run_slots=32):
+    """The CUDA kernel's schedule (csrc/tbe_float.cu, pool_walk.cuh::
+    walk_run) in numpy float32, one rounding per operation: each warp owns
+    a run of ``run`` consecutive examples of a region (``run_slots`` / the
+    region's slots per example by its cap, 1 to 32), lays their slots out
+    as one stream by a scan of the counts, finds each position's example
+    by the kernel's binary search over the lanes, and adds the rows in
+    stream order, writing an example's sum at its last slot (zeros for an
+    empty one).  Returns (out, the largest run)."""
+    R = table.shape[0]
+    ends = np.cumsum(lengths.astype(np.int64))
+    out = np.full((len(lengths), table.shape[1]), np.nan, np.float32)
+    base, widest = 0, 0
+    for start, cap, count in zip(regions.starts, regions.caps,
+                                 regions.counts):
+        per = max(1, -(-cap // count)) if count else 1
+        run = min(32, max(1, run_slots // per))
+        origin = ends[base - 1] if base else 0
+        for first in range(0, count, run):
+            n = min(run, count - first)
+            widest = max(widest, n)
+            # lanes past the run read a clipped index and hold no slots
+            e = np.minimum(base + first + np.arange(32), len(ends) - 1)
+            prev = np.where(e > 0, ends[np.maximum(e - 1, 0)], 0)
+            lo = np.clip(prev - origin, 0, cap)
+            hi = np.maximum(np.clip(ends[e] - origin, 0, cap), lo)
+            mine = np.arange(32) < n
+            begin = np.where(mine, start + lo, start)
+            cnt = np.where(mine, start + hi, start) - begin
+            last = np.cumsum(cnt)
+            firstpos = last - cnt
+            for j in np.flatnonzero(mine & (cnt == 0)):
+                out[base + first + j] = 0.0
+            cur, acc = -1, None
+            for p in range(int(last[-1])):
+                j = 0
+                for step in (16, 8, 4, 2, 1):
+                    if last[j + step - 1] <= p:
+                        j += step
+                slot = begin[j] + p - firstpos[j]
+                if j != cur:
+                    if cur >= 0:
+                        out[base + first + cur] = acc
+                    cur, acc = j, np.zeros(table.shape[1], np.float32)
+                wt = np.float32(1.0) if w is None else w[slot]
+                acc = acc + table[np.clip(ids[slot], 0, R - 1)] * wt
+            if cur >= 0:
+                out[base + first + cur] = acc
+        base += count
+    assert not np.isnan(out).any()  # every example written once
+    return out, widest
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(TW_CASES))
+def test_pooled_lookup_regions_plain_equals_sorted_on_tw_streams(case,
+                                                                 dtype):
+    """The table-wise ``[N, F, C]`` slots as regions: the region entry's
+    plain version ``torch.equal`` to the sorted plain version over the
+    slots' segments, and to the region entry (the CPU takes the plain
+    version)."""
+    lay, stack, kjt = _tw_case(case)
+    table = _port_table(stack, dtype)
+    ids, w, lengths = tw_slot_stream(lay, kjt)
+    regions = tw_regions(lay, lengths)
+    segs, S = tw_segments(lay, lengths)
+    got = tbe.pooled_lookup_regions_plain(table, ids, regions, w)
+    assert torch.equal(got, tbe.pooled_lookup_plain(table, ids, segs, S, w))
+    assert torch.equal(got, tbe.pooled_lookup_regions(table, ids, regions, w))
+    assert torch.equal(regions.segment_ids(ids.shape[0]), segs)
+    if case == "empty_batch":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["multi_hot_weighted", "mean", "overflow"])
+def test_pooled_lookup_regions_plain_matches_pallas(case, dtype):
+    """The region entry's plain version against the JAX package's Pallas
+    lookup (interpret mode) on the same slots and their segments."""
+    lay, stack, kjt = _tw_case(case, seed=1)
+    ids, w, lengths = tw_slot_stream(lay, kjt)
+    segs, S = tw_segments(lay, lengths)
+    got = tbe.pooled_lookup_regions_plain(
+        _port_table(stack, dtype), ids, tw_regions(lay, lengths), w)
+    got = got.to(torch.float32).numpy()
+    want = np.asarray(jtbe.pallas_pooled_embedding_lookup(
+        _jax_table(stack, dtype), _j(ids.numpy()), _j(segs.numpy()),
+        num_segments=S, weights=_j(w.numpy()), chunk=32, group=8,
+        interpret=True).astype(jnp.float32))
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2.0**-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("run_slots", [32, 8])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(TW_CASES))
+def test_pooled_lookup_regions_kernel_emulation_bit_equal(case, dtype,
+                                                          run_slots):
+    """The kernel's walk of runs of examples (several a warp on one-hot
+    regions) equals the region entry's plain version bit for bit."""
+    lay, stack, kjt = _tw_case(case, seed=2)
+    ids, w, lengths = tw_slot_stream(lay, kjt)
+    regions = tw_regions(lay, lengths)
+    emu, widest = _emulate_b1_regions(
+        stack, ids.numpy(), None if w is None else w.numpy(),
+        lengths.numpy(), regions, run_slots)
+    if case == "one_hot":  # several examples a warp
+        assert widest == min(TW_B, run_slots)
+    plain = tbe.pooled_lookup_regions_plain(_port_table(stack, dtype), ids,
+                                            regions, w)
+    assert torch.equal(_t(emu).to(DTYPES[dtype][1]), plain)
+
+
+def test_pooled_lookup_regions_generic_streams():
+    """Regions with unread slots between them, no examples, more examples
+    than slots, int64 ids past the table and past 2**31, no weights; and a
+    lookup with no segments: each equal to the sorted plain version, the
+    emulated walk and (with weights) the autograd entry."""
+    rng = np.random.RandomState(4)
+    table = _bf16_exact(rng.randn(R, D).astype(np.float32))
+    counts, caps, starts = (5, 0, 40, 1), (9, 3, 20, 1000), (2, 12, 15, 40)
+    lengths = np.concatenate([rng.randint(0, 4, size=5),
+                              rng.randint(0, 2, size=40),
+                              [1000]]).astype(np.int64)
+    ids = rng.randint(-4, R + 4, size=(1040,)).astype(np.int64)
+    ids[::9] = 2**31 + 5
+    w = rng.rand(1040).astype(np.float32)
+    regions = tbe.SlotRegions(_t(lengths), starts, caps, counts)
+    S = regions.num_segments
+    segs = regions.segment_ids(1040)
+    for wt in (None, _t(w)):
+        got = tbe.pooled_lookup_regions(_t(table), _t(ids), regions, wt)
+        assert torch.equal(got, tbe.pooled_lookup_plain(_t(table), _t(ids),
+                                                        segs, S, wt))
+        emu, _ = _emulate_b1_regions(table, ids, None if wt is None else w,
+                                     lengths, regions)
+        assert torch.equal(_t(emu), got)
+    assert torch.equal(got, teo.pooled_embedding_lookup_regions(
+        _t(table), _t(ids), regions, _t(w)))
+    none = tbe.SlotRegions(_t(np.zeros(0, np.int32)), (0,), (4,), (0,))
+    out = tbe.pooled_lookup_regions(_t(table), _t(ids), none)
+    assert out.shape == (0, D)
+    with pytest.raises(ValueError):
+        tbe.pooled_lookup_regions(_t(table), _t(ids), tbe.SlotRegions(
+            _t(lengths), starts, (9, 3, 20, 1001), counts))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-// The owner warp's walk of one segment's slots, shared by the pooled
-// lookups that keep row loads in flight: B3 and B5 (tbe_quant.cu) and B4
-// (tbe_dedup.cu).  Each file's header says why the walk is shaped so; in
-// short, a segment's output is owned by one warp, and each of its slots
-// costs a chain of dependent loads (metadata, then the row), so the warp
-// keeps many of them in flight:
+// The owner warp's walks, shared by the pooled lookups that keep row loads
+// in flight: walk (one segment's slots) for B3 and B5 (tbe_quant.cu) and
+// B4 (tbe_dedup.cu), walk_run (the slots of a run of consecutive
+// segments) for B1 (tbe_float.cu).  Each file's header says why the walk
+// is shaped so; in short, a segment's output is owned by one warp, and
+// each of its slots costs a chain of dependent loads (metadata, then the
+// row), so the warp keeps many of them in flight:
 //
 //   * the lanes fetch a segment's slots 32 at a time, cooperatively: lane j
 //     loads slot j's key and weight (and, where the rows have them, the
@@ -27,6 +28,7 @@
 //   side(r, s, b)   row r's scale and bias (when kSide)
 //   load(r, c)      row r's columns [c, c + kVec)
 //   add(acc, raw, s, b, w)   acc[v] += value v of raw, weighted by w
+//                   (walk_run's sources have no side: add(acc, raw, w))
 
 #pragma once
 
@@ -105,6 +107,101 @@ __device__ __forceinline__ void walk(const Src& src, const Slots& sg,
       }
     }
   }
+}
+
+// The walk of a run of up to 32 consecutive segments by their owner warp:
+// lane j holds segment j's slots [begin, end) (mine: the lane holds a
+// segment of the run).  The run's slots are walked as one stream, segment
+// after segment, each in slot order, as walk walks one segment's: 32
+// stream positions' keys and weights fetched a lane each (the next 32
+// ahead), Src::kDepth row loads in flight, the adds in slot order.  After
+// a segment's last slot the warp hands its sums to sink(j, acc), and it
+// hands zeros to every empty segment.  A slot weighs w[slot], or 1 when w
+// is null.  Short segments share the warp: 32 one-slot segments cost one
+// fetch of keys and 32 / kDepth row round trips.
+template <class Src, class Sink>
+__device__ __forceinline__ void walk_run(const Src& src, int begin, int end,
+                                         bool mine,
+                                         const float* __restrict__ w,
+                                         int lane, int c, bool active,
+                                         const Sink& sink) {
+  constexpr int K = Src::kDepth;
+  constexpr int VEC = Src::kVec;
+  static_assert(32 % K == 0, "K must divide the warp");
+  static_assert(!Src::kSide, "a run's rows carry no scale or bias");
+  // stream position p lies in segment j when first_j <= p < last_j
+  const int count = end - begin;
+  int last = count;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, last, o);
+    if (lane >= o) last += v;
+  }
+  const int first = last - count;
+  const int total = __shfl_sync(kFull, last, 31);
+  float acc[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+  for (unsigned empty = __ballot_sync(kFull, mine && count == 0); empty;
+       empty &= empty - 1) {
+    sink(__ffs(empty) - 1, acc);
+  }
+  // lane-wise: the segment and slot of position p (j = the lanes whose
+  // segments end at or before p)
+  auto locate = [&](int p, int& seg, int& slot) {
+    int j = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+      if (__shfl_sync(kFull, last, j + step - 1) <= p) j += step;
+    }
+    seg = j;
+    slot = __shfl_sync(kFull, begin, j) + p - __shfl_sync(kFull, first, j);
+  };
+  long long key_next = 0;
+  float w_next = 0.f;
+  int seg_next, slot;
+  locate(lane, seg_next, slot);
+  if (lane < total) {
+    key_next = src.key(slot);
+    w_next = w ? __ldg(w + slot) : 1.f;
+  }
+  int cur = -1;  // the segment being summed
+  for (int base = 0; base < total; base += 32) {
+    const int n = min(32, total - base);
+    const int r_mine = src.row(key_next);
+    const float w_mine = w_next;
+    const int s_mine = seg_next;
+    const int nxt = base + 32 + lane;
+    locate(nxt, seg_next, slot);
+    if (nxt < total) {
+      key_next = src.key(slot);
+      w_next = w ? __ldg(w + slot) : 1.f;
+    }
+    for (int j0 = 0; j0 < n; j0 += K) {
+      typename Src::Raw raw[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int r = __shfl_sync(kFull, r_mine, j0 + k);
+        raw[k] = (active && j0 + k < n) ? src.load(r, c)
+                                        : typename Src::Raw{};
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float wi = __shfl_sync(kFull, w_mine, j0 + k);
+        const int sj = __shfl_sync(kFull, s_mine, j0 + k);
+        if (j0 + k < n) {
+          if (sj != cur) {
+            if (cur >= 0) sink(cur, acc);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+            cur = sj;
+          }
+          if (active) src.add(acc, raw[k], wi);
+        }
+      }
+    }
+  }
+  if (cur >= 0) sink(cur, acc);
 }
 
 }  // namespace pool

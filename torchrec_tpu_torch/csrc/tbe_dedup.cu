@@ -67,13 +67,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "pool_walk.cuh"
+#include "float_cols.cuh"
 
 namespace {
-
-using pool::accum;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
@@ -82,61 +78,6 @@ constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kWalkDepth = 4;
 constexpr int kMinBlocks = 6;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Four consecutive columns of a row, what a lane loads on the vector path:
-// 16 bytes of f32, or 8 bytes of bf16 (each 32-bit word two values, the
-// lower column in its low half).  widen is exact; store rounds each value
-// once to T.
-template <typename T>
-struct Cols4;
-template <>
-struct Cols4<float> {
-  using Raw = uint4;
-  __device__ static void widen(Raw r, float (&v)[4]) {
-    v[0] = __uint_as_float(r.x);
-    v[1] = __uint_as_float(r.y);
-    v[2] = __uint_as_float(r.z);
-    v[3] = __uint_as_float(r.w);
-  }
-  __device__ static void store(float* p, const float (&a)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
-  }
-};
-template <>
-struct Cols4<__nv_bfloat16> {
-  using Raw = uint2;
-  __device__ static void widen(Raw r, float (&v)[4]) {
-    v[0] = __uint_as_float(r.x << 16);
-    v[1] = __uint_as_float(r.x & 0xffff0000u);
-    v[2] = __uint_as_float(r.y << 16);
-    v[3] = __uint_as_float(r.y & 0xffff0000u);
-  }
-  __device__ static unsigned int pack(float lo, float hi) {
-    return (unsigned int)__bfloat16_as_ushort(narrow<__nv_bfloat16>(lo)) |
-           ((unsigned int)__bfloat16_as_ushort(narrow<__nv_bfloat16>(hi))
-            << 16);
-  }
-  __device__ static void store(__nv_bfloat16* p, const float (&a)[4]) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(pack(a[0], a[1]),
-                                              pack(a[2], a[3]));
-  }
-};
-
 // B4's rows: the table's, through each slot's index into the distinct
 // keys.  VEC = 4 (Cols4, one load a lane) or 1 (a column a lane).
 template <typename T, int VEC>
@@ -144,8 +85,8 @@ struct FloatRows {
   static constexpr int kDepth = kWalkDepth;
   static constexpr int kVec = VEC;
   static constexpr bool kSide = false;
-  using Raw = typename std::conditional<VEC == 1, T,
-                                        typename Cols4<T>::Raw>::type;
+  using Cols = pool::TableCols<T, VEC>;
+  using Raw = typename Cols::Raw;
   const long long* inv;
   const long long* ukeys;
   const T* table;
@@ -156,24 +97,10 @@ struct FloatRows {
   }
   __device__ int row(long long k) const { return (int)pool::key_row(k, last); }
   __device__ void side(int, float&, float&) const {}
-  __device__ Raw load(int r, int c) const {
-    const T* p = table + (long long)r * D + c;
-    if constexpr (VEC == 1) {
-      return *p;
-    } else {
-      return __ldg(reinterpret_cast<const Raw*>(p));
-    }
-  }
+  __device__ Raw load(int r, int c) const { return Cols::load(table, D, r, c); }
   __device__ void add(float (&acc)[VEC], Raw raw, float, float,
                       float w) const {
-    if constexpr (VEC == 1) {
-      acc[0] = accum(acc[0], widen(raw), w);
-    } else {
-      float v[4];
-      Cols4<T>::widen(raw, v);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] = accum(acc[k], v[k], w);
-    }
+    Cols::add(acc, raw, w);
   }
 };
 
@@ -201,12 +128,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
     pool::walk(src, sg, w, lane, c, active, acc);
-    if (!active) continue;
-    if constexpr (VEC == 1) {
-      orow[c] = narrow<T>(acc[0]);
-    } else {
-      Cols4<T>::store(orow + c, acc);
-    }
+    if (active) pool::TableCols<T, VEC>::store(orow + c, acc);
   }
 }
 

@@ -11,13 +11,16 @@ them): it allocates nothing, and moving or casting its model leaves it
 on meta.
 
 The pooled forward (KJT -> KeyedTensor) makes one pooled lookup per
-table (:func:`pooled_lookup_for_table`, ``ops/embedding_ops.py::
-pooled_embedding_lookup``, differentiable): on the card one launch of
-the table's kernel, ``"tbe"`` (B1, ``csrc/tbe_float.cu``) or ``"dedup"``
-(B4, ``csrc/tbe_dedup.cu``), and one slot sort in its wrapper per table,
-so 26 of each for the 26 tables of ``bench.py main()``.  That is the JAX
-package's design for this path (the sharded collection is the grouped
-one), and it is kept.
+table (:func:`pooled_lookup_for_table`, differentiable): on the card one
+launch of the table's kernel, so 26 for the 26 tables of ``bench.py
+main()``.  That is the JAX package's design for this path (the sharded
+collection is the grouped one), and it is kept.  ``"tbe"`` (B1,
+``csrc/tbe_float.cu``) reads the table's keys where the KJT holds them,
+as slot regions at its ``cap_offsets()`` (``ops/embedding_ops.py::
+pooled_embedding_lookup_regions``: no permute when the keys are adjacent
+and in the table's order, no segment ids, no sort); ``"dedup"`` (B4,
+``csrc/tbe_dedup.cu``) takes the same regions' segment ids
+(``pooled_embedding_lookup``) and sorts in its wrapper.
 
 Half-precision tables: the JAX collection upcasts a bfloat16 or float16
 table to float32 before it pools, so its output is float32 and the
@@ -44,14 +47,39 @@ from torchrec_tpu_torch.modules.embedding_configs import (
 )
 from torchrec_tpu_torch.ops.embedding_ops import (
     POOLED_KERNELS,
+    SlotRegions,
     mean_pooling_weights,
     pooled_embedding_lookup,
+    pooled_embedding_lookup_regions,
     sequence_embedding_lookup,
 )
 from torchrec_tpu_torch.sparse import JaggedTensor, KeyedJaggedTensor, KeyedTensor
 from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _FLOAT_TYPES = (DataType.FP32, DataType.FP16, DataType.BF16)
+
+
+def key_regions(
+    kjt: KeyedJaggedTensor, keys: Sequence[int]
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], SlotRegions,
+           Optional[torch.Tensor]]:
+    """The slots of ``keys`` as a pooled lookup reads them in place: (ids,
+    per-id weights or None, their regions, the keys' inverse indices or
+    None).  Views of the KJT's own buffers when the keys are adjacent and
+    in order, else of a permuted copy; example ``e`` of the regions is
+    example ``b`` of key ``i`` at ``e = sum(strides[:i]) + b``."""
+    idx = [int(k) for k in keys]
+    if idx != list(range(idx[0], idx[0] + len(idx))):
+        kjt, idx = kjt.permute(idx), list(range(len(idx)))
+    a, b = idx[0], idx[-1] + 1
+    co, lo = kjt.cap_offsets(), kjt._length_offsets()
+    w = kjt.weights_or_none()
+    regions = SlotRegions(
+        kjt.lengths()[lo[a]:lo[b]], tuple(co[k] - co[a] for k in idx),
+        kjt.caps[a:b], kjt.stride_per_key()[a:b])
+    inv = kjt.inverse_indices_or_none()
+    return (kjt.values()[co[a]:co[b]], None if w is None else w[co[a]:co[b]],
+            regions, None if inv is None else inv[a:b])
 
 
 def pooled_lookup_for_table(
@@ -63,31 +91,38 @@ def pooled_lookup_for_table(
     kernel: str = "tbe",
 ) -> torch.Tensor:
     """Pool all of one table's features in one lookup: ``[num_features, B,
-    D]``.  The KJT is permuted to the table's features and each slot
-    pooled into its segment; MEAN is a weighted SUM with weights
-    ``1 / length``.  Under a variable batch each feature's ``[B_f, D]``
-    block expands to the full batch through its inverse indices."""
-    sub = kjt.permute(feature_indices)
-    seg = sub.segment_ids()
-    weights = sub.weights_or_none() if is_weighted else None
+    D]``.  Each slot of the table's keys, read in place as regions
+    (:func:`key_regions`), pools into its example's segment (``"tbe"``:
+    the regions themselves; ``"dedup"``: each slot's segment id from
+    them); MEAN is a weighted SUM with weights ``1 / length``.
+    Under a variable batch each feature's ``[B_f, D]`` block expands to
+    the full batch through its inverse indices."""
+    nf, D = len(feature_indices), weight.shape[1]
+    ids, w, regions, inv = key_regions(kjt, feature_indices)
+    weights = w if is_weighted else None
+    seg = (regions.segment_ids(ids.shape[0])
+           if kernel != "tbe" or pooling == PoolingType.MEAN else None)
     if pooling == PoolingType.MEAN:
-        weights = mean_pooling_weights(seg, sub.lengths(), weights)
-    pooled = pooled_embedding_lookup(weight, sub.values(), seg,
-                                     sub.total_stride, weights,
-                                     kernel=kernel)
-    nf, D = sub.num_keys, weight.shape[1]
-    if not sub.variable_stride_per_key:
-        return pooled.reshape(nf, sub.stride(), D)
-    inv = sub.inverse_indices_or_none()
+        weights = mean_pooling_weights(seg, regions.lengths, weights)
+    if kernel == "tbe":
+        pooled = pooled_embedding_lookup_regions(weight, ids, regions,
+                                                 weights)
+    else:
+        pooled = pooled_embedding_lookup(weight, ids, seg,
+                                         regions.num_segments, weights,
+                                         kernel=kernel)
+    strides = regions.counts
+    if not kjt.variable_stride_per_key:
+        return pooled.reshape(nf, kjt.stride(), D)
     if inv is None:
         raise ValueError("a variable-batch KJT needs inverse_indices to "
                          "expand its per-key batches")
-    lo = sub._length_offsets()
-    out = []
+    out, lo = [], 0
     for f in range(nf):
-        block = pooled[lo[f]: lo[f + 1]]  # [B_f, D]
+        block = pooled[lo: lo + strides[f]]  # [B_f, D]
         idx = inv[f].to(torch.int64).clamp(0, max(block.shape[0] - 1, 0))
         out.append(block[idx])
+        lo += strides[f]
     return torch.stack(out)
 
 

@@ -42,8 +42,9 @@ _O = ctypes.POINTER(ctypes.c_int)
 # C entry points per source: name -> argtypes (every pointer and the
 # stream are c_void_p, every size or flag a c_int, a slot count or row
 # stride a c_longlong, every scalar hyperparameter a c_float, a grouped
-# lookup's features a host array of c_longlong, a fused update's launch
-# facts a host array of c_int; each returns cudaGetLastError() or 0)
+# lookup's features or a float lookup's regions a host array of
+# c_longlong, a launch's facts a host array of c_int; each returns
+# cudaGetLastError() or 0)
 _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "tbe_quant.cu": {
         "q8_pooled": (_G, _I, _I, _I, _L, _P, _P, _P, _P, _P),
@@ -52,7 +53,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "dedup_q_pool": (_G, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P),
     },
     "tbe_float.cu": {
-        "tbe_pooled": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "tbe_pooled": (_P, _P, _I, _P, _P, _I, _G, _I, _P, _I, _L, _I, _P),
+        "tbe_pooled_info": (_I, _I, _I, _I, _I, _O),
     },
     "tbe_backward.cu": {
         "fused_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -1,6 +1,8 @@
 """Embedding ops (a subset of ``torchrec_tpu/ops/embedding_ops.py``): the
 pooled lookup behind the kernels of ``ops/tbe.py`` with its gradient,
-the sequence lookup, pooling weights, the sort-based dedup scaffold, and
+over a slot stream in any order or in its producer's layout
+(:class:`SlotRegions`, read by the per-id kernel with no sort), the
+sequence lookup, pooling weights, the sort-based dedup scaffold, and
 the row gradients and duplicate aggregation that the dedup fused update's
 plain version is built from.
 
@@ -18,7 +20,7 @@ and ``sanitize_ids`` (the traced sanitizer is not ported).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -147,6 +149,67 @@ def aggregate_duplicate_rows(
     return slot_rows, agg
 
 
+class SlotRegions(NamedTuple):
+    """A slot stream as its producer laid it out: region ``k`` is the
+    slots ``[starts[k], starts[k] + caps[k])``, front-packed in example
+    order by its ``counts[k]`` examples, whose lengths are the next
+    ``counts[k]`` entries of ``lengths`` (regions in the order of
+    ``lengths``).  Example ``e``, an index into ``lengths``, is segment
+    ``e`` of a pooled lookup and owns the slots its region's running
+    lengths give it, cut at the cap: the slots that
+    ``parallel/sharding/common.py::per_slot_segments`` and
+    ``KeyedJaggedTensor.segment_ids`` give it.  The table-wise ``[N, F,
+    C]`` layout is ``N * F`` regions of cap ``C``; a KeyedJaggedTensor's
+    keys are regions at its ``cap_offsets()``.  Lengths are non-negative
+    and, on the card, sum to less than ``2**31`` in int32."""
+
+    lengths: torch.Tensor  # [sum(counts)] int32 or int64
+    starts: Tuple[int, ...]
+    caps: Tuple[int, ...]
+    counts: Tuple[int, ...]
+
+    @property
+    def num_segments(self) -> int:
+        return sum(self.counts)
+
+    def _region_ends(self):
+        """Per region: (start, cap, base, the running ends of its
+        lengths, int64)."""
+        lens = self.lengths.to(torch.int64)
+        base = 0
+        for start, cap, count in zip(self.starts, self.caps, self.counts):
+            yield start, cap, base, torch.cumsum(lens[base:base + count], 0)
+            base += count
+
+    def ranges(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(first slot, slot count) of every segment, int64 ``[S]``."""
+        firsts, sizes = [], []
+        for start, cap, _, ends in self._region_ends():
+            lo = torch.cat([ends.new_zeros(1), ends])[:-1].clamp(0, cap)
+            hi = torch.maximum(ends.clamp(0, cap), lo)
+            firsts.append(start + lo)
+            sizes.append(hi - lo)
+        if not firsts:
+            empty = self.lengths.new_zeros((0,), dtype=torch.int64)
+            return empty, empty
+        return torch.cat(firsts), torch.cat(sizes)
+
+    def segment_ids(self, num_slots: int) -> torch.Tensor:
+        """``[num_slots]`` int64: each slot's segment, or
+        :attr:`num_segments` for a slot no example owns (as
+        ``per_slot_segments``: a searchsorted per region, no host
+        sync)."""
+        S = self.num_segments
+        dev = self.lengths.device
+        seg = torch.full((num_slots,), S, dtype=torch.int64, device=dev)
+        for start, cap, base, ends in self._region_ends():
+            offs = torch.cat([ends.new_zeros(1), ends])
+            pos = torch.arange(cap, dtype=torch.int64, device=dev)
+            b = torch.searchsorted(offs, pos, right=True) - 1
+            seg[start:start + cap] = torch.where(pos < offs[-1], base + b, S)
+        return seg
+
+
 POOLED_KERNELS = ("tbe", "dedup")
 # the most spare rows the lookup's backward scatters invalid slots to
 _SPARE_ROWS = 1024
@@ -212,31 +275,83 @@ class _PooledLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         table, ids, segments, weights = ctx.saved_tensors
-        S = ctx.num_segments
-        R, D = table.shape
-        valid = (segments >= 0) & (segments < S)
-        ids_c = ids.clamp(0, R - 1).to(torch.int64)
-        d_table = d_w = None
-        if ctx.needs_input_grad[0]:
-            row_g = embedding_row_grads(g.to(torch.float32),
-                                        torch.where(valid, segments, S),
-                                        weights)
-            # invalid slots land on spare rows past the table, spread over
-            # up to _SPARE_ROWS of them: the scatter adds a row's slots
-            # one after another, so one spare row would serialise them all
-            V = ids.shape[0]
-            spare = max(1, min(V, _SPARE_ROWS))
-            pos = torch.arange(V, device=ids.device)
-            acc = torch.zeros((R + spare, D), dtype=torch.float32,
-                              device=table.device)
-            acc.index_put_((torch.where(valid, ids_c, R + pos % spare),),
-                           row_g, accumulate=True)
-            d_table = acc[:R].to(table.dtype)
-        if weights is not None and ctx.needs_input_grad[3]:
-            rows = table[ids_c].to(torch.float32)
-            gs = g[segments.clamp(0, S - 1)].to(torch.float32)
-            d_w = torch.where(valid, (gs * rows).sum(dim=-1), 0.0)
+        d_table, d_w = _lookup_grads(g, table, ids, segments, weights,
+                                     ctx.num_segments,
+                                     ctx.needs_input_grad[0],
+                                     ctx.needs_input_grad[3])
         return d_table, None, None, d_w, None, None
+
+
+def _lookup_grads(g, table, ids, segments, weights, S, want_table,
+                  want_weights):
+    """The pooled lookups' backward (``_pallas_pooled_bwd``, see
+    :class:`_PooledLookup`): (``d_table`` or None, ``d_weights`` or
+    None)."""
+    R, D = table.shape
+    valid = (segments >= 0) & (segments < S)
+    ids_c = ids.clamp(0, R - 1).to(torch.int64)
+    d_table = d_w = None
+    if want_table:
+        row_g = embedding_row_grads(g.to(torch.float32),
+                                    torch.where(valid, segments, S), weights)
+        # invalid slots land on spare rows past the table, spread over up
+        # to _SPARE_ROWS of them: the scatter adds a row's slots one after
+        # another, so one spare row would serialise them all
+        V = ids.shape[0]
+        spare = max(1, min(V, _SPARE_ROWS))
+        pos = torch.arange(V, device=ids.device)
+        acc = torch.zeros((R + spare, D), dtype=torch.float32,
+                          device=table.device)
+        acc.index_put_((torch.where(valid, ids_c, R + pos % spare),), row_g,
+                       accumulate=True)
+        d_table = acc[:R].to(table.dtype)
+    if weights is not None and want_weights:
+        rows = table[ids_c].to(torch.float32)
+        gs = g[segments.clamp(0, S - 1)].to(torch.float32)
+        d_w = torch.where(valid, (gs * rows).sum(dim=-1), 0.0)
+    return d_table, d_w
+
+
+def pooled_embedding_lookup_regions(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    regions: SlotRegions,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`pooled_embedding_lookup` with the ``"tbe"`` kernel over a
+    stream in its producer's layout: ``[regions.num_segments, D]``, segment
+    ``e`` the weighted sum of example ``e``'s slots
+    (``ops/tbe.py::pooled_lookup_regions``: on the card one launch, no
+    sort).  Differentiable in ``table`` and ``weights``; the backward
+    derives each slot's segment (:meth:`SlotRegions.segment_ids`) and is
+    :class:`_PooledLookup`'s."""
+    if weights is not None:
+        weights = weights.to(torch.float32)
+    return _RegionLookup.apply(table, ids, weights, regions)
+
+
+class _RegionLookup(torch.autograd.Function):
+    """:func:`pooled_embedding_lookup_regions` with a gradient for the
+    table and the weights."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights, regions):
+        from torchrec_tpu_torch.ops.tbe import pooled_lookup_regions
+
+        ctx.regions = regions
+        ctx.save_for_backward(table, ids, weights)
+        return pooled_lookup_regions(table, ids, regions, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, ids, weights = ctx.saved_tensors
+        regions = ctx.regions
+        d_table, d_w = _lookup_grads(g, table, ids,
+                                     regions.segment_ids(ids.shape[0]),
+                                     weights, regions.num_segments,
+                                     ctx.needs_input_grad[0],
+                                     ctx.needs_input_grad[2])
+        return d_table, None, d_w, None
 
 
 def sequence_embedding_lookup(

@@ -5,8 +5,12 @@ Replaces, from the JAX package's ``torchrec_tpu/ops/pallas_tbe.py``:
 
 * ``tbe_pooled_forward_sorted`` (kernel body ``_tbe_body``, input
   preparation ``_sort_pad_inputs``, wrapper
-  ``pallas_pooled_embedding_lookup``) by :func:`pooled_lookup`, over
-  float32 and bfloat16 tables (``csrc/tbe_float.cu``);
+  ``pallas_pooled_embedding_lookup``) by :func:`pooled_lookup_regions`
+  over a slot stream in its producer's layout (:class:`SlotRegions`: the
+  table-wise ``[N, F, C]`` slots, a KeyedJaggedTensor's keys; no sort),
+  and by :func:`pooled_lookup` over a stream in any order (a stable
+  segment sort first), over float32 and bfloat16 tables
+  (``csrc/tbe_float.cu``);
 * ``pallas_quantized_pooled_lookup`` (kernel body ``_tbe_kernel_q8``, input
   preparation ``_sort_pad_inputs``) by :func:`quant_pooled_lookup_int8`,
   and for all the features of a served batch at once by
@@ -46,7 +50,7 @@ and its plain version are bitwise equal (``torch.equal``).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,7 +62,8 @@ from torchrec_tpu_torch.ops._native import (  # noqa: F401 (re-exported)
     launch_counts,
     reset_launch_counts,
 )
-from torchrec_tpu_torch.ops.embedding_ops import (
+from torchrec_tpu_torch.ops.embedding_ops import (  # noqa: F401
+    SlotRegions,
     dedup_ids,
     dedup_inverse,
     run_sums,
@@ -66,8 +71,12 @@ from torchrec_tpu_torch.ops.embedding_ops import (
 
 _SOURCE = "tbe_quant.cu"
 _FLOAT_SOURCE = "tbe_float.cu"
+# the regions one float-lookup launch takes (kMaxRegions in tbe_float.cu)
+_MAX_REGIONS = 128
 _DEDUP_SOURCE = "tbe_dedup.cu"
 _INT32_MAX = 2**31 - 1
+# the index types the float lookup's kernel reads as they come
+_INDEX_DTYPES = (torch.int32, torch.int64)
 # the dedup keys: ``feature << 32 | id + 2**31`` for a valid slot (ids
 # clipped to int32 first), the int64 maximum for every other slot
 _ID_BIAS = 2**31
@@ -146,6 +155,49 @@ def _check_slots(
         raise TypeError(f"weights must be float32 {tuple(ids.shape)}")
     if table.shape[0] > _INT32_MAX or ids.shape[0] > _INT32_MAX:
         raise ValueError("rows and ids must each fit in int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("lookup inputs must be contiguous")
+    return dev
+
+
+def _check_regions(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    regions: SlotRegions,
+    weights: Optional[torch.Tensor],
+) -> torch.device:
+    """Validate a float lookup over slot regions; returns the common
+    device."""
+    if table.dtype not in FLOAT_DTYPES or table.dim() != 2:
+        raise TypeError(f"table must be 2-D float32 or bfloat16, got "
+                        f"{table.dtype} {tuple(table.shape)}")
+    lengths = regions.lengths
+    tensors = [table, ids, lengths] + ([] if weights is None else [weights])
+    dev = table.device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"lookup inputs span devices {dev} and "
+                             f"{t.device}")
+    if ids.dim() != 1 or ids.dtype.is_floating_point:
+        raise TypeError("ids must be a 1-D integer tensor")
+    if lengths.dim() != 1 or lengths.dtype.is_floating_point:
+        raise TypeError("lengths must be a 1-D integer tensor")
+    V, S = ids.shape[0], regions.num_segments
+    if not len(regions.starts) == len(regions.caps) == len(regions.counts):
+        raise ValueError("starts, caps and counts must be of one length")
+    if lengths.shape[0] != S:
+        raise ValueError(f"lengths {tuple(lengths.shape)} vs {S} examples "
+                         f"in the regions")
+    for start, cap, count in zip(regions.starts, regions.caps,
+                                 regions.counts):
+        if min(start, cap, count) < 0 or start + cap > V:
+            raise ValueError(f"region ({start}, {cap}, {count}) outside "
+                             f"{V} slots")
+    if weights is not None and (weights.dtype != torch.float32
+                                or weights.shape != ids.shape):
+        raise TypeError(f"weights must be float32 {tuple(ids.shape)}")
+    if max(table.shape[0], V, S) > _INT32_MAX:
+        raise ValueError("rows, slots and segments must each fit in int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lookup inputs must be contiguous")
     return dev
@@ -431,6 +483,29 @@ def pooled_lookup_plain(
     return pool_slot_order(vals, offsets).to(table.dtype)
 
 
+def pooled_lookup_regions_plain(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    regions: SlotRegions,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`pooled_lookup_regions`: each segment's
+    slot range gathered in slot order, then the operations of
+    :func:`pooled_lookup_plain` (widen, weight, pool in slot order, round
+    once to the table's dtype)."""
+    first, size = regions.ranges()
+    offsets = torch.cat([size.new_zeros(1), torch.cumsum(size, 0)])
+    n = int(offsets[-1])
+    pos = torch.repeat_interleave(first - offsets[:-1], size,
+                                  output_size=n) + torch.arange(
+                                      n, device=ids.device)
+    sids = ids[pos].clamp(0, table.shape[0] - 1)
+    sw = (torch.ones((n,), dtype=torch.float32, device=ids.device)
+          if weights is None else weights[pos])
+    vals = table[sids].to(torch.float32) * sw[:, None]
+    return pool_slot_order(vals, offsets).to(table.dtype)
+
+
 def dedup_pooled_lookup_plain(
     table: torch.Tensor,
     ids: torch.Tensor,
@@ -637,31 +712,85 @@ def _require_cuda(dev: torch.device) -> None:
         )
 
 
+def region_ends(lengths: torch.Tensor) -> torch.Tensor:
+    """The float kernel's ``ends`` of a :class:`SlotRegions`: the running
+    sums of its lengths, one cumsum in their own type (int32 or int64)."""
+    return torch.cumsum(lengths, 0, dtype=lengths.dtype)
+
+
 def launch_pooled(
     table: torch.Tensor,
-    sids: torch.Tensor,
-    sw: torch.Tensor,
-    offsets: torch.Tensor,
+    ids: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    ends: torch.Tensor,
+    starts: Sequence[int],
+    caps: Sequence[int],
+    counts: Sequence[int],
 ) -> torch.Tensor:
-    """Launch the float pooled kernel on prepared inputs (the output of
-    :func:`sort_by_segment`); returns [S, D] in the table's dtype."""
-    S, D = offsets.shape[0] - 1, table.shape[1]
+    """Launch the float pooled kernel on prepared inputs: ``ids`` and
+    ``ends`` int32 or int64 as they come, float32 ``weights`` or None
+    (every weight 1), and the regions (``starts``, ``caps``, ``counts``)
+    whose examples' running ends ``ends`` holds, :func:`region_ends` of a
+    :class:`SlotRegions`'s lengths or, for a segment-sorted stream
+    (:func:`sort_by_segment`), its CSR offsets past the first, one region
+    of all its slots and segments.  One launch per ``_MAX_REGIONS``
+    regions that hold an example, each counted.  Returns [sum(counts), D]
+    in the table's dtype; allocates only the output; no host sync."""
+    S, D = sum(counts), table.shape[1]
     if S == 0:
         return table.new_empty((0, D))
+    for name, t in (("ids", ids), ("ends", ends)):
+        if t.dtype not in _INDEX_DTYPES or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous int32 or int64, got "
+                            f"{t.dtype}")
+    if ends.shape != (S,):
+        raise ValueError(f"ends {tuple(ends.shape)} vs {S} segments")
+    if weights is not None and (weights.dtype != torch.float32
+                                or not weights.is_contiguous()):
+        raise TypeError("weights must be contiguous float32")
+    facts, base = [], 0
+    for start, cap, count in zip(starts, caps, counts):
+        facts.append((start, cap, base, count))
+        base += count
     lib = _native.load_library(_FLOAT_SOURCE)
-    ids32 = sids.to(torch.int32).contiguous()
-    off32 = offsets.to(torch.int32).contiguous()
-    sw = sw.contiguous()
-    out = torch.empty((S, D), dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        err = lib.tbe_pooled(
-            table.data_ptr(), ids32.data_ptr(), sw.data_ptr(),
-            off32.data_ptr(), out.data_ptr(), S, D,
-            FLOAT_DTYPES[table.dtype], _stream_ptr(table.device),
-        )
-    _native.check_launch("tbe_pooled", err)
-    count_launch("pooled_lookup")
+    dev = table.device
+    out = torch.empty((S, D), dtype=table.dtype, device=dev)
+    with torch.cuda.device(dev):
+        for r0 in range(0, len(facts), _MAX_REGIONS):
+            chunk = facts[r0:r0 + _MAX_REGIONS]
+            if not any(f[3] for f in chunk):
+                continue  # no example: nothing to write, no launch
+            flat = [v for f in chunk for v in f]
+            err = lib.tbe_pooled(
+                table.data_ptr(), ids.data_ptr(),
+                int(ids.dtype == torch.int64),
+                None if weights is None else weights.data_ptr(),
+                ends.data_ptr(), int(ends.dtype == torch.int64),
+                (ctypes.c_longlong * len(flat))(*flat), len(chunk),
+                out.data_ptr(), D, table.shape[0], FLOAT_DTYPES[table.dtype],
+                _stream_ptr(dev),
+            )
+            _native.check_launch("tbe_pooled", err)
+            count_launch("pooled_lookup")
     return out
+
+
+def pooled_kernel_info(dtype: torch.dtype, runs: bool, vec: bool,
+                       ids_dtype: torch.dtype,
+                       ends_dtype: torch.dtype) -> Dict[str, int]:
+    """What the float pooled kernel's instantiation for a table of
+    ``dtype``, the runs kernel (``runs``: several segments a warp) or the
+    segments one, the 4-column (``vec``) or one-column path and the index
+    types takes on the current card (builds the kernel): its
+    ``registers`` a thread and ``blocks_per_sm`` resident."""
+    lib = _native.load_library(_FLOAT_SOURCE)
+    out = (ctypes.c_int * 2)()
+    err = lib.tbe_pooled_info(FLOAT_DTYPES[dtype], int(runs), int(vec),
+                              int(ids_dtype == torch.int64),
+                              int(ends_dtype == torch.int64), out)
+    if err:
+        raise RuntimeError(f"tbe_pooled_info failed: CUDA error {err}")
+    return dict(zip(("registers", "blocks_per_sm"), out))
 
 
 def pooled_lookup(
@@ -674,7 +803,10 @@ def pooled_lookup(
     """Pooled lookup ``out[s] = sum_i w_i * table[id_i]`` over the valid
     slots of segment ``s`` in slot order, accumulated in float32; ids clip
     to the table, slots whose segment lies outside ``[0, num_segments)``
-    add nothing.  Returns [num_segments, D] in the table's dtype."""
+    add nothing.  Returns [num_segments, D] in the table's dtype.  The
+    segments may come in any order, so the card path sorts the slots first
+    (no host sync); a stream in its producer's layout takes
+    :func:`pooled_lookup_regions` and no sort."""
     dev = _check_float_inputs(table, ids, segments, weights)
     if dev.type == "cpu":
         return pooled_lookup_plain(table, ids, segments, num_segments,
@@ -683,7 +815,32 @@ def pooled_lookup(
     sids, sw, offsets = sort_by_segment(
         ids, segments, weights, num_segments, table.shape[0]
     )
-    return launch_pooled(table, sids, sw, offsets)
+    if sids.dtype not in _INDEX_DTYPES:
+        sids = sids.to(torch.int64)
+    return launch_pooled(table, sids, sw, offsets[1:], (0,),
+                         (ids.shape[0],), (num_segments,))
+
+
+def pooled_lookup_regions(
+    table: torch.Tensor,  # [R, D] float32 or bfloat16
+    ids: torch.Tensor,  # [V] integer
+    regions: SlotRegions,
+    weights: Optional[torch.Tensor] = None,  # [V] float32
+) -> torch.Tensor:
+    """The function of :func:`pooled_lookup` over a slot stream in its
+    producer's layout: ``out[e]`` is the weighted sum of example ``e``'s
+    slots (:class:`SlotRegions`) in slot order, ids clipped to the table.
+    Returns [regions.num_segments, D] in the table's dtype.  On the card:
+    one cumsum of the lengths and one launch, ids and weights read as they
+    come, no sort and no host sync."""
+    dev = _check_regions(table, ids, regions, weights)
+    if dev.type == "cpu":
+        return pooled_lookup_regions_plain(table, ids, regions, weights)
+    _require_cuda(dev)
+    if regions.lengths.dtype not in _INDEX_DTYPES:
+        raise TypeError("lengths must be int32 or int64 on the card")
+    return launch_pooled(table, ids, weights, region_ends(regions.lengths),
+                         regions.starts, regions.caps, regions.counts)
 
 
 def _feature_array(features: Sequence, cap_offsets: Sequence[int]):

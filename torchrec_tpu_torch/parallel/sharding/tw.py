@@ -5,10 +5,11 @@ A TW group stacks every table of one embedding dim row-wise into one
 array and keeps the JAX package's uniform ``[N, F, C]`` slot geometry: N
 devices, F slots per device, C ids per slot.  The lookup pools slot
 ``(src, slot, b)`` into segment ``slot * (N * B) + src * B + b`` of one
-pooled lookup over the local stack (a kernel of ``ops/tbe.py``: the
-per-id ``"tbe"`` lookup or the ragged ``"dedup"`` one, by the caller's
-``lookup_kernel``), and the backward hands the same slot layout to the
-fused update as a :class:`SparseSegGrad`.
+pooled lookup over the local stack (a kernel of ``ops/tbe.py``, by the
+caller's ``lookup_kernel``: the per-id ``"tbe"`` lookup reads the
+``[N, F, C]`` slots as ``N * F`` regions with no sort, the ragged
+``"dedup"`` one takes each slot's segment), and the backward hands the
+same slot layout to the fused update as a :class:`SparseSegGrad`.
 
 This port runs one device.  Its dists are the identity there; at
 ``world_size > 1`` the forward and backward raise ``NotImplementedError``
@@ -25,7 +26,11 @@ from typing import Dict, List, Mapping, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from torchrec_tpu_torch.ops.embedding_ops import pooled_embedding_lookup
+from torchrec_tpu_torch.ops.embedding_ops import (
+    SlotRegions,
+    pooled_embedding_lookup,
+    pooled_embedding_lookup_regions,
+)
 from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
 from torchrec_tpu_torch.parallel.sharding.common import (
     FeatureSpec,
@@ -171,13 +176,12 @@ def _require_one_device(layout: TwGroupLayout) -> None:
         )
 
 
-def tw_lookup_inputs(
+def tw_slot_stream(
     layout: TwGroupLayout, kjt: KeyedJaggedTensor
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
-    """The pooled lookup's inputs for one group: (ids ``[N*F*C]`` int32
-    into the local stack, weights ``[N*F*C]`` float32, segments
-    ``[N*F*C]`` int64 with ``F*N*B`` marking padding, the segment count
-    ``F*N*B``)."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The group's slots after the input dist: (ids ``[N*F*C]`` int32
+    into the local stack, weights ``[N*F*C]`` float32, lengths ``[N*F*B]``
+    int32), each ``(src, slot)`` region front-packed in example order."""
     _require_one_device(layout)
     N, B, C, F = layout.world_size, layout.batch_size, layout.cap, layout.f_max
     dev = kjt.values().device
@@ -197,14 +201,33 @@ def tw_lookup_inputs(
     ids_recv, w_recv, len_recv = ids_send, w_send, len_send
     row_off = torch.as_tensor(layout.row_offset[0], device=dev)
     ids_local = ids_recv + row_off[None, :, None]
-    seg_b = per_slot_segments(len_recv, C)  # [N, F, C]: example or B
+    return ids_local.reshape(-1), w_recv.reshape(-1), len_recv.reshape(-1)
+
+
+def tw_regions(layout: TwGroupLayout, lengths: torch.Tensor) -> SlotRegions:
+    """The ``[N, F, C]`` slots as ``N * F`` regions of cap ``C`` and ``B``
+    examples each, region ``(src, slot)`` at ``(src * F + slot) * C``:
+    example ``(src, slot, b)`` is row ``(src * F + slot) * B + b`` of the
+    lookup's output."""
+    k = layout.world_size * layout.f_max
+    C = layout.cap
+    return SlotRegions(lengths, tuple(i * C for i in range(k)), (C,) * k,
+                       (layout.batch_size,) * k)
+
+
+def tw_segments(layout: TwGroupLayout,
+                lengths: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Each slot's segment ``slot * (N * B) + src * B + b`` (``F*N*B`` for
+    padding), int64 ``[N*F*C]``, and the segment count ``F*N*B``."""
+    N, B, C, F = layout.world_size, layout.batch_size, layout.cap, layout.f_max
+    dev = lengths.device
+    seg_b = per_slot_segments(lengths.view(N, F, B), C)  # example or B
     src = torch.arange(N, device=dev)[:, None, None]
     slot = torch.arange(F, device=dev)[None, :, None]
     num_segments = F * N * B
     segs = torch.where(seg_b < B, slot * (N * B) + src * B + seg_b,
                        num_segments)
-    return (ids_local.reshape(-1), w_recv.reshape(-1), segs.reshape(-1),
-            num_segments)
+    return segs.reshape(-1), num_segments
 
 
 def tw_forward_local(
@@ -215,12 +238,23 @@ def tw_forward_local(
 ) -> Tuple[Dict[str, torch.Tensor], Tuple]:
     """Input dist -> lookup -> output dist for one group.  Returns
     ({feature: [B, dim]} pooled embeddings in the table's dtype, ctx for
-    the backward).  ``lookup_kernel``: ``"tbe"`` or ``"dedup"``
-    (``ops/embedding_ops.py::pooled_embedding_lookup``)."""
-    ids_flat, w_flat, segs, num_segments = tw_lookup_inputs(layout, kjt)
-    pooled = pooled_embedding_lookup(stack_local, ids_flat, segs,
-                                     num_segments, w_flat,
-                                     kernel=lookup_kernel)
+    the backward).  ``lookup_kernel``: ``"tbe"`` (over the slots' regions,
+    ``ops/embedding_ops.py::pooled_embedding_lookup_regions``) or
+    ``"dedup"`` (``pooled_embedding_lookup``).  The segments are built for
+    the backward either way."""
+    ids_flat, w_flat, lengths = tw_slot_stream(layout, kjt)
+    segs, num_segments = tw_segments(layout, lengths)
+    if lookup_kernel == "tbe":
+        N, B, F = layout.world_size, layout.batch_size, layout.f_max
+        pooled = pooled_embedding_lookup_regions(
+            stack_local, ids_flat, tw_regions(layout, lengths), w_flat)
+        # rows (src, slot, b) -> segments (slot, src, b)
+        pooled = pooled.view(N, F, B, layout.dim).transpose(0, 1).reshape(
+            num_segments, layout.dim)
+    else:
+        pooled = pooled_embedding_lookup(stack_local, ids_flat, segs,
+                                         num_segments, w_flat,
+                                         kernel=lookup_kernel)
     return tw_output_features(layout, pooled), (ids_flat, w_flat, segs)
 
 
