@@ -3,11 +3,15 @@
 ``bench.py main()``, the unsharded authoring path of the same model
 (``EmbeddingBagCollection`` -> ``DLRM`` -> ``DLRMTrain``), the bucketed
 training pipeline on the dedup kernels, MLPerf DLRM-v2 (``DLRM_DCN``)
-training on the per-id kernels, and quantized DLRM serving.
+training on the per-id kernels, quantized DLRM serving, and the
+multi-rank sharded train step (4 gloo ranks on the card, 1 NCCL rank).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and fails (non-zero exit, no result line)
 without one, or when the ``torchrec_tpu_torch`` package is not beside it.
+``python3 chip_smoke.py --one-device-gap`` runs only the study of
+:func:`one_device_gap` (why a sharded run's tables part from the plain
+one-device step's).
 
 Phases, one JSON line each on stdout; any failure raises:
 
@@ -140,6 +144,38 @@ Phases, one JSON line each on stdout; any failure raises:
    uniform and Zipf ids, with times and bounds;
 8. roundtrip — ``package_model`` at 10k rows per table, loaded on the
    card and on the CPU, scores compared.
+9. sharded — the multi-rank train step (``parallel/comm.py``,
+   ``multiprocess.py``, ``sharding/{tw,rw,twrw}.py``, the sharded
+   ``EmbeddingBagCollection`` and ``DistributedModelParallel(env=...)``)
+   at the width of phase 3, B=4096 per rank.  Four ranks on the one card
+   over gloo (``multiprocess.launch``: spawned after the parent built
+   every kernel), each on ``cuda:0``, for five plans: table-wise
+   round-robin, column-wise in 2 shards, row-wise, table-row-wise over
+   nodes of 2 ranks, and row-wise + table-wise + column-wise + 2
+   data-parallel tables.  Per plan and rank: the KT of its one-id batch
+   ``torch.equal`` to the unsharded ``EmbeddingBagCollection``'s (same
+   seeded tables) and of a weighted multi-hot batch (Zipf(1.2) lengths of
+   1 to 64, Zipf(1.0) ids, repacked to the ranks' largest bucketed caps)
+   ``torch.equal`` on table-wise, column-wise and data-parallel features
+   and within 1e-5 on row-wise and table-row-wise ones (partial sums
+   added in rank order); on the table-wise plan the dedup kernels' KT
+   (B4) ``torch.equal`` to B1's; B1 (over the rank's received regions)
+   and B2 (from the step's real gradient) ``torch.equal`` to their plain
+   versions and their card-alone times, ranks in turns; 1 warm-up and 5
+   timed steps (ms a step, each rank's B1 and B2 launches at least one a
+   step and nothing else, the wire bytes a step from the ledger); the
+   trained tables, gathered by ``table_weights``, ``np.array_equal`` to a
+   one-device DMP's after the same 6 steps on the global batches, its
+   dense part run over the ranks' micro-batches (``one_device_run``), and
+   the losses within ``PLAIN_LOSS_RTOL`` of the plain one-device
+   ``train_step``'s on the global batches (its tables part from the
+   sharded ones by more than a tolerance could hold: see
+   ``--one-device-gap``); and one step on every rank at once under
+   ``torch.profiler`` with B1 and B2 in it.  Then one rank over NCCL: the
+   row-wise plan's
+   KT and its tables after one step ``torch.equal`` to the one-device
+   DMP's.  The times of this phase are of 4 processes sharing one card:
+   not multi-GPU figures.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
@@ -187,8 +223,8 @@ KERNEL_SOURCES = {
 }
 # the main paths that launch each kernel (chip_smoke's phases)
 KERNEL_PATHS = {
-    "pooled_lookup": ["train", "ebc", "train_dcn"],
-    "fused_sparse_update": ["train", "train_dcn"],
+    "pooled_lookup": ["train", "ebc", "train_dcn", "sharded"],
+    "fused_sparse_update": ["train", "train_dcn", "sharded"],
     "quant_pooled_lookup_int8": ["serving"],
     "dedup_quant_pooled_lookup": ["serving"],
     "dedup_pooled_lookup": ["train_dedup", "ebc"],
@@ -971,7 +1007,7 @@ def train_path_check(dmp, state, batch, sr_seed, phase="train_path_check"):
     fused = state["fused"][name]
     states = [fused[k] for k in ("momentum", "m", "v") if k in fused]
     kt, ctxs = dmp.sparse_forward(state, batch)
-    ids, w, segs = ctxs[name]
+    ids, w, segs = ctxs[name][:3]
     S = lay.f_max * lay.world_size * lay.batch_size
     plain = tbe.pooled_lookup_plain(stack, ids, segs, S, w)
     kt_plain = ebc.output_kt(tw_output_features(lay, plain)).values()
@@ -1671,7 +1707,7 @@ def dedup_path_check(dmp, state, batch, dev):
     stack = state["tables"][name]
     mom = state["fused"][name]["momentum"]
     kt, ctxs = clone.sparse_forward(state, bb)
-    ids, w, segs = ctxs[name]
+    ids, w, segs = ctxs[name][:3]
     S = lay.f_max * lay.world_size * lay.batch_size
     b1 = tbe.pooled_lookup(stack, ids, segs, S, w)
     kt_b1 = ebc.output_kt(tw_output_features(lay, b1)).values()
@@ -2661,6 +2697,754 @@ def roundtrip_phase(dev):
         raise AssertionError("card and CPU scores of one artifact differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: multi-rank sharding at the width of bench.py main(): 4 ranks on
+# one card over gloo, and one rank over NCCL
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 4
+SHARDED_STEPS = 5  # timed, after one warm-up step
+SHARDED_PLANS = ("tw", "cw", "rw", "twrw", "mixed")
+SHARDED_TIMEOUT = 600
+ONE_CARD = "4 ranks on one card over gloo: not a multi-GPU figure"
+# the sharded losses against the plain one-device train_step's: measured
+# 1.9e-5 to 3.0e-5 apart over 6 steps (bf16 dense GEMMs at 4 x 4,096 rows
+# against 16,384, then the rowwise steps that follow); 3x that
+PLAIN_LOSS_RTOL = 1e-4
+
+
+def sharded_plan(kind, tables, n):
+    """The plans of the sharded phase over ``n`` ranks: table-wise
+    round-robin, column-wise in 2 shards, row-wise, table-row-wise over
+    nodes of 2 ranks, and a mix of row-wise, table-wise, column-wise and
+    (two tables) data-parallel."""
+    from torchrec_tpu_torch.parallel.types import (
+        ParameterSharding,
+        ShardingType as ST,
+    )
+
+    def one(i, t):
+        if kind == "mixed":
+            t = ("rw", "tw", "cw")[min(i * 3 // (len(tables) - 2), 2)] \
+                if i < len(tables) - 2 else "dp"
+        if t == "tw":
+            return ParameterSharding(ST.TABLE_WISE, ranks=[i % n])
+        if t == "cw":
+            return ParameterSharding(ST.COLUMN_WISE,
+                                     ranks=[i % n, (i + 1) % n])
+        if t == "rw":
+            return ParameterSharding(ST.ROW_WISE, ranks=list(range(n)))
+        if t == "twrw":
+            start = 2 * (i % (n // 2))
+            return ParameterSharding(ST.TABLE_ROW_WISE,
+                                     ranks=[start, start + 1])
+        return ParameterSharding(ST.DATA_PARALLEL)
+
+    return {c.name: one(i, kind) for i, c in enumerate(tables)}
+
+
+def bench_tables():
+    from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+
+    keys = [f"cat_{i}" for i in range(TRAIN_FEATURES)]
+    return keys, tuple(
+        EmbeddingBagConfig(num_embeddings=TRAIN_ROWS, embedding_dim=DIM,
+                           name=f"t_{k}", feature_names=[k])
+        for k in keys)
+
+
+def sharded_dmp(dev, plan, batch, caps, env=None, eps=EPS,
+                dense_dtype=None):
+    """The DMP of ``build_trainer`` with ``plan``, on ``env`` (one rank
+    when None), and its state from a seeded generator on the card (every
+    rank draws the same full tables and keeps its share).  ``eps`` is the
+    fused optimizer's, ``dense_dtype`` the dense part's (bf16 if None)."""
+    import torch
+
+    from torchrec_tpu_torch.models.dlrm import DLRM
+    from torchrec_tpu_torch.ops.fused_update import FusedOptimConfig
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+
+    _, tables = bench_tables()
+    model = DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                 dense_dtype=dense_dtype or torch.bfloat16)
+    dmp = DistributedModelParallel(
+        model, tables, plan, batch, caps,
+        fused_config=FusedOptimConfig(learning_rate=TRAIN_LR, eps=eps),
+        dense_optimizer=adagrad(TRAIN_LR), device=dev, env=env)
+    return dmp, dmp.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def one_id_batches(n_batches):
+    """The first ``n_batches`` batches of ``build_trainer``'s dataset (one
+    id per feature at most), on the host."""
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+
+    keys, _ = bench_tables()
+    ds = RandomRecDataset(keys, TRAIN_BATCH, [TRAIN_ROWS] * len(keys),
+                          [1] * len(keys), num_dense=NUM_DENSE,
+                          manual_seed=0)
+    it = iter(ds)
+    return dict(zip(keys, ds.caps)), [next(it) for _ in range(n_batches)]
+
+
+def global_batch(batches):
+    """The batches of one step's ranks as the one global batch, examples
+    in rank order (each key's values and lengths concatenated)."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.utils import Batch
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    kjts = [b.sparse_features for b in batches]
+    keys = kjts[0].keys()
+    vals, lens, ws = [], [], []
+    for f in range(len(keys)):
+        for k in kjts:
+            ln = k.lengths_for_key(f).cpu().numpy()
+            co, n = k.cap_offsets()[f], int(ln.sum())
+            vals.append(k.values()[co:co + n].cpu().numpy())
+            lens.append(ln)
+            if k.weights_or_none() is not None:
+                ws.append(k.weights_or_none()[co:co + n].cpu().numpy())
+    caps = [sum(k.caps[f] for k in kjts) for f in range(len(keys))]
+    kjt = KeyedJaggedTensor.from_lengths_packed(
+        keys, np.concatenate(vals), np.concatenate(lens),
+        np.concatenate(ws) if ws else None, caps=caps)
+    return Batch(torch.cat([b.dense_features for b in batches]), kjt,
+                 torch.cat([b.labels for b in batches]))
+
+
+def multi_hot_batch(env):
+    """This rank's weighted multi-hot batch: the bucketed stream's
+    Zipf(1.2) lengths of 1 to 64 with Zipf(1.0) ids (seeded per rank),
+    repacked to the bucketed caps of the largest of the ranks' batches
+    (each feature's cap the same on every rank: the dists' geometry)."""
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+    from torchrec_tpu_torch.parallel.multiprocess import allgather_host
+
+    keys, _ = bench_tables()
+    F = len(keys)
+    b = next(iter(RandomRecDataset(
+        keys, TRAIN_BATCH, [TRAIN_ROWS] * F, [DEDUP_MAX_IDS] * F,
+        num_dense=NUM_DENSE, manual_seed=100 + env.rank,
+        min_ids_per_features=[1] * F, zipf_lengths=DEDUP_ZIPF_LENGTHS,
+        zipf_ids=DEDUP_ZIPF_IDS, weighted=True)))
+    kjt = b.sparse_features
+    sig = kjt.bucketed_caps(BUCKETING["floor"], BUCKETING["growth"])
+    caps = [int(c) for c in allgather_host(np.asarray(sig, np.int64))
+            .max(axis=0)]
+    return dict(zip(keys, caps)), kjt.repad(caps)
+
+
+def group_kind_of_features(dmp):
+    """{feature: kind} of the sharded collection's groups."""
+    ebc = dmp.sharded_ebc
+    out = {}
+    for kind, _, lay in ebc.sharded_groups():
+        feats = (lay.feature_order if kind != "rw"
+                 else [f.name for f in lay.features])
+        out.update(dict.fromkeys(feats, kind))
+    for g in ebc.dp_groups.values():
+        out.update(dict.fromkeys((f.name for f in g.features), "dp"))
+    return out
+
+
+def _kt_check(kt, ref, kinds, exact_all):
+    """The sharded KT against the unsharded collection's, per feature:
+    (bitwise equal features, max abs err), or raise.  Table-wise,
+    column-wise and data-parallel features (and every feature when
+    ``exact_all``) must be ``torch.equal``; row-wise and block-shard
+    ones, summed over ranks, within rtol 1e-5, atol 1e-5."""
+    import torch
+
+    got, want = kt.to_dict(), ref.to_dict()
+    equal, err = 0, 0.0
+    for f, kind in kinds.items():
+        a, b = got[f].float(), want[f].float()
+        err = max(err, float((a - b).abs().max()))
+        if torch.equal(a, b):
+            equal += 1
+        elif exact_all or kind in ("tw", "dp"):
+            raise AssertionError(f"{kind} feature {f}: sharded KT != "
+                                 f"unsharded (max abs err "
+                                 f"{float((a - b).abs().max())})")
+        elif not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{kind} feature {f}: sharded KT off the "
+                                 f"unsharded by {float((a - b).abs().max())}")
+    return equal, err
+
+
+def _in_turns(env, fn):
+    """``fn()`` on one rank at a time, rank order, the others waiting at
+    a barrier (a rank's kernel times are then its own on the card)."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(env.world_size):
+        if env.rank == r:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def sharded_kernel_check(dmp, state, batch, flush):
+    """B1 and B2 at this rank's shapes on one step's inputs: for each
+    sharded group, the group's received slot stream through B1's region
+    entry and the step's real gradient through B2 (rowwise Adagrad, on a
+    copy of the rank's stack), each ``torch.equal`` to its plain version;
+    and their card-alone times, ranks in turns.  Returns the records."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.parallel.sharding.rw import rw_backward_local
+    from torchrec_tpu_torch.parallel.sharding.tw import tw_backward_local
+    from torchrec_tpu_torch.parallel.sharding.twrw import (
+        twrw_backward_local,
+    )
+
+    ebc, env = dmp.sharded_ebc, dmp.env
+    back = {"tw": tw_backward_local, "rw": rw_backward_local,
+            "twrw": twrw_backward_local}
+    kt, ctxs = dmp.sparse_forward(state, batch)
+    _, _, _, grads = dmp.dense_forward_backward(state, batch, kt)
+    cfg = dmp.fused_config
+    recs = []
+    for kind, name, lay in ebc.sharded_groups():
+        stack = state["tables"][name]
+        mom = state["fused"][name]["momentum"]
+        ids, w, segs, regions = ctxs[name]
+        got = tbe.pooled_lookup_regions(stack, ids, regions, w)
+        ref = tbe.pooled_lookup_regions_plain(stack, ids, regions, w)
+        sg = back[kind](lay, ctxs[name], grads, env)  # a collective
+        outs = []
+        for fn in (tbe_backward.fused_sparse_update,
+                   tbe_backward.fused_sparse_update_plain):
+            t, m = stack.clone(), mom.clone()
+            _update_call(fn, t, [m], "rowwise_adagrad", sg,
+                         cfg.learning_rate, None, (1.0, 1.0))
+            outs.append((t, m))
+        torch.cuda.synchronize()
+        b1_eq = bool(torch.equal(got, ref))
+        b2_eq = all(torch.equal(a, b) for a, b in zip(*outs))
+        rec = {"phase": "sharded_kernel", "rank": env.rank, "group": name,
+               "kind": kind, "stack": list(stack.shape),
+               "slots": int(ids.numel()), "regions": len(regions.counts),
+               "segments": regions.num_segments,
+               "valid_slots": int(sg.ok().sum()),
+               "b1_equal": b1_eq, "b2_equal": b2_eq,
+               "b1_max_abs_err": float((got.float() - ref.float())
+                                       .abs().max()),
+               "b2_max_abs_err": max(float((a - b).abs().max())
+                                     for a, b in zip(*outs))}
+        del outs, got, ref
+        if not (b1_eq and b2_eq):
+            raise AssertionError(f"sharded kernel check failed: {rec}")
+        tk, mk = stack.clone(), mom.clone()
+        ends = tbe.region_ends(regions.lengths)
+        prep = tbe_backward.sort_by_row(sg.ids, sg.valid, sg.segments,
+                                        sg.weights, stack.shape[0],
+                                        sg.grad_seg.shape[0])
+
+        def restore():
+            tk.copy_(stack)
+            mk.copy_(mom)
+
+        def b1():
+            return tbe.pooled_lookup_regions(stack, ids, regions, w)
+
+        def b1_kernel():
+            return tbe.launch_pooled(stack, ids, w, ends, regions.starts,
+                                     regions.caps, regions.counts)
+
+        def b2():
+            _update_call(tbe_backward.fused_sparse_update, tk, [mk],
+                         "rowwise_adagrad", sg, cfg.learning_rate, None,
+                         (1.0, 1.0))
+
+        def b2_kernel():
+            tbe_backward.launch_fused_sparse_update(
+                tk, [mk], *prep, sg.grad_seg, "rowwise_adagrad",
+                cfg.learning_rate, EPS, 0.0, (0.9, 0.999), (1.0, 1.0), None)
+
+        def times():
+            return {
+                "b1_kernel_device_ms": cuda_ms(b1_kernel, flush,
+                                               device_only=True),
+                "b1_wrapper_device_ms": cuda_ms(b1, flush, device_only=True),
+                "b2_kernel_device_ms": cuda_ms(b2_kernel, flush,
+                                               setup=restore,
+                                               device_only=True),
+                "b2_wrapper_device_ms": cuda_ms(b2, flush, setup=restore,
+                                                device_only=True)}
+
+        R, D = stack.shape
+        _, nbytes, flops = _b1_bound(R, D, stack.element_size(), ids, segs,
+                                     w, regions.num_segments)
+        rec["b1_bound_ms"] = _bound(nbytes, flops)[0]
+        _, nbytes, flops = _update_bound(D, stack.element_size(), sg,
+                                         "rowwise_adagrad")
+        rec["b2_bound_ms"] = _bound(nbytes, flops)[0]
+        rec.update(_in_turns(env, times) or {})
+        del tk, mk, prep
+        recs.append(rec)
+    return recs
+
+
+def _profiled_kernels(call):
+    """B1's and B2's device launches in one ``call``, by a profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"pooled_lookup": sum("tbe_pooled_kernel" in n for n in names),
+            "fused_sparse_update": sum("fused_update_kernel" in n
+                                       for n in names)}
+
+
+def _rank_device(device_type):
+    """The rank's device: the card's first for every rank (the kernels
+    built by the parent are loaded), or the CPU for a rehearsal."""
+    import torch
+
+    from torchrec_tpu_torch.ops import _native
+
+    if device_type != "cuda":
+        return torch.device(device_type)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _native.load_libraries()  # built by the parent: loads them
+    return dev
+
+
+def sharded_rank(kinds, device_type="cuda"):
+    """One rank of the gloo arm (run by ``multiprocess.launch``): every
+    plan of ``kinds`` through the checks of the phase.  Returns its
+    records and launch counts."""
+    import torch
+
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingBagCollection,
+    )
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel import multiprocess
+    from torchrec_tpu_torch.parallel.comm import ShardingEnv
+    from torchrec_tpu_torch.parallel.qcomm import wire_accounting
+
+    dev = _rank_device(device_type)
+    multiprocess.initialize("gloo")
+    env = ShardingEnv.from_process_group("gloo", device=dev)
+    r, N = env.rank, env.world_size
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    caps, host = one_id_batches(N * (1 + SHARDED_STEPS))
+    mine = [host[s * N + r].to(dev) for s in range(1 + SHARDED_STEPS)]
+    records, launches, refs = [], {}, {}
+    _, tables = bench_tables()
+    ebc = EmbeddingBagCollection(
+        tables, is_weighted=True, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    mh_caps, mh_kjt = multi_hot_batch(env)
+    mh_kjt = mh_kjt.to(dev)
+    for kind in kinds:
+        t0 = time.perf_counter()
+        stages = {}
+        plan = sharded_plan(kind, tables, N)
+        ref_key = one_device_plan(plan)
+        if r == 0 and ref_key not in refs:  # the others wait
+            refs[ref_key] = (one_device_run(dev, ref_key, host, N),
+                             one_device_run(dev, ref_key, host, N, False)[0])
+        stages["one_device_reference_s"] = time.perf_counter() - t0
+        dmp, state = sharded_dmp(dev, plan, TRAIN_BATCH, caps, env)
+        kinds_of = group_kind_of_features(dmp)
+        with torch.no_grad():
+            kt, _ = dmp.sparse_forward(state, mine[0])
+            one_hot = _kt_check(_kt(dmp, kt), ebc(mine[0].sparse_features),
+                                kinds_of, exact_all=True)
+            mh = dmp.with_feature_caps(mh_caps)
+            kt_m, _ = mh.sparse_forward(state, _with_kjt(mine[0], mh_kjt))
+            multi = _kt_check(_kt(mh, kt_m), ebc(mh_kjt), kinds_of,
+                              exact_all=False)
+            dedup = None
+            if kind == "tw":
+                dd = dmp.with_feature_caps(caps, "dedup", "dedup")
+                kt_d, _ = dd.sparse_forward(state, mine[0])
+                dedup = bool(torch.equal(kt_d, kt))
+                if not dedup:
+                    raise AssertionError("tw: B4's KT != B1's")
+        stages["forward_checks_s"] = time.perf_counter() - t0 - sum(
+            stages.values())
+        kchecks = sharded_kernel_check(dmp, state, mine[0], flush)
+        stages["kernel_checks_s"] = time.perf_counter() - t0 - sum(
+            stages.values())
+        # the main path: 1 warm-up and SHARDED_STEPS timed steps
+        torch.cuda.synchronize()
+        tbe.reset_launch_counts()
+        state, warm, _ = _train_steps(dmp, state, mine[:1], 1)
+        with wire_accounting() as ledger:
+            state, losses, dt = _train_steps(dmp, state, mine[1:],
+                                             SHARDED_STEPS)
+        counts = {k: v for k, v in tbe.launch_counts().items() if v}
+        steps = 1 + SHARDED_STEPS
+        if (counts.get("pooled_lookup", 0) < steps
+                or counts.get("fused_sparse_update", 0) < steps
+                or set(counts) - {"pooled_lookup", "fused_sparse_update"}):
+            raise AssertionError(f"{kind} rank {r}: {steps} steps launched "
+                                 f"{counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        stages["train_steps_s"] = time.perf_counter() - t0 - sum(
+            stages.values())
+        weights = dmp.table_weights(state)  # a collective
+        table_err = ref_losses = tables_equal = plain_losses = None
+        plain_gap = None
+        if r == 0:
+            (ref_losses, ref_tables), plain_losses = refs[ref_key]
+            plain_gap = max(abs(a - b) / abs(b)
+                            for a, b in zip(warm + losses, plain_losses))
+            if plain_gap > PLAIN_LOSS_RTOL:
+                raise AssertionError(
+                    f"{kind}: losses {warm + losses} off the one-device "
+                    f"train_step's {plain_losses} by {plain_gap} (rtol "
+                    f"{PLAIN_LOSS_RTOL})")
+            tables_equal = all(np.array_equal(weights[t], ref_tables[t])
+                               for t in ref_tables)
+            table_err = max(float(np.abs(weights[t] - ref_tables[t]).max())
+                            for t in ref_tables)
+            if not tables_equal:
+                raise AssertionError(
+                    f"{kind}: trained tables != the one-device DMP's (max "
+                    f"abs err {table_err}; tables " + str(sorted(
+                        t for t in ref_tables
+                        if not np.array_equal(weights[t], ref_tables[t])))
+                    + ")")
+        stages["tables_check_s"] = time.perf_counter() - t0 - sum(
+            stages.values())
+        # every rank profiles the same step at once: a profiler's first
+        # start takes seconds in each process, so not one rank at a time
+        profiled = _profiled_kernels(lambda: dmp.train_step(state, mine[0]))
+        if not (profiled["pooled_lookup"] and
+                profiled["fused_sparse_update"]):
+            raise AssertionError(f"{kind} rank {r}: profiled {profiled}")
+        stages["profile_s"] = time.perf_counter() - t0 - sum(stages.values())
+        rec = {"phase": "sharded", "plan": kind, "rank": r, "ranks": N,
+               "backend": "gloo", "note": ONE_CARD,
+               "groups": {n: list(t.shape)
+                          for n, t in state["tables"].items()},
+               "batch_per_rank": TRAIN_BATCH, "steps": steps,
+               "ms_per_step": dt * 1e3 / SHARDED_STEPS,
+               "losses": warm + losses,
+               "all_finite": bool(np.isfinite(warm + losses).all()),
+               "one_device_losses": ref_losses,
+               "one_hot_equal_features": one_hot[0],
+               "one_hot_max_abs_err": one_hot[1],
+               "multi_hot_equal_features": multi[0],
+               "multi_hot_max_abs_err": multi[1],
+               "multi_hot_caps": sorted(set(mh_caps.values())),
+               "dedup_kt_equal": dedup, "launches": counts,
+               "profiled_launches_one_step": profiled,
+               "wire_bytes_per_step": {k: v / SHARDED_STEPS
+                                       for k, v in ledger.items()},
+               "tables_equal_one_device": tables_equal,
+               "table_max_abs_err_vs_one_device": table_err,
+               "one_device_train_step_losses": plain_losses,
+               "loss_max_rel_gap_vs_train_step": plain_gap,
+               "stage_seconds": stages,
+               "seconds": time.perf_counter() - t0}
+        if not rec["all_finite"]:
+            raise AssertionError(f"{kind} rank {r}: losses {rec['losses']}")
+        records += [rec] + kchecks
+        del dmp, state, weights
+        torch.cuda.empty_cache()
+    return records, launches
+
+
+def one_device_plan(plan):
+    """The one-device plan a sharded plan trains like: each table whole
+    on rank 0, but a column-wise one in its column shards (the rowwise
+    optimizer's state is a shard's own), as a hashable tuple."""
+    from torchrec_tpu_torch.parallel.types import ShardingType as ST
+
+    cw = (ST.COLUMN_WISE, ST.TABLE_COLUMN_WISE)
+    return tuple((t, len(ps.ranks) if ps.sharding_type in cw else 1)
+                 for t, ps in plan.items())
+
+
+def _micro_grads(one, st, kt, micro_batches):
+    """The sharded step's dense arithmetic on one device: the dense
+    forward and backward over each rank's micro-batch (its rows of the
+    global ``kt``), the loss and dense gradients summed in rank order and
+    divided by the ranks, the KT gradient divided by them.  (loss, dense
+    gradients, KT gradient by feature.)"""
+    import torch
+
+    from torchrec_tpu_torch.parallel.comm import sum_over_ranks
+
+    n = len(micro_batches)
+    flats, kt_grads = [], []
+    for r, b in enumerate(micro_batches):
+        loss, _, g_dense, g_kt = one.dense_forward_backward(
+            st, b, kt[r * TRAIN_BATCH:(r + 1) * TRAIN_BATCH])
+        flats.append(torch.cat([loss.reshape(1).to(torch.float32)]
+                               + [g.reshape(-1) for g in g_dense.values()]))
+        kt_grads.append(g_kt)
+    flat = sum_over_ranks(torch.stack(flats)) / n
+    pieces = flat[1:].split([g.numel() for g in g_dense.values()])
+    g_dense = {k: p.view_as(g) for (k, g), p in zip(g_dense.items(), pieces)}
+    grads = {f: torch.cat([g[f] for g in kt_grads]) / n for f in kt_grads[0]}
+    return flat[0], g_dense, grads
+
+
+def one_device_dmp(dev, key, n, eps=EPS, dense_dtype=None):
+    """The one-device DMP of :func:`one_device_plan`'s ``key`` at the
+    global batch of ``n`` ranks, and its state."""
+    from torchrec_tpu_torch.parallel.types import (
+        ParameterSharding,
+        ShardingType as ST,
+    )
+
+    caps, _ = one_id_batches(0)
+    plan = {t: ParameterSharding(ST.COLUMN_WISE if k > 1 else ST.TABLE_WISE,
+                                 ranks=[0] * k) for t, k in key}
+    return sharded_dmp(dev, plan, n * TRAIN_BATCH,
+                       {k: n * c for k, c in caps.items()}, eps=eps,
+                       dense_dtype=dense_dtype)
+
+
+def one_device_run(dev, key, host, n, micro=True, eps=EPS,
+                   dense_dtype=None):
+    """The one-device DMP of ``key`` over the global batches (each the
+    ``n`` ranks' batches of a step): its losses and its trained tables
+    after ``1 + SHARDED_STEPS`` steps.  With ``micro`` its step runs the
+    sparse forward and the fused update over the global batch and the
+    dense part by :func:`_micro_grads`: the sharded step's arithmetic,
+    which the sharded run matches bit for bit.  Without, ``train_step``
+    on the global batch: its dense GEMMs run at ``n`` times the rows and
+    its dense gradients stay in the dense dtype, so it rounds otherwise
+    (see :func:`one_device_gap` for how far that carries)."""
+    import torch
+
+    one, st = one_device_dmp(dev, key, n, eps, dense_dtype)
+    losses = []
+    for s in range(1 + SHARDED_STEPS):
+        gb = global_batch(host[s * n:(s + 1) * n]).to(dev)
+        if not micro:
+            st, m = one.train_step(st, gb)
+            losses.append(float(m["loss"]))
+            continue
+        kt, ctxs = one.sparse_forward(st, gb)
+        loss, g_dense, grads = _micro_grads(
+            one, st, kt, [b.to(dev) for b in host[s * n:(s + 1) * n]])
+        one.sharded_ebc.backward_and_update_local(
+            st["tables"], st["fused"], ctxs, grads, one.fused_config)
+        one.dense_tx.update(st["dense"], g_dense, st["dense_opt"])
+        st["step"] += 1
+        losses.append(float(loss))
+    tables = one.table_weights(st)
+    del one, st
+    torch.cuda.empty_cache()
+    return losses, tables
+
+
+def _quantiles(x):
+    import torch
+
+    q = torch.tensor([0.0, 0.01, 0.5, 0.99, 1.0], device=x.device)
+    x = x.reshape(-1).float()
+    if x.numel() > 1 << 24:  # torch.quantile's limit
+        x = x[torch.randperm(x.numel(), device=x.device)[:1 << 24]]
+    return [float(v) for v in torch.quantile(x, q)]
+
+
+def first_step_gap(dev, key, host, n, eps, dense_dtype):
+    """On the first global batch, from one state: the plain step's and
+    the micro-batched step's KT gradients per (feature, example) row, and
+    the first rowwise Adagrad step each gives a row hit once (``lr * g /
+    (rms(g) + eps)``, the fused update from a zero momentum)."""
+    import torch
+
+    one, st = one_device_dmp(dev, key, n, eps, dense_dtype)
+    gb = global_batch(host[:n]).to(dev)
+    kt, _ = one.sparse_forward(st, gb)
+    _, _, gd_plain, gk_plain = one.dense_forward_backward(st, gb, kt)
+    _, gd_micro, gk_micro = _micro_grads(one, st, kt,
+                                         [b.to(dev) for b in host[:n]])
+    keys = list(gk_plain)
+    P = torch.stack([gk_plain[f].float() for f in keys])  # [F, B, D]
+    M = torch.stack([gk_micro[f].float() for f in keys])
+    lengths = torch.stack([gb.sparse_features.lengths_for_key(f)
+                           for f in range(len(keys))]).to(dev)
+    hit = lengths > 0  # the rows the update reads
+
+    def step(g):
+        return TRAIN_LR * g / (g.pow(2).mean(-1, keepdim=True).sqrt() + eps)
+
+    rms = P.pow(2).mean(-1).sqrt()[hit]
+    rel = ((M - P).norm(dim=-1) / P.norm(dim=-1).clamp_min(1e-30))[hit]
+    dstep = (step(M) - step(P)).abs().amax(-1)[hit]
+    dense_rel = max(float((gd_micro[k].float() - g.float()).norm()
+                          / g.float().norm().clamp_min(1e-30))
+                    for k, g in gd_plain.items())
+    out = {"rows_hit": int(hit.sum()),
+           "kt_grad_row_rms_q": _quantiles(rms),
+           "kt_grad_row_rel_diff_q": _quantiles(rel),
+           "first_step_gap_q": _quantiles(dstep),
+           "first_step_rows_over_1e-2": int((dstep > 1e-2).sum()),
+           "dense_grad_max_rel_diff": dense_rel}
+    del one, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_device_gap():
+    """``python3 chip_smoke.py --one-device-gap``: how far the plain
+    one-device ``train_step`` on the global batches parts from the
+    micro-batched one (the sharded step's arithmetic), at the sharded
+    phase's table-wise reference (4 ranks of B=4096), and why.  Arms: the
+    fused optimizer's eps at 1e-8 (the phase's) and 1e-5, the dense part
+    in bf16 (the phase's) and float32.  Per arm: the KT gradients' and
+    the first rowwise Adagrad step's gaps on one state, then the losses
+    and the tables after ``1 + SHARDED_STEPS`` steps of each."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from torchrec_tpu_torch.ops import _native
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    _native.load_libraries()
+    card = nvidia_smi_line()
+    n = SHARDED_RANKS
+    _, host = one_id_batches(n * (1 + SHARDED_STEPS))
+    _, tables = bench_tables()
+    key = one_device_plan(sharded_plan("tw", tables, n))
+    one, st = one_device_dmp(dev, key, n)
+    init = one.table_weights(st)
+    del one, st
+    for eps, dtype in ((EPS, torch.bfloat16), (EPS, torch.float32),
+                       (1e-5, torch.bfloat16)):
+        t0 = time.perf_counter()
+        rec = {"phase": "one_device_gap", "card": card, "fused_eps": eps,
+               "dense_dtype": str(dtype).replace("torch.", ""),
+               **first_step_gap(dev, key, host, n, eps, dtype)}
+        micro = one_device_run(dev, key, host, n, True, eps, dtype)
+        plain = one_device_run(dev, key, host, n, False, eps, dtype)
+        gap = np.concatenate([np.abs(micro[1][t] - w).max(axis=1)
+                              for t, w in plain[1].items()])
+        moved = np.concatenate([np.abs(micro[1][t] - w).max(axis=1)
+                                for t, w in init.items()])
+        rec.update({
+            "micro_losses": micro[0], "plain_losses": plain[0],
+            "loss_max_rel_gap": max(abs(a - b) / abs(b)
+                                    for a, b in zip(*(micro[0], plain[0]))),
+            "table_max_abs_gap": float(gap.max()),
+            "table_rows_gap_over_1e-2": int((gap > 1e-2).sum()),
+            "table_rows_gap_over_1e-4": int((gap > 1e-4).sum()),
+            "rows_moved": int((moved > 0).sum()),
+            "row_move_q": _quantiles(torch.from_numpy(moved[moved > 0])),
+            "seconds": time.perf_counter() - t0})
+        emit(rec)
+        del micro, plain, gap, moved
+
+
+def _kt(dmp, values):
+    """The sharded collection's KT values as a KeyedTensor."""
+    from torchrec_tpu_torch.sparse import KeyedTensor
+
+    ebc = dmp.sharded_ebc
+    return KeyedTensor(ebc.feature_order, ebc.feature_dims, values)
+
+
+def _with_kjt(batch, kjt):
+    import dataclasses
+
+    return dataclasses.replace(batch, sparse_features=kjt)
+
+
+def nccl_rank(backend="nccl", device_type="cuda"):
+    """The NCCL arm, one rank on the card: the row-wise plan's forward
+    and one step ``torch.equal`` to the one-device DMP's (at one rank a
+    row-wise table is the whole table; the NCCL collectives run).  A CPU
+    rehearsal passes gloo and the CPU."""
+    import torch
+
+    from torchrec_tpu_torch.parallel import multiprocess
+    from torchrec_tpu_torch.parallel.comm import ShardingEnv
+    from torchrec_tpu_torch.parallel.qcomm import wire_accounting
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+
+    dev = _rank_device(device_type)
+    multiprocess.initialize(backend)
+    env = ShardingEnv.from_process_group(backend, device=dev)
+    caps, host = one_id_batches(1)
+    batch = host[0].to(dev)
+    _, tables = bench_tables()
+    rw, rw_state = sharded_dmp(dev, sharded_plan("rw", tables, 1),
+                               TRAIN_BATCH, caps, env)
+    one, one_state = sharded_dmp(dev, table_wise_plan(tables), TRAIN_BATCH,
+                                 caps)
+    with torch.no_grad():
+        kt, _ = rw.sparse_forward(rw_state, batch)
+        kt_one, _ = one.sparse_forward(one_state, batch)
+    with wire_accounting() as ledger:
+        rw_state, m = rw.train_step(rw_state, batch)
+    one_state, m1 = one.train_step(one_state, batch)
+    a, b = rw.table_weights(rw_state), one.table_weights(one_state)
+    rec = {"phase": "sharded_nccl", "ranks": env.world_size,
+           "backend": env.backend, "plan": "rw",
+           "kt_equal": bool(torch.equal(kt, kt_one)),
+           "tables_equal_after_step": all(np.array_equal(a[t], b[t])
+                                          for t in a),
+           "loss": float(m["loss"]), "one_device_loss": float(m1["loss"]),
+           "wire_bytes_per_step": dict(ledger)}
+    if not (rec["kt_equal"] and rec["tables_equal_after_step"]):
+        raise AssertionError(f"NCCL arm failed: {rec}")
+    return rec
+
+
+def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank):
+    """The multi-rank phase: the gloo arm's 4 ranks, then the NCCL arm's
+    one, each spawned by ``multiprocess.launch`` (the parent built every
+    kernel before), each rank's records emitted here beside the card's
+    line.  Returns (the main path's launches, summed over ranks and
+    plans; the kernel checks' records)."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.multiprocess import launch
+
+    card = nvidia_smi_line()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = launch(rank_fn, SHARDED_RANKS, args=(SHARDED_PLANS,),
+                     timeout=SHARDED_TIMEOUT)
+    launches: dict = {}
+    kchecks = []
+    for records, counts in results:
+        for rec in records:
+            emit({**rec, "card": card})
+        kchecks += [r for r in records if r["phase"] == "sharded_kernel"]
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = launch(nccl_fn, 1, timeout=SHARDED_TIMEOUT)
+    emit({**nccl, "card": card})
+    emit({"phase": "sharded_summary", "card": card, "note": ONE_CARD,
+          "gloo_arm_seconds": gloo_s,
+          "nccl_arm_seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return launches, kchecks
+
+
 def registers_record():
     """The registers a thread of every B2 and B6 instantiation uses, by
     optimizer and table dtype, at D = 128 (the narrow layout, bounded to
@@ -2732,13 +3516,15 @@ def main() -> None:
     del flush
     serve_launches, _, path_rows = serving_phase(dev)
     roundtrip_phase(dev)
+    sharded_launches, sharded_checks = sharded_phase()
 
     # each kernel's launches on its own main paths: B1/B2 the training
     # step (21 + 3 steps) and the DCN step (21), B1 also the EBC's 21
     # steps (26 a step), B4/B6 the bucketed pipeline's 21 steps, B4 also
     # the dedup EBC's forward (26), B3/B5 serving
     launches = {k: train_launches[k] + ebc_launches[k] + dedup_launches[k]
-                + dcn_launches[k] + serve_launches[k] for k in tbe.LAUNCHES}
+                + dcn_launches[k] + serve_launches[k]
+                + sharded_launches.get(k, 0) for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows
             + dcn_rows + path_rows]
@@ -2747,6 +3533,9 @@ def main() -> None:
                           ("fused_sparse_update", "b2"))]
     errs += [("dedup_pooled_lookup", dedup_check["b4_max_abs_err"]),
              ("dedup_fused_sparse_update", dedup_check["b6_max_abs_err"])]
+    errs += [(k, c[f"{b}_max_abs_err"]) for c in sharded_checks
+             for k, b in (("pooled_lookup", "b1"),
+                          ("fused_sparse_update", "b2"))]
 
     def representative(name):
         """The timed row of each kernel: float32 (int8 for B3/B5), rowwise
@@ -2805,4 +3594,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--one-device-gap"]:
+        one_device_gap()
+    else:
+        main()

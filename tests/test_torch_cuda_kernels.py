@@ -933,3 +933,61 @@ def test_pooled_lookup_backward_deterministic_on_card(dev, kernel, dtype, D,
     for a, b in zip(first, cpu):
         torch.testing.assert_close(a.cpu().float(), b.float(), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_pooled_lookup_over_row_wise_buckets_equals_plain_on_card(dev,
+                                                                  dtype):
+    """B1 over what a row-wise owner receives: ``[N_src, F, C]`` buckets
+    from ``moe_dispatch_batched`` (each source's ids bucketed by owner),
+    read as ``F * N`` regions in (feature, source) order with each
+    example's length counted from its example id in the bucket
+    (``rw.block_regions``), ``torch.equal`` to the plain version, one
+    launch."""
+    import types
+
+    from torchrec_tpu_torch.parallel.sharding.common import (
+        moe_dispatch_batched,
+    )
+    from torchrec_tpu_torch.parallel.sharding.rw import block_regions
+
+    rng = np.random.RandomState(7)
+    N, F, B, C, rows, D, me = 4, 5, 32, 96, 1000, 64, 2
+    bs = -(-rows // N)
+    recv = []
+    for _ in range(N):  # each source's dispatch; the owner gets bucket me
+        lens = rng.randint(0, 4, size=(F, B))
+        ids = [torch.from_numpy(rng.randint(0, rows, C)).to(dev)
+               for _ in range(F)]
+        segs = [per_slot_segments(torch.from_numpy(lens[f]).to(dev), C)
+                for f in range(F)]
+        w = [torch.from_numpy(rng.rand(C).astype(np.float32)).to(dev)
+             for _ in range(F)]
+        out = moe_dispatch_batched(
+            [(i % bs).to(torch.int32) for i in ids],
+            ([s.to(torch.int32) for s in segs], w), [i // bs for i in ids],
+            [s < B for s in segs], N, C, (0, B, 0.0))
+        recv.append([o[me] for o in out])
+    ids_r, b_r, w_r = (torch.stack([r[k] for r in recv]) for k in range(3))
+    regions = block_regions(types.SimpleNamespace(batch_size=B), b_r)
+    table = torch.randn((bs, D), device=dev).to(dtype)
+    ids, w = ids_r.reshape(-1), w_r.reshape(-1)
+    tbe.reset_launch_counts()
+    got = tbe.pooled_lookup_regions(table, ids, regions, w)
+    assert tbe.launch_counts()["pooled_lookup"] == 1
+    assert int(regions.lengths.sum()) == int((b_r < B).sum())
+    assert torch.equal(got, tbe.pooled_lookup_regions_plain(table, ids,
+                                                            regions, w))
+
+
+def test_one_rank_nccl_forward_and_step_on_card(dev):
+    """One rank over NCCL on the card: the row-wise plan's KeyedTensor
+    and its tables after one step ``torch.equal`` to the one-device
+    DMP's (at one rank a row-wise table is the whole table)."""
+    from torchrec_tpu_torch.parallel.multiprocess import launch
+
+    import torch_sharding_workers as workers
+
+    (rec,) = launch(workers.nccl_rank, 1, timeout=300)
+    assert rec["kt_equal"] and rec["tables_equal"], rec
+    assert rec["backend"] == "nccl" and rec["loss"] == rec["one_loss"]

@@ -71,6 +71,7 @@ from torchrec_tpu_torch.parallel.embeddingbag import (
 from torchrec_tpu_torch.parallel.model_parallel import DistributedModelParallel
 from torchrec_tpu_torch.parallel.types import (
     EmbeddingComputeKernel,
+    ParameterSharding,
     ShardingType,
     table_wise_plan,
 )
@@ -356,14 +357,25 @@ def test_dmp_dense_state_holds_no_table():
 def test_unported_paths_raise():
     caps = {k: B * n for k, n in zip(KEYS, IDS)}
     tables = _tables(EmbeddingBagConfig)
-    # table-wise groups across two devices need the unported dists
+    # a group over two ranks runs its dists on a ShardingEnv, and the
+    # dedup'd row-wise dist is not ported (ROADMAP A7)
     ebc = ShardedEmbeddingBagCollection.build(
         tables, table_wise_plan(tables), 2, B, caps)
     params = ebc.init_params(torch.Generator().manual_seed(0))
     batch = next(iter(RandomRecDataset(KEYS, B, [ROWS] * len(KEYS), IDS,
                                        num_dense=DENSE_IN)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ShardingEnv"):
         ebc.forward_local(params, batch.sparse_features)
+    rw = {t.name: ParameterSharding(ShardingType.ROW_WISE, ranks=[0])
+          for t in tables}
+    rw_ebc = ShardedEmbeddingBagCollection.build(tables, rw, 1, B, caps)
+    with pytest.raises(NotImplementedError, match="A7"):
+        rw_ebc.forward_local(
+            rw_ebc.init_params(torch.Generator().manual_seed(0)),
+            batch.sparse_features, lookup_kernel="dedup")
+    rw[tables[0].name].dedup = True
+    with pytest.raises(NotImplementedError, match="A7"):
+        ShardedEmbeddingBagCollection.build(tables, rw, 1, B, caps)
     # the fused kernels keep float32 optimizer states only (the JAX
     # package's momentum_dtype is not ported): a float64 Adam state raises
     sg = SparseSegGrad(torch.zeros(4, dtype=torch.int64),

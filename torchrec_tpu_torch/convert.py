@@ -32,7 +32,13 @@ crosses in both directions (:func:`train_state_from_jax`,
 ``optax.adagrad`` state (the same tree), each group's table stack, its
 fused-optimizer state (any of the eight layouts: ``momentum`` ``[R]`` or
 ``[R, D]``, ``m``, ``v`` and the Adam family's ``step``) and the step.
-Everything here is numpy and torch; nothing imports JAX.
+A sharded JAX state holds every rank's rows of a group in one global
+stack (row ``d * rows + r`` is row ``r`` of rank ``d``): with ``rank``
+and ``world_size`` the crossing keeps rank ``rank``'s rows of each
+sharded group and its states (:func:`shard_rows`), and every row of a
+replicated (data-parallel) group.  Full tables cross through the sharded
+collection's ``params_from_tables(weights, rank=...)``.  Everything here
+is numpy and torch; nothing imports JAX.
 """
 
 from __future__ import annotations
@@ -229,15 +235,36 @@ def _fused_to_jax(st: Mapping[str, Any]) -> Dict[str, Any]:
             for k, v in st.items()}
 
 
+def shard_rows(arr: Any, rank: int, world_size: int) -> np.ndarray:
+    """Rank ``rank``'s rows of a global ``[N * rows, ...]`` stack or
+    state (the JAX package's row-sharded layout)."""
+    arr = np.asarray(arr)
+    if arr.shape[0] % world_size:
+        raise ValueError(f"{arr.shape[0]} rows do not split over "
+                         f"{world_size} ranks")
+    n = arr.shape[0] // world_size
+    return arr[rank * n:(rank + 1) * n]
+
+
 def train_state_from_jax(
     state: Mapping[str, Any],
     device=None,
     table_dtype: Optional[torch.dtype] = None,
+    rank: int = 0,
+    world_size: int = 1,
+    replicated: Sequence[str] = (),
 ) -> Dict[str, Any]:
     """A JAX ``DistributedModelParallel`` train state with numpy leaves
-    (``jax.tree.map(np.asarray, state)``) -> the port's train state on
-    ``device``.  Table stacks keep their dtype (float32, or bfloat16 where
-    the JAX stack is bfloat16) unless ``table_dtype`` is given."""
+    (``jax.tree.map(np.asarray, state)``) -> rank ``rank``'s share of the
+    port's train state on ``device``: each group's rows of that rank, but
+    every row of the ``replicated`` (data-parallel) groups.  Table stacks
+    keep their dtype (float32, or bfloat16 where the JAX stack is
+    bfloat16) unless ``table_dtype`` is given."""
+
+    def mine(group, arr):
+        if group in replicated or np.ndim(arr) == 0:
+            return arr
+        return shard_rows(arr, rank, world_size)
 
     def table(arr):
         dt = table_dtype
@@ -251,8 +278,9 @@ def train_state_from_jax(
                   dlrm_state_dict_from_flax(state["dense"]).items()},
         "dense_opt": {k: v.to(device) for k, v in dlrm_state_dict_from_flax(
             _sum_of_squares(state["dense_opt"])).items()},
-        "tables": {g: table(t) for g, t in state["tables"].items()},
-        "fused": {g: _fused_from_jax(st, device)
+        "tables": {g: table(mine(g, t)) for g, t in state["tables"].items()},
+        "fused": {g: _fused_from_jax({k: mine(g, v) for k, v in st.items()},
+                                     device)
                   for g, st in state["fused"].items()},
         "step": int(np.asarray(state["step"])),
     }

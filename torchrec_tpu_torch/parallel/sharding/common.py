@@ -1,16 +1,15 @@
 """Shared machinery for sharded embedding execution (a subset of
 ``torchrec_tpu/parallel/sharding/common.py``): the (feature, table)
 bindings of a group, the slot -> example map of a front-packed region and
-the per-id weights computed at the source.
-
-Left out: ``moe_dispatch``/``moe_dispatch_batched`` (row-wise dists) and
-``all_to_all`` (multi-GPU sharding, ROADMAP A6).
+the per-id weights computed at the source, the bucketing of ids by
+destination rank (:func:`moe_dispatch`, the row-wise dists' input) and
+the raw all-to-all of the input dists.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -18,6 +17,8 @@ from torchrec_tpu_torch.modules.embedding_configs import (
     EmbeddingBagConfig,
     PoolingType,
 )
+from torchrec_tpu_torch.parallel import comm
+from torchrec_tpu_torch.parallel.qcomm import record_wire_bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,3 +90,81 @@ def source_weights(
         denom = lengths[seg.clamp(0, B - 1)].clamp(min=1).to(torch.float32)
         w = w / denom
     return torch.where(seg < B, w, 0.0)
+
+
+def moe_dispatch(
+    ids: torch.Tensor,
+    payload: Tuple[torch.Tensor, ...],
+    dest: torch.Tensor,
+    valid: torch.Tensor,
+    num_dest: int,
+    cap: int,
+    fill_values: Tuple,
+) -> Tuple[torch.Tensor, ...]:
+    """Sort-based bucketing by destination (the MoE dispatch): ``ids``
+    and each payload go to a ``[num_dest, cap]`` buffer whose bucket
+    ``d`` holds, front-packed and in their input order (a stable sort),
+    the valid entries with ``dest == d``; the rest of a bucket holds its
+    array's fill value.  Entries past ``cap`` in one bucket, and entries
+    with a destination outside ``[0, num_dest)``, are dropped, as in the
+    JAX package (callers size ``cap`` at the worst case for exactness).
+    Returns ``(ids_out, *payload_out)``.  No host sync."""
+    V = ids.shape[0]
+    dev = ids.device
+    d = torch.where(valid & (dest >= 0), dest.to(torch.int64), num_dest)
+    d = d.clamp(max=num_dest)
+    order = torch.argsort(d, stable=True)
+    sd = d[order]
+    counts = torch.zeros(num_dest + 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, sd, torch.ones_like(sd))  # a bincount, no sync
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(V, device=dev) - starts[sd]
+    slot = torch.where((sd < num_dest) & (rank < cap), sd * cap + rank,
+                       num_dest * cap)
+    outs = []
+    for src, fill in zip((ids,) + tuple(payload), fill_values):
+        # one spare element past the buckets takes every dropped entry
+        buf = torch.full((num_dest * cap + 1,), fill, dtype=src.dtype,
+                         device=dev)
+        buf[slot] = src[order]
+        outs.append(buf[:-1].view(num_dest, cap))
+    return tuple(outs)
+
+
+def moe_dispatch_batched(
+    ids_per_group: Sequence[torch.Tensor],
+    payload_per_group: Sequence[Sequence[torch.Tensor]],
+    dest_per_group: Sequence[torch.Tensor],
+    valid_per_group: Sequence[torch.Tensor],
+    num_dest: int,
+    cap: int,
+    fill_values: Tuple,
+) -> Tuple[torch.Tensor, ...]:
+    """:func:`moe_dispatch` of many groups (features or slots) with one
+    sort: group ``g``'s entries go to bucket ``dest * G + g``.  Outputs
+    are ``[num_dest, G, cap]``, each ``(dest, group)`` bucket
+    front-packed in the group's input order."""
+    G = len(ids_per_group)
+    dev = ids_per_group[0].device
+    group_idx = torch.cat([
+        torch.full((a.shape[0],), g, dtype=torch.int64, device=dev)
+        for g, a in enumerate(ids_per_group)])
+    dest = torch.cat([d.to(torch.int64) for d in dest_per_group])
+    # an entry bound outside [0, num_dest) stays outside after the flattening
+    d2 = torch.where((dest >= 0) & (dest < num_dest), dest * G + group_idx,
+                     -1)
+    outs = moe_dispatch(
+        torch.cat(list(ids_per_group)),
+        tuple(torch.cat(list(p)) for p in payload_per_group),
+        d2, torch.cat(list(valid_per_group)), num_dest * G, cap,
+        fill_values)
+    return tuple(o.view(num_dest, G, cap) for o in outs)
+
+
+def all_to_all(x: torch.Tensor, env: "comm.ShardingEnv",
+               tag: Optional[str] = None) -> torch.Tensor:
+    """``[N, ...]`` -> ``[N, ...]``: block ``j`` of the result is the
+    block rank ``j`` sent this rank.  ``tag`` labels the payload in the
+    wire-byte ledger (its raw bytes)."""
+    record_wire_bytes(tag or "all_to_all:raw", x.numel() * x.element_size())
+    return comm.all_to_all(x, env)

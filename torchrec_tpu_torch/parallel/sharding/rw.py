@@ -1,0 +1,277 @@
+"""Row-wise sharded execution (a subset of
+``torchrec_tpu/parallel/sharding/rw.py``).
+
+Every table of a group is split into ``N`` blocks of ``ceil(rows / N)``
+rows, block ``d`` on rank ``d``, and the blocks of one rank are stacked
+into one array.  Each rank runs
+
+  input dist : :func:`~.common.moe_dispatch_batched` buckets its ids by
+               owner (a stable sort) into ``[N, F, C]`` ids (local rows),
+               example ids and per-id weights, sent by all-to-all;
+  lookup     : the per-id lookup (``"tbe"``, B1) over its stack reads the
+               received ``[N_src, F, C]`` buckets as ``F * N`` regions in
+               (feature, source) order with no sort: the stable sort kept
+               each (source, feature) bucket in example order, so each
+               example's ids are a run of its bucket, and its length is a
+               count of its example id in that bucket;
+  output dist: a reduce-scatter of the partial sums (``qcomm_psum_scatter``,
+               a sum over sources in rank order) to the examples' ranks;
+
+and the backward all-gathers the pooled gradients to every owner and hands
+its slots to the fused update as a :class:`SparseSegGrad`.  Example
+``(feature, src, b)`` is segment ``feature * (N * B) + src * B + b``, the
+JAX package's order.  An id outside its table is dropped at the source.
+
+Left out: the dedup'd input dist (``rw_dedup_*``, ROADMAP A7), the
+hierarchical layout fields, the sequence functions (the sharded
+``EmbeddingCollection``, the next slice of ROADMAP A6) and ``row_align``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from torchrec_tpu_torch.ops.embedding_ops import (
+    SlotRegions,
+    pooled_embedding_lookup_regions,
+)
+from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
+from torchrec_tpu_torch.parallel.comm import ShardingEnv, resolve_env
+from torchrec_tpu_torch.parallel.qcomm import (
+    qcomm_all_gather,
+    qcomm_psum_scatter,
+)
+from torchrec_tpu_torch.parallel.sharding.common import (
+    FeatureSpec,
+    all_to_all,
+    moe_dispatch_batched,
+    per_slot_segments,
+    source_weights,
+)
+from torchrec_tpu_torch.parallel.sharding.tw import WeightLike
+from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+
+@dataclasses.dataclass
+class RwGroupLayout:
+    """Static layout of one (ROW_WISE, dim) group."""
+
+    name: str
+    world_size: int
+    batch_size: int
+    dim: int
+    cap: int  # uniform per-(feature, dest) capacity: the largest feature cap
+    features: List[FeatureSpec]
+    # per table: rows a rank holds, and their offset in the rank's stack
+    block_size: Dict[str, int]
+    local_offset: Dict[str, int]
+    l_stack: int  # rows of a rank's stack
+
+
+def build_rw_layout(
+    name: str,
+    features: Sequence[FeatureSpec],
+    world_size: int,
+    batch_size: int,
+) -> RwGroupLayout:
+    """Row-wise group layout: each table block-split over the ranks, the
+    blocks of a rank stacked in table order."""
+    dim = features[0].dim
+    if any(f.dim != dim for f in features):
+        raise ValueError(f"group {name}: features of different dims")
+    block_size: Dict[str, int] = {}
+    local_offset: Dict[str, int] = {}
+    off = 0
+    for f in features:
+        if f.table_name in block_size:
+            continue
+        bs = -(-f.table_rows // world_size)
+        block_size[f.table_name] = bs
+        local_offset[f.table_name] = off
+        off += bs
+    return RwGroupLayout(
+        name=name, world_size=world_size, batch_size=batch_size, dim=dim,
+        cap=max(f.cap for f in features), features=list(features),
+        block_size=block_size, local_offset=local_offset,
+        l_stack=max(1, off),
+    )
+
+
+def _table_rows(layout) -> Dict[str, int]:
+    return {f.table_name: f.table_rows for f in layout.features}
+
+
+def rw_params_from_tables(
+    layout: RwGroupLayout,
+    table_weights: Mapping[str, WeightLike],
+    dtype: torch.dtype = torch.float32,
+    device=None,
+    rank: Optional[int] = None,
+) -> torch.Tensor:
+    """Rank ``rank``'s stack ``[l_stack, dim]`` (every rank's, ``[N *
+    l_stack, dim]``, with ``rank=None``): table ``t``'s row ``r`` is row
+    ``local_offset[t] + r % block`` of rank ``r // block``."""
+    L = layout.l_stack
+    ranks = range(layout.world_size) if rank is None else [rank]
+    out = torch.zeros((len(ranks) * L, layout.dim), dtype=dtype,
+                      device=device)
+    for tname, bs in layout.block_size.items():
+        w = torch.as_tensor(table_weights[tname])
+        lo = layout.local_offset[tname]
+        for i, d in enumerate(ranks):
+            rows = w[d * bs: (d + 1) * bs]
+            out[i * L + lo: i * L + lo + rows.shape[0]] = rows.to(out.device)
+    return out
+
+
+def rw_tables_from_params(
+    layout: RwGroupLayout, params: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`rw_params_from_tables` over every rank's stack
+    ``[N * l_stack, dim]``."""
+    N, L = layout.world_size, layout.l_stack
+    out = {}
+    for tname, R in _table_rows(layout).items():
+        bs, lo = layout.block_size[tname], layout.local_offset[tname]
+        out[tname] = torch.cat([
+            params[d * L + lo: d * L + lo + min(bs, R - d * bs)]
+            for d in range(N) if R - d * bs > 0])
+    return out
+
+
+def block_dispatch(
+    layout,
+    entries: Sequence[Tuple[FeatureSpec, torch.Tensor, torch.Tensor]],
+    kjt: KeyedJaggedTensor,
+    env: ShardingEnv,
+    fill_id: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The input dist of a block-split group (RW, TWRW): ``entries`` is
+    one ``(feature, dest rank, local row)`` per bucket group, the last two
+    per id of the feature's KJT slots.  Buckets every group's valid ids by
+    destination with one sort, then sends them.  Returns the received
+    ``[N_src, G, C]`` local rows, example ids (``B`` for padding) and
+    float32 weights."""
+    N, B, C = layout.world_size, layout.batch_size, layout.cap
+    jts = kjt.to_dict()
+    ids_c, seg_c, w_c, dest_c, valid_c = [], [], [], [], []
+    for f, dest, local in entries:
+        jt = jts[f.name]
+        seg = per_slot_segments(jt.lengths(), f.cap)
+        ids = jt.values()
+        ids_c.append(local.to(torch.int32))
+        dest_c.append(dest)
+        seg_c.append(seg.to(torch.int32))
+        w_c.append(source_weights(jt.weights_or_none(), seg, jt.lengths(),
+                                  f.pooling))
+        valid_c.append((seg < B) & (ids >= 0) & (ids < f.table_rows))
+    ids_send, b_send, w_send = moe_dispatch_batched(
+        ids_c, (seg_c, w_c), dest_c, valid_c, N, C,
+        fill_values=(fill_id, B, 0.0))
+    tag = f"{layout.name}:id_dist"
+    return (all_to_all(ids_send, env, tag), all_to_all(b_send, env, tag),
+            all_to_all(w_send, env, tag))
+
+
+def block_regions(layout, b_recv: torch.Tensor) -> SlotRegions:
+    """The received ``[N, G, C]`` buckets as ``G * N`` regions in (group,
+    source) order, region ``(g, src)`` at ``(src * G + g) * C`` with
+    ``B`` examples: each example's length is the count of its example id
+    in its bucket (a scatter-add, no host sync), and example ``(g, src,
+    b)`` is row ``g * (N * B) + src * B + b`` of the lookup's output."""
+    N, G, C = b_recv.shape
+    B = layout.batch_size
+    g = torch.arange(G, device=b_recv.device)[None, :, None]
+    src = torch.arange(N, device=b_recv.device)[:, None, None]
+    key = ((g * N + src) * (B + 1) + b_recv).reshape(-1)  # b == B: padding
+    counts = torch.zeros(G * N * (B + 1), dtype=torch.int32,
+                         device=b_recv.device)
+    counts.index_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    lengths = counts.view(G * N, B + 1)[:, :B].reshape(-1)
+    order = [src_ * G + g_ for g_ in range(G) for src_ in range(N)]
+    return SlotRegions(lengths, tuple(k * C for k in order), (C,) * (G * N),
+                       (B,) * (G * N))
+
+
+def block_segments(layout, b_recv: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Each received slot's segment ``g * (N * B) + src * B + b``
+    (``G * N * B`` for padding), int64 ``[N * G * C]``, and the segment
+    count."""
+    N, G, _ = b_recv.shape
+    B = layout.batch_size
+    g = torch.arange(G, device=b_recv.device)[None, :, None]
+    src = torch.arange(N, device=b_recv.device)[:, None, None]
+    num_segments = G * N * B
+    segs = torch.where(b_recv < B, g * (N * B) + src * B + b_recv,
+                       num_segments)
+    return segs.reshape(-1).to(torch.int64), num_segments
+
+
+def block_lookup(layout, stack_local, ids_recv, b_recv, w_recv, env):
+    """The owner's lookup of a block-split group and its reduce-scatter:
+    (``[G, B, dim]`` pooled sums of this rank's examples, ctx: the
+    received ids and weights, their segments and regions)."""
+    N, G, _ = b_recv.shape
+    B = layout.batch_size
+    ids_flat, w_flat = ids_recv.reshape(-1), w_recv.reshape(-1)
+    regions = block_regions(layout, b_recv)
+    partial = pooled_embedding_lookup_regions(stack_local, ids_flat,
+                                              regions, w_flat)
+    x = partial.view(G, N, B, layout.dim).transpose(0, 1)  # [N, G, B, dim]
+    pooled = qcomm_psum_scatter(x, env, None, "fwd",
+                                tag=f"{layout.name}:out_dist")
+    segs, _ = block_segments(layout, b_recv)
+    return pooled, (ids_flat, w_flat, segs, regions)
+
+
+def block_backward(layout, ctx, g_home: torch.Tensor,
+                   env: ShardingEnv) -> SparseSegGrad:
+    """Reverse of the reduce-scatter: every rank's ``[G, B, dim]``
+    gradient to every owner (an all-gather), then the owner's slots
+    against its stack."""
+    ids_flat, w_flat, segs = ctx[:3]
+    G, B, D = g_home.shape
+    N = layout.world_size
+    g_all = qcomm_all_gather(g_home, env, None, "bwd",
+                             tag=f"{layout.name}:bwd_dist", fanout=N)
+    g_flat = g_all.transpose(0, 1).reshape(G * N * B, D)
+    valid = (segs < G * N * B) & (w_flat != 0)
+    return SparseSegGrad(ids_flat, valid, segs, w_flat, g_flat)
+
+
+def rw_forward_local(
+    layout: RwGroupLayout,
+    stack_local: torch.Tensor,  # [l_stack, dim]
+    kjt: KeyedJaggedTensor,
+    env: Optional[ShardingEnv] = None,
+) -> Tuple[Dict[str, torch.Tensor], Tuple]:
+    """Bucket -> all-to-all -> partial lookup -> reduce-scatter.  Returns
+    ({feature: [B, dim]}, ctx for the backward)."""
+    env = resolve_env(env, layout.world_size, stack_local.device)
+    jts = kjt.to_dict()
+    entries = []
+    for f in layout.features:
+        ids = jts[f.name].values().to(torch.int64)
+        bs = layout.block_size[f.table_name]
+        entries.append((f, ids // bs,
+                        layout.local_offset[f.table_name] + ids % bs))
+    recv = block_dispatch(layout, entries, kjt, env, fill_id=0)
+    pooled, ctx = block_lookup(layout, stack_local, *recv, env)
+    return {f.name: pooled[i] for i, f in enumerate(layout.features)}, ctx
+
+
+def rw_backward_local(
+    layout: RwGroupLayout,
+    ctx: Tuple,
+    grad_out: Mapping[str, torch.Tensor],
+    env: Optional[ShardingEnv] = None,
+) -> SparseSegGrad:
+    """All-gather the gradients (the reverse of the reduce-scatter); the
+    sparse gradient against this rank's stack."""
+    env = resolve_env(env, layout.world_size, ctx[1].device)
+    g_local = torch.stack([grad_out[f.name].to(torch.float32)
+                           for f in layout.features])  # [F, B, dim]
+    return block_backward(layout, ctx, g_local, env)
