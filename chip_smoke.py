@@ -3,7 +3,8 @@
 ``bench.py main()``, the unsharded authoring path of the same model
 (``EmbeddingBagCollection`` -> ``DLRM`` -> ``DLRMTrain``), the bucketed
 training pipeline on the dedup kernels, MLPerf DLRM-v2 (``DLRM_DCN``)
-training on the per-id kernels, quantized DLRM serving, and the
+training on the per-id kernels, the planner-driven DLRM application
+(``examples/dlrm/dlrm_main.py``), quantized DLRM serving, and the
 multi-rank sharded train step (4 gloo ranks on the card, 1 NCCL rank).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
@@ -28,9 +29,12 @@ Phases, one JSON line each on stdout; any failure raises:
    the kernel's and the yardstick's times both with the host's launch
    work in (``kernel_ms``, ``library_ms``) and of the card alone
    (``kernel_device_ms``, ``library_device_ms``);
+   Then the ``planner`` records: the port's sharding planner with its
+   H100 profile over the bench tables at world 1 and 4 and over the
+   MLPerf DLRM-v2 tables at world 1 (no run);
 3. train — the training main path: ``DistributedModelParallel`` at the
    configuration of ``bench.py main()`` (26 tables of 100,000 x 128, SUM,
-   float32, one table-wise group; B=4096 from ``RandomRecDataset`` with
+   float32, one table-wise group, the planner's plan at world 1; B=4096 from ``RandomRecDataset`` with
    one id per feature at most; DLRM 13 -> 512-256-128, over arch
    1024-1024-512-256-1 in bfloat16 with a float32 logit layer; BCE;
    rowwise Adagrad lr 0.05 and optax-style dense Adagrad 0.05).  First
@@ -142,17 +146,34 @@ Phases, one JSON line each on stdout; any failure raises:
    features of a batch in one launch) against their plain versions at
    the served B=256 and the B=4096 batch, int8 and the int4/int2 views,
    uniform and Zipf ids, with times and bounds;
-8. roundtrip — ``package_model`` at 10k rows per table, loaded on the
+8. app (before serving) — the DLRM application through its ``main`` at
+   ``--num_embeddings 100000 --embedding_dim 128 --batch_size 4096
+   --steps 40 --eval_steps 10 --warmup_steps 20`` (8 features x 10 ids,
+   DLRM 13 -> 512-256-128, over arch 512-512-256-1, float32; rowwise
+   Adagrad and dense Adagrad 0.05, one linear warmup schedule on both;
+   the planner's plan at world 1): one B1 per train step and eval batch
+   and one B2 per train step and nothing else (counts and a profile),
+   finite losses, ``id_overflow`` zero, ``make_forward`` ``torch.equal``
+   to ``train_step``'s logits, a ramp step ``torch.equal`` to the plain
+   B1/B2 at the scheduled float32 lr, NE / AUC / calibration finite and
+   the card's ``RecMetricModule`` within 1e-6 of a CPU module's; ms a
+   step, samples/s, eval ms a batch, peak memory, and the planner's
+   per-rank HBM and step estimates beside them;
+   roundtrip — ``package_model`` at 10k rows per table, loaded on the
    card and on the CPU, scores compared.
 9. sharded — the multi-rank train step (``parallel/comm.py``,
    ``multiprocess.py``, ``sharding/{tw,rw,twrw}.py``, the sharded
    ``EmbeddingBagCollection`` and ``DistributedModelParallel(env=...)``)
    at the width of phase 3, B=4096 per rank.  Four ranks on the one card
    over gloo (``multiprocess.launch``: spawned after the parent built
-   every kernel), each on ``cuda:0``, for five plans: table-wise
+   every kernel), each on ``cuda:0``, for six plans: table-wise
    round-robin, column-wise in 2 shards, row-wise, table-row-wise over
-   nodes of 2 ranks, and row-wise + table-wise + column-wise + 2
-   data-parallel tables.  Per plan and rank: the KT of its one-id batch
+   nodes of 2 ranks, row-wise + table-wise + column-wise + 2
+   data-parallel tables, and the port's planner's plan at world 4
+   (``planned``, which adds each rank's ``make_forward`` ``torch.equal``
+   to the one-device forward of its batch, and one step with rank 0's
+   batch over capacity whose ``id_overflow``, summed over ranks, equals
+   the one-device counts).  Per plan and rank: the KT of its one-id batch
    ``torch.equal`` to the unsharded ``EmbeddingBagCollection``'s (same
    seeded tables) and of a weighted multi-hot batch (Zipf(1.2) lengths of
    1 to 64, Zipf(1.0) ids, repacked to the ranks' largest bucketed caps)
@@ -193,6 +214,7 @@ tables would not fit the run); the dense weights are random from a seed.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -223,8 +245,8 @@ KERNEL_SOURCES = {
 }
 # the main paths that launch each kernel (chip_smoke's phases)
 KERNEL_PATHS = {
-    "pooled_lookup": ["train", "ebc", "train_dcn", "sharded"],
-    "fused_sparse_update": ["train", "train_dcn", "sharded"],
+    "pooled_lookup": ["train", "ebc", "train_dcn", "app", "sharded"],
+    "fused_sparse_update": ["train", "train_dcn", "app", "sharded"],
     "quant_pooled_lookup_int8": ["serving"],
     "dedup_quant_pooled_lookup": ["serving"],
     "dedup_pooled_lookup": ["train_dedup", "ebc"],
@@ -498,7 +520,9 @@ def kernel_phase(dev, flush):
 
 def build_trainer(dev, table_dtype):
     """``DistributedModelParallel`` at the configuration of ``bench.py
-    main()``, its state from a seeded generator on the card, and the
+    main()``, on the plan of the planner at world 1 as ``bench.py main()``
+    makes it (bench.py:3987; ``table_wise_plan``, which the planner
+    record holds), its state from a seeded generator on the card, and the
     first ``TRAIN_BATCHES`` batches of its dataset on the card."""
     import torch
 
@@ -510,7 +534,7 @@ def build_trainer(dev, table_dtype):
     from torchrec_tpu_torch.parallel.model_parallel import (
         DistributedModelParallel,
     )
-    from torchrec_tpu_torch.parallel.types import table_wise_plan
+    from torchrec_tpu_torch.parallel.planner import EmbeddingShardingPlanner
 
     keys = [f"cat_{i}" for i in range(TRAIN_FEATURES)]
     tables = tuple(
@@ -523,8 +547,8 @@ def build_trainer(dev, table_dtype):
     model = DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
                  dense_dtype=torch.bfloat16)
     dmp = DistributedModelParallel(
-        model, tables, table_wise_plan(tables), TRAIN_BATCH,
-        dict(zip(keys, ds.caps)),
+        model, tables, EmbeddingShardingPlanner(world_size=1).plan(tables),
+        TRAIN_BATCH, dict(zip(keys, ds.caps)),
         fused_config=FusedOptimConfig(learning_rate=TRAIN_LR),
         dense_optimizer=adagrad(TRAIN_LR), table_dtype=table_dtype,
         device=dev,
@@ -979,13 +1003,15 @@ def train_kernel_phase(dev, flush, dmp, state, batch):
     return rows
 
 
-def train_path_check(dmp, state, batch, sr_seed, phase="train_path_check"):
+def train_path_check(dmp, state, batch, sr_seed, phase="train_path_check",
+                     lr=None):
     """On one batch at full width, the step's own calls: B1's pooled
     output (the KT values) ``torch.equal`` to the plain version's, and
     B2's updated stack and optimizer state, from the step's real
     gradient, equal to the plain version's on the touched rows, with
     nothing written elsewhere (checksums; the touched rows are undone
-    after each, so no stack is copied whole).  A stack larger than
+    after each, so no stack is copied whole).  ``lr``: the fused update's
+    learning rate for this step (a schedule's; the config's if None).  A stack larger than
     ``FAR_BYTES`` must be touched past them; with a bfloat16 stack and a
     seed, the stochastically rounded stack must differ from
     round-to-nearest.  The state is left as it was.  Returns the emitted
@@ -1019,14 +1045,16 @@ def train_path_check(dmp, state, batch, sr_seed, phase="train_path_check"):
     R, D = stack.shape
     rows = torch.unique(sg.ids[sg.ok()]).to(torch.int64)
     snap = RowSnapshot([stack, *states], rows)
-    apply_sparse_update_segments(stack, fused, sg, cfg, sr_seed=sr_seed)
+    apply_sparse_update_segments(stack, fused, sg, cfg, sr_seed=sr_seed,
+                                 learning_rate=lr)
     torch.cuda.synchronize()
     got = snap.take()
     intact = snap.intact()
 
     def plain_update(seed):
         _update_call(tbe_backward.fused_sparse_update_plain, stack, states,
-                     cfg.optim.value, sg, cfg.learning_rate, seed,
+                     cfg.optim.value, sg,
+                     cfg.learning_rate if lr is None else lr, seed,
                      (1.0, 1.0))
         return snap.take()
 
@@ -1048,7 +1076,7 @@ def train_path_check(dmp, state, batch, sr_seed, phase="train_path_check"):
                                  for a, b in zip(got[1:], ref[1:])),
         "b2_max_abs_err": max(float((a.float() - b.float()).abs().max())
                               for a, b in zip(got, ref)),
-        "sr_seed": sr_seed,
+        "sr_seed": sr_seed, "learning_rate": lr,
     }
     if sr_seed is not None:
         rec["sr_differs_from_nearest"] = int((plain_update(None)[0]
@@ -2698,13 +2726,265 @@ def roundtrip_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# the sharding planner's records, and phase 10: the planner-driven DLRM
+# application (examples/dlrm/dlrm_main.py) on the card
+# ---------------------------------------------------------------------------
+
+APP_STEPS, APP_EVAL, APP_WARMUP = 40, 10, 20
+APP_FLAGS = ["--num_embeddings", "100000", "--embedding_dim", str(DIM),
+             "--batch_size", str(BENCH_BATCH), "--steps", str(APP_STEPS),
+             "--eval_steps", str(APP_EVAL), "--warmup_steps",
+             str(APP_WARMUP)]
+APP_RAMP_STEP = 3  # the ramp check's step, inside the 20-step warmup
+APP_BUDGET_S = 60
+METRICS_TOL = 1e-6  # card vs CPU RecMetricModule (float32 sums)
+
+
+def _plan_summary(plan):
+    return {t: [ps.sharding_type.value, ps.compute_kernel.value, ps.ranks,
+                ps.cache_load_factor] for t, ps in plan.items()}
+
+
+def planner_records():
+    """The port's planner with its H100 profile, no run: the bench tables
+    (26 x 100,000 x 128) at B=4096 a rank at world 1 (the train phase's
+    plan, which must be ``table_wise_plan``) and world 4 (the sharded
+    phase's ``planned`` plan), and the MLPerf DLRM-v2 tables (204M rows,
+    D=128) at world 1 and B=8192, as the planner's defaults give it (the
+    f32 tables and state do not fit 80 GB) and with the multi-hot pooling
+    factors and ``tiered="on"`` (host-cached options) for the five
+    40M-row tables.  Emits one record each, a ``PlannerError``'s message
+    where the planner finds no plan."""
+    from torchrec_tpu_torch.datasets.criteo import (
+        MLPERF_DLRM_V2_MULTI_HOT,
+        mlperf_dlrm_v2_tables,
+    )
+    from torchrec_tpu_torch.parallel.planner import (
+        EmbeddingShardingPlanner,
+        ParameterConstraints,
+        PlannerError,
+    )
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+
+    _, bench = bench_tables()
+    mlperf = mlperf_dlrm_v2_tables()
+    tiered = {c.name: ParameterConstraints(
+        tiered="on" if c.num_embeddings >= 4_000_000 else None,
+        pooling_factor=float(h))
+        for c, h in zip(mlperf, MLPERF_DLRM_V2_MULTI_HOT)}
+    for name, tables, world, batch, cons in (
+            ("bench", bench, 1, BENCH_BATCH, None),
+            ("bench", bench, SHARDED_RANKS, BENCH_BATCH, None),
+            ("mlperf_dlrm_v2", mlperf, 1, DCN_BATCH, None),
+            ("mlperf_dlrm_v2_host_cached", mlperf, 1, DCN_BATCH, tiered)):
+        t0 = time.perf_counter()
+        planner = EmbeddingShardingPlanner(
+            world_size=world, batch_size_per_device=batch, constraints=cons)
+        rec = {"phase": "planner", "tables": name, "world": world,
+               "batch_per_rank": batch,
+               "device": planner.topology.device,
+               "calibration": planner.topology.calibration_sources}
+        try:
+            plan = planner.plan(tables)
+        except PlannerError as e:
+            rec.update(planner_error=str(e).splitlines(),
+                       seconds=time.perf_counter() - t0)
+            emit(rec)
+            continue
+        kinds: dict = {}
+        for ps in plan.values():
+            k = f"{ps.sharding_type.value}/{ps.compute_kernel.value}"
+            kinds[k] = kinds.get(k, 0) + 1
+        rec.update(
+            seconds=time.perf_counter() - t0, kinds=kinds,
+            plan=_plan_summary(plan),
+            per_rank_hbm_bytes=planner.stats.per_rank_hbm,
+            per_rank_perf_ms={r: p.total * 1e3 for r, p in
+                              planner.stats.per_rank_perf.items()},
+            report=planner.last_report.splitlines())
+        if name == "bench" and world == 1:
+            rec["is_table_wise_plan"] = dict(plan) == table_wise_plan(tables)
+            if not rec["is_table_wise_plan"]:
+                raise AssertionError("the planner's world-1 plan of the "
+                                     "bench tables is not table_wise_plan")
+        emit(rec)
+
+
+def _app_metrics_check(run, dev, device_type):
+    """The application's eval batches again (a fresh iterator past the
+    training batches), their predictions from the trained state into a
+    fresh module on the card and one on the CPU: every metric of the two
+    within ``METRICS_TOL``, and of the card's equal to the run's report."""
+    import itertools
+
+    import torch
+
+    from torchrec_tpu_torch.metrics import (
+        MetricsConfig,
+        RecMetricModule,
+        RecTaskInfo,
+    )
+
+    cfg = MetricsConfig(tasks=[RecTaskInfo(name="ctr")],
+                        metrics=["ne", "auc", "calibration"])
+    card = RecMetricModule(cfg, BENCH_BATCH, device=device_type)
+    cpu = RecMetricModule(cfg, BENCH_BATCH, device="cpu")
+    fwd = run["dmp"].make_forward()
+    state = run["state"]
+    for b in itertools.islice(iter(run["ds"]), APP_STEPS,
+                              APP_STEPS + APP_EVAL):
+        b = b.to(dev)
+        preds = torch.sigmoid(fwd(state["dense"], state["tables"], b))
+        card.update({"ctr": preds}, {"ctr": b.labels})
+        cpu.update({"ctr": preds.cpu()}, {"ctr": b.labels.cpu()})
+    got, want = card.compute(), cpu.compute()
+    keys = sorted(k for k in got if not k.startswith("throughput"))
+    err = max(abs(got[k] - want[k]) for k in keys)
+    rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+              for k in keys)
+    run_err = max(abs(got[k] - run["report"][k]) for k in keys)
+    out = {"metrics": {k: got[k] for k in keys},
+           "metrics_card_vs_cpu_max_abs_err": err,
+           "metrics_card_vs_cpu_max_rel_err": rel,
+           "metrics_vs_run_report_max_abs_err": run_err}
+    if not all(np.isfinite(got[k]) for k in keys):
+        raise AssertionError(f"app: non-finite metrics {got}")
+    if err > METRICS_TOL and rel > METRICS_TOL:
+        raise AssertionError(f"app: card metrics off the CPU module's by "
+                             f"{err} ({got} vs {want})")
+    if run_err > METRICS_TOL:
+        raise AssertionError(f"app: metrics off the run's report by "
+                             f"{run_err}")
+    return out
+
+
+def app_phase(dev):
+    """The planner-driven DLRM application at full width: ``dlrm_main``
+    (8 features x 10 ids over 100,000-row tables of D=128, DLRM 13 ->
+    512-256-128, over arch 512-512-256-1 in float32, B=4096, 40 steps with
+    a 20-step linear warmup on the dense Adagrad and the fused sparse lr,
+    10 eval batches, NE / AUC / calibration) on the port's planner plan
+    at world 1, through ``main`` as a user runs it.  Checks: one B1 per
+    train step and eval batch and one B2 per train step and nothing else
+    (counts, and a profile of one step and one eval forward), finite
+    losses, ``id_overflow`` all zero, ``make_forward``'s logits
+    ``torch.equal`` to ``train_step``'s on one state and batch, a step in
+    the warmup ramp ``torch.equal`` to the plain B1/B2 at the scheduled
+    float32 lr (``train_path_check``), and the card's metrics against a
+    CPU module's.  Records ms a step, samples/s, eval ms a batch, peak
+    memory, and the planner's per-rank estimates against them.  Returns
+    (the main path's launches, the ramp check's record)."""
+    import contextlib
+    import io
+    import itertools
+
+    import torch
+
+    from torchrec_tpu_torch.examples.dlrm import dlrm_main
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.comm import ShardingEnv
+
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    flags = APP_FLAGS + ["--device", dev.type]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    tbe.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        run = dlrm_main.main(flags)
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() - base
+    main_s = time.perf_counter() - t_phase
+    losses = [float(x) for x in run["losses"]]
+    overflow = int(sum(int(o.sum()) for o in run["id_overflow"]))
+    timed = APP_STEPS - 1  # after the first step
+    ms_per_step = run["train_s"] * 1e3 / timed
+    planner = run["planner"]
+    est_perf = planner.stats.per_rank_perf[0]
+    rec = {"phase": "app", "card": card, "flags": flags,
+           "plan": _plan_summary(run["plan"]),
+           "planner_report": planner.last_report.splitlines(),
+           "stdout": out.getvalue().splitlines()[-8:],
+           "steps": len(losses), "eval_batches": run["evaluated"],
+           "losses": losses, "all_finite": bool(np.isfinite(losses).all()),
+           "id_overflow_total": overflow, "launches": counts,
+           "first_step_ms": run["first_step_s"] * 1e3,
+           "ms_per_step": ms_per_step,
+           "samples_per_s": timed * BENCH_BATCH / run["train_s"],
+           "eval_ms_per_batch": run["eval_s"] * 1e3 / run["evaluated"],
+           "peak_memory_allocated": peak,
+           "planner_hbm_estimate_bytes": planner.stats.per_rank_hbm[0],
+           "planner_hbm_estimate_over_peak": (
+               planner.stats.per_rank_hbm[0] / peak),
+           "planner_step_estimate_ms": est_perf.total * 1e3,
+           "planner_step_estimate_parts_ms": {
+               k: v * 1e3 for k, v in dataclasses.asdict(est_perf).items()},
+           "planner_step_estimate_over_measured": (
+               est_perf.total * 1e3 / ms_per_step),
+           "report": run["report"]}
+    want = {"pooled_lookup": APP_STEPS + APP_EVAL,
+            "fused_sparse_update": APP_STEPS}
+    if counts != want:
+        raise AssertionError(f"app: launched {counts}, want {want}")
+    if not rec["all_finite"] or overflow:
+        raise AssertionError(f"app: losses {losses}, id_overflow {overflow}")
+    rec.update(_app_metrics_check(run, dev, dev.type))
+
+    # the eval forward and the train step on one state and batch; then
+    # both under a profile: one B1 each, one B2 for the step
+    dmp, state = run["dmp"], run["state"]
+    batch = next(itertools.islice(iter(run["ds"]), APP_STEPS + APP_EVAL,
+                                  None)).to(dev)
+    fwd = dmp.make_forward()
+    logits = fwd(state["dense"], state["tables"], batch)
+    _, m = dmp.train_step(state, batch)
+    rec["forward_equals_train_step_logits"] = bool(torch.equal(logits,
+                                                               m["logits"]))
+    if not rec["forward_equals_train_step_logits"]:
+        raise AssertionError("app: make_forward's logits != train_step's")
+    rec["profiled_launches"] = _profiled_kernels(lambda: (
+        dmp.train_step(state, batch),
+        fwd(state["dense"], state["tables"], batch)))
+    if rec["profiled_launches"] != {"pooled_lookup": 2,
+                                    "fused_sparse_update": 1}:
+        raise AssertionError(f"app: profiled {rec['profiled_launches']}")
+    del run, dmp, state, m, logits
+    torch.cuda.empty_cache()
+
+    # a step inside the warmup ramp against the plain versions, at the
+    # scheduled float32 lr (a second instance of the application)
+    args = dlrm_main.parse_args(flags)
+    ramp = dlrm_main.build(args, ShardingEnv.single_device(dev))
+    dmp, state = ramp["dmp"], ramp["state"]
+    it = iter(ramp["ds"])
+    for _ in range(APP_RAMP_STEP):
+        state, _ = dmp.train_step(state, next(it).to(dev))
+    lr = dmp.sparse_lr(state["step"])
+    if not 0 < lr < dmp.fused_config.learning_rate:
+        raise AssertionError(f"app: step {state['step']} lr {lr} is not in "
+                             "the ramp")
+    check = train_path_check(dmp, state, next(it).to(dev), None,
+                             phase="app_ramp_check", lr=lr)
+    del ramp, dmp, state
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["main_seconds"] = main_s
+    rec["budget_s"] = APP_BUDGET_S
+    emit(rec)
+    return counts, check
+
+
+# ---------------------------------------------------------------------------
 # phase 9: multi-rank sharding at the width of bench.py main(): 4 ranks on
 # one card over gloo, and one rank over NCCL
 # ---------------------------------------------------------------------------
 
 SHARDED_RANKS = 4
 SHARDED_STEPS = 5  # timed, after one warm-up step
-SHARDED_PLANS = ("tw", "cw", "rw", "twrw", "mixed")
+SHARDED_PLANS = ("tw", "cw", "rw", "twrw", "mixed", "planned")
 SHARDED_TIMEOUT = 600
 ONE_CARD = "4 ranks on one card over gloo: not a multi-GPU figure"
 # the sharded losses against the plain one-device train_step's: measured
@@ -2716,12 +2996,18 @@ PLAIN_LOSS_RTOL = 1e-4
 def sharded_plan(kind, tables, n):
     """The plans of the sharded phase over ``n`` ranks: table-wise
     round-robin, column-wise in 2 shards, row-wise, table-row-wise over
-    nodes of 2 ranks, and a mix of row-wise, table-wise, column-wise and
-    (two tables) data-parallel."""
+    nodes of 2 ranks, a mix of row-wise, table-wise, column-wise and
+    (two tables) data-parallel, and the port's planner's plan with its
+    H100 profile at B=4096 a rank (``planned``)."""
+    from torchrec_tpu_torch.parallel.planner import EmbeddingShardingPlanner
     from torchrec_tpu_torch.parallel.types import (
         ParameterSharding,
         ShardingType as ST,
     )
+
+    if kind == "planned":
+        return EmbeddingShardingPlanner(
+            world_size=n, batch_size_per_device=TRAIN_BATCH).plan(tables)
 
     def one(i, t):
         if kind == "mixed":
@@ -3079,6 +3365,9 @@ def sharded_rank(kinds, device_type="cuda"):
                 dedup = bool(torch.equal(kt_d, kt))
                 if not dedup:
                     raise AssertionError("tw: B4's KT != B1's")
+        planned = None
+        if kind == "planned":
+            planned, one = planned_forward_check(dmp, state, mine[0], dev)
         stages["forward_checks_s"] = time.perf_counter() - t0 - sum(
             stages.values())
         kchecks = sharded_kernel_check(dmp, state, mine[0], flush)
@@ -3128,12 +3417,22 @@ def sharded_rank(kinds, device_type="cuda"):
         stages["tables_check_s"] = time.perf_counter() - t0 - sum(
             stages.values())
         # every rank profiles the same step at once: a profiler's first
-        # start takes seconds in each process, so not one rank at a time
+        # start takes seconds in each process, so not one rank at a time;
+        # the barrier keeps rank 0's table check (seconds) out of the
+        # other ranks' profiling windows, which then hold the step alone
+        torch.distributed.barrier()
         profiled = _profiled_kernels(lambda: dmp.train_step(state, mine[0]))
         if not (profiled["pooled_lookup"] and
                 profiled["fused_sparse_update"]):
             raise AssertionError(f"{kind} rank {r}: profiled {profiled}")
         stages["profile_s"] = time.perf_counter() - t0 - sum(stages.values())
+        if kind == "planned":
+            planned.update(planned_overflow_check(dmp, state, mine[1], env,
+                                                  one))
+            planned["plan"] = _plan_summary(plan)
+            del one
+            stages["planned_checks_s"] = time.perf_counter() - t0 - sum(
+                stages.values())
         rec = {"phase": "sharded", "plan": kind, "rank": r, "ranks": N,
                "backend": "gloo", "note": ONE_CARD,
                "groups": {n: list(t.shape)
@@ -3158,12 +3457,69 @@ def sharded_rank(kinds, device_type="cuda"):
                "loss_max_rel_gap_vs_train_step": plain_gap,
                "stage_seconds": stages,
                "seconds": time.perf_counter() - t0}
+        if planned is not None:
+            rec["planned"] = planned
         if not rec["all_finite"]:
             raise AssertionError(f"{kind} rank {r}: losses {rec['losses']}")
         records += [rec] + kchecks
         del dmp, state, weights
         torch.cuda.empty_cache()
     return records, launches
+
+
+def over_cap_batch(batch, key_index, length):
+    """``batch`` with every example of key ``key_index`` claiming
+    ``length`` ids, past the key's capacity: the saturation a device-side
+    relayout leaves, which ``id_overflow`` counts."""
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    kjt = batch.sparse_features
+    B = kjt.stride()
+    lengths = kjt.lengths().clone()
+    lengths[key_index * B:(key_index + 1) * B] = length
+    return dataclasses.replace(batch, sparse_features=KeyedJaggedTensor(
+        kjt.keys(), kjt.values(), lengths, stride=B, caps=kjt.caps))
+
+
+def planned_forward_check(dmp, state, batch, dev):
+    """The planned plan's eval forward on this rank: ``make_forward``'s
+    logits of the rank's batch ``torch.equal`` to the one-device DMP's
+    (the same seeded tables and dense parameters, each table whole) on
+    that batch.  Returns (the record's fields, the one-device DMP and
+    state, kept for :func:`planned_overflow_check`)."""
+    import torch
+
+    one, one_st = one_device_dmp(dev, one_device_plan(dmp.plan), 1)
+    logits = dmp.make_forward()(state["dense"], state["tables"], batch)
+    ref = one.make_forward()(one_st["dense"], one_st["tables"], batch)
+    out = {"forward_equal_one_device": bool(torch.equal(logits, ref)),
+           "forward_max_abs_err": float((logits - ref).abs().max())}
+    if not out["forward_equal_one_device"]:
+        raise AssertionError(f"planned: rank forward != one device: {out}")
+    return out, (one, one_st)
+
+
+def planned_overflow_check(dmp, state, batch, env, one):
+    """One step with rank 0's batch over capacity (key 0 claiming two ids
+    an example, its cap one): the step's ``id_overflow``, summed over
+    ranks, equal to the sum of each rank's one-device count on its own
+    batch, and on key 0 the ``B`` ids dropped."""
+    from torchrec_tpu_torch.parallel.multiprocess import allgather_host
+
+    if env.rank == 0:
+        batch = over_cap_batch(batch, 0, 2)
+    _, m = dmp.train_step(state, batch)
+    one_dmp, one_st = one
+    _, m1 = one_dmp.train_step(one_st, batch)
+    mine = m1["id_overflow"].cpu().numpy()
+    want = allgather_host(mine).sum(axis=0)
+    got = m["id_overflow"].cpu().numpy()
+    out = {"id_overflow": got.tolist(),
+           "one_device_id_overflow_sum": want.tolist()}
+    if not (np.array_equal(got, want) and got[0] == TRAIN_BATCH
+            and not got[1:].any()):
+        raise AssertionError(f"planned: id_overflow {out}")
+    return out
 
 
 def one_device_plan(plan):
@@ -3509,26 +3865,31 @@ def main() -> None:
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     emit(registers_record())
     kernel_rows = kernel_phase(dev, flush)
+    planner_records()
     train_launches, train_rows, checks = train_phase(dev, flush)
     ebc_launches, ebc_rows, _ = ebc_phase(dev, flush)
     dedup_launches, dedup_rows, dedup_check = train_dedup_phase(dev, flush)
     dcn_launches, dcn_rows, dcn_check = train_dcn_phase(dev, flush)
     del flush
+    app_launches, app_check = app_phase(dev)
     serve_launches, _, path_rows = serving_phase(dev)
     roundtrip_phase(dev)
     sharded_launches, sharded_checks = sharded_phase()
 
     # each kernel's launches on its own main paths: B1/B2 the training
-    # step (21 + 3 steps) and the DCN step (21), B1 also the EBC's 21
-    # steps (26 a step), B4/B6 the bucketed pipeline's 21 steps, B4 also
-    # the dedup EBC's forward (26), B3/B5 serving
+    # step (21 + 3 steps), the DCN step (21) and the application (40
+    # steps; B1 also its 10 eval batches), B1 also the EBC's 21 steps (26
+    # a step), B4/B6 the bucketed pipeline's 21 steps, B4 also the dedup
+    # EBC's forward (26), B3/B5 serving
     launches = {k: train_launches[k] + ebc_launches[k] + dedup_launches[k]
-                + dcn_launches[k] + serve_launches[k]
-                + sharded_launches.get(k, 0) for k in tbe.LAUNCHES}
+                + dcn_launches[k] + app_launches.get(k, 0)
+                + serve_launches[k] + sharded_launches.get(k, 0)
+                for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows
             + dcn_rows + path_rows]
-    errs += [(k, c[f"{b}_max_abs_err"]) for c in checks + [dcn_check]
+    errs += [(k, c[f"{b}_max_abs_err"])
+             for c in checks + [dcn_check, app_check]
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"))]
     errs += [("dedup_pooled_lookup", dedup_check["b4_max_abs_err"]),

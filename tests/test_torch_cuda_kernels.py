@@ -14,7 +14,7 @@ the float lookup (B1) over slot regions (int32 and int64 ids and
 lengths, no weights, caps the lengths overflow, segments of 0 to 1,000
 slots, more regions than one launch holds) against both plain versions,
 one launch a call, no host sync and nothing allocated but its output and
-the lengths' running ends;
+the lengths' running ends; B2 at a warmup schedule's learning rate;
 and the grouped quantized
 lookups of a served batch (every feature in one launch, tables whose rows
 start off a 4-byte boundary, MEAN features, a key no feature reads), with
@@ -325,6 +325,73 @@ def test_fused_update_equals_plain_on_card(dev, dtype, D, wd, seed, case):
     assert torch.equal(tk, tp), float((tk.float() - tp.float()).abs().max())
     assert torch.equal(mk, mp)
     assert (n == 0) == torch.equal(tk, table)
+
+
+def test_id_overflow_count_makes_no_host_sync_on_card(dev):
+    """The train step's ``id_overflow``: the KJT's overflow counts and
+    their sum over ranks (one rank here) under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from torchrec_tpu_torch.parallel.comm import ShardingEnv, all_reduce_sum
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    lengths = torch.tensor([3, 3, 3, 2, 1, 0, 2, 1], dtype=torch.int32,
+                           device=dev)
+    kjt = KeyedJaggedTensor(["c0", "c1"], torch.arange(16, device=dev),
+                            lengths, stride=4, caps=[8, 8])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = all_reduce_sum(kjt.overflow_counts(),
+                             ShardingEnv.single_device(dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.tolist() == [3, 0]
+
+
+@pytest.mark.parametrize("step", (0, 3, 25))
+def test_fused_update_at_scheduled_lr_equals_plain_on_card(dev, step):
+    """B2 through ``apply_sparse_update_segments`` at a warmup schedule's
+    learning rate (the DMP's ``sparse_lr``: a float32 value on the host,
+    passed by value): the kernel equals its plain version at that lr, and
+    at the ramp's steps it moves the rows less than the base lr does."""
+    from torchrec_tpu_torch.ops.fused_update import (
+        FusedOptimConfig,
+        SparseSegGrad,
+        apply_sparse_update_segments,
+    )
+    from torchrec_tpu_torch.optim.warmup import (
+        WarmupPolicy,
+        WarmupStage,
+        warmup_schedule,
+    )
+
+    sched = warmup_schedule([WarmupStage(WarmupPolicy.LINEAR, 20)])
+    cfg = FusedOptimConfig(learning_rate=0.05)
+    lr = float(np.float32(sched(step)) * np.float32(cfg.learning_rate))
+    rng = np.random.RandomState(step)
+    table = torch.from_numpy(rng.randn(R, 128).astype(np.float32)).to(dev)
+    ids = np.minimum(rng.zipf(1.2, V) - 1, R - 1)
+    sg = SparseSegGrad(*[torch.from_numpy(x).to(dev) for x in (
+        ids, rng.rand(V) > 0.1, rng.randint(0, S, V),
+        rng.rand(V).astype(np.float32),
+        rng.randn(S, 128).astype(np.float32))])
+    runs = {}
+    for arm, lr_arm in (("kernel", lr), ("base", None)):
+        t, st = table.clone(), {"momentum": torch.zeros(R, device=dev)}
+        before = tbe.launch_counts()["fused_sparse_update"]
+        apply_sparse_update_segments(t, st, sg, cfg, learning_rate=lr_arm)
+        torch.cuda.synchronize()
+        assert tbe.launch_counts()["fused_sparse_update"] == before + 1
+        runs[arm] = t
+    plain = table.clone()
+    tbe_backward.fused_sparse_update_plain(
+        plain, torch.zeros(R, device=dev), sg.ids, sg.valid, sg.segments,
+        sg.weights, sg.grad_seg, lr)
+    assert torch.equal(runs["kernel"], plain)
+    moved = (runs["kernel"] - table).abs().sum()
+    base_moved = (runs["base"] - table).abs().sum()
+    assert (moved < base_moved) if step < 20 else torch.equal(
+        runs["kernel"], runs["base"])
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -33,7 +33,10 @@ def test_every_module_imports_without_jax():
               "parallel.grouped", "parallel.embeddingbag",
               "parallel.model_parallel", "parallel.sharding.tw",
               "modules.embedding_modules", "sparse.validator",
-              "sparse.tensor_dict"):
+              "sparse.tensor_dict", "parallel.planner.planners",
+              "parallel.planner.provider", "ir.serializer",
+              "obs.assumptions", "optim.warmup", "metrics.metric_module",
+              "datasets.criteo", "examples.dlrm.dlrm_main"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

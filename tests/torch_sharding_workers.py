@@ -8,6 +8,7 @@ and return numpy."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -113,34 +114,64 @@ def ebc_rank(table_spec, plans, caps, batch, weights, kjts, grads, lr,
     return out, {f: v.detach().numpy() for f, v in kt.to_dict().items()}
 
 
-def dmp_rank(table_spec, plan_spec, keys, caps, batch, ids, dense_in,
-             dense_arch, over_arch, lr, jax_state, replicated, steps):
-    """One rank of the sharded-DMP test: the port's DMP from rank ``r``'s
-    share of the JAX DMP's initial state, ``steps`` train steps on this
-    rank's batches (batch ``step * N + r`` of the dataset both packages
-    draw from).  Returns (the losses, the full tables and the dense
+def over_cap(batch, key_index, length):
+    """``batch`` with every example of key ``key_index`` claiming
+    ``length`` ids, past the key's capacity (the saturation a device-side
+    relayout leaves; ``id_overflow`` counts the drop)."""
+    kjt = batch.sparse_features
+    lengths = kjt.lengths().clone()
+    B = kjt.stride()
+    lengths[key_index * B:(key_index + 1) * B] = length
+    return dataclasses.replace(batch, sparse_features=KeyedJaggedTensor(
+        kjt.keys(), kjt.values(), lengths, stride=B, caps=kjt.caps))
+
+
+def dmp_rank(table_spec, jobs, keys, caps, batch, ids, dense_in,
+             dense_arch, over_arch, lr, steps, over):
+    """One rank of the sharded-DMP test, for each job ``(plan spec, the
+    JAX DMP's initial state, its replicated groups)``: the port's DMP from
+    rank ``r``'s share of that state, ``steps`` train steps on this rank's
+    batches (batch ``step * N + r`` of the dataset both packages draw
+    from), the eval forward on the next step's batch, then one step whose
+    rank-0 batch is over capacity (``over`` = (key index, ids an
+    example)).  Returns per job (the losses, the forward's logits, the
+    over-cap step's ``id_overflow``, the full tables and the dense
     parameters after the steps; tables and dense from rank 0 only)."""
     env = _join()
     r, N = env.rank, env.world_size
     tables = make_tables(table_spec)
-    model = DLRM(EmbeddingBagCollection(tables, device="meta"), dense_in,
-                 dense_arch, over_arch)
-    dmp = DistributedModelParallel(
-        model, tables, make_plan(plan_spec), batch, caps,
-        fused_config=FusedOptimConfig(learning_rate=lr),
-        dense_optimizer=adagrad(lr), env=env)
-    state = train_state_from_jax(jax_state, device="cpu", rank=r,
-                                 world_size=N, replicated=replicated)
-    it = iter(RandomRecDataset(keys, batch, [t["rows"] for t in table_spec],
-                               ids, num_dense=dense_in, manual_seed=0))
-    losses = []
-    for _ in range(steps):
+    out = []
+    for plan_spec, jax_state, replicated in jobs:
+        model = DLRM(EmbeddingBagCollection(tables, device="meta"), dense_in,
+                     dense_arch, over_arch)
+        dmp = DistributedModelParallel(
+            model, tables, make_plan(plan_spec), batch, caps,
+            fused_config=FusedOptimConfig(learning_rate=lr),
+            dense_optimizer=adagrad(lr), env=env)
+        state = train_state_from_jax(jax_state, device="cpu", rank=r,
+                                     world_size=N, replicated=replicated)
+        it = iter(RandomRecDataset(keys, batch,
+                                   [t["rows"] for t in table_spec], ids,
+                                   num_dense=dense_in, manual_seed=0))
+        losses = []
+        for _ in range(steps):
+            mine = [next(it) for _ in range(N)][r]
+            state, m = dmp.train_step(state, mine)
+            if m["id_overflow"].any():
+                raise AssertionError(f"id_overflow {m['id_overflow']}")
+            losses.append(float(m["loss"]))
+        weights = dmp.table_weights(state)
+        # copies: the over-cap step below updates the state in place
+        dense = {k: v.numpy().copy() for k, v in state["dense"].items()}
+        logits = dmp.make_forward()(state["dense"], state["tables"],
+                                    [next(it) for _ in range(N)][r])
         mine = [next(it) for _ in range(N)][r]
-        state, m = dmp.train_step(state, mine)
-        losses.append(float(m["loss"]))
-    weights = dmp.table_weights(state)
-    dense = {k: v.numpy() for k, v in state["dense"].items()}
-    return losses, (weights, dense) if r == 0 else None
+        if r == 0:
+            mine = over_cap(mine, *over)
+        _, m = dmp.train_step(state, mine)
+        out.append((losses, logits.numpy(), m["id_overflow"].numpy(),
+                    (weights, dense) if r == 0 else None))
+    return out
 
 
 def nccl_rank():

@@ -4,9 +4,13 @@ The sub-packages keep the JAX package's layout and module names, so each
 module's counterpart is found at the same path under ``torchrec_tpu/``.
 It holds quantized DLRM serving (``quant/``, ``inference/``), the
 unsharded authoring path (``modules/embedding_modules.py``, the DLRM
-family and ``DLRMTrain`` in ``models/dlrm.py``), the one-device training
-step of ``DLRM`` and ``DLRM_DCN`` (``parallel/model_parallel.py``) and
-the bucketed training pipeline (``parallel/train_pipeline.py``), with a hand-written CUDA kernel for
+family and ``DLRMTrain`` in ``models/dlrm.py``), the training step of
+``DLRM`` and ``DLRM_DCN`` on one device or across ranks
+(``parallel/model_parallel.py``) on a plan of the sharding planner
+(``parallel/planner/``), the
+bucketed training pipeline (``parallel/train_pipeline.py``), the metrics
+(``metrics/``) and the DLRM application (``examples/dlrm/dlrm_main.py``),
+with a hand-written CUDA kernel for
 every Pallas kernel of the JAX package (``csrc/``, wrapped by
 ``ops/tbe.py`` and ``ops/tbe_backward.py``).
 

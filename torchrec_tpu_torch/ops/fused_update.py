@@ -31,9 +31,8 @@ math, and is the dedup kernel's plain version.  Left out:
 ``SparseSegGrad.row_grads``/``from_row_grads``, ``momentum_dtype``, the
 ``stochastic_rounding`` switch (a bfloat16 table rounds stochastically
 whenever the step hands a seed; the noise is the kernels' hash, since
-``jax.random`` has no torch counterpart), the per-call learning-rate
-override (sparse lr schedules are not ported) and the ``dedup=False``
-option of ``apply_sparse_update``.
+``jax.random`` has no torch counterpart) and the ``dedup=False`` option
+of ``apply_sparse_update``.
 """
 
 from __future__ import annotations
@@ -198,14 +197,17 @@ def apply_sparse_update_segments(
     config: FusedOptimConfig,
     sr_seed: Optional[int] = None,
     update_kernel: str = "tbe",
+    learning_rate: Optional[float] = None,
 ) -> Tuple[torch.Tensor, State]:
     """Apply the fused optimizer to the rows ``sg`` touches, in place,
     through the fused kernel ``update_kernel`` (its plain version on CPU
     tensors); the Adam family's ``step`` advances by one.  ``sr_seed``
     (an int32) rounds a bfloat16 table stochastically; without one it
-    rounds to nearest.  Returns ``(table, state)``, the inputs
-    themselves."""
+    rounds to nearest.  ``learning_rate`` overrides the config's for this
+    call (a schedule's value: a host float, so the launch waits for
+    nothing).  Returns ``(table, state)``, the inputs themselves."""
     require_kernel(update_kernel)
+    lr = config.learning_rate if learning_rate is None else learning_rate
     seed = sr_seed if table.dtype == torch.bfloat16 else None
     step, hyp = _adam_hypers(config, state)
     states = _states(config, state)
@@ -216,12 +218,12 @@ def apply_sparse_update_segments(
         fused_sparse_update(
             table, None if adam else state.get("momentum"), sg.ids,
             sg.valid, sg.segments, sg.weights, sg.grad_seg,
-            config.learning_rate, optim=config.optim.value,
+            lr, optim=config.optim.value,
             states=states if adam else None, **kw)
     else:
         dedup_fused_sparse_update(
             table, states, sg.ids, sg.valid, sg.segments, sg.weights,
-            sg.grad_seg, config.optim.value, config.learning_rate, **kw)
+            sg.grad_seg, config.optim.value, lr, **kw)
     if hyp:
         state["step"] = step
     return table, state

@@ -17,7 +17,7 @@ arrays that its jitted step donates.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -49,14 +49,20 @@ class Adagrad:
         params: Mapping[str, torch.Tensor],
         grads: Mapping[str, torch.Tensor],
         state: Mapping[str, torch.Tensor],
+        scale: Optional[float] = None,
     ) -> None:
-        """One step, in place on ``params`` and ``state``."""
+        """One step, in place on ``params`` and ``state``; ``scale``
+        multiplies the update after the learning rate (a schedule's
+        value, ``optim/warmup.py``)."""
         for k, p in params.items():
             g = grads[k]
             t = state[k]
             t.copy_(g * g + t)
             u = torch.where(t > 0, torch.rsqrt(t + EPS), 0.0) * g
-            p.add_(u * -self.learning_rate)
+            u = u * -self.learning_rate
+            if scale is not None:
+                u = u * scale
+            p.add_(u)
 
 
 def adagrad(learning_rate: float) -> Adagrad:

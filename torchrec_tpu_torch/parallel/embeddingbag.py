@@ -24,9 +24,8 @@ and block-shard groups they belong with the dedup'd row-wise dist
 (ROADMAP A7) and raise.
 
 Left out: the dedup'd and hierarchical dists, variable-batch KJTs, the
-traced id sanitizer, ``dedup_overflow``, ``backward_rows_local`` (its
-callers, FULLY_SHARDED 2D, are not ported) and the per-call
-learning-rate override (sparse lr schedules are not ported).
+traced id sanitizer, ``dedup_overflow`` and ``backward_rows_local`` (its
+callers, FULLY_SHARDED 2D, are not ported).
 """
 
 from __future__ import annotations
@@ -201,12 +200,14 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         sr_seeds: Optional[Sequence[int]] = None,
         update_kernel: str = "tbe",
         env: Optional[ShardingEnv] = None,
+        learning_rate: Optional[float] = None,
     ) -> None:
         """Reverse dists and apply the fused optimizer to the touched rows
         of every group, in place.  ``sr_seeds``: one int32 seed per group
         (:attr:`group_names` order) for stochastic rounding of bfloat16
         stacks, or None (round to nearest); a DP group's seed must be the
-        same on every rank, or the replicas fork."""
+        same on every rank, or the replicas fork.  ``learning_rate``
+        overrides ``config``'s for this step (a sparse lr schedule)."""
         seeds = dict(zip(self.group_names, sr_seeds or ()))
         for kind, name, lay in self.sharded_groups():
             if kind == "tw":
@@ -216,12 +217,14 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
                 sg = _BACKWARD[kind](lay, ctxs[name], grad_by_feature, env)
             apply_sparse_update_segments(
                 params[name], fused_state[name], sg, config,
-                sr_seed=seeds.get(name), update_kernel=update_kernel)
+                sr_seed=seeds.get(name), update_kernel=update_kernel,
+                learning_rate=learning_rate)
         for name, g in self.dp_groups.items():
             sg = self._dp_backward(g, ctxs[name], grad_by_feature, env)
             apply_sparse_update_segments(
                 params[name], fused_state[name], sg, config,
-                sr_seed=seeds.get(name), update_kernel=update_kernel)
+                sr_seed=seeds.get(name), update_kernel=update_kernel,
+                learning_rate=learning_rate)
 
     def _dp_backward(self, g: DpGroup, ctx: Tuple,
                      grad_by_feature: Mapping[str, torch.Tensor],

@@ -11,8 +11,9 @@ to a replicated :class:`DpGroup` per dim.  The parameter functions take
 and give the calling rank's share: ``rank`` picks it, and a DP group's
 share is the whole stack.
 
-Left out: the hierarchical topology, the dedup'd row-wise groups (ROADMAP
-A7; a plan asking for one raises), ``row_align`` and ``param_specs``.
+Left out: the hierarchical topology (a plan's ``hier`` is ignored), the
+dedup'd row-wise groups (ROADMAP A7) and host-cached tables (ROADMAP A10),
+on which a plan raises, ``row_align`` and ``param_specs``.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from torchrec_tpu_torch.parallel.sharding.twrw import (
     twrw_tables_from_params,
 )
 from torchrec_tpu_torch.parallel.types import (
+    EmbeddingComputeKernel,
     EmbeddingModuleShardingPlan,
     ShardingType,
 )
@@ -121,6 +123,10 @@ def classify_plan(
         ps = plan[cfg.name]
         st = ps.sharding_type
         feats = by_table.get(cfg.name, [])
+        if ps.compute_kernel == EmbeddingComputeKernel.FUSED_HOST_CACHED:
+            raise NotImplementedError(
+                f"{cfg.name}: the host-cached kernel (FUSED_HOST_CACHED) "
+                "needs tiered storage, which is not ported (ROADMAP A10)")
         if ps.ranks is not None and any(not 0 <= r < world_size
                                         for r in ps.ranks):
             raise ValueError(f"{cfg.name}: ranks {ps.ranks} outside a world "

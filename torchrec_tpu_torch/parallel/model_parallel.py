@@ -42,17 +42,27 @@ The loss is the DLRM's ``bce_with_logits_loss``.  The stochastic-rounding
 seeds of bfloat16 tables come from a ``torch.Generator`` seeded per step:
 a sharded group's differ by rank, a data-parallel group's are the same on
 every rank (the JAX package folds the step, the device and the group
-into a ``jax.random`` key; the numbers differ).  Left out:
-``DMPCollection`` (2D parallelism), the planner and ``make_forward``
-(the next slice of ROADMAP A6), qcomms on the DMP, guardrails, dense
-rematerialisation, sparse lr schedules, the split (semi-sync) steps, row
-IO helpers and the overflow / guardrail metrics.
+into a ``jax.random`` key; the numbers differ).
+
+Every step returns ``id_overflow``, the ``[F]`` int32 count of ids the
+batch's lengths claim beyond each key's capacity, summed over ranks
+(``KeyedJaggedTensor.overflow_counts``): a relayout saturates, and this
+count keeps the drop visible.  A ``sparse_lr_schedule`` (``optim/
+warmup.py``) scales the fused update's lr each step, as the JAX step
+does: ``float32(schedule(step)) * learning_rate``, in float32 on the host.
+:meth:`make_forward` is the eval forward.  Plans come from
+``parallel/planner`` or by hand.  Left out: ``DMPCollection`` (2D
+parallelism), qcomms on the DMP, guardrails, dense rematerialisation, the
+split (semi-sync) steps ``make_embed_step`` / ``make_dense_update_step``,
+row IO helpers and the guardrail metrics (ROADMAP A6, A7).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import (
+    Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union,
+)
 
 import numpy as np
 import torch
@@ -68,6 +78,7 @@ from torchrec_tpu_torch.ops.fused_update import (
     require_kernel,
 )
 from torchrec_tpu_torch.optim.adagrad import Adagrad, adagrad
+from torchrec_tpu_torch.optim.warmup import Schedule, WarmupOptimizer
 from torchrec_tpu_torch.parallel.comm import ShardingEnv, all_reduce_sum
 from torchrec_tpu_torch.parallel.embeddingbag import (
     ShardedEmbeddingBagCollection,
@@ -127,7 +138,10 @@ class DistributedModelParallel:
     ``update_kernel`` name the kernels (module docstring; both update
     kernels take all eight fused optimizers, whose states
     ``init`` allocates: an ``[R, D]`` momentum for Adagrad, ``m`` and
-    ``v`` for the Adam family).  ``env`` is the rank's world
+    ``v`` for the Adam family).  ``dense_optimizer`` may be a
+    :class:`~torchrec_tpu_torch.optim.warmup.WarmupOptimizer`, and
+    ``sparse_lr_schedule`` a ``step -> multiplier`` schedule of the fused
+    lr (``optim.warmup.warmup_schedule``).  ``env`` is the rank's world
     (``comm.ShardingEnv``); without one the step runs one rank on
     ``device``: CUDA unless the caller names another, and it raises
     without a card.  Every rank builds the same DMP."""
@@ -140,12 +154,13 @@ class DistributedModelParallel:
         batch_size_per_device: int,
         feature_caps: Dict[str, int],
         fused_config: Optional[FusedOptimConfig] = None,
-        dense_optimizer: Optional[Adagrad] = None,
+        dense_optimizer: Optional[Union[Adagrad, WarmupOptimizer]] = None,
         table_dtype: torch.dtype = torch.float32,
         device: DeviceLike = None,
         lookup_kernel: str = "tbe",
         update_kernel: str = "tbe",
         env: Optional[ShardingEnv] = None,
+        sparse_lr_schedule: Optional[Schedule] = None,
     ):
         if table_dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"table_dtype must be float32 or bfloat16, got "
@@ -167,6 +182,7 @@ class DistributedModelParallel:
         self.dense_tx = dense_optimizer or adagrad(
             self.fused_config.learning_rate)
         self.table_dtype = table_dtype
+        self.sparse_lr_schedule = sparse_lr_schedule
         self.sharded_ebc = ShardedEmbeddingBagCollection.build(
             tables, plan, env.world_size, batch_size_per_device,
             feature_caps)
@@ -249,12 +265,13 @@ class DistributedModelParallel:
 
     def table_weights(self, state: State) -> Dict[str, np.ndarray]:
         """Full per-table weights from a train state, as float32 numpy
-        (bfloat16 stacks widen exactly): each sharded group's stacks
-        gathered from every rank (a collective: every rank calls it)."""
+        copies (bfloat16 stacks widen exactly; a later step does not
+        change them): each sharded group's stacks gathered from every rank
+        (a collective: every rank calls it)."""
         ebc = self.sharded_ebc
         full = ebc.gather_stacks(state["tables"], self.env)
         return {
-            name: w.to(torch.float32).cpu().numpy()
+            name: w.to("cpu", torch.float32, copy=True).numpy()
             for name, w in ebc.tables_to_weights(full).items()
         }
 
@@ -341,10 +358,19 @@ class DistributedModelParallel:
         }
         return loss, logits.detach().reshape(-1), g_dense, grad_by_feature
 
+    def sparse_lr(self, step: int) -> Optional[float]:
+        """The fused update's lr at ``step`` under the sparse lr schedule,
+        ``float32(schedule(step)) * float32(learning_rate)`` rounded to
+        float32 as the JAX step forms it (None without a schedule)."""
+        if self.sparse_lr_schedule is None:
+            return None
+        return float(np.float32(self.sparse_lr_schedule(step))
+                     * np.float32(self.fused_config.learning_rate))
+
     def train_step(self, state: State, batch: Batch) -> Tuple[State, Dict]:
         """One step on a batch already on the device; updates ``state`` in
-        place and returns it with the metrics (loss, logits, labels, as
-        device tensors)."""
+        place and returns it with the metrics (loss, logits, labels and
+        ``id_overflow``, as device tensors; no host sync)."""
         kt_values, ctxs = self.sparse_forward(state, batch)
         loss, logits, g_dense, grad_by_feature = self.dense_forward_backward(
             state, batch, kt_values)
@@ -352,13 +378,43 @@ class DistributedModelParallel:
             state["tables"], state["fused"], ctxs, grad_by_feature,
             self.fused_config, sr_seeds=self.sr_seeds(state["step"]),
             update_kernel=self.update_kernel, env=self.env,
+            learning_rate=self.sparse_lr(state["step"]),
         )
         self.dense_tx.update(state["dense"], g_dense, state["dense_opt"])
         state["step"] += 1
+        overflow = all_reduce_sum(batch.sparse_features.overflow_counts(),
+                                  self.env)
         return state, {"loss": loss, "logits": logits,
-                       "labels": batch.labels.reshape(-1)}
+                       "labels": batch.labels.reshape(-1),
+                       "id_overflow": overflow}
 
     def make_train_step(self) -> Callable[[State, Batch], Tuple[State, Dict]]:
         """The train step (JAX's ``make_train_step`` compiles one; the port
         runs eagerly and returns :meth:`train_step`)."""
         return self.train_step
+
+    def forward(self, dense: Mapping[str, torch.Tensor],
+                tables: Mapping[str, torch.Tensor],
+                batch: Batch) -> torch.Tensor:
+        """This rank's logits ``[B]`` of its batch: the sharded
+        collection's forward (the dists and the pooled kernel) and the
+        dense ``forward_from_embeddings``, with no autograd graph.  A
+        collective at more than one rank: every rank calls it."""
+        with torch.no_grad():
+            kt_values, _ = self.sparse_forward({"tables": tables}, batch)
+            ebc = self.sharded_ebc
+            kt = KeyedTensor(ebc.feature_order, ebc.feature_dims, kt_values)
+            logits = torch.func.functional_call(
+                self._dense_forward,
+                {f"model.{k}": v for k, v in dense.items()},
+                (batch.dense_features, kt))
+        return logits.reshape(-1)
+
+    def make_forward(self) -> Callable[[Mapping[str, torch.Tensor],
+                                        Mapping[str, torch.Tensor], Batch],
+                                       torch.Tensor]:
+        """The eval forward ``(dense_params, tables, batch) -> logits
+        [B]`` of this rank (JAX's ``make_forward`` compiles one over the
+        mesh, logits ``[N, B]``; each rank here returns its own row):
+        :meth:`forward`."""
+        return self.forward

@@ -24,9 +24,8 @@ dedup overflow guard ``_dedup_overflow_guard`` (it acts on the row-wise
 dedup and hierarchical layouts, which are not ported), ``warmup`` (there
 is nothing to precompile), the semi-sync and staged pipelines, the
 eval pipeline, buffer donation, the touched-row and kernel-stats ledgers,
-the pipelines' ``scalar_metrics`` (the padding counters are
-``PaddingStats.scalar_metrics``; the guardrail scalars are not ported)
-and ``invalidate_prefetch`` (ROADMAP A7).
+the guardrail scalars of ``scalar_metrics`` (``dedup_overflow``,
+``id_violations``) and ``invalidate_prefetch`` (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -154,6 +153,7 @@ class TrainPipelineBase:
         # the iterator the loader drains, compared by identity: a new
         # iterator retires the old loader
         self._loader_it: Optional[Iterator[Batch]] = None
+        self._last_metrics: Optional[Dict[str, Any]] = None
 
     def _pull_locals_async(self, it: Iterator[Batch]) -> Optional[List[Batch]]:
         """The step's local batches (one at one device) from the
@@ -192,8 +192,18 @@ class TrainPipelineBase:
         batch = self._queue.popleft()
         with span("pipeline/step_dispatch"):
             self.state, metrics = self._step(self.state, batch)
+        self._last_metrics = metrics
         self._fill(it)
         return metrics
+
+    def scalar_metrics(self, prefix: str = "pipeline") -> Dict[str, float]:
+        """The last step's ``id_overflow`` summed over keys, under
+        ``{prefix}/id_overflow`` (reads the device count: call it at
+        metric-collection cadence, not every step)."""
+        m = self._last_metrics
+        if not isinstance(m, dict) or "id_overflow" not in m:
+            return {}
+        return {f"{prefix}/id_overflow": float(m["id_overflow"].sum())}
 
 
 class TrainPipelineSparseDist(TrainPipelineBase):
@@ -356,6 +366,14 @@ class BucketedTrainPipeline(TrainPipelineSparseDist):
         them)."""
         return self._cache.stats
 
+    def scalar_metrics(self, prefix: str = "bucketing") -> Dict[str, float]:
+        """The padding counters and the last step's ``id_overflow`` (the
+        saturation guard: a shrunken capacity must never drop an id
+        unobserved)."""
+        out = self._cache.stats.scalar_metrics(prefix)
+        out.update(TrainPipelineBase.scalar_metrics(self, prefix))
+        return out
+
     def _queue_item(self, it: Iterator[Batch]):
         locals_ = self._pull_locals_async(it)
         if locals_ is None:
@@ -374,5 +392,6 @@ class BucketedTrainPipeline(TrainPipelineSparseDist):
         step = self._cache.train_program(sig)
         with span("pipeline/step_dispatch", signature=list(sig)):
             self.state, metrics = step(self.state, batch)
+        self._last_metrics = metrics
         self._fill(it)
         return metrics

@@ -1,14 +1,16 @@
 """Sharding-plan types (a subset of ``torchrec_tpu/parallel/types.py``):
 the enums, ``ShardMetadata``, ``ParameterSharding`` and ``ShardingPlan``
-with the JAX package's names and values, the plan dict, and
-:func:`table_wise_plan`, the plan the JAX planner gives a one-device
-world.
+with the JAX package's names and values, the plan dict, the planner's
+``StampedEmbeddingModuleShardingPlan``, and :func:`table_wise_plan`, the
+plan the planner gives a one-device world.
 
-Left out: ``ShardingStrategy`` (2D parallelism), the dedup factor, the
-hier and cache fields of ``ParameterSharding`` and
-``StampedEmbeddingModuleShardingPlan``.  The planner waits for the next
-slice of ROADMAP A6 (with A4): the port's ``DistributedModelParallel``
-takes its plan as an argument.
+What the runtime does with the planner's fields: a FUSED_HOST_CACHED
+table raises ``NotImplementedError`` (tiered storage, ROADMAP A10), as does
+``dedup`` (the dedup'd row-wise dist, ROADMAP A7), in ``classify_plan``;
+``hier`` is ignored, as the JAX runtime ignores it without a two-level
+mesh (the port's worlds are flat); ``dedup_factor``, ``hier_factor`` and
+``cache_load_factor`` size what those paths would build.  Left out:
+``ShardingStrategy`` (2D parallelism).
 """
 
 from __future__ import annotations
@@ -60,20 +62,44 @@ class ParameterSharding:
     shard; TWRW: the node's contiguous ranks; GRID: the nodes of the
     column shards one after another; RW/DP: all ranks), ``num_col_shards``
     the CW/GRID split count, ``sharding_spec`` the shards' geometry where
-    a caller records it.  ``dedup`` asks for the row-wise dedup'd input
-    dist, which is not ported (ROADMAP A7): ``classify_plan`` raises on
-    it."""
+    a caller records it, ``cache_load_factor`` the device cache of a
+    FUSED_HOST_CACHED table as a fraction of its rows.  ``dedup`` asks
+    for the row-wise dedup'd input dist, ``dedup_factor`` its expected
+    duplication (1.0: exact); ``hier`` for the two-level dists of a
+    row-wise or block-shard table, ``hier_factor`` their cross-node
+    capacity (module docstring)."""
 
     sharding_type: ShardingType
     compute_kernel: EmbeddingComputeKernel = EmbeddingComputeKernel.FUSED
     ranks: Optional[List[int]] = None
     sharding_spec: Optional[List[ShardMetadata]] = None
     num_col_shards: int = 1
+    cache_load_factor: Optional[float] = None
     dedup: bool = False
+    dedup_factor: float = 1.0
+    hier: bool = False
+    hier_factor: float = 1.0
+
+
+# the FUSED_HOST_CACHED device-cache fraction when none is given: the
+# planner's storage model and a cache's sizing must agree on it
+DEFAULT_CACHE_LOAD_FACTOR = 0.2
 
 
 # table name -> ParameterSharding
 EmbeddingModuleShardingPlan = Dict[str, ParameterSharding]
+
+
+class StampedEmbeddingModuleShardingPlan(Dict[str, ParameterSharding]):
+    """An ``EmbeddingModuleShardingPlan`` carrying the planner's plan-time
+    beliefs, ``assumptions`` (an ``obs.assumptions.PlanAssumptions``, or
+    None): per-table expected occupancy, padding efficiency, cache hit
+    rate and duplication, and the expected wire bytes a step.  A plain
+    dict subclass, so every consumer of a plan takes it."""
+
+    def __init__(self, mapping=(), assumptions=None):
+        super().__init__(mapping)
+        self.assumptions = assumptions
 
 
 @dataclasses.dataclass

@@ -553,9 +553,10 @@ class KeyedJaggedTensor:
         """``[F]`` int32: ids the lengths claim beyond each key's
         capacity.  Host construction raises on such a batch; a device-side
         relayout saturates (a key's first ``cap`` ids survive) and this
-        counts what was dropped."""
-        caps = torch.tensor(self._caps, dtype=torch.int32,
-                            device=self._lengths.device)
+        counts what was dropped.  No host sync: the capacities reach the
+        device by an asynchronous copy."""
+        caps = torch.tensor(self._caps, dtype=torch.int32).to(
+            self._lengths.device, non_blocking=True)
         return (self.length_per_key().to(torch.int32) - caps).clamp(min=0)
 
     # -- capacity bucketing (host-side; see bucket_ladder above) -----------
