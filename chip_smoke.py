@@ -5,7 +5,9 @@
 training pipeline on the dedup kernels, MLPerf DLRM-v2 (``DLRM_DCN``)
 training on the per-id kernels, the planner-driven DLRM application
 (``examples/dlrm/dlrm_main.py``), quantized DLRM serving, and the
-multi-rank sharded train step (4 gloo ranks on the card, 1 NCCL rank).
+multi-rank sharded train step (4 gloo ranks on the card, 1 NCCL rank)
+with 2D parallelism (``DMPCollection``), the split steps, qcomms, the
+sharded ``EmbeddingCollection`` and chunked all-to-alls.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and fails (non-zero exit, no result line)
@@ -195,8 +197,31 @@ Phases, one JSON line each on stdout; any failure raises:
    ``torch.profiler`` with B1 and B2 in it.  Then one rank over NCCL: the
    row-wise plan's
    KT and its tables after one step ``torch.equal`` to the one-device
-   DMP's.  The times of this phase are of 4 processes sharing one card:
-   not multi-GPU figures.
+   DMP's.  After the plans, in the same 4-rank launch, the stages of
+   ``STAGE_BUDGETS`` (each record carries its seconds and budget):
+   ``all_reduce`` (the dense gradients through the reduce-scatter
+   ``all_reduce_sum``, ``torch.equal`` to an all-gather and rank-order
+   sum, bytes and ms of both), ``split`` (``make_embed_step`` then
+   ``make_dense_update_step`` ``torch.equal`` to ``train_step``, B1 and
+   B2 only), ``chunked_a2a`` (the pooled KT in K = 2, 8 column chunks
+   ``torch.equal`` to one all-to-all, the overlapped first layer within
+   1e-5 of ``a2a(x) @ w``), ``qcomms`` (the row-wise plan with bf16 and
+   int8 wire codecs: KT within the JAX package's fp32-vs-qcomm bounds and
+   not equal, the ledger's bytes the codec's, finite losses),
+   ``dmp2d_replicated`` and ``dmp2d_fully_sharded`` (``DMPCollection`` over
+   2 replicas of 2 model ranks, the planner's world-2 plan: B1/B2 against
+   their plain versions at each rank's shapes, 1 + 5 steps with
+   ``maybe_sync`` launching B1 and B2 and nothing else, the replicas
+   ``torch.equal`` after each sync and apart between; FULLY_SHARDED: the
+   replicas' forwards equal, the losses within ``PLAIN_LOSS_RTOL`` of the
+   plain one-device step and the tables ``np.array_equal`` to the
+   micro-batched one-device run), and ``sharded_ec`` (the sharded
+   ``EmbeddingCollection`` on tw, rw and mixed over a 1-4 id sequence
+   batch: rows ``torch.equal`` to the unsharded collection's with
+   ``index_dedup`` off and on, an update launching only B6, B6 equal to
+   its plain version at each group's shapes, the tables after 3 steps
+   ``np.array_equal`` to one device's).  The times of this phase are of
+   4 processes sharing one card: not multi-GPU figures.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
@@ -245,12 +270,16 @@ KERNEL_SOURCES = {
 }
 # the main paths that launch each kernel (chip_smoke's phases)
 KERNEL_PATHS = {
-    "pooled_lookup": ["train", "ebc", "train_dcn", "app", "sharded"],
-    "fused_sparse_update": ["train", "train_dcn", "app", "sharded"],
+    "pooled_lookup": ["train", "ebc", "train_dcn", "app", "sharded",
+                      "split", "qcomms", "dmp2d_replicated",
+                      "dmp2d_fully_sharded"],
+    "fused_sparse_update": ["train", "train_dcn", "app", "sharded", "split",
+                            "qcomms", "dmp2d_replicated",
+                            "dmp2d_fully_sharded"],
     "quant_pooled_lookup_int8": ["serving"],
     "dedup_quant_pooled_lookup": ["serving"],
     "dedup_pooled_lookup": ["train_dedup", "ebc"],
-    "dedup_fused_sparse_update": ["train_dedup"],
+    "dedup_fused_sparse_update": ["train_dedup", "sharded_ec"],
 }
 REPLACES = {
     "pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:287",
@@ -3040,11 +3069,13 @@ def bench_tables():
 
 
 def sharded_dmp(dev, plan, batch, caps, env=None, eps=EPS,
-                dense_dtype=None):
+                dense_dtype=None, cls=None, **kw):
     """The DMP of ``build_trainer`` with ``plan``, on ``env`` (one rank
     when None), and its state from a seeded generator on the card (every
     rank draws the same full tables and keeps its share).  ``eps`` is the
-    fused optimizer's, ``dense_dtype`` the dense part's (bf16 if None)."""
+    fused optimizer's, ``dense_dtype`` the dense part's (bf16 if None);
+    ``cls`` (``DMPCollection``) and ``kw`` (``qcomms``, its strategy and
+    sync interval) go to the constructor."""
     import torch
 
     from torchrec_tpu_torch.models.dlrm import DLRM
@@ -3057,10 +3088,10 @@ def sharded_dmp(dev, plan, batch, caps, env=None, eps=EPS,
     _, tables = bench_tables()
     model = DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
                  dense_dtype=dense_dtype or torch.bfloat16)
-    dmp = DistributedModelParallel(
+    dmp = (cls or DistributedModelParallel)(
         model, tables, plan, batch, caps,
         fused_config=FusedOptimConfig(learning_rate=TRAIN_LR, eps=eps),
-        dense_optimizer=adagrad(TRAIN_LR), device=dev, env=env)
+        dense_optimizer=adagrad(TRAIN_LR), device=dev, env=env, **kw)
     return dmp, dmp.init(torch.Generator(device=dev).manual_seed(0))
 
 
@@ -3464,7 +3495,688 @@ def sharded_rank(kinds, device_type="cuda"):
         records += [rec] + kchecks
         del dmp, state, weights
         torch.cuda.empty_cache()
+    recs, counts, kchecks = sharded_stages(dev, env, caps, host, mine, refs)
+    records += recs + kchecks
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
     return records, launches
+
+
+# -- the sharded phase's later stages, in the same 4-rank launch ------------
+
+# each stage's time budget in seconds (one rank's wall, its checks in)
+STAGE_BUDGETS = {"all_reduce": 15, "split": 20, "chunked_a2a": 15,
+                 "qcomms": 45, "dmp2d_replicated": 60,
+                 "dmp2d_fully_sharded": 60, "sharded_ec": 90}
+DMP2D_REPLICAS = 2
+DMP2D_SYNC_INTERVAL = 2
+EC_PLANS = ("tw", "rw", "mixed")
+EC_MAX_IDS = 4  # ids a sequence example, 1 to 4, Zipf(1.0) ids
+EC_STEPS = 3
+CHUNKS = (2, 8)
+CHUNK_WIDTH = 512  # the dense arch's first width
+CHUNK_REL_TOL = 1e-5  # chunked linear vs a2a(x) @ w: |err| / max |ref|
+# tests/test_sharded_ebc.py:285-287, the JAX package's fp32-vs-qcomm bounds
+QCOMM_RTOL, QCOMM_ATOL = 0.02, 0.05
+QCOMM_PRECISIONS = ("bf16", "int8")
+
+
+def _stage_record(name, t0, **fields):
+    """A stage's record: its fields, its seconds and its budget."""
+    s = time.perf_counter() - t0
+    return {"phase": name, **fields, "seconds": s,
+            "budget_s": STAGE_BUDGETS[name],
+            "within_budget": s <= STAGE_BUDGETS[name]}
+
+
+def _counted(call):
+    """(``call()``'s result, the launches it counted, by kernel)."""
+    from torchrec_tpu_torch.ops import tbe
+
+    tbe.reset_launch_counts()
+    out = call()
+    return out, {k: v for k, v in tbe.launch_counts().items() if v}
+
+
+def _lockstep_ms(fn, runs=5):
+    """Median ms of a collective ``fn`` that every rank calls together."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _local_dense_grads(dmp, state, batch):
+    """This rank's loss and dense gradients before the all-reduce, flat:
+    the dense forward and backward of ``dense_forward_backward``."""
+    import torch
+
+    from torchrec_tpu_torch.models.dlrm import bce_with_logits_loss
+    from torchrec_tpu_torch.sparse import KeyedTensor
+
+    ebc = dmp.sharded_ebc
+    kt, _ = dmp.sparse_forward(state, batch)
+    dense = {k: v.detach().requires_grad_() for k, v in state["dense"].items()}
+    with torch.enable_grad():
+        logits = torch.func.functional_call(
+            dmp._dense_forward, {f"model.{k}": v for k, v in dense.items()},
+            (batch.dense_features,
+             KeyedTensor(ebc.feature_order, ebc.feature_dims, kt.detach())))
+        loss = bce_with_logits_loss(logits, batch.labels, batch.weights)
+        grads = torch.autograd.grad(loss, list(dense.values()))
+    return torch.cat([loss.detach().reshape(1).float()]
+                     + [g.reshape(-1) for g in grads])
+
+
+def all_reduce_stage(dmp, state, batch):
+    """The reduce-scatter ``all_reduce_sum`` of the dense gradients (this
+    rank's loss and gradients of one step) ``torch.equal`` to an
+    all-gather and rank-order sum, on every rank; each one's bytes a rank
+    (the ledger's record, and ``N`` copies for the all-gather) and ms."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.comm import (
+        all_gather,
+        all_reduce_sum,
+        sum_over_ranks,
+    )
+    from torchrec_tpu_torch.parallel.qcomm import wire_accounting
+
+    t0 = time.perf_counter()
+    env = dmp.env
+    flat = _local_dense_grads(dmp, state, batch)
+    with wire_accounting() as ledger:
+        new = all_reduce_sum(flat, env, tag="dense_grads:all_reduce")
+    old = sum_over_ranks(all_gather(flat, env))
+    equal = bool(torch.equal(new, old))
+    rec = _stage_record(
+        "all_reduce", t0, rank=env.rank, ranks=env.world_size,
+        elements=flat.numel(), equal_all_gather_sum=equal,
+        bytes_reduce_scatter_all_gather=ledger["dense_grads:all_reduce"],
+        bytes_all_gather=flat.numel() * flat.element_size() * env.world_size,
+        ms_reduce_scatter_all_gather=_lockstep_ms(
+            lambda: all_reduce_sum(flat, env)),
+        ms_all_gather_sum=_lockstep_ms(
+            lambda: sum_over_ranks(all_gather(flat, env))),
+        note=ONE_CARD)
+    if not equal:
+        raise AssertionError(f"all_reduce: new != all-gather sum: {rec}")
+    return rec
+
+
+def split_stage(dmp, state, batch):
+    """``make_embed_step`` then ``make_dense_update_step`` from a copy of
+    the state: the tables, states and metrics ``torch.equal`` to
+    ``train_step``'s from the state; the split step launches B1 and B2
+    and nothing else.  Leaves ``state`` one step on."""
+    import torch
+
+    t0 = time.perf_counter()
+    split = _clone_state(state)
+
+    def halves():
+        kt, ctxs = dmp.make_embed_step()(split["tables"], batch)
+        return dmp.make_dense_update_step()(split, batch, kt, ctxs)
+
+    (split, ms), counts = _counted(halves)
+    _, m = dmp.train_step(state, batch)
+    equal = _state_equal(split, state) and all(
+        torch.equal(ms[k], m[k]) for k in m)
+    rec = _stage_record("split", t0, rank=dmp.env.rank, plan="tw",
+                        equal_train_step=equal, launches=counts,
+                        loss=float(m["loss"]))
+    if not equal or set(counts) != {"pooled_lookup", "fused_sparse_update"}:
+        raise AssertionError(f"split: {rec}")
+    return rec, counts
+
+
+def chunked_a2a_stage(dmp, state, batch):
+    """The pooled KT of the rank's batch as ``[N, B / N, 26 * 128]``
+    blocks: ``chunked_pooled_a2a`` with K of :data:`CHUNKS` ``torch.equal``
+    to one all-to-all, ``chunked_a2a_linear`` within ``CHUNK_REL_TOL`` of
+    ``a2a(x) @ w`` (a seeded ``[3328, 512]`` weight), ms of each."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.chunked_a2a import (
+        chunked_a2a_linear,
+        chunked_pooled_a2a,
+    )
+    from torchrec_tpu_torch.parallel.comm import all_to_all
+
+    t0 = time.perf_counter()
+    env = dmp.env
+    N = env.world_size
+    kt, _ = dmp.sparse_forward(state, batch)
+    x = kt.view(N, kt.shape[0] // N, kt.shape[1])
+    w = torch.randn((kt.shape[1], CHUNK_WIDTH), device=kt.device,
+                    generator=torch.Generator(kt.device).manual_seed(7)) * 0.02
+    mono = all_to_all(x, env).reshape(-1, kt.shape[1])
+    ref = mono @ w
+    out = {"rank": env.rank, "shape": list(x.shape),
+           "ms_one_a2a": _lockstep_ms(lambda: all_to_all(x, env)),
+           "ms_one_a2a_linear": _lockstep_ms(
+               lambda: all_to_all(x, env).reshape(-1, kt.shape[1]) @ w)}
+    for k in CHUNKS:
+        got = chunked_pooled_a2a(x, env, k)
+        lin = chunked_a2a_linear(x, w, env, k)
+        rel = float((lin - ref).abs().max() / ref.abs().max())
+        out[f"k{k}"] = {
+            "equal_one_a2a": bool(torch.equal(got, mono)),
+            "linear_rel_err": rel,
+            "ms": _lockstep_ms(lambda: chunked_pooled_a2a(x, env, k)),
+            "ms_linear": _lockstep_ms(
+                lambda: chunked_a2a_linear(x, w, env, k))}
+        if not out[f"k{k}"]["equal_one_a2a"] or rel > CHUNK_REL_TOL:
+            raise AssertionError(f"chunked_a2a K={k}: {out}")
+    return _stage_record("chunked_a2a", t0, **out,
+                         rel_tol=CHUNK_REL_TOL, note=ONE_CARD)
+
+
+def qcomms_stage(dev, env, caps, mine, tables):
+    """The row-wise plan with bf16 and int8 qcomms on the DMP: the KT of
+    the rank's batch within the JAX package's fp32-vs-qcomm tolerances of
+    the float32 dists' and not equal to it, the ledger's bytes a tag of
+    one step equal to the codec's, and 3 steps of finite losses."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.qcomm import (
+        CommType,
+        QCommsConfig,
+        wire_accounting,
+        wire_bytes_per_f32,
+    )
+
+    t0 = time.perf_counter()
+    N, B = env.world_size, TRAIN_BATCH
+    plan = sharded_plan("rw", tables, N)
+    fp32, st = sharded_dmp(dev, plan, B, caps, env)
+    with torch.no_grad():
+        kt32, _ = fp32.sparse_forward(st, mine[0])
+    del fp32, st
+    out, launches = {"rank": env.rank, "plan": "rw"}, {}
+    for prec in QCOMM_PRECISIONS:
+        qc = QCommsConfig(CommType(prec), CommType(prec))
+        dmp, st = sharded_dmp(dev, plan, B, caps, env, qcomms=qc)
+        with torch.no_grad():
+            kt, _ = dmp.sparse_forward(st, mine[0])
+        err = float((kt - kt32).abs().max())
+        close = bool(torch.allclose(kt, kt32, rtol=QCOMM_RTOL,
+                                    atol=QCOMM_ATOL))
+        (ledger, losses), counts = _counted(lambda: _ledger_steps(dmp, st,
+                                                                  mine))
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        want = {}
+        for name, lay in dmp.sharded_ebc.rw_layouts.items():
+            G, D = len(lay.features), lay.dim
+            wf = wire_bytes_per_f32(qc, "fwd", D)
+            wb = wire_bytes_per_f32(qc, "bwd", D)
+            want[f"{name}:out_dist"] = N * G * B * D * wf
+            want[f"{name}:bwd_dist"] = G * B * D * wb * N
+        out[prec] = {"kt_max_abs_err_vs_fp32": err, "kt_close": close,
+                     "kt_equal_fp32": bool(torch.equal(kt, kt32)),
+                     "losses": losses, "wire_bytes_one_step": ledger,
+                     "codec_bytes": want, "launches": counts}
+        ok = (close and not out[prec]["kt_equal_fp32"]
+              and np.isfinite(losses).all()
+              and all(ledger.get(k) == v for k, v in want.items()))
+        del dmp, st
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"qcomms {prec}: {out[prec]}")
+    return _stage_record("qcomms", t0, **out, rtol=QCOMM_RTOL,
+                         atol=QCOMM_ATOL), launches
+
+
+def _ledger_steps(dmp, state, batches):
+    """3 steps: (the first step's ledger, the losses)."""
+    from torchrec_tpu_torch.parallel.qcomm import wire_accounting
+
+    losses = []
+    for i in range(3):
+        with wire_accounting() as ledger:
+            state, m = dmp.train_step(state, batches[i % len(batches)])
+        losses.append(float(m["loss"]))
+        if i == 0:
+            first = dict(ledger)
+    return first, losses
+
+
+def _replicas_digest_equal(dmp, state):
+    """Whether every replica holds the same tables and fused states: one
+    checksum an array, gathered over the replicas."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.comm import all_gather
+
+    arrays = [state["tables"][n] for n in state["tables"]] + [
+        v for st in state["fused"].values() for v in st.values()
+        if isinstance(v, torch.Tensor) and v.dim()]
+    sums = torch.tensor([_checksum(a) for a in arrays], dtype=torch.int64,
+                        device=arrays[0].device)
+    got = all_gather(sums, dmp.env.replica_env)
+    return bool((got == got[0]).all())
+
+
+def _replicas_equal(dmp, state):
+    """Whether every replica's tables and fused states are ``torch.equal``
+    (each array gathered over the replicas)."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.comm import all_gather
+
+    env = dmp.env.replica_env
+    for name, t in state["tables"].items():
+        for a in [t] + [v for v in state["fused"][name].values()
+                        if isinstance(v, torch.Tensor) and v.dim()]:
+            g = all_gather(a, env)
+            if not all(torch.equal(g[0], g[q]) for q in range(1, len(g))):
+                return False
+            del g
+    return True
+
+
+def dmp2d_kernel_check(dmp, state, batch):
+    """B1 and B2 at this rank's shapes in a 2D step: each sharded group's
+    lookup over the stack the forward reads (FULLY_SHARDED: gathered over
+    the replicas) and its update over the slot stream the step applies
+    (FULLY_SHARDED: every replica's, cut to this rank's slice), each
+    ``torch.equal`` to its plain version."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+
+    env, ebc = dmp.env, dmp.sharded_ebc
+    kt, ctxs = dmp.sparse_forward(state, batch)
+    _, _, _, grads = dmp.dense_forward_backward(state, batch, kt)
+    stacks = dmp._sparse_params_for_forward(state["tables"])
+    fs = dmp._is_fully_sharded
+    sgs = ebc.backward_local(ctxs, grads, dmp.update_kernel, env,
+                             dp_env=env.global_env if fs else None,
+                             dp_divisor=env.num_replicas if fs else 1)
+    recs = []
+    for kind, name, _ in ebc.sharded_groups():
+        ids, w, _, regions = ctxs[name]
+        got = tbe.pooled_lookup_regions(stacks[name], ids, regions, w)
+        ref = tbe.pooled_lookup_regions_plain(stacks[name], ids, regions, w)
+        stack = state["tables"][name]
+        sg = sgs[name]
+        if fs:
+            sg = dmp._replica_slots(name, sg, stack.shape[0])
+        outs = []
+        for fn in (tbe_backward.fused_sparse_update,
+                   tbe_backward.fused_sparse_update_plain):
+            t = stack.clone()
+            m = state["fused"][name]["momentum"].clone()
+            _update_call(fn, t, [m], "rowwise_adagrad", sg,
+                         dmp.fused_config.learning_rate, None, (1.0, 1.0))
+            outs.append((t, m))
+        torch.cuda.synchronize()
+        rec = {"phase": "sharded_kernel", "stage": dmp.sharding_strategy.value,
+               "rank": env.global_rank, "group": name, "kind": kind,
+               "stack": list(stack.shape),
+               "slots": int(sg.ids.numel()),
+               "b1_equal": bool(torch.equal(got, ref)),
+               "b2_equal": all(torch.equal(a, b) for a, b in zip(*outs)),
+               "b1_max_abs_err": float((got - ref).abs().max()),
+               "b2_max_abs_err": max(float((a - b).abs().max())
+                                     for a, b in zip(*outs))}
+        del outs
+        if not (rec["b1_equal"] and rec["b2_equal"]):
+            raise AssertionError(f"2D kernel check: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def dmp2d_stage(strategy, dev, env2, caps, host, mine, refs):
+    """``DMPCollection`` over 2 replicas of 2 model ranks (the planner's
+    plan at world 2, ``sync_interval`` 2): B1 and B2 against their plain
+    versions at the rank's shapes, 1 + 5 steps each followed by
+    ``maybe_sync`` (B1 and B2 at least once a step and nothing else, by
+    the counts and a profile; ms a step, wire bytes a step by tag, peak
+    memory), finite losses; REPLICATED: the replicas apart between syncs
+    and ``torch.equal`` after each; FULLY_SHARDED: each replica's forward
+    of one batch ``torch.equal`` to the other's, the losses within
+    ``PLAIN_LOSS_RTOL`` of the plain one-device ``train_step`` over the
+    global batches, and the tables ``np.array_equal`` to the one-device
+    run of the same arithmetic (the KT gradient halved by the model ranks
+    and the replicas' sum halved, a power of two, exactly the one-device
+    step's quarter; each row's slots in global batch order)."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.model_parallel import DMPCollection
+    from torchrec_tpu_torch.parallel.qcomm import wire_accounting
+    from torchrec_tpu_torch.parallel.planner import EmbeddingShardingPlanner
+
+    name = f"dmp2d_{strategy}"
+    t0 = time.perf_counter()
+    _, tables = bench_tables()
+    plan = EmbeddingShardingPlanner(
+        world_size=env2.world_size,
+        batch_size_per_device=TRAIN_BATCH).plan(tables)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dmp, state = sharded_dmp(dev, plan, TRAIN_BATCH, caps, env2,
+                             cls=DMPCollection, sharding_strategy=strategy,
+                             sync_interval=DMP2D_SYNC_INTERVAL)
+    g = env2.global_rank
+    kchecks = dmp2d_kernel_check(dmp, state, mine[0])
+    fs = strategy == "fully_sharded"
+    tbe_counts = {}
+    losses, in_step, dt = [], [], 0.0
+    with wire_accounting() as ledger:
+        for s, batch in enumerate(mine):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (out, counts) = _counted(lambda: dmp.train_step(state, batch))
+            state, m = out
+            state = dmp.maybe_sync(state)
+            torch.cuda.synchronize()
+            if s:  # step 0 warms up
+                dt += time.perf_counter() - t1
+            losses.append(float(m["loss"]))
+            for k, v in counts.items():
+                tbe_counts[k] = tbe_counts.get(k, 0) + v
+            if set(counts) != {"pooled_lookup", "fused_sparse_update"}:
+                raise AssertionError(f"{name} step {s}: launched {counts}")
+            if not fs:
+                synced = (s + 1) % DMP2D_SYNC_INTERVAL == 0
+                in_step.append(_replicas_equal(dmp, state) if synced
+                               else _replicas_digest_equal(dmp, state))
+    steps = len(mine)
+    fs_checks = (_fully_sharded_checks(dmp, state, dev, host, refs, losses)
+                 if fs else {})
+    torch.distributed.barrier()
+    profiled = _profiled_kernels(lambda: dmp.train_step(state, mine[0]))
+    rec = {"rank": g, "model_rank": env2.rank, "replica": env2.replica_rank,
+           "replicas": env2.num_replicas, "model_ranks": env2.world_size,
+           "plan": _plan_summary(plan),
+           "groups": {n: list(t.shape) for n, t in state["tables"].items()},
+           "steps": steps, "ms_per_step": dt * 1e3 / (steps - 1),
+           "losses": losses, "launches": tbe_counts,
+           "profiled_launches_one_step": profiled,
+           "wire_bytes_per_step": {k: v / steps for k, v in ledger.items()},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+           "kernel_checks": kchecks, "note": ONE_CARD}
+    if not (np.isfinite(losses).all() and profiled["pooled_lookup"]
+            and profiled["fused_sparse_update"]):
+        raise AssertionError(f"{name}: {rec}")
+    if not fs:
+        rec["replicas_equal_after_step"] = in_step
+        want = [(s + 1) % DMP2D_SYNC_INTERVAL == 0 for s in range(steps)]
+        if in_step != want:
+            raise AssertionError(f"{name}: replicas equal after steps "
+                                 f"{in_step}, want {want}")
+    rec.update(fs_checks)
+    del dmp, state
+    torch.cuda.empty_cache()
+    return _stage_record(name, t0, **rec), tbe_counts, kchecks
+
+
+def _fully_sharded_checks(dmp, state, dev, host, refs, losses):
+    """The FULLY_SHARDED checks of :func:`dmp2d_stage` after its steps:
+    each replica's forward of one batch, the losses against the plain
+    one-device step's, the tables against the one-device run of the same
+    arithmetic (rank 0 reads the references, computing them if no plan
+    of the phase did)."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.comm import all_gather
+
+    env = dmp.env
+    n = env.global_size
+    batch = host[env.rank].to(dev)  # the same batch on every replica
+    logits = dmp.forward(state["dense"], state["tables"], batch)
+    got = all_gather(logits, env.replica_env)
+    out = {"forward_equal_across_replicas": bool(torch.equal(got[0],
+                                                             got[1]))}
+    weights = dmp.table_weights(state)  # a collective
+    if env.global_rank == 0:
+        key = one_device_plan(dmp.plan)
+        if key not in refs:
+            refs[key] = (one_device_run(dev, key, host, n),
+                         one_device_run(dev, key, host, n, False)[0])
+        (_, ref_tables), plain = refs[key]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+        out.update({
+            "one_device_train_step_losses": plain,
+            "loss_max_rel_gap_vs_train_step": gap,
+            "tables_equal_one_device": all(
+                np.array_equal(weights[t], ref_tables[t])
+                for t in ref_tables),
+            "table_max_abs_err_vs_one_device": max(
+                float(np.abs(weights[t] - ref_tables[t]).max())
+                for t in ref_tables)})
+        if gap > PLAIN_LOSS_RTOL or not out["tables_equal_one_device"]:
+            raise AssertionError(f"fully_sharded: {out}")
+    if not out["forward_equal_across_replicas"]:
+        raise AssertionError("fully_sharded: replica forwards differ")
+    return out
+
+
+def _ec_batches(env, dev):
+    """Every rank's multi-hot sequence batch (1 to ``EC_MAX_IDS`` ids an
+    example, Zipf(1.0) ids, seeded per rank) and the caps."""
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+
+    keys, _ = bench_tables()
+    F = len(keys)
+    out = []
+    for q in range(env.world_size):
+        ds = RandomRecDataset(keys, TRAIN_BATCH, [TRAIN_ROWS] * F,
+                              [EC_MAX_IDS] * F, num_dense=NUM_DENSE,
+                              manual_seed=200 + q,
+                              min_ids_per_features=[1] * F, zipf_ids=1.0)
+        out.append(next(iter(ds)).sparse_features.to(dev))
+    return dict(zip(keys, ds.caps)), out
+
+
+def _ec_grads(kjt, step, q, dev):
+    """Rank ``q``'s seeded per-id gradients of ``step`` by feature."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(1000 * step + q)
+    return {k: torch.randn((kjt.caps[i], DIM), generator=gen, device=dev)
+            for i, k in enumerate(kjt.keys())}
+
+
+def _ec_reference(dev, tables, weights, plan, kjts, cfg):
+    """The one-device run of the sharded EC's arithmetic: each table (a
+    column-wise one in its column shards, each with its own rowwise
+    state) updated by B6 per step over every rank's valid ids and
+    gradients, ranks in order, each id one segment of weight 1."""
+    import torch
+
+    from torchrec_tpu_torch.ops.fused_update import (
+        apply_sparse_update_segments,
+        init_optimizer_state,
+    )
+    from torchrec_tpu_torch.parallel.embedding import UPDATE_KERNEL, _per_id
+    from torchrec_tpu_torch.parallel.types import ShardingType as ST
+
+    out = {}
+    for c in tables:
+        ps = plan[c.name]
+        k = len(ps.ranks) if ps.sharding_type == ST.COLUMN_WISE else 1
+        f = c.feature_names[0]
+        full = torch.as_tensor(weights[c.name]).to(dev).clone()
+        w = c.embedding_dim // k
+        for j in range(k):
+            t = full[:, j * w:(j + 1) * w].contiguous()
+            st = init_optimizer_state(cfg, t.shape[0], w, dev)
+            for step in range(EC_STEPS):
+                ids, rows = [], []
+                for q, kjt in enumerate(kjts):
+                    jt = kjt[f]
+                    valid = jt.valid_mask()
+                    ids.append(jt.values()[valid])
+                    rows.append(_ec_grads(kjt, step, q, dev)[f][valid][
+                        :, j * w:(j + 1) * w])
+                ids = torch.cat(ids)
+                sg = _per_id(ids, torch.ones_like(ids, dtype=torch.bool),
+                             torch.cat(rows))
+                apply_sparse_update_segments(t, st, sg, cfg,
+                                             update_kernel=UPDATE_KERNEL)
+            full[:, j * w:(j + 1) * w] = t
+        out[c.name] = full.cpu().numpy()
+    return out
+
+
+def sharded_ec_stage(dev, env):
+    """The sharded ``EmbeddingCollection`` over the 26 bench tables
+    (100,000 x 128, float32, rowwise Adagrad) on plans tw, rw and mixed
+    (with 2 data-parallel tables), a multi-hot sequence batch a rank
+    (:func:`_ec_batches`): per feature the rows ``torch.equal`` to the
+    unsharded ``EmbeddingCollection``'s with ``index_dedup`` off and on;
+    one update launches B6 and nothing else, and B6 ``torch.equal`` to its
+    plain version on each group's per-id gradients at the rank's shapes;
+    the tables after ``EC_STEPS`` steps ``np.array_equal`` to the
+    one-device run of the same arithmetic (:func:`_ec_reference`)."""
+    import torch
+
+    from torchrec_tpu_torch.modules.embedding_configs import EmbeddingConfig
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingCollection,
+    )
+    from torchrec_tpu_torch.ops import tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import FusedOptimConfig
+    from torchrec_tpu_torch.parallel.embedding import (
+        ShardedEmbeddingCollection,
+    )
+
+    t0 = time.perf_counter()
+    r, N = env.rank, env.world_size
+    keys, _ = bench_tables()
+    tables = [EmbeddingConfig(num_embeddings=TRAIN_ROWS, embedding_dim=DIM,
+                              name=f"t_{k}", feature_names=[k])
+              for k in keys]
+    ref_ec = EmbeddingCollection(
+        tables, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    weights = {n: t.detach() for n, t in ref_ec.state_dict().items()}
+    caps, kjts = _ec_batches(env, dev)
+    kjt = kjts[r]
+    with torch.no_grad():
+        want = {f: jt.values() for f, jt in ref_ec(kjt).items()}
+    cfg = FusedOptimConfig(learning_rate=TRAIN_LR, eps=EPS)
+    out, launches, errs = {"rank": r}, {}, []
+    for kind in EC_PLANS:
+        plan = sharded_plan(kind, tables, N)
+        rec = {}
+        for dd in (True, False):  # the steps run on the plain one
+            ec = ShardedEmbeddingCollection.build(tables, plan, N,
+                                                  TRAIN_BATCH, caps,
+                                                  index_dedup=dd)
+            params = ec.params_from_tables(weights, device=dev, rank=r)
+            with torch.no_grad():
+                got, _ = ec.forward_local(params, kjt, env)
+            rec[f"rows_equal_dedup_{dd}"] = all(
+                torch.equal(got[f].values(), want[f]) for f in keys)
+            del got
+        fused = ec.init_fused_state(cfg, dev)
+        b6 = {}
+        for step in range(EC_STEPS):
+            with torch.no_grad():
+                _, ctxs = ec.forward_local(params, kjt, env)
+            grads = _ec_grads(kjt, step, r, dev)
+            if step == 0:  # B6 at the rank's shapes, on copies
+                sgs = ec.backward_local(ctxs, grads, env)
+                for name, sg in sgs.items():
+                    res = []
+                    for fn in (tbe_backward.dedup_fused_sparse_update,
+                               tbe_backward.dedup_fused_sparse_update_plain):
+                        t = params[name].clone()
+                        sts = [fused[name]["momentum"].clone()]
+                        fn(t, sts, sg.ids, sg.valid, sg.segments, sg.weights,
+                           sg.grad_seg, cfg.optim.value, cfg.learning_rate,
+                           eps=cfg.eps)
+                        res.append([t] + sts)
+                    torch.cuda.synchronize()
+                    err = max(float((a - b).abs().max())
+                              for a, b in zip(*res))
+                    b6[name] = {"equal": all(torch.equal(a, b)
+                                             for a, b in zip(*res)),
+                                "slots": int(sg.ids.numel()),
+                                "max_abs_err": err}
+                    errs.append({"phase": "sharded_kernel",
+                                 "stage": "sharded_ec", "rank": r,
+                                 "plan": kind, "group": name,
+                                 "b6_max_abs_err": err})
+                    del res
+            _, counts = _counted(lambda: ec.backward_and_update_local(
+                params, fused, ctxs, grads, cfg, env))
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            if set(counts) != {"dedup_fused_sparse_update"}:
+                raise AssertionError(f"sharded_ec {kind}: an update "
+                                     f"launched {counts}")
+        full = ec.tables_to_weights(ec.gather_stacks(params, env))
+        rec["b6"] = b6
+        if r == 0:
+            ref = _ec_reference(dev, tables, weights, plan, kjts, cfg)
+            rec["tables_equal_one_device"] = all(
+                np.array_equal(full[t].cpu().numpy(), ref[t]) for t in ref)
+            rec["table_max_abs_err_vs_one_device"] = max(
+                float(np.abs(full[t].cpu().numpy() - ref[t]).max())
+                for t in ref)
+        out[kind] = rec
+        if not (rec["rows_equal_dedup_False"] and rec["rows_equal_dedup_True"]
+                and all(v["equal"] for v in b6.values())
+                and rec.get("tables_equal_one_device", True)):
+            raise AssertionError(f"sharded_ec {kind}: {rec}")
+        del ec, params, fused, full
+        torch.cuda.empty_cache()
+    return (_stage_record("sharded_ec", t0, **out, caps=sorted(
+        set(caps.values()))), launches, errs)
+
+
+def sharded_stages(dev, env, caps, host, mine, refs):
+    """The stages after the plans, in the same launch: all_reduce, split
+    and chunked_a2a on the tw plan, qcomms on the rw plan, the two 2D
+    strategies over 2 replicas of 2 model ranks, and the sharded EC.
+    Returns (records, launches by kernel, the kernel checks' records)."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.comm import ShardingEnv
+
+    records, launches, kchecks = [], {}, []
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    _, tables = bench_tables()
+    dmp, state = sharded_dmp(dev, sharded_plan("tw", tables, env.world_size),
+                             TRAIN_BATCH, caps, env)
+    records.append(all_reduce_stage(dmp, state, mine[0]))
+    rec, counts = split_stage(dmp, state, mine[0])
+    records.append(rec)
+    add(counts)
+    records.append(chunked_a2a_stage(dmp, state, mine[0]))
+    del dmp, state
+    torch.cuda.empty_cache()
+    rec, counts = qcomms_stage(dev, env, caps, mine, tables)
+    records.append(rec)
+    add(counts)
+    env2 = ShardingEnv.from_process_group("gloo", device=dev,
+                                          num_replicas=DMP2D_REPLICAS)
+    for strategy in ("replicated", "fully_sharded"):
+        rec, counts, checks = dmp2d_stage(strategy, dev, env2, caps, host,
+                                          mine, refs)
+        records.append(rec)
+        add(counts)
+        kchecks += checks
+    rec, counts, checks = sharded_ec_stage(dev, env)
+    records.append(rec)
+    add(counts)
+    kchecks += checks
+    return records, launches, kchecks
 
 
 def over_cap_batch(batch, key_index, length):
@@ -3896,7 +4608,9 @@ def main() -> None:
              ("dedup_fused_sparse_update", dedup_check["b6_max_abs_err"])]
     errs += [(k, c[f"{b}_max_abs_err"]) for c in sharded_checks
              for k, b in (("pooled_lookup", "b1"),
-                          ("fused_sparse_update", "b2"))]
+                          ("fused_sparse_update", "b2"),
+                          ("dedup_fused_sparse_update", "b6"))
+             if f"{b}_max_abs_err" in c]
 
     def representative(name):
         """The timed row of each kernel: float32 (int8 for B3/B5), rowwise

@@ -1058,3 +1058,92 @@ def test_one_rank_nccl_forward_and_step_on_card(dev):
     (rec,) = launch(workers.nccl_rank, 1, timeout=300)
     assert rec["kt_equal"] and rec["tables_equal"], rec
     assert rec["backend"] == "nccl" and rec["loss"] == rec["one_loss"]
+
+
+# ---------------------------------------------------------------------------
+# the sharded EC's update (B6 over per-id segments) and the data-parallel
+# groups' every-row update (B2 or B6 over the slots plus one zero-gradient
+# slot a row no slot touches)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("optim", tbe_backward.OPTIMIZERS)
+def test_dedup_update_per_id_segments_equals_plain_on_card(dev, optim):
+    """B6 with each id its own segment of weight 1 (the sharded EC's
+    update): ``torch.equal`` to its plain version and to
+    ``apply_sparse_update`` (the JAX collection's XLA update) on the same
+    per-id gradients."""
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        FusedOptimConfig,
+        apply_sparse_update,
+        bias_corrections,
+        init_optimizer_state,
+    )
+    from torchrec_tpu_torch.parallel.embedding import _per_id
+
+    rng = np.random.RandomState(7)
+    D = 16
+    ids = torch.from_numpy(np.minimum(rng.zipf(1.3, V) - 1, R - 1)).to(dev)
+    valid = torch.from_numpy(rng.rand(V) > 0.2).to(dev)
+    rg = torch.from_numpy(rng.randn(V, D).astype(np.float32)).to(dev)
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(dev)
+    cfg = FusedOptimConfig(optim=EmbOptimType(optim), learning_rate=0.05,
+                           weight_decay=0.01)
+    out = []
+    for way in ("kernel", "plain", "xla"):
+        t = table.clone()
+        st = init_optimizer_state(cfg, R, D, dev)
+        states = [v for k, v in st.items() if k != "step"]
+        sg = _per_id(ids, valid, rg)
+        if way == "xla":
+            apply_sparse_update(t, st, ids, valid, rg, cfg)
+        else:
+            fn = (tbe_backward.dedup_fused_sparse_update if way == "kernel"
+                  else tbe_backward.dedup_fused_sparse_update_plain)
+            # the Adam family's corrections at the XLA path's step, t = 1
+            hyp = ({"bias_corrections": bias_corrections(cfg, 1)}
+                   if optim in _ADAM else {})
+            fn(t, states, sg.ids, sg.valid, sg.segments, sg.weights,
+               sg.grad_seg, optim, 0.05, weight_decay=0.01, **hyp)
+        torch.cuda.synchronize()
+        out.append((t, states))
+    for t, states in out[1:]:
+        assert torch.equal(out[0][0], t)
+        for a, b in zip(out[0][1], states):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("optim", ("rowwise_adagrad", "adam", "sgd"))
+@pytest.mark.parametrize("kernel", UPDATES)
+def test_every_row_update_equals_plain_on_card(dev, kernel, optim):
+    """The data-parallel update over every row (``grouped.step_every_row``)
+    through B2 or B6: ``torch.equal`` to its plain version, the touched
+    rows ``torch.equal`` to the update of the slots alone, and (with
+    weight decay) every row moved."""
+    from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
+    from torchrec_tpu_torch.parallel.grouped import step_every_row
+
+    args, grad = _run_stream(dev, "runs", 16, seed=3)
+    sg = SparseSegGrad(*args[:3], args[3], grad)
+    every = step_every_row(sg, R)
+    rng = np.random.RandomState(5)
+    table = torch.from_numpy(rng.randn(R, 16).astype(np.float32)).to(dev)
+    states = [torch.from_numpy(
+        rng.rand(*((R,) if kind == "row" else (R, 16))).astype(np.float32)
+    ).to(dev) for kind in tbe_backward.STATE_LAYOUTS[optim]]
+    runs = {}
+    for name, s, plain in (("kernel", every, False), ("plain", every, True),
+                           ("slots", sg, False)):
+        t, st = table.clone(), [x.clone() for x in states]
+        _update(kernel, plain, optim, t, st,
+                (s.ids, s.valid, s.segments, s.weights), s.grad_seg, None)
+        torch.cuda.synchronize()
+        runs[name] = (t, st)
+    assert torch.equal(runs["kernel"][0], runs["plain"][0])
+    for a, b in zip(runs["kernel"][1], runs["plain"][1]):
+        assert torch.equal(a, b)
+    touched = torch.zeros(R, dtype=torch.bool, device=dev)
+    touched[sg.ids[sg.ok()].long()] = True
+    assert torch.equal(runs["kernel"][0][touched], runs["slots"][0][touched])
+    assert (runs["kernel"][0] != table).any(dim=1).all()  # weight decay

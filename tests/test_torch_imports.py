@@ -36,7 +36,10 @@ def test_every_module_imports_without_jax():
               "sparse.tensor_dict", "parallel.planner.planners",
               "parallel.planner.provider", "ir.serializer",
               "obs.assumptions", "optim.warmup", "metrics.metric_module",
-              "datasets.criteo", "examples.dlrm.dlrm_main"):
+              "datasets.criteo", "examples.dlrm.dlrm_main",
+              "parallel.embedding", "parallel.chunked_a2a",
+              "parallel.comm", "parallel.multiprocess",
+              "parallel.sharding.rw"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

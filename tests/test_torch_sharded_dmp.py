@@ -6,11 +6,16 @@ the same carried state (each rank its share, ``convert.py``) on the same
 over two plans that between them hold every plan kind of
 ``tests/test_sharded_ebc.py``: RW + TW + CW + DP, and TWRW + GRID + TWCW +
 TW; the first spawn also runs the plan of both packages' planners at
-world 4 (the same plan).  After the steps, each rank's eval forward
+world 4 (the same plan) and the first plan with bfloat16 qcomms on both
+packages' DMPs.  After the steps, each rank's eval forward
 (``make_forward``) against its row of the JAX forward's ``[N, B]``
 logits, and one step with rank 0's batch over capacity: ``id_overflow``
-summed over ranks equals the JAX step's.  One spawn a plan; JAX on its XLA
-kernels, the port on its plain versions."""
+summed over ranks equals the JAX step's.  In every job the first step
+also runs as the split step (``make_embed_step`` then
+``make_dense_update_step``), ``torch.equal`` to ``train_step``; each
+spawn also holds the reduce-scatter ``all_reduce_sum`` ``torch.equal`` to
+an all-gather and rank-order sum, its ledger bytes ``2 N`` pieces.  One
+spawn a plan; JAX on its XLA kernels, the port on its plain versions."""
 
 import jax
 import numpy as np
@@ -34,6 +39,8 @@ from torchrec_tpu.parallel.model_parallel import stack_batches
 from torchrec_tpu.parallel.planner.planners import (
     EmbeddingShardingPlanner as JPlanner,
 )
+from torchrec_tpu.parallel.qcomm import CommType as JComm
+from torchrec_tpu.parallel.qcomm import QCommsConfig as JQComms
 from torchrec_tpu.parallel.types import ParameterSharding as JPS
 from torchrec_tpu.parallel.types import ShardingType as JST
 from torchrec_tpu.sparse import KeyedJaggedTensor as JKJT
@@ -66,6 +73,12 @@ PLANS = {
 
 
 OVER = (0, 4)  # rank 0's f0 claims 4 ids an example, cap 3 an example
+QCOMMS = ("bf16", "bf16")  # forward, backward wire precision
+# the bf16 job against JAX's: both round the dists' payloads to bfloat16,
+# but JAX reduce-scatters in bfloat16 and the port sums the decoded float32
+# pieces; measured 5.4e-4 (tables), 1.0e-4 (logits) and 1.3e-6 (losses,
+# relative) apart after 3 steps; about 5x that
+QCOMM_ATOL, QCOMM_LOSS_RTOL = 3e-3, 1e-5
 
 
 def _planned_spec():
@@ -93,10 +106,11 @@ def _over_cap_jax(batch):
         caps=kjt.caps), batch.labels, batch.weights)
 
 
-def _jax_run(plan_spec):
+def _jax_run(plan_spec, qcomms=None):
     """The JAX DMP's initial state (numpy), its losses and its state
     after ``STEPS`` steps, the forward's logits of the next batches and
-    the ``id_overflow`` of one step with batch 0 over capacity."""
+    the ``id_overflow`` of one step with batch 0 over capacity;
+    ``qcomms`` (forward, backward) precision values or None."""
     tables = tuple(JCfg(num_embeddings=ROWS, embedding_dim=D,
                         name=t["name"], feature_names=t["features"],
                         pooling=JPooling.SUM) for t in TABLES)
@@ -115,6 +129,8 @@ def _jax_run(plan_spec):
         dense_in_features=DENSE_IN,
         fused_config=JFused(optim=JOptim.ROWWISE_ADAGRAD, learning_rate=LR),
         dense_optimizer=optax.adagrad(LR),
+        qcomms=None if qcomms is None else JQComms(JComm(qcomms[0]),
+                                                   JComm(qcomms[1])),
     )
     state = dmp.init(jax.random.key(0))
     start = jax.tree.map(np.asarray, state)
@@ -139,39 +155,52 @@ def _jax_run(plan_spec):
             np.asarray(m["id_overflow"]))
 
 
-def _check(port_job, want):
+def _check(port_job, want, atol=1e-5, loss_rtol=1e-5):
     """One job's results on every rank against the JAX run's."""
     (_, start_tables, _, _, want_losses, want_tables, want_dense,
      want_logits, want_overflow) = want
     assert want_overflow.tolist() == [B * OVER[1] - B * IDS[0], 0, 0, 0]
-    for r, (losses, logits, overflow, _) in enumerate(port_job):
+    for r, (losses, logits, overflow, split_equal, _) in enumerate(port_job):
         # every rank reports the loss averaged over the 4 ranks
-        np.testing.assert_allclose(losses, want_losses, rtol=1e-5, atol=0,
-                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(losses, want_losses, rtol=loss_rtol,
+                                   atol=0, err_msg=f"rank {r}")
         np.testing.assert_allclose(logits, want_logits[r], rtol=0,
-                                   atol=1e-5, err_msg=f"rank {r}")
+                                   atol=atol, err_msg=f"rank {r}")
         np.testing.assert_array_equal(overflow, want_overflow)
-    tables, dense = port_job[0][3]
+        assert split_equal, f"rank {r}: split step != train_step"
+    tables, dense = port_job[0][4]
     for t, w in want_tables.items():
         np.testing.assert_allclose(tables[t], np.asarray(w), rtol=0,
-                                   atol=1e-5, err_msg=t)
+                                   atol=atol, err_msg=t)
         moved = (tables[t] != np.asarray(start_tables[t])).any(axis=1)
         assert moved.sum() > 10, t  # the steps touched many rows
     got = flax_params_from_dlrm_state_dict(
         {k: torch.from_numpy(v) for k, v in dense.items()})
     for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want_dense)):
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol)
+    return tables
 
 
 @pytest.mark.parametrize("plan", sorted(PLANS))
 def test_sharded_dmp_matches_jax(plan):
-    specs = [PLANS[plan]]
+    specs = [(PLANS[plan], None)]
     if plan == "rw_tw_cw_dp":
-        specs.append(_planned_spec())
-    wants = [_jax_run(s) for s in specs]
-    jobs = [(s, w[0], w[3]) for s, w in zip(specs, wants)]
+        specs += [(_planned_spec(), None), (PLANS[plan], QCOMMS)]
+    wants = [_jax_run(s, qc) for s, qc in specs]
+    jobs = [(s, w[0], w[3], qc) for (s, qc), w in zip(specs, wants)]
     port = launch(workers.dmp_rank, WORLD, args=(
         TABLES, jobs, KEYS, wants[0][2], B, IDS, DENSE_IN, DENSE_ARCH,
         OVER_ARCH, LR, STEPS, OVER), timeout=120)
-    for j, want in enumerate(wants):
-        _check([rank[j] for rank in port], want)
+    n, piece = 1001, -(-1001 // WORLD)
+    for rank in port:
+        assert rank["all_reduce"] == (True, 2 * WORLD * piece * 4)
+    fp32 = None
+    for j, ((_, qc), want) in enumerate(zip(specs, wants)):
+        job = [rank["jobs"][j] for rank in port]
+        if qc is None:
+            tables = _check(job, want)
+            fp32 = fp32 or tables
+            continue
+        tables = _check(job, want, QCOMM_ATOL, QCOMM_LOSS_RTOL)
+        # the codec moved the result: not the float32 run's tables
+        assert any(not np.array_equal(tables[t], fp32[t]) for t in tables)

@@ -36,9 +36,16 @@ A sharded JAX state holds every rank's rows of a group in one global
 stack (row ``d * rows + r`` is row ``r`` of rank ``d``): with ``rank``
 and ``world_size`` the crossing keeps rank ``rank``'s rows of each
 sharded group and its states (:func:`shard_rows`), and every row of a
-replicated (data-parallel) group.  Full tables cross through the sharded
-collection's ``params_from_tables(weights, rank=...)``.  Everything here
-is numpy and torch; nothing imports JAX.
+replicated (data-parallel) group.  A JAX ``DMPCollection`` state of
+``num_replicas`` R replicas crosses too: REPLICATED tiles every group
+once per replica (a sharded group's global stack is replica-major,
+``[R * M * rows, ...]``, a data-parallel group's ``[R * rows, ...]``),
+FULLY_SHARDED splits each model rank's stack over the replicas,
+model-major (chunk ``m * R + r`` of ``M * R`` on rank ``(r, m)``), and
+keeps data-parallel groups whole.  :func:`train_states_to_jax` puts every
+rank's state back into the global layout.  Full tables cross through the
+sharded collection's ``params_from_tables(weights, rank=...)``.
+Everything here is numpy and torch; nothing imports JAX.
 """
 
 from __future__ import annotations
@@ -246,6 +253,15 @@ def shard_rows(arr: Any, rank: int, world_size: int) -> np.ndarray:
     return arr[rank * n:(rank + 1) * n]
 
 
+def _chunk(rank: int, world_size: int, replica: int, num_replicas: int,
+           fully_sharded: bool) -> int:
+    """The index of rank ``(replica, rank)``'s rows among the ``R * M``
+    chunks of a sharded group's global stack."""
+    if fully_sharded:
+        return rank * num_replicas + replica
+    return replica * world_size + rank
+
+
 def train_state_from_jax(
     state: Mapping[str, Any],
     device=None,
@@ -253,18 +269,27 @@ def train_state_from_jax(
     rank: int = 0,
     world_size: int = 1,
     replicated: Sequence[str] = (),
+    replica: int = 0,
+    num_replicas: int = 1,
+    fully_sharded: bool = False,
 ) -> Dict[str, Any]:
-    """A JAX ``DistributedModelParallel`` train state with numpy leaves
-    (``jax.tree.map(np.asarray, state)``) -> rank ``rank``'s share of the
-    port's train state on ``device``: each group's rows of that rank, but
-    every row of the ``replicated`` (data-parallel) groups.  Table stacks
-    keep their dtype (float32, or bfloat16 where the JAX stack is
-    bfloat16) unless ``table_dtype`` is given."""
+    """A JAX ``DistributedModelParallel`` (or ``DMPCollection``) train
+    state with numpy leaves (``jax.tree.map(np.asarray, state)``) -> the
+    share of model rank ``rank`` of replica ``replica`` of the port's
+    train state on ``device``: each sharded group's rows of that rank
+    (module docstring for the 2D layouts), and every row of the
+    ``replicated`` (data-parallel) groups, of this replica's copy under
+    REPLICATED.  Table stacks keep their dtype (float32, or bfloat16
+    where the JAX stack is bfloat16) unless ``table_dtype`` is given."""
+    chunk = _chunk(rank, world_size, replica, num_replicas, fully_sharded)
 
     def mine(group, arr):
-        if group in replicated or np.ndim(arr) == 0:
+        if np.ndim(arr) == 0:
             return arr
-        return shard_rows(arr, rank, world_size)
+        if group in replicated:
+            return arr if fully_sharded else shard_rows(arr, replica,
+                                                        num_replicas)
+        return shard_rows(arr, chunk, world_size * num_replicas)
 
     def table(arr):
         dt = table_dtype
@@ -302,3 +327,43 @@ def train_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
         "fused": {g: _fused_to_jax(st) for g, st in state["fused"].items()},
         "step": np.int32(state["step"]),
     }
+
+
+def train_states_to_jax(
+    states: Sequence[Mapping[str, Any]],
+    world_size: int = 1,
+    num_replicas: int = 1,
+    fully_sharded: bool = False,
+    replicated: Sequence[str] = (),
+) -> Dict[str, Any]:
+    """Every rank's train state (global rank ``r * world_size + m`` at
+    index ``r * world_size + m``) -> the JAX package's global train state
+    (numpy leaves, :func:`train_state_to_jax`'s dtypes): each sharded
+    group's rows put back in the global stack's chunk order (module
+    docstring), a data-parallel group's copies tiled per replica under
+    REPLICATED (rank 0's under FULLY_SHARDED); the dense parts and steps
+    are rank 0's."""
+    M, R = world_size, num_replicas
+    if len(states) != M * R:
+        raise ValueError(f"{len(states)} states for {R} x {M} ranks")
+    parts = [train_state_to_jax(st) for st in states]
+    order = [0] * (M * R)  # chunk index -> global rank
+    for r in range(R):
+        for m in range(M):
+            order[_chunk(m, M, r, R, fully_sharded)] = r * M + m
+    dp_ranks = [0] if fully_sharded else [r * M for r in range(R)]
+
+    def merge(group, pick):
+        ranks = dp_ranks if group in replicated else order
+        first = pick(parts[0])
+        if np.ndim(first) == 0:
+            return first
+        return np.concatenate([pick(parts[g]) for g in ranks])
+
+    out = dict(parts[0])
+    out["tables"] = {g: merge(g, lambda p, g=g: p["tables"][g])
+                     for g in parts[0]["tables"]}
+    out["fused"] = {g: {k: merge(g, lambda p, g=g, k=k: p["fused"][g][k])
+                        for k in st}
+                    for g, st in parts[0]["fused"].items()}
+    return out

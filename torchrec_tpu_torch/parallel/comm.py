@@ -1,6 +1,6 @@
-"""The model-parallel world: a ``torch.distributed`` process group in
-place of the JAX package's mesh axis (a subset of
-``torchrec_tpu/parallel/comm.py``).
+"""The model-parallel world: ``torch.distributed`` process groups in
+place of the JAX package's mesh axes (a subset of
+``torchrec_tpu/parallel/comm.py``), and the wire-byte ledger.
 
 The JAX package names its collectives by mesh axis inside ``shard_map``;
 the port runs one process per rank, each with its own device, and names
@@ -10,22 +10,41 @@ group and the rank's device.  The backend is the caller's choice,
 it stages them through host memory itself), and so is the device: nothing
 here picks either quietly.
 
-The collectives the sharded modules use are the three below, each over
+A 2D world (``DMPCollection``, the JAX package's ``(replica, model)``
+mesh) is ``num_replicas`` replicas of ``world_size`` model ranks: global
+rank ``r * world_size + m`` is model rank ``m`` of replica ``r``.  Its
+env's ``group`` is the model group (the ``world_size`` ranks of one
+replica, where the dists run), ``replica_group`` the ``num_replicas``
+ranks holding one model rank (the replica sync and the FULLY_SHARDED
+gathers), and ``global_group`` every rank (the dense mean);
+:attr:`ShardingEnv.replica_env` and :attr:`ShardingEnv.global_env` are
+those worlds as envs of their own.  ``world_size`` stays the model
+group's size, as in the JAX package.
+
+The collectives the sharded modules use are the ones below, each over
 ``torch.distributed`` on the env's group (at one rank too, when it has
-one), and each the identity at one rank with no group.  Sums over ranks are taken here, in rank order
-(:func:`sum_over_ranks`), not by the backend's reduction, so they give
-the same bits over NCCL and gloo and on every rank.
+one), and each the identity at one rank with no group.  Sums over ranks
+are taken here, in rank order (:func:`sum_over_ranks`), not by the
+backend's reduction, so they give the same bits over NCCL and gloo and
+on every rank.
+
+The ledger (:func:`wire_accounting`) records the logical payload of each
+collective per tag as the JAX package's does while it traces: the send
+buffer at wire precision, times the fan-out for an all-gather,
+self-chunks included.  The port runs eagerly, so it records at call
+time: every call inside the context adds its bytes.
 
 Left out: the hybrid and two-level meshes (``create_hybrid_mesh``,
-``create_two_level_mesh``, ROADMAP A8), the replica and DCN axes, and
+``create_two_level_mesh``, ROADMAP A8), the DCN axis, and
 ``device_put_global`` (each rank builds its own share).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-from typing import Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -34,18 +53,49 @@ from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 
 BACKENDS = ("nccl", "gloo")
 
+_WIRE_LEDGER: Optional[Dict[str, float]] = None
+
+
+@contextlib.contextmanager
+def wire_accounting() -> Iterator[Dict[str, float]]:
+    """Collect per-tag wire bytes of every collective called inside the
+    context.  Nested contexts shadow (inner calls record inner)."""
+    global _WIRE_LEDGER
+    prev = _WIRE_LEDGER
+    ledger: Dict[str, float] = {}
+    _WIRE_LEDGER = ledger
+    try:
+        yield ledger
+    finally:
+        _WIRE_LEDGER = prev
+
+
+def record_wire_bytes(tag: str, nbytes: float) -> None:
+    """Add ``nbytes`` to the active ledger (no-op outside
+    :func:`wire_accounting`)."""
+    if _WIRE_LEDGER is None:
+        return
+    _WIRE_LEDGER[tag] = _WIRE_LEDGER.get(tag, 0.0) + float(nbytes)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardingEnv:
-    """The world one model-parallel step runs over: ``world_size``
-    ranks, this process's ``rank``, the ``group`` the collectives run on
-    (None only at one rank) and the rank's ``device``."""
+    """The world one model-parallel step runs over: ``world_size`` model
+    ranks, this process's model ``rank``, the ``group`` the collectives
+    run on (None only at one rank) and the rank's ``device``; in a 2D
+    world also ``num_replicas``, this process's ``replica_rank``, the
+    ``replica_group`` and the ``global_group`` of every rank (module
+    docstring)."""
 
     world_size: int
     rank: int
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
     backend: Optional[str] = None
+    num_replicas: int = 1
+    replica_rank: int = 0
+    replica_group: Optional[dist.ProcessGroup] = None
+    global_group: Optional[dist.ProcessGroup] = None
 
     def __post_init__(self):
         if not 0 <= self.rank < self.world_size:
@@ -54,6 +104,40 @@ class ShardingEnv:
         if self.world_size > 1 and self.group is None:
             raise ValueError(f"a world of {self.world_size} ranks needs a "
                              "process group")
+        if not 0 <= self.replica_rank < self.num_replicas:
+            raise ValueError(f"replica {self.replica_rank} outside "
+                             f"{self.num_replicas} replicas")
+        if self.num_replicas > 1 and (self.replica_group is None
+                                      or self.global_group is None):
+            raise ValueError(f"{self.num_replicas} replicas need a replica "
+                             "group and a global group")
+
+    @property
+    def global_rank(self) -> int:
+        """``replica_rank * world_size + rank``: the JAX mesh's
+        ``(replica, model)`` order."""
+        return self.replica_rank * self.world_size + self.rank
+
+    @property
+    def global_size(self) -> int:
+        """Every rank of the 2D world: ``num_replicas * world_size``."""
+        return self.num_replicas * self.world_size
+
+    @property
+    def replica_env(self) -> "ShardingEnv":
+        """The ``num_replicas`` ranks that hold this model rank, as a
+        world of its own (rank: the replica)."""
+        return ShardingEnv(self.num_replicas, self.replica_rank, self.device,
+                           self.replica_group, self.backend)
+
+    @property
+    def global_env(self) -> "ShardingEnv":
+        """Every rank of the 2D world as one world (rank: the global
+        rank); the env itself with one replica."""
+        if self.num_replicas == 1:
+            return self
+        return ShardingEnv(self.global_size, self.global_rank, self.device,
+                           self.global_group, self.backend)
 
     @staticmethod
     def single_device(device: DeviceLike = None) -> "ShardingEnv":
@@ -63,13 +147,21 @@ class ShardingEnv:
 
     @staticmethod
     def from_process_group(
-        backend: str, device: DeviceLike = None
+        backend: str, device: DeviceLike = None, num_replicas: int = 1,
     ) -> "ShardingEnv":
         """The env of this process in the initialised default process
-        group.  ``backend`` must be the group's: ``"nccl"`` or ``"gloo"``.  The device is the caller's; with none
-        named, or a CUDA device with no index, it is
-        ``cuda:{LOCAL_RANK}`` (the local rank from the environment, else
-        the rank), and no card raises."""
+        group.  ``backend`` must be the group's: ``"nccl"`` or ``"gloo"``.
+        The device is the caller's; with none named, or a CUDA device with
+        no index, it is ``cuda:{LOCAL_RANK}`` (the local rank from the
+        environment, else the rank), and no card raises.  With
+        ``num_replicas`` R > 1 the world is R replicas of ``world size /
+        R`` model ranks, their groups built by
+        ``multiprocess.replica_model_groups`` (a collective: every rank
+        calls it, in the same order as its other groups)."""
+        from torchrec_tpu_torch.parallel.multiprocess import (
+            replica_model_groups,
+        )
+
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got "
                              f"{backend!r}")
@@ -87,8 +179,13 @@ class ShardingEnv:
                                                           rank)))
         if backend == "nccl" and dev.type != "cuda":
             raise ValueError(f"NCCL runs on CUDA devices, not {dev}")
-        return ShardingEnv(dist.get_world_size(), rank, dev,
-                           dist.group.WORLD, backend)
+        W = dist.get_world_size()
+        if num_replicas == 1:
+            return ShardingEnv(W, rank, dev, dist.group.WORLD, backend)
+        model, replica = replica_model_groups(num_replicas)
+        M = W // num_replicas
+        return ShardingEnv(M, rank % M, dev, model, backend, num_replicas,
+                           rank // M, replica, dist.group.WORLD)
 
 
 def resolve_env(env: Optional[ShardingEnv], world_size: int,
@@ -113,6 +210,8 @@ def all_to_all(x: torch.Tensor, env: ShardingEnv) -> torch.Tensor:
     x = x.contiguous()
     if env.group is None:
         return x.clone()
+    if x.dtype == torch.bool:  # crosses the wire as bytes
+        return all_to_all(x.view(torch.uint8), env).view(torch.bool)
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=env.group)
     return out
@@ -122,6 +221,8 @@ def all_gather(x: torch.Tensor, env: ShardingEnv) -> torch.Tensor:
     """``[N, *x.shape]``: every rank's ``x`` in rank order."""
     if env.group is None:
         return x.unsqueeze(0).clone()
+    if x.dtype == torch.bool:
+        return all_gather(x.view(torch.uint8), env).view(torch.bool)
     flat = x.reshape(-1).contiguous()  # gloo gathers along dim 0 only
     out = flat.new_empty(env.world_size * flat.numel())
     dist.all_gather_into_tensor(out, flat, group=env.group)
@@ -138,9 +239,23 @@ def sum_over_ranks(blocks: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def all_reduce_sum(x: torch.Tensor, env: ShardingEnv) -> torch.Tensor:
-    """The sum of ``x`` over ranks, the same bits on every rank: an
-    all-gather, then :func:`sum_over_ranks`."""
+def all_reduce_sum(x: torch.Tensor, env: ShardingEnv,
+                   tag: str = "all_reduce") -> torch.Tensor:
+    """The sum of ``x`` over ranks, the same bits on every rank: a
+    reduce-scatter (an all-to-all of ``x`` cut into ``N`` pieces, padded
+    to a multiple of ``N``, then :func:`sum_over_ranks` of the piece this
+    rank owns), then an all-gather of the reduced pieces.  Each element is
+    summed in rank order, as an all-gather of ``x`` and a rank-order sum
+    would, but a rank sends about ``2 (N - 1) / N`` of ``x`` instead of
+    ``N - 1`` copies.  The ledger records both collectives under ``tag``
+    (``2 N`` pieces of ``x``'s dtype)."""
     if env.group is None:
         return x.clone()
-    return sum_over_ranks(all_gather(x, env))
+    N = env.world_size
+    flat = x.reshape(-1)
+    piece = -(-flat.numel() // N)
+    padded = flat.new_zeros(N * piece)
+    padded[:flat.numel()] = flat
+    record_wire_bytes(tag, 2 * N * piece * x.element_size())
+    mine = sum_over_ranks(all_to_all(padded.view(N, piece), env))
+    return all_gather(mine, env).reshape(-1)[:flat.numel()].view(x.shape)

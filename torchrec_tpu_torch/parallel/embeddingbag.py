@@ -13,9 +13,18 @@ optimizer state in place.  Data-parallel groups are replicated: each rank
 pools its own examples, every rank's slots and their gradients are
 all-gathered, and every rank applies the same update to its replica
 through the same fused kernel, the global batch's slots in one device's
-order (the JAX package all-reduces a dense table gradient and applies
-its XLA update, ``apply_sparse_update(..., dedup=False)``: the same
-sums, another rounding).
+order, and every row of the stack takes the step
+(``grouped.step_every_row``: an untouched row a zero gradient).  The JAX
+package all-reduces a dense table gradient and applies its XLA update to
+every row, ``apply_sparse_update(..., dedup=False)``: the same sums,
+another rounding.  :meth:`~ShardedEmbeddingBagCollection.backward_local`
+is the backward without the update (the JAX package's
+``backward_rows_local``, its gradients kept as slot streams), which the
+FULLY_SHARDED 2D strategy gathers over the replicas.  ``qcomms``
+(``parallel/qcomm.py``) sets the wire precision of every sharded group's
+pooled output dist and its backward; a data-parallel group's all-gather
+stays float32, as the JAX package's all-reduce of its dense gradient
+takes no codec.
 
 The caller names both kernels (``lookup_kernel``, ``update_kernel``:
 ``"tbe"`` or ``"dedup"``).  The dedup kernels run on table-wise groups,
@@ -23,9 +32,8 @@ whose owner's call is the same local call at any world size; on row-wise
 and block-shard groups they belong with the dedup'd row-wise dist
 (ROADMAP A7) and raise.
 
-Left out: the dedup'd and hierarchical dists, variable-batch KJTs, the
-traced id sanitizer, ``dedup_overflow`` and ``backward_rows_local`` (its
-callers, FULLY_SHARDED 2D, are not ported).
+Left out: the dedup'd and hierarchical dists, variable-batch (VBE) KJTs
+(ROADMAP A6), the traced id sanitizer and ``dedup_overflow``.
 """
 
 from __future__ import annotations
@@ -51,8 +59,9 @@ from torchrec_tpu_torch.parallel.grouped import (
     DpGroup,
     GroupedShardingBase,
     classify_plan,
+    step_every_row,
 )
-from torchrec_tpu_torch.parallel.qcomm import qcomm_all_gather
+from torchrec_tpu_torch.parallel.qcomm import QCommsConfig, qcomm_all_gather
 from torchrec_tpu_torch.parallel.sharding.common import (
     per_slot_segments,
     source_weights,
@@ -76,7 +85,8 @@ from torchrec_tpu_torch.parallel.types import EmbeddingModuleShardingPlan
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor, KeyedTensor
 
 _FORWARD = {"rw": rw_forward_local, "twrw": twrw_forward_local}
-_BACKWARD = {"rw": rw_backward_local, "twrw": twrw_backward_local}
+_BACKWARD = {"tw": tw_backward_local, "rw": rw_backward_local,
+             "twrw": twrw_backward_local}
 
 
 def _require_tbe(kernel: str, name: str, what: str) -> None:
@@ -110,8 +120,14 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         world_size: int,
         batch_size: int,
         feature_caps: Dict[str, int],
+        qcomms: Optional[QCommsConfig] = None,
+        row_align: int = 1,
     ) -> "ShardedEmbeddingBagCollection":
-        g = classify_plan(tables, plan, world_size, batch_size, feature_caps)
+        """Compile the plan (``grouped.classify_plan``): ``qcomms`` the
+        sharded groups' wire precision, ``row_align`` a multiple every
+        sharded stack is rounded up to."""
+        g = classify_plan(tables, plan, world_size, batch_size, feature_caps,
+                          qcomms=qcomms, row_align=row_align)
         return ShardedEmbeddingBagCollection(
             tables=tuple(tables), plan=dict(plan), world_size=world_size,
             batch_size=batch_size, tw_layouts=g.tw_layouts,
@@ -190,6 +206,32 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
                 for i, f in enumerate(g.features)}
         return outs, (ids_c, w_c, segs, regions)
 
+    def backward_local(
+        self,
+        ctxs: Mapping[str, Tuple],
+        grad_by_feature: Mapping[str, torch.Tensor],
+        update_kernel: str = "tbe",
+        env: Optional[ShardingEnv] = None,
+        dp_env: Optional[ShardingEnv] = None,
+        dp_divisor: int = 1,
+    ) -> Dict[str, SparseSegGrad]:
+        """Reverse dists without the update: each group's sparse gradient
+        against this rank's stack, in :attr:`group_names` order.  A
+        data-parallel group's slots are gathered over ``dp_env`` (default
+        ``env``), their gradients divided by ``dp_divisor``, and extended
+        to step every row (``grouped.step_every_row``)."""
+        out: Dict[str, SparseSegGrad] = {}
+        for kind, name, lay in self.sharded_groups():
+            if kind != "tw":
+                _require_tbe(update_kernel, name, "update")
+            out[name] = _BACKWARD[kind](lay, ctxs[name], grad_by_feature,
+                                        env)
+        for name, g in self.dp_groups.items():
+            sg = self._dp_backward(g, ctxs[name], grad_by_feature,
+                                   dp_env or env, dp_divisor)
+            out[name] = step_every_row(sg, g.stack_rows)
+        return out
+
     def backward_and_update_local(
         self,
         params: Mapping[str, torch.Tensor],
@@ -202,25 +244,16 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         env: Optional[ShardingEnv] = None,
         learning_rate: Optional[float] = None,
     ) -> None:
-        """Reverse dists and apply the fused optimizer to the touched rows
-        of every group, in place.  ``sr_seeds``: one int32 seed per group
+        """Reverse dists and apply the fused optimizer, in place: to the
+        touched rows of every sharded group, to every row of a
+        data-parallel group.  ``sr_seeds``: one int32 seed per group
         (:attr:`group_names` order) for stochastic rounding of bfloat16
         stacks, or None (round to nearest); a DP group's seed must be the
         same on every rank, or the replicas fork.  ``learning_rate``
         overrides ``config``'s for this step (a sparse lr schedule)."""
         seeds = dict(zip(self.group_names, sr_seeds or ()))
-        for kind, name, lay in self.sharded_groups():
-            if kind == "tw":
-                sg = tw_backward_local(lay, ctxs[name], grad_by_feature, env)
-            else:
-                _require_tbe(update_kernel, name, "update")
-                sg = _BACKWARD[kind](lay, ctxs[name], grad_by_feature, env)
-            apply_sparse_update_segments(
-                params[name], fused_state[name], sg, config,
-                sr_seed=seeds.get(name), update_kernel=update_kernel,
-                learning_rate=learning_rate)
-        for name, g in self.dp_groups.items():
-            sg = self._dp_backward(g, ctxs[name], grad_by_feature, env)
+        sgs = self.backward_local(ctxs, grad_by_feature, update_kernel, env)
+        for name, sg in sgs.items():
             apply_sparse_update_segments(
                 params[name], fused_state[name], sg, config,
                 sr_seed=seeds.get(name), update_kernel=update_kernel,
@@ -228,15 +261,18 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
 
     def _dp_backward(self, g: DpGroup, ctx: Tuple,
                      grad_by_feature: Mapping[str, torch.Tensor],
-                     env: Optional[ShardingEnv]) -> SparseSegGrad:
+                     env: Optional[ShardingEnv],
+                     divisor: int = 1) -> SparseSegGrad:
         """A replicated group's sparse gradient over every rank's slots:
         the ranks' ids, weights, segments and pooled gradients
-        all-gathered (a ``[F * B, dim]`` block a rank, where the JAX
-        package all-reduces a dense ``[rows, dim]`` gradient), so every
-        rank applies the same update to its replica, each row's slots
-        summed in the global batch's order, as one device would."""
+        all-gathered over ``env`` (a ``[F * B, dim]`` block a rank, where
+        the JAX package all-reduces a dense ``[rows, dim]`` gradient), the
+        gradients divided by ``divisor``, so every rank applies the same
+        update to its replica, each row's slots summed in the global
+        batch's order, as one device would."""
         ids_c, w_c, segs = ctx[:3]
-        env = resolve_env(env, self.world_size, w_c.device)
+        if env is None:
+            env = resolve_env(None, self.world_size, w_c.device)
         g_flat = torch.cat([grad_by_feature[f.name].to(torch.float32)
                             for f in g.features])  # [F * B, dim]
         S, N = g_flat.shape[0], env.world_size
@@ -250,8 +286,10 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         src = torch.arange(N, device=seg.device)[:, None]
         seg = torch.where(seg < S, src * S + seg, N * S).reshape(-1)
         valid = (seg < N * S) & (w != 0)
-        return SparseSegGrad(ids, valid, seg, w,
-                             gather(g_flat).view(N * S, g_flat.shape[1]))
+        grads = gather(g_flat).view(N * S, g_flat.shape[1])
+        if divisor != 1:
+            grads = grads / divisor
+        return SparseSegGrad(ids, valid, seg, w, grads)
 
     def output_kt(self, outs: Mapping[str, torch.Tensor]) -> KeyedTensor:
         """The per-feature pooled outputs as one KeyedTensor."""

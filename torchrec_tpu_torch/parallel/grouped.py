@@ -11,9 +11,16 @@ to a replicated :class:`DpGroup` per dim.  The parameter functions take
 and give the calling rank's share: ``rank`` picks it, and a DP group's
 share is the whole stack.
 
+``qcomms`` sets every sharded layout's wire precision and ``row_align``
+rounds every sharded stack up to a multiple (``DMPCollection``
+FULLY_SHARDED); a sequence module (``allow_block_sharding=False``)
+rejects TABLE_ROW_WISE and GRID_SHARD, which have no sequence variant.
+:func:`step_every_row` makes a data-parallel group's update step every
+row of its stack, as the JAX package's dense all-reduced update does.
+
 Left out: the hierarchical topology (a plan's ``hier`` is ignored), the
 dedup'd row-wise groups (ROADMAP A7) and host-cached tables (ROADMAP A10),
-on which a plan raises, ``row_align`` and ``param_specs``.
+on which a plan raises, and ``param_specs``.
 """
 
 from __future__ import annotations
@@ -27,9 +34,11 @@ import torch
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
 from torchrec_tpu_torch.ops.fused_update import (
     FusedOptimConfig,
+    SparseSegGrad,
     init_optimizer_state,
 )
 from torchrec_tpu_torch.parallel.comm import all_gather
+from torchrec_tpu_torch.parallel.qcomm import QCommsConfig
 from torchrec_tpu_torch.parallel.sharding.common import (
     FeatureSpec,
     feature_specs_for_tables,
@@ -78,6 +87,34 @@ class DpGroup:
     dim: int
 
 
+def step_every_row(sg: SparseSegGrad, num_rows: int) -> SparseSegGrad:
+    """``sg`` with one more slot a row for every row of a ``num_rows``
+    stack that no kept slot of ``sg`` touches: weight 1 on an appended
+    zero gradient segment.  The fused update then steps every row once,
+    as the JAX package's data-parallel update of every row with its
+    all-reduced dense gradient does (a zero gradient still moves Adam's
+    momentum and applies weight decay).  The touched rows keep exactly
+    their slots, in their order: the appended slots of those rows are not
+    valid, and a stable sort by row puts them last.  No host sync."""
+    dev = sg.ids.device
+    ok = sg.ok() & (sg.ids >= 0) & (sg.ids < num_rows)
+    touched = torch.zeros(num_rows + 1, dtype=torch.bool, device=dev)
+    touched[torch.where(ok, sg.ids.to(torch.int64), num_rows)] = True
+    S, D = sg.grad_seg.shape
+    rows = torch.arange(num_rows, device=dev, dtype=sg.ids.dtype)
+    w = (torch.ones(sg.ids.shape, dtype=torch.float32, device=dev)
+         if sg.weights is None else sg.weights)
+    return SparseSegGrad(
+        torch.cat([sg.ids, rows]),
+        torch.cat([ok, ~touched[:num_rows]]),
+        torch.cat([sg.segments,
+                   torch.full((num_rows,), S, dtype=sg.segments.dtype,
+                              device=dev)]),
+        torch.cat([w, torch.ones(num_rows, dtype=torch.float32,
+                                 device=dev)]),
+        torch.cat([sg.grad_seg, sg.grad_seg.new_zeros((1, D))]))
+
+
 @dataclasses.dataclass
 class GroupedLayouts:
     """Output of :func:`classify_plan`: the layouts of each kind by group
@@ -105,10 +142,13 @@ def classify_plan(
     world_size: int,
     batch_size: int,
     feature_caps: Dict[str, int],
+    allow_block_sharding: bool = True,
+    qcomms: Optional[QCommsConfig] = None,
+    row_align: int = 1,
 ) -> GroupedLayouts:
     """Group the plan's tables by (kind, shard dim) and compile their
     layouts: groups ``tw_d{dim}``, ``rw_d{dim}``, ``twrw_d{dim}`` and
-    ``dp_d{dim}``."""
+    ``dp_d{dim}`` (module docstring for the options)."""
     specs = feature_specs_for_tables(tables, feature_caps)
     by_table: Dict[str, List[FeatureSpec]] = {}
     for s in specs:
@@ -151,6 +191,9 @@ def classify_plan(
             for s in feats:
                 rw_feats.setdefault(cfg.embedding_dim, []).append(s)
         elif st in (ShardingType.TABLE_ROW_WISE, ShardingType.GRID_SHARD):
+            if not allow_block_sharding:
+                raise NotImplementedError(
+                    f"{cfg.name}: {st.value} has no sequence variant")
             if not ps.ranks:
                 raise ValueError(f"{cfg.name}: a {st.value} plan needs ranks")
             n_cw = max(1, ps.num_col_shards)
@@ -172,14 +215,16 @@ def classify_plan(
 
     tw_layouts = {
         f"tw_d{d}": build_tw_layout(f"tw_d{d}", f, tw_owner, world_size,
-                                    batch_size)
+                                    batch_size, qcomms, row_align)
         for d, f in sorted(tw_feats.items())}
     rw_layouts = {
-        f"rw_d{d}": build_rw_layout(f"rw_d{d}", f, world_size, batch_size)
+        f"rw_d{d}": build_rw_layout(f"rw_d{d}", f, world_size, batch_size,
+                                    qcomms, row_align)
         for d, f in sorted(rw_feats.items())}
     twrw_layouts = {
         f"twrw_d{d}": build_twrw_layout(f"twrw_d{d}", f, twrw_nodes,
-                                        world_size, batch_size)
+                                        world_size, batch_size, qcomms,
+                                        row_align)
         for d, f in sorted(twrw_feats.items())}
     dp_groups = {}
     for d, feats in sorted(dp_feats.items()):

@@ -10,7 +10,8 @@ then starts ``num_processes`` processes with the ``spawn`` start method,
 each with its rank, the world size and the store's address in its
 environment (``TORCHREC_MP_*``), and each worker calls :func:`initialize`
 with its backend.  The port is bound before any rank sees it, so two
-launches on one host never meet on a store.
+launches on one host never meet on a store.  :func:`replica_model_groups`
+builds the model and replica groups of a 2D world (``DMPCollection``).
 
 Left out: ``SyncedCollisionCollection`` (ROADMAP A10) and
 ``make_global_batch`` (each rank feeds its own batch).
@@ -23,7 +24,7 @@ import os
 import queue as queue_mod
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +75,34 @@ def process_index() -> int:
 def process_count() -> int:
     """Number of processes in the group (1 outside one)."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def replica_model_groups(
+    num_replicas: int,
+) -> Tuple[dist.ProcessGroup, dist.ProcessGroup]:
+    """This rank's (model group, replica group) of a world of
+    ``num_replicas`` replicas of ``M = world / num_replicas`` model ranks,
+    global rank ``r * M + m`` (the JAX mesh's ``(replica, model)`` order):
+    the model group of replica ``r`` holds ranks ``r * M .. r * M + M - 1``
+    (group rank ``m``), the replica group of model rank ``m`` holds ranks
+    ``m, M + m, ...`` (group rank ``r``).  ``dist.new_group`` is
+    collective over the whole world, so every rank creates every group,
+    model groups first, in the same order."""
+    W, rank = dist.get_world_size(), dist.get_rank()
+    if num_replicas < 1 or W % num_replicas:
+        raise ValueError(f"{W} ranks do not split into {num_replicas} "
+                         "replicas")
+    M = W // num_replicas
+    model = replica = None
+    for r in range(num_replicas):
+        g = dist.new_group([r * M + m for m in range(M)])
+        if rank // M == r:
+            model = g
+    for m in range(M):
+        g = dist.new_group([r * M + m for r in range(num_replicas)])
+        if rank % M == m:
+            replica = g
+    return model, replica
 
 
 def allgather_host(x: np.ndarray) -> np.ndarray:

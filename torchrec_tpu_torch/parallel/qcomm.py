@@ -8,11 +8,9 @@ travel beside it (one scale per trailing-dim row, the JAX package's
 codec).  ``loss_scale`` multiplies backward payloads before a lossy code
 and divides after it.
 
-The ledger (:func:`wire_accounting`) records the logical payload of each
-collective per tag as the JAX package's does while it traces: the send
-buffer at wire precision, times the fan-out for an all-gather,
-self-chunks included.  The port runs eagerly, so it records at call
-time: every call inside the context adds its bytes.
+The ledger (:func:`wire_accounting`, kept in ``parallel/comm.py`` and
+re-exported here) records the logical payload of each collective per tag
+as the JAX package's does while it traces.
 
 The reduce-scatter is an all-to-all of the ``[N, ...]`` blocks followed
 by a sum over sources in rank order (``comm.sum_over_ranks``), at every
@@ -25,44 +23,20 @@ two-level mesh (ROADMAP A8); ``dcn_fraction`` is not an argument.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import enum
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from torchrec_tpu_torch.parallel.comm import (
+from torchrec_tpu_torch.parallel.comm import (  # noqa: F401 - re-exported
     ShardingEnv,
     all_gather,
     all_to_all,
+    record_wire_bytes,
     sum_over_ranks,
+    wire_accounting,
 )
-
-_WIRE_LEDGER: Optional[Dict[str, float]] = None
-
-
-@contextlib.contextmanager
-def wire_accounting() -> Iterator[Dict[str, float]]:
-    """Collect per-tag wire bytes of every collective called inside the
-    context.  Nested contexts shadow (inner calls record inner)."""
-    global _WIRE_LEDGER
-    prev = _WIRE_LEDGER
-    ledger: Dict[str, float] = {}
-    _WIRE_LEDGER = ledger
-    try:
-        yield ledger
-    finally:
-        _WIRE_LEDGER = prev
-
-
-def record_wire_bytes(tag: str, nbytes: float) -> None:
-    """Add ``nbytes`` to the active ledger (no-op outside
-    :func:`wire_accounting`)."""
-    if _WIRE_LEDGER is None:
-        return
-    _WIRE_LEDGER[tag] = _WIRE_LEDGER.get(tag, 0.0) + float(nbytes)
-
 
 class CommType(str, enum.Enum):
     """Wire precision of a quantized collective."""

@@ -22,9 +22,18 @@ its slots to the fused update as a :class:`SparseSegGrad`.  Example
 ``(feature, src, b)`` is segment ``feature * (N * B) + src * B + b``, the
 JAX package's order.  An id outside its table is dropped at the source.
 
-Left out: the dedup'd input dist (``rw_dedup_*``, ROADMAP A7), the
-hierarchical layout fields, the sequence functions (the sharded
-``EmbeddingCollection``, the next slice of ROADMAP A6) and ``row_align``.
+The sequence (unpooled) variants, :func:`rw_sequence_forward_local` and
+:func:`rw_sequence_backward_local`, serve the sharded
+``EmbeddingCollection``: the same bucketing with each id's source
+position riding along, a row gather at the owner, and an all-to-all of
+the rows back, scattered to their positions.  A layout's ``qcomms``
+(``parallel/qcomm.py``) sets the wire precision of the pooled
+reduce-scatter and its backward all-gather; ``row_align`` rounds each
+rank's stack up to a multiple (the FULLY_SHARDED 2D strategy splits it
+over the replicas).
+
+Left out: the dedup'd input dist (``rw_dedup_*``, ROADMAP A7) and the
+hierarchical layout fields.
 """
 
 from __future__ import annotations
@@ -37,10 +46,12 @@ import torch
 from torchrec_tpu_torch.ops.embedding_ops import (
     SlotRegions,
     pooled_embedding_lookup_regions,
+    sequence_embedding_lookup,
 )
 from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
 from torchrec_tpu_torch.parallel.comm import ShardingEnv, resolve_env
 from torchrec_tpu_torch.parallel.qcomm import (
+    QCommsConfig,
     qcomm_all_gather,
     qcomm_psum_scatter,
 )
@@ -69,6 +80,7 @@ class RwGroupLayout:
     block_size: Dict[str, int]
     local_offset: Dict[str, int]
     l_stack: int  # rows of a rank's stack
+    qcomms: Optional[QCommsConfig] = None  # wire precision of the dists
 
 
 def build_rw_layout(
@@ -76,9 +88,12 @@ def build_rw_layout(
     features: Sequence[FeatureSpec],
     world_size: int,
     batch_size: int,
+    qcomms: Optional[QCommsConfig] = None,
+    row_align: int = 1,
 ) -> RwGroupLayout:
     """Row-wise group layout: each table block-split over the ranks, the
-    blocks of a rank stacked in table order."""
+    blocks of a rank stacked in table order (the stack rounded up to a
+    multiple of ``row_align``)."""
     dim = features[0].dim
     if any(f.dim != dim for f in features):
         raise ValueError(f"group {name}: features of different dims")
@@ -96,7 +111,7 @@ def build_rw_layout(
         name=name, world_size=world_size, batch_size=batch_size, dim=dim,
         cap=max(f.cap for f in features), features=list(features),
         block_size=block_size, local_offset=local_offset,
-        l_stack=max(1, off),
+        l_stack=-(-max(1, off) // row_align) * row_align, qcomms=qcomms,
     )
 
 
@@ -221,7 +236,7 @@ def block_lookup(layout, stack_local, ids_recv, b_recv, w_recv, env):
     partial = pooled_embedding_lookup_regions(stack_local, ids_flat,
                                               regions, w_flat)
     x = partial.view(G, N, B, layout.dim).transpose(0, 1)  # [N, G, B, dim]
-    pooled = qcomm_psum_scatter(x, env, None, "fwd",
+    pooled = qcomm_psum_scatter(x, env, layout.qcomms, "fwd",
                                 tag=f"{layout.name}:out_dist")
     segs, _ = block_segments(layout, b_recv)
     return pooled, (ids_flat, w_flat, segs, regions)
@@ -235,7 +250,7 @@ def block_backward(layout, ctx, g_home: torch.Tensor,
     ids_flat, w_flat, segs = ctx[:3]
     G, B, D = g_home.shape
     N = layout.world_size
-    g_all = qcomm_all_gather(g_home, env, None, "bwd",
+    g_all = qcomm_all_gather(g_home, env, layout.qcomms, "bwd",
                              tag=f"{layout.name}:bwd_dist", fanout=N)
     g_flat = g_all.transpose(0, 1).reshape(G * N * B, D)
     valid = (segs < G * N * B) & (w_flat != 0)
@@ -275,3 +290,75 @@ def rw_backward_local(
     g_local = torch.stack([grad_out[f.name].to(torch.float32)
                            for f in layout.features])  # [F, B, dim]
     return block_backward(layout, ctx, g_local, env)
+
+
+def rw_sequence_forward_local(
+    layout: RwGroupLayout,
+    stack_local: torch.Tensor,  # [l_stack, dim]
+    kjt: KeyedJaggedTensor,
+    env: Optional[ShardingEnv] = None,
+) -> Tuple[Dict[str, torch.Tensor], Tuple]:
+    """Unpooled row-wise: every feature's valid ids bucketed by owner with
+    one sort (:func:`~.common.moe_dispatch_batched`), each id's source
+    position kept here, an all-to-all of the ids, a row gather at the
+    owner (padding rows zero), an all-to-all of the rows back, and each
+    row written to its id's position.  Collectives untagged in the
+    ledger, as in the JAX package.  Returns ({feature: [cap_f, dim]}, ctx:
+    the received ids, their mask and the positions sent)."""
+    N, B, C = layout.world_size, layout.batch_size, layout.cap
+    F = len(layout.features)
+    env = resolve_env(env, N, stack_local.device)
+    jts = kjt.to_dict()
+    ids_c, pos_c, dest_c, valid_c = [], [], [], []
+    pos_fill = max(f.cap for f in layout.features)
+    for f in layout.features:
+        jt = jts[f.name]
+        seg = per_slot_segments(jt.lengths(), f.cap)
+        ids = jt.values().to(torch.int64)
+        bs = layout.block_size[f.table_name]
+        ids_c.append((layout.local_offset[f.table_name] + ids % bs)
+                     .to(torch.int32))
+        dest_c.append(ids // bs)
+        pos_c.append(torch.arange(f.cap, dtype=torch.int32,
+                                  device=ids.device))
+        valid_c.append((seg < B) & (ids >= 0) & (ids < f.table_rows))
+    ids_send, pos_send = moe_dispatch_batched(
+        ids_c, (pos_c,), dest_c, valid_c, N, C,
+        fill_values=(layout.l_stack, pos_fill))  # [N, F, C]
+    ids_recv = all_to_all(ids_send, env)  # [N_src, F, C]
+    valid_recv = ids_recv < layout.l_stack
+    rows = sequence_embedding_lookup(stack_local, ids_recv.reshape(-1),
+                                     valid_recv.reshape(-1))
+    emb_back = all_to_all(rows.view(N, F, C, layout.dim), env)
+    out: Dict[str, torch.Tensor] = {}
+    for i, f in enumerate(layout.features):
+        pos = pos_send[:, i, :].reshape(-1).to(torch.int64)
+        emb = emb_back[:, i].reshape(-1, layout.dim)
+        buf = emb.new_zeros((pos_fill + 1, layout.dim))
+        buf[pos.clamp(max=pos_fill)] = emb  # one write a position
+        out[f.name] = buf[: f.cap]
+    return out, (ids_recv, valid_recv, pos_send)
+
+
+def rw_sequence_backward_local(
+    layout: RwGroupLayout,
+    ctx: Tuple,
+    grad_out: Mapping[str, torch.Tensor],  # feature -> [cap_f, dim]
+    env: Optional[ShardingEnv] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each id's gradient row read at its source position and sent back
+    along the two all-to-alls.  Returns (ids ``[N*F*C]`` into this rank's
+    stack, their validity, float32 per-id gradients, zero on padding)."""
+    ids_recv, valid_recv, pos_send = ctx
+    env = resolve_env(env, layout.world_size, ids_recv.device)
+    g_b = []
+    for i, f in enumerate(layout.features):
+        g = grad_out[f.name].to(torch.float32)  # [cap_f, dim]
+        pos = pos_send[:, i, :].to(torch.int64)  # [N, C]
+        gp = g[pos.clamp(0, f.cap - 1)]
+        g_b.append(torch.where((pos < f.cap)[..., None], gp, 0.0))
+    g_recv = all_to_all(torch.stack(g_b, dim=1), env)  # [N, F, C, dim]
+    valid = valid_recv.reshape(-1)
+    row_grads = torch.where(valid[:, None],
+                            g_recv.reshape(-1, layout.dim), 0.0)
+    return ids_recv.reshape(-1), valid, row_grads

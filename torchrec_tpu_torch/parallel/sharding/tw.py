@@ -27,9 +27,16 @@ is segment ``(src * F + slot) * B + b`` throughout.  The collectives run
 on a :class:`~torchrec_tpu_torch.parallel.comm.ShardingEnv`; at one rank
 with none given they are the identity.
 
-Left out: the sequence (unpooled) variants (the sharded
-``EmbeddingCollection`` waits for the next slice of ROADMAP A6), the
-link-class split of the ledger and ``row_align`` (FULLY_SHARDED 2D).
+The sequence (unpooled) variants, :func:`tw_sequence_forward_local` and
+:func:`tw_sequence_backward_local`, serve the sharded
+``EmbeddingCollection``: the same input dist, a row gather of the
+received ids, and an all-to-all of the ``[N, F, C, dim]`` rows back to
+the ids' source positions.  A layout's ``qcomms`` (``parallel/qcomm.py``)
+sets the wire precision of the pooled output dist and its backward;
+``row_align`` rounds each rank's stack up to a multiple (the
+FULLY_SHARDED 2D strategy splits it over the replicas).
+
+Left out: the link-class split of the ledger.
 """
 
 from __future__ import annotations
@@ -44,10 +51,11 @@ from torchrec_tpu_torch.ops.embedding_ops import (
     SlotRegions,
     pooled_embedding_lookup,
     pooled_embedding_lookup_regions,
+    sequence_embedding_lookup,
 )
 from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
 from torchrec_tpu_torch.parallel.comm import ShardingEnv, resolve_env
-from torchrec_tpu_torch.parallel.qcomm import qcomm_all_to_all
+from torchrec_tpu_torch.parallel.qcomm import QCommsConfig, qcomm_all_to_all
 from torchrec_tpu_torch.parallel.sharding.common import (
     FeatureSpec,
     all_to_all,
@@ -90,6 +98,7 @@ class TwGroupLayout:
     # feature -> its slots in column order
     feature_slots: Dict[str, List[TwSlot]]
     feature_order: List[str]
+    qcomms: Optional[QCommsConfig] = None  # wire precision of the dists
 
     @property
     def param_shape(self) -> Tuple[int, int]:
@@ -104,10 +113,13 @@ def build_tw_layout(
     table_owner: Dict[str, List[int]],  # table -> owner rank per col shard
     world_size: int,
     batch_size: int,
+    qcomms: Optional[QCommsConfig] = None,
+    row_align: int = 1,
 ) -> TwGroupLayout:
     """Compile a TW/CW group: assign (feature x column-shard) slots to
     owners, stack each owner's tables (each column shard its own rows),
-    pad to uniform sizes."""
+    pad to uniform sizes (each rank's stack rounded up to a multiple of
+    ``row_align``)."""
     dim = features[0].dim
     if any(f.dim != dim for f in features):
         raise ValueError(f"group {name}: features of different dims")
@@ -142,6 +154,7 @@ def build_tw_layout(
     r_stack = max(
         1, max(sum(r for (_, _, r, _) in v) for v in stack_assignment.values())
     )
+    r_stack = -(-r_stack // row_align) * row_align
     row_offset = np.full((world_size, f_max), r_stack, dtype=np.int32)
     for s in slots:
         row_offset[s.owner, s.slot_index] = placed[
@@ -151,6 +164,7 @@ def build_tw_layout(
         cap=cap, f_max=f_max, r_stack=r_stack, slots=slots,
         row_offset=row_offset, stack_assignment=stack_assignment,
         feature_slots=feature_slots, feature_order=[f.name for f in features],
+        qcomms=qcomms,
     )
 
 
@@ -291,8 +305,9 @@ def tw_output_features(
     dim]}, a feature's column shards concatenated in column order."""
     N, B, F = layout.world_size, layout.batch_size, layout.f_max
     env = resolve_env(env, N, pooled.device)
-    out_recv = qcomm_all_to_all(pooled.view(N, F, B, layout.dim), env, None,
-                                "fwd", tag=f"{layout.name}:out_dist")
+    out_recv = qcomm_all_to_all(pooled.view(N, F, B, layout.dim), env,
+                                layout.qcomms, "fwd",
+                                tag=f"{layout.name}:out_dist")
     out: Dict[str, torch.Tensor] = {}
     for fname in layout.feature_order:
         pieces = [out_recv[s.owner, s.slot_index]
@@ -320,8 +335,79 @@ def tw_backward_local(
         for s in layout.feature_slots[fname]:
             g_send[s.owner, s.slot_index] = grad_out[fname][
                 :, s.out_offset: s.out_offset + layout.dim]
-    g_recv = qcomm_all_to_all(g_send, env, None, "bwd",
+    g_recv = qcomm_all_to_all(g_send, env, layout.qcomms, "bwd",
                               tag=f"{layout.name}:bwd_dist")
     g_flat = g_recv.view(N * F * B, layout.dim)  # rows (src, slot, b)
     valid = (segs < N * F * B) & (w_flat != 0)
     return SparseSegGrad(ids_flat, valid, segs, w_flat, g_flat)
+
+
+def tw_sequence_forward_local(
+    layout: TwGroupLayout,
+    stack_local: torch.Tensor,  # [r_stack, dim]
+    kjt: KeyedJaggedTensor,
+    env: Optional[ShardingEnv] = None,
+) -> Tuple[Dict[str, torch.Tensor], Tuple]:
+    """Unpooled (per-id) variant: the input dist of the pooled path (ids
+    and a validity mask, ``[N, F, C]``), a row gather of the received ids
+    (padding rows zero), and an all-to-all of the ``[N, F, C, dim]`` rows
+    back to their sources, each collective in the ledger untagged, as in
+    the JAX package.  Returns ({feature: [cap_f, total dim]} in the
+    stack's dtype, a feature's column shards concatenated; ctx: the
+    received ids and mask)."""
+    N, B, C, F = layout.world_size, layout.batch_size, layout.cap, layout.f_max
+    dev = kjt.values().device
+    env = resolve_env(env, N, dev)
+    jts = kjt.to_dict()
+    ids_send = torch.zeros((N, F, C), dtype=torch.int32, device=dev)
+    valid_send = torch.zeros((N, F, C), dtype=torch.bool, device=dev)
+    for s in layout.slots:
+        jt = jts[s.feature.name]
+        seg = per_slot_segments(jt.lengths(), s.feature.cap)
+        n = s.feature.cap
+        ids_send[s.owner, s.slot_index, :n] = jt.values().to(torch.int32)
+        valid_send[s.owner, s.slot_index, :n] = seg < B
+    ids_recv = all_to_all(ids_send, env)  # [N_src, F, C]
+    valid_recv = all_to_all(valid_send, env)
+    row_off = torch.as_tensor(layout.row_offset[env.rank], device=dev)
+    ids_local = (ids_recv + row_off[None, :, None]).reshape(-1)
+    rows = sequence_embedding_lookup(stack_local, ids_local,
+                                     valid_recv.reshape(-1))
+    out_recv = all_to_all(rows.view(N, F, C, layout.dim), env)
+    out: Dict[str, torch.Tensor] = {}
+    for fname in layout.feature_order:
+        slots = layout.feature_slots[fname]
+        cap_f = slots[0].feature.cap
+        pieces = [out_recv[s.owner, s.slot_index, :cap_f] for s in slots]
+        out[fname] = pieces[0] if len(pieces) == 1 else torch.cat(pieces,
+                                                                  dim=-1)
+    return out, (ids_recv, valid_recv)
+
+
+def tw_sequence_backward_local(
+    layout: TwGroupLayout,
+    ctx: Tuple,
+    grad_out: Mapping[str, torch.Tensor],  # feature -> [cap_f, total dim]
+    env: Optional[ShardingEnv] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reverse of the sequence output dist: each id's gradient row back to
+    its owner.  Returns (ids ``[N*F*C]`` into this rank's stack, their
+    validity, float32 per-id gradients ``[N*F*C, dim]``, zero on padding)."""
+    N, C, F = layout.world_size, layout.cap, layout.f_max
+    ids_recv, valid_recv = ctx
+    dev = valid_recv.device
+    env = resolve_env(env, N, dev)
+    g_send = torch.zeros((N, F, C, layout.dim), dtype=torch.float32,
+                         device=dev)
+    for fname in layout.feature_order:
+        g = grad_out[fname]
+        for s in layout.feature_slots[fname]:
+            g_send[s.owner, s.slot_index, :s.feature.cap] = g[
+                :, s.out_offset: s.out_offset + layout.dim]
+    g_recv = all_to_all(g_send, env)
+    row_off = torch.as_tensor(layout.row_offset[env.rank], device=dev)
+    ids_local = (ids_recv + row_off[None, :, None]).reshape(-1)
+    valid = valid_recv.reshape(-1)
+    row_grads = torch.where(valid[:, None],
+                            g_recv.view(-1, layout.dim), 0.0)
+    return ids_local, valid, row_grads

@@ -10,7 +10,8 @@ Each rank runs every slot's dispatch with destination ``node_start + id
 regions as the row-wise lookup does (``rw.block_lookup``: ranks outside a
 slot's node receive only padding for it), and reduce-scatters the partial
 sums home, where a feature's column shards are concatenated.  The
-backward all-gathers each slot's gradient to every owner.
+backward all-gathers each slot's gradient to every owner.  A layout's
+``qcomms`` and ``row_align`` are those of ``sharding/rw.py``.
 
 Left out: the dedup'd and hierarchical dists (ROADMAP A7, A8).
 """
@@ -25,6 +26,7 @@ import torch
 
 from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
 from torchrec_tpu_torch.parallel.comm import ShardingEnv, resolve_env
+from torchrec_tpu_torch.parallel.qcomm import QCommsConfig
 from torchrec_tpu_torch.parallel.sharding.common import FeatureSpec
 from torchrec_tpu_torch.parallel.sharding.rw import (
     block_backward,
@@ -62,6 +64,7 @@ class TwRwGroupLayout:
     l_stack: int
     feature_slots: Dict[str, List[BlockSlot]]
     feature_order: List[str]
+    qcomms: Optional[QCommsConfig] = None  # wire precision of the dists
 
 
 def build_twrw_layout(
@@ -70,9 +73,12 @@ def build_twrw_layout(
     table_nodes: Dict[str, List[List[int]]],  # table -> node per col shard
     world_size: int,
     batch_size: int,
+    qcomms: Optional[QCommsConfig] = None,
+    row_align: int = 1,
 ) -> TwRwGroupLayout:
     """Table-row-wise / grid group layout: each (table, column shard)'s
-    rows split over its node's contiguous ranks, stacked by rank."""
+    rows split over its node's contiguous ranks, stacked by rank (each
+    rank's stack rounded up to a multiple of ``row_align``)."""
     dim = features[0].dim
     if any(f.dim != dim for f in features):
         raise ValueError(f"group {name}: features of different dims")
@@ -93,7 +99,7 @@ def build_twrw_layout(
             for d in devs:
                 placed[key][d] = used[d]
                 used[d] += bs
-    l_stack = max(1, max(used))
+    l_stack = -(-max(1, max(used)) // row_align) * row_align
     slots: List[BlockSlot] = []
     feature_slots: Dict[str, List[BlockSlot]] = {}
     for f in features:
@@ -115,6 +121,7 @@ def build_twrw_layout(
         dest_offset=dest_offset, l_stack=l_stack,
         feature_slots=feature_slots,
         feature_order=list(dict.fromkeys(f.name for f in features)),
+        qcomms=qcomms,
     )
 
 

@@ -9,8 +9,9 @@ table raises ``NotImplementedError`` (tiered storage, ROADMAP A10), as does
 ``dedup`` (the dedup'd row-wise dist, ROADMAP A7), in ``classify_plan``;
 ``hier`` is ignored, as the JAX runtime ignores it without a two-level
 mesh (the port's worlds are flat); ``dedup_factor``, ``hier_factor`` and
-``cache_load_factor`` size what those paths would build.  Left out:
-``ShardingStrategy`` (2D parallelism).
+``cache_load_factor`` size what those paths would build.
+:class:`ShardingStrategy` is the weight strategy of 2D parallelism
+(``DMPCollection``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,18 @@ class ShardingType(enum.Enum):
     TABLE_ROW_WISE = "table_row_wise"
     TABLE_COLUMN_WISE = "table_column_wise"
     GRID_SHARD = "grid_shard"
+
+
+class ShardingStrategy(enum.Enum):
+    """The 2D-parallel weight strategy of ``DMPCollection``.  REPLICATED:
+    each replica holds its own copy of every sharded table, the copies
+    averaged by a periodic sync.  FULLY_SHARDED: tables and their fused
+    optimizer state are split over the replicas too, gathered for the
+    forward, every replica's gradients applied to each slice every step
+    (1 / R the memory, replicas always in step)."""
+
+    REPLICATED = "replicated"
+    FULLY_SHARDED = "fully_sharded"
 
 
 class EmbeddingComputeKernel(enum.Enum):
