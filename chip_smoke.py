@@ -3,11 +3,14 @@
 ``bench.py main()``, the unsharded authoring path of the same model
 (``EmbeddingBagCollection`` -> ``DLRM`` -> ``DLRMTrain``), the bucketed
 training pipeline on the dedup kernels, MLPerf DLRM-v2 (``DLRM_DCN``)
-training on the per-id kernels, the planner-driven DLRM application
-(``examples/dlrm/dlrm_main.py``), quantized DLRM serving, and the
-multi-rank sharded train step (4 gloo ranks on the card, 1 NCCL rank)
-with 2D parallelism (``DMPCollection``), the split steps, qcomms, the
-sharded ``EmbeddingCollection`` and chunked all-to-alls.
+training on the per-id kernels, BERT4Rec training through
+``SequenceModelParallel``, the other model families (``DLRM_Transformer``,
+DeepFM, the two-tower model and its KNN, the position-weighted EBC), the
+planner-driven DLRM application (``examples/dlrm/dlrm_main.py``),
+quantized DLRM serving, and the multi-rank sharded train step (4 gloo
+ranks on the card, 1 NCCL rank) with 2D parallelism (``DMPCollection``),
+the split steps, qcomms, the sharded ``EmbeddingCollection``, chunked
+all-to-alls, the sharded sequence step and ring attention.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and fails (non-zero exit, no result line)
@@ -220,8 +223,51 @@ Phases, one JSON line each on stdout; any failure raises:
    batch: rows ``torch.equal`` to the unsharded collection's with
    ``index_dedup`` off and on, an update launching only B6, B6 equal to
    its plain version at each group's shapes, the tables after 3 steps
-   ``np.array_equal`` to one device's).  The times of this phase are of
-   4 processes sharing one card: not multi-GPU figures.
+   ``np.array_equal`` to one device's).  Then ``seq_sharded``: BERT4Rec
+   at the seq width (phase 10) over the ranks, 64 sessions each (global
+   256), on a row-wise plan and a table-wise one (the item table on rank
+   3): the rows before training ``torch.equal`` to the unsharded EC's, B6
+   ``torch.equal`` to its plain version at each rank's shapes, 3 steps
+   launching B6 and nothing else, the table after them ``np.array_equal``
+   to the one-device run over the ranks' micro-batches in rank order
+   (``seq_one_device_run``) and the losses within ``PLAIN_LOSS_RTOL`` of
+   the plain one-device step on the ranks' objective (``seq_plain_run``);
+   and ``ring_attention``: B=2, T=8192 over the 4 ranks, H=8, Dh=64,
+   causal and padded, the output within ``RING_OUT_ATOL`` of
+   ``full_attention_reference`` on rank 0 and the q, k, v gradients
+   within ``RING_GRAD_RTOL`` of its autograd's largest.  The times of
+   this phase are of 4 processes sharing one card: not multi-GPU figures.
+10. seq (after train_dcn) — the sequence path: ``SequenceModelParallel``
+   training BERT4Rec at the paper's MovieLens-20m width (Sun et al., CIKM
+   2019, Table 1 and section 4.4: 26,744 items, N = 200, d = 64, 2
+   blocks, 2 heads, batch 256, mask proportion 0.2, Adam lr 1e-4 on the
+   dense part and, through B6, on the item table) on one device.  Cuts:
+   synthetic sessions (lengths uniform on 5-200, Zipf(1.0) item ids, the
+   cloze mask only inside each real length, random targets) stand in for
+   the ML-20m ratings, which wait until such files are in the
+   repository; the paper's l2 weight decay and linear lr decay are left
+   out (the JAX ``SequenceModelParallel`` takes neither).  The rows of
+   the item collection ``torch.equal`` to the unsharded EC's; B6 (Adam)
+   ``torch.equal`` to its plain version at the step's 51,200 per-id slots
+   (``seq_kernel``, with times and bound); 1 warm-up and 20 timed steps
+   over 4 batches (ms a step, sequences/s, peak memory; losses finite,
+   the last, on batch 0 again, below the first; 21 B6 launches and
+   nothing else) and two profiled steps (the idle share; the fused
+   update and no pooled kernel on the card);
+11. models (after seq) — the other model families at the train width (26
+   f32 tables of 100,000 x 128, B=4096, 13 dense features):
+   ``DLRM_Transformer`` (8 heads, 4 layers, its MLPs as phase 3's) and
+   ``SimpleDeepFMNN`` (hidden 512, deep dimension 128) through the
+   one-device DMP (the path check: B1 and B2 ``torch.equal`` to their
+   plain versions at the path's shapes; 1 + 10 steps, one B1 and one B2
+   each and nothing else, counts and a profiled step); ``TwoTower`` (a
+   1,000,000 x 64 table a tower, MLPs 128-64, 1 to 8 query ids): 1 + 10
+   steps of in-batch negatives with Adam over every parameter (two B1
+   launches a step), then ``BruteForceKNN`` over the candidate tower's
+   1,000,000 embeddings, top 100 of 4096 queries (8 held to a host
+   recompute within 1e-5); the position-weighted EBC's forward (1 to 20
+   ids, learned position weights): 26 weighted B1 launches, each
+   ``torch.equal`` to the plain version.  ms a step for each.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
@@ -272,14 +318,15 @@ KERNEL_SOURCES = {
 KERNEL_PATHS = {
     "pooled_lookup": ["train", "ebc", "train_dcn", "app", "sharded",
                       "split", "qcomms", "dmp2d_replicated",
-                      "dmp2d_fully_sharded"],
+                      "dmp2d_fully_sharded", "models"],
     "fused_sparse_update": ["train", "train_dcn", "app", "sharded", "split",
                             "qcomms", "dmp2d_replicated",
-                            "dmp2d_fully_sharded"],
+                            "dmp2d_fully_sharded", "models"],
     "quant_pooled_lookup_int8": ["serving"],
     "dedup_quant_pooled_lookup": ["serving"],
     "dedup_pooled_lookup": ["train_dedup", "ebc"],
-    "dedup_fused_sparse_update": ["train_dedup", "sharded_ec"],
+    "dedup_fused_sparse_update": ["train_dedup", "sharded_ec", "seq",
+                                  "seq_sharded"],
 }
 REPLACES = {
     "pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:287",
@@ -547,12 +594,14 @@ def kernel_phase(dev, flush):
 # ---------------------------------------------------------------------------
 
 
-def build_trainer(dev, table_dtype):
+def build_trainer(dev, table_dtype, model_fn=None):
     """``DistributedModelParallel`` at the configuration of ``bench.py
     main()``, on the plan of the planner at world 1 as ``bench.py main()``
     makes it (bench.py:3987; ``table_wise_plan``, which the planner
     record holds), its state from a seeded generator on the card, and the
-    first ``TRAIN_BATCHES`` batches of its dataset on the card."""
+    first ``TRAIN_BATCHES`` batches of its dataset on the card.
+    ``model_fn(tables)``: another model over the same tables (the
+    ``models`` phase), in place of the bench's DLRM."""
     import torch
 
     from torchrec_tpu_torch.datasets.random import RandomRecDataset
@@ -573,8 +622,9 @@ def build_trainer(dev, table_dtype):
     ds = RandomRecDataset(keys, TRAIN_BATCH, [TRAIN_ROWS] * len(keys),
                           [1] * len(keys), num_dense=NUM_DENSE,
                           manual_seed=0)
-    model = DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
-                 dense_dtype=torch.bfloat16)
+    model = (DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                  dense_dtype=torch.bfloat16) if model_fn is None
+             else model_fn(tables))
     dmp = DistributedModelParallel(
         model, tables, EmbeddingShardingPlanner(world_size=1).plan(tables),
         TRAIN_BATCH, dict(zip(keys, ds.caps)),
@@ -615,8 +665,9 @@ def _update_bound(D, esize, sg, optim):
     """Bytes and operations a fused update must move / do on these
     inputs: each referenced gradient row once, each slot's id, flag,
     segment and weight once, each touched table row and its optimizer
-    state read and written once; per kept slot a multiply and an add per
-    column, per touched row ``UPDATE_OPS_PER_COLUMN`` per column."""
+    state read and written once (no weight without weights: the per-id
+    segments); per kept slot a multiply and an add per column, per touched
+    row ``UPDATE_OPS_PER_COLUMN`` per column."""
     import torch
 
     from torchrec_tpu_torch.ops.tbe_backward import STATE_LAYOUTS
@@ -629,7 +680,8 @@ def _update_bound(D, esize, sg, optim):
                       for kind in STATE_LAYOUTS[optim])
     nbytes = (n_seg * D * 4
               + V * (sg.ids.element_size() + 1 + sg.segments.element_size()
-                     + sg.weights.element_size())
+                     + (0 if sg.weights is None
+                        else sg.weights.element_size()))
               + U * 2 * (D * esize + state_bytes))
     flops = 2 * int(ok.sum()) * D + UPDATE_OPS_PER_COLUMN[optim] * U * D
     return U, nbytes, flops
@@ -1649,11 +1701,13 @@ def dedup_kernel_phase(dev, flush, dmp, state, batch):
     return rows
 
 
-def b6_row(flush, stack, optim, sg, seed, gen, common):
+def b6_row(flush, stack, optim, sg, seed, gen, common, phase="dedup_kernel",
+           lr=TRAIN_LR):
     """B6 with ``optim`` against its plain version on the card, each on
     its own copy of ``stack`` and of random states: ``torch.equal`` on the
     whole stack and every state, times (the kernel also of the card
-    alone), bound, registers and grid.  Returns the emitted record."""
+    alone), bound, registers and grid, emitted as ``phase`` at the fused
+    lr ``lr``.  Returns the emitted record."""
     import torch
 
     from torchrec_tpu_torch.ops import tbe_backward
@@ -1672,7 +1726,7 @@ def b6_row(flush, stack, optim, sg, seed, gen, common):
           "bias_corrections": bias_corrections(FusedOptimConfig(), 1),
           "sr_seed": seed}
     upd = (sg.ids, sg.valid, sg.segments, sg.weights, sg.grad_seg, optim,
-           TRAIN_LR)
+           lr)
     tk, sk = stack.clone(), [s.clone() for s in states]
     tbe_backward.dedup_fused_sparse_update(tk, sk, *upd, **kw)
     torch.cuda.synchronize()
@@ -1708,13 +1762,13 @@ def b6_row(flush, stack, optim, sg, seed, gen, common):
 
     def launch():
         tbe_backward.launch_dedup_fused_sparse_update(
-            tk, sk, *srt, sg.grad_seg, optim, TRAIN_LR, EPS, 0.0,
+            tk, sk, *srt, sg.grad_seg, optim, lr, EPS, 0.0,
             (0.9, 0.999), kw["bias_corrections"], seed)
 
     U, nbytes, flops = _update_bound(D, stack.element_size(), sg, optim)
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {
-        "phase": "dedup_kernel", "kernel": "dedup_fused_sparse_update",
+        "phase": phase, "kernel": "dedup_fused_sparse_update",
         "optim": optim, "dtype": str(stack.dtype).replace("torch.", ""),
         **common, "kept": int(sg.ok().sum()), "distinct": U,
         "touched_rows": touched, "sr_seed": seed,
@@ -2144,6 +2198,521 @@ def train_dcn_phase(dev, flush):
         del dmp, state
         torch.cuda.empty_cache()
     return main_counts, kernel_rows, check
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the sequence path, SequenceModelParallel training BERT4Rec at
+# the paper's MovieLens-20m width
+# ---------------------------------------------------------------------------
+
+# BERT4Rec on ML-20m (Sun et al., CIKM 2019, Table 1 and section 4.4): the
+# items, N, d, blocks, heads, batch, mask proportion and Adam's lr
+SEQ_VOCAB = 26_744
+SEQ_LEN = 200
+SEQ_DIM = 64
+SEQ_BLOCKS = 2
+SEQ_HEADS = 2
+SEQ_BATCH = 256
+SEQ_MASK = 0.2
+SEQ_LR = 1e-4
+SEQ_MIN_LEN = 5  # synthetic sessions: lengths uniform on 5..200
+SEQ_ZIPF = 1.0  # Zipf(1.0) item ids
+SEQ_BATCHES = 4
+SEQ_STEPS = 20  # timed, after one warm-up step
+SEQ_BUDGET_S = 90
+# the device kernel name of B2 and B6 (one template)
+UPDATE_KERNEL_NAME = "fused_update_kernel"
+
+
+def seq_host_batches(n, batch, seed):
+    """``n`` synthetic session batches of ``batch`` sessions on the host
+    (``examples/bert4rec/main.py::make_session_batch`` at the seq width)."""
+    from torchrec_tpu_torch.examples.bert4rec.main import make_session_batch
+
+    rng = np.random.RandomState(seed)
+    return [make_session_batch(rng, batch, SEQ_LEN, SEQ_VOCAB, SEQ_MASK,
+                               SEQ_MIN_LEN, SEQ_ZIPF) for _ in range(n)]
+
+
+def seq_tables():
+    from torchrec_tpu_torch.modules.embedding_configs import EmbeddingConfig
+
+    return [EmbeddingConfig(num_embeddings=SEQ_VOCAB, embedding_dim=SEQ_DIM,
+                            name="t_item", feature_names=["item"])]
+
+
+def build_seq(dev, batch, env=None, kind="tw", loss_fn=None):
+    """``SequenceModelParallel`` over BERT4Rec at the seq width, ``batch``
+    sessions a rank, fused Adam on the item table (B6) and the dense Adam,
+    both at ``SEQ_LR``; the plan ``kind``: ``"tw"`` (the item table on the
+    last rank) or ``"rw"`` (its rows over every rank); the loss the
+    example's masked-item loss unless ``loss_fn`` is given.  Its state
+    from a seeded generator on ``dev`` (the same draws on every rank)."""
+    import torch
+
+    from torchrec_tpu_torch.examples.bert4rec.main import make_loss_fn
+    from torchrec_tpu_torch.models.experimental.bert4rec import BERT4Rec
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        FusedOptimConfig,
+    )
+    from torchrec_tpu_torch.optim.adam import adam
+    from torchrec_tpu_torch.parallel.sequence_model_parallel import (
+        SequenceModelParallel,
+    )
+    from torchrec_tpu_torch.parallel.types import (
+        ParameterSharding,
+        ShardingType,
+    )
+
+    N = 1 if env is None else env.world_size
+    ps = (ParameterSharding(ShardingType.ROW_WISE, ranks=list(range(N)))
+          if kind == "rw" else
+          ParameterSharding(ShardingType.TABLE_WISE, ranks=[N - 1]))
+    model = BERT4Rec(SEQ_VOCAB, SEQ_LEN, SEQ_DIM, SEQ_BLOCKS, SEQ_HEADS,
+                     device="meta")
+    smp = SequenceModelParallel(
+        model, seq_tables(), env, {"t_item": ps}, batch,
+        {"item": batch * SEQ_LEN}, loss_fn or make_loss_fn(SEQ_LEN),
+        FusedOptimConfig(optim=EmbOptimType.ADAM, learning_rate=SEQ_LR),
+        adam(SEQ_LR), device=dev if env is None else None)
+    return smp, smp.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def seq_rows_check(smp, state, kjt, env=None):
+    """The sharded collection's per-id rows of ``kjt`` ``torch.equal`` to
+    the unsharded ``EmbeddingCollection``'s over the same weights
+    (``table_weights``: a collective).  Returns (equal, max abs err)."""
+    import torch
+
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingCollection,
+    )
+
+    dev = kjt.values().device
+    weights = smp.table_weights(state)
+    ref = EmbeddingCollection(seq_tables(), device="meta")
+    ref.load_state_dict({"t_item": torch.from_numpy(weights["t_item"]).to(
+        dev)}, assign=True)
+    with torch.no_grad():
+        got, _ = smp.sharded_ec.forward_local(state["tables"], kjt, env)
+        want = ref(kjt)["item"].values()
+    got = got["item"].values()
+    return bool(torch.equal(got, want)), float((got - want).abs().max())
+
+
+def seq_step_grads(smp, state, batch):
+    """The step's own per-id gradients at the rank's shapes: the forward,
+    the dense backward and the reductions over ranks, then the reverse
+    dists (collectives).  Returns {group: SparseSegGrad}."""
+    import torch
+
+    ec = smp.sharded_ec
+    with torch.no_grad():
+        outs, ctxs = ec.forward_local(state["tables"],
+                                      batch.sparse_features, smp.env)
+    loss, g_dense, g_emb = smp.dense_forward_backward(
+        state, batch, {f: jt.values() for f, jt in outs.items()})
+    _, _, g_emb = smp.reduce_grads(loss, g_dense, g_emb)
+    return ec.backward_local(ctxs, g_emb, smp.env)
+
+
+def seq_b6_check(state, sgs, lr):
+    """B6 with Adam (its first step's bias corrections) on each group's
+    per-id slots, the kernel and the plain version each on copies of the
+    stack and the fused state: ``torch.equal``.  Returns {group: (equal,
+    slots, valid slots, max abs err)}."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import (
+        FusedOptimConfig,
+        bias_corrections,
+    )
+
+    out = {}
+    bc = bias_corrections(FusedOptimConfig(), 1)
+    for name, sg in sgs.items():
+        res = []
+        for fn in (tbe_backward.dedup_fused_sparse_update,
+                   tbe_backward.dedup_fused_sparse_update_plain):
+            t = state["tables"][name].clone()
+            sts = [state["fused"][name][k].clone() for k in ("m", "v")]
+            fn(t, sts, sg.ids, sg.valid, sg.segments, sg.weights,
+               sg.grad_seg, "adam", lr, eps=EPS, bias_corrections=bc)
+            res.append([t] + sts)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                  for a, b in zip(*res))
+        out[name] = (all(torch.equal(a, b) for a, b in zip(*res)),
+                     int(sg.ids.numel()), int(sg.ok().sum()), err)
+    return out
+
+
+def _seq_steps(smp, state, batches, n, offset=0):
+    """``n`` train steps cycling ``batches`` from ``offset``, ending in a
+    synchronise; returns (state, losses as floats, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(n):
+        state, m = smp.train_step(state,
+                                  batches[(offset + i) % len(batches)])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return state, [float(x) for x in losses], time.perf_counter() - t0
+
+
+def _update_profile_check(rec, what):
+    """A profiled step's device kernels: the fused update ran and no
+    pooled lookup did."""
+    names = rec["device_names"]
+    updates = [n for n in names if UPDATE_KERNEL_NAME in n]
+    pooled = [n for n in names if any(k in n for k in POOLED_KERNEL_NAMES)]
+    if not updates or pooled:
+        raise AssertionError(f"{what}: profiled update kernels {updates}, "
+                             f"pooled kernels {pooled}")
+    return {"update_kernels": updates, "pooled_kernels": pooled}
+
+
+def seq_phase(dev, flush):
+    """The sequence path at the ML-20m width (module docstring).  Returns
+    (the main path's launches, the B6 row)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    smp, state = build_seq(dev, SEQ_BATCH)
+    batches = [b.to(dev) for b in seq_host_batches(SEQ_BATCHES, SEQ_BATCH,
+                                                   seed=0)]
+    rows_equal, rows_err = seq_rows_check(smp, state,
+                                          batches[0].sparse_features)
+    if not rows_equal:
+        raise AssertionError(f"seq: sharded rows != the unsharded EC's "
+                             f"(max abs err {rows_err})")
+    (name, sg), = seq_step_grads(smp, state, batches[0]).items()
+    stack = state["tables"][name]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b6 = b6_row(flush, stack, "adam", sg, None, gen, {
+        "rows": stack.shape[0], "D": stack.shape[1], "V": sg.ids.numel(),
+        "valid": int(sg.valid.sum()), "ids": "zipf",
+        "S": sg.grad_seg.shape[0]}, phase="seq_kernel", lr=SEQ_LR)
+    del sg
+    # the main path: 1 warm-up step, then SEQ_STEPS timed steps cycling
+    # the batches (the last step runs on batch 0 again, as the first)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tbe.reset_launch_counts()
+    state, warm, _ = _seq_steps(smp, state, batches, 1)
+    state, losses, dt = _seq_steps(smp, state, batches, SEQ_STEPS, offset=1)
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + losses
+    steps = 1 + SEQ_STEPS
+    prof = profile_calls({"phase": "seq_profile", "card": card,
+                          "batch": SEQ_BATCH},
+                         lambda: smp.train_step(state, batches[1]), 2,
+                         "step")
+    rec = {"phase": "seq", "card": card, "vocab": SEQ_VOCAB,
+           "max_len": SEQ_LEN, "dim": SEQ_DIM, "blocks": SEQ_BLOCKS,
+           "heads": SEQ_HEADS, "batch": SEQ_BATCH, "mask_prob": SEQ_MASK,
+           "lr": SEQ_LR, "steps": steps, "timed_steps": SEQ_STEPS,
+           "ms_per_step": dt * 1e3 / SEQ_STEPS,
+           "sequences_per_s": SEQ_STEPS * SEQ_BATCH / dt,
+           "peak_memory_allocated": peak, "losses": losses,
+           "all_finite": bool(np.isfinite(losses).all()),
+           "last_below_first": losses[-1] < losses[0],
+           "rows_equal_unsharded": rows_equal, "launches": counts,
+           "profiled": _update_profile_check(prof, "seq"),
+           "device_idle_share": prof["device_idle_share"],
+           "b6_slots": b6["V"], "b6_valid_slots": b6["valid"],
+           "seconds": time.perf_counter() - t0, "budget_s": SEQ_BUDGET_S}
+    rec["within_budget"] = rec["seconds"] <= SEQ_BUDGET_S
+    emit(rec)
+    if not rec["all_finite"] or not rec["last_below_first"]:
+        raise AssertionError(f"seq: losses {losses}")
+    if counts != {"dedup_fused_sparse_update": steps}:
+        raise AssertionError(f"seq: {steps} steps launched {counts}")
+    del smp, state, batches
+    torch.cuda.empty_cache()
+    return counts, b6
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the remaining model families at the train width
+# ---------------------------------------------------------------------------
+
+MODELS_STEPS = 10  # timed, after one warm-up step
+MODELS_BUDGET_S = 60
+TRANSFORMER_HEADS = 8  # the JAX DLRM_Transformer's defaults
+TRANSFORMER_LAYERS = 4
+DEEPFM_HIDDEN = 512
+DEEPFM_DIM = 128
+TWO_TOWER_ROWS = 1_000_000
+TWO_TOWER_DIM = 64
+TWO_TOWER_LAYERS = (128, 64)
+TWO_TOWER_HISTORY = 8  # query ids an example, 1 to 8
+TWO_TOWER_LR = 1e-3
+KNN_K = 100
+KNN_CHECKED = 8  # queries held to a host recompute
+FP_MAX_LEN = 20  # position-weighted EBC: 1 to 20 ids an example
+
+
+def _dmp_model_run(dev, name, model_fn):
+    """A model through the one-device DMP at the train width: the path
+    check (B1 and B2 ``torch.equal`` to their plain versions at the
+    path's shapes), 1 + ``MODELS_STEPS`` steps launching one B1 and one
+    B2 each and nothing else (counts and a profiled step).  Returns (the
+    record, counts, the path check)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    dmp, state, batches = build_trainer(dev, torch.float32, model_fn)
+    check = train_path_check(dmp, state, batches[0], None,
+                             phase=f"models_{name}_path_check")
+    tbe.reset_launch_counts()
+    state, warm, _ = _train_steps(dmp, state, batches[:1], 1)
+    state, losses, dt = _train_steps(dmp, state, batches, MODELS_STEPS)
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    profiled = _profiled_kernels(lambda: dmp.train_step(state, batches[1]))
+    rec = {"phase": f"models_{name}", "batch": TRAIN_BATCH,
+           "steps": 1 + MODELS_STEPS,
+           "ms_per_step": dt * 1e3 / MODELS_STEPS,
+           "samples_per_s": MODELS_STEPS * TRAIN_BATCH / dt,
+           "losses": warm + losses,
+           "all_finite": bool(np.isfinite(warm + losses).all()),
+           "launches": counts, "profiled_launches_one_step": profiled}
+    _check_train(rec, counts, 1 + MODELS_STEPS)
+    if profiled != {"pooled_lookup": 1, "fused_sparse_update": 1}:
+        raise AssertionError(f"{name}: profiled step launched {profiled}")
+    del dmp, state, batches
+    torch.cuda.empty_cache()
+    return rec, counts, check
+
+
+def _two_tower_run(dev):
+    """``TwoTower`` (a 1,000,000 x 64 table a tower, MLPs 128-64):
+    1 + ``MODELS_STEPS`` steps of in-batch negatives with Adam over every
+    parameter (two B1 launches a step, nothing else), then
+    ``BruteForceKNN`` over the candidate tower's 1,000,000 embeddings:
+    the top ``KNN_K`` of one batch's queries, ``KNN_CHECKED`` of them
+    held to a host recompute.  Returns (record, counts)."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+    from torchrec_tpu_torch.models.two_tower import (
+        BruteForceKNN,
+        TwoTower,
+        in_batch_negatives_loss,
+    )
+    from torchrec_tpu_torch.modules.embedding_configs import (
+        EmbeddingBagConfig,
+    )
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingBagCollection,
+    )
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.optim.adam import adam
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def tower(feature):
+        return EmbeddingBagCollection(
+            [EmbeddingBagConfig(num_embeddings=TWO_TOWER_ROWS,
+                                embedding_dim=TWO_TOWER_DIM,
+                                name=f"t_{feature}",
+                                feature_names=[feature])],
+            device=dev, generator=gen)
+
+    torch.manual_seed(0)  # the MLPs' initial weights
+    model = TwoTower(tower("query"), tower("candidate"),
+                     TWO_TOWER_LAYERS).to(dev)
+    qds = RandomRecDataset(["query"], TRAIN_BATCH, [TWO_TOWER_ROWS],
+                           [TWO_TOWER_HISTORY], num_dense=1, manual_seed=1,
+                           min_ids_per_features=[1])
+    cds = RandomRecDataset(["candidate"], TRAIN_BATCH, [TWO_TOWER_ROWS],
+                           [1], num_dense=1, manual_seed=2,
+                           min_ids_per_features=[1])
+    qit, cit = iter(qds), iter(cds)
+    pairs = [(next(qit).sparse_features.to(dev),
+              next(cit).sparse_features.to(dev))
+             for _ in range(TRAIN_BATCHES)]
+    params = dict(model.named_parameters())
+    opt = adam(TWO_TOWER_LR)
+    ost = opt.init(params)
+
+    def step(q, c):
+        loss = in_batch_negatives_loss(model(q, c))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.update(params, dict(zip(params, grads)), ost)
+        return loss.detach()
+
+    tbe.reset_launch_counts()
+    losses = [step(*pairs[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MODELS_STEPS):
+        losses.append(step(*pairs[(i + 1) % len(pairs)]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    losses = [float(x) for x in losses]
+    steps = 1 + MODELS_STEPS
+    if counts != {"pooled_lookup": 2 * steps}:
+        raise AssertionError(f"two_tower: {steps} steps launched {counts}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"two_tower: losses {losses}")
+    # the retrieval index: every candidate id through the candidate tower
+    with torch.no_grad():
+        R = TWO_TOWER_ROWS
+        ck = KeyedJaggedTensor(["candidate"], torch.arange(R, device=dev),
+                               torch.ones(R, dtype=torch.int32, device=dev),
+                               caps=R)
+        cands = model.embed_candidate(ck)
+        queries = model.embed_query(pairs[0][0])
+        knn = BruteForceKNN(cands)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scores, idx = knn.query(queries, KNN_K)
+        end.record()
+        end.synchronize()
+        knn_ms = start.elapsed_time(end)
+        knn_peak = torch.cuda.max_memory_allocated() - base
+        host_c = cands.cpu().numpy()
+        host_q = queries[:KNN_CHECKED].cpu().numpy()
+        got_s = scores[:KNN_CHECKED].cpu().numpy()
+        got_i = idx[:KNN_CHECKED].cpu().numpy()
+    want = host_q @ host_c.T  # [checked, R] on the host
+    top = -np.sort(-want, axis=1)[:, :KNN_K]
+    score_err = float(np.abs(got_s - top).max())
+    own_err = float(np.abs(np.take_along_axis(want, got_i, 1)
+                           - got_s).max())
+    rec = {"phase": "models_two_tower", "batch": TRAIN_BATCH,
+           "rows_per_tower": TWO_TOWER_ROWS, "dim": TWO_TOWER_DIM,
+           "layers": list(TWO_TOWER_LAYERS), "steps": steps,
+           "ms_per_step": dt * 1e3 / MODELS_STEPS, "losses": losses,
+           "launches": counts, "knn_candidates": R,
+           "knn_queries": int(queries.shape[0]), "k": KNN_K,
+           "knn_ms": knn_ms, "knn_peak_bytes": knn_peak,
+           "knn_topk_score_max_abs_err": score_err,
+           "knn_own_score_max_abs_err": own_err}
+    if score_err > 1e-5 or own_err > 1e-5:
+        raise AssertionError(f"two_tower KNN off the host recompute: {rec}")
+    del model, params, ost, cands, knn, scores, idx
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def _fp_ebc_run(dev, flush):
+    """The position-weighted EBC's forward over the 26 train tables (1 to
+    ``FP_MAX_LEN`` ids an example, learned position weights): 26 weighted
+    B1 launches, each table's pooled output ``torch.equal`` to B1's plain
+    version over the processed per-slot weights.  Returns (record,
+    counts, max abs err)."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingBagCollection,
+        key_regions,
+    )
+    from torchrec_tpu_torch.modules.feature_processor import (
+        FeatureProcessedEmbeddingBagCollection,
+    )
+    from torchrec_tpu_torch.ops import tbe
+
+    keys, tables = bench_tables()
+    ebc = EmbeddingBagCollection(
+        tables, is_weighted=True, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    fp = FeatureProcessedEmbeddingBagCollection(
+        ebc, {k: FP_MAX_LEN for k in keys}).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for p in fp.position_weights.parameters():
+            p.copy_(torch.rand(p.shape, generator=gen, device=dev))
+    ds = RandomRecDataset(keys, TRAIN_BATCH, [TRAIN_ROWS] * len(keys),
+                          [FP_MAX_LEN] * len(keys), num_dense=NUM_DENSE,
+                          manual_seed=3,
+                          min_ids_per_features=[1] * len(keys))
+    kjt = next(iter(ds)).sparse_features.to(dev)
+    with torch.no_grad():
+        kt, counts = _counted(lambda: fp(kjt))
+        weighted = fp.position_weights(kjt)
+        errs, equal = [], True
+        for i, c in enumerate(tables):
+            ids, w, regions, _ = key_regions(weighted, [i])
+            plain = tbe.pooled_lookup_regions_plain(getattr(ebc, c.name),
+                                                    ids, regions, w)
+            got = kt.values()[:, i * DIM:(i + 1) * DIM]
+            equal &= bool(torch.equal(got, plain))
+            errs.append(float((got - plain).abs().max()))
+        ms = cuda_ms(lambda: fp(kjt), flush, runs=5, warmup=1)
+    rec = {"phase": "models_fp_ebc", "batch": TRAIN_BATCH,
+           "tables": len(tables), "max_len": FP_MAX_LEN,
+           "slots": int(kjt.values().numel()),
+           "valid_slots": int(kjt.lengths().sum()), "launches": counts,
+           "b1_weighted_equal": equal, "b1_max_abs_err": max(errs),
+           "forward_ms": ms}
+    if not equal or counts != {"pooled_lookup": len(tables)}:
+        raise AssertionError(f"position-weighted EBC: {rec}")
+    del fp, ebc, kt, weighted
+    torch.cuda.empty_cache()
+    return rec, counts, max(errs)
+
+
+def models_phase(dev, flush):
+    """The remaining model families at the train width (module
+    docstring).  Returns (the main paths' launches, the DMP path checks,
+    the position-weighted B1's max abs err)."""
+    import torch
+
+    from torchrec_tpu_torch.models.deepfm import SimpleDeepFMNN
+    from torchrec_tpu_torch.models.experimental.transformerdlrm import (
+        DLRM_Transformer,
+    )
+
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    launches: dict = {}
+    checks = []
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for name, fn in (
+            ("dlrm_transformer", lambda tables: DLRM_Transformer(
+                meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                TRANSFORMER_HEADS, TRANSFORMER_LAYERS,
+                dense_dtype=torch.bfloat16)),
+            ("deepfm", lambda tables: SimpleDeepFMNN(
+                meta_ebc(tables), NUM_DENSE, DEEPFM_HIDDEN, DEEPFM_DIM))):
+        rec, counts, check = _dmp_model_run(dev, name, fn)
+        emit({**rec, "card": card})
+        add(counts)
+        checks.append(check)
+    rec, counts = _two_tower_run(dev)
+    emit({**rec, "card": card})
+    add(counts)
+    rec, counts, err = _fp_ebc_run(dev, flush)
+    emit({**rec, "card": card})
+    add(counts)
+    s = time.perf_counter() - t0
+    emit({"phase": "models_summary", "card": card, "seconds": s,
+          "budget_s": MODELS_BUDGET_S,
+          "within_budget": s <= MODELS_BUDGET_S, "launches": launches})
+    return launches, checks, err
 
 
 # ---------------------------------------------------------------------------
@@ -3499,6 +4068,13 @@ def sharded_rank(kinds, device_type="cuda"):
     records += recs + kchecks
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
+    del ebc, flush
+    torch.cuda.empty_cache()
+    rec, counts, kchecks = seq_sharded_stage(dev, env)
+    records += [rec] + kchecks
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    records.append(ring_stage(dev, env))
     return records, launches
 
 
@@ -4179,6 +4755,282 @@ def sharded_stages(dev, env, caps, host, mine, refs):
     return records, launches, kchecks
 
 
+# -- the sequence path across the 4 ranks, in the same launch ---------------
+
+SEQ_RANK_BATCH = 64  # sessions a rank: the global batch is SEQ_BATCH
+SEQ_SHARDED_STEPS = 3
+SEQ_SHARDED_PLANS = ("rw", "tw")
+SEQ_SHARDED_BUDGET_S = 60
+# ring attention: B=2, T=8192 over the 4 ranks, H=8, Dh=64, causal, the
+# tail padded
+RING_B, RING_T, RING_H, RING_DH = 2, 8192, 8, 64
+RING_OUT_ATOL = 1e-5
+# the gradients' bound, relative to the largest gradient of each of q, k
+# and v: the ring's backward recomputes each block's probabilities from
+# its row's log-sum-exp where autograd differentiates the unsharded
+# softmax, and dK and dV sum up to 8,192 query rows in other orders
+RING_GRAD_RTOL = 1e-5
+
+
+def seq_one_device_run(dev, host, n):
+    """The sharded step's arithmetic on one device over the ranks'
+    micro-batches (``host[s * n + q]`` rank ``q``'s batch of step ``s``):
+    the one-device collection's rows of the global batch, the dense
+    forward and backward over each micro-batch, the loss and dense
+    gradients summed in rank order and divided by ``n``, the per-id
+    gradients divided by ``n`` and applied over the global slot stream
+    (ranks in order) by B6.  Returns (losses, the trained table)."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.comm import sum_over_ranks
+
+    one, st = build_seq(dev, n * SEQ_RANK_BATCH)
+    ec = one.sharded_ec
+    cap = SEQ_RANK_BATCH * SEQ_LEN
+    losses = []
+    for s in range(SEQ_SHARDED_STEPS):
+        micro = [b.to(dev) for b in host[s * n:(s + 1) * n]]
+        gb = global_batch(micro).to(dev)
+        with torch.no_grad():
+            outs, ctxs = ec.forward_local(st["tables"], gb.sparse_features)
+        rows = outs["item"].values()
+        flats, g_emb, off = [], [], 0
+        for b in micro:
+            k = int(b.sparse_features.lengths().sum())
+            ev = rows.new_zeros((cap, SEQ_DIM))
+            ev[:k] = rows[off:off + k]
+            off += k
+            loss, g_dense, ge = one.dense_forward_backward(st, b,
+                                                           {"item": ev})
+            flats.append(torch.cat([loss.reshape(1).to(torch.float32)]
+                                   + [g.reshape(-1)
+                                      for g in g_dense.values()]))
+            g_emb.append(ge["item"][:k] / n)
+        flat = sum_over_ranks(torch.stack(flats)) / n
+        pieces = flat[1:].split([g.numel() for g in g_dense.values()])
+        g_dense = {k: p.view_as(g) for (k, g), p in zip(g_dense.items(),
+                                                         pieces)}
+        g = rows.new_zeros((n * cap, SEQ_DIM))
+        g[:off] = torch.cat(g_emb)
+        ec.backward_and_update_local(st["tables"], st["fused"], ctxs,
+                                     {"item": g}, one.fused_config)
+        one.dense_tx.update(st["dense"], g_dense, st["dense_opt"])
+        losses.append(float(flat[0]))
+    table = one.table_weights(st)["t_item"]
+    del one, st
+    torch.cuda.empty_cache()
+    return losses, table
+
+
+def seq_ranks_loss(n):
+    """The loss ``n`` ranks optimize, on one device: the mean over the
+    global batch's ``n`` rank slices of each slice's masked-item loss
+    (each rank normalizes by its own masked positions, and the step
+    averages the ranks' losses, as the JAX step's ``pmean`` does); the
+    model runs once over the whole batch."""
+    import torch
+
+    from torchrec_tpu_torch.models.experimental.bert4rec import (
+        masked_item_loss,
+    )
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        forward_from_embeddings,
+    )
+    from torchrec_tpu_torch.sparse import JaggedTensor
+
+    def loss_fn(model, dense_params, emb_values, b):
+        lengths = b.sparse_features["item"].lengths()
+        x = JaggedTensor(emb_values["item"], lengths).to_padded_dense(
+            SEQ_LEN)
+        pos = torch.arange(SEQ_LEN, device=x.device)[None, :]
+        logits = forward_from_embeddings(model, dense_params, x,
+                                         pos < lengths[:, None])
+        m = logits.shape[0] // n
+        return sum(masked_item_loss(logits[q * m:(q + 1) * m],
+                                    b.dense_features[q * m:(q + 1) * m],
+                                    b.labels[q * m:(q + 1) * m])
+                   for q in range(n)) / n
+
+    return loss_fn
+
+
+def seq_plain_run(dev, host, n):
+    """The plain one-device ``train_step`` over the global batches (its
+    dense products at ``n`` times the rows) on the ranks' objective
+    (:func:`seq_ranks_loss`): its losses."""
+    import torch
+
+    one, st = build_seq(dev, n * SEQ_RANK_BATCH,
+                        loss_fn=seq_ranks_loss(n))
+    losses = []
+    for s in range(SEQ_SHARDED_STEPS):
+        gb = global_batch(host[s * n:(s + 1) * n]).to(dev)
+        st, m = one.train_step(st, gb)
+        losses.append(float(m["loss"]))
+    del one, st
+    torch.cuda.empty_cache()
+    return losses
+
+
+def seq_sharded_stage(dev, env):
+    """BERT4Rec at the seq width across the ranks, ``SEQ_RANK_BATCH``
+    sessions each, on a row-wise plan and a table-wise one (the item
+    table on the last rank): the rows before training ``torch.equal`` to
+    the unsharded EC's, B6 ``torch.equal`` to its plain version at the
+    rank's shapes, 3 steps launching B6 and nothing else, the table after
+    them ``np.array_equal`` to :func:`seq_one_device_run` and the losses
+    within ``PLAIN_LOSS_RTOL`` of :func:`seq_plain_run`.  Returns
+    (record, launches, kernel checks)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    t0 = time.perf_counter()
+    r, N = env.rank, env.world_size
+    host = seq_host_batches(SEQ_SHARDED_STEPS * N, SEQ_RANK_BATCH, seed=7)
+    mine = [host[s * N + r].to(dev) for s in range(SEQ_SHARDED_STEPS)]
+    ref = None
+    out, launches, errs = {"rank": r}, {}, []
+    for kind in SEQ_SHARDED_PLANS:
+        smp, state = build_seq(dev, SEQ_RANK_BATCH, env, kind)
+        rows_equal, _ = seq_rows_check(smp, state, mine[0].sparse_features,
+                                       env)
+        b6 = seq_b6_check(state, seq_step_grads(smp, state, mine[0]),
+                          SEQ_LR)
+        for name, (_, slots, valid, err) in b6.items():
+            errs.append({"phase": "sharded_kernel", "stage": "seq_sharded",
+                         "rank": r, "plan": kind, "group": name,
+                         "slots": slots, "valid_slots": valid,
+                         "b6_max_abs_err": err})
+        torch.cuda.synchronize()
+        tbe.reset_launch_counts()
+        t1 = time.perf_counter()
+        state, losses, dt = _seq_steps(smp, state, mine, SEQ_SHARDED_STEPS)
+        counts = {k: v for k, v in tbe.launch_counts().items() if v}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        table = smp.table_weights(state)["t_item"]  # a collective
+        rec = {"rows_equal_unsharded": rows_equal,
+               "b6_equal": all(v[0] for v in b6.values()),
+               "b6_slots": {k: v[1] for k, v in b6.items()},
+               "ms_per_step": dt * 1e3 / SEQ_SHARDED_STEPS,
+               "losses": losses, "launches": counts}
+        if r == 0:
+            if ref is None:  # the same arithmetic for either plan
+                ref = (seq_one_device_run(dev, host, N),
+                       seq_plain_run(dev, host, N))
+            (ref_losses, ref_table), plain_losses = ref
+            gap = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, plain_losses))
+            rec.update(tables_equal_one_device=bool(np.array_equal(
+                table, ref_table)),
+                table_max_abs_err_vs_one_device=float(
+                    np.abs(table - ref_table).max()),
+                one_device_losses=ref_losses,
+                plain_one_device_losses=plain_losses,
+                loss_max_rel_gap_vs_plain=gap)
+        out[kind] = rec
+        owns = any(int(t.shape[0]) for t in state["tables"].values())
+        if not (rows_equal and rec["b6_equal"]
+                and np.isfinite(losses).all()
+                and set(counts) <= {"dedup_fused_sparse_update"}
+                and (not owns or counts.get("dedup_fused_sparse_update", 0)
+                     >= SEQ_SHARDED_STEPS)
+                and rec.get("tables_equal_one_device", True)
+                and rec.get("loss_max_rel_gap_vs_plain", 0.0)
+                <= PLAIN_LOSS_RTOL):
+            raise AssertionError(f"seq_sharded {kind} rank {r}: {rec}")
+        del smp, state, table
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()  # rank 0's references end here
+    s = time.perf_counter() - t0
+    rec = {"phase": "seq_sharded", **out, "note": ONE_CARD,
+           "batch_per_rank": SEQ_RANK_BATCH, "steps": SEQ_SHARDED_STEPS,
+           "seconds": s, "budget_s": SEQ_SHARDED_BUDGET_S,
+           "within_budget": s <= SEQ_SHARDED_BUDGET_S}
+    return rec, launches, errs
+
+
+def ring_stage(dev, env):
+    """Ring attention over the ranks (``ops/ring_attention.py``): each
+    rank's ``RING_T / N`` slice of seeded q, k, v (causal, the tail
+    padded: the last rank's keys wholly so in one example), the forward
+    and the backward through the ring (``sum(out * g)``), then on rank 0
+    the gathered output within ``RING_OUT_ATOL`` of
+    ``full_attention_reference`` over the whole sequence and the gathered
+    gradients within ``RING_GRAD_RTOL`` of the largest of its
+    autograd's.  Returns the record."""
+    import torch
+
+    from torchrec_tpu_torch.ops.ring_attention import (
+        full_attention_reference,
+        ring_attention,
+    )
+    from torchrec_tpu_torch.parallel.comm import all_gather
+
+    t0 = time.perf_counter()
+    r, N = env.rank, env.world_size
+    n = RING_T // N
+    rng = np.random.RandomState(21)
+    full = [rng.randn(RING_B, RING_T, RING_H, RING_DH).astype(np.float32)
+            for _ in range(4)]  # q, k, v, g
+    valid = np.ones((RING_B, RING_T), bool)
+    valid[0, RING_T - 1500:] = False
+    valid[1, RING_T - n - 100:] = False
+
+    def mine(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a[:, r * n:(r + 1) * n])).to(dev)
+
+    q, k, v = (mine(a).requires_grad_() for a in full[:3])
+    g, vm = mine(full[3]), mine(valid)
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        ring_attention(q, k, v, env, vm, causal=True)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t1) * 1e3
+    torch.distributed.barrier()
+    t1 = time.perf_counter()
+    out = ring_attention(q, k, v, env, vm, causal=True)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    fwd_bwd_ms = (time.perf_counter() - t1) * 1e3
+    parts = [all_gather(x.detach().contiguous(), env)
+             for x in (out, q.grad, k.grad, v.grad)]
+    rec = {"phase": "ring_attention", "rank": r, "note": ONE_CARD,
+           "B": RING_B, "T": RING_T, "heads": RING_H, "Dh": RING_DH,
+           "ranks": N, "causal": True, "forward_ms": fwd_ms,
+           "forward_backward_ms": fwd_bwd_ms}
+    del q, k, v, out, g
+    if r == 0:
+        got = [torch.cat(list(p), dim=1) for p in parts]
+        del parts
+        qf, kf, vf = (torch.from_numpy(a).to(dev).requires_grad_()
+                      for a in full[:3])
+        ref = full_attention_reference(qf, kf, vf,
+                                       torch.from_numpy(valid).to(dev),
+                                       causal=True)
+        (ref * torch.from_numpy(full[3]).to(dev)).sum().backward()
+        rec["out_max_abs_err"] = float((got[0] - ref.detach()).abs().max())
+        rec["grad_max_abs_err"] = {
+            x: float((a - t.grad).abs().max())
+            for x, a, t in zip("qkv", got[1:], (qf, kf, vf))}
+        rec["grad_max_abs"] = {x: float(t.grad.abs().max())
+                               for x, t in zip("qkv", (qf, kf, vf))}
+        del got, qf, kf, vf, ref
+        torch.cuda.empty_cache()
+        if (rec["out_max_abs_err"] > RING_OUT_ATOL
+                or any(rec["grad_max_abs_err"][x]
+                       > RING_GRAD_RTOL * rec["grad_max_abs"][x]
+                       for x in "qkv")):
+            raise AssertionError(f"ring attention: {rec}")
+    torch.distributed.barrier()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def over_cap_batch(batch, key_index, length):
     """``batch`` with every example of key ``key_index`` claiming
     ``length`` ids, past the key's capacity: the saturation a device-side
@@ -4582,6 +5434,8 @@ def main() -> None:
     ebc_launches, ebc_rows, _ = ebc_phase(dev, flush)
     dedup_launches, dedup_rows, dedup_check = train_dedup_phase(dev, flush)
     dcn_launches, dcn_rows, dcn_check = train_dcn_phase(dev, flush)
+    seq_launches, seq_row = seq_phase(dev, flush)
+    models_launches, models_checks, fp_err = models_phase(dev, flush)
     del flush
     app_launches, app_check = app_phase(dev)
     serve_launches, _, path_rows = serving_phase(dev)
@@ -4596,12 +5450,14 @@ def main() -> None:
     launches = {k: train_launches[k] + ebc_launches[k] + dedup_launches[k]
                 + dcn_launches[k] + app_launches.get(k, 0)
                 + serve_launches[k] + sharded_launches.get(k, 0)
+                + seq_launches.get(k, 0) + models_launches.get(k, 0)
                 for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows
-            + dcn_rows + path_rows]
+            + dcn_rows + path_rows + [seq_row]]
+    errs.append(("pooled_lookup", fp_err))
     errs += [(k, c[f"{b}_max_abs_err"])
-             for c in checks + [dcn_check, app_check]
+             for c in checks + [dcn_check, app_check] + models_checks
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"))]
     errs += [("dedup_pooled_lookup", dedup_check["b4_max_abs_err"]),
@@ -4661,6 +5517,12 @@ def main() -> None:
             if r["phase"] == "grouped" and r["kernel"] == k["name"]}
         if grouped:
             k["grouped"] = grouped
+    # B6 as the sequence path launches it: Adam over the BERT4Rec step's
+    # per-id slots
+    b6 = next(k for k in summary if k["name"] == "dedup_fused_sparse_update")
+    b6["seq"] = {x: seq_row[x] for x in ("ms", "kernel_ms",
+                                         "kernel_device_ms", "plain_ms",
+                                         "bound_ms", "V", "valid")}
     emit({"kernels": summary})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,9 @@ and the grouped quantized
 lookups of a served batch (every feature in one launch, tables whose rows
 start off a 4-byte boundary, MEAN features, a key no feature reads), with
 the collection's forward run under
-``torch.cuda.set_sync_debug_mode("error")``.
+``torch.cuda.set_sync_debug_mode("error")``; and B6 with Adam over the
+BERT4Rec step's per-id slots and weighted B1 at the position-weighted
+EBC's shapes.
 
 Needs a CUDA device and ``nvcc``; marked ``cuda`` and skipped elsewhere.
 It imports nothing of JAX, so on a machine with a card and no JAX it runs
@@ -1147,3 +1149,119 @@ def test_every_row_update_equals_plain_on_card(dev, kernel, optim):
     touched[sg.ids[sg.ok()].long()] = True
     assert torch.equal(runs["kernel"][0][touched], runs["slots"][0][touched])
     assert (runs["kernel"][0] != table).any(dim=1).all()  # weight decay
+
+
+# ---------------------------------------------------------------------------
+# the sequence path and the position-weighted EBC (slice 13)
+# ---------------------------------------------------------------------------
+
+
+def test_sequence_item_update_equals_plain_on_card(dev):
+    """B6 with Adam over per-id segments at the BERT4Rec step's shapes
+    (``SequenceModelParallel`` at the ML-20m width: a 26,744 x 64 item
+    table, 256 sessions of 5 to 200 Zipf(1.0) ids in 51,200 slots, each
+    id its own segment of weight 1), through the sharded collection's
+    update: ``torch.equal`` to the plain version, one launch."""
+    from torchrec_tpu_torch.modules.embedding_configs import EmbeddingConfig
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        FusedOptimConfig,
+    )
+    from torchrec_tpu_torch.parallel.embedding import (
+        ShardedEmbeddingCollection,
+    )
+    from torchrec_tpu_torch.parallel.types import (
+        ParameterSharding,
+        ShardingType,
+    )
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    Vv, Dd, Bb, L = 26_744, 64, 256, 200
+    rng = np.random.RandomState(13)
+    lengths = rng.randint(5, L + 1, size=Bb).astype(np.int32)
+    p = 1.0 / np.arange(1, Vv + 1)
+    values = rng.choice(Vv, size=int(lengths.sum()), p=p / p.sum())
+    kjt = KeyedJaggedTensor.from_lengths_packed(["item"], values, lengths,
+                                                caps=Bb * L).to(dev)
+    tables = [EmbeddingConfig(num_embeddings=Vv, embedding_dim=Dd,
+                              name="t_item", feature_names=["item"])]
+    ec = ShardedEmbeddingCollection.build(
+        tables, {"t_item": ParameterSharding(ShardingType.TABLE_WISE,
+                                             ranks=[0])}, 1, Bb,
+        {"item": Bb * L})
+    cfg = FusedOptimConfig(optim=EmbOptimType.ADAM, learning_rate=1e-4)
+    w = torch.from_numpy(rng.randn(Vv, Dd).astype(np.float32))
+    params = ec.params_from_tables({"t_item": w}, device=dev)
+    _, ctxs = ec.forward_local(params, kjt)
+    grads = {"item": torch.from_numpy(rng.randn(Bb * L, Dd).astype(
+        np.float32)).to(dev)}
+    (sg,) = ec.backward_local(ctxs, grads).values()
+    assert sg.ids.numel() == Bb * L
+    name = ec.group_names[0]
+    out = []
+    for fn in (tbe_backward.dedup_fused_sparse_update,
+               tbe_backward.dedup_fused_sparse_update_plain):
+        t = params[name].clone()
+        st = [torch.from_numpy(rng.rand(Vv, Dd).astype(np.float32)).to(dev)
+              * 1e-3 for _ in range(2)] if not out else [
+                  s.clone() for s in out[0][2]]
+        st0 = [s.clone() for s in st]
+        before = tbe.launch_counts()["dedup_fused_sparse_update"]
+        fn(t, st, sg.ids, sg.valid, sg.segments, sg.weights, sg.grad_seg,
+           "adam", 1e-4, eps=1e-8, bias_corrections=(0.1, 0.001))
+        torch.cuda.synchronize()
+        launched = tbe.launch_counts()["dedup_fused_sparse_update"] - before
+        out.append((t, st, st0, launched))
+    (tk, sk, _, nk), (tp, sp, _, np_) = out
+    assert (nk, np_) == (1, 0)
+    assert torch.equal(tk, tp), float((tk - tp).abs().max())
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b)
+    touched = torch.zeros(Vv, dtype=torch.bool, device=dev)
+    touched[torch.from_numpy(np.unique(values)).to(dev)] = True
+    moved = (tk != params[name]).any(dim=1)
+    assert torch.equal(moved, touched)
+
+
+def test_position_weighted_lookup_equals_plain_on_card(dev):
+    """Weighted B1 at the position-weighted EBC's shapes (one 100,000 x
+    128 table, B=4096, 1 to 20 ids an example, each id weighted by its
+    position's learned weight): the collection's forward ``torch.equal``
+    to its plain version on the same card tensors, one launch."""
+    from torchrec_tpu_torch.modules.embedding_configs import (
+        EmbeddingBagConfig,
+    )
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingBagCollection,
+        key_regions,
+    )
+    from torchrec_tpu_torch.modules.feature_processor import (
+        FeatureProcessedEmbeddingBagCollection,
+    )
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    Bb, Lmax, rows, Dd = 4096, 20, 100_000, 128
+    rng = np.random.RandomState(17)
+    lengths = rng.randint(1, Lmax + 1, size=Bb).astype(np.int32)
+    values = rng.randint(0, rows, size=int(lengths.sum()))
+    kjt = KeyedJaggedTensor.from_lengths_packed(["f"], values, lengths,
+                                                caps=Bb * Lmax).to(dev)
+    ebc = EmbeddingBagCollection(
+        [EmbeddingBagConfig(num_embeddings=rows, embedding_dim=Dd,
+                            name="t", feature_names=["f"])],
+        is_weighted=True, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    fp = FeatureProcessedEmbeddingBagCollection(ebc, {"f": Lmax}).to(dev)
+    with torch.no_grad():
+        fp.position_weights.position_weight_f.copy_(
+            torch.rand(Lmax, generator=torch.Generator(device=dev)
+                       .manual_seed(1), device=dev))
+        weighted = fp.position_weights(kjt)
+        before = tbe.launch_counts()["pooled_lookup"]
+        got = fp(kjt).values()
+        torch.cuda.synchronize()
+        assert tbe.launch_counts()["pooled_lookup"] == before + 1
+        ids, w, regions, _ = key_regions(weighted, [0])
+        plain = tbe.pooled_lookup_regions_plain(ebc.t, ids, regions, w)
+    assert got.shape == (Bb, Dd)
+    assert torch.equal(got, plain), float((got - plain).abs().max())

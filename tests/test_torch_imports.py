@@ -39,7 +39,14 @@ def test_every_module_imports_without_jax():
               "datasets.criteo", "examples.dlrm.dlrm_main",
               "parallel.embedding", "parallel.chunked_a2a",
               "parallel.comm", "parallel.multiprocess",
-              "parallel.sharding.rw"):
+              "parallel.sharding.rw", "parallel.sequence_model_parallel",
+              "models.experimental.bert4rec",
+              "models.experimental.transformerdlrm", "models.deepfm",
+              "models.two_tower", "modules.deepfm",
+              "modules.embedding_tower", "modules.feature_processor",
+              "modules.regroup", "modules.crossnet", "optim.adam",
+              "ops.ring_attention", "datasets.movielens",
+              "examples.bert4rec.main"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

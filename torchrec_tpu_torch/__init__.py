@@ -7,7 +7,11 @@ unsharded authoring path (``modules/embedding_modules.py``, the DLRM
 family and ``DLRMTrain`` in ``models/dlrm.py``), the training step of
 ``DLRM`` and ``DLRM_DCN`` on one device or across ranks
 (``parallel/model_parallel.py``) on a plan of the sharding planner
-(``parallel/planner/``), the
+(``parallel/planner/``), BERT4Rec training over the sharded
+``EmbeddingCollection`` (``parallel/sequence_model_parallel.py``,
+``models/experimental/``), the other model families (``DLRM_Transformer``,
+DeepFM, the two-tower model, the cross nets, the position-weighted EBC),
+ring attention (``ops/ring_attention.py``), the
 bucketed training pipeline (``parallel/train_pipeline.py``), the metrics
 (``metrics/``) and the DLRM application (``examples/dlrm/dlrm_main.py``),
 with a hand-written CUDA kernel for

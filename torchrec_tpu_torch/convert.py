@@ -1,5 +1,22 @@
 """Carry weights between the JAX package and the port.
 
+The bridge is driven by the flax tree's own paths, one name at a time,
+for every model of the JAX package the port has.  The DLRM family's
+trees are shown below.  The transformer models' trees (BERT4Rec's
+``forward_from_embeddings`` init, ``DLRM_Transformer``'s
+``inter_arch``) hold ``blocks_i`` (the port's ``blocks.i``), each with
+``MultiHeadDotProductAttention_0`` (``attention``: ``query``, ``key``,
+``value`` ``DenseGeneral`` kernels ``[D, H, Dh]`` flattened to the
+``nn.Linear`` weight ``[H * Dh, D]``, bias ``[H, Dh]`` to ``[H * Dh]``,
+``out`` ``[H, Dh, D]`` to ``[D, H * Dh]``), ``LayerNorm_i`` (``norm_i``,
+``scale`` the port's ``weight``) and ``Dense_i`` (``dense_i``);
+BERT4Rec's ``position_emb/embedding`` is ``position_emb.weight``.  The
+way back needs the attention's ``num_heads``.  DeepFM's ``DeepFM_0`` is
+``deep_fm``; the cross nets' and the towers' names are the same in both.
+A sequence train state (``SequenceModelParallel``, its dense optimizer
+``optax.adam``) crosses with :func:`sequence_train_state_from_jax` and
+:func:`sequence_train_state_to_jax`.
+
 The JAX package's dense params are a flax tree, for ``DLRM``::
 
     {"params": {"dense_arch": {"MLP_0": {"Perceptron_i": {"Dense_0":
@@ -59,50 +76,77 @@ import torch
 
 Path = Tuple[str, ...]
 _PERCEPTRON = re.compile(r"Perceptron_(\d+)$")
-# the port's module and parameter names with another flax name
-_FLAX_NAMES = {"mlp": "MLP_0", "linear": "Dense_0", "final": "Dense_0",
-               "weight": "kernel"}
+_BLOCK = re.compile(r"blocks_(\d+)$")
+_NORM = re.compile(r"LayerNorm_(\d+)$")
+_DENSE = re.compile(r"Dense_(\d+)$")
+_PORT_NORM = re.compile(r"norm_\d+$")
+# flax modules the port names otherwise, by their own name alone
+_PORT_MODULES = {"MLP_0": "mlp", "MultiHeadDotProductAttention_0": "attention",
+                 "DeepFM_0": "deep_fm"}
+_FLAX_MODULES = {v: k for k, v in _PORT_MODULES.items()}
 # a whole model's tables: the flax scope and the port's key prefix
 _TABLES = "embedding_bag_collection"
 _PORT_TABLES = "sparse_arch.embedding_bag_collection."
 
 
-def port_key(path: Path) -> str:
+def port_key(path: Path, tables_prefix: str = _PORT_TABLES) -> str:
     """flax leaf path (under ``params``) -> the port's state-dict key."""
     if path[0] == _TABLES:
-        return _PORT_TABLES + ".".join(path[1:])
+        return tables_prefix + ".".join(path[1:])
     out: List[str] = []
     for i, name in enumerate(path):
-        m = _PERCEPTRON.match(name)
-        if name == "MLP_0":
-            out.append("mlp")
+        parent = path[i - 1] if i else ""
+        m = _PERCEPTRON.match(name) or _BLOCK.match(name)
+        if name in _PORT_MODULES:
+            out.append(_PORT_MODULES[name])
         elif m:
-            out += ["layers", m.group(1)]
-        elif name == "Dense_0":
-            inner = i > 0 and _PERCEPTRON.match(path[i - 1])
-            out.append("linear" if inner else "final")
-        elif name == "kernel":
+            out += ["layers" if name.startswith("P") else "blocks",
+                    m.group(1)]
+        elif _NORM.match(name):
+            out.append(f"norm_{_NORM.match(name).group(1)}")
+        elif _DENSE.match(name):
+            if _PERCEPTRON.match(parent):
+                out.append("linear")
+            elif _BLOCK.match(parent) or not parent:  # a block's, or a
+                # block's own tree
+                out.append(f"dense_{_DENSE.match(name).group(1)}")
+            else:
+                out.append("final")
+        elif name in ("kernel", "scale", "embedding"):
             out.append("weight")
         else:
             out.append(name)
     return ".".join(out)
 
 
-def flax_path(key: str) -> Path:
+def flax_path(key: str, tables_prefix: str = _PORT_TABLES) -> Path:
     """The port's state-dict key -> flax leaf path (inverse of
     :func:`port_key`)."""
-    if _is_table_key(key):
-        return (_TABLES, key[len(_PORT_TABLES):])
+    if key.startswith(tables_prefix):
+        return (_TABLES, key[len(tables_prefix):])
     names = key.split(".")
     out: List[str] = []
     i = 0
     while i < len(names):
         name = names[i]
-        if name == "layers":
-            out.append(f"Perceptron_{names[i + 1]}")
+        parent = names[i - 1] if i else ""
+        if name in ("layers", "blocks"):
+            out.append(f"Perceptron_{names[i + 1]}" if name == "layers"
+                       else f"blocks_{names[i + 1]}")
             i += 1
+        elif name in _FLAX_MODULES:
+            out.append(_FLAX_MODULES[name])
+        elif _PORT_NORM.match(name):
+            out.append(f"LayerNorm_{name.split('_')[1]}")
+        elif name.startswith("dense_") and name[6:].isdigit():
+            out.append(f"Dense_{name[6:]}")
+        elif name in ("linear", "final"):
+            out.append("Dense_0")
+        elif name == "weight":
+            out.append("scale" if _PORT_NORM.match(parent) else
+                       "embedding" if parent == "position_emb" else "kernel")
         else:
-            out.append(_FLAX_NAMES.get(name, name))
+            out.append(name)
         i += 1
     return tuple(out)
 
@@ -117,53 +161,87 @@ def _leaves(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
     return out
 
 
-def _is_table_key(key: str) -> bool:
-    """Whether a port state-dict key names a collection's table."""
-    return key.startswith(_PORT_TABLES)
-
-
-def _transposed(key: str) -> bool:
-    return key.endswith(".weight") and not _is_table_key(key)
-
-
-def _to_port(key: str, leaf: np.ndarray) -> torch.Tensor:
+def _to_port(path: Path, leaf: np.ndarray) -> torch.Tensor:
+    """A flax leaf in the port's layout: a ``kernel`` transposed to the
+    ``nn.Linear.weight`` ``[out, in]`` (a ``DenseGeneral`` kernel first
+    flattened: ``[D, H, Dh]`` to ``[D, H * Dh]``, the attention's output
+    ``[H, Dh, D]`` to ``[H * Dh, D]``), a ``[H, Dh]`` bias flattened."""
     arr = np.asarray(leaf, np.float32)
-    if _transposed(key):
-        arr = arr.T  # flax kernel [in, out] -> nn.Linear.weight [out, in]
+    if path[-1] == "kernel":
+        if arr.ndim == 3:
+            arr = (arr.reshape(-1, arr.shape[-1]) if path[-2] == "out"
+                   else arr.reshape(arr.shape[0], -1))
+        arr = arr.T
+    elif path[-1] == "bias" and arr.ndim == 2:
+        arr = arr.reshape(-1)
     return torch.from_numpy(np.array(arr, order="C"))  # a contiguous copy
 
 
-def _to_flax(key: str, t: torch.Tensor) -> np.ndarray:
+def _to_flax(path: Path, t: torch.Tensor,
+             num_heads: Optional[int] = None) -> np.ndarray:
+    """Inverse of :func:`_to_port`; the attention's leaves need
+    ``num_heads``."""
     arr = t.detach().to(torch.float32).cpu().numpy()
-    return np.ascontiguousarray(arr.T if _transposed(key) else arr)
+    attention = len(path) > 2 and path[-3] == _FLAX_MODULES["attention"]
+    if attention and num_heads is None:
+        raise ValueError(f"{'/'.join(path)}: pass num_heads")
+    if path[-1] == "kernel":
+        arr = arr.T
+        if attention:
+            arr = (arr.reshape(num_heads, -1, arr.shape[-1])
+                   if path[-2] == "out"
+                   else arr.reshape(arr.shape[0], num_heads, -1))
+    elif path[-1] == "bias" and attention and path[-2] != "out":
+        arr = arr.reshape(num_heads, -1)
+    return np.ascontiguousarray(arr)
+
+
+def state_dict_from_flax(
+    params: Mapping[str, Any], tables_prefix: str = _PORT_TABLES,
+) -> Dict[str, torch.Tensor]:
+    """JAX params of any model of the JAX package the port has (a nested
+    dict of numpy arrays, with or without the top ``"params"`` level; the
+    dense side alone or the whole model with its tables) -> the port
+    model's ``state_dict`` (float32).  ``tables_prefix``: the port's key
+    prefix of an ``embedding_bag_collection`` scope."""
+    inner = params["params"] if "params" in params else params
+    return {port_key(p, tables_prefix): _to_port(p, leaf)
+            for p, leaf in _leaves(inner).items()}
+
+
+def flax_params_from_state_dict(
+    state_dict: Mapping[str, torch.Tensor],
+    num_heads: Optional[int] = None,
+    tables_prefix: str = _PORT_TABLES,
+) -> Dict[str, Any]:
+    """The port model's parameters -> the flax params tree ``{"params":
+    {...}}`` of float32 numpy arrays (inverse of
+    :func:`state_dict_from_flax`; ``num_heads`` of the attention, where
+    the model has one)."""
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        path = flax_path(key, tables_prefix)
+        *parents, leaf = ("params",) + path
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = _to_flax(path, t, num_heads)
+    return tree
 
 
 def dlrm_state_dict_from_flax(
     params: Mapping[str, Any],
 ) -> Dict[str, torch.Tensor]:
-    """JAX params of a DLRM, DLRM_DCN or DLRM_Projection (a nested dict of
-    numpy arrays, with or without the top ``"params"`` level; the dense
-    side alone or the whole model with its tables) -> the port model's
-    ``state_dict`` (float32)."""
-    inner = params["params"] if "params" in params else params
-    return {port_key(p): _to_port(port_key(p), leaf)
-            for p, leaf in _leaves(inner).items()}
+    """JAX params of a DLRM, DLRM_DCN or DLRM_Projection -> the port
+    model's ``state_dict`` (:func:`state_dict_from_flax`)."""
+    return state_dict_from_flax(params)
 
 
 def flax_params_from_dlrm_state_dict(
     state_dict: Mapping[str, torch.Tensor],
 ) -> Dict[str, Any]:
-    """The port model's parameters -> the flax params tree ``{"params":
-    {...}}`` of float32 numpy arrays (inverse of
-    :func:`dlrm_state_dict_from_flax`)."""
-    tree: Dict[str, Any] = {}
-    for key, t in state_dict.items():
-        *parents, leaf = ("params",) + flax_path(key)
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = _to_flax(key, t)
-    return tree
+    """Inverse of :func:`dlrm_state_dict_from_flax`."""
+    return flax_params_from_state_dict(state_dict)
 
 
 def _flatten_order(keys: Iterable[str]) -> List[str]:
@@ -176,7 +254,8 @@ def dense_leaves_to_flax_order(
 ) -> List[np.ndarray]:
     """The port model's state dict -> float32 numpy leaves in the
     ``jax.tree.flatten`` order of the flax params (``dense.npz``)."""
-    return [_to_flax(k, state_dict[k]) for k in _flatten_order(state_dict)]
+    return [_to_flax(flax_path(k), state_dict[k])
+            for k in _flatten_order(state_dict)]
 
 
 def dense_leaves_from_flax_order(
@@ -189,7 +268,7 @@ def dense_leaves_from_flax_order(
     if len(leaves) != len(order):
         raise ValueError(f"{len(leaves)} dense leaves for a model with "
                          f"{len(order)}")
-    return {k: _to_port(k, leaf) for k, leaf in zip(order, leaves)}
+    return {k: _to_port(flax_path(k), leaf) for k, leaf in zip(order, leaves)}
 
 
 def quant_params_from_numpy(
@@ -262,6 +341,43 @@ def _chunk(rank: int, world_size: int, replica: int, num_replicas: int,
     return replica * world_size + rank
 
 
+def _sharded_parts_from_jax(
+    state: Mapping[str, Any], device, table_dtype: Optional[torch.dtype],
+    rank: int, world_size: int, replicated: Sequence[str], replica: int,
+    num_replicas: int, fully_sharded: bool,
+) -> Dict[str, Any]:
+    """The tables, fused states and step of a JAX train state, rank
+    ``rank``'s share (:func:`train_state_from_jax`)."""
+    chunk = _chunk(rank, world_size, replica, num_replicas, fully_sharded)
+
+    def mine(group, arr):
+        if np.ndim(arr) == 0:
+            return arr
+        if group in replicated:
+            return arr if fully_sharded else shard_rows(arr, replica,
+                                                        num_replicas)
+        return shard_rows(arr, chunk, world_size * num_replicas)
+
+    def table(arr):
+        dt = table_dtype
+        if dt is None:
+            bf16 = np.asarray(arr).dtype.name == "bfloat16"
+            dt = torch.bfloat16 if bf16 else torch.float32
+        return _to_tensor(arr, dt, device)
+
+    return {
+        "tables": {g: table(mine(g, t)) for g, t in state["tables"].items()},
+        "fused": {g: _fused_from_jax({k: mine(g, v) for k, v in st.items()},
+                                     device)
+                  for g, st in state["fused"].items()},
+        "step": int(np.asarray(state["step"])),
+    }
+
+
+def _dense_from_jax(tree: Mapping[str, Any], device) -> Dict[str, Any]:
+    return {k: v.to(device) for k, v in state_dict_from_flax(tree).items()}
+
+
 def train_state_from_jax(
     state: Mapping[str, Any],
     device=None,
@@ -281,47 +397,30 @@ def train_state_from_jax(
     ``replicated`` (data-parallel) groups, of this replica's copy under
     REPLICATED.  Table stacks keep their dtype (float32, or bfloat16
     where the JAX stack is bfloat16) unless ``table_dtype`` is given."""
-    chunk = _chunk(rank, world_size, replica, num_replicas, fully_sharded)
-
-    def mine(group, arr):
-        if np.ndim(arr) == 0:
-            return arr
-        if group in replicated:
-            return arr if fully_sharded else shard_rows(arr, replica,
-                                                        num_replicas)
-        return shard_rows(arr, chunk, world_size * num_replicas)
-
-    def table(arr):
-        dt = table_dtype
-        if dt is None:
-            bf16 = np.asarray(arr).dtype.name == "bfloat16"
-            dt = torch.bfloat16 if bf16 else torch.float32
-        return _to_tensor(arr, dt, device)
-
     return {
-        "dense": {k: v.to(device) for k, v in
-                  dlrm_state_dict_from_flax(state["dense"]).items()},
-        "dense_opt": {k: v.to(device) for k, v in dlrm_state_dict_from_flax(
-            _sum_of_squares(state["dense_opt"])).items()},
-        "tables": {g: table(mine(g, t)) for g, t in state["tables"].items()},
-        "fused": {g: _fused_from_jax({k: mine(g, v) for k, v in st.items()},
-                                     device)
-                  for g, st in state["fused"].items()},
-        "step": int(np.asarray(state["step"])),
+        "dense": _dense_from_jax(state["dense"], device),
+        "dense_opt": _dense_from_jax(_sum_of_squares(state["dense_opt"]),
+                                     device),
+        **_sharded_parts_from_jax(state, device, table_dtype, rank,
+                                  world_size, replicated, replica,
+                                  num_replicas, fully_sharded),
     }
 
 
-def train_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+def train_state_to_jax(state: Mapping[str, Any],
+                       num_heads: Optional[int] = None) -> Dict[str, Any]:
     """The port's train state -> numpy leaves in the JAX layout: ``dense``
     is the flax params tree, ``dense_opt`` is ``{"sum_of_squares": tree}``
     (wrap it as ``(optax.ScaleByRssState(**dense_opt),
     optax.EmptyState())`` for ``optax.adagrad``), table stacks and every
     fused-optimizer array are float32 (bfloat16 stacks widen exactly;
-    cast back on the JAX side), the steps are int32 scalars."""
+    cast back on the JAX side), the steps are int32 scalars.
+    ``num_heads``: the attention's, for a model with one
+    (``DLRM_Transformer``)."""
     return {
-        "dense": flax_params_from_dlrm_state_dict(state["dense"]),
-        "dense_opt": {"sum_of_squares": flax_params_from_dlrm_state_dict(
-            state["dense_opt"])},
+        "dense": flax_params_from_state_dict(state["dense"], num_heads),
+        "dense_opt": {"sum_of_squares": flax_params_from_state_dict(
+            state["dense_opt"], num_heads)},
         "tables": {g: t.detach().to(torch.float32).cpu().numpy()
                    for g, t in state["tables"].items()},
         "fused": {g: _fused_to_jax(st) for g, st in state["fused"].items()},
@@ -366,4 +465,58 @@ def train_states_to_jax(
     out["fused"] = {g: {k: merge(g, lambda p, g=g, k=k: p["fused"][g][k])
                         for k in st}
                     for g, st in parts[0]["fused"].items()}
+    return out
+
+
+def _adam_state(dense_opt: Any) -> Tuple[Any, Any, Any]:
+    """(count, mu, nu) of an ``optax.adam`` state: the chain's tuple
+    ``(ScaleByAdamState(count, mu, nu), EmptyState())`` or a mapping with
+    those keys."""
+    if isinstance(dense_opt, Mapping):
+        return dense_opt["count"], dense_opt["mu"], dense_opt["nu"]
+    for part in dense_opt:
+        if hasattr(part, "mu"):
+            return part.count, part.mu, part.nu
+    raise ValueError("no Adam moments in the dense optimizer state")
+
+
+def sequence_train_state_from_jax(
+    state: Mapping[str, Any],
+    device=None,
+    rank: int = 0,
+    world_size: int = 1,
+    replicated: Sequence[str] = (),
+) -> Dict[str, Any]:
+    """A JAX ``SequenceModelParallel`` train state with numpy leaves
+    (``jax.tree.map(np.asarray, state)``; its dense optimizer
+    ``optax.adam``) -> rank ``rank``'s share of the port's train state on
+    ``device``: the dense params (the model's flax tree, e.g. BERT4Rec's
+    ``forward_from_embeddings`` init), Adam's ``mu``, ``nu`` and
+    ``count``, each sharded group's rows of that rank, every row of the
+    ``replicated`` (data-parallel) groups, and the fused state."""
+    count, mu, nu = _adam_state(state["dense_opt"])
+    return {
+        "dense": _dense_from_jax(state["dense"], device),
+        "dense_opt": {"mu": _dense_from_jax(mu, device),
+                      "nu": _dense_from_jax(nu, device),
+                      "count": int(np.asarray(count))},
+        **_sharded_parts_from_jax(state, device, torch.float32, rank,
+                                  world_size, replicated, 0, 1, False),
+    }
+
+
+def sequence_train_state_to_jax(state: Mapping[str, Any],
+                                num_heads: int) -> Dict[str, Any]:
+    """The port's sequence train state -> numpy leaves in the JAX layout:
+    ``dense`` the flax params tree, ``dense_opt`` ``{"count", "mu",
+    "nu"}`` (wrap as ``(optax.ScaleByAdamState(**dense_opt),
+    optax.EmptyState())``), the tables and fused state as
+    :func:`train_state_to_jax` gives them."""
+    opt = state["dense_opt"]
+    out = train_state_to_jax({**state, "dense": {}, "dense_opt": {}})
+    out["dense"] = flax_params_from_state_dict(state["dense"], num_heads)
+    out["dense_opt"] = {
+        "count": np.int32(opt["count"]),
+        "mu": flax_params_from_state_dict(opt["mu"], num_heads),
+        "nu": flax_params_from_state_dict(opt["nu"], num_heads)}
     return out

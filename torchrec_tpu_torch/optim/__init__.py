@@ -1,4 +1,5 @@
 from torchrec_tpu_torch.optim.adagrad import Adagrad, adagrad
+from torchrec_tpu_torch.optim.adam import Adam, adam
 from torchrec_tpu_torch.optim.warmup import (
     WarmupOptimizer,
     WarmupPolicy,
@@ -7,5 +8,5 @@ from torchrec_tpu_torch.optim.warmup import (
     warmup_schedule,
 )
 
-__all__ = ["Adagrad", "adagrad", "WarmupOptimizer", "WarmupPolicy",
+__all__ = ["Adagrad", "adagrad", "Adam", "adam", "WarmupOptimizer", "WarmupPolicy",
            "WarmupStage", "warmup_optimizer", "warmup_schedule"]

@@ -145,17 +145,65 @@ class _FromEmbeddings(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, dense_features: torch.Tensor,
-                kt: KeyedTensor) -> torch.Tensor:
-        return self.model.forward_from_embeddings(dense_features, kt)
+    def forward(self, *args) -> torch.Tensor:
+        return self.model.forward_from_embeddings(*args)
+
+
+def forward_from_embeddings(model: nn.Module,
+                            params: Mapping[str, torch.Tensor],
+                            *args) -> torch.Tensor:
+    """``model.forward_from_embeddings(*args)`` with ``params`` (the
+    model's parameter names) in place of its own parameters: the
+    functional form a loss over the train state's ``"dense"`` calls."""
+    return torch.func.functional_call(
+        _FromEmbeddings(model), {f"model.{k}": v for k, v in params.items()},
+        args)
+
+
+def init_dense_params(model: nn.Module, generator: torch.Generator,
+                      device: torch.device,
+                      skip_prefix: str = SPARSE_PREFIX
+                      ) -> Dict[str, torch.Tensor]:
+    """flax's default initializers from ``generator``, in parameter order,
+    for every parameter outside ``skip_prefix``: every matrix
+    lecun-normal (variance 1 / fan_in, truncated at two standard
+    deviations), every bias zero, a LayerNorm's scale one and an
+    embedding table normal with variance 1 / its width (flax ``nn.Embed``).
+    fan_in is flax's ``shape[-2]`` of the flax layout: an
+    ``nn.Linear.weight`` is a transposed flax ``kernel`` (a
+    ``DenseGeneral`` kernel flattened), so its ``shape[1]``; any other
+    matrix (the cross nets' weights) is stored as flax has it, so its
+    ``shape[0]``."""
+    kinds = {}
+    for mname, m in model.named_modules():
+        for pname, _ in m.named_parameters(recurse=False):
+            kinds[f"{mname}.{pname}" if mname else pname] = type(m)
+    out = {}
+    for name, p in model.named_parameters():
+        if name.startswith(skip_prefix):
+            continue
+        t = torch.zeros(p.shape, dtype=torch.float32, device=device)
+        kind = kinds[name]
+        if issubclass(kind, nn.LayerNorm):
+            if name.endswith("weight"):
+                t.fill_(1.0)
+        elif issubclass(kind, nn.Embedding):
+            t.normal_(0.0, 1.0, generator=generator).mul_(
+                float(np.sqrt(1.0 / p.shape[1])))
+        elif p.dim() == 2:
+            fan_in = p.shape[1] if name.endswith("weight") else p.shape[0]
+            lecun_normal_(t, fan_in, generator)
+        out[name] = t
+    return out
 
 
 class DistributedModelParallel:
     """Compile a (model, plan) pair into init and train-step functions for
     one rank of ``env``.
 
-    ``model`` is the port's ``DLRM``, ``DLRM_DCN`` or ``DLRM_Projection``
-    (anything with ``forward_from_embeddings(dense, kt)``, its parameters
+    ``model`` is the port's ``DLRM``, ``DLRM_DCN``, ``DLRM_Projection``,
+    ``DLRM_Transformer`` or ``SimpleDeepFMNN`` (anything with
+    ``forward_from_embeddings(dense, kt)``, its parameters
     in the layout of ``convert.py``), its ``EmbeddingBagCollection`` best
     built on ``torch.device("meta")``: the step's tables are the group
     stacks of ``tables``, so the model's own tables are never read, and
@@ -263,23 +311,8 @@ class DistributedModelParallel:
     # -- state -------------------------------------------------------------
 
     def _init_dense(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """flax's defaults from ``generator``, in parameter order: every
-        matrix lecun-normal (variance 1 / fan_in, truncated at two standard
-        deviations), every bias zero.  fan_in is flax's ``shape[-2]`` of
-        the flax layout: an ``nn.Linear.weight`` is a transposed flax
-        ``kernel``, so its ``shape[1]``; any other matrix (the cross net's
-        ``w_l`` and ``v_l``) is stored as flax has it, so its
-        ``shape[0]``."""
-        out = {}
-        for name, p in self.model.named_parameters():
-            if name.startswith(SPARSE_PREFIX):
-                continue
-            t = torch.zeros(p.shape, dtype=torch.float32, device=self.device)
-            if p.dim() == 2:
-                fan_in = p.shape[1] if name.endswith("weight") else p.shape[0]
-                lecun_normal_(t, fan_in, generator)
-            out[name] = t
-        return out
+        """The dense parameters, drawn by :func:`init_dense_params`."""
+        return init_dense_params(self.model, generator, self.device)
 
     def init(self, generator: torch.Generator) -> State:
         """This rank's share of a fresh train state on the device, every

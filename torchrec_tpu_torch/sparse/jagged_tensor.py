@@ -5,10 +5,11 @@ exactly so that a batch converts element for element between the two
 packages: key ``f`` owns ``values[cap_offset[f] : cap_offset[f] +
 caps[f]]``, its ids front-packed in example order and the tail padded
 with zeros; ``lengths`` is key-major ``[F * B]`` int32 (with per-key
-strides under a variable batch).  Left out: ``JaggedTensor``'s dense
-constructors and host converters (``from_dense``, ``to_dense``, ...), the
-KJT's reference-name aliases (``from_lengths_sync``, ``sync``,
-``offset_per_key``, ...) and the pytree registration.
+strides under a variable batch).  ``JaggedTensor`` has the dense
+constructors and host converters (``from_dense``, ``from_dense_lengths``,
+``to_dense``, ``to_dense_weights``).  Left out: the KJT's reference-name
+aliases (``from_lengths_sync``, ``sync``, ``offset_per_key``, ...) and the
+pytree registration.
 """
 
 from __future__ import annotations
@@ -126,6 +127,37 @@ class JaggedTensor:
         self._lengths = lengths
         self._weights = weights
 
+    @staticmethod
+    def from_dense(tensors: Sequence[torch.Tensor]) -> "JaggedTensor":
+        """From a list of per-example tensors (``[L_i]`` or ``[L_i, D]``):
+        packed in order, capacity the total length, lengths int32."""
+        ts = [torch.as_tensor(t) for t in tensors]
+        lengths = torch.tensor([t.shape[0] for t in ts], dtype=torch.int32)
+        if not ts:
+            return JaggedTensor(torch.zeros((0,)), lengths)
+        return JaggedTensor(torch.cat(ts, dim=0),
+                            lengths.to(ts[0].device))
+
+    @staticmethod
+    def from_dense_lengths(values: torch.Tensor,
+                           lengths: torch.Tensor) -> "JaggedTensor":
+        """From a dense ``[B, L(, D)]`` tensor and per-row lengths: each
+        row cut to its length (at most ``L``) and front-packed into a
+        buffer of capacity ``B * L``, the tail zero."""
+        values = torch.as_tensor(values)
+        B, L = values.shape[0], values.shape[1]
+        lengths = torch.as_tensor(lengths, device=values.device).to(
+            torch.int32).clamp(max=L)
+        cap = B * L
+        offs = _cumsum0(lengths)
+        b = torch.arange(B, device=values.device).repeat_interleave(L)
+        j = torch.arange(L, device=values.device).repeat(B)
+        dest = torch.where(j < lengths[b], offs[b] + j,
+                           torch.full_like(j, cap))
+        out = values.new_zeros((cap + 1,) + tuple(values.shape[2:]))
+        out[dest] = values.reshape((cap,) + tuple(values.shape[2:]))
+        return JaggedTensor(out[:cap], lengths)
+
     def values(self) -> torch.Tensor:
         return self._values
 
@@ -134,6 +166,20 @@ class JaggedTensor:
 
     def weights_or_none(self) -> Optional[torch.Tensor]:
         return self._weights
+
+    def to_dense(self) -> List[torch.Tensor]:
+        """Each example's values, a list of ``B`` tensors (reads the
+        offsets on the host)."""
+        offs = self.offsets().tolist()
+        return [self._values[offs[i]:offs[i + 1]]
+                for i in range(len(offs) - 1)]
+
+    def to_dense_weights(self) -> Optional[List[torch.Tensor]]:
+        """Each example's weights as :meth:`to_dense` gives its values;
+        None when unweighted."""
+        if self._weights is None:
+            return None
+        return JaggedTensor(self._weights, self._lengths).to_dense()
 
     @property
     def capacity(self) -> int:
