@@ -21,7 +21,10 @@ start off a 4-byte boundary, MEAN features, a key no feature reads), with
 the collection's forward run under
 ``torch.cuda.set_sync_debug_mode("error")``; and B6 with Adam over the
 BERT4Rec step's per-id slots and weighted B1 at the position-weighted
-EBC's shapes.
+EBC's shapes; and B1 and B4 over float16 tables and from 16-bit tables
+into float32 (the FP16/BF16 serving tables), alone and as the serving
+collection's grouped float lookup, one launch a feature into each
+feature's columns, with no host sync.
 
 Needs a CUDA device and ``nvcc``; marked ``cuda`` and skipped elsewhere.
 It imports nothing of JAX, so on a machine with a card and no JAX it runs
@@ -1265,3 +1268,113 @@ def test_position_weighted_lookup_equals_plain_on_card(dev):
         plain = tbe.pooled_lookup_regions_plain(ebc.t, ids, regions, w)
     assert got.shape == (Bb, Dd)
     assert torch.equal(got, plain), float((got - plain).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# B1 and B4 over 16-bit serving tables: float16 tables, and float32 output
+# from a bfloat16 / float16 table (read in place), with an output row
+# stride (one feature's columns of a wider buffer)
+# ---------------------------------------------------------------------------
+
+# (table dtype, output dtype, D): every new instantiation, vector (D % 4
+# == 0) and one-column paths
+SERVING_FLOAT_CONFIGS = [
+    (torch.float16, torch.float16, 8), (torch.float16, torch.float16, 130),
+    (torch.float16, torch.float32, 128), (torch.float16, torch.float32, 6),
+    (torch.bfloat16, torch.float32, 128), (torch.bfloat16, torch.float32, 6),
+]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype,out_dtype,D", SERVING_FLOAT_CONFIGS)
+def test_serving_float_lookups_equal_plain_on_card(dev, dtype, out_dtype, D,
+                                                   case):
+    """B1 and B4 on a 16-bit table: ``torch.equal`` to their plain
+    versions and to the same kernel over ``table.float()`` (rounded to
+    the output's dtype), one launch each, the wrappers under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    rng = np.random.RandomState(D + 3)
+    n = 0 if case == "empty_batch" else V
+    table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+        dev, dtype)
+    ids = np.where(rng.rand(n) < 0.5, rng.randint(0, 8, size=(n,)),
+                   rng.randint(-3, R + 3, size=(n,)))
+    ids = torch.from_numpy(ids).to(dev)
+    segs = rng.randint(5, S + 4, size=(n,))
+    segs[: n // 10] = -1
+    segs = torch.from_numpy(segs).to(dev)
+    w = (None if case == "no_weights"
+         else torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev))
+    over_f32 = tbe.pooled_lookup(table.float(), ids, segs, S, w).to(
+        out_dtype)
+    for name, fn, plain in (
+            ("pooled_lookup", tbe.pooled_lookup, tbe.pooled_lookup_plain),
+            ("dedup_pooled_lookup", tbe.dedup_pooled_lookup,
+             tbe.dedup_pooled_lookup_plain)):
+        before = tbe.launch_counts()[name]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(table, ids, segs, S, w, out_dtype=out_dtype)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert tbe.launch_counts()[name] == before + 1
+        assert got.dtype == out_dtype and got.shape == (S, D)
+        ref = plain(table, ids, segs, S, w, out_dtype=out_dtype)
+        assert torch.equal(got, ref), name
+        assert torch.equal(got, over_f32), name
+        assert not got[:5].any()
+
+
+@pytest.mark.parametrize("kernel", ("tbe", "dedup"))
+@pytest.mark.parametrize("dtype", (torch.float16, torch.bfloat16))
+def test_float_grouped_lookup_writes_columns_no_sync_on_card(dev, kernel,
+                                                             dtype):
+    """The FP16/BF16 collection's grouped lookup on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: one B1 (or B4) launch a
+    feature, float32 written straight into each feature's columns (a
+    row stride wider than D, columns off a 16-byte boundary for one
+    feature), no cast kernel and no host sync; ``torch.equal`` to its
+    plain version and to the lookups over ``table.float()``; with MEAN
+    features."""
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    rng = np.random.RandomState(21)
+    B, caps, Dd = 64, (3, 1, 7, 5), 16
+    lengths = np.concatenate([rng.randint(0, c + 1, size=B)
+                              for c in caps]).astype(np.int32)
+    values = np.concatenate([
+        rng.randint(0, 500, size=int(lengths[k * B:(k + 1) * B].sum()))
+        for k in range(len(caps))])
+    kjt = KeyedJaggedTensor.from_lengths_packed(
+        [f"k{k}" for k in range(len(caps))], values, lengths,
+        caps=[c * B for c in caps]).to(dev)
+    feats, col = [], 0
+    for k in (0, 2, 3):
+        t = torch.from_numpy(rng.randn(500, Dd).astype(np.float32)).to(
+            dev, dtype)
+        col += 1 if k == 2 else 0  # a feature off the 4-value alignment
+        feats.append(tbe.FloatFeature(t, k, col, mean=k == 3))
+        col += Dd
+    args = (kjt.values(), kjt.lengths(), kjt.cap_offsets(), feats)
+    out = torch.zeros((B, col), device=dev)
+    tbe.float_pooled_lookup_grouped(*args, out.clone(), kernel)  # build
+    torch.cuda.synchronize()
+    name = "pooled_lookup" if kernel == "tbe" else "dedup_pooled_lookup"
+    before = tbe.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tbe.float_pooled_lookup_grouped(*args, out.clone(), kernel)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = tbe.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: len(feats) * int(k == name) for k in after}
+    ref = tbe.float_pooled_lookup_grouped_plain(*args, out.clone(), kernel)
+    assert torch.equal(got, ref)
+    f32 = [tbe.FloatFeature(f.table.float(), f.key, f.col, f.mean)
+           for f in feats]
+    over = tbe.float_pooled_lookup_grouped_plain(*args[:3], f32, out.clone(),
+                                                 "tbe")
+    assert torch.equal(got, over)

@@ -210,7 +210,7 @@ def test_dedup_lookup_empty_batch_and_wrapper_checks():
     out = tbe.dedup_pooled_lookup(table, e, e, S)
     assert out.shape == (S, D) and not out.any()
     with pytest.raises(TypeError):
-        tbe.dedup_pooled_lookup(table.to(torch.float16), e, e, S)
+        tbe.dedup_pooled_lookup(table.to(torch.float64), e, e, S)
     with pytest.raises(ValueError):
         teo.pooled_embedding_lookup(table, e, e, S, kernel="xla")
     meta = torch.device("meta")

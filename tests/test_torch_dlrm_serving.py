@@ -350,24 +350,37 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
 
 
 def test_quant_ebc_kernel_rules():
+    """int4/int2 tables take the dedup kernel only; int8 and the FP16/BF16
+    serving tables take either, and both kernels give the same bits."""
     tables, w = _tables(), _weights()
-    with pytest.raises(NotImplementedError):
-        QuantEmbeddingBagCollection.from_float(tables, w, DataType.FP16)
-    with pytest.raises(NotImplementedError):
-        QuantEmbeddingBagCollection.from_float(tables, w, DataType.BF16)
     with pytest.raises(ValueError):
         QuantEmbeddingBagCollection.from_float(tables, w, DataType.INT4,
                                                lookup_kernel="tbe")
     _, tkjt, _ = _batch(10)
-    tbe_kt = QuantEmbeddingBagCollection.from_float(
-        tables, w, DataType.INT8, lookup_kernel="tbe")(tkjt)
-    dedup_kt = QuantEmbeddingBagCollection.from_float(
-        tables, w, DataType.INT8, lookup_kernel="dedup")(tkjt)
-    assert torch.equal(tbe_kt.values(), dedup_kt.values())
+    for dt in (DataType.INT8, DataType.FP16, DataType.BF16):
+        tbe_kt = QuantEmbeddingBagCollection.from_float(
+            tables, w, dt, lookup_kernel="tbe")(tkjt)
+        dedup_kt = QuantEmbeddingBagCollection.from_float(
+            tables, w, dt, lookup_kernel="dedup")(tkjt)
+        assert tbe_kt.values().dtype == torch.float32
+        assert torch.equal(tbe_kt.values(), dedup_kt.values()), dt
 
 
 def test_server_rejects_other_queues():
+    """The JAX contract: an unknown queue kind raises, and ``"native"``
+    (the default) serves."""
     qebc = QuantEmbeddingBagCollection.from_float(_tables(), _weights())
     fn = build_serving_fn(None, qebc, device="cpu")
-    with pytest.raises(ValueError, match="python"):
-        InferenceServer(fn, FEATURES, CAPS, NUM_DENSE, queue="native")
+    with pytest.raises(ValueError, match="unknown queue kind"):
+        InferenceServer(fn, FEATURES, CAPS, NUM_DENSE, queue="bogus")
+    _, tkjt, dense = _batch(12, B=1)
+    srv = InferenceServer(fn, FEATURES, CAPS, NUM_DENSE)
+    srv.start()
+    try:
+        ids = [tkjt[f].values()[:int(tkjt[f].lengths()[0])].numpy()
+               for f in FEATURES]
+        score = srv.predict(dense[0], ids)
+    finally:
+        srv.stop()
+    assert score == pytest.approx(
+        float(fn(torch.from_numpy(dense), tkjt)[0]), rel=RTOL, abs=ATOL)

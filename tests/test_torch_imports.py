@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax():
               "modules.embedding_tower", "modules.feature_processor",
               "modules.regroup", "modules.crossnet", "optim.adam",
               "ops.ring_attention", "datasets.movielens",
-              "examples.bert4rec.main"):
+              "examples.bert4rec.main", "inference.bucketed_serving",
+              "inference.mesh", "inference.grpc_server",
+              "inference.protos.predictor_pb2", "obs.registry"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

@@ -1,4 +1,5 @@
-// Ragged dedup pooled lookup over float32 / bfloat16 tables for Hopper
+// Ragged dedup pooled lookup over float32 / bfloat16 / float16 tables for
+// Hopper
 // (sm_90a), bound to Python with ctypes through a plain C interface
 // (torchrec_tpu_torch/ops/_native.py builds this file with nvcc at first use).
 //
@@ -12,10 +13,12 @@
 // slot's index into ukeys (inv), its weight and the CSR offsets of the
 // segments.  One launch computes
 //
-//   out[s, :] = T( sum_i f32(table[key_row(ukeys[inv[i]]), :]) * w_i )
+//   out[s, :] = O( sum_i f32(table[key_row(ukeys[inv[i]]), :]) * w_i )
 //
 // over the slots i of segment s in slot order, with key_row the key's id
-// clipped to [0, R - 1].  The number of distinct keys stays on the device:
+// clipped to [0, R - 1].  O is the table's dtype T, or float32 for a
+// bfloat16 or float16 table (the serving tables, read in place, with no
+// cast kernel); output row s starts at out + s * ld (ld >= D).  The number of distinct keys stays on the device:
 // the kernel reaches the keys only through inv.
 //
 // What bounds it on an H100: latency, then bytes.  Each slot costs a chain
@@ -57,13 +60,14 @@
 // Rounding: each row element is widened to f32, multiplied by the f32
 // weight (__fmul_rn) and added (__fadd_rn) in slot order, as _dedup_body
 // does (widen at gather, mul and add in separate lane loops); the sum is
-// rounded once to the table's dtype (round to nearest even), as the per-id
-// lookup tbe_pooled (tbe_float.cu) does.  The plain PyTorch version
+// rounded once to the output's dtype (round to nearest even; none for
+// float32), as the per-id lookup tbe_pooled (tbe_float.cu) does.  The plain PyTorch version
 // (torchrec_tpu_torch/ops/tbe.py::dedup_pooled_lookup_plain) does the same
 // operations in the same order, so on the card kernel, plain version and
 // tbe_pooled on the same slots are bitwise equal.  Row addresses are 64-bit.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,22 +109,22 @@ struct FloatRows {
 };
 
 // One warp per segment: every column block of its output, each walked
-// over the segment's slots, then rounded once to T and written.
-template <typename T, int VEC>
+// over the segment's slots, then rounded once to O and written.
+template <typename T, typename O, int VEC>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     dedup_pooled_kernel(const T* __restrict__ table,
                         const long long* __restrict__ ukeys,
                         const long long* __restrict__ inv,
                         const float* __restrict__ w,
                         const long long* __restrict__ offsets,
-                        T* __restrict__ out, long long num_segments, int D,
-                        long long rows) {
+                        O* __restrict__ out, long long num_segments, int D,
+                        long long rows, long long ld) {
   const long long s = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (s >= num_segments) return;
   const FloatRows<T, VEC> src{inv, ukeys, table, rows - 1, D};
   const pool::Slots sg{offsets[s], offsets[s + 1], 0.f};
-  T* orow = out + s * D;
+  O* orow = out + s * ld;
   for (int c0 = 0; c0 < D; c0 += 32 * VEC) {
     const int c = c0 + lane * VEC;
     const bool active = c < D;
@@ -128,7 +132,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
     pool::walk(src, sg, w, lane, c, active, acc);
-    if (active) pool::TableCols<T, VEC>::store(orow + c, acc);
+    if (active) pool::TableCols<T, VEC, O>::store(orow + c, acc);
   }
 }
 
@@ -136,10 +140,10 @@ inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename T>
+template <typename T, typename O>
 void launch(const void* table, const void* ukeys, const void* inv,
             const void* w, const void* offsets, void* out,
-            long long num_segments, int D, long long rows,
+            long long num_segments, int D, long long rows, long long ld,
             cudaStream_t stream) {
   const unsigned grid =
       (unsigned)((num_segments + kWarpsPerBlock - 1) / kWarpsPerBlock);
@@ -148,15 +152,43 @@ void launch(const void* table, const void* ukeys, const void* inv,
   const long long* i = (const long long*)inv;
   const float* wt = (const float*)w;
   const long long* o = (const long long*)offsets;
-  T* y = (T*)out;
-  if (D % 4 == 0 && aligned(table, 4 * sizeof(T)) &&
-      aligned(out, 4 * sizeof(T))) {
-    dedup_pooled_kernel<T, 4><<<grid, kThreads, 0, stream>>>(
-        t, k, i, wt, o, y, num_segments, D, rows);
+  O* y = (O*)out;
+  if (D % 4 == 0 && ld % 4 == 0 && aligned(table, 4 * sizeof(T)) &&
+      aligned(out, 4 * sizeof(O))) {
+    dedup_pooled_kernel<T, O, 4><<<grid, kThreads, 0, stream>>>(
+        t, k, i, wt, o, y, num_segments, D, rows, ld);
   } else {
-    dedup_pooled_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
-        t, k, i, wt, o, y, num_segments, D, rows);
+    dedup_pooled_kernel<T, O, 1><<<grid, kThreads, 0, stream>>>(
+        t, k, i, wt, o, y, num_segments, D, rows, ld);
   }
+}
+
+using Launcher = void (*)(const void*, const void*, const void*,
+                          const void*, const void*, void*, long long, int,
+                          long long, long long, cudaStream_t);
+
+// The launcher of a (table dtype, output dtype) pair, as tbe_float.cu's
+// kernel_for: the output is the table's type or float32 (0); nullptr for
+// any other pair.
+Launcher launcher_for(int dtype, int out_dtype) {
+  if (out_dtype == dtype) {
+    switch (dtype) {
+      case 0:
+        return launch<float, float>;
+      case 1:
+        return launch<__nv_bfloat16, __nv_bfloat16>;
+      case 2:
+        return launch<__half, __half>;
+    }
+  } else if (out_dtype == 0) {
+    switch (dtype) {
+      case 1:
+        return launch<__nv_bfloat16, float>;
+      case 2:
+        return launch<__half, float>;
+    }
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -164,29 +196,20 @@ void launch(const void* table, const void* ukeys, const void* inv,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 =
-// launched).  `dtype` is 0 for a float32 and 1 for a bfloat16 table (the
-// output [S, D] has the table's dtype); ukeys, inv and offsets are int64,
-// w float32.  Pointers are device pointers; the Python wrapper has checked
-// devices, dtypes, shapes and contiguity.
+// launched).  `dtype` is 0 for a float32, 1 for a bfloat16 and 2 for a
+// float16 table; `out_dtype` the output's, the table's or 0 (float32); the
+// output is [S, D] with row stride `ld` (>= D) values; ukeys, inv and
+// offsets are int64, w float32.  Pointers are device pointers; the Python
+// wrapper has checked devices, dtypes, shapes and contiguity.
 int dedup_pooled(const void* table, const void* ukeys, const void* inv,
                  const void* w, const void* offsets, void* out,
                  long long num_segments, int D, long long rows, int dtype,
-                 void* stream) {
-  if (num_segments > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (dtype) {
-      case 0:
-        launch<float>(table, ukeys, inv, w, offsets, out, num_segments, D,
-                      rows, st);
-        break;
-      case 1:
-        launch<__nv_bfloat16>(table, ukeys, inv, w, offsets, out,
-                              num_segments, D, rows, st);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
+                 int out_dtype, long long ld, void* stream) {
+  const Launcher fn = launcher_for(dtype, out_dtype);
+  if (ld < D || fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (num_segments > 0)
+    fn(table, ukeys, inv, w, offsets, out, num_segments, D, rows, ld,
+       (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

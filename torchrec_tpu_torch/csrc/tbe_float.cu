@@ -1,4 +1,4 @@
-// Pooled embedding lookup over float32 / bfloat16 tables for Hopper
+// Pooled embedding lookup over float32 / bfloat16 / float16 tables for Hopper
 // (sm_90a), bound to Python with ctypes through a plain C interface
 // (torchrec_tpu_torch/ops/_native.py builds this file with nvcc at first use).
 //
@@ -7,10 +7,14 @@
 //                preparation _sort_pad_inputs, wrapper
 //                pallas_pooled_embedding_lookup)
 //
-// It computes out[e, :] = T( sum_i f32(table[clip(id_i), :]) * w_i ) over
+// It computes out[e, :] = O( sum_i f32(table[clip(id_i), :]) * w_i ) over
 // the slots i of segment e in slot order, accumulating in f32, with ids
 // clipped to [0, R - 1] (pool::clip, on the id as it comes, int32 or int64)
-// and w_i = 1 when no weights are given.
+// and w_i = 1 when no weights are given.  O is the table's dtype T, or
+// float32 for a bfloat16 or float16 table (the serving tables, read in
+// place: the f32 sums are stored as they are, with no cast kernel and no
+// float32 copy of the table).  Output row e starts at out + e * ld (ld >=
+// D), so a caller can write one feature's columns of a wider buffer.
 //
 // Input: the caller's own slot layout, no sort.  The TPU kernel walks a
 // segment-sorted, chunk-padded stream on a sequential grid; a warp here
@@ -71,13 +75,16 @@
 // Rounding: each row element is widened to f32, multiplied by the f32
 // weight (__fmul_rn) and added to the accumulator (__fadd_rn), slot by
 // slot, as _tbe_body does (pallas_tbe.py:176-180); the sum is rounded once
-// to the table's dtype (round to nearest even).  The plain PyTorch versions
+// to the output's dtype (round to nearest even; none for float32).  The
+// widening is exact, so a 16-bit table pooled into float32 gives the bits
+// of the same kernel over table.float().  The plain PyTorch versions
 // (torchrec_tpu_torch/ops/tbe.py::pooled_lookup_plain and
 // pooled_lookup_regions_plain) do the same operations in the same order,
 // so on the card kernel and plain versions are bitwise equal.  Row
 // addresses are 64-bit (id * D).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -149,14 +156,15 @@ __device__ __forceinline__ void slots_of(const Region& rg,
 // ranges from the ends, then every column block walked over the run's
 // slots, walk_run); else one warp per segment, slot by slot, for launches
 // whose regions all have runs of one.
-template <typename T, int VEC, typename Id, typename End, bool RUNS>
+template <typename T, typename O, int VEC, typename Id, typename End,
+          bool RUNS>
 __global__ void __launch_bounds__(kThreads, RUNS ? kMinBlocks : kSegMinBlocks)
     tbe_pooled_kernel(const __grid_constant__ Regions g,
                       const T* __restrict__ table,
                       const Id* __restrict__ ids,
                       const float* __restrict__ w,
-                      const End* __restrict__ ends, T* __restrict__ out,
-                      int D, long long rows) {
+                      const End* __restrict__ ends, O* __restrict__ out,
+                      int D, long long rows, long long ld) {
   const Region& rg = g.r[blockIdx.y];
   const long long first =
       ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) *
@@ -165,20 +173,20 @@ __global__ void __launch_bounds__(kThreads, RUNS ? kMinBlocks : kSegMinBlocks)
   const int lane = threadIdx.x & 31;
   const long long e0 = rg.base + first;
   const long long origin = rg.base ? (long long)__ldg(ends + rg.base - 1) : 0;
-  using Cols = pool::TableCols<T, VEC>;
+  using Cols = pool::TableCols<T, VEC, O>;
   if constexpr (RUNS) {
     const int n = (int)min((long long)rg.run, rg.count - first);
     int begin = rg.start, end = rg.start;
     if (lane < n) slots_of(rg, ends, origin, e0 + lane, begin, end);
     const IdRows<T, VEC, Id> src{ids, table, rows - 1, D};
-    T* run_out = out + e0 * D;
+    O* run_out = out + e0 * ld;
     for (int c0 = 0; c0 < D; c0 += 32 * VEC) {
       const int c = c0 + lane * VEC;
       const bool active = c < D;
       pool::walk_run(src, begin, end, lane < n, w, lane, c, active,
                      [&](int j, const float (&acc)[VEC]) {
                        if (active) {
-                         Cols::store(run_out + (long long)j * D + c, acc);
+                         Cols::store(run_out + (long long)j * ld + c, acc);
                        }
                      });
     }
@@ -186,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, RUNS ? kMinBlocks : kSegMinBlocks)
     int begin, end;
     slots_of(rg, ends, origin, e0, begin, end);
     const IdRows<T, VEC, Id> src{ids, table, rows - 1, D};
-    T* orow = out + e0 * D;
+    O* orow = out + e0 * ld;
     for (int c = lane * VEC; c < D; c += 32 * VEC) {
       float acc[VEC];
 #pragma unroll
@@ -200,43 +208,59 @@ __global__ void __launch_bounds__(kThreads, RUNS ? kMinBlocks : kSegMinBlocks)
   }
 }
 
-template <typename T, int VEC, typename Id, bool RUNS>
+template <typename T, typename O, int VEC, typename Id, bool RUNS>
 const void* pick_end(int end64) {
-  return end64 ? (const void*)tbe_pooled_kernel<T, VEC, Id, long long, RUNS>
-               : (const void*)tbe_pooled_kernel<T, VEC, Id, int, RUNS>;
+  return end64
+             ? (const void*)tbe_pooled_kernel<T, O, VEC, Id, long long, RUNS>
+             : (const void*)tbe_pooled_kernel<T, O, VEC, Id, int, RUNS>;
 }
 
-template <typename T, int VEC, bool RUNS>
+template <typename T, typename O, int VEC, bool RUNS>
 const void* pick_id(int id64, int end64) {
-  return id64 ? pick_end<T, VEC, long long, RUNS>(end64)
-              : pick_end<T, VEC, int, RUNS>(end64);
+  return id64 ? pick_end<T, O, VEC, long long, RUNS>(end64)
+              : pick_end<T, O, VEC, int, RUNS>(end64);
 }
 
-template <typename T, bool RUNS>
+template <typename T, typename O, bool RUNS>
 const void* pick_vec(int vec, int id64, int end64) {
-  return vec ? pick_id<T, 4, RUNS>(id64, end64)
-             : pick_id<T, 1, RUNS>(id64, end64);
+  return vec ? pick_id<T, O, 4, RUNS>(id64, end64)
+             : pick_id<T, O, 1, RUNS>(id64, end64);
 }
 
-template <typename T>
+template <typename T, typename O>
 const void* pick_runs(int runs, int vec, int id64, int end64) {
-  return runs ? pick_vec<T, true>(vec, id64, end64)
-              : pick_vec<T, false>(vec, id64, end64);
+  return runs ? pick_vec<T, O, true>(vec, id64, end64)
+              : pick_vec<T, O, false>(vec, id64, end64);
 }
 
-// The instantiation for a table dtype (0 float32, 1 bfloat16), the runs
-// kernel or the segments one, the vector path (vec: 4 columns a lane),
-// int64 ids and int64 ends.
-const void* kernel_for(int dtype, int runs, int vec, int id64, int end64) {
-  switch (dtype) {
-    case 0:
-      return pick_runs<float>(runs, vec, id64, end64);
-    case 1:
-      return pick_runs<__nv_bfloat16>(runs, vec, id64, end64);
-    default:
-      return nullptr;
+// The instantiation for a table dtype and an output dtype (0 float32, 1
+// bfloat16, 2 float16; the output is the table's dtype or float32), the
+// runs kernel or the segments one, the vector path (vec: 4 columns a
+// lane), int64 ids and int64 ends; null for another pair of dtypes.
+const void* kernel_for(int dtype, int out_dtype, int runs, int vec, int id64,
+                       int end64) {
+  if (out_dtype == dtype) {
+    switch (dtype) {
+      case 0:
+        return pick_runs<float, float>(runs, vec, id64, end64);
+      case 1:
+        return pick_runs<__nv_bfloat16, __nv_bfloat16>(runs, vec, id64,
+                                                       end64);
+      case 2:
+        return pick_runs<__half, __half>(runs, vec, id64, end64);
+    }
+  } else if (out_dtype == 0) {
+    switch (dtype) {
+      case 1:
+        return pick_runs<__nv_bfloat16, float>(runs, vec, id64, end64);
+      case 2:
+        return pick_runs<__half, float>(runs, vec, id64, end64);
+    }
   }
+  return nullptr;
 }
+
+inline size_t dtype_size(int dtype) { return dtype == 0 ? 4 : 2; }
 
 inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
@@ -252,19 +276,20 @@ extern "C" {
 // int64 per region: its start, cap, base and count (base is the region's
 // first example in the whole lengths array, so a longer list is launched
 // in pieces of kMaxRegions).
-// `dtype` is 0 for float32 and 1 for bfloat16 tables (the output [S, D]
-// has the table's dtype); id64 / end64 say whether ids / ends are int64
-// (else int32); w is float32 or null (every weight 1).  Pointers are
-// device pointers; the Python wrapper has checked devices, dtypes, shapes
-// and contiguity.
+// `dtype` is 0 for float32, 1 for bfloat16 and 2 for float16 tables;
+// `out_dtype` the output's, the table's or 0 (float32); the output is [S,
+// D] with row stride `ld` (>= D) values.  id64 / end64 say whether ids /
+// ends are int64 (else int32); w is float32 or null (every weight 1).
+// Pointers are device pointers; the Python wrapper has checked devices,
+// dtypes, shapes and contiguity.
 int tbe_pooled(const void* table, const void* ids, int id64, const void* w,
                const void* ends, int end64, const long long* regions,
                int num_regions, void* out, int D, long long rows, int dtype,
-               void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const size_t esize = dtype == 0 ? 4 : 2;
-  const int vec = D % 4 == 0 && aligned(table, 4 * esize) &&
-                  aligned(out, 4 * esize);
+               int out_dtype, long long ld, void* stream) {
+  if (ld < D) return (int)cudaErrorInvalidValue;
+  const int vec = D % 4 == 0 && ld % 4 == 0 &&
+                  aligned(table, 4 * dtype_size(dtype)) &&
+                  aligned(out, 4 * dtype_size(out_dtype));
   if (num_regions < 1 || num_regions > kMaxRegions)
     return (int)cudaErrorInvalidValue;
   Regions g;
@@ -291,9 +316,10 @@ int tbe_pooled(const void* table, const void* ids, int id64, const void* w,
     blocks = b > blocks ? b : blocks;
   }
   if (blocks == 0) return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for(dtype, runs, vec, id64, end64);
+  const void* fn = kernel_for(dtype, out_dtype, runs, vec, id64, end64);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   void* args[] = {&g, (void*)&table, (void*)&ids, (void*)&w,
-                  (void*)&ends, &out, &D, &rows};
+                  (void*)&ends, &out, &D, &rows, &ld};
   const cudaError_t err =
       cudaLaunchKernel(fn, dim3((unsigned)blocks, (unsigned)num_regions),
                        dim3(kThreads), args, 0, (cudaStream_t)stream);
@@ -301,12 +327,12 @@ int tbe_pooled(const void* table, const void* ids, int id64, const void* w,
   return (int)cudaGetLastError();
 }
 
-// What the instantiation for (dtype, runs, vec, id64, end64) takes on this
-// card: out[0] the registers a thread uses, out[1] the resident blocks per
-// SM.  Returns 0, or a CUDA error code.
-int tbe_pooled_info(int dtype, int runs, int vec, int id64, int end64,
-                    int* out) {
-  const void* fn = kernel_for(dtype, runs, vec, id64, end64);
+// What the instantiation for (dtype, out_dtype, runs, vec, id64, end64)
+// takes on this card: out[0] the registers a thread uses, out[1] the
+// resident blocks per SM.  Returns 0, or a CUDA error code.
+int tbe_pooled_info(int dtype, int out_dtype, int runs, int vec, int id64,
+                    int end64, int* out) {
+  const void* fn = kernel_for(dtype, out_dtype, runs, vec, id64, end64);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);

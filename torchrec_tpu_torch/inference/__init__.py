@@ -1,24 +1,52 @@
+from torchrec_tpu_torch.inference.bucketed_serving import (
+    BucketedInferenceServer,
+    BucketedServingCache,
+    ServingBucketConfig,
+)
+from torchrec_tpu_torch.inference.mesh import (
+    AllReplicasDown,
+    CircuitBreaker,
+    ReplicaRouter,
+)
 from torchrec_tpu_torch.inference.modules import (
     ServingModule,
     build_serving_fn,
     quantize_inference_model,
 )
 from torchrec_tpu_torch.inference.predict_factory import (
+    BatchingMetadata,
+    PredictFactory,
     load_packaged_model,
     package_model,
 )
 from torchrec_tpu_torch.inference.serving import (
+    HttpInferenceServer,
     InferenceServer,
+    NetworkInferenceServer,
+    PredictClient,
     PyBatchingQueue,
     QueueStopped,
+    install_sigterm_drain,
 )
 
 __all__ = [
+    "AllReplicasDown",
+    "BatchingMetadata",
+    "BucketedInferenceServer",
+    "BucketedServingCache",
+    "CircuitBreaker",
+    "HttpInferenceServer",
     "InferenceServer",
+    "NetworkInferenceServer",
+    "PredictClient",
+    "PredictFactory",
     "PyBatchingQueue",
     "QueueStopped",
+    "ReplicaRouter",
+    "ServingBucketConfig",
     "ServingModule",
     "build_serving_fn",
+    "install_sigterm_drain",
     "load_packaged_model",
     "package_model",
     "quantize_inference_model",

@@ -60,6 +60,16 @@ class ServingModule(nn.Module):
     def device(self) -> torch.device:
         return self.quant_ebc.device
 
+    def with_lookup_kernel(self, lookup_kernel: Optional[str]
+                           ) -> "ServingModule":
+        """The same model and tables (shared, nothing copied) with the
+        collection's lookups on ``lookup_kernel`` (``"tbe"`` or
+        ``"dedup"``): a serving program's kernel choice, with no global
+        switch."""
+        return ServingModule(self.model,
+                             self.quant_ebc.with_kernel(lookup_kernel),
+                             self.apply_sigmoid).eval()
+
     @torch.inference_mode()
     def forward(
         self, dense_features: torch.Tensor, kjt: KeyedJaggedTensor

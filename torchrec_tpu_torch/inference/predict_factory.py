@@ -8,7 +8,8 @@ the JAX package's v2, in both directions:
   caps, tables, batching metadata, the model config; written LAST, so
   its presence marks a complete artifact;
 * ``tables.npz`` — per table ``<name>__q`` / ``__scale`` / ``__bias``,
-  quantized at package time;
+  quantized at package time (fp16 rows as float16, bf16 rows as their
+  uint16 bits: ``np.savez`` has no bfloat16);
 * ``dense.npz`` + ``dense_treedef.json`` — the DLRM dense weights as
   ``leaf_<i>`` in the flax ``jax.tree.flatten`` order (``convert.py``),
   no table among them.
@@ -21,10 +22,11 @@ never allocated.
 
 from __future__ import annotations
 
+import abc
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +59,45 @@ from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # tables.npz layout: v2 = quantized name__q/__scale/__bias triplets
 _FORMAT_VERSION = 2
+
+
+@dataclasses.dataclass
+class BatchingMetadata:
+    """How the server batches one input (``type`` "dense" | "sparse")."""
+
+    type: str
+    device: str = "cuda"
+    pinned: bool = False
+
+
+class PredictFactory(abc.ABC):
+    """What a serving fleet needs to load a model without the trainer:
+    the predict module and how its inputs batch."""
+
+    @abc.abstractmethod
+    def create_predict_module(self) -> Callable:
+        """The serving module ``(dense, kjt) -> scores`` with its weights
+        bound."""
+
+    @abc.abstractmethod
+    def batching_metadata(self) -> Dict[str, BatchingMetadata]:
+        """Input name -> BatchingMetadata (drives server-side batching)."""
+
+    def batching_metadata_json(self) -> str:
+        return json.dumps(
+            {
+                k: dataclasses.asdict(v)
+                for k, v in self.batching_metadata().items()
+            }
+        )
+
+    @abc.abstractmethod
+    def result_metadata(self) -> str:
+        """Result type tag the response splitter keys on."""
+
+    def model_inputs_data(self) -> Dict[str, Any]:
+        """Benchmark input generation hints (optional)."""
+        return {}
 
 _QUANT_DTYPES = {
     "int8": DataType.INT8,
@@ -108,10 +149,10 @@ def package_model(
             for c in tables
         ],
         "batching_metadata": {
-            "float_features": {"type": "dense", "device": "cuda",
-                               "pinned": False},
-            "id_list_features": {"type": "sparse", "device": "cuda",
-                                 "pinned": False},
+            "float_features": dataclasses.asdict(
+                BatchingMetadata(type="dense")),
+            "id_list_features": dataclasses.asdict(
+                BatchingMetadata(type="sparse")),
         },
         "result_metadata": "scores",
         "model": model_config,
@@ -121,7 +162,12 @@ def package_model(
     )
     arrays = {}
     for name, p in qebc.params.items():
-        arrays[f"{name}__q"] = p.q.cpu().numpy()
+        q = p.q.cpu()
+        if q.dtype == torch.bfloat16:  # np.savez has no bfloat16
+            q = q.view(torch.int16).numpy().view(np.uint16)
+        else:
+            q = q.numpy()
+        arrays[f"{name}__q"] = q
         arrays[f"{name}__scale"] = p.scale.cpu().numpy()
         arrays[f"{name}__bias"] = p.bias.cpu().numpy()
     np.savez_compressed(os.path.join(path, "tables.npz"), **arrays)
@@ -175,6 +221,9 @@ def load_packaged_model(
                      for k in ("q", "scale", "bias")}
             for t in tables
         })
+    if meta["quant_dtype"] == "bf16":
+        for p in params.values():
+            p["q"] = p["q"].view(torch.int16).view(torch.bfloat16)
     qebc = QuantEmbeddingBagCollection(tables, params, lookup_kernel)
 
     mc = meta.get("model")

@@ -1,19 +1,42 @@
 """Inference server: dynamic batching + the serving module on its device
-(``PyBatchingQueue`` and ``InferenceServer`` of
-``torchrec_tpu/inference/serving.py``).
+(``torchrec_tpu/inference/serving.py``, less ``NativeInferenceServer``).
 
 ``predict`` enqueues single requests; the batching queue forms them into
 batches (flush at ``max_batch`` requests or ``max_latency_us`` after the
 oldest pending one); executor threads pad each formed batch to the
 serving function's static shapes, move it to the serving function's
-device, run it, and post per-request scores back.  The queue is the
-pure-Python one; the native queue and the network front ends are not
-ported yet.
+device, run it, and post per-request scores back.
+
+Two interchangeable queues implement the forming policy:
+
+* ``_NativeQueue`` — ctypes adapter over the port's host library
+  (``csrc/host/batching_queue.cpp``, built with g++ at first use by
+  ``ops/_native.py::load_host_library``), the default, and required by
+  ``NetworkInferenceServer``, whose C++ TCP listener
+  (``csrc/host/serving_server.cpp``) enqueues into it directly;
+* ``PyBatchingQueue`` — a pure-Python mirror with the same policy and
+  result semantics.
+
+Front ends: ``NetworkInferenceServer`` (length-prefixed binary TCP,
+``PredictClient``), ``HttpInferenceServer`` (POST ``/predict``, GET
+``/health`` and ``/metrics``) and ``inference/grpc_server.py``.  The
+native id transformers (LRU, multi-probe, LFU/DistanceLFU) and their
+pure-Python LFU mirror live here too, as in the JAX package.
+
+Threads: several executors may run the serving module at once.  Each
+kernel wrapper launches on the CURRENT stream of the thread that calls
+it (``ops/tbe.py::_stream_ptr``), and a formed batch's host buffers are
+copied into fresh arrays before anything reaches the card, so a native
+queue's per-thread dequeue buffers are never read after the executor
+moves on.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
+import math
+import os
 import threading
 import time
 from typing import Callable, Optional, Sequence, Tuple
@@ -23,6 +46,7 @@ import torch
 
 from torchrec_tpu_torch.obs.registry import MetricsRegistry
 from torchrec_tpu_torch.obs.spans import span
+from torchrec_tpu_torch.ops._native import load_host_library
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor, regroup_request_major
 from torchrec_tpu_torch.utils.profiling import counter_key
 
@@ -33,11 +57,30 @@ _BATCH_SIZE_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
 
 class QueueStopped(RuntimeError):
     """The batching queue was shut down while (or before) this request
-    was in it: the replica is stopping, not slow."""
+    was in it: the replica is stopping, not slow.  The mesh router maps
+    it to an immediate retry on another replica."""
+
+
+def _check_request(dense, ids, lengths, num_dense, num_features):
+    """One request in the queue's wire layout: float32 ``dense``
+    [num_dense], int64 ``ids`` (request-major), int32 ``lengths``
+    [num_features] that sum to ``len(ids)``."""
+    dense = np.ascontiguousarray(dense, np.float32).reshape(-1)
+    ids = np.ascontiguousarray(ids, np.int64).reshape(-1)
+    lengths = np.ascontiguousarray(lengths, np.int32).reshape(-1)
+    if dense.shape != (num_dense,):
+        raise ValueError(f"dense {dense.shape} != ({num_dense},)")
+    if lengths.shape != (num_features,):
+        raise ValueError(f"lengths {lengths.shape} != ({num_features},)")
+    if (lengths < 0).any() or int(lengths.sum()) != ids.shape[0]:
+        raise ValueError(f"lengths {lengths.tolist()} do not cover "
+                         f"{ids.shape[0]} ids")
+    return dense, ids, lengths
 
 
 class PyBatchingQueue:
-    """Pure-Python dynamic batching queue.
+    """Pure-Python dynamic batching queue (``csrc/host/batching_queue.cpp``
+    semantics, no native library).
 
     Producers ``enqueue`` single requests and block in ``wait_result``;
     the executor ``dequeue_batch``-es formed batches and ``post_result``-s
@@ -80,15 +123,8 @@ class PyBatchingQueue:
     ) -> int:
         """Add one request; returns its id for ``wait_result``.  Raises
         :class:`QueueStopped` after ``shutdown()``."""
-        dense = np.ascontiguousarray(dense, np.float32).reshape(-1)
-        ids = np.ascontiguousarray(ids, np.int64).reshape(-1)
-        lengths = np.ascontiguousarray(lengths, np.int32).reshape(-1)
-        if dense.shape != (self.num_dense,):
-            raise ValueError(f"dense {dense.shape} != ({self.num_dense},)")
-        if lengths.shape != (self.num_features,):
-            raise ValueError(
-                f"lengths {lengths.shape} != ({self.num_features},)"
-            )
+        dense, ids, lengths = _check_request(
+            dense, ids, lengths, self.num_dense, self.num_features)
         with self._cv:
             if self._shutdown:
                 raise QueueStopped(
@@ -136,7 +172,8 @@ class PyBatchingQueue:
             n = min(len(self._pending), self.max_batch)
             reqs = [self._pending.popleft() for _ in range(n)]
             if self._pending:
-                # the flush clock restarts for the leftover requests
+                # the flush clock restarts for the leftover requests, as
+                # in the native queue
                 self._oldest = time.monotonic()
         rids = np.asarray([r[0] for r in reqs], np.uint64)
         dense = np.stack([r[1] for r in reqs])
@@ -155,6 +192,11 @@ class PyBatchingQueue:
             np.zeros((0,), np.int64),
             np.zeros((0, self.num_features), np.int32),
         )
+
+    def pending(self) -> int:
+        """Requests waiting to be formed into a batch."""
+        with self._mu:
+            return len(self._pending)
 
     def outstanding(self) -> int:
         """Requests enqueued whose score has not posted yet."""
@@ -176,7 +218,8 @@ class PyBatchingQueue:
             self._cv_results.notify_all()
 
     def wait_result(self, rid: int, timeout_us: int) -> Optional[float]:
-        """Block until ``rid``'s score posts; None on timeout.  Raises
+        """Block until ``rid``'s score posts; None on timeout.  A result
+        posted before ``shutdown()`` is still delivered; raises
         :class:`QueueStopped` when the queue stopped with it unanswered."""
         rid = int(rid)
         deadline = time.monotonic() + timeout_us * 1e-6
@@ -201,6 +244,265 @@ class PyBatchingQueue:
             self._cv_results.notify_all()
 
 
+class _NativeQueue:
+    """ctypes adapter presenting ``csrc/host/batching_queue.cpp`` through
+    the :class:`PyBatchingQueue` call surface.  ``handle`` is the raw
+    native pointer the C++ TCP front end attaches to."""
+
+    def __init__(
+        self,
+        lib,
+        max_batch: int,
+        max_latency_us: int,
+        num_dense: int,
+        num_features: int,
+        max_ids_hint: int,
+    ):
+        self._lib = lib
+        self.max_batch = int(max_batch)
+        self.num_dense = int(num_dense)
+        self.num_features = int(num_features)
+        self._ids_cap = max(int(max_ids_hint), 1)
+        # dequeue buffers are PER-THREAD (several executors drain one
+        # queue) and reused across calls: the poll loop runs every 50 ms
+        self._bufs = threading.local()
+        self._shutdown = False
+        self.handle = lib.trt_bq_create(
+            max_batch, max_latency_us, num_dense, num_features
+        )
+
+    def enqueue(
+        self, dense: np.ndarray, ids: np.ndarray, lengths: np.ndarray
+    ) -> int:
+        """Add one request; returns its id.  Raises :class:`QueueStopped`
+        after ``shutdown()`` (the native queue answers id 0)."""
+        c = ctypes
+        dense, ids, lengths = _check_request(
+            dense, ids, lengths, self.num_dense, self.num_features)
+        rid = int(self._lib.trt_bq_enqueue(
+            self.handle,
+            dense.ctypes.data_as(c.POINTER(c.c_float)),
+            ids.ctypes.data_as(c.POINTER(c.c_int64)),
+            lengths.ctypes.data_as(c.POINTER(c.c_int32)),
+        ))
+        if rid == 0:
+            raise QueueStopped("batching queue is shut down; request refused")
+        return rid
+
+    def dequeue_batch(self, timeout_us: int):
+        """Same ``(n, rids, dense, ids, lengths)`` contract as
+        :meth:`PyBatchingQueue.dequeue_batch`; the native buffer-resize
+        protocol (-2) is retried internally.  The returned arrays are
+        views of this thread's reusable buffers, valid until the same
+        thread's next call."""
+        c = ctypes
+        b = self._bufs
+        if getattr(b, "rids", None) is None:
+            b.rids = np.empty((self.max_batch,), np.uint64)
+            b.dense = np.empty((self.max_batch, self.num_dense), np.float32)
+            b.lengths = np.empty(
+                (self.max_batch, self.num_features), np.int32
+            )
+            b.ids = np.empty((self._ids_cap,), np.int64)
+        while True:
+            rids, dense, lengths = b.rids, b.dense, b.lengths
+            if b.ids.shape[0] < self._ids_cap:
+                b.ids = np.empty((self._ids_cap,), np.int64)
+            ids_buf = b.ids
+            cap = c.c_int64(ids_buf.shape[0])
+            n = self._lib.trt_bq_dequeue_batch(
+                self.handle, timeout_us,
+                rids.ctypes.data_as(c.POINTER(c.c_uint64)),
+                dense.ctypes.data_as(c.POINTER(c.c_float)),
+                ids_buf.ctypes.data_as(c.POINTER(c.c_int64)),
+                c.byref(cap),
+                lengths.ctypes.data_as(c.POINTER(c.c_int32)),
+            )
+            if n == -2:
+                # buffer too small: the queue wrote the needed size
+                self._ids_cap = int(cap.value)
+                continue
+            if n <= 0:
+                return (
+                    (-1 if n == -1 else 0),
+                    rids[:0], dense[:0], ids_buf[:0], lengths[:0],
+                )
+            return n, rids[:n], dense[:n], ids_buf[: cap.value], lengths[:n]
+
+    def pending(self) -> int:
+        """Requests waiting in the native queue."""
+        return int(self._lib.trt_bq_pending(self.handle))
+
+    def outstanding(self) -> int:
+        """Requests enqueued whose score has not posted yet."""
+        return int(self._lib.trt_bq_outstanding(self.handle))
+
+    def post_result(self, rid: int, score: float) -> None:
+        s = np.asarray([score], np.float32)
+        self._lib.trt_bq_post_result(
+            self.handle, int(rid),
+            s.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), 1,
+        )
+
+    def wait_result(self, rid: int, timeout_us: int) -> Optional[float]:
+        """``rid``'s score, None on timeout; raises :class:`QueueStopped`
+        when the queue stopped with it unanswered."""
+        out = np.empty((1,), np.float32)
+        n = self._lib.trt_bq_wait_result(
+            self.handle, int(rid), timeout_us,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), 1,
+        )
+        if n < 0:
+            raise QueueStopped(
+                f"batching queue shut down with request {rid} unanswered")
+        return float(out[0]) if n > 0 else None
+
+    def shutdown(self) -> None:
+        self._shutdown = True
+        self._lib.trt_bq_shutdown(self.handle)
+
+
+class _NativeTransformerBase:
+    """Shared ctypes marshalling for the native id transformers; concrete
+    classes set ``_prefix`` and construct ``self._h``."""
+
+    _prefix: str
+
+    def transform(self, ids: np.ndarray):
+        """ids [n] int64 -> (slots [n], evicted_global, evicted_slot)."""
+        ids = np.ascontiguousarray(ids, np.int64)
+        n = len(ids)
+        slots = np.empty((n,), np.int64)
+        ev_g = np.empty((n,), np.int64)
+        ev_s = np.empty((n,), np.int64)
+        ev_n = ctypes.c_int64(0)
+        i64p = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))  # noqa: E731
+        getattr(self._lib, f"{self._prefix}_transform")(
+            self._h, i64p(ids), n, i64p(slots), i64p(ev_g), i64p(ev_s),
+            ctypes.byref(ev_n),
+        )
+        k = ev_n.value
+        return slots, ev_g[:k], ev_s[:k]
+
+    def __len__(self):
+        return int(getattr(self._lib, f"{self._prefix}_size")(self._h))
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            getattr(self._lib, f"{self._prefix}_destroy")(h)
+            self._h = None
+
+
+class IdTransformer(_NativeTransformerBase):
+    """Native LRU id transformer: unbounded int64 ids map to ``capacity``
+    slots; when full, the least-recently-used slot is evicted."""
+
+    _prefix = "trt_idt"
+
+    def __init__(self, capacity: int):
+        self._lib = load_host_library()
+        self._h = self._lib.trt_idt_create(capacity)
+        self.capacity = capacity
+
+
+class MpIdTransformer(_NativeTransformerBase):
+    """Native multi-probe hash transformer (MPZCH): each id probes a fixed
+    hash-derived window of ``max_probe`` slots, with windowed-LRU
+    eviction.  The window is restart-stable (a pure function of the id's
+    hash); the slot within it is first-empty-wins."""
+
+    _prefix = "trt_mpidt"
+
+    def __init__(self, capacity: int, max_probe: int = 8):
+        self._lib = load_host_library()
+        self._h = self._lib.trt_mpidt_create(capacity, max_probe)
+        self.capacity = capacity
+        self.max_probe = max_probe
+
+
+class LfuIdTransformer(_NativeTransformerBase):
+    """Native LFU (min count bucket, LRU inside) or DistanceLFU (min
+    count/distance^decay) id transformer; one ``transform`` call is one
+    iteration."""
+
+    _prefix = "trt_lfu"
+
+    def __init__(self, capacity: int, policy: str = "lfu",
+                 decay_exponent: float = 1.0):
+        self._lib = load_host_library()
+        pol = {"lfu": 0, "distance_lfu": 1}[policy]
+        self._h = self._lib.trt_lfu_create(capacity, pol, decay_exponent)
+        self.capacity = capacity
+        self.policy = policy
+
+
+class PyLfuIdTransformer:
+    """Pure-Python counterpart of :class:`LfuIdTransformer` (same
+    ``transform``/``__len__`` contract, no native library).
+
+    ``"lfu"`` evicts the min-count slot (LRU within a count),
+    ``"distance_lfu"`` scores ``count / distance^decay`` so stale
+    frequency ages out.  Slot placement may differ from the native
+    transformer's under ties; eviction is an O(capacity) vectorized
+    argmin."""
+
+    def __init__(self, capacity: int, policy: str = "lfu",
+                 decay_exponent: float = 1.0):
+        """``capacity`` slots; ``policy`` is "lfu" | "distance_lfu";
+        ``decay_exponent`` is the distance-aging power (distance_lfu)."""
+        self.capacity = int(capacity)
+        self.policy = policy
+        self.decay_exponent = float(decay_exponent)
+        self._slot_of: dict = {}
+        self._id_of = np.full((self.capacity,), -1, np.int64)
+        self._count = np.zeros((self.capacity,), np.float64)
+        self._last = np.zeros((self.capacity,), np.float64)
+        self._clock = 0.0
+        self._next_fresh = 0
+
+    def transform(self, ids: np.ndarray):
+        """ids [n] int64 -> (slots [n], evicted_global, evicted_slot),
+        in stream order, stateful."""
+        ids = np.ascontiguousarray(ids, np.int64)
+        slots = np.empty((len(ids),), np.int64)
+        ev_g, ev_s = [], []
+        for i, gid in enumerate(ids):
+            gid = int(gid)
+            self._clock += 1.0
+            s = self._slot_of.get(gid)
+            if s is None:
+                if self._next_fresh < self.capacity:
+                    s = self._next_fresh
+                    self._next_fresh += 1
+                else:
+                    if self.policy == "distance_lfu":
+                        dist = np.maximum(self._clock - self._last, 1.0)
+                        score = self._count / dist ** self.decay_exponent
+                    else:
+                        # min count bucket, LRU inside: lexicographic
+                        # (count, last) via a large count weight
+                        score = self._count * 1e15 + self._last
+                    s = int(np.argmin(score))
+                    ev_g.append(int(self._id_of[s]))
+                    ev_s.append(s)
+                    del self._slot_of[int(self._id_of[s])]
+                self._slot_of[gid] = s
+                self._id_of[s] = gid
+                self._count[s] = 0.0
+            self._count[s] += 1.0
+            self._last[s] = self._clock
+            slots[i] = s
+        return (
+            slots,
+            np.asarray(ev_g, np.int64),
+            np.asarray(ev_s, np.int64),
+        )
+
+    def __len__(self):
+        return len(self._slot_of)
+
+
 class InferenceServer:
     """Dynamic-batching model server.
 
@@ -208,7 +510,7 @@ class InferenceServer:
     ``device`` (``inference.modules.ServingModule`` does); each formed
     batch is padded to ``max_batch_size`` examples and moved there.
     ``feature_names`` / ``feature_caps`` (ids per example) fix the wire
-    schema.
+    schema; ``queue`` is ``"native"`` (the default) or ``"python"``.
 
     ``feature_rows`` (per-feature ``num_embeddings``) +
     ``degrade_on_bad_input=True`` enable graceful degradation: a
@@ -227,12 +529,8 @@ class InferenceServer:
         feature_rows: Optional[Sequence[int]] = None,
         degrade_on_bad_input: bool = False,
         metrics: Optional[MetricsRegistry] = None,
-        queue: str = "python",
+        queue: str = "native",
     ):
-        if queue != "python":
-            raise ValueError(
-                f"queue {queue!r}: the port has only the 'python' queue"
-            )
         self._fn = serving_fn
         self.device = torch.device(serving_fn.device)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -259,13 +557,26 @@ class InferenceServer:
                 f"feature_rows has {len(self.feature_rows)} entries for "
                 f"{len(self.features)} features"
             )
-        self._queue = PyBatchingQueue(
-            max_batch_size, max_latency_us, num_dense, len(self.features)
-        )
+        if queue == "native":
+            self._lib = load_host_library()
+            self._queue = _NativeQueue(
+                self._lib, max_batch_size, max_latency_us, num_dense,
+                len(self.features),
+                max_ids_hint=max_batch_size * max(self.caps, default=1)
+                * len(self.features),
+            )
+        elif queue == "python":
+            self._lib = None
+            self._queue = PyBatchingQueue(
+                max_batch_size, max_latency_us, num_dense, len(self.features)
+            )
+        else:
+            raise ValueError(f"unknown queue kind {queue!r}")
         self._workers: list = []
         self._running = False
         # request id -> degradation reason, set by the executor before the
-        # result posts and consumed by predict_ex after the wait
+        # result posts and consumed by predict_ex after the wait; bounded
+        # (TCP requests never consume theirs)
         self._degraded: dict = {}
         self._deg_lock = threading.Lock()
         # batches currently inside an executor (drain waits on them)
@@ -371,21 +682,26 @@ class InferenceServer:
             t.join(timeout=5)
         self._workers = []
 
-    def drain(self, deadline_s: float = 5.0) -> bool:
+    def drain(
+        self,
+        deadline_s: float = 5.0,
+        started_outstanding: Optional[int] = None,
+    ) -> bool:
         """Graceful shutdown: wait (bounded by ``deadline_s``) until every
         accepted request has been answered, then stop.  Returns True when
-        the queue fully drained inside the deadline."""
+        the queue fully drained inside the deadline.
+        ``started_outstanding``: the in-flight count a front end
+        snapshotted before closing its listener."""
         self.metrics.counter("serving/drain_count")
-        start = self._queue.outstanding()
+        start = (
+            int(started_outstanding)
+            if started_outstanding is not None
+            else self._queue.outstanding()
+        )
         deadline = time.monotonic() + float(deadline_s)
-        left = start
-        while time.monotonic() < deadline:
-            with self._deg_lock:
-                executing = self._executing
-            left = self._queue.outstanding() + executing
-            if left == 0:
-                break
+        while time.monotonic() < deadline and self._left():
             time.sleep(0.005)
+        left = self._left()
         self.metrics.counter(
             "serving/drained_request_count", float(max(0, start - left))
         )
@@ -395,6 +711,12 @@ class InferenceServer:
             )
         self.stop()
         return left == 0
+
+    def _left(self) -> int:
+        """Requests unanswered plus batches inside an executor."""
+        with self._deg_lock:
+            executing = self._executing
+        return self._queue.outstanding() + executing
 
     def _executor_loop(self) -> None:
         while self._running:
@@ -478,7 +800,8 @@ class InferenceServer:
         """Feature-major KJT for a formed batch: the request-major flat id
         buffer regroups with :func:`regroup_request_major`, and lengths
         zero-pad to ``batch_rung`` examples with per-feature capacities
-        ``caps``."""
+        ``caps``.  Every buffer is a fresh array (never a view of the
+        queue's)."""
         F = len(self.features)
         l_req = np.zeros((batch_rung, F), np.int32)
         l_req[:n] = lengths[:n]
@@ -487,6 +810,15 @@ class InferenceServer:
             self.features, values.astype(np.int64, copy=False),
             l_req.T.reshape(-1), caps=caps,
         )
+
+    def _device_inputs(self, n, dense, ids, lengths, batch_rung, caps):
+        """The formed batch padded to ``batch_rung`` examples and
+        per-feature capacities ``caps``, on the serving device: (dense
+        [batch_rung, num_dense], KJT)."""
+        kjt = self._form_kjt(n, ids, lengths, batch_rung, caps)
+        d = np.zeros((batch_rung, self.num_dense), np.float32)
+        d[:n] = dense[:n]
+        return torch.from_numpy(d).to(self.device), kjt.to(self.device)
 
     def _run_batch(self, n, dense, ids, lengths):
         """Pad the formed batch to the serving fn's static shapes, move it
@@ -499,14 +831,311 @@ class InferenceServer:
         dense, ids, lengths, reasons = self._sanitize_requests(
             n, dense, ids, lengths
         )
-        kjt = self._form_kjt(
-            n, ids, lengths, B, [cap * B for cap in self.caps]
-        )
-        d = np.zeros((B, self.num_dense), np.float32)
-        d[:n] = dense[:n]
-        with span("serving/run_batch"):
-            scores = self._fn(
-                torch.from_numpy(d).to(self.device), kjt.to(self.device)
-            )
-            scores = scores.float().cpu().numpy()
+        args = self._device_inputs(n, dense, ids, lengths, B,
+                                   [cap * B for cap in self.caps])
+        with span("serving/run_batch", n=n):
+            scores = self._fn(*args).float().cpu().numpy()
         return scores[:n], reasons
+
+
+class NetworkInferenceServer(InferenceServer):
+    """InferenceServer + the native TCP front end
+    (``csrc/host/serving_server.cpp``).
+
+    The wire protocol is a length-prefixed binary mirror of
+    ``predictor.proto`` (see the .cpp header comment); network requests
+    and in-process ``predict()`` calls coalesce into the same batches.
+    Needs ``queue="native"`` (the default)."""
+
+    def __init__(self, *args, request_timeout_us: int = 10_000_000, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self._lib is None:
+            raise ValueError(
+                "NetworkInferenceServer needs the native batching queue "
+                "(queue='native'); the C++ TCP front end enqueues into "
+                "the native structure directly"
+            )
+        caps = np.asarray(self.caps, np.int32)
+        self._srv = self._lib.trt_srv_create(
+            self._queue.handle, self.num_dense, len(self.features),
+            caps.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            request_timeout_us,
+        )
+        self.port: Optional[int] = None
+
+    def serve(self, port: int = 0, num_executors: int = 1) -> int:
+        """Bind the TCP listener on 127.0.0.1, then start executors;
+        returns the bound port (``port=0`` picks an ephemeral one)."""
+        bound = self._lib.trt_srv_start(self._srv, port)
+        if bound < 0:
+            raise OSError(f"could not bind serving port {port}")
+        self.port = bound
+        self.start(num_executors)
+        return bound
+
+    def stop(self) -> None:
+        if self._srv:
+            self._lib.trt_srv_stop(self._srv)
+        super().stop()
+        if self._srv:
+            self._lib.trt_srv_destroy(self._srv)
+            self._srv = None
+
+    def drain(self, deadline_s: float = 5.0) -> bool:
+        """Graceful TCP shutdown: quiesce the native front end (close the
+        listener, let every connection finish the request it is mid-way
+        through), then drain the batching queue and stop.  The deadline
+        bounds both phases together."""
+        deadline = time.monotonic() + float(deadline_s)
+        # snapshot BEFORE the quiesce, which waits for in-flight requests
+        started = self._queue.outstanding()
+        inflight_left = 0
+        if self._srv:
+            inflight_left = int(
+                self._lib.trt_srv_quiesce(self._srv, int(deadline_s * 1e3))
+            )
+            if inflight_left:
+                self.metrics.counter(
+                    "serving/drain_torn_connection_count",
+                    float(inflight_left),
+                )
+        remaining = max(0.1, deadline - time.monotonic())
+        return (super().drain(remaining, started_outstanding=started)
+                and inflight_left == 0)
+
+    def __del__(self):
+        if getattr(self, "_srv", None):
+            self._lib.trt_srv_stop(self._srv)
+            self._lib.trt_srv_destroy(self._srv)
+            self._srv = None
+
+
+class PredictClient:
+    """Client for :class:`NetworkInferenceServer`'s binary protocol (the
+    ``predictor.proto`` PredictionRequest/Response shape)."""
+
+    def __init__(self, port: int, host: str = "127.0.0.1"):
+        import socket as _socket
+
+        self._sock = _socket.create_connection((host, port))
+        self._sock.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+
+    def predict(
+        self, dense: np.ndarray, ids_per_feature: Sequence[np.ndarray]
+    ) -> float:
+        """Blocking predict over the wire; raises on server-side failure."""
+        import struct
+
+        dense = np.ascontiguousarray(dense, np.float32)
+        parts = [
+            struct.pack("<I", dense.shape[0]),
+            dense.tobytes(),
+            struct.pack("<I", len(ids_per_feature)),
+        ]
+        for x in ids_per_feature:
+            x = np.ascontiguousarray(x, np.int64)
+            parts.append(struct.pack("<I", x.shape[0]))
+            parts.append(x.tobytes())
+        payload = b"".join(parts)
+        self._sock.sendall(struct.pack("<I", len(payload)) + payload)
+        (plen,) = struct.unpack("<I", self._recv_exact(4))
+        body = self._recv_exact(plen)
+        status = body[0]
+        (score,) = struct.unpack("<f", body[1:5])
+        if status == 2:
+            raise ValueError("server rejected request as malformed")
+        if status == 1:
+            raise TimeoutError("server-side predict failed or timed out")
+        return float(score)
+
+    def _recv_exact(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self._sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("server closed connection")
+            buf += chunk
+        return buf
+
+    def close(self) -> None:
+        self._sock.close()
+
+
+class HttpInferenceServer:
+    """HTTP/JSON front end over an ``InferenceServer``.
+
+    POST ``/predict`` takes ``{"float_features": [..num_dense floats..],
+    "id_list_features": {"<feature>": [ids...], ...}}`` and answers
+    ``{"score": <float>, "degraded": <bool>}`` (with ``degraded_reason``
+    when set).  GET ``/health`` answers 200; GET ``/metrics`` serves the
+    inner server's registry as Prometheus text.  Handler threads block
+    inside ``InferenceServer.predict_ex``, so concurrent HTTP requests
+    coalesce into the same batches as other callers."""
+
+    def __init__(
+        self,
+        inner: InferenceServer,
+        predict_timeout_us: int = 5_000_000,
+    ):
+        self.inner = inner
+        self.predict_timeout_us = int(predict_timeout_us)
+        self.port: Optional[int] = None
+        self._httpd = None
+        self._thread: Optional[threading.Thread] = None
+        # set by drain(): keep-alive handler threads outlive the
+        # listener, so they must refuse NEW requests themselves
+        self._draining = False
+
+    def serve(self, port: int = 0, num_executors: int = 1) -> int:
+        """Bind 127.0.0.1 + start executors; returns the bound port."""
+        import http.server
+        import json as _json
+        import socketserver
+
+        inner = self.inner
+        srv = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            # a reply goes out in two writes (headers, then body): with
+            # Nagle's algorithm on, the body waits for the client's
+            # delayed ACK of the headers, about 40 ms a keep-alive request
+            disable_nagle_algorithm = True
+
+            def log_message(self, *a):  # quiet by default
+                pass
+
+            def _reply(self, code: int, obj) -> None:
+                body = _json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/health":
+                    self._reply(200, {"status": "ok"})
+                elif self.path == "/metrics":
+                    body = inner.metrics.to_prometheus().encode()
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type",
+                        "text/plain; version=0.0.4; charset=utf-8",
+                    )
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                else:
+                    self._reply(404, {"error": "unknown path"})
+
+            def do_POST(self):
+                if srv._draining:
+                    # the listener is closed but THIS keep-alive
+                    # connection outlived it: a complete 503, then close
+                    self.close_connection = True
+                    self._reply(
+                        503, {"error": "server draining for restart"}
+                    )
+                    return
+                if self.path != "/predict":
+                    self._reply(404, {"error": "unknown path"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    req = _json.loads(self.rfile.read(n))
+                    dense = np.asarray(req["float_features"], np.float32)
+                    by_name = req.get("id_list_features", {})
+                    ids = [
+                        np.asarray(by_name.get(f, []), np.int64)
+                        for f in inner.features
+                    ]
+                except (ValueError, KeyError, TypeError) as e:
+                    self._reply(400, {"error": f"malformed request: {e}"})
+                    return
+                try:
+                    score, degraded, reason = inner.predict_ex(
+                        dense, ids, timeout_us=srv.predict_timeout_us
+                    )
+                except ValueError as e:
+                    self._reply(400, {"error": str(e)})
+                except TimeoutError as e:
+                    self._reply(503, {"error": str(e)})
+                except Exception as e:
+                    self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+                else:
+                    if not math.isfinite(score):
+                        # an executor failure posts NaN; bare NaN is not
+                        # RFC JSON: answer a typed 500 instead
+                        self._reply(
+                            500,
+                            {"error": "executor failed (request scored "
+                                      f"{score!r})"},
+                        )
+                        return
+                    body = {"score": score, "degraded": degraded}
+                    if degraded:
+                        body["degraded_reason"] = reason
+                    self._reply(200, body)
+
+        class _Srv(socketserver.ThreadingMixIn, http.server.HTTPServer):
+            daemon_threads = True
+
+        self._httpd = _Srv(("127.0.0.1", port), Handler)
+        self.port = self._httpd.server_address[1]
+        self.inner.start(num_executors)
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True
+        )
+        self._thread.start()
+        return self.port
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        self.inner.stop()
+
+    def drain(self, deadline_s: float = 5.0) -> bool:
+        """Graceful HTTP shutdown: close the listener first (in-flight
+        handler threads keep blocking inside ``predict_ex`` and answer
+        normally), then drain the inner server's queue; one deadline
+        covers both."""
+        deadline = time.monotonic() + float(deadline_s)
+        # flip BEFORE the listener closes: keep-alive handler threads
+        # must 503-and-close any NEW request themselves
+        self._draining = True
+        # snapshot BEFORE the listener teardown, which can outlast a fast
+        # request
+        started = self.inner._queue.outstanding()
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=max(0.0, deadline - time.monotonic()))
+            self._thread = None
+        return self.inner.drain(
+            max(0.1, deadline - time.monotonic()),
+            started_outstanding=started,
+        )
+
+
+def install_sigterm_drain(server, deadline_s: float = 5.0):
+    """Register a SIGTERM handler that drains ``server`` (anything with
+    ``drain(deadline_s)``) before the process dies, then restores the
+    default disposition and re-delivers SIGTERM, so the process still
+    exits with the conventional signal status.  Must run on the main
+    thread; returns the previous handler."""
+    import signal as _signal
+
+    def _handler(signum, frame):
+        del frame
+        try:
+            server.drain(deadline_s)
+        finally:
+            _signal.signal(_signal.SIGTERM, _signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+
+    return _signal.signal(_signal.SIGTERM, _handler)

@@ -9,6 +9,10 @@ build.  Nothing here runs at import time: the
 CPU tests import every module on a machine with no ``nvcc``.
 
 Every kernel wrapper counts its launches here, in :data:`LAUNCHES`.
+
+The serving tier's host library (``csrc/host/*.cpp``: the batching
+queue, the TCP front end and the id transformers) is C++ for the CPU,
+built the same way with ``g++`` by :func:`load_host_library`.
 """
 
 from __future__ import annotations
@@ -53,8 +57,9 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "dedup_q_pool": (_G, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P),
     },
     "tbe_float.cu": {
-        "tbe_pooled": (_P, _P, _I, _P, _P, _I, _G, _I, _P, _I, _L, _I, _P),
-        "tbe_pooled_info": (_I, _I, _I, _I, _I, _O),
+        "tbe_pooled": (_P, _P, _I, _P, _P, _I, _G, _I, _P, _I, _L, _I, _I,
+                       _L, _P),
+        "tbe_pooled_info": (_I, _I, _I, _I, _I, _I, _O),
     },
     "tbe_backward.cu": {
         "fused_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -62,7 +67,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "fused_update_info": (_I, _I, _I, _I, _O),
     },
     "tbe_dedup.cu": {
-        "dedup_pooled": (_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _P),
+        "dedup_pooled": (_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _L,
+                         _P),
     },
     "tbe_dedup_backward.cu": {
         "dedup_fused_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -153,6 +159,105 @@ def load_library(source: str) -> ctypes.CDLL:
     return load_libraries((source,))[source]
 
 
+# ---------------------------------------------------------------------------
+# the host library: the serving tier's batching queue, TCP front end and id
+# transformers (C++ for the CPU, built with g++)
+# ---------------------------------------------------------------------------
+
+HOST_DIR = os.path.join(CSRC_DIR, "host")
+HOST_SOURCES = ("batching_queue.cpp", "serving_server.cpp",
+                "id_transformer.cpp", "mp_id_transformer.cpp",
+                "lfu_id_transformer.cpp")
+# -Bsymbolic: the library's own calls (the TCP server's into the queue)
+# bind inside it, whatever else the process has loaded
+GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-Wl,-Bsymbolic")
+
+_U64 = ctypes.c_uint64
+_I64 = ctypes.c_int64
+_P64 = ctypes.POINTER(ctypes.c_int64)
+_PF = ctypes.POINTER(ctypes.c_float)
+_TRANSFORM = ((_P, _P64, _I64, _P64, _P64, _P64, _P64), _I64)
+# C entry point -> (argtypes, restype)
+_HOST_SIGNATURES: Dict[str, Tuple] = {
+    "trt_bq_create": ((_I, _I64, _I, _I), _P),
+    "trt_bq_destroy": ((_P,), None),
+    "trt_bq_enqueue": ((_P, _PF, _P64, ctypes.POINTER(ctypes.c_int32)), _U64),
+    "trt_bq_dequeue_batch": ((_P, _I64, ctypes.POINTER(_U64), _PF, _P64,
+                              _P64, ctypes.POINTER(ctypes.c_int32)), _I),
+    "trt_bq_post_result": ((_P, _U64, _PF, _I), None),
+    "trt_bq_wait_result": ((_P, _U64, _I64, _PF, _I), _I),
+    "trt_bq_shutdown": ((_P,), None),
+    "trt_bq_pending": ((_P,), _I),
+    "trt_bq_outstanding": ((_P,), _I64),
+    "trt_srv_create": ((_P, _I, _I, ctypes.POINTER(ctypes.c_int32), _I64),
+                       _P),
+    "trt_srv_start": ((_P, _I), _I),
+    "trt_srv_stop": ((_P,), None),
+    "trt_srv_quiesce": ((_P, _I64), _I),
+    "trt_srv_destroy": ((_P,), None),
+    "trt_srv_port": ((_P,), _I),
+    "trt_idt_create": ((_I64,), _P),
+    "trt_idt_destroy": ((_P,), None),
+    "trt_idt_transform": _TRANSFORM,
+    "trt_idt_size": ((_P,), _I64),
+    "trt_mpidt_create": ((_I64, _I), _P),
+    "trt_mpidt_destroy": ((_P,), None),
+    "trt_mpidt_transform": _TRANSFORM,
+    "trt_mpidt_size": ((_P,), _I64),
+    "trt_lfu_create": ((_I64, _I, ctypes.c_double), _P),
+    "trt_lfu_destroy": ((_P,), None),
+    "trt_lfu_transform": _TRANSFORM,
+    "trt_lfu_size": ((_P,), _I64),
+}
+_HOST_LIB = []  # the loaded library, once
+
+
+def _host_library_path() -> str:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for name in HOST_SOURCES:
+        with open(os.path.join(HOST_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libtrt_host_{h.hexdigest()[:16]}.so")
+
+
+def load_host_library() -> ctypes.CDLL:
+    """Build the host library from ``csrc/host/*.cpp`` with ``g++`` at
+    first use (into ``csrc/build/``, named by a hash of the sources and
+    flags), load it and declare every entry point.  Processes that build
+    at once take turns on a lock file and write through a temporary name,
+    so none loads a half-written library.  A failed build raises."""
+    import fcntl
+
+    with _LOCK:
+        if _HOST_LIB:
+            return _HOST_LIB[0]
+        path = _host_library_path()
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            with open(os.path.join(BUILD_DIR, "host.lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not os.path.exists(path):
+                    tmp = f"{path}.{os.getpid()}.tmp"
+                    cmd = ["g++", *GXX_FLAGS, "-o", tmp,
+                           *(os.path.join(HOST_DIR, s) for s in HOST_SOURCES),
+                           "-lpthread"]
+                    proc = subprocess.run(cmd, capture_output=True,
+                                          text=True)
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"g++ failed on the host library (exit "
+                            f"{proc.returncode}): {' '.join(cmd)}\n"
+                            f"{proc.stderr}")
+                    os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        for name, (argtypes, restype) in _HOST_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+        _HOST_LIB.append(lib)
+        return lib
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a C entry point reported a CUDA error (its
     ``cudaGetLastError()`` after the launch)."""
@@ -164,8 +269,11 @@ def check_launch(name: str, err: int) -> None:
 # launch counts, shared by every kernel wrapper
 # ---------------------------------------------------------------------------
 
-# table dtype -> the ``dtype`` code of the float kernels' C entry points
+# table dtype -> the ``dtype`` code of the float kernels' C entry points:
+# the fused updates (B2, B6) take FLOAT_DTYPES, the float pooled lookups
+# (B1, B4) LOOKUP_DTYPES, for tables and outputs
 FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LOOKUP_DTYPES = {**FLOAT_DTYPES, torch.float16: 2}
 
 LAUNCHES: Dict[str, int] = {
     "pooled_lookup": 0,

@@ -9,8 +9,11 @@ Replaces, from the JAX package's ``torchrec_tpu/ops/pallas_tbe.py``:
   over a slot stream in its producer's layout (:class:`SlotRegions`: the
   table-wise ``[N, F, C]`` slots, a KeyedJaggedTensor's keys; no sort),
   and by :func:`pooled_lookup` over a stream in any order (a stable
-  segment sort first), over float32 and bfloat16 tables
-  (``csrc/tbe_float.cu``);
+  segment sort first), over float32, bfloat16 and float16 tables, into
+  the table's dtype or, from a 16-bit table, float32
+  (``csrc/tbe_float.cu``); for every feature of a served batch by
+  :func:`float_pooled_lookup_grouped` (one launch a feature, into its
+  columns of the KeyedTensor's buffer);
 * ``pallas_quantized_pooled_lookup`` (kernel body ``_tbe_kernel_q8``, input
   preparation ``_sort_pad_inputs``) by :func:`quant_pooled_lookup_int8`,
   and for all the features of a served batch at once by
@@ -22,7 +25,7 @@ Replaces, from the JAX package's ``torchrec_tpu/ops/pallas_tbe.py``:
   :func:`dedup_quant_pooled_lookup_grouped`;
 * ``pallas_ragged_dedup_lookup`` (kernel body ``_dedup_body``, input
   preparation ``_dedup_prepare_inputs``) by :func:`dedup_pooled_lookup`,
-  over float32 and bfloat16 tables.  Its ``id_cap``/``u_cap`` knobs size
+  over the same dtypes as B1 (and grouped the same way).  Its ``id_cap``/``u_cap`` knobs size
   the TPU kernel's grid and VMEM buffer and have no counterpart: the
   port's kernel keeps no copy of the distinct rows and reads each slot's
   row from the table (``csrc/tbe_dedup.cu``).
@@ -58,6 +61,7 @@ from torchrec_tpu_torch.ops import _native
 from torchrec_tpu_torch.ops._native import (  # noqa: F401 (re-exported)
     FLOAT_DTYPES,
     LAUNCHES,
+    LOOKUP_DTYPES,
     count_launch,
     launch_counts,
     reset_launch_counts,
@@ -119,10 +123,26 @@ def _check_float_inputs(
     weights: Optional[torch.Tensor],
 ) -> torch.device:
     """Validate a float lookup's arguments; returns their common device."""
-    if table.dtype not in FLOAT_DTYPES or table.dim() != 2:
-        raise TypeError(f"table must be 2-D float32 or bfloat16, got "
-                        f"{table.dtype} {tuple(table.shape)}")
+    _check_float_table(table)
     return _check_slots(table, ids, segments, weights)
+
+
+def _check_float_table(table: torch.Tensor) -> None:
+    if table.dtype not in LOOKUP_DTYPES or table.dim() != 2:
+        raise TypeError(f"table must be 2-D float32, bfloat16 or float16, "
+                        f"got {table.dtype} {tuple(table.shape)}")
+
+
+def _output_dtype(table: torch.Tensor,
+                    out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """A float lookup's output dtype: the table's (``out_dtype`` None),
+    or float32 for any table."""
+    if out_dtype is None or out_dtype == table.dtype:
+        return table.dtype
+    if out_dtype != torch.float32:
+        raise TypeError(f"a {table.dtype} table pools into {table.dtype} or "
+                        f"float32, not {out_dtype}")
+    return out_dtype
 
 
 def _check_slots(
@@ -168,9 +188,7 @@ def _check_regions(
 ) -> torch.device:
     """Validate a float lookup over slot regions; returns the common
     device."""
-    if table.dtype not in FLOAT_DTYPES or table.dim() != 2:
-        raise TypeError(f"table must be 2-D float32 or bfloat16, got "
-                        f"{table.dtype} {tuple(table.shape)}")
+    _check_float_table(table)
     lengths = regions.lengths
     tensors = [table, ids, lengths] + ([] if weights is None else [weights])
     dev = table.device
@@ -472,15 +490,17 @@ def pooled_lookup_plain(
     segments: torch.Tensor,
     num_segments: int,
     weights: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`pooled_lookup`: gather, widen to float32,
-    weight, pool in slot order, round once to the table's dtype."""
+    weight, pool in slot order, round once to the output's dtype."""
+    odt = _output_dtype(table, out_dtype)
     sids, sw, offsets = sort_by_segment(
         ids, segments, weights, num_segments, table.shape[0]
     )
     n = int(offsets[-1])  # the valid slots sort first
     vals = table[sids[:n]].to(torch.float32) * sw[:n, None]
-    return pool_slot_order(vals, offsets).to(table.dtype)
+    return pool_slot_order(vals, offsets).to(odt)
 
 
 def pooled_lookup_regions_plain(
@@ -488,11 +508,13 @@ def pooled_lookup_regions_plain(
     ids: torch.Tensor,
     regions: SlotRegions,
     weights: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`pooled_lookup_regions`: each segment's
     slot range gathered in slot order, then the operations of
     :func:`pooled_lookup_plain` (widen, weight, pool in slot order, round
-    once to the table's dtype)."""
+    once to the output's dtype)."""
+    odt = _output_dtype(table, out_dtype)
     first, size = regions.ranges()
     offsets = torch.cat([size.new_zeros(1), torch.cumsum(size, 0)])
     n = int(offsets[-1])
@@ -503,7 +525,7 @@ def pooled_lookup_regions_plain(
     sw = (torch.ones((n,), dtype=torch.float32, device=ids.device)
           if weights is None else weights[pos])
     vals = table[sids].to(torch.float32) * sw[:, None]
-    return pool_slot_order(vals, offsets).to(table.dtype)
+    return pool_slot_order(vals, offsets).to(odt)
 
 
 def dedup_pooled_lookup_plain(
@@ -512,17 +534,19 @@ def dedup_pooled_lookup_plain(
     segments: torch.Tensor,
     num_segments: int,
     weights: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`dedup_pooled_lookup`: each distinct valid
     row is gathered and widened to float32 once, re-expanded per slot
     through the inverse index, weighted and pooled in slot order, and the
-    sum rounded once to the table's dtype."""
+    sum rounded once to the output's dtype."""
+    odt = _output_dtype(table, out_dtype)
     uids, suidx, sw, offsets = dedup_prepare(
         ids, segments, weights, num_segments, table.shape[0]
     )
     rows = table[uids].to(torch.float32)
     vals = rows[suidx] * sw[:, None]
-    return pool_slot_order(vals, offsets).to(table.dtype)
+    return pool_slot_order(vals, offsets).to(odt)
 
 
 def quant_pooled_lookup_int8_plain(
@@ -718,6 +742,24 @@ def region_ends(lengths: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(lengths, 0, dtype=lengths.dtype)
 
 
+def _output(table: torch.Tensor, S: int, out_dtype: Optional[torch.dtype],
+            out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The [S, D] output of a float lookup: ``out`` (checked: that shape
+    and the output dtype, rows of stride >= D, columns contiguous, on the
+    table's device), or a new tensor."""
+    odt = _output_dtype(table, out_dtype)
+    D = table.shape[1]
+    if out is None:
+        return torch.empty((S, D), dtype=odt, device=table.device)
+    if (out.dtype != odt or tuple(out.shape) != (S, D)
+            or out.device != table.device
+            or (S > 1 and out.stride(0) < D) or (D > 1 and out.stride(1) != 1)):
+        raise ValueError(f"out must be [{S}, {D}] {odt} on {table.device} "
+                         f"with contiguous rows, got {out.dtype} "
+                         f"{tuple(out.shape)} strides {out.stride()}")
+    return out
+
+
 def launch_pooled(
     table: torch.Tensor,
     ids: torch.Tensor,
@@ -726,6 +768,8 @@ def launch_pooled(
     starts: Sequence[int],
     caps: Sequence[int],
     counts: Sequence[int],
+    out_dtype: Optional[torch.dtype] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the float pooled kernel on prepared inputs: ``ids`` and
     ``ends`` int32 or int64 as they come, float32 ``weights`` or None
@@ -735,10 +779,14 @@ def launch_pooled(
     (:func:`sort_by_segment`), its CSR offsets past the first, one region
     of all its slots and segments.  One launch per ``_MAX_REGIONS``
     regions that hold an example, each counted.  Returns [sum(counts), D]
-    in the table's dtype; allocates only the output; no host sync."""
+    in ``out_dtype`` (the table's dtype by default; float32 from any
+    table), written into ``out`` when given (a view whose rows may be
+    wider, e.g. one feature's columns of a KeyedTensor buffer); allocates
+    at most the output; no host sync."""
     S, D = sum(counts), table.shape[1]
+    out = _output(table, S, out_dtype, out)
     if S == 0:
-        return table.new_empty((0, D))
+        return out
     for name, t in (("ids", ids), ("ends", ends)):
         if t.dtype not in _INDEX_DTYPES or not t.is_contiguous():
             raise TypeError(f"{name} must be contiguous int32 or int64, got "
@@ -754,7 +802,7 @@ def launch_pooled(
         base += count
     lib = _native.load_library(_FLOAT_SOURCE)
     dev = table.device
-    out = torch.empty((S, D), dtype=table.dtype, device=dev)
+    ld = out.stride(0) if S > 1 else D
     with torch.cuda.device(dev):
         for r0 in range(0, len(facts), _MAX_REGIONS):
             chunk = facts[r0:r0 + _MAX_REGIONS]
@@ -767,8 +815,8 @@ def launch_pooled(
                 None if weights is None else weights.data_ptr(),
                 ends.data_ptr(), int(ends.dtype == torch.int64),
                 (ctypes.c_longlong * len(flat))(*flat), len(chunk),
-                out.data_ptr(), D, table.shape[0], FLOAT_DTYPES[table.dtype],
-                _stream_ptr(dev),
+                out.data_ptr(), D, table.shape[0], LOOKUP_DTYPES[table.dtype],
+                LOOKUP_DTYPES[out.dtype], ld, _stream_ptr(dev),
             )
             _native.check_launch("tbe_pooled", err)
             count_launch("pooled_lookup")
@@ -777,15 +825,20 @@ def launch_pooled(
 
 def pooled_kernel_info(dtype: torch.dtype, runs: bool, vec: bool,
                        ids_dtype: torch.dtype,
-                       ends_dtype: torch.dtype) -> Dict[str, int]:
+                       ends_dtype: torch.dtype,
+                       out_dtype: Optional[torch.dtype] = None,
+                       ) -> Dict[str, int]:
     """What the float pooled kernel's instantiation for a table of
-    ``dtype``, the runs kernel (``runs``: several segments a warp) or the
-    segments one, the 4-column (``vec``) or one-column path and the index
-    types takes on the current card (builds the kernel): its
-    ``registers`` a thread and ``blocks_per_sm`` resident."""
+    ``dtype`` pooling into ``out_dtype`` (the table's by default), the
+    runs kernel (``runs``: several segments a warp) or the segments one,
+    the 4-column (``vec``) or one-column path and the index types takes
+    on the current card (builds the kernel): its ``registers`` a thread
+    and ``blocks_per_sm`` resident."""
     lib = _native.load_library(_FLOAT_SOURCE)
     out = (ctypes.c_int * 2)()
-    err = lib.tbe_pooled_info(FLOAT_DTYPES[dtype], int(runs), int(vec),
+    odt = dtype if out_dtype is None else out_dtype
+    err = lib.tbe_pooled_info(LOOKUP_DTYPES[dtype], LOOKUP_DTYPES[odt],
+                              int(runs), int(vec),
                               int(ids_dtype == torch.int64),
                               int(ends_dtype == torch.int64), out)
     if err:
@@ -794,23 +847,25 @@ def pooled_kernel_info(dtype: torch.dtype, runs: bool, vec: bool,
 
 
 def pooled_lookup(
-    table: torch.Tensor,  # [R, D] float32 or bfloat16
+    table: torch.Tensor,  # [R, D] float32, bfloat16 or float16
     ids: torch.Tensor,  # [V] integer
     segments: torch.Tensor,  # [V] integer; invalid outside [0, S)
     num_segments: int,
     weights: Optional[torch.Tensor] = None,  # [V] float32
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Pooled lookup ``out[s] = sum_i w_i * table[id_i]`` over the valid
     slots of segment ``s`` in slot order, accumulated in float32; ids clip
     to the table, slots whose segment lies outside ``[0, num_segments)``
-    add nothing.  Returns [num_segments, D] in the table's dtype.  The
-    segments may come in any order, so the card path sorts the slots first
-    (no host sync); a stream in its producer's layout takes
-    :func:`pooled_lookup_regions` and no sort."""
+    add nothing.  Returns [num_segments, D] in ``out_dtype`` (the table's
+    dtype by default; float32 from any table).  The segments may come in
+    any order, so the card path sorts the slots first (no host sync); a
+    stream in its producer's layout takes :func:`pooled_lookup_regions`
+    and no sort."""
     dev = _check_float_inputs(table, ids, segments, weights)
     if dev.type == "cpu":
         return pooled_lookup_plain(table, ids, segments, num_segments,
-                                   weights)
+                                   weights, out_dtype)
     _require_cuda(dev)
     sids, sw, offsets = sort_by_segment(
         ids, segments, weights, num_segments, table.shape[0]
@@ -818,29 +873,33 @@ def pooled_lookup(
     if sids.dtype not in _INDEX_DTYPES:
         sids = sids.to(torch.int64)
     return launch_pooled(table, sids, sw, offsets[1:], (0,),
-                         (ids.shape[0],), (num_segments,))
+                         (ids.shape[0],), (num_segments,), out_dtype)
 
 
 def pooled_lookup_regions(
-    table: torch.Tensor,  # [R, D] float32 or bfloat16
+    table: torch.Tensor,  # [R, D] float32, bfloat16 or float16
     ids: torch.Tensor,  # [V] integer
     regions: SlotRegions,
     weights: Optional[torch.Tensor] = None,  # [V] float32
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """The function of :func:`pooled_lookup` over a slot stream in its
     producer's layout: ``out[e]`` is the weighted sum of example ``e``'s
     slots (:class:`SlotRegions`) in slot order, ids clipped to the table.
-    Returns [regions.num_segments, D] in the table's dtype.  On the card:
-    one cumsum of the lengths and one launch, ids and weights read as they
-    come, no sort and no host sync."""
+    Returns [regions.num_segments, D] in ``out_dtype`` (the table's dtype
+    by default; float32 from any table).  On the card: one cumsum of the
+    lengths and one launch, ids and weights read as they come, no sort
+    and no host sync."""
     dev = _check_regions(table, ids, regions, weights)
     if dev.type == "cpu":
-        return pooled_lookup_regions_plain(table, ids, regions, weights)
+        return pooled_lookup_regions_plain(table, ids, regions, weights,
+                                           out_dtype)
     _require_cuda(dev)
     if regions.lengths.dtype not in _INDEX_DTYPES:
         raise TypeError("lengths must be int32 or int64 on the card")
     return launch_pooled(table, ids, weights, region_ends(regions.lengths),
-                         regions.starts, regions.caps, regions.counts)
+                         regions.starts, regions.caps, regions.counts,
+                         out_dtype)
 
 
 def _feature_array(features: Sequence, cap_offsets: Sequence[int]):
@@ -1116,14 +1175,20 @@ def launch_dedup_pooled(
     inv: torch.Tensor,
     sw: torch.Tensor,
     offsets: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the float dedup lookup kernel on prepared inputs (the output
     of :func:`dedup_prepare_sized`: int64 keys, indices and offsets,
-    float32 weights); returns [S, D] in the table's dtype, rounded once in
-    the kernel.  Allocates only the output; no host sync."""
+    float32 weights; ``offsets`` may be any contiguous run of the CSR
+    offsets, the segments it spans); returns [S, D] in ``out_dtype`` (the
+    table's dtype by default; float32 from any table), rounded once in the
+    kernel, written into ``out`` when given (rows may be wider).
+    Allocates at most the output; no host sync."""
     S, D = offsets.shape[0] - 1, table.shape[1]
+    out = _output(table, S, out_dtype, out)
     if S == 0:
-        return table.new_empty((0, D))
+        return out
     for name, t, dtype in (("ukeys", ukeys, torch.int64),
                            ("inv", inv, torch.int64),
                            ("offsets", offsets, torch.int64),
@@ -1133,12 +1198,13 @@ def launch_dedup_pooled(
                             f"{t.dtype}")
     lib = _native.load_library(_DEDUP_SOURCE)
     dev = table.device
-    out = torch.empty((S, D), dtype=table.dtype, device=dev)
     with torch.cuda.device(dev):
         err = lib.dedup_pooled(
             table.data_ptr(), ukeys.data_ptr(), inv.data_ptr(),
             sw.data_ptr(), offsets.data_ptr(), out.data_ptr(), S, D,
-            table.shape[0], FLOAT_DTYPES[table.dtype], _stream_ptr(dev),
+            table.shape[0], LOOKUP_DTYPES[table.dtype],
+            LOOKUP_DTYPES[out.dtype], out.stride(0) if S > 1 else D,
+            _stream_ptr(dev),
         )
     _native.check_launch("dedup_pooled", err)
     count_launch("dedup_pooled_lookup")
@@ -1146,23 +1212,206 @@ def launch_dedup_pooled(
 
 
 def dedup_pooled_lookup(
-    table: torch.Tensor,  # [R, D] float32 or bfloat16
+    table: torch.Tensor,  # [R, D] float32, bfloat16 or float16
     ids: torch.Tensor,  # [V] integer
     segments: torch.Tensor,  # [V] integer; invalid outside [0, S)
     num_segments: int,
     weights: Optional[torch.Tensor] = None,  # [V] float32
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Ragged dedup pooled lookup: the same function as
-    :func:`pooled_lookup` (bitwise, for float32 and bfloat16 tables),
+    :func:`pooled_lookup` (bitwise, for every table and output dtype),
     computed over the sized sort-unique of the valid ids: every segment
     pooled through each slot's index into the distinct keys.  Returns
-    [num_segments, D] in the table's dtype.  On the card: one launch, no
-    host sync."""
+    [num_segments, D] in ``out_dtype`` (the table's dtype by default;
+    float32 from any table).  On the card: one launch, no host sync."""
     dev = _check_float_inputs(table, ids, segments, weights)
     if dev.type == "cpu":
         return dedup_pooled_lookup_plain(table, ids, segments, num_segments,
-                                         weights)
+                                         weights, out_dtype)
     _require_cuda(dev)
     ukeys, inv, sw, offsets = dedup_prepare_sized(
         ids, segments, weights, num_segments)
-    return launch_dedup_pooled(table, ukeys, inv, sw, offsets)
+    return launch_dedup_pooled(table, ukeys, inv, sw, offsets, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# float tables grouped: every feature of a served batch
+# ---------------------------------------------------------------------------
+
+
+class FloatFeature(NamedTuple):
+    """One feature of a grouped float lookup: its table (float32,
+    bfloat16 or float16, read in place), the index of its key in the
+    KeyedJaggedTensor, its first column in the [B, sum D] float32 output,
+    and whether it pools by MEAN."""
+
+    table: torch.Tensor  # [R, D]
+    key: int
+    col: int
+    mean: bool = False
+
+
+FLOAT_GROUP_KERNELS = ("tbe", "dedup")
+
+
+def _check_float_group(values, lengths, cap_offsets, features, out, kernel):
+    """Validate a grouped float lookup's arguments; returns their device
+    and the features' common width D."""
+    if kernel not in FLOAT_GROUP_KERNELS:
+        raise ValueError(f"unknown float group kernel {kernel!r}")
+    if not features:
+        raise ValueError("a group has at least one feature")
+    if out.dtype != torch.float32 or out.dim() != 2 or out.stride(1) != 1:
+        raise TypeError(f"out must be a row-major 2-D float32 buffer, got "
+                        f"{out.dtype} {tuple(out.shape)}")
+    B, K = out.shape[0], len(cap_offsets) - 1
+    if values.dim() != 1 or values.dtype not in _INDEX_DTYPES:
+        raise TypeError("values must be a 1-D int32 or int64 tensor")
+    if values.shape[0] != cap_offsets[-1] or values.shape[0] > _INT32_MAX:
+        raise ValueError(f"values {tuple(values.shape)} vs regions ending at "
+                         f"{cap_offsets[-1]}")
+    if lengths.dim() != 1 or lengths.shape[0] != K * B or (
+            lengths.dtype not in _INDEX_DTYPES):
+        raise ValueError(f"lengths must be [{K} keys * {B}] int32 or int64, "
+                         f"got {lengths.dtype} {tuple(lengths.shape)}")
+    dev, D = out.device, features[0].table.shape[1]
+    for t in (values, lengths):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("values and lengths must be contiguous on the "
+                             "output's device")
+    for f in features:
+        _check_float_table(f.table)
+        if f.table.shape[1] != D:
+            raise ValueError("a group's tables share one row width")
+        if not 0 <= f.key < K or not 0 <= f.col <= out.shape[1] - D:
+            raise ValueError(f"feature key {f.key} or column {f.col} out of "
+                             f"range")
+        if f.table.device != dev or not f.table.is_contiguous():
+            raise ValueError("tables must be contiguous on the output's "
+                             "device")
+        if f.table.shape[0] > _INT32_MAX:
+            raise ValueError("rows must fit in int32")
+    return dev, D
+
+
+def _feature_regions(lengths, cap_offsets, f, B) -> SlotRegions:
+    """Feature ``f``'s key as one region of the KJT's slot stream."""
+    lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
+    return SlotRegions(lengths[f.key * B:(f.key + 1) * B], (lo,), (hi - lo,),
+                       (B,))
+
+
+def _slot_examples(ends: torch.Tensor, cap: int) -> torch.Tensor:
+    """[cap] int64: the example of each slot of one key's region, whose
+    examples' running ends are ``ends`` [B] int64 (example ``b`` owns the
+    slots ``[ends[b-1], ends[b])``, cut at the cap); ``B`` for a slot no
+    example owns.  Two ops: an arange and a searchsorted."""
+    pos = torch.arange(cap, dtype=torch.int64, device=ends.device)
+    return torch.searchsorted(ends, pos, right=True)
+
+
+def _group_segments(values, lengths, cap_offsets, features, B):
+    """[V] int64: each slot of the group's features is segment ``key * B
+    + example``; every other slot is the sentinel ``K * B``."""
+    K = len(cap_offsets) - 1
+    ends = group_ends(lengths, K, B).to(torch.int64)
+    seg = torch.full(values.shape, K * B, dtype=torch.int64,
+                     device=values.device)
+    for f in features:
+        lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
+        b = _slot_examples(ends[f.key], hi - lo)
+        seg[lo:hi] = torch.where(b < B, b + f.key * B, K * B)
+    return seg
+
+
+def _group_mean_weights(values, lengths, cap_offsets, features, B):
+    """[V] float32 slot weights, ``1/len`` of each MEAN feature's
+    example (``__fdiv_rn``) and 1 elsewhere; None when no feature pools
+    by MEAN."""
+    means = [f for f in features if f.mean]
+    if not means:
+        return None
+    ends = group_ends(lengths, len(cap_offsets) - 1, B).to(torch.int64)
+    w = torch.ones(values.shape, dtype=torch.float32, device=values.device)
+    for f in means:
+        lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
+        f_len = lengths[f.key * B:(f.key + 1) * B]
+        inv = torch.where(f_len > 0,
+                          1.0 / f_len.clamp(min=1).to(torch.float32), 0.0)
+        w[lo:hi] = torch.cat([inv, inv.new_zeros(1)])[
+            _slot_examples(ends[f.key], hi - lo)]
+    return w
+
+
+def float_pooled_lookup_grouped_plain(
+    values: torch.Tensor,
+    lengths: torch.Tensor,
+    cap_offsets: Sequence[int],
+    features: Sequence[FloatFeature],
+    out: torch.Tensor,
+    kernel: str = "tbe",
+) -> torch.Tensor:
+    """Plain version of :func:`float_pooled_lookup_grouped`: per feature
+    the plain version of B1 over its key's region (``kernel="tbe"``) or of
+    B4 over its slots (``"dedup"``), into float32, written to ``out[:,
+    col : col + D]``."""
+    B = out.shape[0]
+    if B == 0:
+        return out
+    w = _group_mean_weights(values, lengths, cap_offsets, features, B)
+    seg = (_group_segments(values, lengths, cap_offsets, features, B)
+           if kernel == "dedup" else None)
+    for f in features:
+        D = f.table.shape[1]
+        if kernel == "tbe":
+            res = pooled_lookup_regions_plain(
+                f.table, values, _feature_regions(lengths, cap_offsets, f, B),
+                w, torch.float32)
+        else:
+            res = dedup_pooled_lookup_plain(
+                f.table, values, seg - f.key * B, B, w, torch.float32)
+        out[:, f.col:f.col + D] = res
+    return out
+
+
+def float_pooled_lookup_grouped(
+    values: torch.Tensor,  # [V] int32 or int64, the KJT's values
+    lengths: torch.Tensor,  # [K * B] int32 or int64
+    cap_offsets: Sequence[int],  # [K + 1]
+    features: Sequence[FloatFeature],
+    out: torch.Tensor,  # [B, W] float32
+    kernel: str = "tbe",
+) -> torch.Tensor:
+    """Every feature of a served batch over float32 / bfloat16 / float16
+    tables, each pooled (SUM, or MEAN by ``1/len`` weights) into float32
+    straight into its columns ``out[:, col : col + D]`` of the
+    KeyedTensor's buffer, the 16-bit tables read in place.  ``"tbe"``: one
+    cumsum of the lengths for the group, then one B1 launch a feature over
+    its key's region; ``"dedup"``: one sized sort-unique of the group's
+    slots, then one B4 launch a feature over its segments' offsets.  No
+    cast kernel and no host sync.  Returns ``out``."""
+    dev, D = _check_float_group(values, lengths, cap_offsets, features, out,
+                                kernel)
+    if dev.type == "cpu":
+        return float_pooled_lookup_grouped_plain(
+            values, lengths, cap_offsets, features, out, kernel)
+    _require_cuda(dev)
+    B, K = out.shape[0], len(cap_offsets) - 1
+    if B == 0:
+        return out
+    w = _group_mean_weights(values, lengths, cap_offsets, features, B)
+    if kernel == "tbe":
+        ends = group_ends(lengths, K, B)
+        for f in features:
+            lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
+            launch_pooled(f.table, values, w, ends[f.key], (lo,), (hi - lo,),
+                          (B,), torch.float32, out[:, f.col:f.col + D])
+        return out
+    seg = _group_segments(values, lengths, cap_offsets, features, B)
+    ukeys, inv, sw, offsets = dedup_prepare_sized(values, seg, w, K * B)
+    for f in features:
+        launch_dedup_pooled(f.table, ukeys, inv, sw,
+                            offsets[f.key * B:(f.key + 1) * B + 1],
+                            torch.float32, out[:, f.col:f.col + D])
+    return out

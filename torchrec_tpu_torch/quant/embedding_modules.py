@@ -2,13 +2,24 @@
 (``torchrec_tpu/quant/embedding_modules.py``).
 
 An ``nn.Module`` holding, per table, the buffers ``q`` (uint8 codes,
-int4/int2 packed), ``scale`` and ``bias`` (float32 per row).  ``forward``
-keeps the float collection's KJT -> KeyedTensor contract.  The features
-whose tables share a data type, a lookup kernel and a width form a group,
-and each group is one grouped lookup through the hand-written CUDA kernels
-of ``ops/tbe.py`` on the card (their plain versions on the CPU), written
-straight into the KeyedTensor's ``[B, sum D]`` buffer: at the MLPerf
-DLRM-v2 configuration one launch per batch, and no host sync.
+int4/int2 packed, or the float16 / bfloat16 rows of an FP16/BF16 table),
+``scale`` and ``bias`` (float32 per row; ones and zeros for a float
+table, as in the JAX package).  ``forward`` keeps the float collection's
+KJT -> KeyedTensor contract.  The features whose tables share a data
+type, a lookup kernel and a width form a group, and each group is one
+grouped lookup through the hand-written CUDA kernels of ``ops/tbe.py`` on
+the card (their plain versions on the CPU), written straight into the
+KeyedTensor's ``[B, sum D]`` float32 buffer, with no host sync:
+
+* int8 (``"tbe"``: B3; ``"dedup"``: B5) and int4/int2 (B5): one launch a
+  group, at the MLPerf DLRM-v2 configuration one a batch;
+* FP16/BF16 (``"tbe"``: B1; ``"dedup"``: B4): one launch a feature, each
+  reading its 16-bit table in place and writing float32 (no float32 copy
+  of the table, which at the MLPerf DLRM-v2 row counts would not fit the
+  card beside the 16-bit one, and no cast kernel).
+
+The pooled buffer is cast to ``output_dtype`` (float32 by default) last,
+as the JAX collection casts each pooled piece.
 """
 
 from __future__ import annotations
@@ -33,8 +44,10 @@ from torchrec_tpu_torch.ops.quant_ops import (
 )
 from torchrec_tpu_torch.ops.tbe import (
     MAX_GROUP_FEATURES,
+    FloatFeature,
     GroupFeature,
     dedup_quant_pooled_lookup_grouped,
+    float_pooled_lookup_grouped,
     quant_pooled_lookup_int8_grouped,
 )
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor, KeyedTensor
@@ -46,29 +59,29 @@ _QUANTIZERS = {
     DataType.INT2: quantize_rowwise_int2,
 }
 _BITS = {DataType.INT8: 8, DataType.INT4: 4, DataType.INT2: 2}
+# the float serving tables: their rows' dtype
+FLOAT_TABLE_DTYPES = {DataType.FP16: torch.float16,
+                      DataType.BF16: torch.bfloat16}
+OUTPUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _check_data_type(data_type: DataType) -> None:
-    if data_type in (DataType.FP16, DataType.BF16):
-        raise NotImplementedError(
-            f"{data_type.name} serving tables are not ported: the "
-            "collection's float path and the artifact's float format are "
-            "still to come (the float pooled lookup, B1, exists)"
-        )
-    if data_type not in _QUANTIZERS:
-        raise NotImplementedError(f"no quantized lookup for {data_type}")
+    if data_type not in _QUANTIZERS and data_type not in FLOAT_TABLE_DTYPES:
+        raise NotImplementedError(f"no serving lookup for {data_type}")
 
 
 def _resolve_kernel(data_type: DataType, lookup_kernel: Optional[str]) -> str:
-    """The lookup kernel for one table: ``"tbe"`` (int8 only) or
-    ``"dedup"``; by default ``"tbe"`` for int8, ``"dedup"`` otherwise."""
+    """The lookup kernel for one table: ``"tbe"`` (int8, fp16, bf16) or
+    ``"dedup"`` (any); by default ``"dedup"`` for int4/int2 and ``"tbe"``
+    otherwise."""
     if lookup_kernel is None:
-        return "tbe" if data_type == DataType.INT8 else "dedup"
+        return "dedup" if data_type in (DataType.INT4, DataType.INT2) else (
+            "tbe")
     if lookup_kernel not in LOOKUP_KERNELS:
         raise ValueError(f"unknown lookup kernel {lookup_kernel!r}")
-    if lookup_kernel == "tbe" and data_type != DataType.INT8:
+    if lookup_kernel == "tbe" and data_type in (DataType.INT4, DataType.INT2):
         raise ValueError(
-            f"lookup_kernel='tbe' serves int8 tables only, not "
+            f"lookup_kernel='tbe' serves int8, fp16 and bf16 tables, not "
             f"{data_type.name}; use 'dedup'"
         )
     return lookup_kernel
@@ -86,24 +99,38 @@ class _QuantTable(nn.Module):
 
 
 class QuantEmbeddingBagCollection(nn.Module):
-    """Int8/int4/int2 quantized pooled embedding collection.
+    """Int8/int4/int2 quantized and FP16/BF16 pooled embedding collection.
 
-    ``params``: per table name, a module with buffers ``q``, ``scale``
-    and ``bias``.  ``lookup_kernel`` selects the kernel for every table
-    (``"tbe"``: int8 only; ``"dedup"``: any width); ``None`` picks
-    ``"tbe"`` for int8 tables and ``"dedup"`` for int4/int2."""
+    ``params``: per table name, a mapping with the tensors ``q``
+    (uint8; float16 / bfloat16 for an FP16 / BF16 table), ``scale`` and
+    ``bias``, registered as buffers (shared, not copied).
+    ``lookup_kernel`` selects the kernel for every table (``"tbe"``:
+    int8, fp16, bf16; ``"dedup"``: any); ``None`` picks ``"dedup"`` for
+    int4/int2 tables and ``"tbe"`` for the others.  ``output_dtype`` is
+    the KeyedTensor's dtype (float32, bfloat16 or float16)."""
 
     def __init__(
         self,
         tables: Sequence[EmbeddingBagConfig],
         params: Mapping[str, Mapping[str, torch.Tensor]],
         lookup_kernel: Optional[str] = None,
+        output_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if output_dtype not in OUTPUT_DTYPES:
+            raise TypeError(f"output_dtype must be one of {OUTPUT_DTYPES}, "
+                            f"got {output_dtype}")
         self.tables = tuple(tables)
+        self.output_dtype = output_dtype
+        self.lookup_kernel = lookup_kernel
         self._kernels: Dict[str, str] = {}
         for cfg in self.tables:
             _check_data_type(cfg.data_type)
+            want = FLOAT_TABLE_DTYPES.get(cfg.data_type, torch.uint8)
+            if params[cfg.name]["q"].dtype != want:
+                raise TypeError(f"table {cfg.name!r} ({cfg.data_type.name}): "
+                                f"q must be {want}, got "
+                                f"{params[cfg.name]['q'].dtype}")
             self._kernels[cfg.name] = _resolve_kernel(
                 cfg.data_type, lookup_kernel
             )
@@ -140,19 +167,40 @@ class QuantEmbeddingBagCollection(nn.Module):
         weights: Mapping[str, np.ndarray],
         data_type: DataType = DataType.INT8,
         lookup_kernel: Optional[str] = None,
+        output_dtype: torch.dtype = torch.float32,
     ) -> "QuantEmbeddingBagCollection":
-        """Quantize float table weights (numpy or tensors) row-wise; the
+        """Quantize float table weights (numpy or tensors) row-wise, or
+        for FP16/BF16 round them to 16 bits (scale ones, bias zeros); the
         collection is built where the weights lie (numpy: the CPU)."""
         _check_data_type(data_type)
         params = {}
         for cfg in tables:
-            w = torch.as_tensor(weights[cfg.name])
-            q, scale, bias = _QUANTIZERS[data_type](w)
+            w = torch.as_tensor(weights[cfg.name]).to(torch.float32)
+            if data_type in FLOAT_TABLE_DTYPES:
+                R = w.shape[0]
+                q = w.to(FLOAT_TABLE_DTYPES[data_type])
+                scale = torch.ones((R,), dtype=torch.float32,
+                                   device=w.device)
+                bias = torch.zeros((R,), dtype=torch.float32,
+                                   device=w.device)
+            else:
+                q, scale, bias = _QUANTIZERS[data_type](w)
             params[cfg.name] = {"q": q, "scale": scale, "bias": bias}
         quant_tables = tuple(
             dataclasses.replace(c, data_type=data_type) for c in tables
         )
-        return QuantEmbeddingBagCollection(quant_tables, params, lookup_kernel)
+        return QuantEmbeddingBagCollection(quant_tables, params, lookup_kernel,
+                                           output_dtype)
+
+    def with_kernel(self, lookup_kernel: Optional[str]
+                    ) -> "QuantEmbeddingBagCollection":
+        """The same tables (their buffers shared, nothing copied) looked up
+        with ``lookup_kernel``: how a serving program picks its kernel
+        without any process-wide switch."""
+        params = {name: {"q": p.q, "scale": p.scale, "bias": p.bias}
+                  for name, p in self.params.items()}
+        return QuantEmbeddingBagCollection(self.tables, params, lookup_kernel,
+                                           self.output_dtype)
 
     def to(self, device: DeviceLike = None) -> "QuantEmbeddingBagCollection":
         """Move every table to ``device`` (CUDA by default; raises
@@ -169,8 +217,8 @@ class QuantEmbeddingBagCollection(nn.Module):
         return next(iter(self.params.values())).q.device
 
     def forward(self, kjt: KeyedJaggedTensor) -> KeyedTensor:
-        """KJT -> KeyedTensor of dequantized pooled embeddings [B, sum D]:
-        one grouped lookup per group of features."""
+        """KJT -> KeyedTensor of dequantized pooled embeddings [B, sum D]
+        in ``output_dtype``: one grouped lookup per group of features."""
         keys = {k: i for i, k in enumerate(kjt.keys())}
         missing = [f for f in self._out_keys if f not in keys]
         if missing:
@@ -179,6 +227,12 @@ class QuantEmbeddingBagCollection(nn.Module):
         out = torch.empty((kjt.stride(), sum(self._out_dims)),
                           dtype=torch.float32, device=kjt.values().device)
         for data_type, kernel, members in self._groups:
+            if data_type in FLOAT_TABLE_DTYPES:
+                float_pooled_lookup_grouped(
+                    kjt.values(), kjt.lengths(), offsets,
+                    [FloatFeature(self.params[t].q, keys[f], col, mean)
+                     for t, f, col, mean in members], out, kernel)
+                continue
             feats = [
                 GroupFeature(self.params[t].q, self.params[t].scale,
                              self.params[t].bias, keys[f], col, mean)
@@ -191,4 +245,6 @@ class QuantEmbeddingBagCollection(nn.Module):
                 dedup_quant_pooled_lookup_grouped(
                     kjt.values(), kjt.lengths(), offsets, feats, out,
                     bits=_BITS[data_type])
+        if self.output_dtype != torch.float32:
+            out = out.to(self.output_dtype)
         return KeyedTensor(self._out_keys, self._out_dims, out)
