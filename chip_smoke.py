@@ -9,6 +9,8 @@ DeepFM, the two-tower model and its KNN, the position-weighted EBC), the
 planner-driven DLRM application (``examples/dlrm/dlrm_main.py``),
 quantized DLRM serving, the serving tier (native queue, TCP and HTTP
 front ends, bucketed dedup programs, the replica mesh, FP16/BF16 tables),
+serving with no Python in the request path (``export_native``, the
+AOTInductor package, the ``trt::`` operators, the C++ executor loop),
 and the multi-rank sharded train step (4 gloo
 ranks on the card, 1 NCCL rank) with 2D parallelism (``DMPCollection``),
 the split steps, qcomms, the sharded ``EmbeddingCollection``, chunked
@@ -26,7 +28,8 @@ Phases, one JSON line each on stdout; any failure raises:
 1. device — the card, its power limit, and the nvcc builds of the
    kernels (``torchrec_tpu_torch/csrc/{tbe_float,tbe_backward,tbe_quant,
    tbe_dedup,tbe_dedup_backward}.cu``, one nvcc per source, started
-   together) from source, and the registers of every B1, B2 and B6
+   together with the g++ builds of ``csrc/torch_ops.cpp`` and
+   ``csrc/host/aoti_executor.cpp``) from source, and the registers of every B1, B2 and B6
    instantiation (``registers``: at most 128 for D <= 128 for B2/B6);
 2. kernel — each quantized lookup kernel against its plain PyTorch version
    on the card (``torch.equal``) at D=128, S=4096 segments with the MLPerf
@@ -198,6 +201,31 @@ Phases, one JSON line each on stdout; any failure raises:
    the float32 tables, with times, bounds and one ``F.embedding_bag``
    over the stacked float32 tables, and the dedup serving program's KT
    equal to the tbe one's.
+13. native_serving (after serving_tier, before sharded; budget
+   ``NATIVE_SERVING_BUDGET_S`` = 360 s, every check hard) — serving with
+   no Python in the request path: the DLRM of ``serving_tier`` at its
+   widths through ``package_model`` -> ``export_native(batch_size=256)``
+   on the card (``torch.export``, then an AOTInductor package compiled
+   with no table inside) -> ``NativeInferenceServer`` (the C++ executor
+   loop on the native queue behind the C++ TCP front end), one arm a
+   lookup kernel: int8 on B3 (tables capped at 5,000,000 rows, the
+   headline), int4 on B5, BF16 on B1 (``lookup_kernel="tbe"``) and on B4
+   (``"dedup"``), the last three capped at 1,000,000 rows.  Each arm:
+   ``model.pt2``'s graph holds each group's ``trt::`` operators (B1 and
+   B4: one a feature) and nothing else reads a table; the package is
+   under 64 MiB and its mutating operators write one buffer with no copy
+   of it; 512 single-example requests over 8 ``PredictClient``
+   connections (closed loop, B <= 256, 2 ms flush, seed 0, uniform ids,
+   the multi-hot caps) within ``rtol=1e-4, atol=1e-5`` of the eager
+   module on the same batches, none NaN; the operator library's counts
+   one B3, or B5's three launches, or 26 B1 or 26 B4 a batch and nothing
+   else, and Python's launch counts 0; a profiled batch through the
+   executor with the operators' kernels and no clone kernel; each group's
+   operators ``torch.equal`` to its plain version at a served batch's
+   ids; peak memory <= the package's constants + 1 GiB.  p50 / p99 ms,
+   requests/s, the idle share of one batch, each step's seconds (package,
+   export, save, AOTInductor compile, open) beside ``serving_tier``'s TCP
+   figures.
 9. sharded — the multi-rank train step (``parallel/comm.py``,
    ``multiprocess.py``, ``sharding/{tw,rw,twrw}.py``, the sharded
    ``EmbeddingBagCollection`` and ``DistributedModelParallel(env=...)``)
@@ -315,7 +343,14 @@ quantizing trained weights through ``package_model`` (26 GB of float
 tables would not fit the run); the dense weights are random from a seed;
 the serving tier's BF16/FP16 rows are drawn from a seeded generator in
 their own dtype, and its kernel checks cap the tables at 5,000,000 rows
-(a float32 copy of the full BF16 tables, 104.5 GB, cannot be held).
+(a float32 copy of the full BF16 tables, 104.5 GB, cannot be held); the
+native serving arms cap the MLPerf DLRM-v2 tables at 5,000,000 rows for
+int8 (29,184,588 rows: 3.74 GB of codes plus scale/bias, which
+``package_model`` writes, ``export_native`` saves again in ``model.pt2``
+and the server reads back, all on the machine's disk inside the phase's
+budget) and at 1,000,000 rows for int4 and BF16, and their float rows are
+drawn on the card from a seeded generator before ``package_model``
+quantizes them.
 """
 
 from __future__ import annotations
@@ -325,6 +360,7 @@ import gc
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4102,7 +4138,380 @@ def serving_tier_phase(dev):
     if seconds > SERVING_TIER_BUDGET_S:
         raise AssertionError(f"serving tier took {seconds:.1f} s, over its "
                              f"{SERVING_TIER_BUDGET_S} s budget")
-    return main, kernel_rows
+    return main, kernel_rows, recs["tcp"][0]
+
+
+# ---------------------------------------------------------------------------
+# phase 13: serving with no Python in the request path — export_native's
+# AOTInductor package on the card, the trt:: operators inside it, the C++
+# executor loop on the native queue behind the C++ TCP front end
+# ---------------------------------------------------------------------------
+
+NATIVE_SERVING_BUDGET_S = 360
+NATIVE_ROW_CAP = 5_000_000  # the int8 arm: train_dcn's cap (29,184,588 rows)
+NATIVE_ARM_ROW_CAP = 1_000_000  # the int4 and BF16 arms
+# (quant dtype, lookup kernel, row cap, one group's operators (B1 and B4:
+# one call a feature)); every arm's package serves SERVING_BATCH
+NATIVE_ARMS = (
+    ("int8", None, NATIVE_ROW_CAP, ("q8_pooled",)),
+    ("int4", None, NATIVE_ARM_ROW_CAP,
+     ("dedup_q_keys", "dedup_q_gather", "dedup_q_pool")),
+    ("bf16", "tbe", NATIVE_ARM_ROW_CAP, ("tbe_pooled",)),
+    ("bf16", "dedup", NATIVE_ARM_ROW_CAP, ("dedup_pooled",)),
+)
+NATIVE_PACKAGE_LIMIT = 64 * 2**20  # a package this small holds no table
+NATIVE_PEAK_SLACK = 2**30  # the native server's peak above its constants
+# each operator's launches as the kernel summary's wrapper counts them (B5's
+# three launches are one grouped lookup)
+NATIVE_OP_KERNELS = {"q8_pooled": "quant_pooled_lookup_int8",
+                     "dedup_q_pool": "dedup_quant_pooled_lookup",
+                     "tbe_pooled": "pooled_lookup",
+                     "dedup_pooled": "dedup_pooled_lookup"}
+
+
+def _flat_batch(requests, caps, B):
+    """``requests`` as the native executor loop lays them out for the
+    package (``csrc/host/aoti_executor.cpp``): dense [B, num_dense] f32
+    zero-padded, values [sum(caps) * B] i32 with feature f's ids
+    front-packed in request order at ``sum(caps[:f]) * B``, lengths
+    [F * B] i32 feature-major."""
+    F = len(caps)
+    dense = np.zeros((B, len(requests[0][0])), np.float32)
+    values = np.zeros((sum(caps) * B,), np.int32)
+    lengths = np.zeros((F * B,), np.int32)
+    starts = np.concatenate([[0], np.cumsum(caps)[:-1]]) * B
+    for i, (d, ids) in enumerate(requests):
+        dense[i] = d
+        for f, x in enumerate(ids):
+            values[starts[f]:starts[f] + len(x)] = x
+            starts[f] += len(x)
+            lengths[f * B + i] = len(x)
+    return dense, values, lengths
+
+
+def _table_readers(ep):
+    """The nodes of an exported program that read a lookup table (a
+    ``.q`` buffer) and are not a ``trt::`` operator: a plain version's
+    gather."""
+    tables = {spec.arg.name for spec in ep.graph_signature.input_specs
+              if spec.target and spec.target.endswith(".q")}
+    out = []
+    for node in ep.graph.nodes:
+        if node.op == "placeholder" and node.name in tables:
+            out += [str(u.target) for u in node.users
+                    if getattr(u.target, "namespace", None) != "trt"]
+    return out
+
+
+def _wrapper_copies(package):
+    """The AOTInductor package's run: the buffers its mutating ``trt::``
+    operators write (their ``out``, the KeyedTensor's) and the lines of
+    the generated wrapper that copy or clone one of them."""
+    import re
+    import zipfile
+
+    with zipfile.ZipFile(package) as z:
+        names = z.namelist()
+        nodes = json.loads(z.read(next(
+            n for n in names if n.endswith(".wrapper.json"))))["nodes"]
+        src = z.read(next(n for n in names
+                          if n.endswith(".wrapper.cpp"))).decode()
+    written = sorted({a["arg"]["as_tensor"]["name"]
+                      for n in nodes if n["node"]["target"].startswith("trt::")
+                      for a in n["node"]["inputs"] if a["name"] == "out"})
+    pattern = re.compile(r"(copy_|clone)\w*\(\s*(" + "|".join(written)
+                         + r")\b")
+    copies = ([line.strip()[:160] for line in src.splitlines()
+               if pattern.search(line)] if written else [])
+    return written, copies
+
+
+def _native_op_checks(qebc, kjt):
+    """Each group of the collection through its ``trt::`` operators (the
+    eager wrapper on the card) against its plain version on ``kjt``'s ids:
+    ``torch.equal`` of the pooled columns."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.quant.embedding_modules import (
+        _BITS,
+        FLOAT_TABLE_DTYPES,
+    )
+
+    keys = {k: i for i, k in enumerate(kjt.keys())}
+    offs, B = kjt.cap_offsets(), kjt.stride()
+    W = sum(qebc._out_dims)
+    v, l = kjt.values(), kjt.lengths()
+    rows = []
+    for data_type, kernel, members in qebc._groups:
+        got = torch.zeros((B, W), device=v.device)
+        ref = torch.zeros_like(got)
+        if data_type in FLOAT_TABLE_DTYPES:
+            feats = [tbe.FloatFeature(qebc.params[t].q, keys[f], col, mean)
+                     for t, f, col, mean in members]
+            tbe.float_pooled_lookup_grouped(v, l, offs, feats, got, kernel)
+            tbe.float_pooled_lookup_grouped_plain(v, l, offs, feats, ref,
+                                                  kernel)
+        else:
+            feats = [tbe.GroupFeature(qebc.params[t].q, qebc.params[t].scale,
+                                      qebc.params[t].bias, keys[f], col, mean)
+                     for t, f, col, mean in members]
+            if kernel == "tbe":
+                tbe.quant_pooled_lookup_int8_grouped(v, l, offs, feats, got)
+                tbe.quant_pooled_lookup_int8_grouped_plain(v, l, offs, feats,
+                                                           ref)
+            else:
+                bits = _BITS[data_type]
+                tbe.dedup_quant_pooled_lookup_grouped(v, l, offs, feats, got,
+                                                      bits)
+                tbe.dedup_quant_pooled_lookup_grouped_plain(
+                    v, l, offs, feats, ref, bits)
+        rows.append({"data_type": data_type.name, "kernel": kernel,
+                     "features": len(members),
+                     "equal": bool(torch.equal(got, ref)),
+                     "max_abs_err": float((got - ref).abs().max())})
+    return rows
+
+
+def native_serving_arm(dev, tmp, quant, kernel, row_cap, ops, requests,
+                       model_sd, tcp):
+    """One arm of :func:`native_serving_phase`: package, export, check the
+    exported graph and the package, serve ``requests`` through
+    ``NativeInferenceServer`` over TCP, hold the scores to the eager
+    module's and each operator to its plain version.  Returns (its record,
+    its kernels' launches while serving)."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.criteo import (
+        DEFAULT_CAT_NAMES,
+        MLPERF_DLRM_V2_MULTI_HOT,
+        mlperf_dlrm_v2_tables,
+    )
+    from torchrec_tpu_torch.inference import (
+        NativeInferenceServer,
+        PredictClient,
+        export_native,
+        package_model,
+    )
+    from torchrec_tpu_torch.ops import custom_ops, tbe
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    t_arm = time.perf_counter()
+    features, caps = list(DEFAULT_CAT_NAMES), list(MLPERF_DLRM_V2_MULTI_HOT)
+    B, F = SERVING_BATCH, len(features)
+    tables = tuple(dataclasses.replace(
+        c, num_embeddings=min(c.num_embeddings, row_cap))
+        for c in mlperf_dlrm_v2_tables(DIM))
+    path = os.path.join(tmp, f"{quant}_{kernel or 'default'}")
+    name = f"{quant}" + (f"_{kernel}" if kernel else "")
+    seconds = {}
+    # float rows N(0, 0.05^2) drawn on the card, quantized there by
+    # package_model (the artifact's tables are what it writes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    weights = {c.name: torch.randn((c.num_embeddings, DIM), generator=gen,
+                                   device=dev).mul_(0.05) for c in tables}
+    t0 = time.perf_counter()
+    package_model(path, tables, weights, dict(zip(features, caps)),
+                  NUM_DENSE, quant_dtype=quant, dense_state_dict=model_sd,
+                  model_config={"arch": "dlrm",
+                                "dense_arch_layer_sizes": list(DENSE_ARCH),
+                                "over_arch_layer_sizes": list(OVER_ARCH)})
+    seconds["package"] = time.perf_counter() - t0
+    del weights
+    torch.cuda.empty_cache()
+    mani = export_native(path, batch_size=B, device=dev, lookup_kernel=kernel)
+    seconds.update(mani["seconds"])
+    torch.cuda.empty_cache()
+    # the exported graph: each group's trt:: operators, the tables read by
+    # nothing else; the package: no table inside, no copy of the KT
+    t0 = time.perf_counter()
+    ep = torch.export.load(os.path.join(path, "model.pt2"))
+    calls = custom_ops.trt_op_calls(ep.graph)
+    plain_readers = _table_readers(ep)
+    del ep
+    seconds["load_pt2"] = time.perf_counter() - t0
+    per_batch = {op: (F if op in ("tbe_pooled", "dedup_pooled") else 1)
+                 for op in ops}
+    package = os.path.join(path, "model_aoti.pt2")
+    package_bytes = os.path.getsize(package)
+    written, copies = _wrapper_copies(package)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # no Python in the request path: 8 TCP connections, closed loop
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = NativeInferenceServer(path, max_latency_us=2000)
+    seconds["open"] = time.perf_counter() - t0
+    constant_bytes = sum(t.numel() * t.element_size() for t in srv._constants)
+    port = srv.serve()
+    flat = _flat_batch(requests[:B], caps, B)
+    srv.run(*flat)  # the first run at the served shape, untimed
+    clients = [PredictClient(port) for _ in range(NUM_CLIENTS)]
+    try:
+        # an untimed pass of the stream: the loop's and each connection's
+        # first batches
+        _, cold, _ = _serve_calls([c.predict for c in clients], requests)
+        custom_ops.reset_op_launch_counts()
+        tbe.reset_launch_counts()
+        stats0 = srv.loop_stats()
+        scores, lat, wall = _serve_calls([c.predict for c in clients],
+                                         requests)
+        counts = custom_ops.op_launch_counts()
+        python_counts = tbe.launch_counts()
+        stats = srv.loop_stats()
+    finally:
+        for c in clients:
+            c.close()
+    batches = stats["batches"] - stats0["batches"]
+    failed = stats["failed_batches"]
+    peak = torch.cuda.max_memory_allocated() - base
+    prof = profile_calls({"phase": "native_serving_profile", "arm": name,
+                          "batch": B, "nvidia_smi": nvidia_smi_line()},
+                         lambda: srv.run(*flat), 5, "batch")
+    native_first = srv.run(*flat)
+    kernels_seen = {op: any(f"{op}_kernel" in n for n in prof["device_names"])
+                    for op in ops}
+
+    # the eager module, the server's own (the same tables), on the same
+    # batches; each operator vs its plain version at the first batch's ids
+    module = srv._module
+    direct = []
+    for i in range(0, len(requests), B):
+        d, v, l = (torch.from_numpy(x).to(dev)
+                   for x in _flat_batch(requests[i:i + B], caps, B))
+        direct.append(module(d, v, l).double().cpu().numpy()
+                      [:len(requests[i:i + B])])
+    direct = np.concatenate(direct)
+    d, v, l = (torch.from_numpy(x).to(dev) for x in flat)
+    eager_first = module(d, v, l).cpu().numpy()
+    kjt = KeyedJaggedTensor(features, v, l, caps=[c * B for c in caps])
+    op_rows = _native_op_checks(module.serving.quant_ebc, kjt)
+    srv.stop()
+    srv.stop()  # idempotent
+    del srv, module, kjt, d, v, l
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    expected = {op: n * batches for op, n in per_batch.items()}
+    rec = {"phase": "native_serving", "arm": name, "quant_dtype": quant,
+           "lookup_kernel": kernel, "rows": sum(c.num_embeddings
+                                                for c in tables),
+           "row_cap": row_cap, "requests": len(requests),
+           "batches": batches, "failed_batches": failed,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "requests_per_s": len(requests) / wall,
+           # the five slowest requests, by their index in the stream
+           "slowest_ms": {int(i): float(lat[i])
+                          for i in np.argsort(lat)[-5:][::-1]},
+           "cold_pass_p50_ms": float(np.percentile(cold, 50)),
+           "cold_pass_p99_ms": float(np.percentile(cold, 99)),
+           "idle_share_of_one_batch": prof["device_idle_share"],
+           "tcp_serving_tier": {k: tcp[k] for k in (
+               "p50_ms", "p99_ms", "requests_per_s",
+               "idle_share_of_one_batch")},
+           "graph_trt_calls": calls, "graph_trt_calls_expected": per_batch,
+           "plain_table_readers": plain_readers,
+           "package_bytes": package_bytes,
+           "package_written_buffers": written, "package_kt_copies": copies,
+           "op_launches": {k: v for k, v in counts.items() if v},
+           "op_launches_expected": expected,
+           "python_launches": {k: v for k, v in python_counts.items() if v},
+           "profile_kernels_seen": kernels_seen,
+           "profile_clone_kernels": [n for n in prof["device_names"]
+                                     if "clone" in n],
+           "op_checks": op_rows,
+           "constant_bytes": constant_bytes, "peak_bytes": peak,
+           "all_finite": bool(np.isfinite(scores).all()),
+           "max_abs_diff_vs_eager": float(np.abs(scores - direct).max()),
+           "within_tol": bool(np.allclose(scores, direct, **SCORE_TOL)),
+           "run_vs_eager_max_abs_diff": float(
+               np.abs(native_first - eager_first).max()),
+           "seconds": {**seconds, "arm": time.perf_counter() - t_arm},
+           "nvidia_smi": nvidia_smi_line()}
+    emit(rec)
+    problems = []
+    if calls != per_batch or plain_readers:
+        problems.append(f"graph: {calls}, plain readers {plain_readers}")
+    if package_bytes >= NATIVE_PACKAGE_LIMIT or copies or len(written) != 1:
+        problems.append(f"package: {package_bytes} B, writes {written}, "
+                        f"copies {copies}")
+    if ({k: v for k, v in counts.items() if v} != expected or batches == 0
+            or any(python_counts.values()) or failed):
+        problems.append(f"launches: {counts} for {batches} batches "
+                        f"({failed} failed), python {python_counts}")
+    if not all(kernels_seen.values()) or rec["profile_clone_kernels"]:
+        problems.append(f"profile: {kernels_seen}, "
+                        f"{rec['profile_clone_kernels']}")
+    if not all(r["equal"] for r in op_rows):
+        problems.append(f"operators vs plain: {op_rows}")
+    if not (rec["all_finite"] and rec["within_tol"]
+            and np.allclose(native_first, eager_first, **SCORE_TOL)):
+        problems.append(f"scores: {rec['max_abs_diff_vs_eager']}")
+    if peak > constant_bytes + NATIVE_PEAK_SLACK:
+        problems.append(f"peak {peak} B above {constant_bytes} B of "
+                        f"constants + 1 GiB")
+    if problems:
+        raise AssertionError(f"native serving {name}: " + "; ".join(problems))
+    launches = dict.fromkeys(tbe.LAUNCHES, 0)
+    for op, k in NATIVE_OP_KERNELS.items():
+        launches[k] += counts[op]
+    shutil.rmtree(path)
+    return rec, launches
+
+
+def native_serving_phase(dev, tcp):
+    """Serving with no Python in the request path (budget
+    ``NATIVE_SERVING_BUDGET_S``, every check hard): the DLRM of
+    ``serving_tier`` through ``package_model`` -> ``export_native`` on the
+    card -> ``NativeInferenceServer`` over TCP, one arm a lookup kernel
+    (:data:`NATIVE_ARMS`).  ``tcp``: the serving tier's TCP record, set
+    beside each arm's figures.  Returns the arms' kernel launches."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.criteo import (
+        DEFAULT_CAT_NAMES,
+        MLPERF_DLRM_V2_MULTI_HOT,
+        MLPERF_DLRM_V2_ROWS,
+        mlperf_dlrm_v2_tables,
+    )
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+    from torchrec_tpu_torch.models.dlrm import DLRM
+    from torchrec_tpu_torch.ops import tbe
+
+    t_phase = time.perf_counter()
+    features, caps = list(DEFAULT_CAT_NAMES), list(MLPERF_DLRM_V2_MULTI_HOT)
+    torch.manual_seed(0)
+    # the same dense weights in every arm: Inductor's caches serve the
+    # dense kernels after the first compile
+    model_sd = DLRM(meta_ebc(mlperf_dlrm_v2_tables(DIM)), NUM_DENSE,
+                    DENSE_ARCH, OVER_ARCH).state_dict()
+    launches = dict.fromkeys(tbe.LAUNCHES, 0)
+    recs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for quant, kernel, row_cap, ops in NATIVE_ARMS:
+            rows = [min(r, row_cap) for r in MLPERF_DLRM_V2_ROWS]
+            requests = _requests(next(iter(RandomRecDataset(
+                features, NUM_REQUESTS, rows, caps, num_dense=NUM_DENSE,
+                manual_seed=0, num_batches=1))), len(features))
+            rec, arm = native_serving_arm(dev, tmp, quant, kernel, row_cap,
+                                          ops, requests, model_sd, tcp)
+            recs.append(rec)
+            for k, v in arm.items():
+                launches[k] += v
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "native_serving_done", "seconds": seconds,
+          "budget_s": NATIVE_SERVING_BUDGET_S,
+          "compile_seconds": {r["arm"]: r["seconds"].get("aoti_compile")
+                              for r in recs},
+          "launches": {k: v for k, v in launches.items() if v}})
+    if seconds > NATIVE_SERVING_BUDGET_S:
+        raise AssertionError(f"native serving took {seconds:.1f} s, over "
+                             f"its {NATIVE_SERVING_BUDGET_S} s budget")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6229,7 +6638,8 @@ def main() -> None:
     app_launches, app_check = app_phase(dev)
     serve_launches, _, path_rows = serving_phase(dev)
     roundtrip_phase(dev)
-    tier_launches, tier_rows = serving_tier_phase(dev)
+    tier_launches, tier_rows, tier_tcp = serving_tier_phase(dev)
+    native_launches = native_serving_phase(dev, tier_tcp)
     sharded_launches, sharded_checks = sharded_phase()
 
     # each kernel's launches on its own main paths: B1/B2 the training
@@ -6242,7 +6652,7 @@ def main() -> None:
                 + dcn_launches[k] + app_launches.get(k, 0)
                 + serve_launches[k] + sharded_launches.get(k, 0)
                 + seq_launches.get(k, 0) + models_launches.get(k, 0)
-                + tier_launches.get(k, 0)
+                + tier_launches.get(k, 0) + native_launches[k]
                 for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows

@@ -24,7 +24,11 @@ BERT4Rec step's per-id slots and weighted B1 at the position-weighted
 EBC's shapes; and B1 and B4 over float16 tables and from 16-bit tables
 into float32 (the FP16/BF16 serving tables), alone and as the serving
 collection's grouped float lookup, one launch a feature into each
-feature's columns, with no host sync.
+feature's columns, with no host sync; and the ``trt::`` operators
+(``csrc/torch_ops.cpp``) the grouped wrappers launch through, each
+against the C entry point it wraps and its plain version at the served
+batch's shapes, with the operator library's launch counts, and a
+serving module exported on the card holding them.
 
 Needs a CUDA device and ``nvcc``; marked ``cuda`` and skipped elsewhere.
 It imports nothing of JAX, so on a machine with a card and no JAX it runs
@@ -1378,3 +1382,250 @@ def test_float_grouped_lookup_writes_columns_no_sync_on_card(dev, kernel,
     over = tbe.float_pooled_lookup_grouped_plain(*args[:3], f32, out.clone(),
                                                  "tbe")
     assert torch.equal(got, over)
+
+
+# ---------------------------------------------------------------------------
+# the trt:: operators: each against the C entry point it wraps (the launch
+# the grouped wrappers made through ctypes before) and its plain version,
+# at the served batch's shapes (26 features, B = 256, the MLPerf DLRM-v2
+# multi-hot caps, D = 128), counted by the operator library
+# ---------------------------------------------------------------------------
+
+SB, SD = 256, 128
+
+
+def _ctypes_features(features, cap_offsets):
+    """The C entry points' host array of a quantized group (9 int64 a
+    feature: the tables' pointers and rows, region start and cap, key,
+    column, MEAN)."""
+    import ctypes
+
+    vals = []
+    for f in features:
+        lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
+        vals += [f.q.data_ptr(), f.scale.data_ptr(), f.bias.data_ptr(),
+                 f.q.shape[0], lo, hi - lo, f.key, f.col, int(f.mean)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _served_batch(dev, seed):
+    """A served batch in the KeyedJaggedTensor's layout: int32 values
+    with ids partly out of range, lengths up to each cap."""
+    from torchrec_tpu_torch.datasets.criteo import MLPERF_DLRM_V2_MULTI_HOT
+
+    rng = np.random.RandomState(seed)
+    caps = list(MLPERF_DLRM_V2_MULTI_HOT)
+    lengths = np.concatenate([rng.randint(0, c + 1, size=SB) for c in caps])
+    values = np.concatenate([
+        np.concatenate([rng.randint(-2, 1100, size=int(
+            lengths[k * SB:(k + 1) * SB].sum())), np.zeros(c * SB - int(
+                lengths[k * SB:(k + 1) * SB].sum()), np.int64)])
+        for k, c in enumerate(caps)])
+    offs = tuple(int(x) for x in np.concatenate([[0], np.cumsum(caps)]) * SB)
+    return (torch.from_numpy(values.astype(np.int32)).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev), offs)
+
+
+def _quant_group(dev, bits, seed):
+    rng = np.random.RandomState(seed)
+    Dp = SD * bits // 8
+    feats = []
+    for k in range(26):
+        R = 1000 + 7 * k
+        feats.append(tbe.GroupFeature(
+            torch.from_numpy(rng.randint(0, 256, size=(R, Dp)).astype(
+                np.uint8)).to(dev),
+            torch.from_numpy((rng.rand(R) * 0.01 + 0.005).astype(
+                np.float32)).to(dev),
+            torch.from_numpy(rng.randn(R).astype(np.float32)).to(dev),
+            k, k * SD, mean=k % 9 == 4))
+    return feats
+
+
+def _op_counts():
+    from torchrec_tpu_torch.ops import custom_ops
+
+    return custom_ops.op_launch_counts()
+
+
+def test_q8_operator_equals_its_c_entry_and_plain_on_card(dev):
+    from torchrec_tpu_torch.ops import _native
+
+    values, lengths, offs = _served_batch(dev, seed=1)
+    feats = _quant_group(dev, 8, seed=2)
+    W = 26 * SD
+    before = _op_counts()
+    got = tbe.quant_pooled_lookup_int8_grouped(
+        values, lengths, offs, feats, torch.zeros((SB, W), device=dev))
+    torch.cuda.synchronize()
+    after = _op_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == "q8_pooled") for k in after}
+    lib = _native.load_library("tbe_quant.cu")
+    direct = torch.zeros((SB, W), device=dev)
+    ends = tbe.group_ends(lengths, 26, SB)
+    ids = values.to(torch.int64)
+    assert lib.q8_pooled(_ctypes_features(feats, offs), 26, SB, SD, W,
+                         ids.data_ptr(), None, ends.data_ptr(),
+                         direct.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream) == 0
+    ref = tbe.quant_pooled_lookup_int8_grouped_plain(
+        values, lengths, offs, feats, torch.zeros((SB, W), device=dev))
+    assert torch.equal(got, direct) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("bits", (8, 4, 2))
+def test_dedup_q_operators_equal_their_c_entries_and_plain_on_card(dev,
+                                                                   bits):
+    from torchrec_tpu_torch.ops import _native
+
+    values, lengths, offs = _served_batch(dev, seed=3)
+    feats = _quant_group(dev, bits, seed=4)
+    W, Dp = 26 * SD, SD * bits // 8
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _native.load_library("tbe_quant.cu")
+    arr = _ctypes_features(feats, offs)
+    before = _op_counts()
+    ends, ukeys, inv = tbe.dedup_prepare_grouped(values, lengths, offs,
+                                                 feats, SB)
+    keys = torch.empty(values.shape, dtype=torch.int64, device=dev)
+    ids = values.to(torch.int64)
+    assert lib.dedup_q_keys(arr, 26, SB, ids.data_ptr(), ends.data_ptr(),
+                            keys.data_ptr(), keys.shape[0], stream) == 0
+    assert torch.equal(tbe.sized_unique(keys)[0], ukeys)
+    got = tbe.launch_dedup_q_grouped(feats, offs, ends, ukeys, inv,
+                                     torch.zeros((SB, W), device=dev), bits)
+    torch.cuda.synchronize()
+    after = _op_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in ("dedup_q_keys", "dedup_q_gather", "dedup_q_pool"))
+        for k in after}
+    rows = torch.empty((ukeys.shape[0], SD), device=dev)
+    direct = torch.zeros((SB, W), device=dev)
+    assert lib.dedup_q_gather(arr, 26, SD, Dp, bits, ukeys.data_ptr(),
+                              rows.data_ptr(), ukeys.shape[0], stream) == 0
+    assert lib.dedup_q_pool(arr, 26, SB, SD, W, inv.data_ptr(), None,
+                            ends.data_ptr(), rows.data_ptr(),
+                            direct.data_ptr(), stream) == 0
+    ref = tbe.dedup_quant_pooled_lookup_grouped_plain(
+        values, lengths, offs, feats, torch.zeros((SB, W), device=dev), bits)
+    assert torch.equal(got, direct) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("kernel", ("tbe", "dedup"))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_float_operators_equal_their_c_entries_and_plain_on_card(dev, kernel,
+                                                                 dtype):
+    import ctypes
+
+    from torchrec_tpu_torch.ops import _native
+
+    values, lengths, offs = _served_batch(dev, seed=5)
+    rng = np.random.RandomState(6)
+    feats = [tbe.FloatFeature(torch.from_numpy(rng.randn(
+        1000 + k, SD).astype(np.float32)).to(dev, dtype), k, k * SD,
+        mean=k % 9 == 4) for k in range(26)]
+    W = 26 * SD
+    before = _op_counts()
+    got = tbe.float_pooled_lookup_grouped(values, lengths, offs, feats,
+                                          torch.zeros((SB, W), device=dev),
+                                          kernel)
+    torch.cuda.synchronize()
+    after = _op_counts()
+    op = "tbe_pooled" if kernel == "tbe" else "dedup_pooled"
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 26 * int(k == op) for k in after}
+    ref = tbe.float_pooled_lookup_grouped_plain(
+        values, lengths, offs, feats, torch.zeros((SB, W), device=dev),
+        kernel)
+    assert torch.equal(got, ref)
+    # each feature through the C entry point the operator wraps
+    direct = torch.zeros((SB, W), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    code = _native.LOOKUP_DTYPES[dtype]
+    w = tbe._group_mean_weights(values, lengths, offs, feats, SB)
+    if kernel == "tbe":
+        lib = _native.load_library("tbe_float.cu")
+        ends = tbe.group_ends(lengths, 26, SB)
+        for f in feats:
+            lo, hi = offs[f.key], offs[f.key + 1]
+            regions = (ctypes.c_longlong * 4)(lo, hi - lo, 0, SB)
+            assert lib.tbe_pooled(
+                f.table.data_ptr(), values.data_ptr(), 0, w.data_ptr(),
+                ends[f.key].data_ptr(), 0, regions, 1,
+                direct[:, f.col:].data_ptr(), SD, f.table.shape[0], code, 0,
+                W, stream) == 0
+    else:
+        lib = _native.load_library("tbe_dedup.cu")
+        seg = tbe._group_segments(values, lengths, offs, feats, SB)
+        ukeys, inv, sw, offsets = tbe.dedup_prepare_sized(values, seg, w,
+                                                          26 * SB)
+        for f in feats:
+            assert lib.dedup_pooled(
+                f.table.data_ptr(), ukeys.data_ptr(), inv.data_ptr(),
+                sw.data_ptr(), offsets[f.key * SB:].data_ptr(),
+                direct[:, f.col:].data_ptr(), SB, SD, f.table.shape[0], code,
+                0, W, stream) == 0
+    assert torch.equal(got, direct)
+
+
+@pytest.mark.parametrize("quant,kernel", (("int8", None), ("int4", None),
+                                          ("bf16", "tbe"), ("bf16", "dedup")))
+def test_exported_serving_module_holds_the_operators_on_card(
+        dev, tmp_path, quant, kernel):
+    """``torch.export`` of a serving artifact's flat module on the card:
+    each group's ``trt::`` operators in the graph and the tables read by
+    nothing else; the exported program's scores ``torch.equal`` to the
+    eager module's (the same operators, in the same order)."""
+    import dataclasses
+
+    from torchrec_tpu_torch.datasets.criteo import (
+        DEFAULT_CAT_NAMES,
+        MLPERF_DLRM_V2_MULTI_HOT,
+        mlperf_dlrm_v2_tables,
+    )
+    from torchrec_tpu_torch.inference import package_model
+    from torchrec_tpu_torch.inference.predict_factory import flat_serving
+    from torchrec_tpu_torch.models.dlrm import DLRM
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingBagCollection,
+    )
+    from torchrec_tpu_torch.ops import custom_ops
+
+    tables = tuple(dataclasses.replace(c, num_embeddings=min(
+        c.num_embeddings, 2000), embedding_dim=16)
+        for c in mlperf_dlrm_v2_tables(16))
+    rng = np.random.RandomState(7)
+    weights = {c.name: (rng.randn(c.num_embeddings, 16) * 0.05).astype(
+        np.float32) for c in tables}
+    torch.manual_seed(0)
+    model = DLRM(EmbeddingBagCollection(tables, device="meta"), 13,
+                 (32, 16), (32, 1))
+    caps = list(MLPERF_DLRM_V2_MULTI_HOT)
+    path = str(tmp_path / "artifact")
+    package_model(path, tables, weights, dict(zip(DEFAULT_CAT_NAMES, caps)),
+                  13, quant_dtype=quant, dense_state_dict=model.state_dict(),
+                  model_config={"arch": "dlrm",
+                                "dense_arch_layer_sizes": [32, 16],
+                                "over_arch_layer_sizes": [32, 1]})
+    flat, _ = flat_serving(path, dev, kernel, 16)
+    inputs = flat.example_inputs(dev)
+    lengths = torch.from_numpy(np.concatenate([
+        rng.randint(0, c + 1, size=16) for c in caps]).astype(np.int32))
+    values = torch.from_numpy(rng.randint(0, 2000, size=inputs[1].shape)
+                              .astype(np.int32))
+    inputs = (torch.from_numpy(rng.randn(16, 13).astype(np.float32)).to(dev),
+              values.to(dev), lengths.to(dev))
+    with torch.no_grad():
+        ep = torch.export.export(flat, inputs)
+    per_group = {"int8": {"q8_pooled": 1},
+                 "int4": {"dedup_q_keys": 1, "dedup_q_gather": 1,
+                          "dedup_q_pool": 1},
+                 "bf16": {f"{kernel}_pooled": 26}}[quant]
+    assert custom_ops.trt_op_calls(ep.graph) == per_group
+    tables_in = {spec.arg.name for spec in ep.graph_signature.input_specs
+                 if spec.target and spec.target.endswith(".q")}
+    for node in ep.graph.nodes:
+        if node.name in tables_in:
+            assert all(u.target.namespace == "trt" for u in node.users)
+    assert torch.equal(ep.module()(*inputs), flat(*inputs))

@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax():
               "ops.ring_attention", "datasets.movielens",
               "examples.bert4rec.main", "inference.bucketed_serving",
               "inference.mesh", "inference.grpc_server",
-              "inference.protos.predictor_pb2", "obs.registry"):
+              "inference.protos.predictor_pb2", "obs.registry",
+              "ops.custom_ops", "inference.predict_factory"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

@@ -1,6 +1,13 @@
 """Port parity for the serving tier's host library (``csrc/host/*.cpp``,
 built with g++ at first use): the native batching queue, the id
-transformers and the TCP front end, against the JAX package's.
+transformers and the TCP front end, against the JAX package's; and
+serving with no Python in the request path (``export_native`` ->
+``NativeInferenceServer``: the AOTInductor package run by the C++ loop of
+``csrc/host/aoti_executor.cpp``) against the JAX package's
+``load_packaged_model`` on the JAX package's own tiny artifact
+(``tests/test_native_serving.py``'s), within that test's bounds: 1e-6
+for the exported program, 1e-4 for the native server.  Two AOTInductor
+compiles in all, in module-scoped fixtures.
 
 The JAX package's queue and transformers are built here into a private
 temporary directory, so this file never races another test process on
@@ -11,6 +18,7 @@ agree to the last bits, but the float32 matmuls of XLA and of PyTorch sum
 in different orders."""
 
 import ctypes
+import json
 import os
 import subprocess
 import threading
@@ -498,3 +506,294 @@ def test_transformer_handles_are_freed():
     assert h and ctypes.c_void_p(h).value
     t.__del__()
     assert t._h is None
+
+
+# ---------------------------------------------------------------------------
+# no Python in the request path: export_native -> NativeInferenceServer
+# (the JAX package's tests/test_native_serving.py, on the port)
+# ---------------------------------------------------------------------------
+
+NB = 8  # the export's static batch
+NCAPS = {"f0": 4, "f1": 4}
+
+
+@pytest.fixture(scope="module")
+def native_artifact(tmp_path_factory):
+    """The JAX package's tiny artifact (t0 100 x 8, t1 60 x 4, int8, caps
+    4, 3 dense, seed 3), exported by the port on the CPU."""
+    from torchrec_tpu.modules.embedding_configs import PoolingType
+    from torchrec_tpu_torch.inference import export_native
+
+    path = str(tmp_path_factory.mktemp("native_artifact"))
+    tables = (
+        JConfig(num_embeddings=100, embedding_dim=8, name="t0",
+                feature_names=["f0"], pooling=PoolingType.SUM),
+        JConfig(num_embeddings=60, embedding_dim=4, name="t1",
+                feature_names=["f1"], pooling=PoolingType.SUM),
+    )
+    rng = np.random.RandomState(3)
+    weights = {"t0": rng.randn(100, 8).astype(np.float32),
+               "t1": rng.randn(60, 4).astype(np.float32)}
+    jpf.package_model(path, tables, weights, NCAPS, num_dense=3,
+                      quant_dtype="int8")
+    manifest = export_native(path, batch_size=NB, device="cpu")
+    return path, manifest
+
+
+def _flat(dense, f0, f1):
+    """One request as example 0 of the export's static batch."""
+    vals = np.zeros((4 * NB * 2,), np.int32)
+    lens = np.zeros((2 * NB,), np.int32)
+    vals[:len(f0)] = f0
+    lens[0] = len(f0)
+    vals[4 * NB:4 * NB + len(f1)] = f1
+    lens[NB] = len(f1)
+    d = np.zeros((NB, 3), np.float32)
+    d[0] = dense
+    return d, vals, lens
+
+
+def _jax_scores(path, batches):
+    """The JAX package's serving function on each (dense, values,
+    lengths) batch of the flat layout."""
+    import jax.numpy as jnp
+
+    from torchrec_tpu.sparse import KeyedJaggedTensor as JKJT
+
+    fn, _ = jpf.load_packaged_model(path)
+    return [np.asarray(fn(d, JKJT(["f0", "f1"], jnp.asarray(v),
+                                  jnp.asarray(l), caps=[4 * NB, 4 * NB])))
+            .reshape(-1) for d, v, l in batches]
+
+
+def _tiny_requests(n, seed):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(3).astype(np.float32),
+             [rng.randint(0, 100, size=rng.randint(0, 5)).astype(np.int64),
+              rng.randint(0, 60, size=rng.randint(0, 5)).astype(np.int64)])
+            for _ in range(n)]
+
+
+def test_export_writes_all_artifacts(native_artifact):
+    from torchrec_tpu_torch.inference.predict_factory import (
+        package_constant_names,
+    )
+
+    path, manifest = native_artifact
+    assert manifest["formats"] == ["pt2", "aoti"]
+    for name in ("model.pt2", "model_aoti.pt2", "native_manifest.json"):
+        assert os.path.exists(os.path.join(path, name))
+    assert not os.path.exists(os.path.join(path, "native_manifest.json.tmp"))
+    with open(os.path.join(path, "native_manifest.json")) as f:
+        mani = json.load(f)
+    assert mani == json.loads(json.dumps(manifest))
+    assert mani["features"] == ["f0", "f1"] and mani["caps"] == [4, 4]
+    assert [i["name"] for i in mani["inputs"]] == ["dense", "values",
+                                                   "lengths"]
+    assert [i["shape"] for i in mani["inputs"]] == [[NB, 3], [64], [16]]
+    assert mani["device"] == "cpu" and mani["batch_size"] == NB
+    # exactly the constants the package lists: the tables, nothing folded
+    assert mani["constants"] == package_constant_names(
+        os.path.join(path, "model_aoti.pt2"))
+    assert mani["constants"] == sorted(
+        f"serving.quant_ebc.params.{t}.{k}" for t in ("t0", "t1")
+        for k in ("q", "scale", "bias"))
+    # no table inside the package
+    tables = os.path.getsize(os.path.join(path, "tables.npz"))
+    assert os.path.getsize(os.path.join(path, "model_aoti.pt2")) < 2**24
+    assert tables > 0
+
+
+def test_pt2_reloads_and_matches_jax(native_artifact):
+    """``model.pt2`` round-trips through ``torch.export.load`` and
+    matches the JAX serving function (the JAX test's bound)."""
+    path, _ = native_artifact
+    ep = torch.export.load(os.path.join(path, "model.pt2"))
+    rng = np.random.RandomState(0)
+    dense = rng.randn(NB, 3).astype(np.float32)
+    vals = np.zeros((4 * NB * 2,), np.int32)
+    lens = np.zeros((2 * NB,), np.int32)
+    vals[0:3] = [5, 9, 77]
+    lens[0], lens[1] = 2, 1
+    vals[4 * NB] = 13
+    lens[NB] = 1
+    got = ep.module()(*(torch.from_numpy(x) for x in (dense, vals, lens)))
+    ref, = _jax_scores(path, [(dense, vals, lens)])
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+def test_native_server_no_python_request_path(native_artifact):
+    """TCP client -> native queue -> the C++ executor loop -> scores, with
+    no Python serving function: within 1e-4 of the JAX package (its
+    bound) and within the file's tolerance of the port's eager module."""
+    from torchrec_tpu_torch.inference import NativeInferenceServer
+    from torchrec_tpu_torch.inference.predict_factory import flat_serving
+
+    path, _ = native_artifact
+    srv = NativeInferenceServer(path, max_latency_us=1000)
+    assert srv._fn is None
+    port = srv.serve(port=0)
+    reqs = _tiny_requests(6, seed=1)
+    try:
+        client = PredictClient(port)
+        got = [client.predict(d, ids) for d, ids in reqs]
+        client.close()
+        stats = srv.loop_stats()
+    finally:
+        srv.stop()
+    assert stats["batches"] >= 1 and stats["failed_batches"] == 0
+    batches = [_flat(d, *ids) for d, ids in reqs]
+    jax_ref = [s[0] for s in _jax_scores(path, batches)]
+    np.testing.assert_allclose(got, jax_ref, rtol=0, atol=1e-4)
+    module, _ = flat_serving(path, "cpu", None, NB)
+    eager = [float(module(*(torch.from_numpy(x) for x in b))[0])
+             for b in batches]
+    np.testing.assert_allclose(got, eager, rtol=RTOL, atol=ATOL)
+
+
+def test_native_server_direct_run_and_in_process_predict(native_artifact):
+    """``run`` (one batch straight through the executor) and in-process
+    ``predict`` (into the same queue as TCP) give the eager scores."""
+    from torchrec_tpu_torch.inference import NativeInferenceServer
+    from torchrec_tpu_torch.inference.predict_factory import flat_serving
+
+    path, _ = native_artifact
+    srv = NativeInferenceServer(path, max_latency_us=500)
+    reqs = _tiny_requests(5, seed=7)
+    try:
+        batch = _flat(*reqs[0][0:1], *reqs[0][1])
+        direct = srv.run(*batch)
+        with pytest.raises(ValueError, match="inputs"):
+            srv.run(batch[0][:4], *batch[1:])
+        srv.start()
+        local = [srv.predict(d, ids) for d, ids in reqs]
+    finally:
+        srv.stop()
+    module, _ = flat_serving(path, "cpu", None, NB)
+    eager = module(*(torch.from_numpy(x) for x in batch)).numpy()
+    np.testing.assert_allclose(direct, eager, rtol=RTOL, atol=ATOL)
+    ref = [float(module(*(torch.from_numpy(x)
+                          for x in _flat(d, *ids)))[0]) for d, ids in reqs]
+    np.testing.assert_allclose(local, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_native_executor_open_fails_loud(native_artifact, tmp_path):
+    """A corrupt package fails at open, with the executor's reason."""
+    import shutil
+
+    from torchrec_tpu_torch.inference import NativeInferenceServer
+
+    path, _ = native_artifact
+    broken = tmp_path / "broken"
+    broken.mkdir()
+    for name in ("metadata.json", "tables.npz", "native_manifest.json"):
+        shutil.copy(os.path.join(path, name), broken / name)
+    (broken / "model_aoti.pt2").write_bytes(b"garbage")
+    with pytest.raises(RuntimeError, match="native executor open failed"):
+        NativeInferenceServer(str(broken))
+
+
+def test_native_server_double_stop_is_safe(native_artifact):
+    from torchrec_tpu_torch.inference import NativeInferenceServer
+
+    srv = NativeInferenceServer(native_artifact[0], max_latency_us=500)
+    srv.serve(port=0)
+    srv.stop()
+    srv.stop()  # a second stop is a no-op, not a NULL dereference
+
+
+def test_grpc_over_native_server(native_artifact):
+    """The gRPC Predictor front end over ``NativeInferenceServer``:
+    requests enter the native queue and the C++ loop answers them."""
+    pytest.importorskip("grpc")
+    from torchrec_tpu_torch.inference import NativeInferenceServer
+    from torchrec_tpu_torch.inference.grpc_server import (
+        GrpcInferenceServer,
+        GrpcPredictClient,
+    )
+
+    path, _ = native_artifact
+    srv = GrpcInferenceServer(NativeInferenceServer(path,
+                                                    max_latency_us=500))
+    port = srv.serve(port=0)
+    try:
+        client = GrpcPredictClient(port)
+        dense = np.random.RandomState(5).randn(3).astype(np.float32)
+        out = client.predict(dense, [np.array([4, 9]), np.array([11])])
+        empty = client.predict(np.zeros(3, np.float32),
+                               [np.zeros(0, np.int64), np.zeros(0, np.int64)])
+        client.close()
+    finally:
+        srv.stop()
+    ref = [s[0] for s in _jax_scores(path, [
+        _flat(dense, [4, 9], [11]), _flat(np.zeros(3, np.float32), [], [])])]
+    np.testing.assert_allclose([out["default"][0], empty["default"][0]], ref,
+                               rtol=0, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def failing_package(native_artifact, tmp_path_factory):
+    """The tiny artifact with a package (the second compile) whose run
+    raises when a dense feature exceeds 1e6: the flat signature, scores
+    ``sum(dense) + lengths' example sums``, through a Python operator
+    that the package calls back."""
+    import shutil
+
+    path, manifest = native_artifact
+    out = str(tmp_path_factory.mktemp("failing"))
+    for name in ("metadata.json", "tables.npz"):
+        shutil.copy(os.path.join(path, name), os.path.join(out, name))
+
+    @torch.library.custom_op("trt_test::checked_sum", mutates_args=())
+    def checked_sum(dense: torch.Tensor) -> torch.Tensor:
+        if float(dense.abs().max()) > 1e6:
+            raise ValueError("dense feature out of range")
+        return dense.sum(-1)
+
+    @checked_sum.register_fake
+    def _(dense):
+        return dense.new_empty(dense.shape[:1])
+
+    class Flat(torch.nn.Module):
+        def forward(self, dense, values, lengths):
+            per = lengths.view(2, NB).sum(0).to(torch.float32)
+            return checked_sum(dense) + per + values[:1].float() * 0
+
+    ep = torch.export.export(Flat(), (torch.zeros((NB, 3)),
+                                      torch.zeros((64,), dtype=torch.int32),
+                                      torch.zeros((16,), dtype=torch.int32)))
+    torch._inductor.aoti_compile_and_package(
+        ep, package_path=os.path.join(out, "model_aoti.pt2"))
+    with open(os.path.join(out, "native_manifest.json"), "w") as f:
+        json.dump(dict(manifest, constants=[], formats=["aoti"]), f)
+    return out
+
+
+def test_run_error_posts_nan_and_loop_serves_next(failing_package):
+    """A batch whose run fails is answered NaN at once (the TCP front end
+    turns a NaN into status 1 well before the request timeout) and the
+    loop serves the next batch."""
+    from torchrec_tpu_torch.inference import NativeInferenceServer
+
+    srv = NativeInferenceServer(failing_package, max_latency_us=500)
+    port = srv.serve(port=0)
+    try:
+        client = PredictClient(port)
+        ok1 = client.predict(np.ones(3, np.float32),
+                             [np.array([1, 2]), np.array([3])])
+        t0 = time.perf_counter()
+        with pytest.raises(TimeoutError, match="failed"):
+            client.predict(np.full(3, 1e7, np.float32),
+                           [np.array([1]), np.zeros(0, np.int64)])
+        bad_s = time.perf_counter() - t0
+        bad = srv.predict(np.full(3, 1e7, np.float32),
+                          [np.zeros(0, np.int64), np.zeros(0, np.int64)])
+        ok2 = client.predict(np.full(3, 2.0, np.float32),
+                             [np.zeros(0, np.int64), np.array([5])])
+        client.close()
+        stats = srv.loop_stats()
+    finally:
+        srv.stop()
+    assert ok1 == pytest.approx(3.0 + 3) and ok2 == pytest.approx(6.0 + 1)
+    assert np.isnan(bad) and bad_s < 5.0
+    assert stats == {"batches": 4, "failed_batches": 2}

@@ -16,12 +16,14 @@ from torchrec_tpu_torch.inference.modules import (
 from torchrec_tpu_torch.inference.predict_factory import (
     BatchingMetadata,
     PredictFactory,
+    export_native,
     load_packaged_model,
     package_model,
 )
 from torchrec_tpu_torch.inference.serving import (
     HttpInferenceServer,
     InferenceServer,
+    NativeInferenceServer,
     NetworkInferenceServer,
     PredictClient,
     PyBatchingQueue,
@@ -37,6 +39,7 @@ __all__ = [
     "CircuitBreaker",
     "HttpInferenceServer",
     "InferenceServer",
+    "NativeInferenceServer",
     "NetworkInferenceServer",
     "PredictClient",
     "PredictFactory",
@@ -46,6 +49,7 @@ __all__ = [
     "ServingBucketConfig",
     "ServingModule",
     "build_serving_fn",
+    "export_native",
     "install_sigterm_drain",
     "load_packaged_model",
     "package_model",

@@ -6,7 +6,8 @@ classes come from plain ``protoc --python_out`` (checked in as
 ``predictor_pb2.py``) and the service is registered through gRPC's
 generic-handler API (no codegen plugin).  The handler body forwards to
 ``InferenceServer.predict``, so gRPC requests coalesce into the same
-batches as TCP/HTTP/in-process callers.
+batches as TCP/HTTP/in-process callers; over ``NativeInferenceServer``
+the C++ executor loop answers them.
 
 This module needs ``grpcio`` and ``protobuf``; ``inference/__init__.py``
 does not import it, so the serving tier runs on a host that has neither.

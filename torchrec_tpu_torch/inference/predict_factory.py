@@ -18,14 +18,21 @@ The loaded DLRM's ``EmbeddingBagCollection`` is built on
 ``torch.device("meta")``: the quantized collection does the lookup and
 the model runs ``forward_from_embeddings``, so its float tables are
 never allocated.
+
+``export_native`` writes the artifact's ahead-of-time export for serving
+with no Python in the request path (``inference/serving.py::
+NativeInferenceServer``): ``torch.export`` of the flat serving function,
+and its AOTInductor package for the export's device.
 """
 
 from __future__ import annotations
 
 import abc
+import contextlib
 import dataclasses
 import json
 import os
+import time
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,9 +59,11 @@ from torchrec_tpu_torch.modules.embedding_configs import (
 from torchrec_tpu_torch.modules.embedding_modules import (
     EmbeddingBagCollection,
 )
+from torchrec_tpu_torch.ops import _native
 from torchrec_tpu_torch.quant.embedding_modules import (
     QuantEmbeddingBagCollection,
 )
+from torchrec_tpu_torch.sparse import KeyedJaggedTensor
 from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # tables.npz layout: v2 = quantized name__q/__scale/__bias triplets
@@ -170,7 +179,10 @@ def package_model(
         arrays[f"{name}__q"] = q
         arrays[f"{name}__scale"] = p.scale.cpu().numpy()
         arrays[f"{name}__bias"] = p.bias.cpu().numpy()
-    np.savez_compressed(os.path.join(path, "tables.npz"), **arrays)
+    # stored, not deflated: quantized codes barely compress, and deflating
+    # the capped MLPerf DLRM-v2 tables' 3.7 GB takes minutes (np.load
+    # reads either)
+    np.savez(os.path.join(path, "tables.npz"), **arrays)
     if dense_state_dict is not None:
         leaves = dense_leaves_to_flax_order(
             {k: v for k, v in dense_state_dict.items()
@@ -245,3 +257,152 @@ def load_packaged_model(
         load_dense_state_dict(model, dense_leaves_from_flax_order(
             leaves, dense_params(model)))
     return build_serving_fn(model, qebc, apply_sigmoid=False, device=dev), meta
+
+
+class FlatServing(torch.nn.Module):
+    """A serving module behind the flat signature of an exported
+    artifact: ``(dense [B, num_dense] f32, values [sum(caps) * B] i32,
+    lengths [F * B] i32) -> scores [B] f32``.  The KeyedJaggedTensor is
+    rebuilt inside with its static per-key regions: feature ``f``'s ids
+    at ``sum(caps[:f]) * B``, front-packed in example order."""
+
+    def __init__(self, serving: ServingModule, features: Sequence[str],
+                 caps: Sequence[int], batch_size: int, num_dense: int):
+        super().__init__()
+        self.serving = serving
+        self.num_dense = int(num_dense)
+        self.features = tuple(features)
+        self.batch_size = int(batch_size)
+        self.batch_caps = tuple(int(c) * self.batch_size for c in caps)
+
+    def forward(self, dense: torch.Tensor, values: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+        kjt = KeyedJaggedTensor(self.features, values, lengths,
+                                caps=self.batch_caps)
+        return self.serving(dense, kjt).reshape(self.batch_size)
+
+    def example_inputs(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """Zero inputs at the signature's static shapes."""
+        return (torch.zeros((self.batch_size, self.num_dense), dtype=torch.float32,
+                            device=device),
+                torch.zeros((sum(self.batch_caps),), dtype=torch.int32,
+                            device=device),
+                torch.zeros((len(self.features) * self.batch_size,),
+                            dtype=torch.int32, device=device))
+
+
+def flat_serving(path: str, device: DeviceLike = None,
+                 lookup_kernel: Optional[str] = None,
+                 batch_size: int = 16) -> Tuple[FlatServing, Dict[str, Any]]:
+    """The artifact's serving module (:func:`load_packaged_model`) behind
+    the flat signature at ``batch_size``, and its metadata."""
+    serving, meta = load_packaged_model(path, device, lookup_kernel)
+    features = [f for t in meta["tables"] for f in t["features"]]
+    caps = [int(meta["feature_caps"][f]) for f in features]
+    return FlatServing(serving, features, caps, batch_size,
+                       meta["num_dense"]), meta
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    """float32 GEMMs in full float32, as the eager serving module runs
+    them (TF32 would part the scores by more than the serving
+    tolerance)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def package_constant_names(package_path: str) -> list:
+    """The constants an AOTInductor package lists (the names its loader
+    takes): loaded on the package's device; a card's package needs the
+    ``trt::`` operators loaded first."""
+    from torch._inductor.package import load_package
+
+    return sorted(load_package(package_path).loader.get_constant_fqns())
+
+
+def export_native(
+    path: str,
+    batch_size: int = 16,
+    formats: Sequence[str] = ("pt2", "aoti"),
+    device: DeviceLike = None,
+    lookup_kernel: Optional[str] = None,
+) -> Dict[str, Any]:
+    """Ahead-of-time export of a packaged model for serving with no Python
+    in the request path (the JAX package's ``export_native``; the
+    reference's ``inference/server.cpp:50`` executes its exported model
+    natively).  ``torch.export`` traces the artifact's serving module on
+    ``device`` (the card by default; ``"cpu"`` when asked) behind the flat
+    signature of :class:`FlatServing` at ``batch_size``; on the card each
+    lookup group is its ``trt::`` operators (``ops/custom_ops.py``), on the
+    CPU the plain versions, aten ops only.  Writes next to the artifact:
+
+    * ``model.pt2`` — ``torch.export.save`` of that program (the
+      counterpart of ``model.jaxexport``); reloads with
+      ``torch.export.load``;
+    * ``model_aoti.pt2`` — its AOTInductor package for ``device``,
+      compiled (with ``ops/_native.py``'s ``CXX``) with
+      ``package_constants_in_so=False``: no weight or table
+      is inside; the executor hands it the loaded module's tensors as
+      user-managed constants (``csrc/host/aoti_executor.cpp``);
+    * ``native_manifest.json`` — the JAX manifest's fields (batch size,
+      dense width, features, caps, inputs), the device, the lookup kernel,
+      the package's constant names and each step's seconds; published
+      last and atomically, so a killed export never leaves a manifest of
+      half-written files.
+
+    ``lookup_kernel`` as for :func:`load_packaged_model`.  Returns the
+    manifest."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from torchrec_tpu_torch.ops import custom_ops
+
+        custom_ops.load_ops()
+    flat, meta = flat_serving(path, dev, lookup_kernel, batch_size)
+    B, F, num_dense = flat.batch_size, len(flat.features), flat.num_dense
+    total_vals = sum(flat.batch_caps)
+    manifest: Dict[str, Any] = {
+        "batch_size": B,
+        "num_dense": num_dense,
+        "features": list(flat.features),
+        "caps": [c // B for c in flat.batch_caps],
+        "inputs": [
+            {"name": "dense", "dtype": "f32", "shape": [B, num_dense]},
+            {"name": "values", "dtype": "i32", "shape": [total_vals]},
+            {"name": "lengths", "dtype": "i32", "shape": [F * B]},
+        ],
+        "device": str(dev),
+        "lookup_kernel": lookup_kernel,
+        "formats": [],
+        "seconds": {},
+    }
+    t0 = time.perf_counter()
+    with torch.no_grad(), _tf32_off():
+        ep = torch.export.export(flat, flat.example_inputs(dev))
+    manifest["seconds"]["export"] = time.perf_counter() - t0
+    if "pt2" in formats:
+        t0 = time.perf_counter()
+        torch.export.save(ep, os.path.join(path, "model.pt2"))
+        manifest["seconds"]["save"] = time.perf_counter() - t0
+        manifest["formats"].append("pt2")
+    if "aoti" in formats:
+        pkg = os.path.join(path, "model_aoti.pt2")
+        t0 = time.perf_counter()
+        with _tf32_off(), torch._inductor.config.patch(
+                {"cpp.cxx": (None, _native.CXX)}):
+            torch._inductor.aoti_compile_and_package(
+                ep, package_path=pkg,
+                inductor_configs={"aot_inductor.package_constants_in_so":
+                                  False})
+        manifest["seconds"]["aoti_compile"] = time.perf_counter() - t0
+        manifest["constants"] = package_constant_names(pkg)
+        manifest["formats"].append("aoti")
+    mani_path = os.path.join(path, "native_manifest.json")
+    with open(mani_path + ".tmp", "w") as f:
+        json.dump(manifest, f, indent=1)
+    os.replace(mani_path + ".tmp", mani_path)
+    return manifest

@@ -1,5 +1,5 @@
 """Inference server: dynamic batching + the serving module on its device
-(``torchrec_tpu/inference/serving.py``, less ``NativeInferenceServer``).
+(``torchrec_tpu/inference/serving.py``).
 
 ``predict`` enqueues single requests; the batching queue forms them into
 batches (flush at ``max_batch`` requests or ``max_latency_us`` after the
@@ -16,6 +16,11 @@ Two interchangeable queues implement the forming policy:
   (``csrc/host/serving_server.cpp``) enqueues into it directly;
 * ``PyBatchingQueue`` — a pure-Python mirror with the same policy and
   result semantics.
+
+``NativeInferenceServer`` serves with no Python in the request path: an
+artifact's AOTInductor package (``predict_factory.export_native``) run by
+the C++ executor loop of ``csrc/host/aoti_executor.cpp`` on the native
+queue, behind the C++ TCP front end.
 
 Front ends: ``NetworkInferenceServer`` (length-prefixed binary TCP,
 ``PredictClient``), ``HttpInferenceServer`` (POST ``/predict``, GET
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import json
 import math
 import os
 import threading
@@ -46,8 +52,9 @@ import torch
 
 from torchrec_tpu_torch.obs.registry import MetricsRegistry
 from torchrec_tpu_torch.obs.spans import span
-from torchrec_tpu_torch.ops._native import load_host_library
+from torchrec_tpu_torch.ops._native import load_host_library, load_library
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor, regroup_request_major
+from torchrec_tpu_torch.utils.device import resolve_device
 from torchrec_tpu_torch.utils.profiling import counter_key
 
 # dynamic-batch sizes are small powers-of-two-ish; the default latency
@@ -532,7 +539,9 @@ class InferenceServer:
         queue: str = "native",
     ):
         self._fn = serving_fn
-        self.device = torch.device(serving_fn.device)
+        # a native server (no Python serving function) sets its own
+        self.device = (None if serving_fn is None
+                       else torch.device(serving_fn.device))
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.features = list(feature_names)
         self.caps = list(feature_caps)
@@ -906,6 +915,167 @@ class NetworkInferenceServer(InferenceServer):
     def __del__(self):
         if getattr(self, "_srv", None):
             self._lib.trt_srv_stop(self._srv)
+            self._lib.trt_srv_destroy(self._srv)
+            self._srv = None
+
+
+# torch dtype -> c10::ScalarType code (the executor's constants)
+_SCALAR_TYPES = {torch.uint8: 0, torch.int8: 1, torch.int16: 2,
+                 torch.int32: 3, torch.int64: 4, torch.float16: 5,
+                 torch.float32: 6, torch.float64: 7, torch.bool: 11,
+                 torch.bfloat16: 15}
+
+
+def default_torch_lib() -> ctypes.CDLL:
+    """The native executor's library (``csrc/host/aoti_executor.cpp``
+    linked to the installed libtorch), built at first use: where the JAX
+    package's ``default_tf_lib`` located libtensorflow_cc."""
+    return load_library("host/aoti_executor.cpp")
+
+
+class NativeInferenceServer(NetworkInferenceServer):
+    """Serving with NO Python in the request path.
+
+    Reference: ``inference/server.cpp:50``, where the C++ server executes
+    the exported model natively.  The artifact's AOTInductor package
+    (``predict_factory.export_native``) runs in the C++ executor of
+    ``csrc/host/aoti_executor.cpp``; its loop drains the native batching
+    queue, pads each formed batch to the package's static shapes,
+    regroups it feature-major, runs the package on its device and posts
+    the scores, so a request that arrives over the C++ TCP front end
+    (``csrc/host/serving_server.cpp``) is served entirely in C++, the
+    lookups included (the package's ``trt::`` operators,
+    ``csrc/torch_ops.cpp``).  Python only opens, starts and stops;
+    in-process ``predict()`` calls coalesce into the same batches.
+
+    The constructor loads the artifact's tables and dense weights onto the
+    export's device (``load_packaged_model``; raises ``RuntimeError``
+    there with no card) and opens the package with them as user-managed
+    constants: read in place, never copied into the package.  One
+    executor for every device (the JAX package's ``executor="tf" |
+    "pjrt"``): the package's own."""
+
+    def __init__(
+        self,
+        artifact_dir: str,
+        max_latency_us: int = 2000,
+        request_timeout_us: int = 10_000_000,
+    ):
+        from torchrec_tpu_torch.inference.predict_factory import flat_serving
+
+        with open(os.path.join(artifact_dir, "native_manifest.json")) as f:
+            mani = json.load(f)
+        if "aoti" not in mani["formats"]:
+            raise ValueError("artifact has no AOTInductor package; re-run "
+                             "export_native(formats=('aoti', ...))")
+        B = int(mani["batch_size"])
+        super().__init__(
+            None,  # never called: execution is native
+            feature_names=mani["features"],
+            feature_caps=mani["caps"],
+            num_dense=mani["num_dense"],
+            max_batch_size=B,
+            max_latency_us=max_latency_us,
+            request_timeout_us=request_timeout_us,
+        )
+        self._ax = self._loop = None
+        self.device = resolve_device(mani["device"])
+        if self.device.type == "cuda":
+            from torchrec_tpu_torch.ops import custom_ops
+
+            custom_ops.load_ops()
+        self._module, _ = flat_serving(artifact_dir, self.device,
+                                       mani["lookup_kernel"], B)
+        state = {**dict(self._module.named_parameters()),
+                 **dict(self._module.named_buffers())}
+        missing = [n for n in mani["constants"] if n not in state]
+        if missing:
+            raise RuntimeError(f"native executor open failed: constants "
+                               f"{missing} are not in the artifact's module")
+        # kept alive (and contiguous) as long as the executor reads them
+        self._constants = [state[n].contiguous() for n in mani["constants"]]
+        c = ctypes
+        n = len(self._constants)
+        dims = [d for t in self._constants for d in t.shape]
+        self._axlib = default_torch_lib()
+        self._ax = self._axlib.trt_aoti_open(
+            os.path.join(artifact_dir, "model_aoti.pt2").encode(),
+            int(self.device.type == "cuda"),
+            (self.device.index or 0) if self.device.type == "cuda" else -1,
+            n,
+            (c.c_char_p * n)(*[s.encode() for s in mani["constants"]]),
+            (c.c_void_p * n)(*[t.data_ptr() for t in self._constants]),
+            (c.c_int * n)(*[_SCALAR_TYPES[t.dtype]
+                            for t in self._constants]),
+            (c.c_int * n)(*[t.dim() for t in self._constants]),
+            (c.c_int64 * len(dims))(*dims),
+            B, self.num_dense, sum(mani["caps"]) * B, len(self.features),
+        )
+        if not self._ax:
+            raise RuntimeError("native executor open failed: "
+                               + self._axlib.trt_aoti_last_error().decode())
+
+    def start(self, num_executors: int = 1) -> None:
+        """Start the C++ executor loop (``num_executors`` is taken for
+        the interface's sake: the loop is one thread, the package runs
+        each batch on its device)."""
+        hl = self._lib
+        self._caps_arr = np.asarray(self.caps, np.int32)
+        self._running = True
+        self._loop = self._axlib.trt_aoti_loop_start(
+            self._queue.handle,
+            ctypes.cast(hl.trt_bq_dequeue_batch, ctypes.c_void_p),
+            ctypes.cast(hl.trt_bq_post_result, ctypes.c_void_p),
+            self._ax, self._caps_arr.ctypes.data)
+        if not self._loop:
+            raise RuntimeError("native executor loop failed to start: "
+                               + self._axlib.trt_aoti_last_error().decode())
+
+    def run(self, dense: np.ndarray, values: np.ndarray,
+            lengths: np.ndarray) -> np.ndarray:
+        """One batch straight through the executor, at the package's
+        static shapes (dense [B, num_dense] float32, values [sum(caps) *
+        B] int32 in the feature-major layout the loop builds, lengths
+        [F * B] int32): the scores [B].  Raises with the executor's
+        message if the run fails."""
+        B, F = self.max_batch, len(self.features)
+        args = (np.ascontiguousarray(dense, np.float32),
+                np.ascontiguousarray(values, np.int32),
+                np.ascontiguousarray(lengths, np.int32))
+        shapes = ((B, self.num_dense), (sum(self.caps) * B,), (F * B,))
+        if tuple(a.shape for a in args) != shapes:
+            raise ValueError(f"inputs {[a.shape for a in args]} != {shapes}")
+        out = np.empty((B,), np.float32)
+        n = self._axlib.trt_aoti_run(self._ax, *(a.ctypes.data for a in args),
+                                     out.ctypes.data, B)
+        if n < 0:
+            raise RuntimeError("native executor run failed: "
+                               + self._axlib.trt_aoti_run_error(
+                                   self._ax).decode())
+        return out[:n]
+
+    def loop_stats(self) -> dict:
+        """The loop's batches run and, of them, failed (posted NaN)."""
+        out = (ctypes.c_int64 * 2)()
+        if self._loop:
+            self._axlib.trt_aoti_loop_stats(self._loop, out)
+        return {"batches": int(out[0]), "failed_batches": int(out[1])}
+
+    def stop(self) -> None:
+        """Idempotent teardown: the TCP front first (no new requests), then
+        the queue, the loop and the executor; the tables are released."""
+        if self._srv:
+            self._lib.trt_srv_stop(self._srv)
+        self._running = False
+        self._queue.shutdown()
+        if self._loop:
+            self._axlib.trt_aoti_loop_stop(self._loop)
+            self._loop = None
+        if self._ax:
+            self._axlib.trt_aoti_close(self._ax)
+            self._ax = None
+        self._module = self._constants = None
+        if self._srv:
             self._lib.trt_srv_destroy(self._srv)
             self._srv = None
 

@@ -10,6 +10,14 @@ CPU tests import every module on a machine with no ``nvcc``.
 
 Every kernel wrapper counts its launches here, in :data:`LAUNCHES`.
 
+Two C++ sources link to libtorch and are built with ``g++`` beside the
+kernels, all started together (:data:`TORCH_SOURCES`): ``torch_ops.cpp``,
+the serving lookups as ``torch.library`` operators (loaded and bound by
+``ops/custom_ops.py``), and ``host/aoti_executor.cpp``, the AOTInductor
+executor and its loop.  Their flags follow the installed torch: its C++
+ABI (``torch._C._GLIBCXX_USE_CXX11_ABI``), its include directories and an
+rpath to its libraries; their library names hash the flags too.
+
 The serving tier's host library (``csrc/host/*.cpp``: the batching
 queue, the TCP front end and the id transformers) is C++ for the CPU,
 built the same way with ``g++`` by :func:`load_host_library`.
@@ -32,6 +40,10 @@ CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
+# the C++ compiler of every host-side build: the libraries here and
+# export_native's AOTInductor package, which links OpenMP.  The one on
+# PATH, not $CXX: that may name a compiler that cannot link OpenMP.
+CXX = "g++"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -77,7 +89,32 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "dedup_fused_update_info": (_I, _I, _I, _I, _O),
     },
 }
-SOURCES = tuple(_SIGNATURES)
+# the libtorch-linked libraries: C entry point -> (argtypes, restype)
+_TORCH_SIGNATURES: Dict[str, Dict[str, Tuple]] = {
+    "torch_ops.cpp": {
+        "trt_ops_bind": ((ctypes.c_char_p, _P), _I),
+        "trt_ops_launches": ((ctypes.c_char_p,), _L),
+        "trt_ops_reset_launches": ((), None),
+    },
+    "host/aoti_executor.cpp": {
+        "trt_aoti_open": ((ctypes.c_char_p, _I, _I, _I,
+                           ctypes.POINTER(ctypes.c_char_p),
+                           ctypes.POINTER(_P), _O, _O,
+                           ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_int64, ctypes.c_int64),
+                          _P),
+        "trt_aoti_last_error": ((), ctypes.c_char_p),
+        "trt_aoti_run": ((_P, _P, _P, _P, _P, ctypes.c_int64),
+                         ctypes.c_int64),
+        "trt_aoti_run_error": ((_P,), ctypes.c_char_p),
+        "trt_aoti_close": ((_P,), None),
+        "trt_aoti_loop_start": ((_P, _P, _P, _P, _P), _P),
+        "trt_aoti_loop_stats": ((_P, ctypes.POINTER(ctypes.c_int64)), None),
+        "trt_aoti_loop_stop": ((_P,), None),
+    },
+}
+TORCH_SOURCES = tuple(_TORCH_SIGNATURES)
+SOURCES = tuple(_SIGNATURES) + TORCH_SOURCES
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -99,23 +136,56 @@ def _nvcc() -> str:
     return path
 
 
+def _torch_flags() -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(compile, link) g++ flags of a libtorch-linked source: torch's C++
+    ABI and include directories; its libraries (``torch_cuda`` too where
+    torch has it) and an rpath to them."""
+    root = os.path.dirname(torch.__file__)
+    inc, lib = os.path.join(root, "include"), os.path.join(root, "lib")
+    libs = ("-ltorch", "-ltorch_cpu", "-lc10")
+    if os.path.exists(os.path.join(lib, "libtorch_cuda.so")):
+        libs += ("-ltorch_cuda", "-lc10_cuda")
+    return (("-O2", "-std=c++17", "-shared", "-fPIC",
+             f"-D_GLIBCXX_USE_CXX11_ABI="
+             f"{int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+             f"-I{inc}", f"-I{os.path.join(inc, 'torch/csrc/api/include')}"),
+            (f"-L{lib}", f"-Wl,-rpath,{lib}", *libs, "-lpthread"))
+
+
 def _library_path(source: str) -> str:
     h = hashlib.sha256()
-    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
-    for name in [source, *headers]:
+    if source in TORCH_SOURCES:
+        compile_flags, link_flags = _torch_flags()
+        h.update(" ".join((torch.__version__, *compile_flags,
+                           *link_flags)).encode())
+        names = [source]
+    else:
+        names = [source, *sorted(n for n in os.listdir(CSRC_DIR)
+                                 if n.endswith(".cuh"))]
+    for name in names:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:16]
-    stem = os.path.splitext(source)[0]
+    stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+
+
+def _build_command(source: str, out: str) -> list:
+    """nvcc for a kernel source, g++ for a libtorch-linked one."""
+    src = os.path.join(CSRC_DIR, source)
+    if source in TORCH_SOURCES:
+        compile_flags, link_flags = _torch_flags()
+        return [CXX, *compile_flags, "-o", out, src, *link_flags]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
 
 
 def load_libraries(sources: Sequence[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
     """Compile the ``csrc/`` sources that have no current build, one
-    ``nvcc`` per source, all started together, then load each library with
-    every entry point's ``argtypes``/``restype`` declared.  Returns
-    source -> library; raises after every build has ended if one
-    failed."""
+    compiler per source (``nvcc`` for a kernel, ``g++`` for a
+    :data:`TORCH_SOURCES` one), all started together, then load each
+    library with every entry point's ``argtypes``/``restype`` declared
+    (loading ``torch_ops.cpp`` registers its operators).  Returns source
+    -> library; raises after every build has ended if one failed."""
     with _LOCK:
         todo = [s for s in sources if s not in _LIBS]
         paths = {s: _library_path(s) for s in todo}
@@ -123,35 +193,44 @@ def load_libraries(sources: Sequence[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
         for s in todo:
             if s not in missing:
                 BUILD_INFO[s] = {"seconds": 0.0, "log": ""}
+        # every compiler is found (or its absence raises) before anything
+        # is written or started
+        cmds = {s: _build_command(s, f"{paths[s]}.{os.getpid()}.tmp")
+                for s in missing}
         if missing:
-            nvcc = _nvcc()
             os.makedirs(BUILD_DIR, exist_ok=True)
         builds = {}
-        for s in missing:
+        for s, cmd in cmds.items():
             tmp = f"{paths[s]}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, s)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
-            builds[s] = (proc, tmp, time.perf_counter())
+            builds[s] = (proc, tmp, time.perf_counter(), cmd[0])
         failed = []
-        for s, (proc, tmp, t0) in builds.items():
+        for s, (proc, tmp, t0, compiler) in builds.items():
             log, _ = proc.communicate()
             BUILD_INFO[s] = {"seconds": time.perf_counter() - t0, "log": log}
             if proc.returncode != 0:
-                failed.append(f"nvcc failed on {s} (exit {proc.returncode}):"
-                              f"\n{log}")
+                failed.append(f"{os.path.basename(compiler)} failed on {s} "
+                              f"(exit {proc.returncode}):\n{log}")
             else:
                 os.replace(tmp, paths[s])
         if failed:
             raise RuntimeError("\n".join(failed))
         for s in todo:
             lib = ctypes.CDLL(paths[s])
-            for name, argtypes in _SIGNATURES[s].items():
+            for name, sig in _signatures(s).items():
                 fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.argtypes, fn.restype = list(sig[0]), sig[1]
             _LIBS[s] = lib
         return {s: _LIBS[s] for s in sources}
+
+
+def _signatures(source: str) -> Dict[str, Tuple]:
+    """C entry point -> (argtypes, restype) of one source's library."""
+    if source in TORCH_SOURCES:
+        return _TORCH_SIGNATURES[source]
+    return {name: (argtypes, ctypes.c_int)
+            for name, argtypes in _SIGNATURES[source].items()}
 
 
 def load_library(source: str) -> ctypes.CDLL:
@@ -238,7 +317,7 @@ def load_host_library() -> ctypes.CDLL:
                 fcntl.flock(lock, fcntl.LOCK_EX)
                 if not os.path.exists(path):
                     tmp = f"{path}.{os.getpid()}.tmp"
-                    cmd = ["g++", *GXX_FLAGS, "-o", tmp,
+                    cmd = [CXX, *GXX_FLAGS, "-o", tmp,
                            *(os.path.join(HOST_DIR, s) for s in HOST_SOURCES),
                            "-lpthread"]
                     proc = subprocess.run(cmd, capture_output=True,

@@ -33,7 +33,13 @@ Replaces, from the JAX package's ``torchrec_tpu/ops/pallas_tbe.py``:
 The kernels are CUDA C++ in ``torchrec_tpu_torch/csrc/tbe_float.cu``,
 ``tbe_quant.cu`` and ``tbe_dedup.cu`` (their headers say what bounds them
 and how they are laid out), built and loaded by ``ops/_native.py``, which
-also keeps the launch counts that this module re-exports.  Each wrapper:
+also keeps the launch counts that this module re-exports.  The serving
+path's grouped lookups (B3, B5 and the grouped float B1 and B4) and the
+per-table B3/B5 launch through the ``trt::`` operators of
+``ops/custom_ops.py`` (``csrc/torch_ops.cpp``), so that eager calls and an
+exported program (``inference/predict_factory.py::export_native``) run one
+code path to the same kernels; under ``torch.export`` on the CPU their
+plain versions trace with static shapes.  Each wrapper:
 
 * checks devices, dtypes, shapes and contiguity;
 * on CPU tensors runs its plain version (``*_plain``) and launches
@@ -57,7 +63,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from torchrec_tpu_torch.ops import _native
+from torchrec_tpu_torch.ops import _native, custom_ops
 from torchrec_tpu_torch.ops._native import (  # noqa: F401 (re-exported)
     FLOAT_DTYPES,
     LAUNCHES,
@@ -73,7 +79,6 @@ from torchrec_tpu_torch.ops.embedding_ops import (  # noqa: F401
     run_sums,
 )
 
-_SOURCE = "tbe_quant.cu"
 _FLOAT_SOURCE = "tbe_float.cu"
 # the regions one float-lookup launch takes (kMaxRegions in tbe_float.cu)
 _MAX_REGIONS = 128
@@ -644,6 +649,38 @@ def _grouped_pool_plain(
     return out
 
 
+def _grouped_pool_static(
+    values: torch.Tensor,
+    lengths: torch.Tensor,
+    cap_offsets: Sequence[int],
+    features: Sequence,
+    out: torch.Tensor,
+    slot_rows,
+) -> torch.Tensor:
+    """The grouped plain versions as ``torch.export`` traces them: static
+    shapes and no host read.  Every slot of a feature's region is a row of
+    ``slot_rows(i, f, pos)`` (MEAN features weighted by ``1/len``), added
+    by ``index_add_`` to the row of the example that owns it; row ``B``
+    collects the slots no example owns.  The same function as
+    :func:`_grouped_pool_plain`, its sums in the order of ``index_add_``
+    (not bitwise the kernels': the card path compiles the kernels'
+    operators instead)."""
+    B, K = out.shape[0], len(cap_offsets) - 1
+    ends = group_ends(lengths, K, B).to(torch.int64)
+    for i, f in enumerate(features):
+        lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
+        b = _slot_examples(ends[f.key], hi - lo)
+        v = slot_rows(i, f, torch.arange(lo, hi, device=values.device))
+        if f.mean:
+            f_len = lengths[f.key * B:(f.key + 1) * B]
+            inv = torch.where(
+                f_len > 0, 1.0 / f_len.clamp(min=1).to(torch.float32), 0.0)
+            v = v * torch.cat([inv, inv.new_zeros(1)])[b][:, None]
+        pooled = v.new_zeros((B + 1, v.shape[1])).index_add_(0, b, v)
+        out[:, f.col:f.col + v.shape[1]] = pooled[:B]
+    return out
+
+
 def quant_pooled_lookup_int8_grouped_plain(
     values: torch.Tensor,
     lengths: torch.Tensor,
@@ -658,8 +695,9 @@ def quant_pooled_lookup_int8_grouped_plain(
         r = values[pos].to(torch.int64).clamp(0, f.q.shape[0] - 1)
         return _dequant(f.q[r], f.scale[r], f.bias[r])
 
-    return _grouped_pool_plain(values, lengths, cap_offsets, features, out,
-                               slot_rows)
+    pool = (_grouped_pool_static if torch.compiler.is_compiling()
+            else _grouped_pool_plain)
+    return pool(values, lengths, cap_offsets, features, out, slot_rows)
 
 
 def group_keys_plain(
@@ -697,7 +735,16 @@ def dedup_quant_pooled_lookup_grouped_plain(
     """Plain version of :func:`dedup_quant_pooled_lookup_grouped`: the
     sized sort-unique over (feature, id) keys, each distinct row unpacked
     and dequantized once, re-expanded per slot through the inverse index
-    and pooled per example in slot order."""
+    and pooled per example in slot order.  Traced (``torch.export``), each
+    slot's row is unpacked and dequantized where it stands: the same
+    values, with static shapes."""
+    if torch.compiler.is_compiling():
+        def slot_row(i, f, pos):
+            r = values[pos].to(torch.int64).clamp(0, f.q.shape[0] - 1)
+            return _dequant(unpack_rows(f.q[r], bits), f.scale[r], f.bias[r])
+
+        return _grouped_pool_static(values, lengths, cap_offsets, features,
+                                    out, slot_row)
     keys = group_keys_plain(values, lengths, cap_offsets, features,
                             out.shape[0])
     ukeys, inv = sized_unique(keys)
@@ -902,16 +949,16 @@ def pooled_lookup_regions(
                          out_dtype)
 
 
-def _feature_array(features: Sequence, cap_offsets: Sequence[int]):
-    """The C entry points' host array of a group: per feature its table's
-    pointers and rows, its region (start, cap), its lengths row, its first
-    output column and its MEAN flag (9 int64 each)."""
-    vals = []
-    for f in features:
-        lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
-        vals += [f.q.data_ptr(), f.scale.data_ptr(), f.bias.data_ptr(),
-                 f.q.shape[0], lo, hi - lo, f.key, f.col, int(f.mean)]
-    return (ctypes.c_longlong * len(vals))(*vals)
+def _count(name: str) -> None:
+    """Count a launch of an eager call; a traced call (``torch.export``)
+    launches nothing."""
+    if not torch.compiler.is_compiling():
+        count_launch(name)
+
+
+def _tables(features: Sequence) -> Tuple[list, list, list]:
+    return ([f.q for f in features], [f.scale for f in features],
+            [f.bias for f in features])
 
 
 def _slot_stream(q, scale, bias) -> Tuple[GroupFeature]:
@@ -920,18 +967,12 @@ def _slot_stream(q, scale, bias) -> Tuple[GroupFeature]:
     return (GroupFeature(q, scale, bias, key=0, col=0),)
 
 
-def _launch_q8(features, cap_offsets, B, D, ids, w, ends, out) -> None:
-    lib = _native.load_library(_SOURCE)
-    dev = out.device
-    with torch.cuda.device(dev):
-        err = lib.q8_pooled(
-            _feature_array(features, cap_offsets), len(features), B, D,
-            out.stride(0), ids.data_ptr(),
-            None if w is None else w.data_ptr(), ends.data_ptr(),
-            out.data_ptr(), _stream_ptr(dev),
-        )
-    _native.check_launch("q8_pooled", err)
-    count_launch("quant_pooled_lookup_int8")
+def _launch_q8(features, cap_offsets, ids, w, ends, out) -> None:
+    """B3 through ``trt::q8_pooled``: ``ends`` [K, B] int32."""
+    custom_ops.load_ops()
+    torch.ops.trt.q8_pooled(out, ids, w, ends, *_tables(features),
+                            custom_ops.quant_facts(features, cap_offsets))
+    _count("quant_pooled_lookup_int8")
 
 
 def launch_q8_pooled(
@@ -950,9 +991,9 @@ def launch_q8_pooled(
         return torch.empty((0, D), dtype=torch.float32, device=q.device)
     V = sids.shape[0]
     out = torch.empty((S, D), dtype=torch.float32, device=q.device)
-    _launch_q8(_slot_stream(q, scale, bias), (0, V), S, D,
+    _launch_q8(_slot_stream(q, scale, bias), (0, V),
                sids.to(torch.int64).contiguous(), sw.contiguous(),
-               offsets[1:].to(torch.int32), out)
+               offsets[1:].to(torch.int32).view(1, S), out)
     return out
 
 
@@ -1016,33 +1057,21 @@ def launch_q8_grouped(
 ) -> torch.Tensor:
     """Launch the int8 pooled kernel for a group on prepared inputs (int64
     values and the :func:`group_ends` of the lengths); returns ``out``."""
-    _launch_q8(features, cap_offsets, out.shape[0],
-               features[0].q.shape[1], ids, None, ends, out)
+    _launch_q8(features, cap_offsets, ids, None, ends, out)
     return out
 
 
-def _launch_dedup_q(features, cap_offsets, B, D, bits, ukeys, inv, w, ends,
+def _launch_dedup_q(features, cap_offsets, bits, ukeys, inv, w, ends,
                     out) -> None:
-    """Dedup launches 2 and 3: gather the distinct rows into a scratch,
-    pool through the inverse index."""
-    lib = _native.load_library(_SOURCE)
-    dev = out.device
-    N = ukeys.shape[0]
-    Dp = features[0].q.shape[1]
-    feats = _feature_array(features, cap_offsets)
-    rows = torch.empty((N, D), dtype=torch.float32, device=dev)
-    stream = _stream_ptr(dev)
-    with torch.cuda.device(dev):
-        err = lib.dedup_q_gather(feats, len(features), D, Dp, bits,
-                                 ukeys.data_ptr(), rows.data_ptr(), N, stream)
-        _native.check_launch("dedup_q_gather", err)
-        err = lib.dedup_q_pool(
-            feats, len(features), B, D, out.stride(0), inv.data_ptr(),
-            None if w is None else w.data_ptr(), ends.data_ptr(),
-            rows.data_ptr(), out.data_ptr(), stream,
-        )
-        _native.check_launch("dedup_q_pool", err)
-    count_launch("dedup_quant_pooled_lookup")
+    """Dedup launches 2 and 3 through ``trt::dedup_q_gather`` (the
+    distinct rows into a scratch) and ``trt::dedup_q_pool`` (pooled
+    through the inverse index); ``ends`` [K, B] int32."""
+    custom_ops.load_ops()
+    tables = _tables(features)
+    facts = custom_ops.quant_facts(features, cap_offsets)
+    rows = torch.ops.trt.dedup_q_gather(ukeys, *tables, facts, bits)
+    torch.ops.trt.dedup_q_pool(out, inv, w, ends, rows, *tables, facts)
+    _count("dedup_quant_pooled_lookup")
 
 
 def launch_dedup_q(
@@ -1064,9 +1093,9 @@ def launch_dedup_q(
         return torch.empty((0, D), dtype=torch.float32, device=packed.device)
     V = ukeys.shape[0]
     out = torch.empty((S, D), dtype=torch.float32, device=packed.device)
-    _launch_dedup_q(_slot_stream(packed, scale, bias), (0, V), S, D, bits,
-                    ukeys, inv, sw.contiguous(), offsets[1:].to(torch.int32),
-                    out)
+    _launch_dedup_q(_slot_stream(packed, scale, bias), (0, V), bits, ukeys,
+                    inv, sw.contiguous(),
+                    offsets[1:].to(torch.int32).view(1, S), out)
     return out
 
 
@@ -1109,18 +1138,11 @@ def dedup_prepare_grouped(
     of :func:`group_ends`, the ``dedup_q_keys`` kernel's key per slot of
     ``values``, and :func:`sized_unique` over them.  Returns (ends, ukeys,
     inv); no host sync."""
-    lib = _native.load_library(_SOURCE)
-    dev = values.device
+    custom_ops.load_ops()
     ends = group_ends(lengths, len(cap_offsets) - 1, B)
-    ids = values.to(torch.int64)
-    keys = torch.empty(values.shape, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.dedup_q_keys(
-            _feature_array(features, cap_offsets), len(features), B,
-            ids.data_ptr(), ends.data_ptr(), keys.data_ptr(), keys.shape[0],
-            _stream_ptr(dev),
-        )
-    _native.check_launch("dedup_q_keys", err)
+    keys = torch.ops.trt.dedup_q_keys(
+        values.to(torch.int64), ends, *_tables(features),
+        custom_ops.quant_facts(features, cap_offsets))
     return (ends, *sized_unique(keys))
 
 
@@ -1136,9 +1158,7 @@ def launch_dedup_q_grouped(
     """Launch the dedup gather and pool kernels of a group on prepared
     inputs (the output of :func:`dedup_prepare_grouped`); returns
     ``out``."""
-    D = features[0].q.shape[1] * (8 // bits)
-    _launch_dedup_q(features, cap_offsets, out.shape[0], D, bits, ukeys,
-                    inv, None, ends, out)
+    _launch_dedup_q(features, cap_offsets, bits, ukeys, inv, None, ends, out)
     return out
 
 
@@ -1306,9 +1326,13 @@ def _slot_examples(ends: torch.Tensor, cap: int) -> torch.Tensor:
     """[cap] int64: the example of each slot of one key's region, whose
     examples' running ends are ``ends`` [B] int64 (example ``b`` owns the
     slots ``[ends[b-1], ends[b])``, cut at the cap); ``B`` for a slot no
-    example owns.  Two ops: an arange and a searchsorted."""
-    pos = torch.arange(cap, dtype=torch.int64, device=ends.device)
-    return torch.searchsorted(ends, pos, right=True)
+    example owns.  The count of ends at or before each slot: a
+    scatter-add of the ends (clipped to the cap) and a cumsum, static
+    shapes and no searchsorted (whose Inductor lowering in torch 2.11
+    refuses a view such as one key's row of ``ends``)."""
+    marks = torch.zeros((cap + 1,), dtype=torch.int64, device=ends.device)
+    marks.scatter_add_(0, ends.clamp(max=cap), torch.ones_like(ends))
+    return torch.cumsum(marks[:cap], 0)
 
 
 def _group_segments(values, lengths, cap_offsets, features, B):
@@ -1355,10 +1379,19 @@ def float_pooled_lookup_grouped_plain(
     """Plain version of :func:`float_pooled_lookup_grouped`: per feature
     the plain version of B1 over its key's region (``kernel="tbe"``) or of
     B4 over its slots (``"dedup"``), into float32, written to ``out[:,
-    col : col + D]``."""
+    col : col + D]``.  Traced (``torch.export``), both kernels' plain
+    versions are one static-shape gather and pool of each feature's slots
+    (B4's function is B1's)."""
     B = out.shape[0]
     if B == 0:
         return out
+    if torch.compiler.is_compiling():
+        def slot_row(i, f, pos):
+            r = values[pos].to(torch.int64).clamp(0, f.table.shape[0] - 1)
+            return f.table[r].to(torch.float32)
+
+        return _grouped_pool_static(values, lengths, cap_offsets, features,
+                                    out, slot_row)
     w = _group_mean_weights(values, lengths, cap_offsets, features, B)
     seg = (_group_segments(values, lengths, cap_offsets, features, B)
            if kernel == "dedup" else None)
@@ -1400,18 +1433,20 @@ def float_pooled_lookup_grouped(
     B, K = out.shape[0], len(cap_offsets) - 1
     if B == 0:
         return out
+    custom_ops.load_ops()
     w = _group_mean_weights(values, lengths, cap_offsets, features, B)
     if kernel == "tbe":
         ends = group_ends(lengths, K, B)
         for f in features:
             lo, hi = cap_offsets[f.key], cap_offsets[f.key + 1]
-            launch_pooled(f.table, values, w, ends[f.key], (lo,), (hi - lo,),
-                          (B,), torch.float32, out[:, f.col:f.col + D])
+            torch.ops.trt.tbe_pooled(out, f.table, values, w, ends,
+                                     [lo, hi - lo, f.key, f.col])
+            _count("pooled_lookup")
         return out
     seg = _group_segments(values, lengths, cap_offsets, features, B)
     ukeys, inv, sw, offsets = dedup_prepare_sized(values, seg, w, K * B)
     for f in features:
-        launch_dedup_pooled(f.table, ukeys, inv, sw,
-                            offsets[f.key * B:(f.key + 1) * B + 1],
-                            torch.float32, out[:, f.col:f.col + D])
+        torch.ops.trt.dedup_pooled(out, f.table, ukeys, inv, sw, offsets,
+                                   [f.key, f.col])
+        _count("dedup_pooled_lookup")
     return out

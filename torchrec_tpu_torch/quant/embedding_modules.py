@@ -20,6 +20,12 @@ KeyedTensor's ``[B, sum D]`` float32 buffer, with no host sync:
 
 The pooled buffer is cast to ``output_dtype`` (float32 by default) last,
 as the JAX collection casts each pooled piece.
+
+``forward`` traces under ``torch.export`` with no graph break and no
+data-dependent shape (the caps and region offsets are Python ints): on
+the card each group is its ``trt::`` operators writing the one buffer
+(``ops/custom_ops.py``), on the CPU the plain versions' static-shape
+form (``inference/predict_factory.py::export_native``).
 """
 
 from __future__ import annotations
