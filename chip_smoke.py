@@ -390,15 +390,17 @@ KERNEL_SOURCES = {
 KERNEL_PATHS = {
     "pooled_lookup": ["train", "ebc", "train_dcn", "app", "sharded",
                       "split", "qcomms", "dmp2d_replicated",
-                      "dmp2d_fully_sharded", "models", "serving_tier"],
+                      "dmp2d_fully_sharded", "models", "serving_tier",
+                      "guarded", "dedup_rw"],
     "fused_sparse_update": ["train", "train_dcn", "app", "sharded", "split",
                             "qcomms", "dmp2d_replicated",
-                            "dmp2d_fully_sharded", "models"],
+                            "dmp2d_fully_sharded", "models", "dedup_rw"],
     "quant_pooled_lookup_int8": ["serving", "serving_tier"],
     "dedup_quant_pooled_lookup": ["serving", "serving_tier"],
-    "dedup_pooled_lookup": ["train_dedup", "ebc", "serving_tier"],
+    "dedup_pooled_lookup": ["train_dedup", "ebc", "serving_tier",
+                            "guarded", "dedup_rw"],
     "dedup_fused_sparse_update": ["train_dedup", "sharded_ec", "seq",
-                                  "seq_sharded"],
+                                  "seq_sharded", "guarded", "dedup_rw"],
 }
 REPLACES = {
     "pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:287",
@@ -2042,6 +2044,518 @@ def train_dedup_phase(dev, flush):
         del pipe, dmp, state
         torch.cuda.empty_cache()
     return main_counts, kernel_rows, check
+
+
+# ---------------------------------------------------------------------------
+# phase: guardrails, the dedup'd row-wise dist and the semi-sync pipeline
+# ---------------------------------------------------------------------------
+
+GUARDED_BUDGET_S = 90
+GUARDED_STEPS = 11  # pipeline steps a run: 1 warm-up and 10 timed
+GUARDED_FACTOR = 8.0  # the undersized arm's dedup_factor
+# injected ids by key (one table-wise, one dedup'd row-wise feature)
+GUARDED_INJECT = {"cat_3": (TRAIN_ROWS, -1, TRAIN_ROWS + 7),
+                  "cat_20": (-5, 2 * TRAIN_ROWS)}
+
+
+def build_guarded(dev, keys, caps, guardrails=None, factor=1.0,
+                  tw_only=False):
+    """``build_dedup_trainer``'s model and stream caps on the plan of the
+    guarded phase: the first half of the tables table-wise, the rest
+    row-wise with ``dedup`` (``dedup_factor`` ``factor``), or every table
+    table-wise; one rank, the dedup kernels, ``guardrails`` on the DMP.
+    Returns the DMP and its state (the same tables for every plan)."""
+    import torch
+
+    from torchrec_tpu_torch.models.dlrm import DLRM
+    from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+    from torchrec_tpu_torch.ops.fused_update import FusedOptimConfig
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+    from torchrec_tpu_torch.parallel.types import (
+        ParameterSharding,
+        ShardingType as ST,
+    )
+
+    tables = tuple(
+        EmbeddingBagConfig(num_embeddings=TRAIN_ROWS, embedding_dim=DIM,
+                           name=f"t_{k}", feature_names=[k])
+        for k in keys)
+    half = len(tables) // 2
+    plan = {t.name: (ParameterSharding(ST.TABLE_WISE, ranks=[0])
+                     if tw_only or i < half else
+                     ParameterSharding(ST.ROW_WISE, ranks=[0], dedup=True,
+                                       dedup_factor=factor))
+            for i, t in enumerate(tables)}
+    model = DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                 dense_dtype=torch.bfloat16)
+    dmp = DistributedModelParallel(
+        model, tables, plan, TRAIN_BATCH, dict(zip(keys, caps)),
+        fused_config=FusedOptimConfig(learning_rate=TRAIN_LR),
+        dense_optimizer=adagrad(TRAIN_LR), device=dev,
+        lookup_kernel="dedup", update_kernel="dedup", guardrails=guardrails)
+    return dmp, dmp.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def _poisoned(batch, inject):
+    """``batch`` with the first real ids of each key of ``inject``
+    replaced by its ids."""
+    import dataclasses
+
+    import torch
+
+    kjt = batch.sparse_features
+    values = kjt.values().clone()
+    for key, ids in inject.items():
+        start = kjt.cap_offsets()[kjt.keys().index(key)]
+        values[start:start + len(ids)] = torch.tensor(ids,
+                                                      dtype=values.dtype)
+    return dataclasses.replace(batch, sparse_features=kjt.with_values(values))
+
+
+def _b6_call(fn, stack, states, sg, lr, optim="rowwise_adagrad"):
+    """``fn`` (B6's wrapper or plain version) on a stack and its states,
+    in place, round to nearest."""
+    return fn(stack, states, sg.ids, sg.valid, sg.segments, sg.weights,
+              sg.grad_seg, optim, lr, EPS, 0.0, (0.9, 0.999), (1.0, 1.0),
+              None)
+
+
+def _touched_masks(dmp, batch):
+    """{group: bool [stack rows] on the card}: the rows the batch's valid
+    ids read (host arithmetic from the batch's ids)."""
+    import torch
+
+    ebc = dmp.sharded_ebc
+    kjt = batch.sparse_features
+    lens, values = kjt.lengths().cpu().numpy(), kjt.values().cpu().numpy()
+    B = kjt.stride()
+    masks = {name: np.zeros(ebc.local_rows(name), bool)
+             for name in ebc.group_names}
+    for f, key in enumerate(kjt.keys()):
+        start = kjt.cap_offsets()[f]
+        ids = values[start:start + int(lens[f * B:(f + 1) * B].sum())]
+        ids = ids[(ids >= 0) & (ids < TRAIN_ROWS)]
+        group, rows, _ = ebc.stack_rows_for_table(f"t_{key}", ids)
+        masks[group][rows] = True
+    return {n: torch.from_numpy(m).to(dmp.device) for n, m in masks.items()}
+
+
+def guarded_kernel_check(dmp, state, batch, flush):
+    """The kernels of the guarded path at its shapes (the first batch's
+    bucketed signature): B1 over the dedup'd group's returned rows (the
+    source pooling), B4 over the table-wise group's slots, and B6 on each
+    group's gradient of that step, each ``torch.equal`` to its plain
+    version; their card-alone times and bounds.  Returns the records."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops.embedding_ops import (
+        sequence_embedding_lookup,
+    )
+    from torchrec_tpu_torch.parallel.sharding.rw import _source_regions
+
+    dev_batch, clone, sig = bucketed_batch(dmp, batch, dmp.device)
+    ebc = clone.sharded_ebc
+    with torch.no_grad():
+        kt, ctxs = clone.sparse_forward(state, dev_batch)
+    _, _, _, grads = clone.dense_forward_backward(state, dev_batch, kt)
+    sgs = ebc.backward_local(ctxs, grads, clone.env)
+    kjt = dev_batch.sparse_features
+    recs = []
+    for kind, name, lay in ebc.sharded_groups():
+        stack = state["tables"][name]
+        R, D = stack.shape
+        if kind == "rw":  # the source pooling over the returned rows
+            ids_recv, valid_recv, sidx, _, w, _ = ctxs[name]
+            rows = sequence_embedding_lookup(stack, ids_recv.reshape(-1),
+                                             valid_recv.reshape(-1))
+            table = torch.cat([rows, rows.new_zeros((1, D))])
+            regions = _source_regions(lay, kjt)
+            segs = regions.segment_ids(sidx.shape[0])
+
+            def lookup():
+                return tbe.pooled_lookup_regions(table, sidx, regions, w)
+
+            ref = tbe.pooled_lookup_regions_plain(table, sidx, regions, w)
+            lk, ids, S = "pooled_lookup", sidx, regions.num_segments
+        else:  # B4 over the table-wise group's slots
+            ids, w, segs, regions = ctxs[name]
+            S, table = regions.num_segments, stack
+
+            def lookup():
+                return tbe.dedup_pooled_lookup(table, ids, segs, S, w)
+
+            ref = tbe.dedup_pooled_lookup_plain(table, ids, segs, S, w)
+            lk = "dedup_pooled_lookup"
+        got = lookup()
+        sorted_eq = None
+        if kind == "rw":  # the backward's sum by send slot (sorted entry)
+            g_cat = torch.cat([grads[f.name].float() for f in lay.features])
+            seg_g, sent = ctxs[name][3], ctxs[name][0].numel()
+            sorted_eq = bool(torch.equal(
+                tbe.pooled_lookup(g_cat, seg_g, sidx, sent, w),
+                tbe.pooled_lookup_plain(g_cat, seg_g, sidx, sent, w)))
+            del g_cat
+        sg = sgs[name]
+        mom = state["fused"][name]["momentum"]
+        outs = []
+        for fn in (tbe_backward.dedup_fused_sparse_update,
+                   tbe_backward.dedup_fused_sparse_update_plain):
+            t, m = stack.clone(), mom.clone()
+            _b6_call(fn, t, [m], sg, TRAIN_LR)
+            outs.append((t, m))
+        torch.cuda.synchronize()
+        look_eq = bool(torch.equal(got, ref))
+        b6_eq = all(torch.equal(a, b) for a, b in zip(*outs))
+        rec = {"phase": "guarded_kernel", "group": name, "kind": kind,
+               "signature_slots": sum(sig), "stack": [R, D],
+               "lookup": lk, "lookup_table_rows": int(table.shape[0]),
+               "slots": int(ids.numel()), "segments": S,
+               "update_valid_slots": int(sg.ok().sum()),
+               f"{lk}_equal": look_eq, "b6_equal": b6_eq,
+               f"{lk}_max_abs_err": float((got.float() - ref.float())
+                                          .abs().max()),
+               "b6_max_abs_err": max(float((a - b).abs().max())
+                                     for a, b in zip(*outs))}
+        if sorted_eq is not None:
+            rec["gradient_sum_b1_sorted_equal"] = sorted_eq
+        del outs, ref
+        if not (look_eq and b6_eq and sorted_eq is not False):
+            raise AssertionError(f"guarded kernel check failed: {rec}")
+        tk, mk = stack.clone(), mom.clone()
+
+        def restore():
+            tk.copy_(stack)
+            mk.copy_(mom)
+
+        def b6():
+            _b6_call(tbe_backward.dedup_fused_sparse_update, tk, [mk], sg,
+                     TRAIN_LR)
+
+        rec[f"{lk}_device_ms"] = cuda_ms(lookup, flush, device_only=True)
+        rec["b6_device_ms"] = cuda_ms(b6, flush, setup=restore,
+                                      device_only=True)
+        _, nbytes, flops = _b1_bound(table.shape[0], D, table.element_size(),
+                                     ids, segs, w, S)
+        rec[f"{lk}_bound_ms"] = _bound(nbytes, flops)[0]
+        _, nbytes, flops = _update_bound(D, stack.element_size(), sg,
+                                         "rowwise_adagrad")
+        rec["b6_bound_ms"] = _bound(nbytes, flops)[0]
+        emit(rec)
+        del tk, mk, got, table
+        recs.append(rec)
+    return recs
+
+
+def _update_kernels_profiled(call):
+    """The pooled and fused-update kernels one ``call`` launches, by a
+    profile: pooled kernels by wrapper, B2 and B6 told apart by the
+    update kernel's ``PER_ID`` template argument (true for B2)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    out, names = {}, set()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for kname, wrapper in POOLED_KERNEL_NAMES.items():
+            if kname in e.name:
+                out[wrapper] = out.get(wrapper, 0) + 1
+        if UPDATE_KERNEL_NAME in e.name:
+            names.add(e.name.split("(")[0])
+            per_id = "true>" in e.name.split("(")[0]
+            k = "fused_sparse_update" if per_id else \
+                "dedup_fused_sparse_update"
+            out[k] = out.get(k, 0) + 1
+    return out, sorted(names)
+
+
+def guarded_phase(dev, flush):
+    """Guardrails over the dedup'd row-wise dist through the bucketed
+    semi-sync pipeline at ``bench.py main()``'s width on ``dedup_batches``'
+    stream: 13 tables table-wise and 13 row-wise with ``dedup`` at one
+    rank, the dedup kernels (B4, B6; B1 pools the dedup'd group at the
+    source), ``GuardrailsConfig(SANITIZE)`` on the DMP and a
+    ``GuardedIterator`` in front.  Hard checks: the kernels at the path's
+    shapes; the dedup'd group's KT = the table-wise plan's; guarded =
+    unguarded (losses, tables); semi-sync = the hand-ordered split steps
+    and != the synchronous bucketed run; the launch counts and a profile
+    (B1, B4 and B6, nothing else); a poisoned batch (``id_violations`` per
+    key, untouched rows unchanged, finite loss, the host tier's SANITIZE
+    and QUARANTINE); ``dedup_factor`` 8 downgrades at least once and
+    factor 1 never drops; ``invalidate_prefetch`` = a fresh pipeline;
+    ``EvalPipelineSparseDist`` = ``make_forward``.  Returns (the main
+    run's launches, the kernel records)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel import train_pipeline as tp
+    from torchrec_tpu_torch.robustness import (
+        GuardedIterator,
+        GuardrailPolicy,
+        GuardrailsConfig,
+        InputGuardrails,
+    )
+
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    stages = {}
+
+    def lap(name, t0):
+        stages[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    keys, caps, batches = dedup_batches()
+    n = GUARDED_STEPS
+    cycle = [batches[i % len(batches)] for i in range(n)]
+    cfg = GuardrailsConfig(policy=GuardrailPolicy.SANITIZE)
+    rows = {k: TRAIN_ROWS for k in keys}
+    dmp_g, st_g = build_guarded(dev, keys, caps, cfg)
+    # check 3: the dedup'd group's pooled output = the table-wise plan's
+    tw, st_tw = build_guarded(dev, keys, caps, tw_only=True)
+    with torch.no_grad():
+        kt_g, _ = dmp_g.sparse_forward(st_g, batches[0].to(dev))
+        kt_tw, _ = tw.sparse_forward(st_tw, batches[0].to(dev))
+    kt_equal = bool(torch.equal(kt_g, kt_tw))
+    if not kt_equal:
+        raise AssertionError("guarded: the dedup'd group's KT != the "
+                             "table-wise plan's")
+    del tw, st_tw, kt_g, kt_tw
+    t0 = lap("setup_and_kt_check_s", t0)
+    kchecks = guarded_kernel_check(dmp_g, st_g, batches[0], flush)
+    t0 = lap("kernel_checks_s", t0)
+
+    def run(pipe, it, steps):
+        """``steps`` progress calls: (the loss tensors, the last metrics,
+        seconds of the timed ones after the first)."""
+        torch.cuda.synchronize()
+        ms = [pipe.progress(it)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ms += [pipe.progress(it) for _ in range(steps - 1)]
+        torch.cuda.synchronize()
+        return [m["loss"] for m in ms], ms[-1], time.perf_counter() - t
+
+    # the main path: the guarded semi-sync pipeline behind GuardedIterator
+    # (its stream runs on into the profiled steps: 1 + 7 calls, and a
+    # pending batch)
+    host = InputGuardrails(cfg, rows)
+    stream = GuardedIterator(
+        iter([batches[i % len(batches)] for i in range(n + 9)]), host)
+    pipe_g = tp.BucketedTrainPipelineSemiSync(dmp_g, st_g,
+                                              _bucketing_config())
+    tbe.reset_launch_counts()
+    loss_g, m_g, dt_g = run(pipe_g, stream, n)
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    # n updates; n + 1 embeddings (the next batch's rides ahead); B1 pools
+    # the dedup'd group at the source in each embedding and sums its
+    # gradients by send slot in each update
+    want = {"pooled_lookup": 2 * n + 1, "dedup_pooled_lookup": n + 1,
+            "dedup_fused_sparse_update": 2 * n}
+    if counts != want:
+        raise AssertionError(f"guarded: {n} steps launched {counts}, want "
+                             f"{want}")
+    if (m_g["id_violations"].any() or int(m_g["dedup_overflow"])
+            or host.sanitized_batches):
+        raise AssertionError(f"guarded: a clean stream flagged: "
+                             f"{m_g['id_violations']}, "
+                             f"{m_g['dedup_overflow']}, "
+                             f"{host.scalar_metrics()}")
+    t0 = lap("guarded_run_s", t0)
+
+    # check 1: unguarded on the same clean stream, the same numbers
+    dmp_u, st_u = build_guarded(dev, keys, caps)
+    pipe_u = tp.BucketedTrainPipelineSemiSync(dmp_u, st_u,
+                                              _bucketing_config())
+    loss_u, m_u, dt_u = run(pipe_u, iter(cycle), n)
+    guarded_equal = (all(torch.equal(a, b) for a, b in zip(loss_g, loss_u))
+                     and _state_equal(pipe_g.state, pipe_u.state))
+    if not guarded_equal:
+        raise AssertionError("guarded: guarded != unguarded on clean batches")
+    t0 = lap("unguarded_run_s", t0)
+
+    profiled, update_names = _update_kernels_profiled(
+        lambda: pipe_g.progress(stream))
+    if profiled != {"pooled_lookup": 2, "dedup_pooled_lookup": 1,
+                    "dedup_fused_sparse_update": 2}:
+        raise AssertionError(f"guarded: a profiled step launched {profiled} "
+                             f"({update_names})")
+    prof = profile_calls({"phase": "guarded_profile", "card": card,
+                          "batch": TRAIN_BATCH},
+                         lambda: pipe_g.progress(stream), 3, "step")
+    # the sanitizer alone on the card
+    from torchrec_tpu_torch.robustness.sanitize import sanitize_kjt
+
+    kjt_dev = batches[0].sparse_features.to(dev)
+    sanitize_ms = cuda_ms(lambda: sanitize_kjt(kjt_dev, rows), flush,
+                          device_only=True)
+    t0 = lap("profile_s", t0)
+
+    # check 2: the hand-ordered split steps, and the synchronous pipeline
+    dmp_h, st_h = build_guarded(dev, keys, caps)
+    cache = tp.BucketedStepCache(dmp_h, _bucketing_config())
+    prepared = []
+    for b in cycle:
+        (rb,), sig = tp._bucketize_locals(cache, [b])
+        prepared.append((rb.to(dev), sig))
+    pending = cache.embed_program(prepared[0][1])(st_h["tables"],
+                                                  prepared[0][0])
+    for i, (b, sig) in enumerate(prepared):
+        nxt = (cache.embed_program(prepared[i + 1][1])(
+            st_h["tables"], prepared[i + 1][0]) if i + 1 < n else None)
+        st_h, _ = cache.dense_program(sig)(st_h, b, *pending)
+        pending = nxt
+    hand_equal = _state_equal(st_h, pipe_u.state)
+    del dmp_h, st_h, cache, prepared, pending
+    dmp_s, st_s = build_guarded(dev, keys, caps)
+    pipe_s = tp.BucketedTrainPipeline(dmp_s, st_s, _bucketing_config())
+    loss_s, _, dt_s = run(pipe_s, iter(cycle), n)
+    stale = not _state_equal(pipe_s.state["tables"], pipe_u.state["tables"])
+    if not (hand_equal and stale):
+        raise AssertionError(f"guarded: semi-sync = hand-ordered "
+                             f"{hand_equal}, differs from sync {stale}")
+    del pipe_s, dmp_s, st_s
+    t0 = lap("hand_and_sync_runs_s", t0)
+
+    # check 6: invalidate_prefetch after a rollback = a fresh pipeline
+    dmp_i, st_i = build_guarded(dev, keys, caps)
+    pipe_a = tp.BucketedTrainPipelineSemiSync(dmp_i, st_i,
+                                              _bucketing_config())
+    it_a = iter(cycle[:5])
+    pipe_a.progress(it_a)
+    saved = _clone_state(pipe_a.state)
+    pipe_a.progress(it_a)
+    pipe_a.state = _clone_state(saved)
+    pipe_a.invalidate_prefetch()
+    pipe_b = tp.BucketedTrainPipelineSemiSync(dmp_i, saved,
+                                              _bucketing_config())
+    it_b = iter(cycle[2:5])
+    replay_equal = all(
+        torch.equal(pipe_a.progress(it_a)["loss"],
+                    pipe_b.progress(it_b)["loss"]) for _ in range(2))
+    replay_equal = replay_equal and _state_equal(pipe_a.state, pipe_b.state)
+    if not replay_equal:
+        raise AssertionError("guarded: invalidate_prefetch != a fresh "
+                             "pipeline from the restored state")
+    del pipe_a, pipe_b, saved, st_i
+    t0 = lap("invalidate_prefetch_s", t0)
+
+    # check 7: the eval pipeline = make_forward, the state unchanged
+    state = pipe_u.state
+    before = _clone_state(state["tables"])
+    fwd = dmp_u.make_forward()
+    ev = tp.EvalPipelineSparseDist(
+        lambda s, b: fwd(s["dense"], s["tables"], b), state, device=dev)
+    it_e = iter(batches[:2])
+    eval_equal = all(
+        torch.equal(ev.progress(it_e),
+                    fwd(state["dense"], state["tables"], b.to(dev)))
+        for b in batches[:2])
+    eval_equal = eval_equal and _state_equal(state["tables"], before)
+    if not eval_equal:
+        raise AssertionError("guarded: eval pipeline != make_forward, or "
+                             "the tables moved")
+    del before, ev
+    t0 = lap("eval_s", t0)
+
+    # check 4: a poisoned batch through the guarded step and the host tier
+    poisoned = _poisoned(batches[1], GUARDED_INJECT)
+    st = pipe_g.state
+    before = _clone_state(st["tables"])
+    masks = _touched_masks(dmp_g, poisoned)
+    st, m = dmp_g.train_step(st, poisoned.to(dev))
+    viol = dict(zip(dmp_g.sharded_ebc.feature_order,
+                    m["id_violations"].tolist()))
+    want_viol = {k: len(GUARDED_INJECT.get(k, ())) for k in keys}
+    untouched_equal = all(
+        torch.equal(before[g][~masks[g]], st["tables"][g][~masks[g]])
+        for g in masks)
+    loss_finite = bool(torch.isfinite(m["loss"]))
+    sanitize_host = InputGuardrails(cfg, rows)
+    repaired = sanitize_host.apply(poisoned)
+    with tempfile.TemporaryDirectory() as qdir:
+        q = InputGuardrails(GuardrailsConfig(
+            policy=GuardrailPolicy.QUARANTINE, quarantine_dir=qdir), rows)
+        kept = list(GuardedIterator(iter([poisoned, batches[2]]), q))
+        quarantine = {"entries": len(q.quarantine),
+                      "kept": len(kept), "skipped": q.quarantined_batches}
+    poison = {"id_violations": {k: v for k, v in viol.items() if v},
+              "injected": {k: v for k, v in want_viol.items() if v},
+              "untouched_rows_equal": untouched_equal,
+              "loss_finite": loss_finite,
+              "host_sanitize": sanitize_host.scalar_metrics(),
+              "host_repaired_clean": sanitize_host.diagnose(repaired) is None,
+              "quarantine": quarantine}
+    if not (viol == want_viol and untouched_equal and loss_finite
+            and sanitize_host.sanitized_batches == 1
+            and poison["host_repaired_clean"]
+            and quarantine == {"entries": 1, "kept": 1, "skipped": 1}):
+        raise AssertionError(f"guarded: poisoned batch checks {poison}")
+    del before, masks
+    t0 = lap("poison_s", t0)
+
+    # check 5: an undersized distinct-id capacity downgrades
+    dmp_8, st_8 = build_guarded(dev, keys, caps, factor=GUARDED_FACTOR)
+    pipe_8 = tp.BucketedTrainPipeline(dmp_8, st_8, _bucketing_config())
+    _, m_8, _ = run(pipe_8, iter(cycle[:4]), 4)
+    downgrades = pipe_8.stats.overflow_fallback_count
+    padding_8 = pipe_8.stats.scalar_metrics()
+    if downgrades < 1 or int(m_u["dedup_overflow"]):
+        raise AssertionError(f"guarded: factor {GUARDED_FACTOR} downgraded "
+                             f"{downgrades} times; dedup_overflow at factor "
+                             f"1 {int(m_u['dedup_overflow'])}")
+    del pipe_8, dmp_8, st_8
+    t0 = lap("undersized_s", t0)
+
+    losses = [float(x) for x in loss_g]
+    seconds = time.perf_counter() - t_phase
+    rec = {"phase": "guarded", "card": card, "batch": TRAIN_BATCH,
+           "plan": {"table_wise": len(keys) // 2,
+                    "row_wise_dedup": len(keys) - len(keys) // 2},
+           "steps": n, "launches": counts,
+           "profiled_launches_one_step": profiled,
+           "update_kernel_names": update_names,
+           "guarded_semi_sync": {"ms_per_step": dt_g * 1e3 / (n - 1),
+                                 "samples_per_s": (n - 1) * TRAIN_BATCH
+                                 / dt_g},
+           "unguarded_semi_sync": {"ms_per_step": dt_u * 1e3 / (n - 1),
+                                   "samples_per_s": (n - 1) * TRAIN_BATCH
+                                   / dt_u},
+           "sync_bucketed": {"ms_per_step": dt_s * 1e3 / (n - 1),
+                             "samples_per_s": (n - 1) * TRAIN_BATCH / dt_s},
+           "sanitize_device_ms": sanitize_ms,
+           "device_idle_share": prof["device_idle_share_of_unprofiled_wall"],
+           "losses": losses, "all_finite": bool(np.isfinite(losses).all()),
+           "sync_losses": [float(x) for x in loss_s],
+           "kt_equal_table_wise": kt_equal,
+           "guarded_equal_unguarded": guarded_equal,
+           "semi_sync_equal_hand_ordered": hand_equal,
+           "semi_sync_differs_from_sync": stale,
+           "invalidate_prefetch_equal_fresh": replay_equal,
+           "eval_equal_make_forward": eval_equal, "poisoned": poison,
+           "undersized": {"dedup_factor": GUARDED_FACTOR,
+                          "overflow_fallback_count": downgrades,
+                          "dedup_overflow_last_step":
+                              int(m_8["dedup_overflow"]),
+                          "padding": padding_8},
+           "dedup_overflow_factor_1": int(m_u["dedup_overflow"]),
+           "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+           "stage_seconds": stages, "seconds": seconds,
+           "budget_s": GUARDED_BUDGET_S}
+    emit(rec)
+    if not rec["all_finite"]:
+        raise AssertionError(f"guarded: losses {losses}")
+    del pipe_g, pipe_u, dmp_g, dmp_u, st, st_g, st_u, state
+    torch.cuda.empty_cache()
+    return counts, kchecks
 
 
 # ---------------------------------------------------------------------------
@@ -4829,17 +5343,20 @@ def bench_tables():
 
 
 def sharded_dmp(dev, plan, batch, caps, env=None, eps=EPS,
-                dense_dtype=None, cls=None, **kw):
+                dense_dtype=None, cls=None, optim="rowwise_adagrad", **kw):
     """The DMP of ``build_trainer`` with ``plan``, on ``env`` (one rank
     when None), and its state from a seeded generator on the card (every
     rank draws the same full tables and keeps its share).  ``eps`` is the
-    fused optimizer's, ``dense_dtype`` the dense part's (bf16 if None);
-    ``cls`` (``DMPCollection``) and ``kw`` (``qcomms``, its strategy and
-    sync interval) go to the constructor."""
+    fused optimizer's, ``optim`` its family, ``dense_dtype`` the dense
+    part's (bf16 if None); ``cls`` (``DMPCollection``) and ``kw``
+    (``qcomms``, its strategy and sync interval) go to the constructor."""
     import torch
 
     from torchrec_tpu_torch.models.dlrm import DLRM
-    from torchrec_tpu_torch.ops.fused_update import FusedOptimConfig
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        FusedOptimConfig,
+    )
     from torchrec_tpu_torch.optim import adagrad
     from torchrec_tpu_torch.parallel.model_parallel import (
         DistributedModelParallel,
@@ -4850,7 +5367,8 @@ def sharded_dmp(dev, plan, batch, caps, env=None, eps=EPS,
                  dense_dtype=dense_dtype or torch.bfloat16)
     dmp = (cls or DistributedModelParallel)(
         model, tables, plan, batch, caps,
-        fused_config=FusedOptimConfig(learning_rate=TRAIN_LR, eps=eps),
+        fused_config=FusedOptimConfig(optim=EmbOptimType(optim),
+                                      learning_rate=TRAIN_LR, eps=eps),
         dense_optimizer=adagrad(TRAIN_LR), device=dev, env=env, **kw)
     return dmp, dmp.init(torch.Generator(device=dev).manual_seed(0))
 
@@ -5102,10 +5620,11 @@ def _rank_device(device_type):
     return dev
 
 
-def sharded_rank(kinds, device_type="cuda"):
+def sharded_rank(kinds, device_type="cuda", dedup_rw_only=False):
     """One rank of the gloo arm (run by ``multiprocess.launch``): every
-    plan of ``kinds`` through the checks of the phase.  Returns its
-    records and launch counts."""
+    plan of ``kinds`` through the checks of the phase, then the stages
+    (``dedup_rw_only``, a development run: that stage alone).  Returns
+    its records and launch counts."""
     import torch
 
     from torchrec_tpu_torch.modules.embedding_modules import (
@@ -5255,16 +5774,23 @@ def sharded_rank(kinds, device_type="cuda"):
         records += [rec] + kchecks
         del dmp, state, weights
         torch.cuda.empty_cache()
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    rec, counts, kchecks = dedup_rw_stage(dev, env, caps, mine, ebc, flush)
+    records += [rec] + kchecks
+    add(counts)
+    if dedup_rw_only:
+        return records, launches
     recs, counts, kchecks = sharded_stages(dev, env, caps, host, mine, refs)
     records += recs + kchecks
-    for k, v in counts.items():
-        launches[k] = launches.get(k, 0) + v
+    add(counts)
     del ebc, flush
     torch.cuda.empty_cache()
     rec, counts, kchecks = seq_sharded_stage(dev, env)
     records += [rec] + kchecks
-    for k, v in counts.items():
-        launches[k] = launches.get(k, 0) + v
+    add(counts)
     records.append(ring_stage(dev, env))
     return records, launches
 
@@ -5565,7 +6091,7 @@ def dmp2d_kernel_check(dmp, state, batch):
     _, _, _, grads = dmp.dense_forward_backward(state, batch, kt)
     stacks = dmp._sparse_params_for_forward(state["tables"])
     fs = dmp._is_fully_sharded
-    sgs = ebc.backward_local(ctxs, grads, dmp.update_kernel, env,
+    sgs = ebc.backward_local(ctxs, grads, env,
                              dp_env=env.global_env if fs else None,
                              dp_divisor=env.num_replicas if fs else 1)
     recs = []
@@ -5944,6 +6470,623 @@ def sharded_stages(dev, env, caps, host, mine, refs):
     add(counts)
     kchecks += checks
     return records, launches, kchecks
+
+
+# -- the dedup'd row-wise dist across the 4 ranks, in the same launch -------
+
+DEDUP_RW_BUDGET_S = 60
+DEDUP_RW_STEPS = 6  # every table row-wise: dedup'd against plain
+DEDUP_MIXED_STEPS = 3  # the mixed plan, guarded against unguarded
+# tests/test_dedup_lookup.py:316-323, the JAX package's dedup-vs-plain bound
+DEDUP_RW_RTOL, DEDUP_RW_ATOL = 1e-5, 1e-6
+DEDUP_POISON_KEY = "cat_0"  # a dedup'd row-wise key of the mixed plan
+# a row's n float32 gradient addends summed in two orders differ by at most
+# 2 (n - 1) u sum ||g||; through rowwise Adagrad's first step (g / rms(g))
+# that moves an element by at most 4 lr (n - 1) u sqrt(D) / c, where
+# c = ||sum g|| / sum ||g|| (the row's cancellation ratio).  A row may leave
+# the bound above only at a step where that reaches DEDUP_RW_ATOL
+DEDUP_RW_U = 2.0 ** -24  # float32's unit roundoff
+# the bucketed semi-sync pipeline on ranks of unequal traffic: rank s % N
+# keeps the first KEEP[1] examples of its batch of step s, the others
+# KEEP[0]; at this factor the heavier rank alone passes the signature's
+# dedup capacity, so every rank must follow it to the full-caps program
+DEDUP_PIPE_FACTOR, DEDUP_PIPE_KEEP, DEDUP_PIPE_STEPS = 8.0, (256, 1024), 4
+
+
+def dedup_plan(kind, tables, n, factor=1.0):
+    """``rw_dedup``: every table row-wise with ``dedup``; ``mixed_dedup``:
+    the sharded phase's mixed plan with ``dedup`` on its row-wise tables;
+    ``factor`` their ``dedup_factor``."""
+    import dataclasses
+
+    from torchrec_tpu_torch.parallel.types import ShardingType
+
+    base = sharded_plan("rw" if kind == "rw_dedup" else "mixed", tables, n)
+    return {name: (dataclasses.replace(ps, dedup=True, dedup_factor=factor)
+                   if ps.sharding_type == ShardingType.ROW_WISE else ps)
+            for name, ps in base.items()}
+
+
+def _measured_duplication(kjt):
+    """Real ids over distinct (feature, id) pairs of a KJT (host)."""
+    lens, values = kjt.lengths().cpu().numpy(), kjt.values().cpu().numpy()
+    B = kjt.stride()
+    real = distinct = 0
+    for f in range(kjt.num_keys):
+        start = kjt.cap_offsets()[f]
+        ids = values[start:start + int(lens[f * B:(f + 1) * B].sum())]
+        real += ids.size
+        distinct += np.unique(ids).size
+    return real / max(1, distinct)
+
+
+def dedup_rw_kernel_check(ded, st_d, p4, st_p, batch, flush):
+    """This rank's kernels of the stage at its shapes: B1 over the rows
+    the dedup'd group got back (its source pooling), B2 on that group's
+    per-id gradients, B4 over the plain row-wise group's received slots
+    and B6 on its gradient, each ``torch.equal`` to its plain version
+    (collectives: every rank calls it).  Returns the records."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops.embedding_ops import (
+        sequence_embedding_lookup,
+    )
+    from torchrec_tpu_torch.parallel.comm import all_to_all
+    from torchrec_tpu_torch.parallel.sharding.rw import _source_regions
+
+    env, recs = ded.env, []
+    for dmp, state, kind in ((ded, st_d, "rw_dedup"), (p4, st_p, "rw")):
+        ebc = dmp.sharded_ebc
+        with torch.no_grad():
+            kt, ctxs = dmp.sparse_forward(state, batch)
+        _, _, _, grads = dmp.dense_forward_backward(state, batch, kt)
+        sgs = ebc.backward_local(ctxs, grads, env)  # collectives
+        (name, lay), = ebc.rw_layouts.items()
+        stack = state["tables"][name]
+        R, D = stack.shape
+        # the kernels run rowwise Adagrad on a fresh momentum
+        mom = torch.zeros(R, dtype=torch.float32, device=stack.device)
+        sg = sgs[name]
+        if kind == "rw_dedup":
+            ids_recv, valid_recv, ids, _, w, _ = ctxs[name]
+            rows = sequence_embedding_lookup(stack, ids_recv.reshape(-1),
+                                             valid_recv.reshape(-1))
+            back = all_to_all(rows.view(tuple(ids_recv.shape) + (D,)), env)
+            table = torch.cat([back.reshape(-1, D), back.new_zeros((1, D))])
+            del rows, back  # 4 ranks share the card: keep one copy
+            regions = _source_regions(lay, batch.sparse_features)
+            segs, S = regions.segment_ids(ids.shape[0]), regions.num_segments
+            got = tbe.pooled_lookup_regions(table, ids, regions, w)
+            ref = tbe.pooled_lookup_regions_plain(table, ids, regions, w)
+            # and the backward's sum by send slot (B1's sorted entry)
+            g_cat = torch.cat([grads[f.name].float() for f in lay.features])
+            seg_g, sent = ctxs[name][3], ids_recv.numel()
+            sorted_eq = bool(torch.equal(
+                tbe.pooled_lookup(g_cat, seg_g, ids, sent, w),
+                tbe.pooled_lookup_plain(g_cat, seg_g, ids, sent, w)))
+            del g_cat
+            lk, upd = "b1", (tbe_backward.fused_sparse_update,
+                             tbe_backward.fused_sparse_update_plain)
+        else:
+            ids, w, segs, regions = ctxs[name]
+            S, table = regions.num_segments, stack
+            got = tbe.dedup_pooled_lookup(table, ids, segs, S, w)
+            ref = tbe.dedup_pooled_lookup_plain(table, ids, segs, S, w)
+            lk, upd = "b4", (tbe_backward.dedup_fused_sparse_update,
+                             tbe_backward.dedup_fused_sparse_update_plain)
+            sorted_eq = True
+        ub = "b2" if kind == "rw_dedup" else "b6"
+        outs = []
+        for fn in upd:
+            t, m = stack.clone(), mom.clone()
+            if ub == "b2":
+                _update_call(fn, t, [m], "rowwise_adagrad", sg, TRAIN_LR,
+                             None, (1.0, 1.0))
+            else:
+                _b6_call(fn, t, [m], sg, TRAIN_LR)
+            outs.append((t, m))
+        torch.cuda.synchronize()
+        rec = {"phase": "dedup_rw_kernel", "rank": env.rank, "plan": kind,
+               "group": name, "stack": [R, D],
+               "lookup_table_rows": int(table.shape[0]),
+               "slots": int(ids.numel()), "segments": S,
+               "update_slots": int(sg.ids.numel()),
+               "update_valid_slots": int(sg.ok().sum()),
+               f"{lk}_equal": bool(torch.equal(got, ref)),
+               f"{ub}_equal": all(torch.equal(a, b) for a, b in zip(*outs)),
+               f"{lk}_max_abs_err": float((got.float() - ref.float())
+                                          .abs().max()),
+               f"{ub}_max_abs_err": max(float((a - b).abs().max())
+                                        for a, b in zip(*outs)),
+               "gradient_sum_b1_sorted_equal": sorted_eq}
+        _, nbytes, flops = _b1_bound(table.shape[0], D, table.element_size(),
+                                     ids, segs, w, S)
+        rec[f"{lk}_bound_ms"] = _bound(nbytes, flops)[0]
+        _, nbytes, flops = _update_bound(D, stack.element_size(), sg,
+                                         "rowwise_adagrad")
+        rec[f"{ub}_bound_ms"] = _bound(nbytes, flops)[0]
+        if not (rec[f"{lk}_equal"] and rec[f"{ub}_equal"] and sorted_eq):
+            raise AssertionError(f"dedup_rw kernel check failed: {rec}")
+        del outs, got, ref, table, sgs, sg, ctxs, kt, grads
+        torch.cuda.empty_cache()  # for the other ranks on the card
+        recs.append(rec)
+    return recs
+
+
+def dedup_update_check(ded, plain, st_d, st_p, batch):
+    """The JAX package's dedup-against-plain contract
+    (``tests/test_dedup_lookup.py:294-330``): one rowwise-Adagrad update
+    (lr 0.05) of copies of the two plans' stacks with each rank's pooled
+    outputs times 2 as the gradients, on ``batch``.  Returns (whether the
+    stacks agree within rtol 1e-5 / atol 1e-6, the largest difference)."""
+    import torch
+
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        FusedOptimConfig,
+    )
+
+    cfg = FusedOptimConfig(optim=EmbOptimType.ROWWISE_ADAGRAD,
+                           learning_rate=0.05)
+    stacks = []
+    for dmp, st in ((ded, st_d), (plain, st_p)):
+        ebc = dmp.sharded_ebc
+        params = {n: t.clone() for n, t in st["tables"].items()}
+        fused = ebc.init_fused_state(cfg, dmp.device)
+        with torch.no_grad():
+            outs, ctxs = ebc.forward_local(params, batch.sparse_features,
+                                           env=dmp.env)
+        ebc.backward_and_update_local(
+            params, fused, ctxs, {f: 2.0 * o.float() for f, o in outs.items()},
+            cfg, env=dmp.env)
+        stacks.append(params)
+    return _local_stacks_close({"tables": stacks[0]}, {"tables": stacks[1]},
+                               DEDUP_RW_RTOL, DEDUP_RW_ATOL)
+
+
+def _local_stacks_close(a, b, rtol, atol):
+    """Whether two states' stacks (one group each, the same layout) agree
+    within the tolerance, and the largest difference."""
+    import torch
+
+    (x,), (y,) = a["tables"].values(), b["tables"].values()
+    return (bool(torch.allclose(x, y, rtol=rtol, atol=atol)),
+            float((x - y).abs().max()))
+
+
+def _row_grad_sums(dmp, state, batch, upstream=None):
+    """The row-wise group's gradient of ``batch`` at ``state``, before the
+    update, on this rank's stack rows: (each row's slot gradients summed
+    in float64, their count, the sum of their norms, the upstream
+    gradients by feature).  ``upstream``: gradients by feature to use in
+    place of the step's own (the group's dist alone then differs)."""
+    import torch
+
+    ebc = dmp.sharded_ebc
+    (name, _), = ebc.rw_layouts.items()
+    R, D = state["tables"][name].shape
+    with torch.no_grad():
+        kt, ctxs = dmp.sparse_forward(state, batch)
+    if upstream is None:
+        _, _, _, upstream = dmp.dense_forward_backward(state, batch, kt)
+    sg = ebc.backward_local(ctxs, upstream, dmp.env)[name]
+    ok = sg.ok()
+    ids, rg = sg.ids[ok].long(), sg.row_grads()[ok].double()
+    g = rg.new_zeros((R, D)).index_add_(0, ids, rg)
+    mass = rg.new_zeros(R).index_add_(0, ids, rg.norm(dim=1))
+    return g, torch.bincount(ids, minlength=R), mass, upstream
+
+
+class _FirstOff:
+    """Per stack row, the step at which two stacks first left the JAX
+    bound (rtol 1e-5 / atol 1e-6) and that step's readings."""
+
+    def __init__(self, R, dev):
+        import torch
+
+        self.step = torch.full((R,), -1, dtype=torch.int64, device=dev)
+        self.at = {}
+
+    def update(self, t, x, y, **readings):
+        import torch
+
+        off = ~torch.isclose(x, y, rtol=DEDUP_RW_RTOL,
+                             atol=DEDUP_RW_ATOL).all(1)
+        new = off & (self.step < 0)
+        self.step[new] = t
+        for k, v in readings.items():
+            if k not in self.at:
+                self.at[k] = torch.zeros_like(v)
+            self.at[k][new] = v[new]
+
+    def record(self, x, y, explained, steps):
+        """Counts, errors and the readings' spread over the rows off."""
+        import torch
+
+        err = (x - y).abs().amax(1)
+        off = self.step >= 0
+        rec = {"rows_off": int(off.sum()), "rows_off_explained": int(
+            (off & explained).sum()), "max_abs_err": float(err.max()),
+            "max_abs_err_rows_in_bound": float(err[~off].max())}
+        if off.any():
+            rec["first_off_step"] = torch.bincount(
+                self.step[off], minlength=steps).tolist()
+            rec["err_median"] = float(err[off].median())
+            for k, v in self.at.items():
+                v = v[off].double()
+                rec[f"{k}_min_median_max"] = [float(v.min()),
+                                              float(v.median()),
+                                              float(v.max())]
+        return rec
+
+
+def dedup_rw_lockstep(ded, st_d, plain, st_p, batches, steps):
+    """``steps`` rowwise-Adagrad train steps of the dedup'd (D) and the
+    plain (P) row-wise plans in lockstep from the same state on the same
+    batches, and a third state (S): the dedup'd tables updated by the
+    dedup'd dist with P's own upstream gradients each step, so that S and
+    P differ only by the order in which the two dists sum a row's slots.
+
+    Before each step it reads, per row, the slot count n, the
+    cancellation ratio c = ||sum g|| / sum ||g|| of P's gradient and the
+    relative difference rho = ||G_D - G_P|| / ||G_P|| of the two runs'
+    float64 row sums (what their dense parts fed them).  Summing n
+    float32 addends in another order moves rowwise Adagrad's first step
+    by at most 4 lr (n - 1) u sqrt(D) / c an element (``DEDUP_RW_U``), a
+    relative gradient difference rho by at most 2 lr sqrt(D) rho.  A row
+    of S may leave the JAX bound only at a step where the first reaches
+    ``DEDUP_RW_ATOL``; a row of D only where the first or the second
+    does.  Raises on a row neither explains, or on losses of D and P
+    further apart than rtol 1e-5.  Returns (D's state, its losses and
+    step seconds, P's step seconds, D's launches, the record)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    (name_d,), (name_p,) = st_d["tables"], st_p["tables"]
+    R, D = st_d["tables"][name_d].shape
+    dev = st_d["tables"][name_d].device
+    ebc = ded.sharded_ebc
+    st_s = {"tables": {name_d: st_d["tables"][name_d].clone()},
+            "fused": ebc.init_fused_state(ded.fused_config, dev)}
+    sp, dp = _FirstOff(R, dev), _FirstOff(R, dev)
+    losses_d, losses_p, dt_d, dt_p, counts, typical = [], [], 0.0, 0.0, {}, []
+    for t in range(steps):
+        b = batches[t % len(batches)]
+        g_p, n, mass, upstream = _row_grad_sums(plain, st_p, b)
+        g_d = _row_grad_sums(ded, st_d, b)[0]
+        norm = g_p.norm(dim=1)
+        typical.append(float(norm[n > 0].median()))
+        c = torch.where(mass > 0, norm / mass.clamp_min(1e-300), 1.0)
+        rho = torch.where(norm > 0, (g_d - g_p).norm(dim=1)
+                          / norm.clamp_min(1e-300),
+                          (g_d - g_p).norm(dim=1).gt(0).double())
+        del g_p, g_d
+        with torch.no_grad():
+            _, ctxs = ded.sparse_forward(st_s, b)
+        ebc.backward_and_update_local(
+            st_s["tables"], st_s["fused"], ctxs, upstream, ded.fused_config,
+            update_kernel=ded.update_kernel, env=ded.env)
+        torch.cuda.synchronize()
+        tbe.reset_launch_counts()
+        t0 = time.perf_counter()
+        st_d, m = ded.train_step(st_d, b)
+        losses_d.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        dt_d += time.perf_counter() - t0
+        for k, v in tbe.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        t0 = time.perf_counter()
+        st_p, m = plain.train_step(st_p, b)
+        losses_p.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        dt_p += time.perf_counter() - t0
+        readings = dict(slots=n, cancellation=c, rho=rho,
+                        grad_norm_over_typical=norm / typical[-1])
+        y = st_p["tables"][name_p]
+        sp.update(t, st_s["tables"][name_d], y, **readings)
+        dp.update(t, st_d["tables"][name_d], y, **readings)
+
+    def reach(first):
+        at = first.at
+        if not at:
+            return torch.zeros(R, dtype=torch.bool, device=dev), None
+        assoc = (4 * TRAIN_LR * (at["slots"] - 1).clamp_min(0) * DEDUP_RW_U
+                 * D ** 0.5 / at["cancellation"].clamp_min(1e-300))
+        up = 2 * TRAIN_LR * D ** 0.5 * at["rho"]
+        return assoc >= DEDUP_RW_ATOL, up >= DEDUP_RW_ATOL
+
+    y = st_p["tables"][name_p]
+    assoc_s, _ = reach(sp)
+    assoc_d, up_d = reach(dp)
+    explained_d = assoc_d if up_d is None else assoc_d | up_d
+    rec = {"typical_row_grad_norm_by_step": typical,
+           "losses_max_rel_diff": float(np.max(np.abs(
+               np.subtract(losses_d, losses_p)) / np.abs(losses_p))),
+           "shared_upstream_vs_plain": sp.record(
+               st_s["tables"][name_d], y, assoc_s, steps),
+           "trained_vs_plain": dp.record(
+               st_d["tables"][name_d], y, explained_d, steps)}
+    if up_d is not None:
+        off = dp.step >= 0
+        rec["trained_vs_plain"]["rows_off_by_upstream_only"] = int(
+            (off & up_d & ~assoc_d).sum())
+    bad = [k for k in ("shared_upstream_vs_plain", "trained_vs_plain")
+           if rec[k]["rows_off"] != rec[k]["rows_off_explained"]]
+    if bad or rec["losses_max_rel_diff"] > DEDUP_RW_RTOL:
+        raise AssertionError(f"dedup_rw rank {ded.env.rank}: {bad} rows "
+                             f"off the plain plan unexplained, or losses "
+                             f"apart: {rec}")
+    del st_s
+    return st_d, losses_d, losses_p, dt_d, dt_p, counts, rec
+
+
+def _thin_batch(batch, keep):
+    """``batch`` (on the host) with the ids of its first ``keep``
+    examples only, the caps kept: a rank with little traffic."""
+    import dataclasses
+
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    kjt = batch.sparse_features
+    B, lens = kjt.stride(), kjt.lengths().numpy().copy()
+    values, w = kjt.values().numpy(), kjt.weights_or_none()
+    vals, ws = [], []
+    for f in range(kjt.num_keys):
+        start = kjt.cap_offsets()[f]
+        n = int(lens[f * B:f * B + keep].sum())
+        vals.append(values[start:start + n])
+        if w is not None:
+            ws.append(w.numpy()[start:start + n])
+        lens[f * B + keep:(f + 1) * B] = 0
+    return dataclasses.replace(
+        batch, sparse_features=KeyedJaggedTensor.from_lengths_packed(
+            kjt.keys(), np.concatenate(vals), lens,
+            np.concatenate(ws) if ws else None, caps=kjt.caps))
+
+
+def bucketed_agreement_check(dev, env, caps, tables, batches):
+    """``BucketedTrainPipelineSemiSync`` on the ``rw_dedup`` plan at
+    ``DEDUP_PIPE_FACTOR`` over a stream where rank ``s % N`` keeps more of
+    its batch than the others (``DEDUP_PIPE_KEEP``): every rank dispatched
+    the signature that the all-gathered occupancies and dedup demands give
+    (the full caps where the largest demand passes the signature's
+    capacity) and counted the same downgrades, some rank's own view
+    differing; at least one step where one rank alone passes the
+    capacity; no id dropped, losses finite.  With the CPU
+    profiler's host ms a batch of ``pipeline/bucketize`` (its occupancy
+    all-gather waits for the card's queue) and ``pipeline/step_dispatch``.
+    Returns the record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchrec_tpu_torch.parallel import train_pipeline as tp
+    from torchrec_tpu_torch.parallel.comm import all_gather
+    from torchrec_tpu_torch.parallel.sharding.rw import dedup_cap_for
+    from torchrec_tpu_torch.sparse.jagged_tensor import bucketed_cap
+
+    t0 = time.perf_counter()
+    r, N = env.rank, env.world_size
+    keys = [f"cat_{i}" for i in range(TRAIN_FEATURES)]
+    stream = [_thin_batch(b.to("cpu"), DEDUP_PIPE_KEEP[int(s % N == r)])
+              for s, b in enumerate(batches[:DEDUP_PIPE_STEPS])]
+    dmp, state = sharded_dmp(dev, dedup_plan("rw_dedup", tables, N,
+                                             DEDUP_PIPE_FACTOR),
+                             TRAIN_BATCH, caps, env)
+    (lay,) = dmp.sharded_ebc.rw_layouts.values()
+    pipe = tp.BucketedTrainPipelineSemiSync(dmp, state)
+    it, sigs, losses, dropped = iter(stream), [], [], []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in stream:
+            before = dict(pipe.stats.dispatch_counts)
+            m = pipe.progress(it)
+            (sig,) = [g for g, c in pipe.stats.dispatch_counts.items()
+                      if c != before.get(g, 0)]
+            sigs.append(list(sig))
+            losses.append(float(m["loss"]))
+            dropped.append(int(m["dedup_overflow"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1  # the profiler's teardown left out
+    host_ms = {e.key: e.cpu_time_total / e.count / 1e3
+               for e in prof.key_averages()
+               if e.key in ("pipeline/bucketize", "pipeline/step_dispatch")}
+    local = torch.tensor(
+        [list(b.sparse_features.occupancy_per_key())
+         + [tp._dedup_demand(lay, [b])] for b in stream], dtype=torch.int64)
+    views = all_gather(local.to(dev), env).cpu().tolist()  # [N][S][F + 1]
+    got = all_gather(torch.tensor(
+        [g + [pipe.stats.overflow_fallback_count] for g in sigs],
+        dtype=torch.int64, device=dev), env).cpu().tolist()
+    full = [caps[k] for k in keys]
+    want, downgrades, split = [], 0, 0
+    for s in range(len(stream)):
+        occ = [v[s][:-1] for v in views]
+        demands = [v[s][-1] for v in views]
+        sig = [bucketed_cap(max(o[f] for o in occ), full[f])
+               for f in range(len(keys))]
+        cap = dedup_cap_for(lay.features, dict(zip(keys, sig)),
+                            lay.block_size, lay.dedup_factor)
+        downgrades += max(demands) > cap
+        want.append(full if max(demands) > cap else sig)
+        own = {tuple(bucketed_cap(x, c) for x, c in zip(o, full))
+               for o in occ}
+        split += len(own) > 1 and min(demands) <= cap < max(demands)
+    agreed = all([g[:-1] for g in rank] == want
+                 and all(g[-1] == downgrades for g in rank) for rank in got)
+    rec = {"phase": "dedup_rw_bucketed", "rank": r, "ranks": N,
+           "note": ONE_CARD, "dedup_factor": DEDUP_PIPE_FACTOR,
+           "keep": list(DEDUP_PIPE_KEEP), "steps": len(stream),
+           "signature_max_by_step": [max(g) for g in sigs],
+           "downgrades": pipe.stats.overflow_fallback_count,
+           "expected_downgrades": downgrades,
+           "steps_where_ranks_split": split,
+           "demands_by_step": [[v[s][-1] for v in views]
+                               for s in range(len(stream))],
+           "ranks_agree": agreed, "dedup_overflow": dropped,
+           "losses": losses, "ms_per_step": wall * 1e3 / len(stream),
+           "host_ms_per_batch": host_ms,
+           "seconds": time.perf_counter() - t0}
+    if not (agreed and split > 0 and downgrades > 0 and not any(dropped)
+            and np.isfinite(losses).all()):
+        raise AssertionError(f"dedup_rw rank {r}: bucketed pipeline {rec}")
+    del pipe, dmp, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dedup_rw_stage(dev, env, caps, mine, ebc, flush):
+    """The dedup'd row-wise dist on the 4 ranks: ``rw_dedup`` (B1 pools at
+    the source and sums the gradients by send slot, B2 updates) and
+    ``mixed_dedup`` (the dedup kernels; guardrails on, against the same
+    plan unguarded).  On each rank's weighted multi-hot batch
+    (``multi_hot_batch``): the KTs ``torch.equal`` to the unsharded
+    collection's; the id dist at most the plain row-wise plan's bytes over
+    the measured duplication; B1, B2, B4 and B6 ``torch.equal`` to their
+    plain versions at this rank's shapes; on the plain row-wise plan B4's
+    KT = B1's.  On the one-id stream (``mine``; at factor 1 a multi-hot
+    step would ship every rank a [4, 26, 25,000, 128] float32 block of
+    rows each way): ``DEDUP_RW_STEPS`` rowwise-Adagrad steps beside the
+    plain row-wise plan, every row off the JAX bound explained
+    (``dedup_rw_lockstep``); the bucketed semi-sync pipeline's signatures
+    agreed across ranks (``bucketed_agreement_check``); guarded =
+    unguarded; a poisoned batch's ``id_violations`` summed over ranks =
+    the injected count.  Returns (record, launches, kernel records)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.qcomm import wire_accounting
+    from torchrec_tpu_torch.robustness import GuardrailsConfig
+
+    t0 = time.perf_counter()
+    r, N = env.rank, env.world_size
+    _, tables = bench_tables()
+    mh_caps, mh_kjt = multi_hot_batch(env)
+    dup = _measured_duplication(mh_kjt)
+    mh = _with_kjt(mine[0], mh_kjt.to(dev))
+    with torch.no_grad():
+        ref_kt = ebc(mh.sparse_features)
+    plain, st_p = sharded_dmp(dev, sharded_plan("rw", tables, N),
+                              TRAIN_BATCH, caps, env)
+    ded, st_d = sharded_dmp(dev, dedup_plan("rw_dedup", tables, N),
+                            TRAIN_BATCH, caps, env)
+    plain_mh, ded_mh = (plain.with_feature_caps(mh_caps),
+                        ded.with_feature_caps(mh_caps))
+    p4_mh = plain.with_feature_caps(mh_caps, "dedup", "dedup")
+    with torch.no_grad():
+        kt_d, _ = ded_mh.sparse_forward(st_d, mh)
+        kt_p, _ = plain_mh.sparse_forward(st_p, mh)
+        kt_4, _ = p4_mh.sparse_forward(st_p, mh)
+    fwd = _kt_check(_kt(ded_mh, kt_d), ref_kt,
+                    group_kind_of_features(ded_mh), exact_all=True)
+    b4_equal = bool(torch.equal(kt_4, kt_p))
+    if not b4_equal:
+        raise AssertionError("dedup_rw: B4's KT != B1's on the plain "
+                             "row-wise plan")
+    ledgers = {}
+    for name, dmp, st in (("plain", plain_mh, st_p), ("dedup", ded_mh, st_d)):
+        with wire_accounting() as led, torch.no_grad():
+            dmp.sparse_forward(st, mh)
+        ledgers[name] = sum(v for k, v in led.items() if ":id_dist" in k)
+    if not 0 < ledgers["dedup"] <= ledgers["plain"] / dup:
+        raise AssertionError(f"dedup_rw: id dist {ledgers} at duplication "
+                             f"{dup}")
+    kchecks = dedup_rw_kernel_check(ded_mh, st_d, p4_mh, st_p, mh, flush)
+    update_close, update_err = dedup_update_check(ded_mh, plain_mh, st_d,
+                                                  st_p, mh)
+    if not update_close:
+        raise AssertionError(f"dedup_rw rank {r}: one multi-hot update off "
+                             f"the plain row-wise plan's by {update_err}")
+    del plain_mh, ded_mh, p4_mh, kt_d, kt_p, kt_4
+    torch.cuda.empty_cache()
+    t_checks = time.perf_counter() - t0
+
+    kchecks += dedup_rw_kernel_check(
+        ded, st_d, plain.with_feature_caps(caps, "dedup", "dedup"), st_p,
+        mine[0], flush)
+    with torch.no_grad():  # one id an example: every sum exact
+        one_id_kt_equal = bool(torch.equal(
+            ded.sparse_forward(st_d, mine[0])[0],
+            plain.sparse_forward(st_p, mine[0])[0]))
+    if not one_id_kt_equal:
+        raise AssertionError(f"dedup_rw rank {r}: one-id KT != plain RW's")
+    # main path 1: rw_dedup, DEDUP_RW_STEPS rowwise-Adagrad steps (B1 +
+    # B2), each beside the plain row-wise plan's on the same batch
+    st_d, loss_d, loss_p, dt_d, dt_p, counts_d, attribution = (
+        dedup_rw_lockstep(ded, st_d, plain, st_p, mine, DEDUP_RW_STEPS))
+    counts_d = {k: v for k, v in counts_d.items() if v}
+    if (counts_d.get("pooled_lookup", 0) < DEDUP_RW_STEPS
+            or counts_d.get("fused_sparse_update", 0) < DEDUP_RW_STEPS
+            or set(counts_d) - {"pooled_lookup", "fused_sparse_update"}):
+        raise AssertionError(f"dedup_rw rank {r}: launched {counts_d}")
+    del plain, st_p, ded, st_d
+    torch.cuda.empty_cache()
+    # main path 1b: the bucketed semi-sync pipeline across the ranks
+    bucketed = bucketed_agreement_check(dev, env, caps, tables, mine)
+
+    # main path 2: mixed_dedup, guarded against unguarded
+    plan = dedup_plan("mixed_dedup", tables, N)
+    kw = dict(lookup_kernel="dedup", update_kernel="dedup")
+    gdmp, st_g = sharded_dmp(dev, plan, TRAIN_BATCH, caps, env,
+                             guardrails=GuardrailsConfig(), **kw)
+    udmp, st_u = sharded_dmp(dev, plan, TRAIN_BATCH, caps, env, **kw)
+    g_mh = gdmp.with_feature_caps(mh_caps)
+    with torch.no_grad():
+        kt_g, _ = g_mh.sparse_forward(st_g, mh)
+    mixed_fwd = _kt_check(_kt(g_mh, kt_g), ref_kt,
+                          group_kind_of_features(g_mh), exact_all=True)
+    del g_mh, kt_g
+    torch.cuda.synchronize()
+    tbe.reset_launch_counts()
+    st_g, loss_g, dt_g = _train_steps(gdmp, st_g, mine, DEDUP_MIXED_STEPS)
+    counts_g = {k: v for k, v in tbe.launch_counts().items() if v}
+    st_u, loss_u, _ = _train_steps(udmp, st_u, mine, DEDUP_MIXED_STEPS)
+    guarded_equal = loss_g == loss_u and _state_equal(st_g, st_u)
+    if (set(counts_g) != {"pooled_lookup", "dedup_pooled_lookup",
+                          "dedup_fused_sparse_update"}
+            or min(counts_g.values()) < DEDUP_MIXED_STEPS):
+        raise AssertionError(f"mixed_dedup rank {r}: launched {counts_g}")
+    poisoned = _poisoned(mine[DEDUP_MIXED_STEPS % len(mine)], {
+        DEDUP_POISON_KEY: (TRAIN_ROWS,) * (r + 1)})
+    _, m = gdmp.train_step(st_g, poisoned)
+    viol = dict(zip(gdmp.sharded_ebc.feature_order,
+                    m["id_violations"].tolist()))
+    injected = N * (N + 1) // 2
+    if not (guarded_equal and viol[DEDUP_POISON_KEY] == injected
+            and sum(viol.values()) == injected):
+        raise AssertionError(f"mixed_dedup rank {r}: guarded = unguarded "
+                             f"{guarded_equal}, violations {viol}")
+    launches = {k: counts_d.get(k, 0) + counts_g.get(k, 0)
+                for k in set(counts_d) | set(counts_g)}
+    rec = {"phase": "dedup_rw", "rank": r, "ranks": N, "backend": "gloo",
+           "note": ONE_CARD, "batch_per_rank": TRAIN_BATCH,
+           "multi_hot_caps": sorted(set(mh_caps.values())),
+           "kt_equal_features": fwd[0], "kt_max_abs_err": fwd[1],
+           "mixed_kt_equal_features": mixed_fwd[0],
+           "b4_kt_equal_b1_plain_rw": b4_equal,
+           "id_dist_bytes_multi_hot": ledgers, "measured_duplication": dup,
+           "rw_dedup_losses": loss_d, "plain_rw_losses": loss_p,
+           "rw_dedup_ms_per_step": dt_d * 1e3 / DEDUP_RW_STEPS,
+           "plain_rw_ms_per_step": dt_p * 1e3 / DEDUP_RW_STEPS,
+           "one_id_kt_equal_plain_rw": one_id_kt_equal,
+           "tables_vs_plain_rw_adagrad": attribution,
+           "multi_hot_update_max_abs_err_vs_plain_rw": update_err,
+           "mixed_dedup_guarded_losses": loss_g,
+           "mixed_dedup_guarded_ms_per_step": dt_g * 1e3 / DEDUP_MIXED_STEPS,
+           "guarded_equal_unguarded": guarded_equal,
+           "poisoned_id_violations": {k: v for k, v in viol.items() if v},
+           "injected_over_ranks": injected,
+           "launches": {"rw_dedup": counts_d, "mixed_dedup": counts_g},
+           "checks_seconds": t_checks,
+           "seconds": time.perf_counter() - t0,
+           "budget_s": DEDUP_RW_BUDGET_S}
+    if not np.isfinite(loss_d + loss_p + loss_g).all():
+        raise AssertionError(f"dedup_rw rank {r}: losses {rec}")
+    del gdmp, udmp, st_g, st_u
+    torch.cuda.empty_cache()
+    return rec, launches, kchecks + [bucketed]
 
 
 # -- the sequence path across the 4 ranks, in the same launch ---------------
@@ -6521,11 +7664,14 @@ def nccl_rank(backend="nccl", device_type="cuda"):
     return rec
 
 
-def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank):
+def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank,
+                  dedup_rw_only=False):
     """The multi-rank phase: the gloo arm's 4 ranks, then the NCCL arm's
     one, each spawned by ``multiprocess.launch`` (the parent built every
     kernel before), each rank's records emitted here beside the card's
-    line.  Returns (the main path's launches, summed over ranks and
+    line.  ``dedup_rw_only`` (a development run): the gloo arm's
+    ``dedup_rw`` stage alone, without its plans, its other stages and the
+    NCCL arm.  Returns (the main path's launches, summed over ranks and
     plans; the kernel checks' records)."""
     import torch
 
@@ -6535,17 +7681,21 @@ def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    results = launch(rank_fn, SHARDED_RANKS, args=(SHARDED_PLANS,),
+    args = ((), "cuda", True) if dedup_rw_only else (SHARDED_PLANS,)
+    results = launch(rank_fn, SHARDED_RANKS, args=args,
                      timeout=SHARDED_TIMEOUT)
     launches: dict = {}
     kchecks = []
     for records, counts in results:
         for rec in records:
             emit({**rec, "card": card})
-        kchecks += [r for r in records if r["phase"] == "sharded_kernel"]
+        kchecks += [r for r in records
+                    if r["phase"] in ("sharded_kernel", "dedup_rw_kernel")]
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     gloo_s = time.perf_counter() - t0
+    if dedup_rw_only:
+        return launches, kchecks
     t0 = time.perf_counter()
     (nccl,) = launch(nccl_fn, 1, timeout=SHARDED_TIMEOUT)
     emit({**nccl, "card": card})
@@ -6631,6 +7781,7 @@ def main() -> None:
     train_launches, train_rows, checks = train_phase(dev, flush)
     ebc_launches, ebc_rows, _ = ebc_phase(dev, flush)
     dedup_launches, dedup_rows, dedup_check = train_dedup_phase(dev, flush)
+    guarded_launches, guarded_rows = guarded_phase(dev, flush)
     dcn_launches, dcn_rows, dcn_check = train_dcn_phase(dev, flush)
     seq_launches, seq_row = seq_phase(dev, flush)
     models_launches, models_checks, fp_err = models_phase(dev, flush)
@@ -6653,6 +7804,7 @@ def main() -> None:
                 + serve_launches[k] + sharded_launches.get(k, 0)
                 + seq_launches.get(k, 0) + models_launches.get(k, 0)
                 + tier_launches.get(k, 0) + native_launches[k]
+                + guarded_launches.get(k, 0)
                 for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows
@@ -6668,6 +7820,12 @@ def main() -> None:
     errs += [(k, c[f"{b}_max_abs_err"]) for c in sharded_checks
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"),
+                          ("dedup_pooled_lookup", "b4"),
+                          ("dedup_fused_sparse_update", "b6"))
+             if f"{b}_max_abs_err" in c]
+    errs += [(k, c[f"{b}_max_abs_err"]) for c in guarded_rows
+             for k, b in (("pooled_lookup", "pooled_lookup"),
+                          ("dedup_pooled_lookup", "dedup_pooled_lookup"),
                           ("dedup_fused_sparse_update", "b6"))
              if f"{b}_max_abs_err" in c]
 
@@ -6737,7 +7895,63 @@ def main() -> None:
     b6["seq"] = {x: seq_row[x] for x in ("ms", "kernel_ms",
                                          "kernel_device_ms", "plain_ms",
                                          "bound_ms", "V", "valid")}
+    # B1, B4 and B6 on the guarded path: the dedup'd group's
+    # source pooling (B1), the table-wise group's lookup (B4), both
+    # groups' updates (B6), card alone
+    for k in summary:
+        rows = {}
+        for r in guarded_rows:
+            if r["lookup"] == k["name"]:
+                rows[r["group"]] = {
+                    "device_ms": r[f"{k['name']}_device_ms"],
+                    "bound_ms": r[f"{k['name']}_bound_ms"],
+                    "slots": r["slots"], "segments": r["segments"]}
+            if k["name"] == "dedup_fused_sparse_update":
+                rows[r["group"]] = {"device_ms": r["b6_device_ms"],
+                                    "bound_ms": r["b6_bound_ms"],
+                                    "valid_slots": r["update_valid_slots"]}
+        if rows:
+            k["guarded"] = rows
     emit({"kernels": summary})
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+DEV_PHASES = ("guarded", "dedup_rw", "sharded")
+
+
+def dev_run(phases) -> None:
+    """A development run of some phases (``--phases guarded,dedup_rw``):
+    the kernels built, then the named phases' records and the usual last
+    line; no ``kernels`` line and not the acceptance run, which is the
+    script with no arguments.  ``dedup_rw`` runs the sharded phase's gloo
+    arm with that stage alone; ``sharded`` runs the whole phase."""
+    import torch
+
+    unknown = set(phases) - set(DEV_PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; choose from "
+                         f"{', '.join(DEV_PHASES)}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device")
+    sys.path.insert(0, ROOT)
+    from torchrec_tpu_torch.ops import _native
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    _native.load_libraries()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "development_run": list(phases)})
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    if "guarded" in phases:
+        guarded_phase(dev, flush)
+    del flush
+    if "sharded" in phases:
+        sharded_phase()
+    elif "dedup_rw" in phases:
+        sharded_phase(dedup_rw_only=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6747,5 +7961,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--one-device-gap"]:
         one_device_gap()
+    elif len(sys.argv) == 3 and sys.argv[1] == "--phases":
+        dev_run(tuple(p for p in sys.argv[2].split(",") if p))
     else:
         main()

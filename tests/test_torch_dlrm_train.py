@@ -357,8 +357,7 @@ def test_dmp_dense_state_holds_no_table():
 def test_unported_paths_raise():
     caps = {k: B * n for k, n in zip(KEYS, IDS)}
     tables = _tables(EmbeddingBagConfig)
-    # a group over two ranks runs its dists on a ShardingEnv, and the
-    # dedup'd row-wise dist is not ported (ROADMAP A7)
+    # a group over two ranks runs its dists on a ShardingEnv
     ebc = ShardedEmbeddingBagCollection.build(
         tables, table_wise_plan(tables), 2, B, caps)
     params = ebc.init_params(torch.Generator().manual_seed(0))
@@ -366,16 +365,21 @@ def test_unported_paths_raise():
                                        num_dense=DENSE_IN)))
     with pytest.raises(ValueError, match="ShardingEnv"):
         ebc.forward_local(params, batch.sparse_features)
+    # the dedup'd row-wise dist is ported: the dedup lookup runs on a
+    # row-wise group (the same sums as the per-id one) and a dedup plan
+    # compiles to a group of its own
     rw = {t.name: ParameterSharding(ShardingType.ROW_WISE, ranks=[0])
           for t in tables}
     rw_ebc = ShardedEmbeddingBagCollection.build(tables, rw, 1, B, caps)
-    with pytest.raises(NotImplementedError, match="A7"):
-        rw_ebc.forward_local(
-            rw_ebc.init_params(torch.Generator().manual_seed(0)),
-            batch.sparse_features, lookup_kernel="dedup")
+    rw_params = rw_ebc.init_params(torch.Generator().manual_seed(0))
+    b4, _ = rw_ebc.forward_local(rw_params, batch.sparse_features,
+                                 lookup_kernel="dedup")
+    b1, _ = rw_ebc.forward_local(rw_params, batch.sparse_features)
+    assert all(torch.equal(b4[f], b1[f]) for f in b1)
     rw[tables[0].name].dedup = True
-    with pytest.raises(NotImplementedError, match="A7"):
-        ShardedEmbeddingBagCollection.build(tables, rw, 1, B, caps)
+    dedup_ebc = ShardedEmbeddingBagCollection.build(tables, rw, 1, B, caps)
+    assert sorted(dedup_ebc.rw_layouts) == [f"rw_d{D}", f"rw_dedup_d{D}"]
+    assert dedup_ebc.rw_layouts[f"rw_dedup_d{D}"].dedup
     # the fused kernels keep float32 optimizer states only (the JAX
     # package's momentum_dtype is not ported): a float64 Adam state raises
     sg = SparseSegGrad(torch.zeros(4, dtype=torch.int64),

@@ -49,7 +49,10 @@ def test_every_module_imports_without_jax():
               "examples.bert4rec.main", "inference.bucketed_serving",
               "inference.mesh", "inference.grpc_server",
               "inference.protos.predictor_pb2", "obs.registry",
-              "ops.custom_ops", "inference.predict_factory"):
+              "ops.custom_ops", "inference.predict_factory", "robustness",
+              "robustness.sanitize", "robustness.policy",
+              "robustness.quarantine", "utils.profiling",
+              "parallel.train_pipeline"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

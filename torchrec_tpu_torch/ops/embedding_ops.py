@@ -14,8 +14,9 @@ The gradient is a ``torch.autograd.Function`` whose backward is the JAX
 package's own for its Pallas forwards (``_pallas_pooled_bwd``,
 ``_pallas_dedup_pooled_bwd``): a scatter-add of the row gradients into
 a dense table gradient, and the weights' gradient only when they need
-one.  Left out: the ``xla``/``xla_dedup`` lookups and their custom VJPs,
-and ``sanitize_ids`` (the traced sanitizer is not ported).
+one.  :func:`sanitize_ids` is the null-row id remap under the traced
+guardrail (``robustness/sanitize.py``).  Left out: the ``xla``/
+``xla_dedup`` lookups and their custom VJPs.
 """
 
 from __future__ import annotations
@@ -352,6 +353,27 @@ class _RegionLookup(torch.autograd.Function):
                                      ctx.needs_input_grad[0],
                                      ctx.needs_input_grad[2])
         return d_table, None, d_w, None
+
+
+def sanitize_ids(
+    ids: torch.Tensor,
+    num_rows: int,
+    weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Null-row id sanitization: invalid ids (negative or ``>= num_rows``)
+    become row 0 with weight 0, so their pooled contribution is exactly
+    ``+0.0`` and no gradient reaches row 0 through them (every backward
+    multiplies by the slot's weight).  ``weights`` default to float32
+    ones.  Returns ``(safe_ids, weights, invalid_mask)``; on valid ids the
+    returned tensors hold the inputs' bits (a ``where`` with an all-False
+    mask).  No host sync."""
+    invalid = (ids < 0) | (ids >= num_rows)
+    safe = torch.where(invalid, torch.zeros_like(ids), ids)
+    if weights is None:
+        weights = torch.ones(ids.shape, dtype=torch.float32,
+                             device=ids.device)
+    w = torch.where(invalid, torch.zeros_like(weights), weights)
+    return safe, w, invalid
 
 
 def sequence_embedding_lookup(

@@ -27,12 +27,13 @@ The states are float32 tensors (the kernels' only momentum dtype) and
 ``step``, the Adam family's count of applied updates, is a Python int (the
 JAX package keeps an int32 array).  :func:`apply_sparse_update` is the
 JAX package's XLA path, ``aggregate_duplicate_rows`` + the optimizer
-math, and is the dedup kernel's plain version.  Left out:
-``SparseSegGrad.row_grads``/``from_row_grads``, ``momentum_dtype``, the
-``stochastic_rounding`` switch (a bfloat16 table rounds stochastically
-whenever the step hands a seed; the noise is the kernels' hash, since
-``jax.random`` has no torch counterpart) and the ``dedup=False`` option
-of ``apply_sparse_update``.
+math, and is the dedup kernel's plain version.
+:meth:`SparseSegGrad.from_row_grads` wraps per-id gradients (the dedup'd
+row-wise dist's) in the segment contract.  Left out (ROADMAP A7's
+remainder): ``momentum_dtype``, the ``stochastic_rounding`` switch (a
+bfloat16 table rounds stochastically whenever the step hands a seed; the
+noise is the kernels' hash, since ``jax.random`` has no torch
+counterpart) and the ``dedup=False`` option of ``apply_sparse_update``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,10 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from torchrec_tpu_torch.ops.embedding_ops import aggregate_duplicate_rows
+from torchrec_tpu_torch.ops.embedding_ops import (
+    aggregate_duplicate_rows,
+    embedding_row_grads,
+)
 from torchrec_tpu_torch.ops.tbe_backward import (
     STATE_LAYOUTS,
     dedup_fused_sparse_update,
@@ -70,6 +74,27 @@ class SparseSegGrad:
         """The slot mask: ``valid`` and a segment in ``[0, S)``."""
         S = self.grad_seg.shape[0]
         return self.valid & (self.segments >= 0) & (self.segments < S)
+
+    def row_grads(self) -> torch.Tensor:
+        """The ``[V, D]`` per-slot row gradients (zero on slots outside
+        :meth:`ok`), for consumers that move gradients between ranks."""
+        S = self.grad_seg.shape[0]
+        segs = torch.where(self.segments >= 0, self.segments, S)
+        rg = embedding_row_grads(self.grad_seg, segs, self.weights)
+        return torch.where(self.ok()[:, None], rg, 0.0)
+
+    @staticmethod
+    def from_row_grads(ids: torch.Tensor, valid: torch.Tensor,
+                       row_grads: torch.Tensor) -> "SparseSegGrad":
+        """Per-id gradients already formed (the dedup'd row-wise dist's,
+        summed over a source's duplicates before the wire) in the
+        segment contract: slot ``v`` is segment ``v``, unweighted, so
+        :meth:`row_grads` is the identity.  Ids may still repeat across
+        sources; the fused update sums those."""
+        V = ids.shape[0]
+        return SparseSegGrad(
+            ids, valid, torch.arange(V, dtype=torch.int32, device=ids.device),
+            None, row_grads)
 
 
 class EmbOptimType(enum.Enum):

@@ -27,13 +27,19 @@ stays float32, as the JAX package's all-reduce of its dense gradient
 takes no codec.
 
 The caller names both kernels (``lookup_kernel``, ``update_kernel``:
-``"tbe"`` or ``"dedup"``).  The dedup kernels run on table-wise groups,
-whose owner's call is the same local call at any world size; on row-wise
-and block-shard groups they belong with the dedup'd row-wise dist
-(ROADMAP A7) and raise.
+``"tbe"`` or ``"dedup"``), on every group: the ragged dedup lookup (B4)
+and update (B6) take a block-split group's received slots as they take a
+table-wise group's.  A row-wise group of the dedup'd input dist
+(``sharding/rw.py``) pools at the source with the per-id lookup (B1)
+whatever the lookup kernel, and its owners update through the caller's
+update kernel; :meth:`~ShardedEmbeddingBagCollection.dedup_overflow`
+sums the distinct ids its capacity dropped.  With ``sanitize``, the
+forward runs the traced id sanitizer (``robustness/sanitize.py``) on the
+batch before any dist, its per-key counts in ``ctxs["__sanitize__"]``,
+and the dedup'd groups drop its null slots before the wire.
 
-Left out: the dedup'd and hierarchical dists, variable-batch (VBE) KJTs
-(ROADMAP A6), the traced id sanitizer and ``dedup_overflow``.
+Left out: the hierarchical dists and variable-batch (VBE) KJTs
+(ROADMAP A6, A8).
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ from torchrec_tpu_torch.parallel.sharding.common import (
 from torchrec_tpu_torch.parallel.sharding.rw import (
     RwGroupLayout,
     rw_backward_local,
+    rw_dedup_backward_local,
+    rw_dedup_forward_local,
     rw_forward_local,
 )
 from torchrec_tpu_torch.parallel.sharding.tw import (
@@ -89,13 +97,6 @@ _BACKWARD = {"tw": tw_backward_local, "rw": rw_backward_local,
              "twrw": twrw_backward_local}
 
 
-def _require_tbe(kernel: str, name: str, what: str) -> None:
-    if kernel != "tbe":
-        raise NotImplementedError(
-            f"group {name}: the {kernel!r} {what} kernel on row-wise groups "
-            "comes with the dedup'd row-wise dist (ROADMAP A7)")
-
-
 @dataclasses.dataclass
 class ShardedEmbeddingBagCollection(GroupedShardingBase):
     """Plan-compiled sharded EBC: build once on the host, then run
@@ -112,6 +113,9 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
     dp_groups: Dict[str, DpGroup]
     feature_order: Tuple[str, ...]  # KJT/KT feature order
     feature_dims: Tuple[int, ...]
+    # per feature its table's rows, and the traced sanitizer's switch
+    feature_rows: Tuple[int, ...] = ()
+    sanitize: bool = False
 
     @staticmethod
     def build(
@@ -122,10 +126,12 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         feature_caps: Dict[str, int],
         qcomms: Optional[QCommsConfig] = None,
         row_align: int = 1,
+        sanitize: bool = False,
     ) -> "ShardedEmbeddingBagCollection":
         """Compile the plan (``grouped.classify_plan``): ``qcomms`` the
         sharded groups' wire precision, ``row_align`` a multiple every
-        sharded stack is rounded up to."""
+        sharded stack is rounded up to, ``sanitize`` the traced id
+        sanitizer in every forward."""
         g = classify_plan(tables, plan, world_size, batch_size, feature_caps,
                           qcomms=qcomms, row_align=row_align)
         return ShardedEmbeddingBagCollection(
@@ -133,7 +139,8 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
             batch_size=batch_size, tw_layouts=g.tw_layouts,
             rw_layouts=g.rw_layouts, twrw_layouts=g.twrw_layouts,
             dp_groups=g.dp_groups, feature_order=g.feature_order,
-            feature_dims=g.feature_dims,
+            feature_dims=g.feature_dims, feature_rows=g.feature_rows,
+            sanitize=sanitize,
         )
 
     def sharded_groups(self):
@@ -154,16 +161,27 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple]]:
         """Input dist + lookup + output dist for every group, on this
         rank's batch and stacks.  Returns ({feature: [B, dim]}, ctx per
-        group).  ``env``: the rank's world (None: one rank)."""
+        group, and ``"__sanitize__"``: the ``[F]`` id violations when the
+        collection sanitizes).  ``env``: the rank's world (None: one
+        rank)."""
         outs: Dict[str, torch.Tensor] = {}
         ctxs: Dict[str, Tuple] = {}
+        if self.sanitize and self.feature_rows:
+            from torchrec_tpu_torch.robustness.sanitize import sanitize_kjt
+
+            kjt, ctxs["__sanitize__"] = sanitize_kjt(
+                kjt, dict(zip(self.feature_order, self.feature_rows)))
         for kind, name, lay in self.sharded_groups():
-            if kind == "tw":
+            if kind == "rw" and lay.dedup:
+                o, ctx = rw_dedup_forward_local(
+                    lay, params[name], kjt, env,
+                    drop_zero_weight=self.sanitize)
+            elif kind == "tw":
                 o, ctx = tw_forward_local(lay, params[name], kjt,
                                           lookup_kernel, env)
             else:
-                _require_tbe(lookup_kernel, name, "lookup")
-                o, ctx = _FORWARD[kind](lay, params[name], kjt, env)
+                o, ctx = _FORWARD[kind](lay, params[name], kjt, env,
+                                        lookup_kernel)
             outs.update(o)
             ctxs[name] = ctx
         for name, g in self.dp_groups.items():
@@ -210,7 +228,6 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         self,
         ctxs: Mapping[str, Tuple],
         grad_by_feature: Mapping[str, torch.Tensor],
-        update_kernel: str = "tbe",
         env: Optional[ShardingEnv] = None,
         dp_env: Optional[ShardingEnv] = None,
         dp_divisor: int = 1,
@@ -222,10 +239,9 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         to step every row (``grouped.step_every_row``)."""
         out: Dict[str, SparseSegGrad] = {}
         for kind, name, lay in self.sharded_groups():
-            if kind != "tw":
-                _require_tbe(update_kernel, name, "update")
-            out[name] = _BACKWARD[kind](lay, ctxs[name], grad_by_feature,
-                                        env)
+            bwd = (rw_dedup_backward_local if kind == "rw" and lay.dedup
+                   else _BACKWARD[kind])
+            out[name] = bwd(lay, ctxs[name], grad_by_feature, env)
         for name, g in self.dp_groups.items():
             sg = self._dp_backward(g, ctxs[name], grad_by_feature,
                                    dp_env or env, dp_divisor)
@@ -252,7 +268,7 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         same on every rank, or the replicas fork.  ``learning_rate``
         overrides ``config``'s for this step (a sparse lr schedule)."""
         seeds = dict(zip(self.group_names, sr_seeds or ()))
-        sgs = self.backward_local(ctxs, grad_by_feature, update_kernel, env)
+        sgs = self.backward_local(ctxs, grad_by_feature, env)
         for name, sg in sgs.items():
             apply_sparse_update_segments(
                 params[name], fused_state[name], sg, config,
@@ -290,6 +306,20 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         if divisor != 1:
             grads = grads / divisor
         return SparseSegGrad(ids, valid, seg, w, grads)
+
+    def dedup_overflow(self, ctxs: Mapping[str, Tuple]
+                       ) -> Optional[torch.Tensor]:
+        """The distinct ids the dedup'd groups' capacities dropped this
+        step (a 0-d int32 on the device, the sum over the groups), or None
+        when no group dedups."""
+        ovs = [ctxs[name][5] for name, lay in self.rw_layouts.items()
+               if lay.dedup]
+        if not ovs:
+            return None
+        total = ovs[0]
+        for o in ovs[1:]:
+            total = total + o
+        return total
 
     def output_kt(self, outs: Mapping[str, torch.Tensor]) -> KeyedTensor:
         """The per-feature pooled outputs as one KeyedTensor."""

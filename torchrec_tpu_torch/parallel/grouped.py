@@ -18,9 +18,17 @@ rejects TABLE_ROW_WISE and GRID_SHARD, which have no sequence variant.
 :func:`step_every_row` makes a data-parallel group's update step every
 row of its stack, as the JAX package's dense all-reduced update does.
 
-Left out: the hierarchical topology (a plan's ``hier`` is ignored), the
-dedup'd row-wise groups (ROADMAP A7) and host-cached tables (ROADMAP A10),
-on which a plan raises, and ``param_specs``.
+A ROW_WISE table whose plan sets ``dedup`` compiles to a row-wise layout
+of the dedup'd input dist, in a group of its own (``rw_dedup_d{dim}``:
+its wire layout differs), whose distinct-id capacity is sized by the
+smallest ``dedup_factor`` its tables claim; a sequence module keeps the
+plain layout, as the JAX package does.  :attr:`GroupedLayouts.
+feature_rows` are the tables' rows in feature order, the bounds of the
+traced id sanitizer.
+
+Left out: the hierarchical topology (a plan's ``hier`` is ignored) and
+host-cached tables (ROADMAP A10), on which a plan raises, and
+``param_specs``.
 """
 
 from __future__ import annotations
@@ -126,6 +134,8 @@ class GroupedLayouts:
     dp_groups: Dict[str, DpGroup]
     feature_order: Tuple[str, ...]
     feature_dims: Tuple[int, ...]
+    # per feature (feature_order) its table's rows: the sanitizer's bounds
+    feature_rows: Tuple[int, ...] = ()
 
 
 def _shard_dim(cfg, n: int) -> int:
@@ -155,7 +165,8 @@ def classify_plan(
         by_table.setdefault(s.table_name, []).append(s)
     tw_feats: Dict[int, List[FeatureSpec]] = {}
     tw_owner: Dict[str, List[int]] = {}
-    rw_feats: Dict[int, List[FeatureSpec]] = {}
+    rw_feats: Dict[Tuple[int, bool], List[FeatureSpec]] = {}
+    rw_dedup_factor: Dict[int, float] = {}
     twrw_feats: Dict[int, List[FeatureSpec]] = {}
     twrw_nodes: Dict[str, List[List[int]]] = {}
     dp_feats: Dict[int, List[FeatureSpec]] = {}
@@ -184,12 +195,15 @@ def classify_plan(
                 tw_feats.setdefault(d, []).append(dataclasses.replace(s,
                                                                       dim=d))
         elif st == ShardingType.ROW_WISE:
-            if ps.dedup:
-                raise NotImplementedError(
-                    f"{cfg.name}: the dedup'd row-wise input dist is not "
-                    "ported (ROADMAP A7)")
+            dedup = bool(ps.dedup) and allow_block_sharding
+            d = cfg.embedding_dim
             for s in feats:
-                rw_feats.setdefault(cfg.embedding_dim, []).append(s)
+                rw_feats.setdefault((d, dedup), []).append(s)
+            if dedup:
+                # one capacity a group: the smallest claimed factor wins
+                rw_dedup_factor[d] = min(
+                    rw_dedup_factor.get(d, float("inf")),
+                    max(1.0, ps.dedup_factor or 1.0))
         elif st in (ShardingType.TABLE_ROW_WISE, ShardingType.GRID_SHARD):
             if not allow_block_sharding:
                 raise NotImplementedError(
@@ -217,10 +231,12 @@ def classify_plan(
         f"tw_d{d}": build_tw_layout(f"tw_d{d}", f, tw_owner, world_size,
                                     batch_size, qcomms, row_align)
         for d, f in sorted(tw_feats.items())}
-    rw_layouts = {
-        f"rw_d{d}": build_rw_layout(f"rw_d{d}", f, world_size, batch_size,
-                                    qcomms, row_align)
-        for d, f in sorted(rw_feats.items())}
+    rw_layouts = {}
+    for (d, dedup), f in sorted(rw_feats.items()):
+        name = f"rw_dedup_d{d}" if dedup else f"rw_d{d}"
+        rw_layouts[name] = build_rw_layout(
+            name, f, world_size, batch_size, qcomms, row_align, dedup=dedup,
+            dedup_factor=rw_dedup_factor.get(d, 1.0))
     twrw_layouts = {
         f"twrw_d{d}": build_twrw_layout(f"twrw_d{d}", f, twrw_nodes,
                                         world_size, batch_size, qcomms,
@@ -252,6 +268,7 @@ def classify_plan(
         twrw_layouts=twrw_layouts, dp_groups=dp_groups,
         feature_order=tuple(s.name for s in specs),
         feature_dims=tuple(s.dim for s in specs),
+        feature_rows=tuple(s.table_rows for s in specs),
     )
 
 

@@ -31,8 +31,8 @@ state is the one passed in.
 
 The kernels are arguments, ``lookup_kernel`` and ``update_kernel``, each
 ``"tbe"`` (the per-id kernels, the default) or ``"dedup"`` (the ragged
-dedup kernels; on table-wise and data-parallel groups only, see
-``parallel/embeddingbag.py``): the port runs eagerly and reads them at
+dedup kernels, on every group; see ``parallel/embeddingbag.py``): the
+port runs eagerly and reads them at
 call time, where the JAX package reads process-wide switches while it
 traces (``set_pooled_lookup_kernel``, ``set_sparse_update_kernel``,
 ``trace_kernels``).  :meth:`with_feature_caps` is the capacity-bucketing
@@ -68,8 +68,16 @@ replica's gradients applied to each slice every step).  The dense
 gradients and the loss are averaged over all ranks; the KT gradient is
 divided by ``world_size``, the model group's size, as in the JAX step.
 
-Left out: guardrails and their metrics, dense rematerialisation and the
-row IO helpers (ROADMAP A7, A10).
+``guardrails`` (a ``robustness.GuardrailsConfig``) with its
+``traced_sanitize`` on runs the traced id sanitizer in every step and
+forward; the step then also returns ``id_violations``, the ``[F]`` int32
+count of ids remapped to the null row, and a plan with a dedup'd
+row-wise group returns ``dedup_overflow``, the distinct ids its wire
+capacity dropped; both summed over ranks like ``id_overflow``, and each
+present exactly when the JAX step emits it.
+
+Left out: dense rematerialisation and the row IO helpers
+(``reset_table_rows`` and the rest, ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -226,8 +234,9 @@ class DistributedModelParallel:
     (``comm.ShardingEnv``); without one the step runs one rank on
     ``device``: CUDA unless the caller names another, and it raises
     without a card.  ``qcomms`` is the sharded groups' wire precision and
-    ``row_align`` a multiple every sharded stack is rounded up to.  Every
-    rank builds the same DMP."""
+    ``row_align`` a multiple every sharded stack is rounded up to;
+    ``guardrails`` the traced sanitizer (module docstring).  Every rank
+    builds the same DMP."""
 
     def __init__(
         self,
@@ -246,6 +255,7 @@ class DistributedModelParallel:
         sparse_lr_schedule: Optional[Schedule] = None,
         qcomms: Optional[QCommsConfig] = None,
         row_align: int = 1,
+        guardrails=None,
     ):
         if table_dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"table_dtype must be float32 or bfloat16, got "
@@ -270,12 +280,21 @@ class DistributedModelParallel:
         self.sparse_lr_schedule = sparse_lr_schedule
         self.qcomms = qcomms
         self.row_align = row_align
+        self.guardrails = guardrails
         self.sharded_ebc = self._build_ebc(self.feature_caps)
+
+    @property
+    def _traced_sanitize(self) -> bool:
+        """Whether the steps run the traced id sanitizer (guardrails with
+        ``traced_sanitize`` on)."""
+        return bool(self.guardrails is not None
+                    and getattr(self.guardrails, "traced_sanitize", False))
 
     def _build_ebc(self, feature_caps) -> ShardedEmbeddingBagCollection:
         return ShardedEmbeddingBagCollection.build(
             self.tables, self.plan, self.env.world_size, self.batch_size,
-            feature_caps, qcomms=self.qcomms, row_align=self.row_align)
+            feature_caps, qcomms=self.qcomms, row_align=self.row_align,
+            sanitize=self._traced_sanitize)
 
     def _set_kernels(self, lookup_kernel: str, update_kernel: str) -> None:
         if lookup_kernel not in POOLED_KERNELS:
@@ -292,7 +311,8 @@ class DistributedModelParallel:
         update_kernel: Optional[str] = None,
     ) -> "DistributedModelParallel":
         """Shallow clone with the group layouts rebuilt for other
-        per-feature id capacities (and, when given, other kernels).
+        per-feature id capacities (and, when given, other kernels), each
+        dedup'd group's distinct-id capacity re-derived from the new caps.
         Capacities shape only the slot geometry; parameters and optimizer
         state are shaped by table rows, so the clone's train step runs on
         the same train state as the original."""
@@ -494,14 +514,32 @@ class DistributedModelParallel:
         overflow = all_reduce_sum(batch.sparse_features.overflow_counts(),
                                   self.env.global_env,
                                   tag="id_overflow:all_reduce")
-        return state, {"loss": loss, "logits": logits,
-                       "labels": batch.labels.reshape(-1),
-                       "id_overflow": overflow}
+        metrics = {"loss": loss, "logits": logits,
+                   "labels": batch.labels.reshape(-1),
+                   "id_overflow": overflow}
+        self._guardrail_metrics(metrics, ctxs)
+        return state, metrics
+
+    def _guardrail_metrics(self, metrics: Dict,
+                           ctxs: Mapping[str, Tuple]) -> None:
+        """The forward's guardrail counters, summed over every rank:
+        ``id_violations`` ([F], when the sanitizer ran) and
+        ``dedup_overflow`` (0-d, when the plan has a dedup'd group)."""
+        world = self.env.global_env
+        viol = ctxs.get("__sanitize__")
+        if viol is not None:
+            metrics["id_violations"] = all_reduce_sum(
+                viol, world, tag="id_violations:all_reduce")
+        ov = self.sharded_ebc.dedup_overflow(ctxs)
+        if ov is not None:
+            metrics["dedup_overflow"] = all_reduce_sum(
+                ov.reshape(1), world, tag="dedup_overflow:all_reduce")[0]
 
     def train_step(self, state: State, batch: Batch) -> Tuple[State, Dict]:
         """One step on a batch already on the device; updates ``state`` in
-        place and returns it with the metrics (loss, logits, labels and
-        ``id_overflow``, as device tensors; no host sync)."""
+        place and returns it with the metrics (loss, logits, labels,
+        ``id_overflow`` and the guardrail counters of the module
+        docstring, as device tensors)."""
         kt_values, ctxs = self.sparse_forward(state, batch)
         return self._dense_and_update(state, batch, kt_values, ctxs)
 
@@ -532,7 +570,8 @@ class DistributedModelParallel:
         """The second half of the split step: dense forward and backward on
         the precomputed (possibly stale) ``kt_values``, the fused sparse
         update through ``ctxs`` and the dense update, in place; the
-        metrics of :meth:`train_step`, ``id_overflow`` included."""
+        metrics of :meth:`train_step`, ``id_overflow`` and the guardrail
+        counters included."""
         return self._dense_and_update(state, batch, kt_values, ctxs)
 
     def make_dense_update_step(self) -> Callable[..., Tuple[State, Dict]]:
@@ -671,8 +710,8 @@ class DMPCollection(DistributedModelParallel):
             return super()._sparse_update(state, ctxs, grad_by_feature)
         env, ebc = self.env, self.sharded_ebc
         R = env.num_replicas
-        sgs = ebc.backward_local(ctxs, grad_by_feature, self.update_kernel,
-                                 env, dp_env=env.global_env, dp_divisor=R)
+        sgs = ebc.backward_local(ctxs, grad_by_feature, env,
+                                 dp_env=env.global_env, dp_divisor=R)
         seeds = dict(zip(ebc.group_names, self.sr_seeds(state["step"]) or ()))
         lr = self.sparse_lr(state["step"])
         for name, sg in sgs.items():

@@ -13,7 +13,9 @@ into one array.  Each rank runs
                (feature, source) order with no sort: the stable sort kept
                each (source, feature) bucket in example order, so each
                example's ids are a run of its bucket, and its length is a
-               count of its example id in that bucket;
+               count of its example id in that bucket; the ragged dedup
+               lookup (``"dedup"``, B4) takes the same slots with their
+               segments (:func:`block_segments`);
   output dist: a reduce-scatter of the partial sums (``qcomm_psum_scatter``,
                a sum over sources in rank order) to the examples' ranks;
 
@@ -32,8 +34,21 @@ reduce-scatter and its backward all-gather; ``row_align`` rounds each
 rank's stack up to a multiple (the FULLY_SHARDED 2D strategy splits it
 over the replicas).
 
-Left out: the dedup'd input dist (``rw_dedup_*``, ROADMAP A7) and the
-hierarchical layout fields.
+The dedup'd input dist (a layout built with ``dedup=True``;
+:func:`rw_dedup_forward_local`, :func:`rw_dedup_backward_local`) ships
+each distinct (feature, destination, id) once: the source sorts its
+slots by (destination bucket, local row) with two stable sorts and sends
+``[N, F, dedup_cap]`` distinct rows; the owner gathers those rows and
+sends them back; the source pools its own slots over the returned rows
+with the per-id lookup (B1) over the KJT's own key regions, so each
+example's sum is the unsharded collection's slot-order sum of the same
+rows.  The backward sums each distinct id's slot gradients at the
+source before the wire, with the same kernel over the pooled gradients
+(its sorted entry: a stable sort by send slot, then each slot's
+gradients in slot order, no atomics), and the owner's update takes them
+as per-id gradients (:meth:`SparseSegGrad.from_row_grads`).
+
+Left out: the hierarchical layout fields (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -41,10 +56,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from torchrec_tpu_torch.ops.embedding_ops import (
     SlotRegions,
+    pooled_embedding_lookup,
     pooled_embedding_lookup_regions,
     sequence_embedding_lookup,
 )
@@ -53,6 +70,7 @@ from torchrec_tpu_torch.parallel.comm import ShardingEnv, resolve_env
 from torchrec_tpu_torch.parallel.qcomm import (
     QCommsConfig,
     qcomm_all_gather,
+    qcomm_all_to_all,
     qcomm_psum_scatter,
 )
 from torchrec_tpu_torch.parallel.sharding.common import (
@@ -81,6 +99,25 @@ class RwGroupLayout:
     local_offset: Dict[str, int]
     l_stack: int  # rows of a rank's stack
     qcomms: Optional[QCommsConfig] = None  # wire precision of the dists
+    # the dedup'd input dist: distinct ids per (feature, destination) a
+    # source ships, and the duplication factor that capacity was sized by
+    dedup: bool = False
+    dedup_cap: int = 0
+    dedup_factor: float = 1.0
+
+
+def dedup_cap_for(features: Sequence[FeatureSpec],
+                  caps_by_feature: Mapping[str, int],
+                  block_size: Mapping[str, int], dedup_factor: float) -> int:
+    """The dedup'd dist's distinct-id capacity for a cap assignment:
+    ``ceil(max cap / factor)``, at most the largest ``min(feature cap,
+    block rows)`` (the distinct ids one (feature, destination) can hold),
+    at least 1."""
+    cap = max(caps_by_feature[f.name] for f in features)
+    exact = max(min(caps_by_feature[f.name], block_size[f.table_name])
+                for f in features)
+    factor_cap = int(np.ceil(cap / max(1.0, dedup_factor)))
+    return max(1, min(exact, factor_cap))
 
 
 def build_rw_layout(
@@ -90,10 +127,16 @@ def build_rw_layout(
     batch_size: int,
     qcomms: Optional[QCommsConfig] = None,
     row_align: int = 1,
+    dedup: bool = False,
+    dedup_factor: float = 1.0,
 ) -> RwGroupLayout:
     """Row-wise group layout: each table block-split over the ranks, the
     blocks of a rank stacked in table order (the stack rounded up to a
-    multiple of ``row_align``)."""
+    multiple of ``row_align``).  ``dedup`` compiles the dedup'd input
+    dist, its distinct-id capacity per (feature, destination)
+    ``ceil(cap / dedup_factor)`` and never above the exactness bound,
+    the largest ``min(feature cap, block rows)``: factor 1 never drops
+    an id."""
     dim = features[0].dim
     if any(f.dim != dim for f in features):
         raise ValueError(f"group {name}: features of different dims")
@@ -112,6 +155,10 @@ def build_rw_layout(
         cap=max(f.cap for f in features), features=list(features),
         block_size=block_size, local_offset=local_offset,
         l_stack=-(-max(1, off) // row_align) * row_align, qcomms=qcomms,
+        dedup=dedup,
+        dedup_cap=(dedup_cap_for(features, {f.name: f.cap for f in features},
+                                 block_size, dedup_factor) if dedup else 0),
+        dedup_factor=max(1.0, float(dedup_factor)),
     )
 
 
@@ -225,20 +272,28 @@ def block_segments(layout, b_recv: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return segs.reshape(-1).to(torch.int64), num_segments
 
 
-def block_lookup(layout, stack_local, ids_recv, b_recv, w_recv, env):
+def block_lookup(layout, stack_local, ids_recv, b_recv, w_recv, env,
+                 lookup_kernel: str = "tbe"):
     """The owner's lookup of a block-split group and its reduce-scatter:
     (``[G, B, dim]`` pooled sums of this rank's examples, ctx: the
-    received ids and weights, their segments and regions)."""
+    received ids and weights, their segments and regions).
+    ``lookup_kernel``: ``"tbe"`` (B1 over the regions) or ``"dedup"``
+    (B4 over the segments); both sum each example in slot order."""
     N, G, _ = b_recv.shape
     B = layout.batch_size
     ids_flat, w_flat = ids_recv.reshape(-1), w_recv.reshape(-1)
     regions = block_regions(layout, b_recv)
-    partial = pooled_embedding_lookup_regions(stack_local, ids_flat,
-                                              regions, w_flat)
+    segs, num_segments = block_segments(layout, b_recv)
+    if lookup_kernel == "tbe":
+        partial = pooled_embedding_lookup_regions(stack_local, ids_flat,
+                                                  regions, w_flat)
+    else:
+        partial = pooled_embedding_lookup(stack_local, ids_flat, segs,
+                                          num_segments, w_flat,
+                                          kernel=lookup_kernel)
     x = partial.view(G, N, B, layout.dim).transpose(0, 1)  # [N, G, B, dim]
     pooled = qcomm_psum_scatter(x, env, layout.qcomms, "fwd",
                                 tag=f"{layout.name}:out_dist")
-    segs, _ = block_segments(layout, b_recv)
     return pooled, (ids_flat, w_flat, segs, regions)
 
 
@@ -262,9 +317,11 @@ def rw_forward_local(
     stack_local: torch.Tensor,  # [l_stack, dim]
     kjt: KeyedJaggedTensor,
     env: Optional[ShardingEnv] = None,
+    lookup_kernel: str = "tbe",
 ) -> Tuple[Dict[str, torch.Tensor], Tuple]:
-    """Bucket -> all-to-all -> partial lookup -> reduce-scatter.  Returns
-    ({feature: [B, dim]}, ctx for the backward)."""
+    """Bucket -> all-to-all -> partial lookup (``lookup_kernel``, see
+    :func:`block_lookup`) -> reduce-scatter.  Returns ({feature: [B,
+    dim]}, ctx for the backward)."""
     env = resolve_env(env, layout.world_size, stack_local.device)
     jts = kjt.to_dict()
     entries = []
@@ -274,7 +331,8 @@ def rw_forward_local(
         entries.append((f, ids // bs,
                         layout.local_offset[f.table_name] + ids % bs))
     recv = block_dispatch(layout, entries, kjt, env, fill_id=0)
-    pooled, ctx = block_lookup(layout, stack_local, *recv, env)
+    pooled, ctx = block_lookup(layout, stack_local, *recv, env,
+                               lookup_kernel)
     return {f.name: pooled[i] for i, f in enumerate(layout.features)}, ctx
 
 
@@ -362,3 +420,153 @@ def rw_sequence_backward_local(
     row_grads = torch.where(valid[:, None],
                             g_recv.reshape(-1, layout.dim), 0.0)
     return ids_recv.reshape(-1), valid, row_grads
+
+
+def _rw_dedup_dispatch(
+    layout: RwGroupLayout,
+    kjt: KeyedJaggedTensor,
+    drop_zero_weight: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """The source side of the dedup'd dist: one lexicographic (destination
+    bucket ``dest * F + feature``, local row) order, by two stable sorts
+    (the minor key, then the major one: the JAX package's order, so the
+    send slots are its own), gives each distinct triple a slot of the
+    ``[N, F, dedup_cap]`` id buffer.  An id outside its table is dropped
+    at the source, as in the plain dist.  ``drop_zero_weight`` also drops
+    the sanitizer's null slots (weight 0 and id 0) so that no remapped id
+    reaches the wire or an owner's update; a user slot of weight 0 on
+    another id still ships, as it does unguarded.
+
+    Returns (ids_send ``[N, F, Cu]`` int32, fill ``l_stack``; sidx ``[T]``
+    each slot's flat send index, ``N * F * Cu`` for a slot not sent;
+    seg_global ``[T]`` each slot's pooled segment ``feature * B + b``,
+    ``F * B`` for a slot not sent; the slots' float32 weights; overflow,
+    the 0-d int32 count of distinct triples past ``dedup_cap``).  No host
+    sync."""
+    N, B, Cu = layout.world_size, layout.batch_size, layout.dedup_cap
+    F = len(layout.features)
+    jts = kjt.to_dict()
+    lids_c, seg_c, w_c, d2_c = [], [], [], []
+    for gi, f in enumerate(layout.features):
+        jt = jts[f.name]
+        seg = per_slot_segments(jt.lengths(), f.cap)
+        w = source_weights(jt.weights_or_none(), seg, jt.lengths(),
+                           f.pooling)
+        ids = jt.values().to(torch.int64)
+        bs = layout.block_size[f.table_name]
+        valid = (seg < B) & (ids >= 0) & (ids < f.table_rows)
+        if drop_zero_weight:
+            valid = valid & ((w != 0) | (ids != 0))
+        lids_c.append((layout.local_offset[f.table_name] + ids % bs)
+                      .to(torch.int32))
+        d2_c.append(torch.where(valid, (ids // bs) * F + gi, N * F))
+        seg_c.append(torch.where(valid, gi * B + seg.to(torch.int64),
+                                 F * B).to(torch.int32))
+        w_c.append(w)
+    lids, d2 = torch.cat(lids_c), torch.cat(d2_c)
+    seg_global, w_all = torch.cat(seg_c), torch.cat(w_c)
+    dev, T = lids.device, lids.shape[0]
+
+    ord1 = torch.sort(lids, stable=True).indices
+    order = ord1[torch.sort(d2[ord1], stable=True).indices]
+    sd, sid = d2[order], lids[order]
+    is_start = torch.ones((T,), dtype=torch.bool, device=dev)
+    if T > 1:
+        is_start[1:] = (sd[1:] != sd[:-1]) | (sid[1:] != sid[:-1])
+    grp = torch.cumsum(is_start.to(torch.int64), 0) - 1
+    groups = torch.zeros(N * F + 1, dtype=torch.int64, device=dev)
+    groups.index_add_(0, sd, is_start.to(torch.int64))
+    gstart = torch.cumsum(groups, 0) - groups
+    rank = grp - gstart[sd]  # the distinct triple's rank in its bucket
+    sent = N * F * Cu
+    slot_sorted = torch.where((sd < N * F) & (rank < Cu), sd * Cu + rank,
+                              sent)
+    sidx = torch.empty((T,), dtype=torch.int32, device=dev)
+    sidx[order] = slot_sorted.to(torch.int32)
+    # the slots of one triple write the same row; the spare last element
+    # takes every slot not sent
+    buf = torch.full((sent + 1,), layout.l_stack, dtype=torch.int32,
+                     device=dev)
+    buf[slot_sorted] = sid
+    overflow = (is_start & (sd < N * F) & (rank >= Cu)).sum().to(torch.int32)
+    return buf[:sent].view(N, F, Cu), sidx, seg_global, w_all, overflow
+
+
+def _source_regions(layout, kjt: KeyedJaggedTensor) -> SlotRegions:
+    """The group's features' KJT slots as regions, in feature order: the
+    slot stream :func:`_rw_dedup_dispatch` concatenates."""
+    jts = kjt.to_dict()
+    lens, starts, start = [], [], 0
+    for f in layout.features:
+        lens.append(jts[f.name].lengths())
+        starts.append(start)
+        start += f.cap
+    return SlotRegions(torch.cat(lens), tuple(starts),
+                       tuple(f.cap for f in layout.features),
+                       (layout.batch_size,) * len(layout.features))
+
+
+def rw_dedup_forward_local(
+    layout: RwGroupLayout,
+    stack_local: torch.Tensor,  # [l_stack, dim]
+    kjt: KeyedJaggedTensor,
+    env: Optional[ShardingEnv] = None,
+    drop_zero_weight: bool = False,
+) -> Tuple[Dict[str, torch.Tensor], Tuple]:
+    """Dedup dispatch -> distinct-id all-to-all -> the owner's row gather
+    -> an all-to-all of the rows back (at the layout's forward wire
+    precision) -> pooling at the source: the per-id lookup (B1) over the
+    returned rows, one zero row appended for the slots not sent, each
+    slot reading row ``sidx`` with its own weight, over the KJT's key
+    regions.  The sums are the unsharded collection's, slot by slot.
+    Returns ({feature: [B, dim]}, ctx: the received ids and their mask,
+    sidx, seg_global, the weights and the overflow count)."""
+    N, B, Cu = layout.world_size, layout.batch_size, layout.dedup_cap
+    D = layout.dim
+    env = resolve_env(env, N, stack_local.device)
+    ids_send, sidx, seg_global, w_all, overflow = _rw_dedup_dispatch(
+        layout, kjt, drop_zero_weight)
+    ids_recv = all_to_all(ids_send, env, f"{layout.name}:id_dist")
+    valid_recv = ids_recv < layout.l_stack
+    rows = sequence_embedding_lookup(stack_local, ids_recv.reshape(-1),
+                                     valid_recv.reshape(-1))
+    emb_back = qcomm_all_to_all(
+        rows.view(N, len(layout.features), Cu, D), env, layout.qcomms, "fwd",
+        tag=f"{layout.name}:out_dist")  # the stack's dtype at float32 wires
+    emb = torch.cat([emb_back.reshape(-1, D), emb_back.new_zeros((1, D))])
+    pooled = pooled_embedding_lookup_regions(
+        emb, sidx, _source_regions(layout, kjt), w_all)
+    out = {f.name: pooled[i * B:(i + 1) * B]
+           for i, f in enumerate(layout.features)}
+    return out, (ids_recv, valid_recv, sidx, seg_global, w_all, overflow)
+
+
+def rw_dedup_backward_local(
+    layout: RwGroupLayout,
+    ctx: Tuple,
+    grad_out: Mapping[str, torch.Tensor],
+    env: Optional[ShardingEnv] = None,
+) -> SparseSegGrad:
+    """Each slot's gradient (its example's times its weight), summed over
+    a source's duplicates of each sent id before the wire (B1 over the
+    pooled gradients, slot order), an all-to-all back to the owners (at
+    the backward wire precision), and the owner's per-id gradients
+    against its stack (:meth:`SparseSegGrad.from_row_grads`)."""
+    N, Cu, D = layout.world_size, layout.dedup_cap, layout.dim
+    ids_recv, valid_recv, sidx, seg_global, w_all, _ = ctx
+    env = resolve_env(env, N, ids_recv.device)
+    g_cat = torch.cat([grad_out[f.name].to(torch.float32)
+                       for f in layout.features])  # [F * B, dim]
+    sent = N * len(layout.features) * Cu
+    # g_send[s] = sum of g_cat[seg_global[t]] * w_all[t] over the slots t
+    # with sidx[t] == s, in slot order from zero: the per-id lookup's
+    # sorted entry (B1: a stable sort by sidx, then each row's slots in
+    # order, multiplies and adds rounded apart), JAX's segment_sum of the
+    # row gradients bit for bit, with no atomics and no host sync
+    g_send = pooled_embedding_lookup(g_cat, seg_global, sidx, sent, w_all)
+    g_recv = qcomm_all_to_all(
+        g_send.view(N, len(layout.features), Cu, D), env, layout.qcomms,
+        "bwd", tag=f"{layout.name}:bwd_dist")
+    return SparseSegGrad.from_row_grads(
+        ids_recv.reshape(-1), valid_recv.reshape(-1), g_recv.reshape(sent, D))

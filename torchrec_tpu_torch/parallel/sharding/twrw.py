@@ -7,13 +7,15 @@ slot whose table rows are block-split over a contiguous group of ranks
 Each rank runs every slot's dispatch with destination ``node_start + id
 // block`` and the destination's stack offset added to the row
 (``rw.block_dispatch``), reads the received ``[N, S, C]`` buckets as
-regions as the row-wise lookup does (``rw.block_lookup``: ranks outside a
-slot's node receive only padding for it), and reduce-scatters the partial
+regions as the row-wise lookup does (``rw.block_lookup``, B1 or, with
+``lookup_kernel="dedup"``, B4: ranks outside a slot's node receive only
+padding for it), and reduce-scatters the partial
 sums home, where a feature's column shards are concatenated.  The
 backward all-gathers each slot's gradient to every owner.  A layout's
 ``qcomms`` and ``row_align`` are those of ``sharding/rw.py``.
 
-Left out: the dedup'd and hierarchical dists (ROADMAP A7, A8).
+Left out: the hierarchical dists (ROADMAP A8); the JAX package dedups a
+block-shard group only on those.
 """
 
 from __future__ import annotations
@@ -190,9 +192,11 @@ def twrw_forward_local(
     stack_local: torch.Tensor,  # [l_stack, dim]
     kjt: KeyedJaggedTensor,
     env: Optional[ShardingEnv] = None,
+    lookup_kernel: str = "tbe",
 ) -> Tuple[Dict[str, torch.Tensor], Tuple]:
-    """Dispatch -> all-to-all -> partial lookup -> reduce-scatter of the
-    node partials.  Returns ({feature: [B, total dim]}, ctx)."""
+    """Dispatch -> all-to-all -> partial lookup (``lookup_kernel``, see
+    ``rw.block_lookup``) -> reduce-scatter of the node partials.  Returns
+    ({feature: [B, total dim]}, ctx)."""
     N = layout.world_size
     env = resolve_env(env, N, stack_local.device)
     jts = kjt.to_dict()
@@ -205,7 +209,8 @@ def twrw_forward_local(
         entries.append((s.feature, dest,
                         doff[dest.clamp(0, N - 1)] + ids % s.block_size))
     recv = block_dispatch(layout, entries, kjt, env, fill_id=layout.l_stack)
-    pooled, ctx = block_lookup(layout, stack_local, *recv, env)  # [S, B, D]
+    pooled, ctx = block_lookup(layout, stack_local, *recv, env,
+                               lookup_kernel)  # [S, B, D]
     slot_index = {id(s): i for i, s in enumerate(layout.slots)}
     out: Dict[str, torch.Tensor] = {}
     for fname in layout.feature_order:

@@ -5,11 +5,12 @@ with the JAX package's names and values, the plan dict, the planner's
 plan the planner gives a one-device world.
 
 What the runtime does with the planner's fields: a FUSED_HOST_CACHED
-table raises ``NotImplementedError`` (tiered storage, ROADMAP A10), as does
-``dedup`` (the dedup'd row-wise dist, ROADMAP A7), in ``classify_plan``;
-``hier`` is ignored, as the JAX runtime ignores it without a two-level
-mesh (the port's worlds are flat); ``dedup_factor``, ``hier_factor`` and
-``cache_load_factor`` size what those paths would build.
+table raises ``NotImplementedError`` (tiered storage, ROADMAP A10) in
+``classify_plan``; ``dedup`` on a ROW_WISE table compiles the dedup'd
+row-wise dist, its capacity sized by ``dedup_factor``; ``hier`` is
+ignored, as the JAX runtime ignores it without a two-level mesh (the
+port's worlds are flat); ``hier_factor`` and ``cache_load_factor`` size
+what those paths would build.
 :class:`ShardingStrategy` is the weight strategy of 2D parallelism
 (``DMPCollection``).
 """

@@ -1,9 +1,72 @@
-"""Counter-key namespace and the bucketing pipeline's padding counters (a
-subset of ``torchrec_tpu/utils/profiling.py``)."""
+"""Tracing and host counters (a subset of
+``torchrec_tpu/utils/profiling.py``): :class:`annotate` (a phase on the
+profiler's timeline), :func:`method_logger`, the counter-key namespace,
+the bucketing pipeline's padding counters (:class:`PaddingStats`), the
+lookups' row-traffic ledger (:class:`KernelStats`) and a JSONL event log
+(:class:`EventLog`).
+
+Left out: the tiered-storage ledger (``TieredStats``, ROADMAP A10) and
+``trace`` (``torch.profiler.profile`` is its counterpart)."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import functools
+import json
+import logging
+import os
+import threading
+import time
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("torchrec_tpu_torch")
+
+
+class annotate:
+    """A named phase on the profiler's timeline
+    (``torch.profiler.record_function``, which the JAX package's
+    ``jax.named_scope`` and host span stand for together): a context
+    manager, or a decorator with :meth:`__call__`."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "annotate":
+        # a fresh range each entry: record_function is single-use
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._rf.__exit__(exc_type, exc, tb)
+        return False
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with annotate(self.name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+
+def method_logger(fn):
+    """Log each call's wall time at DEBUG level (the reference's
+    ``_torchrec_method_logger``)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            logger.debug("torchrec_tpu_torch.%s took %.3fms",
+                         getattr(fn, "__qualname__", fn.__name__),
+                         (time.perf_counter() - t0) * 1e3)
+
+    return wrapper
 
 
 def counter_key(prefix: str, table: str, counter: str) -> str:
@@ -19,9 +82,10 @@ class PaddingStats:
 
     The port compiles nothing: a "program" here is one signature's
     ``DistributedModelParallel.with_feature_caps`` clone, built on first
-    use (the JAX package counts compiled executables).  Left out: the
-    compile count, the overflow-fallback count of the dedup overflow
-    guard, per-key sums and the wire-byte ledgers."""
+    use (the JAX package counts compiled executables);
+    ``overflow_fallback_count`` counts the batches the dedup overflow
+    guard sent to the full-capacity step.  Left out: the compile count,
+    per-key sums and the wire-byte ledgers."""
 
     def __init__(self):
         self.reset()
@@ -32,6 +96,7 @@ class PaddingStats:
         self.bucketed_slots = 0
         self.static_slots = 0
         self.fallback_count = 0
+        self.overflow_fallback_count = 0
         self.program_count = 0
         self.dispatch_counts: Dict[Tuple[int, ...], int] = {}
 
@@ -56,6 +121,11 @@ class PaddingStats:
     def record_fallback(self) -> None:
         self.fallback_count += 1
 
+    def record_overflow_fallback(self) -> None:
+        """A batch's distinct-id demand passed its bucketed signature's
+        dedup capacity, so it ran the full-capacity step."""
+        self.overflow_fallback_count += 1
+
     def padding_efficiency(self) -> float:
         """Real ids / bucketed id slots, in (0, 1]."""
         return self.real_ids / max(1, self.bucketed_slots)
@@ -71,6 +141,147 @@ class PaddingStats:
                 sum(self.dispatch_counts.values())),
             f"{prefix}/program_count": float(self.program_count),
             f"{prefix}/fallback_count": float(self.fallback_count),
+            f"{prefix}/overflow_fallback_count": float(
+                self.overflow_fallback_count),
             f"{prefix}/padding_efficiency": self.padding_efficiency(),
             f"{prefix}/padded_bytes_ratio": self.padded_bytes_ratio(),
         }
+
+
+class KernelStats:
+    """Per-table row traffic of the pooled lookups, counted on the host:
+    the rows a per-id kernel reads (one per valid id) and the rows the
+    dedup kernels' distinct ids stand for (one per distinct id), priced
+    at the table's row bytes (``hbm_row_bytes`` at the distinct rows with
+    ``dedup``, at every id without).  A model of the traffic from the ids
+    alone; no device counter is read."""
+
+    def __init__(self, dedup: bool = True):
+        self.dedup = bool(dedup)
+        self.reset()
+
+    def reset(self) -> None:
+        self.batches = 0
+        # table -> [per-id rows, distinct rows, row bytes priced]
+        self.per_table: Dict[str, list] = {}
+
+    def record_lookup(self, table: str, ids, row_bytes: int) -> None:
+        """One table's valid ids (host array or tensor)."""
+        if isinstance(ids, torch.Tensor):
+            ids = ids.detach().cpu().numpy()
+        ids = np.asarray(ids).reshape(-1)
+        per_id = int(ids.shape[0])
+        distinct = int(np.unique(ids).shape[0]) if per_id else 0
+        self.record_counts(table, per_id, distinct, row_bytes)
+
+    def record_counts(self, table: str, per_id_rows: int,
+                      distinct_rows: int, row_bytes: int) -> None:
+        acc = self.per_table.setdefault(table, [0, 0, 0])
+        acc[0] += int(per_id_rows)
+        acc[1] += int(distinct_rows)
+        acc[2] += (int(distinct_rows) if self.dedup
+                   else int(per_id_rows)) * int(row_bytes)
+
+    def record_batch_done(self) -> None:
+        self.batches += 1
+
+    def distinct_ratio(self, table: Optional[str] = None) -> float:
+        """Distinct over per-id rows, in (0, 1]."""
+        rows = ([self.per_table.get(table, [0, 0, 0])] if table is not None
+                else list(self.per_table.values()))
+        return sum(r[1] for r in rows) / max(1, sum(r[0] for r in rows))
+
+    def hbm_row_bytes(self) -> int:
+        return sum(r[2] for r in self.per_table.values())
+
+    def scalar_metrics(self, prefix: str = "kernels") -> Dict[str, float]:
+        out = {
+            f"{prefix}/batches": float(self.batches),
+            f"{prefix}/distinct_ratio": self.distinct_ratio(),
+            f"{prefix}/hbm_row_bytes": float(self.hbm_row_bytes()),
+        }
+        for t, (per_id, distinct, nbytes) in self.per_table.items():
+            out[counter_key(prefix, t, "per_id_rows")] = float(per_id)
+            out[counter_key(prefix, t, "distinct_rows")] = float(distinct)
+            out[counter_key(prefix, t, "hbm_row_bytes")] = float(nbytes)
+        return out
+
+
+class EventLog:
+    """A structured JSONL log of framework events, thread-safe: one JSON
+    object a line with the wall-clock ``t``, a monotonic ``mono`` and the
+    event's fields.  One append handle, opened on the first emit; with
+    ``autoflush`` each line is flushed as written and the path re-checked,
+    so an external rotation (a new inode or a removed file) reopens it;
+    without, :meth:`flush` does both.  :meth:`close` is idempotent and a
+    later emit reopens in append mode."""
+
+    def __init__(self, path: str, autoflush: bool = True):
+        self.path = path
+        self.autoflush = autoflush
+        self._lock = threading.Lock()
+        self._f = None
+        self._ino = None
+
+    def _handle(self):
+        """The open handle (lock held), reopened after a close or a
+        rotation of the path."""
+        if self._f is not None and not self._f.closed:
+            try:
+                fresh = os.stat(self.path).st_ino == self._ino
+            except OSError:
+                fresh = False
+            if fresh:
+                return self._f
+            self._f.close()
+        self._f = open(self.path, "a", encoding="utf-8")
+        self._ino = os.fstat(self._f.fileno()).st_ino
+        return self._f
+
+    def emit(self, event: str, **fields) -> None:
+        rec = {"t": time.time(), "mono": time.monotonic(), "event": event,
+               **fields}
+        line = json.dumps(rec, default=str)
+        with self._lock:
+            if self.autoflush:
+                f = self._handle()
+                f.write(line + "\n")
+                f.flush()
+            else:
+                if self._f is None or self._f.closed:
+                    self._handle()
+                self._f.write(line + "\n")
+
+    def flush(self) -> None:
+        with self._lock:
+            if self._f is not None and not self._f.closed:
+                self._f.flush()
+                self._handle()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._f is not None:
+                if not self._f.closed:
+                    self._f.close()
+                self._f = None
+
+    def __enter__(self) -> "EventLog":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def read(self):
+        """Every record written so far."""
+        self.flush()
+        if not os.path.exists(self.path):
+            return []
+        with open(self.path, encoding="utf-8") as f:
+            return [json.loads(ln) for ln in f if ln.strip()]
