@@ -328,6 +328,31 @@ Phases, one JSON line each on stdout; any failure raises:
    recompute within 1e-5); the position-weighted EBC's forward (1 to 20
    ids, learned position weights): 26 weighted B1 launches, each
    ``torch.equal`` to the plain version.  ms a step for each.
+14. lowp_state (after train_dcn; budget ``LOWP_BUDGET_S``) — train_dcn's
+   configuration with a bfloat16 per-element Adagrad state: the path
+   check (B1, and B2 with the bf16 momentum, ``torch.equal`` to plain on
+   the step's own gradient), 1 + 10 steps with one B1 and one B2 each and
+   nothing else (counts and a profile), the state still bf16, ms a step
+   and peak memory beside train_dcn's float32-state run; at the 1M-row
+   cap B2 and B6 for the six stateful optimizers over bf16 and f16 states
+   and, on bf16 tables with stochastic rounding off, ``torch.equal`` to
+   plain; 2 steps each of the switch off and on through each kernel,
+   whose tables differ.  The ``guarded`` phase ends with ``registry``
+   (a DMP built under ``trace_kernels(pooled="pallas_dedup",
+   update="pallas_dedup")`` launches B4 and B6 alone, its KT
+   ``torch.equal`` to an explicit dedup DMP's; the default registry B1
+   and B2) and the ``serving`` phase checks ``quant_registry`` (a
+   ``QuantEmbeddingBagCollection`` built under ``pallas_dedup`` looks up
+   through B5 alone).  The sharded launch adds, after ``dedup_rw``,
+   ``vbe`` (budget ``VBE_BUDGET_S``: 13 features at full stride and 13 at
+   stride 1,024 with inverse indices, plans tw, rw, rw_dedup, twrw, dp,
+   mixed: the KT ``torch.equal`` to the unsharded collection's VBE
+   forward and to the expanded batch's, multi-hot within 1e-5 off TW/DP,
+   two VBE steps ``torch.equal``, the tables within rtol 1e-5 / atol 1e-6
+   of the expanded batch's step, the fused updates ``torch.equal`` to
+   plain) and ``hier`` (budget ``HIER_BUDGET_S``: the ranks as 2 slices x
+   2, plans rw_dedup, twrw and mixed two-level against flat; see
+   :func:`hier_stage`).
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
@@ -735,13 +760,14 @@ def _bound(nbytes, flops):
             "bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def _update_bound(D, esize, sg, optim):
+def _update_bound(D, esize, sg, optim, state_esize=4):
     """Bytes and operations a fused update must move / do on these
     inputs: each referenced gradient row once, each slot's id, flag,
     segment and weight once, each touched table row and its optimizer
-    state read and written once (no weight without weights: the per-id
-    segments); per kept slot a multiply and an add per column, per touched
-    row ``UPDATE_OPS_PER_COLUMN`` per column."""
+    state (``state_esize`` bytes an element) read and written once (no
+    weight without weights: the per-id segments); per kept slot a
+    multiply and an add per column, per touched row
+    ``UPDATE_OPS_PER_COLUMN`` per column."""
     import torch
 
     from torchrec_tpu_torch.ops.tbe_backward import STATE_LAYOUTS
@@ -750,7 +776,7 @@ def _update_bound(D, esize, sg, optim):
     U = int(torch.unique(sg.ids[ok]).numel())
     n_seg = int(torch.unique(sg.segments[ok]).numel())
     V = sg.ids.numel()
-    state_bytes = sum(4 if kind == "row" else 4 * D
+    state_bytes = sum(state_esize * (1 if kind == "row" else D)
                       for kind in STATE_LAYOUTS[optim])
     nbytes = (n_seg * D * 4
               + V * (sg.ids.element_size() + 1 + sg.segments.element_size()
@@ -767,7 +793,8 @@ def _checksum(t) -> int:
     Summed in blocks of rows: an int64 sum casts its input whole."""
     import torch
 
-    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}
     bits = t.view(ints[t.dtype])
     return sum(int(b.sum(dtype=torch.int64)) for b in bits.split(1 << 20))
 
@@ -839,15 +866,19 @@ def _runs_seg_grad(dev, R, grad, seed):
                          grad)
 
 
-def _launch_facts(kernel, optim, dtype, sg, R):
+def _launch_facts(kernel, optim, dtype, sg, R, state_dtype=None):
     """The launch's instantiation and grid on these inputs: registers,
     column layout, blocks (and resident per SM), warps, the 32-position
     windows that hold work, and the claims on the work queue (one more
-    per warp, the claim that stops it)."""
+    per warp, the claim that stops it); ``state_dtype`` the optimizer
+    state's (float32 if None)."""
+    import torch
+
     from torchrec_tpu_torch.ops.tbe_backward import update_launch
 
     D = sg.grad_seg.shape[1]
-    info = update_launch(kernel, optim, dtype, D, sg.ids.numel())
+    info = update_launch(kernel, optim, dtype, D, sg.ids.numel(),
+                         state_dtype=state_dtype or torch.float32)
     kept = int((sg.ok() & (sg.ids >= 0) & (sg.ids < R)).sum())
     windows = -(-kept // 32)
     warps = info["blocks"] * 8
@@ -908,7 +939,9 @@ def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
             stack, states, *prep, sg.grad_seg, optim, lr, EPS, 0.0,
             (0.9, 0.999), bc, seed)
 
-    U, nbytes, flops = _update_bound(D, stack.element_size(), sg, optim)
+    state_esize = states[0].element_size() if states else 4
+    U, nbytes, flops = _update_bound(D, stack.element_size(), sg, optim,
+                                     state_esize)
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {
         "phase": phase, "kernel": "fused_sparse_update",
@@ -917,7 +950,8 @@ def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
         "rows_past_2^31_bytes": int((rows * D * 4 >= FAR_BYTES).sum()),
         "sr_seed": seed, "sr_differs_from_nearest": sr_rows,
         "equal": True, "max_abs_err": err,
-        **_launch_facts("fused_sparse_update", optim, stack.dtype, sg, R),
+        **_launch_facts("fused_sparse_update", optim, stack.dtype, sg, R,
+                        states[0].dtype if states else None),
         "ms": cuda_ms(lambda: _update_call(
             tbe_backward.fused_sparse_update, *args), flush,
             setup=snap.restore),
@@ -2555,7 +2589,109 @@ def guarded_phase(dev, flush):
         raise AssertionError(f"guarded: losses {losses}")
     del pipe_g, pipe_u, dmp_g, dmp_u, st, st_g, st_u, state
     torch.cuda.empty_cache()
+    registry_check(dev)
     return counts, kchecks
+
+
+REGISTRY_BUDGET_S = 10
+
+
+def registry_check(dev):
+    """The kernel registry at ``bench.py main()``'s width (26 tables
+    table-wise, B=4096, one id a feature): a DMP built with no kernel
+    arguments under ``trace_kernels(pooled="pallas_dedup",
+    update="pallas_dedup")`` takes B4 and B6, and a step launches them and
+    nothing else (counts and a profile), its KT ``torch.equal`` to an
+    explicit ``lookup_kernel="dedup"`` DMP's; under the default registry
+    a DMP takes B1 and B2, and a step launches them and nothing else.
+    Returns the emitted record."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.ops.embedding_ops import trace_kernels
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+
+    t0 = time.perf_counter()
+    caps, host = one_id_batches(1)
+    batch = host[0].to(dev)
+    _, tables = bench_tables()
+    plan = table_wise_plan(tables)
+    with trace_kernels(pooled="pallas_dedup", update="pallas_dedup"):
+        reg, state = sharded_dmp(dev, plan, TRAIN_BATCH, caps)
+    explicit, _ = sharded_dmp(dev, plan, TRAIN_BATCH, caps,
+                              lookup_kernel="dedup", update_kernel="dedup")
+    default, st_d = sharded_dmp(dev, plan, TRAIN_BATCH, caps)
+    with torch.no_grad():
+        kt_equal = bool(torch.equal(reg.sparse_forward(state, batch)[0],
+                                    explicit.sparse_forward(state,
+                                                            batch)[0]))
+    runs = {}
+    for name, dmp, st in (("registry", reg, state), ("default", default,
+                                                     st_d)):
+        torch.cuda.synchronize()
+        tbe.reset_launch_counts()
+        dmp.train_step(st, batch)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in tbe.launch_counts().items() if v}
+        profiled, _ = _update_kernels_profiled(
+            lambda: dmp.train_step(st, batch))
+        runs[name] = {"kernels": [dmp.lookup_kernel, dmp.update_kernel],
+                      "launches": counts, "profiled": profiled}
+    want = {"registry": {"dedup_pooled_lookup": 1,
+                         "dedup_fused_sparse_update": 1},
+            "default": {"pooled_lookup": 1, "fused_sparse_update": 1}}
+    rec = {"phase": "registry", "kt_equal_explicit_dedup": kt_equal,
+           **runs, "seconds": time.perf_counter() - t0,
+           "budget_s": REGISTRY_BUDGET_S}
+    emit(rec)
+    for name, w in want.items():
+        if runs[name]["launches"] != w or runs[name]["profiled"] != w:
+            raise AssertionError(f"registry {name}: {runs[name]}, want {w}")
+    if not kt_equal:
+        raise AssertionError("registry: the registry DMP's KT != the "
+                             "explicit dedup DMP's")
+    del reg, explicit, default, state, st_d
+    torch.cuda.empty_cache()
+    return rec
+
+
+def quant_registry_check(tables, params, batch):
+    """A ``QuantEmbeddingBagCollection`` built under the quant registry's
+    ``"pallas_dedup"`` looks up through B5 alone (one grouped launch a
+    batch), its KT ``torch.equal`` to an explicit ``"dedup"``
+    collection's; one built under the default registry through B3.
+    Returns the emitted record."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.ops.embedding_ops import trace_kernels
+    from torchrec_tpu_torch.quant import QuantEmbeddingBagCollection
+
+    t0 = time.perf_counter()
+    with trace_kernels(quant="pallas_dedup"):
+        reg = QuantEmbeddingBagCollection(tables, params)
+    explicit = QuantEmbeddingBagCollection(tables, params, "dedup")
+    default = QuantEmbeddingBagCollection(tables, params)
+    out = {}
+    for name, qebc in (("registry", reg), ("default", default)):
+        torch.cuda.synchronize()
+        tbe.reset_launch_counts()
+        kt = qebc(batch.sparse_features)
+        torch.cuda.synchronize()
+        out[name] = ({k: v for k, v in tbe.launch_counts().items() if v},
+                     kt.values())
+    kt_equal = bool(torch.equal(out["registry"][1],
+                                explicit(batch.sparse_features).values()))
+    rec = {"phase": "quant_registry", "kt_equal_explicit_dedup": kt_equal,
+           "registry_launches": out["registry"][0],
+           "default_launches": out["default"][0],
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if (set(out["registry"][0]) != {"dedup_quant_pooled_lookup"}
+            or set(out["default"][0]) != {"quant_pooled_lookup_int8"}
+            or not kt_equal):
+        raise AssertionError(f"quant registry: {rec}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2583,10 +2719,13 @@ def dcn_batches(row_cap):
     return keys, rows, ds.caps, [next(it) for _ in range(TRAIN_BATCHES)]
 
 
-def build_dcn_trainer(dev, keys, rows, caps, optim, table_dtype):
+def build_dcn_trainer(dev, keys, rows, caps, optim, table_dtype,
+                      momentum_dtype=None, update_kernel="tbe",
+                      stochastic_rounding=True):
     """``DistributedModelParallel`` of ``DLRM_DCN`` at the recipe's widths
-    over tables of ``rows``, on the per-id kernels, with fused optimizer
-    ``optim`` (lr 0.004, eps 1e-8, the JAX defaults otherwise), and its
+    over tables of ``rows``, on the per-id lookup and ``update_kernel``,
+    with fused optimizer ``optim`` (lr 0.004, eps 1e-8, the JAX defaults
+    otherwise; its state in ``momentum_dtype``, float32 if None), and its
     state from a seeded generator on the card."""
     import torch
 
@@ -2612,10 +2751,12 @@ def build_dcn_trainer(dev, keys, rows, caps, optim, table_dtype):
     dmp = DistributedModelParallel(
         model, tables, table_wise_plan(tables), DCN_BATCH,
         dict(zip(keys, caps)),
-        fused_config=FusedOptimConfig(optim=EmbOptimType(optim),
-                                      learning_rate=DCN_LR, eps=EPS),
+        fused_config=FusedOptimConfig(
+            optim=EmbOptimType(optim), learning_rate=DCN_LR, eps=EPS,
+            momentum_dtype=momentum_dtype or torch.float32,
+            stochastic_rounding=stochastic_rounding),
         dense_optimizer=adagrad(DCN_LR), table_dtype=table_dtype,
-        device=dev, lookup_kernel="tbe", update_kernel="tbe",
+        device=dev, lookup_kernel="tbe", update_kernel=update_kernel,
     )
     return dmp, dmp.init(torch.Generator(device=dev).manual_seed(0))
 
@@ -2724,6 +2865,7 @@ def train_dcn_phase(dev, flush):
            "peak_memory_allocated": torch.cuda.max_memory_allocated()}
     emit(rec)
     _check_train(rec, counts, 1 + TRAIN_STEPS)
+    DCN_MAIN_RUN.update(rec)  # lowp_state's float32-state reference
     main_counts = counts
     cross = dcn_crossnet(flush, dmp, card)
     profile_calls({"phase": "train_dcn_profile", "card": card,
@@ -2784,6 +2926,248 @@ def train_dcn_phase(dev, flush):
         del dmp, state
         torch.cuda.empty_cache()
     return main_counts, kernel_rows, check
+
+
+# ---------------------------------------------------------------------------
+# phase lowp_state: train_dcn with a bfloat16 optimizer state, and every
+# stateful optimizer's B2 and B6 over 16-bit states, and the
+# stochastic-rounding switch
+# ---------------------------------------------------------------------------
+
+LOWP_BUDGET_S = 90
+LOWP_STEPS = 10  # timed, after one warm-up step
+LOWP_OPTIMIZERS = ("rowwise_adagrad", "adagrad", "adam",
+                   "partial_rowwise_adam", "lamb", "partial_rowwise_lamb")
+LOWP_SR_STEPS = 2  # steps of each stochastic-rounding arm
+# train_dcn's main record (ms a step, peak memory), the lowp_state
+# phase's float32-state reference; empty in a development run
+DCN_MAIN_RUN: dict = {}
+
+
+def _lowp_arm_row(flush, kernel, stack, states, optim, sg, seed, common):
+    """B2 (``kernel="fused_sparse_update"``) or B6 over ``states`` (a
+    16-bit state) against its plain version, in place and undone on the
+    touched rows: ``torch.equal`` on the stack and every state, nothing
+    written elsewhere (checksums), the state's dtype kept, and the card
+    time of one call.  Returns the emitted record."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+    from torchrec_tpu_torch.ops.fused_update import (
+        FusedOptimConfig,
+        bias_corrections,
+    )
+
+    R, D = stack.shape
+    ok = sg.ok() & (sg.ids >= 0) & (sg.ids < R)
+    rows = torch.unique(sg.ids[ok]).to(torch.int64)
+    snap = RowSnapshot([stack, *states], rows)
+    bc = bias_corrections(FusedOptimConfig(), 1)
+
+    def call(plain):
+        if kernel == "fused_sparse_update":
+            fn = (tbe_backward.fused_sparse_update_plain if plain
+                  else tbe_backward.fused_sparse_update)
+            _update_call(fn, stack, states, optim, sg, DCN_LR, seed, bc)
+        else:
+            fn = (tbe_backward.dedup_fused_sparse_update_plain if plain
+                  else tbe_backward.dedup_fused_sparse_update)
+            fn(stack, states, sg.ids, sg.valid, sg.segments, sg.weights,
+               sg.grad_seg, optim, DCN_LR, eps=EPS, bias_corrections=bc,
+               sr_seed=seed)
+
+    before = tbe.launch_counts()[kernel]
+    call(False)
+    torch.cuda.synchronize()
+    launched = tbe.launch_counts()[kernel] - before
+    got = snap.take()
+    intact = snap.intact()
+    call(True)
+    ref = snap.take()
+    equal = intact and launched == 1 and all(
+        torch.equal(a, b) for a, b in zip(got, ref))
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, ref))
+    rec = {"phase": "lowp_kernel", "kernel": kernel, "optim": optim,
+           **common, "state_dtype": str(states[0].dtype).replace(
+               "torch.", ""), "kept": int(ok.sum()),
+           "distinct": int(rows.numel()), "sr_seed": seed,
+           "equal": equal, "max_abs_err": err,
+           "kernel_device_ms": cuda_ms(lambda: call(False), flush, runs=5,
+                                       warmup=1, setup=snap.restore,
+                                       device_only=True),
+           **_launch_facts(kernel, optim, stack.dtype, sg, R,
+                           states[0].dtype)}
+    snap.restore()
+    emit(rec)
+    if not equal or states[0].dtype == torch.float32:
+        raise AssertionError(f"lowp_state {kernel} {optim}: kernel != plain "
+                             f"or the state changed dtype: {rec}")
+    return rec
+
+
+def lowp_state_phase(dev, flush):
+    """``train_dcn``'s configuration (MLPerf DLRM-v2 ``DLRM_DCN``,
+    per-element Adagrad lr 0.004 over the ``[29,184,588, 128]`` stack,
+    B=8192) with a bfloat16 optimizer state: the path check (B1 and B2
+    ``torch.equal`` to their plain versions on the step's own gradient,
+    the bfloat16 momentum included), B2 at the path's shapes on
+    ``train_dcn``'s own stream and gradient (its times beside that phase's
+    float32-state row), 1 warm-up and ``LOWP_STEPS`` timed steps with one
+    B1 and one B2 a step and no other kernel (counts and a profile), the state still bfloat16, ms a step and peak memory beside
+    ``train_dcn``'s float32-state run.  Then at the 1,000,000-row cap: B2
+    and B6 for every stateful optimizer over bfloat16 and float16 states
+    against their plain versions; and on bfloat16 tables with stochastic
+    rounding off, B2 and B6 equal to their plain versions with no seed,
+    and ``LOWP_SR_STEPS`` steps each of the switch off and on through each
+    kernel, whose tables differ.  Returns (the main run's launches, the
+    records)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
+    from torchrec_tpu_torch.ops.tbe_backward import STATE_LAYOUTS
+
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    keys, rows, caps, host = dcn_batches(DCN_ROW_CAP)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dmp, state = build_dcn_trainer(dev, keys, rows, caps, "adagrad",
+                                   torch.float32,
+                                   momentum_dtype=torch.bfloat16)
+    batches = [b.to(dev) for b in host]
+    del host
+    (name, lay), = dmp.sharded_ebc.tw_layouts.items()
+    mom = state["fused"][name]["momentum"]
+    setup = {"seconds": time.perf_counter() - t0,
+             "momentum": [list(mom.shape), str(mom.dtype)],
+             "momentum_bytes": mom.numel() * mom.element_size()}
+    check = train_path_check(dmp, state, batches[0], None, "lowp_path_check")
+    # B2 at the path's shapes on train_dcn's own stream and gradient (its
+    # dcn_kernel uniform row: the same batch, the same seeded gradient),
+    # the bf16 momentum in place of the f32 one
+    ids, w, segs, S, _ = tw_b1_inputs(lay, batches[0].sparse_features)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grad = torch.randn((S, DIM), generator=gen, device=dev) * 1e-2
+    path_b2 = b2_row(
+        flush, "lowp_kernel", state["tables"][name], [mom], "adagrad",
+        SparseSegGrad(ids, (segs < S) & (w != 0), segs, w, grad), DCN_LR,
+        None, {"dtype": "float32", "state_dtype": "bfloat16",
+               "ids": "uniform", "rows": int(mom.shape[0]), "D": DIM,
+               "S": S, "V": ids.numel()})
+    del ids, w, segs, grad
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tbe.reset_launch_counts()
+    state, warm, _ = _train_steps(dmp, state, batches[:1], 1)
+    state, losses, dt = _train_steps(dmp, state, batches, LOWP_STEPS)
+    counts = tbe.launch_counts()
+    profiled, names = _update_kernels_profiled(
+        lambda: dmp.train_step(state, batches[1]))
+    mom = state["fused"][name]["momentum"]
+    ref = DCN_MAIN_RUN
+    rec = {"phase": "lowp_state", "card": card, "optim": "adagrad",
+           "table_dtype": "float32", "momentum_dtype": str(mom.dtype),
+           "batch": DCN_BATCH, "setup": setup,
+           "steps": 1 + LOWP_STEPS, "timed_steps": LOWP_STEPS,
+           "ms_per_step": dt * 1e3 / LOWP_STEPS,
+           "samples_per_s": LOWP_STEPS * DCN_BATCH / dt,
+           "losses": warm + losses,
+           "all_finite": bool(np.isfinite(warm + losses).all()),
+           "launches": counts, "profiled_launches_one_step": profiled,
+           "update_kernels_profiled": names,
+           "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+           "f32_state_ms_per_step": ref.get("ms_per_step"),
+           "f32_state_peak_memory_allocated":
+               ref.get("peak_memory_allocated")}
+    if ref:
+        rec["peak_memory_saved"] = (ref["peak_memory_allocated"]
+                                    - rec["peak_memory_allocated"])
+    emit(rec)
+    _check_train(rec, counts, 1 + LOWP_STEPS)
+    if profiled != {"pooled_lookup": 1, "fused_sparse_update": 1}:
+        raise AssertionError(f"lowp_state: a profiled step launched "
+                             f"{profiled}")
+    if mom.dtype != torch.bfloat16:
+        raise AssertionError(f"lowp_state: the state became {mom.dtype}")
+    main_counts = counts
+    del dmp, state, batches, mom
+    torch.cuda.empty_cache()
+
+    # the arms at the 1,000,000-row cap, on the first batch's kept slots
+    keys, rows, caps, host = dcn_batches(DCN_ARM_ROW_CAP)
+    batches = [b.to(dev) for b in host]
+    dmp, state = build_dcn_trainer(dev, keys, rows, caps, "sgd",
+                                   torch.float32)
+    (name, lay), = dmp.sharded_ebc.tw_layouts.items()
+    stack = state["tables"][name]
+    ids, w, segs, S, _ = tw_b1_inputs(lay, batches[0].sparse_features)
+    keep = (segs < S) & (w != 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    grad = torch.randn((S, DIM), generator=gen, device=dev) * 1e-2
+    sg = SparseSegGrad(ids[keep], torch.ones_like(ids[keep], dtype=bool),
+                       segs[keep], w[keep], grad)
+    R = stack.shape[0]
+    common = {"dtype": "float32", "rows": R, "D": DIM, "S": S,
+              "V": int(sg.ids.numel())}
+    arm_rows = []
+    for sdtype in (torch.bfloat16, torch.float16):
+        for optim in LOWP_OPTIMIZERS:
+            states = [
+                (torch.rand((R,) if kind == "row" else (R, DIM),
+                            generator=gen, device=dev) * 1e-2).to(sdtype)
+                for kind in STATE_LAYOUTS[optim]]
+            for kernel in ("fused_sparse_update",
+                           "dedup_fused_sparse_update"):
+                arm_rows.append(_lowp_arm_row(flush, kernel, stack, states,
+                                              optim, sg, None, common))
+            del states
+    # stochastic rounding off on bfloat16 tables: one rounding to nearest
+    st16 = stack.to(torch.bfloat16)
+    mom = torch.rand((R, DIM), generator=gen, device=dev) * 1e-2
+    for kernel in ("fused_sparse_update", "dedup_fused_sparse_update"):
+        arm_rows.append(_lowp_arm_row(
+            flush, kernel, st16, [mom.to(torch.bfloat16)], "adagrad", sg,
+            None, {**common, "dtype": "bfloat16", "sr": "off"}))
+    del dmp, state, stack, st16, mom, sg, grad, ids, w, segs
+    torch.cuda.empty_cache()
+    sr = {}
+    for kernel in ("tbe", "dedup"):
+        tables = {}
+        for on in (False, True):
+            dmp, state = build_dcn_trainer(
+                dev, keys, rows, caps, "adagrad", torch.bfloat16,
+                update_kernel=kernel, stochastic_rounding=on)
+            if on is False and dmp.sr_seeds(0) is not None:
+                raise AssertionError("stochastic rounding off still seeds")
+            tbe.reset_launch_counts()
+            state, losses, _ = _train_steps(dmp, state, batches,
+                                            LOWP_SR_STEPS)
+            counts = {k: v for k, v in tbe.launch_counts().items() if v}
+            want = {"pooled_lookup": LOWP_SR_STEPS,
+                    ("fused_sparse_update" if kernel == "tbe"
+                     else "dedup_fused_sparse_update"): LOWP_SR_STEPS}
+            if counts != want or not np.isfinite(losses).all():
+                raise AssertionError(f"lowp_state SR arm {kernel} {on}: "
+                                     f"{counts}, losses {losses}")
+            tables[on] = next(iter(state["tables"].values())).clone()
+            sr[f"{kernel}_sr_{'on' if on else 'off'}_losses"] = losses
+            del dmp, state
+            torch.cuda.empty_cache()
+        differ = int((tables[False] != tables[True]).sum())
+        sr[f"{kernel}_elements_on_differ_from_off"] = differ
+        if not differ:
+            raise AssertionError(f"lowp_state: {kernel} SR on == off")
+        del tables
+    arm_rows.insert(0, path_b2)
+    emit({"phase": "lowp_state_arms", "card": card, "rows": sum(rows),
+          "arms": len(arm_rows), "all_equal": all(r["equal"]
+                                                   for r in arm_rows),
+          **sr, "seconds": time.perf_counter() - t0,
+          "budget_s": LOWP_BUDGET_S})
+    torch.cuda.empty_cache()
+    return main_counts, [check] + arm_rows
 
 
 # ---------------------------------------------------------------------------
@@ -3764,6 +4148,7 @@ def serving_phase(dev):
     path = path_kernel_phase(dev, tables, params, served.sparse_features,
                              zipf_seed=3)
     sync_check(fns, served)
+    quant_registry_check(tables, params, served)
     main_launches = dict.fromkeys(tbe.LAUNCHES, 0)
     runs = {}
     for kernel, requests, counter in (
@@ -5620,11 +6005,14 @@ def _rank_device(device_type):
     return dev
 
 
-def sharded_rank(kinds, device_type="cuda", dedup_rw_only=False):
+GLOO_STAGES = ("dedup_rw", "vbe", "hier")  # a development run's choices
+
+
+def sharded_rank(kinds, device_type="cuda", only=None):
     """One rank of the gloo arm (run by ``multiprocess.launch``): every
     plan of ``kinds`` through the checks of the phase, then the stages
-    (``dedup_rw_only``, a development run: that stage alone).  Returns
-    its records and launch counts."""
+    (``only``, a development run: those of ``GLOO_STAGES`` alone).
+    Returns its records and launch counts."""
     import torch
 
     from torchrec_tpu_torch.modules.embedding_modules import (
@@ -5778,10 +6166,22 @@ def sharded_rank(kinds, device_type="cuda", dedup_rw_only=False):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
-    rec, counts, kchecks = dedup_rw_stage(dev, env, caps, mine, ebc, flush)
-    records += [rec] + kchecks
-    add(counts)
-    if dedup_rw_only:
+    if only is None or "dedup_rw" in only:
+        rec, counts, kchecks = dedup_rw_stage(dev, env, caps, mine, ebc,
+                                              flush)
+        records += [rec] + kchecks
+        add(counts)
+    if only is None or "vbe" in only:
+        rec, counts = vbe_stage(dev, env, caps, mine, ebc,
+                                (mh_caps, mh_kjt))
+        records.append(rec)
+        add(counts)
+    if only is None or "hier" in only:
+        torch.cuda.empty_cache()
+        rec, counts = hier_stage(dev, caps, mine, (mh_caps, mh_kjt))
+        records.append(rec)
+        add(counts)
+    if only is not None:
         return records, launches
     recs, counts, kchecks = sharded_stages(dev, env, caps, host, mine, refs)
     records += recs + kchecks
@@ -7089,6 +7489,518 @@ def dedup_rw_stage(dev, env, caps, mine, ebc, flush):
     return rec, launches, kchecks + [bucketed]
 
 
+# -- variable-batch (VBE) KJTs through the sharded collection, 4 ranks ------
+
+VBE_BUDGET_S = 30
+VBE_PLANS = ("tw", "rw", "rw_dedup", "twrw", "dp", "mixed")
+VBE_REDUCED = 13  # the last 13 features: one row per 4 examples
+VBE_SHARE = 4  # examples sharing a reduced row (a request's candidates)
+
+
+def vbe_kjts(kjt, with_expanded=True):
+    """``kjt`` (a uniform KJT of ``TRAIN_BATCH`` examples) as a
+    variable-batch one, on the host: its first ``TRAIN_FEATURES -
+    VBE_REDUCED`` keys at the full stride, the last ``VBE_REDUCED`` at
+    stride ``TRAIN_BATCH / VBE_SHARE`` (each key's first rows), example
+    ``b`` reading reduced row ``b // VBE_SHARE``; and the same batch
+    expanded to the full stride (each example its reduced row's ids),
+    when ``with_expanded``.  Returns (vbe, expanded or None)."""
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    kjt = kjt.to("cpu")
+    keys, B = kjt.keys(), kjt.stride()
+    R = B // VBE_SHARE
+    w = kjt.weights_or_none()
+    full = len(keys) - VBE_REDUCED
+    lens, vals, ws, spk, inv = [], [], [], [], []
+    exp_lens, exp_vals, exp_ws = [], [], []
+    co = kjt.cap_offsets()
+    for f in range(len(keys)):
+        ln = kjt.lengths_for_key(f).numpy()
+        n = R if f >= full else B
+        offs = np.concatenate([[0], np.cumsum(ln)])
+        v = kjt.values()[co[f]:co[f] + int(offs[n])].numpy()
+        wt = None if w is None else w[co[f]:co[f] + int(offs[n])].numpy()
+        lens.append(ln[:n])
+        vals.append(v)
+        if wt is not None:
+            ws.append(wt)
+        spk.append(n)
+        rows = (np.arange(B) // VBE_SHARE if f >= full else np.arange(B))
+        inv.append(rows)
+        if with_expanded:
+            exp_lens.append(ln[rows])
+            exp_vals += [v[offs[r]:offs[r + 1]] for r in rows]
+            if wt is not None:
+                exp_ws += [wt[offs[r]:offs[r + 1]] for r in rows]
+    vbe = KeyedJaggedTensor.from_lengths_packed(
+        keys, np.concatenate(vals), np.concatenate(lens),
+        np.concatenate(ws) if ws else None, caps=kjt.caps,
+        stride_per_key=spk, inverse_indices=np.stack(inv).astype(np.int32))
+    expanded = None
+    if with_expanded:
+        expanded = KeyedJaggedTensor.from_lengths_packed(
+            keys, np.concatenate(exp_vals), np.concatenate(exp_lens),
+            np.concatenate(exp_ws) if exp_ws else None, caps=kjt.caps)
+    return vbe, expanded
+
+
+def _group_update_check(dmp, state, ctxs, grads):
+    """The fused update of every sharded group from this step's
+    gradients (the VBE reduction included) against its plain version on
+    copies of the rank's stacks: B2, or B6 on a DMP with the dedup update
+    kernel; and the VBE reduction's B1 sorted entry against its plain
+    version on the first reduced feature.  Returns the largest difference,
+    or raises when one is not ``torch.equal``."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe, tbe_backward
+
+    ebc, env = dmp.sharded_ebc, dmp.env
+    sgs = ebc.backward_local(ctxs, grads, env)  # a collective
+    err = 0.0
+    inv = ctxs.get("__vbe_inv__")
+    if inv is not None:
+        f = ebc.feature_order[-1]
+        g = grads[f].to(torch.float32).contiguous()
+        rows = torch.arange(g.shape[0], dtype=torch.int32, device=g.device)
+        a = tbe.pooled_lookup(g, rows, inv[f], g.shape[0])
+        b = tbe.pooled_lookup_plain(g, rows, inv[f], g.shape[0])
+        if not torch.equal(a, b):
+            raise AssertionError("the VBE reduction: B1 != plain")
+    for name, sg in sgs.items():
+        stack = state["tables"][name]
+        states = [state["fused"][name][k] for k in ("momentum", "m", "v")
+                  if k in state["fused"][name]]
+        outs = []
+        for plain in (False, True):
+            t, st = stack.clone(), [x.clone() for x in states]
+            if dmp.update_kernel == "tbe":
+                fn = (tbe_backward.fused_sparse_update_plain if plain
+                      else tbe_backward.fused_sparse_update)
+                _update_call(fn, t, st, dmp.fused_config.optim.value, sg,
+                             TRAIN_LR, None, (1.0, 1.0))
+            else:
+                fn = (tbe_backward.dedup_fused_sparse_update_plain if plain
+                      else tbe_backward.dedup_fused_sparse_update)
+                fn(t, st, sg.ids, sg.valid, sg.segments, sg.weights,
+                   sg.grad_seg, dmp.fused_config.optim.value, TRAIN_LR,
+                   eps=EPS)
+            outs.append([t, *st])
+        torch.cuda.synchronize()
+        for a, b in zip(*outs):
+            err = max(err, float((a.float() - b.float()).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"group {name}: the fused update != "
+                                     f"plain by {err}")
+        del outs
+    return err
+
+
+def vbe_stage(dev, env, caps, mine, ebc, mh):
+    """VBE batches through the sharded collection on the 4 ranks, every
+    plan of ``VBE_PLANS`` (the dedup'd row-wise plan on the dedup update
+    kernel): the one-id batch's KT ``torch.equal`` to the unsharded
+    collection's VBE forward and to the same batch expanded to the full
+    stride; the multi-hot batch's KT against the unsharded collection's
+    (table-wise and data-parallel features ``torch.equal``, the others
+    within 1e-5); two runs of a VBE step from one state ``torch.equal``;
+    the tables after one rowwise-Adagrad step within rtol 1e-5 / atol
+    1e-6 of the expanded batch's step; the fused updates (and the VBE
+    reduction's B1) ``torch.equal`` to their plain versions at this
+    rank's shapes; and each step's launches (B1 and B2; B1 and B6 on the
+    dedup plan) and nothing else.  Returns (record, launches)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    t0 = time.perf_counter()
+    r, N = env.rank, env.world_size
+    _, tables = bench_tables()
+    vbe, expanded = vbe_kjts(mine[0].sparse_features)
+    b_vbe = _with_kjt(mine[0], vbe.to(dev))
+    b_exp = _with_kjt(mine[0], expanded.to(dev))
+    mh_caps, mh_kjt = mh
+    mh_vbe = vbe_kjts(mh_kjt, with_expanded=False)[0].to(dev)
+    launches, per_plan = {}, {}
+    with torch.no_grad():
+        ref_one = ebc(b_vbe.sparse_features)
+        ref_mh = ebc(mh_vbe)
+    for kind in VBE_PLANS:
+        if kind == "rw_dedup":
+            plan, kw = dedup_plan(kind, tables, N), dict(
+                lookup_kernel="dedup", update_kernel="dedup")
+        else:
+            plan, kw = sharded_plan(kind, tables, N), {}
+        dmp, state = sharded_dmp(dev, plan, TRAIN_BATCH, caps, env, **kw)
+        kinds_of = group_kind_of_features(dmp)
+        with torch.no_grad():
+            kt, ctxs = dmp.sparse_forward(state, b_vbe)
+            one = _kt_check(_kt(dmp, kt), ref_one, kinds_of, exact_all=True)
+            kt_exp, _ = dmp.sparse_forward(state, b_exp)
+            exp_equal = bool(torch.equal(kt, kt_exp))
+            mhd = dmp.with_feature_caps(mh_caps)
+            kt_m, _ = mhd.sparse_forward(state, _with_kjt(mine[0], mh_vbe))
+            multi = _kt_check(_kt(mhd, kt_m), ref_mh, kinds_of,
+                              exact_all=False)
+        _, _, _, grads = dmp.dense_forward_backward(state, b_vbe, kt)
+        upd_err = _group_update_check(dmp, state, ctxs, grads)
+        # one step from the same state: twice on the VBE batch, once on
+        # the expanded batch
+        runs = []
+        for batch in (b_vbe, b_vbe, b_exp):
+            st = _clone_state(state)
+            torch.cuda.synchronize()
+            tbe.reset_launch_counts()
+            t_step = time.perf_counter()
+            st, m = dmp.train_step(st, batch)
+            torch.cuda.synchronize()
+            t_step = time.perf_counter() - t_step
+            counts = {k: v for k, v in tbe.launch_counts().items() if v}
+            runs.append((st, float(m["loss"]), counts, t_step * 1e3))
+        twice = _state_equal(runs[0][0], runs[1][0])
+        close = all(
+            torch.allclose(runs[0][0]["tables"][n].float(),
+                           runs[2][0]["tables"][n].float(), rtol=1e-5,
+                           atol=1e-6) for n in state["tables"])
+        gap = max(float((runs[0][0]["tables"][n].float()
+                         - runs[2][0]["tables"][n].float()).abs().max())
+                  for n in state["tables"])
+        allowed = ({"pooled_lookup", "dedup_fused_sparse_update"}
+                   if kind == "rw_dedup"
+                   else {"pooled_lookup", "fused_sparse_update"})
+        counts = runs[0][2]
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        per_plan[kind] = {
+            "one_id_equal_features": one[0],
+            "one_id_max_abs_err": one[1], "kt_equal_expanded": exp_equal,
+            "multi_hot_equal_features": multi[0],
+            "multi_hot_max_abs_err": multi[1],
+            "step_twice_equal": twice, "tables_close_expanded_step": close,
+            "tables_max_abs_err_vs_expanded": gap,
+            "losses": [x[1] for x in runs], "launches": counts,
+            "step_ms_vbe_vbe_expanded": [x[3] for x in runs],
+            "update_max_abs_err": upd_err}
+        if not (exp_equal and twice and close
+                and set(counts) <= allowed and counts.get(
+                    "pooled_lookup") and len(counts) == 2
+                and all(np.isfinite([x[1] for x in runs]))):
+            raise AssertionError(f"vbe {kind} rank {r}: {per_plan[kind]}")
+        del dmp, state, runs, mhd
+        torch.cuda.empty_cache()
+    rec = {"phase": "vbe", "rank": r, "ranks": N, "backend": "gloo",
+           "note": ONE_CARD, "batch_per_rank": TRAIN_BATCH,
+           "reduced_features": VBE_REDUCED,
+           "reduced_stride": TRAIN_BATCH // VBE_SHARE, "plans": per_plan,
+           "seconds": time.perf_counter() - t0, "budget_s": VBE_BUDGET_S}
+    return rec, launches
+
+
+# -- the two-level (ICI/DCN) dists, 4 ranks as 2 slices x 2 ----------------
+
+HIER_BUDGET_S = 60
+HIER_SLICES = 2
+HIER_STEPS = 3
+HIER_PLANS = ("rw_dedup", "twrw", "mixed")
+# the two-level plans' hier_factor: at 1 the DCN request buffer is the
+# exactness bound, L * features * send cap rows a destination slice, the
+# same bytes the flat dist sends across slices; 2 halves it, and the
+# one-id and multi-hot batches here need under a quarter of it (checked:
+# dedup_overflow 0)
+HIER_FACTOR = 2.0
+
+
+def hier_plan(kind, tables, n, hier, factor=HIER_FACTOR):
+    """``rw_dedup``: every table row-wise with ``dedup``; ``twrw``: every
+    table row-wise over a node of 2 ranks (a slice); ``mixed``: the first
+    13 tables row-wise with ``dedup``, the others table-wise; with
+    ``hier`` (and ``hier_factor=factor``) on every row-wise and
+    block-shard entry."""
+    import dataclasses
+
+    from torchrec_tpu_torch.parallel.types import (
+        ParameterSharding,
+        ShardingType as ST,
+    )
+
+    if kind == "rw_dedup":
+        base = dedup_plan("rw_dedup", tables, n)
+    elif kind == "twrw":
+        base = sharded_plan("twrw", tables, n)
+    else:
+        base = {c.name: (ParameterSharding(ST.ROW_WISE, ranks=list(range(n)),
+                                           dedup=True)
+                         if i < len(tables) // 2
+                         else ParameterSharding(ST.TABLE_WISE,
+                                                ranks=[i % n]))
+                for i, c in enumerate(tables)}
+    return {name: (dataclasses.replace(ps, hier=hier, hier_factor=factor)
+                   if ps.sharding_type != ST.TABLE_WISE else ps)
+            for name, ps in base.items()}
+
+
+def _dyadic(dmp, seed):
+    """Upstream gradients on a grid of 1/32 (``tests/test_hier_sharding.py``
+    's exact regime): every sum of them the dists take is exact."""
+    import torch
+
+    ebc = dmp.sharded_ebc
+    gen = torch.Generator(device=dmp.device).manual_seed(seed)
+    return {f: torch.randint(-4, 5, (TRAIN_BATCH, d), generator=gen,
+                             device=dmp.device).float() / 32.0
+            for f, d in zip(ebc.feature_order, ebc.feature_dims)}
+
+
+def _hier_kernel_check(dmp, state, ctxs, grads):
+    """B1's sorted entry at this rank's two-level shapes (the source's
+    gradient sum) and B4 on a table-wise group, against their plain
+    versions; then every group's fused update (``_group_update_check``).
+    Returns the largest update difference."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    ebc = dmp.sharded_ebc
+    for kind, name, lay in ebc.sharded_groups():
+        if kind != "tw" and lay.hier is not None:
+            _, _, (sidx, _), seg_global, w_all, _ = ctxs[name]
+            feats = ([f.name for f in lay.features] if kind == "rw"
+                     else [s.feature.name for s in lay.slots])
+            g_cat = torch.cat([grads[f][:, :lay.dim].float()
+                               for f in feats]).contiguous()
+            M = lay.hier.world_size * lay.hier_num_groups * lay.hier_send_cap
+            a = tbe.pooled_lookup(g_cat, seg_global, sidx, M, w_all)
+            b = tbe.pooled_lookup_plain(g_cat, seg_global, sidx, M, w_all)
+            if not torch.equal(a, b):
+                raise AssertionError(f"hier {name}: B1 sorted != plain")
+        elif kind == "tw" and dmp.lookup_kernel == "dedup":
+            ids, w, segs = ctxs[name][:3]
+            S = lay.f_max * lay.world_size * lay.batch_size
+            stack = state["tables"][name]
+            a = tbe.dedup_pooled_lookup(stack, ids, segs, S, w)
+            b = tbe.dedup_pooled_lookup_plain(stack, ids, segs, S, w)
+            if not torch.equal(a, b):
+                raise AssertionError(f"hier {name}: B4 != plain")
+    return _group_update_check(dmp, state, ctxs, grads)
+
+
+def hier_stage(dev, caps, mine, mh):
+    """The two-level dists on the 4 ranks as ``HIER_SLICES`` slices of 2
+    (a ``ShardingEnv`` with ``num_slices``; one card's ranks, so no figure
+    is a cross-node figure), each plan of ``HIER_PLANS`` against the same
+    plan flat on the same world: the multi-hot KT of the row-wise dedup'd
+    features ``torch.equal`` to the flat plan's, every feature within
+    1e-5; the split step's update fed dyadic upstream gradients over
+    dyadic tables leaving the tables ``torch.equal`` to flat;
+    ``HIER_STEPS`` trained one-id steps within rtol 1e-4 / atol 1e-6 of
+    flat with finite losses; the ledger's DCN bytes below flat's and its
+    ICI bytes above 0; the kernels (B1's source sums, B4, B2/B6)
+    ``torch.equal`` to their plain versions and a step's launches and
+    profile holding them and nothing else.  Then the int8 DCN leg's KT
+    within rtol 0.02 / atol 0.05 of float32 and not equal to it,
+    ``hier_factor=1e6`` counted in ``dedup_overflow``, and the planner's
+    ``hierarchical=True`` plan trained on the two-level world and run on
+    a flat world.  Returns (record, launches)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.comm import (
+        LINK_DCN,
+        LINK_ICI,
+        ShardingEnv,
+        all_reduce_sum,
+    )
+    from torchrec_tpu_torch.parallel.planner import EmbeddingShardingPlanner
+    from torchrec_tpu_torch.parallel.qcomm import (
+        CommType,
+        QCommsConfig,
+        wire_accounting,
+    )
+    from torchrec_tpu_torch.sparse import KeyedTensor
+
+    t0 = time.perf_counter()
+    env2 = ShardingEnv.from_process_group("gloo", device=dev,
+                                          num_slices=HIER_SLICES)
+    r, N = env2.rank, env2.world_size
+    _, tables = bench_tables()
+    mh_caps, mh_kjt = mh
+    b_mh = _with_kjt(mine[0], mh_kjt)
+    rng = np.random.RandomState(5)  # dyadic tables: multiples of 1/64
+    grid = {c.name: (rng.randint(-8, 9, (TRAIN_ROWS, DIM)) / 64.0).astype(
+        np.float32) for c in tables}
+    launches, per_plan = {}, {}
+    for kind in HIER_PLANS:
+        kw = (dict(lookup_kernel="dedup", update_kernel="dedup")
+              if kind == "mixed" else {})
+        runs = {}
+        for mode in ("flat", "hier"):
+            dmp, state = sharded_dmp(dev, hier_plan(kind, tables, N,
+                                                    mode == "hier"),
+                                     TRAIN_BATCH, caps, env2, **kw)
+            out = {"hier_groups": sorted(
+                n for k, n, lay in dmp.sharded_ebc.sharded_groups()
+                if k != "tw" and lay.hier is not None)}
+            with torch.no_grad():
+                _, ctxs = dmp.sparse_forward(state, mine[0])
+                ov = dmp.sharded_ebc.dedup_overflow(ctxs)
+                out["dedup_overflow"] = (0 if ov is None else int(
+                    all_reduce_sum(ov.reshape(1), env2)[0]))
+                # multi-hot where the plan dedups its row-wise tables (a
+                # block-shard group's stage-1 buffer at multi-hot caps
+                # would hold GBs a rank); the one-id batch everywhere
+                out["kt_mh"] = (dmp.with_feature_caps(mh_caps).sparse_forward(
+                    state, b_mh)[0] if kind != "twrw" else None)
+                out["kt_one"] = dmp.sparse_forward(state, mine[0])[0]
+                torch.cuda.empty_cache()
+            # the split step's update over dyadic tables and gradients
+            st = _clone_state(state)
+            dmp.load_table_weights(st, grid)
+            kt, ctxs = dmp.embed_step(st["tables"], mine[0])
+            dmp.sharded_ebc.backward_and_update_local(
+                st["tables"], st["fused"], ctxs, _dyadic(dmp, 7),
+                dmp.fused_config, update_kernel=dmp.update_kernel, env=env2)
+            # a two-level group's stack is laid out as its flat twin's
+            # (the same blocks, one group name apart)
+            out["dyadic_tables"] = {n.replace("_hier", ""): t.clone()
+                                    for n, t in st["tables"].items()}
+            del st
+            if mode == "hier":
+                _, ctxs = dmp.sparse_forward(state, mine[0])
+                kt, _ = dmp.sparse_forward(state, mine[0])
+                _, _, _, g = dmp.dense_forward_backward(state, mine[0], kt)
+                out["update_max_abs_err"] = _hier_kernel_check(
+                    dmp, state, ctxs, g)
+            torch.cuda.synchronize()
+            tbe.reset_launch_counts()
+            with wire_accounting() as ledger:
+                state, losses, dt = _train_steps(dmp, state, mine[:HIER_STEPS],
+                                                 HIER_STEPS)
+            out["counts"] = {k: v for k, v in tbe.launch_counts().items()
+                             if v}
+            out["ledger"] = {k: v / HIER_STEPS for k, v in ledger.items()}
+            out["ms_per_step"] = dt * 1e3 / HIER_STEPS
+            out["losses"] = losses
+            out["tables"] = {n.replace("_hier", ""): t.clone()
+                             for n, t in state["tables"].items()}
+            torch.distributed.barrier()
+            out["profiled"], _ = _update_kernels_profiled(
+                lambda: dmp.train_step(state, mine[0]))
+            runs[mode] = out
+            del dmp, state
+            torch.cuda.empty_cache()
+        flat, hier = runs["flat"], runs["hier"]
+        fo = [c.feature_names[0] for c in tables]
+        dims = [DIM] * len(fo)
+        which = "kt_one" if kind == "twrw" else "kt_mh"
+        kt_h = KeyedTensor(fo, dims, hier[which]).to_dict()
+        kt_f = KeyedTensor(fo, dims, flat[which]).to_dict()
+        rw_feats = [f for i, f in enumerate(fo)
+                    if kind == "rw_dedup" or (kind == "mixed"
+                                              and i < len(tables) // 2)]
+        rw_equal = all(torch.equal(kt_h[f], kt_f[f]) for f in rw_feats)
+        kt_err = max(float((kt_h[f] - kt_f[f]).abs().max()) for f in fo)
+        one_err = max(float((hier["kt_one"] - flat["kt_one"]).abs().max()),
+                      0.0)
+        dyadic_equal = all(torch.equal(hier["dyadic_tables"][n],
+                                       flat["dyadic_tables"][n])
+                           for n in flat["dyadic_tables"])
+        close = all(torch.allclose(hier["tables"][n], flat["tables"][n],
+                                   rtol=1e-4, atol=1e-6)
+                    for n in flat["tables"])
+        allowed = {"pooled_lookup", "fused_sparse_update"}
+        if kind == "mixed":
+            allowed = {"pooled_lookup", "dedup_pooled_lookup",
+                       "dedup_fused_sparse_update"}
+        for k, v in hier["counts"].items():
+            launches[k] = launches.get(k, 0) + v
+        per_plan[kind] = {
+            "hier_groups": hier["hier_groups"],
+            "kt_batch": "one_id" if kind == "twrw" else "multi_hot",
+            "rw_dedup_features_equal": rw_equal,
+            "kt_max_abs_err": kt_err, "one_id_kt_max_abs_err": one_err,
+            "dyadic_split_update_tables_equal": dyadic_equal,
+            "trained_tables_close": close,
+            "trained_tables_max_abs_err": max(
+                float((hier["tables"][n] - flat["tables"][n]).abs().max())
+                for n in flat["tables"]),
+            "losses": {"hier": hier["losses"], "flat": flat["losses"]},
+            "ms_per_step": {"hier": hier["ms_per_step"],
+                            "flat": flat["ms_per_step"]},
+            "wire_bytes_per_step": {"hier": hier["ledger"],
+                                    "flat": flat["ledger"]},
+            "dedup_overflow": hier["dedup_overflow"],
+            "launches": hier["counts"], "profiled": hier["profiled"],
+            "update_max_abs_err": hier["update_max_abs_err"]}
+        ok = (hier["hier_groups"] and not hier["dedup_overflow"]
+              and rw_equal and kt_err <= 1e-5
+              and one_err <= 1e-5
+              and dyadic_equal and close
+              and np.isfinite(hier["losses"] + flat["losses"]).all()
+              and hier["ledger"].get(LINK_DCN, 0) < flat["ledger"][LINK_DCN]
+              and hier["ledger"].get(LINK_ICI, 0) > 0
+              and set(hier["counts"]) <= allowed
+              and set(hier["profiled"]) <= allowed
+              and hier["counts"].get("pooled_lookup"))
+        if not ok:
+            raise AssertionError(f"hier {kind} rank {r}: {per_plan[kind]}")
+        del runs, flat, hier
+        torch.cuda.empty_cache()
+
+    # the int8 DCN leg against float32, the overflow count, the planner
+    extra = {}
+    kts = {}
+    for prec in ("fp32", "int8"):
+        qc = QCommsConfig(CommType(prec), CommType(prec))
+        dmp, state = sharded_dmp(dev, hier_plan("rw_dedup", tables, N, True),
+                                 TRAIN_BATCH, caps, env2, qcomms=qc)
+        with torch.no_grad():
+            kts[prec] = dmp.sparse_forward(state, mine[0])[0]
+        del dmp, state
+    extra["int8_dcn_kt_close"] = bool(torch.allclose(
+        kts["int8"], kts["fp32"], rtol=0.02, atol=0.05))
+    extra["int8_dcn_kt_differs"] = not torch.equal(kts["int8"], kts["fp32"])
+    extra["int8_dcn_max_abs_err"] = float(
+        (kts["int8"] - kts["fp32"]).abs().max())
+    del kts
+    dmp, state = sharded_dmp(dev, hier_plan("rw_dedup", tables, N, True,
+                                            factor=1e6),
+                             TRAIN_BATCH, caps, env2)
+    with torch.no_grad():
+        _, ctxs = dmp.sparse_forward(state, mine[0])
+        ov = dmp.sharded_ebc.dedup_overflow(ctxs)
+        extra["dedup_overflow_factor_1e6"] = int(all_reduce_sum(
+            ov.reshape(1), env2)[0])
+    del dmp, state, ctxs
+    plan = EmbeddingShardingPlanner(
+        world_size=N, batch_size_per_device=TRAIN_BATCH,
+        hierarchical=True).plan(tables)
+    flat_env = ShardingEnv(N, r, dev, env2.group, env2.backend)
+    for name, e, steps in (("two_level", env2, HIER_STEPS),
+                           ("flat", flat_env, 1)):
+        dmp, state = sharded_dmp(dev, plan, TRAIN_BATCH, caps, e)
+        n_hier = sum(1 for k, _, lay in dmp.sharded_ebc.sharded_groups()
+                     if k != "tw" and lay.hier is not None)
+        state, losses, _ = _train_steps(dmp, state, mine[:steps], steps)
+        extra[f"planned_{name}"] = {"hier_groups": n_hier,
+                                    "losses": losses}
+        del dmp, state
+        torch.cuda.empty_cache()
+    rec = {"phase": "hier", "rank": r, "ranks": N, "slices": HIER_SLICES,
+           "backend": "gloo", "note": ONE_CARD + "; the slices are the "
+           "dists' topology, not nodes", "batch_per_rank": TRAIN_BATCH,
+           "plans": per_plan, **extra,
+           "seconds": time.perf_counter() - t0, "budget_s": HIER_BUDGET_S}
+    if not (extra["int8_dcn_kt_close"] and extra["int8_dcn_kt_differs"]
+            and extra["dedup_overflow_factor_1e6"] > 0
+            and extra["planned_two_level"]["hier_groups"] > 0
+            and extra["planned_flat"]["hier_groups"] == 0
+            and np.isfinite(extra["planned_two_level"]["losses"]
+                            + extra["planned_flat"]["losses"]).all()):
+        raise AssertionError(f"hier rank {r}: {rec}")
+    return rec, launches
+
+
 # -- the sequence path across the 4 ranks, in the same launch ---------------
 
 SEQ_RANK_BATCH = 64  # sessions a rank: the global batch is SEQ_BATCH
@@ -7664,13 +8576,12 @@ def nccl_rank(backend="nccl", device_type="cuda"):
     return rec
 
 
-def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank,
-                  dedup_rw_only=False):
+def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank, only=None):
     """The multi-rank phase: the gloo arm's 4 ranks, then the NCCL arm's
     one, each spawned by ``multiprocess.launch`` (the parent built every
     kernel before), each rank's records emitted here beside the card's
-    line.  ``dedup_rw_only`` (a development run): the gloo arm's
-    ``dedup_rw`` stage alone, without its plans, its other stages and the
+    line.  ``only`` (a development run): those of the gloo arm's stages
+    (``GLOO_STAGES``) alone, without its plans, its other stages and the
     NCCL arm.  Returns (the main path's launches, summed over ranks and
     plans; the kernel checks' records)."""
     import torch
@@ -7681,7 +8592,7 @@ def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    args = ((), "cuda", True) if dedup_rw_only else (SHARDED_PLANS,)
+    args = ((), "cuda", tuple(only)) if only else (SHARDED_PLANS,)
     results = launch(rank_fn, SHARDED_RANKS, args=args,
                      timeout=SHARDED_TIMEOUT)
     launches: dict = {}
@@ -7694,7 +8605,7 @@ def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank,
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     gloo_s = time.perf_counter() - t0
-    if dedup_rw_only:
+    if only:
         return launches, kchecks
     t0 = time.perf_counter()
     (nccl,) = launch(nccl_fn, 1, timeout=SHARDED_TIMEOUT)
@@ -7783,6 +8694,7 @@ def main() -> None:
     dedup_launches, dedup_rows, dedup_check = train_dedup_phase(dev, flush)
     guarded_launches, guarded_rows = guarded_phase(dev, flush)
     dcn_launches, dcn_rows, dcn_check = train_dcn_phase(dev, flush)
+    lowp_launches, lowp_rows = lowp_state_phase(dev, flush)
     seq_launches, seq_row = seq_phase(dev, flush)
     models_launches, models_checks, fp_err = models_phase(dev, flush)
     del flush
@@ -7804,15 +8716,16 @@ def main() -> None:
                 + serve_launches[k] + sharded_launches.get(k, 0)
                 + seq_launches.get(k, 0) + models_launches.get(k, 0)
                 + tier_launches.get(k, 0) + native_launches[k]
-                + guarded_launches.get(k, 0)
+                + guarded_launches.get(k, 0) + lowp_launches.get(k, 0)
                 for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows
-            + dcn_rows + path_rows + [seq_row]]
+            + dcn_rows + path_rows + [seq_row] + lowp_rows[1:]]
     errs.append(("pooled_lookup", fp_err))
     errs += [(r["kernel"], r["max_abs_err"]) for r in tier_rows]
     errs += [(k, c[f"{b}_max_abs_err"])
-             for c in checks + [dcn_check, app_check] + models_checks
+             for c in checks + [dcn_check, app_check, lowp_rows[0]]
+             + models_checks
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"))]
     errs += [("dedup_pooled_lookup", dedup_check["b4_max_abs_err"]),
@@ -7895,6 +8808,15 @@ def main() -> None:
     b6["seq"] = {x: seq_row[x] for x in ("ms", "kernel_ms",
                                          "kernel_device_ms", "plain_ms",
                                          "bound_ms", "V", "valid")}
+    # B2 and B6 over 16-bit optimizer states (lowp_state's 1M-row arms)
+    for k in summary:
+        rows = {f"{r['optim']} {r['state_dtype']} state"
+                + (" sr off" if r.get("sr") else "")
+                + (" at the DCN path" if r.get("ids") else ""):
+                r["kernel_device_ms"]
+                for r in lowp_rows[1:] if r["kernel"] == k["name"]}
+        if rows:
+            k["lowp_state_device_ms"] = rows
     # B1, B4 and B6 on the guarded path: the dedup'd group's
     # source pooling (B1), the table-wise group's lookup (B4), both
     # groups' updates (B6), card alone
@@ -7919,15 +8841,17 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-DEV_PHASES = ("guarded", "dedup_rw", "sharded")
+DEV_PHASES = ("guarded", "lowp_state", "sharded") + GLOO_STAGES
 
 
 def dev_run(phases) -> None:
-    """A development run of some phases (``--phases guarded,dedup_rw``):
+    """A development run of some phases (``--phases lowp_state,hier``):
     the kernels built, then the named phases' records and the usual last
     line; no ``kernels`` line and not the acceptance run, which is the
-    script with no arguments.  ``dedup_rw`` runs the sharded phase's gloo
-    arm with that stage alone; ``sharded`` runs the whole phase."""
+    script with no arguments.  ``dedup_rw``, ``vbe`` and ``hier`` run the
+    sharded phase's gloo arm with those stages alone; ``sharded`` runs
+    the whole phase.  ``lowp_state`` runs without ``train_dcn`` before
+    it, so its record has no float32-state reference."""
     import torch
 
     unknown = set(phases) - set(DEV_PHASES)
@@ -7947,11 +8871,13 @@ def dev_run(phases) -> None:
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     if "guarded" in phases:
         guarded_phase(dev, flush)
+    if "lowp_state" in phases:
+        lowp_state_phase(dev, flush)
     del flush
     if "sharded" in phases:
         sharded_phase()
-    elif "dedup_rw" in phases:
-        sharded_phase(dedup_rw_only=True)
+    elif set(phases) & set(GLOO_STAGES):
+        sharded_phase(only=tuple(p for p in GLOO_STAGES if p in phases))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

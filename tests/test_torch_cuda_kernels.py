@@ -28,7 +28,10 @@ feature's columns, with no host sync; and the ``trt::`` operators
 (``csrc/torch_ops.cpp``) the grouped wrappers launch through, each
 against the C entry point it wraps and its plain version at the served
 batch's shapes, with the operator library's launch counts, and a
-serving module exported on the card holding them.
+serving module exported on the card holding them; and B2 and B6 over
+bfloat16 and float16 optimizer states (every stateful optimizer, every
+column layout, float32 and bfloat16 tables, stochastic rounding on and
+off), with their instantiations' registers.
 
 Needs a CUDA device and ``nvcc``; marked ``cuda`` and skipped elsewhere.
 It imports nothing of JAX, so on a machine with a card and no JAX it runs
@@ -1629,3 +1632,80 @@ def test_exported_serving_module_holds_the_operators_on_card(
         if node.name in tables_in:
             assert all(u.target.namespace == "trt" for u in node.users)
     assert torch.equal(ep.module()(*inputs), flat(*inputs))
+
+
+# B2 and B6 over a bfloat16 or float16 optimizer state (the six optimizers
+# with one), float32 and bfloat16 tables, at the three column layouts, and
+# the stochastic-rounding switch: bitwise their plain versions, the state
+# kept in its dtype, and a bf16 table's two settings apart
+LOWP_STATEFUL = ("adagrad", "rowwise_adagrad", "adam",
+                 "partial_rowwise_adam", "lamb", "partial_rowwise_lamb")
+LOWP_CONFIGS = [
+    (kernel, optim, sdtype, D)
+    for kernel in UPDATES for optim in LOWP_STATEFUL
+    for sdtype in (torch.bfloat16, torch.float16) for D in (16, 6, 132)
+]
+
+
+def _lowp_update(kernel, plain, optim, table, states, args, grad, seed):
+    bc = (0.271, 0.004)
+    if kernel == UPDATES[0]:
+        fn = (tbe_backward.fused_sparse_update_plain if plain
+              else tbe_backward.fused_sparse_update)
+        adam = optim in _ADAM
+        fn(table, None if adam else states[0], *args, grad, 0.05,
+           weight_decay=0.01, sr_seed=seed, optim=optim,
+           states=states if adam else None, bias_corrections=bc)
+    else:
+        fn = (tbe_backward.dedup_fused_sparse_update_plain if plain
+              else tbe_backward.dedup_fused_sparse_update)
+        fn(table, states, *args, grad, optim, 0.05, weight_decay=0.01,
+           sr_seed=seed, bias_corrections=bc)
+
+
+@pytest.mark.parametrize("kernel,optim,sdtype,D", LOWP_CONFIGS)
+def test_update_low_precision_state_equals_plain_on_card(dev, kernel, optim,
+                                                         sdtype, D):
+    rng = np.random.RandomState(D + 11)
+    ids = np.minimum(rng.zipf(1.2, V) - 1, R + 3)
+    args = [torch.from_numpy(x).to(dev) for x in (
+        ids, rng.rand(V) > 0.1, rng.randint(-2, S + 2, V),
+        rng.rand(V).astype(np.float32))]
+    grad = torch.from_numpy(rng.randn(S, D).astype(np.float32)).to(dev)
+    for dtype, seeds in ((torch.float32, (None,)),
+                         (torch.bfloat16, (None, 4321))):
+        table = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(
+            dev, dtype)
+        states = [torch.from_numpy(
+            rng.rand(*((R,) if k == "row" else (R, D))).astype(np.float32)
+        ).to(dev, sdtype) for k in tbe_backward.STATE_LAYOUTS[optim]]
+        runs = []
+        for seed in seeds:
+            tk, sk = table.clone(), [s.clone() for s in states]
+            tp, sp = table.clone(), [s.clone() for s in states]
+            before = tbe.launch_counts()[kernel]
+            _lowp_update(kernel, False, optim, tk, sk, args, grad, seed)
+            torch.cuda.synchronize()
+            assert tbe.launch_counts()[kernel] == before + 1
+            _lowp_update(kernel, True, optim, tp, sp, args, grad, seed)
+            assert torch.equal(tk, tp), (seed, float(
+                (tk.float() - tp.float()).abs().max()))
+            for a, b in zip(sk, sp):
+                assert a.dtype == sdtype and torch.equal(a, b), float(
+                    (a.float() - b.float()).abs().max())
+            runs.append(tk)
+        if len(runs) == 2:  # round to nearest once vs stochastically
+            assert not torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("sdtype", (torch.bfloat16, torch.float16))
+@pytest.mark.parametrize("kernel", UPDATES)
+def test_update_low_precision_registers_on_card(dev, kernel, sdtype):
+    """Every 16-bit-state instantiation builds and fits the narrow
+    layout's register bound, like its f32-state one."""
+    for optim in LOWP_STATEFUL:
+        for dtype in (torch.float32, torch.bfloat16):
+            info = tbe_backward.update_launch(kernel, optim, dtype, 128,
+                                              10**6, state_dtype=sdtype)
+            assert info["layout"] == "narrow"
+            assert info["registers"] <= 128 and info["blocks_per_sm"] >= 2

@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax():
               "ops.custom_ops", "inference.predict_factory", "robustness",
               "robustness.sanitize", "robustness.policy",
               "robustness.quarantine", "utils.profiling",
-              "parallel.train_pipeline"):
+              "parallel.train_pipeline", "parallel.sharding.hier"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

@@ -115,7 +115,7 @@ def _jax_run(kind, weights, kjts, grads, mesh):
     new = ebc.tables_to_weights(new_params)
     return ({k: np.asarray(v) for k, v in outs.items()},
             {k: np.asarray(v) for k, v in new.items()},
-            {k: v for k, v in ledger.items() if k not in LINK_TAGS})
+            dict(ledger))
 
 
 _RNG = np.random.RandomState(0)
@@ -163,10 +163,13 @@ def test_sharded_ebc_matches_jax_and_unsharded(world):
                         outs[f], ref[f], rtol=1e-5, atol=1e-5,
                         err_msg=f"{kind} rank {r} {f} vs unsharded")
             # the JAX package's DP all-reduce is not in its ledger; the
-            # port's DP all-gathers are, under their group's tag
-            assert {k: v for k, v in ledger.items()
-                    if not k.startswith("dp_")} == pytest.approx(j_ledger), (
-                kind, r)
+            # port's DP all-gathers are, under their group's tag and in the
+            # ICI class (a flat world: every byte intra-slice, in both)
+            dp = sum(v for k, v in ledger.items() if k.startswith("dp_"))
+            got = {k: v for k, v in ledger.items() if not k.startswith("dp_")}
+            got[LINK_TAGS[0]] -= dp
+            assert got == pytest.approx(j_ledger), (kind, r)
+            assert ledger[LINK_TAGS[1]] == j_ledger[LINK_TAGS[1]] == 0
         tables = port[0][0][kind][1]
         for t, w in j_tables.items():
             np.testing.assert_allclose(tables[t], w, rtol=1e-5, atol=1e-5,

@@ -304,6 +304,10 @@ def test_wire_bytes_per_f32_and_ledger_match_jax():
         qcomm.qcomm_all_gather(x[0], env, None, "bwd", tag="c", fanout=4)
         with qcomm.wire_accounting() as inner:
             qcomm.qcomm_all_to_all(x, env, None, "fwd")
+    total = 3 * 64 * 2.0 + 3 * 64 * (1 + 2 / 64) + 3 * 64 * 4.0 * 4
+    # a one-slice world: every byte is intra-slice, as in the JAX ledger
     assert ledger == {"a": 3 * 64 * 2.0, "b": 3 * 64 * (1 + 2 / 64),
-                      "c": 3 * 64 * 4.0 * 4}
-    assert inner == {"all_to_all:fwd": 3 * 64 * 4.0}
+                      "c": 3 * 64 * 4.0 * 4, qcomm.LINK_ICI: total,
+                      qcomm.LINK_DCN: 0.0}
+    assert inner == {"all_to_all:fwd": 3 * 64 * 4.0,
+                     qcomm.LINK_ICI: 3 * 64 * 4.0, qcomm.LINK_DCN: 0.0}

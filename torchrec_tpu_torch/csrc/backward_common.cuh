@@ -49,6 +49,18 @@
 // and its state rows are loaded before the walk (load_vals), so their
 // latency hides behind it.
 //
+// Optimizer state in float32, bfloat16 or float16 (S): a state value is
+// read, widened to f32 and computed in f32; the stored value is the f32
+// result rounded to nearest into S, and the step's scale uses the f32 value
+// before that rounding, as the JAX package's XLA update does
+// (ops/fused_update.py:200-337: `new_mom` feeds the scale before `.at[].set`
+// rounds it).  One more rounding is the reference's own: its Adam family
+// multiplies a 16-bit state by a weakly typed Python beta, which JAX
+// computes in the state's dtype, the beta first rounded to it (bf16 0.9 is
+// 0.8984375, and 0.999 rounds to 1.0), so `b * m` is decay<S> below: the
+// product of the two S values (exact in f32) rounded to S.  An S other than
+// f32 is instantiated only for the six optimizers that have a state.
+//
 // Registers by D: the columns a lane owns (column<VEC>) are kept in arrays
 // of NC floats.  A table with D <= 128 and D % 4 == 0 takes the narrow
 // layout, NC = 4 (one float4 per lane), bounded to two 256-thread blocks
@@ -59,12 +71,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
 #include <map>
 #include <mutex>
+#include <type_traits>
 #include <utility>
 
 namespace bwd {
@@ -99,6 +113,40 @@ inline int layout_for(int D) {
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+
+// an optimizer state value stored: rounded to nearest into S
+__device__ __forceinline__ void store_state(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_state(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_state(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+
+// f32 x rounded to nearest into S and widened back
+template <typename S>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else if constexpr (std::is_same<S, __half>::value) {
+    return __half2float(__float2half_rn(x));
+  } else {
+    return x;
+  }
+}
+
+// b * s for a state value s read from S: f32 for an f32 state; else the
+// reference's weakly typed product in S, b rounded to S first (the
+// product of two S values is exact in f32, then rounded to S once)
+template <typename S>
+__device__ __forceinline__ float decay(float b, float s) {
+  if constexpr (std::is_same<S, float>::value) {
+    return __fmul_rn(b, s);
+  } else {
+    return round_to<S>(__fmul_rn(round_to<S>(b), s));
+  }
 }
 
 // _hash_bits of pallas_tbe_backward.py (uint32 arithmetic, wrapping).
@@ -351,28 +399,32 @@ struct RowVals {
   float row_state;  // rowwise_adagrad's m or the partial v
 };
 
-template <typename T, bool VEC, int NC, int OPT>
+template <typename T, typename S, bool VEC, int NC, int OPT>
 __device__ __forceinline__ void load_vals(RowVals<NC>& x, int row, int lane,
                                           int D, const T* __restrict__ table,
-                                          const float* __restrict__ s0,
-                                          const float* __restrict__ s1) {
+                                          const S* __restrict__ s0,
+                                          const S* __restrict__ s1) {
   constexpr bool kElemM = OPT == kAdagrad || OPT == kAdam || OPT == kLamb ||
                           OPT == kPartialRowwiseAdam ||
                           OPT == kPartialRowwiseLamb;
   constexpr bool kElemV = OPT == kAdam || OPT == kLamb;
   const T* wrow = table + (int64_t)row * D;
   x.row_state = 0.f;
-  if constexpr (OPT == kRowwiseAdagrad) x.row_state = s0[row];
+  if constexpr (OPT == kRowwiseAdagrad) x.row_state = widen(s0[row]);
   if constexpr (OPT == kPartialRowwiseAdam || OPT == kPartialRowwiseLamb) {
-    x.row_state = s1[row];
+    x.row_state = widen(s1[row]);
   }
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
     const int c = column<VEC>(lane, k, D);
     const bool own = c >= 0;
     x.w[k] = own ? widen(wrow[c]) : 0.f;
-    if constexpr (kElemM) x.m[k] = own ? s0[(int64_t)row * D + c] : 0.f;
-    if constexpr (kElemV) x.v[k] = own ? s1[(int64_t)row * D + c] : 0.f;
+    if constexpr (kElemM) {
+      x.m[k] = own ? widen(s0[(int64_t)row * D + c]) : 0.f;
+    }
+    if constexpr (kElemV) {
+      x.v[k] = own ? widen(s1[(int64_t)row * D + c]) : 0.f;
+    }
   }
 }
 
@@ -396,16 +448,19 @@ __device__ __forceinline__ void load_vals(RowVals<NC>& x, int row, int lane,
 //     _adam, _lamb   dir = (m / bc1) / (sqrt(v) / sqrt(bc2) + eps);
 //                    lamb: dir = dir * trust(||w||, ||dir||);  w + (-lr) dir
 //
+// with a 16-bit state S, `b m` and `b v` are decay<S> and every state is
+// stored rounded to S after the step has used its f32 value.
+//
 // (1 - b) is 1.f - b in f32 when PER_ID (_bwd_body computes it in the
 // kernel, pallas_tbe_backward.py:252), else the host-double h.omb.  Every
 // state row is read once (load_vals) and written once at the end (the
 // rowwise state by lane 0).  Addresses are 64-bit.
-template <typename T, bool VEC, int NC, int OPT, bool PER_ID>
+template <typename T, typename S, bool VEC, int NC, int OPT, bool PER_ID>
 __device__ __forceinline__ void update_row(float (&g)[NC], RowVals<NC>& x,
                                            int row, int lane, int D,
                                            T* __restrict__ table,
-                                           float* __restrict__ s0,
-                                           float* __restrict__ s1,
+                                           S* __restrict__ s0,
+                                           S* __restrict__ s1,
                                            const Hyper& h, bool use_sr,
                                            uint32_t seed) {
   constexpr bool kElemM = OPT == kAdagrad || OPT == kAdam || OPT == kLamb ||
@@ -417,8 +472,8 @@ __device__ __forceinline__ void update_row(float (&g)[NC], RowVals<NC>& x,
   constexpr bool kLambTrust = OPT == kLamb || OPT == kPartialRowwiseLamb;
 
   T* wrow = table + (int64_t)row * D;
-  float* mrow = kElemM ? s0 + (int64_t)row * D : nullptr;
-  float* vrow = kElemV ? s1 + (int64_t)row * D : nullptr;
+  S* mrow = kElemM ? s0 + (int64_t)row * D : nullptr;
+  S* vrow = kElemV ? s1 + (int64_t)row * D : nullptr;
   float row_state = x.row_state;
   float(&w)[NC] = x.w;
   float(&m)[NC] = x.m;
@@ -470,16 +525,16 @@ __device__ __forceinline__ void update_row(float (&g)[NC], RowVals<NC>& x,
     float vpe_row = 0.f;
     if constexpr (kRowV) {
       const float ss = sum_sq<VEC>(g, lane, D);
-      row_state = __fadd_rn(__fmul_rn(h.b2, row_state),
+      row_state = __fadd_rn(decay<S>(h.b2, row_state),
                             __fmul_rn(omb2, __fdiv_rn(ss, (float)D)));
       vpe_row = __fadd_rn(__fdiv_rn(__fsqrt_rn(row_state), sqbc2), h.eps);
     }
 #pragma unroll
     for (int k = 0; k < NC; ++k) {
-      m[k] = __fadd_rn(__fmul_rn(h.b1, m[k]), __fmul_rn(omb1, g[k]));
+      m[k] = __fadd_rn(decay<S>(h.b1, m[k]), __fmul_rn(omb1, g[k]));
       float vpe = vpe_row;
       if constexpr (kElemV) {
-        v[k] = __fadd_rn(__fmul_rn(h.b2, v[k]),
+        v[k] = __fadd_rn(decay<S>(h.b2, v[k]),
                          __fmul_rn(__fmul_rn(omb2, g[k]), g[k]));
         vpe = __fadd_rn(__fdiv_rn(__fsqrt_rn(v[k]), sqbc2), h.eps);
       }
@@ -501,23 +556,23 @@ __device__ __forceinline__ void update_row(float (&g)[NC], RowVals<NC>& x,
     if (c >= 0) {
       store(wrow + c, __fadd_rn(w[k], delta[k]), use_sr, seed,
             (uint32_t)row, (uint32_t)c);
-      if constexpr (kElemM) mrow[c] = m[k];
-      if constexpr (kElemV) vrow[c] = v[k];
+      if constexpr (kElemM) store_state(mrow + c, m[k]);
+      if constexpr (kElemV) store_state(vrow + c, v[k]);
     }
   }
   if (lane == 0) {
-    if constexpr (OPT == kRowwiseAdagrad) s0[row] = row_state;
-    if constexpr (kRowV) s1[row] = row_state;
+    if constexpr (OPT == kRowwiseAdagrad) store_state(s0 + row, row_state);
+    if constexpr (kRowV) store_state(s1 + row, row_state);
   }
 }
 
 // The fused backward + optimizer over the sorted stream (the grid and the
 // walk above).  queue: the two uint32 counters of the work queue, both 0 at
 // launch and again at exit.
-template <typename T, int LAYOUT, int OPT, bool PER_ID>
+template <typename T, typename S, int LAYOUT, int OPT, bool PER_ID>
 __global__ void __launch_bounds__(kThreads, LAYOUT == kNarrow ? kMinBlocks : 1)
     fused_update_kernel(Slots sl, T* __restrict__ table,
-                        float* __restrict__ s0, float* __restrict__ s1,
+                        S* __restrict__ s0, S* __restrict__ s1,
                         Hyper h, int use_sr, uint32_t seed,
                         unsigned* __restrict__ queue) {
   constexpr bool VEC = LAYOUT != kScalar;
@@ -543,11 +598,11 @@ __global__ void __launch_bounds__(kThreads, LAYOUT == kNarrow ? kMinBlocks : 1)
       starts &= starts - 1;
       const int row = __shfl_sync(kFull, r, k);
       RowVals<NC> x;
-      load_vals<T, VEC, NC, OPT>(x, row, lane, sl.D, table, s0, s1);
+      load_vals<T, S, VEC, NC, OPT>(x, row, lane, sl.D, table, s0, s1);
       float g[NC];
       sum_run<VEC, NC>(g, sl, base, k, row, r, seg, wt, lane);
-      update_row<T, VEC, NC, OPT, PER_ID>(g, x, row, lane, sl.D, table, s0,
-                                          s1, h, use_sr != 0, seed);
+      update_row<T, S, VEC, NC, OPT, PER_ID>(g, x, row, lane, sl.D, table,
+                                             s0, s1, h, use_sr != 0, seed);
     }
   }
   // the last warp out leaves the queue at 0 for the next launch
@@ -560,42 +615,61 @@ __global__ void __launch_bounds__(kThreads, LAYOUT == kNarrow ? kMinBlocks : 1)
   }
 }
 
-// the instantiation for (optimizer, dtype, layout), or null for an unknown
-// code; dtype 0 = float32, 1 = bfloat16 table
-template <typename T, int LAYOUT, bool PER_ID>
+// the instantiation for (optimizer, table type T, state type S, layout),
+// or null for an unknown code or a 16-bit state of a stateless optimizer
+template <typename T, typename S, int LAYOUT, bool PER_ID>
 const void* kernel_for(int optim) {
-  switch (optim) {
 #define TRTPU_CASE(OPT) \
-  case OPT: return (const void*)fused_update_kernel<T, LAYOUT, OPT, PER_ID>
-    TRTPU_CASE(kSgd);
-    TRTPU_CASE(kLarsSgd);
+  case OPT: return (const void*)fused_update_kernel<T, S, LAYOUT, OPT, PER_ID>
+  if constexpr (std::is_same<S, float>::value) {
+    switch (optim) {
+      TRTPU_CASE(kSgd);
+      TRTPU_CASE(kLarsSgd);
+      default: break;
+    }
+  }
+  switch (optim) {
     TRTPU_CASE(kAdagrad);
     TRTPU_CASE(kRowwiseAdagrad);
     TRTPU_CASE(kAdam);
     TRTPU_CASE(kPartialRowwiseAdam);
     TRTPU_CASE(kLamb);
     TRTPU_CASE(kPartialRowwiseLamb);
+    default: return nullptr;
+  }
 #undef TRTPU_CASE
+}
+
+template <typename T, typename S, bool PER_ID>
+const void* kernel_for(int optim, int layout) {
+  switch (layout) {
+    case kNarrow: return kernel_for<T, S, kNarrow, PER_ID>(optim);
+    case kWide: return kernel_for<T, S, kWide, PER_ID>(optim);
+    case kScalar: return kernel_for<T, S, kScalar, PER_ID>(optim);
     default: return nullptr;
   }
 }
 
 template <typename T, bool PER_ID>
-const void* kernel_for(int optim, int layout) {
-  switch (layout) {
-    case kNarrow: return kernel_for<T, kNarrow, PER_ID>(optim);
-    case kWide: return kernel_for<T, kWide, PER_ID>(optim);
-    case kScalar: return kernel_for<T, kScalar, PER_ID>(optim);
+const void* kernel_for_state(int optim, int sdtype, int layout) {
+  switch (sdtype) {
+    case 0: return kernel_for<T, float, PER_ID>(optim, layout);
+    case 1: return kernel_for<T, __nv_bfloat16, PER_ID>(optim, layout);
+    case 2: return kernel_for<T, __half, PER_ID>(optim, layout);
     default: return nullptr;
   }
 }
 
+// dtype: the table's, 0 = float32, 1 = bfloat16; sdtype: the optimizer
+// state's, 0 = float32, 1 = bfloat16, 2 = float16
 template <bool PER_ID>
-const void* kernel_for(int optim, int dtype, int D) {
+const void* kernel_for(int optim, int dtype, int sdtype, int D) {
   if (D > 32 * kMaxCols) return nullptr;
   const int layout = layout_for(D);
-  if (dtype == 0) return kernel_for<float, PER_ID>(optim, layout);
-  if (dtype == 1) return kernel_for<__nv_bfloat16, PER_ID>(optim, layout);
+  if (dtype == 0) return kernel_for_state<float, PER_ID>(optim, sdtype, layout);
+  if (dtype == 1) {
+    return kernel_for_state<__nv_bfloat16, PER_ID>(optim, sdtype, layout);
+  }
   return nullptr;
 }
 
@@ -630,13 +704,13 @@ inline int grid_blocks(const void* fn, int V) {
   return (int)(wanted < most ? wanted : most);
 }
 
-// Launch the instantiation for (optim, dtype, D) on `stream`; returns
+// Launch the instantiation for (optim, dtype, sdtype, D) on `stream`; returns
 // cudaGetLastError() as an int (0 = launched).
 template <bool PER_ID>
 int launch(const Slots& sl, void* table, void* s0, void* s1,
-           unsigned* queue, int optim, int dtype, const Hyper& h,
+           unsigned* queue, int optim, int dtype, int sdtype, const Hyper& h,
            int use_sr, int seed, cudaStream_t stream) {
-  const void* fn = kernel_for<PER_ID>(optim, dtype, sl.D);
+  const void* fn = kernel_for<PER_ID>(optim, dtype, sdtype, sl.D);
   if (fn == nullptr || queue == nullptr) return (int)cudaErrorInvalidValue;
   if (sl.V > 0) {
     const int blocks = grid_blocks(fn, sl.V);
@@ -652,12 +726,12 @@ int launch(const Slots& sl, void* table, void* s0, void* s1,
   return (int)cudaGetLastError();
 }
 
-// What a launch for (optim, dtype, D) over V positions takes: out[0] the
+// What a launch for (optim, dtype, sdtype, D) over V positions takes: out[0] the
 // registers a thread uses, out[1] the blocks, out[2] the resident blocks
 // per SM, out[3] the layout (Layout).  Returns 0, or a CUDA error code.
 template <bool PER_ID>
-int kernel_info(int optim, int dtype, int D, int V, int* out) {
-  const void* fn = kernel_for<PER_ID>(optim, dtype, D);
+int kernel_info(int optim, int dtype, int sdtype, int D, int V, int* out) {
+  const void* fn = kernel_for<PER_ID>(optim, dtype, sdtype, D);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);

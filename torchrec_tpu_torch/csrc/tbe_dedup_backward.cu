@@ -71,8 +71,10 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 =
 // launched).  `optim` is the code of the Optim enum; `state0` / `state1` are
-// the optimizer's f32 state arrays (momentum, or m and v; unused ones may be
-// null): [R] for a rowwise state, [R, D] otherwise.  `queue` is the work
+// the optimizer's state arrays (momentum, or m and v; unused ones may be
+// null), each of element type `sdtype` (0 float32, 1 bfloat16, 2 float16;
+// 16-bit only for the six optimizers with a state): [R] for a rowwise
+// state, [R, D] otherwise.  `queue` is the work
 // queue, two uint32 that are 0 (the kernel leaves them at 0).  `dtype` is 0
 // for a float32 and 1 for a bfloat16 table; `use_sr` turns on stochastic
 // rounding of a bfloat16 write-back with `seed`.  Pointers are device
@@ -83,19 +85,22 @@ int dedup_fused_update(const void* srows, const void* ssegs, const void* sw,
                        void* state1, void* queue, int V, int R, int D,
                        int optim, float lr, float eps, float wd, float b1,
                        float b2, float omb1, float omb2, float bc1, float bc2,
-                       int dtype, int use_sr, int seed, void* stream) {
+                       int dtype, int sdtype, int use_sr, int seed,
+                       void* stream) {
   const Slots sl{(const int32_t*)srows, (const int32_t*)ssegs,
                  (const float*)sw, (const float*)grad, V, R, D};
   const Hyper h{lr, eps, wd, b1, b2, omb1, omb2, bc1, bc2};
   return launch<false>(sl, table, state0, state1, (unsigned*)queue, optim,
-                       dtype, h, use_sr, seed, (cudaStream_t)stream);
+                       dtype, sdtype, h, use_sr, seed,
+                      (cudaStream_t)stream);
 }
 
-// What a launch for (optim, dtype, D) over V sorted positions takes, in
-// out[4]: registers a thread, blocks, resident blocks per SM, layout (0
+// What a launch for (optim, dtype, sdtype, D) over V sorted positions
+// takes, in out[4]: registers a thread, blocks, resident blocks per SM, layout (0
 // narrow, 1 wide, 2 scalar).  Returns 0 or a CUDA error code.
-int dedup_fused_update_info(int optim, int dtype, int D, int V, int* out) {
-  return kernel_info<false>(optim, dtype, D, V, out);
+int dedup_fused_update_info(int optim, int dtype, int sdtype, int D, int V,
+                      int* out) {
+  return kernel_info<false>(optim, dtype, sdtype, D, V, out);
 }
 
 }  // extern "C"

@@ -46,11 +46,11 @@ from torchrec_tpu_torch.modules.embedding_configs import (
     data_type_to_dtype,
 )
 from torchrec_tpu_torch.ops.embedding_ops import (
-    POOLED_KERNELS,
     SlotRegions,
     mean_pooling_weights,
     pooled_embedding_lookup,
     pooled_embedding_lookup_regions,
+    resolve_lookup_kernel,
     sequence_embedding_lookup,
 )
 from torchrec_tpu_torch.sparse import JaggedTensor, KeyedJaggedTensor, KeyedTensor
@@ -180,8 +180,10 @@ class EmbeddingBagCollection(_TableCollection):
     KeyedTensor with one key per feature name (tables in order, each
     table's features in its order), each of its table's dim, float32.
 
-    ``kernel``: ``"tbe"`` (B1) or ``"dedup"`` (B4), the same numbers.
-    ``device``: CUDA unless the caller names another (``RuntimeError``
+    ``kernel``: ``"tbe"`` (B1) or ``"dedup"`` (B4), the same numbers;
+    None takes the process-wide selection
+    (``embedding_ops.set_pooled_lookup_kernel``) when the collection is
+    built.  ``device``: CUDA unless the caller names another (``RuntimeError``
     without a card); ``torch.device("meta")`` for a placeholder.
     ``generator``: draws the tables (required off meta)."""
 
@@ -190,7 +192,7 @@ class EmbeddingBagCollection(_TableCollection):
         tables: Sequence[EmbeddingBagConfig],
         is_weighted: bool = False,
         device: DeviceLike = None,
-        kernel: str = "tbe",
+        kernel: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -198,8 +200,7 @@ class EmbeddingBagCollection(_TableCollection):
         feats = [f for c in tables for f in c.feature_names]
         if len(set(feats)) != len(feats):
             raise ValueError(f"duplicate features: {feats}")
-        if kernel not in POOLED_KERNELS:
-            raise ValueError(f"unknown pooled-lookup kernel {kernel!r}")
+        kernel = resolve_lookup_kernel(kernel)
         _register_tables(self, tables, device, generator)
         self.tables = tuple(tables)
         self.is_weighted = is_weighted

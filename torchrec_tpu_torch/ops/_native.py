@@ -75,8 +75,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "tbe_backward.cu": {
         "fused_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
-        "fused_update_info": (_I, _I, _I, _I, _O),
+                         _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _P),
+        "fused_update_info": (_I, _I, _I, _I, _I, _O),
     },
     "tbe_dedup.cu": {
         "dedup_pooled": (_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _L,
@@ -85,8 +85,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "tbe_dedup_backward.cu": {
         "dedup_fused_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I,
-                               _I, _I, _P),
-        "dedup_fused_update_info": (_I, _I, _I, _I, _O),
+                               _I, _I, _I, _P),
+        "dedup_fused_update_info": (_I, _I, _I, _I, _I, _O),
     },
 }
 # the libtorch-linked libraries: C entry point -> (argtypes, restype)
@@ -352,6 +352,8 @@ def check_launch(name: str, err: int) -> None:
 # the fused updates (B2, B6) take FLOAT_DTYPES, the float pooled lookups
 # (B1, B4) LOOKUP_DTYPES, for tables and outputs
 FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the fused updates' optimizer-state element types
+STATE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 LOOKUP_DTYPES = {**FLOAT_DTYPES, torch.float16: 2}
 
 LAUNCHES: Dict[str, int] = {

@@ -6,10 +6,22 @@ sequence lookup, pooling weights, the sort-based dedup scaffold, and
 the row gradients and duplicate aggregation that the dedup fused update's
 plain version is built from.
 
-The lookup's kernel is an argument, ``"tbe"`` (the per-id lookup) or
-``"dedup"`` (the ragged dedup lookup), where the JAX package reads a
-process-wide switch at trace time (``set_pooled_lookup_kernel``,
-``trace_kernels``): the port runs eagerly and takes its kernel per call.
+The lookup's kernel is an argument, ``"tbe"`` (the per-id lookup, B1) or
+``"dedup"`` (the ragged dedup lookup, B4): the port runs eagerly and takes
+its kernel per call.  The JAX package's process-wide kernel registry is
+here with its names (:data:`POOLED_KERNELS`, ``set_``/
+``get_pooled_lookup_kernel``, :func:`trace_kernels` over this module's,
+``ops/quant_ops.py``'s and ``ops/fused_update.py``'s switches, all under
+the reentrant :data:`TRACE_KERNEL_LOCK`, and the environment override
+``TORCHREC_TPU_POOLED_KERNEL``).  The JAX package reads it at trace time;
+the port reads it at build time: a DMP, a collection or a bucketed
+signature's clone built with no kernel of its own takes the selection's
+port kernel (:func:`resolve_lookup_kernel`: ``"xla"`` and ``"pallas"`` are
+B1, ``"xla_dedup"`` and ``"pallas_dedup"`` B4; no name selects a plain
+version).  An explicit kernel argument wins.  The TPU options
+(``chunk``, ``group``, ``interpret``) are kept and do nothing here, and so
+are ``id_cap`` / ``u_cap``: the port's sized dedup prep bounds itself by
+the stream it is given.
 The gradient is a ``torch.autograd.Function`` whose backward is the JAX
 package's own for its Pallas forwards (``_pallas_pooled_bwd``,
 ``_pallas_dedup_pooled_bwd``): a scatter-add of the row gradients into
@@ -21,9 +33,112 @@ guardrail (``robustness/sanitize.py``).  Left out: the ``xla``/
 
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+# the process-wide kernel selections (this module's, ``quant_ops``' and
+# ``fused_update``'s) are read and written under this lock; reentrant, so a
+# caller holding it across a build can still call the setters
+TRACE_KERNEL_LOCK = threading.RLock()
+
+# the port's pooled lookups: B1 and B4
+LOOKUP_KERNELS = ("tbe", "dedup")
+# the JAX package's pooled-lookup kernel names and the port kernel of each
+POOLED_KERNELS = ("xla", "xla_dedup", "pallas", "pallas_dedup")
+POOLED_KERNEL_MAP = {"xla": "tbe", "pallas": "tbe", "xla_dedup": "dedup",
+                     "pallas_dedup": "dedup"}
+_POOLED_KERNEL: str = os.environ.get("TORCHREC_TPU_POOLED_KERNEL", "xla")
+_PALLAS_OPTS = {"chunk": 1024, "group": 16, "interpret": False}
+_PALLAS_DEDUP_OPTS = {"id_cap": None, "u_cap": None}
+
+
+def set_pooled_lookup_kernel(
+    kind: str,
+    chunk: int = 1024,
+    group: int = 16,
+    interpret: bool = False,
+    id_cap: Optional[int] = None,
+    u_cap: Optional[int] = None,
+) -> None:
+    """Select the pooled-lookup kernel process-wide by its JAX name (one
+    of :data:`POOLED_KERNELS`); what is built afterwards with no kernel of
+    its own takes it.  The options are kept and do nothing in the port.
+    Thread-safe (:data:`TRACE_KERNEL_LOCK`)."""
+    global _POOLED_KERNEL
+    if kind not in POOLED_KERNELS:
+        raise ValueError(f"unknown pooled-lookup kernel {kind!r}")
+    with TRACE_KERNEL_LOCK:
+        _POOLED_KERNEL = kind
+        _PALLAS_OPTS.update(chunk=chunk, group=group, interpret=interpret)
+        _PALLAS_DEDUP_OPTS.update(id_cap=id_cap, u_cap=u_cap)
+
+
+def get_pooled_lookup_kernel() -> str:
+    """The process-wide pooled-lookup kernel (one of
+    :data:`POOLED_KERNELS`)."""
+    return _POOLED_KERNEL
+
+
+def resolve_lookup_kernel(kernel: Optional[str]) -> str:
+    """The port's pooled lookup (:data:`LOOKUP_KERNELS`) for ``kernel``:
+    itself when it names one; for None the process-wide selection's,
+    through :data:`POOLED_KERNEL_MAP`.  An explicit kernel takes the
+    port's names only."""
+    if kernel is None:
+        with TRACE_KERNEL_LOCK:
+            return POOLED_KERNEL_MAP[_POOLED_KERNEL]
+    if kernel not in LOOKUP_KERNELS:
+        raise ValueError(f"unknown pooled-lookup kernel {kernel!r}")
+    return kernel
+
+
+@contextlib.contextmanager
+def trace_kernels(pooled: Optional[str] = None, quant: Optional[str] = None,
+                  update: Optional[str] = None, **opts):
+    """Scoped kernel selection under :data:`TRACE_KERNEL_LOCK`: select
+    the pooled, quantized and sparse-update kernels (JAX names; None
+    leaves a family as it is) for the body, then restore every family's
+    previous selection and options.  ``opts`` go to each selected
+    family's setter (``chunk``, ``group``, ``interpret``, ``id_cap``,
+    ``u_cap`` as it takes them).  What the body builds with no kernel of
+    its own takes these (an explicit kernel argument keeps the port's
+    names, ``"tbe"`` or ``"dedup"``)."""
+    from torchrec_tpu_torch.ops import fused_update as _fu
+    from torchrec_tpu_torch.ops import quant_ops as _qo
+
+    lookup_opts = ("chunk", "group", "interpret", "id_cap", "u_cap")
+    with TRACE_KERNEL_LOCK:
+        prev_pool = (_POOLED_KERNEL, dict(_PALLAS_OPTS),
+                     dict(_PALLAS_DEDUP_OPTS))
+        prev_quant = (_qo.get_quant_lookup_kernel(),
+                      dict(_qo._QUANT_PALLAS_OPTS),
+                      dict(_qo._QUANT_DEDUP_OPTS))
+        prev_update = (_fu.get_sparse_update_kernel(),
+                       dict(_fu._UPDATE_PALLAS_OPTS),
+                       dict(_fu._UPDATE_DEDUP_OPTS))
+        try:
+            if pooled is not None:
+                set_pooled_lookup_kernel(pooled, **{
+                    k: v for k, v in opts.items() if k in lookup_opts})
+            if quant is not None:
+                _qo.set_quant_lookup_kernel(quant, **{
+                    k: v for k, v in opts.items() if k in lookup_opts})
+            if update is not None:
+                _fu.set_sparse_update_kernel(update, **{
+                    k: v for k, v in opts.items()
+                    if k in ("chunk", "group", "interpret", "id_cap")})
+            yield
+        finally:
+            set_pooled_lookup_kernel(prev_pool[0], **prev_pool[1])
+            _PALLAS_DEDUP_OPTS.update(prev_pool[2])
+            _qo.set_quant_lookup_kernel(prev_quant[0], **prev_quant[1])
+            _qo._QUANT_DEDUP_OPTS.update(prev_quant[2])
+            _fu.set_sparse_update_kernel(prev_update[0], **prev_update[1])
+            _fu._UPDATE_DEDUP_OPTS.update(prev_update[2])
 
 
 def mean_pooling_weights(
@@ -211,7 +326,6 @@ class SlotRegions(NamedTuple):
         return seg
 
 
-POOLED_KERNELS = ("tbe", "dedup")
 # the most spare rows the lookup's backward scatters invalid slots to
 _SPARE_ROWS = 1024
 
@@ -234,7 +348,7 @@ def pooled_embedding_lookup(
     the same float32 result.  CUDA tensors launch the kernel, CPU tensors
     take its plain version.  Differentiable in ``table`` and ``weights``
     (:class:`_PooledLookup`)."""
-    if kernel not in POOLED_KERNELS:
+    if kernel not in LOOKUP_KERNELS:
         raise ValueError(f"unknown pooled-lookup kernel {kernel!r}")
     if weights is not None:
         weights = weights.to(torch.float32)

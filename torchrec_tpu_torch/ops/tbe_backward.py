@@ -35,6 +35,13 @@ B2's plain version agrees with the JAX kernel to a tolerance (its means
 and norms reduce in an order XLA does not pin down); B6's is
 ``embedding_row_grads`` + ``aggregate_duplicate_rows`` + the optimizer
 math of the JAX package's ``apply_sparse_update``.
+
+The optimizer states may be float32, bfloat16 or float16
+(``FusedOptimConfig.momentum_dtype``; :data:`STATE_DTYPES`): read and
+widened to float32, stored rounded to nearest after the step has used the
+float32 value, and the Adam family's ``b * m`` computed in the state's
+dtype as the JAX package's XLA update does (:func:`_decay`), which is the
+reference here, since its Pallas kernels take a float32 state only.
 """
 
 from __future__ import annotations
@@ -45,7 +52,11 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from torchrec_tpu_torch.ops import _native
-from torchrec_tpu_torch.ops._native import FLOAT_DTYPES, count_launch
+from torchrec_tpu_torch.ops._native import (
+    FLOAT_DTYPES,
+    STATE_DTYPES,
+    count_launch,
+)
 from torchrec_tpu_torch.ops.embedding_ops import (
     aggregate_duplicate_rows,
     embedding_row_grads,
@@ -238,8 +249,9 @@ def _check_inputs(
     grad_seg: torch.Tensor,
     sr_seed: Optional[int],
 ) -> torch.device:
-    """Validate an update's arguments (``states`` float32 in ``layout``:
-    "row" ``[R]``, "col" ``[R, D]``); returns their common device."""
+    """Validate an update's arguments (``states`` in ``layout``: "row"
+    ``[R]``, "col" ``[R, D]``, all of one of :data:`STATE_DTYPES`);
+    returns their common device."""
     tensors = [table, *states, ids, valid, segments, grad_seg]
     if weights is not None:
         tensors.append(weights)
@@ -257,9 +269,13 @@ def _check_inputs(
                          f"{len(layout)}")
     for st, kind in zip(states, layout):
         shape = (R,) if kind == "row" else (R, D)
-        if st.dtype != torch.float32 or tuple(st.shape) != shape:
-            raise TypeError(f"optimizer state must be float32 {shape}, got "
-                            f"{st.dtype} {tuple(st.shape)}")
+        if st.dtype not in STATE_DTYPES or tuple(st.shape) != shape:
+            raise TypeError(f"optimizer state must be float32, bfloat16 or "
+                            f"float16 {shape}, got {st.dtype} "
+                            f"{tuple(st.shape)}")
+        if st.dtype != states[0].dtype:
+            raise TypeError(f"optimizer states of two dtypes: "
+                            f"{states[0].dtype} and {st.dtype}")
     if grad_seg.dtype != torch.float32 or grad_seg.dim() != 2 or (
         grad_seg.shape[1] != D
     ):
@@ -341,26 +357,30 @@ def _launch(
     srows, ssegs, sw = srows.contiguous(), ssegs.contiguous(), sw.contiguous()
     ptrs = [st.data_ptr() for st in states] + [0] * (2 - len(states))
     use_sr = table.dtype == torch.bfloat16 and sr_seed is not None
+    sdtype = STATE_DTYPES[states[0].dtype] if states else 0
     with torch.cuda.device(table.device):
         queue, stream = _work_queue(table.device)
         err = getattr(lib, entry)(
             srows.data_ptr(), ssegs.data_ptr(), sw.data_ptr(),
             grad.data_ptr(), table.data_ptr(), ptrs[0], ptrs[1], queue,
             srows.shape[0], R, D, OPTIMIZERS.index(optim),
-            *(float(x) for x in hyper), FLOAT_DTYPES[table.dtype],
+            *(float(x) for x in hyper), FLOAT_DTYPES[table.dtype], sdtype,
             int(use_sr), int(sr_seed) if use_sr else 0, stream,
         )
     _native.check_launch(entry, err)
 
 
 def update_launch(kernel: str, optim: str, dtype: torch.dtype, dim: int,
-                  slots: int = 0) -> Dict[str, object]:
+                  slots: int = 0,
+                  state_dtype: torch.dtype = torch.float32
+                  ) -> Dict[str, object]:
     """What the launch of B2 (``kernel="fused_sparse_update"``) or B6
     (``"dedup_fused_sparse_update"``) with ``optim`` over a table of
-    ``dtype`` and width ``dim`` and ``slots`` sorted positions takes on
-    the current card (builds the kernel): the instantiation's
-    ``registers`` a thread and column ``layout`` (:func:`column_layout`),
-    the grid's ``blocks`` and the ``blocks_per_sm`` resident."""
+    ``dtype`` and width ``dim``, its state of ``state_dtype``, and
+    ``slots`` sorted positions takes on the current card (builds the
+    kernel): the instantiation's ``registers`` a thread and column
+    ``layout`` (:func:`column_layout`), the grid's ``blocks`` and the
+    ``blocks_per_sm`` resident."""
     source, entry = {
         "fused_sparse_update": (_SOURCE, "fused_update_info"),
         "dedup_fused_sparse_update": (_DEDUP_SOURCE,
@@ -369,7 +389,8 @@ def update_launch(kernel: str, optim: str, dtype: torch.dtype, dim: int,
     lib = _native.load_library(source)
     out = (ctypes.c_int * 4)()
     err = getattr(lib, entry)(OPTIMIZERS.index(optim), FLOAT_DTYPES[dtype],
-                              int(dim), int(slots), out)
+                              STATE_DTYPES[state_dtype], int(dim),
+                              int(slots), out)
     if err:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return {"registers": out[0], "blocks": out[1], "blocks_per_sm": out[2],
@@ -383,6 +404,19 @@ def update_launch(kernel: str, optim: str, dtype: torch.dtype, dim: int,
 
 def _f32(x: Scalar, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).to(device)
+
+
+def _decay(b: float, s: torch.Tensor) -> torch.Tensor:
+    """``b * s`` for state values ``s`` read in their own dtype, as
+    float32: the float32 product for a float32 state; for a 16-bit state
+    the JAX package's arithmetic, where a weakly typed Python ``b`` times
+    a bfloat16 / float16 array is computed in that dtype with ``b``
+    rounded to it first (``0.999`` is ``1.0`` in bfloat16, so ``v`` never
+    decays): the product of the two rounded to the state's dtype
+    (``csrc/backward_common.cuh::decay``)."""
+    if s.dtype == torch.float32:
+        return _f32(b, s.device) * s
+    return (_f32(b, s.device).to(s.dtype) * s).to(torch.float32)
 
 
 def _trust_ratio(a_norm: torch.Tensor, b_norm: torch.Tensor) -> torch.Tensor:
@@ -410,7 +444,9 @@ def update_rows(
 ) -> None:
     """One optimizer step on the distinct ``rows`` [U] with their summed
     float32 gradients ``g`` [U, D], in place, with every operation
-    rounded on its own: weight decay ``g + wd * w``, then the optimizer's
+    rounded on its own (a 16-bit state read and widened, the step computed
+    in float32 from the unrounded new state, which is stored rounded to
+    nearest; the Adam family's ``b * m`` by :func:`_decay`): weight decay ``g + wd * w``, then the optimizer's
     math (``csrc/backward_common.cuh::update_row`` lists it), then ``w +
     delta`` written back (a bfloat16 table stochastically rounded when
     ``sr_seed`` is given).  Means and norms over D reduce in the kernels'
@@ -434,7 +470,7 @@ def update_rows(
     elif optim == "adagrad":
         m = states[0][rows] + g * g
         delta = (neg_lr * g) / (torch.sqrt(m) + _f32(eps, dev))
-        states[0][rows] = m
+        states[0][rows] = m.to(states[0].dtype)
     elif optim == "rowwise_adagrad":
         m = states[0][rows] + mean_of_squares(g)
         den = torch.sqrt(m) + _f32(eps, dev)
@@ -442,7 +478,7 @@ def update_rows(
             delta = (neg_lr / den)[:, None] * g
         else:
             delta = (neg_lr * g) * _div(torch.ones_like(m), den)[:, None]
-        states[0][rows] = m
+        states[0][rows] = m.to(states[0].dtype)
     else:  # the adam family
         (b1, b2), (bc1, bc2) = betas, bias_corrections
         if per_id:
@@ -450,16 +486,14 @@ def update_rows(
             omb2 = _f32(1.0, dev) - _f32(b2, dev)
         else:
             omb1, omb2 = _f32(1.0 - b1, dev), _f32(1.0 - b2, dev)
-        m = _f32(b1, dev) * states[0][rows] + omb1 * g
+        m = _decay(b1, states[0][rows]) + omb1 * g
         sqbc2 = torch.sqrt(_f32(bc2, dev))
         if optim.startswith("partial_rowwise"):
-            v = (_f32(b2, dev) * states[1][rows]
-                 + omb2 * mean_of_squares(g))
+            v = _decay(b2, states[1][rows]) + omb2 * mean_of_squares(g)
             vpe = _div(torch.sqrt(v), sqbc2) + _f32(eps, dev)
             direction = _div(m, bc1) / vpe[:, None].expand_as(m)
         else:
-            v = (_f32(b2, dev) * states[1][rows]
-                 + (omb2 * g) * g)
+            v = _decay(b2, states[1][rows]) + (omb2 * g) * g
             vpe = _div(torch.sqrt(v), sqbc2) + _f32(eps, dev)
             direction = _div(m, bc1) / vpe
         if optim.endswith("lamb"):
@@ -467,8 +501,8 @@ def update_rows(
                              torch.sqrt(sum_of_squares(direction)))
             direction = direction * t[:, None]
         delta = neg_lr * direction
-        states[0][rows] = m
-        states[1][rows] = v
+        states[0][rows] = m.to(states[0].dtype)
+        states[1][rows] = v.to(states[1].dtype)
     new = w + delta
     if table.dtype == torch.bfloat16:
         table[rows] = round_to_bf16(new, rows, sr_seed)
@@ -579,7 +613,7 @@ def fused_update_registers(optim: str, dtype: torch.dtype, dim: int) -> int:
 
 def fused_sparse_update(
     table: torch.Tensor,  # [R, D] float32 or bfloat16, updated in place
-    momentum: Optional[torch.Tensor],  # the adagrads' [R] / [R, D] float32
+    momentum: Optional[torch.Tensor],  # the adagrads' [R] / [R, D]
     ids: torch.Tensor,  # [V] table-local row ids
     valid: torch.Tensor,  # [V] bool
     segments: torch.Tensor,  # [V] the grad_seg row each slot pooled into
@@ -599,7 +633,8 @@ def fused_sparse_update(
     slots (``valid``, segment in ``[0, S)``, row in ``[0, R)``), ``g =
     sum_i w_i * grad_seg[seg_i]`` in slot order (plus ``weight_decay *
     w``), then one step of ``optim`` (one of :data:`OPTIMIZERS`) in
-    ``_bwd_body``'s op order on the row and its float32 states:
+    ``_bwd_body``'s op order on the row and its states (float32, bfloat16
+    or float16, all of one dtype: :func:`update_rows`):
     ``momentum`` (``[R]`` for rowwise Adagrad, ``[R, D]`` for Adagrad),
     ``states = (m, v)`` for the Adam family (``v`` ``[R]`` for the
     partial-rowwise pair), none for sgd and lars_sgd.  The Adam family's
@@ -700,7 +735,7 @@ def dedup_fused_update_registers(optim: str, dtype: torch.dtype,
 
 def dedup_fused_sparse_update(
     table: torch.Tensor,  # [R, D] float32 or bfloat16, updated in place
-    states: Sequence[torch.Tensor],  # float32, STATE_LAYOUTS[optim]
+    states: Sequence[torch.Tensor],  # STATE_LAYOUTS[optim], STATE_DTYPES
     ids: torch.Tensor,  # [V] table-local row ids
     valid: torch.Tensor,  # [V] bool
     segments: torch.Tensor,  # [V] the grad_seg row each slot pooled into

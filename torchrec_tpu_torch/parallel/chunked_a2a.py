@@ -48,7 +48,8 @@ def chunked_pooled_a2a(
     the whole payload."""
     outs = []
     for c in split_cols(contrib, num_chunks):
-        record_wire_bytes("chunked_a2a", c.numel() * c.element_size())
+        record_wire_bytes("chunked_a2a", c.numel() * c.element_size(),
+                          env.dcn_fraction)
         outs.append(all_to_all(c, env))
     return torch.cat([o.reshape((-1,) + tuple(o.shape[2:])) for o in outs],
                      dim=-1)
@@ -86,7 +87,8 @@ def chunked_a2a_linear(
         nxt = None
         if k < num_chunks:
             record_wire_bytes("chunked_a2a_linear",
-                              chunks[k].numel() * chunks[k].element_size())
+                              chunks[k].numel() * chunks[k].element_size(),
+                              env.dcn_fraction)
             nxt = _start_a2a(chunks[k], env)
         if pending is not None:
             o, work = pending

@@ -28,15 +28,30 @@ are taken here, in rank order (:func:`sum_over_ranks`), not by the
 backend's reduction, so they give the same bits over NCCL and gloo and
 on every rank.
 
+A two-level world (the JAX package's ``create_two_level_mesh``, its
+``(dcn, model)`` mesh) is ``num_slices`` slices of ``ici_size`` ranks:
+global rank ``slice * ici_size + local``, dcn-major as in JAX.  Its env
+keeps the whole world as ``group`` (the flat dists run there) and adds an
+``ici_group`` (the ``ici_size`` ranks of this rank's slice) and a
+``dcn_group`` (the ``num_slices`` ranks of this local rank, one a slice),
+built by ``multiprocess.replica_model_groups`` with slices for replicas; :attr:`ShardingEnv.ici_env`
+and :attr:`ShardingEnv.dcn_env` are those worlds as envs of their own.
+One card's ranks are all one slice in fact: the slices are a topology
+the dists are told of, which sets the link class each leg is recorded
+under.
+
 The ledger (:func:`wire_accounting`) records the logical payload of each
 collective per tag as the JAX package's does while it traces: the send
 buffer at wire precision, times the fan-out for an all-gather,
 self-chunks included.  The port runs eagerly, so it records at call
-time: every call inside the context adds its bytes.
+time: every call inside the context adds its bytes.  Every record also
+lands under the link classes :data:`LINK_ICI` / :data:`LINK_DCN`, split
+by the share of the payload that crosses a slice boundary
+(:func:`cross_slice_fraction` of the slices the collective spans:
+:attr:`ShardingEnv.dcn_fraction`); on a flat world all of it is ICI.
 
-Left out: the hybrid and two-level meshes (``create_hybrid_mesh``,
-``create_two_level_mesh``, ROADMAP A8), the DCN axis, and
-``device_put_global`` (each rank builds its own share).
+Left out: ``create_hybrid_mesh`` and ``device_put_global`` (each rank
+builds its own share).
 """
 
 from __future__ import annotations
@@ -55,6 +70,10 @@ BACKENDS = ("nccl", "gloo")
 
 _WIRE_LEDGER: Optional[Dict[str, float]] = None
 
+LINK_ICI = "link:ici"
+LINK_DCN = "link:dcn"
+LINK_TAGS = (LINK_ICI, LINK_DCN)
+
 
 @contextlib.contextmanager
 def wire_accounting() -> Iterator[Dict[str, float]]:
@@ -70,12 +89,28 @@ def wire_accounting() -> Iterator[Dict[str, float]]:
         _WIRE_LEDGER = prev
 
 
-def record_wire_bytes(tag: str, nbytes: float) -> None:
+def record_wire_bytes(tag: str, nbytes: float,
+                      dcn_fraction: float = 0.0) -> None:
     """Add ``nbytes`` to the active ledger (no-op outside
-    :func:`wire_accounting`)."""
+    :func:`wire_accounting`), and split the same bytes into the
+    :data:`LINK_ICI` / :data:`LINK_DCN` entries by ``dcn_fraction``, the
+    share that crosses a slice boundary (0: all intra-slice)."""
     if _WIRE_LEDGER is None:
         return
-    _WIRE_LEDGER[tag] = _WIRE_LEDGER.get(tag, 0.0) + float(nbytes)
+    nbytes = float(nbytes)
+    _WIRE_LEDGER[tag] = _WIRE_LEDGER.get(tag, 0.0) + nbytes
+    dcn = nbytes * min(1.0, max(0.0, float(dcn_fraction)))
+    _WIRE_LEDGER[LINK_ICI] = _WIRE_LEDGER.get(LINK_ICI, 0.0) + (nbytes - dcn)
+    _WIRE_LEDGER[LINK_DCN] = _WIRE_LEDGER.get(LINK_DCN, 0.0) + dcn
+
+
+def cross_slice_fraction(num_slices: int) -> float:
+    """The share of an all-to-all, reduce-scatter or all-gather payload
+    that crosses a slice boundary when the collective spans
+    ``num_slices`` slices: ``(S - 1) / S`` (the chunks to the own slice,
+    the self-chunk included, stay on ICI)."""
+    s = max(1, int(num_slices))
+    return (s - 1) / s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +119,9 @@ class ShardingEnv:
     ranks, this process's model ``rank``, the ``group`` the collectives
     run on (None only at one rank) and the rank's ``device``; in a 2D
     world also ``num_replicas``, this process's ``replica_rank``, the
-    ``replica_group`` and the ``global_group`` of every rank (module
-    docstring)."""
+    ``replica_group`` and the ``global_group`` of every rank; in a
+    two-level world ``num_slices``, the ``ici_group`` and the
+    ``dcn_group`` (module docstring)."""
 
     world_size: int
     rank: int
@@ -96,6 +132,9 @@ class ShardingEnv:
     replica_rank: int = 0
     replica_group: Optional[dist.ProcessGroup] = None
     global_group: Optional[dist.ProcessGroup] = None
+    num_slices: int = 1
+    ici_group: Optional[dist.ProcessGroup] = None
+    dcn_group: Optional[dist.ProcessGroup] = None
 
     def __post_init__(self):
         if not 0 <= self.rank < self.world_size:
@@ -111,6 +150,53 @@ class ShardingEnv:
                                       or self.global_group is None):
             raise ValueError(f"{self.num_replicas} replicas need a replica "
                              "group and a global group")
+        if self.num_slices < 1 or self.world_size % self.num_slices:
+            raise ValueError(f"{self.world_size} ranks do not split into "
+                             f"{self.num_slices} slices")
+        if self.num_slices > 1:
+            if self.num_replicas > 1:
+                raise NotImplementedError(
+                    "a two-level world of replicas: the JAX package has no "
+                    "such mesh either")
+            if (self.ici_size > 1 and self.ici_group is None) or (
+                    self.dcn_group is None):
+                raise ValueError(f"{self.num_slices} slices need an ici "
+                                 "group and a dcn group")
+
+    @property
+    def ici_size(self) -> int:
+        """The ranks of one slice."""
+        return self.world_size // self.num_slices
+
+    @property
+    def slice_rank(self) -> int:
+        """This rank's slice: ``rank // ici_size`` (dcn-major)."""
+        return self.rank // self.ici_size
+
+    @property
+    def dcn_fraction(self) -> float:
+        """The share of a collective over this world that crosses a slice
+        boundary (the ledger's link-class split)."""
+        return cross_slice_fraction(self.num_slices)
+
+    @property
+    def ici_env(self) -> "ShardingEnv":
+        """This rank's slice as a world of its own (rank: the local
+        rank); the env itself on a one-slice world."""
+        if self.num_slices == 1:
+            return self
+        return ShardingEnv(self.ici_size, self.rank % self.ici_size,
+                           self.device, self.ici_group, self.backend)
+
+    @property
+    def dcn_env(self) -> "ShardingEnv":
+        """The ranks of this local rank, one a slice, as a world of
+        ``num_slices`` one-rank slices (rank: the slice): each of its
+        collectives crosses the slice boundary but for the self-chunk."""
+        return ShardingEnv(self.num_slices, self.slice_rank, self.device,
+                           self.dcn_group, self.backend,
+                           num_slices=self.num_slices,
+                           dcn_group=self.dcn_group)
 
     @property
     def global_rank(self) -> int:
@@ -148,6 +234,7 @@ class ShardingEnv:
     @staticmethod
     def from_process_group(
         backend: str, device: DeviceLike = None, num_replicas: int = 1,
+        num_slices: int = 1,
     ) -> "ShardingEnv":
         """The env of this process in the initialised default process
         group.  ``backend`` must be the group's: ``"nccl"`` or ``"gloo"``.
@@ -157,7 +244,11 @@ class ShardingEnv:
         ``num_replicas`` R > 1 the world is R replicas of ``world size /
         R`` model ranks, their groups built by
         ``multiprocess.replica_model_groups`` (a collective: every rank
-        calls it, in the same order as its other groups)."""
+        calls it, in the same order as its other groups).  With
+        ``num_slices`` S > 1 the world is two-level: S slices of ``world
+        size / S`` ranks, global rank ``slice * (W / S) + local``, the
+        groups built by ``multiprocess.replica_model_groups`` (a
+        collective too)."""
         from torchrec_tpu_torch.parallel.multiprocess import (
             replica_model_groups,
         )
@@ -180,6 +271,13 @@ class ShardingEnv:
         if backend == "nccl" and dev.type != "cuda":
             raise ValueError(f"NCCL runs on CUDA devices, not {dev}")
         W = dist.get_world_size()
+        if num_slices > 1:
+            if num_replicas != 1:
+                raise NotImplementedError("a two-level world of replicas")
+            ici, dcn = replica_model_groups(num_slices)
+            return ShardingEnv(W, rank, dev, dist.group.WORLD, backend,
+                               num_slices=num_slices, ici_group=ici,
+                               dcn_group=dcn)
         if num_replicas == 1:
             return ShardingEnv(W, rank, dev, dist.group.WORLD, backend)
         model, replica = replica_model_groups(num_replicas)
@@ -256,6 +354,6 @@ def all_reduce_sum(x: torch.Tensor, env: ShardingEnv,
     piece = -(-flat.numel() // N)
     padded = flat.new_zeros(N * piece)
     padded[:flat.numel()] = flat
-    record_wire_bytes(tag, 2 * N * piece * x.element_size())
+    record_wire_bytes(tag, 2 * N * piece * x.element_size(), env.dcn_fraction)
     mine = sum_over_ranks(all_to_all(padded.view(N, piece), env))
     return all_gather(mine, env).reshape(-1)[:flat.numel()].view(x.shape)

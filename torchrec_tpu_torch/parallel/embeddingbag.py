@@ -38,8 +38,24 @@ forward runs the traced id sanitizer (``robustness/sanitize.py``) on the
 batch before any dist, its per-key counts in ``ctxs["__sanitize__"]``,
 and the dedup'd groups drop its null slots before the wire.
 
-Left out: the hierarchical dists and variable-batch (VBE) KJTs
-(ROADMAP A6, A8).
+On a two-level world (``build(hier_topo=...)``, which the DMP passes for a
+``ShardingEnv`` with ``num_slices``) the row-wise and block-shard groups
+whose plan sets ``hier`` run the two-level ICI/DCN dists of
+``sharding/hier.py`` (source pooling by B1, their owners' updates by the
+caller's update kernel), and :meth:`~ShardedEmbeddingBagCollection.
+dedup_overflow` counts their dropped rows too.
+
+A variable-batch (VBE) KJT, each key with its own stride, needs its
+``inverse_indices`` (``[F, B]``: each example's row in its key's reduced
+batch); without them the forward raises.  Its strides are padded to the
+full batch (``KeyedJaggedTensor.pad_strides``: zero-length rows pool to
+zero), every group runs its uniform path, and each feature's pooled rows
+are expanded to the full batch by a row gather through its inverse
+indices, kept in ``ctxs["__vbe_inv__"]``.  The backward first sums each
+key's full-batch gradients onto its reduced rows (B1's sorted entry over
+the gradient rows, in example order: deterministic, no float atomics),
+then runs the uniform backward, as the JAX package's ``segment_sum``
+does.
 """
 
 from __future__ import annotations
@@ -71,6 +87,12 @@ from torchrec_tpu_torch.parallel.qcomm import QCommsConfig, qcomm_all_gather
 from torchrec_tpu_torch.parallel.sharding.common import (
     per_slot_segments,
     source_weights,
+)
+from torchrec_tpu_torch.parallel.sharding.hier import (
+    rw_hier_backward_local,
+    rw_hier_forward_local,
+    twrw_hier_backward_local,
+    twrw_hier_forward_local,
 )
 from torchrec_tpu_torch.parallel.sharding.rw import (
     RwGroupLayout,
@@ -127,13 +149,17 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         qcomms: Optional[QCommsConfig] = None,
         row_align: int = 1,
         sanitize: bool = False,
+        hier_topo=None,
     ) -> "ShardedEmbeddingBagCollection":
         """Compile the plan (``grouped.classify_plan``): ``qcomms`` the
         sharded groups' wire precision, ``row_align`` a multiple every
         sharded stack is rounded up to, ``sanitize`` the traced id
-        sanitizer in every forward."""
+        sanitizer in every forward, ``hier_topo`` (a
+        ``sharding.hier.HierTopology``) the two-level world whose ``hier``
+        plan entries compile to the two-level dists."""
         g = classify_plan(tables, plan, world_size, batch_size, feature_caps,
-                          qcomms=qcomms, row_align=row_align)
+                          qcomms=qcomms, row_align=row_align,
+                          hier_topo=hier_topo)
         return ShardedEmbeddingBagCollection(
             tables=tuple(tables), plan=dict(plan), world_size=world_size,
             batch_size=batch_size, tw_layouts=g.tw_layouts,
@@ -161,9 +187,26 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple]]:
         """Input dist + lookup + output dist for every group, on this
         rank's batch and stacks.  Returns ({feature: [B, dim]}, ctx per
-        group, and ``"__sanitize__"``: the ``[F]`` id violations when the
-        collection sanitizes).  ``env``: the rank's world (None: one
-        rank)."""
+        group, ``"__sanitize__"``: the ``[F]`` id violations when the
+        collection sanitizes, and ``"__vbe_inv__"``: a variable-batch
+        KJT's inverse indices per feature).  ``env``: the rank's world
+        (None: one rank)."""
+        if kjt.variable_stride_per_key:
+            if kjt.inverse_indices_or_none() is None:
+                raise ValueError(
+                    "a variable-batch KJT needs inverse_indices for the "
+                    "sharded collection to expand each key's reduced batch "
+                    "to the full batch")
+            kjt = kjt.pad_strides()
+        inv = kjt.inverse_indices_or_none()
+        vbe_inv: Optional[Dict[str, torch.Tensor]] = None
+        if inv is not None:
+            if kjt.stride() != self.batch_size:
+                raise ValueError(f"variable-batch full stride {kjt.stride()}"
+                                 f" != the layout's batch {self.batch_size}")
+            keys = kjt.keys()
+            vbe_inv = {f: inv[keys.index(f)].to(torch.int64)
+                       for f in self.feature_order}
         outs: Dict[str, torch.Tensor] = {}
         ctxs: Dict[str, Tuple] = {}
         if self.sanitize and self.feature_rows:
@@ -172,7 +215,12 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
             kjt, ctxs["__sanitize__"] = sanitize_kjt(
                 kjt, dict(zip(self.feature_order, self.feature_rows)))
         for kind, name, lay in self.sharded_groups():
-            if kind == "rw" and lay.dedup:
+            if kind != "tw" and lay.hier is not None:
+                fwd = (rw_hier_forward_local if kind == "rw"
+                       else twrw_hier_forward_local)
+                o, ctx = fwd(lay, params[name], kjt, env,
+                             drop_zero_weight=self.sanitize)
+            elif kind == "rw" and lay.dedup:
                 o, ctx = rw_dedup_forward_local(
                     lay, params[name], kjt, env,
                     drop_zero_weight=self.sanitize)
@@ -188,7 +236,29 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
             o, ctx = self._dp_forward(g, params[name], kjt, lookup_kernel)
             outs.update(o)
             ctxs[name] = ctx
+        if vbe_inv is not None:
+            # a row gather, no clipping: valid inverse indices lie below
+            # the key's stride, and the backward drops any that do not
+            outs = {f: o[vbe_inv[f]] for f, o in outs.items()}
+            ctxs["__vbe_inv__"] = vbe_inv
         return outs, ctxs
+
+    def _vbe_reduce(self, vbe_inv: Mapping[str, torch.Tensor],
+                    grad_by_feature: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """The chain rule through the forward's expansion: each feature's
+        full-batch gradients ``[B, D]`` summed onto its reduced rows,
+        ``out[r] = sum of g[b] over the examples b with inv[b] == r`` in
+        example order, by B1's sorted entry over the gradient rows (a
+        stable sort by row, then each row's examples in order; an index
+        outside ``[0, B)`` drops its example)."""
+        B = self.batch_size
+        out = {}
+        for f, g in grad_by_feature.items():
+            g32 = g.to(torch.float32).contiguous()
+            rows = torch.arange(B, dtype=torch.int32, device=g32.device)
+            out[f] = pooled_embedding_lookup(g32, rows, vbe_inv[f], B)
+        return out
 
     def _dp_forward(self, g: DpGroup, stack: torch.Tensor,
                     kjt: KeyedJaggedTensor, lookup_kernel: str):
@@ -236,11 +306,21 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
         against this rank's stack, in :attr:`group_names` order.  A
         data-parallel group's slots are gathered over ``dp_env`` (default
         ``env``), their gradients divided by ``dp_divisor``, and extended
-        to step every row (``grouped.step_every_row``)."""
+        to step every row (``grouped.step_every_row``).  A variable-batch
+        forward's gradients are first summed onto each key's reduced rows
+        (:meth:`_vbe_reduce`)."""
+        vbe_inv = ctxs.get("__vbe_inv__")
+        if vbe_inv is not None:
+            grad_by_feature = self._vbe_reduce(vbe_inv, grad_by_feature)
         out: Dict[str, SparseSegGrad] = {}
         for kind, name, lay in self.sharded_groups():
-            bwd = (rw_dedup_backward_local if kind == "rw" and lay.dedup
-                   else _BACKWARD[kind])
+            if kind != "tw" and lay.hier is not None:
+                bwd = (rw_hier_backward_local if kind == "rw"
+                       else twrw_hier_backward_local)
+            elif kind == "rw" and lay.dedup:
+                bwd = rw_dedup_backward_local
+            else:
+                bwd = _BACKWARD[kind]
             out[name] = bwd(lay, ctxs[name], grad_by_feature, env)
         for name, g in self.dp_groups.items():
             sg = self._dp_backward(g, ctxs[name], grad_by_feature,
@@ -309,11 +389,13 @@ class ShardedEmbeddingBagCollection(GroupedShardingBase):
 
     def dedup_overflow(self, ctxs: Mapping[str, Tuple]
                        ) -> Optional[torch.Tensor]:
-        """The distinct ids the dedup'd groups' capacities dropped this
-        step (a 0-d int32 on the device, the sum over the groups), or None
-        when no group dedups."""
+        """The distinct ids the dedup'd and two-level groups' capacities
+        dropped this step (a 0-d int32 on the device, the sum over the
+        groups), or None when no group has such a capacity."""
         ovs = [ctxs[name][5] for name, lay in self.rw_layouts.items()
-               if lay.dedup]
+               if lay.dedup or lay.hier is not None]
+        ovs += [ctxs[name][5] for name, lay in self.twrw_layouts.items()
+                if lay.hier is not None]
         if not ovs:
             return None
         total = ovs[0]

@@ -26,8 +26,16 @@ plain layout, as the JAX package does.  :attr:`GroupedLayouts.
 feature_rows` are the tables' rows in feature order, the bounds of the
 traced id sanitizer.
 
-Left out: the hierarchical topology (a plan's ``hier`` is ignored) and
-host-cached tables (ROADMAP A10), on which a plan raises, and
+On a two-level world (``hier_topo``, a ``sharding.hier.HierTopology``)
+the ROW_WISE, TABLE_ROW_WISE and GRID_SHARD tables whose plan sets
+``hier`` compile to the two-level ICI/DCN dists, in groups of their own
+(``rw_hier_d{dim}``, ``rw_hier_dedup_d{dim}``, ``twrw_hier_d{dim}``,
+``twrw_hier_dedup_d{dim}``; a block-shard group dedups only there), each
+group's distinct-row capacity sized by the smallest ``hier_factor`` its
+tables claim.  Without a two-level world the flag is inert, so one plan
+runs on either world; a sequence module keeps the flat layouts.
+
+Left out: host-cached tables (ROADMAP A10), on which a plan raises, and
 ``param_specs``.
 """
 
@@ -155,25 +163,32 @@ def classify_plan(
     allow_block_sharding: bool = True,
     qcomms: Optional[QCommsConfig] = None,
     row_align: int = 1,
+    hier_topo=None,
 ) -> GroupedLayouts:
     """Group the plan's tables by (kind, shard dim) and compile their
     layouts: groups ``tw_d{dim}``, ``rw_d{dim}``, ``twrw_d{dim}`` and
-    ``dp_d{dim}`` (module docstring for the options)."""
+    ``dp_d{dim}`` (module docstring for the options and the two-level
+    groups of ``hier_topo``)."""
     specs = feature_specs_for_tables(tables, feature_caps)
     by_table: Dict[str, List[FeatureSpec]] = {}
     for s in specs:
         by_table.setdefault(s.table_name, []).append(s)
     tw_feats: Dict[int, List[FeatureSpec]] = {}
     tw_owner: Dict[str, List[int]] = {}
-    rw_feats: Dict[Tuple[int, bool], List[FeatureSpec]] = {}
+    rw_feats: Dict[Tuple[int, bool, bool], List[FeatureSpec]] = {}
     rw_dedup_factor: Dict[int, float] = {}
-    twrw_feats: Dict[int, List[FeatureSpec]] = {}
+    rw_hier_factor: Dict[int, float] = {}
+    twrw_feats: Dict[Tuple[int, bool, bool], List[FeatureSpec]] = {}
+    twrw_hier_factor: Dict[int, float] = {}
     twrw_nodes: Dict[str, List[List[int]]] = {}
     dp_feats: Dict[int, List[FeatureSpec]] = {}
     for cfg in tables:
         ps = plan[cfg.name]
         st = ps.sharding_type
         feats = by_table.get(cfg.name, [])
+        hier_on = (bool(getattr(ps, "hier", False)) and hier_topo is not None
+                   and allow_block_sharding)
+        hier_factor = max(1.0, getattr(ps, "hier_factor", 1.0) or 1.0)
         if ps.compute_kernel == EmbeddingComputeKernel.FUSED_HOST_CACHED:
             raise NotImplementedError(
                 f"{cfg.name}: the host-cached kernel (FUSED_HOST_CACHED) "
@@ -198,7 +213,10 @@ def classify_plan(
             dedup = bool(ps.dedup) and allow_block_sharding
             d = cfg.embedding_dim
             for s in feats:
-                rw_feats.setdefault((d, dedup), []).append(s)
+                rw_feats.setdefault((d, dedup, hier_on), []).append(s)
+            if hier_on:
+                rw_hier_factor[d] = min(rw_hier_factor.get(d, float("inf")),
+                                        hier_factor)
             if dedup:
                 # one capacity a group: the smallest claimed factor wins
                 rw_dedup_factor[d] = min(
@@ -218,9 +236,14 @@ def classify_plan(
             twrw_nodes[cfg.name] = [list(ps.ranks[i * per:(i + 1) * per])
                                     for i in range(n_cw)]
             d = _shard_dim(cfg, n_cw)
+            # a block-shard group dedups only on the two-level dist
+            dedup = hier_on and bool(getattr(ps, "dedup", False))
             for s in feats:
-                twrw_feats.setdefault(d, []).append(
+                twrw_feats.setdefault((d, dedup, hier_on), []).append(
                     dataclasses.replace(s, dim=d))
+            if hier_on:
+                twrw_hier_factor[d] = min(
+                    twrw_hier_factor.get(d, float("inf")), hier_factor)
         elif st == ShardingType.DATA_PARALLEL:
             for s in feats:
                 dp_feats.setdefault(s.dim, []).append(s)
@@ -231,17 +254,25 @@ def classify_plan(
         f"tw_d{d}": build_tw_layout(f"tw_d{d}", f, tw_owner, world_size,
                                     batch_size, qcomms, row_align)
         for d, f in sorted(tw_feats.items())}
+    def gname(kind, d, dedup, hier):
+        return (kind + ("_hier" if hier else "") + ("_dedup" if dedup else "")
+                + f"_d{d}")
+
     rw_layouts = {}
-    for (d, dedup), f in sorted(rw_feats.items()):
-        name = f"rw_dedup_d{d}" if dedup else f"rw_d{d}"
+    for (d, dedup, hier), f in sorted(rw_feats.items()):
+        name = gname("rw", d, dedup, hier)
         rw_layouts[name] = build_rw_layout(
             name, f, world_size, batch_size, qcomms, row_align, dedup=dedup,
-            dedup_factor=rw_dedup_factor.get(d, 1.0))
-    twrw_layouts = {
-        f"twrw_d{d}": build_twrw_layout(f"twrw_d{d}", f, twrw_nodes,
-                                        world_size, batch_size, qcomms,
-                                        row_align)
-        for d, f in sorted(twrw_feats.items())}
+            dedup_factor=rw_dedup_factor.get(d, 1.0),
+            hier=hier_topo if hier else None,
+            hier_factor=rw_hier_factor.get(d, 1.0))
+    twrw_layouts = {}
+    for (d, dedup, hier), f in sorted(twrw_feats.items()):
+        name = gname("twrw", d, dedup, hier)
+        twrw_layouts[name] = build_twrw_layout(
+            name, f, twrw_nodes, world_size, batch_size, qcomms, row_align,
+            dedup=dedup, hier=hier_topo if hier else None,
+            hier_factor=twrw_hier_factor.get(d, 1.0))
     dp_groups = {}
     for d, feats in sorted(dp_feats.items()):
         rows, off, acc = {}, {}, 0

@@ -30,12 +30,14 @@ place, which stands in for the JAX step's buffer donation: the returned
 state is the one passed in.
 
 The kernels are arguments, ``lookup_kernel`` and ``update_kernel``, each
-``"tbe"`` (the per-id kernels, the default) or ``"dedup"`` (the ragged
-dedup kernels, on every group; see ``parallel/embeddingbag.py``): the
-port runs eagerly and reads them at
-call time, where the JAX package reads process-wide switches while it
-traces (``set_pooled_lookup_kernel``, ``set_sparse_update_kernel``,
-``trace_kernels``).  :meth:`with_feature_caps` is the capacity-bucketing
+``"tbe"`` (the per-id kernels) or ``"dedup"`` (the ragged dedup kernels,
+on every group; see ``parallel/embeddingbag.py``).  Left None, each is
+read from the process-wide registry
+(``set_pooled_lookup_kernel``, ``set_sparse_update_kernel``,
+``trace_kernels`` of ``ops/``) when the DMP is built, and again when a
+bucketed signature's clone is built, the port's counterpart of the JAX
+package reading those switches while it traces; the default registry
+gives the per-id kernels (B1, B2).  :meth:`with_feature_caps` is the capacity-bucketing
 entry point (``parallel/train_pipeline.py``).
 
 The loss is the DLRM's ``bce_with_logits_loss``.  The stochastic-rounding
@@ -76,6 +78,13 @@ row-wise group returns ``dedup_overflow``, the distinct ids its wire
 capacity dropped; both summed over ranks like ``id_overflow``, and each
 present exactly when the JAX step emits it.
 
+On a two-level env (``ShardingEnv`` with ``num_slices``; the JAX
+package's ``(dcn, model)`` mesh) the plan's ``hier`` entries compile to
+the two-level ICI/DCN dists (``parallel/sharding/hier.py``), whose dropped
+rows ``dedup_overflow`` counts too; on a flat env the same plan runs the
+flat dists.  Every step takes a variable-batch KJT with inverse indices
+(``parallel/embeddingbag.py``).
+
 Left out: dense rematerialisation and the row IO helpers
 (``reset_table_rows`` and the rest, ROADMAP A9).
 """
@@ -95,12 +104,12 @@ from torchrec_tpu_torch.datasets.utils import Batch
 from torchrec_tpu_torch.models.dlrm import SPARSE_PREFIX, bce_with_logits_loss
 from torchrec_tpu_torch.modules.crossnet import lecun_normal_
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
-from torchrec_tpu_torch.ops.embedding_ops import POOLED_KERNELS
+from torchrec_tpu_torch.ops.embedding_ops import resolve_lookup_kernel
 from torchrec_tpu_torch.ops.fused_update import (
     FusedOptimConfig,
     SparseSegGrad,
     apply_sparse_update_segments,
-    require_kernel,
+    resolve_update_kernel,
 )
 from torchrec_tpu_torch.optim.adagrad import Adagrad, adagrad
 from torchrec_tpu_torch.optim.warmup import Schedule, WarmupOptimizer
@@ -141,7 +150,8 @@ def _gather_counted(x: torch.Tensor, env: ShardingEnv,
                     tag: str) -> torch.Tensor:
     """``comm.all_gather`` over ``env``, its bytes (``x``'s own dtype,
     times the fan-out) in the ledger under ``tag``."""
-    record_wire_bytes(tag, x.numel() * x.element_size() * env.world_size)
+    record_wire_bytes(tag, x.numel() * x.element_size() * env.world_size,
+                      env.dcn_fraction)
     return all_gather(x, env)
 
 
@@ -222,8 +232,10 @@ class DistributedModelParallel:
     ``dense_optimizer`` is an
     :class:`~torchrec_tpu_torch.optim.adagrad.Adagrad` (default
     ``adagrad(fused_config.learning_rate)``); ``table_dtype`` is the
-    stacks' dtype, float32 or bfloat16 (the momentum stays float32 and
-    bfloat16 write-backs round stochastically); ``lookup_kernel`` and
+    stacks' dtype, float32 or bfloat16 (the optimizer state takes
+    ``fused_config.momentum_dtype``, and bfloat16 write-backs round
+    stochastically unless ``fused_config.stochastic_rounding`` is off);
+    ``lookup_kernel`` and
     ``update_kernel`` name the kernels (module docstring; both update
     kernels take all eight fused optimizers, whose states
     ``init`` allocates: an ``[R, D]`` momentum for Adagrad, ``m`` and
@@ -249,8 +261,8 @@ class DistributedModelParallel:
         dense_optimizer: Optional[Union[Adagrad, WarmupOptimizer]] = None,
         table_dtype: torch.dtype = torch.float32,
         device: DeviceLike = None,
-        lookup_kernel: str = "tbe",
-        update_kernel: str = "tbe",
+        lookup_kernel: Optional[str] = None,
+        update_kernel: Optional[str] = None,
         env: Optional[ShardingEnv] = None,
         sparse_lr_schedule: Optional[Schedule] = None,
         qcomms: Optional[QCommsConfig] = None,
@@ -261,6 +273,8 @@ class DistributedModelParallel:
             raise TypeError(f"table_dtype must be float32 or bfloat16, got "
                             f"{table_dtype}")
         self.fused_config = fused_config or FusedOptimConfig()
+        # the kernels the caller named (None: the registry's at each build)
+        self._kernel_args = (lookup_kernel, update_kernel)
         self._set_kernels(lookup_kernel, update_kernel)
         if env is None:
             env = ShardingEnv.single_device(device)
@@ -290,19 +304,26 @@ class DistributedModelParallel:
         return bool(self.guardrails is not None
                     and getattr(self.guardrails, "traced_sanitize", False))
 
+    @property
+    def _hier_topo(self):
+        """The env's two-level topology (None on a flat world): the plan's
+        ``hier`` entries compile to the two-level dists on it."""
+        if self.env.num_slices == 1:
+            return None
+        from torchrec_tpu_torch.parallel.sharding.hier import HierTopology
+
+        return HierTopology(self.env.num_slices, self.env.ici_size)
+
     def _build_ebc(self, feature_caps) -> ShardedEmbeddingBagCollection:
         return ShardedEmbeddingBagCollection.build(
             self.tables, self.plan, self.env.world_size, self.batch_size,
             feature_caps, qcomms=self.qcomms, row_align=self.row_align,
-            sanitize=self._traced_sanitize)
+            sanitize=self._traced_sanitize, hier_topo=self._hier_topo)
 
-    def _set_kernels(self, lookup_kernel: str, update_kernel: str) -> None:
-        if lookup_kernel not in POOLED_KERNELS:
-            raise ValueError(
-                f"unknown pooled-lookup kernel {lookup_kernel!r}")
-        require_kernel(update_kernel)
-        self.lookup_kernel = lookup_kernel
-        self.update_kernel = update_kernel
+    def _set_kernels(self, lookup_kernel: Optional[str],
+                     update_kernel: Optional[str]) -> None:
+        self.lookup_kernel = resolve_lookup_kernel(lookup_kernel)
+        self.update_kernel = resolve_update_kernel(update_kernel)
 
     def with_feature_caps(
         self,
@@ -315,14 +336,16 @@ class DistributedModelParallel:
         dedup'd group's distinct-id capacity re-derived from the new caps.
         Capacities shape only the slot geometry; parameters and optimizer
         state are shaped by table rows, so the clone's train step runs on
-        the same train state as the original."""
+        the same train state as the original.  A kernel neither given here
+        nor named when the DMP was built is read from the registry
+        again."""
         missing = set(self.feature_caps) - set(feature_caps)
         if missing:
             raise ValueError(f"with_feature_caps: missing features "
                              f"{sorted(missing)}")
         clone = copy.copy(self)
-        clone._set_kernels(lookup_kernel or self.lookup_kernel,
-                           update_kernel or self.update_kernel)
+        clone._set_kernels(lookup_kernel or self._kernel_args[0],
+                           update_kernel or self._kernel_args[1])
         clone.feature_caps = {k: int(feature_caps[k])
                               for k in self.feature_caps}
         clone.sharded_ebc = clone._build_ebc(clone.feature_caps)
@@ -405,8 +428,9 @@ class DistributedModelParallel:
         sharded group (``world_size`` of them; ``DMPCollection``
         FULLY_SHARDED: every rank), then one per data-parallel group, the
         same on every rank so that the replicas apply the same update.
-        None for float32 tables."""
-        if self.table_dtype != torch.bfloat16:
+        None for float32 tables and with stochastic rounding off."""
+        if (self.table_dtype != torch.bfloat16
+                or not self.fused_config.stochastic_rounding):
             return None
         ebc = self.sharded_ebc
         n = len(ebc.sharded_layouts)

@@ -11,7 +11,9 @@ each with its rank, the world size and the store's address in its
 environment (``TORCHREC_MP_*``), and each worker calls :func:`initialize`
 with its backend.  The port is bound before any rank sees it, so two
 launches on one host never meet on a store.  :func:`replica_model_groups`
-builds the model and replica groups of a 2D world (``DMPCollection``).
+builds the model and replica groups of a 2D world (``DMPCollection``), and
+the slice (ICI) and cross-slice (DCN) groups of a two-level world (the JAX
+package's ``create_two_level_mesh``), which have the same shape.
 
 Left out: ``SyncedCollisionCollection`` (ROADMAP A10) and
 ``make_global_batch`` (each rank feeds its own batch).
@@ -87,7 +89,11 @@ def replica_model_groups(
     (group rank ``m``), the replica group of model rank ``m`` holds ranks
     ``m, M + m, ...`` (group rank ``r``).  ``dist.new_group`` is
     collective over the whole world, so every rank creates every group,
-    model groups first, in the same order."""
+    model groups first, in the same order (a rank that skipped one, or
+    took another order, would hang the launch).  With slices for replicas
+    these are a two-level world's groups: the model group the slice's
+    (ICI) group, the replica group the (DCN) group of one local rank
+    across the slices, global rank ``slice * M + local`` (dcn-major)."""
     W, rank = dist.get_world_size(), dist.get_rank()
     if num_replicas < 1 or W % num_replicas:
         raise ValueError(f"{W} ranks do not split into {num_replicas} "

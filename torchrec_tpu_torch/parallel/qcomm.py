@@ -17,8 +17,10 @@ by a sum over sources in rank order (``comm.sum_over_ranks``), at every
 precision: a backend's reduce-scatter sums in its own order, NCCL's and
 gloo's differ, and the rank-order sum gives the same bits on both.
 
-Left out: the link-class (ICI/DCN) split of the ledger, which needs the
-two-level mesh (ROADMAP A8); ``dcn_fraction`` is not an argument.
+Every record also lands under the link classes ``LINK_ICI`` /
+``LINK_DCN``, split by the collective's ``dcn_fraction``: the env's own
+(``comm.ShardingEnv.dcn_fraction``: ``(S - 1) / S`` over a world of S
+slices, 0 on a flat one) unless the caller gives one.
 """
 
 from __future__ import annotations
@@ -30,9 +32,13 @@ from typing import Optional, Tuple
 import torch
 
 from torchrec_tpu_torch.parallel.comm import (  # noqa: F401 - re-exported
+    LINK_DCN,
+    LINK_ICI,
+    LINK_TAGS,
     ShardingEnv,
     all_gather,
     all_to_all,
+    cross_slice_fraction,
     record_wire_bytes,
     sum_over_ranks,
     wire_accounting,
@@ -105,9 +111,13 @@ def wire_bytes_per_f32(qcomms: Optional[QCommsConfig], which: str,
 
 def _record_payload(tag: Optional[str], default: str, x: torch.Tensor,
                     qcomms: Optional[QCommsConfig], which: str,
-                    fanout: int = 1) -> None:
+                    fanout: int = 1, dcn_fraction: float = 0.0) -> None:
+    """``fanout`` scales a buffer replicated to every peer (an all-gather
+    broadcasts its input N ways); ``dcn_fraction`` splits the record into
+    the link classes."""
     wpf = wire_bytes_per_f32(qcomms, which, x.shape[-1] if x.dim() else 1)
-    record_wire_bytes(tag or f"{default}:{which}", x.numel() * wpf * fanout)
+    record_wire_bytes(tag or f"{default}:{which}", x.numel() * wpf * fanout,
+                      dcn_fraction)
 
 
 def _a2a(x: torch.Tensor, env: ShardingEnv) -> torch.Tensor:
@@ -144,7 +154,8 @@ def qcomm_all_to_all(x: torch.Tensor, env: ShardingEnv,
                      tag: Optional[str] = None) -> torch.Tensor:
     """All-to-all of ``[N, ...]`` float32 blocks at the configured wire
     precision."""
-    _record_payload(tag, "all_to_all", x, qcomms, which)
+    _record_payload(tag, "all_to_all", x, qcomms, which,
+                    dcn_fraction=env.dcn_fraction)
     return _coded(x, qcomms, which, lambda v: _a2a(v, env))
 
 
@@ -155,7 +166,8 @@ def qcomm_psum_scatter(x: torch.Tensor, env: ShardingEnv,
     to each rank; returns the sum over ranks of this rank's block, the
     blocks shipped at the wire precision by all-to-all and summed on
     arrival in rank order."""
-    _record_payload(tag, "psum_scatter", x, qcomms, which)
+    _record_payload(tag, "psum_scatter", x, qcomms, which,
+                    dcn_fraction=env.dcn_fraction)
     return sum_over_ranks(_coded(x, qcomms, which, lambda v: _a2a(v, env)))
 
 
@@ -166,5 +178,6 @@ def qcomm_all_gather(x: torch.Tensor, env: ShardingEnv,
     """All-gather (a new leading rank axis) at the configured wire
     precision.  ``fanout`` (the world size) scales the ledger's record to
     the N-fold broadcast."""
-    _record_payload(tag, "all_gather", x, qcomms, which, fanout=fanout)
+    _record_payload(tag, "all_gather", x, qcomms, which, fanout=fanout,
+                    dcn_fraction=env.dcn_fraction)
     return _coded(x, qcomms, which, lambda v: _gather(v, env))

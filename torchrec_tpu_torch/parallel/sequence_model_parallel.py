@@ -85,6 +85,11 @@ class SequenceModelParallel:
             env = ShardingEnv.single_device(device)
         elif device is not None and resolve_device(device) != env.device:
             raise ValueError(f"device {device} vs the env's {env.device}")
+        if env.num_slices > 1:
+            raise ValueError(
+                "SequenceModelParallel runs its dists over one flat world: "
+                f"a two-level env of {env.num_slices} slices is refused, as "
+                "the JAX class refuses a DCN mesh axis")
         if env.num_replicas > 1:
             raise ValueError("SequenceModelParallel runs on a 1D world: an "
                              f"env of {env.num_replicas} replicas")

@@ -165,6 +165,50 @@ def all_to_all(x: torch.Tensor, env: "comm.ShardingEnv",
                tag: Optional[str] = None) -> torch.Tensor:
     """``[N, ...]`` -> ``[N, ...]``: block ``j`` of the result is the
     block rank ``j`` sent this rank.  ``tag`` labels the payload in the
-    wire-byte ledger (its raw bytes)."""
-    record_wire_bytes(tag or "all_to_all:raw", x.numel() * x.element_size())
+    wire-byte ledger (its raw bytes, split by link class with the env's
+    ``dcn_fraction``)."""
+    record_wire_bytes(tag or "all_to_all:raw", x.numel() * x.element_size(),
+                      env.dcn_fraction)
     return comm.all_to_all(x, env)
+
+
+def bucket_slots(bucket: torch.Tensor, rows: torch.Tensor,
+                  num_buckets: int, cap: int, unique: bool, fill: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A send slot in a ``[num_buckets, cap]`` buffer for each element:
+    the lexicographic (bucket, row) order by two stable sorts (the row,
+    then the bucket: the JAX package's order, so the slots are its own).
+    ``unique``: equal (bucket, row) pairs share one slot; else every
+    element has its own.  ``bucket == num_buckets``
+    marks an element not sent.  Returns (slot ``[T]`` int32,
+    ``num_buckets * cap`` for an element not sent; the rows buffer
+    ``[num_buckets * cap]`` int32, ``fill`` where empty; the 0-d int32
+    count of groups past ``cap``).  No host sync."""
+    T, dev = rows.shape[0], rows.device
+    bucket = bucket.to(torch.int64)
+    ord1 = torch.sort(rows, stable=True).indices
+    order = ord1[torch.sort(bucket[ord1], stable=True).indices]
+    sd, sid = bucket[order], rows[order]
+    if unique:
+        is_start = torch.ones((T,), dtype=torch.bool, device=dev)
+        if T > 1:
+            is_start[1:] = (sd[1:] != sd[:-1]) | (sid[1:] != sid[:-1])
+    else:
+        is_start = torch.ones((T,), dtype=torch.bool, device=dev)
+    grp = torch.cumsum(is_start.to(torch.int64), 0) - 1
+    per_bucket = torch.zeros(num_buckets + 1, dtype=torch.int64, device=dev)
+    per_bucket.index_add_(0, sd, is_start.to(torch.int64))
+    gstart = torch.cumsum(per_bucket, 0) - per_bucket
+    rank = grp - gstart[sd]
+    sent = num_buckets * cap
+    slot_sorted = torch.where((sd < num_buckets) & (rank < cap),
+                              sd * cap + rank, sent)
+    slot = torch.empty((T,), dtype=torch.int32, device=dev)
+    slot[order] = slot_sorted.to(torch.int32)
+    # the elements of one group write the same row; the spare last element
+    # takes every element not sent
+    buf = torch.full((sent + 1,), fill, dtype=torch.int32, device=dev)
+    buf[slot_sorted] = sid.to(torch.int32)
+    overflow = (is_start & (sd < num_buckets) & (rank >= cap)).sum().to(
+        torch.int32)
+    return slot, buf[:sent], overflow

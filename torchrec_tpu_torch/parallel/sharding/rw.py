@@ -48,7 +48,11 @@ source before the wire, with the same kernel over the pooled gradients
 gradients in slot order, no atomics), and the owner's update takes them
 as per-id gradients (:meth:`SparseSegGrad.from_row_grads`).
 
-Left out: the hierarchical layout fields (ROADMAP A8).
+A layout built with ``hier`` (a ``sharding.hier.HierTopology``) runs the
+two-level ICI/DCN dist of ``sharding/hier.py`` instead, its distinct-row
+DCN capacity ``hier_cap`` sized by ``hier_factor``
+(:func:`~torchrec_tpu_torch.parallel.sharding.hier.hier_cap_for`);
+:meth:`RwGroupLayout.id_wire_bytes` counts either dist's id payload.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ from torchrec_tpu_torch.parallel.qcomm import (
 from torchrec_tpu_torch.parallel.sharding.common import (
     FeatureSpec,
     all_to_all,
+    bucket_slots,
     moe_dispatch_batched,
     per_slot_segments,
     source_weights,
@@ -104,6 +109,37 @@ class RwGroupLayout:
     dedup: bool = False
     dedup_cap: int = 0
     dedup_factor: float = 1.0
+    # the two-level ICI/DCN dist (sharding/hier.py): its topology, the
+    # distinct-row DCN capacity a destination slice has, and the factor
+    # that capacity was sized by
+    hier: object = None  # Optional[hier.HierTopology]
+    hier_cap: int = 0
+    hier_factor: float = 1.0
+
+    @property
+    def hier_send_cap(self) -> int:
+        """The two-level dist's stage-1 capacity a (destination, feature):
+        the distinct-id capacity when the source dedups, else the feature
+        cap."""
+        return self.dedup_cap if self.dedup else self.cap
+
+    @property
+    def hier_num_groups(self) -> int:
+        return len(self.features)
+
+    def id_wire_bytes(self) -> int:
+        """A rank's id-dist payload a step, sized by the caps: plain RW
+        ships three ``[N, F, cap]`` arrays (int32 ids, int32 example ids,
+        float32 weights: 12 bytes a slot), the dedup'd dist one int32
+        ``[N, F, dedup_cap]`` array, the two-level dist its stage-1 int32
+        buffer over ICI plus the ``[S, hier_cap]`` int32 DCN request."""
+        N, F = self.world_size, len(self.features)
+        if self.hier is not None:
+            return (N * F * self.hier_send_cap * 4
+                    + self.hier.num_slices * self.hier_cap * 4)
+        if self.dedup:
+            return N * F * self.dedup_cap * 4
+        return N * F * self.cap * 12
 
 
 def dedup_cap_for(features: Sequence[FeatureSpec],
@@ -129,6 +165,8 @@ def build_rw_layout(
     row_align: int = 1,
     dedup: bool = False,
     dedup_factor: float = 1.0,
+    hier=None,
+    hier_factor: float = 1.0,
 ) -> RwGroupLayout:
     """Row-wise group layout: each table block-split over the ranks, the
     blocks of a rank stacked in table order (the stack rounded up to a
@@ -136,7 +174,9 @@ def build_rw_layout(
     dist, its distinct-id capacity per (feature, destination)
     ``ceil(cap / dedup_factor)`` and never above the exactness bound,
     the largest ``min(feature cap, block rows)``: factor 1 never drops
-    an id."""
+    an id.  ``hier`` (a ``hier.HierTopology`` of ``world_size`` ranks)
+    compiles the two-level dist, ``hier_factor`` sizing its distinct-row
+    capacity the same way (1: exact)."""
     dim = features[0].dim
     if any(f.dim != dim for f in features):
         raise ValueError(f"group {name}: features of different dims")
@@ -150,15 +190,28 @@ def build_rw_layout(
         block_size[f.table_name] = bs
         local_offset[f.table_name] = off
         off += bs
+    l_stack = -(-max(1, off) // row_align) * row_align
+    cap = max(f.cap for f in features)
+    dedup_cap = (dedup_cap_for(features, {f.name: f.cap for f in features},
+                               block_size, dedup_factor) if dedup else 0)
+    hier_cap = 0
+    if hier is not None:
+        from torchrec_tpu_torch.parallel.sharding.hier import hier_cap_for
+
+        if hier.world_size != world_size:
+            raise ValueError(f"{name}: a {hier.num_slices} x "
+                             f"{hier.ici_size} topology for {world_size} "
+                             "ranks")
+        hier_cap = hier_cap_for(hier.ici_size, len(features),
+                                dedup_cap if dedup else cap, l_stack,
+                                hier_factor)
     return RwGroupLayout(
         name=name, world_size=world_size, batch_size=batch_size, dim=dim,
-        cap=max(f.cap for f in features), features=list(features),
+        cap=cap, features=list(features),
         block_size=block_size, local_offset=local_offset,
-        l_stack=-(-max(1, off) // row_align) * row_align, qcomms=qcomms,
-        dedup=dedup,
-        dedup_cap=(dedup_cap_for(features, {f.name: f.cap for f in features},
-                                 block_size, dedup_factor) if dedup else 0),
-        dedup_factor=max(1.0, float(dedup_factor)),
+        l_stack=l_stack, qcomms=qcomms, dedup=dedup, dedup_cap=dedup_cap,
+        dedup_factor=max(1.0, float(dedup_factor)), hier=hier,
+        hier_cap=hier_cap, hier_factor=max(1.0, float(hier_factor)),
     )
 
 
@@ -464,33 +517,10 @@ def _rw_dedup_dispatch(
         seg_c.append(torch.where(valid, gi * B + seg.to(torch.int64),
                                  F * B).to(torch.int32))
         w_c.append(w)
-    lids, d2 = torch.cat(lids_c), torch.cat(d2_c)
-    seg_global, w_all = torch.cat(seg_c), torch.cat(w_c)
-    dev, T = lids.device, lids.shape[0]
-
-    ord1 = torch.sort(lids, stable=True).indices
-    order = ord1[torch.sort(d2[ord1], stable=True).indices]
-    sd, sid = d2[order], lids[order]
-    is_start = torch.ones((T,), dtype=torch.bool, device=dev)
-    if T > 1:
-        is_start[1:] = (sd[1:] != sd[:-1]) | (sid[1:] != sid[:-1])
-    grp = torch.cumsum(is_start.to(torch.int64), 0) - 1
-    groups = torch.zeros(N * F + 1, dtype=torch.int64, device=dev)
-    groups.index_add_(0, sd, is_start.to(torch.int64))
-    gstart = torch.cumsum(groups, 0) - groups
-    rank = grp - gstart[sd]  # the distinct triple's rank in its bucket
-    sent = N * F * Cu
-    slot_sorted = torch.where((sd < N * F) & (rank < Cu), sd * Cu + rank,
-                              sent)
-    sidx = torch.empty((T,), dtype=torch.int32, device=dev)
-    sidx[order] = slot_sorted.to(torch.int32)
-    # the slots of one triple write the same row; the spare last element
-    # takes every slot not sent
-    buf = torch.full((sent + 1,), layout.l_stack, dtype=torch.int32,
-                     device=dev)
-    buf[slot_sorted] = sid
-    overflow = (is_start & (sd < N * F) & (rank >= Cu)).sum().to(torch.int32)
-    return buf[:sent].view(N, F, Cu), sidx, seg_global, w_all, overflow
+    sidx, ids_send, overflow = bucket_slots(
+        torch.cat(d2_c), torch.cat(lids_c), N * F, Cu, True, layout.l_stack)
+    return (ids_send.view(N, F, Cu), sidx, torch.cat(seg_c), torch.cat(w_c),
+            overflow)
 
 
 def _source_regions(layout, kjt: KeyedJaggedTensor) -> SlotRegions:

@@ -14,8 +14,10 @@ sums home, where a feature's column shards are concatenated.  The
 backward all-gathers each slot's gradient to every owner.  A layout's
 ``qcomms`` and ``row_align`` are those of ``sharding/rw.py``.
 
-Left out: the hierarchical dists (ROADMAP A8); the JAX package dedups a
-block-shard group only on those.
+A layout built with ``hier`` runs the two-level ICI/DCN dist of
+``sharding/hier.py`` (the source pools each slot itself), and only there
+may it dedup (``dedup``: the source sends each distinct (slot,
+destination, row) once), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -67,6 +69,31 @@ class TwRwGroupLayout:
     feature_slots: Dict[str, List[BlockSlot]]
     feature_order: List[str]
     qcomms: Optional[QCommsConfig] = None  # wire precision of the dists
+    # the two-level dist (sharding/hier.py) and its source-level dedup:
+    # the row-wise layout's fields, one group a slot
+    dedup: bool = False
+    dedup_cap: int = 0
+    dedup_factor: float = 1.0
+    hier: object = None  # Optional[hier.HierTopology]
+    hier_cap: int = 0
+    hier_factor: float = 1.0
+
+    @property
+    def hier_send_cap(self) -> int:
+        return self.dedup_cap if self.dedup else self.cap
+
+    @property
+    def hier_num_groups(self) -> int:
+        return len(self.slots)
+
+    def id_wire_bytes(self) -> int:
+        """A rank's id-dist payload a step: three ``[N, S, cap]`` arrays
+        (12 bytes a slot) flat; the two-level dist's stage-1 int32 buffer
+        over ICI plus its ``[S, hier_cap]`` int32 DCN request."""
+        if self.hier is not None:
+            return (self.world_size * len(self.slots) * self.hier_send_cap
+                    * 4 + self.hier.num_slices * self.hier_cap * 4)
+        return self.world_size * len(self.slots) * self.cap * 12
 
 
 def build_twrw_layout(
@@ -77,10 +104,19 @@ def build_twrw_layout(
     batch_size: int,
     qcomms: Optional[QCommsConfig] = None,
     row_align: int = 1,
+    dedup: bool = False,
+    dedup_factor: float = 1.0,
+    hier=None,
+    hier_factor: float = 1.0,
 ) -> TwRwGroupLayout:
     """Table-row-wise / grid group layout: each (table, column shard)'s
     rows split over its node's contiguous ranks, stacked by rank (each
-    rank's stack rounded up to a multiple of ``row_align``)."""
+    rank's stack rounded up to a multiple of ``row_align``).  ``hier`` and
+    ``hier_factor`` compile the two-level dist, ``dedup`` and
+    ``dedup_factor`` its source-level dedup (``rw.build_rw_layout``)."""
+    if dedup and hier is None:
+        raise ValueError(f"{name}: a block-shard group dedups only on the "
+                         "two-level dist")
     dim = features[0].dim
     if any(f.dim != dim for f in features):
         raise ValueError(f"group {name}: features of different dims")
@@ -117,13 +153,32 @@ def build_twrw_layout(
     for si, s in enumerate(slots):
         for d, off in placed[(s.feature.table_name, s.col_shard)].items():
             dest_offset[si, d] = off
+    cap = max(f.cap for f in features)
+    dedup_cap = 0
+    if dedup:
+        exact = max(min(s.feature.cap, s.block_size) for s in slots)
+        dedup_cap = max(1, min(exact,
+                               int(np.ceil(cap / max(1.0, dedup_factor)))))
+    hier_cap = 0
+    if hier is not None:
+        from torchrec_tpu_torch.parallel.sharding.hier import hier_cap_for
+
+        if hier.world_size != world_size:
+            raise ValueError(f"{name}: a {hier.num_slices} x "
+                             f"{hier.ici_size} topology for {world_size} "
+                             "ranks")
+        hier_cap = hier_cap_for(hier.ici_size, len(slots),
+                                dedup_cap if dedup else cap, l_stack,
+                                hier_factor)
     return TwRwGroupLayout(
         name=name, world_size=world_size, batch_size=batch_size, dim=dim,
-        cap=max(f.cap for f in features), slots=slots,
+        cap=cap, slots=slots,
         dest_offset=dest_offset, l_stack=l_stack,
         feature_slots=feature_slots,
         feature_order=list(dict.fromkeys(f.name for f in features)),
-        qcomms=qcomms,
+        qcomms=qcomms, dedup=dedup, dedup_cap=dedup_cap,
+        dedup_factor=max(1.0, float(dedup_factor)), hier=hier,
+        hier_cap=hier_cap, hier_factor=max(1.0, float(hier_factor)),
     )
 
 

@@ -74,6 +74,7 @@ from torchrec_tpu_torch.datasets.utils import Batch
 from torchrec_tpu_torch.obs.spans import span
 from torchrec_tpu_torch.parallel.comm import all_gather
 from torchrec_tpu_torch.parallel.model_parallel import stack_batches
+from torchrec_tpu_torch.parallel.sharding.hier import hier_cap_for
 from torchrec_tpu_torch.parallel.sharding.rw import dedup_cap_for
 from torchrec_tpu_torch.sparse.jagged_tensor import (
     KeyedJaggedTensor,
@@ -634,6 +635,50 @@ def _dedup_cap_for_caps(layout, caps_by_key: Mapping[str, int]) -> int:
                          layout.dedup_factor)
 
 
+def _hier_cap_for_caps(layout, caps_by_key: Mapping[str, int]) -> int:
+    """A two-level row-wise layout's distinct-row DCN capacity under other
+    per-feature caps (``build_rw_layout``'s rule: the stage-1 send cap
+    into ``hier_cap_for``, no rebuild)."""
+    send_cap = (_dedup_cap_for_caps(layout, caps_by_key) if layout.dedup
+                else max(caps_by_key[f.name] for f in layout.features))
+    return hier_cap_for(layout.hier.ici_size, len(layout.features),
+                        send_cap, layout.l_stack, layout.hier_factor)
+
+
+def _hier_union_sizes(layout, locals_: List[Batch], first_index: int = 0,
+                      sanitize: bool = False) -> np.ndarray:
+    """``[num_slices, world]`` partial stage-2 demands of a two-level
+    row-wise layout: entry ``[s, d]`` counts the distinct (feature,
+    destination-local row) elements the local batches (global ranks from
+    ``first_index``) send from slice ``s`` toward rank ``d``, the
+    aggregator's slots for that pair.  Sizes, not sets, so that the
+    ranks' partials can be all-gathered and summed: exact when one
+    process holds a slice's batches, an upper bound when a slice spans
+    processes (one process a rank here)."""
+    L, S = layout.hier.ici_size, layout.hier.num_slices
+    out = np.zeros((S, S * L), np.int64)
+    unions: Dict[Tuple[int, int], set] = {}
+    for j, b in enumerate(locals_):
+        src = (first_index + j) // L
+        real_by_key = _valid_ids_per_key(b.sparse_features)
+        for fi, f in enumerate(layout.features):
+            real = real_by_key[f.name]
+            if sanitize:
+                real = real[(real >= 0) & (real < f.table_rows)]
+            if real.size == 0:
+                continue
+            bs = layout.block_size[f.table_name]
+            r = np.clip(real.astype(np.int64), 0, f.table_rows - 1)
+            dest = r // bs
+            elem = fi * (1 << 32) + r % bs
+            for d in np.unique(dest):
+                unions.setdefault((src, int(d)), set()).update(
+                    elem[dest == d].tolist())
+    for (s_, d), u in unions.items():
+        out[s_, d] = len(u)
+    return out
+
+
 def _dedup_demand(layout, locals_: List[Batch],
                   sanitize: bool = False) -> int:
     """The most distinct ids one (feature, destination) pair of
@@ -665,6 +710,13 @@ def _guarded_layouts(cache: BucketedStepCache) -> List[Any]:
             if lay.dedup and lay.dedup_factor > 1.0]
 
 
+def _hier_guarded_layouts(cache: BucketedStepCache) -> List[Any]:
+    """The two-level row-wise layouts whose ``hier_factor`` shrinks their
+    DCN capacity below the exactness bound."""
+    return [lay for lay in cache._dmp.sharded_ebc.rw_layouts.values()
+            if lay.hier is not None and lay.hier_factor > 1.0]
+
+
 def _dedup_overflow_guard(
     cache: BucketedStepCache,
     sig: Tuple[int, ...],
@@ -675,14 +727,18 @@ def _dedup_overflow_guard(
     ``stats.overflow_fallback_count``), else ``sig``.  At factor 1 the
     capacity is the exactness bound and no demand passes it.
     ``demands``: guarded layout name -> its demand (``_dedup_demand``),
-    the maximum over ranks, so every rank decides alike."""
+    the maximum over ranks, and ``"<name>#hier"`` -> a two-level layout's
+    stage-2 demand (the largest entry of the ranks' summed
+    ``_hier_union_sizes``) against its DCN capacity at ``sig``
+    (``_hier_cap_for_caps``), so every rank decides alike."""
     layouts = cache._dmp.sharded_ebc.rw_layouts
     caps_by_key = dict(zip(cache._keys, sig))
     for name, demand in demands.items():
-        lay = layouts[name]
-        capacity = _dedup_cap_for_caps(
-            lay, {f.name: caps_by_key.get(f.name, f.cap)
-                  for f in lay.features})
+        hier = name.endswith("#hier")
+        lay = layouts[name[:-len("#hier")] if hier else name]
+        caps = {f.name: caps_by_key.get(f.name, f.cap) for f in lay.features}
+        capacity = (_hier_cap_for_caps(lay, caps) if hier
+                    else _dedup_cap_for_caps(lay, caps))
         if demand > capacity:
             cache.stats.record_overflow_fallback()
             return cache.full_signature
@@ -696,7 +752,8 @@ def _bucketize_locals(
     rounded up the ladder, bounded by the cache's admission rule, then
     through the dedup overflow guard), the local batches repacked to it,
     and the padding counters.  At more than one rank the occupancy and
-    the guarded layouts' demands are the maxima over every rank (one
+    the guarded layouts' demands are the maxima over every rank and the
+    two-level layouts' partial union sizes the sums over every rank (one
     all-gather), so every rank runs the same signature."""
     kjt0 = locals_[0].sparse_features
     keys = kjt0.keys()
@@ -704,16 +761,31 @@ def _bucketize_locals(
     joint = [max(o[f] for o in occs) for f in range(len(keys))]
     cache._bind_keys(keys)
     lays = _guarded_layouts(cache)
+    hier_lays = _hier_guarded_layouts(cache)
     sanitize = bool(cache._dmp.sharded_ebc.sanitize)
     demands = [_dedup_demand(lay, locals_, sanitize) for lay in lays]
     env = cache._dmp.env
+    unions = [_hier_union_sizes(lay, locals_, env.rank, sanitize)
+              for lay in hier_lays]
     if env.world_size > 1:
-        mine = torch.tensor(joint + demands, dtype=torch.int64)
-        agreed = all_gather(mine.to(env.device), env).amax(0).tolist()
+        mine = torch.tensor(
+            joint + demands + [int(x) for u in unions for x in u.reshape(-1)],
+            dtype=torch.int64)
+        every = all_gather(mine.to(env.device), env)
+        n = len(keys) + len(demands)
+        agreed = every[:, :n].amax(0).tolist()
         joint, demands = agreed[:len(keys)], agreed[len(keys):]
+        # the union sizes are summed, not maxed: each rank's are its own
+        # sources' share of a (slice, destination) pair's demand
+        summed = every[:, n:].sum(0).cpu().numpy()
+        sizes = [u.size for u in unions]
+        unions = [p.reshape(u.shape) for p, u in zip(
+            np.split(summed, np.cumsum(sizes)[:-1]), unions)]
     sig = cache.resolve(keys, cache.signature(keys, joint))
-    sig = _dedup_overflow_guard(
-        cache, sig, {l.name: d for l, d in zip(lays, demands)})
+    named = {l.name: d for l, d in zip(lays, demands)}
+    named.update({f"{l.name}#hier": int(u.max()) if u.size else 0
+                  for l, u in zip(hier_lays, unions)})
+    sig = _dedup_overflow_guard(cache, sig, named)
     n = len(locals_)
     cache.stats.record_batch(
         [sum(o[f] for o in occs) for f in range(len(keys))],

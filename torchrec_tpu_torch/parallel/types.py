@@ -7,10 +7,12 @@ plan the planner gives a one-device world.
 What the runtime does with the planner's fields: a FUSED_HOST_CACHED
 table raises ``NotImplementedError`` (tiered storage, ROADMAP A10) in
 ``classify_plan``; ``dedup`` on a ROW_WISE table compiles the dedup'd
-row-wise dist, its capacity sized by ``dedup_factor``; ``hier`` is
-ignored, as the JAX runtime ignores it without a two-level mesh (the
-port's worlds are flat); ``hier_factor`` and ``cache_load_factor`` size
-what those paths would build.
+row-wise dist, its capacity sized by ``dedup_factor``; ``hier`` on a
+row-wise or block-shard table compiles the two-level ICI/DCN dists on a
+two-level world (``comm.ShardingEnv`` with ``num_slices``), their
+capacity sized by ``hier_factor``, and is ignored on a flat one, as in
+the JAX runtime; ``cache_load_factor`` sizes what the host-cached path
+would build.
 :class:`ShardingStrategy` is the weight strategy of 2D parallelism
 (``DMPCollection``).
 """

@@ -47,6 +47,7 @@ from torchrec_tpu_torch.ops.quant_ops import (
     quantize_rowwise_int2,
     quantize_rowwise_int4,
     quantize_rowwise_int8,
+    resolve_quant_kernel,
 )
 from torchrec_tpu_torch.ops.tbe import (
     MAX_GROUP_FEATURES,
@@ -78,8 +79,10 @@ def _check_data_type(data_type: DataType) -> None:
 
 def _resolve_kernel(data_type: DataType, lookup_kernel: Optional[str]) -> str:
     """The lookup kernel for one table: ``"tbe"`` (int8, fp16, bf16) or
-    ``"dedup"`` (any); by default ``"dedup"`` for int4/int2 and ``"tbe"``
-    otherwise."""
+    ``"dedup"`` (any); None takes the process-wide
+    selection (``quant_ops.set_quant_lookup_kernel``), whose default
+    ``"xla"`` is ``"dedup"`` for int4/int2 and ``"tbe"`` otherwise."""
+    lookup_kernel = resolve_quant_kernel(lookup_kernel)
     if lookup_kernel is None:
         return "dedup" if data_type in (DataType.INT4, DataType.INT2) else (
             "tbe")
