@@ -21,7 +21,9 @@ It needs one CUDA device and fails (non-zero exit, no result line)
 without one, or when the ``torchrec_tpu_torch`` package is not beside it.
 ``python3 chip_smoke.py --one-device-gap`` runs only the study of
 :func:`one_device_gap` (why a sharded run's tables part from the plain
-one-device step's).
+one-device step's); ``--build-study`` only :func:`build_study` (the
+backward sources' build in parts against one unit with and without
+``nvcc --split-compile``).
 
 Phases, one JSON line each on stdout; any failure raises:
 
@@ -353,6 +355,24 @@ Phases, one JSON line each on stdout; any failure raises:
    plain) and ``hier`` (budget ``HIER_BUDGET_S``: the ranks as 2 slices x
    2, plans rw_dedup, twrw and mixed two-level against flat; see
    :func:`hier_stage`).
+15. ft_loop (after models; budget ``FT_BUDGET_S``) — the fault-tolerant
+   loop (``reliability/train_loop.py``) over ``TrainPipelineSparseDist`` at
+   ``bench.py main()``'s DMP with ``Checkpointer(keep_last_n=2,
+   async_save=True)``: a NaN step skipped (state ``torch.equal``), three
+   bad steps rolled back (``torch.equal`` to a fresh restore), transient
+   read errors retried, a SIGTERM's final checkpoint and two resumes, the
+   final state ``torch.equal`` to an uninterrupted run, one B1 and one B2
+   a step call; the checkpoint drills (crash before the commit, a flipped
+   table byte) and the semi-sync rollback arm at ``train_dedup``'s
+   configuration (B4/B6); see :func:`ft_loop_phase`.
+16. elastic (last; budget ``ELASTIC_BUDGET_S``) — ``ElasticSupervisor``
+   over ``reliability/elastic_demo.py`` as 2 gloo ranks on the card at
+   bench widths with 10,000 rows a table: a SIGKILLed rank, the relaunch
+   at world 1 resuming through ``restore_elastic``, its digest equal to
+   a clean restart's, and a torn save; see :func:`elastic_phase`.  The
+   sharded launch ends with the ``reshard`` stage (budget
+   ``RESHARD_BUDGET_S``; :func:`reshard_stage`) and the parent's world-1
+   ``restore_elastic`` of its checkpoint.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
@@ -416,16 +436,19 @@ KERNEL_PATHS = {
     "pooled_lookup": ["train", "ebc", "train_dcn", "app", "sharded",
                       "split", "qcomms", "dmp2d_replicated",
                       "dmp2d_fully_sharded", "models", "serving_tier",
-                      "guarded", "dedup_rw"],
+                      "guarded", "dedup_rw", "ft_loop", "elastic",
+                      "reshard"],
     "fused_sparse_update": ["train", "train_dcn", "app", "sharded", "split",
                             "qcomms", "dmp2d_replicated",
-                            "dmp2d_fully_sharded", "models", "dedup_rw"],
+                            "dmp2d_fully_sharded", "models", "dedup_rw",
+                            "ft_loop", "elastic", "reshard"],
     "quant_pooled_lookup_int8": ["serving", "serving_tier"],
     "dedup_quant_pooled_lookup": ["serving", "serving_tier"],
     "dedup_pooled_lookup": ["train_dedup", "ebc", "serving_tier",
-                            "guarded", "dedup_rw"],
+                            "guarded", "dedup_rw", "ft_loop"],
     "dedup_fused_sparse_update": ["train_dedup", "sharded_ec", "seq",
-                                  "seq_sharded", "guarded", "dedup_rw"],
+                                  "seq_sharded", "guarded", "dedup_rw",
+                                  "ft_loop"],
 }
 REPLACES = {
     "pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:287",
@@ -6005,14 +6028,16 @@ def _rank_device(device_type):
     return dev
 
 
-GLOO_STAGES = ("dedup_rw", "vbe", "hier")  # a development run's choices
+# a development run's choices
+GLOO_STAGES = ("dedup_rw", "vbe", "hier", "reshard")
 
 
-def sharded_rank(kinds, device_type="cuda", only=None):
+def sharded_rank(kinds, device_type="cuda", only=None, ckpt_dir=None):
     """One rank of the gloo arm (run by ``multiprocess.launch``): every
     plan of ``kinds`` through the checks of the phase, then the stages
-    (``only``, a development run: those of ``GLOO_STAGES`` alone).
-    Returns its records and launch counts."""
+    (``only``, a development run: those of ``GLOO_STAGES`` alone);
+    ``ckpt_dir`` the reshard stage's checkpoint directory.  Returns its
+    records and launch counts."""
     import torch
 
     from torchrec_tpu_torch.modules.embedding_modules import (
@@ -6180,6 +6205,12 @@ def sharded_rank(kinds, device_type="cuda", only=None):
         torch.cuda.empty_cache()
         rec, counts = hier_stage(dev, caps, mine, (mh_caps, mh_kjt))
         records.append(rec)
+        add(counts)
+    if only is None or "reshard" in only:
+        torch.cuda.empty_cache()
+        rec, counts, kchecks = reshard_stage(dev, env, caps, mine, flush,
+                                             ckpt_dir)
+        records += [rec] + kchecks
         add(counts)
     if only is not None:
         return records, launches
@@ -8001,6 +8032,217 @@ def hier_stage(dev, caps, mine, mh):
     return rec, launches
 
 
+# -- live resharding across the 4 ranks, in the same launch ----------------
+
+RESHARD_BUDGET_S = 45
+RESHARD_STEPS = 3  # steps before the reshard, and after it on both DMPs
+
+
+def reshard_plan(tables, n):
+    """The reshard stage's target: row-wise, table-row-wise (nodes of 2),
+    grid (2 column shards over every rank) and data-parallel tables, in
+    that order by table index."""
+    from torchrec_tpu_torch.parallel.types import (
+        ParameterSharding,
+        ShardingType as ST,
+    )
+
+    def one(i):
+        if i < 8:
+            return ParameterSharding(ST.ROW_WISE, ranks=list(range(n)))
+        if i < 16:
+            start = 2 * (i % (n // 2))
+            return ParameterSharding(ST.TABLE_ROW_WISE,
+                                     ranks=[start, start + 1])
+        if i < 20:
+            return ParameterSharding(ST.GRID_SHARD, ranks=list(range(n)),
+                                     num_col_shards=2)
+        return ParameterSharding(ST.DATA_PARALLEL)
+
+    return {c.name: one(i) for i, c in enumerate(tables)}
+
+
+def _device_snapshot(dmp, state):
+    """(per-table weights, per-table slots), on the device: both gathered
+    from every rank (collectives)."""
+    from torchrec_tpu_torch.parallel.dynamic_sharding import (
+        slots_to_tables,
+    )
+
+    tables, _ = dmp.gather_group_state(state)
+    return (dmp.sharded_ebc.tables_to_weights(tables),
+            slots_to_tables(dmp, state))
+
+
+def _snapshots_equal(a, b) -> bool:
+    import torch
+
+    (wa, sa), (wb, sb) = a, b
+    return (wa.keys() == wb.keys() and sa.keys() == sb.keys()
+            and all(torch.equal(wa[t], wb[t]) for t in wa)
+            and all(sa[t] == sb[t] if t == "__scalars__"
+                    else all(torch.equal(sa[t][k], sb[t][k]) for k in sa[t])
+                    for t in sa))
+
+
+def _all_ranks(flag: bool, env) -> bool:
+    """Whether ``flag`` holds on every rank (a MIN over ranks)."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.comm import all_gather
+
+    return bool(all_gather(torch.tensor([int(flag)], device=env.device),
+                           env).min())
+
+
+def reshard_stage(dev, env, caps, mine, flush, ckpt_dir):
+    """Live resharding (``parallel/dynamic_sharding.py``, budget
+    ``RESHARD_BUDGET_S``): ``RESHARD_STEPS`` steps under the table-wise
+    plan, then ``reshard`` onto :func:`reshard_plan`.  Hard checks: the
+    per-table weights and slots ``torch.equal`` across the reshard (on
+    the card, gathered from every rank); the forward's KT ``torch.equal``
+    on the one-id batch; ``RESHARD_STEPS`` more steps ``torch.equal`` to a
+    fresh DMP of the new plan loaded with the same weights, slots and
+    dense state, one B1 and one B2 a group a step on the resharded DMP and
+    nothing else; resharding back to table-wise gives the first stacks and fused
+    states bit for bit; B1 and B2 ``torch.equal`` to plain at this rank's
+    shapes under the new plan (``sharded_kernel_check``).  Then the
+    world-4 checkpoint into ``ckpt_dir`` (rank 0 writes it), whose
+    per-table checksums rank 0 returns for the parent's world-1
+    ``restore_elastic`` (:func:`reshard_restore_check`).  Returns (record,
+    launches, kernel-check records)."""
+    import torch
+
+    from torchrec_tpu_torch.checkpoint import Checkpointer
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.dynamic_sharding import (
+        reshard,
+        scatter_slots,
+        slots_to_tables,
+    )
+
+    t0 = time.perf_counter()
+    N = env.world_size
+    _, tables = bench_tables()
+    dmp, state = sharded_dmp(dev, sharded_plan("tw", tables, N),
+                             TRAIN_BATCH, caps, env)
+    state, _, _ = _train_steps(dmp, state, mine[1:], RESHARD_STEPS)
+    first = _clone_state(state)
+    before = _device_snapshot(dmp, state)
+    with torch.no_grad():
+        kt_before, _ = dmp.sparse_forward(state, mine[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    new_dmp, new_state = reshard(dmp, _clone_state(state),
+                                 reshard_plan(tables, N))
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t1
+    after = _device_snapshot(new_dmp, new_state)
+    moved_equal = _all_ranks(_snapshots_equal(before, after), env)
+    with torch.no_grad():
+        kt_after, _ = new_dmp.sparse_forward(new_state, mine[0])
+    kt_equal = _all_ranks(bool(torch.equal(kt_before, kt_after)), env)
+    del kt_before, kt_after
+    kchecks = sharded_kernel_check(new_dmp, new_state, mine[0], flush)
+    # a fresh DMP of the new plan with the same weights, slots and dense
+    fresh_dmp, fresh = sharded_dmp(dev, new_dmp.plan, TRAIN_BATCH, caps, env)
+    fresh_dmp.load_table_weights(fresh, after[0])
+    scatter_slots(fresh_dmp, fresh["fused"], after[1])
+    fresh.update(dense=_clone_state(new_state["dense"]),
+                 dense_opt=_clone_state(new_state["dense_opt"]),
+                 step=new_state["step"])
+    del after
+    torch.cuda.synchronize()
+    tbe.reset_launch_counts()
+    new_state, losses, dt = _train_steps(new_dmp, new_state, mine[1:],
+                                         RESHARD_STEPS)
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    groups = len(new_dmp.sharded_ebc.group_names)
+    fresh, _, _ = _train_steps(fresh_dmp, fresh, mine[1:], RESHARD_STEPS)
+    steps_equal = _all_ranks(_state_equal(new_state, fresh), env)
+    del fresh
+    # back to table-wise: the first stacks and fused states bit for bit
+    mid_dmp, mid = reshard(dmp, _clone_state(first), reshard_plan(tables, N))
+    _, back = reshard(mid_dmp, mid, dmp.plan)
+    back_equal = _all_ranks(
+        _state_equal(back["tables"], first["tables"])
+        and _state_equal(back["fused"], first["fused"]), env)
+    del mid, back
+    # the world-4 checkpoint, for the parent's world-1 restore_elastic
+    Checkpointer(ckpt_dir).save(dmp, first)
+    sums = None
+    if env.rank == 0:
+        w, s = before
+        sums = {"weights": {t: _checksum(v) for t, v in w.items()},
+                "slots": {t: _checksum(v["momentum"]) for t, v in s.items()
+                          if t != "__scalars__"},
+                "step": first["step"]}
+    del before, first
+    rec = {"phase": "reshard", "rank": env.rank, "ranks": N,
+           "note": ONE_CARD, "from": "tw",
+           "to": "rw 0-7, twrw 8-15, grid 16-19, dp 20-25",
+           "groups_before": {n: list(t.shape)
+                             for n, t in state["tables"].items()},
+           "groups_after": {n: list(t.shape)
+                            for n, t in new_state["tables"].items()},
+           "weights_and_slots_equal": moved_equal,
+           "kt_equal_one_id_batch": kt_equal,
+           "steps_equal_fresh_dmp": steps_equal,
+           "back_to_tw_equal": back_equal,
+           "reshard_seconds": reshard_s, "launches": counts,
+           "groups_after_count": groups,
+           "ms_per_step_after": dt * 1e3 / RESHARD_STEPS,
+           "losses_after": losses, "checksums": sums,
+           "seconds": time.perf_counter() - t0,
+           "budget_s": RESHARD_BUDGET_S}
+    # one B1 and one B2 a group a step
+    steps = RESHARD_STEPS * groups
+    if not (moved_equal and kt_equal and steps_equal and back_equal):
+        raise AssertionError(f"reshard rank {env.rank}: {rec}")
+    if (counts.get("pooled_lookup", 0) != steps
+            or counts.get("fused_sparse_update", 0) != steps
+            or set(counts) - {"pooled_lookup", "fused_sparse_update"}):
+        raise AssertionError(f"reshard rank {env.rank}: {steps} steps "
+                             f"launched {counts}")
+    if rec["seconds"] > RESHARD_BUDGET_S:
+        raise AssertionError(f"reshard took {rec['seconds']:.1f} s")
+    del dmp, state, new_dmp, new_state, fresh_dmp
+    torch.cuda.empty_cache()
+    return rec, counts, kchecks
+
+
+def reshard_restore_check(dev, ckpt_dir, sums):
+    """The reshard stage's world-4 checkpoint restored through
+    ``restore_elastic`` here, at world 1 on the card under the table-wise
+    plan: every table's weights and rowwise slots carry the checksums the
+    world-4 state had, and the step.  Returns the record."""
+    import torch
+
+    from torchrec_tpu_torch.checkpoint import Checkpointer
+    from torchrec_tpu_torch.parallel.dynamic_sharding import slots_to_tables
+
+    t0 = time.perf_counter()
+    _, tables = bench_tables()
+    caps, _ = one_id_batches(1)
+    dmp, _ = sharded_dmp(dev, sharded_plan("tw", tables, 1), TRAIN_BATCH,
+                         caps)
+    state = Checkpointer(ckpt_dir).restore_elastic(dmp, sums["step"])
+    weights = dmp.sharded_ebc.tables_to_weights(state["tables"])
+    slots = slots_to_tables(dmp, state)
+    rec = {"phase": "reshard_restore", "world": 1,
+           "weights_equal": all(_checksum(weights[t]) == c
+                                for t, c in sums["weights"].items()),
+           "slots_equal": all(_checksum(slots[t]["momentum"]) == c
+                              for t, c in sums["slots"].items()),
+           "step": state["step"], "seconds": time.perf_counter() - t0}
+    del dmp, state, weights, slots
+    torch.cuda.empty_cache()
+    if not (rec["weights_equal"] and rec["slots_equal"]
+            and rec["step"] == sums["step"]):
+        raise AssertionError(f"world-1 restore_elastic failed: {rec}")
+    return rec
+
+
 # -- the sequence path across the 4 ranks, in the same launch ---------------
 
 SEQ_RANK_BATCH = 64  # sessions a rank: the global batch is SEQ_BATCH
@@ -8576,14 +8818,17 @@ def nccl_rank(backend="nccl", device_type="cuda"):
     return rec
 
 
-def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank, only=None):
+def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank, only=None,
+                  device_type="cuda"):
     """The multi-rank phase: the gloo arm's 4 ranks, then the NCCL arm's
     one, each spawned by ``multiprocess.launch`` (the parent built every
     kernel before), each rank's records emitted here beside the card's
-    line.  ``only`` (a development run): those of the gloo arm's stages
-    (``GLOO_STAGES``) alone, without its plans, its other stages and the
-    NCCL arm.  Returns (the main path's launches, summed over ranks and
-    plans; the kernel checks' records)."""
+    line; after the gloo arm, the reshard stage's world-4 checkpoint
+    restored here at world 1 (:func:`reshard_restore_check`, on
+    ``device_type``).  ``only`` (a development run): those of the gloo
+    arm's stages (``GLOO_STAGES``) alone, without its plans, its other
+    stages and the NCCL arm.  Returns (the main path's launches, summed
+    over ranks and plans; the kernel checks' records)."""
     import torch
 
     from torchrec_tpu_torch.parallel.multiprocess import launch
@@ -8592,9 +8837,19 @@ def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank, only=None):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    args = ((), "cuda", tuple(only)) if only else (SHARDED_PLANS,)
-    results = launch(rank_fn, SHARDED_RANKS, args=args,
-                     timeout=SHARDED_TIMEOUT)
+    ckpt = tempfile.mkdtemp(prefix="reshard_")
+    args = (((), device_type, tuple(only), ckpt) if only
+            else (SHARDED_PLANS, device_type, None, ckpt))
+    try:
+        results = launch(rank_fn, SHARDED_RANKS, args=args,
+                         timeout=SHARDED_TIMEOUT)
+        sums = next((r["checksums"] for records, _ in results
+                     for r in records
+                     if r["phase"] == "reshard" and r["rank"] == 0), None)
+        restore = (None if sums is None else reshard_restore_check(
+            torch.device(device_type), ckpt, sums))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     launches: dict = {}
     kchecks = []
     for records, counts in results:
@@ -8604,6 +8859,8 @@ def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank, only=None):
                     if r["phase"] in ("sharded_kernel", "dedup_rw_kernel")]
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+    if restore is not None:
+        emit({**restore, "card": card})
     gloo_s = time.perf_counter() - t0
     if only:
         return launches, kchecks
@@ -8615,6 +8872,563 @@ def sharded_phase(rank_fn=sharded_rank, nccl_fn=nccl_rank, only=None):
           "nccl_arm_seconds": time.perf_counter() - t0,
           "launches": launches})
     return launches, kchecks
+
+
+# -- checkpoint and resume, the fault-tolerant loop, the elastic supervisor --
+
+FT_BUDGET_S = 60
+# the loop's stream: item i is batch i % TRAIN_BATCHES of build_trainer
+FT_ITEMS = 20
+FT_CKPT_EVERY = 4  # applied steps between checkpoints
+FT_NAN = {3, 7, 8, 9}  # NaN step calls: item 3 skipped, 7-9 roll back
+FT_FLAKY = {11, 12}  # next() attempts that fail transiently (loop 1)
+# loop 1 steps items 0-13, a SIGTERM after item 13's step; loop 2 resumes
+# at 14, a SIGTERM after its third step (item 16); loop 3 runs 17-19
+FT_SIGTERM_AFTER = (13, 2)
+# the items whose updates survive: 5 and 6 are rolled back with 7-9
+FT_APPLIED = (0, 1, 2, 4, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19)
+FT_TIMED = 10  # steps timed with and without the loop and the log
+FT_CORRUPT_FEATURE = 7  # the table whose file gets a flipped byte
+
+
+def _payload_bytes(payload) -> int:
+    import torch
+
+    if isinstance(payload, dict):
+        return sum(_payload_bytes(v) for v in payload.values())
+    if isinstance(payload, torch.Tensor):
+        return payload.numel() * payload.element_size()
+    return 0
+
+
+def _signalling_step(step, after):
+    """``step`` that sends this process a SIGTERM right after its
+    ``after``-th call (0-based)."""
+    import signal
+
+    calls = itertools.count()
+
+    def run(state, batch):
+        out = step(state, batch)
+        if next(calls) == after:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    return run
+
+
+def _cuda_ms(fn, n):
+    """Mean ms of ``n`` calls of ``fn`` on the card (synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _undo_log_ms(dmp, state, batch, n):
+    """The undo log's own work on the card, from CUDA events around each
+    piece of it in ``n`` logged steps: opening it (the dense copies) and
+    each fused update's row and slot gathers (``before_update``); then
+    one ``restore()`` of the last step.  Each span runs from the card
+    reaching the log's first kernel to its last one, so it also holds
+    the gaps in which the card waits for the host to launch them.
+    Returns ms: {"open", "gathers"} a step and one "restore"."""
+    import torch
+
+    from torchrec_tpu_torch.reliability.train_loop import StepUndoLog
+
+    spans = []
+
+    def timed(piece, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        spans.append((piece, start, end))
+        return out
+
+    class TimedUndoLog(StepUndoLog):
+        def before_update(self, *args):
+            timed("gathers", lambda: StepUndoLog.before_update(self, *args))
+
+    for _ in range(n):
+        undo = timed("open", lambda: TimedUndoLog(state))
+        with undo.recording():
+            dmp.train_step(state, batch)
+    timed("restore", undo.restore)
+    torch.cuda.synchronize()
+    ms = {"open": 0.0, "gathers": 0.0, "restore": 0.0}
+    for piece, a, b in spans:
+        ms[piece] += a.elapsed_time(b) / (1 if piece == "restore" else n)
+    return ms
+
+
+def ft_checkpoint_checks(dmp, state, batch, tmp):
+    """The checkpoint's own drills at full width, on a directory of their
+    own: a sync save timed piece by piece (the host snapshot, the write
+    with its checksums and commit, the verified read, the restore), then
+    one step and a crash between the payload write and the commit
+    (``latest_step()`` stays at the previous commit), and a byte flipped
+    in one table's file (``CheckpointCorruption`` naming it).  Returns
+    the record.  The state takes the one step, in place."""
+    import json as _json
+
+    import torch
+
+    from torchrec_tpu_torch.checkpoint import (
+        CheckpointCorruption,
+        Checkpointer,
+    )
+    from torchrec_tpu_torch.reliability.fault_injection import (
+        CrashMidSaveCheckpointer,
+        SimulatedCrash,
+    )
+
+    d = os.path.join(tmp, "drills")
+    ck = Checkpointer(d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = ck._build_payload(dmp, state)
+    snapshot_s = time.perf_counter() - t0
+    nbytes = _payload_bytes(payload)
+    step = state["step"]
+    t0 = time.perf_counter()
+    ck._write(payload, step)
+    write_s = time.perf_counter() - t0
+    del payload
+    t0 = time.perf_counter()
+    ck._read_payload(step)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = ck.restore(dmp, step)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_equal = _state_equal(restored, state)
+    del restored
+    state, _ = dmp.train_step(state, batch)
+    crash = CrashMidSaveCheckpointer(d, crash_on_save=0, save_retries=0)
+    crashed = False
+    try:
+        crash.save(dmp, state)
+    except SimulatedCrash:
+        crashed = True
+    torn = [n for n in os.listdir(d) if n.startswith(".tmp_step_")]
+    latest = crash.latest_step()
+    # one byte of one table's file, flipped on disk
+    victim = f"t_cat_{min(FT_CORRUPT_FEATURE, TRAIN_FEATURES - 1)}"
+    pdir = os.path.join(d, f"step_{step}", "payload")
+    with open(os.path.join(pdir, "manifest.json")) as f:
+        entry = next(e for e in _json.load(f)["leaves"]
+                     if e["path"] == ["tables", victim])
+    path = os.path.join(pdir, entry["file"])
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0x40]))
+    named = None
+    try:
+        ck.restore(dmp, step)
+    except CheckpointCorruption as e:
+        named = str([victim]) in str(e)
+    shutil.rmtree(d, ignore_errors=True)
+    rec = {"payload_bytes": nbytes, "snapshot_s": snapshot_s,
+           "write_s": write_s, "read_s": read_s, "restore_s": restore_s,
+           "write_gb_per_s": nbytes / write_s / 1e9,
+           "read_gb_per_s_warm": nbytes / read_s / 1e9,
+           "restored_equal": restored_equal, "crash_raised": crashed,
+           "torn_dirs": len(torn), "latest_after_crash": latest,
+           "corrupted_table": victim, "corruption_named": named}
+    if not (restored_equal and crashed and torn and latest == step
+            and named):
+        raise AssertionError(f"ft_loop checkpoint drills failed: {rec}")
+    return rec
+
+
+def ft_semisync_arm(dev, tmp):
+    """The semi-sync rollback arm at ``train_dedup``'s configuration
+    (B4/B6, the bucketed semi-sync pipeline): two forced bad steps roll
+    back to the start's checkpoint, the pending embedding is recomputed,
+    and the next steps equal a fresh pipeline's from the restored step
+    over the same batches.  Returns (record, launches)."""
+    import torch
+
+    from torchrec_tpu_torch.checkpoint import Checkpointer
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.train_pipeline import (
+        BucketedTrainPipelineSemiSync,
+    )
+    from torchrec_tpu_torch.reliability import FaultTolerantTrainLoop
+
+    keys, caps, host = dedup_batches()
+    dmp, state = build_dedup_trainer(dev, keys, caps, "rowwise_adagrad",
+                                     torch.float32)
+    items = [host[i % len(host)] for i in range(8)]
+    ck = Checkpointer(os.path.join(tmp, "semisync"))
+    pipe = BucketedTrainPipelineSemiSync(dmp, state, _bucketing_config())
+    refreshed = []
+    orig = pipe.invalidate_prefetch
+    pipe.invalidate_prefetch = lambda: (refreshed.append(1), orig())[0]
+    calls = itertools.count()
+    tbe.reset_launch_counts()
+    loop = FaultTolerantTrainLoop(
+        pipe, ck, dmp, checkpoint_interval=None, max_consecutive_bad_steps=2,
+        is_bad_fn=lambda m: next(calls) in (1, 2))
+    it = iter(items)
+    for _ in range(3):
+        loop.progress(it)
+    restored = ck.restore(dmp, 0)
+    rolled_back = loop.rollbacks == 1 and _state_equal(pipe.state, restored)
+    # the pending batch is item 3: a fresh pipeline from step 0 over 3..
+    fresh = BucketedTrainPipelineSemiSync(dmp, restored, _bucketing_config())
+    fit = iter(items[3:])
+    equal = []
+    for _ in range(2):
+        loop.progress(it)
+        fresh.progress(fit)
+        equal.append(_state_equal(pipe.state, fresh.state))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    rec = {"rolled_back_to_step_0": rolled_back,
+           "prefetch_recomputed": len(refreshed),
+           "steps_equal_fresh_pipeline": equal, "launches": counts}
+    # 5 loop steps and 2 fresh ones: one B6 each; B4 embeds ahead
+    if not (rolled_back and refreshed and all(equal)
+            and counts.get("dedup_fused_sparse_update") == 7
+            and counts.get("dedup_pooled_lookup", 0) >= 7
+            and set(counts) <= {"dedup_pooled_lookup",
+                                "dedup_fused_sparse_update"}):
+        raise AssertionError(f"ft_loop semi-sync arm failed: {rec}")
+    del dmp, state, pipe, fresh, restored, loop
+    return rec, counts
+
+
+def ft_loop_phase(dev, flush):
+    """The fault-tolerant loop at ``bench.py main()``'s DMP (budget
+    ``FT_BUDGET_S``; :func:`build_trainer`): ``FaultTolerantTrainLoop``
+    over ``TrainPipelineSparseDist`` with ``Checkpointer(keep_last_n=2,
+    async_save=True)`` and a checkpoint every ``FT_CKPT_EVERY`` applied
+    steps, in a temporary directory the phase removes, over the stream of
+    ``FT_ITEMS`` items.  Hard checks: the NaN step is skipped and leaves
+    the state ``torch.equal`` to before it; three bad steps in a row roll
+    back to a state ``torch.equal`` to a fresh restore of the last commit;
+    the transient read errors are retried; a SIGTERM makes ``progress``
+    raise ``Preempted`` after a final checkpoint, a new loop auto-resumes
+    from it (``torch.equal``), a SIGTERM inside ``run()`` returns with
+    ``preempted`` true, and a third loop finishes; the final tables, slots
+    and dense state ``torch.equal`` to one uninterrupted run over the
+    applied items (``FT_APPLIED``); every step call launched one B1 and
+    one B2 and nothing else (counts, and a profiled step); B1 and B2
+    ``torch.equal`` to plain at the step's shapes (the path check); the
+    checkpoint drills (:func:`ft_checkpoint_checks`) and the semi-sync
+    arm (:func:`ft_semisync_arm`).  Recorded: save and restore seconds,
+    the disk's GB/s, the undo log's bytes and ms a step, the step's ms
+    with and without the loop.  Returns (launches, path check record)."""
+    import torch
+
+    from torchrec_tpu_torch.checkpoint import Checkpointer
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.train_pipeline import (
+        TrainPipelineSparseDist,
+    )
+    from torchrec_tpu_torch.reliability import (
+        FaultTolerantTrainLoop,
+        Preempted,
+    )
+    from torchrec_tpu_torch.reliability.fault_injection import (
+        FlakyIterator,
+        NaNInjectingStep,
+    )
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    tmp = tempfile.mkdtemp(prefix="ft_loop_")
+    try:
+        dmp, state, batches = build_trainer(dev, torch.float32)
+        items = [batches[i % len(batches)] for i in range(FT_ITEMS)]
+        start = _clone_state(state)
+        path = train_path_check(dmp, state, batches[0], None,
+                                phase="ft_loop_path_check")
+        d = os.path.join(tmp, "loop")
+
+        def new_loop(step, st):
+            pipe = TrainPipelineSparseDist(step, st, dev)
+            return pipe, FaultTolerantTrainLoop(
+                pipe, Checkpointer(d, keep_last_n=2, async_save=True), dmp,
+                checkpoint_interval=FT_CKPT_EVERY,
+                max_consecutive_bad_steps=3)
+
+        torch.cuda.synchronize()
+        tbe.reset_launch_counts()
+        t_loops = time.perf_counter()
+        # loop 1: items 0-13, the skip, the rollback, the retries, SIGTERM
+        pipe, loop = new_loop(NaNInjectingStep(_signalling_step(
+            dmp.train_step, FT_SIGTERM_AFTER[0]), FT_NAN), state)
+        loop.install_signal_handlers()
+        src = FlakyIterator(items, fail_on=FT_FLAKY)
+        for _ in range(3):
+            loop.progress(src)
+        before = _clone_state(pipe.state)
+        loop.progress(src)  # item 3: NaN
+        skip_equal = loop.last_step_skipped and _state_equal(pipe.state,
+                                                             before)
+        undo_bytes = loop.last_undo_bytes
+        del before
+        for _ in range(6):  # items 4-6 applied, 7-9 NaN: the rollback
+            loop.progress(src)
+        loop.checkpointer.wait()
+        rollback_equal = loop.rollbacks == 1 and _state_equal(
+            pipe.state, Checkpointer(d).restore(dmp, 4))
+        for _ in range(4):  # items 10-13, the SIGTERM after 13
+            loop.progress(src)
+        preempted = False
+        try:
+            loop.progress(src)
+        except Preempted:
+            preempted = True
+        summary1 = loop.scalar_metrics()
+        # loop 2: auto-resumes, SIGTERM inside run() after item 16
+        pipe2, loop2 = new_loop(_signalling_step(dmp.train_step,
+                                                 FT_SIGTERM_AFTER[1]),
+                                dmp.init(torch.Generator(device=dev)
+                                         .manual_seed(1)))
+        resumed_equal = (loop2.resumed_from == 8
+                         and _state_equal(pipe2.state, pipe.state))
+        del pipe, loop
+        loop2.install_signal_handlers()
+        run2 = loop2.run(iter(items[14:]))
+        # loop 3: auto-resumes and finishes
+        pipe3, loop3 = new_loop(dmp.train_step, dmp.init(
+            torch.Generator(device=dev).manual_seed(2)))
+        run3 = loop3.run(iter(items[17:]))
+        torch.cuda.synchronize()
+        loops_s = time.perf_counter() - t_loops
+        counts = {k: v for k, v in tbe.launch_counts().items() if v}
+        # one uninterrupted run over the applied items
+        ref = start
+        for i in FT_APPLIED:
+            ref, _ = dmp.train_step(ref, items[i])
+        final_equal = _state_equal(pipe3.state, ref)
+        del ref, start
+        calls = 14 + 3 + 3  # loop 1, 2 and 3's step calls
+        ckpt = ft_checkpoint_checks(dmp, pipe3.state, items[0], tmp)
+        # timing: the undo log's own work, the step alone and in the loop
+        st = pipe3.state
+        undo_ms = _undo_log_ms(dmp, st, items[0], FT_TIMED)
+        plain_ms = _cuda_ms(lambda: dmp.train_step(st, items[0]), FT_TIMED)
+        tp = TrainPipelineSparseDist(dmp.train_step, st, dev)
+        tloop = FaultTolerantTrainLoop(
+            tp, Checkpointer(os.path.join(tmp, "timed")), dmp,
+            checkpoint_interval=None, resume=False, checkpoint_on_start=False)
+        titer = iter(items * 2)
+        tloop.progress(titer)
+        loop_ms = _cuda_ms(lambda: tloop.progress(titer), FT_TIMED)
+        profiled = _profiled_kernels(lambda: tloop.progress(titer))
+        del tp, tloop, st, pipe2, loop2, pipe3, loop3, dmp, state, batches
+        del items
+        torch.cuda.empty_cache()
+        semi, semi_counts = ft_semisync_arm(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "ft_loop", "card": card, "items": FT_ITEMS,
+           "checkpoint_every": FT_CKPT_EVERY,
+           "skip_equal": skip_equal, "rollback_equal": rollback_equal,
+           "data_retries": summary1.get("reliability/data_retries"),
+           "loop1": {k.split("/")[1]: v for k, v in summary1.items()},
+           "progress_raised_preempted": preempted,
+           "resumed_equal": resumed_equal, "run2": run2, "run3": run3,
+           "final_equal_uninterrupted": final_equal,
+           "launches": counts, "step_calls": calls,
+           "profiled_launches_one_step": profiled,
+           "save_seconds_async_snapshot": summary1[
+               "reliability/checkpoint_save_seconds"] / max(
+               1, summary1["reliability/checkpoint_save_count"]),
+           "checkpoint": ckpt, "undo_bytes_per_step": undo_bytes,
+           "undo_device_ms_per_step": undo_ms["open"] + undo_ms["gathers"],
+           "undo_device_ms": undo_ms, "step_ms_plain": plain_ms,
+           "step_ms_in_loop": loop_ms, "loops_seconds": loops_s,
+           "semi_sync": semi,
+           "seconds": time.perf_counter() - t_phase,
+           "budget_s": FT_BUDGET_S}
+    emit(rec)
+    ok = (skip_equal and rollback_equal and preempted and resumed_equal
+          and final_equal and rec["data_retries"] == len(FT_FLAKY)
+          and run2["preempted"] and run2["final_step"] == 11
+          and not run3["preempted"] and run3["final_step"] == 14
+          and run3["resumed_from"] == 11
+          and summary1["reliability/rollbacks"] == 1
+          and summary1["reliability/skipped_steps"] == len(FT_NAN))
+    if not ok:
+        raise AssertionError(f"ft_loop failed: {rec}")
+    if (counts.get("pooled_lookup") != calls
+            or counts.get("fused_sparse_update") != calls
+            or set(counts) - {"pooled_lookup", "fused_sparse_update"}
+            or profiled != {"pooled_lookup": 1, "fused_sparse_update": 1}):
+        raise AssertionError(f"ft_loop: {calls} step calls launched "
+                             f"{counts}, profiled {profiled}")
+    if rec["seconds"] > FT_BUDGET_S:
+        raise AssertionError(f"ft_loop took {rec['seconds']:.1f} s")
+    launches = dict(counts)
+    for k, v in semi_counts.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches, path
+
+
+ELASTIC_BUDGET_S = 90
+ELASTIC_RANKS = 2  # gloo ranks sharing the card in generation 0
+ELASTIC_ROWS = 10_000  # a table: a checkpoint every step is 133 MB
+ELASTIC_STEPS, ELASTIC_KILL_STEP = 6, 3
+ELASTIC_TORN = (3, 2)  # the kill_mid_save drill's steps, its torn step
+ELASTIC_SEED = 11
+ELASTIC_DEVICE = "cuda:0"  # every worker's: the ranks share the card
+
+
+def elastic_widths():
+    """``bench.py main()``'s widths with ``ELASTIC_ROWS`` rows a table."""
+    from torchrec_tpu_torch.reliability.elastic_demo import Widths
+
+    return Widths(features=TRAIN_FEATURES, rows=(ELASTIC_ROWS,), dim=DIM,
+                  ids=1, batch=TRAIN_BATCH, dense_in=NUM_DENSE,
+                  dense_arch=DENSE_ARCH, over_arch=OVER_ARCH)
+
+
+def _elastic_drill(tmp, name, steps, fault):
+    """One ``ElasticSupervisor`` run of ``elastic_demo.py`` over
+    ``ELASTIC_RANKS`` gloo ranks on ``cuda:0`` with one scheduled
+    process fault; returns (report, the final generation's result, the
+    checkpoint directory, seconds)."""
+    from torchrec_tpu_torch.reliability import ElasticSupervisor
+    from torchrec_tpu_torch.reliability import elastic_demo
+    from torchrec_tpu_torch.reliability.fault_injection import (
+        ProcessFaultPlan,
+    )
+
+    run_dir = os.path.join(tmp, name)
+    ckpt = os.path.join(run_dir, "ckpt")
+    out = os.path.join(run_dir, "result.json")
+    sup = ElasticSupervisor(
+        elastic_demo.__file__, ELASTIC_RANKS,
+        args=["--steps", str(steps), "--ckpt", ckpt, "--out", out,
+              "--seed", str(ELASTIC_SEED), "--device", ELASTIC_DEVICE,
+              *elastic_demo.widths_args(elastic_widths())],
+        run_dir=run_dir, fault_plan=ProcessFaultPlan([fault]),
+        max_relaunches=2, hang_timeout_s=60.0, startup_grace_s=120.0,
+        generation_timeout_s=240.0, env_extra={"PYTHONPATH": ROOT})
+    t0 = time.perf_counter()
+    report = sup.run()
+    seconds = time.perf_counter() - t0
+    for g in report.generations:
+        for pid in g.pids:
+            try:
+                os.kill(pid, 0)
+            except (ProcessLookupError, PermissionError):
+                continue
+            raise AssertionError(f"{name}: orphaned worker {pid}")
+    with open(out) as f:
+        return report, json.load(f), ckpt, seconds
+
+
+def elastic_phase(dev):
+    """The elastic supervisor (budget ``ELASTIC_BUDGET_S``):
+    ``ElasticSupervisor`` spawns ``reliability/elastic_demo.py`` as
+    ``ELASTIC_RANKS`` gloo ranks sharing the card, at ``bench.py
+    main()``'s widths (26 features, D=128, B=4096 a rank) with
+    ``ELASTIC_ROWS`` rows a table, a checkpoint every step behind the
+    two-phase commit barrier.  Hard checks: generation 0 runs at world 2,
+    rank 1 is SIGKILLed at step ``ELASTIC_KILL_STEP``, the supervisor
+    tears down and relaunches at world 1, which resumes through
+    ``restore_elastic`` to step ``ELASTIC_STEPS``; its final checkpoint's
+    digest equals a clean world-1 run here (in this process, B1 and B2
+    launched every step) restarted from a copy of the committed step; a
+    ``kill_mid_save`` drill leaves the torn step uncommitted, and the
+    relaunch resumes from the step before it; each drill's supervised
+    final generation launched one B1 and one B2 a resumed step and no
+    other kernel (the counts its worker writes to its result), as did the
+    clean run.  Recorded: detection, teardown, relaunch and restore
+    seconds and the report's scalars.  Returns the supervised final
+    generations' launches, summed."""
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.reliability import elastic_demo
+    from torchrec_tpu_torch.reliability.fault_injection import ProcessFault
+
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    tmp = tempfile.mkdtemp(prefix="elastic_")
+    try:
+        report, result, ckpt, kill_s = _elastic_drill(
+            tmp, "kill", ELASTIC_STEPS,
+            ProcessFault(rank=1, step=ELASTIC_KILL_STEP, kind="kill"))
+        clean_dir = os.path.join(tmp, "clean")
+        shutil.copytree(os.path.join(ckpt, f"step_{ELASTIC_KILL_STEP}"),
+                        os.path.join(clean_dir, f"step_{ELASTIC_KILL_STEP}"))
+        tbe.reset_launch_counts()
+        clean = elastic_demo.run(ELASTIC_STEPS, clean_dir, seed=ELASTIC_SEED,
+                                 device=str(dev), widths=elastic_widths())
+        counts = {k: v for k, v in tbe.launch_counts().items() if v}
+        torn_report, torn, torn_ckpt, torn_s = _elastic_drill(
+            tmp, "torn", ELASTIC_TORN[0],
+            ProcessFault(rank=1, step=ELASTIC_TORN[1], kind="kill_mid_save"))
+        torn_dirs = sorted(n for n in os.listdir(torn_ckpt)
+                           if n.startswith(f".tmp_step_{ELASTIC_TORN[1]}."))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gens = report.generations
+    rec = {"phase": "elastic", "card": card, "note": ONE_CARD.replace(
+               "4 ranks", f"{ELASTIC_RANKS} ranks"),
+           "rows_per_table": ELASTIC_ROWS, "batch_per_rank": TRAIN_BATCH,
+           "generations": [{"world": g.world, "ok": g.ok,
+                            "failures": [dataclasses.asdict(f)
+                                         for f in g.failures]}
+                           for g in gens],
+           "detect_latency_s": report.detect_latency_s,
+           "teardown_s": report.teardown_s,
+           "relaunch_to_first_resumed_step_s":
+               report.relaunch_to_first_resumed_step_s,
+           "mttr_s": report.mttr_s, "scalars": report.scalar_metrics(),
+           "result": result, "clean_restart": clean,
+           "digest_equal": result["digest"] == clean["digest"],
+           "clean_launches": counts, "drill_seconds": kill_s,
+           "torn": {"report": torn_report.scalar_metrics(),
+                    "failures": [dataclasses.asdict(f) for f in
+                                 torn_report.generations[0].failures],
+                    "resumed_from": torn["resumed_from"],
+                    "final_step": torn["final_step"],
+                    "launches": torn["launches"],
+                    "torn_tmp_dirs": torn_dirs, "seconds": torn_s},
+           "seconds": time.perf_counter() - t0,
+           "budget_s": ELASTIC_BUDGET_S}
+    emit(rec)
+    steps = ELASTIC_STEPS - ELASTIC_KILL_STEP
+    ok = (report.ok and report.restarts == 1 and len(gens) == 2
+          and gens[0].world == ELASTIC_RANKS and gens[1].world == 1
+          and [(f.rank, f.cause) for f in gens[0].failures] == [(1, "crash")]
+          and result["resumed_from"] == ELASTIC_KILL_STEP
+          and result["final_step"] == ELASTIC_STEPS and result["world"] == 1
+          and rec["digest_equal"]
+          and clean["resumed_from"] == ELASTIC_KILL_STEP
+          and torn_report.ok and torn_report.restarts == 1
+          and any(f.rank == 1 and f.cause == "crash"
+                  for f in torn_report.generations[0].failures)
+          and torn["resumed_from"] == ELASTIC_TORN[1] - 1
+          and torn["final_step"] == ELASTIC_TORN[0] and torn_dirs)
+    if not ok:
+        raise AssertionError(f"elastic failed: {rec}")
+    torn_steps = ELASTIC_TORN[0] - torn["resumed_from"]
+    for name, n, got in (("clean run", steps, counts),
+                         ("supervised resume", steps, result["launches"]),
+                         ("torn drill's resume", torn_steps,
+                          torn["launches"])):
+        if got != {"pooled_lookup": n, "fused_sparse_update": n}:
+            raise AssertionError(f"elastic {name}: {n} steps launched {got}")
+    if rec["seconds"] > ELASTIC_BUDGET_S:
+        raise AssertionError(f"elastic took {rec['seconds']:.1f} s")
+    return {k: result["launches"][k] + torn["launches"][k]
+            for k in result["launches"]}
 
 
 def registers_record():
@@ -8697,6 +9511,7 @@ def main() -> None:
     lowp_launches, lowp_rows = lowp_state_phase(dev, flush)
     seq_launches, seq_row = seq_phase(dev, flush)
     models_launches, models_checks, fp_err = models_phase(dev, flush)
+    ft_launches, ft_check = ft_loop_phase(dev, flush)
     del flush
     app_launches, app_check = app_phase(dev)
     serve_launches, _, path_rows = serving_phase(dev)
@@ -8704,6 +9519,7 @@ def main() -> None:
     tier_launches, tier_rows, tier_tcp = serving_tier_phase(dev)
     native_launches = native_serving_phase(dev, tier_tcp)
     sharded_launches, sharded_checks = sharded_phase()
+    elastic_launches = elastic_phase(dev)
 
     # each kernel's launches on its own main paths: B1/B2 the training
     # step (21 + 3 steps), the DCN step (21) and the application (40
@@ -8717,6 +9533,7 @@ def main() -> None:
                 + seq_launches.get(k, 0) + models_launches.get(k, 0)
                 + tier_launches.get(k, 0) + native_launches[k]
                 + guarded_launches.get(k, 0) + lowp_launches.get(k, 0)
+                + ft_launches.get(k, 0) + elastic_launches.get(k, 0)
                 for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows
@@ -8724,7 +9541,8 @@ def main() -> None:
     errs.append(("pooled_lookup", fp_err))
     errs += [(r["kernel"], r["max_abs_err"]) for r in tier_rows]
     errs += [(k, c[f"{b}_max_abs_err"])
-             for c in checks + [dcn_check, app_check, lowp_rows[0]]
+             for c in checks + [dcn_check, app_check, lowp_rows[0],
+                                ft_check]
              + models_checks
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"))]
@@ -8841,7 +9659,115 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-DEV_PHASES = ("guarded", "lowp_state", "sharded") + GLOO_STAGES
+DEV_PHASES = ("guarded", "lowp_state", "ft_loop", "elastic",
+              "sharded") + GLOO_STAGES
+
+
+BUILD_STUDY_ORDER = ("parts", "split_compile", "one_unit", "split_compile",
+                     "parts")
+
+
+def _sass_by_kernel(lib):
+    """SHA-1 of each kernel's SASS in ``lib`` (``cuobjdump -sass``, the
+    address comments dropped: the code, not where it sits)."""
+    import hashlib
+    import re
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dump = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, name, body = {}, None, []
+    for line in dump.splitlines() + ["Function : "]:
+        m = re.search(r"Function : (\S*)", line)
+        if m:
+            if name:
+                text = "\n".join(re.sub(r"/\*[0-9a-f]{4,}\*/", "", b)
+                                 for b in body)
+                out[name] = hashlib.sha1(text.encode()).hexdigest()
+            name, body = m.group(1), []
+        elif name:
+            body.append(line)
+    return out
+
+
+def build_study() -> None:
+    """``python3 chip_smoke.py --build-study``: the two backward sources
+    built from nothing three ways, in the order ``BUILD_STUDY_ORDER``,
+    each build's compiles all started together: in parts, as
+    ``ops/_native.py`` builds them; as one translation unit (the source
+    and an explicit instantiation of every type pair of
+    ``backward_common.cuh``); and as one unit with ``nvcc
+    --split-compile=0`` (the device compile in parallel on every core).
+    Prints each build's seconds, and how many kernels' SASS and registers
+    equal the one-unit build's."""
+    import re
+
+    from torchrec_tpu_torch.ops import _native
+
+    card = nvidia_smi_line()
+    sources = {"tbe_backward.cu": "true", "tbe_dedup_backward.cu": "false"}
+    tmp = tempfile.mkdtemp(prefix="build_study_")
+    runs, kernels = [], {}
+    try:
+        for n, variant in enumerate(BUILD_STUDY_ORDER):
+            compiles, links, libs = [], [], []
+            for src, per_id in sources.items():
+                out = os.path.join(tmp, f"{n}_{variant}_{src}.so")
+                libs.append(out)
+                if variant == "parts":
+                    c, link = _native._build_commands(src, out)
+                    compiles += c
+                    links.append(link)
+                    continue
+                one = os.path.join(tmp, f"{n}_one_{src}")
+                with open(one, "w") as f:
+                    f.write(f'#include "{os.path.join(_native.CSRC_DIR, src)}"'
+                            "\nnamespace bwd {\n")
+                    for k in range(_native.type_pairs()):
+                        f.write("template const void* kernel_for<TypePair<"
+                                f"{k}>::Table, TypePair<{k}>::State, "
+                                f"{per_id}>(int, int);\n")
+                    f.write("}\n")
+                flag = (["--split-compile=0"] if variant == "split_compile"
+                        else [])
+                compiles.append([_native._nvcc(), *_native.NVCC_FLAGS, *flag,
+                                 "-o", out, one])
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for c in compiles]
+            logs = [p.communicate()[0] for p in procs]
+            if any(p.returncode for p in procs):
+                raise RuntimeError("\n".join(logs))
+            for link in links:
+                subprocess.run(link, check=True, capture_output=True)
+            seconds = time.perf_counter() - t0
+            regs, fn = {}, None
+            for line in "".join(logs).splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                fn = m.group(1) if m else fn
+                m = re.search(r"Used (\d+) registers", line)
+                if m and fn:
+                    regs[fn] = int(m.group(1))
+            sass = {}
+            for lib in libs:
+                sass.update(_sass_by_kernel(lib))
+            kernels.setdefault(variant, (sass, regs))
+            runs.append({"variant": variant, "seconds": seconds,
+                         "kernels": len(sass)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref_sass, ref_regs = kernels["one_unit"]
+    rec = {"phase": "build_study", "card": card, "runs": runs}
+    for variant, (sass, regs) in kernels.items():
+        if variant == "one_unit":
+            continue
+        rec[f"{variant}_sass_equal_one_unit"] = sum(
+            sass.get(k) == v for k, v in ref_sass.items())
+        rec[f"{variant}_registers_equal_one_unit"] = sum(
+            regs.get(k) == v for k, v in ref_regs.items())
+    rec["kernels"] = len(ref_sass)
+    emit(rec)
 
 
 def dev_run(phases) -> None:
@@ -8873,11 +9799,15 @@ def dev_run(phases) -> None:
         guarded_phase(dev, flush)
     if "lowp_state" in phases:
         lowp_state_phase(dev, flush)
+    if "ft_loop" in phases:
+        ft_loop_phase(dev, flush)
     del flush
     if "sharded" in phases:
         sharded_phase()
     elif set(phases) & set(GLOO_STAGES):
         sharded_phase(only=tuple(p for p in GLOO_STAGES if p in phases))
+    if "elastic" in phases:
+        elastic_phase(dev)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8887,6 +9817,8 @@ def dev_run(phases) -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--one-device-gap"]:
         one_device_gap()
+    elif sys.argv[1:] == ["--build-study"]:
+        build_study()
     elif len(sys.argv) == 3 and sys.argv[1] == "--phases":
         dev_run(tuple(p for p in sys.argv[2].split(",") if p))
     else:

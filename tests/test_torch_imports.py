@@ -52,7 +52,12 @@ def test_every_module_imports_without_jax():
               "ops.custom_ops", "inference.predict_factory", "robustness",
               "robustness.sanitize", "robustness.policy",
               "robustness.quarantine", "utils.profiling",
-              "parallel.train_pipeline", "parallel.sharding.hier"):
+              "parallel.train_pipeline", "parallel.sharding.hier",
+              "checkpoint", "parallel.dynamic_sharding",
+              "obs.flight_recorder", "dynamic", "dynamic.tcp_kv",
+              "reliability", "reliability.fault_injection",
+              "reliability.train_loop", "reliability.elastic",
+              "reliability.elastic_demo", "convert"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

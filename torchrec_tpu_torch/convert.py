@@ -62,6 +62,12 @@ model-major (chunk ``m * R + r`` of ``M * R`` on rank ``(r, m)``), and
 keeps data-parallel groups whole.  :func:`train_states_to_jax` puts every
 rank's state back into the global layout.  Full tables cross through the
 sharded collection's ``params_from_tables(weights, rank=...)``.
+A checkpoint crosses too: :func:`checkpoint_payload_from_jax` turns the
+numpy payload the JAX ``Checkpointer._read_payload`` returns into the
+port's payload (``checkpoint.py``; the dense params by the port's names,
+the ``optax.adagrad`` leaves in their order), which
+``Checkpointer.save_payload`` writes and ``restore`` reads as any port
+checkpoint; :func:`checkpoint_payload_to_jax` goes back.
 Everything here is numpy and torch; nothing imports JAX.
 """
 
@@ -520,3 +526,96 @@ def sequence_train_state_to_jax(state: Mapping[str, Any],
         "mu": flax_params_from_state_dict(opt["mu"], num_heads),
         "nu": flax_params_from_state_dict(opt["nu"], num_heads)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints (``checkpoint.py``'s payload)
+# ---------------------------------------------------------------------------
+
+
+def _host_tensor(arr: Any) -> torch.Tensor:
+    """A numpy leaf as a host tensor of its own dtype (bfloat16 numpy
+    arrays widen to float32 exactly, then narrow back)."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        return _to_tensor(a, torch.bfloat16, "cpu")
+    return torch.from_numpy(np.array(a, order="C"))
+
+
+def _host_numpy(t: Any) -> np.ndarray:
+    """A host tensor as float32 numpy (bfloat16 widens exactly; cast back
+    on the JAX side), other dtypes kept."""
+    t = torch.as_tensor(t).detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return np.array(t.numpy())
+
+
+def _adagrad_leaves(n_dense: int, n_leaves: int) -> None:
+    if n_dense != n_leaves:
+        raise NotImplementedError(
+            f"{n_leaves} dense optimizer leaves for {n_dense} dense "
+            "parameters: only an optax.adagrad state (one sum_of_squares "
+            "a parameter, the port's Adagrad) crosses")
+
+
+def checkpoint_payload_from_jax(payload: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX checkpoint's payload (the numpy dict that
+    ``torchrec_tpu.checkpoint.Checkpointer._read_payload`` returns) ->
+    the port's payload (``checkpoint.py``): per-table weights and the
+    fused states and per-table slots in their own dtypes, the dense
+    params by the port's names (:func:`state_dict_from_flax`), the
+    ``optax.adagrad`` ``sum_of_squares`` leaves in the same order
+    (:func:`dense_leaves_from_flax_order`), the step counters as ints.
+    Write it with ``Checkpointer.save_payload`` and restore it as any
+    port checkpoint."""
+    dense = state_dict_from_flax(payload["dense"])
+    flat = payload["dense_opt_leaves"]
+    _adagrad_leaves(len(dense), len(flat))
+    sos = dense_leaves_from_flax_order([flat[k] for k in sorted(flat)],
+                                       dense)
+    fused_tables = {
+        t: ({k: int(np.asarray(v)) for k, v in slots.items()}
+            if t == "__scalars__"
+            else {k: _host_tensor(v) for k, v in slots.items()})
+        for t, slots in payload.get("fused_tables", {}).items()}
+    out = {
+        "tables": {k: _host_tensor(v) for k, v in payload["tables"].items()},
+        "dense": dense,
+        "dense_opt_leaves": {f"{i:05d}": sos[k]
+                             for i, k in enumerate(dense)},
+        "fused": {g: {k: int(np.asarray(v)) if k == "step"
+                      else _host_tensor(v) for k, v in st.items()}
+                  for g, st in payload["fused"].items()},
+        "step": int(np.asarray(payload["step"])),
+    }
+    if fused_tables:
+        out["fused_tables"] = fused_tables
+    return out
+
+
+def checkpoint_payload_to_jax(payload: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`checkpoint_payload_from_jax`: the JAX payload's
+    keys and layouts (float32 arrays, bfloat16 widened; ``step`` int32;
+    the ``__scalars__`` counters float64, as the JAX package stores
+    them), ready for the JAX ``Checkpointer``'s writer."""
+    dense = dict(payload["dense"])
+    flat = payload["dense_opt_leaves"]
+    _adagrad_leaves(len(dense), len(flat))
+    sos = dict(zip(dense, (flat[k] for k in sorted(flat))))
+    return {
+        "tables": {k: _host_numpy(v) for k, v in payload["tables"].items()},
+        "dense": flax_params_from_state_dict(dense),
+        "dense_opt_leaves": {
+            f"{i:05d}": leaf
+            for i, leaf in enumerate(dense_leaves_to_flax_order(sos))},
+        "fused": {g: {k: np.int32(v) if k == "step" else _host_numpy(v)
+                      for k, v in st.items()}
+                  for g, st in payload["fused"].items()},
+        "fused_tables": {
+            t: ({k: np.array(float(v)) for k, v in slots.items()}
+                if t == "__scalars__"
+                else {k: _host_numpy(v) for k, v in slots.items()})
+            for t, slots in payload["fused_tables"].items()},
+        "step": np.array(np.int32(payload["step"])),
+    }

@@ -650,6 +650,49 @@ const void* kernel_for(int optim, int layout) {
   }
 }
 
+// The instantiations are compiled in parts, one (table type, state type)
+// pair a translation unit, which ops/_native.py builds in parallel and links
+// into one library.  TRTPU_TYPE_PAIRS is the one list of the pairs,
+// numbered from 0; ops/_native.py counts its entries for the parts.  A
+// source compiled with -DTRTPU_PART=k defines the k-th pair's
+// kernel_for<T, S, PER_ID>(optim, layout) and with it every kernel of that
+// pair (TRTPU_INSTANTIATE_PART); compiled without it, the source takes them
+// as declared below (extern template: not instantiated there) and holds the
+// entry points.  The kernels' code is the same either way.
+#define TRTPU_TYPE_PAIRS(X)            \
+  X(0, float, float)                   \
+  X(1, float, __nv_bfloat16)           \
+  X(2, float, __half)                  \
+  X(3, __nv_bfloat16, float)           \
+  X(4, __nv_bfloat16, __nv_bfloat16)   \
+  X(5, __nv_bfloat16, __half)
+
+template <int K>
+struct TypePair;  // the K-th pair of TRTPU_TYPE_PAIRS
+#define TRTPU_PAIR(K, T, S) \
+  template <>               \
+  struct TypePair<K> {      \
+    using Table = T;        \
+    using State = S;        \
+  };
+TRTPU_TYPE_PAIRS(TRTPU_PAIR)
+#undef TRTPU_PAIR
+
+#ifdef TRTPU_PART
+#define TRTPU_INSTANTIATE_PART(PER_ID)                              \
+  namespace bwd {                                                   \
+  template const void* kernel_for<TypePair<TRTPU_PART>::Table,      \
+                                  TypePair<TRTPU_PART>::State,      \
+                                  PER_ID>(int, int);                \
+  }
+#else
+#define TRTPU_EXTERN_PAIR(K, T, S)                                 \
+  extern template const void* kernel_for<T, S, true>(int, int);  \
+  extern template const void* kernel_for<T, S, false>(int, int);
+TRTPU_TYPE_PAIRS(TRTPU_EXTERN_PAIR)
+#undef TRTPU_EXTERN_PAIR
+#endif
+
 template <typename T, bool PER_ID>
 const void* kernel_for_state(int optim, int sdtype, int layout) {
   switch (sdtype) {

@@ -74,6 +74,11 @@
 
 using namespace bwd;
 
+#ifdef TRTPU_PART
+// a part: one (table, state) type pair's kernels (backward_common.cuh)
+TRTPU_INSTANTIATE_PART(true)
+#else
+
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 =
@@ -110,3 +115,4 @@ int fused_update_info(int optim, int dtype, int sdtype, int D, int V,
 }
 
 }  // extern "C"
+#endif  // TRTPU_PART

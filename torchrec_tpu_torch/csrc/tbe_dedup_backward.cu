@@ -67,6 +67,11 @@
 
 using namespace bwd;
 
+#ifdef TRTPU_PART
+// a part: one (table, state) type pair's kernels (backward_common.cuh)
+TRTPU_INSTANTIATE_PART(false)
+#else
+
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 =
@@ -104,3 +109,4 @@ int dedup_fused_update_info(int optim, int dtype, int sdtype, int D, int V,
 }
 
 }  // extern "C"
+#endif  // TRTPU_PART

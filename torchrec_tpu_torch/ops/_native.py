@@ -3,9 +3,14 @@
 Each ``.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, at first use, into
 ``torchrec_tpu_torch/csrc/build/`` (git-ignored), and loaded with
-``ctypes``.  The library name carries a hash of the source and of the
-``.cuh`` headers beside it, so an edited source never loads a stale
-build.  Nothing here runs at import time: the
+``ctypes``.  The two backward sources (:data:`SPLIT_SOURCES`) hold 120
+kernel instantiations each; they are compiled as parts, one ``nvcc -c`` for
+the entry points and one for each (table type, state type) pair of
+instantiations (``-DTRTPU_PART=k``, ``csrc/backward_common.cuh``'s
+``TRTPU_TYPE_PAIRS``), all started together with the other builds, then
+linked into the one library.  The library name carries a hash of the
+source and of the ``.cuh`` headers beside it, so an edited source never
+loads a stale build.  Nothing here runs at import time: the
 CPU tests import every module on a machine with no ``nvcc``.
 
 Every kernel wrapper counts its launches here, in :data:`LAUNCHES`.
@@ -28,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,6 +54,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# the sources built in parts, one a (table, state) type pair of
+# backward_common.cuh (:func:`type_pairs`) and one for the entry points
+SPLIT_SOURCES = ("tbe_backward.cu", "tbe_dedup_backward.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -170,22 +179,44 @@ def _library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
-def _build_command(source: str, out: str) -> list:
-    """nvcc for a kernel source, g++ for a libtorch-linked one."""
+def type_pairs() -> int:
+    """The number of entries of ``backward_common.cuh``'s
+    ``TRTPU_TYPE_PAIRS``, the one list of the backward kernels' (table,
+    state) type pairs: a split source's parts."""
+    with open(os.path.join(CSRC_DIR, "backward_common.cuh")) as f:
+        text = f.read()
+    body = re.search(r"#define TRTPU_TYPE_PAIRS\(X\)((?:.*\\\n)*.*)", text)
+    return len(re.findall(r"\bX\(\d+,", body.group(1)))
+
+
+def _build_commands(source: str, out: str) -> Tuple[list, list]:
+    """(the compiles, run together, the link after them or none) that build
+    ``source`` into ``out``: nvcc for a kernel source, in parts for one of
+    :data:`SPLIT_SOURCES`; g++ for a libtorch-linked one."""
     src = os.path.join(CSRC_DIR, source)
     if source in TORCH_SOURCES:
         compile_flags, link_flags = _torch_flags()
-        return [CXX, *compile_flags, "-o", out, src, *link_flags]
-    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+        return [[CXX, *compile_flags, "-o", out, src, *link_flags]], []
+    if source not in SPLIT_SOURCES:
+        return [[_nvcc(), *NVCC_FLAGS, "-o", out, src]], []
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    parts = type_pairs()
+    objs = [f"{out}.{k}.o" for k in range(parts + 1)]
+    compiles = [[_nvcc(), *flags, "-c", "-o", objs[0], src]] + [
+        [_nvcc(), *flags, "-c", f"-DTRTPU_PART={k}", "-o", objs[k + 1], src]
+        for k in range(parts)]
+    return compiles, [_nvcc(), "-shared", "-o", out, *objs]
 
 
 def load_libraries(sources: Sequence[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
-    """Compile the ``csrc/`` sources that have no current build, one
-    compiler per source (``nvcc`` for a kernel, ``g++`` for a
-    :data:`TORCH_SOURCES` one), all started together, then load each
-    library with every entry point's ``argtypes``/``restype`` declared
-    (loading ``torch_ops.cpp`` registers its operators).  Returns source
-    -> library; raises after every build has ended if one failed."""
+    """Compile the ``csrc/`` sources that have no current build, every
+    compiler process (``nvcc`` for a kernel source or one part of a split
+    one, ``g++`` for a :data:`TORCH_SOURCES` one) started together, a split
+    source linked once its parts are done, then load each library with
+    every entry point's ``argtypes``/``restype`` declared (loading
+    ``torch_ops.cpp`` registers its operators).  Returns source -> library;
+    raises after every build has ended if one failed.  A source's
+    ``BUILD_INFO`` seconds run from the start to its library."""
     with _LOCK:
         todo = [s for s in sources if s not in _LIBS]
         paths = {s: _library_path(s) for s in todo}
@@ -195,25 +226,41 @@ def load_libraries(sources: Sequence[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
                 BUILD_INFO[s] = {"seconds": 0.0, "log": ""}
         # every compiler is found (or its absence raises) before anything
         # is written or started
-        cmds = {s: _build_command(s, f"{paths[s]}.{os.getpid()}.tmp")
-                for s in missing}
+        tmps = {s: f"{paths[s]}.{os.getpid()}.tmp" for s in missing}
+        cmds = {s: _build_commands(s, tmps[s]) for s in missing}
         if missing:
             os.makedirs(BUILD_DIR, exist_ok=True)
-        builds = {}
-        for s, cmd in cmds.items():
-            tmp = f"{paths[s]}.{os.getpid()}.tmp"
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            builds[s] = (proc, tmp, time.perf_counter(), cmd[0])
+        t0 = time.perf_counter()
+        procs = {s: [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for c in compiles]
+                 for s, (compiles, _) in cmds.items()}
         failed = []
-        for s, (proc, tmp, t0, compiler) in builds.items():
-            log, _ = proc.communicate()
-            BUILD_INFO[s] = {"seconds": time.perf_counter() - t0, "log": log}
-            if proc.returncode != 0:
-                failed.append(f"{os.path.basename(compiler)} failed on {s} "
-                              f"(exit {proc.returncode}):\n{log}")
-            else:
-                os.replace(tmp, paths[s])
+        for s, running in procs.items():
+            logs, ok = [], True
+            for proc in running:
+                log, _ = proc.communicate()
+                logs.append(log)
+                if proc.returncode != 0:
+                    ok = False
+                    failed.append(f"{os.path.basename(proc.args[0])} failed "
+                                  f"on {s} (exit {proc.returncode}):\n{log}")
+            link = cmds[s][1]
+            if ok and link:
+                done = subprocess.run(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                logs.append(done.stdout)
+                if done.returncode != 0:
+                    ok = False
+                    failed.append(f"nvcc failed linking {s} (exit "
+                                  f"{done.returncode}):\n{done.stdout}")
+                for obj in link[4:]:
+                    if os.path.exists(obj):
+                        os.remove(obj)
+            BUILD_INFO[s] = {"seconds": time.perf_counter() - t0,
+                             "log": "".join(logs)}
+            if ok:
+                os.replace(tmps[s], paths[s])
         if failed:
             raise RuntimeError("\n".join(failed))
         for s in todo:

@@ -49,14 +49,20 @@ once to nearest, as the Pallas kernel does with the switch off.
 :func:`stochastic_round_to_bf16` is the JAX function's contract over a
 ``torch.Generator``.  Left out: the ``dedup=False`` option of
 ``apply_sparse_update``.
+
+:func:`recording_row_writes` lets an undo log (``reliability.
+train_loop.StepUndoLog``) see every fused update before it runs: each
+log's ``before_update(table, state, ids, valid)`` is called with the
+rows the update may write, so it can keep their old values.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -73,6 +79,22 @@ from torchrec_tpu_torch.ops.tbe_backward import (
 )
 
 State = Dict[str, Union[torch.Tensor, int]]
+
+# the undo logs recording_row_writes installed, told of every update
+_ROW_LOGS: List = []
+
+
+@contextlib.contextmanager
+def recording_row_writes(log):
+    """Within the block, every fused update first calls
+    ``log.before_update(table, state, ids, valid)``: ``ids`` the table's
+    rows it may write where ``valid`` (others untouched), ``state`` the
+    optimizer state it updates in place with them."""
+    _ROW_LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _ROW_LOGS.remove(log)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,6 +332,8 @@ def apply_sparse_update(
     ``(table, state)``, the inputs themselves (``step`` advanced for the
     Adam family)."""
     R = table.shape[0]
+    for log in _ROW_LOGS:
+        log.before_update(table, state, ids, valid)
     rows, grads = aggregate_duplicate_rows(ids, valid & (ids >= 0),
                                            row_grads.to(torch.float32))
     keep = rows < R
@@ -343,6 +367,8 @@ def apply_sparse_update_segments(
     nothing).  With ``config.stochastic_rounding`` off no seed is passed.
     Returns ``(table, state)``, the inputs themselves."""
     require_kernel(update_kernel)
+    for log in _ROW_LOGS:
+        log.before_update(table, state, sg.ids, sg.valid)
     lr = config.learning_rate if learning_rate is None else learning_rate
     seed = _sr_seed(config, table, sr_seed)
     step, hyp = _adam_hypers(config, state)

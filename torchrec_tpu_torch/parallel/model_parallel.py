@@ -85,8 +85,21 @@ rows ``dedup_overflow`` counts too; on a flat env the same plan runs the
 flat dists.  Every step takes a variable-batch KJT with inverse indices
 (``parallel/embeddingbag.py``).
 
-Left out: dense rematerialisation and the row IO helpers
-(``reset_table_rows`` and the rest, ROADMAP A9).
+The row-state surface reads and writes table rows and their per-row
+optimizer slots in the live state, in place on the device (index writes
+and gathers on the stacks): :meth:`~DistributedModelParallel.
+reset_table_rows`, :meth:`~DistributedModelParallel.set_table_rows`,
+:meth:`~DistributedModelParallel.gather_row_state` and
+:meth:`~DistributedModelParallel.scatter_row_state`.  Each rank writes only
+the rows it holds (a row another rank owns is skipped there);
+``gather_row_state`` is a collective.  :meth:`~DistributedModelParallel.
+gather_group_state` gathers every rank's stacks and fused states into the
+JAX package's global group layout (the checkpoint's and the reshard's),
+:meth:`~DistributedModelParallel.local_fused_state` takes a rank's share
+of fused states back out of it, and ``_fused_struct`` gives the layout's
+slot shapes.
+
+Left out: dense rematerialisation.
 """
 
 from __future__ import annotations
@@ -414,6 +427,195 @@ class DistributedModelParallel:
             state["tables"][name].copy_(t)
         return state
 
+    # -- the global group layout (checkpoint, reshard) --------------------
+
+    def _fused_struct(self) -> Dict[str, Dict[str, Tuple[int, ...]]]:
+        """Every group's fused-state slot shapes in the global layout (a
+        sharded group's ranks concatenated, ``world_size`` times its
+        rows), ``()`` for a scalar (the Adam family's ``step``): what
+        ``Checkpointer`` holds a checkpoint's ``fused`` entry to.  Nothing
+        is allocated."""
+        ebc = self.sharded_ebc
+        fused = ebc.init_fused_state(self.fused_config, "meta")
+        N = self.env.world_size
+        out = {}
+        for name, st in fused.items():
+            n = 1 if name in ebc.dp_groups else N
+            out[name] = {k: ((n * v.shape[0],) + tuple(v.shape[1:])
+                             if isinstance(v, torch.Tensor) else ())
+                         for k, v in st.items()}
+        return out
+
+    def _model_rank_groups(self, groups: Mapping[str, Any],
+                           replica_mean: bool = True) -> Dict[str, Any]:
+        """The model rank's whole group stacks (or fused states) from this
+        process's share: the share itself here (``DMPCollection``: the
+        replicas' mean or replica 0's copy, or the slices gathered)."""
+        return dict(groups)
+
+    def gather_group_state(
+        self, state: State, replica_mean: bool = True
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Dict[str, Any]]]:
+        """(tables, fused) in the JAX package's global group layout: each
+        sharded group's stack and fused arrays of every rank,
+        concatenated in rank order; a data-parallel group's as they are;
+        scalars as they are.  Under 2D parallelism the model rank's copy
+        is the replicas' mean (``replica_mean``) or replica 0's.  A
+        collective: every rank calls it, and every rank gets the whole."""
+        ebc, env = self.sharded_ebc, self.env
+        tables = self._model_rank_groups(state["tables"], replica_mean)
+        fused = self._model_rank_groups(state["fused"], replica_mean)
+
+        def whole(name, x):
+            if (name in ebc.dp_groups or not isinstance(x, torch.Tensor)
+                    or x.dim() == 0):
+                return x
+            return all_gather(x, env).flatten(0, 1)
+
+        return ({n: whole(n, t) for n, t in tables.items()},
+                {n: {k: whole(n, v) for k, v in st.items()}
+                 for n, st in fused.items()})
+
+    def local_fused_state(self, fused: Mapping[str, Mapping]
+                          ) -> Dict[str, Dict[str, Any]]:
+        """This process's share of global-layout fused states (numpy or
+        tensors, :meth:`gather_group_state`'s), on the device: each array
+        in the dtype the optimizer's state takes, a scalar as an int."""
+        ebc, r = self.sharded_ebc, self.env.rank
+        zero = ebc.init_fused_state(self.fused_config, "meta")
+
+        def mine(name, key, x):
+            if not hasattr(x, "shape") or len(x.shape) == 0:
+                return int(x)
+            t = torch.as_tensor(x)
+            if name not in ebc.dp_groups:
+                L = ebc.local_rows(name)
+                t = t[r * L:(r + 1) * L]
+            return t.to(self.device, zero[name][key].dtype,
+                        copy=True).contiguous()
+
+        return self._local_share({n: {k: mine(n, k, v) for k, v in st.items()}
+                                  for n, st in fused.items()})
+
+    # -- the row-state surface ---------------------------------------------
+
+    def _tile_stack_rows(self, name: str, stack_rows: np.ndarray,
+                         which: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Rows of the model rank's stack of group ``name`` -> (the rows of
+        this process's share that hold them, which of the request they
+        are): every one here (``DMPCollection`` FULLY_SHARDED keeps those
+        in its slice)."""
+        return stack_rows, which
+
+    def _row_owners_env(self) -> ShardingEnv:
+        """The ranks among which each row of a sharded group is held once:
+        the model group (``DMPCollection`` FULLY_SHARDED: every rank)."""
+        return self.env
+
+    def _rows_here(self, table: str, rows) -> Tuple[str, torch.Tensor,
+                                                    np.ndarray]:
+        """(group, this process's stack rows holding ``table``'s ``rows``
+        as a device index, which of ``rows`` they are): one entry per
+        column shard; rows other ranks hold are left out."""
+        rows = np.ascontiguousarray(rows, np.int64)
+        name, stack_rows, which = self.sharded_ebc.stack_rows_for_table(
+            table, rows, rank=self.env.rank)
+        stack_rows, which = self._tile_stack_rows(name, stack_rows, which)
+        return (name, torch.as_tensor(stack_rows, dtype=torch.int64,
+                                      device=self.device), which)
+
+    def reset_table_rows(self, state: State, table: str, rows) -> State:
+        """Zero a table's rows in the live train state, in place (ZCH
+        eviction and ITEP pruning reset rows so), every column shard this
+        process holds."""
+        name, idx, _ = self._rows_here(table, rows)
+        if idx.numel():
+            state["tables"][name].index_fill_(0, idx, 0.0)
+        return state
+
+    def _single_column_shard(self, table: str, what: str) -> None:
+        ps = self.plan.get(table)
+        if ps is not None and ps.num_col_shards != 1:
+            raise ValueError(f"{what} needs a single-column-shard plan for "
+                             f"{table}; got {ps.num_col_shards} column "
+                             "shards")
+
+    def set_table_rows(self, state: State, table: str, rows,
+                       values) -> State:
+        """Write a table's rows (``values`` ``[k, D]``, numpy or a tensor)
+        into the live train state, in place (the parameter-server restore
+        path); each process writes the rows it holds.  A single column
+        shard only."""
+        self._single_column_shard(table, "set_table_rows")
+        rows = np.ascontiguousarray(rows, np.int64)
+        name, idx, which = self._rows_here(table, rows)
+        if idx.numel():
+            t = state["tables"][name]
+            vals = torch.as_tensor(values).reshape(rows.size, -1)
+            t.index_copy_(0, idx, vals[torch.as_tensor(which)].to(
+                t.device, t.dtype))
+        return state
+
+    def gather_row_state(self, state: State, table: str, rows,
+                         opt_slots: Optional[Mapping[str, int]] = None
+                         ) -> np.ndarray:
+        """A table's rows and their per-row fused slots as one packed
+        float32 host array ``[k, D + sum of widths]``; ``opt_slots`` is the
+        ordered slot -> width map, the packing :meth:`scatter_row_state`
+        inverts.  Each row comes from the rank that holds it (summed over
+        ranks: a collective at more than one rank; under REPLICATED each
+        replica's own copy, under FULLY_SHARDED the slice that holds it).
+        A single column shard only."""
+        self._single_column_shard(table, "gather_row_state")
+        rows = np.ascontiguousarray(rows, np.int64)
+        k = rows.size
+        name, idx, which = self._rows_here(table, rows)
+        D = {c.name: c.embedding_dim for c in self.tables}[table]
+        widths = dict(opt_slots or {})
+        out = torch.zeros((k, D + sum(widths.values())), dtype=torch.float32,
+                          device=self.device)
+        w = torch.as_tensor(which, dtype=torch.int64, device=self.device)
+        cols = [state["tables"][name].index_select(0, idx).float()]
+        for slot, width in widths.items():
+            full = state["fused"][name][slot]
+            per_row = full[0].numel() if full.shape[0] else width
+            if per_row != width:
+                raise ValueError(f"fused slot {slot} of {table}: width "
+                                 f"{per_row} != declared {width}")
+            cols.append(full.index_select(0, idx).float().reshape(
+                idx.numel(), width))
+        out.index_copy_(0, w, torch.cat(cols, dim=1))
+        owners = self._row_owners_env()
+        if name not in self.sharded_ebc.dp_groups and owners.world_size > 1:
+            out = all_reduce_sum(out, owners, tag="row_state:all_reduce")
+        return out.cpu().numpy()
+
+    def scatter_row_state(self, state: State, table: str, rows, packed,
+                          opt_slots: Optional[Mapping[str, int]] = None
+                          ) -> State:
+        """Inverse of :meth:`gather_row_state`: write packed ``[k, D +
+        widths]`` rows (weights, then each slot) into the live train
+        state, in place; each process writes the rows it holds."""
+        self._single_column_shard(table, "scatter_row_state")
+        rows = np.ascontiguousarray(rows, np.int64)
+        name, idx, which = self._rows_here(table, rows)
+        if not idx.numel():
+            return state
+        D = {c.name: c.embedding_dim for c in self.tables}[table]
+        p = torch.as_tensor(np.ascontiguousarray(packed, np.float32)
+                            ).reshape(rows.size, -1)[torch.as_tensor(which)]
+        p = p.to(self.device)
+        t = state["tables"][name]
+        t.index_copy_(0, idx, p[:, :D].to(t.dtype))
+        off = D
+        for slot, width in (opt_slots or {}).items():
+            s = state["fused"][name][slot]
+            v = p[:, off:off + width].reshape((idx.numel(),)
+                                              + tuple(s.shape[1:]))
+            s.index_copy_(0, idx, v.to(s.dtype))
+            off += width
+        return state
+
     # -- train step --------------------------------------------------------
 
     def _seed_ranks(self) -> Tuple[int, int]:
@@ -696,6 +898,46 @@ class DMPCollection(DistributedModelParallel):
         return {name: ({k: cut(name, v) for k, v in g.items()}
                        if isinstance(g, dict) else cut(name, g))
                 for name, g in groups.items()}
+
+    def _model_rank_groups(self, groups, replica_mean=True):
+        """REPLICATED: every table and fused array averaged over the
+        replicas (a rank-order float32 sum / R, cast back: the JAX
+        checkpoint's replica mean), or replica 0's copy; FULLY_SHARDED:
+        each sharded group's slices gathered over the replicas.  A
+        collective over the replica group."""
+        R = self.env.num_replicas
+        if R == 1:
+            return dict(groups)
+        dp = self.sharded_ebc.dp_groups
+        renv = self.env.replica_env
+
+        def one(name, x):
+            if not isinstance(x, torch.Tensor) or x.dim() == 0:
+                return x
+            if self._is_fully_sharded:
+                return x if name in dp else self._gather_slices(name, x)
+            if replica_mean:
+                s = all_reduce_sum(x.to(torch.float32), renv,
+                                   tag="replica_mean")
+                return (s / R).to(x.dtype)
+            return all_gather(x, renv)[0]
+
+        return {n: ({k: one(n, v) for k, v in g.items()}
+                    if isinstance(g, dict) else one(n, g))
+                for n, g in groups.items()}
+
+    def _tile_stack_rows(self, name, stack_rows, which):
+        """FULLY_SHARDED: the rows in this process's slice of a sharded
+        group, as rows of the slice."""
+        if not self._is_fully_sharded or name in self.sharded_ebc.dp_groups:
+            return stack_rows, which
+        n = self.sharded_ebc.local_rows(name) // self.env.num_replicas
+        lo = self.env.replica_rank * n
+        keep = (stack_rows >= lo) & (stack_rows < lo + n)
+        return stack_rows[keep] - lo, which[keep]
+
+    def _row_owners_env(self):
+        return self.env.global_env if self._is_fully_sharded else self.env
 
     def _gather_slices(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """A sharded group's whole stack from every replica's slice (an

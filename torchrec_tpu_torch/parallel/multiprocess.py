@@ -14,6 +14,10 @@ launches on one host never meet on a store.  :func:`replica_model_groups`
 builds the model and replica groups of a 2D world (``DMPCollection``), and
 the slice (ICI) and cross-slice (DCN) groups of a two-level world (the JAX
 package's ``create_two_level_mesh``), which have the same shape.
+:func:`_worker_env` is a spawned worker's environment, shared with
+``reliability.ElasticSupervisor``, which starts its workers as scripts and
+holds each generation's store the same way, and ``_BIND_FAILURE_RE`` the
+signature of a store that could not bind, which its exit classifier reads.
 
 Left out: ``SyncedCollisionCollection`` (ROADMAP A10) and
 ``make_global_batch`` (each rank feeds its own batch).
@@ -26,7 +30,7 @@ import os
 import queue as queue_mod
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +44,13 @@ _ENV_PID = "TORCHREC_MP_PROCESS_ID"
 
 # a collective that waits longer than this on another rank raises
 _TIMEOUT_S = 300.0
+
+# a store-bind failure in a worker's output: an infrastructure loss (the
+# port was taken), not the worker's own fault
+_BIND_FAILURE_RE = (
+    r"(address (is )?already in use|failed to bind|bind .*failed|"
+    r"errno 98|EADDRINUSE)"
+)
 
 
 def initialize(
@@ -125,6 +136,25 @@ def allgather_host(x: np.ndarray) -> np.ndarray:
     out = t.new_empty(n * t.numel())  # gloo gathers along dim 0 only
     dist.all_gather_into_tensor(out, t.reshape(-1))
     return out.view((n,) + tuple(t.shape)).cpu().numpy()
+
+
+def _worker_env(
+    num_processes: int,
+    pid: int,
+    port: int,
+    env_extra: Optional[Dict[str, str]] = None,
+) -> Dict[str, str]:
+    """The environment of one worker started as a script: the ambient
+    environment, the ``TORCHREC_MP_*`` topology (the store at
+    ``127.0.0.1:port``, held by the launching process) and
+    ``env_extra``."""
+    env = dict(os.environ)
+    env.update({_ENV_COORD: f"127.0.0.1:{port}",
+                _ENV_NPROC: str(num_processes),
+                _ENV_PID: str(pid)})
+    if env_extra:
+        env.update(env_extra)
+    return env
 
 
 def _worker(fn, rank, num_processes, port, args, results) -> None:
