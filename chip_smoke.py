@@ -210,9 +210,9 @@ Phases, one JSON line each on stdout; any failure raises:
    on the card (``torch.export``, then an AOTInductor package compiled
    with no table inside) -> ``NativeInferenceServer`` (the C++ executor
    loop on the native queue behind the C++ TCP front end), one arm a
-   lookup kernel: int8 on B3 (tables capped at 5,000,000 rows, the
-   headline), int4 on B5, BF16 on B1 (``lookup_kernel="tbe"``) and on B4
-   (``"dedup"``), the last three capped at 1,000,000 rows.  Each arm:
+   lookup kernel: int8 on B3, int4 on B5, BF16 on B1
+   (``lookup_kernel="tbe"``) and on B4 (``"dedup"``), every arm's tables
+   capped at 100,000 rows.  Each arm:
    ``model.pt2``'s graph holds each group's ``trt::`` operators (B1 and
    B4: one a feature) and nothing else reads a table; the package is
    under 64 MiB and its mutating operators write one buffer with no copy
@@ -233,11 +233,12 @@ Phases, one JSON line each on stdout; any failure raises:
    ``EmbeddingBagCollection`` and ``DistributedModelParallel(env=...)``)
    at the width of phase 3, B=4096 per rank.  Four ranks on the one card
    over gloo (``multiprocess.launch``: spawned after the parent built
-   every kernel), each on ``cuda:0``, for six plans: table-wise
-   round-robin, column-wise in 2 shards, row-wise, table-row-wise over
-   nodes of 2 ranks, row-wise + table-wise + column-wise + 2
-   data-parallel tables, and the port's planner's plan at world 4
-   (``planned``, which adds each rank's ``make_forward`` ``torch.equal``
+   every kernel), each on ``cuda:0``, for four plans (``SHARDED_PLANS``):
+   table-wise round-robin, table-row-wise over nodes of 2 ranks,
+   row-wise + table-wise + column-wise (in 2 shards) + 2 data-parallel
+   tables, and the port's planner's plan at world 4, every table
+   row-wise (``planned``, which adds each rank's ``make_forward``
+   ``torch.equal``
    to the one-device forward of its batch, and one step with rank 0's
    batch over capacity whose ``id_overflow``, summed over ranks, equals
    the one-device counts).  Per plan and rank: the KT of its one-id batch
@@ -249,11 +250,11 @@ Phases, one JSON line each on stdout; any failure raises:
    added in rank order); on the table-wise plan the dedup kernels' KT
    (B4) ``torch.equal`` to B1's; B1 (over the rank's received regions)
    and B2 (from the step's real gradient) ``torch.equal`` to their plain
-   versions and their card-alone times, ranks in turns; 1 warm-up and 5
+   versions and their card-alone times, ranks in turns; 1 warm-up and 3
    timed steps (ms a step, each rank's B1 and B2 launches at least one a
    step and nothing else, the wire bytes a step from the ledger); the
    trained tables, gathered by ``table_weights``, ``np.array_equal`` to a
-   one-device DMP's after the same 6 steps on the global batches, its
+   one-device DMP's after the same 4 steps on the global batches, its
    dense part run over the ranks' micro-batches (``one_device_run``), and
    the losses within ``PLAIN_LOSS_RTOL`` of the plain one-device
    ``train_step``'s on the global batches (its tables part from the
@@ -281,7 +282,8 @@ Phases, one JSON line each on stdout; any failure raises:
    replicas' forwards equal, the losses within ``PLAIN_LOSS_RTOL`` of the
    plain one-device step and the tables ``np.array_equal`` to the
    micro-batched one-device run), and ``sharded_ec`` (the sharded
-   ``EmbeddingCollection`` on tw, rw and mixed over a 1-4 id sequence
+   ``EmbeddingCollection`` on the mixed plan (row-, table- and
+   column-wise groups and 2 data-parallel tables) over a 1-4 id sequence
    batch: rows ``torch.equal`` to the unsharded collection's with
    ``index_dedup`` off and on, an update launching only B6, B6 equal to
    its plain version at each group's shapes, the tables after 3 steps
@@ -347,13 +349,14 @@ Phases, one JSON line each on stdout; any failure raises:
    ``QuantEmbeddingBagCollection`` built under ``pallas_dedup`` looks up
    through B5 alone).  The sharded launch adds, after ``dedup_rw``,
    ``vbe`` (budget ``VBE_BUDGET_S``: 13 features at full stride and 13 at
-   stride 1,024 with inverse indices, plans tw, rw, rw_dedup, twrw, dp,
-   mixed: the KT ``torch.equal`` to the unsharded collection's VBE
+   stride 1,024 with inverse indices, plans rw_dedup, twrw and mixed
+   (whose groups are rw, tw, cw and dp): the KT ``torch.equal`` to the
+   unsharded collection's VBE
    forward and to the expanded batch's, multi-hot within 1e-5 off TW/DP,
    two VBE steps ``torch.equal``, the tables within rtol 1e-5 / atol 1e-6
    of the expanded batch's step, the fused updates ``torch.equal`` to
    plain) and ``hier`` (budget ``HIER_BUDGET_S``: the ranks as 2 slices x
-   2, plans rw_dedup, twrw and mixed two-level against flat; see
+   2, plans twrw and mixed two-level against flat; see
    :func:`hier_stage`).
 15. ft_loop (after models; budget ``FT_BUDGET_S``) — the fault-tolerant
    loop (``reliability/train_loop.py``) over ``TrainPipelineSparseDist`` at
@@ -373,6 +376,24 @@ Phases, one JSON line each on stdout; any failure raises:
    sharded launch ends with the ``reshard`` stage (budget
    ``RESHARD_BUDGET_S``; :func:`reshard_stage`) and the parent's world-1
    ``restore_elastic`` of its checkpoint.
+17. tiered (after elastic; budget ``TIERED_BUDGET_S``) — MLPerf DLRM-v2
+   (``DLRM_DCN``, train_dcn's widths and optimizer, B = 8192) trained
+   with its five 40M-row tables host-cached: the planner's
+   FUSED_HOST_CACHED plan (cache load factor 0.2: 1,000,000 cache rows
+   over 5,000,000 packed host rows a table), ``tiered_tables_from_plan``,
+   ``TieredCollection`` and ``TieredTrainPipeline`` on B4/B6, prefetch on
+   and off, each ``torch.equal`` to the all-device bucketed run in every
+   loss and every logical row and Adagrad slot; the synchronous
+   ``host_offload`` arm (B1/B2) ``torch.equal`` to the all-device step;
+   B4/B6 against plain at the cache stack; the loop arm (a NaN skip, and
+   drain + checkpoint + resume) at 100,000 rows; see
+   :func:`tiered_phase`.
+18. migrate (last; budget ``MIGRATE_BUDGET_S``) — ``migration_demo``'s
+   recipe at bench widths on 2 gloo ranks sharing the card: the drift
+   alarms the health monitor and the migrator flips the big table RW ->
+   DP with no committed step lost, its state equal to a clean restart's
+   under the new plan, no alert in a clean arm, and one supervised
+   ``kill_mid_reshard`` drill; see :func:`migrate_phase`.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
@@ -389,12 +410,13 @@ tables would not fit the run); the dense weights are random from a seed;
 the serving tier's BF16/FP16 rows are drawn from a seeded generator in
 their own dtype, and its kernel checks cap the tables at 5,000,000 rows
 (a float32 copy of the full BF16 tables, 104.5 GB, cannot be held); the
-native serving arms cap the MLPerf DLRM-v2 tables at 5,000,000 rows for
-int8 (29,184,588 rows: 3.74 GB of codes plus scale/bias, which
-``package_model`` writes, ``export_native`` saves again in ``model.pt2``
-and the server reads back, all on the machine's disk inside the phase's
-budget) and at 1,000,000 rows for int4 and BF16, and their float rows are
-drawn on the card from a seeded generator before ``package_model``
+native serving arms cap the MLPerf DLRM-v2 tables at 100,000 rows, the
+bench's row count (921,198 rows: ``package_model`` writes them,
+``export_native`` saves them again in ``model.pt2`` and the server reads
+them back, all on the machine's disk inside the whole run's time limit;
+the widths, the 26 features and their multi-hot caps stay), and their
+float rows
+are drawn on the card from a seeded generator before ``package_model``
 quantizes them.
 """
 
@@ -437,18 +459,19 @@ KERNEL_PATHS = {
                       "split", "qcomms", "dmp2d_replicated",
                       "dmp2d_fully_sharded", "models", "serving_tier",
                       "guarded", "dedup_rw", "ft_loop", "elastic",
-                      "reshard"],
+                      "reshard", "tiered", "migrate"],
     "fused_sparse_update": ["train", "train_dcn", "app", "sharded", "split",
                             "qcomms", "dmp2d_replicated",
                             "dmp2d_fully_sharded", "models", "dedup_rw",
-                            "ft_loop", "elastic", "reshard"],
+                            "ft_loop", "elastic", "reshard", "tiered",
+                            "migrate"],
     "quant_pooled_lookup_int8": ["serving", "serving_tier"],
     "dedup_quant_pooled_lookup": ["serving", "serving_tier"],
     "dedup_pooled_lookup": ["train_dedup", "ebc", "serving_tier",
-                            "guarded", "dedup_rw", "ft_loop"],
+                            "guarded", "dedup_rw", "ft_loop", "tiered"],
     "dedup_fused_sparse_update": ["train_dedup", "sharded_ec", "seq",
                                   "seq_sharded", "guarded", "dedup_rw",
-                                  "ft_loop"],
+                                  "ft_loop", "tiered"],
 }
 REPLACES = {
     "pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:287",
@@ -495,7 +518,7 @@ DEDUP_ZIPF_IDS = 1.0
 BUCKETING = {"floor": 8, "growth": 2.0, "max_programs": 8}
 ARM_STEPS = 3
 # the plain versions of the fused updates walk a Zipf-hot row slot by slot
-PLAIN_RUNS = 3
+PLAIN_RUNS = 1
 # MLPerf DLRM-v2 training (DLRM_DCN, train_dcn): the row cap of the main
 # path and of the kernel rows and arms of the other optimizers, the
 # recipe's per-card batch, cross net and learning rate
@@ -760,20 +783,28 @@ def build_trainer(dev, table_dtype, model_fn=None):
     return dmp, state, batches
 
 
-def _b1_bound(R, D, esize, ids, segs, w, S):
-    """Bytes and flops the pooled lookup must move / do on these inputs:
-    each distinct valid row once, each slot's id, segment and weight
-    once, the output once; a multiply and an add per valid slot and
-    column."""
+def _b1_bytes(R, D, esize, ids, segs, w, S):
+    """The bytes the pooled lookup must move on these inputs, by part:
+    each distinct valid row once, each valid slot's id, segment and
+    weight once (a padding slot needs no read), the output once.
+    Returns (distinct rows, valid slots, {part: bytes})."""
     import torch
 
     valid = segs < S
     U = int(torch.unique(ids.clamp(0, R - 1)[valid]).numel())
-    nbytes = (U * D * esize
-              + ids.numel() * (ids.element_size() + segs.element_size()
-                               + w.element_size())
-              + S * D * esize)
-    return U, nbytes, 2 * int(valid.sum()) * D
+    n = int(valid.sum())
+    return U, n, {"rows": U * D * esize,
+                  "slots": n * (ids.element_size() + segs.element_size()
+                                + w.element_size()),
+                  "output": S * D * esize}
+
+
+def _b1_bound(R, D, esize, ids, segs, w, S):
+    """Bytes and flops the pooled lookup must move / do on these inputs
+    (:func:`_b1_bytes`); a multiply and an add per valid slot and
+    column."""
+    U, n, parts = _b1_bytes(R, D, esize, ids, segs, w, S)
+    return U, sum(parts.values()), 2 * n * D
 
 
 def _bound(nbytes, flops):
@@ -785,10 +816,11 @@ def _bound(nbytes, flops):
 
 def _update_bound(D, esize, sg, optim, state_esize=4):
     """Bytes and operations a fused update must move / do on these
-    inputs: each referenced gradient row once, each slot's id, flag,
-    segment and weight once, each touched table row and its optimizer
-    state (``state_esize`` bytes an element) read and written once (no
-    weight without weights: the per-id segments); per kept slot a
+    inputs: each referenced gradient row once, each kept slot's id,
+    flag, segment and weight once (a padding or dropped slot needs no
+    read), each touched table row and its optimizer state
+    (``state_esize`` bytes an element) read and written once (no weight
+    without weights: the per-id segments); per kept slot a
     multiply and an add per column, per touched row
     ``UPDATE_OPS_PER_COLUMN`` per column."""
     import torch
@@ -798,7 +830,7 @@ def _update_bound(D, esize, sg, optim, state_esize=4):
     ok = sg.ok() & (sg.ids >= 0)
     U = int(torch.unique(sg.ids[ok]).numel())
     n_seg = int(torch.unique(sg.segments[ok]).numel())
-    V = sg.ids.numel()
+    V = int(ok.sum())
     state_bytes = sum(state_esize * (1 if kind == "row" else D)
                       for kind in STATE_LAYOUTS[optim])
     nbytes = (n_seg * D * 4
@@ -806,7 +838,7 @@ def _update_bound(D, esize, sg, optim, state_esize=4):
                      + (0 if sg.weights is None
                         else sg.weights.element_size()))
               + U * 2 * (D * esize + state_bytes))
-    flops = 2 * int(ok.sum()) * D + UPDATE_OPS_PER_COLUMN[optim] * U * D
+    flops = 2 * V * D + UPDATE_OPS_PER_COLUMN[optim] * U * D
     return U, nbytes, flops
 
 
@@ -916,8 +948,9 @@ def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
     on ``stack`` and ``states`` and undone on the touched rows after
     every call: ``torch.equal`` on the touched rows of the stack and every
     state, nothing written elsewhere (checksums), times (the kernel also
-    of the card alone), bound, registers and grid.  Returns the emitted
-    record."""
+    of the card alone), bound, registers and grid.  The plain version is
+    timed by CUDA events around the one call the check makes (seconds a
+    call at Zipf ids).  Returns the emitted record."""
     import torch
 
     from torchrec_tpu_torch.ops import tbe_backward
@@ -936,7 +969,13 @@ def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
     torch.cuda.synchronize()
     got = snap.take()
     kernel_intact = snap.intact()
+    p0, p1 = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+    p0.record()
     _update_call(tbe_backward.fused_sparse_update_plain, *args)
+    p1.record()
+    torch.cuda.synchronize()
+    plain_once_ms = p0.elapsed_time(p1)
     ref = snap.take()
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(got, ref))
@@ -981,9 +1020,7 @@ def b2_row(flush, phase, stack, states, optim, sg, lr, seed, common):
         "kernel_ms": cuda_ms(launch, flush, setup=snap.restore),
         "kernel_device_ms": cuda_ms(launch, flush, setup=snap.restore,
                                     device_only=True),
-        "plain_ms": cuda_ms(lambda: _update_call(
-            tbe_backward.fused_sparse_update_plain, *args), flush,
-            runs=PLAIN_RUNS, warmup=1, setup=snap.restore),
+        "plain_ms": plain_once_ms,
         "library_ms": None,
         "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -1129,11 +1166,13 @@ def b4_row(flush, phase, stack, ids, segs, w, S, common):
     def kernel():
         return tbe.launch_dedup_pooled(stack, *prep)
 
-    U, nbytes, flops = _b1_bound(R, D, stack.element_size(), ids, segs,
-                                 w, S)
+    U, n_valid, parts = _b1_bytes(R, D, stack.element_size(), ids, segs,
+                                  w, S)
+    nbytes, flops = sum(parts.values()), 2 * n_valid * D
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {
         "phase": phase, "kernel": "dedup_pooled_lookup",
+        "bytes_by_part": parts,
         **common, "distinct": U, "peak_bytes": peak,
         "out_bytes": out_bytes, "prep_peak_bytes": prep_peak,
         "wrapper_syncs": False, "equal": True, "max_abs_err": err,
@@ -1838,7 +1877,9 @@ def b6_row(flush, stack, optim, sg, seed, gen, common, phase="dedup_kernel",
     its own copy of ``stack`` and of random states: ``torch.equal`` on the
     whole stack and every state, times (the kernel also of the card
     alone), bound, registers and grid, emitted as ``phase`` at the fused
-    lr ``lr``.  Returns the emitted record."""
+    lr ``lr``.  The plain version is timed by CUDA events around the one
+    call the check makes (seconds a call at Zipf ids).  Returns the
+    emitted record."""
     import torch
 
     from torchrec_tpu_torch.ops import tbe_backward
@@ -1862,7 +1903,13 @@ def b6_row(flush, stack, optim, sg, seed, gen, common, phase="dedup_kernel",
     tbe_backward.dedup_fused_sparse_update(tk, sk, *upd, **kw)
     torch.cuda.synchronize()
     tp, sp = stack.clone(), [s.clone() for s in states]
+    p0, p1 = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+    p0.record()
     tbe_backward.dedup_fused_sparse_update_plain(tp, sp, *upd, **kw)
+    p1.record()
+    p1.synchronize()
+    plain_once_ms = p0.elapsed_time(p1)
     err = max([float((tk.float() - tp.float()).abs().max())]
               + [float((a - b).abs().max()) for a, b in zip(sk, sp)])
     equal = bool(torch.equal(tk, tp)) and all(
@@ -1912,10 +1959,7 @@ def b6_row(flush, stack, optim, sg, seed, gen, common, phase="dedup_kernel",
         "kernel_ms": cuda_ms(launch, flush, setup=restore),
         "kernel_device_ms": cuda_ms(launch, flush, setup=restore,
                                     device_only=True),
-        "plain_ms": cuda_ms(
-            lambda: tbe_backward.dedup_fused_sparse_update_plain(
-                tk, sk, *upd, **kw),
-            flush, runs=PLAIN_RUNS, warmup=1, setup=restore),
+        "plain_ms": plain_once_ms,
         "library_ms": None,
         "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -2307,27 +2351,42 @@ def guarded_kernel_check(dmp, state, batch, flush):
     return recs
 
 
-def _update_kernels_profiled(call):
-    """The pooled and fused-update kernels one ``call`` launches, by a
-    profile: pooled kernels by wrapper, B2 and B6 told apart by the
-    update kernel's ``PER_ID`` template argument (true for B2)."""
+def _device_kernel_names(call, window=None):
+    """The names of the device events of one ``call``, by a profile.  The
+    window closes on a marker kernel launched after the call has
+    synchronized, so that the call's last kernels are never the window's
+    last records.  ``window``, a dict, gets the window's event count and
+    its last names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    marker = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
+        marker.add_(1.0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if window is not None:
+        window.update(device_events=len(names),
+                      last=[n[:60] for n in names[-6:]])
+    return names
+
+
+def _update_kernels_profiled(call):
+    """The pooled and fused-update kernels one ``call`` launches, by a
+    profile: pooled kernels by wrapper, B2 and B6 told apart by the
+    update kernel's ``PER_ID`` template argument (true for B2)."""
     out, names = {}, set()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for name in _device_kernel_names(call):
         for kname, wrapper in POOLED_KERNEL_NAMES.items():
-            if kname in e.name:
+            if kname in name:
                 out[wrapper] = out.get(wrapper, 0) + 1
-        if UPDATE_KERNEL_NAME in e.name:
-            names.add(e.name.split("(")[0])
-            per_id = "true>" in e.name.split("(")[0]
+        if UPDATE_KERNEL_NAME in name:
+            names.add(name.split("(")[0])
+            per_id = "true>" in name.split("(")[0]
             k = "fused_sparse_update" if per_id else \
                 "dedup_fused_sparse_update"
             out[k] = out.get(k, 0) + 1
@@ -5070,16 +5129,15 @@ def serving_tier_phase(dev):
 # ---------------------------------------------------------------------------
 
 NATIVE_SERVING_BUDGET_S = 360
-NATIVE_ROW_CAP = 5_000_000  # the int8 arm: train_dcn's cap (29,184,588 rows)
-NATIVE_ARM_ROW_CAP = 1_000_000  # the int4 and BF16 arms
+NATIVE_ROW_CAP = 100_000  # every arm's tables (the run's time limit)
 # (quant dtype, lookup kernel, row cap, one group's operators (B1 and B4:
 # one call a feature)); every arm's package serves SERVING_BATCH
 NATIVE_ARMS = (
     ("int8", None, NATIVE_ROW_CAP, ("q8_pooled",)),
-    ("int4", None, NATIVE_ARM_ROW_CAP,
+    ("int4", None, NATIVE_ROW_CAP,
      ("dedup_q_keys", "dedup_q_gather", "dedup_q_pool")),
-    ("bf16", "tbe", NATIVE_ARM_ROW_CAP, ("tbe_pooled",)),
-    ("bf16", "dedup", NATIVE_ARM_ROW_CAP, ("dedup_pooled",)),
+    ("bf16", "tbe", NATIVE_ROW_CAP, ("tbe_pooled",)),
+    ("bf16", "dedup", NATIVE_ROW_CAP, ("dedup_pooled",)),
 )
 NATIVE_PACKAGE_LIMIT = 64 * 2**20  # a package this small holds no table
 NATIVE_PEAK_SLACK = 2**30  # the native server's peak above its constants
@@ -5598,6 +5656,9 @@ def app_phase(dev):
     card = nvidia_smi_line()
     t_phase = time.perf_counter()
     flags = APP_FLAGS + ["--device", dev.type]
+    # an earlier phase's cyclic garbage, freed by a collection during the
+    # run, would take its bytes off the run's peak over the base
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -5629,7 +5690,7 @@ def app_phase(dev):
            "peak_memory_allocated": peak,
            "planner_hbm_estimate_bytes": planner.stats.per_rank_hbm[0],
            "planner_hbm_estimate_over_peak": (
-               planner.stats.per_rank_hbm[0] / peak),
+               planner.stats.per_rank_hbm[0] / peak if peak > 0 else None),
            "planner_step_estimate_ms": est_perf.total * 1e3,
            "planner_step_estimate_parts_ms": {
                k: v * 1e3 for k, v in dataclasses.asdict(est_perf).items()},
@@ -5694,8 +5755,9 @@ def app_phase(dev):
 # ---------------------------------------------------------------------------
 
 SHARDED_RANKS = 4
-SHARDED_STEPS = 5  # timed, after one warm-up step
-SHARDED_PLANS = ("tw", "cw", "rw", "twrw", "mixed", "planned")
+SHARDED_STEPS = 3  # timed, after one warm-up step (the run's time limit)
+# column-wise runs inside "mixed" (the run's time limit took its own plan)
+SHARDED_PLANS = ("tw", "twrw", "mixed", "planned")  # rw: in mixed, planned
 SHARDED_TIMEOUT = 600
 ONE_CARD = "4 ranks on one card over gloo: not a multi-GPU figure"
 # the sharded losses against the plain one-device train_step's: measured
@@ -5997,17 +6059,10 @@ def sharded_kernel_check(dmp, state, batch, flush):
     return recs
 
 
-def _profiled_kernels(call):
-    """B1's and B2's device launches in one ``call``, by a profile."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+def _profiled_kernels(call, window=None):
+    """B1's and B2's device launches in one ``call``, by a profile
+    (:func:`_device_kernel_names`)."""
+    names = _device_kernel_names(call, window)
     return {"pooled_lookup": sum("tbe_pooled_kernel" in n for n in names),
             "fused_sparse_update": sum("fused_update_kernel" in n
                                        for n in names)}
@@ -6144,10 +6199,13 @@ def sharded_rank(kinds, device_type="cuda", only=None, ckpt_dir=None):
         # the barrier keeps rank 0's table check (seconds) out of the
         # other ranks' profiling windows, which then hold the step alone
         torch.distributed.barrier()
-        profiled = _profiled_kernels(lambda: dmp.train_step(state, mine[0]))
+        window = {}
+        profiled = _profiled_kernels(lambda: dmp.train_step(state, mine[0]),
+                                     window)
         if not (profiled["pooled_lookup"] and
                 profiled["fused_sparse_update"]):
-            raise AssertionError(f"{kind} rank {r}: profiled {profiled}")
+            raise AssertionError(f"{kind} rank {r}: profiled {profiled}; "
+                                 f"window {window}")
         stages["profile_s"] = time.perf_counter() - t0 - sum(stages.values())
         if kind == "planned":
             planned.update(planned_overflow_check(dmp, state, mine[1], env,
@@ -6234,7 +6292,7 @@ STAGE_BUDGETS = {"all_reduce": 15, "split": 20, "chunked_a2a": 15,
                  "dmp2d_fully_sharded": 60, "sharded_ec": 90}
 DMP2D_REPLICAS = 2
 DMP2D_SYNC_INTERVAL = 2
-EC_PLANS = ("tw", "rw", "mixed")
+EC_PLANS = ("mixed",)  # its groups are tw, rw, cw and dp
 EC_MAX_IDS = 4  # ids a sequence example, 1 to 4, Zipf(1.0) ids
 EC_STEPS = 3
 CHUNKS = (2, 8)
@@ -6754,8 +6812,9 @@ def _ec_reference(dev, tables, weights, plan, kjts, cfg):
 
 def sharded_ec_stage(dev, env):
     """The sharded ``EmbeddingCollection`` over the 26 bench tables
-    (100,000 x 128, float32, rowwise Adagrad) on plans tw, rw and mixed
-    (with 2 data-parallel tables), a multi-hot sequence batch a rank
+    (100,000 x 128, float32, rowwise Adagrad) on the mixed plan (its
+    groups row-, table- and column-wise and 2 data-parallel tables), a
+    multi-hot sequence batch a rank
     (:func:`_ec_batches`): per feature the rows ``torch.equal`` to the
     unsharded ``EmbeddingCollection``'s with ``index_dedup`` off and on;
     one update launches B6 and nothing else, and B6 ``torch.equal`` to its
@@ -6906,7 +6965,7 @@ def sharded_stages(dev, env, caps, host, mine, refs):
 # -- the dedup'd row-wise dist across the 4 ranks, in the same launch -------
 
 DEDUP_RW_BUDGET_S = 60
-DEDUP_RW_STEPS = 6  # every table row-wise: dedup'd against plain
+DEDUP_RW_STEPS = 4  # every table row-wise: dedup'd against plain
 DEDUP_MIXED_STEPS = 3  # the mixed plan, guarded against unguarded
 # tests/test_dedup_lookup.py:316-323, the JAX package's dedup-vs-plain bound
 DEDUP_RW_RTOL, DEDUP_RW_ATOL = 1e-5, 1e-6
@@ -7523,7 +7582,8 @@ def dedup_rw_stage(dev, env, caps, mine, ebc, flush):
 # -- variable-batch (VBE) KJTs through the sharded collection, 4 ranks ------
 
 VBE_BUDGET_S = 30
-VBE_PLANS = ("tw", "rw", "rw_dedup", "twrw", "dp", "mixed")
+# table- and row-wise run inside "mixed" (the run's time limit)
+VBE_PLANS = ("rw_dedup", "twrw", "mixed")  # dp: in mixed
 VBE_REDUCED = 13  # the last 13 features: one row per 4 examples
 VBE_SHARE = 4  # examples sharing a reduced row (a request's candidates)
 
@@ -7732,8 +7792,9 @@ def vbe_stage(dev, env, caps, mine, ebc, mh):
 
 HIER_BUDGET_S = 60
 HIER_SLICES = 2
-HIER_STEPS = 3
-HIER_PLANS = ("rw_dedup", "twrw", "mixed")
+HIER_STEPS = 2  # trained steps held to flat (the run's time limit)
+# row-wise dedup runs inside "mixed" (the run's time limit)
+HIER_PLANS = ("twrw", "mixed")
 # the two-level plans' hier_factor: at 1 the DCN request buffer is the
 # exactness bound, L * features * send cap rows a destination slice, the
 # same bytes the flat dist sends across slices; 2 halves it, and the
@@ -9431,6 +9492,989 @@ def elastic_phase(dev):
             for k in result["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase tiered: MLPerf DLRM-v2 trained with its five largest tables
+# host-cached (tiered storage)
+# ---------------------------------------------------------------------------
+
+TIERED_BUDGET_S = 150
+# the tables' rows are train_dcn's cut: the all-device oracle holds the
+# same tables on the card, and the host tier initialises in the budget
+TIERED_ROW_CAP = DCN_ROW_CAP
+TIERED_CLF = 0.2  # the host-cached tables' cache load factor
+TIERED_STEPS = 20  # timed, after one warm-up step
+TIERED_PROFILED = 2  # profiled steps of the prefetch run, after its check
+TIERED_OFFLOAD_STEPS = 3  # the synchronous host_offload arm
+TIERED_INIT_BLOCK = 1 << 16  # rows of one seeded init block
+TIERED_SEED = 23
+TIERED_ZIPF_SEED = 29
+# the loop arm: the same tables cut to fewer rows, a smaller batch
+TIERED_LOOP_ROW_CAP = 100_000
+TIERED_LOOP_BATCH = 512
+TIERED_LOOP_BATCHES = 12
+TIERED_LOOP_NAN = 2  # the step call the NaN injector poisons
+TIERED_LOOP_EVERY = 3  # applied steps between the loop's checkpoints
+
+
+def _mem_available_bytes():
+    """The host's available memory (``/proc/meminfo``), or None."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def tiered_names():
+    """(keys, capped rows, multi-hot sizes, the host-cached keys): the
+    MLPerf DLRM-v2 tables of ``TIERED_ROW_CAP`` rows, the five 40M-row
+    tables host-cached."""
+    from torchrec_tpu_torch.datasets.criteo import (
+        DEFAULT_CAT_NAMES,
+        MLPERF_DLRM_V2_MULTI_HOT,
+        MLPERF_DLRM_V2_ROWS,
+    )
+
+    big = max(MLPERF_DLRM_V2_ROWS)
+    cached = [k for k, r in zip(DEFAULT_CAT_NAMES, MLPERF_DLRM_V2_ROWS)
+              if r == big]
+    return (list(DEFAULT_CAT_NAMES), list(MLPERF_DLRM_V2_ROWS),
+            list(MLPERF_DLRM_V2_MULTI_HOT), cached)
+
+
+def tiered_batches(row_cap, batch, n, seed=TIERED_ZIPF_SEED):
+    """``n`` host batches of the fixed multi-hot stream over the tables
+    capped at ``row_cap`` (four base batches, cycled), the host-cached
+    keys' ids drawn afresh each batch Zipf(1.1) (``zipf_ids``) so that
+    the cache has a hot set; returns (keys, rows, caps, batches)."""
+    import dataclasses
+
+    import torch
+
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset
+
+    keys, rows, hot, cached = tiered_names()
+    rows = [min(r, row_cap) for r in rows]
+    ds = RandomRecDataset(keys, batch, rows, hot, num_dense=NUM_DENSE,
+                          manual_seed=0, min_ids_per_features=hot)
+    it = iter(ds)
+    base = [next(it) for _ in range(min(n, TRAIN_BATCHES))]
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        b = base[i % len(base)]
+        kjt = b.sparse_features
+        values = kjt.values().numpy().copy()
+        lens = kjt.lengths().numpy()
+        lo, co = kjt._length_offsets(), kjt.cap_offsets()
+        for f, k in enumerate(keys):
+            if k in cached:
+                m = int(lens[lo[f]:lo[f + 1]].sum())
+                values[co[f]:co[f] + m] = zipf_ids(rng, m, rows[f])
+        out.append(dataclasses.replace(b, sparse_features=kjt.with_values(
+            torch.from_numpy(values).to(kjt.values().dtype))))
+    return keys, rows, ds.caps, out
+
+
+def tier_init(dev, t, rows):
+    """The seeded init of table index ``t`` of ``rows`` rows: ``(start,
+    end) -> [end - start, DIM]`` float32 on ``dev``, uniform in
+    +-1/sqrt(rows), a pure function of (seed, table, row): each block of
+    ``TIERED_INIT_BLOCK`` rows draws from its own generator on the card,
+    so the host tier (in parallel chunks) and the all-device tables get
+    the same rows."""
+    import torch
+
+    scale = 1.0 / float(np.sqrt(rows))
+
+    def block(b):
+        g = torch.Generator(device=dev).manual_seed(
+            TIERED_SEED * 1_000_003 + t * 10_007 + b)
+        n = min(TIERED_INIT_BLOCK, rows - b * TIERED_INIT_BLOCK)
+        return (torch.rand((n, DIM), generator=g, device=dev) * 2 - 1) * scale
+
+    def rows_of(s, e):
+        b0, b1 = s // TIERED_INIT_BLOCK, (e - 1) // TIERED_INIT_BLOCK
+        parts = torch.cat([block(b) for b in range(b0, b1 + 1)])
+        off = b0 * TIERED_INIT_BLOCK
+        return parts[s - off:e - off]
+
+    return rows_of
+
+
+def tiered_plan(tables, cached_names, batch):
+    """The planner's plan at world 1 (and the cache load factors it
+    chose): the host-cached tables TABLE_WISE with the FUSED_HOST_CACHED
+    kernel, the others TABLE_WISE on the card.  The planner scales caches
+    into the card memory left over, which at the capped rows holds the
+    whole tables; the cached entries are pinned to ``TIERED_CLF``, the
+    MLPerf configuration's factor."""
+    import dataclasses
+
+    from torchrec_tpu_torch.parallel.planner import (
+        EmbeddingShardingPlanner,
+        ParameterConstraints,
+    )
+    from torchrec_tpu_torch.parallel.types import (
+        EmbeddingComputeKernel,
+        ShardingType,
+    )
+
+    _, _, hot, _ = tiered_names()
+    constraints = {}
+    for cfg, h in zip(tables, hot):
+        cached = cfg.name in cached_names
+        constraints[cfg.name] = ParameterConstraints(
+            sharding_types=[ShardingType.TABLE_WISE],
+            compute_kernels=[EmbeddingComputeKernel.FUSED_HOST_CACHED
+                             if cached else EmbeddingComputeKernel.FUSED],
+            cache_load_factor=TIERED_CLF if cached else None,
+            pooling_factor=float(h))
+    plan = EmbeddingShardingPlanner(
+        world_size=1, constraints=constraints,
+        batch_size_per_device=batch).plan(tables)
+    chosen = {t: plan[t].cache_load_factor for t in cached_names}
+    for t in cached_names:
+        plan[t] = dataclasses.replace(plan[t], cache_load_factor=TIERED_CLF)
+    return plan, chosen
+
+
+def _dcn_dmp(dev, tables, plan, batch, caps, kernels=("tbe", "tbe")):
+    """``DistributedModelParallel`` of ``DLRM_DCN`` at the recipe's widths
+    (train_dcn's model and optimizer: per-element Adagrad, lr 0.004) over
+    ``tables`` under ``plan``, and a fresh state."""
+    import torch
+
+    from torchrec_tpu_torch.models.dlrm import DLRM_DCN
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        FusedOptimConfig,
+    )
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+
+    torch.manual_seed(0)
+    model = DLRM_DCN(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+                     DCN_LAYERS, DCN_RANK, dense_dtype=torch.bfloat16)
+    dmp = DistributedModelParallel(
+        model, tables, plan, batch, caps,
+        fused_config=FusedOptimConfig(optim=EmbOptimType.ADAGRAD,
+                                      learning_rate=DCN_LR, eps=EPS),
+        dense_optimizer=adagrad(DCN_LR), device=dev,
+        lookup_kernel=kernels[0], update_kernel=kernels[1])
+    return dmp, dmp.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def _table_views(dmp, state):
+    """Per table: (weights, momentum) views of the group stacks."""
+    ebc = dmp.sharded_ebc
+    w = ebc.tables_to_weights(state["tables"])
+    m = ebc.tables_to_weights({g: s["momentum"]
+                               for g, s in state["fused"].items()})
+    return {t: (w[t], m[t]) for t in w}
+
+
+def _reset_state(dmp, state, inits, dense0, skip=()):
+    """Put ``state`` back to the phase's start: every table but ``skip``
+    from its seeded init, the slots zero, the dense parameters
+    ``dense0``, a fresh dense optimizer state, step 0 (in place)."""
+    import torch
+
+    for t, (w, m) in _table_views(dmp, state).items():
+        m.zero_()
+        if t in skip:
+            continue
+        for s in range(0, w.shape[0], 1 << 20):
+            e = min(s + (1 << 20), w.shape[0])
+            w[s:e].copy_(inits[t](s, e))
+    state["dense"] = {k: v.clone() for k, v in dense0.items()}
+    state["dense_opt"] = dmp.dense_tx.init(state["dense"])
+    state["step"] = 0
+    if dmp.device.type == "cuda":
+        torch.cuda.synchronize()
+    return state
+
+
+def _dense_equal(a, b):
+    import torch
+
+    return all(torch.equal(a["dense"][k], b["dense"][k]) for k in a["dense"])
+
+
+def _logical_equal(coll, dmp, state, ref_dmp, ref_state, chunk=1 << 20):
+    """Each host-cached table's logical rows (the host tier after the
+    cache's rows were written back to it) ``torch.equal`` to the
+    all-device run's weights and Adagrad slots, chunk by chunk on the
+    card; the other tables' weights and slots ``torch.equal`` too."""
+    import torch
+
+    coll.sync_to_host(dmp, state)
+    coll.flush()
+    ref = _table_views(ref_dmp, ref_state)
+    mine = _table_views(dmp, state)
+    bad = []
+    for t, tbl in coll.tables.items():
+        rw, rm = ref[t]
+        D = tbl.embedding_dim
+        for s in range(0, tbl.num_embeddings, chunk):
+            e = min(s + chunk, tbl.num_embeddings)
+            # the RAM tier's rows in place (a contiguous slice), copied to
+            # the card once
+            host = torch.from_numpy(tbl.store.array[s:e]).to(rw.device)
+            if not (torch.equal(host[:, :D], rw[s:e])
+                    and torch.equal(host[:, D:], rm[s:e])):
+                bad.append(t)
+                break
+    for t, (w, m) in mine.items():
+        if t not in coll.tables and not (torch.equal(w, ref[t][0])
+                                         and torch.equal(m, ref[t][1])):
+            bad.append(t)
+    return bad
+
+
+class _IoMeter:
+    """Wraps a tiered collection's remap and IO: host seconds of each,
+    the last remapped batch group (the kernels' check inputs), and the
+    fetches of ids written back by an earlier step (the stream must
+    fetch rows right after their eviction for the check to see a stale
+    write-back)."""
+
+    def __init__(self, coll):
+        self.remap_s = self.io_s = 0.0
+        self.refetched = 0
+        self.written = {t: set() for t in coll.tables}
+        self.last_kjts = None
+        process, apply_io = coll.process_group, coll.apply_io
+
+        def timed_process(kjts):
+            t0 = time.perf_counter()
+            out = process(kjts)
+            self.remap_s += time.perf_counter() - t0
+            self.last_kjts = out[0]
+            return out
+
+        def timed_apply(dmp, state, ios, staged=None):
+            for t, io in ios.items():
+                seen = self.written[t]
+                self.refetched += len(seen.intersection(
+                    io.fetch_logical.tolist()))
+                seen.update(io.writeback_logical.tolist())
+            t0 = time.perf_counter()
+            out = apply_io(dmp, state, ios, staged=staged)
+            self.io_s += time.perf_counter() - t0
+            return out
+
+        coll.process_group, coll.apply_io = timed_process, timed_apply
+
+
+def _host_inits(inits, names):
+    """The host tiers' ``init_fn``s: the seeded rows, on the host."""
+    return {t: (lambda s, e, f=inits[t]: f(s, e).cpu().numpy())
+            for t in names}
+
+
+def _tiered_run(dev, dmp, state, tables, names_to_keys, inits, dense0,
+                batches, prefetch, card, refill):
+    """One tiered run over ``tables`` (``tiered_tables_from_plan``'s, their
+    host tiers at the seeded init; ``refill``: an earlier run's, filled
+    again in place first, which spares the host the page faults of a new
+    25.6 GB): ``TieredTrainPipeline`` over the batches (1 warm-up and
+    ``TIERED_STEPS`` timed steps).  Returns (the pipeline, its
+    collection, the meter, losses, timed seconds, launch counts, host
+    tier refill seconds)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.tiered import (
+        TieredCollection,
+        TieredTrainPipeline,
+    )
+
+    _reset_state(dmp, state, inits, dense0, skip=set(names_to_keys))
+    t0 = time.perf_counter()
+    if refill:
+        host_inits = _host_inits(inits, names_to_keys)
+        for t, tbl in tables.items():
+            tbl._init_rows(tbl.store.array, host_inits[t], 0)
+    for tbl in tables.values():
+        tbl.reset_cache()
+    init_s = time.perf_counter() - t0
+    coll = TieredCollection(tables, {k: t for t, k in names_to_keys.items()})
+    meter = _IoMeter(coll)
+    pipe = TieredTrainPipeline(dmp, state, coll, _tiered_bucketing(),
+                               prefetch=prefetch)
+    it = iter(batches[:1 + TIERED_STEPS])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tbe.reset_launch_counts()
+    warm, _ = _pipeline_steps(pipe, it, 1)
+    losses, dt = _pipeline_steps(pipe, it, TIERED_STEPS)
+    counts = tbe.launch_counts()
+    return pipe, coll, meter, warm + losses, dt, counts, init_s
+
+
+def _tiered_bucketing():
+    from torchrec_tpu_torch.parallel.train_pipeline import BucketingConfig
+
+    return BucketingConfig(**BUCKETING,
+                           kernels={"pooled": "dedup", "update": "dedup"})
+
+
+def tiered_offload_arm(dev, full, full_state, cache, cstate, inits, dense0,
+                       names_to_keys, batches, logical_rows, cache_rows,
+                       card, weights):
+    """The synchronous ``host_offload`` path as ``bench.py``'s tiered mode
+    runs it: per batch the remap, the write-back and the fill in front of
+    the DMP's own step (B1 and B2) over the cache tables, against the
+    all-device DMP's step on the same batches, its host tables
+    ``weights`` (the tiered host tiers' weight columns, seeded, which it
+    only reads).  No eviction happens in ``TIERED_OFFLOAD_STEPS`` steps
+    (the caches hold every id drawn), so the weights-only path must give
+    the same losses, rows, slots and dense parameters (``torch.equal``).
+    Returns (record, launches)."""
+    import dataclasses
+
+    import torch
+
+    from torchrec_tpu_torch.modules.host_offload import (
+        HostOffloadedCollection,
+        HostOffloadedTable,
+    )
+    from torchrec_tpu_torch.ops import tbe
+
+    n = TIERED_OFFLOAD_STEPS
+    _reset_state(full, full_state, inits, dense0)
+    _reset_state(cache, cstate, inits, dense0, skip=set(names_to_keys))
+    ref_losses = []
+    for b in batches[:n]:
+        full_state, m = full.train_step(full_state, b.to(dev))
+        ref_losses.append(float(m["loss"]))
+    hoc = HostOffloadedCollection(
+        {t: HostOffloadedTable(t, logical_rows[t], DIM, cache_rows[t],
+                               storage=weights[t])
+         for t in names_to_keys},
+        {k: t for t, k in names_to_keys.items()})
+    fetched = {t: {} for t in names_to_keys}
+    evicted = 0
+    tbe.reset_launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches[:n]:
+        kjt, ios = hoc.process(b.sparse_features)
+        for t, io in ios.items():
+            fetched[t].update(zip(io.fetch_logical.tolist(),
+                                  io.fetch_slots.tolist()))
+            evicted += len(io.writeback_slots)
+        cstate = hoc.apply_io(cache, cstate, ios)
+        cstate, m = cache.train_step(
+            cstate, dataclasses.replace(b, sparse_features=kjt).to(dev))
+        losses.append(m["loss"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = tbe.launch_counts()
+    losses = [float(x) for x in losses]
+    bad = []
+    for t, pairs in fetched.items():
+        ids = np.fromiter(pairs.keys(), np.int64, len(pairs))
+        slots = np.fromiter(pairs.values(), np.int64, len(pairs))
+        slot_cols = {"momentum": DIM}
+        got = cache.gather_row_state_tensor(cstate, t, slots, slot_cols)
+        want = full.gather_row_state_tensor(full_state, t, ids, slot_cols)
+        if not torch.equal(got, want):
+            bad.append(t)
+    views, ref = _table_views(cache, cstate), _table_views(full, full_state)
+    bad += [t for t, (w, m) in views.items() if t not in names_to_keys
+            and not (torch.equal(w, ref[t][0]) and torch.equal(m, ref[t][1]))]
+    rec = {"phase": "tiered_offload", "card": card, "steps": n,
+           "batch": DCN_BATCH,
+           "ms_per_step": dt * 1e3 / n, "samples_per_s": n * DCN_BATCH / dt,
+           "losses": losses, "reference_losses": ref_losses,
+           "evicted_rows": evicted,
+           "fetched_rows": {t: len(p) for t, p in fetched.items()},
+           "launches": {k: v for k, v in counts.items() if v},
+           "mismatched_tables": bad, "dense_equal": _dense_equal(cstate,
+                                                                 full_state)}
+    emit(rec)
+    want = {"pooled_lookup": n, "fused_sparse_update": n}
+    if (losses != ref_losses or bad or not rec["dense_equal"] or evicted
+            or rec["launches"] != want):
+        raise AssertionError(f"tiered host_offload arm failed: {rec}")
+    del hoc
+    return rec, counts
+
+
+def tiered_loop_arm(dev, tmp, card):
+    """The fault-tolerant loop over the tiered pipeline at
+    ``TIERED_LOOP_ROW_CAP`` rows and ``TIERED_LOOP_BATCH`` a batch: (1) a
+    ``NaNInjectingStep`` skip (the loop's undo log, recorded after the
+    step's fills, undoes the step) leaves the same state as an
+    uninterrupted run over the stream without that batch; (2) the loop's
+    interval checkpoints drain the lookahead first, and a fresh world
+    restored from one of them (host tiers with the device state) and run
+    over the rest of the stream ends on the same tables.  Both compared
+    ``torch.equal`` / bitwise on every logical row, slot and dense
+    parameter.  Returns the record."""
+    import torch
+
+    from torchrec_tpu_torch.checkpoint import Checkpointer
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+    from torchrec_tpu_torch.reliability import FaultTolerantTrainLoop
+    from torchrec_tpu_torch.reliability.fault_injection import (
+        NaNInjectingStep,
+    )
+    from torchrec_tpu_torch.tiered import (
+        TieredCollection,
+        TieredTrainPipeline,
+        tiered_tables_from_plan,
+    )
+
+    t0 = time.perf_counter()
+    keys, rows, caps, batches = tiered_batches(
+        TIERED_LOOP_ROW_CAP, TIERED_LOOP_BATCH, TIERED_LOOP_BATCHES)
+    _, _, _, cached = tiered_names()
+    logical, names_to_keys, plan, _, cache_tables, inits = _tiered_tables(
+        dev, keys, rows, cached, TIERED_LOOP_BATCH)
+    caps_d = dict(zip(keys, caps))
+    ref_dmp, ref_state = _dcn_dmp(dev, logical, table_wise_plan(logical),
+                                  TIERED_LOOP_BATCH, caps_d)
+    dense0 = {k: v.clone() for k, v in ref_state["dense"].items()}
+    del ref_dmp, ref_state
+
+    def world():
+        dmp, st = _dcn_dmp(dev, cache_tables, plan, TIERED_LOOP_BATCH, caps_d)
+        _reset_state(dmp, st, inits, dense0, skip=set(names_to_keys))
+        host_inits = {t: (lambda s, e, f=inits[t]: f(s, e).cpu().numpy())
+                      for t in names_to_keys}
+        tabs = tiered_tables_from_plan(plan, logical, dmp.fused_config,
+                                       init_fns=host_inits)
+        coll = TieredCollection(tabs, {k: t for t, k in names_to_keys.items()})
+        pipe = TieredTrainPipeline(dmp, st, coll, _tiered_bucketing())
+        return dmp, coll, pipe
+
+    def inject(pipe, calls):
+        # every step program of the pipeline's cache through one injector
+        programs = pipe.cache.train_program
+        current = [None]
+        inj = NaNInjectingStep(lambda s, b: current[0](s, b), calls)
+
+        def program(sig):
+            current[0] = programs(sig)
+            return inj
+
+        pipe.cache.train_program = program
+        return inj
+
+    def finish(loop, it):
+        while True:
+            try:
+                loop.progress(it)
+            except StopIteration:
+                break
+        loop.pipeline.drain()
+
+    def snapshot(dmp, coll, pipe):
+        st = pipe.state
+        views = _table_views(dmp, st)
+        return ({t: coll.logical_table_rows(dmp, st, t) for t in coll.tables},
+                {t: (w.clone(), m.clone()) for t, (w, m) in views.items()
+                 if t not in coll.tables},
+                {k: v.clone() for k, v in st["dense"].items()})
+
+    def same(a, b):
+        return (all(np.array_equal(a[0][t], b[0][t]) for t in a[0])
+                and all(torch.equal(a[1][t][0], b[1][t][0])
+                        and torch.equal(a[1][t][1], b[1][t][1])
+                        for t in a[1])
+                and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+
+    ckdir = os.path.join(tmp, "tiered_loop")
+    # (1) the loop: a NaN at call TIERED_LOOP_NAN, interval checkpoints
+    dmp1, coll1, pipe1 = world()
+    inj = inject(pipe1, {TIERED_LOOP_NAN})
+    ck1 = Checkpointer(ckdir, keep_last_n=2, tiered=coll1)
+    loop1 = FaultTolerantTrainLoop(pipe1, ck1, dmp1,
+                                   checkpoint_interval=TIERED_LOOP_EVERY,
+                                   checkpoint_on_start=False,
+                                   max_consecutive_bad_steps=10)
+    finish(loop1, iter(batches))
+    saved = ck1.steps()
+    first = saved[0]
+    s1 = snapshot(dmp1, coll1, pipe1)
+    pipe1.close()
+    del dmp1, coll1, pipe1, loop1
+    # (2) the uninterrupted run without the poisoned batch
+    dmp2, coll2, pipe2 = world()
+    it = iter([b for i, b in enumerate(batches) if i != TIERED_LOOP_NAN])
+    while True:
+        try:
+            pipe2.progress(it)
+        except StopIteration:
+            break
+    s2 = snapshot(dmp2, coll2, pipe2)
+    pipe2.close()
+    del dmp2, coll2, pipe2
+    # (3) a fresh world restored from the first committed checkpoint
+    dmp3, coll3, pipe3 = world()
+    ck3 = Checkpointer(ckdir, tiered=coll3)
+    pipe3.state = ck3.restore(dmp3, first)
+    pipe3.invalidate_prefetch()
+    loop3 = FaultTolerantTrainLoop(pipe3, ck3, dmp3, checkpoint_interval=None,
+                                   resume=False, checkpoint_on_start=False)
+    # the checkpoint's step counts applied updates; the skipped batch
+    # came before it
+    finish(loop3, iter(batches[first + 1:]))
+    s3 = snapshot(dmp3, coll3, pipe3)
+    pipe3.close()
+    del dmp3, coll3, pipe3, loop3
+    rec = {"phase": "tiered_loop", "card": card,
+           "row_cap": TIERED_LOOP_ROW_CAP, "batch": TIERED_LOOP_BATCH,
+           "batches": TIERED_LOOP_BATCHES, "nan_call": TIERED_LOOP_NAN,
+           "injected": inj.injected, "checkpoints": saved,
+           "resumed_from": first,
+           "skip_equals_uninterrupted": same(s1, s2),
+           "resume_equals_uninterrupted": same(s3, s1),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not (inj.injected == 1 and rec["skip_equals_uninterrupted"]
+            and rec["resume_equals_uninterrupted"] and first > TIERED_LOOP_NAN):
+        raise AssertionError(f"tiered loop arm failed: {rec}")
+    return rec
+
+
+def _tiered_tables(dev, keys, rows, cached, batch):
+    """(logical table configs, cached table -> key, the plan, the
+    planner's own cache factors, the cache DMP's table configs, seeded
+    inits by table) for ``rows``; the cache tables are as many rows as
+    the plan's factor gives (``cache_rows_from_plan``)."""
+    import dataclasses
+
+    from torchrec_tpu_torch.modules.embedding_configs import (
+        EmbeddingBagConfig,
+    )
+    from torchrec_tpu_torch.modules.host_offload import cache_rows_from_plan
+
+    logical = tuple(EmbeddingBagConfig(num_embeddings=r, embedding_dim=DIM,
+                                       name=f"t_{k}", feature_names=[k])
+                    for k, r in zip(keys, rows))
+    names_to_keys = {f"t_{k}": k for k in cached}
+    plan, chosen = tiered_plan(logical, set(names_to_keys), batch)
+    n_cache = cache_rows_from_plan(plan, {c.name: c.num_embeddings
+                                          for c in logical})
+    cache_tables = tuple(
+        dataclasses.replace(c, num_embeddings=n_cache[c.name])
+        if c.name in n_cache else c for c in logical)
+    inits = {c.name: tier_init(dev, i, c.num_embeddings)
+             for i, c in enumerate(logical)}
+    return logical, names_to_keys, plan, chosen, cache_tables, inits
+
+
+def tiered_phase(dev, flush):
+    """MLPerf DLRM-v2 trained with its five largest tables host-cached
+    (budget ``TIERED_BUDGET_S``): ``DLRM_DCN`` at train_dcn's widths and
+    optimizer, B = 8192, the 26 tables capped at ``TIERED_ROW_CAP`` rows;
+    the planner's plan makes the five 40M-row tables FUSED_HOST_CACHED
+    at ``TIERED_CLF`` (caches of 1,000,000 rows over host tiers of
+    5,000,000 packed rows each, ``RamStore``), the others table-wise on
+    the card; their ids are Zipf(1.1).  Arms, each from the same seeded
+    tables: the synchronous ``host_offload`` path (B1/B2) against the
+    all-device step; the all-device bucketed pipeline (B4/B6, the
+    oracle); ``TieredTrainPipeline`` with prefetch and without, each
+    ``torch.equal`` to the oracle in every loss and, after the cache's
+    write-back, every logical row and Adagrad slot; B4 and B6 against
+    their plain versions at the cache stack and a remapped batch; the
+    loop arm.  Returns (the prefetch run's B4/B6 launches and the
+    offload arm's B1/B2 launches, the kernel rows)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
+    from torchrec_tpu_torch.parallel.train_pipeline import (
+        BucketedTrainPipeline,
+    )
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+    from torchrec_tpu_torch.tiered import tiered_tables_from_plan
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    mem0 = _mem_available_bytes()
+    n_batches = 1 + TIERED_STEPS
+    # the profile's 1 + 2 x TIERED_PROFILED calls, and the lookahead
+    # beyond them, so that each profiled step remaps a batch as the run's do
+    keys, rows, caps, batches = tiered_batches(
+        TIERED_ROW_CAP, DCN_BATCH, n_batches + 2 * TIERED_PROFILED + 4)
+    _, _, _, cached = tiered_names()
+    logical, names_to_keys, plan, chosen, cache_tables, inits = (
+        _tiered_tables(dev, keys, rows, cached, DCN_BATCH))
+    caps_d = dict(zip(keys, caps))
+    full, full_state = _dcn_dmp(dev, logical, table_wise_plan(logical),
+                                DCN_BATCH, caps_d)
+    dense0 = {k: v.clone() for k, v in full_state["dense"].items()}
+    cache, cstate = _dcn_dmp(dev, cache_tables, plan, DCN_BATCH, caps_d)
+    logical_rows = {c.name: c.num_embeddings for c in logical}
+    cache_rows = {c.name: c.num_embeddings for c in cache_tables}
+    row_width = 2 * DIM  # weights and the per-element Adagrad slot
+    setup = {"phase": "tiered_setup", "card": card,
+             "seconds": time.perf_counter() - t_phase,
+             "mem_available_bytes": mem0,
+             "host_tier_bytes": sum(logical_rows[t] for t in names_to_keys)
+             * row_width * 4,
+             "plan": {t: [ps.sharding_type.value, ps.compute_kernel.value,
+                          ps.cache_load_factor]
+                      for t, ps in plan.items() if t in names_to_keys},
+             "planner_cache_load_factors": chosen,
+             "cache_rows": {t: cache_rows[t] for t in names_to_keys},
+             "logical_rows": {t: logical_rows[t] for t in names_to_keys},
+             "ids_per_batch": int(batches[0].sparse_features.lengths()
+                                  .sum())}
+    emit(setup)
+    if mem0 is not None and mem0 < 1.5 * setup["host_tier_bytes"]:
+        raise AssertionError(f"host memory {mem0} cannot take a RAM host "
+                             f"tier of {setup['host_tier_bytes']} bytes")
+
+    marks = {"setup": time.perf_counter() - t_phase}
+    # the host tiers, from the seeded init on the card in parallel chunks;
+    # the offload arm reads their weight columns, the runs the whole rows
+    t_arm = time.perf_counter()
+    tables = tiered_tables_from_plan(plan, logical, cache.fused_config,
+                                     init_fns=_host_inits(inits,
+                                                          names_to_keys))
+    marks["host_tier_init"] = time.perf_counter() - t_arm
+    t_arm = time.perf_counter()
+    offload, offload_counts = tiered_offload_arm(
+        dev, full, full_state, cache, cstate, inits, dense0, names_to_keys,
+        batches, logical_rows, cache_rows, card,
+        {t: tbl.store.array[:, :DIM] for t, tbl in tables.items()})
+
+    marks["offload"] = time.perf_counter() - t_arm
+    t_arm = time.perf_counter()
+    # the all-device oracle: the bucketed pipeline on B4/B6
+    _reset_state(full, full_state, inits, dense0)
+    opipe = BucketedTrainPipeline(full, full_state, _tiered_bucketing())
+    oit = iter(batches[:n_batches])
+    owarm, _ = _pipeline_steps(opipe, oit, 1)
+    olosses, odt = _pipeline_steps(opipe, oit, TIERED_STEPS)
+    oracle_losses = owarm + olosses
+    full_state = opipe.state
+    emit({"phase": "tiered_oracle", "card": card, "steps": n_batches,
+          "ms_per_step": odt * 1e3 / TIERED_STEPS,
+          "samples_per_s": TIERED_STEPS * DCN_BATCH / odt})
+
+    marks["oracle"] = time.perf_counter() - t_arm
+    runs = {}
+    for prefetch in (True, False):
+        t_arm = time.perf_counter()
+        pipe, coll, meter, losses, dt, counts, init_s = _tiered_run(
+            dev, cache, cstate, tables, names_to_keys, inits, dense0,
+            batches, prefetch, card, refill=not prefetch)
+        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else None)
+        m = pipe.scalar_metrics()
+        t_check = time.perf_counter()
+        bad = _logical_equal(coll, cache, pipe.state, full, full_state)
+        check_s = time.perf_counter() - t_check
+        st = coll.stats
+        fetched = sum(a["fetch_rows"] for a in st.per_table.values())
+        written = sum(a["writeback_rows"] for a in st.per_table.values())
+        rec = {"phase": "tiered", "card": card, "prefetch": prefetch,
+               "batch": DCN_BATCH, "steps": n_batches,
+               "timed_steps": TIERED_STEPS,
+               "host_refill_seconds": init_s, "check_seconds": check_s,
+               "ms_per_step": dt * 1e3 / TIERED_STEPS,
+               "samples_per_s": TIERED_STEPS * DCN_BATCH / dt,
+               "losses": losses, "losses_equal_oracle":
+                   losses == oracle_losses,
+               "mismatched_tables": bad,
+               "dense_equal_oracle": _dense_equal(pipe.state, full_state),
+               "hit_rate": st.hit_rate(),
+               "hit_rate_by_table": {t: m[f"tiered/{t}/hit_rate"]
+                                     for t in names_to_keys},
+               "prefetch_overlap_ratio": st.prefetch_overlap_ratio(),
+               "fetched_rows_per_step": fetched / n_batches,
+               "written_back_rows_per_step": written / n_batches,
+               "fetched_bytes_per_step": fetched * row_width * 4 / n_batches,
+               "written_back_bytes_per_step":
+                   written * row_width * 4 / n_batches,
+               "staged_rows": sum(a["staged_rows"]
+                                  for a in st.per_table.values()),
+               "sync_fetch_rows": sum(a["sync_fetch_rows"]
+                                      for a in st.per_table.values()),
+               "refetched_after_writeback": meter.refetched,
+               "host_remap_s_per_step": meter.remap_s / n_batches,
+               "host_io_s_per_step": meter.io_s / n_batches,
+               "host_wait_s_per_step": st.wait_seconds / n_batches,
+               "stage_s_per_step": st.stage_seconds / n_batches,
+               "peak_memory_allocated": peak,
+               "launches": {k: v for k, v in counts.items() if v}}
+        if prefetch:
+            # the profile after the check: a few steps more
+            pipe.invalidate_prefetch()
+            prof_it = iter(batches[n_batches:])
+            prof = profile_calls({"phase": "tiered_profile", "card": card,
+                                  "batch": DCN_BATCH},
+                                 lambda: pipe.progress(prof_it),
+                                 TIERED_PROFILED, "step")
+            rec["device_idle_share"] = prof["device_idle_share"]
+            main_counts = counts
+        emit(rec)
+        runs[prefetch] = rec
+        want = {"dedup_pooled_lookup": n_batches,
+                "dedup_fused_sparse_update": n_batches}
+        if not (rec["losses_equal_oracle"] and not bad
+                and rec["dense_equal_oracle"] and rec["launches"] == want
+                and written > 0 and meter.refetched > 0):
+            raise AssertionError(f"tiered run failed: {rec}")
+        last = meter.last_kjts
+        pipe.close()
+        del pipe, coll, meter
+        gc.collect()
+        marks["prefetch" if prefetch else "no_prefetch"] = (
+            time.perf_counter() - t_arm)
+    if runs[True]["losses"] != runs[False]["losses"]:
+        raise AssertionError("tiered prefetch on and off disagree")
+
+    # B4 and B6 against their plain versions at the cache stack and the
+    # last remapped batch
+    t_arm = time.perf_counter()
+    del opipe, full, full_state, tables
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rb = dataclasses.replace(batches[0], sparse_features=last[0])
+    bb, clone, sig = bucketed_batch(cache, rb, dev)
+    (name, lay), = clone.sharded_ebc.tw_layouts.items()
+    stack = cstate["tables"][name]
+    ids, w, segs, S, _ = tw_b1_inputs(lay, bb.sparse_features)
+    valid = (segs < S) & (w != 0)
+    common = {"rows": stack.shape[0], "D": DIM, "S": S, "V": ids.numel(),
+              "valid": int(valid.sum()), "dtype": "float32",
+              "ids": "tiered"}
+    kernel_rows = [b4_row(flush, "tiered_kernel", stack, ids, segs, w, S,
+                          common)]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    grad = torch.randn((S, DIM), generator=gen, device=dev) * 1e-2
+    kernel_rows.append(b6_row(flush, stack, "adagrad",
+                              SparseSegGrad(ids, valid, segs, w, grad),
+                              None, gen, common, phase="tiered_kernel",
+                              lr=DCN_LR))
+    del cache, cstate, stack, bb, clone, grad
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    marks["kernels"] = time.perf_counter() - t_arm
+    tmp = tempfile.mkdtemp(prefix="tiered_")
+    try:
+        loop = tiered_loop_arm(dev, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "tiered_summary", "card": card, "seconds": seconds,
+          "budget_s": TIERED_BUDGET_S, "arm_seconds": marks,
+          "async_ms_per_step": runs[True]["ms_per_step"],
+          "sync_off_ms_per_step": runs[False]["ms_per_step"],
+          "host_offload_ms_per_step": offload["ms_per_step"],
+          "oracle_equal": True, "loop": {k: loop[k] for k in (
+              "skip_equals_uninterrupted", "resume_equals_uninterrupted")}})
+    if seconds > TIERED_BUDGET_S:
+        raise AssertionError(f"tiered took {seconds:.1f} s")
+    counts = {k: main_counts.get(k, 0) + offload_counts.get(k, 0)
+              for k in tbe.LAUNCHES}
+    return counts, kernel_rows
+
+
+# ---------------------------------------------------------------------------
+# phase migrate: drift-triggered replan and live plan migration
+# ---------------------------------------------------------------------------
+
+MIGRATE_BUDGET_S = 90
+MIGRATE_RANKS = 2  # gloo ranks sharing the card
+MIGRATE_BATCH = 2048  # a rank: at 4096 the plan-time plan is DP already
+MIGRATE_STEPS, MIGRATE_DRIFT, MIGRATE_CLEAN_STEPS = 15, 4, 6
+MIGRATE_MIN_IMPROVEMENT = 0.1  # the PlanMigrator's default gate
+MIGRATE_SEED = 11
+MIGRATE_DEVICE = "cuda:0"  # the supervised drill's workers
+
+
+def migrate_widths():
+    """``migration_demo``'s recipe at ``bench.py main()``'s widths (D=128,
+    its arches) with ``ELASTIC_ROWS`` rows in the big table."""
+    from torchrec_tpu_torch.reliability.migration_demo import Widths
+
+    return Widths(rows=(ELASTIC_ROWS, 128), dim=DIM, batch=MIGRATE_BATCH,
+                  dense_in=NUM_DENSE, dense_arch=DENSE_ARCH,
+                  over_arch=OVER_ARCH)
+
+
+def migrate_rank(tmp, device_type="cuda"):
+    """One gloo rank of the migration drill (``multiprocess.launch``):
+    ``migration_demo.drill_arms`` on the card shared by every rank.
+    Returns the arms' results."""
+    from torchrec_tpu_torch.parallel import multiprocess as mp
+    from torchrec_tpu_torch.parallel.comm import ShardingEnv
+    from torchrec_tpu_torch.reliability.migration_demo import drill_arms
+
+    mp.initialize("gloo")
+    dev = _rank_device(device_type)
+    env = ShardingEnv.from_process_group("gloo", device=dev)
+    return drill_arms(env, tmp, MIGRATE_STEPS, MIGRATE_DRIFT,
+                      clean_target=MIGRATE_CLEAN_STEPS, seed=MIGRATE_SEED,
+                      widths=migrate_widths(),
+                      min_improvement=MIGRATE_MIN_IMPROVEMENT)
+
+
+def _migrate_kill_drill(tmp, device):
+    """One ``ElasticSupervisor`` run of ``migration_demo.py`` over
+    ``MIGRATE_RANKS`` gloo ranks on ``device`` with rank 1 SIGKILLed in
+    the migration's reshard window (generation 0); returns (report, the
+    final generation's result, the committed step the killed rank
+    reported, seconds)."""
+    import re
+
+    from torchrec_tpu_torch.reliability import ElasticSupervisor
+    from torchrec_tpu_torch.reliability import migration_demo
+    from torchrec_tpu_torch.reliability.fault_injection import (
+        ProcessFault,
+        ProcessFaultPlan,
+    )
+
+    run_dir = os.path.join(tmp, "kill")
+    ckpt = os.path.join(run_dir, "ckpt")
+    out = os.path.join(run_dir, "result.json")
+    sup = ElasticSupervisor(
+        migration_demo.__file__, MIGRATE_RANKS,
+        args=["--steps", str(MIGRATE_STEPS), "--ckpt", ckpt, "--out", out,
+              "--seed", str(MIGRATE_SEED), "--device", device,
+              "--drift-step", str(MIGRATE_DRIFT),
+              "--min-improvement", str(MIGRATE_MIN_IMPROVEMENT),
+              *migration_demo.widths_args(migrate_widths())],
+        run_dir=run_dir, fault_plan=ProcessFaultPlan(
+            [ProcessFault(rank=1, step=0, kind="kill_mid_reshard", gen=0)]),
+        max_relaunches=2, hang_timeout_s=60.0, startup_grace_s=120.0,
+        generation_timeout_s=240.0, env_extra={"PYTHONPATH": ROOT})
+    t0 = time.perf_counter()
+    report = sup.run()
+    seconds = time.perf_counter() - t0
+    for g in report.generations:
+        for pid in g.pids:
+            try:
+                os.kill(pid, 0)
+            except (ProcessLookupError, PermissionError):
+                continue
+            raise AssertionError(f"migrate drill: orphaned worker {pid}")
+    with open(sup.log_path(0, 1)) as f:
+        m = re.search(r"SIGKILL in migration reshard window .*committed "
+                      r"step (\d+)", f.read())
+    with open(out) as f:
+        return report, json.load(f), (int(m.group(1)) if m else None), seconds
+
+
+def migrate_phase(dev, device_type="cuda", kill_device=MIGRATE_DEVICE):
+    """The drift-triggered plan migration (budget ``MIGRATE_BUDGET_S``):
+    ``migration_demo``'s recipe at ``migrate_widths()`` on
+    ``MIGRATE_RANKS`` gloo ranks sharing the card, a checkpoint every
+    step.  One launch runs the drill's arms (``drill_arms``): at
+    ``MIGRATE_DRIFT`` the big table's occupancy collapses, the monitor
+    alarms, the trigger fires and the migrator flips ``t_f0`` RW -> DP
+    with every step committed (zero committed-step loss); a clean restart
+    from a copy of the migration's committed step under the new plan
+    ends on the same checkpoint digest (the same bytes); a clean arm
+    raises no alert and attempts no migration.  Then one supervised
+    ``kill_mid_reshard`` drill: the relaunch resumes from the committed
+    step the killed rank anchored on.  Returns the drift arm's launches,
+    summed over its ranks."""
+    from torchrec_tpu_torch.parallel.multiprocess import launch
+
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    tmp = tempfile.mkdtemp(prefix="migrate_")
+    try:
+        results = launch(migrate_rank, MIGRATE_RANKS,
+                         args=(tmp, device_type), timeout=MIGRATE_BUDGET_S * 3)
+        arms_s = time.perf_counter() - t0
+        report, killed, anchor, kill_s = _migrate_kill_drill(tmp,
+                                                            kill_device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = results[0]
+    drift, clean = r0["drift"], r0["clean"]
+    restart = r0.get("restart")
+    done = [r for r in drift["migration"]["reports"]
+            if r["outcome"] == "completed"]
+    rep = done[0] if done else {}
+    launches: dict = {}
+    for r in results:
+        for k, v in r["drift"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    gens = report.generations
+    rec = {"phase": "migrate", "card": card,
+           "note": ONE_CARD.replace("4 ranks", f"{MIGRATE_RANKS} ranks"),
+           "widths": dataclasses.asdict(migrate_widths()),
+           "steps": MIGRATE_STEPS, "drift_step": MIGRATE_DRIFT,
+           "alarms": drift["alarms"], "alerts": drift["alerts"],
+           "attempts": [{k: r[k] for k in ("step", "outcome", "improvement",
+                                           "committed_step")}
+                        for r in drift["migration"]["reports"]],
+           "initial_plan": drift["initial_plan"],
+           "final_plan": drift["final_plan"],
+           "final_step": drift["final_step"],
+           "migrate_step": rep.get("step"),
+           "committed_step": rep.get("committed_step"),
+           "improvement": rep.get("improvement"),
+           "phase_seconds": rep.get("phase_seconds"),
+           "mttr_s": rep.get("duration_s"),
+           "restart_resumed_from": restart and restart["resumed_from"],
+           "digest_equal": bool(restart) and restart["digest"] is not None
+           and restart["digest"] == drift["digest"],
+           "clean_alarms": clean["alarms"],
+           "clean_attempts": clean["migration"]["attempts"],
+           "launches": launches,
+           "arm_seconds": {k: r0[k] for k in r0 if k.endswith("_s")},
+           "kill": {"generations": [{"world": g.world, "ok": g.ok,
+                                     "failures": [dataclasses.asdict(f)
+                                                  for f in g.failures]}
+                                    for g in gens],
+                    "anchor_step": anchor,
+                    "resumed_from": killed["resumed_from"],
+                    "final_step": killed["final_step"],
+                    "mttr_s": report.mttr_s, "seconds": kill_s},
+           "seconds": time.perf_counter() - t0,
+           "budget_s": MIGRATE_BUDGET_S}
+    emit(rec)
+    ok = (drift["alarms"] >= 1 and len(done) == 1
+          and drift["initial_plan"]["t_f0"] == "row_wise"
+          and drift["final_plan"]["t_f0"] == "data_parallel"
+          and drift["final_step"] == MIGRATE_STEPS
+          and drift["migration"]["rolled_back"] == 0
+          and rec["digest_equal"]
+          and restart["resumed_from"] == rep["committed_step"]
+          and clean["alarms"] == 0 and clean["migration"]["attempts"] == 0
+          and clean["final_plan"] == clean["initial_plan"]
+          and report.ok and report.restarts == 1
+          and any(f.rank == 1 and f.cause == "crash"
+                  for f in gens[0].failures)
+          and anchor is not None and killed["resumed_from"] == anchor
+          and killed["final_step"] == MIGRATE_STEPS)
+    if not ok:
+        raise AssertionError(f"migrate failed: {rec}")
+    steps = MIGRATE_STEPS * MIGRATE_RANKS
+    if device_type == "cuda" and not (
+            launches.get("pooled_lookup", 0) >= steps
+            and launches.get("fused_sparse_update", 0) >= steps):
+        raise AssertionError(f"migrate: {steps} rank steps launched "
+                             f"{launches}")
+    if rec["seconds"] > MIGRATE_BUDGET_S:
+        raise AssertionError(f"migrate took {rec['seconds']:.1f} s")
+    return launches
+
+
 def registers_record():
     """The registers a thread of every B2 and B6 instantiation uses, by
     optimizer and table dtype, at D = 128 (the narrow layout, bounded to
@@ -9499,27 +10543,41 @@ def main() -> None:
           "ptxas": {s: [l.strip() for l in str(i["log"]).splitlines()
                         if "registers" in l or "spill" in l]
                     for s, i in _native.BUILD_INFO.items()}})
+    def timed(fn, *args):
+        # each phase's wall, and the run's so far, as it ends
+        t = time.perf_counter()
+        out = fn(*args)
+        emit({"phase": "wall", "name": fn.__name__,
+              "seconds": time.perf_counter() - t,
+              "since_start": time.perf_counter() - t0})
+        return out
+
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     emit(registers_record())
-    kernel_rows = kernel_phase(dev, flush)
-    planner_records()
-    train_launches, train_rows, checks = train_phase(dev, flush)
-    ebc_launches, ebc_rows, _ = ebc_phase(dev, flush)
-    dedup_launches, dedup_rows, dedup_check = train_dedup_phase(dev, flush)
-    guarded_launches, guarded_rows = guarded_phase(dev, flush)
-    dcn_launches, dcn_rows, dcn_check = train_dcn_phase(dev, flush)
-    lowp_launches, lowp_rows = lowp_state_phase(dev, flush)
-    seq_launches, seq_row = seq_phase(dev, flush)
-    models_launches, models_checks, fp_err = models_phase(dev, flush)
-    ft_launches, ft_check = ft_loop_phase(dev, flush)
+    kernel_rows = timed(kernel_phase, dev, flush)
+    timed(planner_records)
+    train_launches, train_rows, checks = timed(train_phase, dev, flush)
+    ebc_launches, ebc_rows, _ = timed(ebc_phase, dev, flush)
+    dedup_launches, dedup_rows, dedup_check = timed(train_dedup_phase, dev,
+                                                    flush)
+    guarded_launches, guarded_rows = timed(guarded_phase, dev, flush)
+    dcn_launches, dcn_rows, dcn_check = timed(train_dcn_phase, dev, flush)
+    lowp_launches, lowp_rows = timed(lowp_state_phase, dev, flush)
+    seq_launches, seq_row = timed(seq_phase, dev, flush)
+    models_launches, models_checks, fp_err = timed(models_phase, dev, flush)
+    ft_launches, ft_check = timed(ft_loop_phase, dev, flush)
     del flush
-    app_launches, app_check = app_phase(dev)
-    serve_launches, _, path_rows = serving_phase(dev)
-    roundtrip_phase(dev)
-    tier_launches, tier_rows, tier_tcp = serving_tier_phase(dev)
-    native_launches = native_serving_phase(dev, tier_tcp)
-    sharded_launches, sharded_checks = sharded_phase()
-    elastic_launches = elastic_phase(dev)
+    app_launches, app_check = timed(app_phase, dev)
+    serve_launches, _, path_rows = timed(serving_phase, dev)
+    timed(roundtrip_phase, dev)
+    tier_launches, tier_rows, tier_tcp = timed(serving_tier_phase, dev)
+    native_launches = timed(native_serving_phase, dev, tier_tcp)
+    sharded_launches, sharded_checks = timed(sharded_phase)
+    elastic_launches = timed(elastic_phase, dev)
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    tiered_launches, tiered_rows = timed(tiered_phase, dev, flush)
+    del flush
+    migrate_launches = timed(migrate_phase, dev)
 
     # each kernel's launches on its own main paths: B1/B2 the training
     # step (21 + 3 steps), the DCN step (21) and the application (40
@@ -9534,12 +10592,14 @@ def main() -> None:
                 + tier_launches.get(k, 0) + native_launches[k]
                 + guarded_launches.get(k, 0) + lowp_launches.get(k, 0)
                 + ft_launches.get(k, 0) + elastic_launches.get(k, 0)
+                + tiered_launches.get(k, 0) + migrate_launches.get(k, 0)
                 for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows
             + dcn_rows + path_rows + [seq_row] + lowp_rows[1:]]
     errs.append(("pooled_lookup", fp_err))
     errs += [(r["kernel"], r["max_abs_err"]) for r in tier_rows]
+    errs += [(r["kernel"], r["max_abs_err"]) for r in tiered_rows]
     errs += [(k, c[f"{b}_max_abs_err"])
              for c in checks + [dcn_check, app_check, lowp_rows[0],
                                 ft_check]
@@ -9620,6 +10680,15 @@ def main() -> None:
             for r in tier_rows if r["kernel"] == k["name"]}
         if rows:
             k["serving_float"] = rows
+    # B4 and B6 as the tiered path launches them: over the cache stack of
+    # the host-cached MLPerf DLRM-v2 tables, per-element Adagrad
+    for k in summary:
+        rows = {x: r[x] for r in tiered_rows if r["kernel"] == k["name"]
+                for x in ("ms", "kernel_ms", "kernel_device_ms", "plain_ms",
+                          "bound_ms", "bound_by", "library_ms", "rows",
+                          "V", "valid")}
+        if rows:
+            k["tiered"] = rows
     # B6 as the sequence path launches it: Adam over the BERT4Rec step's
     # per-id slots
     b6 = next(k for k in summary if k["name"] == "dedup_fused_sparse_update")
@@ -9660,7 +10729,7 @@ def main() -> None:
 
 
 DEV_PHASES = ("guarded", "lowp_state", "ft_loop", "elastic",
-              "sharded") + GLOO_STAGES
+              "sharded", "tiered", "migrate") + GLOO_STAGES
 
 
 BUILD_STUDY_ORDER = ("parts", "split_compile", "one_unit", "split_compile",
@@ -9801,6 +10870,8 @@ def dev_run(phases) -> None:
         lowp_state_phase(dev, flush)
     if "ft_loop" in phases:
         ft_loop_phase(dev, flush)
+    if "tiered" in phases:
+        tiered_phase(dev, flush)
     del flush
     if "sharded" in phases:
         sharded_phase()
@@ -9808,6 +10879,8 @@ def dev_run(phases) -> None:
         sharded_phase(only=tuple(p for p in GLOO_STAGES if p in phases))
     if "elastic" in phases:
         elastic_phase(dev)
+    if "migrate" in phases:
+        migrate_phase(dev)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,11 @@ batch's shapes, with the operator library's launch counts, and a
 serving module exported on the card holding them; and B2 and B6 over
 bfloat16 and float16 optimizer states (every stateful optimizer, every
 column layout, float32 and bfloat16 tables, stochastic rounding on and
-off), with their instantiations' registers.
+off), with their instantiations' registers; and the tiered cache's IO
+(``tiered/``): ``apply_io`` fed by the prefetcher's side-stream copies
+from pinned buffers equal, bit for bit, to the synchronous path over a
+small table far larger than its cache, every eviction written back and
+fetched again.
 
 Needs a CUDA device and ``nvcc``; marked ``cuda`` and skipped elsewhere.
 It imports nothing of JAX, so on a machine with a card and no JAX it runs
@@ -1709,3 +1713,95 @@ def test_update_low_precision_registers_on_card(dev, kernel, sdtype):
                                               10**6, state_dtype=sdtype)
             assert info["layout"] == "narrow"
             assert info["registers"] <= 128 and info["blocks_per_sm"] >= 2
+
+
+# -- the tiered cache's IO: side-stream prefetch against the synchronous path
+
+TIERED_ROWS, TIERED_CACHE, TIERED_D, TIERED_B = 2000, 96, 16, 32
+
+
+def _tiered_world(dev, prefetch, w0):
+    from torchrec_tpu_torch.models.dlrm import DLRM
+    from torchrec_tpu_torch.modules.embedding_configs import (
+        EmbeddingBagConfig,
+    )
+    from torchrec_tpu_torch.modules.embedding_modules import (
+        EmbeddingBagCollection,
+    )
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        FusedOptimConfig,
+    )
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+    from torchrec_tpu_torch.parallel.train_pipeline import BucketingConfig
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+    from torchrec_tpu_torch.tiered import (
+        TieredCollection,
+        TieredTable,
+        TieredTrainPipeline,
+        opt_slot_widths,
+    )
+
+    tables = (EmbeddingBagConfig(num_embeddings=TIERED_CACHE,
+                                 embedding_dim=TIERED_D, name="big",
+                                 feature_names=["q"]),)
+    fc = FusedOptimConfig(optim=EmbOptimType.ADAGRAD, learning_rate=0.05)
+    dmp = DistributedModelParallel(
+        DLRM(EmbeddingBagCollection(tables, device="meta"), 4,
+             (8, TIERED_D), (8, 1)), tables, table_wise_plan(tables),
+        TIERED_B, {"q": 2 * TIERED_B}, fused_config=fc,
+        dense_optimizer=adagrad(0.05), device=dev)
+    state = dmp.init(torch.Generator(device=dev).manual_seed(0))
+    tt = TieredTable("big", TIERED_ROWS, TIERED_D, TIERED_CACHE,
+                     opt_slots=opt_slot_widths(fc, TIERED_D),
+                     init_fn=lambda s, e: w0[s:e], eviction_policy="lru")
+    coll = TieredCollection({"big": tt}, {"q": "big"})
+    pipe = TieredTrainPipeline(
+        dmp, state, coll,
+        BucketingConfig(kernels={"pooled": "dedup", "update": "dedup"}),
+        prefetch=prefetch)
+    return dmp, coll, pipe
+
+
+def test_tiered_side_stream_prefetch_equals_sync_on_card(dev):
+    """Ten steps of a 2,000-row table through a 96-slot cache (Zipf ids,
+    two a example): the prefetch run, whose fills come from pinned
+    buffers over a side stream, ends on every loss, logical row, Adagrad
+    slot and dense parameter of the synchronous run, bitwise; rows were
+    staged, evicted, written back and fetched again."""
+    from torchrec_tpu_torch.datasets.utils import Batch
+    from torchrec_tpu_torch.sparse.jagged_tensor import KeyedJaggedTensor
+
+    rng = np.random.RandomState(0)
+    w0 = rng.uniform(-0.05, 0.05, (TIERED_ROWS, TIERED_D)).astype(np.float32)
+    batches = []
+    for _ in range(10):
+        q = (rng.zipf(1.1, size=2 * TIERED_B) - 1) % TIERED_ROWS
+        batches.append(Batch(
+            torch.from_numpy(rng.rand(TIERED_B, 4).astype(np.float32)),
+            KeyedJaggedTensor.from_lengths_packed(
+                ["q"], torch.from_numpy(q.astype(np.int64)),
+                torch.full((TIERED_B,), 2, dtype=torch.int32),
+                caps=[2 * TIERED_B]),
+            torch.from_numpy(rng.randint(0, 2, TIERED_B).astype(
+                np.float32))))
+    out = {}
+    for prefetch in (True, False):
+        dmp, coll, pipe = _tiered_world(dev, prefetch, w0)
+        it = iter(batches)
+        losses = [float(pipe.progress(it)["loss"]) for _ in range(10)]
+        torch.cuda.synchronize()
+        out[prefetch] = (losses,
+                         coll.logical_table_rows(dmp, pipe.state, "big"),
+                         {k: v.clone() for k, v in pipe.state["dense"].items()},
+                         coll.stats.per_table["big"])
+        pipe.close()
+    (la, ra, da, sa), (lb, rb, db, sb) = out[True], out[False]
+    assert la == lb
+    assert np.array_equal(ra, rb)
+    assert all(torch.equal(da[k], db[k]) for k in da)
+    assert sa["staged_rows"] > 0 and sb["staged_rows"] == 0
+    assert sa["writeback_rows"] > 0 and sa["eviction_count"] > 0

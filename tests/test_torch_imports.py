@@ -57,7 +57,10 @@ def test_every_module_imports_without_jax():
               "obs.flight_recorder", "dynamic", "dynamic.tcp_kv",
               "reliability", "reliability.fault_injection",
               "reliability.train_loop", "reliability.elastic",
-              "reliability.elastic_demo", "convert"):
+              "reliability.elastic_demo", "convert", "tiered",
+              "tiered.storage", "tiered.collection", "tiered.prefetch",
+              "tiered.pipeline", "modules.host_offload", "obs.health",
+              "reliability.migration", "reliability.migration_demo"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

@@ -380,3 +380,21 @@ def test_scalar_metrics_and_kernel_stats_match_jax(tmp_path):
         with annotate("sparse_forward"):
             torch.ones(2).sum()
     assert any(e.key == "sparse_forward" for e in prof.key_averages())
+
+
+def test_bucketed_semi_sync_refuses_an_aux():
+    """A queue entry's aux (the tiered cache's fills) would land after the
+    step ahead embedded the batch on the tables before them: the bucketed
+    semi-sync pipeline raises on one instead of applying it late."""
+
+    class WithAux(tp.BucketedTrainPipelineSemiSync):
+        def _preprocess_locals(self, locals_):
+            return locals_, "aux"
+
+    caps = dict(zip(KEYS, _dataset().caps))
+    dmp = _port_dmp(caps, kernel="dedup")
+    pipe = WithAux(dmp, dmp.init(torch.Generator().manual_seed(0)),
+                   tp.BucketingConfig(kernels={"pooled": "dedup",
+                                               "update": "dedup"}))
+    with pytest.raises(TypeError, match="no aux"):
+        pipe.progress(iter([b for _, b in zip(range(3), _dataset())]))

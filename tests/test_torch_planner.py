@@ -430,12 +430,24 @@ def test_h100_plans_of_app_and_bench_tables_run_through_the_dmp():
 
 
 def test_host_cached_plan_raises_in_the_dmp():
-    """The planner prices host-cached options, the runtime has no tiered
-    storage yet: a plan that picks one raises, naming ROADMAP A10."""
+    """The planner prices host-cached options and the runtime takes them
+    (tiered storage, ``tiered/``): a plan that picks one builds, its
+    table a table-wise group over the rows it is given (the cache's);
+    a host-cached table on a layout other than TW or DP with one column
+    shard raises, since a write-back would persist partial rows."""
     case = CASES["cached_scaleup_w2"]
     _, plan, tables, *_ = _run("torch", case)
     assert plan["big"].compute_kernel == (
         EmbeddingComputeKernel.FUSED_HOST_CACHED)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ShardedEmbeddingBagCollection.build(tables, plan, 2, 64,
-                                            {"f": 64})
+    ebc = ShardedEmbeddingBagCollection.build(tables, plan, 2, 64,
+                                              {"f": 64})
+    weights = ebc.tables_to_weights(ebc.init_params(
+        torch.Generator().manual_seed(0), rank=0))
+    assert weights["big"].shape[0] == next(
+        t.num_embeddings for t in tables if t.name == "big")
+    rw = dict(plan)
+    rw["big"] = dataclasses.replace(plan["big"],
+                                    sharding_type=ShardingType.ROW_WISE,
+                                    ranks=[0, 1])
+    with pytest.raises(ValueError, match="TW or DP"):
+        ShardedEmbeddingBagCollection.build(tables, rw, 2, 64, {"f": 64})

@@ -21,6 +21,11 @@ The payload has the JAX package's logical keys:
                                state under another plan or world size;
                                the scalar counters under ``__scalars__``
   step                       : an int
+  tiered/{table}             : with ``Checkpointer(tiered=collection)``,
+                               each tiered table's host tier: its rows
+                               (``host_rows``, a RAM tier) or the disk
+                               generation its flush published
+                               (``generation``)
 
 The on-disk format is the port's own: a step's ``payload/`` directory
 holds ``manifest.json``, which lists every leaf by its key path with its
@@ -53,9 +58,15 @@ is per rank: each rank reads the shared directory and keeps its share.
 before it returns, also with ``async_save``: the next train step writes
 the same device memory in place.
 
-Left out: the tiered-storage and dynamic-vocabulary collections
-(``tiered=``, ``vocab=``), which raise ``NotImplementedError`` until
-ROADMAP A10 ports them.
+With ``tiered=`` (a ``tiered.TieredCollection``) a save first syncs
+every cache-resident row, weights and optimizer slots, to the host tier
+and publishes disk tiers (``TieredCollection.checkpoint_payload``, which
+refuses a save while remapped batches are queued: drain the pipeline
+first), all before the atomic commit; a restore reloads the host tiers
+and resets the caches cold before it hands the state back.
+
+Left out: the dynamic-vocabulary collection (``vocab=``), which raises
+``NotImplementedError`` until ROADMAP A10's second part ports it.
 """
 
 from __future__ import annotations
@@ -233,7 +244,12 @@ class Checkpointer:
         already single-writer (every rank takes the collective snapshot,
         rank 0 alone writes, and a non-zero rank returns the would-be
         path and never sweeps the directory).
-    tiered / vocab: not ported yet (ROADMAP A10); raise
+    tiered: a ``tiered.TieredCollection`` whose host tiers the
+        checkpoint carries and restores with the device caches (module
+        docstring).  A crash between the tiers' flush and the commit is
+        safe: the older committed checkpoint pins an older disk
+        generation, which ``keep_generations`` keeps.
+    vocab: not ported yet (ROADMAP A10's second part); raises
         ``NotImplementedError``.
     """
 
@@ -251,11 +267,10 @@ class Checkpointer:
         single_writer: bool = False,
         vocab=None,
     ):
-        if tiered is not None or vocab is not None:
+        if vocab is not None:
             raise NotImplementedError(
-                "Checkpointer(tiered=..., vocab=...): the tiered-storage and "
-                "dynamic-vocabulary collections are not ported yet (ROADMAP "
-                "A10)")
+                "Checkpointer(vocab=...): the dynamic-vocabulary collection "
+                "is not ported yet (ROADMAP A10)")
         if keep_last_n is not None and keep_last_n < 1:
             raise ValueError(f"keep_last_n must be >= 1, got {keep_last_n}")
         if commit_barrier is not None and async_save:
@@ -264,6 +279,7 @@ class Checkpointer:
                 "all-rank ack must run on the thread that took the "
                 "collective state snapshot")
         del single_writer  # the default already (see above)
+        self.tiered = tiered
         self.commit_barrier = commit_barrier
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
@@ -376,7 +392,7 @@ class Checkpointer:
 
         tables, fused = dmp.gather_group_state(state, replica_mean=True)
         weights = dmp.sharded_ebc.tables_to_weights(tables)
-        return {
+        payload = {
             "tables": _host_tree(weights),
             "dense": _host_tree(state["dense"]),
             "dense_opt_leaves": {
@@ -388,6 +404,13 @@ class Checkpointer:
             "fused_tables": _host_tree(_slots_to_tables(dmp, fused)),
             "step": int(state["step"]),
         }
+        if self.tiered is not None:
+            # sync the cache to the host tier and publish disk tiers now,
+            # on the caller's thread, before any async write and before
+            # the commit, so that the payload pins durable rows
+            payload["tiered"] = _host_tree(
+                self.tiered.checkpoint_payload(dmp, state))
+        return payload
 
     def save(self, dmp, state: Dict[str, Any],
              step: Optional[int] = None) -> str:
@@ -678,9 +701,25 @@ class Checkpointer:
         rebuilds them under any plan)."""
         return self._restore_exact(dmp, self._read_payload(step), step)
 
+    def _rehydrate_tiered(self, payload: Dict[str, Any], step: int) -> None:
+        """Reload the host tiers the payload carries (after the
+        compatibility checks) and reset the caches cold, before the state
+        is handed back: a batch remapped against stale host rows would
+        fork the run."""
+        tiered = payload.get("tiered")
+        if tiered is not None and self.tiered is None:
+            raise CheckpointPlanMismatch(
+                f"checkpoint step {step} carries tiered-storage state but "
+                "this Checkpointer has no tiered collection: construct it "
+                "with Checkpointer(..., tiered=collection) so that the host "
+                "tiers restore with the device caches")
+        if self.tiered is not None:
+            self.tiered.checkpoint_restore(tiered)
+
     def _restore_exact(self, dmp, payload: Dict[str, Any],
                        step: int) -> Dict[str, Any]:
         self._check_compatible(dmp, payload, step)
+        self._rehydrate_tiered(payload, step)
         ebc = dmp.sharded_ebc
         tables = dmp._local_share(ebc.params_from_tables(
             payload["tables"], dmp.table_dtype, dmp.device,
@@ -714,4 +753,5 @@ class Checkpointer:
             fused = dmp._local_share(ebc.init_fused_state(
                 dmp.fused_config, dmp.device))
             fused = scatter_slots(dmp, fused, payload["fused_tables"])
+            self._rehydrate_tiered(payload, step)
             return self._place_state(dmp, payload, tables, fused)

@@ -591,7 +591,20 @@ def checkpoint_payload_from_jax(payload: Mapping[str, Any]) -> Dict[str, Any]:
     }
     if fused_tables:
         out["fused_tables"] = fused_tables
+    if "tiered" in payload:
+        out["tiered"] = _tiered_entries(payload["tiered"], _host_tensor)
     return out
+
+
+def _tiered_entries(tiered: Mapping[str, Any], rows) -> Dict[str, Any]:
+    """A checkpoint's ``tiered`` entry with each table's host rows
+    through ``rows`` and its pinned disk generation as an int: the packed
+    row layout (weights, then the slots in name order) is the same in
+    both packages."""
+    return {t: ({"generation": int(np.asarray(st["generation"]))}
+                if "generation" in st else
+                {"host_rows": rows(st["host_rows"])})
+            for t, st in tiered.items()}
 
 
 def checkpoint_payload_to_jax(payload: Mapping[str, Any]) -> Dict[str, Any]:
@@ -618,4 +631,10 @@ def checkpoint_payload_to_jax(payload: Mapping[str, Any]) -> Dict[str, Any]:
                 else {k: _host_numpy(v) for k, v in slots.items()})
             for t, slots in payload["fused_tables"].items()},
         "step": np.array(np.int32(payload["step"])),
+        **({"tiered": {
+            t: ({"generation": np.asarray(int(st["generation"]), np.int64)}
+                if "generation" in st else
+                {"host_rows": _host_numpy(st["host_rows"])})
+            for t, st in payload["tiered"].items()}}
+           if "tiered" in payload else {}),
     }

@@ -35,8 +35,11 @@ group's distinct-row capacity sized by the smallest ``hier_factor`` its
 tables claim.  Without a two-level world the flag is inert, so one plan
 runs on either world; a sequence module keeps the flat layouts.
 
-Left out: host-cached tables (ROADMAP A10), on which a plan raises, and
-``param_specs``.
+A FUSED_HOST_CACHED table is its sharding type (table-wise or
+data-parallel, one column shard) over the ``cache_rows`` rows its config
+gives it: ``tiered/`` maps its logical ids to cache slots on the host.
+
+Left out: ``param_specs``.
 """
 
 from __future__ import annotations
@@ -189,10 +192,17 @@ def classify_plan(
         hier_on = (bool(getattr(ps, "hier", False)) and hier_topo is not None
                    and allow_block_sharding)
         hier_factor = max(1.0, getattr(ps, "hier_factor", 1.0) or 1.0)
-        if ps.compute_kernel == EmbeddingComputeKernel.FUSED_HOST_CACHED:
-            raise NotImplementedError(
-                f"{cfg.name}: the host-cached kernel (FUSED_HOST_CACHED) "
-                "needs tiered storage, which is not ported (ROADMAP A10)")
+        if (ps.compute_kernel == EmbeddingComputeKernel.FUSED_HOST_CACHED
+                and not (st in (ShardingType.TABLE_WISE,
+                                ShardingType.DATA_PARALLEL)
+                         and ps.num_col_shards == 1)):
+            # a host-cached table is its sharding type over a table of
+            # cache_rows rows (tiered/): slot == row, or a write-back
+            # would persist partial rows
+            raise ValueError(
+                f"tiered cache table {cfg.name} must be TW or DP with a "
+                f"single column shard (slot == row); plan has "
+                f"{st} with {ps.num_col_shards} column shards")
         if ps.ranks is not None and any(not 0 <= r < world_size
                                         for r in ps.ranks):
             raise ValueError(f"{cfg.name}: ranks {ps.ranks} outside a world "

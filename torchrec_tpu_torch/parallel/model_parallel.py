@@ -566,6 +566,15 @@ class DistributedModelParallel:
         ranks: a collective at more than one rank; under REPLICATED each
         replica's own copy, under FULLY_SHARDED the slice that holds it).
         A single column shard only."""
+        return self.gather_row_state_tensor(state, table, rows,
+                                            opt_slots).cpu().numpy()
+
+    def gather_row_state_tensor(self, state: State, table: str, rows,
+                                opt_slots: Optional[Mapping[str, int]] = None
+                                ) -> torch.Tensor:
+        """:meth:`gather_row_state` left on the device: the packed rows as
+        a float32 ``[k, D + sum of widths]`` tensor, gathered on the
+        current stream."""
         self._single_column_shard(table, "gather_row_state")
         rows = np.ascontiguousarray(rows, np.int64)
         k = rows.size
@@ -588,23 +597,29 @@ class DistributedModelParallel:
         owners = self._row_owners_env()
         if name not in self.sharded_ebc.dp_groups and owners.world_size > 1:
             out = all_reduce_sum(out, owners, tag="row_state:all_reduce")
-        return out.cpu().numpy()
+        return out
 
     def scatter_row_state(self, state: State, table: str, rows, packed,
                           opt_slots: Optional[Mapping[str, int]] = None
                           ) -> State:
         """Inverse of :meth:`gather_row_state`: write packed ``[k, D +
-        widths]`` rows (weights, then each slot) into the live train
-        state, in place; each process writes the rows it holds."""
+        widths]`` rows (weights, then each slot; a host array or a tensor
+        on any device) into the live train state, in place, on the current
+        stream; each process writes the rows it holds."""
         self._single_column_shard(table, "scatter_row_state")
         rows = np.ascontiguousarray(rows, np.int64)
         name, idx, which = self._rows_here(table, rows)
         if not idx.numel():
             return state
         D = {c.name: c.embedding_dim for c in self.tables}[table]
-        p = torch.as_tensor(np.ascontiguousarray(packed, np.float32)
-                            ).reshape(rows.size, -1)[torch.as_tensor(which)]
-        p = p.to(self.device)
+        if isinstance(packed, torch.Tensor):
+            p = packed.to(self.device, torch.float32).reshape(rows.size, -1)
+        else:
+            p = torch.as_tensor(np.ascontiguousarray(packed, np.float32)
+                                ).reshape(rows.size, -1).to(self.device)
+        if which.size != rows.size or not (
+                which == np.arange(rows.size)).all():
+            p = p[torch.as_tensor(which, device=p.device)]
         t = state["tables"][name]
         t.index_copy_(0, idx, p[:, :D].to(t.dtype))
         off = D

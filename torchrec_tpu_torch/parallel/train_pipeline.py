@@ -50,10 +50,16 @@ package AOT-compiles one XLA program per signature).
 "tbe"|"dedup", "update": "tbe"|"dedup"}``, where the JAX package selects
 them process-wide around each compile.
 
+The bucketed pipelines carry a host hook pair: ``_preprocess_locals``
+runs on a step's local batches when they are queued (while the step
+before runs) and returns an aux that rides the queue entry;
+``_apply_aux`` hands it to the live state right before the entry's step
+(the semi-sync pipeline refuses an aux).  Both are no-ops here;
+``tiered/pipeline.py`` overrides them with the cache's remap and IO.
+
 Left out: the multi-device grouping of one process (one local batch a
-step here), buffer donation, the hierarchical parts of the overflow
-guard (ROADMAP A8) and the bucketed pipelines' aux hooks, which serve
-tiered storage (ROADMAP A10).
+step here), buffer donation and the hierarchical parts of the overflow
+guard (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -800,18 +806,33 @@ def _bucketize_locals(
 
 
 class _BucketedPipelineMixin:
-    """The bucketed pipelines' queue entries ``(device batch, signature)``
-    and counters."""
+    """The bucketed pipelines' queue entries ``(device batch, signature,
+    aux)``, their host preprocessing hooks and counters."""
 
     _cache: BucketedStepCache
+
+    def _preprocess_locals(self, locals_: List[Batch]
+                           ) -> Tuple[List[Batch], Any]:
+        """Hook: host preprocessing of a step's local batches before the
+        bucketing (the tiered cache's remap, ``tiered/pipeline.py``).  It
+        runs while the dispatched step executes; returns ``(locals_,
+        aux)``, and the aux rides the queue entry to :meth:`_apply_aux`."""
+        return locals_, None
+
+    def _apply_aux(self, state, aux):
+        """Hook: consume a queue entry's aux against the live state (the
+        cache's write-backs and fills) before the entry's batch reads any
+        table row."""
+        return state
 
     def _queue_item(self, it: Iterator[Batch]):
         locals_ = self._pull_locals_async(it)
         if locals_ is None:
             return None
+        locals_, aux = self._preprocess_locals(locals_)
         with span("pipeline/bucketize"):
             locals_, sig = _bucketize_locals(self._cache, locals_)
-        return self._stack_and_put(locals_), sig
+        return self._stack_and_put(locals_), sig, aux
 
     @property
     def stats(self) -> PaddingStats:
@@ -852,7 +873,9 @@ class BucketedTrainPipeline(_BucketedPipelineMixin, TrainPipelineSparseDist):
         self._fill(it)
         if not self._queue:
             raise StopIteration
-        batch, sig = self._queue.popleft()
+        batch, sig, aux = self._queue.popleft()
+        if aux is not None:
+            self.state = self._apply_aux(self.state, aux)
         self._cache.stats.record_dispatch(sig)
         step = self._cache.train_program(sig)
         with span("pipeline/step_dispatch", signature=list(sig)):
@@ -888,6 +911,17 @@ class BucketedTrainPipelineSemiSync(_BucketedPipelineMixin,
                  bucketing: Optional[BucketingConfig] = None):
         super().__init__(dmp, state)
         self._cache = BucketedStepCache(dmp, bucketing)
+
+    def _queue_item(self, it: Iterator[Batch]):
+        item = super()._queue_item(it)
+        if item is None:
+            return None
+        batch, sig, aux = item
+        if aux is not None:
+            # an aux's rows would land after the step ahead had embedded
+            # against the tables before them
+            raise TypeError("the semi-sync pipeline takes no aux")
+        return batch, sig
 
     def _embed(self, item):
         batch, sig = item

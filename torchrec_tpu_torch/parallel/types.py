@@ -5,14 +5,15 @@ with the JAX package's names and values, the plan dict, the planner's
 plan the planner gives a one-device world.
 
 What the runtime does with the planner's fields: a FUSED_HOST_CACHED
-table raises ``NotImplementedError`` (tiered storage, ROADMAP A10) in
-``classify_plan``; ``dedup`` on a ROW_WISE table compiles the dedup'd
+table is a table-wise or data-parallel table of its cache rows, whose
+ids ``tiered/`` remaps to cache slots (``classify_plan`` refuses any
+other layout for it); ``dedup`` on a ROW_WISE table compiles the dedup'd
 row-wise dist, its capacity sized by ``dedup_factor``; ``hier`` on a
 row-wise or block-shard table compiles the two-level ICI/DCN dists on a
 two-level world (``comm.ShardingEnv`` with ``num_slices``), their
 capacity sized by ``hier_factor``, and is ignored on a flat one, as in
-the JAX runtime; ``cache_load_factor`` sizes what the host-cached path
-would build.
+the JAX runtime; ``cache_load_factor`` sizes the host-cached table's cache
+(``tiered.tiered_tables_from_plan``).
 :class:`ShardingStrategy` is the weight strategy of 2D parallelism
 (``DMPCollection``).
 """

@@ -12,11 +12,11 @@
   ``StepWatchdog`` (the in-worker collective deadman timer) and
   ``TcpKVCommitBarrier`` (``elastic``);
 * deterministic fault injectors for every recovery path
-  (``fault_injection``).
-
-Left out: the online plan migration (``ReplanTrigger``,
-``PlanMigrator``), which comes with the health monitor it is triggered
-by (ROADMAP A9's second part).
+  (``fault_injection``);
+* online plan migration: ``ReplanTrigger`` and ``PlanMigrator``
+  (``migration``), a replan from live telemetry (``obs.HealthMonitor``)
+  and a live migration between plans with no committed step lost, rolled
+  back on any failure (``migration_demo`` is the drill's recipe).
 """
 
 from torchrec_tpu_torch.reliability.elastic import (
@@ -30,6 +30,12 @@ from torchrec_tpu_torch.reliability.elastic import (
     LocalShardPipeline,
     StepWatchdog,
     TcpKVCommitBarrier,
+)
+from torchrec_tpu_torch.reliability.migration import (
+    MigrationError,
+    MigrationReport,
+    PlanMigrator,
+    ReplanTrigger,
 )
 from torchrec_tpu_torch.reliability.train_loop import (
     FaultTolerantTrainLoop,
@@ -47,7 +53,11 @@ __all__ = [
     "FaultTolerantTrainLoop",
     "Heartbeat",
     "LocalShardPipeline",
+    "MigrationError",
+    "MigrationReport",
+    "PlanMigrator",
     "Preempted",
+    "ReplanTrigger",
     "RetryingIterator",
     "StepWatchdog",
     "TcpKVCommitBarrier",

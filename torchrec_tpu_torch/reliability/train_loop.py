@@ -31,6 +31,16 @@ them all back, leaving the state ``torch.equal`` to what it was.  The
 copies are gathers on the device and need no host sync; their bytes a
 step are ``StepUndoLog.nbytes``.
 
+The undo log is also a tiered pipeline's revert (``tiered/pipeline.py``):
+the log recorded the step's rows after the step's cache fills landed, so
+its restore keeps the fills and the host maps' claims consistent (the
+JAX loop re-applies the fills after putting the old state back).
+Every interval, final and preemption checkpoint first runs
+:meth:`FaultTolerantTrainLoop._quiesce`, which drains a
+pipeline's queued lookahead (``drain()``, where the pipeline has one):
+a tiered pipeline's host maps run ahead of the device while remapped
+batches are queued, and its collection refuses such a save.
+
 The guard reads the metrics on the host, which waits for each step's
 results.  Under a process group the ranks agree on the verdict (a MAX
 over ranks of the bad flag), so that no rank skips a step its peers
@@ -331,7 +341,8 @@ class FaultTolerantTrainLoop:
         self.checkpointer.wait()
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()  # the dispatched step's device work
-        self._checkpoint_save()
+        if self._quiesce():
+            self._checkpoint_save()
         self.checkpointer.wait()
         self.uninstall_signal_handlers()
         self._preempt_signal = None
@@ -545,10 +556,35 @@ class FaultTolerantTrainLoop:
                 self._collect_metrics()
             if (self.checkpoint_interval
                     and self.applied_steps % self.checkpoint_interval == 0):
-                self._checkpoint_save()
+                if self._quiesce():
+                    self._checkpoint_save()
             if self._migrator is not None:
                 self._migrator.maybe_migrate(self)
         return metrics
+
+    def _quiesce(self) -> bool:
+        """Run the queued lookahead steps out before a checkpoint
+        (``pipeline.drain()``, where the pipeline has one: a tiered
+        pipeline's host maps run ahead of the device while batches are
+        queued).  False when a drained step went bad: its update is
+        applied and cannot be undone alone, so the caller skips this save
+        (the last committed checkpoint stays the rollback target) and the
+        strikes count toward a rollback."""
+        drain = getattr(self.pipeline, "drain", None)
+        if drain is None:
+            return True
+        ok = True
+        for m in drain():
+            if self._is_bad(m):
+                ok = False
+                self._strikes += 1
+                if self._strikes >= self.max_consecutive_bad_steps:
+                    self._rollback()
+                    return False
+            else:
+                self._strikes = 0
+                self.applied_steps += 1
+        return ok
 
     def _rollback(self) -> None:
         self.checkpointer.wait()
@@ -590,7 +626,8 @@ class FaultTolerantTrainLoop:
             else:
                 # preemption wrote its own final checkpoint already
                 self.checkpointer.wait()
-                self._checkpoint_save()
+                if self._quiesce():
+                    self._checkpoint_save()
             self.checkpointer.wait()
         finally:
             # run() owns the exit: no signal-recording handler stays on a

@@ -2,11 +2,10 @@
 ``torchrec_tpu/utils/profiling.py``): :class:`annotate` (a phase on the
 profiler's timeline), :func:`method_logger`, the counter-key namespace,
 the bucketing pipeline's padding counters (:class:`PaddingStats`), the
-lookups' row-traffic ledger (:class:`KernelStats`) and a JSONL event log
-(:class:`EventLog`).
+lookups' row-traffic ledger (:class:`KernelStats`), the tiered-storage
+ledger (:class:`TieredStats`) and a JSONL event log (:class:`EventLog`).
 
-Left out: the tiered-storage ledger (``TieredStats``, ROADMAP A10) and
-``trace`` (``torch.profiler.profile`` is its counterpart)."""
+Left out: ``trace`` (``torch.profiler.profile`` is its counterpart)."""
 
 from __future__ import annotations
 
@@ -204,6 +203,118 @@ class KernelStats:
             out[counter_key(prefix, t, "per_id_rows")] = float(per_id)
             out[counter_key(prefix, t, "distinct_rows")] = float(distinct)
             out[counter_key(prefix, t, "hbm_row_bytes")] = float(nbytes)
+        return out
+
+
+class TieredStats:
+    """Counters of tiered embedding storage (``tiered/``): per table the
+    cache's lookup, hit, insert and eviction counts (the MPZCH counter
+    families' names), the host <-> card row traffic, and the prefetch
+    timing that shows whether host reads hid behind the steps.  Host
+    numbers only, recorded by ``TieredCollection`` and
+    ``TieredPrefetcher``; ``scalar_metrics`` exports them flat under
+    ``<prefix>/<table>/<counter>`` (:func:`counter_key`), which the
+    health monitor reads."""
+
+    _COUNTERS = (
+        "lookup_count", "hit_count", "insert_count", "eviction_count",
+        "fetch_rows", "writeback_rows", "staged_rows", "sync_fetch_rows",
+        "id_violations", "flush_count", "occupancy", "capacity",
+        "refreshed_rows",
+    )
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.per_table: Dict[str, Dict[str, float]] = {}
+        self.batches = 0
+        # prefetch timing: the background staging work, and the time the
+        # consumer blocked waiting for it (overlap = 1 - wait / stage)
+        self.stage_seconds = 0.0
+        self.wait_seconds = 0.0
+
+    def _t(self, table: str) -> Dict[str, float]:
+        acc = self.per_table.get(table)
+        if acc is None:
+            acc = {k: 0.0 for k in self._COUNTERS}
+            self.per_table[table] = acc
+        return acc
+
+    def record_remap(self, table: str, lookups: int, hits: int,
+                     inserts: int, evictions: int, occupancy: int) -> None:
+        acc = self._t(table)
+        acc["lookup_count"] += lookups
+        acc["hit_count"] += hits
+        acc["insert_count"] += inserts
+        acc["eviction_count"] += evictions
+        acc["occupancy"] = float(occupancy)
+
+    def record_capacity(self, table: str, cache_rows: int) -> None:
+        """A table's cache slots, so that ``scalar_metrics`` exports
+        ``occupancy_rate`` = occupancy / capacity."""
+        self._t(table)["capacity"] = float(cache_rows)
+
+    def record_violations(self, table: str, n: int) -> None:
+        """Invalid (out-of-range or negative) ids dropped before the
+        remap: they never claim a slot."""
+        self._t(table)["id_violations"] += n
+
+    def record_io(self, table: str, fetched: int, written_back: int,
+                  staged: int = 0, sync: int = 0) -> None:
+        acc = self._t(table)
+        acc["fetch_rows"] += fetched
+        acc["writeback_rows"] += written_back
+        acc["staged_rows"] += staged
+        acc["sync_fetch_rows"] += sync
+
+    def record_flush(self, table: str) -> None:
+        self._t(table)["flush_count"] += 1
+
+    def record_batch(self) -> None:
+        self.batches += 1
+
+    def record_stage(self, seconds: float) -> None:
+        self.stage_seconds += seconds
+
+    def record_wait(self, seconds: float) -> None:
+        self.wait_seconds += seconds
+
+    def hit_rate(self, table: Optional[str] = None) -> float:
+        """Cache hit rate over the id stream (one table, or all)."""
+        tables = [table] if table is not None else list(self.per_table)
+        hits = sum(self._t(t)["hit_count"] for t in tables)
+        looks = sum(self._t(t)["lookup_count"] for t in tables)
+        return hits / max(1.0, looks)
+
+    def prefetch_overlap_ratio(self) -> float:
+        """The share of background staging time hidden behind the steps:
+        1 - blocked wait / staged work, clamped to [0, 1] (1.0: every
+        host read was ready before its step needed it)."""
+        if self.stage_seconds <= 0.0:
+            return 0.0
+        return min(1.0, max(0.0, 1.0 - self.wait_seconds
+                            / self.stage_seconds))
+
+    def scalar_metrics(self, prefix: str = "tiered") -> Dict[str, float]:
+        """Flat scalars under ``<prefix>/<table>/<counter>`` and the
+        subsystem's aggregates."""
+        out: Dict[str, float] = {
+            f"{prefix}/batches": float(self.batches),
+            f"{prefix}/hit_rate": self.hit_rate(),
+            f"{prefix}/prefetch_overlap_ratio": self.prefetch_overlap_ratio(),
+            f"{prefix}/stage_seconds": self.stage_seconds,
+            f"{prefix}/wait_seconds": self.wait_seconds,
+        }
+        for t, acc in self.per_table.items():
+            for k, v in acc.items():
+                out[counter_key(prefix, t, k)] = float(v)
+            if acc["lookup_count"]:
+                out[counter_key(prefix, t, "hit_rate")] = (
+                    acc["hit_count"] / acc["lookup_count"])
+            if acc["capacity"]:
+                out[counter_key(prefix, t, "occupancy_rate")] = (
+                    acc["occupancy"] / acc["capacity"])
         return out
 
 
