@@ -19,6 +19,8 @@ all-to-alls, the sharded sequence step and ring attention.
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and fails (non-zero exit, no result line)
 without one, or when the ``torchrec_tpu_torch`` package is not beside it.
+``python3 chip_smoke.py --phases dynamic`` runs the kernels' build and the
+``dynamic`` phase alone (``--phases`` takes any of ``DEV_PHASES``).
 ``python3 chip_smoke.py --one-device-gap`` runs only the study of
 :func:`one_device_gap` (why a sharded run's tables part from the plain
 one-device step's); ``--build-study`` only :func:`build_study` (the
@@ -175,7 +177,7 @@ Phases, one JSON line each on stdout; any failure raises:
    card and on the CPU, scores compared.
 12. serving_tier (after roundtrip, before sharded; budget
    ``SERVING_TIER_BUDGET_S`` = 120 s, every check hard) — the DLRM of
-   phase 7 over the int8 MLPerf DLRM-v2 tables: the same 512 requests
+   phase 7 over the int8 MLPerf DLRM-v2 tables: the same 256 requests
    (8 client threads, B ≤ 256) through ``InferenceServer`` on the python
    queue, on the native queue, through ``NetworkInferenceServer`` (8
    ``PredictClient`` connections), through a ``BucketedInferenceServer
@@ -216,7 +218,7 @@ Phases, one JSON line each on stdout; any failure raises:
    ``model.pt2``'s graph holds each group's ``trt::`` operators (B1 and
    B4: one a feature) and nothing else reads a table; the package is
    under 64 MiB and its mutating operators write one buffer with no copy
-   of it; 512 single-example requests over 8 ``PredictClient``
+   of it; 256 single-example requests over 8 ``PredictClient``
    connections (closed loop, B <= 256, 2 ms flush, seed 0, uniform ids,
    the multi-hot caps) within ``rtol=1e-4, atol=1e-5`` of the eager
    module on the same batches, none NaN; the operator library's counts
@@ -250,11 +252,11 @@ Phases, one JSON line each on stdout; any failure raises:
    added in rank order); on the table-wise plan the dedup kernels' KT
    (B4) ``torch.equal`` to B1's; B1 (over the rank's received regions)
    and B2 (from the step's real gradient) ``torch.equal`` to their plain
-   versions and their card-alone times, ranks in turns; 1 warm-up and 3
-   timed steps (ms a step, each rank's B1 and B2 launches at least one a
+   versions and their card-alone times, ranks in turns; 1 warm-up and 1
+   timed step (ms a step, each rank's B1 and B2 launches at least one a
    step and nothing else, the wire bytes a step from the ledger); the
    trained tables, gathered by ``table_weights``, ``np.array_equal`` to a
-   one-device DMP's after the same 4 steps on the global batches, its
+   one-device DMP's after the same 2 steps on the global batches, its
    dense part run over the ranks' micro-batches (``one_device_run``), and
    the losses within ``PLAIN_LOSS_RTOL`` of the plain one-device
    ``train_step``'s on the global batches (its tables part from the
@@ -276,7 +278,7 @@ Phases, one JSON line each on stdout; any failure raises:
    not equal, the ledger's bytes the codec's, finite losses),
    ``dmp2d_replicated`` and ``dmp2d_fully_sharded`` (``DMPCollection`` over
    2 replicas of 2 model ranks, the planner's world-2 plan: B1/B2 against
-   their plain versions at each rank's shapes, 1 + 5 steps with
+   their plain versions at each rank's shapes, 1 + 1 steps with
    ``maybe_sync`` launching B1 and B2 and nothing else, the replicas
    ``torch.equal`` after each sync and apart between; FULLY_SHARDED: the
    replicas' forwards equal, the losses within ``PLAIN_LOSS_RTOL`` of the
@@ -388,12 +390,30 @@ Phases, one JSON line each on stdout; any failure raises:
    B4/B6 against plain at the cache stack; the loop arm (a NaN skip, and
    drain + checkpoint + resume) at 100,000 rows; see
    :func:`tiered_phase`.
-18. migrate (last; budget ``MIGRATE_BUDGET_S``) — ``migration_demo``'s
+18. migrate (after tiered; budget ``MIGRATE_BUDGET_S``) — ``migration_demo``'s
    recipe at bench widths on 2 gloo ranks sharing the card: the drift
    alarms the health monitor and the migrator flips the big table RW ->
    DP with no committed step lost, its state equal to a clean restart's
    under the new plan, no alert in a clean arm, and one supervised
    ``kill_mid_reshard`` drill; see :func:`migrate_phase`.
+19. dynamic (last; budget ``DYNAMIC_BUDGET_S``, every check hard) —
+   the dynamic side (``dynamic/``, ``modules/mc_modules.py``,
+   ``inference/freshness.py``, the hot-row cache): ``vocab`` (26
+   ``DynamicVocab``s of 100,000 slots in front of ``bench.py main()``'s
+   trainer, dynamic_bench's stream, 1 + 6 steps: losses, tables and
+   momentum ``torch.equal`` to an oracle that held the final map from
+   step 0, one B1 and one B2 a step, the path check), ``fresh`` (the
+   same trainer under ``FaultTolerantTrainLoop`` publishing a delta
+   generation at every checkpoint to a ``BucketedInferenceServer
+   (hot_rows=)`` replica: host tier and card caches ``torch.equal`` to
+   the trainer, served scores against a direct batch, 26 B4 a batch,
+   the torn, corrupt and clean publishes), ``zch`` (26 managed-collision
+   modules and a ``ParameterServer``: stored, reset and restored rows),
+   ``vocab_evict`` (8,192 slots: LFU, TTL, deferrals, KV rows) and
+   ``gate`` (``TieredCollection(vocab=)`` on B4/B6 against the sanitized
+   stream, checkpoint and resume); see :func:`dynamic_phase`.  The gloo
+   launch of ``sharded`` also runs ``zch_synced``
+   (:func:`zch_synced_stage`).
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
@@ -410,6 +430,8 @@ tables would not fit the run); the dense weights are random from a seed;
 the serving tier's BF16/FP16 rows are drawn from a seeded generator in
 their own dtype, and its kernel checks cap the tables at 5,000,000 rows
 (a float32 copy of the full BF16 tables, 104.5 GB, cannot be held); the
+eviction arm of ``dynamic`` puts 8,192 vocabulary slots in front of the
+bench table (at its 100,000 rows nothing evicts within the phase); the
 native serving arms cap the MLPerf DLRM-v2 tables at 100,000 rows, the
 bench's row count (921,198 rows: ``package_model`` writes them,
 ``export_native`` saves them again in ``model.pt2`` and the server reads
@@ -422,6 +444,7 @@ quantizes them.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import itertools
@@ -459,19 +482,24 @@ KERNEL_PATHS = {
                       "split", "qcomms", "dmp2d_replicated",
                       "dmp2d_fully_sharded", "models", "serving_tier",
                       "guarded", "dedup_rw", "ft_loop", "elastic",
-                      "reshard", "tiered", "migrate"],
+                      "reshard", "tiered", "migrate", "dynamic_vocab",
+                      "dynamic_fresh", "dynamic_zch", "dynamic_vocab_evict",
+                      "zch_synced"],
     "fused_sparse_update": ["train", "train_dcn", "app", "sharded", "split",
                             "qcomms", "dmp2d_replicated",
                             "dmp2d_fully_sharded", "models", "dedup_rw",
                             "ft_loop", "elastic", "reshard", "tiered",
-                            "migrate"],
+                            "migrate", "dynamic_vocab", "dynamic_fresh",
+                            "dynamic_zch", "dynamic_vocab_evict",
+                            "zch_synced"],
     "quant_pooled_lookup_int8": ["serving", "serving_tier"],
     "dedup_quant_pooled_lookup": ["serving", "serving_tier"],
     "dedup_pooled_lookup": ["train_dedup", "ebc", "serving_tier",
-                            "guarded", "dedup_rw", "ft_loop", "tiered"],
+                            "guarded", "dedup_rw", "ft_loop", "tiered",
+                            "dynamic_fresh", "dynamic_gate"],
     "dedup_fused_sparse_update": ["train_dedup", "sharded_ec", "seq",
                                   "seq_sharded", "guarded", "dedup_rw",
-                                  "ft_loop", "tiered"],
+                                  "ft_loop", "tiered", "dynamic_gate"],
 }
 REPLACES = {
     "pooled_lookup": "torchrec_tpu/ops/pallas_tbe.py:287",
@@ -494,7 +522,7 @@ DIM = 128
 NUM_DENSE = 13
 DENSE_ARCH = (512, 256, DIM)
 OVER_ARCH = (1024, 1024, 512, 256, 1)
-NUM_REQUESTS = 512
+NUM_REQUESTS = 256
 NUM_CLIENTS = 8
 SERVING_BATCH = 256
 BENCH_BATCH = 4096
@@ -5253,40 +5281,36 @@ def _native_op_checks(qebc, kjt):
     return rows
 
 
-def native_serving_arm(dev, tmp, quant, kernel, row_cap, ops, requests,
-                       model_sd, tcp):
-    """One arm of :func:`native_serving_phase`: package, export, check the
-    exported graph and the package, serve ``requests`` through
-    ``NativeInferenceServer`` over TCP, hold the scores to the eager
-    module's and each operator to its plain version.  Returns (its record,
-    its kernels' launches while serving)."""
+def _native_tables(row_cap):
+    """The serving DLRM's tables, each at most ``row_cap`` rows."""
+    from torchrec_tpu_torch.datasets.criteo import mlperf_dlrm_v2_tables
+
+    return tuple(dataclasses.replace(
+        c, num_embeddings=min(c.num_embeddings, row_cap))
+        for c in mlperf_dlrm_v2_tables(DIM))
+
+
+def _native_arm_name(quant, kernel):
+    return f"{quant}" + (f"_{kernel}" if kernel else "")
+
+
+def native_package_arm(dev, path, quant, kernel, row_cap, model_sd):
+    """Package and export one arm of :data:`NATIVE_ARMS` into ``path``:
+    its tables' float rows N(0, 0.05^2) drawn on the card from seed 0 and
+    quantized there by ``package_model`` (the artifact's tables are what
+    it writes), then ``export_native`` (``model.pt2`` and the
+    AOTInductor package).  Returns each step's seconds."""
     import torch
 
     from torchrec_tpu_torch.datasets.criteo import (
         DEFAULT_CAT_NAMES,
         MLPERF_DLRM_V2_MULTI_HOT,
-        mlperf_dlrm_v2_tables,
     )
-    from torchrec_tpu_torch.inference import (
-        NativeInferenceServer,
-        PredictClient,
-        export_native,
-        package_model,
-    )
-    from torchrec_tpu_torch.ops import custom_ops, tbe
-    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+    from torchrec_tpu_torch.inference import export_native, package_model
 
-    t_arm = time.perf_counter()
     features, caps = list(DEFAULT_CAT_NAMES), list(MLPERF_DLRM_V2_MULTI_HOT)
-    B, F = SERVING_BATCH, len(features)
-    tables = tuple(dataclasses.replace(
-        c, num_embeddings=min(c.num_embeddings, row_cap))
-        for c in mlperf_dlrm_v2_tables(DIM))
-    path = os.path.join(tmp, f"{quant}_{kernel or 'default'}")
-    name = f"{quant}" + (f"_{kernel}" if kernel else "")
+    tables = _native_tables(row_cap)
     seconds = {}
-    # float rows N(0, 0.05^2) drawn on the card, quantized there by
-    # package_model (the artifact's tables are what it writes)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     weights = {c.name: torch.randn((c.num_embeddings, DIM), generator=gen,
@@ -5300,9 +5324,40 @@ def native_serving_arm(dev, tmp, quant, kernel, row_cap, ops, requests,
     seconds["package"] = time.perf_counter() - t0
     del weights
     torch.cuda.empty_cache()
-    mani = export_native(path, batch_size=B, device=dev, lookup_kernel=kernel)
+    mani = export_native(path, batch_size=SERVING_BATCH, device=dev,
+                         lookup_kernel=kernel)
     seconds.update(mani["seconds"])
     torch.cuda.empty_cache()
+    return seconds
+
+
+def native_serving_arm(dev, path, quant, kernel, row_cap, ops, requests,
+                       seconds, tcp):
+    """One arm of :func:`native_serving_phase` over the artifact and
+    package that :func:`native_package_arm` wrote into ``path`` (its
+    steps' ``seconds``): check the exported graph and the package, serve
+    ``requests`` through ``NativeInferenceServer`` over TCP, hold the
+    scores to the eager module's and each operator to its plain version.
+    Returns (its record, its kernels' launches while serving)."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.criteo import (
+        DEFAULT_CAT_NAMES,
+        MLPERF_DLRM_V2_MULTI_HOT,
+    )
+    from torchrec_tpu_torch.inference import (
+        NativeInferenceServer,
+        PredictClient,
+    )
+    from torchrec_tpu_torch.ops import custom_ops, tbe
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    t_arm = time.perf_counter()
+    features, caps = list(DEFAULT_CAT_NAMES), list(MLPERF_DLRM_V2_MULTI_HOT)
+    B, F = SERVING_BATCH, len(features)
+    tables = _native_tables(row_cap)
+    name = _native_arm_name(quant, kernel)
+    seconds = dict(seconds)
     # the exported graph: each group's trt:: operators, the tables read by
     # nothing else; the package: no table inside, no copy of the KT
     t0 = time.perf_counter()
@@ -5443,48 +5498,131 @@ def native_serving_arm(dev, tmp, quant, kernel, row_cap, ops, requests,
     return rec, launches
 
 
-def native_serving_phase(dev, tcp):
+NATIVE_PREBUILD_NICE = 10  # the packaging child's priority below the run's
+
+
+def _native_model_sd():
+    """The serving DLRM's dense weights, the same in every arm (seed 0):
+    Inductor's caches serve the dense kernels after the first compile."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.criteo import mlperf_dlrm_v2_tables
+    from torchrec_tpu_torch.models.dlrm import DLRM
+
+    torch.manual_seed(0)
+    return DLRM(meta_ebc(mlperf_dlrm_v2_tables(DIM)), NUM_DENSE,
+                DENSE_ARCH, OVER_ARCH).state_dict()
+
+
+def native_prebuild(out_dir) -> None:
+    """``python3 chip_smoke.py --native-prebuild DIR``: every arm of
+    :data:`NATIVE_ARMS` packaged and exported
+    (:func:`native_package_arm`) into ``DIR/<arm>``, then its steps'
+    seconds into ``DIR/<arm>.json``, and the whole wall into
+    ``DIR/done.json``.  :func:`start_native_prebuild` runs it in a child
+    process beside the phases before ``native_serving``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from torchrec_tpu_torch.ops import _native
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    _native.load_libraries()
+    model_sd = _native_model_sd()
+    for quant, kernel, row_cap, _ in NATIVE_ARMS:
+        name = _native_arm_name(quant, kernel)
+        seconds = native_package_arm(dev, os.path.join(out_dir, name), quant,
+                                     kernel, row_cap, model_sd)
+        with open(os.path.join(out_dir, name + ".json"), "w") as f:
+            json.dump(seconds, f)
+    with open(os.path.join(out_dir, "done.json"), "w") as f:
+        json.dump({"seconds": time.perf_counter() - t0}, f)
+
+
+def start_native_prebuild():
+    """Start :func:`native_prebuild` in a child process: the four arms'
+    AOTInductor compiles (about two minutes of host work, most of it the
+    first compile's) then run beside the phases before ``native_serving``
+    instead of inside it.  The child runs at a lower priority
+    (``NATIVE_PREBUILD_NICE``) with one Inductor compile thread, so that
+    the phases it runs beside keep their cores; its work on the card is
+    the packaging's draws and quantization.  Returns (the child, its
+    directory); the caller ends the child and removes the directory."""
+    d = tempfile.mkdtemp(prefix="native_prebuild_")
+    env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="1")
+    with open(os.path.join(d, "log.txt"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--native-prebuild",
+             d], stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+            preexec_fn=lambda: os.nice(NATIVE_PREBUILD_NICE))
+    return proc, d
+
+
+def stop_native_prebuild(prebuild) -> None:
+    """End :func:`start_native_prebuild`'s child if it still runs, and
+    remove its directory."""
+    proc, d = prebuild
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def native_serving_phase(dev, tcp, prebuild):
     """Serving with no Python in the request path (budget
     ``NATIVE_SERVING_BUDGET_S``, every check hard): the DLRM of
     ``serving_tier`` through ``package_model`` -> ``export_native`` on the
     card -> ``NativeInferenceServer`` over TCP, one arm a lookup kernel
     (:data:`NATIVE_ARMS`).  ``tcp``: the serving tier's TCP record, set
-    beside each arm's figures.  Returns the arms' kernel launches."""
-    import torch
-
+    beside each arm's figures.  ``prebuild``: :func:`start_native_prebuild`'s
+    (child, directory), whose packages the arms serve; the phase waits for
+    the child first, and its seconds count that wait.  Returns the arms'
+    kernel launches."""
     from torchrec_tpu_torch.datasets.criteo import (
         DEFAULT_CAT_NAMES,
         MLPERF_DLRM_V2_MULTI_HOT,
         MLPERF_DLRM_V2_ROWS,
-        mlperf_dlrm_v2_tables,
     )
     from torchrec_tpu_torch.datasets.random import RandomRecDataset
-    from torchrec_tpu_torch.models.dlrm import DLRM
     from torchrec_tpu_torch.ops import tbe
 
     t_phase = time.perf_counter()
+    proc, pdir = prebuild
+    try:
+        rc = proc.wait(timeout=NATIVE_SERVING_BUDGET_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    wait_s = time.perf_counter() - t_phase
+    if rc != 0:
+        with open(os.path.join(pdir, "log.txt")) as f:
+            tail = f.read()[-4000:]
+        raise RuntimeError(f"the native packages' build ended with {rc} "
+                           f"after a {wait_s:.1f} s wait:\n{tail}")
+    with open(os.path.join(pdir, "done.json")) as f:
+        prebuild_s = json.load(f)["seconds"]
     features, caps = list(DEFAULT_CAT_NAMES), list(MLPERF_DLRM_V2_MULTI_HOT)
-    torch.manual_seed(0)
-    # the same dense weights in every arm: Inductor's caches serve the
-    # dense kernels after the first compile
-    model_sd = DLRM(meta_ebc(mlperf_dlrm_v2_tables(DIM)), NUM_DENSE,
-                    DENSE_ARCH, OVER_ARCH).state_dict()
     launches = dict.fromkeys(tbe.LAUNCHES, 0)
     recs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for quant, kernel, row_cap, ops in NATIVE_ARMS:
-            rows = [min(r, row_cap) for r in MLPERF_DLRM_V2_ROWS]
-            requests = _requests(next(iter(RandomRecDataset(
-                features, NUM_REQUESTS, rows, caps, num_dense=NUM_DENSE,
-                manual_seed=0, num_batches=1))), len(features))
-            rec, arm = native_serving_arm(dev, tmp, quant, kernel, row_cap,
-                                          ops, requests, model_sd, tcp)
-            recs.append(rec)
-            for k, v in arm.items():
-                launches[k] += v
+    for quant, kernel, row_cap, ops in NATIVE_ARMS:
+        rows = [min(r, row_cap) for r in MLPERF_DLRM_V2_ROWS]
+        requests = _requests(next(iter(RandomRecDataset(
+            features, NUM_REQUESTS, rows, caps, num_dense=NUM_DENSE,
+            manual_seed=0, num_batches=1))), len(features))
+        name = _native_arm_name(quant, kernel)
+        with open(os.path.join(pdir, name + ".json")) as f:
+            seconds = json.load(f)
+        rec, arm = native_serving_arm(dev, os.path.join(pdir, name), quant,
+                                      kernel, row_cap, ops, requests,
+                                      seconds, tcp)
+        recs.append(rec)
+        for k, v in arm.items():
+            launches[k] += v
     seconds = time.perf_counter() - t_phase
     emit({"phase": "native_serving_done", "seconds": seconds,
           "budget_s": NATIVE_SERVING_BUDGET_S,
+          "prebuild_wait_seconds": wait_s,
+          "prebuild_seconds": prebuild_s,
           "compile_seconds": {r["arm"]: r["seconds"].get("aoti_compile")
                               for r in recs},
           "launches": {k: v for k, v in launches.items() if v}})
@@ -5755,7 +5893,7 @@ def app_phase(dev):
 # ---------------------------------------------------------------------------
 
 SHARDED_RANKS = 4
-SHARDED_STEPS = 3  # timed, after one warm-up step (the run's time limit)
+SHARDED_STEPS = 1  # timed, after one warm-up step (the run's time limit)
 # column-wise runs inside "mixed" (the run's time limit took its own plan)
 SHARDED_PLANS = ("tw", "twrw", "mixed", "planned")  # rw: in mixed, planned
 SHARDED_TIMEOUT = 600
@@ -6084,7 +6222,7 @@ def _rank_device(device_type):
 
 
 # a development run's choices
-GLOO_STAGES = ("dedup_rw", "vbe", "hier", "reshard")
+GLOO_STAGES = ("dedup_rw", "vbe", "hier", "reshard", "zch_synced")
 
 
 def sharded_rank(kinds, device_type="cuda", only=None, ckpt_dir=None):
@@ -6270,6 +6408,11 @@ def sharded_rank(kinds, device_type="cuda", only=None, ckpt_dir=None):
                                              ckpt_dir)
         records += [rec] + kchecks
         add(counts)
+    if only is None or "zch_synced" in only:
+        torch.cuda.empty_cache()
+        rec, counts = zch_synced_stage(dev, env)
+        records.append(rec)
+        add(counts)
     if only is not None:
         return records, launches
     recs, counts, kchecks = sharded_stages(dev, env, caps, host, mine, refs)
@@ -6282,6 +6425,128 @@ def sharded_rank(kinds, device_type="cuda", only=None, ckpt_dir=None):
     add(counts)
     records.append(ring_stage(dev, env))
     return records, launches
+
+
+def zch_synced_stage(dev, env):
+    """``SyncedCollisionCollection`` across the launch's ranks: every rank
+    remaps its own batch of :func:`zch_stream` ids (one
+    ``MCHManagedCollisionModule(ZCH_SYNCED_SIZE)`` a table, LRU) against
+    the synced state and applies every eviction of the global stream
+    (``reset_table_rows``) to the tw plan's DMP, for 2 steps.  Checks:
+    each rank's remapped values ``np.array_equal`` to the single-process
+    remap of the concatenated global batch (rank order); on rank 0, the
+    trained tables ``np.array_equal`` to the one-device DMP's over the
+    global batches with the same resets (the micro-batched reference of
+    the plans, :func:`_micro_grads`).  Caps: 2 x B a feature (1-2 ids an
+    example).  Returns (record, launches)."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.utils import Batch
+    from torchrec_tpu_torch.modules.mc_modules import (
+        ManagedCollisionCollection,
+        MCHManagedCollisionModule,
+    )
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.multiprocess import (
+        SyncedCollisionCollection,
+    )
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    t0 = time.perf_counter()
+    r, N = env.rank, env.world_size
+    from torchrec_tpu_torch.parallel.types import (
+        ParameterSharding,
+        ShardingType,
+    )
+
+    keys, tables = bench_tables()
+    plan = sharded_plan("tw", tables, N)
+    caps = {k: 2 * TRAIN_BATCH for k in keys}
+
+    def mcc():
+        return ManagedCollisionCollection({
+            k: MCHManagedCollisionModule(ZCH_SYNCED_SIZE, f"t_{k}")
+            for k in keys})
+
+    stream = zch_stream(keys, TRAIN_BATCH, DYN_SEED + 4)
+    steps = [[next(stream) for _ in range(N)] for _ in range(2)]
+
+    def kjt_of(values, lengths):
+        return KeyedJaggedTensor.from_lengths_packed(
+            keys, values, lengths, caps=[caps[k] for k in keys])
+
+    synced = SyncedCollisionCollection(mcc())
+    dmp, state = sharded_dmp(dev, plan, TRAIN_BATCH, caps, env)
+    torch.cuda.synchronize()
+    tbe.reset_launch_counts()
+    remapped, evictions = [], []
+    for locals_ in steps:
+        values, lengths, dense, labels = locals_[r]
+        evs: list = []
+        (kjt,) = synced.remap_local([kjt_of(values, lengths)], evs)
+        for e in evs:
+            state = dmp.reset_table_rows(state, e.table, e.slots)
+        evictions.append(sum(len(e.slots) for e in evs))
+        remapped.append(kjt.values().numpy().copy())
+        state, _ = dmp.train_step(state, Batch(
+            torch.from_numpy(dense), kjt, torch.from_numpy(labels)).to(dev))
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    weights = dmp.table_weights(state)  # a collective
+    del dmp, state
+    torch.cuda.empty_cache()
+    # the single-process remap of the concatenated global batches
+    ref = mcc()
+    remap_equal = True
+    ref_steps = []
+    for s, locals_ in enumerate(steps):
+        per_rank = []
+        for q, (values, lengths, dense, labels) in enumerate(locals_):
+            k = kjt_of(values, lengths)
+            k2, evs = ref.remap_kjt(k)
+            per_rank.append((k2, evs, dense, labels))
+            if q == r:
+                remap_equal &= bool(np.array_equal(k2.values().numpy(),
+                                                   remapped[s]))
+        ref_steps.append(per_rank)
+    tables_equal = None
+    if r == 0:
+        one, st = sharded_dmp(
+            dev, {t: ParameterSharding(ShardingType.TABLE_WISE, ranks=[0])
+                  for t in plan}, N * TRAIN_BATCH,
+            {k: N * c for k, c in caps.items()})
+        for per_rank in ref_steps:
+            for _, evs, _, _ in per_rank:
+                for e in evs:
+                    st = one.reset_table_rows(st, e.table, e.slots)
+            mbs = [Batch(torch.from_numpy(d), k2, torch.from_numpy(lb)).to(dev)
+                   for k2, _, d, lb in per_rank]
+            gb = global_batch([Batch(torch.from_numpy(d), k2,
+                                     torch.from_numpy(lb))
+                               for k2, _, d, lb in per_rank]).to(dev)
+            kt, ctxs = one.sparse_forward(st, gb)
+            _, g_dense, grads = _micro_grads(one, st, kt, mbs)
+            one.sharded_ebc.backward_and_update_local(
+                st["tables"], st["fused"], ctxs, grads, one.fused_config)
+            one.dense_tx.update(st["dense"], g_dense, st["dense_opt"])
+            st["step"] += 1
+        ref_w = one.table_weights(st)
+        tables_equal = all(np.array_equal(weights[t], ref_w[t])
+                           for t in ref_w)
+        del one, st, ref_w
+        torch.cuda.empty_cache()
+    rec = {"phase": "zch_synced", "rank": r, "ranks": N, "note": ONE_CARD,
+           "zch_size": ZCH_SYNCED_SIZE, "batch_per_rank": TRAIN_BATCH,
+           "steps": len(steps), "evictions_per_step": evictions,
+           "remap_equal_single_process": remap_equal,
+           "tables_equal_one_device": tables_equal, "launches": counts,
+           "seconds": time.perf_counter() - t0,
+           "budget_s": ZCH_SYNCED_BUDGET_S}
+    if not (remap_equal and tables_equal is not False and evictions[-1]):
+        raise AssertionError(f"zch_synced rank {r} failed: {rec}")
+    if rec["seconds"] > ZCH_SYNCED_BUDGET_S:
+        raise AssertionError(f"zch_synced rank {r} took "
+                             f"{rec['seconds']:.1f} s")
+    return rec, counts
 
 
 # -- the sharded phase's later stages, in the same 4-rank launch ------------
@@ -6965,8 +7230,8 @@ def sharded_stages(dev, env, caps, host, mine, refs):
 # -- the dedup'd row-wise dist across the 4 ranks, in the same launch -------
 
 DEDUP_RW_BUDGET_S = 60
-DEDUP_RW_STEPS = 4  # every table row-wise: dedup'd against plain
-DEDUP_MIXED_STEPS = 3  # the mixed plan, guarded against unguarded
+DEDUP_RW_STEPS = 2  # every table row-wise: dedup'd against plain
+DEDUP_MIXED_STEPS = 2  # the mixed plan, guarded against unguarded
 # tests/test_dedup_lookup.py:316-323, the JAX package's dedup-vs-plain bound
 DEDUP_RW_RTOL, DEDUP_RW_ATOL = 1e-5, 1e-6
 DEDUP_POISON_KEY = "cat_0"  # a dedup'd row-wise key of the mixed plan
@@ -7792,7 +8057,7 @@ def vbe_stage(dev, env, caps, mine, ebc, mh):
 
 HIER_BUDGET_S = 60
 HIER_SLICES = 2
-HIER_STEPS = 2  # trained steps held to flat (the run's time limit)
+HIER_STEPS = 1  # trained steps held to flat (the run's time limit)
 # row-wise dedup runs inside "mixed" (the run's time limit)
 HIER_PLANS = ("twrw", "mixed")
 # the two-level plans' hier_factor: at 1 the DCN request buffer is the
@@ -8096,7 +8361,7 @@ def hier_stage(dev, caps, mine, mh):
 # -- live resharding across the 4 ranks, in the same launch ----------------
 
 RESHARD_BUDGET_S = 45
-RESHARD_STEPS = 3  # steps before the reshard, and after it on both DMPs
+RESHARD_STEPS = 1  # steps before the reshard, and after it on both DMPs
 
 
 def reshard_plan(tables, n):
@@ -8948,7 +9213,7 @@ FT_FLAKY = {11, 12}  # next() attempts that fail transiently (loop 1)
 FT_SIGTERM_AFTER = (13, 2)
 # the items whose updates survive: 5 and 6 are rolled back with 7-9
 FT_APPLIED = (0, 1, 2, 4, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19)
-FT_TIMED = 10  # steps timed with and without the loop and the log
+FT_TIMED = 3  # steps timed with and without the loop and the log
 FT_CORRUPT_FEATURE = 7  # the table whose file gets a flipped byte
 
 
@@ -9511,7 +9776,7 @@ TIERED_ZIPF_SEED = 29
 # the loop arm: the same tables cut to fewer rows, a smaller batch
 TIERED_LOOP_ROW_CAP = 100_000
 TIERED_LOOP_BATCH = 512
-TIERED_LOOP_BATCHES = 12
+TIERED_LOOP_BATCHES = 9
 TIERED_LOOP_NAN = 2  # the step call the NaN injector poisons
 TIERED_LOOP_EVERY = 3  # applied steps between the loop's checkpoints
 
@@ -10475,6 +10740,1234 @@ def migrate_phase(dev, device_type="cuda", kill_device=MIGRATE_DEVICE):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dynamic side: the vocabulary, managed collision, the parameter server
+# and the train -> publish -> serve freshness loop
+# ---------------------------------------------------------------------------
+
+DYNAMIC_BUDGET_S = 90
+DYN_STEPS = 6  # the vocab arm's steps after one warm-up step
+# dynamic_bench's stream (bench.py:2519-2553, its full configuration) at
+# B = 4096 a feature: Zipf(1.1) over a hot set of 12,000 ids sliding 150 a
+# step, rank -> id scatter, ids past any table's rows
+DYN_HOT, DYN_DRIFT, DYN_ZIPF = 12_000, 150, 1.1
+DYN_ID_BASE = 1 << 40
+DYN_ADMIT, DYN_WINDOW = 2, 2  # admit_threshold, window_steps
+DYN_SEED = 31
+# the freshness loop: a checkpoint (and a delta generation) every
+# FRESH_EVERY applied steps, FRESH_STEPS steps under the loop
+FRESH_EVERY, FRESH_STEPS = 2, 4
+FRESH_CACHE_ROWS = 16_384  # the replica's card cache, a table
+FRESH_REQUESTS = 256  # after each adoption: one formed batch
+# managed collision: every table a DistanceLFU ZCH module of the table's
+# rows; raw ids uniform over 2^60, 1-2 a feature, a twentieth from a fixed
+# hot set, so a table fills in 17 steps and evicts in the last two
+ZCH_STEPS = 19
+ZCH_HOT, ZCH_HOT_SHARE = 512, 0.05
+ZCH_RETURNING = 64  # evicted ids that come back, a table
+# the eviction arm: one vocabulary of EVICT_CAPACITY slots in front of one
+# bench table (at the table's 100,000 rows nothing evicts within a phase);
+# ids uniform over a window of EVICT_HOT sliding EVICT_DRIFT a step, more
+# distinct ids a batch than slots (so admissions defer), TTL 1 step
+EVICT_CAPACITY = 8_192
+EVICT_STEPS, EVICT_IDS = 5, 4  # steps, ids an example
+EVICT_HOT, EVICT_DRIFT, EVICT_TTL = 16_000, 2_000, 1
+# the gate arm: the tiered loop arm's tables and batch
+GATE_BATCHES, GATE_EVERY = 6, 2
+ZCH_SYNCED_BUDGET_S = 20
+ZCH_SYNCED_SIZE = 32_768  # fills in one step of 4 ranks, evicts in the next
+
+
+def dyn_init_fn(dim, scale=1.0 / float(np.sqrt(TRAIN_ROWS)), seed=DYN_SEED):
+    """The vocabularies' row init (``DynamicVocab(init_fn=)``): a pure
+    function of the global id, vectorized on the host, each (id, column)
+    hashed (splitmix64) to a uniform in ``[-scale, scale)``."""
+    cols = np.arange(dim, dtype=np.uint64)
+
+    def init(ids):
+        with np.errstate(over="ignore"):
+            z = (np.asarray(ids, np.int64).astype(np.uint64)[:, None]
+                 * np.uint64(0x9E3779B97F4A7C15)
+                 + cols[None, :] * np.uint64(0xBF58476D1CE4E5B9)
+                 + np.uint64(seed))
+            z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+            z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+            z ^= z >> np.uint64(31)
+        u = (z >> np.uint64(40)).astype(np.float64) / float(1 << 24)
+        return ((2.0 * u - 1.0) * scale).astype(np.float32)
+
+    return init
+
+
+def dyn_stream(keys, batch, seed):
+    """dynamic_bench's stream, one item a step: (raw ids by key ``[batch]``
+    int64, lengths by key ``[batch]`` (one id each), dense ``[batch, 13]``
+    f32, labels ``[batch]`` f32); key ``f``'s ids from its own disjoint
+    range past ``DYN_ID_BASE``."""
+    rng = np.random.RandomState(seed)
+    perms = [rng.permutation(DYN_HOT) for _ in keys]
+    s = 0
+    while True:
+        out = {}
+        for f, k in enumerate(keys):
+            r = (rng.zipf(DYN_ZIPF, size=batch) - 1) % DYN_HOT
+            out[k] = (np.int64(DYN_ID_BASE) + np.int64(f) * np.int64(1 << 36)
+                      + np.int64(s * DYN_DRIFT) + perms[f][r])
+        yield (out, {k: np.ones((batch,), np.int32) for k in keys},
+               rng.rand(batch, NUM_DENSE).astype(np.float32),
+               rng.randint(0, 2, size=(batch,)).astype(np.float32))
+        s += 1
+
+
+def _time_vocab_parts(vocab, acc):
+    """Accumulate the host seconds of a vocabulary's plan, commit, journal
+    and row init into ``acc`` (by wrapping its methods)."""
+    for name, part in (("_plan", "plan"), ("_commit", "commit"),
+                       ("_append_records", "journal"),
+                       ("_fetch_rows", "init")):
+        fn = getattr(vocab, name)
+
+        def timed(*a, fn=fn, part=part, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[part] = acc.get(part, 0.0) + time.perf_counter() - t0
+
+        setattr(vocab, name, timed)
+
+
+class VocabPipeline:
+    """The trainer over raw ids through a ``DynamicVocabCollection``, one
+    step a ``progress``: each table's lookup runs after the previous step
+    was queued on the card, so the rows it reads for the evicted slots
+    (``gather_row_state``, on the step's stream) are the trained ones; the
+    evicted rows are reset and the admitted ones written (``io.
+    fetch_rows``) before the step; the batch's weights are the admitted
+    masks (a pre-admission id pools slot 0 with weight 0); every touched
+    slot is credited to ``tracker`` when one is set.  ``progress(it)``
+    takes the next :func:`dyn_stream` item.  ``lookup_s``: the host
+    seconds of the lookups, ``last``: the last step's (batch, slots,
+    admitted, VocabIO by table)."""
+
+    def __init__(self, dmp, state, col, keys, dev):
+        self.dmp, self.state, self.col = dmp, state, col
+        self.keys, self.dev = keys, dev
+        self.tracker = None
+        self.lookup_s = []
+        self.last = None
+
+    def remap(self, item):
+        import torch
+
+        from torchrec_tpu_torch.datasets.utils import Batch
+        from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+        ids, lengths, dense, labels = item
+        dmp = self.dmp
+        slots, adm, ios = {}, {}, {}
+        t0 = time.perf_counter()
+        for k in self.keys:
+            t = f"t_{k}"
+            sl, a, io = self.col.tables[t].lookup(
+                ids[k], row_reader=lambda s, t=t: dmp.gather_row_state(
+                    self.state, t, s))
+            if io.evicted_slots.size:
+                dmp.reset_table_rows(self.state, t, io.evicted_slots)
+            if io.admitted_slots.size:
+                dmp.set_table_rows(self.state, t, io.admitted_slots,
+                                   io.fetch_rows)
+            if self.tracker is not None:
+                self.tracker.record(t, np.concatenate(
+                    [sl, io.admitted_slots, io.evicted_slots]))
+            slots[k], adm[k], ios[t] = sl, a, io
+        self.lookup_s.append(time.perf_counter() - t0)
+        kjt = KeyedJaggedTensor.from_lengths_packed(
+            self.keys, np.concatenate([slots[k] for k in self.keys]),
+            np.concatenate([lengths[k] for k in self.keys]),
+            weights=np.concatenate([adm[k].astype(np.float32)
+                                    for k in self.keys]),
+            caps=[dmp.feature_caps[k] for k in self.keys])
+        batch = Batch(torch.from_numpy(dense), kjt,
+                      torch.from_numpy(labels)).to(self.dev)
+        self.last = (batch, slots, adm, ios)
+        return batch
+
+    def progress(self, it):
+        batch = self.remap(next(it))
+        self.state, m = self.dmp.train_step(self.state, batch)
+        return m
+
+
+def _vocab_collection(tmp, name, keys, capacity, kv=True, **kw):
+    """A ``DynamicVocabCollection`` of one vocabulary a key (``t_<key>``),
+    its journals under ``tmp/name``, a ``file://`` KV each when ``kv``."""
+    from torchrec_tpu_torch.dynamic import DynamicVocab, DynamicVocabCollection
+
+    d = os.path.join(tmp, name)
+    os.makedirs(d, exist_ok=True)
+    return DynamicVocabCollection({
+        f"t_{k}": DynamicVocab(
+            f"t_{k}", capacity=capacity, dim=DIM,
+            journal_path=os.path.join(d, k),
+            admit_threshold=DYN_ADMIT, window_steps=DYN_WINDOW,
+            kv_url=(f"file://{d}/{k}.kv" if kv else None),
+            init_fn=dyn_init_fn(DIM), **kw)
+        for k in keys})
+
+
+def _table_tensors(dmp, state):
+    """Each table's weights as a view of its group stack on the card."""
+    return dmp.sharded_ebc.tables_to_weights(state["tables"])
+
+
+def dyn_vocab_arm(dev, tmp, card, stream):
+    """The vocabulary at ``bench.py main()``'s width (module docstring,
+    ``dynamic`` phase): 1 + ``DYN_STEPS`` steps of :class:`VocabPipeline`
+    over :func:`dyn_stream`, then the oracle, the launch counts, the
+    profile and the path check.  Returns (record, the trainer's pieces
+    for the freshness arm)."""
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+
+    t0 = time.perf_counter()
+    keys = [f"cat_{i}" for i in range(TRAIN_FEATURES)]
+    dmp, state, _ = build_trainer(dev, torch.float32)
+    start = _clone_state(state)
+    col = _vocab_collection(tmp, "vocab", keys, TRAIN_ROWS)
+    marks = {"setup": time.perf_counter() - t0}
+    parts: dict = {}
+    for v in col.tables.values():
+        _time_vocab_parts(v, parts)
+    pipe = VocabPipeline(dmp, state, col, keys, dev)
+    items = [next(stream) for _ in range(1 + DYN_STEPS)]
+    admit_step = {f"t_{k}": {} for k in keys}
+    admissions, losses = [], []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    tbe.reset_launch_counts()
+    t_steps = time.perf_counter()
+    for item in items:
+        m = pipe.progress(iter([item]))
+        losses.append(m["loss"])
+        n = 0
+        for t, v in col.tables.items():
+            for rec in v.drain_events():
+                if rec["op"] == "admit":
+                    admit_step[t][rec["id"]] = rec["step"]
+                    n += 1
+        admissions.append(n)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t_steps
+    marks["steps"] = steps_s
+    t_mark = time.perf_counter()
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    parts_main = dict(parts)
+    col.verify_consistency()
+    # the oracle: a fresh trainer holding the final id -> slot map from step
+    # 0 (the survivors' init rows at their final slots), the occurrences
+    # before an id's admission weighted 0
+    odmp, ostate, _ = build_trainer(dev, torch.float32)
+    final = {}
+    for k in keys:
+        t = f"t_{k}"
+        ids, slots = col.tables[t].assigned_items()  # ascending ids
+        at = np.asarray([admit_step[t][int(g)] for g in ids], np.int64)
+        final[k] = (ids, slots, at)
+        odmp.set_table_rows(ostate, t, slots, dyn_init_fn(DIM)(ids))
+    olosses = []
+    for s, (ids_by, lengths, dense, labels) in enumerate(items):
+        o_slots, o_w = [], []
+        for k in keys:
+            fid, fsl, fat = final[k]
+            raw = ids_by[k]
+            if not len(fid):
+                o_slots.append(np.zeros(len(raw), np.int64))
+                o_w.append(np.zeros(len(raw), np.float32))
+                continue
+            pos = np.minimum(np.searchsorted(fid, raw), len(fid) - 1)
+            hit = fid[pos] == raw
+            o_slots.append(np.where(hit, fsl[pos], 0))
+            o_w.append((hit & (fat[pos] <= s)).astype(np.float32))
+        from torchrec_tpu_torch.datasets.utils import Batch
+        from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+        kjt = KeyedJaggedTensor.from_lengths_packed(
+            keys, np.concatenate(o_slots),
+            np.concatenate([lengths[k] for k in keys]),
+            weights=np.concatenate(o_w),
+            caps=[odmp.feature_caps[k] for k in keys])
+        ostate, om = odmp.train_step(ostate, Batch(
+            torch.from_numpy(dense), kjt, torch.from_numpy(labels)).to(dev))
+        olosses.append(om["loss"])
+    losses_equal = all(bool(torch.equal(a, b))
+                       for a, b in zip(losses, olosses))
+    tables_equal = all(torch.equal(pipe.state["tables"][g], ostate["tables"][g])
+                       for g in ostate["tables"])
+    momentum_equal = all(
+        torch.equal(pipe.state["fused"][g]["momentum"],
+                    ostate["fused"][g]["momentum"]) for g in ostate["fused"])
+    moved = sum(int((pipe.state["tables"][g] != start["tables"][g])
+                    .any(dim=1).sum()) for g in start["tables"])
+    del odmp, ostate, start
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    path = train_path_check(dmp, pipe.state, pipe.last[0], None,
+                            phase="dynamic_vocab_path_check")
+    marks["oracle_and_path_check"] = time.perf_counter() - t_mark
+    t_mark = time.perf_counter()
+    # the step's kernels by a profile, on the last batch (the remap is host
+    # work: its wall is the step's, the card's share is the train step's)
+    last = pipe.last[0]
+    profiled = _profiled_kernels(lambda: dmp.train_step(pipe.state, last))
+    prof = profile_calls({"phase": "dynamic_vocab_profile", "card": card,
+                          "batch": TRAIN_BATCH},
+                         lambda: dmp.train_step(pipe.state, last), 1, "step")
+    busy = prof["device_busy_ms_per_step"]
+    marks["profile"] = time.perf_counter() - t_mark
+    metrics = col.scalar_metrics()
+    occ = [metrics[f"vocab/t_{k}/occupancy"] for k in keys]
+    looked = sum(metrics[f"vocab/t_{k}/lookup_count"] for k in keys)
+    nulled = sum(metrics[f"vocab/t_{k}/null_routed_total"] for k in keys)
+    n_steps = len(items)
+    rec = {"phase": "dynamic_vocab", "card": card, "tables": len(keys),
+           "rows": TRAIN_ROWS, "batch": TRAIN_BATCH,
+           "capacity": TRAIN_ROWS, "admit_threshold": DYN_ADMIT,
+           "window_steps": DYN_WINDOW, "hot": DYN_HOT, "drift": DYN_DRIFT,
+           "steps": n_steps, "losses": [float(x) for x in losses],
+           "oracle_losses_equal": losses_equal,
+           "oracle_tables_equal": tables_equal,
+           "oracle_momentum_equal": momentum_equal,
+           "rows_moved": moved, "launches": counts,
+           "profiled_launches_one_step": profiled,
+           "admissions_per_step": admissions,
+           "occupancy_min_max": [min(occ), max(occ)],
+           "null_routed_share": nulled / max(1.0, looked),
+           "vocab_host_ms_per_step": 1e3 * float(np.mean(
+               pipe.lookup_s[:n_steps])),
+           "vocab_host_ms_per_step_by_part": {
+               p: 1e3 * s / n_steps for p, s in parts_main.items()},
+           "step_wall_ms": 1e3 * steps_s / n_steps,
+           "card_ms_per_step": busy,
+           "device_idle_share": (None if busy is None else
+                                 1.0 - busy / (1e3 * steps_s / n_steps)),
+           "arm_seconds": marks, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not (losses_equal and tables_equal and momentum_equal and moved):
+        raise AssertionError(f"dynamic vocab != its oracle: {rec}")
+    if counts != {"pooled_lookup": n_steps, "fused_sparse_update": n_steps} \
+            or profiled != {"pooled_lookup": 1, "fused_sparse_update": 1}:
+        raise AssertionError(f"dynamic vocab: {n_steps} steps launched "
+                             f"{counts}, profiled {profiled}")
+    if not sum(admissions) or max(occ) >= TRAIN_ROWS:
+        raise AssertionError(f"dynamic vocab: admissions {admissions}, "
+                             f"occupancy {occ}")
+    return rec, path, (dmp, pipe, col, keys)
+
+
+class _HotDlrm:
+    """A replica's serving function over hot-row caches: each feature's
+    lookup over its table's card cache (``pooled_embedding_lookup`` on
+    ``kernel``, else the registry's: B4 in the server's dedup programs,
+    which take the ``with_lookup_kernel`` view), then the trainer DLRM's
+    dense side (``forward_from_embeddings``) with the replica's copy of
+    the dense parameters, ``dense`` (a dict the views share).
+    ``fn(dense, kjt, caches) -> logits [B]``."""
+
+    def __init__(self, dmp, keys, dense, kernel=None):
+        self.device = dmp.device
+        self.dmp, self.keys = dmp, keys
+        self.dense = dense
+        self.kernel = kernel
+
+    def with_lookup_kernel(self, kernel):
+        """The same function and dense dict with its lookups on
+        ``kernel``."""
+        return _HotDlrm(self.dmp, self.keys, self.dense, kernel)
+
+    def __call__(self, dense_features, kjt, caches):
+        import torch
+
+        from torchrec_tpu_torch.ops.embedding_ops import (
+            pooled_embedding_lookup,
+            resolve_lookup_kernel,
+        )
+        from torchrec_tpu_torch.sparse import KeyedTensor
+
+        B = dense_features.shape[0]
+        segs = kjt.segment_ids()
+        co = kjt.cap_offsets()
+        kernel = resolve_lookup_kernel(self.kernel)
+        pooled = []
+        for f, k in enumerate(self.keys):
+            pooled.append(pooled_embedding_lookup(
+                caches[f"t_{k}"], kjt.values()[co[f]:co[f + 1]],
+                segs[co[f]:co[f + 1]] - f * B, B, kernel=kernel))
+        kt = KeyedTensor(self.keys, [DIM] * len(self.keys),
+                         torch.cat(pooled, dim=1))
+        with torch.no_grad():
+            logits = torch.func.functional_call(
+                self.dmp._dense_forward,
+                {f"model.{k}": v for k, v in self.dense.items()},
+                (dense_features, kt))
+        return logits.reshape(-1)
+
+
+def _fresh_requests(rng, stream_item, views, keys, n):
+    """``n`` single-example requests drawn from a stream item, each raw id
+    mapped through the replica's ``VocabView`` (an id it does not hold is
+    left out, as its weight would be 0): (dense [n, 13] f32, request-major
+    flat slot ids, lengths [n, F] i32, the requests as ``predict`` takes
+    them)."""
+    ids_by, _, dense, _ = stream_item
+    rows = rng.choice(len(dense), size=n, replace=False)
+    lengths = np.zeros((n, len(keys)), np.int32)
+    per_req = [[None] * len(keys) for _ in range(n)]
+    for f, k in enumerate(keys):
+        slots, adm = views[f"t_{k}"].lookup(ids_by[k][rows])
+        for i in range(n):
+            per_req[i][f] = slots[i:i + 1][adm[i:i + 1]]
+            lengths[i, f] = int(adm[i])
+    flat = np.concatenate([x for req in per_req for x in req]).astype(
+        np.int64)
+    d = dense[rows]
+    return d, flat, lengths, [(d[i], per_req[i]) for i in range(n)]
+
+
+def _fresh_check(srv, fn, dmp, state, hot, req, dev):
+    """One formed batch of the requests through the server's batch path
+    (``_run_batch``: the hot-row remap, the bucketed dedup program) and the
+    same batch at the same shapes straight over the trainer's tables:
+    (served scores, direct scores, max abs diff)."""
+    from torchrec_tpu_torch.ops.embedding_ops import trace_kernels
+
+    d, flat, lengths, _ = req
+    n = len(d)
+    served, _ = srv._run_batch(n, d, flat, lengths)
+    sig = srv.cache.resolve(srv.cache.signature(n, lengths.sum(axis=0)))
+    dense_t, kjt = srv._device_inputs(n, d, flat, lengths, sig[0],
+                                      list(sig[1]))
+    tables = _table_tensors(dmp, state)
+    with trace_kernels(pooled="pallas_dedup"):
+        direct = fn(dense_t, kjt, tables)[:n].float().cpu().numpy()
+    return served, direct, float(np.abs(served - direct).max())
+
+
+def _tier_equal(hot, dmp, state, dev):
+    """(each table's host tier ``torch.equal`` to the trainer's rows, its
+    resident card-cache rows ``torch.equal`` to the host tier's rows)."""
+    import torch
+
+    tw = _table_tensors(dmp, state)
+    host_ok = cache_ok = True
+    caches = hot.device_caches()
+    for t, tbl in hot.tables.items():
+        # a RAM tier's rows in place (no host copy), else a copy
+        array = getattr(tbl.store, "array", None)
+        rows = (array[:, :tbl.embedding_dim] if array is not None
+                else tbl.host_weights_view())
+        host = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+        host_ok &= bool(torch.equal(host, tw[t].float()))
+        ids, slots = tbl.resident_items()
+        if ids.size:
+            i = torch.as_tensor(ids, device=dev)
+            s = torch.as_tensor(slots, device=dev)
+            cache_ok &= bool(torch.equal(caches[t][s], host[i]))
+    return host_ok, cache_ok
+
+
+def dyn_fresh_arm(dev, tmp, card, stream, trainer):
+    """The freshness loop at full width, continuing the vocab arm's trainer
+    (``trainer``: its DMP, pipeline, vocabularies and keys): a
+    ``FaultTolerantTrainLoop`` over the pipeline checkpoints every
+    ``FRESH_EVERY`` applied steps with ``Checkpointer(vocab=)`` and
+    publishes each checkpoint's touched rows and vocabulary events
+    (``attach_delta_publisher(DeltaPublisher, TouchedRowTracker, vocab)``)
+    for ``FRESH_STEPS`` steps; one replica (``BucketedInferenceServer(
+    hot_rows=HotRowServingCache.from_host_weights(the trainer's tables at
+    the loop's start, FRESH_CACHE_ROWS), dedup="pallas_dedup")`` over the
+    trainer's dense weights, its ``DeltaSubscriber`` with a ``VocabView``
+    a table) adopts each generation.  Then one more step and the drills:
+    a publisher killed before its manifest, a corrupt chunk, a clean
+    republish.  Returns (record, the served steps' launches)."""
+    import copy
+
+    import torch
+
+    from torchrec_tpu_torch.checkpoint import Checkpointer
+    from torchrec_tpu_torch.dynamic import VocabView
+    from torchrec_tpu_torch.inference.bucketed_serving import (
+        BucketedInferenceServer,
+        HotRowServingCache,
+    )
+    from torchrec_tpu_torch.inference.freshness import (
+        DeltaPublisher,
+        DeltaSubscriber,
+    )
+    from torchrec_tpu_torch.obs.registry import MetricsRegistry
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.production import TouchedRowTracker
+    from torchrec_tpu_torch.reliability import FaultTolerantTrainLoop
+    from torchrec_tpu_torch.reliability.fault_injection import (
+        CrashMidPublishPublisher,
+        SimulatedCrash,
+    )
+
+    t0 = time.perf_counter()
+    fm = dict.fromkeys(("bootstrap", "loop_steps", "adopt_and_checks",
+                        "profile_and_b4", "closed_loop", "drills"), 0.0)
+    dmp, pipe, col, keys = trainer
+    rng = np.random.RandomState(DYN_SEED + 1)
+    ddir = os.path.join(tmp, "deltas")
+    # the replica bootstraps from the trainer at the loop's start
+    weights0 = dmp.table_weights(pipe.state)
+    t_boot = time.perf_counter()
+    hot = HotRowServingCache.from_host_weights(
+        weights0, {t: FRESH_CACHE_ROWS for t in weights0},
+        {k: f"t_{k}" for k in keys}, device=dev)
+    del weights0
+    boot_s = time.perf_counter() - t_boot
+    views = {}
+    for t, v in col.tables.items():
+        ids, slots = v.assigned_items()
+        views[t] = VocabView(v.capacity)
+        views[t].apply_events([{"op": "admit", "id": int(g), "slot": int(s),
+                                "step": 0} for g, s in zip(ids, slots)])
+    registry = MetricsRegistry()
+    sub = DeltaSubscriber(ddir, hot.tables, hot_rows=hot, metrics=registry,
+                          vocabs=views)
+    fn = _HotDlrm(dmp, keys, {k: v.clone()
+                              for k, v in pipe.state["dense"].items()})
+    srv = BucketedInferenceServer(
+        fn, keys, [1] * len(keys), NUM_DENSE, max_batch_size=SERVING_BATCH,
+        max_latency_us=2000, dedup="pallas_dedup", hot_rows=hot)
+    # the copy-on-write fills: their ms a batch, and the remap's
+    fills, remaps = [], []
+    write = hot._write_slots
+    process = hot.process
+
+    def timed_write(*a, **k):
+        t1 = time.perf_counter()
+        write(*a, **k)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        fills.append(time.perf_counter() - t1)
+
+    def timed_process(*a, **k):
+        t1 = time.perf_counter()
+        out = process(*a, **k)
+        remaps.append(time.perf_counter() - t1)
+        return out
+
+    hot._write_slots, hot.process = timed_write, timed_process
+    srv.warmup()
+    srv.start(num_executors=1)
+    fm["bootstrap"] = time.perf_counter() - t0
+    tracker = TouchedRowTracker()
+    pipe.tracker = tracker
+    publisher = DeltaPublisher(ddir)
+    pub_s, pub_rows = [], []
+    inner_publish = publisher.publish
+
+    def timed_publish(step, deltas, vocab_events=None):
+        t1 = time.perf_counter()
+        try:
+            return inner_publish(step, deltas, vocab_events=vocab_events)
+        finally:
+            pub_s.append(time.perf_counter() - t1)
+            pub_rows.append(sum(len(i) for i, _ in deltas.values()))
+
+    publisher.publish = timed_publish
+    ck = Checkpointer(os.path.join(tmp, "fresh_ckpt"), keep_last_n=1,
+                      async_save=True, vocab=col)
+    loop = FaultTolerantTrainLoop(pipe, ck, dmp,
+                                  checkpoint_interval=FRESH_EVERY,
+                                  resume=False, checkpoint_on_start=False)
+    loop.attach_delta_publisher(publisher, tracker, col)
+    gens, problems = [], []
+
+    def serve(req):
+        return srv._run_batch(len(req[0]), req[0], req[1], req[2])[0]
+
+    def adopt_and_serve(label):
+        """Poll; then the host tier and the caches against the trainer,
+        and a formed batch against the direct one."""
+        t_adopt = t1 = time.perf_counter()
+        adopted = sub.poll()
+        adopt_s = time.perf_counter() - t1
+        fn.dense.update({k: v.clone()
+                         for k, v in pipe.state["dense"].items()})
+        host_ok, cache_ok = _tier_equal(hot, dmp, pipe.state, dev)
+        req = _fresh_requests(rng, next(stream), views, keys,
+                              FRESH_REQUESTS)
+        served, direct, diff = _fresh_check(srv, fn, dmp, pipe.state, hot,
+                                            req, dev)
+        flat = registry.flat()
+        g = {"label": label, "adopted": adopted, "adopt_seconds": adopt_s,
+             "generation": sub.generation, "applied_step": sub.applied_step,
+             "host_tier_equal_trainer": host_ok,
+             "cache_rows_equal_host": cache_ok,
+             "max_abs_diff_vs_direct": diff,
+             "scores_within_tol": bool(np.allclose(served, direct,
+                                                   **SCORE_TOL)),
+             "all_finite": bool(np.isfinite(served).all()),
+             "staleness_steps": flat.get(
+                 f"freshness/t_{keys[0]}/staleness_steps")}
+        gens.append(g)
+        if not (adopted and host_ok and cache_ok and g["scores_within_tol"]
+                and g["all_finite"]):
+            problems.append(g)
+        fm["adopt_and_checks"] += time.perf_counter() - t_adopt
+        return req
+
+    it = stream
+    train_counts: dict = {}
+    for target in range(FRESH_EVERY, FRESH_STEPS + 1, FRESH_EVERY):
+        tbe.reset_launch_counts()
+        t1 = time.perf_counter()
+        while loop.applied_steps < target:
+            loop.progress(it)
+        for k, v in tbe.launch_counts().items():
+            train_counts[k] = train_counts.get(k, 0) + v
+        ck.wait()
+        fm["loop_steps"] += time.perf_counter() - t1
+        req = adopt_and_serve(f"step_{target}")
+        if sub.applied_step != target:
+            problems.append({"applied_step": sub.applied_step,
+                             "target": target})
+    # the profiled batch: 26 B4 over the caches and no other pooled kernel
+    t1 = time.perf_counter()
+    names = _device_kernel_names(lambda: serve(req))
+    b4 = sum("dedup_pooled_kernel" in n for n in names)
+    other_pooled = sum(("tbe_pooled_kernel" in n) or ("q8_pooled" in n)
+                       or ("dedup_q_pool" in n) for n in names)
+    batch_prof = profile_calls({"phase": "dynamic_fresh_profile",
+                                "card": card, "batch": FRESH_REQUESTS},
+                               lambda: serve(req), 3, "batch")
+    # B4 against its plain version on one feature's cache at the formed
+    # batch's shapes
+    sig = srv.cache.resolve(srv.cache.signature(
+        len(req[0]), req[2].sum(axis=0)))
+    slot_ids = hot.remap(req[1], req[2], srv.features)
+    _, kjt = srv._device_inputs(len(req[0]), req[0], slot_ids, req[2],
+                                sig[0], list(sig[1]))
+    cache0 = hot.device_caches()[f"t_{keys[0]}"]
+    co = kjt.cap_offsets()
+    ids0, segs0 = kjt.values()[co[0]:co[1]], kjt.segment_ids()[co[0]:co[1]]
+    got = tbe.dedup_pooled_lookup(cache0, ids0, segs0, sig[0])
+    ref = tbe.dedup_pooled_lookup_plain(cache0, ids0, segs0, sig[0])
+    b4_equal = bool(torch.equal(got, ref))
+    b4_err = float((got - ref).abs().max())
+    # 8 closed-loop clients over the replica
+    fm["profile_and_b4"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    clients = _fresh_requests(rng, next(stream), views, keys,
+                              NUM_REQUESTS)[3]
+    tbe.reset_launch_counts()
+    scores, lat, wall = _serve(srv, clients)
+    served_counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    errors = srv.metrics.flat().get("serving/executor_error_count", 0.0)
+    # the drills, after one more trained step: the same formed batch served
+    # before and after each failed publish
+    fm["closed_loop"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    loop.progress(it)
+    ck.wait()
+    pub_step = loop.applied_steps
+    deltas = copy.deepcopy(tracker).drain(dmp, pipe.state)
+    events = col.drain_events()
+    drill_req = _fresh_requests(rng, next(stream), views, keys,
+                                FRESH_REQUESTS)
+    before = serve(drill_req)
+    torn = CrashMidPublishPublisher(DeltaPublisher(ddir), "before_manifest")
+    crashed = False
+    try:
+        torn.publish(pub_step, deltas, events)
+    except SimulatedCrash:
+        crashed = True
+    torn_adopted = sub.poll()
+    after_torn = serve(drill_req)
+    bad = CrashMidPublishPublisher(DeltaPublisher(ddir), "corrupt_chunk")
+    bad.publish(pub_step, deltas, events)
+    bad_adopted = sub.poll()
+    after_bad = serve(drill_req)
+    flat = registry.flat()
+    rollbacks = flat.get("freshness/rollback_count", 0.0)
+    stale_bad = flat.get(f"freshness/t_{keys[0]}/staleness_steps")
+    # the clean republish: the real drain, the same events
+    DeltaPublisher(ddir).publish(pub_step, tracker.drain(dmp, pipe.state),
+                                 events)
+    adopt_and_serve("clean_republish")
+    g_clean = gens[-1]
+    srv.stop()
+    ck.wait()
+    fm["drills"] = time.perf_counter() - t1
+    rec = {"phase": "dynamic_fresh", "card": card, "tables": len(keys),
+           "cache_rows": FRESH_CACHE_ROWS, "every": FRESH_EVERY,
+           "loop_steps": FRESH_STEPS, "generations": gens,
+           "bootstrap_seconds": boot_s, "publish_seconds": pub_s,
+           "rows_per_generation": pub_rows,
+           "profiled_b4_launches": b4, "profiled_other_pooled": other_pooled,
+           "b4_equal_plain": b4_equal, "b4_max_abs_err": b4_err,
+           "clients": NUM_CLIENTS, "requests": len(clients),
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "requests_per_s": len(clients) / wall,
+           "closed_loop_all_finite": bool(np.isfinite(scores).all()),
+           "executor_errors": errors, "closed_loop_launches": served_counts,
+           "loop_launches": {k: v for k, v in train_counts.items() if v},
+           "hot_row_remap_ms": 1e3 * float(np.median(remaps)),
+           "cache_fill_ms": 1e3 * float(np.median(fills)) if fills else None,
+           "cache_fills": len(fills),
+           "serving_cache_hit_rate": hot.stats.hit_rate(),
+           "batch_device_idle_share": batch_prof["device_idle_share"],
+           "torn_publish_crashed": crashed, "torn_adopted": torn_adopted,
+           "torn_scores_equal": bool(np.array_equal(after_torn, before)),
+           "corrupt_adopted": bad_adopted,
+           "corrupt_scores_equal": bool(np.array_equal(after_bad, before)),
+           "rollback_count": rollbacks, "staleness_after_corrupt": stale_bad,
+           "republish_adopted": g_clean["adopted"],
+           "staleness_after_republish": g_clean["staleness_steps"],
+           "arm_seconds": fm, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    ok = (not problems and b4 == len(keys) and not other_pooled and b4_equal
+          and rec["closed_loop_all_finite"] and not errors and crashed
+          and not torn_adopted and rec["torn_scores_equal"]
+          and not bad_adopted and rec["corrupt_scores_equal"]
+          and rollbacks >= 1 and (stale_bad or 0) > 0
+          and g_clean["staleness_steps"] == 0.0 and len(pub_rows) >= 2
+          and rec["loop_launches"] == {"pooled_lookup": FRESH_STEPS,
+                                       "fused_sparse_update": FRESH_STEPS}
+          and set(served_counts) == {"dedup_pooled_lookup"})
+    if not ok:
+        raise AssertionError(f"dynamic fresh failed: {rec}; {problems}")
+    launches = dict(served_counts)
+    for k, v in train_counts.items():
+        launches[k] = launches.get(k, 0) + v
+    return rec, launches
+
+
+
+
+def zch_stream(keys, batch, seed):
+    """``examples/zch/main.py``'s raw ids, one item a step: (values
+    key-major int64, lengths ``[F * batch]`` of 1 or 2, dense, labels);
+    a ``ZCH_HOT_SHARE`` of the ids from a fixed hot set of ``ZCH_HOT`` a
+    key, the rest uniform over ``[0, 2^60)``."""
+    rng = np.random.RandomState(seed)
+    hot = rng.randint(0, 1 << 60, size=(len(keys), ZCH_HOT)).astype(np.int64)
+    while True:
+        lengths = rng.randint(1, 3, size=(len(keys) * batch,)).astype(
+            np.int32)
+        per_key = lengths.reshape(len(keys), batch).sum(axis=1)
+        vals = []
+        for f, n in enumerate(per_key):
+            fresh = rng.randint(0, 1 << 60, size=int(n)).astype(np.int64)
+            pick = rng.rand(int(n)) < ZCH_HOT_SHARE
+            vals.append(np.where(pick, hot[f, rng.randint(0, ZCH_HOT,
+                                                          size=int(n))],
+                                 fresh))
+        yield (np.concatenate(vals), lengths,
+               rng.rand(batch, NUM_DENSE).astype(np.float32),
+               rng.randint(0, 2, size=(batch,)).astype(np.float32))
+
+
+def dyn_zch_arm(dev, tmp, card):
+    """Managed collision at full width: ``bench.py main()``'s trainer (caps
+    2 x B a feature) behind a ``ManagedCollisionCollection`` of 26
+    ``MCHManagedCollisionModule(TRAIN_ROWS, distance_lfu)`` and a
+    ``ParameterServer`` on ``file://`` stores, ``ZCH_STEPS`` steps of
+    :func:`zch_stream`.  Every eviction: its rows stored by
+    ``flush_evictions`` ``torch.equal`` to the trained rows
+    (``gather_row_state`` after the step's update), then reset to zero;
+    then ``ZCH_RETURNING`` evicted ids a table come back and
+    ``restore_assigned`` writes their stored rows; one B1 and one B2 a
+    step.  Returns the record."""
+    import torch
+
+    from torchrec_tpu_torch.datasets.utils import Batch
+    from torchrec_tpu_torch.dynamic import ParameterServer
+    from torchrec_tpu_torch.modules.mc_modules import (
+        ManagedCollisionCollection,
+        MCHManagedCollisionModule,
+    )
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.ops.fused_update import FusedOptimConfig
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    t0 = time.perf_counter()
+    keys, tables = bench_tables()
+    caps = {k: 2 * TRAIN_BATCH for k in keys}
+    from torchrec_tpu_torch.models.dlrm import DLRM
+
+    dmp = DistributedModelParallel(
+        DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+             dense_dtype=torch.bfloat16), tables, table_wise_plan(tables),
+        TRAIN_BATCH, caps, fused_config=FusedOptimConfig(
+            learning_rate=TRAIN_LR), dense_optimizer=adagrad(TRAIN_LR),
+        device=dev)
+    state = dmp.init(torch.Generator(device=dev).manual_seed(0))
+    mcc = ManagedCollisionCollection({
+        k: MCHManagedCollisionModule(TRAIN_ROWS, f"t_{k}",
+                                     eviction_policy="distance_lfu")
+        for k in keys})
+    ps = ParameterServer.from_urls(
+        {f"t_{k}": f"file://{tmp}/zch_{k}.kv" for k in keys},
+        {f"t_{k}": DIM for k in keys})
+    stream = zch_stream(keys, TRAIN_BATCH, DYN_SEED + 2)
+    evicted_by_step, remap_s, flush_s = [], [], []
+    stored_ok = reset_ok = True
+    last_evicted = {}  # table -> the ids the last remap evicted
+
+    def remap(values, lengths):
+        nonlocal state, stored_ok, reset_ok
+        t1 = time.perf_counter()
+        slots, evs = mcc.remap_packed(keys, values, lengths)
+        remap_s.append(time.perf_counter() - t1)
+        n = 0
+        last_evicted.clear()
+        for e in evs:
+            t1 = time.perf_counter()
+            ps.flush_evictions(dmp, state, e.table, e)
+            flush_s.append(time.perf_counter() - t1)
+            trained = dmp.gather_row_state(state, e.table, e.slots)
+            rows, found = ps.stores[e.table].get(e.global_ids)
+            stored_ok &= bool(found.all() and np.array_equal(rows, trained))
+            state = dmp.reset_table_rows(state, e.table, e.slots)
+            reset_ok &= not dmp.gather_row_state(state, e.table,
+                                                 e.slots).any()
+            last_evicted[e.table] = e.global_ids
+            n += len(e.global_ids)
+        return slots, n
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    tbe.reset_launch_counts()
+    losses = []
+    for _ in range(ZCH_STEPS):
+        values, lengths, dense, labels = next(stream)
+        slots, n = remap(values, lengths)
+        evicted_by_step.append(n)
+        kjt = KeyedJaggedTensor.from_lengths_packed(keys, slots, lengths,
+                                                    caps=[caps[k]
+                                                          for k in keys])
+        state, m = dmp.train_step(state, Batch(
+            torch.from_numpy(dense), kjt, torch.from_numpy(labels)).to(dev))
+        losses.append(m["loss"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    # ids the last step evicted come back: fresh slots, their stored rows
+    # restored
+    restore_ok, restore_s, returned = True, [], 0
+    gone = dict(last_evicted)
+    for f, k in enumerate(keys):
+        t = f"t_{k}"
+        back = np.asarray(gone.get(t, [])[:ZCH_RETURNING], np.int64)
+        if not back.size:
+            restore_ok = False
+            continue
+        lengths = np.zeros((len(keys) * len(back),), np.int32)
+        lengths[f * len(back):(f + 1) * len(back)] = 1
+        slots, _ = remap(back, lengths)
+        t1 = time.perf_counter()
+        state = ps.restore_assigned(dmp, state, t, back, slots)
+        got = dmp.gather_row_state(state, t, slots)
+        restore_s.append(time.perf_counter() - t1)
+        want, found = ps.stores[t].get(back)
+        restore_ok &= bool(found.all() and np.array_equal(got, want))
+        returned += len(back)
+    tables_evicting = sum(
+        mcc.modules[k].eviction_count > 0 for k in keys)
+    rec = {"phase": "dynamic_zch", "card": card, "tables": len(keys),
+           "zch_size": TRAIN_ROWS, "policy": "distance_lfu",
+           "batch": TRAIN_BATCH, "steps": ZCH_STEPS,
+           "hot_share": ZCH_HOT_SHARE, "evicted_per_step": evicted_by_step,
+           "tables_evicting": tables_evicting,
+           "stored_rows_equal_trained": stored_ok,
+           "reset_rows_zero": reset_ok,
+           "returning_ids": returned, "restored_rows_equal_stored": restore_ok,
+           "launches": counts,
+           "all_finite": bool(np.isfinite([float(x) for x in losses]).all()),
+           "remap_ms_per_step": 1e3 * float(np.mean(remap_s[:ZCH_STEPS])),
+           "flush_ms_per_eviction_batch": (1e3 * float(np.mean(flush_s))
+                                           if flush_s else None),
+           "restore_ms_per_table": 1e3 * float(np.mean(restore_s)),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not (stored_ok and reset_ok and restore_ok and returned
+            and tables_evicting == len(keys) and rec["all_finite"]):
+        raise AssertionError(f"dynamic zch failed: {rec}")
+    if counts != {"pooled_lookup": ZCH_STEPS,
+                  "fused_sparse_update": ZCH_STEPS}:
+        raise AssertionError(f"dynamic zch: {ZCH_STEPS} steps launched "
+                             f"{counts}")
+    return rec
+
+
+def dyn_evict_arm(dev, tmp, card):
+    """The vocabulary's eviction path: one ``DynamicVocab`` of
+    ``EVICT_CAPACITY`` slots (TTL ``EVICT_TTL``) in front of one bench
+    table of ``TRAIN_ROWS`` x 128 with a ``file://`` KV, ``EVICT_STEPS``
+    steps of ``EVICT_IDS`` ids an example uniform over a window of
+    ``EVICT_HOT`` ids sliding ``EVICT_DRIFT`` a step.  Checks: occupancy
+    below the capacity at every step, admissions deferred and counted,
+    LFU and TTL evictions, each evicted id's KV row ``torch.equal`` to its
+    trained row (the table before the lookup), each readmitted id's row
+    after the write ``torch.equal`` to the row it left with.  Returns the
+    record."""
+    import torch
+
+    from torchrec_tpu_torch.models.dlrm import DLRM
+    from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.ops.fused_update import FusedOptimConfig
+    from torchrec_tpu_torch.optim import adagrad
+    from torchrec_tpu_torch.parallel.model_parallel import (
+        DistributedModelParallel,
+    )
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+
+    t0 = time.perf_counter()
+    keys = ["cat_0"]
+    tables = (EmbeddingBagConfig(num_embeddings=TRAIN_ROWS, embedding_dim=DIM,
+                                 name="t_cat_0", feature_names=["cat_0"]),)
+    dmp = DistributedModelParallel(
+        DLRM(meta_ebc(tables), NUM_DENSE, DENSE_ARCH, OVER_ARCH,
+             dense_dtype=torch.bfloat16), tables, table_wise_plan(tables),
+        TRAIN_BATCH, {"cat_0": EVICT_IDS * TRAIN_BATCH},
+        fused_config=FusedOptimConfig(learning_rate=TRAIN_LR),
+        dense_optimizer=adagrad(TRAIN_LR), device=dev)
+    state = dmp.init(torch.Generator(device=dev).manual_seed(0))
+    col = _vocab_collection(tmp, "evict", keys, EVICT_CAPACITY,
+                            ttl_steps=EVICT_TTL)
+    v = col.tables["t_cat_0"]
+    pipe = VocabPipeline(dmp, state, col, keys, dev)
+    rng = np.random.RandomState(DYN_SEED + 3)
+    left = {}  # evicted id -> the row it left with (on the card)
+    kv_ok = readmit_ok = True
+    occ, readmitted = [], 0
+    tbe.reset_launch_counts()
+    for s in range(EVICT_STEPS):
+        ids = (np.int64(DYN_ID_BASE) + np.int64(s * EVICT_DRIFT)
+               + rng.randint(0, EVICT_HOT, size=EVICT_IDS * TRAIN_BATCH))
+        item = ({"cat_0": ids},
+                {"cat_0": np.full((TRAIN_BATCH,), EVICT_IDS, np.int32)},
+                rng.rand(TRAIN_BATCH, NUM_DENSE).astype(np.float32),
+                rng.randint(0, 2, size=(TRAIN_BATCH,)).astype(np.float32))
+        before = _table_tensors(dmp, pipe.state)["t_cat_0"].clone()
+        batch = pipe.remap(item)
+        io = pipe.last[3]["t_cat_0"]
+        if io.evicted_ids.size:
+            rows, found = v.kv.get(io.evicted_ids)
+            sl = torch.as_tensor(io.evicted_slots, device=dev)
+            trained = before[sl]
+            kv_ok &= bool(found.all()) and bool(torch.equal(
+                torch.from_numpy(rows).to(dev), trained))
+            for g, i in zip(io.evicted_ids.tolist(), range(len(sl))):
+                left[g] = trained[i]
+        back = [(g, s_) for g, s_ in zip(io.admitted_ids.tolist(),
+                                         io.admitted_slots.tolist())
+                if g in left]
+        if back:
+            got = torch.from_numpy(dmp.gather_row_state(
+                pipe.state, "t_cat_0", [s_ for _, s_ in back])).to(dev)
+            want = torch.stack([left.pop(g) for g, _ in back])
+            readmit_ok &= bool(torch.equal(got, want))
+            readmitted += len(back)
+        del before
+        pipe.state, _ = dmp.train_step(pipe.state, batch)
+        occ.append(v.occupancy)
+    counts = {k: v_ for k, v_ in tbe.launch_counts().items() if v_}
+    v.verify_consistency()
+    m = v.scalar_metrics("vocab")
+    rec = {"phase": "dynamic_vocab_evict", "card": card,
+           "capacity": EVICT_CAPACITY, "rows": TRAIN_ROWS,
+           "batch": TRAIN_BATCH, "ids_per_example": EVICT_IDS,
+           "window": EVICT_HOT, "drift": EVICT_DRIFT, "ttl_steps": EVICT_TTL,
+           "steps": EVICT_STEPS, "occupancy": occ,
+           "evicted_lfu": m["vocab/t_cat_0/evicted_lfu_total"],
+           "evicted_ttl": m["vocab/t_cat_0/evicted_ttl_total"],
+           "deferred": m["vocab/t_cat_0/admission_deferred_total"],
+           "kv_rows_equal_trained": kv_ok, "readmitted": readmitted,
+           "readmitted_rows_equal": readmit_ok, "launches": counts,
+           "vocab_host_ms_per_step": 1e3 * float(np.mean(pipe.lookup_s)),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not (kv_ok and readmit_ok and readmitted and rec["evicted_lfu"]
+            and rec["evicted_ttl"] and rec["deferred"]
+            and max(occ) < EVICT_CAPACITY
+            and counts == {"pooled_lookup": EVICT_STEPS,
+                           "fused_sparse_update": EVICT_STEPS}):
+        raise AssertionError(f"dynamic vocab eviction failed: {rec}")
+    col.close()
+    return rec
+
+
+def dyn_gate_arm(dev, tmp, card):
+    """Gate mode at the tiered loop arm's size (``TIERED_LOOP_ROW_CAP``
+    rows, ``TIERED_LOOP_BATCH`` a batch, the five host-cached MLPerf
+    DLRM-v2 tables): ``TieredCollection(vocab=)`` with one gate-mode
+    ``DynamicVocab`` a host-cached table, trained on B4/B6 through
+    ``TieredTrainPipeline`` under a ``FaultTolerantTrainLoop`` with
+    ``Checkpointer(tiered=, vocab=)`` every ``GATE_EVERY`` steps, over
+    ``GATE_BATCHES`` batches.  Checks: each gated KJT's values and
+    weights ``torch.equal`` to the ungated collection's on the same ids
+    with the un-admitted ones made invalid; the gated run's losses,
+    logical tables, slots and dense state ``torch.equal`` to the ungated
+    run on that sanitized stream; a fresh world restored from the first
+    checkpoint has each vocabulary at its pinned generation (the remap
+    saved with it) and, resumed, ends ``torch.equal`` to the gated run,
+    whose vocabularies restarted at each checkpoint (their advisory
+    sightings, which no checkpoint holds, lost at the same step).
+    Returns the record."""
+    import dataclasses
+
+    import torch
+
+    from torchrec_tpu_torch.checkpoint import Checkpointer
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel.types import table_wise_plan
+    from torchrec_tpu_torch.reliability import FaultTolerantTrainLoop
+    from torchrec_tpu_torch.tiered import (
+        TieredCollection,
+        TieredTrainPipeline,
+        tiered_tables_from_plan,
+    )
+
+    t0 = time.perf_counter()
+    keys, rows, caps, batches = tiered_batches(
+        TIERED_LOOP_ROW_CAP, TIERED_LOOP_BATCH, GATE_BATCHES)
+    _, _, _, cached = tiered_names()
+    logical, names_to_keys, plan, _, cache_tables, inits = _tiered_tables(
+        dev, keys, rows, cached, TIERED_LOOP_BATCH)
+    caps_d = dict(zip(keys, caps))
+    ref_dmp, ref_state = _dcn_dmp(dev, logical, table_wise_plan(logical),
+                                  TIERED_LOOP_BATCH, caps_d)
+    dense0 = {k: v.clone() for k, v in ref_state["dense"].items()}
+    del ref_dmp, ref_state
+    vdir = os.path.join(tmp, "gate_vocab")
+
+    def vocabs():
+        from torchrec_tpu_torch.dynamic import (
+            DynamicVocab,
+            DynamicVocabCollection,
+        )
+
+        return DynamicVocabCollection({
+            t: DynamicVocab(t, capacity=TIERED_LOOP_ROW_CAP, dim=DIM,
+                            journal_path=os.path.join(vdir, t),
+                            admit_threshold=DYN_ADMIT,
+                            window_steps=DYN_WINDOW, keep_generations=4)
+            for t in names_to_keys})
+
+    def world(col):
+        dmp, st = _dcn_dmp(dev, cache_tables, plan, TIERED_LOOP_BATCH, caps_d)
+        _reset_state(dmp, st, inits, dense0, skip=set(names_to_keys))
+        host_inits = {t: (lambda s, e, f=inits[t]: f(s, e).cpu().numpy())
+                      for t in names_to_keys}
+        tabs = tiered_tables_from_plan(plan, logical, dmp.fused_config,
+                                       init_fns=host_inits)
+        coll = TieredCollection(tabs, {k: t for t, k in names_to_keys.items()},
+                                vocab=col)
+        pipe = TieredTrainPipeline(dmp, st, coll, _tiered_bucketing())
+        outs, losses = [], []
+        process = coll.process_group
+        record = pipe._record_step
+
+        def capture(kjts):
+            out = process(kjts)
+            outs.append([(k.values().clone(), k.weights_or_none().clone())
+                         for k in out[0]])
+            return out
+
+        def record_step(batch, metrics):
+            losses.append(metrics["loss"])
+            return record(batch, metrics)
+
+        coll.process_group, pipe._record_step = capture, record_step
+        return dmp, coll, pipe, outs, losses
+
+    def finish(step, it):
+        while True:
+            try:
+                step(it)
+            except StopIteration:
+                break
+
+    def snapshot(dmp, coll, pipe):
+        st = pipe.state
+        views = _table_views(dmp, st)
+        return ({t: coll.logical_table_rows(dmp, st, t) for t in coll.tables},
+                {t: (w.clone(), m.clone()) for t, (w, m) in views.items()
+                 if t not in coll.tables},
+                {k: v.clone() for k, v in st["dense"].items()})
+
+    def same(a, b):
+        return (all(np.array_equal(a[0][t], b[0][t]) for t in a[0])
+                and all(torch.equal(a[1][t][0], b[1][t][0])
+                        and torch.equal(a[1][t][1], b[1][t][1])
+                        for t in a[1])
+                and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+
+    ckdir = os.path.join(tmp, "gate_ckpt")
+    # (1) the gated run under the loop; the remaps the checkpoints pin.  At
+    # each checkpoint the run's vocabularies restart (reopened from their
+    # journals): the sketch and Bloom sightings are advisory and not
+    # journaled, so a restore resumes from the pinned remap with none of
+    # them, and the run it is held to has lost them at the same step
+    col1 = vocabs()
+    pinned = {}
+    payload = col1.checkpoint_payload
+
+    def pin():
+        out = payload()
+        pinned[len(pinned)] = {t: v.assigned_items()
+                               for t, v in col1.tables.items()}
+        col1.close()
+        col1.tables.update(vocabs().tables)
+        coll1.vocab.update(col1.tables)
+        return out
+
+    col1.checkpoint_payload = pin
+    dmp1, coll1, pipe1, outs1, losses1 = world(col1)
+    ck1 = Checkpointer(ckdir, keep_last_n=4, tiered=coll1, vocab=col1)
+    tbe.reset_launch_counts()
+    loop1 = FaultTolerantTrainLoop(pipe1, ck1, dmp1,
+                                   checkpoint_interval=GATE_EVERY,
+                                   checkpoint_on_start=False)
+    finish(loop1.progress, iter(batches))
+    pipe1.drain()
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    saved = ck1.steps()
+    first = saved[0]
+    s1 = snapshot(dmp1, coll1, pipe1)
+    metrics = col1.scalar_metrics()
+    nulled = sum(metrics[f"vocab/{t}/null_routed_total"] for t in col1.tables)
+    looked = sum(metrics[f"vocab/{t}/lookup_count"] for t in col1.tables)
+    pipe1.close()
+    col1.close()
+    del dmp1, coll1, pipe1, loop1
+    # the sanitized stream: the gated run's un-admitted ids made invalid
+    key_pos = {k: f for f, k in enumerate(keys)}
+    sanitized = []
+    for b, out in zip(batches, outs1):
+        kjt = b.sparse_features
+        values = kjt.values().numpy().copy()
+        w = out[0][1].cpu().numpy()
+        lens = kjt.lengths().numpy()
+        lo, co = kjt._length_offsets(), kjt.cap_offsets()
+        for k in names_to_keys.values():
+            f = key_pos[k]
+            m = int(lens[lo[f]:lo[f + 1]].sum())
+            seg = values[co[f]:co[f] + m]
+            seg[w[co[f]:co[f] + m] == 0.0] = -1
+        sanitized.append(dataclasses.replace(b, sparse_features=kjt.with_values(
+            torch.from_numpy(values).to(kjt.values().dtype))))
+    # (2) the ungated run over the sanitized stream
+    dmp2, coll2, pipe2, outs2, losses2 = world(None)
+    finish(pipe2.progress, iter(sanitized))
+    pipe2.drain()
+    s2 = snapshot(dmp2, coll2, pipe2)
+    pipe2.close()
+    del dmp2, coll2, pipe2
+    kjt_equal = len(outs1) == len(outs2) and all(
+        torch.equal(a[0][0], b[0][0]) and torch.equal(a[0][1], b[0][1])
+        for a, b in zip(outs1, outs2))
+    losses_equal = len(losses1) == len(losses2) and all(
+        bool(torch.equal(a, b)) for a, b in zip(losses1, losses2))
+    # (3) a fresh world restored from the first checkpoint, resumed
+    col3 = vocabs()
+    dmp3, coll3, pipe3, _, _ = world(col3)
+    ck3 = Checkpointer(ckdir, tiered=coll3, vocab=col3)
+    pipe3.state = ck3.restore(dmp3, first)
+    pipe3.invalidate_prefetch()
+    pin_equal = all(
+        np.array_equal(col3.tables[t].assigned_items()[0], ids)
+        and np.array_equal(col3.tables[t].assigned_items()[1], slots)
+        for t, (ids, slots) in pinned[0].items())
+    finish(pipe3.progress, iter(batches[first:]))
+    pipe3.drain()
+    s3 = snapshot(dmp3, coll3, pipe3)
+    pipe3.close()
+    col3.close()
+    del dmp3, coll3, pipe3
+    rec = {"phase": "dynamic_gate", "card": card,
+           "row_cap": TIERED_LOOP_ROW_CAP, "batch": TIERED_LOOP_BATCH,
+           "batches": GATE_BATCHES, "gated_tables": sorted(names_to_keys),
+           "checkpoints": saved, "resumed_from": first,
+           "null_routed_share": nulled / max(1.0, looked),
+           "gated_kjt_equal_sanitized": kjt_equal,
+           "gated_losses_equal_sanitized": losses_equal,
+           "gated_state_equal_sanitized": same(s1, s2),
+           "restored_vocab_at_pinned_generation": pin_equal,
+           "resume_equals_restart_at_checkpoint": same(s3, s1),
+           "launches": counts,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not (kjt_equal and losses_equal and rec["gated_state_equal_sanitized"]
+            and pin_equal and rec["resume_equals_restart_at_checkpoint"]
+            and 0 < nulled < looked and first < GATE_BATCHES):
+        raise AssertionError(f"dynamic gate failed: {rec}")
+    steps = len(losses1)
+    if counts != {"dedup_pooled_lookup": steps,
+                  "dedup_fused_sparse_update": steps}:
+        raise AssertionError(f"dynamic gate: {steps} steps launched "
+                             f"{counts}")
+    return rec
+
+
+def dynamic_phase(dev):
+    """The dynamic side at full width (budget ``DYNAMIC_BUDGET_S``, every
+    check hard; module docstring): the ``vocab`` arm
+    (:func:`dyn_vocab_arm`), the ``fresh`` arm continuing its trainer
+    (:func:`dyn_fresh_arm`), then ``zch`` (:func:`dyn_zch_arm`),
+    ``vocab_evict`` (:func:`dyn_evict_arm`) and ``gate``
+    (:func:`dyn_gate_arm`), in a temporary directory the phase removes.
+    Returns (the main paths' launches, the vocab arm's path check)."""
+    import torch
+
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    tmp = tempfile.mkdtemp(prefix="dynamic_")
+    launches: dict = {}
+    try:
+        keys = [f"cat_{i}" for i in range(TRAIN_FEATURES)]
+        stream = dyn_stream(keys, TRAIN_BATCH, DYN_SEED)
+        vocab, path, trainer = dyn_vocab_arm(dev, tmp, card, stream)
+        fresh, served = dyn_fresh_arm(dev, tmp, card, stream, trainer)
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        zch = dyn_zch_arm(dev, tmp, card)
+        evict = dyn_evict_arm(dev, tmp, card)
+        gate = dyn_gate_arm(dev, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for counts in (vocab["launches"], zch["launches"], served,
+                   evict["launches"], gate["launches"]):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    rec = {"phase": "dynamic_done", "card": card,
+           "arm_seconds": {"vocab": vocab["seconds"],
+                           "fresh": fresh["seconds"], "zch": zch["seconds"],
+                           "vocab_evict": evict["seconds"],
+                           "gate": gate["seconds"]},
+           "launches": launches, "seconds": time.perf_counter() - t0,
+           "budget_s": DYNAMIC_BUDGET_S}
+    emit(rec)
+    if rec["seconds"] > DYNAMIC_BUDGET_S:
+        raise AssertionError(f"dynamic took {rec['seconds']:.1f} s")
+    return launches, path
+
+
 def registers_record():
     """The registers a thread of every B2 and B6 instantiation uses, by
     optimizer and table dtype, at D = 128 (the narrow layout, bounded to
@@ -10552,6 +12045,9 @@ def main() -> None:
               "since_start": time.perf_counter() - t0})
         return out
 
+    # the native serving arms' packages build beside the phases before it
+    prebuild = start_native_prebuild()
+    atexit.register(stop_native_prebuild, prebuild)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     emit(registers_record())
     kernel_rows = timed(kernel_phase, dev, flush)
@@ -10571,13 +12067,15 @@ def main() -> None:
     serve_launches, _, path_rows = timed(serving_phase, dev)
     timed(roundtrip_phase, dev)
     tier_launches, tier_rows, tier_tcp = timed(serving_tier_phase, dev)
-    native_launches = timed(native_serving_phase, dev, tier_tcp)
+    native_launches = timed(native_serving_phase, dev, tier_tcp, prebuild)
+    stop_native_prebuild(prebuild)
     sharded_launches, sharded_checks = timed(sharded_phase)
     elastic_launches = timed(elastic_phase, dev)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     tiered_launches, tiered_rows = timed(tiered_phase, dev, flush)
     del flush
     migrate_launches = timed(migrate_phase, dev)
+    dynamic_launches, dynamic_check = timed(dynamic_phase, dev)
 
     # each kernel's launches on its own main paths: B1/B2 the training
     # step (21 + 3 steps), the DCN step (21) and the application (40
@@ -10593,6 +12091,7 @@ def main() -> None:
                 + guarded_launches.get(k, 0) + lowp_launches.get(k, 0)
                 + ft_launches.get(k, 0) + elastic_launches.get(k, 0)
                 + tiered_launches.get(k, 0) + migrate_launches.get(k, 0)
+                + dynamic_launches.get(k, 0)
                 for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows
@@ -10602,7 +12101,7 @@ def main() -> None:
     errs += [(r["kernel"], r["max_abs_err"]) for r in tiered_rows]
     errs += [(k, c[f"{b}_max_abs_err"])
              for c in checks + [dcn_check, app_check, lowp_rows[0],
-                                ft_check]
+                                ft_check, dynamic_check]
              + models_checks
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"))]
@@ -10728,8 +12227,9 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-DEV_PHASES = ("guarded", "lowp_state", "ft_loop", "elastic",
-              "sharded", "tiered", "migrate") + GLOO_STAGES
+DEV_PHASES = ("guarded", "lowp_state", "ft_loop", "native_serving",
+              "elastic", "sharded", "tiered", "migrate",
+              "dynamic") + GLOO_STAGES
 
 
 BUILD_STUDY_ORDER = ("parts", "split_compile", "one_unit", "split_compile",
@@ -10873,6 +12373,15 @@ def dev_run(phases) -> None:
     if "tiered" in phases:
         tiered_phase(dev, flush)
     del flush
+    if "native_serving" in phases:
+        # no serving tier before it: its TCP figures are absent
+        prebuild = start_native_prebuild()
+        try:
+            native_serving_phase(dev, dict.fromkeys(
+                ("p50_ms", "p99_ms", "requests_per_s",
+                 "idle_share_of_one_batch")), prebuild)
+        finally:
+            stop_native_prebuild(prebuild)
     if "sharded" in phases:
         sharded_phase()
     elif set(phases) & set(GLOO_STAGES):
@@ -10881,6 +12390,8 @@ def dev_run(phases) -> None:
         elastic_phase(dev)
     if "migrate" in phases:
         migrate_phase(dev)
+    if "dynamic" in phases:
+        dynamic_phase(dev)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -10892,6 +12403,8 @@ if __name__ == "__main__":
         one_device_gap()
     elif sys.argv[1:] == ["--build-study"]:
         build_study()
+    elif len(sys.argv) == 3 and sys.argv[1] == "--native-prebuild":
+        native_prebuild(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--phases":
         dev_run(tuple(p for p in sys.argv[2].split(",") if p))
     else:

@@ -37,6 +37,7 @@ from torchrec_tpu.sparse import KeyedTensor as JKT
 from torchrec_tpu_torch.inference import (
     BucketedInferenceServer,
     BucketedServingCache,
+    HotRowServingCache,
     ServingBucketConfig,
     build_serving_fn,
     load_packaged_model,
@@ -332,8 +333,15 @@ def test_dedup_kinds_options_and_hot_rows():
     with pytest.raises(ValueError, match="no counterpart"):
         BucketedServingCache(fn, FEATURES, CAPS, NUM_DENSE, 4, dedup=True,
                              dedup_opts={"interpret": True})
-    with pytest.raises(NotImplementedError, match="A10"):
-        _server(fn, None, dedup=True, hot_rows=object())
+    # a hot-row cache makes the programs take its tensors as a third
+    # argument, their zeros of its shapes in a warm-up
+    hot = HotRowServingCache.from_host_weights(
+        {"big": np.ones((40, 4), np.float32)}, {"big": 8}, {"f1": "big"},
+        device="cpu")
+    srv = _server(_Nothing(), None, dedup=False, hot_rows=hot)
+    assert srv._hot is hot
+    extra = srv.cache.example_inputs(srv.cache.full_signature)[2]
+    assert torch.equal(extra["big"], torch.zeros((8, 4)))
     with pytest.raises(TypeError, match="with_lookup_kernel"):
         BucketedServingCache(_Nothing(), FEATURES, CAPS, NUM_DENSE, 4,
                              dedup=True)

@@ -407,12 +407,11 @@ def test_restore_elastic_without_per_table_slots_falls_back(jax_side,
 
 
 def test_unported_collections_and_modes_raise(tmp_path):
-    # the tiered collection is ported (tests/test_torch_tiered.py); the
-    # dynamic vocabulary is not yet
-    tiered = object()
+    # the tiered collection and the dynamic vocabulary are ported
+    # (tests/test_torch_tiered.py, tests/test_torch_dynamic_vocab.py)
+    tiered, vocab = object(), object()
     assert Checkpointer(str(tmp_path), tiered=tiered).tiered is tiered
-    with pytest.raises(NotImplementedError, match="A10"):
-        Checkpointer(str(tmp_path), vocab=object())
+    assert Checkpointer(str(tmp_path), vocab=vocab).vocab is vocab
     with pytest.raises(ValueError, match="mutually exclusive"):
         Checkpointer(str(tmp_path), async_save=True, commit_barrier=object())
     with pytest.raises(ValueError, match="keep_last_n"):

@@ -1805,3 +1805,75 @@ def test_tiered_side_stream_prefetch_equals_sync_on_card(dev):
     assert all(torch.equal(da[k], db[k]) for k in da)
     assert sa["staged_rows"] > 0 and sb["staged_rows"] == 0
     assert sa["writeback_rows"] > 0 and sa["eviction_count"] > 0
+
+
+class _HotFn(torch.nn.Module):
+    """score = sum of the hot table's pooled rows + sum of the dense
+    features; the lookup on the kernel ``with_lookup_kernel`` gave it, or
+    the registry's."""
+
+    device = torch.device("cuda")
+
+    def __init__(self, kernel=None):
+        super().__init__()
+        self.kernel = kernel
+
+    def with_lookup_kernel(self, kernel):
+        """This function with its lookup on ``kernel``."""
+        return _HotFn(kernel)
+
+    def forward(self, dense, kjt, caches):
+        from torchrec_tpu_torch.ops.embedding_ops import (
+            pooled_embedding_lookup,
+            resolve_lookup_kernel,
+        )
+
+        pooled = pooled_embedding_lookup(
+            caches["big"], kjt.values(), kjt.segment_ids(), kjt.total_stride,
+            kernel=resolve_lookup_kernel(self.kernel))
+        return pooled.sum(-1) + dense.sum(-1)
+
+
+def test_fresh_adoption_on_the_card(dev, tmp_path):
+    """One freshness adoption on the card: a published generation lands in
+    the replica's host tier and its resident cache rows on the card, and
+    a served batch launches B4 over the refreshed cache and scores the new
+    rows."""
+    from torchrec_tpu_torch.inference.bucketed_serving import (
+        BucketedInferenceServer,
+        HotRowServingCache,
+    )
+    from torchrec_tpu_torch.inference.freshness import (
+        DeltaPublisher,
+        DeltaSubscriber,
+    )
+    from torchrec_tpu_torch.ops import _native
+
+    rng = np.random.RandomState(0)
+    w = rng.randn(500, 16).astype(np.float32)
+    hot = HotRowServingCache.from_host_weights({"big": w}, {"big": 64},
+                                               {"f": "big"}, device=dev)
+    srv = BucketedInferenceServer(_HotFn(), ["f"], [4], num_dense=1,
+                                  max_batch_size=8, queue="python",
+                                  dedup="pallas_dedup", hot_rows=hot)
+    srv.warmup()
+    srv.start(num_executors=1)
+    try:
+        ids = np.asarray([3, 17, 400], np.int64)
+        srv.predict(np.zeros(1, np.float32), [ids], timeout_us=60_000_000)
+        d = str(tmp_path / "deltas")
+        sub = DeltaSubscriber(d, hot.tables, hot_rows=hot)
+        new = rng.randn(3, 16).astype(np.float32)
+        DeltaPublisher(d).publish(5, {"big": (ids, new)})
+        assert sub.poll() is True
+        res = dict(zip(*(a.tolist() for a in hot.tables["big"].resident_items())))
+        cache = hot.device_caches()["big"].cpu().numpy()
+        np.testing.assert_array_equal(cache[[res[i] for i in ids.tolist()]],
+                                      new)
+        before = _native.launch_counts()["dedup_pooled_lookup"]
+        got = srv.predict(np.zeros(1, np.float32), [ids],
+                          timeout_us=60_000_000)
+        assert _native.launch_counts()["dedup_pooled_lookup"] == before + 1
+        np.testing.assert_allclose(got, new.sum(), rtol=1e-5, atol=1e-5)
+    finally:
+        srv.stop()

@@ -60,7 +60,10 @@ def test_every_module_imports_without_jax():
               "reliability.elastic_demo", "convert", "tiered",
               "tiered.storage", "tiered.collection", "tiered.prefetch",
               "tiered.pipeline", "modules.host_offload", "obs.health",
-              "reliability.migration", "reliability.migration_demo"):
+              "reliability.migration", "reliability.migration_demo",
+              "dynamic.kv_store", "dynamic.vocab", "modules.mc_modules",
+              "inference.freshness", "parallel.production",
+              "examples.zch.main"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

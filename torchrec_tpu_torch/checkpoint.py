@@ -26,6 +26,9 @@ The payload has the JAX package's logical keys:
                                (``host_rows``, a RAM tier) or the disk
                                generation its flush published
                                (``generation``)
+  vocab/{table}/generation   : with ``Checkpointer(vocab=collection)``,
+                               the snapshot generation of each dynamic
+                               vocabulary's id -> slot remap
 
 The on-disk format is the port's own: a step's ``payload/`` directory
 holds ``manifest.json``, which lists every leaf by its key path with its
@@ -65,8 +68,10 @@ refuses a save while remapped batches are queued: drain the pipeline
 first), all before the atomic commit; a restore reloads the host tiers
 and resets the caches cold before it hands the state back.
 
-Left out: the dynamic-vocabulary collection (``vocab=``), which raises
-``NotImplementedError`` until ROADMAP A10's second part ports it.
+With ``vocab=`` (a ``dynamic.DynamicVocabCollection``) a save publishes
+each vocabulary's durable snapshot before the commit and the payload pins
+its generation; a restore reloads exactly that generation, so the remap
+and the table rows roll back to the same committed step together.
 """
 
 from __future__ import annotations
@@ -249,8 +254,10 @@ class Checkpointer:
         docstring).  A crash between the tiers' flush and the commit is
         safe: the older committed checkpoint pins an older disk
         generation, which ``keep_generations`` keeps.
-    vocab: not ported yet (ROADMAP A10's second part); raises
-        ``NotImplementedError``.
+    vocab: a ``dynamic.DynamicVocabCollection`` whose id -> slot remap
+        generations the checkpoint pins beside the table rows (module
+        docstring); a checkpoint that carries them refuses a restore
+        through a Checkpointer without one.
     """
 
     CHECKSUM_SIDECAR = "checksums.json"
@@ -267,10 +274,6 @@ class Checkpointer:
         single_writer: bool = False,
         vocab=None,
     ):
-        if vocab is not None:
-            raise NotImplementedError(
-                "Checkpointer(vocab=...): the dynamic-vocabulary collection "
-                "is not ported yet (ROADMAP A10)")
         if keep_last_n is not None and keep_last_n < 1:
             raise ValueError(f"keep_last_n must be >= 1, got {keep_last_n}")
         if commit_barrier is not None and async_save:
@@ -280,6 +283,7 @@ class Checkpointer:
                 "collective state snapshot")
         del single_writer  # the default already (see above)
         self.tiered = tiered
+        self.vocab = vocab
         self.commit_barrier = commit_barrier
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
@@ -410,6 +414,11 @@ class Checkpointer:
             # the commit, so that the payload pins durable rows
             payload["tiered"] = _host_tree(
                 self.tiered.checkpoint_payload(dmp, state))
+        if self.vocab is not None:
+            # each vocabulary publishes a durable snapshot now and the
+            # payload pins its generation, so a restore rolls the remap
+            # and the rows back to the same step
+            payload["vocab"] = _host_tree(self.vocab.checkpoint_payload())
         return payload
 
     def save(self, dmp, state: Dict[str, Any],
@@ -716,10 +725,25 @@ class Checkpointer:
         if self.tiered is not None:
             self.tiered.checkpoint_restore(tiered)
 
+    def _rehydrate_vocab(self, payload: Dict[str, Any], step: int) -> None:
+        """Reload each dynamic vocabulary to the generation the payload
+        pins (after the compatibility checks), before the state is handed
+        back: rows restored under a remap of another step mean nothing."""
+        vocab = payload.get("vocab")
+        if vocab is not None and self.vocab is None:
+            raise CheckpointPlanMismatch(
+                f"checkpoint step {step} carries dynamic-vocab remap state "
+                "but this Checkpointer has no vocab collection: construct "
+                "it with Checkpointer(..., vocab=collection) so that the "
+                "id->slot remap restores consistently with the table rows")
+        if self.vocab is not None:
+            self.vocab.checkpoint_restore(vocab)
+
     def _restore_exact(self, dmp, payload: Dict[str, Any],
                        step: int) -> Dict[str, Any]:
         self._check_compatible(dmp, payload, step)
         self._rehydrate_tiered(payload, step)
+        self._rehydrate_vocab(payload, step)
         ebc = dmp.sharded_ebc
         tables = dmp._local_share(ebc.params_from_tables(
             payload["tables"], dmp.table_dtype, dmp.device,
@@ -754,4 +778,5 @@ class Checkpointer:
                 dmp.fused_config, dmp.device))
             fused = scatter_slots(dmp, fused, payload["fused_tables"])
             self._rehydrate_tiered(payload, step)
+            self._rehydrate_vocab(payload, step)
             return self._place_state(dmp, payload, tables, fused)

@@ -593,6 +593,11 @@ def checkpoint_payload_from_jax(payload: Mapping[str, Any]) -> Dict[str, Any]:
         out["fused_tables"] = fused_tables
     if "tiered" in payload:
         out["tiered"] = _tiered_entries(payload["tiered"], _host_tensor)
+    if "vocab" in payload:
+        # each vocabulary's pinned snapshot generation: the snapshot and
+        # journal files are the same in both packages
+        out["vocab"] = {t: {"generation": int(np.asarray(st["generation"]))}
+                        for t, st in payload["vocab"].items()}
     return out
 
 
@@ -637,4 +642,8 @@ def checkpoint_payload_to_jax(payload: Mapping[str, Any]) -> Dict[str, Any]:
                 {"host_rows": _host_numpy(st["host_rows"])})
             for t, st in payload["tiered"].items()}}
            if "tiered" in payload else {}),
+        **({"vocab": {
+            t: {"generation": np.int64(int(st["generation"]))}
+            for t, st in payload["vocab"].items()}}
+           if "vocab" in payload else {}),
     }

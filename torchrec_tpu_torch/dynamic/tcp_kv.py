@@ -14,9 +14,9 @@ Wire protocol (length-free, fixed headers, little-endian):
     op=3 LEN   reply count u64
     op=4 KEYS  reply count u64 + keys i64[count]
 
-Left out: the registration of the ``tcp`` scheme in the parameter
-server's IO registry, which waits for ``dynamic/kv_store.py`` (ROADMAP
-A10).
+Importing the module registers the ``tcp`` scheme in the parameter
+server's IO registry (``dynamic/kv_store.py``, which imports it on the
+first ``tcp://`` URL it resolves).
 """
 
 from __future__ import annotations
@@ -424,3 +424,17 @@ class TcpKV:
             self._sock.close()
         except OSError:
             pass
+
+
+def register(registry=None) -> None:
+    """Register the ``tcp`` scheme in ``registry`` (the parameter
+    server's :data:`~torchrec_tpu_torch.dynamic.kv_store.io_registry` by
+    default)."""
+    if registry is None:
+        from torchrec_tpu_torch.dynamic.kv_store import (
+            io_registry as registry,
+        )
+    registry.register("tcp", TcpKV)
+
+
+register()

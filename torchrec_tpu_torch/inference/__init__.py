@@ -1,7 +1,12 @@
 from torchrec_tpu_torch.inference.bucketed_serving import (
     BucketedInferenceServer,
     BucketedServingCache,
+    HotRowServingCache,
     ServingBucketConfig,
+)
+from torchrec_tpu_torch.inference.freshness import (
+    DeltaPublisher,
+    DeltaSubscriber,
 )
 from torchrec_tpu_torch.inference.mesh import (
     AllReplicasDown,
@@ -37,6 +42,9 @@ __all__ = [
     "BucketedInferenceServer",
     "BucketedServingCache",
     "CircuitBreaker",
+    "DeltaPublisher",
+    "DeltaSubscriber",
+    "HotRowServingCache",
     "HttpInferenceServer",
     "InferenceServer",
     "NativeInferenceServer",

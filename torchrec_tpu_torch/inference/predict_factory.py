@@ -392,8 +392,12 @@ def export_native(
     if "aoti" in formats:
         pkg = os.path.join(path, "model_aoti.pt2")
         t0 = time.perf_counter()
-        with _tf32_off(), torch._inductor.config.patch(
-                {"cpp.cxx": (None, _native.CXX)}):
+        cfg = {"cpp.cxx": (None, _native.CXX)}
+        if dev.type == "cuda":
+            # the package's host code is its wrapper alone: no probe of
+            # the host's vector ISAs (a compile and a Python start each)
+            cfg["cpp.vec_isa_ok"] = False
+        with _tf32_off(), torch._inductor.config.patch(cfg):
             torch._inductor.aoti_compile_and_package(
                 ep, package_path=pkg,
                 inductor_configs={"aot_inductor.package_constants_in_so":

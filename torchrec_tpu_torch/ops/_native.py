@@ -24,7 +24,8 @@ ABI (``torch._C._GLIBCXX_USE_CXX11_ABI``), its include directories and an
 rpath to its libraries; their library names hash the flags too.
 
 The serving tier's host library (``csrc/host/*.cpp``: the batching
-queue, the TCP front end and the id transformers) is C++ for the CPU,
+queue, the TCP front end, the id transformers and the parameter server's
+append-log key-value store) is C++ for the CPU,
 built the same way with ``g++`` by :func:`load_host_library`.
 """
 
@@ -287,13 +288,13 @@ def load_library(source: str) -> ctypes.CDLL:
 
 # ---------------------------------------------------------------------------
 # the host library: the serving tier's batching queue, TCP front end and id
-# transformers (C++ for the CPU, built with g++)
+# transformers, and the KV store (C++ for the CPU, built with g++)
 # ---------------------------------------------------------------------------
 
 HOST_DIR = os.path.join(CSRC_DIR, "host")
 HOST_SOURCES = ("batching_queue.cpp", "serving_server.cpp",
                 "id_transformer.cpp", "mp_id_transformer.cpp",
-                "lfu_id_transformer.cpp")
+                "lfu_id_transformer.cpp", "kv_store.cpp")
 # -Bsymbolic: the library's own calls (the TCP server's into the queue)
 # bind inside it, whatever else the process has loaded
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-Wl,-Bsymbolic")
@@ -334,6 +335,13 @@ _HOST_SIGNATURES: Dict[str, Tuple] = {
     "trt_lfu_destroy": ((_P,), None),
     "trt_lfu_transform": _TRANSFORM,
     "trt_lfu_size": ((_P,), _I64),
+    "trt_kv_open": ((ctypes.c_char_p, _I), _P),
+    "trt_kv_put": ((_P, _P64, _PF, _I64), None),
+    "trt_kv_get": ((_P, _P64, _I64, _PF, ctypes.POINTER(ctypes.c_uint8)),
+                   _I64),
+    "trt_kv_size": ((_P,), _I64),
+    "trt_kv_keys": ((_P, _P64, _I64), _I64),
+    "trt_kv_close": ((_P,), None),
 }
 _HOST_LIB = []  # the loaded library, once
 

@@ -8,6 +8,7 @@ from torchrec_tpu_torch.parallel.model_parallel import (
     DMPCollection,
     stack_batches,
 )
+from torchrec_tpu_torch.parallel.production import TouchedRowTracker
 from torchrec_tpu_torch.parallel.train_pipeline import (
     BucketedStepCache,
     BucketedTrainPipeline,
@@ -29,6 +30,7 @@ __all__ = [
     "DistributedModelParallel",
     "DMPCollection",
     "stack_batches",
+    "TouchedRowTracker",
     "BucketedStepCache",
     "BucketedTrainPipeline",
     "BucketingConfig",

@@ -19,8 +19,9 @@ package's ``create_two_level_mesh``), which have the same shape.
 holds each generation's store the same way, and ``_BIND_FAILURE_RE`` the
 signature of a store that could not bind, which its exit classifier reads.
 
-Left out: ``SyncedCollisionCollection`` (ROADMAP A10) and
-``make_global_batch`` (each rank feeds its own batch).
+:class:`SyncedCollisionCollection` keeps the managed-collision state
+identical on every rank.  Left out: ``make_global_batch`` (each rank
+feeds its own batch).
 """
 
 from __future__ import annotations
@@ -136,6 +137,76 @@ def allgather_host(x: np.ndarray) -> np.ndarray:
     out = t.new_empty(n * t.numel())  # gloo gathers along dim 0 only
     dist.all_gather_into_tensor(out, t.reshape(-1))
     return out.view((n,) + tuple(t.shape)).cpu().numpy()
+
+
+class SyncedCollisionCollection:
+    """Managed-collision state kept identical across ranks.
+
+    Every rank holds the FULL collision map (host hash maps far smaller
+    than the tables they manage) and replays the GLOBAL id stream in rank
+    order: rank 0's batches, then rank 1's, ...  The state therefore
+    evolves identically everywhere, every rank computes every eviction,
+    and the row resets they trigger are the same on every rank.  One rank
+    remapping the concatenated global batch takes the same order, so the
+    remap of a rank's batch equals that single-process remap's share.
+    ``collection`` is a ``modules.mc_modules.ManagedCollisionCollection``."""
+
+    def __init__(self, collection):
+        self.collection = collection
+
+    def remap_local(self, kjts: Sequence, evict_out: Optional[list] = None):
+        """Remap this rank's local batch KJTs against the synced state
+        (one all-gather of the fixed-capacity values and of the lengths;
+        every rank's KJTs must share keys, capacities and strides).
+        Returns the remapped local KJTs, on their devices; ``evict_out``
+        (when given) receives every eviction of the global stream, which
+        every rank applies to its table state."""
+        me, P_ = process_index(), process_count()
+        L = len(kjts)
+        vals = np.stack([k.values().detach().cpu().numpy().astype(np.int64)
+                         for k in kjts])  # [L, sum(caps)]
+        lens = np.stack([k.lengths().detach().cpu().numpy().astype(np.int64)
+                         for k in kjts])  # [L, total stride]
+        if P_ > 1:
+            g_vals = allgather_host(vals)  # [P, L, sum(caps)]
+            g_lens = allgather_host(lens)
+        else:
+            g_vals, g_lens = vals[None], lens[None]
+        keys = list(kjts[0].keys())
+        cap_offsets = kjts[0].cap_offsets()
+        len_offsets = kjts[0]._length_offsets()
+        out_kjts: List = []
+        for p in range(P_):
+            for b in range(L):
+                new_vals, evs = self._remap_buffer(
+                    keys, g_vals[p, b], g_lens[p, b], cap_offsets,
+                    len_offsets)
+                if evict_out is not None:
+                    evict_out.extend(evs)
+                if p == me:
+                    v = kjts[b].values()
+                    out_kjts.append(kjts[b].with_values(
+                        torch.from_numpy(new_vals).to(v.device, v.dtype)))
+        return out_kjts
+
+    def _remap_buffer(self, keys, values, lengths, cap_offsets, len_offsets):
+        """Remap one batch's value buffer on a copy (key ``f``'s ids are
+        ``values[cap_offsets[f]:]``, as many as its lengths sum to)."""
+        out = values.copy()
+        evictions = []
+        for f, key in enumerate(keys):
+            mod = self.collection.modules.get(key)
+            if mod is None:
+                continue
+            n = int(lengths[len_offsets[f]:len_offsets[f + 1]].sum())
+            if n == 0:
+                continue
+            s = int(cap_offsets[f])
+            remapped, ev = mod.remap(values[s:s + n])
+            out[s:s + n] = remapped
+            if ev is not None:
+                evictions.append(ev)
+        return out, evictions
 
 
 def _worker_env(

@@ -29,10 +29,11 @@ Every injector is schedule-driven (explicit call indices) or seeded
   ``coordinator_drop`` (the supervisor stops the commit-barrier server),
   scheduled per (rank, generation, step) and carried into worker
   processes by one environment variable.  The two migration kinds parse
-  and are looked up, and fire once the plan migrator is ported.
-
-Left out: ``CrashMidPublishPublisher``, which waits for the delta
-publisher of ``inference/freshness.py`` (ROADMAP A10).
+  and are looked up, and fire once the plan migrator is ported;
+* ``CrashMidPublishPublisher``: a delta publisher
+  (``inference/freshness.py``) whose scheduled ``publish`` dies inside one
+  window of the chunks -> manifest -> CURRENT protocol, or corrupts a
+  chunk after publishing (``PUBLISH_CRASH_POINTS``).
 """
 
 from __future__ import annotations
@@ -198,8 +199,86 @@ class GatedWriteCheckpointer(Checkpointer):
 
 
 # ---------------------------------------------------------------------------
-# Serving-mesh fault injection (replica death).
+# Serving-mesh fault injection (replica death, torn delta publishes).
 # ---------------------------------------------------------------------------
+
+PUBLISH_CRASH_POINTS = (
+    # die after every chunk landed, before the manifest: chunks alone are
+    # invisible to subscribers
+    "before_manifest",
+    # die after the manifest, before the CURRENT adoption signal: a
+    # complete generation nobody adopts
+    "before_current",
+    # publish everything, then flip bytes inside one published chunk: the
+    # subscriber's CRC pass must refuse the generation
+    "corrupt_chunk",
+)
+
+
+class CrashMidPublishPublisher:
+    """A ``DeltaPublisher`` whose ``crash_on``-th ``publish`` dies
+    (``SimulatedCrash``) inside the ``crash_point`` window of the chunks ->
+    manifest -> CURRENT protocol (``PUBLISH_CRASH_POINTS``).  Built by
+    composition, so the inner publisher's protocol methods stay the one
+    implementation under test."""
+
+    def __init__(self, inner, crash_point: str, crash_on: int = 0):
+        if crash_point not in PUBLISH_CRASH_POINTS:
+            raise ValueError(
+                f"unknown publish crash point {crash_point!r}; expected "
+                f"one of {PUBLISH_CRASH_POINTS}")
+        self.inner = inner
+        self.crash_point = crash_point
+        self.crash_on = int(crash_on)
+        self.publish_calls = 0
+
+    @property
+    def generation(self) -> int:
+        """The inner publisher's adoptable generation."""
+        return self.inner.generation
+
+    def publish(self, step, deltas, vocab_events=None):
+        """Publish through the inner protocol, dying (or corrupting) in the
+        scheduled call's crash window."""
+        crash_now = self.publish_calls == self.crash_on
+        self.publish_calls += 1
+        if not crash_now:
+            return self.inner.publish(step, deltas, vocab_events)
+        inner = self.inner
+        orig_manifest = inner._write_manifest
+        orig_current = inner._publish_current
+
+        def die(*a, **k):
+            raise SimulatedCrash(
+                f"simulated publisher crash {self.crash_point} "
+                f"(generation {inner.generation + 1})")
+
+        try:
+            if self.crash_point == "before_manifest":
+                inner._write_manifest = die
+            elif self.crash_point == "before_current":
+                inner._publish_current = die
+            if self.crash_point == "corrupt_chunk":
+                gen = inner.publish(step, deltas, vocab_events)
+                self._corrupt_one_chunk(gen)
+                return gen
+            return inner.publish(step, deltas, vocab_events)
+        finally:
+            inner._write_manifest = orig_manifest
+            inner._publish_current = orig_current
+
+    def _corrupt_one_chunk(self, gen: int) -> None:
+        """Flip bytes in the middle of the generation's first chunk: a
+        published-then-damaged file whose manifest CRC no longer
+        matches."""
+        names = sorted(n for n in os.listdir(self.inner.directory)
+                       if n.startswith(f"delta.g{gen}."))
+        assert names, f"generation {gen} published no chunks to corrupt"
+        path = os.path.join(self.inner.directory, names[0])
+        with open(path, "r+b") as f:
+            f.seek(max(0, os.path.getsize(path) // 2))
+            f.write(b"\xde\xad\xbe\xef")
+
 
 
 def simulate_replica_kill(server) -> None:

@@ -59,9 +59,14 @@ class TieredCollection:
     raise on one); ``stable_weights`` always attaches weights to the
     processed KJT (unit weights are exact in every pooling), so a
     corrupt batch does not change the step's inputs' structure; counters
-    go to ``stats`` (a fresh ``TieredStats`` by default).  ``vocab``
-    (admission gating, ROADMAP A10's second part) is not ported and
-    raises."""
+    go to ``stats`` (a fresh ``TieredStats`` by default).
+
+    ``vocab`` gates admission per table: a ``dynamic.
+    DynamicVocabCollection`` (or a table -> ``DynamicVocab`` dict) whose
+    ``admit_filter`` runs before the tiered remap.  Un-admitted ids take
+    the sanitize route (slot 0, weight 0.0, bitwise an invalid id's), so
+    pre-admission traffic changes nothing; the vocabulary counts them
+    itself (``null_routed``), so they are not violations."""
 
     def __init__(
         self,
@@ -72,15 +77,12 @@ class TieredCollection:
         stats: Optional[TieredStats] = None,
         vocab=None,
     ):
-        if vocab is not None:
-            raise NotImplementedError(
-                "TieredCollection(vocab=...): the dynamic vocabulary is not "
-                "ported yet")
         self.tables = dict(tables)
         self.feature_to_table = dict(feature_to_table)
         self.sanitize = sanitize
         self.stable_weights = stable_weights
         self.stats = stats if stats is not None else TieredStats()
+        self.vocab = dict(getattr(vocab, "tables", vocab) or {})
         for tname, tbl in self.tables.items():
             # the exported occupancy_rate (the health monitor's input) is
             # normalized by this table's slots
@@ -158,6 +160,14 @@ class TieredCollection:
                                  "in batch (sanitize=False)")
             if n_bad:
                 self.stats.record_violations(tname, n_bad)
+            vt = self.vocab.get(tname)
+            if vt is not None:
+                # gate mode: an un-admitted id is nulled like an invalid one
+                gated = valid.copy()
+                vids = raw_all[valid]
+                if vids.size:
+                    gated[valid] = vt.admit_filter(vids)
+                valid = gated
             slots_all = np.zeros_like(raw_all)  # invalid -> null slot 0
             clean = raw_all[valid]
             if clean.size:
@@ -344,8 +354,12 @@ class TieredCollection:
 
     def scalar_metrics(self, prefix: str = "tiered") -> Dict[str, float]:
         """The cache and IO counters, flat under
-        ``<prefix>/<table>/<counter>``."""
-        return self.stats.scalar_metrics(prefix)
+        ``<prefix>/<table>/<counter>``, and each gating vocabulary's
+        ``vocab/*`` counters."""
+        out = self.stats.scalar_metrics(prefix)
+        for v in self.vocab.values():
+            out.update(v.scalar_metrics())
+        return out
 
     def logical_table_weights(self, dmp, state) -> Dict[str, np.ndarray]:
         """Each table's WHOLE logical weights: the host tier overlaid with

@@ -603,6 +603,32 @@ class TieredTable:
             return self.store.read(
                 np.ascontiguousarray(logical_ids, np.int64), out)
 
+    def read_weight_rows(self, logical_ids: np.ndarray) -> np.ndarray:
+        """``[k, D]`` float32 weight columns only (no optimizer slots): the
+        read of the serving hot-row cache and the delta stream."""
+        return self.read_rows(logical_ids)[:, :self.embedding_dim]
+
+    def write_weight_rows(self, logical_ids: np.ndarray,
+                          weights: np.ndarray) -> None:
+        """Overwrite only the weight columns of the given host-tier rows,
+        keeping their packed optimizer slots: the write the delta stream
+        (``inference/freshness.py``) applies, whose rows carry weights
+        only.  A read-modify-write of the packed rows; a table with no
+        slots skips the read."""
+        ids = np.ascontiguousarray(logical_ids, np.int64)
+        weights = np.ascontiguousarray(weights, np.float32)
+        D = self.embedding_dim
+        if weights.shape != (len(ids), D):
+            raise ValueError(f"table {self.table_name}: delta rows shape "
+                             f"{weights.shape} != ({len(ids)}, {D})")
+        with self._lock:
+            if self.row_width == D:
+                self.store.write(ids, weights)
+                return
+            packed = self.store.read(ids)
+            packed[:, :D] = weights
+            self.store.write(ids, packed)
+
     def write_rows(self, logical_ids: np.ndarray, values: np.ndarray
                    ) -> None:
         with self._lock:

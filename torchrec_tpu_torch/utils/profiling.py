@@ -268,6 +268,12 @@ class TieredStats:
         acc["staged_rows"] += staged
         acc["sync_fetch_rows"] += sync
 
+    def record_refresh(self, table: str, rows: int) -> None:
+        """Resident rows overwritten in place by a delta-stream refresh
+        (``inference/freshness.py``): not fetch traffic, so a publish does
+        not read as a burst of cache misses."""
+        self._t(table)["refreshed_rows"] += rows
+
     def record_flush(self, table: str) -> None:
         self._t(table)["flush_count"] += 1
 
