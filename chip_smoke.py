@@ -169,10 +169,14 @@ Phases, one JSON line each on stdout; any failure raises:
    and one B2 per train step and nothing else (counts and a profile),
    finite losses, ``id_overflow`` zero, ``make_forward`` ``torch.equal``
    to ``train_step``'s logits, a ramp step ``torch.equal`` to the plain
-   B1/B2 at the scheduled float32 lr, NE / AUC / calibration finite and
-   the card's ``RecMetricModule`` within 1e-6 of a CPU module's; ms a
+   B1/B2 at the scheduled float32 lr, the metric set (every
+   ``DEFAULT_COMPUTATIONS`` entry, AUC, ``rauc``, ``hindsight_target_pr``,
+   ``recalibrated_ne``, ``segmented_ne``) finite and the card's within
+   1e-6 of a CPU module's and of a ``CpuOffloadedMetricModule``'s; ms a
    step, samples/s, eval ms a batch, peak memory, and the planner's
-   per-rank HBM and step estimates beside them;
+   per-rank HBM and step estimates beside them; ``benchmark_func`` over
+   the train step (p50 / p90, peak memory, a profiler trace) with a
+   ``TowerQPSMetric`` (:func:`app_bench`);
    roundtrip — ``package_model`` at 10k rows per table, loaded on the
    card and on the CPU, scores compared.
 12. serving_tier (after roundtrip, before sharded; budget
@@ -389,7 +393,14 @@ Phases, one JSON line each on stdout; any failure raises:
    ``host_offload`` arm (B1/B2) ``torch.equal`` to the all-device step;
    B4/B6 against plain at the cache stack; the loop arm (a NaN skip, and
    drain + checkpoint + resume) at 100,000 rows; see
-   :func:`tiered_phase`.
+   :func:`tiered_phase`.  The prefetch arm runs traced (a ``SpanTracer``,
+   a flight recorder, each step's metrics through a
+   ``DeviceMetricsPump``): its ``events.jsonl``, ``trace.json`` and
+   ``metrics.jsonl`` go to ``obs_artifacts/tiered/`` (or
+   ``$TORCHREC_OBS_DIR``), ``obs report``
+   runs over them in process and as a child, its prefetch overlap equals
+   ``TieredStats``' within 1e-9, and the modeled telemetry cost stays
+   under 1% of a step (:func:`obs_finish`).
 18. migrate (after tiered; budget ``MIGRATE_BUDGET_S``) — ``migration_demo``'s
    recipe at bench widths on 2 gloo ranks sharing the card: the drift
    alarms the health monitor and the migrator flips the big table RW ->
@@ -413,7 +424,12 @@ Phases, one JSON line each on stdout; any failure raises:
    ``gate`` (``TieredCollection(vocab=)`` on B4/B6 against the sanitized
    stream, checkpoint and resume); see :func:`dynamic_phase`.  The gloo
    launch of ``sharded`` also runs ``zch_synced``
-   (:func:`zch_synced_stage`).
+   (:func:`zch_synced_stage`) and ``comms_bench`` (the collective
+   benchmarks, their ledger held to the bytes handed to
+   ``torch.distributed``, :func:`comms_bench_stage`); after ``sharded``,
+   ``hier_bench`` runs the two-level A/B worker as 2 slices x 2 gloo
+   ranks, each rank's B1/B2 launches counted and both kernels held to
+   their plain versions at the worker's shapes (:func:`hier_bench_phase`).
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line,
 and the result line ``{"ok": true, "device": {...}}`` last.
@@ -2067,14 +2083,22 @@ def dedup_path_check(dmp, state, batch, dev):
     return rec
 
 
-def _pipeline_steps(pipe, it, n):
+def _pipeline_steps(pipe, it, n, telemetry=None):
     """``n`` pipeline steps ending in a synchronise; returns (losses as
-    floats, seconds)."""
+    floats, seconds).  ``telemetry`` (:func:`obs_start`'s): each step's
+    metrics go to its pump, its host time stamp to ``stamps``."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = [pipe.progress(it)["loss"] for _ in range(n)]
+    losses = []
+    for _ in range(n):
+        m = pipe.progress(it)
+        if telemetry is not None:
+            telemetry["pump"].submit(m, step=len(telemetry["stamps"]))
+            telemetry["stamps"].append(time.perf_counter())
+            telemetry["last"] = m
+        losses.append(m["loss"])
     torch.cuda.synchronize()
     return [float(x) for x in losses], time.perf_counter() - t0
 
@@ -5717,25 +5741,66 @@ def planner_records():
         emit(rec)
 
 
+APP_FACTORY_SEGMENTS = 4  # make_segmented_ne's seeded segment column
+APP_FACTORY_SEED = 41
+APP_METRICS_BUDGET_S = 5  # the metric set on both devices and offloaded
+
+
+def _app_factories():
+    """The windowed factories that take ``(preds, labels, weights)``
+    alone (and ``segmented_ne``, with a seeded segment column): name ->
+    computation."""
+    from torchrec_tpu_torch.metrics import computations as comps
+
+    return {"rauc": comps.make_rauc(),
+            "hindsight_target_pr": comps.make_hindsight_target_pr(),
+            "recalibrated_ne": comps.make_recalibrated_ne(0.5),
+            "segmented_ne": comps.make_segmented_ne(APP_FACTORY_SEGMENTS)}
+
+
+def _max_gap(got, want, keys):
+    err = max(abs(got[k] - want[k]) for k in keys)
+    rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+              for k in keys)
+    return err, rel
+
+
 def _app_metrics_check(run, dev, device_type):
     """The application's eval batches again (a fresh iterator past the
-    training batches), their predictions from the trained state into a
-    fresh module on the card and one on the CPU: every metric of the two
-    within ``METRICS_TOL``, and of the card's equal to the run's report."""
+    training batches), their predictions from the trained state into
+    ``generate_metric_module`` modules over every ``DEFAULT_COMPUTATIONS``
+    entry and AUC (one on the card, one on the CPU, and a
+    ``CpuOffloadedMetricModule`` fed the card's tensors), and into the
+    factories of :func:`_app_factories` on both devices: every metric of
+    the card within ``METRICS_TOL`` of the CPU's and of the offloaded
+    module's, finite, and the run's report (NE / AUC / calibration) equal
+    to the card's."""
     import itertools
 
     import torch
 
     from torchrec_tpu_torch.metrics import (
         MetricsConfig,
-        RecMetricModule,
         RecTaskInfo,
+        generate_metric_module,
     )
+    from torchrec_tpu_torch.metrics.computations import DEFAULT_COMPUTATIONS
+    from torchrec_tpu_torch.metrics.cpu_offloaded import (
+        CpuOffloadedMetricModule,
+    )
+    from torchrec_tpu_torch.metrics.rec_metric import RecMetric
 
+    t0 = time.perf_counter()
     cfg = MetricsConfig(tasks=[RecTaskInfo(name="ctr")],
-                        metrics=["ne", "auc", "calibration"])
-    card = RecMetricModule(cfg, BENCH_BATCH, device=device_type)
-    cpu = RecMetricModule(cfg, BENCH_BATCH, device="cpu")
+                        metrics=sorted(DEFAULT_COMPUTATIONS) + ["auc"])
+    card = generate_metric_module(cfg, BENCH_BATCH, device=device_type)
+    cpu = generate_metric_module(cfg, BENCH_BATCH, device="cpu")
+    off = CpuOffloadedMetricModule(cfg, BENCH_BATCH)
+    factories = _app_factories()
+    fmet = {name: RecMetric(c, ("ctr",)) for name, c in factories.items()}
+    fstate = {d: {n: m.init(torch.device(d)) for n, m in fmet.items()}
+              for d in (device_type, "cpu")}
+    gen = torch.Generator().manual_seed(APP_FACTORY_SEED)
     fwd = run["dmp"].make_forward()
     state = run["state"]
     for b in itertools.islice(iter(run["ds"]), APP_STEPS,
@@ -5743,26 +5808,110 @@ def _app_metrics_check(run, dev, device_type):
         b = b.to(dev)
         preds = torch.sigmoid(fwd(state["dense"], state["tables"], b))
         card.update({"ctr": preds}, {"ctr": b.labels})
+        off.update({"ctr": preds}, {"ctr": b.labels})
         cpu.update({"ctr": preds.cpu()}, {"ctr": b.labels.cpu()})
-    got, want = card.compute(), cpu.compute()
+        seg = torch.randint(0, APP_FACTORY_SEGMENTS, (1, preds.numel()),
+                            generator=gen)
+        for d in (device_type, "cpu"):
+            p = preds.reshape(1, -1).to(d).float()
+            lab = b.labels.reshape(1, -1).to(d).float()
+            w = torch.ones_like(p)
+            for n, m in fmet.items():
+                if n == "segmented_ne":
+                    fstate[d][n] = factories[n].update(fstate[d][n], p, lab,
+                                                       w, seg.to(d))
+                else:
+                    fstate[d][n] = m.update(fstate[d][n], p, lab, w)
+    got, want, offloaded = card.compute(), cpu.compute(), off.compute()
+    off.close()
+    for n, m in fmet.items():
+        got.update({k: float(v) for k, v in
+                    m.compute(fstate[device_type][n]).items()})
+        want.update({k: float(v) for k, v in
+                     m.compute(fstate["cpu"][n]).items()})
     keys = sorted(k for k in got if not k.startswith("throughput"))
-    err = max(abs(got[k] - want[k]) for k in keys)
-    rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
-              for k in keys)
-    run_err = max(abs(got[k] - run["report"][k]) for k in keys)
+    okeys = sorted(k for k in offloaded if not k.startswith("throughput"))
+    err, rel = _max_gap(got, want, keys)
+    oerr, orel = _max_gap(got, offloaded, okeys)
+    report_keys = sorted(k for k in run["report"]
+                         if not k.startswith("throughput"))
+    run_err = max(abs(got[k] - run["report"][k]) for k in report_keys)
+    if not report_keys or not set(report_keys) <= set(keys):
+        raise AssertionError(f"app: the run's report {sorted(run['report'])}"
+                             " is not in the metric set")
     out = {"metrics": {k: got[k] for k in keys},
+           "metric_count": len(keys),
            "metrics_card_vs_cpu_max_abs_err": err,
            "metrics_card_vs_cpu_max_rel_err": rel,
-           "metrics_vs_run_report_max_abs_err": run_err}
+           "metrics_card_vs_offloaded_max_abs_err": oerr,
+           "metrics_card_vs_offloaded_max_rel_err": orel,
+           "metrics_vs_run_report_max_abs_err": run_err,
+           "metrics_seconds": time.perf_counter() - t0,
+           "metrics_budget_s": APP_METRICS_BUDGET_S}
     if not all(np.isfinite(got[k]) for k in keys):
         raise AssertionError(f"app: non-finite metrics {got}")
     if err > METRICS_TOL and rel > METRICS_TOL:
         raise AssertionError(f"app: card metrics off the CPU module's by "
                              f"{err} ({got} vs {want})")
+    if okeys != sorted(k for k in keys if k in offloaded) or (
+            oerr > METRICS_TOL and orel > METRICS_TOL):
+        raise AssertionError(f"app: the offloaded module's metrics off the "
+                             f"card's by {oerr} ({offloaded})")
     if run_err > METRICS_TOL:
         raise AssertionError(f"app: metrics off the run's report by "
                              f"{run_err}")
     return out
+
+
+APP_BENCH_WARMUP, APP_BENCH_ITERS = 3, 10
+APP_BENCH_BUDGET_S = 12
+
+
+def app_bench(dmp, state, batch, card, dev):
+    """``utils.benchmark.benchmark_func`` over the application's train
+    step (``APP_BENCH_WARMUP`` warm-ups, ``APP_BENCH_ITERS`` timed steps,
+    each ending in a synchronize; a ``torch.profiler`` trace of the timed
+    steps), with a ``TowerQPSMetric`` updated each step (its warm-up the
+    benchmark's): p50 / p90 ms, the peak device memory, QPS."""
+    from torchrec_tpu_torch.metrics import TowerQPSMetric
+    from torchrec_tpu_torch.utils.benchmark import (
+        benchmark_func,
+        undonated_train_step,
+    )
+
+    t0 = time.perf_counter()
+    step = undonated_train_step(dmp)
+    tower = TowerQPSMetric(BENCH_BATCH, warmup_steps=APP_BENCH_WARMUP)
+
+    def one_step():
+        step(state, batch)
+        tower.update()
+
+    tmp = tempfile.mkdtemp(prefix="app_bench_")
+    try:
+        res = benchmark_func("app_train_step", one_step,
+                             warmup=APP_BENCH_WARMUP, iters=APP_BENCH_ITERS,
+                             trace_dir=tmp)
+        trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    qps = tower.compute()
+    rec = {"phase": "app_bench", "card": card, "batch": BENCH_BATCH,
+           "warmup": APP_BENCH_WARMUP, "iters": APP_BENCH_ITERS,
+           "p50_ms": res.p50_ms, "p90_ms": res.p90_ms, "mean_ms": res.mean_ms,
+           "peak_hbm_bytes": res.peak_hbm_bytes,
+           "trace_bytes": trace_bytes,
+           "tower_qps": qps.get("tower_qps-tower_qps|lifetime_qps"),
+           "tower_qps_window": qps.get("tower_qps-tower_qps|window_qps"),
+           "samples_per_s_from_mean": BENCH_BATCH / (res.mean_ms * 1e-3),
+           "seconds": time.perf_counter() - t0,
+           "budget_s": APP_BENCH_BUDGET_S}
+    emit(rec)
+    if not (rec["tower_qps"] and rec["tower_qps"] > 0 and res.p50_ms > 0
+            and trace_bytes > 0
+            and (res.peak_hbm_bytes or dev.type != "cuda")):
+        raise AssertionError(f"app_bench: {rec}")
+    return rec
 
 
 def app_phase(dev):
@@ -5777,10 +5926,14 @@ def app_phase(dev):
     losses, ``id_overflow`` all zero, ``make_forward``'s logits
     ``torch.equal`` to ``train_step``'s on one state and batch, a step in
     the warmup ramp ``torch.equal`` to the plain B1/B2 at the scheduled
-    float32 lr (``train_path_check``), and the card's metrics against a
-    CPU module's.  Records ms a step, samples/s, eval ms a batch, peak
-    memory, and the planner's per-rank estimates against them.  Returns
-    (the main path's launches, the ramp check's record)."""
+    float32 lr (``train_path_check``), and the card's metric set (every
+    ``DEFAULT_COMPUTATIONS`` entry, AUC and four windowed factories)
+    against a CPU module's and a CPU-offloaded one's
+    (:func:`_app_metrics_check`).  Records ms a step, samples/s, eval ms
+    a batch, peak memory, the planner's per-rank estimates against them,
+    and ``benchmark_func``'s p50 / p90 of the train step
+    (:func:`app_bench`).  Returns (the main path's launches, the ramp
+    check's record)."""
     import contextlib
     import io
     import itertools
@@ -5861,6 +6014,8 @@ def app_phase(dev):
     if rec["profiled_launches"] != {"pooled_lookup": 2,
                                     "fused_sparse_update": 1}:
         raise AssertionError(f"app: profiled {rec['profiled_launches']}")
+    rec["bench"] = {k: v for k, v in app_bench(dmp, state, batch, card, dev)
+                    .items() if k not in ("phase", "card")}
     del run, dmp, state, m, logits
     torch.cuda.empty_cache()
 
@@ -6222,7 +6377,8 @@ def _rank_device(device_type):
 
 
 # a development run's choices
-GLOO_STAGES = ("dedup_rw", "vbe", "hier", "reshard", "zch_synced")
+GLOO_STAGES = ("dedup_rw", "vbe", "hier", "reshard", "zch_synced",
+               "comms_bench")
 
 
 def sharded_rank(kinds, device_type="cuda", only=None, ckpt_dir=None):
@@ -6413,6 +6569,8 @@ def sharded_rank(kinds, device_type="cuda", only=None, ckpt_dir=None):
         rec, counts = zch_synced_stage(dev, env)
         records.append(rec)
         add(counts)
+    if only is None or "comms_bench" in only:
+        records.append(comms_bench_stage(dev, env))
     if only is not None:
         return records, launches
     recs, counts, kchecks = sharded_stages(dev, env, caps, host, mine, refs)
@@ -6425,6 +6583,222 @@ def sharded_rank(kinds, device_type="cuda", only=None, ckpt_dir=None):
     add(counts)
     records.append(ring_stage(dev, env))
     return records, launches
+
+
+COMMS_BENCH_ROWS = 256  # a rank's [N, rows, DIM] float32 payload
+COMMS_BENCH_WARMUP, COMMS_BENCH_ITERS = 2, 5
+COMMS_BENCH_BUDGET_S = 8
+
+
+def _handed_bytes():
+    """A context manager counting the bytes handed to
+    ``torch.distributed``'s all-to-all and all-gather inside it (each
+    input's ``nbytes``): what the codec really put on the wire, beside
+    the ledger's model of it."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    @contextlib.contextmanager
+    def counting():
+        got = {"bytes": 0}
+        saved = {n: getattr(dist, n)
+                 for n in ("all_to_all_single", "all_gather_into_tensor")}
+
+        def wrap(fn):
+            def call(out, inp, *args, **kwargs):
+                got["bytes"] += inp.nbytes
+                return fn(out, inp, *args, **kwargs)
+            return call
+
+        for n, fn in saved.items():
+            setattr(dist, n, wrap(fn))
+        try:
+            yield got
+        finally:
+            for n, fn in saved.items():
+                setattr(dist, n, fn)
+
+    return counting()
+
+
+def comms_bench_stage(dev, env):
+    """``utils.benchmark_comms`` on the gloo ranks (budget
+    ``COMMS_BENCH_BUDGET_S``): ``benchmark_collectives`` (all-to-all,
+    reduce-scatter, all-gather at fp32) and ``benchmark_qcomm_sweep``
+    (the all-to-all at fp32, bf16, int8), each rank's ``[N,
+    COMMS_BENCH_ROWS, DIM]`` payload; one call of each collective at each
+    of those precisions records in the ledger the bytes it hands to
+    ``torch.distributed`` (:func:`_handed_bytes`: the int8 codes and
+    their float16 scales, the bf16 cast, the float32 payload);
+    ``write_comms_calibration`` returns None (ranks sharing one card never
+    calibrate a link).  The bandwidths are 4 gloo ranks on one card: the
+    host's staging, not a link."""
+    import torch
+
+    from torchrec_tpu_torch.parallel.comm import all_gather
+    from torchrec_tpu_torch.parallel.qcomm import (
+        CommType,
+        QCommsConfig,
+        qcomm_all_gather,
+        qcomm_all_to_all,
+        qcomm_psum_scatter,
+        wire_accounting,
+    )
+    from torchrec_tpu_torch.utils.benchmark_comms import (
+        benchmark_collectives,
+        benchmark_qcomm_sweep,
+        write_comms_calibration,
+    )
+
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    kw = dict(rows_per_rank=COMMS_BENCH_ROWS, dim=DIM,
+              warmup=COMMS_BENCH_WARMUP, iters=COMMS_BENCH_ITERS)
+    results = {"fp32": benchmark_collectives(env, **kw)}
+    results.update({f"sweep_{k}": v for k, v in
+                    benchmark_qcomm_sweep(env, **kw).items()})
+    cards = all_gather(torch.tensor([dev.index or 0], device=dev), env)
+    n_cards = len(set(cards.reshape(-1).tolist()))
+    rows = {}
+    for arm, res in results.items():
+        for r in res:
+            rows[f"{arm} {r.result.name}"] = {
+                "p50_ms": r.result.p50_ms, "p90_ms": r.result.p90_ms,
+                "payload_bytes_per_rank": r.payload_bytes_per_rank,
+                "ledger_bytes": r.ledger_bytes,
+                "effective_gbps": r.effective_gbps}
+    # the ledger against the bytes the codec handed to the collective
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        env.world_size, COMMS_BENCH_ROWS, DIM).astype(np.float32)).to(dev)
+    fns = {"all_to_all": qcomm_all_to_all,
+           "reduce_scatter": qcomm_psum_scatter,
+           "all_gather": qcomm_all_gather}
+    wire, bad = {}, []
+    for prec, names in (("fp32", fns), ("bf16", ["all_to_all"]),
+                        ("int8", ["all_to_all"])):
+        qc = (None if prec == "fp32"
+              else QCommsConfig(forward_precision=CommType(prec)))
+        for name in names:
+            with wire_accounting() as ledger, _handed_bytes() as handed:
+                fns[name](x, env, qc, "fwd", tag="bench")
+            wire[f"{name} {prec}"] = {"ledger_bytes": ledger["bench"],
+                                      "handed_bytes": handed["bytes"]}
+            if ledger["bench"] != handed["bytes"]:
+                bad.append(f"{name} {prec}")
+    a2a = results["fp32"][0]
+    written = write_comms_calibration(
+        a2a.effective_gbps, "all_to_all", n_cards,
+        torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        dev.type, process_index=env.rank)
+    rec = {"phase": "comms_bench", "rank": env.rank, "ranks": env.world_size,
+           "card": card, "note": ONE_CARD, "distinct_cards": n_cards,
+           "rows_per_rank": COMMS_BENCH_ROWS, "dim": DIM,
+           "collectives": rows, "ledger_vs_handed_bytes": wire,
+           "calibration_written": written,
+           "seconds": time.perf_counter() - t0,
+           "budget_s": COMMS_BENCH_BUDGET_S}
+    if bad or written is not None:
+        raise AssertionError(f"comms_bench rank {env.rank}: ledger != bytes "
+                             f"handed {bad} {wire}, calibration {written}")
+    return rec
+
+
+HIER_BENCH_SLICES = 2  # of hier_bench_worker.RANKS_PER_SLICE gloo ranks
+HIER_BENCH_BUDGET_S = 25
+
+
+def hier_bench_rank(device_type="cuda"):
+    """One rank of :func:`hier_bench_phase` (run by
+    ``multiprocess.launch``): ``hier_bench_worker.run`` at its smoke size
+    on a two-level world of ``HIER_BENCH_SLICES`` slices, its launches
+    counted from 0 around it; then, after the count, B1's sorted entry
+    and B2 at the worker's shapes (its two-level fp32 arm's collection,
+    state and first batch) against their plain versions
+    (:func:`_hier_kernel_check`; collectives: every rank calls it).
+    Returns (the worker's result, this rank's launches, B2's largest
+    difference)."""
+    import types
+
+    import torch
+
+    from torchrec_tpu_torch.ops import tbe
+    from torchrec_tpu_torch.parallel import hier_bench_worker, multiprocess
+    from torchrec_tpu_torch.parallel.comm import ShardingEnv
+
+    dev = _rank_device(device_type)
+    multiprocess.initialize("gloo")
+    env = ShardingEnv.from_process_group("gloo", device=dev,
+                                         num_slices=HIER_BENCH_SLICES)
+    arm = {}
+    torch.cuda.synchronize()
+    tbe.reset_launch_counts()
+    res = hier_bench_worker.run(env, True, keep=arm)
+    counts = {k: v for k, v in tbe.launch_counts().items() if v}
+    ebc, kjt = arm["ebc"], arm["batch"]
+    outs, ctxs = ebc.forward_local(arm["params"], kjt, env=env)
+    grads = {f: 2.0 * o for f, o in outs.items()}  # the worker's upstream
+    # the worker drives the collection itself: the DMP fields the check
+    # reads, from the arm
+    dmp = types.SimpleNamespace(sharded_ebc=ebc, env=env, lookup_kernel="tbe",
+                                update_kernel="tbe", fused_config=arm["cfg"])
+    err = _hier_kernel_check(
+        dmp, {"tables": arm["params"], "fused": arm["fused"]}, ctxs, grads)
+    return res, counts, err
+
+
+def hier_bench_phase(device_type="cuda"):
+    """``parallel/hier_bench_worker.py`` at its smoke size as 2 slices x 2
+    gloo ranks on the card (budget ``HIER_BENCH_BUDGET_S``), launched
+    through ``multiprocess.launch``: the flat and two-level step-1
+    outputs bitwise with an fp32 DCN leg, the later steps close, the int8
+    DCN leg within its tolerance, no overflow, fewer DCN bytes; every
+    rank's run launching B1 and B2 the expected number of times and no
+    other kernel, and both ``torch.equal`` to their plain versions at the
+    worker's shapes.  The sizes are the worker's smoke size (R 4,096, D
+    32, 2 features, B 4 a rank): its byte counts are a contract check,
+    not a measurement of a deployment.  Returns (the ranks' launches
+    summed, B1's and B2's differences from plain)."""
+    from torchrec_tpu_torch.parallel import hier_bench_worker
+    from torchrec_tpu_torch.parallel.multiprocess import launch
+
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    results = launch(hier_bench_rank,
+                     HIER_BENCH_SLICES * hier_bench_worker.RANKS_PER_SLICE,
+                     args=(device_type,), timeout=HIER_BENCH_BUDGET_S * 4)
+    res = results[0][0]
+    # a rank's steps: the flat arm's and its int8 arm's one, the two
+    # two-level arms'; one B2 a step, B1 twice a flat step (the source
+    # pooling, the backward's sum by send slot) and three times a
+    # two-level step (its slice-level sum too)
+    flat, two_level = res["steps"] + 1, 2 * res["steps"]
+    want = {"pooled_lookup": 2 * flat + 3 * two_level,
+            "fused_sparse_update": flat + two_level}
+    launches = {}
+    for _, counts, _ in results:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    counts_ok = all(c == want for _, c, _ in results)
+    check = {"b1_max_abs_err": 0.0,
+             "b2_max_abs_err": max(e for _, _, e in results)}
+    rec = {"phase": "hier_bench", "card": card, "note": ONE_CARD,
+           **{k: v for k, v in res.items()
+              if k not in ("hier_ledger", "flat_ledger")},
+           "ranks_agree": all(r == res for r, _, _ in results),
+           "contracts_hold": hier_bench_worker.contracts_hold(res),
+           "launches_a_rank_expected": want,
+           "launches_by_rank": [c for _, c, _ in results],
+           "launches_ok": counts_ok,
+           # _hier_kernel_check raises unless both are torch.equal
+           "b1_b2_equal_plain": True, **check,
+           "seconds": time.perf_counter() - t0,
+           "budget_s": HIER_BENCH_BUDGET_S}
+    emit(rec)
+    if not (rec["contracts_hold"] and rec["ranks_agree"] and counts_ok
+            and res["dcn_bytes_hier_int8"] < res["dcn_bytes_flat_fp32"]):
+        raise AssertionError(f"hier_bench: {rec}")
+    return launches, check
 
 
 def zch_synced_stage(dev, env):
@@ -10044,14 +10418,15 @@ def _host_inits(inits, names):
 
 
 def _tiered_run(dev, dmp, state, tables, names_to_keys, inits, dense0,
-                batches, prefetch, card, refill):
+                batches, prefetch, card, refill, telemetry=None):
     """One tiered run over ``tables`` (``tiered_tables_from_plan``'s, their
     host tiers at the seeded init; ``refill``: an earlier run's, filled
     again in place first, which spares the host the page faults of a new
     25.6 GB): ``TieredTrainPipeline`` over the batches (1 warm-up and
     ``TIERED_STEPS`` timed steps).  Returns (the pipeline, its
     collection, the meter, losses, timed seconds, launch counts, host
-    tier refill seconds)."""
+    tier refill seconds).  ``telemetry``: :func:`obs_start`'s, fed every
+    step (warm-up included)."""
     import torch
 
     from torchrec_tpu_torch.ops import tbe
@@ -10077,10 +10452,176 @@ def _tiered_run(dev, dmp, state, tables, names_to_keys, inits, dense0,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     tbe.reset_launch_counts()
-    warm, _ = _pipeline_steps(pipe, it, 1)
-    losses, dt = _pipeline_steps(pipe, it, TIERED_STEPS)
+    warm, _ = _pipeline_steps(pipe, it, 1, telemetry)
+    losses, dt = _pipeline_steps(pipe, it, TIERED_STEPS, telemetry)
     counts = tbe.launch_counts()
     return pipe, coll, meter, warm + losses, dt, counts, init_s
+
+
+# the traced prefetch arm: its artifacts' directory (git-ignored; the
+# JAX package's obs bench reads the same variable), the overhead
+# model's probes, and its budget (artifacts, report, the CLI child, the
+# probes; the traced steps are the arm's own).  The budgets of the
+# telemetry, metric and benchmark additions (OBS_, APP_METRICS_,
+# APP_BENCH_, COMMS_BENCH_, HIER_BENCH_BUDGET_S) sum to 60 s; each record
+# carries its seconds beside its budget
+OBS_DIR = os.environ.get("TORCHREC_OBS_DIR",
+                         os.path.join(ROOT, "obs_artifacts", "tiered"))
+OBS_SPAN_PROBES = 2000
+OBS_SUBMIT_PROBES = 500
+OBS_BUDGET_S = 10
+OBS_OVERLAP_TOL = 1e-9  # the report's overlap against TieredStats'
+
+
+def obs_start(n_steps):
+    """Install a ``SpanTracer`` and a ``FlightRecorder``, and start a
+    ``DeviceMetricsPump`` (``histograms=("loss",)``, room for every
+    step); returns the run's telemetry dict (the pump's, the steps'
+    stamps and last metrics)."""
+    from torchrec_tpu_torch import obs
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    os.makedirs(OBS_DIR)
+    tele = {"tracer": obs.SpanTracer(),
+            "recorder": obs.FlightRecorder(os.path.join(OBS_DIR,
+                                                        "flight.json")),
+            "registry": obs.MetricsRegistry(), "stamps": [], "last": None}
+    tele["pump"] = obs.DeviceMetricsPump(
+        tele["registry"], histograms=("loss",), capacity=max(32, n_steps))
+    obs.install_recorder(tele["recorder"])
+    obs.install_tracer(tele["tracer"])
+    return tele
+
+
+def _obs_costs(payload):
+    """(seconds a span costs with a tracer and the flight recorder
+    installed, seconds a ``submit`` of ``payload`` costs), on this
+    host."""
+    from torchrec_tpu_torch import obs
+
+    probe = obs.SpanTracer(max_spans=2 * OBS_SPAN_PROBES)
+    prev = obs.install_tracer(probe)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(OBS_SPAN_PROBES):
+            with obs.span("obs/probe"):
+                pass
+        span_s = (time.perf_counter() - t0) / OBS_SPAN_PROBES
+    finally:
+        obs.install_tracer(prev) if prev else obs.uninstall_tracer()
+    pump = obs.DeviceMetricsPump(obs.MetricsRegistry(),
+                                 capacity=OBS_SUBMIT_PROBES + 1)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(OBS_SUBMIT_PROBES):
+            pump.submit(payload)
+        submit_s = (time.perf_counter() - t0) / OBS_SUBMIT_PROBES
+    finally:
+        pump.close()
+    return span_s, submit_s
+
+
+def obs_finish(tele, pipe, coll, losses, n_steps, card):
+    """The traced arm's telemetry after its steps (the tracer already
+    uninstalled, the prefetch settled): the pipeline's scalars absorbed
+    into the registry, ``metrics.jsonl``, ``events.jsonl`` and
+    ``trace.json`` under ``OBS_DIR``, ``obs report`` in process and once
+    as ``python -m torchrec_tpu_torch.obs report --dir`` (exit 0), and
+    the overhead model (spans a step x a span's cost + a submit's cost,
+    over the arm's p50 step; ``OBS_BUDGET_S`` recorded).  Fails unless the report's prefetch overlap
+    is ``TieredStats``' within ``OBS_OVERLAP_TOL``, ``step_dispatch`` has
+    one span a step, the pump's ``step/loss`` is the last loss, the pump
+    dropped and failed nothing, the Chrome trace validates with events,
+    and the overhead is under 1%."""
+    from torchrec_tpu_torch import obs
+    from torchrec_tpu_torch.obs import report as obs_report
+
+    t0 = time.perf_counter()
+    tracer, registry, pump = tele["tracer"], tele["registry"], tele["pump"]
+    try:
+        span_s, submit_s = _obs_costs(tele["last"])
+    finally:
+        obs.uninstall_recorder()
+    pump.flush()
+    pump.close()
+    registry.absorb(pipe.scalar_metrics())
+    paths = {k: os.path.join(OBS_DIR, f) for k, f in (
+        ("events", "events.jsonl"), ("metrics", "metrics.jsonl"),
+        ("trace", "trace.json"))}
+    registry.dump_jsonl(paths["metrics"], step=n_steps)
+    tracer.flush_jsonl(paths["events"])
+    tracer.export_chrome_trace(paths["trace"])
+    with open(os.devnull, "w") as devnull:
+        rep = obs_report.report(paths["events"], paths["metrics"],
+                                paths["trace"], out=devnull)
+    cli = subprocess.run(
+        [sys.executable, "-m", "torchrec_tpu_torch.obs", "report", "--dir",
+         OBS_DIR], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    stats_overlap = coll.stats.prefetch_overlap_ratio()
+    span_overlap = rep["overlap"]["prefetch_overlap_ratio"]
+    stages = rep["stages"]
+    n_spans = sum(s["count"] for s in stages.values())
+    gaps = np.diff(np.asarray(tele["stamps"][1:]))  # the timed steps
+    p50_s = float(np.percentile(gaps, 50))
+    spans_per_step = n_spans / n_steps
+    overhead_pct = 100.0 * (spans_per_step * span_s + submit_s) / p50_s
+    names = set(registry.names())
+    rec = {"phase": "tiered_obs", "card": card, "steps": n_steps,
+           "artifacts": os.path.relpath(OBS_DIR, ROOT),
+           "span_counts": {k: v["count"] for k, v in stages.items()},
+           "spans_per_step": spans_per_step,
+           "span_cost_us": span_s * 1e6, "submit_cost_us": submit_s * 1e6,
+           "p50_step_ms": p50_s * 1e3,
+           "overhead_pct": overhead_pct,
+           "prefetch_overlap_report": span_overlap,
+           "prefetch_overlap_stats": stats_overlap,
+           "data_load_overlap_ratio":
+               rep["overlap"]["data_load_overlap_ratio"],
+           "step_dispatch_p50_ms":
+               stages["pipeline/step_dispatch"]["p50_ms"],
+           "step_dispatch_p99_ms":
+               stages["pipeline/step_dispatch"]["p99_ms"],
+           "trace_events": rep["trace_events"],
+           "dropped_spans": tracer.dropped,
+           "flight_recorder_spans": len(tele["recorder"].snapshot()["spans"]),
+           "pump_dropped": pump.dropped,
+           "pump_dropped_count": (registry.value("obs/pump/dropped_count")
+                                  if "obs/pump/dropped_count" in names
+                                  else 0.0),
+           "pump_fetch_error_count": (
+               registry.value("obs/pump/fetch_error_count")
+               if "obs/pump/fetch_error_count" in names else 0.0),
+           "step_loss_gauge": registry.value("step/loss"),
+           "last_loss": losses[-1],
+           "loss_hist_count": registry.histogram("step/loss/hist").count,
+           "cli_returncode": cli.returncode,
+           "cli_stdout_head": cli.stdout.splitlines()[:3]}
+    rec["seconds"] = time.perf_counter() - t0
+    rec["budget_s"] = OBS_BUDGET_S
+    emit(rec)
+    bad = []
+    if span_overlap is None or abs(span_overlap - stats_overlap) > (
+            OBS_OVERLAP_TOL):
+        bad.append("report overlap != TieredStats'")
+    if rec["span_counts"].get("pipeline/step_dispatch") != n_steps:
+        bad.append("not one step_dispatch span a step")
+    if rec["step_loss_gauge"] != rec["last_loss"]:
+        bad.append("step/loss != the last loss")
+    if rec["loss_hist_count"] != n_steps:
+        bad.append("a step's loss missing from the histogram")
+    if (rec["pump_dropped"] or rec["pump_dropped_count"]
+            or rec["pump_fetch_error_count"] or rec["dropped_spans"]):
+        bad.append("telemetry dropped or failed")
+    if not rec["trace_events"] > 0 or not rec["flight_recorder_spans"]:
+        bad.append("no trace events / no span in the flight recorder")
+    if cli.returncode != 0:
+        bad.append(f"obs report CLI exit {cli.returncode}: {cli.stderr}")
+    if not overhead_pct < 1.0:
+        bad.append(f"telemetry overhead {overhead_pct:.3f}% >= 1%")
+    if bad:
+        raise AssertionError(f"tiered telemetry: {bad}")
+    return rec
 
 
 def _tiered_bucketing():
@@ -10359,6 +10900,7 @@ def tiered_phase(dev, flush):
     offload arm's B1/B2 launches, the kernel rows)."""
     import torch
 
+    from torchrec_tpu_torch import obs
     from torchrec_tpu_torch.ops import tbe
     from torchrec_tpu_torch.ops.fused_update import SparseSegGrad
     from torchrec_tpu_torch.parallel.train_pipeline import (
@@ -10436,9 +10978,20 @@ def tiered_phase(dev, flush):
     runs = {}
     for prefetch in (True, False):
         t_arm = time.perf_counter()
-        pipe, coll, meter, losses, dt, counts, init_s = _tiered_run(
-            dev, cache, cstate, tables, names_to_keys, inits, dense0,
-            batches, prefetch, card, refill=not prefetch)
+        # the prefetch arm runs traced: a span tracer and a flight recorder
+        # installed before its first step, each step's metrics to a pump
+        telemetry = obs_start(n_batches) if prefetch else None
+        try:
+            pipe, coll, meter, losses, dt, counts, init_s = _tiered_run(
+                dev, cache, cstate, tables, names_to_keys, inits, dense0,
+                batches, prefetch, card, refill=not prefetch,
+                telemetry=telemetry)
+            if telemetry is not None:
+                # the lookahead's stages finish traced
+                pipe.settle()
+        finally:
+            if telemetry is not None:
+                obs.uninstall_tracer()
         peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
                 else None)
         m = pipe.scalar_metrics()
@@ -10479,6 +11032,9 @@ def tiered_phase(dev, flush):
                "peak_memory_allocated": peak,
                "launches": {k: v for k, v in counts.items() if v}}
         if prefetch:
+            obs_rec = obs_finish(telemetry, pipe, coll, losses, n_batches,
+                                 card)
+            rec["telemetry_overhead_pct"] = obs_rec["overhead_pct"]
             # the profile after the check: a few steps more
             pipe.invalidate_prefetch()
             prof_it = iter(batches[n_batches:])
@@ -12070,6 +12626,7 @@ def main() -> None:
     native_launches = timed(native_serving_phase, dev, tier_tcp, prebuild)
     stop_native_prebuild(prebuild)
     sharded_launches, sharded_checks = timed(sharded_phase)
+    hier_bench_launches, hier_bench_check = timed(hier_bench_phase)
     elastic_launches = timed(elastic_phase, dev)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     tiered_launches, tiered_rows = timed(tiered_phase, dev, flush)
@@ -12092,6 +12649,7 @@ def main() -> None:
                 + ft_launches.get(k, 0) + elastic_launches.get(k, 0)
                 + tiered_launches.get(k, 0) + migrate_launches.get(k, 0)
                 + dynamic_launches.get(k, 0)
+                + hier_bench_launches.get(k, 0)
                 for k in tbe.LAUNCHES}
     errs = [(r["kernel"], r["max_abs_err"])
             for r in kernel_rows + train_rows + ebc_rows + dedup_rows
@@ -12101,7 +12659,7 @@ def main() -> None:
     errs += [(r["kernel"], r["max_abs_err"]) for r in tiered_rows]
     errs += [(k, c[f"{b}_max_abs_err"])
              for c in checks + [dcn_check, app_check, lowp_rows[0],
-                                ft_check, dynamic_check]
+                                ft_check, dynamic_check, hier_bench_check]
              + models_checks
              for k, b in (("pooled_lookup", "b1"),
                           ("fused_sparse_update", "b2"))]
@@ -12229,7 +12787,7 @@ def main() -> None:
 
 DEV_PHASES = ("guarded", "lowp_state", "ft_loop", "native_serving",
               "elastic", "sharded", "tiered", "migrate",
-              "dynamic") + GLOO_STAGES
+              "dynamic", "app", "hier_bench") + GLOO_STAGES
 
 
 BUILD_STUDY_ORDER = ("parts", "split_compile", "one_unit", "split_compile",
@@ -12373,6 +12931,10 @@ def dev_run(phases) -> None:
     if "tiered" in phases:
         tiered_phase(dev, flush)
     del flush
+    if "app" in phases:
+        app_phase(dev)
+    if "hier_bench" in phases:
+        hier_bench_phase()
     if "native_serving" in phases:
         # no serving tier before it: its TCP figures are absent
         prebuild = start_native_prebuild()

@@ -218,6 +218,13 @@ def test_bucketed_pipeline_matches_jax(optim):
         jm, m = jpipe.progress(jit_), pipe.progress(it)
         assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-6
     assert pipe.stats.dispatch_counts == jpipe.stats.dispatch_counts
+    # the padding counters, per-key sums and wire ledgers (the port's from
+    # each signature's first dispatch, the JAX package's from its trace)
+    got_sm = pipe.stats.scalar_metrics()
+    assert got_sm.pop("bucketing/dispatch_count") == 3.0
+    assert got_sm == jpipe.stats.scalar_metrics()
+    assert pipe.stats.wire_ledgers == jpipe.stats.wire_ledgers
+    assert pipe.stats.wire_bytes_per_step()["tw_d16:out_dist"] > 0
     assert pipe.stats.padded_bytes_ratio() == pytest.approx(
         jpipe.stats.padded_bytes_ratio(), abs=0)
     assert pipe.stats.padded_bytes_ratio() < 0.6  # bucketing shrank V

@@ -63,7 +63,11 @@ def test_every_module_imports_without_jax():
               "reliability.migration", "reliability.migration_demo",
               "dynamic.kv_store", "dynamic.vocab", "modules.mc_modules",
               "inference.freshness", "parallel.production",
-              "examples.zch.main"):
+              "examples.zch.main", "obs.spans", "obs.device_poll",
+              "obs.report", "obs.__main__", "metrics.computations",
+              "metrics.cpu_offloaded", "utils.benchmark",
+              "utils.benchmark_pipeline", "utils.benchmark_comms",
+              "utils.bench_results", "parallel.hier_bench_worker"):
         assert f"torchrec_tpu_torch.{m}" in modules, m
     code = (
         "import importlib, sys\n"

@@ -3,6 +3,8 @@ from torchrec_tpu_torch.metrics.metric_module import (
     RecMetricModule,
     RecTaskInfo,
     ThroughputMetric,
+    TowerQPSMetric,
+    generate_metric_module,
 )
 from torchrec_tpu_torch.metrics.metrics_namespace import (
     MetricNamespace,
@@ -19,6 +21,8 @@ __all__ = [
     "RecMetricModule",
     "RecTaskInfo",
     "ThroughputMetric",
+    "TowerQPSMetric",
+    "generate_metric_module",
     "MetricNamespace",
     "MetricPrefix",
     "compose_metric_key",

@@ -6,15 +6,16 @@ The states live on the device of the predictions the module is built for
 reads them.  An update takes the batch the caller has: one rank's in a
 multi-rank run (the JAX package's jitted update takes the global batch;
 a caller that wants global metrics gathers first).  Throughput is a
-host-side wall clock.  Left out: ``TowerQPSMetric`` and the CPU-offloaded
-module (ROADMAP A12).
+host-side wall clock, as is :class:`TowerQPSMetric`'s (a tower's QPS after
+its warm-up steps).  ``metrics/cpu_offloaded.py`` runs the updates on the
+CPU on a worker thread.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -165,4 +166,65 @@ class RecMetricModule:
             for k, v in r.compute(self.states[m]).items():
                 out[k] = float(v)
         out.update(self.throughput.compute())
+        return out
+
+
+def generate_metric_module(config: MetricsConfig, batch_size: int,
+                           device: DeviceLike = None) -> RecMetricModule:
+    """Reference metric_module.py:719."""
+    return RecMetricModule(config, batch_size, device=device)
+
+
+class TowerQPSMetric:
+    """Per-tower wall-clock QPS with a warm-up (reference tower_qps.py:46):
+    the first ``warmup_steps`` batches are left out of the rate, so the
+    first calls' build and warm-up time never lowers the steady QPS."""
+
+    def __init__(self, batch_size: int, warmup_steps: int = 10,
+                 window: int = 100):
+        self.batch_size = batch_size
+        self.warmup_steps = warmup_steps
+        self.window = window
+        self.steps = 0
+        self.total_examples = 0
+        self.warmup_examples = 0
+        self._t_start: Optional[float] = None
+        self._stamps: List[Tuple[float, int]] = []
+
+    def update(self, num_examples: Optional[int] = None) -> None:
+        n = self.batch_size if num_examples is None else num_examples
+        self.steps += 1
+        self.total_examples += n
+        now = time.perf_counter()
+        if self.steps <= self.warmup_steps:
+            self.warmup_examples += n
+            if self.steps == self.warmup_steps:
+                self._t_start = now
+            return
+        if self._t_start is None:
+            # warmup_steps == 0: the first batch starts the clock, and its
+            # examples count as warm-up (no interval holds their work)
+            self.warmup_examples += n
+            self._t_start = now
+        self._stamps.append((now, n))
+        if len(self._stamps) > self.window:
+            self._stamps = self._stamps[-self.window:]
+
+    def compute(self) -> Dict[str, float]:
+        ns = MetricNamespace.TOWER_QPS.value
+
+        def key(name, prefix):
+            return compose_metric_key(ns, ns, name, prefix)
+
+        out = {key("examples", MetricPrefix.TOTAL.value):
+               float(self.total_examples)}
+        post = self.total_examples - self.warmup_examples
+        if self._t_start is not None and self._stamps and post > 0:
+            elapsed = max(self._stamps[-1][0] - self._t_start, 1e-9)
+            out[key("qps", MetricPrefix.LIFETIME.value)] = post / elapsed
+        if len(self._stamps) >= 2:
+            dt = max(self._stamps[-1][0] - self._stamps[0][0], 1e-9)
+            # the examples landed after the window's first stamp
+            n_window = sum(n for _, n in self._stamps[1:])
+            out[key("qps", MetricPrefix.WINDOW.value)] = n_window / dt
         return out

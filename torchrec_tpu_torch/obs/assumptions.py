@@ -12,8 +12,8 @@ run-level expected per-link-class wire bytes per step — and
 ``EmbeddingShardingPlanner.plan`` stamps it onto every emitted plan
 (``StampedEmbeddingModuleShardingPlan.assumptions``, parallel/types.py).
 
-The JAX package's health monitor compares live signals against these
-numbers (its port waits for ROADMAP A12); the artifact and its
+The health monitor (``obs/health.py``, in both packages) compares live
+signals against these numbers; the artifact and its
 :meth:`PlanAssumptions.fingerprint` are the same in both packages, so
 either package's plan can be scored against the other's beliefs.
 

@@ -89,6 +89,15 @@ def wire_accounting() -> Iterator[Dict[str, float]]:
         _WIRE_LEDGER = prev
 
 
+def add_to_ledger(entries: Dict[str, float]) -> None:
+    """Add a ledger's entries (a nested context's, tags and link classes
+    alike) to the active ledger; no-op outside :func:`wire_accounting`."""
+    if _WIRE_LEDGER is None:
+        return
+    for tag, nbytes in entries.items():
+        _WIRE_LEDGER[tag] = _WIRE_LEDGER.get(tag, 0.0) + float(nbytes)
+
+
 def record_wire_bytes(tag: str, nbytes: float,
                       dcn_fraction: float = 0.0) -> None:
     """Add ``nbytes`` to the active ledger (no-op outside

@@ -65,6 +65,7 @@ guard (ROADMAP A8).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -78,7 +79,11 @@ import torch
 
 from torchrec_tpu_torch.datasets.utils import Batch
 from torchrec_tpu_torch.obs.spans import span
-from torchrec_tpu_torch.parallel.comm import all_gather
+from torchrec_tpu_torch.parallel.comm import (
+    add_to_ledger,
+    all_gather,
+    wire_accounting,
+)
 from torchrec_tpu_torch.parallel.model_parallel import stack_batches
 from torchrec_tpu_torch.parallel.sharding.hier import hier_cap_for
 from torchrec_tpu_torch.parallel.sharding.rw import dedup_cap_for
@@ -228,7 +233,10 @@ class TrainPipelineBase:
                 self._loader.stop()
             self._loader = DataLoadingThread(it, prefetch=self.depth + 1)
             self._loader_it = it
-        ok, item = self._loader._get()
+        # the batch pull's cost to this thread: the time it blocked on the
+        # loader (the data-load overlap of ``obs report``)
+        with span("pipeline/host_load", n=1):
+            ok, item = self._loader._get()
         return [item] if ok else None
 
     def attach_kernel_stats(
@@ -280,9 +288,11 @@ class TrainPipelineBase:
                 {t: np.concatenate(c).reshape(-1) for t, c in pending.items()})
 
     def _stack_and_put(self, locals_: List[Batch]) -> Batch:
-        out = stack_batches(locals_).to(self.device)
-        with span("pipeline/kernel_stats"):
-            self._record_host_ledgers(locals_)
+        with span("pipeline/h2d"):
+            out = stack_batches(locals_).to(self.device)
+        if self._kernel_stats is not None or self._touched_rows is not None:
+            with span("pipeline/kernel_stats"):
+                self._record_host_ledgers(locals_)
         return out
 
     def _queue_item(self, it: Iterator[Batch]):
@@ -552,6 +562,8 @@ class BucketedStepCache:
         self._full_sig: Optional[Tuple[int, ...]] = None
         self._admitted: set = set()
         self._entries: Dict[Tuple[int, ...], Any] = {}
+        # (signature, program kind) pairs whose ledger is recorded
+        self._ledgered: set = set()
 
     def _bind_keys(self, keys: Sequence[str]) -> None:
         keys = tuple(keys)
@@ -618,8 +630,25 @@ class BucketedStepCache:
                     caps, lookup_kernel=self._kernels.get("pooled"),
                     update_kernel=self._kernels.get("update"))
             self._entries[sig] = dmp
-            self.stats.record_program()
+            self.stats.record_program(sig)
         return dmp
+
+    @contextlib.contextmanager
+    def accounting(self, sig: Sequence[int], kind: str):
+        """Around a dispatch of a signature's program (``kind``: "train",
+        "embed" or "dense"): the first of each runs under
+        ``wire_accounting`` and its ledger goes to
+        ``stats.record_compile`` (the bytes also reach an enclosing
+        ledger); later ones run as they are."""
+        key = (tuple(sig), kind)
+        if key in self._ledgered:
+            yield
+            return
+        with wire_accounting() as ledger:
+            yield
+        add_to_ledger(ledger)
+        self._ledgered.add(key)
+        self.stats.record_compile(sig, ledger)
 
     def train_program(self, sig: Sequence[int]):
         """The train step of a signature's clone."""
@@ -794,6 +823,7 @@ def _bucketize_locals(
     sig = _dedup_overflow_guard(cache, sig, named)
     n = len(locals_)
     cache.stats.record_batch(
+        keys,
         [sum(o[f] for o in occs) for f in range(len(keys))],
         [n * c for c in sig],
         [n * c for c in kjt0.caps],
@@ -878,7 +908,8 @@ class BucketedTrainPipeline(_BucketedPipelineMixin, TrainPipelineSparseDist):
             self.state = self._apply_aux(self.state, aux)
         self._cache.stats.record_dispatch(sig)
         step = self._cache.train_program(sig)
-        with span("pipeline/step_dispatch", signature=list(sig)):
+        with span("pipeline/step_dispatch", signature=list(sig)), \
+                self._cache.accounting(sig, "train"):
             self.state, metrics = step(self.state, batch)
         self._record_step(batch, metrics)
         self._fill(it)
@@ -925,12 +956,15 @@ class BucketedTrainPipelineSemiSync(_BucketedPipelineMixin,
 
     def _embed(self, item):
         batch, sig = item
-        return self._cache.embed_program(sig)(self.state["tables"], batch)
+        with self._cache.accounting(sig, "embed"):
+            return self._cache.embed_program(sig)(self.state["tables"],
+                                                  batch)
 
     def _dense(self, item, kt, ctxs):
         batch, sig = item
         self._cache.stats.record_dispatch(sig)
         dense = self._cache.dense_program(sig)
-        with span("pipeline/step_dispatch", signature=list(sig)):
+        with span("pipeline/step_dispatch", signature=list(sig)), \
+                self._cache.accounting(sig, "dense"):
             self.state, metrics = dense(self.state, batch, kt, ctxs)
         return batch, metrics

@@ -173,7 +173,8 @@ class TieredTrainPipeline(BucketedTrainPipeline):
                 self.state = self._apply_aux(self.state, aux)
             self._cache.stats.record_dispatch(sig)
             step = self._cache.train_program(sig)
-            with obs_span("pipeline/step_dispatch", signature=list(sig)):
+            with obs_span("pipeline/step_dispatch", signature=list(sig)), \
+                    self._cache.accounting(sig, "train"):
                 self.state, metrics = step(self.state, batch)
             self._record_step(batch, metrics)
             out.append(metrics)
@@ -193,6 +194,13 @@ class TieredTrainPipeline(BucketedTrainPipeline):
         out.update(self._cache.stats.scalar_metrics(f"{prefix}/bucketing"))
         out.update(TrainPipelineBase.scalar_metrics(self, prefix))
         return out
+
+    def settle(self) -> None:
+        """Block until the prefetch worker has finished every stage
+        submitted so far (the queued entries' reads; a no-op without
+        prefetch)."""
+        if self._prefetcher is not None:
+            self._prefetcher.settle()
 
     def close(self) -> None:
         """Stop the prefetch worker (idempotent)."""

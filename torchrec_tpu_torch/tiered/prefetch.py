@@ -67,11 +67,16 @@ class StagedFetch:
             if self._future is None:
                 self._values = {}
             else:
-                with obs_span("tiered/prefetch_wait"):
+                # the span carries the interval that goes to record_wait,
+                # so the span-derived overlap (``obs report``) is
+                # TieredStats.prefetch_overlap_ratio to the float
+                with obs_span("tiered/prefetch_wait") as sp:
                     t0 = time.perf_counter()
                     self._values = self._future.result()
+                    dt = time.perf_counter() - t0
                     if stats is not None:
-                        stats.record_wait(time.perf_counter() - t0)
+                        stats.record_wait(dt)
+                    sp.set_attr("seconds", dt)
         k = len(self._ios[table].fetch_logical)
         mask = self._sync_masks.get(table, np.ones((k,), bool))
         got = self._values.get(table)
@@ -151,11 +156,14 @@ class TieredPrefetcher:
         return slot
 
     def _stage(self, ios: Dict[str, TieredIO], plan: Dict[str, np.ndarray]):
-        with obs_span("tiered/prefetch_stage"):
+        # the span carries the record_stage interval (see resolve)
+        with obs_span("tiered/prefetch_stage") as sp:
             t0 = time.perf_counter()
             out = (self._stage_cuda(ios, plan) if self.device.type == "cuda"
                    else self._stage_host(ios, plan))
-            self.stats.record_stage(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.stats.record_stage(dt)
+            sp.set_attr("seconds", dt)
             return out
 
     def _stage_host(self, ios, plan):
@@ -212,6 +220,11 @@ class TieredPrefetcher:
                 if p is ios:
                     del self._pending[i]
                     return
+
+    def settle(self) -> None:
+        """Block until every stage submitted so far has finished (its
+        timing recorded and its span closed)."""
+        self._pool.submit(lambda: None).result()
 
     def close(self) -> None:
         self._pool.shutdown(wait=True)

@@ -20,26 +20,29 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+# obs/spans.py imports nothing of the package but the flight recorder
+from torchrec_tpu_torch.obs.spans import span as _obs_span
+
 logger = logging.getLogger("torchrec_tpu_torch")
 
 
 class annotate:
-    """A named phase on the profiler's timeline
-    (``torch.profiler.record_function``, which the JAX package's
-    ``jax.named_scope`` and host span stand for together): a context
-    manager, or a decorator with :meth:`__call__`."""
+    """A named phase: a span (``obs/spans.py``), which is a range on the
+    profiler's timeline (what the JAX package's ``jax.named_scope``
+    marks) and a record of the installed ``SpanTracer`` when there is
+    one; a context manager, or a decorator with :meth:`__call__`."""
 
     def __init__(self, name: str):
         self.name = name
 
     def __enter__(self) -> "annotate":
-        # a fresh range each entry: record_function is single-use
-        self._rf = torch.profiler.record_function(self.name)
-        self._rf.__enter__()
+        # a fresh span each entry: a profiler range is single-use
+        self._span = _obs_span(self.name)
+        self._span.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        self._rf.__exit__(exc_type, exc, tb)
+        self._span.__exit__(exc_type, exc, tb)
         return False
 
     def __call__(self, fn):
@@ -75,16 +78,22 @@ def counter_key(prefix: str, table: str, counter: str) -> str:
 
 class PaddingStats:
     """Host-side padding counters of the capacity-bucketing pipeline
-    (``parallel/train_pipeline.py``): batches, id slots shipped under the
-    bucketed and under the static capacities, dispatches per signature,
-    round-up fallbacks and programs.
+    (``parallel/train_pipeline.py``): per-key occupancy, id slots shipped
+    under the bucketed and under the static capacities, dispatches per
+    signature, the wire-byte ledger of each signature's programs, and
+    round-up fallbacks.  ``scalar_metrics`` carries the JAX package's keys
+    (the per-key means under ``<prefix>/<key>/*`` and the ledgers under
+    ``wire/<tag>/bytes_per_step``, which ``obs report`` and the health
+    monitor read) and the port's ``dispatch_count``.
 
-    The port compiles nothing: a "program" here is one signature's
-    ``DistributedModelParallel.with_feature_caps`` clone, built on first
-    use (the JAX package counts compiled executables);
+    The port compiles nothing: a "compile" is a signature's program kind
+    (the fused step, the semi-sync halves) dispatched for the first time,
+    and its ledger the ``comm.wire_accounting()`` of that dispatch, the
+    byte count the JAX package's trace-time ledger gives for the same
+    shapes; ``record_program`` notes a signature's DMP clone built (at
+    first use or by ``warmup``), which ``program_count`` counts.
     ``overflow_fallback_count`` counts the batches the dedup overflow
-    guard sent to the full-capacity step.  Left out: the compile count,
-    per-key sums and the wire-byte ledgers."""
+    guard sent to the full-capacity step."""
 
     def __init__(self):
         self.reset()
@@ -94,28 +103,55 @@ class PaddingStats:
         self.real_ids = 0
         self.bucketed_slots = 0
         self.static_slots = 0
+        self.compile_count = 0
         self.fallback_count = 0
         self.overflow_fallback_count = 0
-        self.program_count = 0
+        # key -> [occupancy, bucketed cap, static cap], summed over batches
+        self.per_key: Dict[str, list] = {}
+        # signature -> dispatches; signature -> its programs' wire ledger
         self.dispatch_counts: Dict[Tuple[int, ...], int] = {}
+        self.wire_ledgers: Dict[Tuple[int, ...], Dict[str, float]] = {}
+        # signatures whose program (the port's DMP clone) was built
+        self.programs: set = set()
 
     def record_batch(
         self,
+        keys: Sequence[str],
         occupancy: Sequence[int],
         bucketed_caps: Sequence[int],
         static_caps: Sequence[int],
     ) -> None:
         self.batches += 1
-        self.real_ids += sum(int(x) for x in occupancy)
-        self.bucketed_slots += sum(int(x) for x in bucketed_caps)
-        self.static_slots += sum(int(x) for x in static_caps)
+        for k, occ, bc, sc in zip(keys, occupancy, bucketed_caps,
+                                  static_caps):
+            self.real_ids += int(occ)
+            self.bucketed_slots += int(bc)
+            self.static_slots += int(sc)
+            acc = self.per_key.setdefault(k, [0, 0, 0])
+            acc[0] += int(occ)
+            acc[1] += int(bc)
+            acc[2] += int(sc)
 
     def record_dispatch(self, signature: Sequence[int]) -> None:
         sig = tuple(signature)
         self.dispatch_counts[sig] = self.dispatch_counts.get(sig, 0) + 1
 
-    def record_program(self) -> None:
-        self.program_count += 1
+    def record_compile(self, signature: Sequence[int],
+                       wire_ledger: Optional[Dict[str, float]] = None
+                       ) -> None:
+        """A signature's program kind ran for the first time; its wire
+        ledger merges into the signature's (a signature may have several
+        kinds: the fused step, the semi-sync halves)."""
+        self.compile_count += 1
+        if wire_ledger is not None:
+            acc = self.wire_ledgers.setdefault(tuple(signature), {})
+            for k, v in wire_ledger.items():
+                acc[k] = acc.get(k, 0.0) + float(v)
+
+    def record_program(self, signature: Sequence[int]) -> None:
+        """A signature's program was built (at first use or by the
+        pipeline's ``warmup``, before any dispatch)."""
+        self.programs.add(tuple(signature))
 
     def record_fallback(self) -> None:
         self.fallback_count += 1
@@ -125,17 +161,29 @@ class PaddingStats:
         dedup capacity, so it ran the full-capacity step."""
         self.overflow_fallback_count += 1
 
+    @property
+    def program_count(self) -> int:
+        """Signatures whose program was built."""
+        return len(self.programs)
+
     def padding_efficiency(self) -> float:
         """Real ids / bucketed id slots, in (0, 1]."""
         return self.real_ids / max(1, self.bucketed_slots)
+
+    def static_efficiency(self) -> float:
+        """Real ids / static id slots: what the unbucketed stack gets."""
+        return self.real_ids / max(1, self.static_slots)
 
     def padded_bytes_ratio(self) -> float:
         """Bucketed / static id slots shipped (below 1: padding saved)."""
         return self.bucketed_slots / max(1, self.static_slots)
 
     def scalar_metrics(self, prefix: str = "bucketing") -> Dict[str, float]:
-        return {
+        """The aggregate counters, the per-key mean occupancy and
+        capacities, and the per-step wire bytes by tag."""
+        out = {
             f"{prefix}/batches": float(self.batches),
+            f"{prefix}/compile_count": float(self.compile_count),
             f"{prefix}/dispatch_count": float(
                 sum(self.dispatch_counts.values())),
             f"{prefix}/program_count": float(self.program_count),
@@ -143,8 +191,36 @@ class PaddingStats:
             f"{prefix}/overflow_fallback_count": float(
                 self.overflow_fallback_count),
             f"{prefix}/padding_efficiency": self.padding_efficiency(),
+            f"{prefix}/static_efficiency": self.static_efficiency(),
             f"{prefix}/padded_bytes_ratio": self.padded_bytes_ratio(),
         }
+        n = max(1, self.batches)
+        for k, (occ, bc, sc) in self.per_key.items():
+            out[counter_key(prefix, k, "mean_occupancy")] = occ / n
+            out[counter_key(prefix, k, "mean_bucketed_cap")] = bc / n
+            out[counter_key(prefix, k, "mean_static_cap")] = sc / n
+        # the ledgers land under the reserved ``wire`` namespace, not
+        # ``prefix``: the keys ``obs report``'s wire sections read
+        for tag, nbytes in self.wire_bytes_per_step().items():
+            out[counter_key("wire", tag, "bytes_per_step")] = float(nbytes)
+        return out
+
+    def wire_bytes_per_step(self) -> Dict[str, float]:
+        """Mean wire bytes a step by tag: each signature's ledger weighted
+        by its dispatches, over the dispatches of signatures that have a
+        ledger; empty until one has."""
+        total: Dict[str, float] = {}
+        dispatches = 0
+        for sig, ledger in self.wire_ledgers.items():
+            n = self.dispatch_counts.get(sig, 0)
+            if not n:
+                continue
+            dispatches += n
+            for tag, nbytes in ledger.items():
+                total[tag] = total.get(tag, 0.0) + nbytes * n
+        if not dispatches:
+            return {}
+        return {tag: v / dispatches for tag, v in total.items()}
 
 
 class KernelStats:
